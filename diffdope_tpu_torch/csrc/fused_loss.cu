@@ -1,0 +1,458 @@
+// Fused shade + mask antialiasing + masked L1 loss sums (K5) and its
+// backward (K6) for Hopper (sm_90a).
+//
+// K5 replaces diffdope_tpu/render/fused_loss.py:_fwd_kernel (driven by _fwd
+// / fused_loss_sums / _rlc_fwd).  K6 replaces fused_loss.py:_bwd_kernel
+// (driven by backward_pass / _rlc_bwd), whose body calls jax.vjp; the
+// derivative here is written out by hand.  The plain torch versions that
+// these are held to are in diffdope_tpu_torch/render/fused_loss.py (K6's is
+// torch.autograd of K5's).
+//
+// One thread per pixel of a hypothesis' (hc, wc) frame window.  A pixel's
+// antialiased mask needs its four neighbour pairs (shade.py:264-292); the
+// TPU kernel's row slabs and 2-row halos exist only for VMEM, so here a
+// pixel reads its neighbours' rows directly from device memory.
+//
+// K5: shade (shade.py:168-197), mask AA over the pixel's horizontal and
+// vertical pairs (pairs active only when both pixels are valid), masked L1
+// terms (fused_loss.py:78-121); a fixed-order shared-memory tree per block,
+// then one thread per hypothesis adds the block partials in order (double)
+// — deterministic, no atomics.
+//
+// K6: pass A writes g = dL/d(aa) per pixel (needs aa, i.e. the pixel's four
+// pairs); pass B writes d_rows per pixel as a gather: the rgb term through
+// s and lanes 16-24, plus, for each pair this pixel is the foreground pixel
+// of, the mask term through the pair's lam into that edge line's lanes 0-8.
+// Tie rules are JAX's: d|x|/dx = +1 at 0, maximum/clip split 0.5/0.5.
+//
+// Bound on this card: the rows reads — 24 of the 32 lanes of a pixel and of
+// its foreground neighbours, about 5 x 96 bytes per pixel (memory bound).
+//
+// Numeric contract (build with -fmad=false, no fast math): every product
+// and sum is rounded as in the reference's f32 expression order.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr int kLanes = 32;
+constexpr int kBlock = 256;
+constexpr float kEps = 1e-12f;
+
+__device__ __forceinline__ float ndc(int pix, int frame) {
+  return __fsub_rn(
+      __fdiv_rn(__fadd_rn(__fmul_rn(2.0f, (float)pix), 1.0f), (float)frame),
+      1.0f);
+}
+
+// (a*x + b*y) + c, each product and sum rounded
+__device__ __forceinline__ float lin3(float a, float x, float b, float y,
+                                      float c) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y)), c);
+}
+
+// d|v|/dv as JAX differentiates abs: +1 at 0
+__device__ __forceinline__ float sgn_jax(float v) {
+  return v >= 0.0f ? 1.0f : -1.0f;
+}
+
+struct Frame {
+  const float* rows;  // (32, hc, wc) of one hypothesis
+  const int* ids;     // (hc, wc)
+  const float* gt6;   // (6, hc, wc)
+  int hc, wc;
+  size_t plane;
+  int oy, ox, fh, fw, vh, vw;
+
+  __device__ float lane(int k, size_t p) const { return rows[k * plane + p]; }
+  __device__ float x(int c) const { return ndc(c + ox, fw); }
+  __device__ float y(int r) const { return ndc(r + oy, fh); }
+  __device__ bool valid(int r, int c) const { return r < vh && c < vw; }
+};
+
+__device__ Frame make_frame(const float* rows, const int* ids,
+                            const float* gt6, int b, int hc, int wc, int oy,
+                            int ox, int fh, int fw) {
+  Frame f;
+  f.hc = hc;
+  f.wc = wc;
+  f.plane = (size_t)hc * wc;
+  f.rows = rows + (size_t)b * kLanes * f.plane;
+  f.ids = ids + (size_t)b * f.plane;
+  f.gt6 = gt6;
+  f.oy = oy;
+  f.ox = ox;
+  f.fh = fh;
+  f.fw = fw;
+  f.vh = min(hc, fh - oy);
+  f.vw = min(wc, fw - ox);
+  return f;
+}
+
+__device__ float zw_at(const Frame& f, int r, int c, int id) {
+  if (id <= 0) return 0.0f;
+  const size_t p = (size_t)r * f.wc + c;
+  const float zlin =
+      lin3(f.lane(9, p), f.x(c), f.lane(10, p), f.y(r), f.lane(11, p));
+  const float det = f.lane(12, p);
+  return __fdiv_rn(zlin, det != 0.0f ? det : 1.0f);
+}
+
+// One antialiasing pair (a, b), b right of / below a (shade.py:296-387).
+struct Pair {
+  float delta_a = 0.0f, delta_b = 0.0f;
+  bool gate = false, fg_is_a = false;
+  // for the backward: the selected edge line m of the foreground pixel
+  int m = -1;
+  float lam = 0.0f, mu = 0.0f, diff = 0.0f;
+  float cross = 0.0f, denom = 0.0f, across = 0.0f, seg = 1.0f;
+};
+
+__device__ Pair eval_pair(const Frame& f, int ra, int ca, int rb, int cb,
+                          bool horizontal) {
+  Pair out;
+  const size_t pa = (size_t)ra * f.wc + ca, pb = (size_t)rb * f.wc + cb;
+  const int id_a = f.ids[pa], id_b = f.ids[pb];
+  const float zw_a = zw_at(f, ra, ca, id_a), zw_b = zw_at(f, rb, cb, id_b);
+  const bool fg_is_a = id_a > 0 && (id_b == 0 || zw_a <= zw_b);
+  out.fg_is_a = fg_is_a;
+  const bool active = id_a != id_b &&
+                      ((fg_is_a && id_a > 0) || (!fg_is_a && id_b > 0)) &&
+                      f.valid(ra, ca) && f.valid(rb, cb);
+  if (!active) return out;
+
+  const size_t pf = fg_is_a ? pa : pb;
+  const float along = horizontal ? f.x(ca) : f.y(ra);
+  const float along_next = horizontal ? f.x(cb) : f.y(rb);
+  const float across = horizontal ? f.y(ra) : f.x(ca);
+  const float seg = __fsub_rn(along_next, along);
+  const int sil = (int)f.lane(14, pf);
+  const float det = f.lane(12, pf);
+  const float det_sign = det > 0.0f ? 1.0f : (det < 0.0f ? -1.0f : 0.0f);
+  float a[3], bq[3], cq[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    a[j] = f.lane(3 * j, pf);
+    bq[j] = f.lane(3 * j + 1, pf);
+    cq[j] = f.lane(3 * j + 2, pf);
+  }
+  float lam_min = CUDART_INF_F, lam_max = -CUDART_INF_F;
+  int m_min = -1, m_max = -1;
+  float cross_l[3], den_l[3];
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const float denom = horizontal ? a[m] : bq[m];
+    const float num = horizontal
+                          ? -__fadd_rn(__fmul_rn(bq[m], across), cq[m])
+                          : -__fadd_rn(__fmul_rn(a[m], across), cq[m]);
+    const bool dok = fabsf(denom) > kEps;
+    const float cross = __fdiv_rn(num, dok ? denom : kEps);
+    cross_l[m] = cross;
+    den_l[m] = denom;
+    const float lam = __fdiv_rn(__fsub_rn(cross, along), seg);
+    bool on_edge = true;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (j == m) continue;
+      const float ej = horizontal ? lin3(a[j], cross, bq[j], across, cq[j])
+                                  : lin3(a[j], across, bq[j], cross, cq[j]);
+      on_edge = on_edge && (__fmul_rn(ej, det_sign) >= 0.0f);
+    }
+    const bool valid = dok && on_edge && lam >= 0.0f && lam <= 1.0f &&
+                       ((sil >> m) & 1) != 0;
+    if (valid && lam < lam_min) {
+      lam_min = lam;
+      m_min = m;
+    }
+    if (valid && lam > lam_max) {
+      lam_max = lam;
+      m_max = m;
+    }
+  }
+  if (m_min < 0) return out;  // no valid crossing: the pair is gated off
+
+  const float lam = fg_is_a ? lam_min : lam_max;
+  const int m = fg_is_a ? m_min : m_max;
+  const float lam_c = fminf(fmaxf(lam, 0.0f), 1.0f);
+  const float mu = fg_is_a ? __fsub_rn(lam_c, 0.5f) : __fsub_rn(0.5f, lam_c);
+  const float c_a = id_a > 0 ? 1.0f : 0.0f, c_b = id_b > 0 ? 1.0f : 0.0f;
+  const float diff = fg_is_a ? __fsub_rn(c_a, c_b) : __fsub_rn(c_b, c_a);
+  const float delta_bg = __fmul_rn(fmaxf(mu, 0.0f), diff);
+  const float delta_fg = __fmul_rn(-fmaxf(-mu, 0.0f), diff);
+  out.delta_a = fg_is_a ? delta_fg : delta_bg;
+  out.delta_b = fg_is_a ? delta_bg : delta_fg;
+  out.gate = true;
+  out.m = m;
+  out.lam = lam;
+  out.mu = mu;
+  out.diff = diff;
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    if (k == m) {
+      out.cross = cross_l[k];
+      out.denom = den_l[k];
+    }
+  out.across = across;
+  out.seg = seg;
+  return out;
+}
+
+// antialiased foreground mask at (r, c): color + ((h_a + h_b) + v_a) + v_b
+__device__ float aa_at(const Frame& f, int r, int c) {
+  const float color = f.ids[(size_t)r * f.wc + c] > 0 ? 1.0f : 0.0f;
+  const float h_a = c + 1 < f.wc ? eval_pair(f, r, c, r, c + 1, true).delta_a : 0.0f;
+  const float h_b = c >= 1 ? eval_pair(f, r, c - 1, r, c, true).delta_b : 0.0f;
+  const float v_a = r + 1 < f.hc ? eval_pair(f, r, c, r + 1, c, false).delta_a : 0.0f;
+  const float v_b = r >= 1 ? eval_pair(f, r - 1, c, r, c, false).delta_b : 0.0f;
+  const float delta = __fadd_rn(__fadd_rn(__fadd_rn(h_a, h_b), v_a), v_b);
+  return __fadd_rn(color, delta);
+}
+
+struct Shade {
+  float e[3], s, s_safe, num[3], attr[3];
+};
+
+__device__ Shade shade_at(const Frame& f, int r, int c, bool fg) {
+  Shade sh;
+  const size_t p = (size_t)r * f.wc + c;
+  const float x = f.x(c), y = f.y(r);
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    sh.e[j] = lin3(f.lane(3 * j, p), x, f.lane(3 * j + 1, p), y,
+                   f.lane(3 * j + 2, p));
+  sh.s = __fadd_rn(__fadd_rn(sh.e[0], sh.e[1]), sh.e[2]);
+  sh.s_safe = fabsf(sh.s) > kEps ? sh.s : 1.0f;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    sh.num[ch] = lin3(f.lane(16 + 3 * ch, p), x, f.lane(17 + 3 * ch, p), y,
+                      f.lane(18 + 3 * ch, p));
+    sh.attr[ch] = fg ? __fdiv_rn(sh.num[ch], sh.s_safe) : 0.0f;
+  }
+  return sh;
+}
+
+__global__ void loss_fwd_kernel(const float* __restrict__ rows,
+                                const int* __restrict__ ids,
+                                const float* __restrict__ gt6, int hc, int wc,
+                                int oy, int ox, int fh, int fw,
+                                float* __restrict__ partials) {
+  __shared__ float red[2][kBlock];
+  const int b = blockIdx.y;
+  const Frame f = make_frame(rows, ids, gt6, b, hc, wc, oy, ox, fh, fw);
+  const int p = blockIdx.x * kBlock + threadIdx.x;
+  float m_term = 0.0f, r_term = 0.0f;
+  if (p < hc * wc) {
+    const int r = p / wc, c = p % wc;
+    if (f.valid(r, c)) {
+      const bool fg = f.ids[p] > 0;
+      const float aa = aa_at(f, r, c);
+      const Shade sh = shade_at(f, r, c, fg);
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        const float seg = f.gt6[ch * f.plane + p];
+        const float rgb = f.gt6[(3 + ch) * f.plane + p];
+        m_term = __fadd_rn(m_term, fabsf(__fsub_rn(aa, seg)));
+        r_term = __fadd_rn(
+            r_term, __fmul_rn(fabsf(__fsub_rn(sh.attr[ch], rgb)), seg));
+      }
+    }
+  }
+  red[0][threadIdx.x] = m_term;
+  red[1][threadIdx.x] = r_term;
+  __syncthreads();
+  for (int s = kBlock / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) {
+      red[0][threadIdx.x] = __fadd_rn(red[0][threadIdx.x], red[0][threadIdx.x + s]);
+      red[1][threadIdx.x] = __fadd_rn(red[1][threadIdx.x], red[1][threadIdx.x + s]);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    float* out = partials + ((size_t)b * gridDim.x + blockIdx.x) * 2;
+    out[0] = red[0][0];
+    out[1] = red[1][0];
+  }
+}
+
+__global__ void loss_reduce_kernel(const float* __restrict__ partials, int B,
+                                   int nblk, float* __restrict__ sums) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  double m = 0.0, r = 0.0;
+  const float* pp = partials + (size_t)b * nblk * 2;
+  for (int i = 0; i < nblk; ++i) {
+    m += (double)pp[2 * i];
+    r += (double)pp[2 * i + 1];
+  }
+  sums[b * 3 + 0] = (float)m;
+  sums[b * 3 + 1] = (float)r;
+  sums[b * 3 + 2] = 0.0f;
+}
+
+// K6 pass A: g = d(loss)/d(aa) = dm * lm * sum_c sgn(aa - seg_c)
+__global__ void loss_bwd_g_kernel(const float* __restrict__ rows,
+                                  const int* __restrict__ ids,
+                                  const float* __restrict__ gt6,
+                                  const float* __restrict__ d_sums, int hc,
+                                  int wc, int oy, int ox, int fh, int fw,
+                                  float* __restrict__ g) {
+  const int b = blockIdx.y;
+  const Frame f = make_frame(rows, ids, gt6, b, hc, wc, oy, ox, fh, fw);
+  const int p = blockIdx.x * kBlock + threadIdx.x;
+  if (p >= hc * wc) return;
+  const int r = p / wc, c = p % wc;
+  float out = 0.0f;
+  if (f.valid(r, c)) {
+    const float aa = aa_at(f, r, c);
+    float s = 0.0f;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+      s = __fadd_rn(s, sgn_jax(__fsub_rn(aa, f.gt6[ch * f.plane + p])));
+    out = __fmul_rn(d_sums[b * 3 + 0], s);
+  }
+  g[(size_t)b * f.plane + p] = out;
+}
+
+// adds v to lane k (0 <= k < 9) with static register indices
+__device__ __forceinline__ void add_lane(float (&d)[9], int k, float v) {
+#pragma unroll
+  for (int i = 0; i < 9; ++i)
+    if (i == k) d[i] = __fadd_rn(d[i], v);
+}
+
+// K6 pass B: d_rows per pixel (a gather over the pixel's own terms)
+__global__ void loss_bwd_rows_kernel(const float* __restrict__ rows,
+                                     const int* __restrict__ ids,
+                                     const float* __restrict__ gt6,
+                                     const float* __restrict__ d_sums, int hc,
+                                     int wc, int oy, int ox, int fh, int fw,
+                                     const float* __restrict__ g,
+                                     float* __restrict__ d_rows) {
+  const int b = blockIdx.y;
+  const Frame f = make_frame(rows, ids, gt6, b, hc, wc, oy, ox, fh, fw);
+  const int p = blockIdx.x * kBlock + threadIdx.x;
+  if (p >= hc * wc) return;
+  const int r = p / wc, c = p % wc;
+  const float* gb = g + (size_t)b * f.plane;
+  float d_edge[9];
+  float d_attr[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) d_edge[k] = d_attr[k] = 0.0f;
+
+  const bool fg = f.ids[p] > 0;
+  if (fg && f.valid(r, c)) {
+    const float dr = d_sums[b * 3 + 1];
+    const float x = f.x(c), y = f.y(r);
+    const Shade sh = shade_at(f, r, c, true);
+    float ds_c[3];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const float seg = f.gt6[ch * f.plane + p];
+      const float rgb = f.gt6[(3 + ch) * f.plane + p];
+      const float h = __fmul_rn(__fmul_rn(dr, seg),
+                                sgn_jax(__fsub_rn(sh.attr[ch], rgb)));
+      // attr = num / s: d num = h / s, d s = -h * ((num / s) / s) — the
+      // division's derivative in the plain version's (autograd's) rounding;
+      // the three terms can cancel, so the order matters too
+      const float dn = __fdiv_rn(h, sh.s_safe);
+      ds_c[ch] = __fmul_rn(-h, __fdiv_rn(sh.attr[ch], sh.s_safe));
+      d_attr[3 * ch + 0] = __fmul_rn(dn, x);
+      d_attr[3 * ch + 1] = __fmul_rn(dn, y);
+      d_attr[3 * ch + 2] = dn;
+    }
+    const float ds = __fadd_rn(__fadd_rn(ds_c[2], ds_c[1]), ds_c[0]);
+    if (fabsf(sh.s) > kEps) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        d_edge[3 * j + 0] = __fadd_rn(d_edge[3 * j + 0], __fmul_rn(ds, x));
+        d_edge[3 * j + 1] = __fadd_rn(d_edge[3 * j + 1], __fmul_rn(ds, y));
+        d_edge[3 * j + 2] = __fadd_rn(d_edge[3 * j + 2], ds);
+      }
+    }
+  }
+
+  if (fg) {
+    // the four pairs holding this pixel: (self, right), (left, self),
+    // (self, below), (above, self)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool horizontal = q < 2;
+      const bool self_is_a = (q % 2) == 0;
+      int ra = r, ca = c, rb = r, cb = c;
+      if (q == 0) { if (c + 1 >= wc) continue; cb = c + 1; }
+      if (q == 1) { if (c < 1) continue; ca = c - 1; }
+      if (q == 2) { if (r + 1 >= hc) continue; rb = r + 1; }
+      if (q == 3) { if (r < 1) continue; ra = r - 1; }
+      const Pair pr = eval_pair(f, ra, ca, rb, cb, horizontal);
+      if (!pr.gate || pr.fg_is_a != self_is_a) continue;
+      const float g_a = gb[(size_t)ra * wc + ca];
+      const float g_b = gb[(size_t)rb * wc + cb];
+      const float g_fg = pr.fg_is_a ? g_a : g_b;
+      const float g_bg = pr.fg_is_a ? g_b : g_a;
+      // delta_bg = max(mu, 0) * diff, delta_fg = -max(-mu, 0) * diff
+      const float m_bg = pr.mu > 0.0f ? 1.0f : (pr.mu == 0.0f ? 0.5f : 0.0f);
+      const float m_fg = pr.mu < 0.0f ? 1.0f : (pr.mu == 0.0f ? 0.5f : 0.0f);
+      const float dmu = __fmul_rn(
+          __fadd_rn(__fmul_rn(g_bg, m_bg), __fmul_rn(g_fg, m_fg)), pr.diff);
+      const float d_lam_c = pr.fg_is_a ? dmu : -dmu;
+      // clip(lam, 0, 1) = minimum(1, maximum(0, lam))
+      const float lo = fmaxf(pr.lam, 0.0f);
+      const float c_lo = pr.lam > 0.0f ? 1.0f : (pr.lam == 0.0f ? 0.5f : 0.0f);
+      const float c_hi = lo < 1.0f ? 1.0f : (lo == 1.0f ? 0.5f : 0.0f);
+      const float d_lam = __fmul_rn(__fmul_rn(d_lam_c, c_lo), c_hi);
+      // lam = (cross - along) / seg, cross = num / denom,
+      // num = -(coef * across + c_m); d denom = -d_cross * (cross / denom)
+      const float d_cross = __fdiv_rn(d_lam, pr.seg);
+      const float d_num = __fdiv_rn(d_cross, pr.denom);
+      const float d_den = __fmul_rn(-d_cross, __fdiv_rn(pr.cross, pr.denom));
+      const int m = pr.m;
+      const int k_den = horizontal ? 3 * m : 3 * m + 1;
+      const int k_num = horizontal ? 3 * m + 1 : 3 * m;
+      add_lane(d_edge, k_den, d_den);
+      add_lane(d_edge, k_num, __fmul_rn(-d_num, pr.across));
+      add_lane(d_edge, 3 * m + 2, -d_num);
+    }
+  }
+
+  float* out = d_rows + (size_t)b * kLanes * f.plane + p;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) out[k * f.plane] = d_edge[k];
+#pragma unroll
+  for (int k = 9; k < 16; ++k) out[k * f.plane] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) out[(16 + k) * f.plane] = d_attr[k];
+#pragma unroll
+  for (int k = 25; k < kLanes; ++k) out[k * f.plane] = 0.0f;
+}
+
+}  // namespace
+
+extern "C" int dd_loss_fwd(const float* rows, const int* ids, const float* gt6,
+                           int B, int hc, int wc, int oy, int ox, int fh,
+                           int fw, float* partials, float* sums,
+                           void* stream) {
+  const int nblk = (hc * wc + kBlock - 1) / kBlock;
+  cudaStream_t st = (cudaStream_t)stream;
+  loss_fwd_kernel<<<dim3(nblk, B), kBlock, 0, st>>>(rows, ids, gt6, hc, wc,
+                                                     oy, ox, fh, fw, partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  loss_reduce_kernel<<<(B + 31) / 32, 32, 0, st>>>(partials, B, nblk, sums);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dd_loss_bwd(const float* rows, const int* ids, const float* gt6,
+                           const float* d_sums, int B, int hc, int wc, int oy,
+                           int ox, int fh, int fw, float* g, float* d_rows,
+                           void* stream) {
+  const int nblk = (hc * wc + kBlock - 1) / kBlock;
+  cudaStream_t st = (cudaStream_t)stream;
+  loss_bwd_g_kernel<<<dim3(nblk, B), kBlock, 0, st>>>(
+      rows, ids, gt6, d_sums, hc, wc, oy, ox, fh, fw, g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  loss_bwd_rows_kernel<<<dim3(nblk, B), kBlock, 0, st>>>(
+      rows, ids, gt6, d_sums, hc, wc, oy, ox, fh, fw, g, d_rows);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,175 @@
+// Compact-table raster forward (K3) and backward (K4) for Hopper (sm_90a).
+//
+// K3 replaces diffdope_tpu/render/raster_v2.py:_fwd_kernel_v2_compact
+// (-> _fwd_kernel_body, driven by _fwd_from_bins_compact).  K4 replaces
+// raster_v2.py:_bwd_kernel_v2_compact (-> _bwd_kernel_body, driven by
+// _compact_dbins).  The plain torch versions that these are held to live in
+// diffdope_tpu_torch/render/raster.py.
+//
+// K3: one thread block per (screen tile, hypothesis), one thread per pixel.
+// The block walks its tile's compact slots through shared memory, 128 slots
+// at a time; each thread evaluates every slot at its pixel centre and keeps
+// the (z, triangle id) lexicographic minimum among covered slots with
+// |z| <= 1.  It writes ids (+1, 0 = background), the winner's 32 lanes and
+// the winner's slot index (K4's map).  Bound on this card: the per-(pixel,
+// slot) edge tests, ~20 FP32 operations each on data already in shared
+// memory (compute bound, no reuse across pixels beyond the slot stage).
+// The TPU kernel's chunk row-bound gating, quad windows and one-hot matmul
+// gather are not carried over: gating only skips work, and a row gather is a
+// plain indexed load here.
+//
+// K4: one block per (tile, hypothesis).  Every compact slot belongs to
+// exactly one tile, and every pixel's winner lies in its own tile, so the
+// block sums the d_rows of the pixels that share a winner in pixel order
+// (the first such pixel's thread does the sum) and writes each won slot
+// once: deterministic, no atomics.  d_bins is zero-filled by the caller.
+// Bound: the d_rows read (32 floats per foreground pixel).
+//
+// Numeric contract (build with -fmad=false, no fast math): coverage
+// e = x*a + (y*b + c) with a, b, c pre-scaled by sign(det), z = zlin *
+// (1/det) with an IEEE divide, pixel NDC x = (2*(col+ox)+1)/fw - 1 — the
+// reference's f32 operation order (raster_v2.py:699-707, 882-905).
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr int kLanes = 32;
+constexpr int kStage = 128;   // slots staged in shared memory per round
+constexpr int kIdLanes = 14;  // lanes 0..12 (coverage, z) and 13 (id)
+
+__device__ __forceinline__ float ndc(int pix, int frame) {
+  return __fsub_rn(
+      __fdiv_rn(__fadd_rn(__fmul_rn(2.0f, (float)pix), 1.0f), (float)frame),
+      1.0f);
+}
+
+// e = x*a + (y*b + c), each product and sum rounded (no FMA)
+__device__ __forceinline__ float plane(float x, float y, float a, float b,
+                                       float c) {
+  return __fadd_rn(__fmul_rn(x, a), __fadd_rn(__fmul_rn(y, b), c));
+}
+
+__global__ void raster_fwd_kernel(
+    const float* __restrict__ bins, const int* __restrict__ counts,
+    const int* __restrict__ off_c, const int* __restrict__ used, int tot,
+    int k_chunk, int ntx, int th, int tw, int hc, int wc, int oy, int ox,
+    int fh, int fw, int* __restrict__ ids, int* __restrict__ win,
+    float* __restrict__ rows) {
+  __shared__ float st[kIdLanes][kStage];
+  const int t = blockIdx.x;
+  const int b = blockIdx.y;
+  const int row = (t / ntx) * th + threadIdx.x / tw;
+  const int col = (t % ntx) * tw + threadIdx.x % tw;
+  const float x = ndc(col + ox, fw);
+  const float y = ndc(row + oy, fh);
+  const int n = min(counts[t], used[t] * k_chunk);
+  const int base = off_c[t] * k_chunk;
+  const float* tb = bins + (size_t)b * kLanes * tot;
+
+  float zbest = CUDART_INF_F;
+  float idbest = 0.0f;
+  int sbest = -1;
+  for (int s0 = 0; s0 < n; s0 += kStage) {
+    const int m = min(kStage, n - s0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < kIdLanes * m; i += blockDim.x) {
+      const int lane = i / m, j = i % m;
+      st[lane][j] = tb[(size_t)lane * tot + base + s0 + j];
+    }
+    __syncthreads();
+    for (int j = 0; j < m; ++j) {
+      const float det = st[12][j];
+      if (det == 0.0f) continue;
+      const float sg = det > 0.0f ? 1.0f : -1.0f;
+      const float e0 = plane(x, y, st[0][j] * sg, st[1][j] * sg, st[2][j] * sg);
+      const float e1 = plane(x, y, st[3][j] * sg, st[4][j] * sg, st[5][j] * sg);
+      const float e2 = plane(x, y, st[6][j] * sg, st[7][j] * sg, st[8][j] * sg);
+      if (!(e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f)) continue;
+      const float zlin = plane(x, y, st[9][j], st[10][j], st[11][j]);
+      const float z = __fmul_rn(zlin, __fdiv_rn(1.0f, det));
+      if (!(z >= -1.0f && z <= 1.0f)) continue;
+      const float id = st[13][j];
+      if (z < zbest || (z == zbest && id < idbest)) {
+        zbest = z;
+        idbest = id;
+        sbest = base + s0 + j;
+      }
+    }
+  }
+
+  const size_t plane_px = (size_t)hc * wc;
+  const size_t pix = (size_t)row * wc + col;
+  ids[(size_t)b * plane_px + pix] = sbest >= 0 ? (int)idbest + 1 : 0;
+  win[(size_t)b * plane_px + pix] = sbest;
+  float* out = rows + (size_t)b * kLanes * plane_px + pix;
+  if (sbest >= 0) {
+    const float* src = tb + sbest;
+#pragma unroll
+    for (int k = 0; k < kLanes; ++k) out[k * plane_px] = src[(size_t)k * tot];
+  } else {
+#pragma unroll
+    for (int k = 0; k < kLanes; ++k) out[k * plane_px] = 0.0f;
+  }
+}
+
+__global__ void raster_bwd_kernel(const float* __restrict__ d_rows,
+                                  const int* __restrict__ win, int tot,
+                                  int ntx, int th, int tw, int hc, int wc,
+                                  float* __restrict__ d_bins) {
+  extern __shared__ int sw[];  // winner slot per tile pixel
+  const int t = blockIdx.x;
+  const int b = blockIdx.y;
+  const int npx = th * tw;
+  const int r0 = (t / ntx) * th, c0 = (t % ntx) * tw;
+  const size_t plane_px = (size_t)hc * wc;
+  const int p = threadIdx.x;
+  auto pix_of = [&](int q) {
+    return (size_t)(r0 + q / tw) * wc + (c0 + q % tw);
+  };
+  sw[p] = win[(size_t)b * plane_px + pix_of(p)];
+  __syncthreads();
+  const int s = sw[p];
+  if (s < 0) return;
+  for (int q = 0; q < p; ++q)
+    if (sw[q] == s) return;  // an earlier pixel of this tile owns the sum
+  float acc[kLanes];
+#pragma unroll
+  for (int k = 0; k < kLanes; ++k) acc[k] = 0.0f;
+  const float* db = d_rows + (size_t)b * kLanes * plane_px;
+  for (int q = p; q < npx; ++q) {
+    if (sw[q] != s) continue;
+    const float* src = db + pix_of(q);
+#pragma unroll
+    for (int k = 0; k < kLanes; ++k)
+      acc[k] = __fadd_rn(acc[k], src[k * plane_px]);
+  }
+  float* dst = d_bins + (size_t)b * kLanes * tot + s;
+#pragma unroll
+  for (int k = 0; k < kLanes; ++k) dst[(size_t)k * tot] = acc[k];
+}
+
+}  // namespace
+
+extern "C" int dd_raster_fwd(const float* bins, const int* counts,
+                             const int* off_c, const int* used, int B,
+                             int tot, int k_chunk, int nty, int ntx, int th,
+                             int tw, int oy, int ox, int fh, int fw, int* ids,
+                             int* win, float* rows, void* stream) {
+  dim3 grid(nty * ntx, B);
+  raster_fwd_kernel<<<grid, th * tw, 0, (cudaStream_t)stream>>>(
+      bins, counts, off_c, used, tot, k_chunk, ntx, th, tw, nty * th,
+      ntx * tw, oy, ox, fh, fw, ids, win, rows);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dd_raster_bwd(const float* d_rows, const int* win, int B,
+                             int tot, int nty, int ntx, int th, int tw,
+                             float* d_bins, void* stream) {
+  dim3 grid(nty * ntx, B);
+  raster_bwd_kernel<<<grid, th * tw, th * tw * sizeof(int),
+                      (cudaStream_t)stream>>>(d_rows, win, tot, ntx, th, tw,
+                                              nty * th, ntx * tw, d_bins);
+  return (int)cudaGetLastError();
+}

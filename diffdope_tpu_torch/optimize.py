@@ -1,0 +1,165 @@
+"""Pose-hypothesis refinement loop.
+
+Counterpart of ``diffdope_tpu/optimize.py:40-312`` on the fused path.  The
+reference runs all steps as one ``lax.scan``; here ``refine`` is a Python
+loop of ``nb_iterations + 1`` steps of value-and-grad and an optimizer
+update.  Both optimizers follow optax's semantics (the reference's
+``optax.sgd`` / ``optax.adam``), not ``torch.optim``'s: Adam with b1 0.9,
+b2 0.999 and eps 1e-8 outside the square root, bias correction at
+count + 1, and the learning-rate schedule evaluated at the pre-increment
+step count.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from diffdope_tpu_torch.geometry import matrix44_from_quat_trans, quat_normalize
+
+class RefineResult(NamedTuple):
+    """Outputs of a refinement run (stacked over steps)."""
+
+    params: Dict[str, torch.Tensor]         # final pose params, each (B,)
+    mtx_history: torch.Tensor               # (steps, B, 4, 4) pre-update poses
+    losses_values: Dict[str, torch.Tensor]  # per-term logs, each (steps, B)
+    total_loss: torch.Tensor                # (steps,)
+    telemetry: Any = None                   # underscore log keys, (steps,)
+
+
+def pose_params(quat, trans, batchsize: int, device="cpu") -> Dict[str, torch.Tensor]:
+    """Seven (B,) float32 tensors, every hypothesis at the same pose."""
+    q = torch.as_tensor(quat, dtype=torch.float32, device=device)
+    t = torch.as_tensor(trans, dtype=torch.float32, device=device)
+    ones = torch.ones((batchsize,), dtype=torch.float32, device=device)
+    return {
+        "qx": ones * q[0], "qy": ones * q[1], "qz": ones * q[2], "qw": ones * q[3],
+        "x": ones * t[0], "y": ones * t[1], "z": ones * t[2],
+    }
+
+
+def pose_matrix(params: Dict[str, torch.Tensor]):
+    """params -> ((B,4,4) matrix, (B,4) unit quat, (B,3) trans); the
+    quaternion is normalized in the graph."""
+    q = torch.stack([params["qx"], params["qy"], params["qz"], params["qw"]], dim=-1)
+    q = quat_normalize(q)
+    t = torch.stack([params["x"], params["y"], params["z"]], dim=-1)
+    return matrix44_from_quat_trans(q, t), q, t
+
+
+def make_lr_schedule(base_lr: float, lr_decay: float, nb_iterations: int):
+    """lr(step) = base_lr * lr_decay ** (step/nb + 1), in float32.
+
+    Host scalars (numpy float32): the optimizer's scalars never cross to
+    the device as tensors, so a step enqueues no host-to-device copy."""
+    f32 = np.float32
+
+    def schedule(step: int) -> np.float32:
+        itf = f32(step) / f32(nb_iterations) + f32(1.0)
+        return f32(base_lr) * np.power(f32(lr_decay), itf)
+
+    return schedule
+
+
+class SGD:
+    """optax.sgd(learning_rate=schedule): p <- p - lr(count) * g."""
+
+    def __init__(self, schedule):
+        self.schedule = schedule
+
+    def init(self, params):
+        return {"count": 0}
+
+    def update(self, grads, state, params):
+        step = float(-self.schedule(state["count"]))
+        new = {k: params[k] + step * grads[k] for k in params}
+        return new, {"count": state["count"] + 1}
+
+
+class Adam:
+    """optax.adam(learning_rate=schedule), op for op."""
+
+    def __init__(self, schedule, b1=0.9, b2=0.999, eps=1e-8):
+        self.schedule, self.b1, self.b2, self.eps = schedule, b1, b2, eps
+
+    def init(self, params):
+        return {
+            "count": 0,
+            "mu": {k: torch.zeros_like(v) for k, v in params.items()},
+            "nu": {k: torch.zeros_like(v) for k, v in params.items()},
+        }
+
+    def update(self, grads, state, params):
+        b1, b2 = self.b1, self.b2
+        f32 = np.float32
+        mu = {k: (1 - b1) * g + b1 * state["mu"][k] for k, g in grads.items()}
+        nu = {k: (1 - b2) * g ** 2 + b2 * state["nu"][k] for k, g in grads.items()}
+        count_inc = state["count"] + 1
+        bc1 = float(f32(1) - np.power(f32(b1), f32(count_inc)))
+        bc2 = float(f32(1) - np.power(f32(b2), f32(count_inc)))
+        step = float(-self.schedule(state["count"]))
+        new = {}
+        for k in params:
+            upd = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps)
+            new[k] = params[k] + step * upd
+        return new, {"count": count_inc, "mu": mu, "nu": nu}
+
+
+def make_optimizer(name: str, base_lr: float, lr_decay: float, nb_iterations: int):
+    sched = make_lr_schedule(base_lr, lr_decay, nb_iterations)
+    if name == "sgd":
+        return SGD(sched)
+    if name == "adam":
+        return Adam(sched)
+    raise ValueError(f"unknown optimizer {name!r} (sgd | adam)")
+
+
+def refine(
+    params0: Dict[str, torch.Tensor],
+    fused_loss_fn: Callable,
+    nb_iterations: int = 60,
+    base_lr: float = 20.0,
+    lr_decay: float = 0.1,
+    optimizer: str = "sgd",
+) -> RefineResult:
+    """Run ``nb_iterations + 1`` optimizer steps on the fused loss
+    ``fused_loss_fn(mtx) -> (total, logs)``.
+
+    Logs are kept on the device; nothing synchronizes with the host
+    inside the loop.  Underscore log keys go to ``telemetry``.
+    """
+    opt = make_optimizer(optimizer, base_lr, lr_decay, nb_iterations)
+    params = {k: v.detach() for k, v in params0.items()}
+    opt_state = opt.init(params)
+    mtxs, totals, logs_hist = [], [], {}
+    for _ in range(nb_iterations + 1):
+        leaves = {k: v.requires_grad_(True) for k, v in params.items()}
+        mtx, _, _ = pose_matrix(leaves)
+        total, logs = fused_loss_fn(mtx)
+        grads = torch.autograd.grad(total, [leaves[k] for k in params])
+        grads = dict(zip(params, grads))
+        mtxs.append(mtx.detach())
+        totals.append(total.detach())
+        for k, v in logs.items():
+            logs_hist.setdefault(k, []).append(v.detach())
+        with torch.no_grad():
+            params, opt_state = opt.update(
+                grads, opt_state, {k: v.detach() for k, v in leaves.items()}
+            )
+    stacked = {k: torch.stack(v) for k, v in logs_hist.items()}
+    return RefineResult(
+        params=params,
+        mtx_history=torch.stack(mtxs),
+        losses_values={k: v for k, v in stacked.items() if not k.startswith("_")},
+        total_loss=torch.stack(totals),
+        telemetry={k: v for k, v in stacked.items() if k.startswith("_")} or None,
+    )
+
+
+def argmin_hypothesis(losses_values: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Best hypothesis = argmin over B of the mean of every logged term at
+    the last step (reference get_argmin)."""
+    last = torch.stack([v[-1] for v in losses_values.values()], dim=0)
+    return torch.argmin(last.mean(dim=0), dim=-1)

@@ -1,0 +1,230 @@
+"""Compact-table raster forward (K3) and backward (K4).
+
+Counterpart of the compact parts of ``diffdope_tpu/render/raster_v2.py``:
+``_fwd_from_bins_compact`` (:1827) and ``_compact_dbins`` (:2033).  Each
+operation has a plain torch version (used for CPU tensors, and as the
+reference the CUDA kernel is held to) and a wrapper that launches the
+hand-written kernel in ``csrc/raster.cu`` for CUDA tensors.
+
+The table is the chunk-aligned compact bin table: (B, 32, tot) packed rows
+in bin-slot order (``planar.pack_binned`` over ``planar.compact_bins``),
+tile t owning slots [off_c[t]*k_chunk, off_c[t]*k_chunk + counts[t]),
+clamped to used[t]*k_chunk.  Tiles are (th, tw) pixels in row-major order
+over a (hc, wc) frame window at ``roi=(oy, ox, fh, fw)`` of the full
+(fh, fw) frame; pixel NDC always comes from the full frame.
+
+Per pixel the winner is the minimum z among covered slots with
+|z| <= 1, smallest triangle id on exact ties.  Outputs: ids (+1, 0 =
+background), the winner's 32 lanes (rows, zeros on background), and the
+winner's slot index (win, -1 on background), which is K4's map.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from diffdope_tpu_torch import kernels
+from diffdope_tpu_torch.render.shade import PACKED_WIDTH, ndc
+
+_ID_LANES = 14  # lanes 0..12 drive coverage and z, lane 13 the tie break
+_BIG = 1e9
+
+
+def _frame_tiles(frame_hw, tile_hw):
+    hc, wc = frame_hw
+    th, tw = tile_hw
+    if hc % th or wc % tw:
+        raise ValueError(f"frame {frame_hw} is not a multiple of tile {tile_hw}")
+    return hc // th, wc // tw
+
+
+def _check(t: torch.Tensor, name: str, dtype, dim: int, device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != dim:
+        raise ValueError(f"{name}: expected {dim} dims, got shape {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_fwd_inputs(bins, counts, off_c, used, frame_hw, tile_hw):
+    _check(bins, "bins", torch.float32, 3, bins.device)
+    if bins.shape[1] != PACKED_WIDTH:
+        raise ValueError(f"bins: expected {PACKED_WIDTH} lanes, got {bins.shape[1]}")
+    nty, ntx = _frame_tiles(frame_hw, tile_hw)
+    for t, name in ((counts, "counts"), (off_c, "off_c"), (used, "used")):
+        _check(t, name, torch.int32, 1, bins.device)
+        if t.shape[0] != nty * ntx:
+            raise ValueError(f"{name}: {t.shape[0]} tiles, expected {nty * ntx}")
+    return nty, ntx
+
+
+def raster_fwd(
+    bins: torch.Tensor,
+    counts: torch.Tensor,
+    off_c: torch.Tensor,
+    used: torch.Tensor,
+    k_chunk: int,
+    frame_hw: Tuple[int, int],
+    tile_hw: Tuple[int, int],
+    roi: Tuple[int, int, int, int],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3: (ids (B,hc,wc) int32, rows (B,32,hc,wc) f32, win (B,hc,wc) int32).
+
+    CPU tensors take :func:`raster_fwd_plain`; CUDA tensors launch the
+    kernel (csrc/raster.cu), anything else raises."""
+    nty, ntx = _check_fwd_inputs(bins, counts, off_c, used, frame_hw, tile_hw)
+    if bins.device.type == "cpu":
+        return raster_fwd_plain(
+            bins, counts, off_c, used, k_chunk, frame_hw, tile_hw, roi
+        )
+    if bins.device.type != "cuda":
+        raise ValueError(f"raster_fwd: unsupported device {bins.device}")
+    th, tw = tile_hw
+    if th * tw > 1024:
+        raise ValueError(f"tile {tile_hw} exceeds 1024 threads per block")
+    b, _, tot = bins.shape
+    hc, wc = frame_hw
+    oy, ox, fh, fw = roi
+    ids = torch.empty((b, hc, wc), dtype=torch.int32, device=bins.device)
+    win = torch.empty_like(ids)
+    rows = torch.empty((b, PACKED_WIDTH, hc, wc), dtype=torch.float32,
+                       device=bins.device)
+    kernels.launch(
+        "dd_raster_fwd", "raster_fwd",
+        bins.data_ptr(), counts.data_ptr(), off_c.data_ptr(), used.data_ptr(),
+        b, tot, k_chunk, nty, ntx, th, tw, oy, ox, fh, fw,
+        ids.data_ptr(), win.data_ptr(), rows.data_ptr(),
+    )
+    return ids, rows, win
+
+
+def raster_fwd_plain(bins, counts, off_c, used, k_chunk, frame_hw, tile_hw,
+                     roi, slot_chunk: int = 64):
+    """Plain torch K3: every pixel of a tile against every slot of its
+    tile, in slot chunks, keeping the (z, id) lexicographic minimum."""
+    b, _, tot = bins.shape
+    nty, ntx = _frame_tiles(frame_hw, tile_hw)
+    hc, wc = frame_hw
+    th, tw = tile_hw
+    oy, ox, fh, fw = roi
+    dev = bins.device
+    nt, npx = nty * ntx, th * tw
+
+    # pixel coordinates per (tile, pixel-in-tile), global NDC
+    ti = torch.arange(nt, device=dev)
+    pi = torch.arange(npx, device=dev)
+    prow = (ti // ntx)[:, None] * th + (pi // tw)[None, :]  # (nt, npx)
+    pcol = (ti % ntx)[:, None] * tw + (pi % tw)[None, :]
+    x = ndc(pcol + ox, fw)[..., None]  # (nt, npx, 1)
+    y = ndc(prow + oy, fh)[..., None]
+
+    n = torch.minimum(counts, used * k_chunk).long()
+    base = off_c.long() * k_chunk
+    smax = int(n.max()) if nt else 0
+    inf = torch.tensor(float("inf"), device=dev)
+    big = torch.tensor(_BIG, device=dev)
+
+    ids = torch.zeros((b, hc, wc), dtype=torch.int32, device=dev)
+    win = torch.full((b, hc, wc), -1, dtype=torch.int32, device=dev)
+    rows = torch.zeros((b, PACKED_WIDTH, hc, wc), dtype=torch.float32, device=dev)
+    flat_pix = (prow * wc + pcol).reshape(-1)
+    for bi in range(b):
+        zb = torch.full((nt, npx), float("inf"), device=dev)
+        ib = torch.full((nt, npx), _BIG, device=dev)
+        sb = torch.full((nt, npx), -1, dtype=torch.long, device=dev)
+        for s0 in range(0, smax, slot_chunk):
+            j = torch.arange(s0, min(s0 + slot_chunk, smax), device=dev)
+            slot = base[:, None] + j[None, :]  # (nt, ch)
+            in_tile = j[None, :] < n[:, None]
+            lanes = bins[bi, :_ID_LANES][:, slot.clamp(max=tot - 1)]  # (14, nt, ch)
+            lanes = lanes[:, :, None, :]  # (14, nt, 1, ch)
+            det = lanes[12]
+            sgn = torch.sign(det)
+            e = [
+                x * (lanes[3 * m] * sgn) + (y * (lanes[3 * m + 1] * sgn)
+                                            + lanes[3 * m + 2] * sgn)
+                for m in range(3)
+            ]
+            zlin = x * lanes[9] + (y * lanes[10] + lanes[11])
+            covered = (e[0] >= 0) & (e[1] >= 0) & (e[2] >= 0)
+            inv_det = 1.0 / torch.where(det != 0.0, det, torch.ones_like(det))
+            z = zlin * inv_det
+            ok = covered & (z >= -1.0) & (z <= 1.0) & (det != 0.0) & in_tile[:, None, :]
+            zm = torch.where(ok, z, inf)
+            z_c = zm.amin(dim=-1)
+            ids_f = lanes[13].expand_as(zm)
+            at_min = zm == z_c[..., None]
+            id_c = torch.where(at_min, ids_f, big).amin(dim=-1)
+            s_c = torch.where(
+                at_min & (ids_f == id_c[..., None]),
+                slot[:, None, :].expand_as(zm), torch.full_like(zm, -1, dtype=torch.long),
+            ).amax(dim=-1)
+            better = z_c < zb
+            same = (z_c == zb) & (z_c < inf) & (id_c < ib)
+            take = better | same
+            zb = torch.where(take, z_c, zb)
+            ib = torch.where(take, id_c, ib)
+            sb = torch.where(take, s_c, sb)
+        fg = ib < _BIG
+        ids.view(b, -1)[bi, flat_pix] = torch.where(
+            fg, ib.to(torch.int32) + 1, 0
+        ).reshape(-1)
+        win.view(b, -1)[bi, flat_pix] = torch.where(fg, sb, -1).to(torch.int32).reshape(-1)
+        gathered = bins[bi][:, sb.clamp(min=0).reshape(-1)]  # (32, nt*npx)
+        gathered = torch.where(fg.reshape(1, -1), gathered, 0.0)
+        rows.view(b, PACKED_WIDTH, -1)[bi][:, flat_pix] = gathered
+    return ids, rows, win
+
+
+def raster_bwd(
+    d_rows: torch.Tensor,
+    win: torch.Tensor,
+    n_slots: int,
+    tile_hw: Tuple[int, int],
+) -> torch.Tensor:
+    """K4: d_bins (B, 32, n_slots) = for each slot, the sum of d_rows over
+    the pixels whose winner it is (zeros elsewhere).
+
+    CPU tensors take :func:`raster_bwd_plain`; CUDA tensors launch the
+    kernel (csrc/raster.cu), anything else raises."""
+    _check(d_rows, "d_rows", torch.float32, 4, d_rows.device)
+    _check(win, "win", torch.int32, 3, d_rows.device)
+    b, width, hc, wc = d_rows.shape
+    if width != PACKED_WIDTH or tuple(win.shape) != (b, hc, wc):
+        raise ValueError(f"d_rows {tuple(d_rows.shape)} / win {tuple(win.shape)}")
+    nty, ntx = _frame_tiles((hc, wc), tile_hw)
+    if d_rows.device.type == "cpu":
+        return raster_bwd_plain(d_rows, win, n_slots)
+    if d_rows.device.type != "cuda":
+        raise ValueError(f"raster_bwd: unsupported device {d_rows.device}")
+    th, tw = tile_hw
+    if th * tw > 1024:
+        raise ValueError(f"tile {tile_hw} exceeds 1024 threads per block")
+    d_bins = torch.zeros((b, PACKED_WIDTH, n_slots), dtype=torch.float32,
+                         device=d_rows.device)
+    kernels.launch(
+        "dd_raster_bwd", "raster_bwd",
+        d_rows.data_ptr(), win.data_ptr(), b, n_slots, nty, ntx, th, tw,
+        d_bins.data_ptr(),
+    )
+    return d_bins
+
+
+def raster_bwd_plain(d_rows: torch.Tensor, win: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """Plain torch K4: an index_add of every foreground pixel's d_rows into
+    its winner slot (background pixels land in a discarded extra row)."""
+    b, width, hc, wc = d_rows.shape
+    dev = d_rows.device
+    w = win.reshape(b, -1).long()
+    target = torch.where(
+        w >= 0, torch.arange(b, device=dev)[:, None] * n_slots + w, b * n_slots
+    ).reshape(-1)
+    src = d_rows.reshape(b, width, -1).permute(0, 2, 1).reshape(-1, width)
+    acc = torch.zeros((b * n_slots + 1, width), dtype=d_rows.dtype, device=dev)
+    acc.index_add_(0, target, src)
+    return acc[:-1].reshape(b, n_slots, width).permute(0, 2, 1).contiguous()

@@ -1,0 +1,97 @@
+"""Synthetic scenes for tests, the bench and the chip smoke run (numpy only).
+
+Counterpart of ``diffdope_tpu/testing.py``: the same procedural icosphere
+(copied, not imported — importing the JAX package pulls in jax), plus the
+bench protocol's scene as plain numpy arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+
+from diffdope_tpu_torch import geometry as geo
+from diffdope_tpu_torch.mesh import build_edge_adjacency
+
+
+def icosphere(subdiv: int = 3) -> Tuple[np.ndarray, np.ndarray]:
+    """Unit icosphere: (N,3) float32 vertices, (T,3) int32 faces.
+
+    20 * 4**subdiv triangles (subdiv=3 -> 1280, 4 -> 5120, 5 -> 20480).
+    """
+    phi = (1.0 + np.sqrt(5.0)) / 2.0
+    v = np.array(
+        [
+            [-1, phi, 0], [1, phi, 0], [-1, -phi, 0], [1, -phi, 0],
+            [0, -1, phi], [0, 1, phi], [0, -1, -phi], [0, 1, -phi],
+            [phi, 0, -1], [phi, 0, 1], [-phi, 0, -1], [-phi, 0, 1],
+        ],
+        np.float64,
+    )
+    v /= np.linalg.norm(v[0])
+    f = np.array(
+        [
+            [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+            [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+            [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+            [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+        ],
+        np.int64,
+    )
+    for _ in range(subdiv):
+        cache: dict = {}
+        verts = list(map(tuple, v))
+        new_faces = []
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in cache:
+                m = (np.asarray(verts[a]) + np.asarray(verts[b])) / 2.0
+                m /= np.linalg.norm(m)
+                cache[key] = len(verts)
+                verts.append(tuple(m))
+            return cache[key]
+
+        for (a, b, c) in f:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        v = np.asarray(verts, np.float64)
+        f = np.asarray(new_faces, np.int64)
+    return v.astype(np.float32), f.astype(np.int32)
+
+
+def bench_scene(
+    resolution: Tuple[int, int] = (400, 400), subdiv: int = 5
+) -> Dict[str, np.ndarray]:
+    """The bench protocol's problem (root ``bench.py:70-181``) as numpy.
+
+    An icosphere of the given subdivision (radius 0.4) with positional
+    vertex colours, a pinhole camera with f = 1.2 * max(H, W), the gt pose
+    (axis (0.2, 1, 0.1), 0.8 rad, 2 units in front of the camera), and the
+    initial pose: the gt rotated by 8 degrees about an axis drawn from
+    ``np.random.default_rng(0)`` and shifted by (0.02, -0.015, 0.04).
+    """
+    h, w = resolution
+    f = 1.2 * max(h, w)
+    proj = geo.projection_from_intrinsics(
+        f, f, w / 2, h / 2, w, h, 0.01, 100.0
+    ).astype(np.float32)
+    v, fc = icosphere(subdiv)
+    rng = np.random.default_rng(0)
+    q_gt = geo.quat_from_axis_angle(np.array([0.2, 1.0, 0.1]), 0.8)
+    t_gt = np.array([0.0, 0.0, -2.0])
+    dq = geo.quat_from_axis_angle(rng.normal(size=3), np.deg2rad(8.0))
+    q0 = geo.quat_multiply_np(dq, q_gt)
+    t0 = t_gt + np.array([0.02, -0.015, 0.04])
+    return {
+        "proj": proj,
+        "pos": (v * 0.4).astype(np.float32),
+        "tri": fc.astype(np.int32),
+        "edge_adj": build_edge_adjacency(fc),
+        "vtx_color": (v * 0.5 + 0.5).astype(np.float32),
+        "q_gt": q_gt.astype(np.float32),
+        "t_gt": t_gt.astype(np.float32),
+        "q0": q0.astype(np.float32),
+        "t0": t0.astype(np.float32),
+    }

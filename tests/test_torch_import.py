@@ -1,0 +1,61 @@
+"""The port imports without jax and never reaches into the JAX package."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / "diffdope_tpu_torch"
+
+
+def test_torch_package_imports_without_jax():
+    code = (
+        "import sys, pkgutil, importlib, diffdope_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'diffdope_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'diffdope_tpu.'))"
+        " or m == 'diffdope_tpu']\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=PKG.parent)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize(
+    "path", sorted(str(p.relative_to(PKG)) for p in PKG.rglob("*.py"))
+)
+def test_torch_sources_import_no_jax(path):
+    tree = ast.parse((PKG / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "optax", "diffdope_tpu"), (path, name)
+
+
+def test_torch_wrappers_refuse_unsupported_devices():
+    """A wrapper takes its plain version only for CPU tensors; any other
+    device that is not CUDA raises instead of falling back."""
+    import torch
+
+    from diffdope_tpu_torch.render import fused_loss, raster
+
+    rows = torch.zeros((1, 32, 16, 16), device="meta")
+    ids = torch.zeros((1, 16, 16), dtype=torch.int32, device="meta")
+    gt6 = torch.zeros((6, 16, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_loss.loss_sums(rows, ids, gt6, (0, 0, 16, 16))
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_loss.loss_bwd(rows, ids, gt6, (0, 0, 16, 16),
+                            torch.zeros((1, 3), device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        raster.raster_bwd(rows, ids, 64, (16, 16))
