@@ -11,7 +11,8 @@ result line):
    and reports the build time;
 3. holds each kernel (K3 raster fwd, K4 raster bwd, K5 loss fwd, K6 loss
    bwd) against its plain torch version on the card, at the test scene and
-   at the bench shapes, and times both at the bench shapes;
+   at the bench shapes, each hypothesis at a pose of its own, and times
+   both at the bench shapes;
 4. drives the main path: the bench protocol (B=64, 400x400, icosphere(5),
    rgb+mask, 100 Adam steps) through ``make_fused_loss`` + ``refine``, with
    every launch counter reset just before and read just after; the loss
@@ -73,13 +74,13 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (this smoke run needs one GPU; no CPU fallback)")
     from diffdope_tpu_torch import kernels
-    from diffdope_tpu_torch.bench import card, run_refinement
-    from diffdope_tpu_torch.kernels.check import (
-        COUNTERS,
-        KERNELS,
+    from diffdope_tpu_torch.bench import (
         bench_problem,
-        check_kernels,
+        card,
+        distinct_poses,
+        run_refinement,
     )
+    from diffdope_tpu_torch.kernels.check import COUNTERS, KERNELS, check_kernels
     from diffdope_tpu_torch.optimize import argmin_hypothesis, pose_matrix
 
     gpu = card()
@@ -94,8 +95,10 @@ def main() -> None:
           f"{' '.join(kernels.NVCC_FLAGS)})", flush=True)
 
     # ---- kernels against their plain versions --------------------------------
-    small = bench_problem((64, 96), subdiv=2, batch=3, device="cuda", spread=0.01)
-    mtx, _, _ = pose_matrix(small["params0"])
+    # every check runs on distinct poses, so a kernel that reads another
+    # hypothesis's inputs disagrees with its plain version
+    small = bench_problem((64, 96), subdiv=2, batch=3, device="cuda")
+    mtx, _, _ = pose_matrix(distinct_poses(small["params0"], 0.01))
     d_small = torch.tensor([[1.0, 0.7, 0.0], [0.5, 1.3, 0.0], [2.0, 0.2, 0.0]],
                            device="cuda")
     for row in check_kernels(small["fn"], mtx, d_small):
@@ -107,7 +110,7 @@ def main() -> None:
     problem = bench_problem((400, 400), subdiv=5, batch=64, device="cuda")
     print(f"bench problem: compact capacity {problem['compact_total']} slots, "
           f"ROI crop {problem['fn'].crop}", flush=True)
-    mtx, _, _ = pose_matrix(problem["params0"])
+    mtx, _, _ = pose_matrix(distinct_poses(problem["params0"], 1e-3))
     d_sums = torch.as_tensor(
         np.random.default_rng(1).uniform(0.5, 2.0, (64, 3)),
         dtype=torch.float32, device="cuda",
@@ -155,7 +158,8 @@ def main() -> None:
     final, _, _ = pose_matrix(res.params)
     pos = problem["scene"]["pos"]
     mtx_gt = problem["mtx_gt"][0]
-    add0 = float(add_error(pos, mtx[best], mtx_gt))
+    start, _, _ = pose_matrix(problem["params0"])
+    add0 = float(add_error(pos, start[best], mtx_gt))
     add1 = float(add_error(pos, final[best], mtx_gt))
     print(f"best hypothesis {best}: ADD {add0:.6f} -> {add1:.6f} (object units)",
           flush=True)

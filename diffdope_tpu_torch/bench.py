@@ -12,8 +12,7 @@ repo).  The gt images are the port's own render at the gt pose.
 
 Needs a CUDA card and fails without one.  Prints exactly one JSON line on
 stdout (the root bench's metric line); progress goes to stderr.
-``DD_BATCH``, ``DD_STEPS`` and ``DD_RES`` override the protocol for
-experiments, as in the root bench.  ``DD_PROFILE=N`` also traces N steps
+``DD_PROFILE=N`` also traces N steps
 with ``torch.profiler`` after the timed runs and prints the device time
 by kernel and the device busy share of that window to stderr.
 """
@@ -26,11 +25,23 @@ import subprocess
 import sys
 import time
 
+from typing import Dict
+
+import numpy as np
 import torch
 
-BATCH = int(os.environ.get("DD_BATCH", "64"))
-STEPS = int(os.environ.get("DD_STEPS", "100"))
-RES = tuple(int(x) for x in os.environ.get("DD_RES", "400x400").split("x"))
+from diffdope_tpu_torch.losses import select_losses
+from diffdope_tpu_torch.optimize import pose_matrix, pose_params, refine
+from diffdope_tpu_torch.render.pipeline import (
+    compact_capacity,
+    make_fused_loss,
+    render_rgb_mask,
+)
+from diffdope_tpu_torch.testing import bench_scene
+
+BATCH = 64
+STEPS = 100
+RES = (400, 400)
 
 
 def log(*args) -> None:
@@ -46,11 +57,50 @@ def card() -> str:
     return out[0] if out else "unknown"
 
 
+def bench_problem(resolution=RES, subdiv=5, batch=BATCH,
+                  device="cuda") -> Dict[str, object]:
+    """The bench protocol's problem on ``device``: the icosphere scene, gt
+    images rendered by the port at the gt pose, loss scales
+    ``np.random.default_rng(0).uniform(0.5, 4, B)``, rgb+mask weights
+    (mask 1.0, rgb 0.7), the compact capacity from the gt probe, the fused
+    loss and the initial params (every hypothesis at the initial pose)."""
+    s = bench_scene(resolution, subdiv)
+    mtx_gt, _, _ = pose_matrix(pose_params(s["q_gt"], s["t_gt"], 1, device))
+    gt = render_rgb_mask(
+        s["proj"], mtx_gt, s["pos"], s["tri"], resolution,
+        edge_adj=s["edge_adj"], vtx_color=s["vtx_color"], device=device,
+    )
+    gt_np = {"rgb": gt["rgb"][0].cpu().numpy(),
+             "segmentation": gt["mask"][0].cpu().numpy()}
+    lrs = np.random.default_rng(0).uniform(0.5, 4.0, batch).astype(np.float32)
+    terms, weights = select_losses(
+        {"l1_mask": True, "weight_mask": 1.0,
+         "l1_rgb_with_mask": True, "weight_rgb": 0.7}
+    )
+    total = compact_capacity(s["proj"], s["pos"], s["tri"], mtx_gt, resolution,
+                             device=device)
+    fn = make_fused_loss(
+        s["proj"], s["pos"], s["tri"], resolution, gt_np, lrs, weights,
+        use_rgb="l1_rgb_with_mask" in terms, use_mask="l1_mask" in terms,
+        edge_adj=s["edge_adj"], vtx_color=s["vtx_color"], compact_total=total,
+        device=device,
+    )
+    params0 = pose_params(s["q0"], s["t0"], batch, device)
+    return dict(scene=s, gt=gt_np, lrs=lrs, weights=weights, fn=fn,
+                params0=params0, compact_total=total, mtx_gt=mtx_gt)
+
+
+def distinct_poses(params, step: float):
+    """``params`` with hypothesis i offset by i * step in every pose
+    parameter: distinct poses, for checks that must tell the hypotheses
+    apart."""
+    return {k: v + step * torch.arange(v.shape[0], dtype=v.dtype, device=v.device)
+            for k, v in params.items()}
+
+
 def run_refinement(problem, steps: int = STEPS):
     """One refinement of the problem's hypotheses on the card; returns the
     RefineResult and its wall time (synchronized)."""
-    from diffdope_tpu_torch.optimize import refine
-
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = refine(
@@ -61,9 +111,11 @@ def run_refinement(problem, steps: int = STEPS):
     return res, time.perf_counter() - t0
 
 
-def profile(problem, steps: int) -> None:
-    """Trace ``steps`` refinement steps: device time by kernel (top 25) and
-    the share of the window's wall time that the device was busy."""
+def profile(problem, steps: int, step_s: float) -> None:
+    """Trace ``steps`` refinement steps: device time by kernel (top 25), the
+    share of the traced window that the device was busy, and the device
+    time per step over ``step_s``, an untraced step's wall time (the
+    tracer slows the host, not the kernels)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -76,17 +128,18 @@ def profile(problem, steps: int) -> None:
                   if e.device_type == torch.autograd.DeviceType.CUDA)
     log(f"profile: {steps} steps, wall {wall * 1e3:.3f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms ({100 * busy_us / (wall * 1e6):.1f}%)")
+    per_step_ms = busy_us / 1e3 / steps
+    log(f"device busy per step {per_step_ms:.3f} ms of an untraced step's "
+        f"{step_s * 1e3:.3f} ms ({100 * per_step_ms / (step_s * 1e3):.1f}%)")
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         log("no CUDA device: the port's bench measures the card only")
         return 2
-    from diffdope_tpu_torch.kernels.check import bench_problem
-
     log(f"card: {card()}")
     log("mesh: synthetic icosphere(5), 20480 tris")
-    problem = bench_problem(RES, 5, BATCH, "cuda")
+    problem = bench_problem()
     log(f"compact table capacity: {problem['compact_total']} slots; "
         f"crop {problem['fn'].crop}")
     _, first = run_refinement(problem)
@@ -104,7 +157,7 @@ def main() -> int:
             log(f"WARNING {key}: up to {int(v.max())}/step")
     n_prof = int(os.environ.get("DD_PROFILE", "0"))
     if n_prof:
-        profile(problem, n_prof)
+        profile(problem, n_prof, dt / STEPS)
     value = 1.0 / dt
     print(json.dumps({
         "metric": "pose_refinements_per_sec",

@@ -1,8 +1,8 @@
 """Kernel-versus-plain checks and timings on the card.
 
-Used by ``chip_smoke.py``, ``python -m diffdope_tpu_torch.bench`` and the
-CUDA tests: build the bench protocol's problem at any size, then hold each
-of K3-K6 against its plain torch version on the same inputs.
+Used by ``chip_smoke.py`` and the CUDA tests: hold each of K3-K6 against
+its plain torch version on the same inputs (the table of a fused loss
+from ``make_fused_loss`` at given poses), and time both.
 
 Tolerances: K3's ids, slots and rows must be exactly equal (same f32
 operation order, no FMA); K5's sums rtol 1e-5, atol 1e-7; K6's d_rows and
@@ -20,30 +20,21 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-import numpy as np
 import torch
 
-from diffdope_tpu_torch.losses import select_losses
-from diffdope_tpu_torch.optimize import pose_matrix, pose_params
 from diffdope_tpu_torch.render.fused_loss import (
     loss_bwd,
     loss_bwd_plain,
     loss_sums,
     loss_sums_plain,
 )
-from diffdope_tpu_torch.render.pipeline import (
-    K_CHUNK,
-    compact_capacity,
-    make_fused_loss,
-    render_rgb_mask,
-)
+from diffdope_tpu_torch.render.pipeline import K_CHUNK, TILE_HW
 from diffdope_tpu_torch.render.raster import (
     raster_bwd,
     raster_bwd_plain,
     raster_fwd,
     raster_fwd_plain,
 )
-from diffdope_tpu_torch.testing import bench_scene
 
 #: which TPU kernel each port kernel replaces, and where it lives
 KERNELS = {
@@ -71,43 +62,6 @@ COUNTERS = {
     "K5_loss_fwd": "loss_fwd",
     "K6_loss_bwd": "loss_bwd",
 }
-
-
-def bench_problem(resolution=(400, 400), subdiv=5, batch=64, device="cuda",
-                  spread=0.0) -> Dict[str, object]:
-    """The bench protocol's problem on ``device``: the icosphere scene, gt
-    images rendered by the port at the gt pose, loss scales
-    ``np.random.default_rng(0).uniform(0.5, 4, B)``, rgb+mask weights
-    (mask 1.0, rgb 0.7), the compact capacity from the gt probe, the fused loss and
-    the initial params.  ``spread`` offsets hypothesis i by i * spread in
-    every pose parameter (distinct poses for kernel checks)."""
-    s = bench_scene(resolution, subdiv)
-    mtx_gt, _, _ = pose_matrix(pose_params(s["q_gt"], s["t_gt"], 1, device))
-    gt = render_rgb_mask(
-        s["proj"], mtx_gt, s["pos"], s["tri"], resolution,
-        edge_adj=s["edge_adj"], vtx_color=s["vtx_color"], device=device,
-    )
-    gt_np = {"rgb": gt["rgb"][0].cpu().numpy(),
-             "segmentation": gt["mask"][0].cpu().numpy()}
-    lrs = np.random.default_rng(0).uniform(0.5, 4.0, batch).astype(np.float32)
-    terms, weights = select_losses(
-        {"l1_mask": True, "weight_mask": 1.0,
-         "l1_rgb_with_mask": True, "weight_rgb": 0.7}
-    )
-    total = compact_capacity(s["proj"], s["pos"], s["tri"], mtx_gt, resolution,
-                             device=device)
-    fn = make_fused_loss(
-        s["proj"], s["pos"], s["tri"], resolution, gt_np, lrs, weights,
-        use_rgb="l1_rgb_with_mask" in terms, use_mask="l1_mask" in terms,
-        edge_adj=s["edge_adj"], vtx_color=s["vtx_color"], compact_total=total,
-        device=device,
-    )
-    params0 = pose_params(s["q0"], s["t0"], batch, device)
-    if spread:
-        off = torch.arange(batch, device=device, dtype=torch.float32) * spread
-        params0 = {k: v + off for k, v in params0.items()}
-    return dict(scene=s, gt=gt_np, lrs=lrs, weights=weights, fn=fn,
-                params0=params0, compact_total=total, mtx_gt=mtx_gt)
 
 
 def _time_ms(f, reps: int) -> float:
@@ -154,7 +108,7 @@ def check_kernels(fn, mtx: torch.Tensor, d_sums: torch.Tensor,
     after one warm-up)."""
     with torch.no_grad():
         packed, counts, off_c, used, _ = fn.table(mtx)
-    args = (packed, counts, off_c, used, K_CHUNK, fn.frame_hw, fn.tile_hw, fn.roi)
+    args = (packed, counts, off_c, used, K_CHUNK, fn.frame_hw, TILE_HW, fn.roi)
     n_slots = packed.shape[2]
     out = []
 
@@ -183,7 +137,7 @@ def check_kernels(fn, mtx: torch.Tensor, d_sums: torch.Tensor,
                     tolerance="rtol 2e-4, atol 1e-6 + 1e-6 x pixel's largest lane",
                     worst=_worst(d_rows, d_rows_p, 2e-4, 1e-6, px_scale)))
 
-    d_bins = raster_bwd(d_rows, win, n_slots, fn.tile_hw)
+    d_bins = raster_bwd(d_rows, win, n_slots, TILE_HW)
     d_bins_p = raster_bwd_plain(d_rows, win, n_slots)
     tri = packed[0, 13].long()  # triangle of each slot (sentinel: T)
 
@@ -210,7 +164,7 @@ def check_kernels(fn, mtx: torch.Tensor, d_sums: torch.Tensor,
             "K6_loss_bwd": (
                 lambda: loss_bwd(rows, ids, fn.gt6, fn.roi, d_sums),
                 lambda: loss_bwd_plain(rows, ids, fn.gt6, fn.roi, d_sums)),
-            "K4_raster_bwd": (lambda: raster_bwd(d_rows, win, n_slots, fn.tile_hw),
+            "K4_raster_bwd": (lambda: raster_bwd(d_rows, win, n_slots, TILE_HW),
                               lambda: raster_bwd_plain(d_rows, win, n_slots)),
         }
         for row in out:

@@ -47,6 +47,12 @@ from diffdope_tpu_torch.render.shade import (
 TILE_HW = (16, 16)
 #: alignment of each tile's region in the compact table (slots)
 K_CHUNK = 32
+#: per-tile bin capacity before compaction (triangles); drops are counted
+#: in '_bin_overflow'
+MAX_TRIS_PER_TILE = 1024
+#: compact capacity over a probe pose's need (the root bench's rule,
+#: ``bench.py:207-235``)
+CAPACITY_SLACK = 1.35
 #: ROI crop margin around the gt support (px): covers the bench protocol's
 #: drift (8 degrees, ~25 px) with no measured leak in the reference
 CROP_MARGIN = 24
@@ -55,8 +61,8 @@ CROP_MARGIN = 24
 class _Mesh:
     """The per-mesh constants every entry point needs, as tensors: the
     projection, triangle indices, corner-expanded positions (3T, 3), the
-    per-corner colours (T, 3, 3), the degenerate-triangle mask and the edge
-    adjacency."""
+    per-corner colours (T, 3, 3), the degenerate-triangle mask, the edge
+    adjacency and the static pack table."""
 
     def __init__(self, proj_cam, pos, pos_idx, edge_adj, vtx_color,
                  corner_colors, device):
@@ -76,12 +82,7 @@ class _Mesh:
             (tri[:, 0] == tri[:, 1]) | (tri[:, 1] == tri[:, 2]) | (tri[:, 2] == tri[:, 0])
         )
         self.adj = None if edge_adj is None else tensor(edge_adj, device, torch.int64)
-
-    def planes(self, mtx):
-        """(mvp, corner planes, det) at poses mtx (B, 4, 4)."""
-        mvp = matmul44(self.proj, mtx)
-        cp = corner_planes(self.pos_c, mvp)
-        return mvp, cp, det_planar(cp, self.degenerate)
+        self.static = static_pack_rows(self.pos_c, self.attrs, self.degenerate)
 
 
 def _numpy(a) -> np.ndarray:
@@ -90,18 +91,18 @@ def _numpy(a) -> np.ndarray:
     return np.asarray(a)
 
 
-def _padded(resolution, tile_hw):
-    (h, w), (th, tw) = resolution, tile_hw
+def _padded(resolution):
+    (h, w), (th, tw) = resolution, TILE_HW
     return -(-h // th) * th, -(-w // tw) * tw
 
 
-def crop_window(seg: np.ndarray, resolution, tile_hw):
+def crop_window(seg: np.ndarray, resolution):
     """Tile-aligned ROI (oy, ox, hc, wc) around the gt segmentation support
     plus ``CROP_MARGIN`` px (``pipeline.py:548-579``), or None when it would
     be the whole padded frame."""
     margin = CROP_MARGIN
-    hp, wp = _padded(resolution, tile_hw)
-    th, tw = tile_hw
+    hp, wp = _padded(resolution)
+    th, tw = TILE_HW
     seg_any = seg.max(axis=-1) if seg.ndim == 3 else seg
     rows_any = (seg_any > 0).any(axis=1)
     cols_any = (seg_any > 0).any(axis=0)
@@ -120,6 +121,73 @@ def crop_window(seg: np.ndarray, resolution, tile_hw):
     return oy, ox, hc, wc
 
 
+class _Crop:
+    """A tile-aligned ROI window (oy, ox, hc, wc) of the padded frame: the
+    tiles it keeps, and the pixel bounds of its 2 px interior that every
+    triangle must stay inside for the cropped loss to be exact."""
+
+    def __init__(self, window, resolution, device):
+        (h, w), (th, tw) = resolution, TILE_HW
+        oy, ox, hc, wc = window
+        nty, ntx = (n // t for n, t in zip(_padded(resolution), TILE_HW))
+        self.window, self.resolution = window, resolution
+        self.tiles = (
+            torch.arange(nty, device=device)[oy // th : (oy + hc) // th, None] * ntx
+            + torch.arange(ntx, device=device)[None, ox // tw : (ox + wc) // tw]
+        ).reshape(-1)
+        self.x_lo = float(ox + 2) if ox > 0 else -1e9
+        self.x_hi = float(ox + wc - 3) if ox + wc < w else 1e9
+        self.y_lo = float(oy + 2) if oy > 0 else -1e9
+        self.y_hi = float(oy + hc - 3) if oy + hc < h else 1e9
+
+    def leak(self, cp, degenerate) -> torch.Tensor:
+        """How many triangles' pixel bounds escape the interior ('_crop_leak')."""
+        h, w = self.resolution
+        xlo, xhi = _xbounds_ndc(cp, degenerate)
+        ylo, yhi = _ybounds_ndc(cp, degenerate)
+        px_lo = (xlo + 1.0) * (w / 2.0) - 0.5
+        px_hi = (xhi + 1.0) * (w / 2.0) - 0.5
+        py_lo = (ylo + 1.0) * (h / 2.0) - 0.5
+        py_hi = (yhi + 1.0) * (h / 2.0) - 0.5
+        out = (xlo <= xhi) & (
+            (px_lo < self.x_lo) | (px_hi > self.x_hi)
+            | (py_lo < self.y_lo) | (py_hi > self.y_hi)
+        )
+        return out.sum(dtype=torch.int32)
+
+
+def _compact_table(mesh: _Mesh, mtx: torch.Tensor, resolution,
+                   capacity: Optional[int] = None, crop: Optional[_Crop] = None):
+    """The compact packed table at poses ``mtx`` (B, 4, 4), differentiable
+    in mtx, and its telemetry: (packed, counts, off_c, used, telemetry).
+
+    ``capacity`` None sizes the table to the bins exactly (which reads the
+    counts on the host).  ``crop`` drops the tiles outside it before
+    compaction and counts '_crop_leak'."""
+    mvp = matmul44(mesh.proj, mtx)
+    cp = corner_planes(mesh.pos_c, mvp)
+    det = det_planar(cp, mesh.degenerate)
+    idx, counts, bin_overflow = bin_triangles_planar(
+        cp, det, resolution, TILE_HW, MAX_TRIS_PER_TILE
+    )
+    telemetry = {"_bin_max": counts.max()}
+    if crop is not None:
+        idx, counts = idx[crop.tiles], counts[crop.tiles]
+        telemetry["_crop_leak"] = crop.leak(cp, mesh.degenerate)
+    if capacity is None:
+        capacity = int((-(-counts // K_CHUNK) * K_CHUNK).sum()) or K_CHUNK
+    flat, off_c, used, c_ovf = compact_bins(
+        idx, counts, mesh.t_count, K_CHUNK, capacity
+    )
+    telemetry["_bin_overflow"] = bin_overflow + c_ovf
+    sil = _silhouette_planar(det, mesh.adj)
+    packed = pack_binned(
+        mesh.pos_c, mvp, mtx, flat, mesh.attrs, sil, mesh.degenerate,
+        mesh.t_count, mesh.static,
+    )
+    return packed, counts.contiguous(), off_c, used, telemetry
+
+
 def make_fused_loss(
     proj_cam,
     pos,
@@ -135,8 +203,6 @@ def make_fused_loss(
     corner_colors=None,
     vtx_color=None,
     tex=None,
-    tile_hw: Tuple[int, int] = TILE_HW,
-    max_tris_per_tile: int = 1024,
     compact_total: Optional[int] = None,
     roi_crop: str = "auto",
     device="cpu",
@@ -174,86 +240,34 @@ def make_fused_loss(
     mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors, device)
     if mesh.attrs is None:
         raise ValueError("fused loss requires corner_colors or vtx_color")
-    static_table = static_pack_rows(mesh.pos_c, mesh.attrs, mesh.degenerate)
 
     h, w = resolution
-    th, tw = tile_hw
-    hp, wp = _padded(resolution, tile_hw)
-    nty, ntx = hp // th, wp // tw
-
+    hp, wp = _padded(resolution)
     seg_np = _numpy(gt["segmentation"]).astype(np.float32)
     planes = np.zeros((6, hp, wp), np.float32)
     planes[0:3, :h, :w] = np.moveaxis(seg_np[..., :3], -1, 0)
     if gt.get("rgb") is not None:
         planes[3:6, :h, :w] = np.moveaxis(_numpy(gt["rgb"]).astype(np.float32), -1, 0)
 
-    crop = None
-    if roi_crop != "off":
-        crop = crop_window(seg_np, resolution, tile_hw)
-    if crop is None:
-        oy, ox, hc, wc = 0, 0, hp, wp
-    else:
-        oy, ox, hc, wc = crop
+    window = crop_window(seg_np, resolution) if roi_crop != "off" else None
+    crop = None if window is None else _Crop(window, resolution, device)
+    oy, ox, hc, wc = window or (0, 0, hp, wp)
     gt6 = torch.as_tensor(
         np.ascontiguousarray(planes[:, oy : oy + hc, ox : ox + wc]), device=device
     )
     roi = (oy, ox, h, w)
-    tile_sel = (
-        torch.arange(nty, device=device)[oy // th : (oy + hc) // th, None] * ntx
-        + torch.arange(ntx, device=device)[None, ox // tw : (ox + wc) // tw]
-    ).reshape(-1)
-    if crop is not None:
-        bx_lo = float(ox + 2) if ox > 0 else -1e9
-        bx_hi = float(ox + wc - 3) if ox + wc < w else 1e9
-        by_lo = float(oy + 2) if oy > 0 else -1e9
-        by_hi = float(oy + hc - 3) if oy + hc < h else 1e9
-
     npx = float(h * w)
     lrs = tensor(learning_rates, device)
-    t_count = mesh.t_count
 
     def table(mtx: torch.Tensor):
-        """The step's compact packed table (differentiable in mtx) and
-        telemetry: (packed, counts, off_c, used, telemetry)."""
-        mvp, cp, det = mesh.planes(mtx)
-        idx, counts, bin_overflow = bin_triangles_planar(
-            cp, det, resolution, tile_hw, max_tris_per_tile
-        )
-        sil = _silhouette_planar(det, mesh.adj)
-        telemetry = {}
-        idx_k, counts_k = idx, counts
-        if crop is not None:
-            # drop out-of-crop tiles before compaction; count triangles whose
-            # pixel bounds escape the crop's 2 px interior (the exactness
-            # condition of the cropped loss)
-            idx_k, counts_k = idx[tile_sel], counts[tile_sel]
-            xlo, xhi = _xbounds_ndc(cp, mesh.degenerate)
-            ylo, yhi = _ybounds_ndc(cp, mesh.degenerate)
-            px_lo = (xlo + 1.0) * (w / 2.0) - 0.5
-            px_hi = (xhi + 1.0) * (w / 2.0) - 0.5
-            py_lo = (ylo + 1.0) * (h / 2.0) - 0.5
-            py_hi = (yhi + 1.0) * (h / 2.0) - 0.5
-            out_of_crop = (xlo <= xhi) & (
-                (px_lo < bx_lo) | (px_hi > bx_hi) | (py_lo < by_lo) | (py_hi > by_hi)
-            )
-            telemetry["_crop_leak"] = out_of_crop.sum(dtype=torch.int32)
-        flat, off_c, usedc, c_ovf = compact_bins(
-            idx_k, counts_k, t_count, K_CHUNK, compact_total
-        )
-        telemetry["_bin_overflow"] = bin_overflow + c_ovf
-        telemetry["_bin_max"] = counts.max()
-        packed = pack_binned(
-            mesh.pos_c, mvp, mtx, flat, mesh.attrs, sil, mesh.degenerate,
-            t_count, static_table,
-        )
-        return packed, counts_k.contiguous(), off_c, usedc, telemetry
+        return _compact_table(mesh, mtx, resolution, compact_total, crop)
 
     def fn(mtx: torch.Tensor):
         if mtx.dim() == 2:
             mtx = mtx[None]
         packed, counts, off_c, used, telemetry = table(mtx)
         sums = raster_loss_compact(
-            packed, counts, off_c, used, gt6, K_CHUNK, (hc, wc), tile_hw, roi
+            packed, counts, off_c, used, gt6, K_CHUNK, (hc, wc), TILE_HW, roi
         )
         total = sums.new_zeros(())
         logs = {}
@@ -268,30 +282,27 @@ def make_fused_loss(
         logs.update({k: v.detach() for k, v in telemetry.items()})
         return total, logs
 
-    # what the kernel checks and tools need to drive the spanning op's parts
+    # what the kernel checks need to drive the spanning op's parts
     fn.table = table
-    fn.gt6, fn.frame_hw, fn.tile_hw, fn.roi, fn.crop = gt6, (hc, wc), tile_hw, roi, crop
+    fn.gt6, fn.frame_hw, fn.roi, fn.crop = gt6, (hc, wc), roi, window
     return fn
 
 
-def compact_capacity(proj_cam, pos, pos_idx, mtx, resolution, tile_hw=TILE_HW,
-                     max_tris_per_tile: int = 1024, slack: float = 1.35,
-                     device="cpu") -> int:
+@torch.no_grad()
+def compact_capacity(proj_cam, pos, pos_idx, mtx, resolution, device="cpu") -> int:
     """Compact-table capacity sized from a probe pose (the root bench's
     rule, ``bench.py:207-235``): the probe's chunk-rounded slot count times
-    ``slack`` plus one chunk, rounded to the chunk."""
+    ``CAPACITY_SLACK`` plus one chunk, rounded to the chunk."""
     mesh = _Mesh(proj_cam, pos, pos_idx, None, None, None, torch.device(device))
-    _, cp, det = mesh.planes(tensor(mtx, device).reshape(-1, 4, 4))
-    _, counts, _ = bin_triangles_planar(
-        cp, det, resolution, tile_hw, max_tris_per_tile
-    )
-    tot0 = int((-(-counts // K_CHUNK) * K_CHUNK).sum())
-    return -(-int(tot0 * slack + K_CHUNK) // K_CHUNK) * K_CHUNK
+    _, _, _, used, _ = _compact_table(mesh, tensor(mtx, device).reshape(-1, 4, 4),
+                                      resolution)
+    tot0 = int(used.sum()) * K_CHUNK
+    return -(-int(tot0 * CAPACITY_SLACK + K_CHUNK) // K_CHUNK) * K_CHUNK
 
 
 @torch.no_grad()
 def render_rgb_mask(proj_cam, mtx, pos, pos_idx, resolution, edge_adj=None,
-                    vtx_color=None, corner_colors=None, tile_hw=TILE_HW,
+                    vtx_color=None, corner_colors=None,
                     device="cpu") -> Dict[str, torch.Tensor]:
     """Render (B, H, W, 3) 'rgb' and 'mask' at poses ``mtx`` (B, 4, 4):
     K3's ids and rows over an exactly sized compact table, then the plain
@@ -299,19 +310,15 @@ def render_rgb_mask(proj_cam, mtx, pos, pos_idx, resolution, edge_adj=None,
     is antialiased, the rgb is not."""
     mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors,
                  torch.device(device))
-    t_count = mesh.t_count
     mtx = tensor(mtx, device).reshape(-1, 4, 4)
-    mvp, cp, det = mesh.planes(mtx)
-    idx, counts, _ = bin_triangles_planar(cp, det, resolution, tile_hw, t_count)
-    total = int((-(-counts // K_CHUNK) * K_CHUNK).sum()) or K_CHUNK
-    flat, off_c, usedc, _ = compact_bins(idx, counts, t_count, K_CHUNK, total)
-    sil = _silhouette_planar(det, mesh.adj)
-    packed = pack_binned(mesh.pos_c, mvp, mtx, flat, mesh.attrs, sil,
-                         mesh.degenerate, t_count)
+    packed, counts, off_c, used, telemetry = _compact_table(mesh, mtx, resolution)
+    dropped = int(telemetry["_bin_overflow"])
+    if dropped:
+        raise RuntimeError(f"gt render dropped {dropped} (tile, triangle) pairs: "
+                           f"more than {MAX_TRIS_PER_TILE} triangles in a tile")
     h, w = resolution
-    frame = _padded(resolution, tile_hw)
     ids, rows, _ = raster_fwd(
-        packed, counts.contiguous(), off_c, usedc, K_CHUNK, frame, tile_hw,
+        packed, counts, off_c, used, K_CHUNK, _padded(resolution), TILE_HW,
         (0, 0, h, w),
     )
     ids, rows = ids[:, :h, :w], rows[:, :, :h, :w]

@@ -263,8 +263,6 @@ def bin_triangles_planar(
     resolution: Tuple[int, int],
     tile_hw: Tuple[int, int],
     max_tris_per_tile: int,
-    margin_px: float = 0.0,
-    cull_backfaces: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Conservative tile binning, union over the batch, y-sorted slots
     (``planar.py:394-546``, its fused-rank ordering).
@@ -291,14 +289,10 @@ def bin_triangles_planar(
 
     px_min, px_max = minmax3(px)
     py_min, py_max = minmax3(py)
-    px_min, px_max = px_min - margin_px, px_max + margin_px
-    py_min, py_max = py_min - margin_px, py_max + margin_px
     behind = (
         _corner(behind_c, 0) | _corner(behind_c, 1) | _corner(behind_c, 2)
     ).any(dim=0)
     valid = (det != 0.0).any(dim=0)
-    if cull_backfaces:
-        valid = valid & ((det > 0.0).any(dim=0) | behind)
 
     def tile_range(lo, hi, size, n):
         a = torch.floor(lo / size).clamp(0, n - 1).to(torch.int32)

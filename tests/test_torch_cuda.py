@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from diffdope_tpu_torch import kernels
-from diffdope_tpu_torch.kernels.check import bench_problem, check_kernels
+from diffdope_tpu_torch.bench import bench_problem, distinct_poses
+from diffdope_tpu_torch.kernels.check import check_kernels
 from diffdope_tpu_torch.optimize import pose_matrix
 
 pytestmark = pytest.mark.cuda
@@ -31,12 +32,18 @@ def cuda():
 
 @pytest.fixture(scope="module")
 def problem(cuda):
-    return bench_problem(RES, subdiv=2, batch=B, device=cuda, spread=0.01)
+    return bench_problem(RES, subdiv=2, batch=B, device=cuda)
 
 
 @pytest.fixture(scope="module")
-def checks(problem):
-    mtx, _, _ = pose_matrix(problem["params0"])
+def params(problem):
+    """Each hypothesis at a pose of its own."""
+    return distinct_poses(problem["params0"], 0.01)
+
+
+@pytest.fixture(scope="module")
+def checks(problem, params):
+    mtx, _, _ = pose_matrix(params)
     d_sums = torch.tensor([[1.0, 0.7, 0.0], [0.5, 1.3, 0.0], [2.0, 0.2, 0.0]],
                           device=mtx.device)
     return {row["name"]: row for row in check_kernels(problem["fn"], mtx, d_sums)}
@@ -50,7 +57,7 @@ def test_kernel_matches_plain_on_card(checks, kernel):
     assert row["ok"], row
 
 
-def test_fused_loss_on_card_matches_cpu(problem):
+def test_fused_loss_on_card_matches_cpu(problem, params):
     """The whole step (table, spanning op, total) on the card, through the
     kernels, against the same step on the CPU, through the plain versions:
     loss rtol 1e-5, pose gradients rtol 2e-4 / atol 1e-6."""
@@ -59,12 +66,11 @@ def test_fused_loss_on_card_matches_cpu(problem):
     s = problem["scene"]
 
     def value_and_grad(fn, device):
-        params = {k: v.detach().to(device).requires_grad_(True)
-                  for k, v in problem["params0"].items()}
-        mtx, _, _ = pose_matrix(params)
+        p = {k: v.detach().to(device).requires_grad_(True) for k, v in params.items()}
+        mtx, _, _ = pose_matrix(p)
         total, _ = fn(mtx)
-        grads = torch.autograd.grad(total, list(params.values()))
-        return total.detach().cpu(), {k: g.cpu() for k, g in zip(params, grads)}
+        grads = torch.autograd.grad(total, list(p.values()))
+        return total.detach().cpu(), {k: g.cpu() for k, g in zip(p, grads)}
 
     fn_cpu = make_fused_loss(
         s["proj"], s["pos"], s["tri"], RES, problem["gt"], problem["lrs"],

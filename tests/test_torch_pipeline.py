@@ -18,18 +18,15 @@ def reference():
 
     from diffdope_tpu.optimize import pose_matrix as j_pose_matrix
 
-    mp = pytest.MonkeyPatch()
-    try:
-        fn = jax_fused_loss(mp)
-    finally:
-        mp.undo()
-
-    def loss(p):
-        total, logs = fn(j_pose_matrix(p)[0])
-        return total, logs
-
     params = {k: jax.numpy.asarray(v) for k, v in jax_scene()["params0"].items()}
-    (total, logs), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    with pytest.MonkeyPatch.context() as mp:
+        fn = jax_fused_loss(mp)
+
+        def loss(p):
+            total, logs = fn(j_pose_matrix(p)[0])
+            return total, logs
+
+        (total, logs), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
     return dict(total=np.asarray(total),
                 logs={k: np.asarray(v) for k, v in logs.items()},
                 grads={k: np.asarray(v) for k, v in grads.items()})
@@ -60,10 +57,10 @@ def test_torch_roi_crop_is_loss_exact():
     """The tile-aligned ROI crop around the gt support (here narrower than
     the 96x160 frame) gives the full frame's loss and gradients while no
     triangle leaks out of it."""
-    from diffdope_tpu_torch.kernels.check import bench_problem
+    from diffdope_tpu_torch.bench import bench_problem, distinct_poses
     from diffdope_tpu_torch.render.pipeline import make_fused_loss
 
-    pb = bench_problem((96, 160), subdiv=2, batch=2, device="cpu", spread=0.01)
+    pb = bench_problem((96, 160), subdiv=2, batch=2, device="cpu")
     s = pb["scene"]
     fn_full = make_fused_loss(
         s["proj"], s["pos"], s["tri"], (96, 160), pb["gt"], pb["lrs"],
@@ -72,7 +69,7 @@ def test_torch_roi_crop_is_loss_exact():
         roi_crop="off",
     )
     assert pb["fn"].crop is not None and fn_full.crop is None
-    params0 = {k: v.numpy() for k, v in pb["params0"].items()}
+    params0 = {k: v.numpy() for k, v in distinct_poses(pb["params0"], 0.01).items()}
     t_c, logs_c, g_c = _port_value_and_grad(pb["fn"], params0)
     t_f, _, g_f = _port_value_and_grad(fn_full, params0)
     assert int(logs_c["_crop_leak"]) == 0

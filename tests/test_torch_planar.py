@@ -5,7 +5,7 @@ on the JAX tests' small scene, from the same poses."""
 import numpy as np
 import torch
 
-from torch_scene import RES, jax_compact_table, jax_scene
+from torch_scene import COMPACT_TOTAL, JAX_TILE_HW, MAX_K, RES, jax_compact_table, jax_scene
 
 from diffdope_tpu_torch.render import planar as tp
 
@@ -28,7 +28,7 @@ def test_torch_binning_per_tile_sets():
     # of cancelling cross products, so agreement is absolute (~1e-7 on
     # values ~0.1), not relative.
     np.testing.assert_allclose(det.numpy(), ref["det"], rtol=1e-5, atol=1e-6)
-    idx, counts, ovf = tp.bin_triangles_planar(cp, det, RES, (32, 128), 512)
+    idx, counts, ovf = tp.bin_triangles_planar(cp, det, RES, JAX_TILE_HW, MAX_K)
     np.testing.assert_array_equal(counts.numpy(), ref["counts"])
     assert int(ovf) == 0
     for t in range(counts.shape[0]):
@@ -44,7 +44,7 @@ def test_torch_silhouette_and_compaction_exact():
     np.testing.assert_array_equal(sil.numpy(), ref["sil"])
     flat, off_c, used, ovf = tp.compact_bins(
         torch.as_tensor(ref["idx"]), torch.as_tensor(ref["counts"]),
-        tri.shape[0], ref["k_chunk"], 1024,
+        tri.shape[0], ref["k_chunk"], COMPACT_TOTAL,
     )
     np.testing.assert_array_equal(flat.numpy(), ref["flat"])
     np.testing.assert_array_equal(off_c.numpy(), ref["off_c"])

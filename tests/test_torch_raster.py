@@ -6,17 +6,17 @@ import numpy as np
 import pytest
 import torch
 
-from torch_scene import B, RES, jax_compact_table
+from torch_scene import B, JAX_TILE_HW, RES, jax_compact_table
 
 from diffdope_tpu_torch.render import raster as tr
 
 
-def _port_fwd(ref, tile_hw=(32, 128)):
+def _port_fwd(ref):
     hp, wp = ref["ids"].shape[1:]
     return tr.raster_fwd(
         torch.tensor(ref["packed"]), torch.tensor(ref["counts"]),
         torch.tensor(ref["off_c"]), torch.tensor(ref["used"]), ref["k_chunk"],
-        (hp, wp), tile_hw, (0, 0) + RES,
+        (hp, wp), JAX_TILE_HW, (0, 0) + RES,
     )
 
 
@@ -54,10 +54,10 @@ def test_torch_raster_bwd_per_triangle():
     d_ref = np.asarray(_compact_dbins(
         jnp.asarray(d_rows), jnp.asarray(ref["ids_cm"]), tids,
         jnp.asarray(ref["counts"]), jnp.asarray(ref["off_c"]),
-        jnp.asarray(ref["used"]), jnp.asarray(ref["bounds"]), RES, (32, 128),
+        jnp.asarray(ref["used"]), jnp.asarray(ref["bounds"]), RES, JAX_TILE_HW,
         True, True,
     ))
-    d_port = tr.raster_bwd(torch.tensor(d_rows), win, tot, (32, 128)).numpy()
+    d_port = tr.raster_bwd(torch.tensor(d_rows), win, tot, JAX_TILE_HW).numpy()
 
     tri = ref["packed"][0, 13].astype(np.int64)
     n = tri.max() + 1
@@ -79,10 +79,10 @@ def test_torch_raster_wrappers_check_inputs():
     hp, wp = ref["ids"].shape[1:]
     args = [torch.tensor(ref[k]) for k in ("packed", "counts", "off_c", "used")]
     with pytest.raises(ValueError, match="multiple of tile"):
-        tr.raster_fwd(*args, ref["k_chunk"], (hp, wp - 8), (32, 128), (0, 0) + RES)
+        tr.raster_fwd(*args, ref["k_chunk"], (hp, wp - 8), JAX_TILE_HW, (0, 0) + RES)
     with pytest.raises(TypeError):
         tr.raster_fwd(args[0].double(), *args[1:], ref["k_chunk"], (hp, wp),
-                      (32, 128), (0, 0) + RES)
+                      JAX_TILE_HW, (0, 0) + RES)
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError, match="unsupported device"):
-        tr.raster_fwd(*meta, ref["k_chunk"], (hp, wp), (32, 128), (0, 0) + RES)
+        tr.raster_fwd(*meta, ref["k_chunk"], (hp, wp), JAX_TILE_HW, (0, 0) + RES)

@@ -23,24 +23,21 @@ def reference():
 
     from diffdope_tpu.optimize import refine as j_refine
 
-    mp = pytest.MonkeyPatch()
-    try:
-        fn = jax_fused_loss(mp)
-    finally:
-        mp.undo()
     sc = jax_scene()
-    res = jax.jit(
-        functools.partial(
-            j_refine, render_fn=None, loss_fns=(), weights=WEIGHTS,
-            nb_iterations=STEPS - 1, base_lr=0.02, lr_decay=0.1,
-            optimizer="adam", fused_loss_fn=fn,
-        ),
-        static_argnames=("num_steps",),
-    )(
-        {k: jnp.asarray(v) for k, v in sc["params0"].items()},
-        gt=sc["gt"], learning_rates=jnp.asarray(LRS), opt_state=None,
-        num_steps=STEPS,
-    )
+    with pytest.MonkeyPatch.context() as mp:
+        fn = jax_fused_loss(mp)
+        res = jax.jit(
+            functools.partial(
+                j_refine, render_fn=None, loss_fns=(), weights=WEIGHTS,
+                nb_iterations=STEPS - 1, base_lr=0.02, lr_decay=0.1,
+                optimizer="adam", fused_loss_fn=fn,
+            ),
+            static_argnames=("num_steps",),
+        )(
+            {k: jnp.asarray(v) for k, v in sc["params0"].items()},
+            gt=sc["gt"], learning_rates=jnp.asarray(LRS), opt_state=None,
+            num_steps=STEPS,
+        )
     return jax.tree.map(np.asarray, res._replace(opt_state=None))
 
 

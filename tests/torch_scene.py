@@ -14,6 +14,10 @@ RES = (64, 96)
 B = 3
 LRS = np.asarray([1.0, 2.0, 0.5], np.float32)
 WEIGHTS = {"rgb": 0.7, "depth": 1.0, "mask": 1.0}
+#: the JAX compact table's tiles, capacity and per-tile bin size
+JAX_TILE_HW = (32, 128)
+COMPACT_TOTAL = 1024
+MAX_K = 512
 
 
 @functools.lru_cache(maxsize=None)
@@ -45,7 +49,7 @@ def jax_scene():
     gt_r = jax.jit(
         lambda m: render_batch(
             proj, m, pos, tri, RES, vtx_color=vtx_color, edge_adj=edge_adj,
-            raster_impl="pallas", layout="stacked", max_tris_per_tile=512,
+            raster_impl="pallas", layout="stacked", max_tris_per_tile=MAX_K,
         )
     )(mtx_gt)
     gt = {
@@ -65,7 +69,7 @@ def jax_scene():
 
 
 @functools.lru_cache(maxsize=None)
-def jax_compact_table(tile_hw=(32, 128), compact_total=1024, max_k=512):
+def jax_compact_table():
     """The JAX compact table and its raster at the scene's initial poses
     (``pipeline.make_fused_loss`` steps without the crop, interpret mode):
     every intermediate as numpy."""
@@ -85,7 +89,7 @@ def jax_compact_table(tile_hw=(32, 128), compact_total=1024, max_k=512):
     sc = jax_scene()
     tri = sc["tri"]
     t_count = tri.shape[0]
-    kc = _pick_chunk(compact_total)
+    kc = _pick_chunk(COMPACT_TOTAL)
     degenerate = np.zeros((t_count,), bool)
 
     @jax.jit
@@ -94,13 +98,13 @@ def jax_compact_table(tile_hw=(32, 128), compact_total=1024, max_k=512):
         pos_c = sc["pos"][tri.reshape(-1)]
         cp = corner_planes(pos_c, mvp)
         det = det_planar(cp, degenerate)
-        idx, counts, ovf = bin_triangles_planar(cp, det, RES, tile_hw, max_k)
+        idx, counts, ovf = bin_triangles_planar(cp, det, RES, JAX_TILE_HW, MAX_K)
         sil = _silhouette_planar(det, sc["edge_adj"])
-        flat, off_c, used, c_ovf = compact_bins(idx, counts, t_count, kc, compact_total)
+        flat, off_c, used, c_ovf = compact_bins(idx, counts, t_count, kc, COMPACT_TOTAL)
         attrs = sc["vtx_color"][tri.reshape(-1)].reshape(t_count, 3, 3)
         packed = pack_binned(pos_c, mvp, mtx, flat, attrs, sil, degenerate, t_count)
         ids_cm, idpix, rows, bounds = _fwd_from_bins_compact(
-            packed, counts, off_c, used, RES, tile_hw, idx.shape[1] // kc, True
+            packed, counts, off_c, used, RES, JAX_TILE_HW, idx.shape[1] // kc, True
         )
         return dict(mvp=mvp, det=det, idx=idx, counts=counts, overflow=ovf + c_ovf,
                     sil=sil, flat=flat, off_c=off_c, used=used, packed=packed,
@@ -111,19 +115,28 @@ def jax_compact_table(tile_hw=(32, 128), compact_total=1024, max_k=512):
     return out
 
 
-def jax_fused_loss(monkeypatch, compact_total=1024):
+def jax_fused_loss(monkeypatch):
     """The JAX fused loss in the slice's configuration: compact table,
-    spanning op, pack in plain XLA (DD_PACK=xla), f32 d_rows."""
+    spanning op, pack in plain XLA (DD_PACK=xla), f32 d_rows.
+
+    The reference reads DD_PACK when the loss is traced, so ``monkeypatch``
+    must stay in force until the caller's jit has traced it; while it is,
+    reaching the Pallas pack raises."""
+    from diffdope_tpu.render import pack_kernel
     from diffdope_tpu.render.pipeline import make_fused_loss
+
+    def no_pallas_pack(*args, **kwargs):
+        raise AssertionError("the slice's reference packs in XLA (DD_PACK=xla)")
 
     monkeypatch.setenv("DD_DROWS_BF16", "0")
     monkeypatch.setenv("DD_PACK", "xla")
+    monkeypatch.setattr(pack_kernel, "pack_binned_auto", no_pallas_pack)
     sc = jax_scene()
     return make_fused_loss(
         sc["proj"], sc["pos"], sc["tri"], RES, sc["gt"], LRS, WEIGHTS,
         use_rgb=True, use_mask=True, edge_adj=sc["edge_adj"],
-        vtx_color=sc["vtx_color"], max_tris_per_tile=512,
-        compact_total=compact_total,
+        vtx_color=sc["vtx_color"], max_tris_per_tile=MAX_K,
+        compact_total=COMPACT_TOTAL,
     )
 
 
