@@ -7,28 +7,87 @@ result line):
 
 1. the card (nvidia-smi name and power limit) and the torch, CUDA, nvcc
    and Triton versions;
-2. builds the hand kernels from ``diffdope_tpu_torch/csrc`` (nvcc, sm_90a)
-   and reports the build time;
-3. holds each kernel (K3 raster fwd, K4 raster bwd, K5 loss fwd, K6 loss
-   bwd) against its plain torch version on the card, at the test scene and
-   at the bench shapes, each hypothesis at a pose of its own, and times
-   both at the bench shapes;
-4. drives the main path: the bench protocol (B=64, 400x400, icosphere(5),
-   rgb+mask, 100 Adam steps) through ``make_fused_loss`` + ``refine``, with
-   every launch counter reset just before and read just after; the loss
-   must be finite and fall, the best hypothesis must end closer to the gt
-   pose (ADD) than it started, and no step may drop bin slots or leak out
-   of the ROI crop.
+2. builds the hand kernels from ``diffdope_tpu_torch/csrc`` (one nvcc per
+   source, in parallel, sm_90a) and reports the build time;
+3. holds each kernel (K1 pack fwd, K2 pack bwd, K3 raster fwd, K4 raster
+   bwd, K5 loss fwd, K6 loss bwd) against its plain torch version on the
+   card, at the test scene and at the bench shapes, each hypothesis at a
+   pose of its own (K1 bit for bit in all 32 lanes), and times both at the
+   bench shapes;
+4. drives the bench main path: the bench protocol (B=64, 400x400,
+   icosphere(5), rgb+mask, 100 Adam steps) through ``make_fused_loss`` +
+   ``refine``, with every launch counter reset just before and read just
+   after: all six kernels launched, every table packed by K1 (pack_fwd ==
+   raster_fwd); the loss must be finite and fall, the best hypothesis must
+   end closer to the gt pose (ADD) than it started, and no step may drop
+   bin slots or leak out of the ROI crop;
+5. drives ``DiffDope(cfg).run_optimization()`` at the default
+   configuration's full size (``DEFAULT_CONFIG``: configs/diffdope.yaml
+   with the in-repo stand-in mesh; 960x540, B=8, 61 SGD steps, mask L1),
+   the scene the port's own render at the configured pose, the init
+   ``INIT_OFFSET`` away: the fused route through K1-K6, no overflow or
+   crop leak left in the kept run (after at most one recovery re-run,
+   logged), the loss falls, ``get_pose()`` ends closer to the gt pose
+   (ADD) than the init, and K1-K6 agree with their plain versions on the
+   kept run's tables at its last poses;
+6. the same with ``tpu.fused_loss: false`` (the unfused render_batch
+   route): K1-K4 launched, K5/K6 not, K1-K4 agree with their plain
+   versions on its full-frame tables, its step-0 losses equal the fused
+   run's at rtol 1e-5, and the loss falls.
 
 The line before the last is the card; before it, one JSON object with a
 row per kernel.  The last line is ``{"ok": true, "device": {...}}``.
 Needs a CUDA device: it does not fall back to the CPU.
 """
 
+import copy
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+#: configs/diffdope.yaml, with the in-repo stand-in mesh in place of the
+#: AlphabetSoup scan (absent from the repo); the scene is rendered, not read
+DEFAULT_CONFIG = {
+    "camera": {"fx": 1390.53, "fy": 1386.99, "cx": 964.957, "cy": 522.586,
+               "im_width": 1920, "im_height": 1080},
+    "scene": {"image_resize": 0.5},
+    "object3d": {
+        "position": [-161.16877980209404, 206.22094040904116, 747.151333695172],
+        "scale": 0.01,
+        "rotation": [-0.7913458966114294, 0.07584660081839613, 0.6066456668109877,
+                     0.46529349746608056, 0.7183778584745024, 0.5171413865369608,
+                     -0.39657739866517305, 0.6915059982370961, -0.6037763006860087],
+        "model_path": "data/standins/standin_asym.ply",
+    },
+    "losses": {"l1_rgb_with_mask": False, "weight_rgb": 0.7,
+               "l1_depth_with_mask": False, "weight_depth": 1,
+               "l1_mask": True, "weight_mask": 1},
+    "hyperparameters": {"nb_iterations": 60, "batchsize": 8, "base_lr": 20,
+                        "learning_rates_bound": [0.01, 100],
+                        "learning_rate_base": 1, "lr_decay": 0.1},
+    "render_images": {"nrow": 4, "final_width_batch": 2000, "add_background": True,
+                      "alpha_overlay": 0.7, "add_countour": True,
+                      "color_countour": [0.46, 0.73, 0], "flip_result": True,
+                      "crop_around_mask": True},
+    "tpu": {"seed": 0, "optimizer": "sgd", "raster_impl": "auto", "tile_h": 32,
+            "tile_w": 128, "max_tris_per_tile": "auto", "texture_mode": "baked",
+            "fused_loss": True, "precompute_bins": False, "bin_margin_px": 24.0,
+            "compact_bins": True, "compact_total": None, "cull_backfaces": "auto",
+            "scan_segment": 40, "progress": True, "live_loss": "segment",
+            "mesh_axis": 1, "init_jitter_deg": 0.0, "init_jitter_trans": 0.0,
+            "restarts": 0, "restart_jitter_deg": 10.0, "restart_jitter_trans": 0.02,
+            "overflow_recovery": True, "overflow_retries": 2,
+            "argmin_rule": "best_step", "roi_crop": "auto"},
+}
+#: the DiffDope phases' init: the configured pose moved by this OpenCV-frame
+#: translation (mm, before the 0.01 scale) and rotated by this many degrees
+#: about ``axis``; the default SGD configuration recovers it (the phase
+#: prints the ADD before and after)
+INIT_OFFSET = {"translation_mm": [5.0, -5.0, 0.0], "degrees": 4.0, "axis": [0.0, 1.0, 0.0]}
 
 
 def fail(msg: str) -> None:
@@ -57,14 +116,155 @@ def versions() -> str:
             f"nvcc {nvcc}, triton {tri}")
 
 
-def add_error(pos, mtx_a, mtx_b) -> "torch.Tensor":
-    """ADD: mean distance between the model's vertices under two poses."""
+def check_all(fn, mtx, d_sums, reps=0):
+    """K1-K6 against their plain versions on ``fn``'s tables at ``mtx``."""
+    from diffdope_tpu_torch.kernels.check import check_kernels, check_pack
+
+    return check_pack(fn, mtx, reps) + check_kernels(fn, mtx, d_sums, reps)
+
+
+def diffdope_session(fused: bool, offset=None, tpu=None):
+    """A DiffDope on the card at ``DEFAULT_CONFIG`` (``tpu`` entries
+    overriding its tpu group): the scene is the port's render at the
+    configured pose, the init that pose moved by ``offset`` (default
+    ``INIT_OFFSET``).  Returns the session, the mesh's vertices (for ADD)
+    and the gt pose."""
+    import numpy as np
     import torch
 
-    p = torch.as_tensor(pos, device=mtx_a.device)
-    pa = p @ mtx_a[..., :3, :3].transpose(-1, -2) + mtx_a[..., None, :3, 3]
-    pb = p @ mtx_b[..., :3, :3].transpose(-1, -2) + mtx_b[..., None, :3, 3]
-    return (pa - pb).norm(dim=-1).mean(dim=-1)
+    from diffdope_tpu_torch.camera import Camera
+    from diffdope_tpu_torch.config import ConfigNode
+    from diffdope_tpu_torch.diffdope import DiffDope
+    from diffdope_tpu_torch.geometry import (
+        matrix33_from_quat,
+        quat_from_axis_angle,
+        quat_from_matrix33,
+    )
+    from diffdope_tpu_torch.image import Image, Scene
+    from diffdope_tpu_torch.object3d import Object3D
+    from diffdope_tpu_torch.optimize import pose_matrix
+    from diffdope_tpu_torch.render.pipeline import compact_capacity, render_batch
+
+    offset = INIT_OFFSET if offset is None else offset
+    cfg = ConfigNode(copy.deepcopy(DEFAULT_CONFIG))
+    cfg.object3d.model_path = str(HERE / cfg.object3d.model_path)
+    cfg.tpu.fused_loss = fused
+    for key, value in (tpu or {}).items():
+        cfg.tpu[key] = value
+    camera = Camera(**cfg.camera)
+    h = int(cfg.camera.im_height * cfg.scene.image_resize)
+    w = int(cfg.camera.im_width * cfg.scene.image_resize)
+    gt_obj = Object3D(**cfg.object3d)
+    mesh = gt_obj.mesh
+    mtx_gt = pose_matrix(gt_obj.initial_params(1))[0]
+    # the gt render bins every triangle a tile touches: no capacity to drop
+    t_all = len(mesh.pos_idx)
+    cap = compact_capacity(camera.cam_proj, mesh.pos, mesh.pos_idx, mtx_gt, (h, w), t_all)
+    with torch.no_grad():
+        gt = render_batch(camera.cam_proj, mtx_gt, mesh.pos, mesh.pos_idx, (h, w),
+                          vtx_color=mesh.vtx_color, edge_adj=mesh.edge_adj,
+                          max_tris_per_tile=t_all, compact_total=cap)
+    if int(gt["_bin_overflow"]) != 0:
+        fail(f"the gt render dropped {int(gt['_bin_overflow'])} (tile, triangle) pairs")
+    scene = Scene(tensor_rgb=Image(img_tensor=gt["rgb"][0].cpu().numpy()),
+                  tensor_depth=Image(img_tensor=gt["depth"][0].cpu().numpy(), depth=True),
+                  tensor_segmentation=Image(img_tensor=gt["mask"][0].cpu().numpy()))
+
+    # the init: the configured OpenCV-frame pose, offset
+    o3 = cfg.object3d
+    rot_cv = np.asarray(o3.rotation, np.float64).reshape(3, 3)
+    dq = quat_from_axis_angle(np.asarray(offset["axis"]), np.deg2rad(offset["degrees"]))
+    dr = matrix33_from_quat(torch.as_tensor(dq)).numpy()
+    obj = Object3D(position=np.asarray(o3.position) + offset["translation_mm"],
+                   rotation=quat_from_matrix33(dr @ rot_cv),
+                   batchsize=cfg.hyperparameters.batchsize, scale=o3.scale, mesh=mesh)
+    dd = DiffDope(cfg=cfg, camera=camera, object3d=obj, scene=scene)
+    points = torch.as_tensor(mesh.pos[: mesh.num_vertices], device="cuda")
+    return dd, points, mtx_gt[0]
+
+
+def add_to(points, mtx_gt, m) -> float:
+    """ADD of pose ``m`` (4x4, OpenGL frame) against ``mtx_gt`` on ``points``."""
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch.metrics import add_metric
+
+    m = torch.as_tensor(np.asarray(m), device="cuda", dtype=torch.float64)
+    g = mtx_gt.to(device="cuda", dtype=torch.float64)
+    return float(add_metric(points.double(), m[:3, :3], m[:3, 3], g[:3, :3], g[:3, 3]))
+
+
+def diffdope_phase(fused: bool, gpu: str):
+    """One default-configuration DiffDope run on the card, then K1-K6 (K1-K4
+    on the unfused route) against their plain versions on its tables;
+    returns the session, its launch counts, and the ADD of the init and of
+    get_pose()."""
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch import kernels
+
+    dd, points, mtx_gt = diffdope_session(fused)
+    h, w = dd.resolution
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    dd.run_optimization()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    route = "fused" if fused else "unfused"
+    # the kernels at this phase's shapes: the kept run's tables (its final
+    # capacities and crop, or the unfused route's full frame) at its last
+    # poses, which differ per hypothesis
+    fn = dd._make_fused_loss_fn(dd.gt_tensors) if fused else dd._make_render_fn()
+    mtx_last = torch.as_tensor(dd.mtx_history[-1], device="cuda")
+    d_sums = torch.as_tensor(np.random.default_rng(2).uniform(0.5, 2.0, (dd.batchsize, 3)),
+                             dtype=torch.float32, device="cuda")
+    for row in check_all(fn, mtx_last, d_sums):
+        print(f"DiffDope {route} shapes {row['name']}: ok={row['ok']} "
+              f"max_abs_err={row['max_abs_err']:.3e} ({row['tolerance']})", flush=True)
+        if not row["ok"]:
+            fail(f"{row['name']} disagrees with its plain version on the DiffDope "
+                 f"{route} tables: {row}")
+    stats = dd.last_run_stats
+    print(f"DiffDope {route}: {stats['steps']} steps, B={dd.batchsize}, {w}x{h}: "
+          f"kept run {stats['wall_time_s']:.4f} s, {stats['steps_per_sec']:.3f} steps/s; "
+          f"run_optimization {total_s:.4f} s with {stats['recovery_reruns']} re-run(s); "
+          f"peak {peak_gib:.3f} GiB [{gpu}]", flush=True)
+    print(f"DiffDope {route} launches: {launches}", flush=True)
+    return (dd, launches, add_to(points, mtx_gt, dd.object3d.initial_matrix()),
+            add_to(points, mtx_gt, dd.get_pose()))
+
+
+def check_diffdope(dd, route, add0, add1):
+    telem = dd._result.telemetry or {}
+    for key in ("_bin_overflow", "_crop_leak"):
+        worst = int(telem[key].max()) if key in telem else 0
+        print(f"DiffDope {route} {key}: max {worst} per step", flush=True)
+        if worst != 0:
+            fail(f"DiffDope {route}: {key} is {worst} after the recovery")
+    reruns = dd.last_run_stats["recovery_reruns"]
+    print(f"DiffDope {route}: {reruns} recovery re-run(s) (capacity boost "
+          f"{getattr(dd, '_capacity_boost', 1.0)}, slots seen "
+          f"{getattr(dd, '_slots_seen', 0)}, crop disabled "
+          f"{getattr(dd, '_crop_disable', False)})", flush=True)
+    if reruns > 1:
+        fail(f"DiffDope {route}: {reruns} recovery re-runs (at most one allowed)")
+    total = dd._result.total_loss.cpu()
+    print(f"DiffDope {route} loss: first {float(total[0]):.6f}, last "
+          f"{float(total[-1]):.6f}; argmin {dd.get_argmin()}; ADD {add0:.6f} -> "
+          f"{add1:.6f} (object units)", flush=True)
+    if not bool(total.isfinite().all()):
+        fail(f"DiffDope {route}: non-finite loss")
+    if not float(total[-1]) < float(total[0]):
+        fail(f"DiffDope {route}: the loss did not fall")
+    if not add1 < add0:
+        fail(f"DiffDope {route}: get_pose() did not end closer to the gt pose")
 
 
 def main() -> None:
@@ -80,7 +280,8 @@ def main() -> None:
         distinct_poses,
         run_refinement,
     )
-    from diffdope_tpu_torch.kernels.check import COUNTERS, KERNELS, check_kernels
+    from diffdope_tpu_torch.kernels.check import COUNTERS, KERNELS
+    from diffdope_tpu_torch.metrics import add_metric
     from diffdope_tpu_torch.optimize import argmin_hypothesis, pose_matrix
 
     gpu = card()
@@ -91,8 +292,8 @@ def main() -> None:
 
     t0 = time.perf_counter()
     kernels.library()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
-          f"{' '.join(kernels.NVCC_FLAGS)})", flush=True)
+    print(f"build: {time.perf_counter() - t0:.2f} s ({len(kernels.SOURCES)} nvcc in "
+          f"parallel: {' '.join(kernels.NVCC_FLAGS)})", flush=True)
 
     # ---- kernels against their plain versions --------------------------------
     # every check runs on distinct poses, so a kernel that reads another
@@ -101,7 +302,7 @@ def main() -> None:
     mtx, _, _ = pose_matrix(distinct_poses(small["params0"], 0.01))
     d_small = torch.tensor([[1.0, 0.7, 0.0], [0.5, 1.3, 0.0], [2.0, 0.2, 0.0]],
                            device="cuda")
-    for row in check_kernels(small["fn"], mtx, d_small):
+    for row in check_all(small["fn"], mtx, d_small):
         print(f"test scene {row['name']}: ok={row['ok']} "
               f"max_abs_err={row['max_abs_err']:.3e} ({row['tolerance']})", flush=True)
         if not row["ok"]:
@@ -116,15 +317,16 @@ def main() -> None:
         dtype=torch.float32, device="cuda",
     )
     bench_rows = {}
-    for row in check_kernels(problem["fn"], mtx, d_sums, reps=20):
+    for row in check_all(problem["fn"], mtx, d_sums, reps=20):
         print(f"bench shapes {row['name']}: ok={row['ok']} "
               f"max_abs_err={row['max_abs_err']:.3e} kernel {row['ms']:.4f} ms, "
-              f"plain {row['plain_ms']:.4f} ms [{gpu}]", flush=True)
+              f"plain {row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
+              f"({row['bound'][1]}) [{gpu}]", flush=True)
         if not row["ok"]:
             fail(f"{row['name']} disagrees with its plain version at bench shapes: {row}")
         bench_rows[row["name"]] = row
 
-    # ---- the main path ------------------------------------------------------
+    # ---- the bench main path ------------------------------------------------
     run_refinement(problem)  # warm-up: allocator, caches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -140,6 +342,8 @@ def main() -> None:
     for name, counter in COUNTERS.items():
         if launches[counter] <= 0:
             fail(f"{name} was not launched by the main path")
+    if launches["pack_fwd"] != launches["raster_fwd"]:
+        fail("a table of the main path was not packed by K1")
 
     total = res.total_loss.cpu()
     if not bool(torch.isfinite(total).all()):
@@ -159,12 +363,36 @@ def main() -> None:
     pos = problem["scene"]["pos"]
     mtx_gt = problem["mtx_gt"][0]
     start, _, _ = pose_matrix(problem["params0"])
-    add0 = float(add_error(pos, start[best], mtx_gt))
-    add1 = float(add_error(pos, final[best], mtx_gt))
+
+    def add(m):
+        return float(add_metric(pos, m[:3, :3], m[:3, 3], mtx_gt[:3, :3], mtx_gt[:3, 3]))
+
+    add0, add1 = add(start[best]), add(final[best])
     print(f"best hypothesis {best}: ADD {add0:.6f} -> {add1:.6f} (object units)",
           flush=True)
     if not add1 < add0:
         fail("the best hypothesis did not end closer to the gt pose")
+
+    # ---- DiffDope at the default configuration ------------------------------
+    dd_f, launches_f, add0, add1 = diffdope_phase(True, gpu)
+    for name, counter in COUNTERS.items():
+        if launches_f[counter] <= 0:
+            fail(f"DiffDope fused: {name} was not launched")
+    check_diffdope(dd_f, "fused", add0, add1)
+
+    dd_u, launches_u, add0, add1 = diffdope_phase(False, gpu)
+    for counter in ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd"):
+        if launches_u[counter] <= 0:
+            fail(f"DiffDope unfused: {counter} was not launched")
+    if launches_u["loss_fwd"] or launches_u["loss_bwd"]:
+        fail("DiffDope unfused: the fused loss kernels ran")
+    check_diffdope(dd_u, "unfused", add0, add1)
+    for key, v in dd_f.losses_values.items():
+        u = dd_u.losses_values[key][0]
+        if not np.allclose(u, v[0], rtol=1e-5, atol=0.0):
+            fail(f"DiffDope: step-0 '{key}' of the unfused route {u} differs from "
+                 f"the fused route's {v[0]} beyond rtol 1e-5")
+    print("DiffDope: step-0 losses of the two routes agree at rtol 1e-5", flush=True)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -172,7 +400,8 @@ def main() -> None:
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[COUNTERS[name]], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None,
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu, flush=True)

@@ -11,16 +11,23 @@ This package imports torch and numpy only: never jax, and never
 reference's, so each counterpart is easy to find.
 """
 
+from diffdope_tpu_torch.camera import Camera
+from diffdope_tpu_torch.config import ConfigNode, load_config
+from diffdope_tpu_torch.diffdope import DiffDope
 from diffdope_tpu_torch.geometry import (
     matrix33_from_quat,
     matrix44_from_quat_trans,
+    opencv_to_opengl,
+    opengl_to_opencv,
     projection_from_intrinsics,
     quat_from_axis_angle,
     quat_multiply,
     quat_normalize,
 )
+from diffdope_tpu_torch.image import Image, Scene
 from diffdope_tpu_torch.losses import select_losses
-from diffdope_tpu_torch.mesh import build_edge_adjacency
+from diffdope_tpu_torch.mesh import Mesh, build_edge_adjacency, load_mesh
+from diffdope_tpu_torch.object3d import Object3D
 from diffdope_tpu_torch.optimize import (
     RefineResult,
     argmin_hypothesis,
@@ -29,7 +36,11 @@ from diffdope_tpu_torch.optimize import (
     refine,
 )
 from diffdope_tpu_torch.render.fused_loss import raster_loss_compact
-from diffdope_tpu_torch.render.pipeline import make_fused_loss, render_rgb_mask
+from diffdope_tpu_torch.render.pipeline import (
+    make_fused_loss,
+    render_batch,
+    render_rgb_mask,
+)
 from diffdope_tpu_torch.testing import icosphere
 
 __version__ = "0.1.0"

@@ -73,7 +73,7 @@ def bench_problem(resolution=RES, subdiv=5, batch=BATCH,
     gt_np = {"rgb": gt["rgb"][0].cpu().numpy(),
              "segmentation": gt["mask"][0].cpu().numpy()}
     lrs = np.random.default_rng(0).uniform(0.5, 4.0, batch).astype(np.float32)
-    terms, weights = select_losses(
+    _, weights = select_losses(
         {"l1_mask": True, "weight_mask": 1.0,
          "l1_rgb_with_mask": True, "weight_rgb": 0.7}
     )
@@ -81,7 +81,7 @@ def bench_problem(resolution=RES, subdiv=5, batch=BATCH,
                              device=device)
     fn = make_fused_loss(
         s["proj"], s["pos"], s["tri"], resolution, gt_np, lrs, weights,
-        use_rgb="l1_rgb_with_mask" in terms, use_mask="l1_mask" in terms,
+        use_rgb=True, use_mask=True,
         edge_adj=s["edge_adj"], vtx_color=s["vtx_color"], compact_total=total,
         device=device,
     )
@@ -104,7 +104,7 @@ def run_refinement(problem, steps: int = STEPS):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = refine(
-        problem["params0"], problem["fn"], nb_iterations=steps - 1,
+        problem["params0"], fused_loss_fn=problem["fn"], nb_iterations=steps - 1,
         base_lr=0.02, lr_decay=0.1, optimizer="adam",
     )
     torch.cuda.synchronize()

@@ -6,7 +6,8 @@ the per-hypothesis loss scales and the projection.  :func:`state` takes
 the JAX package's inputs as numpy arrays (``np.asarray`` of a jax array
 works), nested in dicts as the reference passes them, and returns the
 port's tensors on a given device, so both packages compute from
-identical inputs.
+identical inputs.  :func:`diffdope_state` reads the same state off a
+reference ``DiffDope`` session.
 """
 
 from __future__ import annotations
@@ -39,4 +40,31 @@ def state(arrays: Dict[str, object], device) -> Dict[str, object]:
             out[k] = None
         else:
             out[k] = tensor(v, device, torch.int64 if k in INDEX_KEYS else torch.float32)
+    return out
+
+
+def diffdope_state(dd) -> Dict[str, object]:
+    """A reference ``DiffDope``'s state as numpy: the mesh arrays ('pos',
+    'pos_idx', 'edge_adj', 'vtx_color' or 'corner_colors', 'is_closed',
+    'is_oriented'), the projection 'proj', the initial pose 'params0'
+    (seven (B,) arrays), the loss scales 'learning_rates' and the gt
+    arrays 'gt'.  Read by attribute only, so this module needs no jax: a
+    port ``DiffDope`` built from these computes the same refinement."""
+    mesh = dd.object3d.mesh
+    out = {
+        "pos": np.asarray(mesh.pos),
+        "pos_idx": np.asarray(mesh.pos_idx),
+        "edge_adj": None if mesh.edge_adj is None else np.asarray(mesh.edge_adj),
+        "is_closed": bool(mesh.is_closed),
+        "is_oriented": bool(mesh.is_oriented),
+        "proj": np.asarray(dd.camera.cam_proj),
+        "params0": {k: np.asarray(v)
+                    for k, v in dd.object3d.initial_params(dd.batchsize).items()},
+        "learning_rates": np.asarray(dd.learning_rates),
+        "gt": {k: np.asarray(v) for k, v in dd.gt_tensors.items()},
+    }
+    if mesh.corner_colors is not None:
+        out["corner_colors"] = np.asarray(mesh.corner_colors)
+    else:
+        out["vtx_color"] = np.asarray(mesh.vtx_color)
     return out

@@ -25,8 +25,8 @@
 // of, the mask term through the pair's lam into that edge line's lanes 0-8.
 // Tie rules are JAX's: d|x|/dx = +1 at 0, maximum/clip split 0.5/0.5.
 //
-// Bound on this card: the rows reads — 24 of the 32 lanes of a pixel and of
-// its foreground neighbours, about 5 x 96 bytes per pixel (memory bound).
+// Bound on this card: the rows reads — 23 of the 32 lanes (0-12, 14, 16-24)
+// of each foreground pixel (memory bound).
 //
 // Numeric contract (build with -fmad=false, no fast math): every product
 // and sum is rounded as in the reference's f32 expression order.

@@ -1,0 +1,507 @@
+"""DiffDope: the user-facing refinement session (counterpart of
+``diffdope_tpu/diffdope.py``).
+
+Same surface: ``DiffDope(cfg=cfg).run_optimization()``, then
+``get_argmin()``, ``get_pose()``, ``get_pose_opencv()``, ``renders``,
+``optimization_results``, ``add_loss_value()``, ``set_batchsize()``.  It
+runs on the card unless ``device`` says otherwise.
+
+A run takes one of two routes, as the reference's does:
+
+- the fused route (``make_fused_loss``: K1 -> K3 -> K5, backward
+  K6 -> K4 -> K2) for the standard mask / rgb losses;
+- the unfused route (``render_batch``: K1 -> K3, plain shade and
+  antialiasing, backward K4 -> K2, then the loss functions) for
+  ``tpu.fused_loss: false``, custom losses and the depth loss, which the
+  fused route does not port yet.
+
+Settings the port reads differently: ``tpu.tile_h`` / ``tpu.tile_w`` are
+TPU layout knobs and are not read (the port's raster tile is
+``pipeline.TILE_HW``); ``tpu.max_tris_per_tile`` and
+``tpu.compact_total`` count the port's tiles and slots; ``tpu.live_loss``
+is read as ``segment``.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from diffdope_tpu_torch.camera import Camera
+from diffdope_tpu_torch.config import ConfigNode
+from diffdope_tpu_torch.geometry import opengl_to_opencv
+from diffdope_tpu_torch.image import Scene
+from diffdope_tpu_torch.losses import LOSS_REGISTRY, select_losses
+from diffdope_tpu_torch.object3d import Object3D
+from diffdope_tpu_torch.optimize import (
+    argmin_step_hypothesis,
+    draw_learning_rates,
+    pose_matrix,
+    refine_segmented,
+)
+from diffdope_tpu_torch.render.pipeline import (
+    CAPACITY_SLACK,
+    K_CHUNK,
+    _Mesh,
+    _binned,
+    _compact_table,
+    _padded,
+    _render,
+    compact_capacity,
+    make_fused_loss,
+    max_tile_count,
+)
+
+log = logging.getLogger(__name__)
+
+#: 'auto' capacities over the init probe's: per-tile K and the compact
+#: table.  The reference's are x1.5 and x1.35 on its 32x128 tiles; on the
+#: port's 16x16 tiles the batch's bins grow far more as the hypotheses
+#: spread: along four default-configuration trajectories the fullest tile
+#: grew to 2.9x and the table's need to 4.6x the probe's, the reference's
+#: to 1.2x and 1.5x of its own (tools/port_capacity_study.py)
+TILE_MARGIN = 3.0
+TABLE_MARGIN = 5.0
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+
+
+class RenderHistory:
+    """Per-step renders on demand from the stored pose trajectory
+    (``results[i]['rgb'|'depth'|'mask'|'mtx']``, numpy), memoized."""
+
+    def __init__(self, ddope: "DiffDope"):
+        self._dd = ddope
+        self._cache: Dict[int, dict] = {}
+
+    def __len__(self) -> int:
+        h = self._dd.mtx_history
+        return 0 if h is None else h.shape[0]
+
+    def __getitem__(self, index: int) -> dict:
+        n = len(self)
+        if index < 0:
+            index += n
+        if not 0 <= index < n:
+            raise IndexError(index)
+        if index not in self._cache:
+            mtx = self._dd.mtx_history[index]
+            with torch.no_grad():
+                renders = self._dd._render(torch.as_tensor(mtx, device=self._dd.device))
+            entry = {k: renders[k].cpu().numpy() for k in ("rgb", "depth", "mask")}
+            entry["mtx"] = np.asarray(mtx)
+            if len(self._cache) > 8:  # bound memory
+                self._cache.pop(next(iter(self._cache)))
+            self._cache[index] = entry
+        return self._cache[index]
+
+
+class DiffDope:
+    """Differentiable pose refinement session.
+
+    Args:
+        cfg: ConfigNode (see configs/diffdope.yaml): groups ``camera``,
+            ``object3d``, ``scene``, ``losses``, ``hyperparameters``, ``tpu``.
+        camera / object3d / scene: pre-built components, in place of the
+            config's groups.
+        device: where the refinement runs (default the card).
+    """
+
+    def __init__(self, cfg: Optional[ConfigNode] = None,
+                 camera: Optional[Camera] = None,
+                 object3d: Optional[Object3D] = None,
+                 scene: Optional[Scene] = None,
+                 batchsize: Optional[int] = None,
+                 device="cuda"):
+        self.cfg = cfg if cfg is not None else ConfigNode()
+        self.device = torch.device(device)
+        tpu_cfg = self.cfg.get("tpu", ConfigNode())
+        self.seed = int(tpu_cfg.get("seed", 0))
+        self.optimizer_name = str(tpu_cfg.get("optimizer", "sgd"))
+        self.raster_impl = str(tpu_cfg.get("raster_impl", "auto"))
+        if self.raster_impl == "reference":
+            raise _not_ported("the reference (XLA) rasterizer, raster_impl=reference", 5)
+        mk = tpu_cfg.get("max_tris_per_tile", "auto")
+        self.max_tris_per_tile = mk if mk == "auto" else int(mk)
+
+        self.camera = camera if camera is not None else Camera(**self.cfg.camera)
+        self.object3d = (
+            object3d if object3d is not None else Object3D(**self.cfg.object3d)
+        )
+        self.scene = scene if scene is not None else Scene(**self.cfg.scene)
+
+        hp = self.cfg.get("hyperparameters", ConfigNode())
+        self.batchsize = int(batchsize or hp.get("batchsize", 16))
+        self.nb_iterations = int(hp.get("nb_iterations", 60))
+        self.base_lr = float(hp.get("base_lr", 20.0))
+        self.lr_decay = float(hp.get("lr_decay", 0.1))
+        self.learning_rates_bound = list(hp.get("learning_rates_bound", [0.01, 100]))
+
+        self.resolution = self.scene.get_resolution()  # [H, W]
+        self.loss_functions, self.loss_weights = select_losses(
+            self.cfg.get("losses", ConfigNode({"l1_mask": True}))
+        )
+
+        self.mtx_history: Optional[np.ndarray] = None
+        self.losses_values: Dict[str, np.ndarray] = {}
+        self.optimization_results = RenderHistory(self)
+        self.last_run_stats: Dict[str, float] = {}
+        self._render_fn = None
+        self.set_batchsize(self.batchsize)
+
+    # ------------------------------------------------------------------ #
+    # configuration
+    # ------------------------------------------------------------------ #
+    def set_batchsize(self, batchsize: int) -> None:
+        """Set the hypothesis count and redraw the per-hypothesis loss
+        scales from the seed."""
+        self.batchsize = int(batchsize)
+        self.object3d.set_batchsize(self.batchsize)
+        self.learning_rates = draw_learning_rates(
+            self.seed, self.batchsize, self.learning_rates_bound, self.device
+        )
+
+    def set_object3d(self, object3d: Object3D) -> None:
+        """Swap the optimized object in place."""
+        self.object3d = object3d
+        self.object3d.set_batchsize(self.batchsize)
+        self._render_fn = None
+
+    def set_scene(self, scene: Scene) -> None:
+        """Swap the ground-truth scene in place."""
+        self.scene = scene
+        self.resolution = self.scene.get_resolution()
+        self._render_fn = None
+
+    def add_loss_function(self, fn: Callable) -> None:
+        """Append a custom loss ``fn(renders, gt, learning_rates, weights)
+        -> (scalar, (key, (B,)))``; it runs on the unfused route."""
+        self.loss_functions = list(self.loss_functions) + [fn]
+
+    @property
+    def gt_tensors(self) -> Dict[str, np.ndarray]:
+        """Ground-truth arrays {'rgb', 'depth', 'segmentation'} (unbatched)."""
+        return self.scene.gt_arrays()
+
+    def _tpu(self) -> ConfigNode:
+        return self.cfg.get("tpu", ConfigNode())
+
+    # ------------------------------------------------------------------ #
+    # render and loss closures
+    # ------------------------------------------------------------------ #
+    def _mesh_arrays(self) -> dict:
+        mesh = self.object3d.mesh
+        if mesh is None:
+            raise ValueError("Object3D has no mesh attached")
+        if mesh.has_textured_map and mesh.corner_colors is None:
+            raise _not_ported("rendering a texture map (texture_mode exact)", 4)
+        out = {
+            "pos": np.asarray(mesh.pos),
+            "pos_idx": np.asarray(mesh.pos_idx),
+            "edge_adj": None if mesh.edge_adj is None else np.asarray(mesh.edge_adj),
+        }
+        if mesh.corner_colors is not None:
+            out["corner_colors"] = np.asarray(mesh.corner_colors)
+        else:
+            out["vtx_color"] = np.asarray(mesh.vtx_color)
+        return out
+
+    def _mtx0(self) -> torch.Tensor:
+        return pose_matrix(self.object3d.initial_params(1, self.device))[0]
+
+    def _resolve_max_tris(self, arrays, proj, resolution) -> int:
+        """'auto': the initial pose's fullest tile x ``TILE_MARGIN``, at
+        least 512, rounded to 128, at most T (``diffdope.py:222-266``, there
+        x1.5); the overflow recovery's boost grows explicit values too."""
+        boost = getattr(self, "_capacity_boost", 1.0)
+        t_cap = int(arrays["pos_idx"].shape[0])
+        if self.max_tris_per_tile != "auto":
+            k = int(self.max_tris_per_tile)
+            if boost > 1.0:
+                k = min(t_cap, -(-int(k * boost) // 128) * 128)
+            return k
+        max_count = max_tile_count(proj, arrays["pos"], arrays["pos_idx"],
+                                   self._mtx0(), resolution, self.device)
+        k = min(t_cap, max(512, -(-int(max_count * TILE_MARGIN * boost) // 128) * 128))
+        log.info("auto max_tris_per_tile: measured %d -> K=%d", max_count, k)
+        return k
+
+    def _resolve_compact_total(self, arrays, proj, resolution, max_tris) -> int:
+        """The compact table's capacity: ``tpu.compact_total`` (rounded up to
+        the chunk), else the initial pose's chunk-padded occupancy x
+        ``TABLE_MARGIN`` (x the recovery's boost) plus a chunk
+        (``diffdope.py:268-316``, there x1.35).  After an overflow it is at
+        least the most slots a step of the failed run needed ('_bin_need')
+        x 1.35 plus a chunk, which a x1.5 boost need not reach."""
+        tpu_cfg = self._tpu()
+        if not bool(tpu_cfg.get("compact_bins", True)):
+            raise _not_ported("the uniform-K bin table (compact_bins: false, K7)", 2)
+        override = tpu_cfg.get("compact_total", None)
+        if override:
+            return -(-int(override) // K_CHUNK) * K_CHUNK
+        total = compact_capacity(proj, arrays["pos"], arrays["pos_idx"], self._mtx0(),
+                                 resolution, max_tris,
+                                 getattr(self, "_capacity_boost", 1.0), self.device,
+                                 TABLE_MARGIN)
+        seen = getattr(self, "_slots_seen", 0)
+        total = max(total, -(-int(seen * CAPACITY_SLACK + K_CHUNK) // K_CHUNK) * K_CHUNK)
+        log.info("compact bin table capacity %d", total)
+        return total
+
+    def _resolve_cull(self) -> bool:
+        """tpu.cull_backfaces: auto | true | false (default auto).  auto
+        culls only closed, consistently wound meshes
+        (``diffdope.py:318-346``)."""
+        val = self._tpu().get("cull_backfaces", "auto")
+        if isinstance(val, bool):
+            return val
+        sval = str(val).lower()
+        if sval in ("true", "1", "on"):
+            return True
+        if sval in ("false", "0", "off"):
+            return False
+        mesh = self.object3d.mesh
+        return bool(getattr(mesh, "is_closed", False)
+                    and getattr(mesh, "is_oriented", False))
+
+    def _make_render_fn(self, layout: str = "channels"):
+        """``mtx -> render_batch(...)`` on the mesh, prepared once."""
+        arrays = self._mesh_arrays()
+        proj = np.asarray(self.camera.cam_proj, np.float32)
+        resolution = tuple(self.resolution)
+        max_tris = self._resolve_max_tris(arrays, proj, resolution)
+        capacity = self._resolve_compact_total(arrays, proj, resolution, max_tris)
+        cull = self._resolve_cull()
+        mesh = _Mesh(proj, arrays["pos"], arrays["pos_idx"], arrays["edge_adj"],
+                     arrays.get("vtx_color"), arrays.get("corner_colors"), self.device)
+
+        def render_fn(mtx):
+            return _render(mesh, mtx, resolution, capacity, layout, cull, max_tris)
+
+        # what the kernel checks need to drive the pack and the raster of
+        # the render's table (as make_fused_loss's fn carries)
+        render_fn.mesh = mesh
+        render_fn.binned = lambda mtx: _binned(mesh, mtx, resolution, capacity, None,
+                                               cull, max_tris)
+        render_fn.table = lambda mtx: _compact_table(mesh, mtx, resolution, capacity,
+                                                     None, cull, max_tris)
+        render_fn.frame_hw, render_fn.roi = _padded(resolution), (0, 0) + resolution
+        return render_fn
+
+    def _render(self, mtx):
+        if self._render_fn is None:
+            self._render_fn = self._make_render_fn(layout="stacked")
+        return self._render_fn(mtx)
+
+    def _make_fused_loss_fn(self, gt):
+        """The fused route's loss when the configuration allows it (standard
+        mask / rgb losses, ``tpu.fused_loss`` on), else None: the unfused
+        route runs."""
+        if not bool(self._tpu().get("fused_loss", True)):
+            return None
+        fns = set(self.loss_functions)
+        if not fns or not fns <= {LOSS_REGISTRY["l1_rgb_with_mask"], LOSS_REGISTRY["l1_mask"]}:
+            return None  # custom losses need the renders; depth is unfused
+        if "segmentation" not in gt:
+            return None
+        arrays = self._mesh_arrays()
+        proj = np.asarray(self.camera.cam_proj, np.float32)
+        resolution = tuple(self.resolution)
+        max_tris = self._resolve_max_tris(arrays, proj, resolution)
+        crop_off = (getattr(self, "_crop_disable", False)
+                    or str(self.cfg.get_dotted("tpu.roi_crop", "auto")) == "off")
+        return make_fused_loss(
+            proj, arrays["pos"], arrays["pos_idx"], resolution, gt,
+            self.learning_rates, self.loss_weights,
+            use_rgb=LOSS_REGISTRY["l1_rgb_with_mask"] in fns,
+            use_mask=LOSS_REGISTRY["l1_mask"] in fns,
+            edge_adj=arrays["edge_adj"], corner_colors=arrays.get("corner_colors"),
+            vtx_color=arrays.get("vtx_color"),
+            compact_total=self._resolve_compact_total(arrays, proj, resolution, max_tris),
+            roi_crop="off" if crop_off else "auto",
+            cull_backfaces=self._resolve_cull(), max_tris_per_tile=max_tris,
+            device=self.device,
+        )
+
+    # ------------------------------------------------------------------ #
+    # optimization
+    # ------------------------------------------------------------------ #
+    def _check_ported(self) -> None:
+        tpu_cfg = self._tpu()
+        if int(tpu_cfg.get("mesh_axis", 1)) > 1:
+            raise _not_ported("sharding the hypotheses over devices (mesh_axis > 1)", 6)
+        if bool(tpu_cfg.get("precompute_bins", False)):
+            raise _not_ported("precompute_bins", 6)
+        if int(tpu_cfg.get("restarts", 0)) > 0:
+            raise _not_ported("basin-hopping restarts", 6)
+        if float(tpu_cfg.get("init_jitter_deg", 0.0)) > 0.0 or float(
+                tpu_cfg.get("init_jitter_trans", 0.0)) > 0.0:
+            raise _not_ported("the initial pose jitter", 6)
+
+    def run_optimization(self) -> None:
+        """Run the refinement: ``nb_iterations + 1`` steps in segments of
+        ``tpu.scan_segment``.  Populates ``losses_values``,
+        ``mtx_history``, ``optimization_results`` and ``last_run_stats``.
+
+        Overflow and crop-leak recovery (``diffdope.py:652-695``): when a
+        step dropped (tile, triangle) pairs, the capacities grow x1.5 (the
+        compact table to at least what the failed run needed, see
+        ``_resolve_compact_total``) and the run restarts from the same
+        init; when a triangle left the ROI
+        crop's interior, the run restarts on the full frame; at most
+        ``tpu.overflow_retries`` times, unless ``tpu.overflow_recovery`` is
+        off."""
+        self._check_ported()
+        tpu_cfg = self._tpu()
+        gt_np = self.gt_tensors
+        gt = {k: torch.tensor(v, device=self.device) for k, v in gt_np.items()}
+        params0 = self.object3d.initial_params(self.batchsize, self.device)
+        segment = int(tpu_cfg.get("scan_segment", 40))
+        show_progress = bool(tpu_cfg.get("progress", True))
+
+        def progress(done, total_steps, last_loss):
+            log.info("refine %d/%d steps, loss %.5f", done, total_steps, last_loss)
+
+        def dispatch():
+            fused_fn = self._make_fused_loss_fn(gt_np)
+            render_fn = self._make_render_fn() if fused_fn is None else None
+            t0 = time.perf_counter()
+            result = refine_segmented(
+                params0, render_fn, tuple(self.loss_functions), gt,
+                self.learning_rates, self.loss_weights,
+                nb_iterations=self.nb_iterations, segment_steps=segment,
+                progress_fn=progress if show_progress else None,
+                base_lr=self.base_lr, lr_decay=self.lr_decay,
+                optimizer=self.optimizer_name, fused_loss_fn=fused_fn,
+            )
+            return result, time.perf_counter() - t0
+
+        recovery = bool(tpu_cfg.get("overflow_recovery", True))
+        max_retries = int(tpu_cfg.get("overflow_retries", 2))
+        for attempt in range(max_retries + 1):
+            result, dt = dispatch()
+            overflow = self._telemetry_max(result, "_bin_overflow")
+            leak = self._telemetry_max(result, "_crop_leak")
+            if (overflow == 0 and leak == 0) or not recovery or attempt == max_retries:
+                break
+            if overflow > 0:
+                self._capacity_boost = getattr(self, "_capacity_boost", 1.0) * 1.5
+                self._slots_seen = max(getattr(self, "_slots_seen", 0),
+                                       self._telemetry_max(result, "_bin_need"))
+                log.warning(
+                    "bin overflow mid-refinement (up to %d dropped (tile, triangle) "
+                    "pairs/step): growing bin capacity x%.2f and re-running "
+                    "(attempt %d/%d)", overflow, self._capacity_boost, attempt + 1,
+                    max_retries)
+            if leak > 0:
+                self._crop_disable = True
+                log.warning(
+                    "ROI crop leak mid-refinement (up to %d triangles/step outside "
+                    "the crop interior): disabling the crop and re-running "
+                    "(attempt %d/%d)", leak, attempt + 1, max_retries)
+        self._render_fn = None  # the capacities may have grown
+
+        self._check_bin_overflow(result)
+        self._result = result
+        self.mtx_history = result.mtx_history.cpu().numpy()
+        self.losses_values = {k: v.cpu().numpy() for k, v in result.losses_values.items()}
+        self.optimization_results = RenderHistory(self)
+        steps = self.nb_iterations + 1
+        compile_s = steady_sps = None
+        seg = result.segment_times
+        if seg and len(seg) > 1:
+            steady_sps = max(n / t for n, t in seg)
+            compile_s = max(0.0, dt - steps / steady_sps)
+        self.last_run_stats = {
+            "wall_time_s": dt,
+            "steps": steps,
+            "steps_per_sec": steps / dt,
+            "compile_s": compile_s,
+            "steady_steps_per_sec": steady_sps,
+            "final_loss": float(result.total_loss[-1]),
+            "recovery_reruns": attempt,
+        }
+        log.info("refined %d hypotheses, %d steps in %.3fs (%.1f steps/s), "
+                 "final loss %.5f", self.batchsize, steps, dt, steps / dt,
+                 self.last_run_stats["final_loss"])
+
+    @staticmethod
+    def _telemetry_max(result, key: str) -> int:
+        """Worst per-step value of a telemetry counter (0 if absent)."""
+        telem = result.telemetry or {}
+        return int(telem[key].max()) if key in telem else 0
+
+    def _check_bin_overflow(self, result) -> None:
+        """Warn when the kept run dropped (tile, triangle) pairs or leaked
+        out of the ROI crop at some step (``diffdope.py:751-785``)."""
+        telem = result.telemetry or {}
+        if "_crop_leak" in telem and int(telem["_crop_leak"].max()) > 0:
+            lk = telem["_crop_leak"]
+            log.warning(
+                "ROI crop leak during refinement: up to %d triangles/step outside "
+                "the crop interior (%d steps affected); set tpu.roi_crop=off",
+                int(lk.max()), int((lk > 0).sum()))
+        if "_bin_overflow" in telem and int(telem["_bin_overflow"].max()) > 0:
+            ov = telem["_bin_overflow"]
+            log.warning(
+                "bin overflow during refinement: up to %d (tile, triangle) pairs "
+                "dropped per step (worst at step %d/%d; %d steps affected); raise "
+                "tpu.max_tris_per_tile", int(ov.max()), int(ov.argmax()), len(ov),
+                int((ov > 0).sum()))
+
+    @property
+    def renders(self) -> dict:
+        """The last step's renders."""
+        return self.optimization_results[-1]
+
+    def add_loss_value(self, key: str, values) -> None:
+        """Append per-hypothesis values to the logged loss curves."""
+        values = np.asarray(values)[None]
+        if key not in self.losses_values:
+            self.losses_values[key] = values
+        else:
+            self.losses_values[key] = np.concatenate([self.losses_values[key], values], axis=0)
+
+    # ------------------------------------------------------------------ #
+    # results
+    # ------------------------------------------------------------------ #
+    def _best_indices(self) -> tuple:
+        """(step, hypothesis) of the selected pose under ``tpu.argmin_rule``
+        (best_step by default, or last_step)."""
+        if not self.losses_values:
+            return -1, 0
+        rule = str(self.cfg.get_dotted("tpu.argmin_rule", "best_step"))
+        s, b = argmin_step_hypothesis(
+            {k: torch.as_tensor(v) for k, v in self.losses_values.items()}, rule)
+        return int(s), int(b)
+
+    def get_argmin(self) -> int:
+        """Index of the best hypothesis."""
+        return self._best_indices()[1]
+
+    def get_pose(self, batch_index: int = -1) -> np.ndarray:
+        """The refined 4x4 pose (OpenGL frame): the selected (step,
+        hypothesis) for -1, else that hypothesis at the last step."""
+        if batch_index == -1:
+            step, hyp = self._best_indices()
+            return self.mtx_history[step][hyp]
+        return self.mtx_history[-1][batch_index]
+
+    def get_pose_opencv(self, batch_index: int = -1) -> np.ndarray:
+        """The refined pose in the OpenCV/BOP frame."""
+        return opengl_to_opencv(self.get_pose(batch_index))
+
+    def render_img(self, *args, **kwargs):
+        raise _not_ported("render_img (viz needs cv2)", 3)
+
+    def make_animation(self, *args, **kwargs):
+        raise _not_ported("make_animation (viz needs cv2)", 3)
+
+    def plot_losses(self, *args, **kwargs):
+        raise _not_ported("plot_losses", 3)

@@ -1,15 +1,22 @@
 """Pose, quaternion and projection math.
 
-Counterpart of ``diffdope_tpu/geometry.py:59-180, 245``.  The tensor
+Counterpart of ``diffdope_tpu/geometry.py:59-245``.  The tensor
 functions are plain torch and differentiable; the host helpers
-(axis-angle, projection) are numpy, as in the reference.  Quaternion
-layout everywhere: (x, y, z, w).
+(axis-angle, matrix -> quaternion, the OpenCV/OpenGL pose conversions,
+projection) are numpy, as in the reference.  Quaternion layout
+everywhere: (x, y, z, w).
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 import torch
+
+#: diag(1, -1, -1): flips the Y and Z axes between the OpenCV camera frame
+#: (x right, y down, z forward) and OpenGL's (x right, y up, z backward)
+CV_TO_GL_FLIP = np.diag([1.0, -1.0, -1.0]).astype(np.float64)
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -94,6 +101,76 @@ def quat_from_axis_angle(axis: np.ndarray, angle: float) -> np.ndarray:
     axis = axis / np.linalg.norm(axis)
     half = 0.5 * angle
     return np.concatenate([axis * np.sin(half), [np.cos(half)]])
+
+
+def quat_from_matrix33(m) -> np.ndarray:
+    """Rotation matrix (3, 3) -> unit quaternion (x, y, z, w), host numpy
+    float64, by Shepperd's method (``geometry.py:133-167``)."""
+    m = np.asarray(m, dtype=np.float64).reshape(3, 3)
+    tr = m[0, 0] + m[1, 1] + m[2, 2]
+    if tr > 0:
+        s = np.sqrt(tr + 1.0) * 2.0
+        w = 0.25 * s
+        x = (m[2, 1] - m[1, 2]) / s
+        y = (m[0, 2] - m[2, 0]) / s
+        z = (m[1, 0] - m[0, 1]) / s
+    elif m[0, 0] > m[1, 1] and m[0, 0] > m[2, 2]:
+        s = np.sqrt(1.0 + m[0, 0] - m[1, 1] - m[2, 2]) * 2.0
+        w = (m[2, 1] - m[1, 2]) / s
+        x = 0.25 * s
+        y = (m[0, 1] + m[1, 0]) / s
+        z = (m[0, 2] + m[2, 0]) / s
+    elif m[1, 1] > m[2, 2]:
+        s = np.sqrt(1.0 + m[1, 1] - m[0, 0] - m[2, 2]) * 2.0
+        w = (m[0, 2] - m[2, 0]) / s
+        x = (m[0, 1] + m[1, 0]) / s
+        y = 0.25 * s
+        z = (m[1, 2] + m[2, 1]) / s
+    else:
+        s = np.sqrt(1.0 + m[2, 2] - m[0, 0] - m[1, 1]) * 2.0
+        w = (m[1, 0] - m[0, 1]) / s
+        x = (m[0, 2] + m[2, 0]) / s
+        y = (m[1, 2] + m[2, 1]) / s
+        z = 0.25 * s
+    q = np.array([x, y, z, w], dtype=np.float64)
+    return q / np.linalg.norm(q)
+
+
+def _rotation_from_any(rotation) -> np.ndarray:
+    """A quaternion (4), a flat 3x3 (9) or a (3, 3) matrix -> (3, 3)
+    float64, as the reference accepts rotations (``geometry.py:182-192``).
+    A quaternion becomes a matrix in float32, as the reference's does
+    (jax without 64-bit mode)."""
+    rot = np.asarray(rotation, dtype=np.float64)
+    if rot.shape == (4,):
+        q = torch.as_tensor(rot, dtype=torch.float32)
+        return matrix33_from_quat(q).numpy().astype(np.float64)
+    if rot.shape == (9,):
+        return rot.reshape(3, 3)
+    if rot.shape == (3, 3):
+        return rot
+    raise ValueError(f"rotation must be quat(4), flat 3x3(9) or (3,3); got {rot.shape}")
+
+
+def opencv_to_opengl(position, rotation) -> Tuple[np.ndarray, np.ndarray]:
+    """An object pose in the OpenCV camera frame -> (position (3,), quat
+    (4,)) in the OpenGL frame, float64: ``R_gl = F R_cv F``, ``t_gl = F t``
+    with F = diag(1, -1, -1) (the reference's default conjugate flip,
+    ``geometry.py:195-220``)."""
+    p = np.asarray(position, dtype=np.float64).reshape(3)
+    f = CV_TO_GL_FLIP
+    return f @ p, quat_from_matrix33(f @ _rotation_from_any(rotation) @ f)
+
+
+def opengl_to_opencv(matrix44) -> np.ndarray:
+    """Inverse of :func:`opencv_to_opengl` on a 4x4 OpenGL-frame pose ->
+    the 4x4 OpenCV/BOP-frame pose (``geometry.py:223-238``)."""
+    m = np.asarray(matrix44, dtype=np.float64)
+    f = CV_TO_GL_FLIP
+    out = np.eye(4)
+    out[:3, :3] = f @ m[:3, :3] @ f
+    out[:3, 3] = f @ m[:3, 3]
+    return out
 
 
 def projection_from_intrinsics(

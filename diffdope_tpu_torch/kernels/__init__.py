@@ -1,18 +1,19 @@
 """Build, load and count the hand-written Hopper kernels.
 
 The CUDA sources in ``diffdope_tpu_torch/csrc`` have a plain C interface.
-They are compiled with ``nvcc`` into one shared library at first use and
-bound with ctypes; nothing here runs at import time, so the CPU tests can
-import every module on a machine without ``nvcc`` or a card.
+Each is compiled with ``nvcc`` into a shared library of its own at first
+use, all sources at once in parallel, and bound with ctypes; nothing here
+runs at import time, so the CPU tests can import every module on a machine
+without ``nvcc`` or a card.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o build/libdiffdope_kernels_<hash>.so csrc/*.cu
+         -shared -Xcompiler -fPIC -o build/<source>_<hash>.so csrc/<source>.cu
 
 ``-fmad=false`` (and no ``--use_fast_math``) is part of the numeric
-contract: coverage, z and pixel NDC keep the reference's f32 operation
-order, without FMA contraction.  The library name carries a hash of the
-sources and flags, so an edited source rebuilds.  The build directory is
-``build/`` beside the package, or ``$DD_TORCH_BUILD_DIR``.
+contract: coverage, z, pixel NDC and the packed table keep the reference's
+f32 operation order, without FMA contraction.  Each library name carries a
+hash of its source and the flags, so an edited source rebuilds.  The build
+directory is ``build/`` beside the package, or ``$DD_TORCH_BUILD_DIR``.
 
 ``launches`` counts kernel launches per wrapper (a plain int each): a
 wrapper adds one where it launches its kernel and nowhere else.
@@ -27,20 +28,25 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import Dict, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("raster.cu", "fused_loss.cu")
+SOURCES = ("pack.cu", "raster.cu", "fused_loss.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
-launches = {"raster_fwd": 0, "raster_bwd": 0, "loss_fwd": 0, "loss_bwd": 0}
+launches = {"pack_fwd": 0, "pack_bwd": 0, "raster_fwd": 0, "raster_bwd": 0,
+            "loss_fwd": 0, "loss_bwd": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
+    # (mvpm, tab, sil, B, n, n_ch, out, stream)
+    "dd_pack_fwd": [_P] * 3 + [_I] * 3 + [_P] * 2,
+    # (mvpm, tab, g, B, n, n_ch, partial, out, stream)
+    "dd_pack_bwd": [_P] * 3 + [_I] * 3 + [_P] * 3,
     # (bins, counts, off_c, used, B, tot, k_chunk, nty, ntx, th, tw,
     #  oy, ox, fh, fw, ids, win, rows, stream)
     "dd_raster_fwd": [_P] * 4 + [_I] * 11 + [_P] * 4,
@@ -52,7 +58,7 @@ _SIGNATURES = {
     "dd_loss_bwd": [_P] * 4 + [_I] * 7 + [_P] * 3,
 }
 
-_lib: Optional[ctypes.CDLL] = None
+_fns: Optional[Dict[str, object]] = None
 
 
 def reset_launches() -> None:
@@ -75,46 +81,63 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> Path:
+def library_path(source: str) -> Path:
+    """Where the library of one source goes: its name carries a hash of the
+    source, the shared headers and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
+    h.update((CSRC / source).read_bytes())
     for extra in sorted(CSRC.glob("*.cuh")):
         h.update(extra.read_bytes())
-    return build_dir() / f"libdiffdope_kernels_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels (once per source hash) and return the .so path."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
+def build() -> List[Path]:
+    """Compile every source not yet built (one nvcc each, all started
+    together) and return the libraries' paths, in ``SOURCES`` order."""
+    outs = [library_path(s) for s in SOURCES]
+    jobs = []
+    for source, out in zip(SOURCES, outs):
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, proc, tmp, out))
+    failed = []
+    for cmd, proc, tmp, out in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def library() -> Dict[str, object]:
+    """The C entry points of the loaded kernel libraries by name (built on
+    first use)."""
+    global _fns
+    if _fns is None:
+        fns = {}
+        for path in build():
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                if hasattr(lib, name):
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    fns[name] = fn
+        missing = set(_SIGNATURES) - set(fns)
+        if missing:
+            raise RuntimeError(f"kernel entry points not found: {sorted(missing)}")
+        _fns = fns
+    return _fns
 
 
 def launch(name: str, counter: str, *args) -> None:
@@ -123,7 +146,7 @@ def launch(name: str, counter: str, *args) -> None:
     import torch
 
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), name)(*args, stream)
+    err = library()[name](*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
     launches[counter] += 1

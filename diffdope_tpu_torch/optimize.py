@@ -1,9 +1,10 @@
 """Pose-hypothesis refinement loop.
 
-Counterpart of ``diffdope_tpu/optimize.py:40-312`` on the fused path.  The
-reference runs all steps as one ``lax.scan``; here ``refine`` is a Python
-loop of ``nb_iterations + 1`` steps of value-and-grad and an optimizer
-update.  Both optimizers follow optax's semantics (the reference's
+Counterpart of ``diffdope_tpu/optimize.py``.  The reference runs the
+steps as one ``lax.scan``; here ``refine`` is a Python loop of
+value-and-grad and an optimizer update, on the fused loss
+(``fused_loss_fn``) or on ``render_fn`` + ``loss_fns`` (the unfused
+route).  Both optimizers follow optax's semantics (the reference's
 ``optax.sgd`` / ``optax.adam``), not ``torch.optim``'s: Adam with b1 0.9,
 b2 0.999 and eps 1e-8 outside the square root, bias correction at
 count + 1, and the learning-rate schedule evaluated at the pre-increment
@@ -12,12 +13,14 @@ step count.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple
+import time
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from diffdope_tpu_torch.geometry import matrix44_from_quat_trans, quat_normalize
+
 
 class RefineResult(NamedTuple):
     """Outputs of a refinement run (stacked over steps)."""
@@ -27,9 +30,11 @@ class RefineResult(NamedTuple):
     losses_values: Dict[str, torch.Tensor]  # per-term logs, each (steps, B)
     total_loss: torch.Tensor                # (steps,)
     telemetry: Any = None                   # underscore log keys, (steps,)
+    opt_state: Any = None                   # optimizer state (segmented runs)
+    segment_times: Any = None               # [(steps, wall_s), ...] per segment
 
 
-def pose_params(quat, trans, batchsize: int, device="cpu") -> Dict[str, torch.Tensor]:
+def pose_params(quat, trans, batchsize: int, device="cuda") -> Dict[str, torch.Tensor]:
     """Seven (B,) float32 tensors, every hypothesis at the same pose."""
     q = torch.as_tensor(quat, dtype=torch.float32, device=device)
     t = torch.as_tensor(trans, dtype=torch.float32, device=device)
@@ -47,6 +52,18 @@ def pose_matrix(params: Dict[str, torch.Tensor]):
     q = quat_normalize(q)
     t = torch.stack([params["x"], params["y"], params["z"]], dim=-1)
     return matrix44_from_quat_trans(q, t), q, t
+
+
+def draw_learning_rates(seed: int, batchsize: int, bounds: Sequence[float],
+                        device="cuda") -> torch.Tensor:
+    """Per-hypothesis loss scales, uniform in ``bounds``, from a seeded
+    ``torch.Generator`` on the host (the same numbers on every device).
+    They cannot reproduce ``jax.random``'s: parity tests pass the
+    reference's scales in."""
+    gen = torch.Generator().manual_seed(int(seed))
+    u = torch.rand((batchsize,), generator=gen, dtype=torch.float32)
+    lo, hi = float(bounds[0]), float(bounds[1])
+    return (u * (hi - lo) + lo).to(device)
 
 
 def make_lr_schedule(base_lr: float, lr_decay: float, nb_iterations: int):
@@ -118,26 +135,50 @@ def make_optimizer(name: str, base_lr: float, lr_decay: float, nb_iterations: in
 
 def refine(
     params0: Dict[str, torch.Tensor],
-    fused_loss_fn: Callable,
+    render_fn: Optional[Callable] = None,
+    loss_fns: Sequence[Callable] = (),
+    gt: Optional[Dict[str, torch.Tensor]] = None,
+    learning_rates: Optional[torch.Tensor] = None,
+    weights: Optional[Dict[str, float]] = None,
     nb_iterations: int = 60,
     base_lr: float = 20.0,
     lr_decay: float = 0.1,
     optimizer: str = "sgd",
+    opt_state: Any = None,
+    num_steps: Optional[int] = None,
+    fused_loss_fn: Optional[Callable] = None,
 ) -> RefineResult:
-    """Run ``nb_iterations + 1`` optimizer steps on the fused loss
-    ``fused_loss_fn(mtx) -> (total, logs)``.
+    """Run ``nb_iterations + 1`` optimizer steps (or ``num_steps``, for a
+    segment; ``nb_iterations`` still shapes the learning-rate schedule,
+    which continues from ``opt_state``'s step count).
 
-    Logs are kept on the device; nothing synchronizes with the host
-    inside the loop.  Underscore log keys go to ``telemetry``.
+    Each step scores the poses with ``fused_loss_fn(mtx) -> (total, logs)``
+    when given, else with ``render_fn(mtx)`` and the sum of
+    ``fn(renders, gt, learning_rates, weights)`` over ``loss_fns``.  Logs
+    stay on the device; nothing synchronizes with the host inside the
+    loop.  Underscore log keys go to ``telemetry``.
     """
+    if fused_loss_fn is None and render_fn is None:
+        raise ValueError("refine needs fused_loss_fn or render_fn + loss_fns")
     opt = make_optimizer(optimizer, base_lr, lr_decay, nb_iterations)
     params = {k: v.detach() for k, v in params0.items()}
-    opt_state = opt.init(params)
+    if opt_state is None:
+        opt_state = opt.init(params)
+    length = nb_iterations + 1 if num_steps is None else num_steps
     mtxs, totals, logs_hist = [], [], {}
-    for _ in range(nb_iterations + 1):
+    for _ in range(length):
         leaves = {k: v.requires_grad_(True) for k, v in params.items()}
         mtx, _, _ = pose_matrix(leaves)
-        total, logs = fused_loss_fn(mtx)
+        if fused_loss_fn is not None:
+            total, logs = fused_loss_fn(mtx)
+        else:
+            renders = render_fn(mtx)
+            total = mtx.new_zeros(())
+            logs = {k: v for k, v in renders.items() if k.startswith("_")}
+            for fn in loss_fns:
+                term, (key, values) = fn(renders, gt, learning_rates, weights)
+                total = total + term
+                logs[key] = values
         grads = torch.autograd.grad(total, [leaves[k] for k in params])
         grads = dict(zip(params, grads))
         mtxs.append(mtx.detach())
@@ -155,6 +196,59 @@ def refine(
         losses_values={k: v for k, v in stacked.items() if not k.startswith("_")},
         total_loss=torch.stack(totals),
         telemetry={k: v for k, v in stacked.items() if k.startswith("_")} or None,
+        opt_state=opt_state,
+    )
+
+
+def refine_segmented(
+    params0: Dict[str, torch.Tensor],
+    render_fn: Optional[Callable] = None,
+    loss_fns: Sequence[Callable] = (),
+    gt: Optional[Dict[str, torch.Tensor]] = None,
+    learning_rates: Optional[torch.Tensor] = None,
+    weights: Optional[Dict[str, float]] = None,
+    nb_iterations: int = 60,
+    segment_steps: int = 40,
+    progress_fn: Optional[Callable] = None,
+    **refine_kwargs,
+) -> RefineResult:
+    """:func:`refine` in segments of ``segment_steps`` steps, the optimizer
+    state and the schedule's step count carried across, so the result is
+    the unsegmented run's.  ``progress_fn(done_steps, total_steps,
+    last_total_loss)`` is called after every segment (the one host sync of
+    a segment, which also times it: ``segment_times``)."""
+    total = nb_iterations + 1
+    params, opt_state = params0, None
+    parts, segment_times = [], []
+    done = 0
+    while done < total:
+        n = min(segment_steps, total - done)
+        t0 = time.perf_counter()
+        res = refine(params, render_fn, loss_fns, gt, learning_rates, weights,
+                     nb_iterations=nb_iterations, opt_state=opt_state, num_steps=n,
+                     **refine_kwargs)
+        last = float(res.total_loss[-1])
+        segment_times.append((n, time.perf_counter() - t0))
+        params, opt_state = res.params, res.opt_state
+        parts.append(res)
+        done += n
+        if progress_fn is not None:
+            progress_fn(done, total, last)
+
+    def cat(get):
+        return torch.cat([get(r) for r in parts], dim=0)
+
+    telemetry = {k: cat(lambda r, k=k: r.telemetry[k])
+                 for k in (parts[0].telemetry or {})}
+    return RefineResult(
+        params=params,
+        mtx_history=cat(lambda r: r.mtx_history),
+        losses_values={k: cat(lambda r, k=k: r.losses_values[k])
+                       for k in parts[0].losses_values},
+        total_loss=cat(lambda r: r.total_loss),
+        telemetry=telemetry or None,
+        opt_state=opt_state,
+        segment_times=segment_times,
     )
 
 
@@ -163,3 +257,20 @@ def argmin_hypothesis(losses_values: Dict[str, torch.Tensor]) -> torch.Tensor:
     the last step (reference get_argmin)."""
     last = torch.stack([v[-1] for v in losses_values.values()], dim=0)
     return torch.argmin(last.mean(dim=0), dim=-1)
+
+
+def argmin_step_hypothesis(losses_values: Dict[str, torch.Tensor],
+                           rule: str = "best_step") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Best (step, hypothesis) under the selection rule
+    (``optimize.py:525-553``): 'best_step' takes the argmin of the mean
+    logged term over the whole (step, hypothesis) history (the logged loss
+    of step s scores the pre-update pose ``mtx_history[s]``, so the winner
+    is never worse than the init); 'last_step' is the reference's
+    get_argmin rule, the last step only."""
+    mean = torch.stack(list(losses_values.values()), dim=0).mean(dim=0)  # (S, B)
+    if rule == "last_step":
+        return torch.tensor(mean.shape[0] - 1), torch.argmin(mean[-1], dim=-1)
+    if rule != "best_step":
+        raise ValueError(f"unknown argmin rule {rule!r} (best_step | last_step)")
+    flat = torch.argmin(mean.reshape(-1), dim=-1)
+    return flat // mean.shape[1], flat % mean.shape[1]

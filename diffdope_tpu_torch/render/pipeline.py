@@ -1,22 +1,29 @@
-"""The fused refinement loss on the port's main path.
+"""The port's render and fused refinement loss.
 
-Counterpart of ``diffdope_tpu/render/pipeline.py:make_fused_loss``
-(:383-858), restricted to its production configuration: per-corner
-colour planes, rgb+mask L1 terms, the compact bin table, the ROI crop with
-``_crop_leak`` telemetry, and the spanning raster+loss op.  The pack is the
-plain ``planar.pack_binned`` (the reference's ``DD_PACK=xla`` route).
+Counterpart of ``diffdope_tpu/render/pipeline.py``, restricted to its
+production configuration on the card: per-corner colour planes, the
+compact bin table (every tile's slots in one chunk-aligned table) and the
+Pallas pack (``DD_PACK=pallas``, the reference's default), here K1/K2.
 
-Also the gt render of this slice (:func:`render_rgb_mask`): K3's ids and
-rows at one pose, then the plain shade and mask antialiasing, with
-``render_batch``'s stacked semantics (mask antialiased, rgb not).
+- :func:`make_fused_loss` (reference :383-858): rgb+mask L1 terms, the ROI
+  crop with ``_crop_leak`` telemetry, and the spanning raster+loss op
+  (K1 -> K3 -> K5, backward K6 -> K4 -> K2).
+- :func:`render_batch` (reference :79-380, its pallas + compact branch):
+  K1 -> K3 with the plain shade and mask antialiasing, backward K4 -> K2;
+  the ``stacked`` and ``channels`` layouts.
+- :func:`render_rgb_mask`, the gt render, and :func:`compact_capacity`.
+
+Every pack goes through :func:`_pack_dispatch`, so the kernel route and
+its eligibility rules cannot diverge between call sites.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from diffdope_tpu_torch.convert import tensor
 from diffdope_tpu_torch.geometry import matmul44
@@ -33,10 +40,10 @@ from diffdope_tpu_torch.render.planar import (
     compact_bins,
     corner_planes,
     det_planar,
-    pack_binned,
     static_pack_rows,
 )
-from diffdope_tpu_torch.render.raster import raster_fwd
+from diffdope_tpu_torch.render.pack_kernel import pack_binned_auto
+from diffdope_tpu_torch.render.raster import raster_compact
 from diffdope_tpu_torch.render.shade import (
     antialias_rows,
     pixel_ndc,
@@ -156,21 +163,39 @@ class _Crop:
         return out.sum(dtype=torch.int32)
 
 
-def _compact_table(mesh: _Mesh, mtx: torch.Tensor, resolution,
-                   capacity: Optional[int] = None, crop: Optional[_Crop] = None):
-    """The compact packed table at poses ``mtx`` (B, 4, 4), differentiable
-    in mtx, and its telemetry: (packed, counts, off_c, used, telemetry).
+class _Binned(NamedTuple):
+    """A table's layout before the pack: the poses' mvp, the slot ->
+    triangle map, the silhouette bits, the per-tile counts, chunk offsets
+    and chunk counts, and the binning telemetry."""
+
+    mvp: torch.Tensor
+    flat: torch.Tensor
+    sil: torch.Tensor
+    counts: torch.Tensor
+    off_c: torch.Tensor
+    used: torch.Tensor
+    telemetry: Dict[str, torch.Tensor]
+
+
+def _binned(mesh: _Mesh, mtx: torch.Tensor, resolution,
+            capacity: Optional[int] = None, crop: Optional[_Crop] = None,
+            cull: bool = False, max_tris: int = MAX_TRIS_PER_TILE) -> _Binned:
+    """Bin the mesh at poses ``mtx`` (B, 4, 4) and compact the bins.
 
     ``capacity`` None sizes the table to the bins exactly (which reads the
     counts on the host).  ``crop`` drops the tiles outside it before
-    compaction and counts '_crop_leak'."""
+    compaction and counts '_crop_leak'.  '_bin_need' is the slots a
+    full-frame table needs at these poses: the chunk-rounded bins plus the
+    pairs the per-tile capacity dropped (the overflow recovery sizes its
+    re-run from it)."""
     mvp = matmul44(mesh.proj, mtx)
     cp = corner_planes(mesh.pos_c, mvp)
     det = det_planar(cp, mesh.degenerate)
     idx, counts, bin_overflow = bin_triangles_planar(
-        cp, det, resolution, TILE_HW, MAX_TRIS_PER_TILE
+        cp, det, resolution, TILE_HW, max_tris, cull_backfaces=cull
     )
-    telemetry = {"_bin_max": counts.max()}
+    need = (-(-counts // K_CHUNK) * K_CHUNK).sum(dtype=torch.int32) + bin_overflow
+    telemetry = {"_bin_max": counts.max(), "_bin_need": need}
     if crop is not None:
         idx, counts = idx[crop.tiles], counts[crop.tiles]
         telemetry["_crop_leak"] = crop.leak(cp, mesh.degenerate)
@@ -181,11 +206,27 @@ def _compact_table(mesh: _Mesh, mtx: torch.Tensor, resolution,
     )
     telemetry["_bin_overflow"] = bin_overflow + c_ovf
     sil = _silhouette_planar(det, mesh.adj)
-    packed = pack_binned(
+    return _Binned(mvp, flat, sil, counts.contiguous(), off_c, used, telemetry)
+
+
+def _pack_dispatch(mesh: _Mesh, mvp: torch.Tensor, mtx: torch.Tensor,
+                   flat: torch.Tensor, sil: torch.Tensor) -> torch.Tensor:
+    """The bin-ordered table of every call site: K1/K2 on the card, the
+    plain ``planar.pack_binned`` for CPU tensors (``pack_binned_auto``)."""
+    return pack_binned_auto(
         mesh.pos_c, mvp, mtx, flat, mesh.attrs, sil, mesh.degenerate,
         mesh.t_count, mesh.static,
     )
-    return packed, counts.contiguous(), off_c, used, telemetry
+
+
+def _compact_table(mesh: _Mesh, mtx: torch.Tensor, resolution,
+                   capacity: Optional[int] = None, crop: Optional[_Crop] = None,
+                   cull: bool = False, max_tris: int = MAX_TRIS_PER_TILE):
+    """The compact packed table at poses ``mtx`` (B, 4, 4), differentiable
+    in mtx, and its telemetry: (packed, counts, off_c, used, telemetry)."""
+    bn = _binned(mesh, mtx, resolution, capacity, crop, cull, max_tris)
+    packed = _pack_dispatch(mesh, bn.mvp, mtx, bn.flat, bn.sil)
+    return packed, bn.counts, bn.off_c, bn.used, bn.telemetry
 
 
 def make_fused_loss(
@@ -205,7 +246,9 @@ def make_fused_loss(
     tex=None,
     compact_total: Optional[int] = None,
     roi_crop: str = "auto",
-    device="cpu",
+    cull_backfaces: bool = False,
+    max_tris_per_tile: int = MAX_TRIS_PER_TILE,
+    device="cuda",
 ):
     """Build ``fn(mtx) -> (total_loss, logs)``.
 
@@ -217,24 +260,18 @@ def make_fused_loss(
     """
     if use_depth:
         raise NotImplementedError(
-            "the depth loss is not ported yet: ROADMAP queue 1, item 8"
+            "the depth loss on the fused route is not ported yet: ROADMAP "
+            "queue 1, item 1"
         )
     if tex is not None:
         raise NotImplementedError(
-            "exact texture is not ported yet: ROADMAP queue 1, item 10"
+            "exact texture is not ported yet: ROADMAP queue 1, item 4"
         )
-    if not compact_total:
-        raise NotImplementedError(
-            "the uniform-K (uncompacted) table is not ported yet: the port's "
-            "path is the compact table; pass compact_total (ROADMAP queue 1, "
-            "item 7)"
-        )
-    if compact_total % K_CHUNK:
-        raise ValueError(f"compact_total must be a multiple of {K_CHUNK}")
+    _check_capacity(compact_total)
     if gt is None:
         raise NotImplementedError(
-            "deferred (traced) ground truth is not ported yet: ROADMAP queue "
-            "1, item 14"
+            "deferred (per-call) ground truth is not ported yet: it serves "
+            "the BOP sweep, ROADMAP queue 1, item 6"
         )
     device = torch.device(device)
     mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors, device)
@@ -259,8 +296,13 @@ def make_fused_loss(
     npx = float(h * w)
     lrs = tensor(learning_rates, device)
 
+    def binned(mtx: torch.Tensor) -> _Binned:
+        return _binned(mesh, mtx, resolution, compact_total, crop,
+                       cull_backfaces, max_tris_per_tile)
+
     def table(mtx: torch.Tensor):
-        return _compact_table(mesh, mtx, resolution, compact_total, crop)
+        return _compact_table(mesh, mtx, resolution, compact_total, crop,
+                              cull_backfaces, max_tris_per_tile)
 
     def fn(mtx: torch.Tensor):
         if mtx.dim() == 2:
@@ -282,51 +324,145 @@ def make_fused_loss(
         logs.update({k: v.detach() for k, v in telemetry.items()})
         return total, logs
 
-    # what the kernel checks need to drive the spanning op's parts
-    fn.table = table
+    # what the kernel checks need to drive the pack and the spanning op's
+    # parts
+    fn.mesh, fn.binned, fn.table = mesh, binned, table
     fn.gt6, fn.frame_hw, fn.roi, fn.crop = gt6, (hc, wc), roi, window
     return fn
 
 
+def _check_capacity(compact_total) -> None:
+    if not compact_total:
+        raise NotImplementedError(
+            "the uniform-K (uncompacted) table is not ported yet: the port's "
+            "route is the compact table; pass compact_total (ROADMAP queue 1, "
+            "item 2, with K7)"
+        )
+    if compact_total % K_CHUNK:
+        raise ValueError(f"compact_total must be a multiple of {K_CHUNK}")
+
+
 @torch.no_grad()
-def compact_capacity(proj_cam, pos, pos_idx, mtx, resolution, device="cpu") -> int:
+def compact_capacity(proj_cam, pos, pos_idx, mtx, resolution,
+                     max_tris_per_tile: int = MAX_TRIS_PER_TILE, boost: float = 1.0,
+                     device="cuda", slack: float = CAPACITY_SLACK) -> int:
     """Compact-table capacity sized from a probe pose (the root bench's
-    rule, ``bench.py:207-235``): the probe's chunk-rounded slot count times
-    ``CAPACITY_SLACK`` plus one chunk, rounded to the chunk."""
+    rule, ``bench.py:207-235``, and ``DiffDope._resolve_compact_total``):
+    the probe's chunk-rounded slot count times ``slack`` (and the overflow
+    recovery's ``boost``) plus one chunk, rounded to the chunk."""
     mesh = _Mesh(proj_cam, pos, pos_idx, None, None, None, torch.device(device))
-    _, _, _, used, _ = _compact_table(mesh, tensor(mtx, device).reshape(-1, 4, 4),
-                                      resolution)
-    tot0 = int(used.sum()) * K_CHUNK
-    return -(-int(tot0 * CAPACITY_SLACK + K_CHUNK) // K_CHUNK) * K_CHUNK
+    bn = _binned(mesh, tensor(mtx, device).reshape(-1, 4, 4), resolution,
+                 max_tris=max_tris_per_tile)
+    tot0 = int(bn.used.sum()) * K_CHUNK
+    return -(-int(tot0 * slack * boost + K_CHUNK) // K_CHUNK) * K_CHUNK
+
+
+@torch.no_grad()
+def max_tile_count(proj_cam, pos, pos_idx, mtx, resolution, device="cuda") -> int:
+    """The most triangles any tile's bin holds at poses ``mtx``, uncapped
+    (``DiffDope._resolve_max_tris`` sizes ``max_tris_per_tile`` from it)."""
+    mesh = _Mesh(proj_cam, pos, pos_idx, None, None, None, torch.device(device))
+    cp = corner_planes(mesh.pos_c, matmul44(mesh.proj, tensor(mtx, device).reshape(-1, 4, 4)))
+    det = det_planar(cp, mesh.degenerate)
+    _, counts, _ = bin_triangles_planar(cp, det, resolution, TILE_HW, mesh.t_count)
+    return int(counts.max())
+
+
+def _shade_and_aa(rows, ids, tz, resolution, n_ch: int):
+    """The plain shade and mask antialiasing of ``render_batch``
+    (reference :308-337): the antialiased mask, the n_ch colour planes and
+    the depth -(rotated z + t_z) (background -t_z)."""
+    xy = pixel_ndc(resolution, device=rows.device)
+    shd = shade_from_rows(ids, rows, resolution, attr_channels=n_ch + 1, xy=xy)
+    fg = (ids > 0).to(rows.dtype)
+    mask = antialias_rows(fg, ids, shd["zw"], rows, resolution, xy=xy)
+    depth = -(shd["attrs_list"][n_ch] + tz[:, None, None])
+    return (mask, *shd["attrs_list"][:n_ch], depth)
+
+
+def _render(mesh: _Mesh, mtx: torch.Tensor, resolution,
+            capacity: Optional[int], layout: str = "stacked", cull: bool = False,
+            max_tris: int = MAX_TRIS_PER_TILE) -> Dict[str, object]:
+    """:func:`render_batch` on a prepared mesh: K1 -> K3, then the plain
+    shade and antialiasing; backward K4 -> K2.
+
+    The shading is recomputed in the backward (``checkpoint``), as the
+    reference does (:339-348): its autograd residuals are dozens of
+    (B, H, W) temporaries, while recomputing them costs a few elementwise
+    passes; the raster kernel is not re-run."""
+    if layout not in ("stacked", "channels"):
+        raise ValueError(f"unknown layout {layout!r} (stacked | channels)")
+    if mesh.attrs is None or mesh.attrs.shape[-1] != 3:
+        raise ValueError("render_batch requires 3-channel corner_colors or vtx_color")
+    if mtx.dim() == 2:
+        mtx = mtx[None]
+    packed, counts, off_c, used, telemetry = _compact_table(
+        mesh, mtx, resolution, capacity, None, cull, max_tris
+    )
+    h, w = resolution
+    ids, rows = raster_compact(
+        packed, counts, off_c, used, K_CHUNK, _padded(resolution), TILE_HW,
+        (0, 0, h, w),
+    )
+    ids, rows = ids[:, :h, :w], rows[:, :, :h, :w]
+    out = checkpoint(_shade_and_aa, rows, ids, mtx[:, 2, 3], tuple(resolution), 3,
+                     use_reentrant=False)
+    mask, colors, depth = out[0], out[1:4], out[4]
+    tel = {k: telemetry[k].detach() for k in ("_bin_overflow", "_bin_need")}
+    if layout == "channels":
+        return {"mask": mask, "rgb": colors, "depth": depth, "ids": ids, **tel}
+    return {
+        "rgb": torch.stack(colors, dim=-1),
+        "depth": depth,
+        "mask": mask[..., None].expand(mask.shape + (3,)),
+        **tel,
+    }
+
+
+def render_batch(
+    proj_cam,
+    mtx: torch.Tensor,
+    pos,
+    pos_idx,
+    resolution: Tuple[int, int],
+    vtx_color=None,
+    corner_colors=None,
+    edge_adj=None,
+    layout: str = "stacked",
+    max_tris_per_tile: int = MAX_TRIS_PER_TILE,
+    cull_backfaces: bool = False,
+    compact_total: Optional[int] = None,
+    device="cuda",
+) -> Dict[str, object]:
+    """Render a mesh under B pose hypotheses ``mtx`` (B, 4, 4),
+    differentiably in mtx (the reference's pallas + compact branch).
+
+    Returns, layout 'stacked': 'rgb' (B, H, W, 3), 'depth' (B, H, W),
+    'mask' (B, H, W, 3) antialiased; layout 'channels': 'mask' (B, H, W),
+    'rgb' a tuple of 3 (B, H, W), 'depth', 'ids' (B, H, W) int32 (+1,
+    0 = background).  Both carry '_bin_overflow', the (tile, triangle)
+    pairs dropped by the capacities, and '_bin_need', the slots a table
+    holding every pair would need."""
+    _check_capacity(compact_total)
+    mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors,
+                 torch.device(device))
+    return _render(mesh, tensor(mtx, device).reshape(-1, 4, 4), tuple(resolution),
+                   compact_total, layout, cull_backfaces, max_tris_per_tile)
 
 
 @torch.no_grad()
 def render_rgb_mask(proj_cam, mtx, pos, pos_idx, resolution, edge_adj=None,
                     vtx_color=None, corner_colors=None,
-                    device="cpu") -> Dict[str, torch.Tensor]:
-    """Render (B, H, W, 3) 'rgb' and 'mask' at poses ``mtx`` (B, 4, 4):
-    K3's ids and rows over an exactly sized compact table, then the plain
-    shade and antialiasing.  Stacked ``render_batch`` semantics: the mask
-    is antialiased, the rgb is not."""
+                    device="cuda") -> Dict[str, torch.Tensor]:
+    """Render (B, H, W, 3) 'rgb' and 'mask' at poses ``mtx`` (B, 4, 4) over
+    an exactly sized compact table (the gt render): ``render_batch``'s
+    stacked semantics, the mask antialiased, the rgb not."""
     mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors,
                  torch.device(device))
-    mtx = tensor(mtx, device).reshape(-1, 4, 4)
-    packed, counts, off_c, used, telemetry = _compact_table(mesh, mtx, resolution)
-    dropped = int(telemetry["_bin_overflow"])
+    out = _render(mesh, tensor(mtx, device).reshape(-1, 4, 4), tuple(resolution),
+                  None)
+    dropped = int(out["_bin_overflow"])
     if dropped:
         raise RuntimeError(f"gt render dropped {dropped} (tile, triangle) pairs: "
                            f"more than {MAX_TRIS_PER_TILE} triangles in a tile")
-    h, w = resolution
-    ids, rows, _ = raster_fwd(
-        packed, counts, off_c, used, K_CHUNK, _padded(resolution), TILE_HW,
-        (0, 0, h, w),
-    )
-    ids, rows = ids[:, :h, :w], rows[:, :, :h, :w]
-    xy = pixel_ndc(resolution, device=mtx.device)
-    shd = shade_from_rows(ids, rows, resolution, attr_channels=3, xy=xy)
-    fg = (ids > 0).to(rows.dtype)
-    mask = antialias_rows(fg, ids, shd["zw"], rows, resolution, xy=xy)
-    return {
-        "rgb": torch.stack(shd["attrs_list"], dim=-1),
-        "mask": mask[..., None].expand(mask.shape + (3,)),
-    }
+    return {"rgb": out["rgb"], "mask": out["mask"]}

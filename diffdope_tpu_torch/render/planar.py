@@ -3,9 +3,8 @@
 Counterpart of ``diffdope_tpu/render/planar.py:29-613``, in plain torch
 with autograd.  Every per-triangle quantity is a (B, T) plane; the packed
 table is (B, 32, n_slots) in bin-slot order, the layout the raster
-kernels read.  The pack itself stays plain tensor code here (the
-reference's fused pack kernel, ``pack_kernel.py``, is a fusion of exactly
-this computation).
+kernels read.  ``pack_binned`` is the plain version of the pack kernels
+K1/K2 (``render/pack_kernel.py``), which CPU tensors take.
 
 Binning differs from the reference in one way only: tiles are the GPU
 raster tile (``tile_hw``), and the frame is padded to that tile alone —
@@ -217,7 +216,7 @@ def pack_binned(
     if corner_attrs is not None and corner_attrs.dim() != 3:
         raise NotImplementedError(
             "traced per-hypothesis attributes (appearance optimization) are "
-            "not ported yet: ROADMAP queue 1, item 11"
+            "not ported yet: ROADMAP queue 1, item 4"
         )
     flat = idx.reshape(-1).long()
     safe = flat.clamp(max=t_count - 1)
@@ -263,9 +262,15 @@ def bin_triangles_planar(
     resolution: Tuple[int, int],
     tile_hw: Tuple[int, int],
     max_tris_per_tile: int,
+    cull_backfaces: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Conservative tile binning, union over the batch, y-sorted slots
     (``planar.py:394-546``, its fused-rank ordering).
+
+    ``cull_backfaces`` drops triangles that are back-facing (det <= 0) in
+    every hypothesis, unless a corner is behind the camera (then the sign
+    says nothing).  Valid only for closed, consistently wound meshes, where
+    a back face never wins the depth test (``planar.py:415-420``).
 
     Returns idx (num_tiles, K_pad) int32 (sentinel T), counts
     (num_tiles,) int32 and the dropped-pair count (overflow)."""
@@ -293,6 +298,8 @@ def bin_triangles_planar(
         _corner(behind_c, 0) | _corner(behind_c, 1) | _corner(behind_c, 2)
     ).any(dim=0)
     valid = (det != 0.0).any(dim=0)
+    if cull_backfaces:
+        valid = valid & ((det > 0.0).any(dim=0) | behind)
 
     def tile_range(lo, hi, size, n):
         a = torch.floor(lo / size).clamp(0, n - 1).to(torch.int32)

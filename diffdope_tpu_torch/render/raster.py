@@ -1,7 +1,9 @@
 """Compact-table raster forward (K3) and backward (K4).
 
 Counterpart of the compact parts of ``diffdope_tpu/render/raster_v2.py``:
-``_fwd_from_bins_compact`` (:1827) and ``_compact_dbins`` (:2033).  Each
+``_fwd_from_bins_compact`` (:1827), ``_compact_dbins`` (:2033) and their
+autograd pairing ``raster_gather_rows_compact`` (:1963, here
+:class:`RasterCompact`, the unfused render's raster).  Each
 operation has a plain torch version (used for CPU tensors, and as the
 reference the CUDA kernel is held to) and a wrapper that launches the
 hand-written kernel in ``csrc/raster.cu`` for CUDA tensors.
@@ -228,3 +230,34 @@ def raster_bwd_plain(d_rows: torch.Tensor, win: torch.Tensor, n_slots: int) -> t
     acc = torch.zeros((b * n_slots + 1, width), dtype=d_rows.dtype, device=dev)
     acc.index_add_(0, target, src)
     return acc[:-1].reshape(b, n_slots, width).permute(0, 2, 1).contiguous()
+
+
+class RasterCompact(torch.autograd.Function):
+    """(ids, rows) from the compact bin table, differentiable in ``bins``
+    (counterpart of ``raster_gather_rows_compact``): K3 forward, K4
+    backward over the winner-slot map K3 writes.  ids are not
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, bins, counts, off_c, used, k_chunk, frame_hw, tile_hw, roi):
+        ids, rows, win = raster_fwd(
+            bins, counts, off_c, used, k_chunk, frame_hw, tile_hw, roi
+        )
+        ctx.save_for_backward(win)
+        ctx.n_slots = bins.shape[2]
+        ctx.tile_hw = tile_hw
+        ctx.mark_non_differentiable(ids)
+        return ids, rows
+
+    @staticmethod
+    def backward(ctx, d_ids, d_rows):
+        (win,) = ctx.saved_tensors
+        d_bins = raster_bwd(d_rows.contiguous(), win, ctx.n_slots, ctx.tile_hw)
+        return d_bins, None, None, None, None, None, None, None
+
+
+def raster_compact(bins, counts, off_c, used, k_chunk, frame_hw, tile_hw, roi):
+    return RasterCompact.apply(
+        bins, counts, off_c, used, k_chunk, tuple(frame_hw), tuple(tile_hw),
+        tuple(roi),
+    )

@@ -1,5 +1,5 @@
-"""The port's hand kernels (K3-K6) against their plain torch versions, on
-the card.
+"""The port's hand kernels (K1-K6) against their plain torch versions, and
+a DiffDope run on the card against the same run on the CPU.
 
 A CUDA kernel has no CPU mode, so every test here needs a card and skips
 without one.  On a machine with a card (the repo's conftest imports jax,
@@ -14,7 +14,7 @@ import torch
 
 from diffdope_tpu_torch import kernels
 from diffdope_tpu_torch.bench import bench_problem, distinct_poses
-from diffdope_tpu_torch.kernels.check import check_kernels
+from diffdope_tpu_torch.kernels.check import check_kernels, check_pack
 from diffdope_tpu_torch.optimize import pose_matrix
 
 pytestmark = pytest.mark.cuda
@@ -46,11 +46,13 @@ def checks(problem, params):
     mtx, _, _ = pose_matrix(params)
     d_sums = torch.tensor([[1.0, 0.7, 0.0], [0.5, 1.3, 0.0], [2.0, 0.2, 0.0]],
                           device=mtx.device)
-    return {row["name"]: row for row in check_kernels(problem["fn"], mtx, d_sums)}
+    rows = check_pack(problem["fn"], mtx) + check_kernels(problem["fn"], mtx, d_sums)
+    return {row["name"]: row for row in rows}
 
 
 @pytest.mark.parametrize(
-    "kernel", ["K3_raster_fwd", "K4_raster_bwd", "K5_loss_fwd", "K6_loss_bwd"]
+    "kernel", ["K1_pack_fwd", "K2_pack_bwd", "K3_raster_fwd", "K4_raster_bwd",
+               "K5_loss_fwd", "K6_loss_bwd"]
 )
 def test_kernel_matches_plain_on_card(checks, kernel):
     row = checks[kernel]
@@ -86,3 +88,51 @@ def test_fused_loss_on_card_matches_cpu(problem, params):
     for k in g_cpu:
         np.testing.assert_allclose(g_gpu[k].numpy(), g_cpu[k].numpy(),
                                    rtol=2e-4, atol=1e-6, err_msg=k)
+
+
+def _diffdope_session(device, fused):
+    """A 2-step DiffDope session on icosphere(2) at 48x64, B=3, the gt the
+    port's own render (rendered on the CPU, so both devices see the same
+    images), the init off the gt pose."""
+    import diffdope_tpu_torch as tdd
+    from diffdope_tpu_torch.render.pipeline import render_rgb_mask
+    from diffdope_tpu_torch.testing import icosphere
+
+    h, w = 48, 64
+    verts, faces = icosphere(2)
+    mesh = tdd.Mesh(pos=verts * 0.4, pos_idx=faces, vtx_normals=verts,
+                    num_vertices=len(verts), num_triangles=len(faces),
+                    vtx_color=verts * 0.5 + 0.5,
+                    edge_adj=tdd.build_edge_adjacency(faces))
+    camera = tdd.Camera(fx=60.0, fy=60.0, cx=w / 2, cy=h / 2, im_width=w, im_height=h)
+    mtx_gt, _, _ = pose_matrix(tdd.pose_params([0, 0, 0, 1.0], [0.05, 0.0, -3.0], 1, "cpu"))
+    gt = render_rgb_mask(camera.cam_proj, mtx_gt, mesh.pos, mesh.pos_idx, (h, w),
+                         edge_adj=mesh.edge_adj, vtx_color=mesh.vtx_color, device="cpu")
+    scene = tdd.Scene(tensor_rgb=tdd.Image(img_tensor=gt["rgb"][0].numpy()),
+                      tensor_segmentation=tdd.Image(img_tensor=gt["mask"][0].numpy()))
+    obj = tdd.Object3D(position=[0.013, -0.021, 3.0], rotation=[0.01, -0.02, 0.015, 1.0],
+                       batchsize=B, mesh=mesh)
+    cfg = {"losses": {"l1_mask": True, "l1_rgb_with_mask": True, "weight_rgb": 0.7},
+           "hyperparameters": {"batchsize": B, "nb_iterations": 1,
+                               "learning_rates_bound": [0.5, 2.0]},
+           "tpu": {"fused_loss": fused, "progress": False}}
+    d = tdd.DiffDope(cfg=tdd.ConfigNode(cfg), camera=camera, object3d=obj, scene=scene,
+                     device=device)
+    d.run_optimization()
+    return d
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_diffdope_on_card_matches_cpu(cuda, fused):
+    """The same session on the card (K1-K6 or K1-K4) and on the CPU (the
+    plain versions): step-0 losses rtol 1e-5, the poses after one SGD step
+    atol 1e-5."""
+    kernels.reset_launches()
+    on_card = _diffdope_session(cuda, fused)
+    counters = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd") + (
+        ("loss_fwd", "loss_bwd") if fused else ())
+    assert all(kernels.launches[c] > 0 for c in counters), kernels.launches
+    on_cpu = _diffdope_session("cpu", fused)
+    for k, v in on_cpu.losses_values.items():
+        np.testing.assert_allclose(on_card.losses_values[k][0], v[0], rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(on_card.mtx_history, on_cpu.mtx_history, atol=1e-5)

@@ -8,6 +8,14 @@ import sys
 import pytest
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "diffdope_tpu_torch"
+REF = PKG.parent / "diffdope_tpu"
+#: the port's modules that carry a module of the reference, under its name
+PORTED = (
+    "camera.py", "config.py", "diffdope.py", "geometry.py", "image.py",
+    "losses.py", "mesh.py", "metrics.py", "object3d.py", "optimize.py",
+    "testing.py", "render/fused_loss.py", "render/pack_kernel.py",
+    "render/pipeline.py", "render/planar.py", "render/shade.py",
+)
 
 
 def test_torch_package_imports_without_jax():
@@ -42,12 +50,18 @@ def test_torch_sources_import_no_jax(path):
             assert root not in ("jax", "jaxlib", "optax", "diffdope_tpu"), (path, name)
 
 
+def test_torch_modules_keep_the_reference_names():
+    for name in PORTED:
+        assert (PKG / name).exists(), name
+        assert (REF / name).exists(), name
+
+
 def test_torch_wrappers_refuse_unsupported_devices():
     """A wrapper takes its plain version only for CPU tensors; any other
     device that is not CUDA raises instead of falling back."""
     import torch
 
-    from diffdope_tpu_torch.render import fused_loss, raster
+    from diffdope_tpu_torch.render import fused_loss, pack_kernel, raster
 
     rows = torch.zeros((1, 32, 16, 16), device="meta")
     ids = torch.zeros((1, 16, 16), dtype=torch.int32, device="meta")
@@ -59,3 +73,13 @@ def test_torch_wrappers_refuse_unsupported_devices():
                             torch.zeros((1, 3), device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         raster.raster_bwd(rows, ids, 64, (16, 16))
+    with pytest.raises(ValueError, match="unsupported device"):
+        raster.raster_compact(torch.zeros((1, 32, 64), device="meta"),
+                              *(torch.zeros(1, dtype=torch.int32, device="meta"),) * 3,
+                              32, (16, 16), (16, 16), (0, 0, 16, 16))
+    mvpm = torch.zeros((1, 20), device="meta")
+    tab = torch.zeros((20, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        pack_kernel.pack_fwd(mvpm, tab, torch.zeros((1, 8), device="meta"), 3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pack_kernel.pack_bwd(mvpm, tab, torch.zeros((1, 32, 8), device="meta"), 3)

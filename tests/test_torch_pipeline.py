@@ -66,7 +66,7 @@ def test_torch_roi_crop_is_loss_exact():
         s["proj"], s["pos"], s["tri"], (96, 160), pb["gt"], pb["lrs"],
         pb["weights"], use_rgb=True, use_mask=True, edge_adj=s["edge_adj"],
         vtx_color=s["vtx_color"], compact_total=pb["compact_total"],
-        roi_crop="off",
+        roi_crop="off", device="cpu",
     )
     assert pb["fn"].crop is not None and fn_full.crop is None
     params0 = {k: v.numpy() for k, v in distinct_poses(pb["params0"], 0.01).items()}

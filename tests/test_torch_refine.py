@@ -43,7 +43,7 @@ def reference():
 
 def test_torch_refine_trajectory(reference):
     res = refine(
-        convert.state(jax_scene()["params0"], "cpu"), port_fused_loss(),
+        convert.state(jax_scene()["params0"], "cpu"), fused_loss_fn=port_fused_loss(),
         nb_iterations=STEPS - 1, base_lr=0.02, lr_decay=0.1, optimizer="adam",
     )
     total = res.total_loss.numpy()
@@ -71,6 +71,6 @@ def test_torch_select_losses_matches():
     cfg = {"l1_mask": True, "weight_mask": 1.0, "l1_rgb_with_mask": True,
            "weight_rgb": 0.7}
     j_fns, j_weights = j_select(cfg)
-    names, weights = t_select(cfg)
+    fns, weights = t_select(cfg)
     assert weights == j_weights
-    assert names == [f.__name__ for f in j_fns]
+    assert [f.__name__ for f in fns] == [f.__name__ for f in j_fns]
