@@ -10,10 +10,11 @@ result line):
 2. builds the hand kernels from ``diffdope_tpu_torch/csrc`` (one nvcc per
    source, in parallel, sm_90a) and reports the build time;
 3. holds each kernel (K1 pack fwd, K2 pack bwd, K3 raster fwd, K4 raster
-   bwd, K5 loss fwd, K6 loss bwd) against its plain torch version on the
-   card, at the test scene and at the bench shapes, each hypothesis at a
-   pose of its own (K1 bit for bit in all 32 lanes), and times both at the
-   bench shapes;
+   bwd, K5 loss fwd, K6 loss bwd; K7 uniform raster fwd and bwd on the
+   uniform-K table; K5/K6 with the depth lane) against its plain torch
+   version on the card, at the test scene and at the bench shapes, each
+   hypothesis at a pose of its own (K1 bit for bit in all 32 lanes), and
+   times both at the bench shapes;
 4. drives the bench main path: the bench protocol (B=64, 400x400,
    icosphere(5), rgb+mask, 100 Adam steps) through ``make_fused_loss`` +
    ``refine``, with every launch counter reset just before and read just
@@ -33,7 +34,23 @@ result line):
 6. the same with ``tpu.fused_loss: false`` (the unfused render_batch
    route): K1-K4 launched, K5/K6 not, K1-K4 agree with their plain
    versions on its full-frame tables, its step-0 losses equal the fused
-   run's at rtol 1e-5, and the loss falls.
+   run's at rtol 1e-5, and the loss falls;
+7. ``DiffDope`` at the default configuration with the depth loss
+   (``losses.l1_depth_with_mask: true``, mask + depth L1) on the fused
+   compact route: K1-K4 and K5/K6 with the depth plane launched, K7 and
+   the rgb+mask K5/K6 not; the criteria of phase 5; K1-K6 agree with their
+   plain versions on its tables; its step-0 'mask_selection' and 'depth'
+   logs equal one unfused ``render_batch`` + the loss functions at the
+   init, rtol 1e-5;
+8. the same with ``tpu.compact_bins: false`` (the uniform-K table, full
+   frame): K1, K2, K7 and K5/K6 with the depth plane launched, K3/K4 not;
+   the criteria of phase 5; K1, K2, K7, K5, K6 agree with their plain
+   versions on its tables, and K7 also on its unfused render's tables;
+   its step-0 logs equal phase 7's and, at the init, those of phase 7's
+   loss with its ROI crop (on even where the kept run dropped it after a
+   leak; no leak there), so the crop is loss-exact; and at the init the
+   cropped compact table and the uniform table hold the same slots per
+   tile in the same order.
 
 The line before the last is the card; before it, one JSON object with a
 row per kernel.  The last line is ``{"ok": true, "device": {...}}``.
@@ -83,6 +100,10 @@ DEFAULT_CONFIG = {
             "overflow_recovery": True, "overflow_retries": 2,
             "argmin_rule": "best_step", "roi_crop": "auto"},
 }
+#: the launch counters of the fused compact route without depth (the bench
+#: main path, phase 5); the unfused route runs the first four
+COMPACT_FUSED = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd", "loss_fwd",
+                 "loss_bwd")
 #: the DiffDope phases' init: the configured pose moved by this OpenCV-frame
 #: translation (mm, before the 0.01 scale) and rotated by this many degrees
 #: about ``axis``; the default SGD configuration recovers it (the phase
@@ -123,9 +144,9 @@ def check_all(fn, mtx, d_sums, reps=0):
     return check_pack(fn, mtx, reps) + check_kernels(fn, mtx, d_sums, reps)
 
 
-def diffdope_session(fused: bool, offset=None, tpu=None):
-    """A DiffDope on the card at ``DEFAULT_CONFIG`` (``tpu`` entries
-    overriding its tpu group): the scene is the port's render at the
+def diffdope_session(fused: bool, offset=None, tpu=None, losses=None):
+    """A DiffDope on the card at ``DEFAULT_CONFIG`` (``tpu`` and ``losses``
+    entries overriding its groups): the scene is the port's render at the
     configured pose, the init that pose moved by ``offset`` (default
     ``INIT_OFFSET``).  Returns the session, the mesh's vertices (for ADD)
     and the gt pose."""
@@ -151,6 +172,8 @@ def diffdope_session(fused: bool, offset=None, tpu=None):
     cfg.tpu.fused_loss = fused
     for key, value in (tpu or {}).items():
         cfg.tpu[key] = value
+    for key, value in (losses or {}).items():
+        cfg.losses[key] = value
     camera = Camera(**cfg.camera)
     h = int(cfg.camera.im_height * cfg.scene.image_resize)
     w = int(cfg.camera.im_width * cfg.scene.image_resize)
@@ -195,17 +218,17 @@ def add_to(points, mtx_gt, m) -> float:
     return float(add_metric(points.double(), m[:3, :3], m[:3, 3], g[:3, :3], g[:3, 3]))
 
 
-def diffdope_phase(fused: bool, gpu: str):
-    """One default-configuration DiffDope run on the card, then K1-K6 (K1-K4
-    on the unfused route) against their plain versions on its tables;
-    returns the session, its launch counts, and the ADD of the init and of
+def diffdope_phase(fused: bool, gpu: str, route: str, tpu=None, losses=None):
+    """One default-configuration DiffDope run on the card, then the kernels
+    of its route against their plain versions on its tables; returns the
+    session, its launch counts, and the ADD of the init and of
     get_pose()."""
     import numpy as np
     import torch
 
     from diffdope_tpu_torch import kernels
 
-    dd, points, mtx_gt = diffdope_session(fused)
+    dd, points, mtx_gt = diffdope_session(fused, tpu=tpu, losses=losses)
     h, w = dd.resolution
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -217,7 +240,6 @@ def diffdope_phase(fused: bool, gpu: str):
     launches = dict(kernels.launches)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    route = "fused" if fused else "unfused"
     # the kernels at this phase's shapes: the kept run's tables (its final
     # capacities and crop, or the unfused route's full frame) at its last
     # poses, which differ per hypothesis
@@ -227,7 +249,8 @@ def diffdope_phase(fused: bool, gpu: str):
                              dtype=torch.float32, device="cuda")
     for row in check_all(fn, mtx_last, d_sums):
         print(f"DiffDope {route} shapes {row['name']}: ok={row['ok']} "
-              f"max_abs_err={row['max_abs_err']:.3e} ({row['tolerance']})", flush=True)
+              f"max_abs_err={row['max_abs_err']:.3e} ({row['tolerance']}){slots(row)}",
+              flush=True)
         if not row["ok"]:
             fail(f"{row['name']} disagrees with its plain version on the DiffDope "
                  f"{route} tables: {row}")
@@ -239,6 +262,79 @@ def diffdope_phase(fused: bool, gpu: str):
     print(f"DiffDope {route} launches: {launches}", flush=True)
     return (dd, launches, add_to(points, mtx_gt, dd.object3d.initial_matrix()),
             add_to(points, mtx_gt, dd.get_pose()))
+
+
+def slots(row) -> str:
+    """The slots a raster check walked, of its table's, for its printed
+    line."""
+    return f", {row['slots']} of {row['table_slots']} slots" if "slots" in row else ""
+
+
+def check_launches(route, launches, on, off) -> None:
+    """Fail unless every counter of ``on`` is positive and every counter of
+    ``off`` is 0."""
+    for counter in on:
+        if launches[counter] <= 0:
+            fail(f"{route}: {counter} was not launched ({launches})")
+    for counter in off:
+        if launches[counter]:
+            fail(f"{route}: {counter} was launched ({launches})")
+
+
+def unfused_step0(dd):
+    """One unfused render_batch at the session's init poses plus its loss
+    functions, no refinement: the logged per-hypothesis terms."""
+    import torch
+
+    render_fn = dd._make_render_fn()
+    mtx0 = torch.as_tensor(dd.mtx_history[0], device="cuda")
+    gt = {k: torch.as_tensor(v, device="cuda") for k, v in dd.gt_tensors.items()}
+    logs = {}
+    with torch.no_grad():
+        renders = render_fn(mtx0)
+        for fn in dd.loss_functions:
+            _, (key, values) = fn(renders, gt, dd.learning_rates, dd.loss_weights)
+            logs[key] = values.cpu().numpy()
+    return logs
+
+
+def agree_step0(route, got, want, keys) -> None:
+    import numpy as np
+
+    for key in keys:
+        if not np.allclose(got[key], want[key], rtol=1e-5, atol=0.0):
+            fail(f"{route}: step-0 '{key}' {got[key]} differs from {want[key]} "
+                 "beyond rtol 1e-5")
+    print(f"{route}: step-0 {', '.join(keys)} agree at rtol 1e-5", flush=True)
+
+
+def same_slots(fn_compact, fn_uniform, mtx) -> int:
+    """Fail unless, at poses ``mtx``, every tile of the compact table (its
+    crop's tiles) holds the same slots in the same order as that tile of
+    the uniform table; returns the number of slots compared."""
+    import torch
+
+    from diffdope_tpu_torch.render.pipeline import K_CHUNK, TILE_HW, _padded
+
+    with torch.no_grad():
+        c, u = fn_compact.binned(mtx), fn_uniform.binned(mtx)
+    ntx = _padded(fn_uniform.roi[2:])[1] // TILE_HW[1]
+    oy, ox, hc, wc = fn_compact.crop or ((0, 0) + tuple(fn_compact.frame_hw))
+    tiles = [(oy // TILE_HW[0] + i) * ntx + ox // TILE_HW[1] + j
+             for i in range(hc // TILE_HW[0]) for j in range(wc // TILE_HW[1])]
+    k = u.flat.numel() // u.counts.numel()
+    c_flat, u_flat = c.flat.cpu(), u.flat.cpu()
+    c_counts, u_counts = c.counts.cpu(), u.counts.cpu()
+    off, n = c.off_c.cpu() * K_CHUNK, 0
+    for i, t in enumerate(tiles):
+        m = int(c_counts[i])
+        if m != int(u_counts[t]) or not torch.equal(
+                c_flat[off[i]: off[i] + m], u_flat[t * k: t * k + m]):
+            fail(f"tile {t}: the compact and the uniform table hold other slots")
+        n += m
+    if int(u_counts.sum()) != n:
+        fail("the uniform table holds slots outside the compact table's crop")
+    return n
 
 
 def check_diffdope(dd, route, add0, add1):
@@ -280,7 +376,7 @@ def main() -> None:
         distinct_poses,
         run_refinement,
     )
-    from diffdope_tpu_torch.kernels.check import COUNTERS, KERNELS
+    from diffdope_tpu_torch.kernels.check import COUNTERS, KERNELS, check_kernels
     from diffdope_tpu_torch.metrics import add_metric
     from diffdope_tpu_torch.optimize import argmin_hypothesis, pose_matrix
 
@@ -302,7 +398,14 @@ def main() -> None:
     mtx, _, _ = pose_matrix(distinct_poses(small["params0"], 0.01))
     d_small = torch.tensor([[1.0, 0.7, 0.0], [0.5, 1.3, 0.0], [2.0, 0.2, 0.0]],
                            device="cuda")
-    for row in check_all(small["fn"], mtx, d_small):
+    # K1-K6 on the compact table; K1, K2, K7 and K5/K6 with the depth lane
+    # on the uniform table of the depth variant
+    small_du = bench_problem((64, 96), subdiv=2, batch=3, device="cuda", depth=True,
+                             uniform=True)
+    d_small_du = torch.tensor([[1.0, 0.7, 0.9], [0.5, 1.3, 1.1], [2.0, 0.2, 0.4]],
+                              device="cuda")
+    for row in (check_all(small["fn"], mtx, d_small)
+                + check_all(small_du["fn"], mtx, d_small_du)):
         print(f"test scene {row['name']}: ok={row['ok']} "
               f"max_abs_err={row['max_abs_err']:.3e} ({row['tolerance']})", flush=True)
         if not row["ok"]:
@@ -321,10 +424,30 @@ def main() -> None:
         print(f"bench shapes {row['name']}: ok={row['ok']} "
               f"max_abs_err={row['max_abs_err']:.3e} kernel {row['ms']:.4f} ms, "
               f"plain {row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
-              f"({row['bound'][1]}) [{gpu}]", flush=True)
+              f"({row['bound'][1]}){slots(row)} [{gpu}]", flush=True)
         if not row["ok"]:
             fail(f"{row['name']} disagrees with its plain version at bench shapes: {row}")
         bench_rows[row["name"]] = row
+    # the depth lane of K5/K6 at the bench problem's crop (its depth
+    # variant), and K7 on its uniform-K table (the full frame, K 1,024);
+    # only the rows the kernel line takes from each
+    for variant, names in (({"depth": True}, ("K5_loss_fwd_depth", "K6_loss_bwd_depth")),
+                           ({"uniform": True}, ("K7_raster_uniform_fwd",
+                                                "K7_raster_uniform_bwd"))):
+        extra = bench_problem((400, 400), subdiv=5, batch=64, device="cuda", **variant)
+        print(f"bench problem {variant}: crop {extra['fn'].crop}", flush=True)
+        for row in check_kernels(extra["fn"], mtx, d_sums, reps=20):
+            print(f"bench shapes {variant} {row['name']}: ok={row['ok']} "
+                  f"max_abs_err={row['max_abs_err']:.3e} kernel {row['ms']:.4f} ms, "
+                  f"plain {row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
+                  f"({row['bound'][1]}){slots(row)} [{gpu}]", flush=True)
+            if not row["ok"]:
+                fail(f"{row['name']} disagrees with its plain version at bench "
+                     f"shapes {variant}: {row}")
+            if row["name"] in names:
+                bench_rows[row["name"]] = row
+        del extra
+        torch.cuda.empty_cache()
 
     # ---- the bench main path ------------------------------------------------
     run_refinement(problem)  # warm-up: allocator, caches
@@ -339,9 +462,8 @@ def main() -> None:
           f"{1e3 * seconds / steps:.3f} ms/step, {1.0 / seconds:.4f} refinements/s, "
           f"peak {peak_gib:.2f} GiB [{gpu}]", flush=True)
     print(f"launches in the main path: {launches}", flush=True)
-    for name, counter in COUNTERS.items():
-        if launches[counter] <= 0:
-            fail(f"{name} was not launched by the main path")
+    check_launches("main path", launches, COMPACT_FUSED,
+                   set(launches) - set(COMPACT_FUSED))
     if launches["pack_fwd"] != launches["raster_fwd"]:
         fail("a table of the main path was not packed by K1")
 
@@ -374,32 +496,81 @@ def main() -> None:
         fail("the best hypothesis did not end closer to the gt pose")
 
     # ---- DiffDope at the default configuration ------------------------------
-    dd_f, launches_f, add0, add1 = diffdope_phase(True, gpu)
-    for name, counter in COUNTERS.items():
-        if launches_f[counter] <= 0:
-            fail(f"DiffDope fused: {name} was not launched")
+    dd_f, launches_f, add0, add1 = diffdope_phase(True, gpu, "fused")
+    check_launches("DiffDope fused", launches_f, COMPACT_FUSED,
+                   set(launches_f) - set(COMPACT_FUSED))
     check_diffdope(dd_f, "fused", add0, add1)
 
-    dd_u, launches_u, add0, add1 = diffdope_phase(False, gpu)
-    for counter in ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd"):
-        if launches_u[counter] <= 0:
-            fail(f"DiffDope unfused: {counter} was not launched")
-    if launches_u["loss_fwd"] or launches_u["loss_bwd"]:
-        fail("DiffDope unfused: the fused loss kernels ran")
+    dd_u, launches_u, add0, add1 = diffdope_phase(False, gpu, "unfused")
+    check_launches("DiffDope unfused", launches_u, COMPACT_FUSED[:4],
+                   set(launches_u) - set(COMPACT_FUSED[:4]))
     check_diffdope(dd_u, "unfused", add0, add1)
-    for key, v in dd_f.losses_values.items():
-        u = dd_u.losses_values[key][0]
-        if not np.allclose(u, v[0], rtol=1e-5, atol=0.0):
-            fail(f"DiffDope: step-0 '{key}' of the unfused route {u} differs from "
-                 f"the fused route's {v[0]} beyond rtol 1e-5")
-    print("DiffDope: step-0 losses of the two routes agree at rtol 1e-5", flush=True)
+    agree_step0("DiffDope unfused against fused",
+                {k: v[0] for k, v in dd_u.losses_values.items()},
+                {k: v[0] for k, v in dd_f.losses_values.items()},
+                sorted(dd_f.losses_values))
+    del dd_f, dd_u
 
+    # ---- DiffDope with the depth loss: the compact and the uniform table ----
+    depth = {"l1_depth_with_mask": True}
+    dd_c, launches_c, add0, add1 = diffdope_phase(True, gpu, "depth compact", losses=depth)
+    on = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd", "loss_fwd_depth",
+          "loss_bwd_depth")
+    check_launches("DiffDope depth compact", launches_c, on, set(launches_c) - set(on))
+    check_diffdope(dd_c, "depth compact", add0, add1)
+    step0_c = {k: v[0] for k, v in dd_c.losses_values.items()}
+    agree_step0("DiffDope depth compact against one unfused render", step0_c,
+                unfused_step0(dd_c), ("mask_selection", "depth"))
+
+    dd_k, launches_k, add0, add1 = diffdope_phase(
+        True, gpu, "depth uniform", tpu={"compact_bins": False}, losses=depth)
+    on = ("pack_fwd", "pack_bwd", "raster_uniform_fwd", "raster_uniform_bwd",
+          "loss_fwd_depth", "loss_bwd_depth")
+    check_launches("DiffDope depth uniform", launches_k, on, set(launches_k) - set(on))
+    check_diffdope(dd_k, "depth uniform", add0, add1)
+    mtx_last = torch.as_tensor(dd_k.mtx_history[-1], device="cuda")
+    for row in check_kernels(dd_k._make_render_fn(), mtx_last):
+        print(f"DiffDope depth uniform render shapes {row['name']}: ok={row['ok']} "
+              f"max_abs_err={row['max_abs_err']:.3e} ({row['tolerance']}){slots(row)}",
+              flush=True)
+        if not row["ok"]:
+            fail(f"{row['name']} disagrees with its plain version on the uniform "
+                 f"render's tables: {row}")
+    agree_step0("DiffDope depth uniform against depth compact",
+                {k: v[0] for k, v in dd_k.losses_values.items()}, step0_c,
+                ("mask_selection", "depth"))
+    # the ROI crop at the init, even where the kept compact run dropped it
+    # after a leak: no leak there, the uniform run's step-0 logs, and the
+    # same slots per tile as the uniform table
+    mtx0 = torch.as_tensor(dd_c.mtx_history[0], device="cuda")
+    dd_c._crop_disable = False
+    fn_c = dd_c._make_fused_loss_fn(dd_c.gt_tensors)
+    if fn_c.crop is None:
+        fail("DiffDope depth compact: the fused loss has no ROI crop at the init")
+    with torch.no_grad():
+        _, logs_c = fn_c(mtx0)
+    if int(logs_c["_crop_leak"]) or int(logs_c["_bin_overflow"]):
+        fail(f"DiffDope depth compact: the crop at the init leaks or drops: {logs_c}")
+    agree_step0(f"DiffDope depth, crop {fn_c.crop} at the init, against uniform",
+                {k: logs_c[k].cpu().numpy() for k in ("mask_selection", "depth")},
+                {k: v[0] for k, v in dd_k.losses_values.items()},
+                ("mask_selection", "depth"))
+    n = same_slots(fn_c, dd_k._make_fused_loss_fn(dd_k.gt_tensors), mtx0)
+    print(f"DiffDope depth: at the init the compact table (crop {fn_c.crop}) and the "
+          f"uniform table hold the same {n} slots per tile in the same order",
+          flush=True)
+
+    # launches on the path that runs each kernel: the bench main path, the
+    # depth phase on the compact table, the depth phase on the uniform one
+    path = {**launches_c, **{c: launches_k[c] for c in
+                             ("raster_uniform_fwd", "raster_uniform_bwd")},
+            **{c: launches[c] for c in COMPACT_FUSED}}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = bench_rows[name]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[COUNTERS[name]], "max_abs_err": r["max_abs_err"],
+            "launches": path[COUNTERS[name]], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": None,
         })

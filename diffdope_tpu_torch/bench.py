@@ -57,13 +57,18 @@ def card() -> str:
     return out[0] if out else "unknown"
 
 
-def bench_problem(resolution=RES, subdiv=5, batch=BATCH,
-                  device="cuda") -> Dict[str, object]:
+def bench_problem(resolution=RES, subdiv=5, batch=BATCH, device="cuda",
+                  depth: bool = False, uniform: bool = False) -> Dict[str, object]:
     """The bench protocol's problem on ``device``: the icosphere scene, gt
     images rendered by the port at the gt pose, loss scales
     ``np.random.default_rng(0).uniform(0.5, 4, B)``, rgb+mask weights
     (mask 1.0, rgb 0.7), the compact capacity from the gt probe, the fused
-    loss and the initial params (every hypothesis at the initial pose)."""
+    loss and the initial params (every hypothesis at the initial pose).
+
+    Variants for the kernel checks, off the bench protocol: ``depth`` adds
+    the depth L1 (weight 1.0) against the gt render's depth; ``uniform``
+    runs the uniform-K table (full frame, no crop) in place of the compact
+    one."""
     s = bench_scene(resolution, subdiv)
     mtx_gt, _, _ = pose_matrix(pose_params(s["q_gt"], s["t_gt"], 1, device))
     gt = render_rgb_mask(
@@ -71,19 +76,21 @@ def bench_problem(resolution=RES, subdiv=5, batch=BATCH,
         edge_adj=s["edge_adj"], vtx_color=s["vtx_color"], device=device,
     )
     gt_np = {"rgb": gt["rgb"][0].cpu().numpy(),
-             "segmentation": gt["mask"][0].cpu().numpy()}
+             "segmentation": gt["mask"][0].cpu().numpy(),
+             "depth": gt["depth"][0].cpu().numpy()}
     lrs = np.random.default_rng(0).uniform(0.5, 4.0, batch).astype(np.float32)
     _, weights = select_losses(
         {"l1_mask": True, "weight_mask": 1.0,
-         "l1_rgb_with_mask": True, "weight_rgb": 0.7}
+         "l1_rgb_with_mask": True, "weight_rgb": 0.7,
+         "l1_depth_with_mask": depth, "weight_depth": 1.0}
     )
     total = compact_capacity(s["proj"], s["pos"], s["tri"], mtx_gt, resolution,
                              device=device)
     fn = make_fused_loss(
         s["proj"], s["pos"], s["tri"], resolution, gt_np, lrs, weights,
-        use_rgb=True, use_mask=True,
-        edge_adj=s["edge_adj"], vtx_color=s["vtx_color"], compact_total=total,
-        device=device,
+        use_rgb=True, use_depth=depth, use_mask=True,
+        edge_adj=s["edge_adj"], vtx_color=s["vtx_color"],
+        compact_total=None if uniform else total, device=device,
     )
     params0 = pose_params(s["q0"], s["t0"], batch, device)
     return dict(scene=s, gt=gt_np, lrs=lrs, weights=weights, fn=fn,

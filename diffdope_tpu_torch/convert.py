@@ -43,13 +43,24 @@ def state(arrays: Dict[str, object], device) -> Dict[str, object]:
     return out
 
 
+def _plain(value):
+    """A (nested) config mapping as plain dicts and lists."""
+    if isinstance(value, dict):
+        return {k: _plain(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_plain(v) for v in value]
+    return value
+
+
 def diffdope_state(dd) -> Dict[str, object]:
     """A reference ``DiffDope``'s state as numpy: the mesh arrays ('pos',
     'pos_idx', 'edge_adj', 'vtx_color' or 'corner_colors', 'is_closed',
     'is_oriented'), the projection 'proj', the initial pose 'params0'
-    (seven (B,) arrays), the loss scales 'learning_rates' and the gt
-    arrays 'gt'.  Read by attribute only, so this module needs no jax: a
-    port ``DiffDope`` built from these computes the same refinement."""
+    (seven (B,) arrays), the loss scales 'learning_rates', the gt arrays
+    'gt' (its 'depth' too, where the scene has one), and the config groups
+    that choose the losses and the table, 'losses' and 'tpu', as plain
+    dicts.  Read by attribute only, so this module needs no jax: a port
+    ``DiffDope`` built from these computes the same refinement."""
     mesh = dd.object3d.mesh
     out = {
         "pos": np.asarray(mesh.pos),
@@ -62,6 +73,8 @@ def diffdope_state(dd) -> Dict[str, object]:
                     for k, v in dd.object3d.initial_params(dd.batchsize).items()},
         "learning_rates": np.asarray(dd.learning_rates),
         "gt": {k: np.asarray(v) for k, v in dd.gt_tensors.items()},
+        "losses": _plain(dd.cfg.get("losses", {})),
+        "tpu": _plain(dd.cfg.get("tpu", {})),
     }
     if mesh.corner_colors is not None:
         out["corner_colors"] = np.asarray(mesh.corner_colors)

@@ -25,8 +25,20 @@
 // of, the mask term through the pair's lam into that edge line's lanes 0-8.
 // Tie rules are JAX's: d|x|/dx = +1 at 0, maximum/clip split 0.5/0.5.
 //
+// The depth lane (kDepth, when the caller passes a dplane = gt depth + t_z
+// per hypothesis): K5 adds |attr_z + dplane| * seg0 per pixel
+// (fused_loss.py:117-120; attr_z, the rotated-z attribute in lanes 25-27,
+// is 0 on background, so a background pixel adds |dplane| * seg0 as the TPU
+// kernel's background slabs do, :253-256), and K6 writes d_dplane =
+// dd * seg0 * d|v|/dv at every real pixel, foreground or not
+// (:346-354), and the attr_z cotangent into lanes 25-27 of a foreground
+// pixel.  d|v|/dv is +1 at v = 0 everywhere: the TPU kernel takes
+// jnp.sign (0 at 0) on slabs without foreground, a rule that depends on
+// its slab height; the port keeps one rule.  The rgb + mask launch
+// (kDepth false) is the same code as before the depth lane existed.
+//
 // Bound on this card: the rows reads — 23 of the 32 lanes (0-12, 14, 16-24)
-// of each foreground pixel (memory bound).
+// of each foreground pixel, 26 with the depth lane (memory bound).
 //
 // Numeric contract (build with -fmad=false, no fast math): every product
 // and sum is rounded as in the reference's f32 expression order.
@@ -209,12 +221,15 @@ __device__ float aa_at(const Frame& f, int r, int c) {
   return __fadd_rn(color, delta);
 }
 
+// kCh = 3 colour channels, or 4 with the rotated-z depth channel
+template <int kCh>
 struct Shade {
-  float e[3], s, s_safe, num[3], attr[3];
+  float e[3], s, s_safe, num[kCh], attr[kCh];
 };
 
-__device__ Shade shade_at(const Frame& f, int r, int c, bool fg) {
-  Shade sh;
+template <int kCh>
+__device__ Shade<kCh> shade_at(const Frame& f, int r, int c, bool fg) {
+  Shade<kCh> sh;
   const size_t p = (size_t)r * f.wc + c;
   const float x = f.x(c), y = f.y(r);
 #pragma unroll
@@ -224,7 +239,7 @@ __device__ Shade shade_at(const Frame& f, int r, int c, bool fg) {
   sh.s = __fadd_rn(__fadd_rn(sh.e[0], sh.e[1]), sh.e[2]);
   sh.s_safe = fabsf(sh.s) > kEps ? sh.s : 1.0f;
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
+  for (int ch = 0; ch < kCh; ++ch) {
     sh.num[ch] = lin3(f.lane(16 + 3 * ch, p), x, f.lane(17 + 3 * ch, p), y,
                       f.lane(18 + 3 * ch, p));
     sh.attr[ch] = fg ? __fdiv_rn(sh.num[ch], sh.s_safe) : 0.0f;
@@ -232,22 +247,26 @@ __device__ Shade shade_at(const Frame& f, int r, int c, bool fg) {
   return sh;
 }
 
+template <bool kDepth>
 __global__ void loss_fwd_kernel(const float* __restrict__ rows,
                                 const int* __restrict__ ids,
-                                const float* __restrict__ gt6, int hc, int wc,
-                                int oy, int ox, int fh, int fw,
+                                const float* __restrict__ gt6,
+                                const float* __restrict__ dplane, int hc,
+                                int wc, int oy, int ox, int fh, int fw,
                                 float* __restrict__ partials) {
-  __shared__ float red[2][kBlock];
+  constexpr int kCh = kDepth ? 4 : 3;
+  constexpr int kSums = kDepth ? 3 : 2;
+  __shared__ float red[kSums][kBlock];
   const int b = blockIdx.y;
   const Frame f = make_frame(rows, ids, gt6, b, hc, wc, oy, ox, fh, fw);
   const int p = blockIdx.x * kBlock + threadIdx.x;
-  float m_term = 0.0f, r_term = 0.0f;
+  float m_term = 0.0f, r_term = 0.0f, d_term = 0.0f;
   if (p < hc * wc) {
     const int r = p / wc, c = p % wc;
     if (f.valid(r, c)) {
       const bool fg = f.ids[p] > 0;
       const float aa = aa_at(f, r, c);
-      const Shade sh = shade_at(f, r, c, fg);
+      const Shade<kCh> sh = shade_at<kCh>(f, r, c, fg);
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
         const float seg = f.gt6[ch * f.plane + p];
@@ -256,38 +275,46 @@ __global__ void loss_fwd_kernel(const float* __restrict__ rows,
         r_term = __fadd_rn(
             r_term, __fmul_rn(fabsf(__fsub_rn(sh.attr[ch], rgb)), seg));
       }
+      if constexpr (kDepth) {
+        const float v = __fadd_rn(sh.attr[kCh - 1],
+                                  dplane[(size_t)b * f.plane + p]);
+        d_term = __fmul_rn(fabsf(v), f.gt6[p]);
+      }
     }
   }
   red[0][threadIdx.x] = m_term;
   red[1][threadIdx.x] = r_term;
+  if constexpr (kDepth) red[kSums - 1][threadIdx.x] = d_term;
   __syncthreads();
   for (int s = kBlock / 2; s > 0; s >>= 1) {
     if (threadIdx.x < s) {
-      red[0][threadIdx.x] = __fadd_rn(red[0][threadIdx.x], red[0][threadIdx.x + s]);
-      red[1][threadIdx.x] = __fadd_rn(red[1][threadIdx.x], red[1][threadIdx.x + s]);
+#pragma unroll
+      for (int k = 0; k < kSums; ++k)
+        red[k][threadIdx.x] = __fadd_rn(red[k][threadIdx.x], red[k][threadIdx.x + s]);
     }
     __syncthreads();
   }
   if (threadIdx.x == 0) {
-    float* out = partials + ((size_t)b * gridDim.x + blockIdx.x) * 2;
-    out[0] = red[0][0];
-    out[1] = red[1][0];
+    float* out = partials + ((size_t)b * gridDim.x + blockIdx.x) * kSums;
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) out[k] = red[k][0];
   }
 }
 
+// the block partials of each hypothesis, added in block order (double)
+template <int kSums>
 __global__ void loss_reduce_kernel(const float* __restrict__ partials, int B,
                                    int nblk, float* __restrict__ sums) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  double m = 0.0, r = 0.0;
-  const float* pp = partials + (size_t)b * nblk * 2;
+  double acc[3] = {0.0, 0.0, 0.0};
+  const float* pp = partials + (size_t)b * nblk * kSums;
   for (int i = 0; i < nblk; ++i) {
-    m += (double)pp[2 * i];
-    r += (double)pp[2 * i + 1];
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) acc[k] += (double)pp[kSums * i + k];
   }
-  sums[b * 3 + 0] = (float)m;
-  sums[b * 3 + 1] = (float)r;
-  sums[b * 3 + 2] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) sums[b * 3 + k] = (float)acc[k];
 }
 
 // K6 pass A: g = d(loss)/d(aa) = dm * lm * sum_c sgn(aa - seg_c)
@@ -321,14 +348,19 @@ __device__ __forceinline__ void add_lane(float (&d)[9], int k, float v) {
     if (i == k) d[i] = __fadd_rn(d[i], v);
 }
 
-// K6 pass B: d_rows per pixel (a gather over the pixel's own terms)
+// K6 pass B: d_rows per pixel (a gather over the pixel's own terms), and
+// with the depth lane d_dplane per pixel
+template <bool kDepth>
 __global__ void loss_bwd_rows_kernel(const float* __restrict__ rows,
                                      const int* __restrict__ ids,
                                      const float* __restrict__ gt6,
+                                     const float* __restrict__ dplane,
                                      const float* __restrict__ d_sums, int hc,
                                      int wc, int oy, int ox, int fh, int fw,
                                      const float* __restrict__ g,
-                                     float* __restrict__ d_rows) {
+                                     float* __restrict__ d_rows,
+                                     float* __restrict__ d_dplane) {
+  constexpr int kCh = kDepth ? 4 : 3;
   const int b = blockIdx.y;
   const Frame f = make_frame(rows, ids, gt6, b, hc, wc, oy, ox, fh, fw);
   const int p = blockIdx.x * kBlock + threadIdx.x;
@@ -336,32 +368,52 @@ __global__ void loss_bwd_rows_kernel(const float* __restrict__ rows,
   const int r = p / wc, c = p % wc;
   const float* gb = g + (size_t)b * f.plane;
   float d_edge[9];
-  float d_attr[9];
+  float d_attr[3 * kCh];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) d_edge[k] = d_attr[k] = 0.0f;
+  for (int k = 0; k < 9; ++k) d_edge[k] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3 * kCh; ++k) d_attr[k] = 0.0f;
 
   const bool fg = f.ids[p] > 0;
-  if (fg && f.valid(r, c)) {
+  const bool valid = f.valid(r, c);
+  Shade<kCh> sh;  // read only at a real foreground pixel
+  if (fg && valid) sh = shade_at<kCh>(f, r, c, true);
+  float h[kCh];  // the cotangent of each attribute channel
+  if constexpr (kDepth) {
+    // d|attr_z + dplane| * seg0: the same cotangent reaches dplane and,
+    // on a foreground pixel, attr_z
+    float dz = 0.0f;
+    if (valid) {
+      const float attr_z = fg ? sh.attr[kCh - 1] : 0.0f;
+      const float v = __fadd_rn(attr_z, dplane[(size_t)b * f.plane + p]);
+      dz = __fmul_rn(__fmul_rn(d_sums[b * 3 + 2], f.gt6[p]), sgn_jax(v));
+    }
+    d_dplane[(size_t)b * f.plane + p] = dz;
+    h[kCh - 1] = dz;
+  }
+  if (fg && valid) {
     const float dr = d_sums[b * 3 + 1];
     const float x = f.x(c), y = f.y(r);
-    const Shade sh = shade_at(f, r, c, true);
-    float ds_c[3];
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
       const float seg = f.gt6[ch * f.plane + p];
       const float rgb = f.gt6[(3 + ch) * f.plane + p];
-      const float h = __fmul_rn(__fmul_rn(dr, seg),
-                                sgn_jax(__fsub_rn(sh.attr[ch], rgb)));
-      // attr = num / s: d num = h / s, d s = -h * ((num / s) / s) — the
-      // division's derivative in the plain version's (autograd's) rounding;
-      // the three terms can cancel, so the order matters too
-      const float dn = __fdiv_rn(h, sh.s_safe);
-      ds_c[ch] = __fmul_rn(-h, __fdiv_rn(sh.attr[ch], sh.s_safe));
+      h[ch] = __fmul_rn(__fmul_rn(dr, seg), sgn_jax(__fsub_rn(sh.attr[ch], rgb)));
+    }
+    // attr = num / s: d num = h / s, d s = -h * ((num / s) / s) — the
+    // division's derivative in the plain version's (autograd's) rounding;
+    // the terms can cancel, so their order matters too: autograd adds the
+    // channels' d s last channel first
+    float ds = 0.0f;
+#pragma unroll
+    for (int ch = kCh - 1; ch >= 0; --ch) {
+      const float dn = __fdiv_rn(h[ch], sh.s_safe);
+      const float ds_c = __fmul_rn(-h[ch], __fdiv_rn(sh.attr[ch], sh.s_safe));
+      ds = ch == kCh - 1 ? ds_c : __fadd_rn(ds, ds_c);
       d_attr[3 * ch + 0] = __fmul_rn(dn, x);
       d_attr[3 * ch + 1] = __fmul_rn(dn, y);
       d_attr[3 * ch + 2] = dn;
     }
-    const float ds = __fadd_rn(__fadd_rn(ds_c[2], ds_c[1]), ds_c[0]);
     if (fabsf(sh.s) > kEps) {
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
@@ -421,38 +473,59 @@ __global__ void loss_bwd_rows_kernel(const float* __restrict__ rows,
 #pragma unroll
   for (int k = 9; k < 16; ++k) out[k * f.plane] = 0.0f;
 #pragma unroll
-  for (int k = 0; k < 9; ++k) out[(16 + k) * f.plane] = d_attr[k];
+  for (int k = 0; k < 3 * kCh; ++k) out[(16 + k) * f.plane] = d_attr[k];
 #pragma unroll
-  for (int k = 25; k < kLanes; ++k) out[k * f.plane] = 0.0f;
+  for (int k = 16 + 3 * kCh; k < kLanes; ++k) out[k * f.plane] = 0.0f;
 }
 
 }  // namespace
 
+// dplane (B, hc, wc) may be null: the rgb + mask launch, depth sum 0
 extern "C" int dd_loss_fwd(const float* rows, const int* ids, const float* gt6,
-                           int B, int hc, int wc, int oy, int ox, int fh,
-                           int fw, float* partials, float* sums,
-                           void* stream) {
+                           const float* dplane, int B, int hc, int wc, int oy,
+                           int ox, int fh, int fw, float* partials,
+                           float* sums, void* stream) {
   const int nblk = (hc * wc + kBlock - 1) / kBlock;
   cudaStream_t st = (cudaStream_t)stream;
-  loss_fwd_kernel<<<dim3(nblk, B), kBlock, 0, st>>>(rows, ids, gt6, hc, wc,
-                                                     oy, ox, fh, fw, partials);
+  if (dplane) {
+    loss_fwd_kernel<true><<<dim3(nblk, B), kBlock, 0, st>>>(
+        rows, ids, gt6, dplane, hc, wc, oy, ox, fh, fw, partials);
+  } else {
+    loss_fwd_kernel<false><<<dim3(nblk, B), kBlock, 0, st>>>(
+        rows, ids, gt6, nullptr, hc, wc, oy, ox, fh, fw, partials);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  loss_reduce_kernel<<<(B + 31) / 32, 32, 0, st>>>(partials, B, nblk, sums);
+  if (dplane) {
+    loss_reduce_kernel<3><<<(B + 31) / 32, 32, 0, st>>>(partials, B, nblk, sums);
+  } else {
+    loss_reduce_kernel<2><<<(B + 31) / 32, 32, 0, st>>>(partials, B, nblk, sums);
+  }
   return (int)cudaGetLastError();
 }
 
+// dplane and d_dplane (B, hc, wc) both null (rgb + mask) or both set
 extern "C" int dd_loss_bwd(const float* rows, const int* ids, const float* gt6,
-                           const float* d_sums, int B, int hc, int wc, int oy,
-                           int ox, int fh, int fw, float* g, float* d_rows,
+                           const float* dplane, const float* d_sums, int B,
+                           int hc, int wc, int oy, int ox, int fh, int fw,
+                           float* g, float* d_rows, float* d_dplane,
                            void* stream) {
+  if ((dplane == nullptr) != (d_dplane == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int nblk = (hc * wc + kBlock - 1) / kBlock;
   cudaStream_t st = (cudaStream_t)stream;
   loss_bwd_g_kernel<<<dim3(nblk, B), kBlock, 0, st>>>(
       rows, ids, gt6, d_sums, hc, wc, oy, ox, fh, fw, g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  loss_bwd_rows_kernel<<<dim3(nblk, B), kBlock, 0, st>>>(
-      rows, ids, gt6, d_sums, hc, wc, oy, ox, fh, fw, g, d_rows);
+  if (dplane) {
+    loss_bwd_rows_kernel<true><<<dim3(nblk, B), kBlock, 0, st>>>(
+        rows, ids, gt6, dplane, d_sums, hc, wc, oy, ox, fh, fw, g, d_rows,
+        d_dplane);
+  } else {
+    loss_bwd_rows_kernel<false><<<dim3(nblk, B), kBlock, 0, st>>>(
+        rows, ids, gt6, nullptr, d_sums, hc, wc, oy, ox, fh, fw, g, d_rows,
+        nullptr);
+  }
   return (int)cudaGetLastError();
 }

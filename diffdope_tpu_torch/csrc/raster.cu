@@ -1,9 +1,15 @@
-// Compact-table raster forward (K3) and backward (K4) for Hopper (sm_90a).
+// Bin-table raster forward and backward for Hopper (sm_90a): over the
+// compact table (K3, K4) and over the uniform-K table (K7).
 //
 // K3 replaces diffdope_tpu/render/raster_v2.py:_fwd_kernel_v2_compact
 // (-> _fwd_kernel_body, driven by _fwd_from_bins_compact).  K4 replaces
 // raster_v2.py:_bwd_kernel_v2_compact (-> _bwd_kernel_body, driven by
-// _compact_dbins).  The plain torch versions that these are held to live in
+// _compact_dbins).  K7 replaces raster_v2.py:_fwd_kernel_v2 and
+// _bwd_kernel_v2 (the same bodies, driven by _fwd_from_bins and _dbin_flat
+// with zero_tail): tile t owns slots [t*K, t*K + min(count_t, K)) of the
+// uniform table.  The two tables differ only in that slot-range rule
+// (CompactRange, UniformRange below); each has its own entry points.  The
+// plain torch versions that these are held to live in
 // diffdope_tpu_torch/render/raster.py.
 //
 // K3: one thread block per (screen tile, hypothesis), one thread per pixel.
@@ -11,19 +17,24 @@
 // at a time; each thread evaluates every slot at its pixel centre and keeps
 // the (z, triangle id) lexicographic minimum among covered slots with
 // |z| <= 1.  It writes ids (+1, 0 = background), the winner's 32 lanes and
-// the winner's slot index (K4's map).  Bound on this card: the per-(pixel,
-// slot) edge tests, ~20 FP32 operations each on data already in shared
-// memory (compute bound, no reuse across pixels beyond the slot stage).
+// the winner's slot index (the backward's map).  Bound on this card: the
+// per-(pixel, slot) edge tests, ~20 FP32 operations each on data already in
+// shared memory (compute bound, no reuse across pixels beyond the slot
+// stage).
 // The TPU kernel's chunk row-bound gating, quad windows and one-hot matmul
 // gather are not carried over: gating only skips work, and a row gather is a
 // plain indexed load here.
 //
-// K4: one block per (tile, hypothesis).  Every compact slot belongs to
+// K4: one block per (tile, hypothesis).  Every slot belongs to
 // exactly one tile, and every pixel's winner lies in its own tile, so the
 // block sums the d_rows of the pixels that share a winner in pixel order
 // (the first such pixel's thread does the sum) and writes each won slot
 // once: deterministic, no atomics.  d_bins is zero-filled by the caller.
 // Bound: the d_rows read (32 floats per foreground pixel).
+//
+// K7 runs the same two bodies over the uniform table, so its bounds are
+// K3's and K4's: a tile walks only the slots its bin holds, never the
+// padding up to K, which the TPU kernel skips by its row-bound gating.
 //
 // Numeric contract (build with -fmad=false, no fast math): coverage
 // e = x*a + (y*b + c) with a, b, c pre-scaled by sign(det), z = zlin *
@@ -51,12 +62,33 @@ __device__ __forceinline__ float plane(float x, float y, float a, float b,
   return __fadd_rn(__fmul_rn(x, a), __fadd_rn(__fmul_rn(y, b), c));
 }
 
+// the slots [base, base + n) of tile t in the compact table
+struct CompactRange {
+  const int* counts;
+  const int* off_c;
+  const int* used;
+  int k_chunk;
+  __device__ void operator()(int t, int& base, int& n) const {
+    n = min(counts[t], used[t] * k_chunk);
+    base = off_c[t] * k_chunk;
+  }
+};
+
+// the slots [base, base + n) of tile t in the uniform-K table
+struct UniformRange {
+  const int* counts;
+  int k;
+  __device__ void operator()(int t, int& base, int& n) const {
+    n = min(counts[t], k);
+    base = t * k;
+  }
+};
+
+template <class Range>
 __global__ void raster_fwd_kernel(
-    const float* __restrict__ bins, const int* __restrict__ counts,
-    const int* __restrict__ off_c, const int* __restrict__ used, int tot,
-    int k_chunk, int ntx, int th, int tw, int hc, int wc, int oy, int ox,
-    int fh, int fw, int* __restrict__ ids, int* __restrict__ win,
-    float* __restrict__ rows) {
+    const float* __restrict__ bins, Range range, int tot, int ntx, int th,
+    int tw, int hc, int wc, int oy, int ox, int fh, int fw,
+    int* __restrict__ ids, int* __restrict__ win, float* __restrict__ rows) {
   __shared__ float st[kIdLanes][kStage];
   const int t = blockIdx.x;
   const int b = blockIdx.y;
@@ -64,8 +96,8 @@ __global__ void raster_fwd_kernel(
   const int col = (t % ntx) * tw + threadIdx.x % tw;
   const float x = ndc(col + ox, fw);
   const float y = ndc(row + oy, fh);
-  const int n = min(counts[t], used[t] * k_chunk);
-  const int base = off_c[t] * k_chunk;
+  int base, n;
+  range(t, base, n);
   const float* tb = bins + (size_t)b * kLanes * tot;
 
   float zbest = CUDART_INF_F;
@@ -159,8 +191,8 @@ extern "C" int dd_raster_fwd(const float* bins, const int* counts,
                              int* win, float* rows, void* stream) {
   dim3 grid(nty * ntx, B);
   raster_fwd_kernel<<<grid, th * tw, 0, (cudaStream_t)stream>>>(
-      bins, counts, off_c, used, tot, k_chunk, ntx, th, tw, nty * th,
-      ntx * tw, oy, ox, fh, fw, ids, win, rows);
+      bins, CompactRange{counts, off_c, used, k_chunk}, tot, ntx, th, tw,
+      nty * th, ntx * tw, oy, ox, fh, fw, ids, win, rows);
   return (int)cudaGetLastError();
 }
 
@@ -171,5 +203,32 @@ extern "C" int dd_raster_bwd(const float* d_rows, const int* win, int B,
   raster_bwd_kernel<<<grid, th * tw, th * tw * sizeof(int),
                       (cudaStream_t)stream>>>(d_rows, win, tot, ntx, th, tw,
                                               nty * th, ntx * tw, d_bins);
+  return (int)cudaGetLastError();
+}
+
+// K7 forward: the uniform table (B, 32, nty*ntx*k), the full frame padded
+// to whole tiles, pixel NDC over the real (fh, fw) frame
+extern "C" int dd_raster_uniform_fwd(const float* bins, const int* counts,
+                                     int B, int k, int nty, int ntx, int th,
+                                     int tw, int fh, int fw, int* ids,
+                                     int* win, float* rows, void* stream) {
+  dim3 grid(nty * ntx, B);
+  raster_fwd_kernel<<<grid, th * tw, 0, (cudaStream_t)stream>>>(
+      bins, UniformRange{counts, k}, nty * ntx * k, ntx, th, tw, nty * th,
+      ntx * tw, 0, 0, fh, fw, ids, win, rows);
+  return (int)cudaGetLastError();
+}
+
+// K7 backward: d_bins (B, 32, nty*ntx*k) from d_rows over the winner-slot
+// map of K7's forward; d_bins is zero-filled by the caller (the tail of
+// every tile stays 0, the TPU kernel's zero_tail)
+extern "C" int dd_raster_uniform_bwd(const float* d_rows, const int* win,
+                                     int B, int k, int nty, int ntx, int th,
+                                     int tw, float* d_bins, void* stream) {
+  dim3 grid(nty * ntx, B);
+  raster_bwd_kernel<<<grid, th * tw, th * tw * sizeof(int),
+                      (cudaStream_t)stream>>>(d_rows, win, nty * ntx * k, ntx,
+                                              th, tw, nty * th, ntx * tw,
+                                              d_bins);
   return (int)cudaGetLastError();
 }

@@ -9,11 +9,15 @@ runs on the card unless ``device`` says otherwise.
 A run takes one of two routes, as the reference's does:
 
 - the fused route (``make_fused_loss``: K1 -> K3 -> K5, backward
-  K6 -> K4 -> K2) for the standard mask / rgb losses;
+  K6 -> K4 -> K2) for the three standard losses, mask, rgb and depth;
 - the unfused route (``render_batch``: K1 -> K3, plain shade and
   antialiasing, backward K4 -> K2, then the loss functions) for
-  ``tpu.fused_loss: false``, custom losses and the depth loss, which the
-  fused route does not port yet.
+  ``tpu.fused_loss: false``, custom losses, and the depth loss of a scene
+  without a gt depth image.
+
+Either runs on the compact bin table, or on the uniform-K table with
+``tpu.compact_bins: false`` (the raster K7 in place of K3/K4, the full
+frame without the ROI crop).
 
 Settings the port reads differently: ``tpu.tile_h`` / ``tpu.tile_w`` are
 TPU layout knobs and are not read (the port's raster tile is
@@ -48,9 +52,9 @@ from diffdope_tpu_torch.render.pipeline import (
     K_CHUNK,
     _Mesh,
     _binned,
-    _compact_table,
     _padded,
     _render,
+    _table,
     compact_capacity,
     make_fused_loss,
     max_tile_count,
@@ -126,7 +130,7 @@ class DiffDope:
         self.optimizer_name = str(tpu_cfg.get("optimizer", "sgd"))
         self.raster_impl = str(tpu_cfg.get("raster_impl", "auto"))
         if self.raster_impl == "reference":
-            raise _not_ported("the reference (XLA) rasterizer, raster_impl=reference", 5)
+            raise _not_ported("the reference (XLA) rasterizer, raster_impl=reference", 3)
         mk = tpu_cfg.get("max_tris_per_tile", "auto")
         self.max_tris_per_tile = mk if mk == "auto" else int(mk)
 
@@ -200,7 +204,7 @@ class DiffDope:
         if mesh is None:
             raise ValueError("Object3D has no mesh attached")
         if mesh.has_textured_map and mesh.corner_colors is None:
-            raise _not_ported("rendering a texture map (texture_mode exact)", 4)
+            raise _not_ported("rendering a texture map (texture_mode exact)", 2)
         out = {
             "pos": np.asarray(mesh.pos),
             "pos_idx": np.asarray(mesh.pos_idx),
@@ -232,17 +236,18 @@ class DiffDope:
         log.info("auto max_tris_per_tile: measured %d -> K=%d", max_count, k)
         return k
 
-    def _resolve_compact_total(self, arrays, proj, resolution, max_tris) -> int:
-        """The compact table's capacity: ``tpu.compact_total`` (rounded up to
+    def _resolve_compact_total(self, arrays, proj, resolution,
+                               max_tris) -> Optional[int]:
+        """The compact table's capacity, or None for the uniform-K table
+        (``tpu.compact_bins: false``): ``tpu.compact_total`` (rounded up to
         the chunk), else the initial pose's chunk-padded occupancy x
         ``TABLE_MARGIN`` (x the recovery's boost) plus a chunk
         (``diffdope.py:268-316``, there x1.35).  After an overflow it is at
         least the most slots a step of the failed run needed ('_bin_need')
         x 1.35 plus a chunk, which a x1.5 boost need not reach."""
-        tpu_cfg = self._tpu()
-        if not bool(tpu_cfg.get("compact_bins", True)):
-            raise _not_ported("the uniform-K bin table (compact_bins: false, K7)", 2)
-        override = tpu_cfg.get("compact_total", None)
+        if not self._compact_bins():
+            return None
+        override = self._tpu().get("compact_total", None)
         if override:
             return -(-int(override) // K_CHUNK) * K_CHUNK
         total = compact_capacity(proj, arrays["pos"], arrays["pos_idx"], self._mtx0(),
@@ -253,6 +258,9 @@ class DiffDope:
         total = max(total, -(-int(seen * CAPACITY_SLACK + K_CHUNK) // K_CHUNK) * K_CHUNK)
         log.info("compact bin table capacity %d", total)
         return total
+
+    def _compact_bins(self) -> bool:
+        return bool(self._tpu().get("compact_bins", True))
 
     def _resolve_cull(self) -> bool:
         """tpu.cull_backfaces: auto | true | false (default auto).  auto
@@ -289,8 +297,8 @@ class DiffDope:
         render_fn.mesh = mesh
         render_fn.binned = lambda mtx: _binned(mesh, mtx, resolution, capacity, None,
                                                cull, max_tris)
-        render_fn.table = lambda mtx: _compact_table(mesh, mtx, resolution, capacity,
-                                                     None, cull, max_tris)
+        render_fn.table = lambda mtx: _table(mesh, mtx, resolution, capacity, None,
+                                             cull, max_tris)
         render_fn.frame_hw, render_fn.roi = _padded(resolution), (0, 0) + resolution
         return render_fn
 
@@ -301,14 +309,17 @@ class DiffDope:
 
     def _make_fused_loss_fn(self, gt):
         """The fused route's loss when the configuration allows it (standard
-        mask / rgb losses, ``tpu.fused_loss`` on), else None: the unfused
-        route runs."""
+        mask / rgb / depth losses, ``tpu.fused_loss`` on, the gt images
+        they read), else None: the unfused route runs
+        (``diffdope.py:415-480``)."""
         if not bool(self._tpu().get("fused_loss", True)):
             return None
         fns = set(self.loss_functions)
-        if not fns or not fns <= {LOSS_REGISTRY["l1_rgb_with_mask"], LOSS_REGISTRY["l1_mask"]}:
-            return None  # custom losses need the renders; depth is unfused
-        if "segmentation" not in gt:
+        std = {LOSS_REGISTRY[k] for k in ("l1_rgb_with_mask", "l1_depth_with_mask", "l1_mask")}
+        if not fns or not fns <= std:
+            return None  # custom losses need the renders
+        use_depth = LOSS_REGISTRY["l1_depth_with_mask"] in fns
+        if "segmentation" not in gt or (use_depth and "depth" not in gt):
             return None
         arrays = self._mesh_arrays()
         proj = np.asarray(self.camera.cam_proj, np.float32)
@@ -319,7 +330,7 @@ class DiffDope:
         return make_fused_loss(
             proj, arrays["pos"], arrays["pos_idx"], resolution, gt,
             self.learning_rates, self.loss_weights,
-            use_rgb=LOSS_REGISTRY["l1_rgb_with_mask"] in fns,
+            use_rgb=LOSS_REGISTRY["l1_rgb_with_mask"] in fns, use_depth=use_depth,
             use_mask=LOSS_REGISTRY["l1_mask"] in fns,
             edge_adj=arrays["edge_adj"], corner_colors=arrays.get("corner_colors"),
             vtx_color=arrays.get("vtx_color"),
@@ -335,14 +346,14 @@ class DiffDope:
     def _check_ported(self) -> None:
         tpu_cfg = self._tpu()
         if int(tpu_cfg.get("mesh_axis", 1)) > 1:
-            raise _not_ported("sharding the hypotheses over devices (mesh_axis > 1)", 6)
+            raise _not_ported("sharding the hypotheses over devices (mesh_axis > 1)", 4)
         if bool(tpu_cfg.get("precompute_bins", False)):
-            raise _not_ported("precompute_bins", 6)
+            raise _not_ported("precompute_bins", 4)
         if int(tpu_cfg.get("restarts", 0)) > 0:
-            raise _not_ported("basin-hopping restarts", 6)
+            raise _not_ported("basin-hopping restarts", 4)
         if float(tpu_cfg.get("init_jitter_deg", 0.0)) > 0.0 or float(
                 tpu_cfg.get("init_jitter_trans", 0.0)) > 0.0:
-            raise _not_ported("the initial pose jitter", 6)
+            raise _not_ported("the initial pose jitter", 4)
 
     def run_optimization(self) -> None:
         """Run the refinement: ``nb_iterations + 1`` steps in segments of
@@ -351,9 +362,10 @@ class DiffDope:
 
         Overflow and crop-leak recovery (``diffdope.py:652-695``): when a
         step dropped (tile, triangle) pairs, the capacities grow x1.5 (the
-        compact table to at least what the failed run needed, see
-        ``_resolve_compact_total``) and the run restarts from the same
-        init; when a triangle left the ROI
+        per-tile K, and the compact table to at least what the failed run
+        needed, see ``_resolve_compact_total``; the uniform table has no
+        capacity but K) and the run restarts from the same init; when a
+        triangle left the ROI
         crop's interior, the run restarts on the full frame; at most
         ``tpu.overflow_retries`` times, unless ``tpu.overflow_recovery`` is
         off."""
@@ -392,8 +404,9 @@ class DiffDope:
                 break
             if overflow > 0:
                 self._capacity_boost = getattr(self, "_capacity_boost", 1.0) * 1.5
-                self._slots_seen = max(getattr(self, "_slots_seen", 0),
-                                       self._telemetry_max(result, "_bin_need"))
+                if self._compact_bins():
+                    self._slots_seen = max(getattr(self, "_slots_seen", 0),
+                                           self._telemetry_max(result, "_bin_need"))
                 log.warning(
                     "bin overflow mid-refinement (up to %d dropped (tile, triangle) "
                     "pairs/step): growing bin capacity x%.2f and re-running "
@@ -498,10 +511,10 @@ class DiffDope:
         return opengl_to_opencv(self.get_pose(batch_index))
 
     def render_img(self, *args, **kwargs):
-        raise _not_ported("render_img (viz needs cv2)", 3)
+        raise _not_ported("render_img (viz needs cv2)", 1)
 
     def make_animation(self, *args, **kwargs):
-        raise _not_ported("make_animation (viz needs cv2)", 3)
+        raise _not_ported("make_animation (viz needs cv2)", 1)
 
     def plot_losses(self, *args, **kwargs):
-        raise _not_ported("plot_losses", 3)
+        raise _not_ported("plot_losses", 1)

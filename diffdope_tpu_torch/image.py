@@ -2,7 +2,7 @@
 
 Images come from arrays (``img_tensor=``): one (H, W[, C]) float32 array
 each, shared by every hypothesis.  Reading image files needs cv2, which
-the port does not depend on: a path raises (ROADMAP queue 1, item 3).
+the port does not depend on: a path raises (ROADMAP queue 1, item 1).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ class Image:
         if self.img_path is not None:
             raise NotImplementedError(
                 "reading images from files needs cv2 and is not ported yet: "
-                "pass img_tensor= (ROADMAP queue 1, item 3)"
+                "pass img_tensor= (ROADMAP queue 1, item 1)"
             )
         if self.img_tensor is not None:
             self.img_tensor = np.asarray(self.img_tensor, dtype=np.float32)

@@ -38,8 +38,10 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
+#: launches per wrapper: the fused loss counts its depth-lane launches apart
 launches = {"pack_fwd": 0, "pack_bwd": 0, "raster_fwd": 0, "raster_bwd": 0,
-            "loss_fwd": 0, "loss_bwd": 0}
+            "raster_uniform_fwd": 0, "raster_uniform_bwd": 0,
+            "loss_fwd": 0, "loss_bwd": 0, "loss_fwd_depth": 0, "loss_bwd_depth": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -52,10 +54,16 @@ _SIGNATURES = {
     "dd_raster_fwd": [_P] * 4 + [_I] * 11 + [_P] * 4,
     # (d_rows, win, B, tot, nty, ntx, th, tw, d_bins, stream)
     "dd_raster_bwd": [_P] * 2 + [_I] * 6 + [_P] * 2,
-    # (rows, ids, gt6, B, hc, wc, oy, ox, fh, fw, partials, sums, stream)
-    "dd_loss_fwd": [_P] * 3 + [_I] * 7 + [_P] * 3,
-    # (rows, ids, gt6, d_sums, B, hc, wc, oy, ox, fh, fw, g, d_rows, stream)
-    "dd_loss_bwd": [_P] * 4 + [_I] * 7 + [_P] * 3,
+    # (bins, counts, B, k, nty, ntx, th, tw, fh, fw, ids, win, rows, stream)
+    "dd_raster_uniform_fwd": [_P] * 2 + [_I] * 8 + [_P] * 4,
+    # (d_rows, win, B, k, nty, ntx, th, tw, d_bins, stream)
+    "dd_raster_uniform_bwd": [_P] * 2 + [_I] * 6 + [_P] * 2,
+    # (rows, ids, gt6, dplane | null, B, hc, wc, oy, ox, fh, fw, partials,
+    #  sums, stream)
+    "dd_loss_fwd": [_P] * 4 + [_I] * 7 + [_P] * 3,
+    # (rows, ids, gt6, dplane | null, d_sums, B, hc, wc, oy, ox, fh, fw, g,
+    #  d_rows, d_dplane | null, stream)
+    "dd_loss_bwd": [_P] * 5 + [_I] * 7 + [_P] * 4,
 }
 
 _fns: Optional[Dict[str, object]] = None

@@ -1,14 +1,19 @@
 """Kernel-versus-plain checks, timings and bounds on the card.
 
-Used by ``chip_smoke.py`` and the CUDA tests: hold each of K1-K6 against
+Used by ``chip_smoke.py`` and the CUDA tests: hold each kernel against
 its plain torch version on the same inputs (the pack inputs and the table
-of a fused loss from ``make_fused_loss`` at given poses), and time both.
+of a fused loss from ``make_fused_loss``, or of a render function, at
+given poses), and time both.  A function's tables are checked in their
+own layout: K3/K4 on the compact table, K7 on the uniform-K table; K5/K6
+take the depth lane (the ``_depth`` variants) where the loss has a depth
+term.
 
 Tolerances: K1's table must equal ``planar.pack_binned``'s bit for bit in
-all 32 lanes, and K3's ids, slots and rows exactly (same f32 operation
-order, no FMA); K5's sums rtol 1e-5, atol 1e-7; K2's (d_mvp, d_mtx row 2),
-K6's d_rows and K4's d_bins (also reduced per triangle) rtol 2e-4, atol
-1e-6 against the plain autograd, plus 1e-6 of a local scale.  That term is
+all 32 lanes, and K3's and K7's ids, slots and rows exactly (same f32
+operation order, no FMA); K5's sums rtol 1e-5, atol 1e-7; K2's (d_mvp,
+d_mtx row 2), K6's d_rows and K4's and K7's d_bins (also reduced per
+triangle) rtol 2e-4, atol 1e-6 against the plain autograd, plus 1e-6 of
+a local scale; K6's d_dplane rtol 2e-4, atol 1e-6.  That term is
 there because these gradients are sums of terms that can cancel: a pixel's
 lane sums the rgb term (three channels through s) and up to four pair
 terms, a slot sums its pixels, a d_mvp entry sums ~4e4 slots; a cancelled
@@ -51,6 +56,10 @@ from diffdope_tpu_torch.render.raster import (
     raster_bwd_plain,
     raster_fwd,
     raster_fwd_plain,
+    raster_uniform_bwd,
+    raster_uniform_bwd_plain,
+    raster_uniform_fwd,
+    raster_uniform_fwd_plain,
 )
 
 #: which TPU kernel each port kernel replaces, and where it lives
@@ -79,6 +88,22 @@ KERNELS = {
         "diffdope_tpu_torch/csrc/fused_loss.cu",
         "diffdope_tpu/render/fused_loss.py:268",
     ),
+    "K7_raster_uniform_fwd": (
+        "diffdope_tpu_torch/csrc/raster.cu",
+        "diffdope_tpu/render/raster_v2.py:163",
+    ),
+    "K7_raster_uniform_bwd": (
+        "diffdope_tpu_torch/csrc/raster.cu",
+        "diffdope_tpu/render/raster_v2.py:1028",
+    ),
+    "K5_loss_fwd_depth": (
+        "diffdope_tpu_torch/csrc/fused_loss.cu",
+        "diffdope_tpu/render/fused_loss.py:221",
+    ),
+    "K6_loss_bwd_depth": (
+        "diffdope_tpu_torch/csrc/fused_loss.cu",
+        "diffdope_tpu/render/fused_loss.py:268",
+    ),
 }
 #: launch counter of each kernel's wrapper (diffdope_tpu_torch.kernels)
 COUNTERS = {
@@ -88,6 +113,10 @@ COUNTERS = {
     "K4_raster_bwd": "raster_bwd",
     "K5_loss_fwd": "loss_fwd",
     "K6_loss_bwd": "loss_bwd",
+    "K7_raster_uniform_fwd": "raster_uniform_fwd",
+    "K7_raster_uniform_bwd": "raster_uniform_bwd",
+    "K5_loss_fwd_depth": "loss_fwd_depth",
+    "K6_loss_bwd_depth": "loss_bwd_depth",
 }
 
 
@@ -103,8 +132,10 @@ _OPS = {"K1": lambda n_ch: 195 + 15 * n_ch, "K2": lambda n_ch: 330 + 18 * n_ch,
 
 
 #: lanes of a foreground pixel's rows that K5 and K6 read: the edge planes
-#: and z (0-12), the silhouette bit (14) and the colour planes (16-24)
+#: and z (0-12), the silhouette bit (14) and the colour planes (16-24),
+#: with the depth lane also the rotated-z plane (25-27)
 ROW_LANES_READ = 13 + 1 + 9
+ROW_LANES_READ_DEPTH = ROW_LANES_READ + 3
 
 
 def bound(n_bytes: float, n_ops: float) -> Tuple[float, str]:
@@ -152,103 +183,156 @@ def _worst(got, want, rtol, atol, scale) -> Dict[str, object]:
 
 def check_kernels(fn, mtx: torch.Tensor, d_sums: Optional[torch.Tensor] = None,
                   reps: int = 0) -> List[Dict[str, object]]:
-    """Each of K3-K6 against its plain version on the table of ``mtx``.
+    """The raster kernels of ``fn``'s table layout (K3/K4 compact, K7
+    uniform) and, for a fused loss, K5/K6 (their depth variants where the
+    loss has a depth term), each against its plain version on the table of
+    ``mtx``.
 
-    ``fn`` is a fused loss (``make_fused_loss``: K3, K5, K6, then K4 under
-    K6's d_rows for the cotangent ``d_sums``) or a render function
-    (``DiffDope._make_render_fn``, the unfused route: K3, then K4 under a
-    seeded normal d_rows on every lane).  Returns one dict per kernel:
-    name, ok, max_abs_err, tolerance, bound, and, when ``reps`` > 0, ms and
-    plain_ms (CUDA events over ``reps`` launches after one warm-up)."""
+    ``fn`` is a fused loss (``make_fused_loss``: the raster forward, K5,
+    K6, then the raster backward under K6's d_rows for the cotangent
+    ``d_sums``) or a render function (``DiffDope._make_render_fn``, the
+    unfused route: the raster forward, then its backward under a seeded
+    normal d_rows on every lane).  Returns one dict per kernel: name, ok,
+    max_abs_err, tolerance, bound (the raster rows also the slots the
+    tiles hold and the table's slots), and, when ``reps`` > 0, ms and plain_ms
+    (CUDA events over ``reps`` launches after one warm-up)."""
     fused = getattr(fn, "gt6", None) is not None
     with torch.no_grad():
-        packed, counts, off_c, used, _ = fn.table(mtx)
-    args = (packed, counts, off_c, used, K_CHUNK, fn.frame_hw, TILE_HW, fn.roi)
+        tab = fn.table(mtx)
+        dplane = fn.dplane(mtx) if fused else None
+    packed, counts = tab.packed, tab.counts
     b, _, n_slots = packed.shape
     hc, wc = fn.frame_hw
     npx = b * hc * wc
-    n_read = int(torch.minimum(counts, used * K_CHUNK).sum())  # slots the tiles hold
+    if tab.off_c is None:  # the uniform table: K7
+        k = n_slots // counts.numel()
+        n_read = int(counts.clamp(max=k).sum())  # slots the tiles hold
+        f_name, b_name = "K7_raster_uniform_fwd", "K7_raster_uniform_bwd"
+        res = fn.roi[2:]
+
+        def fwd():
+            return raster_uniform_fwd(packed, counts, res, TILE_HW)
+
+        def fwd_plain():
+            return raster_uniform_fwd_plain(packed, counts, res, TILE_HW)
+
+        def bwd(d, win):
+            return raster_uniform_bwd(d, win, n_slots, TILE_HW)
+
+        def bwd_plain(d, win):
+            return raster_uniform_bwd_plain(d, win, n_slots)
+    else:
+        args = (packed, counts, tab.off_c, tab.used, K_CHUNK, fn.frame_hw, TILE_HW,
+                fn.roi)
+        n_read = int(torch.minimum(counts, tab.used * K_CHUNK).sum())
+        f_name, b_name = "K3_raster_fwd", "K4_raster_bwd"
+
+        def fwd():
+            return raster_fwd(*args)
+
+        def fwd_plain():
+            return raster_fwd_plain(*args)
+
+        def bwd(d, win):
+            return raster_bwd(d, win, n_slots, TILE_HW)
+
+        def bwd_plain(d, win):
+            return raster_bwd_plain(d, win, n_slots)
+
     tested = b * n_read * TILE_HW[0] * TILE_HW[1]
     out = []
 
-    ids, rows, win = raster_fwd(*args)
-    ids_p, rows_p, win_p = raster_fwd_plain(*args)
+    ids, rows, win = fwd()
+    ids_p, rows_p, win_p = fwd_plain()
     err = float((rows - rows_p).abs().max())
     ok = bool(torch.equal(ids, ids_p) and torch.equal(win, win_p)
               and torch.equal(rows, rows_p))
     fg = int((ids > 0).sum())
-    # K3 reads 14 lanes of every slot its tiles hold, the other 18 lanes of
-    # each won slot, and writes ids, win and every pixel's 32 lanes
+    # the forward reads 14 lanes of every slot its tiles hold, the other 18
+    # lanes of each won slot, and writes ids, win and every pixel's 32 lanes
     w = win.reshape(b, -1).long()
     w = w + n_slots * torch.arange(b, device=w.device)[:, None]
     won = int(torch.unique(w[win.reshape(b, -1) >= 0]).numel())
-    out.append(dict(name="K3_raster_fwd", ok=ok, max_abs_err=err,
+    out.append(dict(name=f_name, ok=ok, max_abs_err=err,
                     tolerance="ids, slots and rows exactly equal",
-                    fg_pixels=fg, id_mismatches=int((ids != ids_p).sum()),
+                    slots=n_read, table_slots=n_slots, fg_pixels=fg,
+                    id_mismatches=int((ids != ids_p).sum()),
                     bound=bound(4 * (b * 14 * n_read + 18 * won + 3 * counts.numel())
                                 + npx * (4 + 4 + 4 * 32), _OPS["K3"] * tested)))
 
     if fused:
-        # K5/K6 read ids everywhere and, where ids > 0 only (a background
-        # pixel shades to 0; a mask pair reads its foreground side), the
-        # ROW_LANES_READ lanes of rows
-        sums = loss_sums(rows, ids, fn.gt6, fn.roi)
-        sums_p = loss_sums_plain(rows, ids, fn.gt6, fn.roi)
-        out.append(dict(name="K5_loss_fwd", ok=_close(sums, sums_p, 1e-5, 1e-7),
+        depth = dplane is not None
+        sfx = "_depth" if depth else ""
+        # K5/K6 read ids everywhere, the plane(s) and, where ids > 0 only (a
+        # background pixel shades to 0; a mask pair reads its foreground
+        # side), the ROW_LANES_READ(_DEPTH) lanes of rows
+        lanes = ROW_LANES_READ_DEPTH if depth else ROW_LANES_READ
+        plane_bytes = 4 * npx if depth else 0
+        sums = loss_sums(rows, ids, fn.gt6, fn.roi, dplane)
+        sums_p = loss_sums_plain(rows, ids, fn.gt6, fn.roi, dplane)
+        out.append(dict(name="K5_loss_fwd" + sfx, ok=_close(sums, sums_p, 1e-5, 1e-7),
                         max_abs_err=float((sums - sums_p).abs().max()),
                         tolerance="rtol 1e-5, atol 1e-7",
-                        bound=bound(4 * npx + 4 * ROW_LANES_READ * fg
-                                    + 4 * fn.gt6.numel() + 4 * b * 3, _OPS["K5"] * npx)))
+                        bound=bound(4 * npx + 4 * lanes * fg + 4 * fn.gt6.numel()
+                                    + plane_bytes + 4 * b * 3, _OPS["K5"] * npx)))
 
-        d_rows = loss_bwd(rows, ids, fn.gt6, fn.roi, d_sums)
-        d_rows_p = loss_bwd_plain(rows, ids, fn.gt6, fn.roi, d_sums)
+        d_rows, d_dplane = loss_bwd(rows, ids, fn.gt6, fn.roi, d_sums, dplane)
+        d_rows_p, d_dplane_p = loss_bwd_plain(rows, ids, fn.gt6, fn.roi, d_sums, dplane)
         px_scale = d_rows_p.abs().amax(dim=1, keepdim=True)
-        out.append(dict(name="K6_loss_bwd",
-                        ok=_close(d_rows, d_rows_p, 2e-4, 1e-6, px_scale),
-                        max_abs_err=float((d_rows - d_rows_p).abs().max()),
-                        tolerance="rtol 2e-4, atol 1e-6 + 1e-6 x pixel's largest lane",
+        ok6 = _close(d_rows, d_rows_p, 2e-4, 1e-6, px_scale)
+        err6 = float((d_rows - d_rows_p).abs().max())
+        tol6 = "d_rows rtol 2e-4, atol 1e-6 + 1e-6 x pixel's largest lane"
+        if depth:
+            ok6 = ok6 and _close(d_dplane, d_dplane_p, 2e-4, 1e-6)
+            err6 = max(err6, float((d_dplane - d_dplane_p).abs().max()))
+            tol6 += "; d_dplane rtol 2e-4, atol 1e-6"
+        out.append(dict(name="K6_loss_bwd" + sfx, ok=ok6, max_abs_err=err6,
+                        tolerance=tol6,
                         worst=_worst(d_rows, d_rows_p, 2e-4, 1e-6, px_scale),
-                        bound=bound(4 * npx + 4 * ROW_LANES_READ * fg + 4 * fn.gt6.numel()
-                                    + 4 * b * 3 + 4 * 32 * npx, _OPS["K6"] * npx)))
+                        bound=bound(4 * npx + 4 * lanes * fg + 4 * fn.gt6.numel()
+                                    + 2 * plane_bytes + 4 * b * 3 + 4 * 32 * npx,
+                                    _OPS["K6"] * npx)))
     else:
         gen = torch.Generator(device=rows.device).manual_seed(0)
         d_rows = torch.randn(rows.shape, generator=gen, device=rows.device)
 
-    d_bins = raster_bwd(d_rows, win, n_slots, TILE_HW)
-    d_bins_p = raster_bwd_plain(d_rows, win, n_slots)
+    d_bins = bwd(d_rows, win)
+    d_bins_p = bwd_plain(d_rows, win)
     tri = packed[0, 13].long()  # triangle of each slot (sentinel: T)
 
     def per_triangle(d):
         acc = d.new_zeros((d.shape[0], d.shape[1], int(tri.max()) + 1))
         return acc.index_add_(2, tri, d)
 
-    slot_scale = raster_bwd_plain(d_rows.abs(), win, n_slots)
+    slot_scale = bwd_plain(d_rows.abs(), win)
     ok4 = _close(d_bins, d_bins_p, 2e-4, 1e-6, slot_scale) and _close(
         per_triangle(d_bins), per_triangle(d_bins_p), 2e-4, 1e-6,
         per_triangle(slot_scale))
-    # K4 reads win everywhere and d_rows only at foreground pixels, and
-    # writes all of d_bins
-    out.append(dict(name="K4_raster_bwd", ok=ok4,
+    # the backward reads win everywhere and d_rows only at foreground
+    # pixels, and writes d_bins: all of it for K4; for K7 the slots its
+    # tiles hold (the uniform padding is the layout's, as in the forward)
+    written = d_bins.numel() if tab.off_c is not None else b * 32 * n_read
+    out.append(dict(name=b_name, ok=ok4, slots=n_read, table_slots=n_slots,
                     max_abs_err=float((d_bins - d_bins_p).abs().max()),
                     tolerance="rtol 2e-4, atol 1e-6 + 1e-6 x sum |d_rows|, "
                               "per slot and per triangle",
                     worst=_worst(d_bins, d_bins_p, 2e-4, 1e-6, slot_scale),
-                    bound=bound(4 * npx + 4 * 32 * fg + 4 * d_bins.numel(),
+                    bound=bound(4 * npx + 4 * 32 * fg + 4 * written,
                                 _OPS["K4"] * 32 * fg)))
 
     if reps:
         timed = {
-            "K3_raster_fwd": (lambda: raster_fwd(*args),
-                              lambda: raster_fwd_plain(*args)),
-            "K4_raster_bwd": (lambda: raster_bwd(d_rows, win, n_slots, TILE_HW),
-                              lambda: raster_bwd_plain(d_rows, win, n_slots)),
+            f_name: (fwd, fwd_plain),
+            b_name: (lambda: bwd(d_rows, win),
+                     lambda: bwd_plain(d_rows, win)),
         }
         if fused:
-            timed["K5_loss_fwd"] = (lambda: loss_sums(rows, ids, fn.gt6, fn.roi),
-                                    lambda: loss_sums_plain(rows, ids, fn.gt6, fn.roi))
-            timed["K6_loss_bwd"] = (
-                lambda: loss_bwd(rows, ids, fn.gt6, fn.roi, d_sums),
-                lambda: loss_bwd_plain(rows, ids, fn.gt6, fn.roi, d_sums))
+            timed["K5_loss_fwd" + sfx] = (
+                lambda: loss_sums(rows, ids, fn.gt6, fn.roi, dplane),
+                lambda: loss_sums_plain(rows, ids, fn.gt6, fn.roi, dplane))
+            timed["K6_loss_bwd" + sfx] = (
+                lambda: loss_bwd(rows, ids, fn.gt6, fn.roi, d_sums, dplane),
+                lambda: loss_bwd_plain(rows, ids, fn.gt6, fn.roi, d_sums, dplane))
         for row in out:
             kern, plain = timed[row["name"]]
             row["ms"] = _time_ms(kern, reps)

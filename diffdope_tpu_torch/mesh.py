@@ -6,7 +6,7 @@ OBJ parsers, winding repair, vertex normals, edge adjacency, and
 degenerate and never rasterize).  Copied, not imported: importing the JAX
 package pulls in jax.  Textured meshes (texture loading needs cv2, and the
 corner-colour bake) and the .glb/.stl loaders are not ported yet (ROADMAP
-queue 1, item 4).
+queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -512,7 +512,7 @@ def load_mesh(path, scale: float = 1.0, vertex_pad: int = 8,
         data = load_obj(path)
     elif suffix in (".glb", ".gltf", ".stl"):
         raise NotImplementedError(
-            f"{suffix} meshes are not ported yet (ROADMAP queue 1, item 4)"
+            f"{suffix} meshes are not ported yet (ROADMAP queue 1, item 2)"
         )
     else:
         raise ValueError(f"unsupported mesh format: {path.suffix}")
@@ -535,7 +535,7 @@ def load_mesh(path, scale: float = 1.0, vertex_pad: int = 8,
     bv = np.stack([pos.min(axis=0), pos.max(axis=0)])
     if "texture_file" in data and "uv" in data and (path.parent / data["texture_file"]).exists():
         raise NotImplementedError(
-            "textured meshes are not ported yet (ROADMAP queue 1, item 4)"
+            "textured meshes are not ported yet (ROADMAP queue 1, item 2)"
         )
     vtx_color = data.get("colors")
     if vtx_color is None:

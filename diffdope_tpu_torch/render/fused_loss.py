@@ -1,20 +1,26 @@
 """Fused shade + antialias + L1 loss sums (K5), its backward (K6), and the
-spanning raster+loss autograd op.
+two autograd ops over them.
 
 Counterpart of ``diffdope_tpu/render/fused_loss.py``: ``fused_loss_sums``
-(:440, kernel ``_fwd_kernel`` :221), ``backward_pass`` (:524, kernel
-``_bwd_kernel`` :268) and ``raster_loss_compact`` (:601-684), on the
-rgb+mask path (no depth plane, no pre-sampled colours).
+(:440, kernel ``_fwd_kernel`` :221, here :class:`FusedLossSums`),
+``backward_pass`` (:524, kernel ``_bwd_kernel`` :268) and
+``raster_loss_compact`` (:601-684, here :class:`RasterLossCompact`), with
+per-corner colours (no pre-sampled texture colours).
 
 The loss sums of one hypothesis over its (hc, wc) frame window are
 
-    mask = sum_px sum_c |aa - seg_c| * lm
-    rgb  = sum_px sum_c |attr_c - rgb_c| * seg_c * lm
+    mask  = sum_px sum_c |aa - seg_c| * lm
+    rgb   = sum_px sum_c |attr_c - rgb_c| * seg_c * lm
+    depth = sum_px |attr_z + dplane| * seg0 * lm      (with a dplane)
 
 with aa the antialiased foreground mask, attr_c the interpolated vertex
-colour, gt6 = [seg0..2, rgb0..2] planes of the window, and lm the real
-pixels of the frame (``fused_loss.py:78-143``).  |.| differentiates as
-JAX's abs does: +1 at 0.
+colour, attr_z the interpolated rotated z (0 on background), dplane = gt
+depth + t_z per hypothesis (the render's depth is -(attr_z + t_z)), gt6 =
+[seg0..2, rgb0..2] planes of the window, and lm the real pixels of the
+frame (``fused_loss.py:78-143``).  Without a dplane the depth sum is 0.
+|.| differentiates as JAX's abs does, +1 at 0, everywhere: the reference
+takes jnp.sign (0 at 0) for d_dplane on slabs without foreground
+(:346-354), which depends on its slab height; the port keeps one rule.
 
 Each of K5 and K6 has a plain torch version here — K5's is the
 differentiable composition of ``shade.shade_from_rows`` and
@@ -24,7 +30,7 @@ tensors take and which the CUDA kernels (csrc/fused_loss.cu) are held to.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,7 +43,7 @@ from diffdope_tpu_torch.render.shade import (
     shade_from_rows,
 )
 
-#: lanes of the (B, 3) sums: mask, rgb, depth (depth is off this path: 0)
+#: lanes of the (B, 3) sums: mask, rgb, depth
 MASK_LANE, RGB_LANE, DEPTH_LANE = 0, 1, 2
 _BLOCK = 256  # pixels per K5/K6 thread block (csrc/fused_loss.cu)
 
@@ -55,12 +61,14 @@ def _valid_mask(frame_hw, roi, device) -> torch.Tensor:
     return rows[:, None] & cols[None, :]
 
 
-def loss_sums_plain(rows, ids, gt6, roi) -> torch.Tensor:
-    """Plain torch K5: (B, 3) [mask, rgb, 0] sums, differentiable in rows."""
+def loss_sums_plain(rows, ids, gt6, roi, dplane=None) -> torch.Tensor:
+    """Plain torch K5: (B, 3) [mask, rgb, depth] sums, differentiable in
+    rows and dplane (the depth sum is 0 without a dplane)."""
     b, _, hc, wc = rows.shape
     xy = pixel_ndc((hc, wc), roi, device=rows.device)
     valid = _valid_mask((hc, wc), roi, rows.device)
-    shd = shade_from_rows(ids, rows, (hc, wc), attr_channels=3, xy=xy)
+    shd = shade_from_rows(ids, rows, (hc, wc),
+                          attr_channels=3 if dplane is None else 4, xy=xy)
     fgm = (ids > 0).to(rows.dtype)
     aa = antialias_rows(fgm, ids, shd["zw"], rows, (hc, wc), xy=xy,
                         valid=valid[None])
@@ -72,19 +80,29 @@ def loss_sums_plain(rows, ids, gt6, roi) -> torch.Tensor:
         r_sum = r_sum + (
             _l1(shd["attrs_list"][c] - gt6[3 + c]) * gt6[c] * lm
         ).sum(dim=(1, 2))
-    return torch.stack([m_sum, r_sum, torch.zeros_like(m_sum)], dim=-1)
+    if dplane is None:
+        d_sum = torch.zeros_like(m_sum)
+    else:
+        d_sum = (_l1(shd["attrs_list"][3] + dplane) * gt6[0] * lm).sum(dim=(1, 2))
+    return torch.stack([m_sum, r_sum, d_sum], dim=-1)
 
 
-def loss_bwd_plain(rows, ids, gt6, roi, d_sums) -> torch.Tensor:
-    """Plain torch K6: d_rows = torch.autograd of the plain K5."""
+def loss_bwd_plain(rows, ids, gt6, roi, d_sums, dplane=None):
+    """Plain torch K6: (d_rows, d_dplane) = torch.autograd of the plain K5
+    (d_dplane None without a dplane)."""
     with torch.enable_grad():
         r = rows.detach().requires_grad_(True)
-        sums = loss_sums_plain(r, ids, gt6, roi)
-        (d_rows,) = torch.autograd.grad(sums, r, grad_outputs=d_sums)
-    return d_rows
+        if dplane is None:
+            sums = loss_sums_plain(r, ids, gt6, roi)
+            (d_rows,) = torch.autograd.grad(sums, r, grad_outputs=d_sums)
+            return d_rows, None
+        dp = dplane.detach().requires_grad_(True)
+        sums = loss_sums_plain(r, ids, gt6, roi, dp)
+        d_rows, d_dplane = torch.autograd.grad(sums, (r, dp), grad_outputs=d_sums)
+    return d_rows, d_dplane
 
 
-def _check_loss_inputs(rows, ids, gt6):
+def _check_loss_inputs(rows, ids, gt6, dplane):
     dev = rows.device
     _check(rows, "rows", torch.float32, 4, dev)
     _check(ids, "ids", torch.int32, 3, dev)
@@ -94,49 +112,90 @@ def _check_loss_inputs(rows, ids, gt6):
         raise ValueError(f"rows {tuple(rows.shape)} / ids {tuple(ids.shape)}")
     if tuple(gt6.shape) != (6, hc, wc):
         raise ValueError(f"gt6 {tuple(gt6.shape)}, expected (6, {hc}, {wc})")
+    if dplane is not None:
+        _check(dplane, "dplane", torch.float32, 3, dev)
+        if tuple(dplane.shape) != (b, hc, wc):
+            raise ValueError(f"dplane {tuple(dplane.shape)}, expected {(b, hc, wc)}")
 
 
-def loss_sums(rows, ids, gt6, roi: Tuple[int, int, int, int]) -> torch.Tensor:
-    """K5: (B, 3) loss sums.  CPU tensors take :func:`loss_sums_plain`;
-    CUDA tensors launch the kernel, anything else raises."""
-    _check_loss_inputs(rows, ids, gt6)
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def loss_sums(rows, ids, gt6, roi: Tuple[int, int, int, int],
+              dplane: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K5: (B, 3) loss sums, the depth lane with a dplane (B, hc, wc).  CPU
+    tensors take :func:`loss_sums_plain`; CUDA tensors launch the kernel,
+    anything else raises."""
+    _check_loss_inputs(rows, ids, gt6, dplane)
     if rows.device.type == "cpu":
-        return loss_sums_plain(rows, ids, gt6, roi)
+        return loss_sums_plain(rows, ids, gt6, roi, dplane)
     if rows.device.type != "cuda":
         raise ValueError(f"loss_sums: unsupported device {rows.device}")
     b, _, hc, wc = rows.shape
     oy, ox, fh, fw = roi
     nblk = -(-(hc * wc) // _BLOCK)
-    partials = torch.empty((b, nblk, 2), dtype=torch.float32, device=rows.device)
+    partials = torch.empty((b, nblk, 2 if dplane is None else 3), dtype=torch.float32,
+                           device=rows.device)
     sums = torch.empty((b, 3), dtype=torch.float32, device=rows.device)
     kernels.launch(
-        "dd_loss_fwd", "loss_fwd",
-        rows.data_ptr(), ids.data_ptr(), gt6.data_ptr(),
+        "dd_loss_fwd", "loss_fwd" if dplane is None else "loss_fwd_depth",
+        rows.data_ptr(), ids.data_ptr(), gt6.data_ptr(), _ptr(dplane),
         b, hc, wc, oy, ox, fh, fw, partials.data_ptr(), sums.data_ptr(),
     )
     return sums
 
 
-def loss_bwd(rows, ids, gt6, roi, d_sums) -> torch.Tensor:
-    """K6: d_rows (B, 32, hc, wc) from d_sums (B, 3).  CPU tensors take
-    :func:`loss_bwd_plain`; CUDA tensors launch the kernel, anything else
-    raises."""
-    _check_loss_inputs(rows, ids, gt6)
+def loss_bwd(rows, ids, gt6, roi, d_sums, dplane: Optional[torch.Tensor] = None):
+    """K6: (d_rows (B, 32, hc, wc), d_dplane (B, hc, wc) or None) from d_sums
+    (B, 3).  CPU tensors take :func:`loss_bwd_plain`; CUDA tensors launch
+    the kernel, anything else raises."""
+    _check_loss_inputs(rows, ids, gt6, dplane)
     _check(d_sums, "d_sums", torch.float32, 2, rows.device)
     if rows.device.type == "cpu":
-        return loss_bwd_plain(rows, ids, gt6, roi, d_sums)
+        return loss_bwd_plain(rows, ids, gt6, roi, d_sums, dplane)
     if rows.device.type != "cuda":
         raise ValueError(f"loss_bwd: unsupported device {rows.device}")
     b, _, hc, wc = rows.shape
     oy, ox, fh, fw = roi
     g = torch.empty((b, hc, wc), dtype=torch.float32, device=rows.device)
     d_rows = torch.empty_like(rows)
+    d_dplane = None if dplane is None else torch.empty_like(dplane)
     kernels.launch(
-        "dd_loss_bwd", "loss_bwd",
-        rows.data_ptr(), ids.data_ptr(), gt6.data_ptr(), d_sums.data_ptr(),
-        b, hc, wc, oy, ox, fh, fw, g.data_ptr(), d_rows.data_ptr(),
+        "dd_loss_bwd", "loss_bwd" if dplane is None else "loss_bwd_depth",
+        rows.data_ptr(), ids.data_ptr(), gt6.data_ptr(), _ptr(dplane),
+        d_sums.data_ptr(), b, hc, wc, oy, ox, fh, fw, g.data_ptr(),
+        d_rows.data_ptr(), _ptr(d_dplane),
     )
-    return d_rows
+    return d_rows, d_dplane
+
+
+class FusedLossSums(torch.autograd.Function):
+    """(B, 3) loss sums from a raster's (rows, ids), differentiable in rows
+    and dplane (counterpart of ``fused_loss_sums`` with its custom VJP):
+    K5 forward, K6 backward.  d_rows stays f32, as on the reference's
+    non-spanning route; the ground truth is a constant."""
+
+    @staticmethod
+    def forward(ctx, rows, ids, gt6, dplane, roi):
+        ctx.save_for_backward(rows, ids, gt6, dplane)
+        ctx.roi = roi
+        return loss_sums(rows, ids, gt6, roi, dplane)
+
+    @staticmethod
+    def backward(ctx, d_sums):
+        rows, ids, gt6, dplane = ctx.saved_tensors
+        d_rows, d_dplane = loss_bwd(rows, ids, gt6, ctx.roi, d_sums.contiguous(), dplane)
+        return d_rows, None, None, d_dplane, None
+
+
+def fused_loss_sums(rows, ids, gt6, dplane, frame_hw, roi) -> torch.Tensor:
+    """(B, 3) [mask, rgb, depth] sums over the (hc, wc) window ``frame_hw``
+    of rows (B, 32, hc, wc) and ids, at ``roi=(oy, ox, fh, fw)``; dplane
+    (B, hc, wc) or None."""
+    if tuple(rows.shape[2:]) != tuple(frame_hw):
+        raise ValueError(f"rows {tuple(rows.shape)} do not cover the window {frame_hw}")
+    return FusedLossSums.apply(rows, ids, gt6, dplane, tuple(roi))
 
 
 class RasterLossCompact(torch.autograd.Function):
@@ -145,7 +204,9 @@ class RasterLossCompact(torch.autograd.Function):
 
     Forward: K3 (raster) then K5 (loss sums).  Backward: K6 (d_rows, kept
     in f32) then K4 (d_bins).  Differentiable w.r.t. ``bins`` only; the
-    ground truth is a constant.
+    ground truth is a constant.  The rgb + mask route: with a depth plane
+    the raster and :class:`FusedLossSums` are chained, as the reference
+    does.
     """
 
     @staticmethod
@@ -164,7 +225,7 @@ class RasterLossCompact(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_sums):
         rows, ids, win, gt6 = ctx.saved_tensors
-        d_rows = loss_bwd(rows, ids, gt6, ctx.roi, d_sums.contiguous())
+        d_rows, _ = loss_bwd(rows, ids, gt6, ctx.roi, d_sums.contiguous())
         d_bins = raster_bwd(d_rows, win, ctx.n_slots, ctx.tile_hw)
         return d_bins, None, None, None, None, None, None, None, None
 

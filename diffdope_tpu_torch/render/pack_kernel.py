@@ -162,7 +162,7 @@ def pack_binned_auto(
     """``planar.pack_binned``'s table, (B, 32, n_slots): K1/K2 for CUDA
     tensors, the plain ``planar.pack_binned`` for CPU tensors; anything
     else raises (so do ineligible inputs on the card: appearance and vertex
-    optimization are not ported, ROADMAP queue 1 item 4)."""
+    optimization are not ported, ROADMAP queue 1 item 2)."""
     flat = flat.reshape(-1)
     if mvp.device.type == "cpu":
         return pack_binned(pos_c, mvp, mtx, flat, corner_attrs, sil, degenerate,
@@ -173,7 +173,7 @@ def pack_binned_auto(
         raise NotImplementedError(
             "the pack kernel takes static vertices and static per-corner "
             "attributes only; vertex and appearance optimization are not "
-            "ported yet (ROADMAP queue 1 item 4)"
+            "ported yet (ROADMAP queue 1 item 2)"
         )
     tab, n_ch = _static_table(flat, t_count, static_table)
     sil_b = sil[:, flat.clamp(max=t_count - 1)].to(torch.float32).contiguous()

@@ -1,17 +1,25 @@
 """The port's render and fused refinement loss.
 
 Counterpart of ``diffdope_tpu/render/pipeline.py``, restricted to its
-production configuration on the card: per-corner colour planes, the
-compact bin table (every tile's slots in one chunk-aligned table) and the
-Pallas pack (``DD_PACK=pallas``, the reference's default), here K1/K2.
+Pallas configuration on the card: per-corner colour planes, the bin-ordered
+pack (``DD_PACK=pallas``, the reference's default; here K1/K2), and one of
+two bin tables.  ``compact_total`` (slots) selects the compact table, every
+tile's slots in one chunk-aligned table; None selects the uniform-K table,
+K slots for every tile, as in the reference.  The raster is K3/K4 over the
+compact table and K7 over the uniform one (:func:`_raster`).
 
-- :func:`make_fused_loss` (reference :383-858): rgb+mask L1 terms, the ROI
-  crop with ``_crop_leak`` telemetry, and the spanning raster+loss op
-  (K1 -> K3 -> K5, backward K6 -> K4 -> K2).
-- :func:`render_batch` (reference :79-380, its pallas + compact branch):
-  K1 -> K3 with the plain shade and mask antialiasing, backward K4 -> K2;
-  the ``stacked`` and ``channels`` layouts.
-- :func:`render_rgb_mask`, the gt render, and :func:`compact_capacity`.
+- :func:`make_fused_loss` (reference :383-858): rgb, depth and mask L1
+  terms.  On the compact table the ROI crop with ``_crop_leak`` telemetry;
+  rgb + mask there take the spanning raster+loss op (K1 -> K3 -> K5,
+  backward K6 -> K4 -> K2), and with depth the raster and the fused loss
+  are chained (K1 -> K3 -> K5, backward K6 -> K4 -> K2, d_dplane to t_z
+  by autograd).  The uniform table runs the full frame (K1 -> K7 -> K5,
+  backward K6 -> K7 -> K2).
+- :func:`render_batch` (reference :79-380, its pallas branch): K1 -> K3
+  or K7 with the plain shade and mask antialiasing, backward K4 or K7 ->
+  K2; the ``stacked`` and ``channels`` layouts.
+- :func:`render_rgb_mask`, the gt render over a compact table sized to the
+  bins exactly (``EXACT``), and :func:`compact_capacity`.
 
 Every pack goes through :func:`_pack_dispatch`, so the kernel route and
 its eligibility rules cannot diverge between call sites.
@@ -19,7 +27,7 @@ its eligibility rules cannot diverge between call sites.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,8 +36,10 @@ from torch.utils.checkpoint import checkpoint
 from diffdope_tpu_torch.convert import tensor
 from diffdope_tpu_torch.geometry import matmul44
 from diffdope_tpu_torch.render.fused_loss import (
+    DEPTH_LANE,
     MASK_LANE,
     RGB_LANE,
+    fused_loss_sums,
     raster_loss_compact,
 )
 from diffdope_tpu_torch.render.planar import (
@@ -43,7 +53,7 @@ from diffdope_tpu_torch.render.planar import (
     static_pack_rows,
 )
 from diffdope_tpu_torch.render.pack_kernel import pack_binned_auto
-from diffdope_tpu_torch.render.raster import raster_compact
+from diffdope_tpu_torch.render.raster import raster_compact, raster_gather_rows_binned
 from diffdope_tpu_torch.render.shade import (
     antialias_rows,
     pixel_ndc,
@@ -63,6 +73,9 @@ CAPACITY_SLACK = 1.35
 #: ROI crop margin around the gt support (px): covers the bench protocol's
 #: drift (8 degrees, ~25 px) with no measured leak in the reference
 CROP_MARGIN = 24
+#: a table capacity: the compact table sized to the bins exactly (reads the
+#: counts on the host), for the gt render and the capacity probe
+EXACT = "exact"
 
 
 class _Mesh:
@@ -166,28 +179,41 @@ class _Crop:
 class _Binned(NamedTuple):
     """A table's layout before the pack: the poses' mvp, the slot ->
     triangle map, the silhouette bits, the per-tile counts, chunk offsets
-    and chunk counts, and the binning telemetry."""
+    and chunk counts (None for the uniform table), and the binning
+    telemetry."""
 
     mvp: torch.Tensor
     flat: torch.Tensor
     sil: torch.Tensor
     counts: torch.Tensor
-    off_c: torch.Tensor
-    used: torch.Tensor
+    off_c: Optional[torch.Tensor]
+    used: Optional[torch.Tensor]
+    telemetry: Dict[str, torch.Tensor]
+
+
+class _Table(NamedTuple):
+    """A packed table (B, 32, n_slots), differentiable in the poses, with
+    its layout (off_c and used None for the uniform table) and telemetry."""
+
+    packed: torch.Tensor
+    counts: torch.Tensor
+    off_c: Optional[torch.Tensor]
+    used: Optional[torch.Tensor]
     telemetry: Dict[str, torch.Tensor]
 
 
 def _binned(mesh: _Mesh, mtx: torch.Tensor, resolution,
-            capacity: Optional[int] = None, crop: Optional[_Crop] = None,
+            capacity: Optional[Union[int, str]] = None, crop: Optional[_Crop] = None,
             cull: bool = False, max_tris: int = MAX_TRIS_PER_TILE) -> _Binned:
-    """Bin the mesh at poses ``mtx`` (B, 4, 4) and compact the bins.
+    """Bin the mesh at poses ``mtx`` (B, 4, 4) into a table's layout.
 
-    ``capacity`` None sizes the table to the bins exactly (which reads the
-    counts on the host).  ``crop`` drops the tiles outside it before
-    compaction and counts '_crop_leak'.  '_bin_need' is the slots a
-    full-frame table needs at these poses: the chunk-rounded bins plus the
-    pairs the per-tile capacity dropped (the overflow recovery sizes its
-    re-run from it)."""
+    ``capacity`` is the compact table's slots, ``EXACT`` to size it to the
+    bins, or None for the uniform table (the bins as they are: K slots for
+    every tile, sentinel padding).  ``crop`` (compact only) drops the
+    tiles outside it before compaction and counts '_crop_leak'.
+    '_bin_need' is the slots a full-frame compact table needs at these
+    poses: the chunk-rounded bins plus the pairs the per-tile capacity
+    dropped (the overflow recovery sizes its re-run from it)."""
     mvp = matmul44(mesh.proj, mtx)
     cp = corner_planes(mesh.pos_c, mvp)
     det = det_planar(cp, mesh.degenerate)
@@ -196,16 +222,22 @@ def _binned(mesh: _Mesh, mtx: torch.Tensor, resolution,
     )
     need = (-(-counts // K_CHUNK) * K_CHUNK).sum(dtype=torch.int32) + bin_overflow
     telemetry = {"_bin_max": counts.max(), "_bin_need": need}
+    sil = _silhouette_planar(det, mesh.adj)
+    if capacity is None:
+        if crop is not None:
+            raise ValueError("the uniform-K table covers the whole frame: no ROI crop")
+        telemetry["_bin_overflow"] = bin_overflow
+        return _Binned(mvp, idx.reshape(-1), sil, counts.contiguous(), None, None,
+                       telemetry)
     if crop is not None:
         idx, counts = idx[crop.tiles], counts[crop.tiles]
         telemetry["_crop_leak"] = crop.leak(cp, mesh.degenerate)
-    if capacity is None:
+    if capacity == EXACT:
         capacity = int((-(-counts // K_CHUNK) * K_CHUNK).sum()) or K_CHUNK
     flat, off_c, used, c_ovf = compact_bins(
         idx, counts, mesh.t_count, K_CHUNK, capacity
     )
     telemetry["_bin_overflow"] = bin_overflow + c_ovf
-    sil = _silhouette_planar(det, mesh.adj)
     return _Binned(mvp, flat, sil, counts.contiguous(), off_c, used, telemetry)
 
 
@@ -219,14 +251,29 @@ def _pack_dispatch(mesh: _Mesh, mvp: torch.Tensor, mtx: torch.Tensor,
     )
 
 
-def _compact_table(mesh: _Mesh, mtx: torch.Tensor, resolution,
-                   capacity: Optional[int] = None, crop: Optional[_Crop] = None,
-                   cull: bool = False, max_tris: int = MAX_TRIS_PER_TILE):
-    """The compact packed table at poses ``mtx`` (B, 4, 4), differentiable
-    in mtx, and its telemetry: (packed, counts, off_c, used, telemetry)."""
+def _table(mesh: _Mesh, mtx: torch.Tensor, resolution,
+           capacity: Optional[Union[int, str]] = None, crop: Optional[_Crop] = None,
+           cull: bool = False, max_tris: int = MAX_TRIS_PER_TILE) -> _Table:
+    """The packed table at poses ``mtx`` (B, 4, 4), differentiable in mtx,
+    in the layout ``capacity`` selects (see :func:`_binned`)."""
     bn = _binned(mesh, mtx, resolution, capacity, crop, cull, max_tris)
     packed = _pack_dispatch(mesh, bn.mvp, mtx, bn.flat, bn.sil)
-    return packed, bn.counts, bn.off_c, bn.used, bn.telemetry
+    return _Table(packed, bn.counts, bn.off_c, bn.used, bn.telemetry)
+
+
+def _raster(table: _Table, frame_hw, roi):
+    """(ids, rows) of a table over the (hc, wc) window ``frame_hw`` at
+    ``roi``: K3/K4 (``RasterCompact``) for the compact table, K7
+    (``RasterBinned``) for the uniform one, whose window is the whole
+    frame padded to whole tiles."""
+    if table.off_c is None:
+        ids, rows = raster_gather_rows_binned(table.packed, table.counts, roi[2:], TILE_HW)
+        if tuple(ids.shape[1:]) != tuple(frame_hw):
+            raise ValueError(f"the uniform table covers {tuple(ids.shape[1:])}, "
+                             f"not the window {frame_hw}")
+        return ids, rows
+    return raster_compact(table.packed, table.counts, table.off_c, table.used,
+                          K_CHUNK, frame_hw, TILE_HW, roi)
 
 
 def make_fused_loss(
@@ -253,26 +300,25 @@ def make_fused_loss(
     """Build ``fn(mtx) -> (total_loss, logs)``.
 
     Same loss semantics as the reference: per-term per-hypothesis means,
-    per-hypothesis loss scales, weighted total, logs under 'rgb' and
-    'mask_selection', and underscore telemetry keys '_bin_overflow',
-    '_bin_max' and (with the crop) '_crop_leak'.  ``gt`` holds numpy or
-    tensor 'rgb' and 'segmentation' (H, W, 3) images.
+    per-hypothesis loss scales, weighted total, logs under 'rgb', 'depth'
+    and 'mask_selection', and underscore telemetry keys '_bin_overflow',
+    '_bin_max', '_bin_need' and (with the crop) '_crop_leak'.  ``gt`` holds
+    numpy or tensor 'rgb' and 'segmentation' (H, W, 3) images, and 'depth'
+    (H, W) for ``use_depth``.  ``compact_total`` None runs the uniform-K
+    table on the full frame (no ROI crop), as the reference does.
     """
-    if use_depth:
-        raise NotImplementedError(
-            "the depth loss on the fused route is not ported yet: ROADMAP "
-            "queue 1, item 1"
-        )
     if tex is not None:
         raise NotImplementedError(
-            "exact texture is not ported yet: ROADMAP queue 1, item 4"
+            "exact texture is not ported yet: ROADMAP queue 1, item 2"
         )
-    _check_capacity(compact_total)
     if gt is None:
         raise NotImplementedError(
             "deferred (per-call) ground truth is not ported yet: it serves "
-            "the BOP sweep, ROADMAP queue 1, item 6"
+            "the BOP sweep, ROADMAP queue 1, item 4"
         )
+    compact_total = _check_capacity(compact_total)
+    if use_depth and gt.get("depth") is None:
+        raise ValueError("the depth loss needs gt['depth']")
     device = torch.device(device)
     mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors, device)
     if mesh.attrs is None:
@@ -281,17 +327,22 @@ def make_fused_loss(
     h, w = resolution
     hp, wp = _padded(resolution)
     seg_np = _numpy(gt["segmentation"]).astype(np.float32)
-    planes = np.zeros((6, hp, wp), np.float32)
+    planes = np.zeros((7, hp, wp), np.float32)
     planes[0:3, :h, :w] = np.moveaxis(seg_np[..., :3], -1, 0)
     if gt.get("rgb") is not None:
         planes[3:6, :h, :w] = np.moveaxis(_numpy(gt["rgb"]).astype(np.float32), -1, 0)
+    if use_depth:
+        planes[6, :h, :w] = _numpy(gt["depth"]).astype(np.float32)
 
-    window = crop_window(seg_np, resolution) if roi_crop != "off" else None
+    # the reference crops the compact table only
+    crop_on = roi_crop != "off" and compact_total is not None
+    window = crop_window(seg_np, resolution) if crop_on else None
     crop = None if window is None else _Crop(window, resolution, device)
     oy, ox, hc, wc = window or (0, 0, hp, wp)
-    gt6 = torch.as_tensor(
+    planes = torch.as_tensor(
         np.ascontiguousarray(planes[:, oy : oy + hc, ox : ox + wc]), device=device
     )
+    gt6, gtd = planes[:6].contiguous(), planes[6] if use_depth else None
     roi = (oy, ox, h, w)
     npx = float(h * w)
     lrs = tensor(learning_rates, device)
@@ -300,46 +351,58 @@ def make_fused_loss(
         return _binned(mesh, mtx, resolution, compact_total, crop,
                        cull_backfaces, max_tris_per_tile)
 
-    def table(mtx: torch.Tensor):
-        return _compact_table(mesh, mtx, resolution, compact_total, crop,
-                              cull_backfaces, max_tris_per_tile)
+    def table(mtx: torch.Tensor) -> _Table:
+        return _table(mesh, mtx, resolution, compact_total, crop,
+                      cull_backfaces, max_tris_per_tile)
+
+    def dplane(mtx: torch.Tensor) -> Optional[torch.Tensor]:
+        """gt depth + t_z per hypothesis (B, hc, wc), differentiable in t_z."""
+        return None if gtd is None else gtd[None] + mtx[:, 2, 3][:, None, None]
 
     def fn(mtx: torch.Tensor):
         if mtx.dim() == 2:
             mtx = mtx[None]
-        packed, counts, off_c, used, telemetry = table(mtx)
-        sums = raster_loss_compact(
-            packed, counts, off_c, used, gt6, K_CHUNK, (hc, wc), TILE_HW, roi
-        )
+        tab = table(mtx)
+        if not use_depth and tab.off_c is not None:
+            sums = raster_loss_compact(
+                tab.packed, tab.counts, tab.off_c, tab.used, gt6, K_CHUNK, (hc, wc),
+                TILE_HW, roi,
+            )
+        else:
+            ids, rows = _raster(tab, (hc, wc), roi)
+            sums = fused_loss_sums(rows, ids, gt6, dplane(mtx), (hc, wc), roi)
         total = sums.new_zeros(())
         logs = {}
         if use_rgb:
             per_hyp = sums[:, RGB_LANE] / (3.0 * npx)
             total = total + torch.mean(per_hyp * lrs) * weights["rgb"]
             logs["rgb"] = per_hyp * weights["rgb"]
+        if use_depth:
+            per_hyp = sums[:, DEPTH_LANE] / npx
+            total = total + torch.mean(per_hyp * lrs) * weights["depth"]
+            logs["depth"] = per_hyp * weights["depth"]
         if use_mask:
             per_hyp = sums[:, MASK_LANE] / (3.0 * npx)
             total = total + torch.mean(per_hyp * lrs) * weights["mask"]
             logs["mask_selection"] = per_hyp * weights["mask"]
-        logs.update({k: v.detach() for k, v in telemetry.items()})
+        logs.update({k: v.detach() for k, v in tab.telemetry.items()})
         return total, logs
 
-    # what the kernel checks need to drive the pack and the spanning op's
-    # parts
-    fn.mesh, fn.binned, fn.table = mesh, binned, table
+    # what the kernel checks need to drive the pack, the raster and the
+    # loss kernels on this loss's own tables
+    fn.mesh, fn.binned, fn.table, fn.dplane = mesh, binned, table, dplane
     fn.gt6, fn.frame_hw, fn.roi, fn.crop = gt6, (hc, wc), roi, window
     return fn
 
 
-def _check_capacity(compact_total) -> None:
+def _check_capacity(compact_total) -> Optional[int]:
+    """The compact table's slots, or None (also for 0) for the uniform
+    table, as the reference reads ``compact_total``."""
     if not compact_total:
-        raise NotImplementedError(
-            "the uniform-K (uncompacted) table is not ported yet: the port's "
-            "route is the compact table; pass compact_total (ROADMAP queue 1, "
-            "item 2, with K7)"
-        )
+        return None
     if compact_total % K_CHUNK:
         raise ValueError(f"compact_total must be a multiple of {K_CHUNK}")
+    return int(compact_total)
 
 
 @torch.no_grad()
@@ -351,7 +414,7 @@ def compact_capacity(proj_cam, pos, pos_idx, mtx, resolution,
     the probe's chunk-rounded slot count times ``slack`` (and the overflow
     recovery's ``boost``) plus one chunk, rounded to the chunk."""
     mesh = _Mesh(proj_cam, pos, pos_idx, None, None, None, torch.device(device))
-    bn = _binned(mesh, tensor(mtx, device).reshape(-1, 4, 4), resolution,
+    bn = _binned(mesh, tensor(mtx, device).reshape(-1, 4, 4), resolution, EXACT,
                  max_tris=max_tris_per_tile)
     tot0 = int(bn.used.sum()) * K_CHUNK
     return -(-int(tot0 * slack * boost + K_CHUNK) // K_CHUNK) * K_CHUNK
@@ -381,10 +444,11 @@ def _shade_and_aa(rows, ids, tz, resolution, n_ch: int):
 
 
 def _render(mesh: _Mesh, mtx: torch.Tensor, resolution,
-            capacity: Optional[int], layout: str = "stacked", cull: bool = False,
-            max_tris: int = MAX_TRIS_PER_TILE) -> Dict[str, object]:
-    """:func:`render_batch` on a prepared mesh: K1 -> K3, then the plain
-    shade and antialiasing; backward K4 -> K2.
+            capacity: Optional[Union[int, str]], layout: str = "stacked",
+            cull: bool = False, max_tris: int = MAX_TRIS_PER_TILE) -> Dict[str, object]:
+    """:func:`render_batch` on a prepared mesh: K1 -> K3 (compact table) or
+    K7 (``capacity`` None: the uniform table), then the plain shade and
+    antialiasing; backward K4 or K7 -> K2.
 
     The shading is recomputed in the backward (``checkpoint``), as the
     reference does (:339-348): its autograd residuals are dozens of
@@ -396,19 +460,14 @@ def _render(mesh: _Mesh, mtx: torch.Tensor, resolution,
         raise ValueError("render_batch requires 3-channel corner_colors or vtx_color")
     if mtx.dim() == 2:
         mtx = mtx[None]
-    packed, counts, off_c, used, telemetry = _compact_table(
-        mesh, mtx, resolution, capacity, None, cull, max_tris
-    )
+    tab = _table(mesh, mtx, resolution, capacity, None, cull, max_tris)
     h, w = resolution
-    ids, rows = raster_compact(
-        packed, counts, off_c, used, K_CHUNK, _padded(resolution), TILE_HW,
-        (0, 0, h, w),
-    )
+    ids, rows = _raster(tab, _padded(resolution), (0, 0, h, w))
     ids, rows = ids[:, :h, :w], rows[:, :, :h, :w]
     out = checkpoint(_shade_and_aa, rows, ids, mtx[:, 2, 3], tuple(resolution), 3,
                      use_reentrant=False)
     mask, colors, depth = out[0], out[1:4], out[4]
-    tel = {k: telemetry[k].detach() for k in ("_bin_overflow", "_bin_need")}
+    tel = {k: tab.telemetry[k].detach() for k in ("_bin_overflow", "_bin_need")}
     if layout == "channels":
         return {"mask": mask, "rgb": colors, "depth": depth, "ids": ids, **tel}
     return {
@@ -435,15 +494,16 @@ def render_batch(
     device="cuda",
 ) -> Dict[str, object]:
     """Render a mesh under B pose hypotheses ``mtx`` (B, 4, 4),
-    differentiably in mtx (the reference's pallas + compact branch).
+    differentiably in mtx (the reference's pallas branch: the compact
+    table for ``compact_total`` slots, else the uniform-K table).
 
     Returns, layout 'stacked': 'rgb' (B, H, W, 3), 'depth' (B, H, W),
     'mask' (B, H, W, 3) antialiased; layout 'channels': 'mask' (B, H, W),
     'rgb' a tuple of 3 (B, H, W), 'depth', 'ids' (B, H, W) int32 (+1,
     0 = background).  Both carry '_bin_overflow', the (tile, triangle)
-    pairs dropped by the capacities, and '_bin_need', the slots a table
-    holding every pair would need."""
-    _check_capacity(compact_total)
+    pairs dropped by the capacities, and '_bin_need', the slots a compact
+    table holding every pair would need."""
+    compact_total = _check_capacity(compact_total)
     mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors,
                  torch.device(device))
     return _render(mesh, tensor(mtx, device).reshape(-1, 4, 4), tuple(resolution),
@@ -454,15 +514,16 @@ def render_batch(
 def render_rgb_mask(proj_cam, mtx, pos, pos_idx, resolution, edge_adj=None,
                     vtx_color=None, corner_colors=None,
                     device="cuda") -> Dict[str, torch.Tensor]:
-    """Render (B, H, W, 3) 'rgb' and 'mask' at poses ``mtx`` (B, 4, 4) over
-    an exactly sized compact table (the gt render): ``render_batch``'s
-    stacked semantics, the mask antialiased, the rgb not."""
+    """Render (B, H, W, 3) 'rgb' and 'mask' and (B, H, W) 'depth' at poses
+    ``mtx`` (B, 4, 4) over a compact table sized to the bins exactly (the
+    gt render): ``render_batch``'s stacked semantics, the mask antialiased,
+    the rgb not."""
     mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors,
                  torch.device(device))
     out = _render(mesh, tensor(mtx, device).reshape(-1, 4, 4), tuple(resolution),
-                  None)
+                  EXACT)
     dropped = int(out["_bin_overflow"])
     if dropped:
         raise RuntimeError(f"gt render dropped {dropped} (tile, triangle) pairs: "
                            f"more than {MAX_TRIS_PER_TILE} triangles in a tile")
-    return {"rgb": out["rgb"], "mask": out["mask"]}
+    return {"rgb": out["rgb"], "mask": out["mask"], "depth": out["depth"]}

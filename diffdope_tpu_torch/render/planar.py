@@ -216,7 +216,7 @@ def pack_binned(
     if corner_attrs is not None and corner_attrs.dim() != 3:
         raise NotImplementedError(
             "traced per-hypothesis attributes (appearance optimization) are "
-            "not ported yet: ROADMAP queue 1, item 4"
+            "not ported yet: ROADMAP queue 1, item 2"
         )
     flat = idx.reshape(-1).long()
     safe = flat.clamp(max=t_count - 1)

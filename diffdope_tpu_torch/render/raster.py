@@ -1,19 +1,30 @@
-"""Compact-table raster forward (K3) and backward (K4).
+"""Bin-table raster forward and backward: the compact table (K3, K4) and
+the uniform-K table (K7).
 
-Counterpart of the compact parts of ``diffdope_tpu/render/raster_v2.py``:
+Counterpart of ``diffdope_tpu/render/raster_v2.py``: for the compact table
 ``_fwd_from_bins_compact`` (:1827), ``_compact_dbins`` (:2033) and their
 autograd pairing ``raster_gather_rows_compact`` (:1963, here
-:class:`RasterCompact`, the unfused render's raster).  Each
+:class:`RasterCompact`); for the uniform table ``_fwd_from_bins`` (:1480),
+``_dbin_flat`` with ``zero_tail`` (:1614) and their pairing
+``raster_gather_rows_binned`` (:1733, here :class:`RasterBinned`).  Each
 operation has a plain torch version (used for CPU tensors, and as the
 reference the CUDA kernel is held to) and a wrapper that launches the
 hand-written kernel in ``csrc/raster.cu`` for CUDA tensors.
 
-The table is the chunk-aligned compact bin table: (B, 32, tot) packed rows
-in bin-slot order (``planar.pack_binned`` over ``planar.compact_bins``),
-tile t owning slots [off_c[t]*k_chunk, off_c[t]*k_chunk + counts[t]),
-clamped to used[t]*k_chunk.  Tiles are (th, tw) pixels in row-major order
-over a (hc, wc) frame window at ``roi=(oy, ox, fh, fw)`` of the full
-(fh, fw) frame; pixel NDC always comes from the full frame.
+Both tables hold (B, 32, n_slots) packed rows in bin-slot order
+(``planar.pack_binned``).  In the compact table (``planar.compact_bins``)
+tile t owns slots [off_c[t]*k_chunk, off_c[t]*k_chunk + counts[t]),
+clamped to used[t]*k_chunk; in the uniform table (the bins of
+``planar.bin_triangles_planar`` as they are, K slots a tile) it owns
+[t*K, t*K + min(counts[t], K)).  Tiles are (th, tw) pixels in row-major
+order over a (hc, wc) frame window at ``roi=(oy, ox, fh, fw)`` of the full
+(fh, fw) frame; pixel NDC always comes from the full frame.  The uniform
+table covers the whole frame, padded to whole tiles, and has no window.
+The reference bins the uniform table on 128-wide super-tiles of
+``128 // tw`` sub-tiles; the sub-tiles are row-major over a frame whose
+width is padded to 128, so its bins are the port's with the padding
+columns' tiles added (tests/test_torch_raster_uniform.py holds the two
+tile orders to each other).
 
 Per pixel the winner is the minimum z among covered slots with
 |z| <= 1, smallest triangle id on exact ties.  Outputs: ids (+1, 0 =
@@ -109,6 +120,14 @@ def raster_fwd_plain(bins, counts, off_c, used, k_chunk, frame_hw, tile_hw,
                      roi, slot_chunk: int = 64):
     """Plain torch K3: every pixel of a tile against every slot of its
     tile, in slot chunks, keeping the (z, id) lexicographic minimum."""
+    n = torch.minimum(counts, used * k_chunk).long()
+    base = off_c.long() * k_chunk
+    return _raster_plain(bins, base, n, frame_hw, tile_hw, roi, slot_chunk)
+
+
+def _raster_plain(bins, base, n, frame_hw, tile_hw, roi, slot_chunk):
+    """The plain raster of K3 and K7: tile t's slots are [base[t],
+    base[t] + n[t])."""
     b, _, tot = bins.shape
     nty, ntx = _frame_tiles(frame_hw, tile_hw)
     hc, wc = frame_hw
@@ -125,8 +144,6 @@ def raster_fwd_plain(bins, counts, off_c, used, k_chunk, frame_hw, tile_hw,
     x = ndc(pcol + ox, fw)[..., None]  # (nt, npx, 1)
     y = ndc(prow + oy, fh)[..., None]
 
-    n = torch.minimum(counts, used * k_chunk).long()
-    base = off_c.long() * k_chunk
     smax = int(n.max()) if nt else 0
     inf = torch.tensor(float("inf"), device=dev)
     big = torch.tensor(_BIG, device=dev)
@@ -261,3 +278,136 @@ def raster_compact(bins, counts, off_c, used, k_chunk, frame_hw, tile_hw, roi):
         bins, counts, off_c, used, k_chunk, tuple(frame_hw), tuple(tile_hw),
         tuple(roi),
     )
+
+
+def _uniform_layout(bins, counts, resolution, tile_hw):
+    """(nty, ntx, K) of a uniform table over ``resolution`` padded to
+    whole tiles; raises on a table that is not one."""
+    _check(bins, "bins", torch.float32, 3, bins.device)
+    _check(counts, "counts", torch.int32, 1, bins.device)
+    if bins.shape[1] != PACKED_WIDTH:
+        raise ValueError(f"bins: expected {PACKED_WIDTH} lanes, got {bins.shape[1]}")
+    (h, w), (th, tw) = resolution, tile_hw
+    nty, ntx = -(-h // th), -(-w // tw)
+    if counts.shape[0] != nty * ntx or bins.shape[2] % (nty * ntx):
+        raise ValueError(f"{counts.shape[0]} tile counts and {bins.shape[2]} slots "
+                         f"are no uniform table of {nty * ntx} tiles")
+    return nty, ntx, bins.shape[2] // (nty * ntx)
+
+
+def raster_uniform_fwd(
+    bins: torch.Tensor,
+    counts: torch.Tensor,
+    resolution: Tuple[int, int],
+    tile_hw: Tuple[int, int],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7 forward: (ids, rows, win) as :func:`raster_fwd`'s, over the
+    uniform table (B, 32, num_tiles*K) of the (h, w) frame ``resolution``,
+    on that frame padded to whole tiles.
+
+    CPU tensors take :func:`raster_uniform_fwd_plain`; CUDA tensors launch
+    the kernel (csrc/raster.cu), anything else raises."""
+    nty, ntx, k = _uniform_layout(bins, counts, resolution, tile_hw)
+    if bins.device.type == "cpu":
+        return raster_uniform_fwd_plain(bins, counts, resolution, tile_hw)
+    if bins.device.type != "cuda":
+        raise ValueError(f"raster_uniform_fwd: unsupported device {bins.device}")
+    th, tw = tile_hw
+    if th * tw > 1024:
+        raise ValueError(f"tile {tile_hw} exceeds 1024 threads per block")
+    b = bins.shape[0]
+    ids = torch.empty((b, nty * th, ntx * tw), dtype=torch.int32, device=bins.device)
+    win = torch.empty_like(ids)
+    rows = torch.empty((b, PACKED_WIDTH, nty * th, ntx * tw), dtype=torch.float32,
+                       device=bins.device)
+    h, w = resolution
+    kernels.launch(
+        "dd_raster_uniform_fwd", "raster_uniform_fwd",
+        bins.data_ptr(), counts.data_ptr(), b, k, nty, ntx, th, tw, h, w,
+        ids.data_ptr(), win.data_ptr(), rows.data_ptr(),
+    )
+    return ids, rows, win
+
+
+def raster_uniform_fwd_plain(bins, counts, resolution, tile_hw,
+                             slot_chunk: int = 64):
+    """Plain torch K7 forward: K3's plain raster over the slot ranges
+    [t*K, t*K + min(counts[t], K))."""
+    nty, ntx, k = _uniform_layout(bins, counts, resolution, tile_hw)
+    (h, w), (th, tw) = resolution, tile_hw
+    base = torch.arange(nty * ntx, device=bins.device) * k
+    n = counts.long().clamp(max=k)
+    return _raster_plain(bins, base, n, (nty * th, ntx * tw), tile_hw, (0, 0, h, w),
+                         slot_chunk)
+
+
+def raster_uniform_bwd(
+    d_rows: torch.Tensor,
+    win: torch.Tensor,
+    n_slots: int,
+    tile_hw: Tuple[int, int],
+) -> torch.Tensor:
+    """K7 backward: d_bins (B, 32, n_slots) of the uniform table, for each
+    slot the sum of d_rows over the pixels it wins (zeros elsewhere, the
+    padding of every tile included).
+
+    CPU tensors take :func:`raster_uniform_bwd_plain`; CUDA tensors launch
+    the kernel
+    (csrc/raster.cu), anything else raises."""
+    _check(d_rows, "d_rows", torch.float32, 4, d_rows.device)
+    _check(win, "win", torch.int32, 3, d_rows.device)
+    b, width, hc, wc = d_rows.shape
+    if width != PACKED_WIDTH or tuple(win.shape) != (b, hc, wc):
+        raise ValueError(f"d_rows {tuple(d_rows.shape)} / win {tuple(win.shape)}")
+    nty, ntx = _frame_tiles((hc, wc), tile_hw)
+    if n_slots % (nty * ntx):
+        raise ValueError(f"{n_slots} slots are no uniform table of {nty * ntx} tiles")
+    if d_rows.device.type == "cpu":
+        return raster_uniform_bwd_plain(d_rows, win, n_slots)
+    if d_rows.device.type != "cuda":
+        raise ValueError(f"raster_uniform_bwd: unsupported device {d_rows.device}")
+    th, tw = tile_hw
+    if th * tw > 1024:
+        raise ValueError(f"tile {tile_hw} exceeds 1024 threads per block")
+    d_bins = torch.zeros((b, PACKED_WIDTH, n_slots), dtype=torch.float32,
+                         device=d_rows.device)
+    kernels.launch(
+        "dd_raster_uniform_bwd", "raster_uniform_bwd",
+        d_rows.data_ptr(), win.data_ptr(), b, n_slots // (nty * ntx), nty, ntx,
+        th, tw, d_bins.data_ptr(),
+    )
+    return d_bins
+
+
+def raster_uniform_bwd_plain(d_rows, win, n_slots: int) -> torch.Tensor:
+    """Plain torch K7 backward: K4's plain per-slot sum, which does not
+    depend on the table's layout."""
+    return raster_bwd_plain(d_rows, win, n_slots)
+
+
+class RasterBinned(torch.autograd.Function):
+    """(ids, rows) from the uniform-K table, differentiable in ``bins``
+    (counterpart of ``raster_gather_rows_binned``): K7 forward, K7
+    backward over the winner-slot map of the forward.  ids are not
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, bins, counts, resolution, tile_hw):
+        ids, rows, win = raster_uniform_fwd(bins, counts, resolution, tile_hw)
+        ctx.save_for_backward(win)
+        ctx.n_slots = bins.shape[2]
+        ctx.tile_hw = tile_hw
+        ctx.mark_non_differentiable(ids)
+        return ids, rows
+
+    @staticmethod
+    def backward(ctx, d_ids, d_rows):
+        (win,) = ctx.saved_tensors
+        d_bins = raster_uniform_bwd(d_rows.contiguous(), win, ctx.n_slots, ctx.tile_hw)
+        return d_bins, None, None, None
+
+
+def raster_gather_rows_binned(bins, counts, resolution, tile_hw):
+    """(ids, rows) of the uniform table over the (h, w) frame
+    ``resolution``, on that frame padded to whole tiles."""
+    return RasterBinned.apply(bins, counts, tuple(resolution), tuple(tile_hw))

@@ -1,5 +1,6 @@
-"""The port's hand kernels (K1-K6) against their plain torch versions, and
-a DiffDope run on the card against the same run on the CPU.
+"""The port's hand kernels (K1-K7, and K5/K6 with the depth lane) against
+their plain torch versions, and a DiffDope run on the card against the
+same run on the CPU.
 
 A CUDA kernel has no CPU mode, so every test here needs a card and skips
 without one.  On a machine with a card (the repo's conftest imports jax,
@@ -43,16 +44,22 @@ def params(problem):
 
 @pytest.fixture(scope="module")
 def checks(problem, params):
+    """K1-K6 on the bench problem's compact tables; K7 and the depth lane of
+    K5/K6 on its uniform-table depth variant."""
     mtx, _, _ = pose_matrix(params)
-    d_sums = torch.tensor([[1.0, 0.7, 0.0], [0.5, 1.3, 0.0], [2.0, 0.2, 0.0]],
+    d_sums = torch.tensor([[1.0, 0.7, 0.9], [0.5, 1.3, 1.1], [2.0, 0.2, 0.4]],
                           device=mtx.device)
-    rows = check_pack(problem["fn"], mtx) + check_kernels(problem["fn"], mtx, d_sums)
+    uniform = bench_problem(RES, subdiv=2, batch=B, device=mtx.device, depth=True,
+                            uniform=True)
+    rows = (check_pack(problem["fn"], mtx) + check_kernels(problem["fn"], mtx, d_sums)
+            + check_kernels(uniform["fn"], mtx, d_sums))
     return {row["name"]: row for row in rows}
 
 
 @pytest.mark.parametrize(
     "kernel", ["K1_pack_fwd", "K2_pack_bwd", "K3_raster_fwd", "K4_raster_bwd",
-               "K5_loss_fwd", "K6_loss_bwd"]
+               "K5_loss_fwd", "K6_loss_bwd", "K7_raster_uniform_fwd",
+               "K7_raster_uniform_bwd", "K5_loss_fwd_depth", "K6_loss_bwd_depth"]
 )
 def test_kernel_matches_plain_on_card(checks, kernel):
     row = checks[kernel]
@@ -82,7 +89,9 @@ def test_fused_loss_on_card_matches_cpu(problem, params):
     )
     kernels.reset_launches()
     v_gpu, g_gpu = value_and_grad(problem["fn"], "cuda")
-    assert all(n == 1 for n in kernels.launches.values()), kernels.launches
+    six = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd", "loss_fwd", "loss_bwd")
+    assert all(kernels.launches[c] == (1 if c in six else 0)
+               for c in kernels.launches), kernels.launches
     v_cpu, g_cpu = value_and_grad(fn_cpu, "cpu")
     np.testing.assert_allclose(v_gpu.numpy(), v_cpu.numpy(), rtol=1e-5, atol=1e-7)
     for k in g_cpu:

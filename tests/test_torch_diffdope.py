@@ -55,7 +55,7 @@ def _camera_args():
     return dict(fx=60.0, fy=60.0, cx=w / 2, cy=h / 2, im_width=w, im_height=h)
 
 
-def _reference_session(optimizer, monkeypatch):
+def _reference_session(optimizer, monkeypatch, cfg=None, with_depth=False):
     import diffdope_tpu as dd
     import jax
     import jax.numpy as jnp
@@ -83,10 +83,12 @@ def _reference_session(optimizer, monkeypatch):
     scene = dd.Scene(
         tensor_rgb=dd.Image(img_tensor=np.asarray(gtr["rgb"][0])),
         tensor_segmentation=dd.Image(img_tensor=np.asarray(gtr["mask"][0])),
+        tensor_depth=(dd.Image(img_tensor=np.asarray(gtr["depth"][0]), depth=True)
+                      if with_depth else None),
     )
     obj = dd.Object3D(position=INIT_POSITION, rotation=INIT_ROTATION,
                       batchsize=B, mesh=mesh)
-    d = dd.DiffDope(cfg=dd.ConfigNode(_cfg(optimizer)), camera=camera,
+    d = dd.DiffDope(cfg=dd.ConfigNode(cfg or _cfg(optimizer)), camera=camera,
                     object3d=obj, scene=scene)
     d.run_optimization()
     return d
@@ -102,9 +104,11 @@ def _port_session(state, cfg):
                     is_oriented=state["is_oriented"])
     obj = tdd.Object3D(position=INIT_POSITION, rotation=INIT_ROTATION,
                        batchsize=B, mesh=mesh)
+    depth = state["gt"].get("depth")
     scene = tdd.Scene(
         tensor_rgb=tdd.Image(img_tensor=state["gt"]["rgb"]),
         tensor_segmentation=tdd.Image(img_tensor=state["gt"]["segmentation"]),
+        tensor_depth=None if depth is None else tdd.Image(img_tensor=depth, depth=True),
     )
     d = tdd.DiffDope(cfg=tdd.ConfigNode(cfg), camera=tdd.Camera(**_camera_args()),
                      object3d=obj, scene=scene, device="cpu")

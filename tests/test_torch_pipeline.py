@@ -79,13 +79,50 @@ def test_torch_roi_crop_is_loss_exact():
                                    atol=1e-8, err_msg=k)
 
 
+def test_torch_roi_crop_is_loss_exact_with_depth():
+    """The same with the depth term, where the crop also cuts the depth
+    plane and the raster and the fused loss are chained: the crop's loss,
+    depth log and pose gradients are the full frame's."""
+    from diffdope_tpu_torch.bench import bench_problem, distinct_poses
+    from diffdope_tpu_torch.render.pipeline import make_fused_loss
+
+    pb = bench_problem((96, 160), subdiv=2, batch=2, device="cpu", depth=True)
+    s = pb["scene"]
+    fn_full = make_fused_loss(
+        s["proj"], s["pos"], s["tri"], (96, 160), pb["gt"], pb["lrs"],
+        pb["weights"], use_rgb=True, use_depth=True, use_mask=True,
+        edge_adj=s["edge_adj"], vtx_color=s["vtx_color"],
+        compact_total=pb["compact_total"], roi_crop="off", device="cpu",
+    )
+    assert pb["fn"].crop is not None and fn_full.crop is None
+    params0 = {k: v.numpy() for k, v in distinct_poses(pb["params0"], 0.01).items()}
+    t_c, logs_c, g_c = _port_value_and_grad(pb["fn"], params0)
+    t_f, logs_f, g_f = _port_value_and_grad(fn_full, params0)
+    assert int(logs_c["_crop_leak"]) == 0
+    assert float(logs_f["depth"].detach().min()) > 0
+    np.testing.assert_allclose(t_c.numpy(), t_f.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(logs_c["depth"].detach().numpy(),
+                               logs_f["depth"].detach().numpy(), rtol=1e-6)
+    for k in g_f:
+        np.testing.assert_allclose(g_c[k].numpy(), g_f[k].numpy(), rtol=1e-5,
+                                   atol=1e-8, err_msg=k)
+
+
 def test_torch_unported_paths_raise():
+    """What the port still refuses: exact texture and deferred ground truth
+    (not ported), a compact capacity off the chunk, and the depth loss
+    without a gt depth image."""
     sc = jax_scene()
     args = (sc["proj"], sc["pos"], sc["tri"], (64, 96), sc["gt"], np.ones(B), {})
     from diffdope_tpu_torch.render.pipeline import make_fused_loss
 
-    with pytest.raises(NotImplementedError, match="depth"):
-        make_fused_loss(*args, use_depth=True, vtx_color=sc["vtx_color"],
-                        compact_total=1024)
-    with pytest.raises(NotImplementedError, match="uncompacted"):
-        make_fused_loss(*args, vtx_color=sc["vtx_color"])
+    kw = dict(vtx_color=sc["vtx_color"], device="cpu")
+    with pytest.raises(NotImplementedError, match="exact texture"):
+        make_fused_loss(*args, tex=np.zeros((8, 8, 3), np.float32), **kw)
+    with pytest.raises(NotImplementedError, match="deferred"):
+        make_fused_loss(*args[:4], None, *args[5:], **kw)
+    with pytest.raises(ValueError, match="multiple of"):
+        make_fused_loss(*args, compact_total=1000, **kw)
+    no_depth = {k: v for k, v in sc["gt"].items() if k != "depth"}
+    with pytest.raises(ValueError, match="depth"):
+        make_fused_loss(*args[:4], no_depth, *args[5:], use_depth=True, **kw)

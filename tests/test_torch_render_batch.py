@@ -106,7 +106,9 @@ def renders(request):
 
 def _planes(out, layout):
     if layout == "channels":
-        return out["mask"], np.stack([np.asarray(c) for c in out["rgb"]], -1), out["depth"]
+        rgb = np.stack([np.asarray(c.detach() if isinstance(c, torch.Tensor) else c)
+                        for c in out["rgb"]], -1)
+        return out["mask"], rgb, out["depth"]
     return out["mask"], out["rgb"], out["depth"]
 
 
@@ -134,11 +136,74 @@ def test_torch_render_batch_pose_gradient(renders):
     np.testing.assert_allclose(got["grad"].numpy(), ref["grad"], rtol=2e-4, atol=1e-6)
 
 
+@pytest.fixture(scope="module")
+def uniform_renders():
+    """The channels layout on the uniform-K table (compact_total None): the
+    reference's on its 32x128 super-tiles, the port's through K7 on 16x16
+    tiles, the port fed the reference's table values as above."""
+    import jax
+    import jax.numpy as jnp
+
+    from diffdope_tpu.render.pipeline import render_batch as j_render_batch
+
+    sc = jax_scene()
+    w_mask, w_rgb = _weights()
+
+    def j_render(mtx):
+        return j_render_batch(
+            sc["proj"], mtx, sc["pos"], sc["tri"], RES, vtx_color=sc["vtx_color"],
+            edge_adj=sc["edge_adj"], raster_impl="pallas", tile_hw=JAX_TILE_HW,
+            max_tris_per_tile=MAX_K, layout="channels", compact_total=None,
+        )
+
+    def j_objective(mtx):
+        out = j_render(mtx)
+        return (jnp.sum(out["mask"] * w_mask)
+                + jnp.sum(jnp.stack(out["rgb"], axis=-1) * w_rgb)
+                + jnp.sum(out["depth"] * w_mask))
+
+    mtx0 = jnp.asarray(sc["mtx0"])
+    ref = {k: v for k, v in jax.jit(j_render)(mtx0).items() if v is not None}
+    ref["grad"] = jax.jit(jax.grad(j_objective))(mtx0)
+
+    mtx = torch.tensor(sc["mtx0"], requires_grad=True)
+    with pytest.MonkeyPatch.context() as mp:
+        _reference_pack(mp)
+        got = render_batch(sc["proj"], mtx, sc["pos"], sc["tri"], RES,
+                           vtx_color=sc["vtx_color"], edge_adj=sc["edge_adj"],
+                           layout="channels", compact_total=None, device="cpu")
+    objective = ((got["mask"] * torch.tensor(w_mask)).sum()
+                 + (torch.stack(got["rgb"], dim=-1) * torch.tensor(w_rgb)).sum()
+                 + (got["depth"] * torch.tensor(w_mask)).sum())
+    (got["grad"],) = torch.autograd.grad(objective, mtx)
+    return jax.tree.map(np.asarray, ref), got
+
+
+def test_torch_render_batch_uniform_matches_reference(uniform_renders):
+    """render_batch(compact_total=None): ids exactly, mask / rgb / depth and
+    the pose gradient (of a weighted mask + rgb + depth sum) at the
+    tolerances above."""
+    ref, got = uniform_renders
+    assert int(got["_bin_overflow"]) == 0 == int(ref["_bin_overflow"])
+    np.testing.assert_array_equal(got["ids"].numpy(), ref["ids"])
+    assert int((got["ids"] > 0).sum()) > 1000
+    for name, g, r in zip(("mask", "rgb", "depth"), _planes(got, "channels"),
+                          _planes(ref, "channels")):
+        g = np.asarray(g.detach()) if isinstance(g, torch.Tensor) else np.asarray(g)
+        np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-4 if name == "mask" else 1e-6,
+                                   err_msg=name)
+    assert np.abs(ref["grad"]).max() > 0
+    np.testing.assert_allclose(got["grad"].numpy(), ref["grad"], rtol=2e-4, atol=1e-6)
+
+
 def test_torch_render_batch_unported_paths_raise():
+    """What render_batch still refuses: an unknown layout and a compact
+    capacity off the chunk."""
     sc = jax_scene()
     args = (sc["proj"], sc["mtx0"], sc["pos"], sc["tri"], RES)
-    with pytest.raises(NotImplementedError, match="uniform-K"):
-        render_batch(*args, vtx_color=sc["vtx_color"], device="cpu")
     with pytest.raises(ValueError, match="layout"):
         render_batch(*args, vtx_color=sc["vtx_color"], layout="planar",
                      compact_total=COMPACT_TOTAL, device="cpu")
+    with pytest.raises(ValueError, match="multiple of"):
+        render_batch(*args, vtx_color=sc["vtx_color"], compact_total=COMPACT_TOTAL + 8,
+                     device="cpu")

@@ -1,9 +1,10 @@
 """Shared scene for the port's parity tests (tests/test_torch_*.py).
 
 The JAX tests' small scene (tests/test_fused_loss.py:22-66): RES (64, 96),
-B = 3 hypotheses, icosphere(2) with positional vertex colours, gt rendered
-by the JAX ``render_batch``.  Everything is returned as numpy, the form in
-which state crosses between the two packages.
+B = 3 hypotheses, icosphere(2) with positional vertex colours, gt (rgb,
+segmentation, depth) rendered by the JAX ``render_batch``.  Everything is
+returned as numpy, the form in which state crosses between the two
+packages.
 """
 
 import functools
@@ -16,6 +17,8 @@ LRS = np.asarray([1.0, 2.0, 0.5], np.float32)
 WEIGHTS = {"rgb": 0.7, "depth": 1.0, "mask": 1.0}
 #: the JAX compact table's tiles, capacity and per-tile bin size
 JAX_TILE_HW = (32, 128)
+#: the port's raster tile, at which the JAX uniform table is binned too
+PORT_TILE_HW = (16, 16)
 COMPACT_TOTAL = 1024
 MAX_K = 512
 
@@ -55,6 +58,7 @@ def jax_scene():
     gt = {
         "rgb": np.asarray(gt_r["rgb"][0]),
         "segmentation": np.asarray(gt_r["mask"][0]),
+        "depth": np.asarray(gt_r["depth"][0]),
     }
     dq = geo.quat_from_axis_angle(np.array([0.5, -0.2, 0.9]), np.deg2rad(10.0))
     q0 = np.asarray(geo.quat_multiply(jnp.asarray(dq), jnp.asarray(q_gt)), np.float32)
@@ -115,9 +119,54 @@ def jax_compact_table():
     return out
 
 
-def jax_fused_loss(monkeypatch):
-    """The JAX fused loss in the slice's configuration: compact table,
-    spanning op, pack in plain XLA (DD_PACK=xla), f32 d_rows.
+@functools.lru_cache(maxsize=None)
+def jax_uniform_table():
+    """The JAX uniform-K table at the port's 16x16 tile and its raster
+    (``raster_gather_rows_binned``, interpret mode) at the scene's initial
+    poses, as numpy, with the corner planes and determinants it was binned
+    from."""
+    import jax
+    import jax.numpy as jnp
+
+    from diffdope_tpu.render.planar import (
+        _silhouette_planar,
+        bin_triangles_planar,
+        corner_planes,
+        det_planar,
+        pack_binned,
+    )
+    from diffdope_tpu.render.raster_v2 import raster_gather_rows_binned
+
+    sc = jax_scene()
+    tri = sc["tri"]
+    t_count = tri.shape[0]
+    degenerate = np.zeros((t_count,), bool)
+
+    def table(mtx):
+        mvp = jnp.einsum("ij,bjk->bik", sc["proj"], mtx, precision="highest")
+        pos_c = sc["pos"][tri.reshape(-1)]
+        cp = corner_planes(pos_c, mvp)
+        det = det_planar(cp, degenerate)
+        idx, counts, ovf = bin_triangles_planar(cp, det, RES, PORT_TILE_HW, MAX_K)
+        sil = _silhouette_planar(det, sc["edge_adj"])
+        attrs = sc["vtx_color"][tri.reshape(-1)].reshape(t_count, 3, 3)
+        packed = pack_binned(pos_c, mvp, mtx, idx, attrs, sil, degenerate, t_count)
+        return dict(cp=cp, det=det, idx=idx, counts=counts, overflow=ovf,
+                    packed=packed)
+
+    out = jax.jit(table)(jnp.asarray(sc["mtx0"]))
+    ids, rows = jax.jit(lambda p, c: raster_gather_rows_binned(p, c, RES, PORT_TILE_HW, True))(
+        out["packed"], out["counts"])
+    out = {k: np.asarray(v) if not isinstance(v, dict)
+           else {n: np.asarray(p) for n, p in v.items()} for k, v in out.items()}
+    out["ids"], out["rows"] = np.asarray(ids), np.asarray(rows)
+    return out
+
+
+def jax_fused_loss(monkeypatch, use_depth=False, compact_total=COMPACT_TOTAL):
+    """The JAX fused loss in the port's configuration: the compact table
+    (``compact_total`` None: the uniform-K table), spanning op, pack in
+    plain XLA (DD_PACK=xla), f32 d_rows.
 
     The reference reads DD_PACK when the loss is traced, so ``monkeypatch``
     must stay in force until the caller's jit has traced it; while it is,
@@ -134,23 +183,24 @@ def jax_fused_loss(monkeypatch):
     sc = jax_scene()
     return make_fused_loss(
         sc["proj"], sc["pos"], sc["tri"], RES, sc["gt"], LRS, WEIGHTS,
-        use_rgb=True, use_mask=True, edge_adj=sc["edge_adj"],
+        use_rgb=True, use_depth=use_depth, use_mask=True, edge_adj=sc["edge_adj"],
         vtx_color=sc["vtx_color"], max_tris_per_tile=MAX_K,
-        compact_total=COMPACT_TOTAL,
+        compact_total=compact_total,
     )
 
 
-def port_fused_loss(device="cpu"):
+def port_fused_loss(device="cpu", use_depth=False, uniform=False):
     """The port's fused loss on the same scene, its state carried across
-    by ``convert.state``; compact capacity twice the probe's."""
+    by ``convert.state``; compact capacity twice the probe's, or the
+    uniform-K table."""
     from diffdope_tpu_torch import convert
     from diffdope_tpu_torch.render.pipeline import compact_capacity, make_fused_loss
 
     sc = convert.state(jax_scene(), device)
-    total = compact_capacity(sc["proj"], sc["pos"], sc["tri"], sc["mtx0"], RES,
-                             device=device)
+    total = None if uniform else 2 * compact_capacity(
+        sc["proj"], sc["pos"], sc["tri"], sc["mtx0"], RES, device=device)
     return make_fused_loss(
         sc["proj"], sc["pos"], sc["tri"], RES, sc["gt"], LRS, WEIGHTS,
-        use_rgb=True, use_mask=True, edge_adj=sc["edge_adj"],
-        vtx_color=sc["vtx_color"], compact_total=2 * total, device=device,
+        use_rgb=True, use_depth=use_depth, use_mask=True, edge_adj=sc["edge_adj"],
+        vtx_color=sc["vtx_color"], compact_total=total, device=device,
     )

@@ -1,0 +1,74 @@
+"""Where the device time of a PyTorch-port DiffDope step goes, on the card.
+
+Runs ``chip_smoke.py``'s default-configuration DiffDope session (960x540,
+B=8, 61 SGD steps, stand-in mesh) in three settings: mask L1 on the
+compact table (``chip_smoke`` phase 5), mask + depth L1 on the compact
+table (phase 7) and mask + depth L1 on the uniform-K table (phase 8).
+Each setting runs once to warm up (recovery re-runs included), once
+untraced for the step's wall time, and once under ``torch.profiler``.
+
+    python tools/port_profile_diffdope.py
+
+Prints, per setting, one JSON line: the untraced wall time per step, the
+device busy time per step (sum of the CUDA kernels' self time over the
+traced run, divided by its steps) and its share of the untraced step, and
+the kernels with the most device time per step.
+"""
+
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+SETTINGS = {
+    "mask_compact": ({}, {}),
+    "depth_compact": ({}, {"l1_depth_with_mask": True}),
+    "depth_uniform": ({"compact_bins": False}, {"l1_depth_with_mask": True}),
+}
+TOP = 12
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from diffdope_tpu_torch.bench import card
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: this profile measures the card only", file=sys.stderr)
+        return 2
+    gpu = card()
+    for name, (tpu, losses) in SETTINGS.items():
+        dd, _, _ = chip_smoke.diffdope_session(True, tpu=tpu, losses=losses)
+        dd.run_optimization()  # warm-up, and the recovery's capacities
+        torch.cuda.synchronize()
+        dd.run_optimization()
+        torch.cuda.synchronize()
+        steps = dd.last_run_stats["steps"]
+        step_ms = 1e3 * dd.last_run_stats["wall_time_s"] / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            dd.run_optimization()
+            torch.cuda.synchronize()
+        cuda = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in cuda) / 1e3 / steps
+        cuda.sort(key=lambda e: -e.self_device_time_total)
+        print(json.dumps({
+            "setting": name, "card": gpu, "steps": steps,
+            "reruns": dd.last_run_stats["recovery_reruns"],
+            "untraced_ms_per_step": step_ms, "device_busy_ms_per_step": busy_ms,
+            "busy_share_of_untraced_step": busy_ms / step_ms,
+            "top_kernels_ms_per_step": [
+                [e.key[:80], e.self_device_time_total / 1e3 / steps, e.count // steps]
+                for e in cuda[:TOP]],
+        }), flush=True)
+        del dd
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
