@@ -50,7 +50,27 @@ result line):
    loss with its ROI crop (on even where the kept run dropped it after a
    leak; no leak there), so the crop is loss-exact; and at the init the
    cropped compact table and the uniform table hold the same slots per
-   tile in the same order.
+   tile in the same order;
+9. the nvdiffrast-style API path at the default configuration's frame
+   (960x540, B=8 distinct poses around phase 5's init, the stand-in mesh):
+   ``xfm_points`` -> ``rasterize(impl='pallas')`` (K8, tile 32x128, K from
+   the fullest tile, no pair dropped) -> ``interpolate`` of the vertex
+   colours with ``rast_db`` -> ``antialias`` of the mask with ``edge_adj``
+   -> L1 against the phase's gt rgb and mask -> the pose gradient; K8
+   launched once, its ids equal the brute force's (``impl='reference'``)
+   exactly, so do rast and rast_db, the pose gradients agree at rtol 1e-6,
+   atol 1e-9 (the gathers' backward adds with atomics), and the coverage
+   differs from ``render_batch``'s ids at the same poses on at most 0.5%
+   of the foreground; forward and backward times and peak memory printed;
+10. ``DiffDope`` with ``tpu.raster_impl: auto`` on icosphere(1) (80
+   triangles, vertex colours) at 960x540, B=8, 5 SGD steps (``AUTO_HYPER``):
+   auto picks the brute-force rasterizer (the unfused route, no kernel
+   launched) and the loss falls.
+
+K8 (the API's binned id search) is also held to its plain version at the
+test scene, at tiles (16, 32) and (32, 128) over a 70x100 frame, and at
+the bench shapes (B=64, 400x400, icosphere(5), tile (32, 128), K from the
+counts), where both are timed.
 
 The line before the last is the card; before it, one JSON object with a
 row per kernel.  The last line is ``{"ok": true, "device": {...}}``.
@@ -104,6 +124,12 @@ DEFAULT_CONFIG = {
 #: main path, phase 5); the unfused route runs the first four
 COMPACT_FUSED = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd", "loss_fwd",
                  "loss_bwd")
+#: the API path's tile (the op's default)
+API_TILE = (32, 128)
+#: phase 10's run: 5 SGD steps, loss scales in [0.5, 2] (the DiffDope parity
+#: tests' bounds): at the configured [0.01, 100] five steps overshoot on the
+#: large scales and the total loss ends above its start
+AUTO_HYPER = {"nb_iterations": 4, "learning_rates_bound": [0.5, 2.0]}
 #: the DiffDope phases' init: the configured pose moved by this OpenCV-frame
 #: translation (mm, before the 0.01 scale) and rotated by this many degrees
 #: about ``axis``; the default SGD configuration recovers it (the phase
@@ -144,12 +170,13 @@ def check_all(fn, mtx, d_sums, reps=0):
     return check_pack(fn, mtx, reps) + check_kernels(fn, mtx, d_sums, reps)
 
 
-def diffdope_session(fused: bool, offset=None, tpu=None, losses=None):
-    """A DiffDope on the card at ``DEFAULT_CONFIG`` (``tpu`` and ``losses``
-    entries overriding its groups): the scene is the port's render at the
-    configured pose, the init that pose moved by ``offset`` (default
-    ``INIT_OFFSET``).  Returns the session, the mesh's vertices (for ADD)
-    and the gt pose."""
+def diffdope_session(fused: bool, offset=None, tpu=None, losses=None, hyper=None,
+                     mesh=None):
+    """A DiffDope on the card at ``DEFAULT_CONFIG`` (``tpu``, ``losses`` and
+    ``hyper`` entries overriding its groups; ``mesh`` in place of the
+    configured model): the scene is the port's render at the configured
+    pose, the init that pose moved by ``offset`` (default ``INIT_OFFSET``).
+    Returns the session, the mesh's vertices (for ADD) and the gt pose."""
     import numpy as np
     import torch
 
@@ -174,10 +201,12 @@ def diffdope_session(fused: bool, offset=None, tpu=None, losses=None):
         cfg.tpu[key] = value
     for key, value in (losses or {}).items():
         cfg.losses[key] = value
+    for key, value in (hyper or {}).items():
+        cfg.hyperparameters[key] = value
     camera = Camera(**cfg.camera)
     h = int(cfg.camera.im_height * cfg.scene.image_resize)
     w = int(cfg.camera.im_width * cfg.scene.image_resize)
-    gt_obj = Object3D(**cfg.object3d)
+    gt_obj = Object3D(**cfg.object3d, mesh=mesh)
     mesh = gt_obj.mesh
     mtx_gt = pose_matrix(gt_obj.initial_params(1))[0]
     # the gt render bins every triangle a tile touches: no capacity to drop
@@ -187,8 +216,9 @@ def diffdope_session(fused: bool, offset=None, tpu=None, losses=None):
         gt = render_batch(camera.cam_proj, mtx_gt, mesh.pos, mesh.pos_idx, (h, w),
                           vtx_color=mesh.vtx_color, edge_adj=mesh.edge_adj,
                           max_tris_per_tile=t_all, compact_total=cap)
-    if int(gt["_bin_overflow"]) != 0:
-        fail(f"the gt render dropped {int(gt['_bin_overflow'])} (tile, triangle) pairs")
+    dropped = int(gt.get("_bin_overflow", 0))  # none on the brute-force route
+    if dropped:
+        fail(f"the gt render dropped {dropped} (tile, triangle) pairs")
     scene = Scene(tensor_rgb=Image(img_tensor=gt["rgb"][0].cpu().numpy()),
                   tensor_depth=Image(img_tensor=gt["depth"][0].cpu().numpy(), depth=True),
                   tensor_segmentation=Image(img_tensor=gt["mask"][0].cpu().numpy()))
@@ -363,6 +393,188 @@ def check_diffdope(dd, route, add0, add1):
         fail(f"DiffDope {route}: get_pose() did not end closer to the gt pose")
 
 
+def k8_check(label, gpu, proj, mtx, pos, tri, resolution, tile_hw, reps=0):
+    """K8 against its plain version on the setup rows and bins of the mesh
+    at poses ``mtx`` (B, 4, 4); fails on a disagreement.  Returns the row."""
+    import torch
+
+    from diffdope_tpu_torch.geometry import matmul44, xfm_points
+    from diffdope_tpu_torch.kernels.check import check_raster_ids, raster_ids_inputs
+
+    with torch.no_grad():
+        proj = torch.as_tensor(proj, device="cuda")
+        pos_clip = xfm_points(torch.as_tensor(pos, device="cuda"), matmul44(proj, mtx))
+        tri = torch.as_tensor(tri, device="cuda").long()
+        inputs = raster_ids_inputs(pos_clip, tri, resolution, tile_hw)
+    row = check_raster_ids(*inputs, resolution, tile_hw, reps)
+    times = (f" kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+             f"{row['bound'][0]:.4f} ms ({row['bound'][1]}) [{gpu}]" if reps else "")
+    print(f"{label} K8_raster_ids tile {tile_hw}, {resolution[1]}x{resolution[0]}, "
+          f"B={mtx.shape[0]}: ok={row['ok']} ({row['tolerance']}; "
+          f"{row['id_mismatches']} differ), {row['fg_pixels']} foreground px, "
+          f"K {row['k']} (fullest tile {row['fullest']}){slots(row)}{times}", flush=True)
+    if not row["ok"]:
+        fail(f"K8 disagrees with its plain version ({label}, tile {tile_hw}): {row}")
+    return row
+
+
+def api_path(mesh_t, params, impl: str, k: int, gt):
+    """One pass of the nvdiffrast-style API path at poses ``params``:
+    xfm_points -> rasterize -> interpolate (rast_db, all channels) ->
+    antialias of the mask -> L1 against gt -> the pose gradient; returns
+    rast, rast_db, the gradients, the loss and the forward and backward
+    seconds (synchronized)."""
+    import torch
+
+    from diffdope_tpu_torch import antialias, interpolate, rasterize, xfm_points
+    from diffdope_tpu_torch.geometry import matmul44
+    from diffdope_tpu_torch.optimize import pose_matrix
+
+    proj, pos, tri, colors, adj = mesh_t
+    p = {name: v.detach().clone().requires_grad_(True) for name, v in params.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mtx, _, _ = pose_matrix(p)
+    pos_clip = xfm_points(pos, matmul44(proj, mtx))
+    rast, db = rasterize(pos_clip, tri, tuple(gt["rgb"].shape[:2]), impl=impl,
+                         tile_hw=API_TILE, max_tris_per_tile=k)
+    rgb, _ = interpolate(colors, rast, tri, db, diff_attrs="all")
+    mask = antialias((rast[..., 3:4] > 0).float(), rast, pos_clip, tri, edge_adj=adj)
+    loss = (rgb - gt["rgb"]).abs().mean() + (mask - gt["mask"]).abs().mean()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(loss, list(p.values()))
+    torch.cuda.synchronize()
+    return dict(rast=rast.detach(), db=db.detach(), loss=float(loss.detach()),
+                grads=dict(zip(p, grads)), fwd_s=t1 - t0, bwd_s=time.perf_counter() - t1)
+
+
+def api_phase(gpu):
+    """Phase 9: the API path at the default configuration's frame; returns
+    K8's launches on one pass."""
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch import kernels
+    from diffdope_tpu_torch.bench import distinct_poses
+    from diffdope_tpu_torch.optimize import pose_matrix
+    from diffdope_tpu_torch.render.pipeline import compact_capacity, render_batch
+
+    dd, _, _ = diffdope_session(True)
+    mesh = dd.object3d.mesh
+    res = tuple(dd.resolution)
+    cuda = torch.device("cuda")
+    mesh_t = (torch.as_tensor(np.asarray(dd.camera.cam_proj, np.float32), device=cuda),
+              torch.as_tensor(mesh.pos, device=cuda),
+              torch.as_tensor(mesh.pos_idx, device=cuda).long(),
+              torch.as_tensor(mesh.vtx_color, device=cuda),
+              torch.as_tensor(mesh.edge_adj, device=cuda).long())
+    gt_np = dd.gt_tensors
+    gt = {"rgb": torch.as_tensor(gt_np["rgb"], device=cuda),
+          "mask": torch.as_tensor(gt_np["segmentation"][..., :1], device=cuda)}
+    params = distinct_poses(dd.object3d.initial_params(dd.batchsize, cuda), 1e-3)
+    mtx, _, _ = pose_matrix(params)
+    # K8 on the path's own inputs, timed; K from the fullest tile
+    k = k8_check("API path shapes", gpu, dd.camera.cam_proj, mtx.detach(), mesh.pos,
+                 mesh.pos_idx, res, API_TILE, reps=20)["k"]
+    print(f"API path: {res[1]}x{res[0]}, B={dd.batchsize}, {len(mesh.pos_idx)} triangles, "
+          f"tile {API_TILE}, K {k}, no pair dropped", flush=True)
+
+    api_path(mesh_t, params, "pallas", k, gt)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    run = api_path(mesh_t, params, "pallas", k, gt)
+    launches = dict(kernels.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"API path (K8): forward {run['fwd_s'] * 1e3:.4f} ms, backward "
+          f"{run['bwd_s'] * 1e3:.4f} ms, peak {peak_gib:.3f} GiB, loss {run['loss']:.6f} "
+          f"[{gpu}]", flush=True)
+    print(f"API path launches: {launches}", flush=True)
+    check_launches("API path", launches, ("raster_ids",), set(launches) - {"raster_ids"})
+    if launches["raster_ids"] != 1:
+        fail(f"API path: K8 launched {launches['raster_ids']} times for one rasterize")
+
+    torch.cuda.reset_peak_memory_stats()
+    ref = api_path(mesh_t, params, "reference", k, gt)
+    print(f"API path (brute force): forward {ref['fwd_s'] * 1e3:.4f} ms, backward "
+          f"{ref['bwd_s'] * 1e3:.4f} ms, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB [{gpu}]", flush=True)
+    ids, ids_ref = run["rast"][..., 3], ref["rast"][..., 3]
+    n_fg = int((ids > 0).sum())
+    print(f"API path: K8 against the brute force: {int((ids != ids_ref).sum())} of "
+          f"{ids.numel()} ids differ ({n_fg} foreground)", flush=True)
+    if not (torch.equal(run["rast"], ref["rast"]) and torch.equal(run["db"], ref["db"])):
+        fail("API path: K8's rast / rast_db differ from the brute force's")
+    for name, g in run["grads"].items():
+        want = ref["grads"][name].cpu().numpy()
+        if not np.allclose(g.cpu().numpy(), want, rtol=1e-6, atol=1e-9):
+            fail(f"API path: the pose gradient '{name}' {g.cpu().numpy()} differs from the "
+                 f"brute force's {want} beyond rtol 1e-6, atol 1e-9")
+    print(f"API path: rast and rast_db equal, pose gradients agree at rtol 1e-6, "
+          f"atol 1e-9; loss {run['loss']:.6f} / {ref['loss']:.6f}", flush=True)
+
+    # render_batch at the same poses: the same coverage but on silhouette
+    # pixels, where its planar coefficients and the API's setup round apart
+    t_all = len(mesh.pos_idx)
+    cap = compact_capacity(dd.camera.cam_proj, mesh.pos, mesh.pos_idx, mtx.detach(), res,
+                           t_all)
+    with torch.no_grad():
+        rb = render_batch(dd.camera.cam_proj, mtx.detach(), mesh.pos, mesh.pos_idx, res,
+                          vtx_color=mesh.vtx_color, edge_adj=mesh.edge_adj,
+                          layout="channels", max_tris_per_tile=t_all, compact_total=cap)
+    if int(rb["_bin_overflow"]):
+        fail("API path: render_batch dropped (tile, triangle) pairs")
+    fg_rb = rb["ids"] > 0
+    n_diff = int(((ids > 0) != fg_rb).sum())
+    print(f"API path: coverage differs from render_batch's on {n_diff} of "
+          f"{int(fg_rb.sum())} foreground pixels ({100 * n_diff / int(fg_rb.sum()):.4f}%)",
+          flush=True)
+    if n_diff > 0.005 * int(fg_rb.sum()):
+        fail("API path: coverage differs from render_batch's on more than 0.5% of the "
+             "foreground")
+    return launches["raster_ids"]
+
+
+def auto_phase(gpu):
+    """Phase 10: DiffDope with raster_impl auto on an 80-triangle mesh."""
+    import numpy as np
+    import torch
+
+    import diffdope_tpu_torch as tdd
+    from diffdope_tpu_torch import kernels
+
+    verts, faces = tdd.icosphere(1)
+    mesh = tdd.Mesh(pos=verts * 0.5, pos_idx=faces, vtx_normals=verts,
+                    num_vertices=len(verts), num_triangles=len(faces),
+                    vtx_color=verts * 0.5 + 0.5, edge_adj=tdd.build_edge_adjacency(faces))
+    dd, points, mtx_gt = diffdope_session(True, hyper=AUTO_HYPER, mesh=mesh)
+    impl = dd._impl(dd._mesh_arrays())
+    print(f"DiffDope auto: {len(faces)} triangles -> raster_impl {impl}", flush=True)
+    if impl != "reference":
+        fail(f"DiffDope auto picked {impl} on {len(faces)} triangles")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    dd.run_optimization()
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    stats = dd.last_run_stats
+    total = dd._result.total_loss.cpu()
+    add0 = add_to(points, mtx_gt, dd.object3d.initial_matrix())
+    add1 = add_to(points, mtx_gt, dd.get_pose())
+    print(f"DiffDope auto: {stats['steps']} steps, B={dd.batchsize}, "
+          f"{dd.resolution[1]}x{dd.resolution[0]}: {stats['wall_time_s']:.4f} s, "
+          f"{stats['steps_per_sec']:.3f} steps/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; loss first "
+          f"{float(total[0]):.6f}, last {float(total[-1]):.6f}; ADD {add0:.6f} -> "
+          f"{add1:.6f} [{gpu}]", flush=True)
+    print(f"DiffDope auto launches: {launches}", flush=True)
+    check_launches("DiffDope auto", launches, (), set(launches))
+    if not bool(np.isfinite(total.numpy()).all()) or not float(total[-1]) < float(total[0]):
+        fail(f"DiffDope auto: the loss did not fall ({total.numpy()})")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -378,7 +590,8 @@ def main() -> None:
     )
     from diffdope_tpu_torch.kernels.check import COUNTERS, KERNELS, check_kernels
     from diffdope_tpu_torch.metrics import add_metric
-    from diffdope_tpu_torch.optimize import argmin_hypothesis, pose_matrix
+    from diffdope_tpu_torch.optimize import argmin_hypothesis, pose_matrix, pose_params
+    from diffdope_tpu_torch.testing import bench_scene
 
     gpu = card()
     print(f"card: {gpu}", flush=True)
@@ -410,6 +623,14 @@ def main() -> None:
               f"max_abs_err={row['max_abs_err']:.3e} ({row['tolerance']})", flush=True)
         if not row["ok"]:
             fail(f"{row['name']} disagrees with its plain version at the test scene: {row}")
+    # K8 over a frame that is a multiple of neither tile
+    k8_res = (70, 100)
+    k8_scene = bench_scene(k8_res, subdiv=2)
+    k8_mtx, _, _ = pose_matrix(distinct_poses(
+        pose_params(k8_scene["q0"], k8_scene["t0"], 3, "cuda"), 0.01))
+    for tile in ((16, 32), API_TILE):
+        k8_check("test scene", gpu, k8_scene["proj"], k8_mtx, k8_scene["pos"],
+                 k8_scene["tri"], k8_res, tile)
 
     problem = bench_problem((400, 400), subdiv=5, batch=64, device="cuda")
     print(f"bench problem: compact capacity {problem['compact_total']} slots, "
@@ -448,6 +669,11 @@ def main() -> None:
                 bench_rows[row["name"]] = row
         del extra
         torch.cuda.empty_cache()
+    # K8 at the bench shapes: the bench scene's mesh at its 64 distinct poses
+    sc = problem["scene"]
+    bench_rows["K8_raster_ids"] = k8_check("bench shapes", gpu, sc["proj"], mtx, sc["pos"],
+                                           sc["tri"], (400, 400), API_TILE, reps=20)
+    torch.cuda.empty_cache()
 
     # ---- the bench main path ------------------------------------------------
     run_refinement(problem)  # warm-up: allocator, caches
@@ -560,11 +786,20 @@ def main() -> None:
           f"uniform table hold the same {n} slots per tile in the same order",
           flush=True)
 
+    del dd_c, dd_k, fn_c
+    torch.cuda.empty_cache()
+
+    # ---- the API path (K8) and DiffDope on the reference rasterizer -------
+    k8_launches = api_phase(gpu)
+    torch.cuda.empty_cache()
+    auto_phase(gpu)
+
     # launches on the path that runs each kernel: the bench main path, the
-    # depth phase on the compact table, the depth phase on the uniform one
+    # depth phase on the compact table, the depth phase on the uniform one,
+    # the API path
     path = {**launches_c, **{c: launches_k[c] for c in
                              ("raster_uniform_fwd", "raster_uniform_bwd")},
-            **{c: launches[c] for c in COMPACT_FUSED}}
+            **{c: launches[c] for c in COMPACT_FUSED}, "raster_ids": k8_launches}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = bench_rows[name]

@@ -23,6 +23,8 @@ from diffdope_tpu_torch.geometry import (
     quat_from_axis_angle,
     quat_multiply,
     quat_normalize,
+    xfm_points,
+    xfm_vectors,
 )
 from diffdope_tpu_torch.image import Image, Scene
 from diffdope_tpu_torch.losses import select_losses
@@ -35,6 +37,7 @@ from diffdope_tpu_torch.optimize import (
     pose_params,
     refine,
 )
+from diffdope_tpu_torch.render import antialias, interpolate, rasterize, texture
 from diffdope_tpu_torch.render.fused_loss import raster_loss_compact
 from diffdope_tpu_torch.render.pipeline import (
     make_fused_loss,

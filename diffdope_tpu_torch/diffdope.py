@@ -17,7 +17,10 @@ A run takes one of two routes, as the reference's does:
 
 Either runs on the compact bin table, or on the uniform-K table with
 ``tpu.compact_bins: false`` (the raster K7 in place of K3/K4, the full
-frame without the ROI crop).
+frame without the ROI crop).  ``tpu.raster_impl: reference`` (or ``auto``
+on a mesh of at most 256 triangles, the reference's rule) takes the
+unfused route on the brute-force rasterizer instead: plain torch, no
+kernel, no bins and so no capacity to probe or recover.
 
 Settings the port reads differently: ``tpu.tile_h`` / ``tpu.tile_w`` are
 TPU layout knobs and are not read (the port's raster tile is
@@ -52,6 +55,7 @@ from diffdope_tpu_torch.render.pipeline import (
     K_CHUNK,
     _Mesh,
     _binned,
+    _impl,
     _padded,
     _render,
     _table,
@@ -129,8 +133,9 @@ class DiffDope:
         self.seed = int(tpu_cfg.get("seed", 0))
         self.optimizer_name = str(tpu_cfg.get("optimizer", "sgd"))
         self.raster_impl = str(tpu_cfg.get("raster_impl", "auto"))
-        if self.raster_impl == "reference":
-            raise _not_ported("the reference (XLA) rasterizer, raster_impl=reference", 3)
+        if self.raster_impl not in ("auto", "pallas", "reference"):
+            raise ValueError(f"unknown tpu.raster_impl {self.raster_impl!r} "
+                             "(auto | pallas | reference)")
         mk = tpu_cfg.get("max_tris_per_tile", "auto")
         self.max_tris_per_tile = mk if mk == "auto" else int(mk)
 
@@ -278,11 +283,28 @@ class DiffDope:
         return bool(getattr(mesh, "is_closed", False)
                     and getattr(mesh, "is_oriented", False))
 
+    def _impl(self, arrays) -> str:
+        """The rasterizer of this session: 'pallas' (the kernels) or
+        'reference' (the brute force), ``tpu.raster_impl: auto`` resolved by
+        the mesh's triangle count (``diffdope.py:372-374``)."""
+        return _impl(self.raster_impl, int(arrays["pos_idx"].shape[0]))
+
     def _make_render_fn(self, layout: str = "channels"):
-        """``mtx -> render_batch(...)`` on the mesh, prepared once."""
+        """``mtx -> render_batch(...)`` on the mesh, prepared once.  The
+        reference rasterizer bins nothing, so it probes no capacity and
+        takes no compact table (``diffdope.py:282-283``)."""
         arrays = self._mesh_arrays()
         proj = np.asarray(self.camera.cam_proj, np.float32)
         resolution = tuple(self.resolution)
+        if self._impl(arrays) == "reference":
+            mesh = _Mesh(proj, arrays["pos"], arrays["pos_idx"], arrays["edge_adj"],
+                         arrays.get("vtx_color"), arrays.get("corner_colors"),
+                         self.device)
+
+            def reference_fn(mtx):
+                return _render(mesh, mtx, resolution, None, layout, impl="reference")
+
+            return reference_fn
         max_tris = self._resolve_max_tris(arrays, proj, resolution)
         capacity = self._resolve_compact_total(arrays, proj, resolution, max_tris)
         cull = self._resolve_cull()
@@ -322,6 +344,8 @@ class DiffDope:
         if "segmentation" not in gt or (use_depth and "depth" not in gt):
             return None
         arrays = self._mesh_arrays()
+        if self._impl(arrays) != "pallas":
+            return None  # the reference rasterizer runs the unfused route
         proj = np.asarray(self.camera.cam_proj, np.float32)
         resolution = tuple(self.resolution)
         max_tris = self._resolve_max_tris(arrays, proj, resolution)

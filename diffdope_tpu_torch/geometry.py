@@ -37,6 +37,33 @@ def matmul44(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def xfm_points(points: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
+    """Transform (..., N, 3) points by (..., 4, 4) matrices -> (..., N, 4),
+    the homogeneous w kept (``geometry.py:289-312``, the reference's
+    ``dd.xfm_points``).  True float32 (the reference's
+    ``precision="highest"``): products summed in a fixed order, never a
+    BLAS product, so TF32 cannot apply and every device gives the same
+    bits.  Differentiable in both arguments."""
+    p = [points[..., c] for c in range(3)]  # (..., N) each
+
+    def m(r, c):  # (..., 1): broadcasts against (..., N)
+        return matrix[..., r, c, None]
+
+    out = [((m(r, 0) * p[0] + m(r, 1) * p[1]) + m(r, 2) * p[2]) + m(r, 3)
+           for r in range(4)]
+    return torch.stack(out, dim=-1)
+
+
+def xfm_vectors(vectors: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
+    """Transform (..., N, 3) direction vectors by the rotation part of
+    (..., 4, 4) matrices -> (..., N, 3) (``geometry.py:315-324``), in the
+    fixed order of :func:`xfm_points`."""
+    v = [vectors[..., c] for c in range(3)]
+    out = [(matrix[..., r, 0, None] * v[0] + matrix[..., r, 1, None] * v[1])
+           + matrix[..., r, 2, None] * v[2] for r in range(3)]
+    return torch.stack(out, dim=-1)
+
+
 def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Hamilton product q1 (x) q2, so R(q1 (x) q2) = R(q1) @ R(q2)."""
     x1, y1, z1, w1 = q1.unbind(-1)

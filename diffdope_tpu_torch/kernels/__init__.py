@@ -32,7 +32,7 @@ from typing import Dict, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("pack.cu", "raster.cu", "fused_loss.cu")
+SOURCES = ("pack.cu", "raster.cu", "fused_loss.cu", "rasterize.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -41,7 +41,8 @@ NVCC_FLAGS = (
 #: launches per wrapper: the fused loss counts its depth-lane launches apart
 launches = {"pack_fwd": 0, "pack_bwd": 0, "raster_fwd": 0, "raster_bwd": 0,
             "raster_uniform_fwd": 0, "raster_uniform_bwd": 0,
-            "loss_fwd": 0, "loss_bwd": 0, "loss_fwd_depth": 0, "loss_bwd_depth": 0}
+            "loss_fwd": 0, "loss_bwd": 0, "loss_fwd_depth": 0, "loss_bwd_depth": 0,
+            "raster_ids": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -64,6 +65,8 @@ _SIGNATURES = {
     # (rows, ids, gt6, dplane | null, d_sums, B, hc, wc, oy, ox, fh, fw, g,
     #  d_rows, d_dplane | null, stream)
     "dd_loss_bwd": [_P] * 5 + [_I] * 7 + [_P] * 4,
+    # (coef, tile_idx, counts, B, T, K, nty, ntx, th, tw, fh, fw, ids, stream)
+    "dd_raster_ids": [_P] * 3 + [_I] * 9 + [_P] * 2,
 }
 
 _fns: Optional[Dict[str, object]] = None

@@ -3,14 +3,15 @@
 Used by ``chip_smoke.py`` and the CUDA tests: hold each kernel against
 its plain torch version on the same inputs (the pack inputs and the table
 of a fused loss from ``make_fused_loss``, or of a render function, at
-given poses), and time both.  A function's tables are checked in their
+given poses; for K8 the setup rows and bins of the ``rasterize`` op), and
+time both.  A function's tables are checked in their
 own layout: K3/K4 on the compact table, K7 on the uniform-K table; K5/K6
 take the depth lane (the ``_depth`` variants) where the loss has a depth
 term.
 
 Tolerances: K1's table must equal ``planar.pack_binned``'s bit for bit in
-all 32 lanes, and K3's and K7's ids, slots and rows exactly (same f32
-operation order, no FMA); K5's sums rtol 1e-5, atol 1e-7; K2's (d_mvp,
+all 32 lanes, K3's and K7's ids, slots and rows exactly, and K8's ids
+exactly (same f32 operation order, no FMA); K5's sums rtol 1e-5, atol 1e-7; K2's (d_mvp,
 d_mtx row 2), K6's d_rows and K4's and K7's d_bins (also reduced per
 triangle) rtol 2e-4, atol 1e-6 against the plain autograd, plus 1e-6 of
 a local scale; K6's d_dplane rtol 2e-4, atol 1e-6.  That term is
@@ -61,6 +62,8 @@ from diffdope_tpu_torch.render.raster import (
     raster_uniform_fwd,
     raster_uniform_fwd_plain,
 )
+from diffdope_tpu_torch.render.rasterize import raster_ids, raster_ids_binned_plain
+from diffdope_tpu_torch.render.setup_tris import bin_triangles, triangle_setup
 
 #: which TPU kernel each port kernel replaces, and where it lives
 KERNELS = {
@@ -104,6 +107,10 @@ KERNELS = {
         "diffdope_tpu_torch/csrc/fused_loss.cu",
         "diffdope_tpu/render/fused_loss.py:268",
     ),
+    "K8_raster_ids": (
+        "diffdope_tpu_torch/csrc/rasterize.cu",
+        "diffdope_tpu/render/rasterize.py:110",
+    ),
 }
 #: launch counter of each kernel's wrapper (diffdope_tpu_torch.kernels)
 COUNTERS = {
@@ -117,6 +124,7 @@ COUNTERS = {
     "K7_raster_uniform_bwd": "raster_uniform_bwd",
     "K5_loss_fwd_depth": "loss_fwd_depth",
     "K6_loss_bwd_depth": "loss_bwd_depth",
+    "K8_raster_ids": "raster_ids",
 }
 
 
@@ -126,9 +134,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 #: FP32 operations per element, counted from the CUDA sources (estimates):
 #: K1/K2 per (hypothesis, slot) at n_ch colour channels, K3 per
-#: (pixel, slot) edge test, K4 per (foreground pixel, lane), K5/K6 per pixel
+#: (pixel, slot) edge test, K4 per (foreground pixel, lane), K5/K6 per pixel,
+#: K8 per (pixel, slot) test: the three edge functions (4 each) and their
+#: sign tests, which every test runs (a covered test's depth, 8 more, is not
+#: counted: how many there are depends on the data)
 _OPS = {"K1": lambda n_ch: 195 + 15 * n_ch, "K2": lambda n_ch: 330 + 18 * n_ch,
-        "K3": 25, "K4": 1, "K5": 450, "K6": 900}
+        "K3": 25, "K4": 1, "K5": 450, "K6": 900, "K8": 15}
 
 
 #: lanes of a foreground pixel's rows that K5 and K6 read: the edge planes
@@ -439,3 +450,58 @@ def check_pack(fn, mtx: torch.Tensor, reps: int = 0) -> List[Dict[str, object]]:
             lambda: torch.autograd.grad(packed_p, leaves, g, retain_graph=True),
             max(1, reps // 10))
     return out
+
+
+@torch.no_grad()
+def raster_ids_inputs(pos_clip: torch.Tensor, tri: torch.Tensor, resolution,
+                      tile_hw) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8's inputs at clip positions ``pos_clip`` (B, N, 4): the setup rows
+    (B, T, 16), and the bins and counts of ``setup_tris.bin_triangles``
+    with K the fullest tile's count rounded up to 128, so that no (tile,
+    triangle) pair drops (raises if one does)."""
+    setup = triangle_setup(pos_clip, tri)
+    corners = pos_clip[:, tri.long()]
+    _, counts, _ = bin_triangles(corners, setup.det, resolution, tile_hw, tri.shape[0])
+    k = max(128, -(-int(counts.max()) // 128) * 128)
+    idx, counts, overflow = bin_triangles(corners, setup.det, resolution, tile_hw, k)
+    if int(overflow):
+        raise RuntimeError(f"{int(overflow)} (tile, triangle) pairs dropped at K={k}")
+    return setup.coef.contiguous(), idx, counts
+
+
+def check_raster_ids(coef: torch.Tensor, tile_idx: torch.Tensor, counts: torch.Tensor,
+                     resolution, tile_hw, reps: int = 0) -> Dict[str, object]:
+    """K8 against ``raster_ids_binned_plain`` on the same inputs: ids
+    exactly equal.  The bound reads lanes 0-12 of each triangle row the
+    tiles hold once per hypothesis, the valid bin entries and the counts,
+    and writes the padded frame's ids; its operations are ``_OPS['K8']``
+    per (hypothesis, pixel, slot) over the tiles' slots.  With ``reps``,
+    ms (CUDA events over ``reps`` launches after one warm-up) and
+    plain_ms (the plain twin's one call that the check makes, timed)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ids = raster_ids(coef, tile_idx, counts, resolution, tile_hw)
+    torch.cuda.synchronize()
+    start.record()
+    plain = raster_ids_binned_plain(coef, tile_idx, counts, resolution, tile_hw)
+    end.record()
+    torch.cuda.synchronize()
+    b, k = coef.shape[0], tile_idx.shape[1]
+    (h, w), (th, tw) = resolution, tile_hw
+    n = counts.long().clamp(max=k)
+    held = torch.arange(k, device=n.device)[None, :] < n[:, None]
+    slots = int(n.sum())
+    rows = int(torch.unique(tile_idx[held]).numel())
+    frame_px = -(-h // th) * th * (-(-w // tw) * tw)
+    row = dict(name="K8_raster_ids", ok=bool(torch.equal(ids, plain)),
+               max_abs_err=float((ids - plain).abs().max()),
+               tolerance="ids exactly equal", id_mismatches=int((ids != plain).sum()),
+               slots=slots, table_slots=tile_idx.numel(), fg_pixels=int((ids > 0).sum()),
+               k=k, fullest=int(n.max()),
+               bound=bound(4 * (b * 13 * rows + slots + counts.numel() + b * frame_px),
+                           _OPS["K8"] * b * slots * th * tw))
+    if reps:
+        row["ms"] = _time_ms(lambda: raster_ids(coef, tile_idx, counts, resolution, tile_hw),
+                             reps)
+        row["plain_ms"] = start.elapsed_time(end)
+    return row

@@ -15,9 +15,12 @@ compact table and K7 over the uniform one (:func:`_raster`).
   are chained (K1 -> K3 -> K5, backward K6 -> K4 -> K2, d_dplane to t_z
   by autograd).  The uniform table runs the full frame (K1 -> K7 -> K5,
   backward K6 -> K7 -> K2).
-- :func:`render_batch` (reference :79-380, its pallas branch): K1 -> K3
+- :func:`render_batch` (reference :79-380): on its pallas branch K1 -> K3
   or K7 with the plain shade and mask antialiasing, backward K4 or K7 ->
-  K2; the ``stacked`` and ``channels`` layouts.
+  K2; on its reference branch (``raster_impl`` 'reference', or 'auto' for
+  at most 256 triangles) the brute-force id search and the same shade,
+  plain torch throughout; the ``stacked`` and ``channels`` layouts,
+  ``return_rast_out`` and ``antialias_rgb``.
 - :func:`render_rgb_mask`, the gt render over a compact table sized to the
   bins exactly (``EXACT``), and :func:`compact_capacity`.
 
@@ -34,7 +37,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from diffdope_tpu_torch.convert import tensor
-from diffdope_tpu_torch.geometry import matmul44
+from diffdope_tpu_torch.geometry import matmul44, xfm_points
 from diffdope_tpu_torch.render.fused_loss import (
     DEPTH_LANE,
     MASK_LANE,
@@ -54,10 +57,16 @@ from diffdope_tpu_torch.render.planar import (
 )
 from diffdope_tpu_torch.render.pack_kernel import pack_binned_auto
 from diffdope_tpu_torch.render.raster import raster_compact, raster_gather_rows_binned
+from diffdope_tpu_torch.render.rasterize import AUTO_REFERENCE_MAX_TRIS, raster_ids_reference
+from diffdope_tpu_torch.render.setup_tris import triangle_setup_from_corners
 from diffdope_tpu_torch.render.shade import (
     antialias_rows,
+    attribute_planes,
+    pack_rows,
     pixel_ndc,
     shade_from_rows,
+    shade_rows,
+    silhouette_bits,
 )
 
 #: GPU raster tile (pixels): one thread per pixel, one block per tile
@@ -431,49 +440,101 @@ def max_tile_count(proj_cam, pos, pos_idx, mtx, resolution, device="cuda") -> in
     return int(counts.max())
 
 
-def _shade_and_aa(rows, ids, tz, resolution, n_ch: int):
-    """The plain shade and mask antialiasing of ``render_batch``
-    (reference :308-337): the antialiased mask, the n_ch colour planes and
-    the depth -(rotated z + t_z) (background -t_z)."""
+def _shade_and_aa(rows, ids, tz, resolution, n_ch: int, antialias_rgb: bool = False,
+                  with_rast: bool = False, shd=None):
+    """The plain shade and antialiasing of ``render_batch`` (reference
+    :308-337): the antialiased mask, the n_ch colour planes (antialiased
+    too with ``antialias_rgb``), the depth -(rotated z + t_z) (background
+    -t_z) and, ``with_rast``, the (B, H, W, 4) rast.  ``shd`` is the shade
+    of ``rows`` where the caller has it (``shade.shade_rows``)."""
     xy = pixel_ndc(resolution, device=rows.device)
-    shd = shade_from_rows(ids, rows, resolution, attr_channels=n_ch + 1, xy=xy)
+    if shd is None:
+        shd = shade_from_rows(ids, rows, resolution, attr_channels=n_ch + 1, xy=xy,
+                              stack_outputs=with_rast)
     fg = (ids > 0).to(rows.dtype)
     mask = antialias_rows(fg, ids, shd["zw"], rows, resolution, xy=xy)
+    colors = shd["attrs_list"][:n_ch]
+    if antialias_rgb:
+        colors = [antialias_rows(c, ids, shd["zw"], rows, resolution, xy=xy)
+                  for c in colors]
     depth = -(shd["attrs_list"][n_ch] + tz[:, None, None])
-    return (mask, *shd["attrs_list"][:n_ch], depth)
+    return (mask, *colors, depth) + ((shd["rast"],) if with_rast else ())
+
+
+def _reference_ids_rows(mesh: _Mesh, mtx: torch.Tensor, resolution, with_rast: bool):
+    """The reference branch of ``render_batch`` (reference :167-188): the
+    corners' clip positions by ``xfm_points``, their setup, attribute
+    planes of the colours and the rotated z, the packed rows, the brute-
+    force id search (no kernel) and the shade of the gathered rows."""
+    b, t = mtx.shape[0], mesh.t_count
+    mvp = matmul44(mesh.proj, mtx)
+    setup = triangle_setup_from_corners(xfm_points(mesh.pos_c, mvp).reshape(b, t, 3, 4))
+    p = mesh.pos_c
+    zrot = (mtx[:, 2, 0, None] * p[:, 0] + mtx[:, 2, 1, None] * p[:, 1]) \
+        + mtx[:, 2, 2, None] * p[:, 2]  # (B, 3T)
+    corner_vals = torch.cat([mesh.attrs.expand(b, t, 3, 3), zrot.reshape(b, t, 3, 1)],
+                            dim=-1)
+    packed = pack_rows(setup, silhouette_bits(setup.det, mesh.adj),
+                       attribute_planes(corner_vals, setup))
+    ids = raster_ids_reference(setup.coef, resolution)
+    shd = shade_rows(ids, packed, resolution, attr_channels=4, stack_outputs=with_rast)
+    return ids, shd
+
+
+def _impl(raster_impl: str, t_count: int) -> str:
+    """'reference' or 'pallas' for ``raster_impl``, 'auto' resolved by the
+    reference's rule (the brute force for at most 256 triangles)."""
+    if raster_impl == "auto":
+        return "reference" if t_count <= AUTO_REFERENCE_MAX_TRIS else "pallas"
+    if raster_impl not in ("reference", "pallas"):
+        raise ValueError(f"unknown raster_impl {raster_impl!r} (pallas | reference | auto)")
+    return raster_impl
 
 
 def _render(mesh: _Mesh, mtx: torch.Tensor, resolution,
             capacity: Optional[Union[int, str]], layout: str = "stacked",
-            cull: bool = False, max_tris: int = MAX_TRIS_PER_TILE) -> Dict[str, object]:
-    """:func:`render_batch` on a prepared mesh: K1 -> K3 (compact table) or
-    K7 (``capacity`` None: the uniform table), then the plain shade and
-    antialiasing; backward K4 or K7 -> K2.
+            cull: bool = False, max_tris: int = MAX_TRIS_PER_TILE,
+            impl: str = "pallas", return_rast_out: bool = False,
+            antialias_rgb: bool = False) -> Dict[str, object]:
+    """:func:`render_batch` on a prepared mesh.  ``impl`` 'pallas': K1 ->
+    K3 (compact table) or K7 (``capacity`` None: the uniform table), then
+    the plain shade and antialiasing; backward K4 or K7 -> K2.  'reference':
+    the brute-force branch (:func:`_reference_ids_rows`), plain torch
+    throughout; it bins nothing and carries no telemetry.
 
-    The shading is recomputed in the backward (``checkpoint``), as the
-    reference does (:339-348): its autograd residuals are dozens of
-    (B, H, W) temporaries, while recomputing them costs a few elementwise
-    passes; the raster kernel is not re-run."""
+    On the kernel branch the shading is recomputed in the backward
+    (``checkpoint``), as the reference does (:339-348): its autograd
+    residuals are dozens of (B, H, W) temporaries, while recomputing them
+    costs a few elementwise passes; the raster kernel is not re-run."""
     if layout not in ("stacked", "channels"):
         raise ValueError(f"unknown layout {layout!r} (stacked | channels)")
     if mesh.attrs is None or mesh.attrs.shape[-1] != 3:
         raise ValueError("render_batch requires 3-channel corner_colors or vtx_color")
     if mtx.dim() == 2:
         mtx = mtx[None]
-    tab = _table(mesh, mtx, resolution, capacity, None, cull, max_tris)
     h, w = resolution
-    ids, rows = _raster(tab, _padded(resolution), (0, 0, h, w))
-    ids, rows = ids[:, :h, :w], rows[:, :, :h, :w]
-    out = checkpoint(_shade_and_aa, rows, ids, mtx[:, 2, 3], tuple(resolution), 3,
-                     use_reentrant=False)
+    if impl == "reference":
+        ids, shd = _reference_ids_rows(mesh, mtx, resolution, return_rast_out)
+        out = _shade_and_aa(shd["rows"], ids, mtx[:, 2, 3], tuple(resolution), 3,
+                            antialias_rgb, return_rast_out, shd)
+        tel = {}
+    else:
+        tab = _table(mesh, mtx, resolution, capacity, None, cull, max_tris)
+        ids, rows = _raster(tab, _padded(resolution), (0, 0, h, w))
+        ids, rows = ids[:, :h, :w], rows[:, :, :h, :w]
+        out = checkpoint(_shade_and_aa, rows, ids, mtx[:, 2, 3], tuple(resolution), 3,
+                         antialias_rgb, return_rast_out, use_reentrant=False)
+        tel = {k: tab.telemetry[k].detach() for k in ("_bin_overflow", "_bin_need")}
     mask, colors, depth = out[0], out[1:4], out[4]
-    tel = {k: tab.telemetry[k].detach() for k in ("_bin_overflow", "_bin_need")}
+    rast = out[5] if return_rast_out else None
     if layout == "channels":
-        return {"mask": mask, "rgb": colors, "depth": depth, "ids": ids, **tel}
+        return {"mask": mask, "rgb": colors, "depth": depth, "ids": ids,
+                "rast_out": rast, **tel}
     return {
         "rgb": torch.stack(colors, dim=-1),
         "depth": depth,
         "mask": mask[..., None].expand(mask.shape + (3,)),
+        "rast_out": rast,
         **tel,
     }
 
@@ -491,23 +552,35 @@ def render_batch(
     max_tris_per_tile: int = MAX_TRIS_PER_TILE,
     cull_backfaces: bool = False,
     compact_total: Optional[int] = None,
+    raster_impl: str = "auto",
+    return_rast_out: bool = False,
+    antialias_rgb: bool = False,
     device="cuda",
 ) -> Dict[str, object]:
     """Render a mesh under B pose hypotheses ``mtx`` (B, 4, 4),
-    differentiably in mtx (the reference's pallas branch: the compact
-    table for ``compact_total`` slots, else the uniform-K table).
+    differentiably in mtx.
+
+    ``raster_impl`` 'pallas' is the reference's pallas branch on the
+    kernels: the compact table for ``compact_total`` slots, else the
+    uniform-K table; 'reference' its brute-force branch (no kernel, no
+    binning); 'auto' the brute force for at most 256 triangles.
+    ``antialias_rgb`` also antialiases the colours (the reference
+    antialiases only the mask).
 
     Returns, layout 'stacked': 'rgb' (B, H, W, 3), 'depth' (B, H, W),
     'mask' (B, H, W, 3) antialiased; layout 'channels': 'mask' (B, H, W),
     'rgb' a tuple of 3 (B, H, W), 'depth', 'ids' (B, H, W) int32 (+1,
-    0 = background).  Both carry '_bin_overflow', the (tile, triangle)
-    pairs dropped by the capacities, and '_bin_need', the slots a compact
-    table holding every pair would need."""
+    0 = background).  Both carry 'rast_out', the (B, H, W, 4) rast with
+    ``return_rast_out``, else None, and on the kernel branch
+    '_bin_overflow', the (tile, triangle) pairs dropped by the
+    capacities, and '_bin_need', the slots a compact table holding every
+    pair would need."""
     compact_total = _check_capacity(compact_total)
     mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors,
                  torch.device(device))
     return _render(mesh, tensor(mtx, device).reshape(-1, 4, 4), tuple(resolution),
-                   compact_total, layout, cull_backfaces, max_tris_per_tile)
+                   compact_total, layout, cull_backfaces, max_tris_per_tile,
+                   _impl(raster_impl, mesh.t_count), return_rast_out, antialias_rgb)
 
 
 @torch.no_grad()

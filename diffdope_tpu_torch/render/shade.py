@@ -1,10 +1,12 @@
 """Packed-row shading and gather-free antialiasing (plain torch).
 
 Counterpart of ``diffdope_tpu/render/shade.py`` (``shade_from_rows`` :141,
-``antialias_rows`` / ``_aa_pairs_rows`` :211-387) and of ``pixel_ndc``
-(``setup_tris.py:147``).  These are the plain, differentiable versions
-that the fused-loss kernels (render/fused_loss.py, csrc/fused_loss.cu) are
-held to, so every expression keeps the reference's f32 operation order.
+``antialias_rows`` / ``_aa_pairs_rows`` :211-387; the row packing of
+``render_batch``'s reference branch, ``attribute_planes`` to
+``shade_rows`` :47-138) and of ``pixel_ndc`` (``setup_tris.py:147``).
+These are the plain, differentiable versions that the fused-loss kernels
+(render/fused_loss.py, csrc/fused_loss.cu) are held to, so every
+expression keeps the reference's f32 operation order.
 
 The 32-lane row layout of one triangle (``shade.py:7-18``):
 
@@ -16,7 +18,8 @@ The 32-lane row layout of one triangle (``shade.py:7-18``):
                 silhouette edge)
     lane 15     reserved
     lane 16:28  attribute planes g_c, value_c = g_c . (X, Y, 1) / s
-    lane 28:32  conservative NDC x/y bounds (raster work gating only)
+    lane 28:32  conservative NDC x/y bounds (raster work gating only; 0 in
+                :func:`pack_rows`'s rows, which no kernel reads)
 
 Images are channel-planar: rows (B, 32, H, W), ids (B, H, W).
 
@@ -62,17 +65,88 @@ def ndc(pix: torch.Tensor, frame: int) -> torch.Tensor:
     return v / torch.full_like(v, float(frame)) - 1.0
 
 
+def attribute_planes(corner_vals: torch.Tensor, setup) -> torch.Tensor:
+    """Per-triangle interpolation planes of per-corner attribute values
+    (``shade.py:47-60``): (B, T, C, 3) vectors g_c with value = g_c . (X,
+    Y, 1) / s.  ``corner_vals`` is (T, 3, C) or (B, T, 3, C), ``setup`` a
+    ``setup_tris.TriangleSetup``; the sum over the corners runs in a fixed
+    order (true float32, the reference's ``precision="highest"``)."""
+    c = [setup.c0, setup.c1, setup.c2]  # (B, T, 3) each
+    vals = [corner_vals[..., k, :, None] for k in range(3)]  # (.., T, C, 1)
+    return (vals[0] * c[0][..., None, :] + vals[1] * c[1][..., None, :]) \
+        + vals[2] * c[2][..., None, :]
+
+
+def silhouette_bits(det: torch.Tensor, edge_adj: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B, T) float bitmask: bit m set iff the line chat_m = 0 borders a
+    silhouette, a boundary edge or a front/back facing transition
+    (``shade.py:63-82``).  Edge slot k joins corners (k, k+1) and lies on
+    line m = (k + 2) % 3; facing is sign(det)."""
+    if edge_adj is None:
+        return torch.full_like(det, 7.0)  # every edge blends
+    facing = det.detach() > 0.0
+    bits = torch.zeros(det.shape, dtype=torch.int32, device=det.device)
+    for k in range(3):
+        nb = edge_adj[:, k]
+        sil = (nb < 0)[None, :] | (facing[:, nb.clamp(min=0)] != facing)
+        bits = bits | (sil.to(torch.int32) << ((k + 2) % 3))
+    return bits.to(det.dtype)
+
+
+def pack_rows(setup, sil_bits: torch.Tensor,
+              planes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, T, 32) packed rows from a setup, the silhouette bits and the
+    (B, T, C, 3) attribute planes, C <= 5 (``shade.py:85-108``): lane 13
+    the triangle index, 14 the bits, 16 on the planes, the rest 0."""
+    coef = setup.coef
+    b, t, _ = coef.shape
+    tri_idx = torch.arange(t, dtype=coef.dtype, device=coef.device).expand(b, t)
+    base = torch.cat([coef[..., :13], tri_idx[..., None], sil_bits[..., None],
+                      coef[..., 15:16]], dim=-1)
+    if planes is None:
+        return torch.cat([base, coef.new_zeros((b, t, PACKED_WIDTH - 16))], dim=-1)
+    flat = planes.reshape(b, t, -1)
+    pad = PACKED_WIDTH - 16 - flat.shape[-1]
+    if pad < 0:
+        raise ValueError("too many attribute planes for the 32-lane row")
+    return torch.cat([base, torch.nn.functional.pad(flat, (0, pad))], dim=-1)
+
+
+def shade_rows(
+    ids: torch.Tensor,
+    packed: torch.Tensor,
+    resolution: Tuple[int, int],
+    attr_channels: int = 0,
+    stack_outputs: bool = False,
+) -> Dict[str, object]:
+    """One row gather by triangle id, then :func:`shade_from_rows`
+    (``shade.py:111-138``): ids (B, H, W) (+1, 0 = background), packed
+    (B, T, 32), differentiable.  The dict also holds 'rows', the gathered
+    rows channel-planar (B, 32, H, W), zero on background."""
+    b = ids.shape[0]
+    idx = (ids.long() - 1).clamp(min=0).reshape(b, -1, 1)
+    rows = packed.gather(1, idx.expand(-1, -1, PACKED_WIDTH))
+    rows = torch.where((ids > 0).reshape(b, -1, 1), rows, torch.zeros_like(rows))
+    rows = rows.permute(0, 2, 1).reshape((b, PACKED_WIDTH) + tuple(ids.shape[1:]))
+    out = shade_from_rows(ids, rows, resolution, attr_channels,
+                          stack_outputs=stack_outputs)
+    out["rows"] = rows
+    return out
+
+
 def shade_from_rows(
     ids: torch.Tensor,
     rows: torch.Tensor,
     resolution: Tuple[int, int],
     attr_channels: int = 0,
     xy: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    stack_outputs: bool = False,
 ) -> Dict[str, object]:
-    """Shading math on gathered rows (``shade.py:141-204``, unstacked).
+    """Shading math on gathered rows (``shade.py:141-204``).
 
     Returns {'zw', 's', 'attrs_list'}: each (B, H, W); attributes and zw
-    are 0 on background.
+    are 0 on background.  ``stack_outputs`` adds 'rast' (B, H, W, 4), the
+    nvdiffrast-style (u, v, z/w, id), zero on background.
     """
     x, y = pixel_ndc(resolution, device=rows.device) if xy is None else xy
     fgf = ids > 0
@@ -92,11 +166,15 @@ def shade_from_rows(
         g1 = rows[:, 17 + 3 * c]
         g2 = rows[:, 18 + 3 * c]
         vals.append(torch.where(fgf, (g0 * x + g1 * y + g2) / s_safe, zero))
-    return {
+    out = {
         "zw": torch.where(fgf, zw, zero),
         "s": s_safe,
         "attrs_list": vals,
     }
+    if stack_outputs:
+        rast = torch.stack([e1 / s_safe, e2 / s_safe, zw, ids.to(rows.dtype)], dim=-1)
+        out["rast"] = torch.where(fgf[..., None], rast, torch.zeros_like(rast))
+    return out
 
 
 def antialias_rows(

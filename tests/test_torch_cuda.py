@@ -1,6 +1,6 @@
-"""The port's hand kernels (K1-K7, and K5/K6 with the depth lane) against
-their plain torch versions, and a DiffDope run on the card against the
-same run on the CPU.
+"""The port's hand kernels (K1-K8, and K5/K6 with the depth lane) against
+their plain torch versions, a DiffDope run and the ``rasterize`` op on the
+card against the same on the CPU.
 
 A CUDA kernel has no CPU mode, so every test here needs a card and skips
 without one.  On a machine with a card (the repo's conftest imports jax,
@@ -15,7 +15,13 @@ import torch
 
 from diffdope_tpu_torch import kernels
 from diffdope_tpu_torch.bench import bench_problem, distinct_poses
-from diffdope_tpu_torch.kernels.check import check_kernels, check_pack
+from diffdope_tpu_torch.geometry import matmul44, xfm_points
+from diffdope_tpu_torch.kernels.check import (
+    check_kernels,
+    check_pack,
+    check_raster_ids,
+    raster_ids_inputs,
+)
 from diffdope_tpu_torch.optimize import pose_matrix
 
 pytestmark = pytest.mark.cuda
@@ -145,3 +151,45 @@ def test_diffdope_on_card_matches_cpu(cuda, fused):
     for k, v in on_cpu.losses_values.items():
         np.testing.assert_allclose(on_card.losses_values[k][0], v[0], rtol=1e-5, err_msg=k)
     np.testing.assert_allclose(on_card.mtx_history, on_cpu.mtx_history, atol=1e-5)
+
+
+def _pos_clip(problem, params, device):
+    s = problem["scene"]
+    mtx, _, _ = pose_matrix({k: v.to(device) for k, v in params.items()})
+    proj = torch.as_tensor(s["proj"], device=device)
+    return xfm_points(torch.as_tensor(s["pos"], device=device), matmul44(proj, mtx))
+
+
+@pytest.mark.parametrize("tile", [(16, 32), (32, 128)])
+def test_k8_matches_plain_on_card(problem, params, tile):
+    """K8 against its plain twin on the bins of three distinct poses, one
+    launch per call; (32, 128) pads the 96-wide frame."""
+    tri = torch.as_tensor(problem["scene"]["tri"], device="cuda").long()
+    inputs = raster_ids_inputs(_pos_clip(problem, params, "cuda"), tri, RES, tile)
+    kernels.reset_launches()
+    row = check_raster_ids(*inputs, RES, tile)
+    assert kernels.launches["raster_ids"] == 1, kernels.launches
+    assert row["ok"] and row["fg_pixels"] > 1000, row
+
+
+def test_rasterize_on_card_matches_cpu(problem, params):
+    """The rasterize op through K8 on the card and through its plain twin on
+    the CPU: the same setup bits, so ids, rast and rast_db equal; the
+    gradient to the clip positions rtol 2e-4, atol 1e-6 plus 1e-6 of the
+    vertex's largest component (the gathers' backward adds with atomics on
+    the card, and a component that sums cancelling per-pixel terms keeps
+    their rounding: tests/test_torch_rasterize.py)."""
+    from diffdope_tpu_torch.render.rasterize import rasterize
+
+    tri = problem["scene"]["tri"]
+    out = {}
+    for device in ("cuda", "cpu"):
+        pos_clip = _pos_clip(problem, params, device).detach().requires_grad_(True)
+        rast, db = rasterize(pos_clip, tri, RES, impl="pallas")
+        (grad,) = torch.autograd.grad((rast[..., :3].sum() + 1e-3 * db.sum()), pos_clip)
+        out[device] = (rast.detach().cpu(), db.detach().cpu(), grad.cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    got, want = out["cuda"][2].numpy(), out["cpu"][2].numpy()
+    scale = np.abs(want).max(axis=-1, keepdims=True)
+    assert np.all(np.abs(got - want) <= 1e-6 + 2e-4 * np.abs(want) + 1e-6 * scale)

@@ -13,8 +13,10 @@ REF = PKG.parent / "diffdope_tpu"
 PORTED = (
     "camera.py", "config.py", "diffdope.py", "geometry.py", "image.py",
     "losses.py", "mesh.py", "metrics.py", "object3d.py", "optimize.py",
-    "testing.py", "render/fused_loss.py", "render/pack_kernel.py",
-    "render/pipeline.py", "render/planar.py", "render/shade.py",
+    "testing.py", "render/antialias.py", "render/fused_loss.py",
+    "render/interpolate.py", "render/pack_kernel.py", "render/pipeline.py",
+    "render/planar.py", "render/rasterize.py", "render/setup_tris.py",
+    "render/shade.py",
 )
 
 
@@ -62,6 +64,7 @@ def test_torch_wrappers_refuse_unsupported_devices():
     import torch
 
     from diffdope_tpu_torch.render import fused_loss, pack_kernel, raster
+    from diffdope_tpu_torch.render.rasterize import raster_ids
 
     rows = torch.zeros((1, 32, 16, 16), device="meta")
     ids = torch.zeros((1, 16, 16), dtype=torch.int32, device="meta")
@@ -83,3 +86,14 @@ def test_torch_wrappers_refuse_unsupported_devices():
         pack_kernel.pack_fwd(mvpm, tab, torch.zeros((1, 8), device="meta"), 3)
     with pytest.raises(ValueError, match="unsupported device"):
         pack_kernel.pack_bwd(mvpm, tab, torch.zeros((1, 32, 8), device="meta"), 3)
+    with pytest.raises(ValueError, match="unsupported device"):  # K8
+        raster_ids(torch.zeros((1, 4, 16), device="meta"),
+                   torch.zeros((1, 128), dtype=torch.int32, device="meta"),
+                   torch.zeros(1, dtype=torch.int32, device="meta"), (16, 16), (16, 16))
+
+
+def test_torch_texture_says_it_is_not_ported():
+    import diffdope_tpu_torch as tdd
+
+    with pytest.raises(NotImplementedError, match="queue 1"):
+        tdd.texture(None, None)

@@ -204,3 +204,24 @@ def port_fused_loss(device="cpu", use_depth=False, uniform=False):
         use_rgb=True, use_depth=use_depth, use_mask=True, edge_adj=sc["edge_adj"],
         vtx_color=sc["vtx_color"], compact_total=total, device=device,
     )
+
+
+def random_clip_scene(seed=42, n_tri=40, batch=2, behind=False):
+    """Clip positions (batch, 3*n_tri, 4) and triangles (n_tri, 3) of small
+    triangles across the screen with varied depth (w > 0), as in
+    tests/test_rasterize.py, the hypotheses 1% apart; triangle 5 repeats an
+    index (degenerate); ``behind`` puts a corner of triangle 7 behind the
+    camera (w < 0).  For the API ops' parity tests."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-0.9, 0.9, size=(n_tri, 1, 2))
+    offs = rng.uniform(-0.25, 0.25, size=(n_tri, 3, 2))
+    v2d = (base + offs).reshape(-1, 2)
+    z = rng.uniform(-0.8, 0.8, size=(3 * n_tri,))
+    w = rng.uniform(0.5, 2.0, size=(3 * n_tri,))
+    if behind:
+        w[21] = -0.7
+    pos = np.stack([v2d[:, 0] * w, v2d[:, 1] * w, z * w, w], axis=1)[None]
+    pos = np.concatenate([pos * (1.0 + 0.01 * i) for i in range(batch)], axis=0)
+    tri = np.arange(3 * n_tri, dtype=np.int32).reshape(n_tri, 3)
+    tri[5] = [15, 15, 16]
+    return pos.astype(np.float32), tri
