@@ -65,12 +65,41 @@ result line):
 10. ``DiffDope`` with ``tpu.raster_impl: auto`` on icosphere(1) (80
    triangles, vertex colours) at 960x540, B=8, 5 SGD steps (``AUTO_HYPER``):
    auto picks the brute-force rasterizer (the unfused route, no kernel
-   launched) and the loss falls.
+   launched) and the loss falls;
+11. ``DiffDope`` at the default configuration under ``DD_RASTER=v3`` (the
+   planar route: K10, then K5/K6; no pack kernel, no bins): K10 and K5/K6
+   launched and nothing else, the criteria of phase 5 with no re-run but
+   for the total loss, where most hypotheses' losses and the chosen one's
+   must fall (at the configuration's loss scales one hypothesis overshoots
+   on every run without the cull, which v3 never applies:
+   ``tools/port_planar_trajectories.py``), K10
+   and K5/K6 held to their plain versions on the kept run's table at its
+   last poses, where K10's ids and rows also equal, bit for bit, those of
+   K7 over exact per-tile bins gathered from the same table (the
+   reference's v3 = v2 contract); its unfused route's step-0 logs (one
+   ``render_batch`` through K10) equal the fused run's at rtol 1e-5;
+12. the same under ``DD_BINNED=0`` (K7 over the bins gathered from the
+   planar table, the inverted-bin backward): K7 and K5/K6 launched, no
+   K1-K4; the criteria of phase 5; K7 and K5/K6 held on its tables; no
+   triangle in more tiles than the inverted map holds (``max_occ``) at
+   any step; its step-0 logs equal phase 5's and phase 11's at rtol 1e-5,
+   or, where its cull changes the render, phase 11's equal its own with
+   the cull off;
+13. K9, the v1 raster + row gather, at phase 9's frame and poses (tile
+   32x128, K from the fullest tile): ``xfm_points`` -> ``triangle_setup``
+   -> ``bin_triangles`` -> ``pack_rows`` -> ``raster_gather_rows`` -> the
+   shaded rgb and antialiased mask -> L1 against the gt -> the pose
+   gradient; K9 forward and backward launched once each, its ids equal
+   the brute force's on the same coefficients, its rows a plain gather's
+   bit for bit, the pose gradients the plain-gather path's at rtol 2e-4,
+   atol 1e-6; forward and backward times and peak memory printed.
 
 K8 (the API's binned id search) is also held to its plain version at the
 test scene, at tiles (16, 32) and (32, 128) over a 70x100 frame, and at
 the bench shapes (B=64, 400x400, icosphere(5), tile (32, 128), K from the
-counts), where both are timed.
+counts), where both are timed; so are K9 (the same inputs, with packed
+rows) and K10 (and K7 on the 'v2' route's gathered bins) on the planar
+variants of the test scene's and the bench problem's losses.
 
 The line before the last is the card; before it, one JSON object with a
 row per kernel.  The last line is ``{"ok": true, "device": {...}}``.
@@ -130,6 +159,9 @@ API_TILE = (32, 128)
 #: tests' bounds): at the configured [0.01, 100] five steps overshoot on the
 #: large scales and the total loss ends above its start
 AUTO_HYPER = {"nb_iterations": 4, "learning_rates_bound": [0.5, 2.0]}
+#: the planar routes' launch counters (phases 11 and 12)
+V3_FUSED = ("raster_v3_fwd", "raster_v3_bwd", "loss_fwd", "loss_bwd")
+V2_FUSED = ("raster_uniform_fwd", "raster_uniform_bwd", "loss_fwd", "loss_bwd")
 #: the DiffDope phases' init: the configured pose moved by this OpenCV-frame
 #: translation (mm, before the 0.01 scale) and rotated by this many degrees
 #: about ``axis``; the default SGD configuration recovers it (the phase
@@ -248,36 +280,45 @@ def add_to(points, mtx_gt, m) -> float:
     return float(add_metric(points.double(), m[:3, :3], m[:3, 3], g[:3, :3], g[:3, 3]))
 
 
-def diffdope_phase(fused: bool, gpu: str, route: str, tpu=None, losses=None):
+def diffdope_phase(fused: bool, gpu: str, route: str, tpu=None, losses=None,
+                   raster=None):
     """One default-configuration DiffDope run on the card, then the kernels
     of its route against their plain versions on its tables; returns the
     session, its launch counts, and the ADD of the init and of
-    get_pose()."""
+    get_pose().  ``raster`` 'v3' or 'v2' selects that planar route (its
+    environment in force for the run and the checks; the scene is rendered
+    before, on the default route)."""
     import numpy as np
     import torch
 
     from diffdope_tpu_torch import kernels
+    from diffdope_tpu_torch.bench import raster_env
+    from diffdope_tpu_torch.kernels.check import check_kernels
 
     dd, points, mtx_gt = diffdope_session(fused, tpu=tpu, losses=losses)
     h, w = dd.resolution
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    dd.run_optimization()
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    with raster_env(raster):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        dd.run_optimization()
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    # the kernels at this phase's shapes: the kept run's tables (its final
-    # capacities and crop, or the unfused route's full frame) at its last
-    # poses, which differ per hypothesis
-    fn = dd._make_fused_loss_fn(dd.gt_tensors) if fused else dd._make_render_fn()
-    mtx_last = torch.as_tensor(dd.mtx_history[-1], device="cuda")
-    d_sums = torch.as_tensor(np.random.default_rng(2).uniform(0.5, 2.0, (dd.batchsize, 3)),
-                             dtype=torch.float32, device="cuda")
-    for row in check_all(fn, mtx_last, d_sums):
+        # the kernels at this phase's shapes: the kept run's tables (its
+        # final capacities and crop, or the unfused route's full frame) at
+        # its last poses, which differ per hypothesis
+        fn = dd._make_fused_loss_fn(dd.gt_tensors) if fused else dd._make_render_fn()
+        mtx_last = torch.as_tensor(dd.mtx_history[-1], device="cuda")
+        d_sums = torch.as_tensor(
+            np.random.default_rng(2).uniform(0.5, 2.0, (dd.batchsize, 3)),
+            dtype=torch.float32, device="cuda")
+        rows = (check_kernels(fn, mtx_last, d_sums) if raster
+                else check_all(fn, mtx_last, d_sums))
+    for row in rows:
         print(f"DiffDope {route} shapes {row['name']}: ok={row['ok']} "
               f"max_abs_err={row['max_abs_err']:.3e} ({row['tolerance']}){slots(row)}",
               flush=True)
@@ -367,7 +408,15 @@ def same_slots(fn_compact, fn_uniform, mtx) -> int:
     return n
 
 
-def check_diffdope(dd, route, add0, add1):
+def check_diffdope(dd, route, add0, add1, total_falls: bool = True):
+    """Phase 5's criteria on a kept run: no overflow or crop leak left, at
+    most one re-run, a finite loss that falls, and get_pose() closer to the
+    gt pose than the init.  ``total_falls`` False (phase 11) asks instead
+    that most hypotheses' losses fall and the chosen (step, hypothesis)
+    score below its hypothesis' start, and prints the total: at the default
+    configuration's loss scales (up to ~90 at base lr 20) one hypothesis
+    overshoots on every cull-free run, whose weighted total then ends above
+    its start (tools/port_planar_trajectories.py)."""
     telem = dd._result.telemetry or {}
     for key in ("_bin_overflow", "_crop_leak"):
         worst = int(telem[key].max()) if key in telem else 0
@@ -387,8 +436,18 @@ def check_diffdope(dd, route, add0, add1):
           f"{add1:.6f} (object units)", flush=True)
     if not bool(total.isfinite().all()):
         fail(f"DiffDope {route}: non-finite loss")
-    if not float(total[-1]) < float(total[0]):
+    if total_falls and not float(total[-1]) < float(total[0]):
         fail(f"DiffDope {route}: the loss did not fall")
+    if not total_falls:
+        per_hyp = sum(v for v in dd.losses_values.values())  # (steps, B)
+        step, hyp = dd._best_indices()
+        fell = int((per_hyp[-1] < per_hyp[0]).sum())
+        print(f"DiffDope {route}: {fell} of {per_hyp.shape[1]} hypotheses' losses fell "
+              f"(first {per_hyp[0].tolist()}, last {per_hyp[-1].tolist()}); the chosen "
+              f"step {step}, hypothesis {hyp}: {float(per_hyp[step, hyp]):.6f} from "
+              f"{float(per_hyp[0, hyp]):.6f}", flush=True)
+        if 2 * fell <= per_hyp.shape[1] or not per_hyp[step, hyp] < per_hyp[0, hyp]:
+            fail(f"DiffDope {route}: the hypotheses' losses did not fall")
     if not add1 < add0:
         fail(f"DiffDope {route}: get_pose() did not end closer to the gt pose")
 
@@ -575,6 +634,273 @@ def auto_phase(gpu):
         fail(f"DiffDope auto: the loss did not fall ({total.numpy()})")
 
 
+def k9_check(label, gpu, proj, mtx, pos, tri, colors, adj, resolution, tile_hw, reps=0):
+    """K9 forward and backward against their plain versions on the packed
+    rows and bins of the mesh at poses ``mtx``; fails on a disagreement.
+    Returns the two rows."""
+    import torch
+
+    from diffdope_tpu_torch.geometry import matmul44, xfm_points
+    from diffdope_tpu_torch.kernels.check import check_gather_rows, gather_rows_inputs
+
+    cuda = torch.device("cuda")
+    with torch.no_grad():
+        pos_clip = xfm_points(torch.as_tensor(pos, device=cuda),
+                              matmul44(torch.as_tensor(proj, device=cuda), mtx))
+        inputs = gather_rows_inputs(pos_clip, torch.as_tensor(tri, device=cuda).long(),
+                                    resolution, tile_hw,
+                                    torch.as_tensor(colors, device=cuda),
+                                    torch.as_tensor(adj, device=cuda).long())
+    rows = check_gather_rows(*inputs, resolution, tile_hw, reps)
+    for row in rows:
+        times = (f" kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+                 f"{row['bound'][0]:.4f} ms ({row['bound'][1]}) [{gpu}]" if reps else "")
+        print(f"{label} {row['name']} tile {tile_hw}, {resolution[1]}x{resolution[0]}, "
+              f"B={mtx.shape[0]}: ok={row['ok']} max_abs_err={row['max_abs_err']:.3e} "
+              f"({row['tolerance']}){slots(row)}{times}", flush=True)
+        if not row["ok"]:
+            fail(f"{row['name']} disagrees with its plain version ({label}, tile "
+                 f"{tile_hw}): {row}")
+    return rows
+
+
+def planar_checks(label, gpu, problem, mtx, d_sums, reps=0):
+    """K10 ('v3') or K7 over the gathered bins ('v2'), and K5/K6, against
+    their plain versions on a planar bench problem's tables at ``mtx``;
+    fails on a disagreement.  Returns the rows by name."""
+    from diffdope_tpu_torch.kernels.check import check_kernels
+
+    out = {}
+    for row in check_kernels(problem["fn"], mtx, d_sums, reps):
+        times = (f" kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+                 f"{row['bound'][0]:.4f} ms ({row['bound'][1]}) [{gpu}]" if reps else "")
+        extra = "".join(f", {key} {row[key]}" for key in ("exact_slots", "occupancy")
+                        if key in row)
+        print(f"{label} {row['name']}: ok={row['ok']} max_abs_err={row['max_abs_err']:.3e} "
+              f"({row['tolerance']}){slots(row)}{extra}{times}", flush=True)
+        if not row["ok"]:
+            fail(f"{row['name']} disagrees with its plain version ({label}): {row}")
+        out[row["name"]] = row
+    return out
+
+
+def v3_equals_v2(fn, mtx) -> int:
+    """K10's ids and rows on ``fn``'s planar table at poses ``mtx`` against
+    K7's over exact per-tile bins gathered from the same table (no
+    capacity, no cull): fails unless equal bit for bit; returns the
+    foreground pixels compared."""
+    import torch
+
+    from diffdope_tpu_torch.render import pipeline
+    from diffdope_tpu_torch.render.gather_rows import invert_bins
+    from diffdope_tpu_torch.render.planar import bin_triangles_planar
+    from diffdope_tpu_torch.render.raster import raster_gather_rows_v2
+    from diffdope_tpu_torch.render.raster_v3 import raster_gather_rows_v3
+
+    res, t_count = fn.roi[2:], fn.mesh.t_count
+    with torch.no_grad():
+        packed, cp, det = pipeline._planar_pack(fn.mesh, mtx)
+        _, counts, _ = bin_triangles_planar(cp, det, res, pipeline.TILE_HW, t_count)
+        k = -(-int(counts.max()) // 128) * 128
+        idx, counts, overflow = bin_triangles_planar(cp, det, res, pipeline.TILE_HW, k)
+        if int(overflow):
+            fail(f"exact bins dropped {int(overflow)} pairs at K={k}")
+        inv = invert_bins(idx, t_count, "auto")
+        ids2, rows2 = raster_gather_rows_v2(packed, idx, counts, *inv, res,
+                                            pipeline.TILE_HW, padded=True)
+        ids3, rows3 = raster_gather_rows_v3(packed, res, pipeline.TILE_HW, padded=True)
+    if not (torch.equal(ids2, ids3) and torch.equal(rows2, rows3)):
+        fail(f"K10 and K7 over the gathered bins differ: {int((ids2 != ids3).sum())} ids, "
+             f"rows max {float((rows2 - rows3).abs().max()):.3e}")
+    return int((ids3 > 0).sum())
+
+
+def planar_phases(gpu, step0_f):
+    """Phases 11 and 12: DiffDope under DD_RASTER=v3 and DD_BINNED=0;
+    returns their launch counts."""
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch.bench import raster_env
+    from diffdope_tpu_torch.render.pipeline import MAX_OCC
+
+    dd3, launches3, add0, add1 = diffdope_phase(True, gpu, "v3", raster="v3")
+    check_launches("DiffDope v3", launches3, V3_FUSED, set(launches3) - set(V3_FUSED))
+    check_diffdope(dd3, "v3", add0, add1, total_falls=False)
+    if dd3.last_run_stats["recovery_reruns"]:
+        fail("DiffDope v3: the route bins nothing, yet the run was re-run")
+    mtx_last = torch.as_tensor(dd3.mtx_history[-1], device="cuda")
+    with raster_env("v3"):
+        fn3 = dd3._make_fused_loss_fn(dd3.gt_tensors)
+        n_fg = v3_equals_v2(fn3, mtx_last)
+        print(f"DiffDope v3: at the last poses K10's ids and rows equal K7's over exact "
+              f"bins of the same table bit for bit ({n_fg} foreground px)", flush=True)
+        unfused = unfused_step0(dd3)
+    step0_3 = {k: v[0] for k, v in dd3.losses_values.items()}
+    agree_step0("DiffDope v3 unfused (render_batch through K10) against fused", unfused,
+                step0_3, sorted(step0_3))
+    del dd3, fn3
+    torch.cuda.empty_cache()
+
+    dd2, launches2, add0, add1 = diffdope_phase(True, gpu, "v2", raster="v2")
+    check_launches("DiffDope v2", launches2, V2_FUSED, set(launches2) - set(V2_FUSED))
+    check_diffdope(dd2, "v2", add0, add1)
+    occ = dd2._telemetry_max(dd2._result, "_bin_occupancy")
+    with raster_env("v2"):
+        fn2 = dd2._make_fused_loss_fn(dd2.gt_tensors)
+        last = int(fn2.planar(torch.as_tensor(dd2.mtx_history[-1], device="cuda"))
+                   .telemetry["_bin_occupancy"])
+    print(f"DiffDope v2: bin occupancy at most {occ} a step, {last} at the last poses "
+          f"(inverted map width {MAX_OCC})", flush=True)
+    if not 0 < occ <= MAX_OCC or last > MAX_OCC:
+        fail(f"DiffDope v2: a triangle occurs in more than {MAX_OCC} tiles: its gradient "
+             "is truncated")
+    step0_2 = {k: v[0] for k, v in dd2.losses_values.items()}
+    agree_step0("DiffDope v2 against fused (phase 5)", step0_2, step0_f, sorted(step0_f))
+    if all(np.allclose(step0_3[k], step0_2[k], rtol=1e-5, atol=0.0) for k in step0_2):
+        agree_step0("DiffDope v3 against v2", step0_3, step0_2, sorted(step0_2))
+    else:
+        # v3 culls no back face; where phase 12's cull (tpu.cull_backfaces
+        # auto) changes the render, its step-0 loss on the same table with
+        # the cull off must equal v3's
+        print(f"DiffDope v3 against v2: step-0 logs differ ({step0_3} against {step0_2}); "
+              "the same on phase 12's table with the cull off:", flush=True)
+        dd2.cfg.tpu.cull_backfaces = False
+        with raster_env("v2"):
+            fn_off = dd2._make_fused_loss_fn(dd2.gt_tensors)
+            with torch.no_grad():
+                _, logs = fn_off(torch.as_tensor(dd2.mtx_history[0], device="cuda"))
+        agree_step0("DiffDope v3 against v2 without the cull", step0_3,
+                    {k: logs[k].cpu().numpy() for k in step0_3}, sorted(step0_3))
+    return launches3, launches2
+
+
+def k9_chain(mesh_t, params, k: int, gt, brute: bool):
+    """One pass of phase 13's chain at poses ``params``: xfm_points ->
+    triangle_setup -> bin_triangles (K ``k``) -> pack_rows -> K9 (or, with
+    ``brute``, the brute-force ids and a plain gather of the rows) -> the
+    shaded rgb and the antialiased mask -> L1 against gt -> the pose
+    gradient; returns ids, rows, the gradients, the loss and the forward
+    and backward seconds (synchronized)."""
+    import torch
+
+    from diffdope_tpu_torch.geometry import matmul44, xfm_points
+    from diffdope_tpu_torch.optimize import pose_matrix
+    from diffdope_tpu_torch.render.gather_rows import invert_bins, raster_gather_rows
+    from diffdope_tpu_torch.render.rasterize import raster_ids_reference
+    from diffdope_tpu_torch.render.setup_tris import bin_triangles, triangle_setup
+    from diffdope_tpu_torch.render.shade import (
+        antialias_rows,
+        attribute_planes,
+        pack_rows,
+        shade_from_rows,
+        shade_rows,
+        silhouette_bits,
+    )
+
+    proj, pos, tri, colors, adj = mesh_t
+    res = tuple(gt["rgb"].shape[:2])
+    p = {name: v.detach().clone().requires_grad_(True) for name, v in params.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mtx, _, _ = pose_matrix(p)
+    pos_clip = xfm_points(pos, matmul44(proj, mtx))
+    setup = triangle_setup(pos_clip, tri)
+    b, t = setup.det.shape
+    corner_vals = torch.cat([colors[tri].expand(b, t, 3, 3), pos_clip[:, tri, 2:3]], dim=-1)
+    packed = pack_rows(setup, silhouette_bits(setup.det, adj),
+                       attribute_planes(corner_vals, setup))
+    if brute:
+        ids = raster_ids_reference(setup.coef.detach(), res)
+        rows = shade_rows(ids, packed, res)["rows"]
+    else:
+        idx, counts, overflow = bin_triangles(pos_clip[:, tri].detach(), setup.det.detach(),
+                                              res, API_TILE, k)
+        if int(overflow):
+            fail(f"phase 13: bin_triangles dropped {int(overflow)} pairs at K={k}")
+        ids, rows = raster_gather_rows(packed, idx, counts, *invert_bins(idx, t, "auto"),
+                                       res, API_TILE)
+    shd = shade_from_rows(ids, rows, res, attr_channels=3)
+    mask = antialias_rows((ids > 0).to(rows.dtype), ids, shd["zw"], rows, res)
+    rgb = torch.stack(shd["attrs_list"], dim=-1)
+    loss = (rgb - gt["rgb"]).abs().mean() + (mask[..., None] - gt["mask"]).abs().mean()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(loss, list(p.values()))
+    torch.cuda.synchronize()
+    return dict(ids=ids, rows=rows.detach(), loss=float(loss.detach()),
+                grads=dict(zip(p, grads)), fwd_s=t1 - t0, bwd_s=time.perf_counter() - t1)
+
+
+def k9_phase(gpu):
+    """Phase 13: K9 on the API-layout chain at phase 9's frame and poses;
+    returns K9's launches on one pass."""
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch import kernels
+    from diffdope_tpu_torch.bench import distinct_poses
+    from diffdope_tpu_torch.optimize import pose_matrix
+
+    dd, _, _ = diffdope_session(True)
+    mesh = dd.object3d.mesh
+    res = tuple(dd.resolution)
+    cuda = torch.device("cuda")
+    mesh_t = (torch.as_tensor(np.asarray(dd.camera.cam_proj, np.float32), device=cuda),
+              torch.as_tensor(mesh.pos, device=cuda),
+              torch.as_tensor(mesh.pos_idx, device=cuda).long(),
+              torch.as_tensor(mesh.vtx_color, device=cuda),
+              torch.as_tensor(mesh.edge_adj, device=cuda).long())
+    gt_np = dd.gt_tensors
+    gt = {"rgb": torch.as_tensor(gt_np["rgb"], device=cuda),
+          "mask": torch.as_tensor(gt_np["segmentation"][..., :1], device=cuda)}
+    params = distinct_poses(dd.object3d.initial_params(dd.batchsize, cuda), 1e-3)
+    mtx, _, _ = pose_matrix(params)
+    # K9 on the chain's own inputs, timed; K from the fullest tile
+    fwd, _ = k9_check("phase 13 shapes", gpu, dd.camera.cam_proj, mtx.detach(), mesh.pos,
+                      mesh.pos_idx, mesh.vtx_color, mesh.edge_adj, res, API_TILE, reps=20)
+    k = fwd["k"]
+    print(f"phase 13: {res[1]}x{res[0]}, B={dd.batchsize}, {len(mesh.pos_idx)} triangles, "
+          f"tile {API_TILE}, K {k}, no pair dropped", flush=True)
+
+    k9_chain(mesh_t, params, k, gt, brute=False)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    run = k9_chain(mesh_t, params, k, gt, brute=False)
+    launches = dict(kernels.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase 13 (K9): forward {run['fwd_s'] * 1e3:.4f} ms, backward "
+          f"{run['bwd_s'] * 1e3:.4f} ms, peak {peak_gib:.3f} GiB, loss {run['loss']:.6f} "
+          f"[{gpu}]", flush=True)
+    print(f"phase 13 launches: {launches}", flush=True)
+    on = ("gather_rows_fwd", "gather_rows_bwd")
+    check_launches("phase 13", launches, on, set(launches) - set(on))
+    if launches["gather_rows_fwd"] != 1 or launches["gather_rows_bwd"] != 1:
+        fail(f"phase 13: K9 launched {launches} for one pass")
+
+    torch.cuda.reset_peak_memory_stats()
+    ref = k9_chain(mesh_t, params, k, gt, brute=True)
+    print(f"phase 13 (brute force + plain gather): forward {ref['fwd_s'] * 1e3:.4f} ms, "
+          f"backward {ref['bwd_s'] * 1e3:.4f} ms, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB [{gpu}]", flush=True)
+    n_fg = int((run["ids"] > 0).sum())
+    print(f"phase 13: K9 against the brute force: {int((run['ids'] != ref['ids']).sum())} "
+          f"of {run['ids'].numel()} ids differ ({n_fg} foreground)", flush=True)
+    if not torch.equal(run["ids"], ref["ids"]) or n_fg == 0:
+        fail("phase 13: K9's ids differ from the brute force's")
+    if not torch.equal(run["rows"], ref["rows"]):
+        fail("phase 13: K9's rows differ from a plain gather's")
+    for name, g in run["grads"].items():
+        want = ref["grads"][name].cpu().numpy()
+        if not np.allclose(g.cpu().numpy(), want, rtol=2e-4, atol=1e-6):
+            fail(f"phase 13: the pose gradient '{name}' {g.cpu().numpy()} differs from the "
+                 f"plain-gather path's {want} beyond rtol 2e-4, atol 1e-6")
+    print(f"phase 13: ids and rows equal, pose gradients agree at rtol 2e-4, atol 1e-6; "
+          f"loss {run['loss']:.6f} / {ref['loss']:.6f}", flush=True)
+    return launches["gather_rows_fwd"]
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -631,6 +957,13 @@ def main() -> None:
     for tile in ((16, 32), API_TILE):
         k8_check("test scene", gpu, k8_scene["proj"], k8_mtx, k8_scene["pos"],
                  k8_scene["tri"], k8_res, tile)
+        k9_check("test scene", gpu, k8_scene["proj"], k8_mtx, k8_scene["pos"],
+                 k8_scene["tri"], k8_scene["vtx_color"], k8_scene["edge_adj"], k8_res, tile)
+    # K10 and K7 over the gathered bins on the planar routes, same frame
+    for route in ("v3", "v2"):
+        planar_checks(f"test scene {route}", gpu,
+                      bench_problem(k8_res, subdiv=2, batch=3, device="cuda", route=route),
+                      k8_mtx, d_small)
 
     problem = bench_problem((400, 400), subdiv=5, batch=64, device="cuda")
     print(f"bench problem: compact capacity {problem['compact_total']} slots, "
@@ -669,10 +1002,23 @@ def main() -> None:
                 bench_rows[row["name"]] = row
         del extra
         torch.cuda.empty_cache()
-    # K8 at the bench shapes: the bench scene's mesh at its 64 distinct poses
+    # K8 and K9 at the bench shapes: the bench scene's mesh at its 64 distinct
+    # poses
     sc = problem["scene"]
     bench_rows["K8_raster_ids"] = k8_check("bench shapes", gpu, sc["proj"], mtx, sc["pos"],
                                            sc["tri"], (400, 400), API_TILE, reps=20)
+    for row in k9_check("bench shapes", gpu, sc["proj"], mtx, sc["pos"], sc["tri"],
+                        sc["vtx_color"], sc["edge_adj"], (400, 400), API_TILE, reps=20):
+        bench_rows[row["name"]] = row
+    torch.cuda.empty_cache()
+    # K10 on the bench problem's 'v3' variant (the sorted table of its 20,480
+    # triangles)
+    v3 = bench_problem((400, 400), subdiv=5, batch=64, device="cuda", route="v3")
+    for name, row in planar_checks("bench shapes v3", gpu, v3, mtx, d_sums,
+                                   reps=20).items():
+        if name.startswith("K10"):
+            bench_rows[name] = row
+    del v3
     torch.cuda.empty_cache()
 
     # ---- the bench main path ------------------------------------------------
@@ -731,10 +1077,10 @@ def main() -> None:
     check_launches("DiffDope unfused", launches_u, COMPACT_FUSED[:4],
                    set(launches_u) - set(COMPACT_FUSED[:4]))
     check_diffdope(dd_u, "unfused", add0, add1)
+    step0_f = {k: v[0] for k, v in dd_f.losses_values.items()}
     agree_step0("DiffDope unfused against fused",
-                {k: v[0] for k, v in dd_u.losses_values.items()},
-                {k: v[0] for k, v in dd_f.losses_values.items()},
-                sorted(dd_f.losses_values))
+                {k: v[0] for k, v in dd_u.losses_values.items()}, step0_f,
+                sorted(step0_f))
     del dd_f, dd_u
 
     # ---- DiffDope with the depth loss: the compact and the uniform table ----
@@ -793,13 +1139,21 @@ def main() -> None:
     k8_launches = api_phase(gpu)
     torch.cuda.empty_cache()
     auto_phase(gpu)
+    torch.cuda.empty_cache()
+
+    # ---- the planar routes and K9 -------------------------------------------
+    launches_3, _ = planar_phases(gpu, step0_f)
+    torch.cuda.empty_cache()
+    k9_launches = k9_phase(gpu)
 
     # launches on the path that runs each kernel: the bench main path, the
     # depth phase on the compact table, the depth phase on the uniform one,
-    # the API path
+    # the API path, phase 11 (K10) and phase 13 (K9)
     path = {**launches_c, **{c: launches_k[c] for c in
                              ("raster_uniform_fwd", "raster_uniform_bwd")},
-            **{c: launches[c] for c in COMPACT_FUSED}, "raster_ids": k8_launches}
+            **{c: launches[c] for c in COMPACT_FUSED}, "raster_ids": k8_launches,
+            "gather_rows_fwd": k9_launches, "gather_rows_bwd": k9_launches,
+            **{c: launches_3[c] for c in ("raster_v3_fwd", "raster_v3_bwd")}}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = bench_rows[name]

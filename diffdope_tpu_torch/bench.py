@@ -19,13 +19,14 @@ by kernel and the device busy share of that window to stderr.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -57,8 +58,30 @@ def card() -> str:
     return out[0] if out else "unknown"
 
 
+#: the environment that selects each raster route (``pipeline.raster_route``)
+ROUTE_ENV = {None: {}, "v3": {"DD_RASTER": "v3"}, "v2": {"DD_BINNED": "0"}}
+
+
+@contextlib.contextmanager
+def raster_env(route: Optional[str]):
+    """Select the raster ``route`` (None, 'v3' or 'v2') for what is built
+    or run inside, as the reference's users do (``DD_RASTER`` and
+    ``DD_BINNED``); the previous values come back on exit."""
+    names = ("DD_RASTER", "DD_BINNED")
+    saved = {name: os.environ.pop(name, None) for name in names}
+    os.environ.update(ROUTE_ENV[route])
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            os.environ.pop(name, None)
+            if value is not None:
+                os.environ[name] = value
+
+
 def bench_problem(resolution=RES, subdiv=5, batch=BATCH, device="cuda",
-                  depth: bool = False, uniform: bool = False) -> Dict[str, object]:
+                  depth: bool = False, uniform: bool = False,
+                  route: Optional[str] = None) -> Dict[str, object]:
     """The bench protocol's problem on ``device``: the icosphere scene, gt
     images rendered by the port at the gt pose, loss scales
     ``np.random.default_rng(0).uniform(0.5, 4, B)``, rgb+mask weights
@@ -68,7 +91,8 @@ def bench_problem(resolution=RES, subdiv=5, batch=BATCH, device="cuda",
     Variants for the kernel checks, off the bench protocol: ``depth`` adds
     the depth L1 (weight 1.0) against the gt render's depth; ``uniform``
     runs the uniform-K table (full frame, no crop) in place of the compact
-    one."""
+    one; ``route`` 'v3' or 'v2' builds the loss on that planar route (the
+    gt render stays on the default one)."""
     s = bench_scene(resolution, subdiv)
     mtx_gt, _, _ = pose_matrix(pose_params(s["q_gt"], s["t_gt"], 1, device))
     gt = render_rgb_mask(
@@ -86,12 +110,13 @@ def bench_problem(resolution=RES, subdiv=5, batch=BATCH, device="cuda",
     )
     total = compact_capacity(s["proj"], s["pos"], s["tri"], mtx_gt, resolution,
                              device=device)
-    fn = make_fused_loss(
-        s["proj"], s["pos"], s["tri"], resolution, gt_np, lrs, weights,
-        use_rgb=True, use_depth=depth, use_mask=True,
-        edge_adj=s["edge_adj"], vtx_color=s["vtx_color"],
-        compact_total=None if uniform else total, device=device,
-    )
+    with raster_env(route):
+        fn = make_fused_loss(
+            s["proj"], s["pos"], s["tri"], resolution, gt_np, lrs, weights,
+            use_rgb=True, use_depth=depth, use_mask=True,
+            edge_adj=s["edge_adj"], vtx_color=s["vtx_color"],
+            compact_total=None if uniform else total, device=device,
+        )
     params0 = pose_params(s["q0"], s["t0"], batch, device)
     return dict(scene=s, gt=gt_np, lrs=lrs, weights=weights, fn=fn,
                 params0=params0, compact_total=total, mtx_gt=mtx_gt)

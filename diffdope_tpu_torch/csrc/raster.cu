@@ -36,31 +36,17 @@
 // K3's and K4's: a tile walks only the slots its bin holds, never the
 // padding up to K, which the TPU kernel skips by its row-bound gating.
 //
-// Numeric contract (build with -fmad=false, no fast math): coverage
-// e = x*a + (y*b + c) with a, b, c pre-scaled by sign(det), z = zlin *
-// (1/det) with an IEEE divide, pixel NDC x = (2*(col+ox)+1)/fw - 1 — the
-// reference's f32 operation order (raster_v2.py:699-707, 882-905).
+// Numeric contract (build with -fmad=false, no fast math): the reference's
+// f32 operation order, in raster_common.cuh (shared with K10).
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "raster_common.cuh"
 
 namespace {
 
-constexpr int kLanes = 32;
+using dd::Best;
+using dd::kIdLanes;
+using dd::kLanes;
 constexpr int kStage = 128;   // slots staged in shared memory per round
-constexpr int kIdLanes = 14;  // lanes 0..12 (coverage, z) and 13 (id)
-
-__device__ __forceinline__ float ndc(int pix, int frame) {
-  return __fsub_rn(
-      __fdiv_rn(__fadd_rn(__fmul_rn(2.0f, (float)pix), 1.0f), (float)frame),
-      1.0f);
-}
-
-// e = x*a + (y*b + c), each product and sum rounded (no FMA)
-__device__ __forceinline__ float plane(float x, float y, float a, float b,
-                                       float c) {
-  return __fadd_rn(__fmul_rn(x, a), __fadd_rn(__fmul_rn(y, b), c));
-}
 
 // the slots [base, base + n) of tile t in the compact table
 struct CompactRange {
@@ -94,15 +80,13 @@ __global__ void raster_fwd_kernel(
   const int b = blockIdx.y;
   const int row = (t / ntx) * th + threadIdx.x / tw;
   const int col = (t % ntx) * tw + threadIdx.x % tw;
-  const float x = ndc(col + ox, fw);
-  const float y = ndc(row + oy, fh);
+  const float x = dd::ndc(col + ox, fw);
+  const float y = dd::ndc(row + oy, fh);
   int base, n;
   range(t, base, n);
   const float* tb = bins + (size_t)b * kLanes * tot;
 
-  float zbest = CUDART_INF_F;
-  float idbest = 0.0f;
-  int sbest = -1;
+  Best best = dd::none();
   for (int s0 = 0; s0 < n; s0 += kStage) {
     const int m = min(kStage, n - s0);
     __syncthreads();
@@ -111,39 +95,10 @@ __global__ void raster_fwd_kernel(
       st[lane][j] = tb[(size_t)lane * tot + base + s0 + j];
     }
     __syncthreads();
-    for (int j = 0; j < m; ++j) {
-      const float det = st[12][j];
-      if (det == 0.0f) continue;
-      const float sg = det > 0.0f ? 1.0f : -1.0f;
-      const float e0 = plane(x, y, st[0][j] * sg, st[1][j] * sg, st[2][j] * sg);
-      const float e1 = plane(x, y, st[3][j] * sg, st[4][j] * sg, st[5][j] * sg);
-      const float e2 = plane(x, y, st[6][j] * sg, st[7][j] * sg, st[8][j] * sg);
-      if (!(e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f)) continue;
-      const float zlin = plane(x, y, st[9][j], st[10][j], st[11][j]);
-      const float z = __fmul_rn(zlin, __fdiv_rn(1.0f, det));
-      if (!(z >= -1.0f && z <= 1.0f)) continue;
-      const float id = st[13][j];
-      if (z < zbest || (z == zbest && id < idbest)) {
-        zbest = z;
-        idbest = id;
-        sbest = base + s0 + j;
-      }
-    }
+    for (int j = 0; j < m; ++j) dd::test_slot<kStage>(st, j, base + s0 + j, x, y, best);
   }
-
-  const size_t plane_px = (size_t)hc * wc;
-  const size_t pix = (size_t)row * wc + col;
-  ids[(size_t)b * plane_px + pix] = sbest >= 0 ? (int)idbest + 1 : 0;
-  win[(size_t)b * plane_px + pix] = sbest;
-  float* out = rows + (size_t)b * kLanes * plane_px + pix;
-  if (sbest >= 0) {
-    const float* src = tb + sbest;
-#pragma unroll
-    for (int k = 0; k < kLanes; ++k) out[k * plane_px] = src[(size_t)k * tot];
-  } else {
-#pragma unroll
-    for (int k = 0; k < kLanes; ++k) out[k * plane_px] = 0.0f;
-  }
+  dd::write_winner(best, tb, tot, (size_t)hc * wc, b, (size_t)row * wc + col, ids,
+                   win, rows);
 }
 
 __global__ void raster_bwd_kernel(const float* __restrict__ d_rows,

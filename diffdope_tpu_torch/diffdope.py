@@ -17,7 +17,11 @@ A run takes one of two routes, as the reference's does:
 
 Either runs on the compact bin table, or on the uniform-K table with
 ``tpu.compact_bins: false`` (the raster K7 in place of K3/K4, the full
-frame without the ROI crop).  ``tpu.raster_impl: reference`` (or ``auto``
+frame without the ROI crop), or on the planar route that the
+environment selects, as the reference's does (``DD_RASTER=v3``: K10, no
+bins and so no capacity or overflow; ``DD_BINNED=0``: K7 over the bins
+gathered from the triangle-order table; ``pipeline.raster_route``, read
+when a run builds its loss or render).  ``tpu.raster_impl: reference`` (or ``auto``
 on a mesh of at most 256 triangles, the reference's rule) takes the
 unfused route on the brute-force rasterizer instead: plain torch, no
 kernel, no bins and so no capacity to probe or recover.
@@ -53,15 +57,18 @@ from diffdope_tpu_torch.optimize import (
 from diffdope_tpu_torch.render.pipeline import (
     CAPACITY_SLACK,
     K_CHUNK,
+    MAX_TRIS_PER_TILE,
     _Mesh,
     _binned,
     _impl,
     _padded,
+    _planar,
     _render,
     _table,
     compact_capacity,
     make_fused_loss,
     max_tile_count,
+    raster_route,
 )
 
 log = logging.getLogger(__name__)
@@ -305,24 +312,38 @@ class DiffDope:
                 return _render(mesh, mtx, resolution, None, layout, impl="reference")
 
             return reference_fn
-        max_tris = self._resolve_max_tris(arrays, proj, resolution)
-        capacity = self._resolve_compact_total(arrays, proj, resolution, max_tris)
+        route = raster_route()
+        max_tris, capacity = self._capacities(arrays, proj, resolution, route)
         cull = self._resolve_cull()
         mesh = _Mesh(proj, arrays["pos"], arrays["pos_idx"], arrays["edge_adj"],
                      arrays.get("vtx_color"), arrays.get("corner_colors"), self.device)
 
         def render_fn(mtx):
-            return _render(mesh, mtx, resolution, capacity, layout, cull, max_tris)
+            return _render(mesh, mtx, resolution, capacity, layout, cull, max_tris,
+                           route=route)
 
         # what the kernel checks need to drive the pack and the raster of
         # the render's table (as make_fused_loss's fn carries)
-        render_fn.mesh = mesh
+        render_fn.mesh, render_fn.route = mesh, route
+        render_fn.planar = lambda mtx: _planar(mesh, mtx, resolution, route, cull,
+                                               max_tris)
         render_fn.binned = lambda mtx: _binned(mesh, mtx, resolution, capacity, None,
                                                cull, max_tris)
         render_fn.table = lambda mtx: _table(mesh, mtx, resolution, capacity, None,
                                              cull, max_tris)
         render_fn.frame_hw, render_fn.roi = _padded(resolution), (0, 0) + resolution
         return render_fn
+
+    def _capacities(self, arrays, proj, resolution, route):
+        """(per-tile K, compact capacity) of a run on ``route``: the 'v3'
+        route bins nothing and needs neither (the default K is passed
+        unread), 'v2' needs K only."""
+        if route == "v3":
+            return MAX_TRIS_PER_TILE, None
+        max_tris = self._resolve_max_tris(arrays, proj, resolution)
+        if route is not None:
+            return max_tris, None
+        return max_tris, self._resolve_compact_total(arrays, proj, resolution, max_tris)
 
     def _render(self, mtx):
         if self._render_fn is None:
@@ -348,7 +369,7 @@ class DiffDope:
             return None  # the reference rasterizer runs the unfused route
         proj = np.asarray(self.camera.cam_proj, np.float32)
         resolution = tuple(self.resolution)
-        max_tris = self._resolve_max_tris(arrays, proj, resolution)
+        max_tris, capacity = self._capacities(arrays, proj, resolution, raster_route())
         crop_off = (getattr(self, "_crop_disable", False)
                     or str(self.cfg.get_dotted("tpu.roi_crop", "auto")) == "off")
         return make_fused_loss(
@@ -358,8 +379,7 @@ class DiffDope:
             use_mask=LOSS_REGISTRY["l1_mask"] in fns,
             edge_adj=arrays["edge_adj"], corner_colors=arrays.get("corner_colors"),
             vtx_color=arrays.get("vtx_color"),
-            compact_total=self._resolve_compact_total(arrays, proj, resolution, max_tris),
-            roi_crop="off" if crop_off else "auto",
+            compact_total=capacity, roi_crop="off" if crop_off else "auto",
             cull_backfaces=self._resolve_cull(), max_tris_per_tile=max_tris,
             device=self.device,
         )

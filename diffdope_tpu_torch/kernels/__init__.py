@@ -32,7 +32,7 @@ from typing import Dict, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("pack.cu", "raster.cu", "fused_loss.cu", "rasterize.cu")
+SOURCES = ("pack.cu", "raster.cu", "fused_loss.cu", "rasterize.cu", "raster_v3.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -42,7 +42,8 @@ NVCC_FLAGS = (
 launches = {"pack_fwd": 0, "pack_bwd": 0, "raster_fwd": 0, "raster_bwd": 0,
             "raster_uniform_fwd": 0, "raster_uniform_bwd": 0,
             "loss_fwd": 0, "loss_bwd": 0, "loss_fwd_depth": 0, "loss_bwd_depth": 0,
-            "raster_ids": 0}
+            "raster_ids": 0, "gather_rows_fwd": 0, "gather_rows_bwd": 0,
+            "raster_v3_fwd": 0, "raster_v3_bwd": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -67,6 +68,17 @@ _SIGNATURES = {
     "dd_loss_bwd": [_P] * 5 + [_I] * 7 + [_P] * 4,
     # (coef, tile_idx, counts, B, T, K, nty, ntx, th, tw, fh, fw, ids, stream)
     "dd_raster_ids": [_P] * 3 + [_I] * 9 + [_P] * 2,
+    # (packed, tile_idx, counts, B, T, K, nty, ntx, th, tw, fh, fw, ids, win,
+    #  rows, stream)
+    "dd_gather_rows_fwd": [_P] * 3 + [_I] * 9 + [_P] * 4,
+    # (d_rows, win, counts, B, K, nty, ntx, th, tw, d_bin, stream)
+    "dd_gather_rows_bwd": [_P] * 3 + [_I] * 6 + [_P] * 2,
+    # (packed_s, clo, chi, rlo_tc, rhi_tc, B, tp, nty, ntx, th, tw, fh, fw,
+    #  ids, win, rows, stream)
+    "dd_raster_v3_fwd": [_P] * 5 + [_I] * 8 + [_P] * 4,
+    # (d_rows, win, clo, chi, rlo_tc, rhi_tc, B, tp, nty, ntx, th, tw,
+    #  d_packed_s, stream)
+    "dd_raster_v3_bwd": [_P] * 6 + [_I] * 6 + [_P] * 2,
 }
 
 _fns: Optional[Dict[str, object]] = None

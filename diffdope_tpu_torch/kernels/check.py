@@ -3,18 +3,19 @@
 Used by ``chip_smoke.py`` and the CUDA tests: hold each kernel against
 its plain torch version on the same inputs (the pack inputs and the table
 of a fused loss from ``make_fused_loss``, or of a render function, at
-given poses; for K8 the setup rows and bins of the ``rasterize`` op), and
-time both.  A function's tables are checked in their
-own layout: K3/K4 on the compact table, K7 on the uniform-K table; K5/K6
-take the depth lane (the ``_depth`` variants) where the loss has a depth
-term.
+given poses; for K8 the setup rows and bins of the ``rasterize`` op, for
+K9 the packed rows and bins of ``gather_rows.raster_gather_rows``), and
+time both.  A function's tables are checked in their own layout: K3/K4 on
+the compact table, K7 on the uniform-K table, on the planar routes K10
+('v3') or K7 over the gathered bins ('v2'); K5/K6 take the depth lane
+(the ``_depth`` variants) where the loss has a depth term.
 
 Tolerances: K1's table must equal ``planar.pack_binned``'s bit for bit in
-all 32 lanes, K3's and K7's ids, slots and rows exactly, and K8's ids
-exactly (same f32 operation order, no FMA); K5's sums rtol 1e-5, atol 1e-7; K2's (d_mvp,
-d_mtx row 2), K6's d_rows and K4's and K7's d_bins (also reduced per
-triangle) rtol 2e-4, atol 1e-6 against the plain autograd, plus 1e-6 of
-a local scale; K6's d_dplane rtol 2e-4, atol 1e-6.  That term is
+all 32 lanes, K3's, K7's, K9's and K10's ids, slots and rows exactly, and
+K8's ids exactly (same f32 operation order, no FMA); K5's sums rtol 1e-5,
+atol 1e-7; K2's (d_mvp, d_mtx row 2), K6's d_rows and K4's, K7's, K9's and
+K10's slot gradients (also reduced per triangle) rtol 2e-4, atol 1e-6
+against the plain autograd, plus 1e-6 of a local scale; K6's d_dplane rtol 2e-4, atol 1e-6.  That term is
 there because these gradients are sums of terms that can cancel: a pixel's
 lane sums the rgb term (three channels through s) and up to four pair
 terms, a slot sums its pixels, a d_mvp entry sums ~4e4 slots; a cancelled
@@ -34,11 +35,11 @@ CUDA sources, as estimates; every kernel here is bound by bytes.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from diffdope_tpu_torch.render import planar
+from diffdope_tpu_torch.render import gather_rows, pipeline, planar, raster_v3
 from diffdope_tpu_torch.render.fused_loss import (
     loss_bwd,
     loss_bwd_plain,
@@ -53,6 +54,7 @@ from diffdope_tpu_torch.render.pack_kernel import (
 )
 from diffdope_tpu_torch.render.pipeline import K_CHUNK, TILE_HW
 from diffdope_tpu_torch.render.raster import (
+    bins_planar,
     raster_bwd,
     raster_bwd_plain,
     raster_fwd,
@@ -111,6 +113,22 @@ KERNELS = {
         "diffdope_tpu_torch/csrc/rasterize.cu",
         "diffdope_tpu/render/rasterize.py:110",
     ),
+    "K9_gather_rows_fwd": (
+        "diffdope_tpu_torch/csrc/rasterize.cu",
+        "diffdope_tpu/render/gather_rows.py:123",
+    ),
+    "K9_gather_rows_bwd": (
+        "diffdope_tpu_torch/csrc/rasterize.cu",
+        "diffdope_tpu/render/gather_rows.py:191",
+    ),
+    "K10_raster_v3_fwd": (
+        "diffdope_tpu_torch/csrc/raster_v3.cu",
+        "diffdope_tpu/render/raster_v3.py:161",
+    ),
+    "K10_raster_v3_bwd": (
+        "diffdope_tpu_torch/csrc/raster_v3.cu",
+        "diffdope_tpu/render/raster_v3.py:298",
+    ),
 }
 #: launch counter of each kernel's wrapper (diffdope_tpu_torch.kernels)
 COUNTERS = {
@@ -125,6 +143,10 @@ COUNTERS = {
     "K5_loss_fwd_depth": "loss_fwd_depth",
     "K6_loss_bwd_depth": "loss_bwd_depth",
     "K8_raster_ids": "raster_ids",
+    "K9_gather_rows_fwd": "gather_rows_fwd",
+    "K9_gather_rows_bwd": "gather_rows_bwd",
+    "K10_raster_v3_fwd": "raster_v3_fwd",
+    "K10_raster_v3_bwd": "raster_v3_bwd",
 }
 
 
@@ -135,9 +157,10 @@ FP32_OPS_PER_S = 67e12
 #: FP32 operations per element, counted from the CUDA sources (estimates):
 #: K1/K2 per (hypothesis, slot) at n_ch colour channels, K3 per
 #: (pixel, slot) edge test, K4 per (foreground pixel, lane), K5/K6 per pixel,
-#: K8 per (pixel, slot) test: the three edge functions (4 each) and their
-#: sign tests, which every test runs (a covered test's depth, 8 more, is not
-#: counted: how many there are depends on the data)
+#: K8 (and K9's search) per (pixel, slot) test: the three edge functions (4
+#: each) and their sign tests, which every test runs (a covered test's
+#: depth, 8 more, is not counted: how many there are depends on the data);
+#: K10 takes K3's count per test
 _OPS = {"K1": lambda n_ch: 195 + 15 * n_ch, "K2": lambda n_ch: 330 + 18 * n_ch,
         "K3": 25, "K4": 1, "K5": 450, "K6": 900, "K8": 15}
 
@@ -192,10 +215,135 @@ def _worst(got, want, rtol, atol, scale) -> Dict[str, object]:
                 local_scale=float(scale.expand_as(got).reshape(-1)[i]))
 
 
+class _RasterSpec(NamedTuple):
+    """The raster kernel pair of a function's table layout: names, kernel
+    and plain calls, the table (B, 32, n_slots) whose lane 13 maps a slot
+    to its triangle, and the bounds' inputs."""
+
+    f_name: str
+    b_name: str
+    fwd: Callable
+    fwd_plain: Callable
+    bwd: Callable  # (d_rows, win) -> d_slots
+    bwd_plain: Callable
+    packed: torch.Tensor
+    fwd_bound: Callable  # (win, fg) -> (ms, by)
+    written: int  # output floats of the backward (B * 32 * slots held)
+    info: Dict[str, object]
+
+
+def _binned_spec(fn, mtx, npx: int) -> _RasterSpec:
+    """K3/K4 on the compact table, K7 on the uniform one."""
+    with torch.no_grad():
+        tab = fn.table(mtx)
+    packed, counts = tab.packed, tab.counts
+    b, _, n_slots = packed.shape
+    if tab.off_c is None:  # the uniform table: K7
+        k = n_slots // counts.numel()
+        n_read = int(counts.clamp(max=k).sum())  # slots the tiles hold
+        names = ("K7_raster_uniform_fwd", "K7_raster_uniform_bwd")
+        res = fn.roi[2:]
+        calls = (lambda: raster_uniform_fwd(packed, counts, res, TILE_HW),
+                 lambda: raster_uniform_fwd_plain(packed, counts, res, TILE_HW),
+                 lambda d, win: raster_uniform_bwd(d, win, n_slots, TILE_HW),
+                 lambda d, win: raster_uniform_bwd_plain(d, win, n_slots))
+        written = b * 32 * n_read
+    else:
+        args = (packed, counts, tab.off_c, tab.used, K_CHUNK, fn.frame_hw, TILE_HW,
+                fn.roi)
+        n_read = int(torch.minimum(counts, tab.used * K_CHUNK).sum())
+        names = ("K3_raster_fwd", "K4_raster_bwd")
+        calls = (lambda: raster_fwd(*args), lambda: raster_fwd_plain(*args),
+                 lambda d, win: raster_bwd(d, win, n_slots, TILE_HW),
+                 lambda d, win: raster_bwd_plain(d, win, n_slots))
+        written = packed.numel()
+    tested = b * n_read * TILE_HW[0] * TILE_HW[1]
+
+    def fwd_bound(win, fg):
+        # the forward reads 14 lanes of every slot its tiles hold, the other
+        # 18 lanes of each won slot, and writes ids, win and every pixel's
+        # 32 lanes
+        return bound(4 * (b * 14 * n_read + 18 * _won(win, n_slots) + 3 * counts.numel())
+                     + npx * (4 + 4 + 4 * 32), _OPS["K3"] * tested)
+
+    return _RasterSpec(*names, *calls, packed, fwd_bound, written,
+                       dict(slots=n_read, table_slots=n_slots))
+
+
+def _won(win: torch.Tensor, n_slots: int) -> int:
+    """How many (hypothesis, slot) pairs win a pixel."""
+    b = win.shape[0]
+    w = win.reshape(b, -1).long()
+    w = w + n_slots * torch.arange(b, device=w.device)[:, None]
+    return int(torch.unique(w[win.reshape(b, -1) >= 0]).numel())
+
+
+def exact_bin_slots(mesh, mtx: torch.Tensor, resolution) -> int:
+    """The (tile, triangle) pairs of exact per-tile bins at poses ``mtx``
+    (the port's tile, no capacity, no cull): the slots K7 would walk."""
+    with torch.no_grad():
+        _, cp, det = pipeline._planar_pack(mesh, mtx)
+        _, counts, _ = planar.bin_triangles_planar(cp, det, resolution, TILE_HW,
+                                                   mesh.t_count)
+    return int(counts.sum())
+
+
+def _planar_spec(fn, mtx, npx: int) -> _RasterSpec:
+    """K10 on the 'v3' route's sorted table; K7 over the bins gathered from
+    the triangle-order table on 'v2'."""
+    with torch.no_grad():
+        pl = fn.planar(mtx)
+    res = fn.roi[2:]
+    b = pl.packed.shape[0]
+    if pl.idx is None:  # 'v3': K10
+        tables = raster_v3.prepare(pl.packed, res, TILE_HW)
+        packed = raster_v3.sorted_table(pl.packed, tables)
+        n_slots = tables.t_pad
+        calls = (lambda: raster_v3.raster_v3_fwd(packed, tables, res, TILE_HW),
+                 lambda: raster_v3.raster_v3_fwd_plain(packed, tables, res, TILE_HW),
+                 lambda d, win: raster_v3.raster_v3_bwd(d, win, tables, TILE_HW),
+                 lambda d, win: raster_v3.raster_v3_bwd_plain(d, win, n_slots))
+        exact = exact_bin_slots(fn.mesh, mtx, res)
+        gate = raster_v3._gate(tables, *(-(-n // t) for n, t in zip(res, TILE_HW)),
+                               TILE_HW[0])
+        walked = int(gate.sum()) * tables.k_chunk
+
+        def fwd_bound(win, fg):
+            # bytes: 14 lanes of every triangle, the other 18 of each won
+            # slot, the tables, and ids, win and 32 lanes of every pixel;
+            # operations: the tests exact per-tile bins need at these poses
+            return bound(4 * (b * 14 * n_slots + 18 * _won(win, n_slots)
+                              + 2 * tables.rlo_tc.numel()) + npx * (4 + 4 + 4 * 32),
+                         _OPS["K3"] * b * exact * TILE_HW[0] * TILE_HW[1])
+
+        return _RasterSpec("K10_raster_v3_fwd", "K10_raster_v3_bwd", *calls, packed,
+                           fwd_bound, b * 32 * n_slots,
+                           dict(slots=walked, table_slots=n_slots, exact_slots=exact))
+    bins = bins_planar(pl.packed, pl.idx)
+    n_slots = bins.shape[2]
+    k = n_slots // pl.counts.numel()
+    n_read = int(pl.counts.clamp(max=k).sum())
+    calls = (lambda: raster_uniform_fwd(bins, pl.counts, res, TILE_HW),
+             lambda: raster_uniform_fwd_plain(bins, pl.counts, res, TILE_HW),
+             lambda d, win: raster_uniform_bwd(d, win, n_slots, TILE_HW),
+             lambda d, win: raster_uniform_bwd_plain(d, win, n_slots))
+
+    def fwd_bound(win, fg):
+        return bound(4 * (b * 14 * n_read + 18 * _won(win, n_slots)
+                          + 3 * pl.counts.numel()) + npx * (4 + 4 + 4 * 32),
+                     _OPS["K3"] * b * n_read * TILE_HW[0] * TILE_HW[1])
+
+    return _RasterSpec("K7_raster_uniform_fwd", "K7_raster_uniform_bwd", *calls, bins,
+                       fwd_bound, b * 32 * n_read,
+                       dict(slots=n_read, table_slots=n_slots,
+                            occupancy=int(pl.telemetry["_bin_occupancy"])))
+
+
 def check_kernels(fn, mtx: torch.Tensor, d_sums: Optional[torch.Tensor] = None,
                   reps: int = 0) -> List[Dict[str, object]]:
     """The raster kernels of ``fn``'s table layout (K3/K4 compact, K7
-    uniform) and, for a fused loss, K5/K6 (their depth variants where the
+    uniform; on a planar route K10 on 'v3' and K7 over the gathered bins
+    on 'v2') and, for a fused loss, K5/K6 (their depth variants where the
     loss has a depth term), each against its plain version on the table of
     ``mtx``.
 
@@ -205,71 +353,29 @@ def check_kernels(fn, mtx: torch.Tensor, d_sums: Optional[torch.Tensor] = None,
     unfused route: the raster forward, then its backward under a seeded
     normal d_rows on every lane).  Returns one dict per kernel: name, ok,
     max_abs_err, tolerance, bound (the raster rows also the slots the
-    tiles hold and the table's slots), and, when ``reps`` > 0, ms and plain_ms
-    (CUDA events over ``reps`` launches after one warm-up)."""
+    tiles hold, or K10 walks, and the table's slots), and, when ``reps`` >
+    0, ms and plain_ms (CUDA events over ``reps`` launches after one
+    warm-up)."""
     fused = getattr(fn, "gt6", None) is not None
     with torch.no_grad():
-        tab = fn.table(mtx)
         dplane = fn.dplane(mtx) if fused else None
-    packed, counts = tab.packed, tab.counts
-    b, _, n_slots = packed.shape
+    b = mtx.shape[0]
     hc, wc = fn.frame_hw
     npx = b * hc * wc
-    if tab.off_c is None:  # the uniform table: K7
-        k = n_slots // counts.numel()
-        n_read = int(counts.clamp(max=k).sum())  # slots the tiles hold
-        f_name, b_name = "K7_raster_uniform_fwd", "K7_raster_uniform_bwd"
-        res = fn.roi[2:]
-
-        def fwd():
-            return raster_uniform_fwd(packed, counts, res, TILE_HW)
-
-        def fwd_plain():
-            return raster_uniform_fwd_plain(packed, counts, res, TILE_HW)
-
-        def bwd(d, win):
-            return raster_uniform_bwd(d, win, n_slots, TILE_HW)
-
-        def bwd_plain(d, win):
-            return raster_uniform_bwd_plain(d, win, n_slots)
-    else:
-        args = (packed, counts, tab.off_c, tab.used, K_CHUNK, fn.frame_hw, TILE_HW,
-                fn.roi)
-        n_read = int(torch.minimum(counts, tab.used * K_CHUNK).sum())
-        f_name, b_name = "K3_raster_fwd", "K4_raster_bwd"
-
-        def fwd():
-            return raster_fwd(*args)
-
-        def fwd_plain():
-            return raster_fwd_plain(*args)
-
-        def bwd(d, win):
-            return raster_bwd(d, win, n_slots, TILE_HW)
-
-        def bwd_plain(d, win):
-            return raster_bwd_plain(d, win, n_slots)
-
-    tested = b * n_read * TILE_HW[0] * TILE_HW[1]
+    spec = (_planar_spec if getattr(fn, "route", None) else _binned_spec)(fn, mtx, npx)
+    n_slots = spec.packed.shape[2]
     out = []
 
-    ids, rows, win = fwd()
-    ids_p, rows_p, win_p = fwd_plain()
+    ids, rows, win = spec.fwd()
+    ids_p, rows_p, win_p = spec.fwd_plain()
     err = float((rows - rows_p).abs().max())
     ok = bool(torch.equal(ids, ids_p) and torch.equal(win, win_p)
               and torch.equal(rows, rows_p))
     fg = int((ids > 0).sum())
-    # the forward reads 14 lanes of every slot its tiles hold, the other 18
-    # lanes of each won slot, and writes ids, win and every pixel's 32 lanes
-    w = win.reshape(b, -1).long()
-    w = w + n_slots * torch.arange(b, device=w.device)[:, None]
-    won = int(torch.unique(w[win.reshape(b, -1) >= 0]).numel())
-    out.append(dict(name=f_name, ok=ok, max_abs_err=err,
-                    tolerance="ids, slots and rows exactly equal",
-                    slots=n_read, table_slots=n_slots, fg_pixels=fg,
+    out.append(dict(name=spec.f_name, ok=ok, max_abs_err=err,
+                    tolerance="ids, slots and rows exactly equal", fg_pixels=fg,
                     id_mismatches=int((ids != ids_p).sum()),
-                    bound=bound(4 * (b * 14 * n_read + 18 * won + 3 * counts.numel())
-                                + npx * (4 + 4 + 4 * 32), _OPS["K3"] * tested)))
+                    bound=spec.fwd_bound(win, fg), **spec.info))
 
     if fused:
         depth = dplane is not None
@@ -307,35 +413,35 @@ def check_kernels(fn, mtx: torch.Tensor, d_sums: Optional[torch.Tensor] = None,
         gen = torch.Generator(device=rows.device).manual_seed(0)
         d_rows = torch.randn(rows.shape, generator=gen, device=rows.device)
 
-    d_bins = bwd(d_rows, win)
-    d_bins_p = bwd_plain(d_rows, win)
-    tri = packed[0, 13].long()  # triangle of each slot (sentinel: T)
+    d_bins = spec.bwd(d_rows, win)
+    d_bins_p = spec.bwd_plain(d_rows, win)
+    tri = spec.packed[0, 13].long()  # triangle of each slot (sentinel: T)
 
     def per_triangle(d):
         acc = d.new_zeros((d.shape[0], d.shape[1], int(tri.max()) + 1))
         return acc.index_add_(2, tri, d)
 
-    slot_scale = bwd_plain(d_rows.abs(), win)
+    slot_scale = spec.bwd_plain(d_rows.abs(), win)
     ok4 = _close(d_bins, d_bins_p, 2e-4, 1e-6, slot_scale) and _close(
         per_triangle(d_bins), per_triangle(d_bins_p), 2e-4, 1e-6,
         per_triangle(slot_scale))
     # the backward reads win everywhere and d_rows only at foreground
-    # pixels, and writes d_bins: all of it for K4; for K7 the slots its
-    # tiles hold (the uniform padding is the layout's, as in the forward)
-    written = d_bins.numel() if tab.off_c is not None else b * 32 * n_read
-    out.append(dict(name=b_name, ok=ok4, slots=n_read, table_slots=n_slots,
+    # pixels, and writes its output: all of it for K4 and K10; for K7 the
+    # slots its tiles hold (the uniform padding is the layout's, as in the
+    # forward)
+    out.append(dict(name=spec.b_name, ok=ok4, **spec.info,
                     max_abs_err=float((d_bins - d_bins_p).abs().max()),
                     tolerance="rtol 2e-4, atol 1e-6 + 1e-6 x sum |d_rows|, "
                               "per slot and per triangle",
                     worst=_worst(d_bins, d_bins_p, 2e-4, 1e-6, slot_scale),
-                    bound=bound(4 * npx + 4 * 32 * fg + 4 * written,
+                    bound=bound(4 * npx + 4 * 32 * fg + 4 * spec.written,
                                 _OPS["K4"] * 32 * fg)))
 
     if reps:
         timed = {
-            f_name: (fwd, fwd_plain),
-            b_name: (lambda: bwd(d_rows, win),
-                     lambda: bwd_plain(d_rows, win)),
+            spec.f_name: (spec.fwd, spec.fwd_plain),
+            spec.b_name: (lambda: spec.bwd(d_rows, win),
+                          lambda: spec.bwd_plain(d_rows, win)),
         }
         if fused:
             timed["K5_loss_fwd" + sfx] = (
@@ -505,3 +611,87 @@ def check_raster_ids(coef: torch.Tensor, tile_idx: torch.Tensor, counts: torch.T
                              reps)
         row["plain_ms"] = start.elapsed_time(end)
     return row
+
+
+@torch.no_grad()
+def gather_rows_inputs(pos_clip: torch.Tensor, tri: torch.Tensor, resolution, tile_hw,
+                       colors: torch.Tensor, edge_adj: Optional[torch.Tensor] = None):
+    """K9's inputs at clip positions ``pos_clip`` (B, N, 4): the
+    ``shade.pack_rows`` rows (B, T, 32) of the setup, its silhouette bits
+    and the attribute planes of the per-vertex ``colors`` and the clip z,
+    and ``setup_tris.bin_triangles``' bins with K the fullest tile's
+    count rounded up to 128 (raises if a pair drops)."""
+    from diffdope_tpu_torch.render.shade import attribute_planes, pack_rows, silhouette_bits
+
+    coef, idx, counts = raster_ids_inputs(pos_clip, tri, resolution, tile_hw)
+    setup = triangle_setup(pos_clip, tri)
+    b, t = setup.det.shape
+    corner_vals = torch.cat([colors[tri.long()].expand(b, t, 3, 3),
+                             pos_clip[:, tri.long(), 2:3]], dim=-1)
+    packed = pack_rows(setup, silhouette_bits(setup.det, edge_adj),
+                       attribute_planes(corner_vals, setup))
+    return packed.contiguous(), idx, counts
+
+
+def check_gather_rows(packed: torch.Tensor, tile_idx: torch.Tensor, counts: torch.Tensor,
+                      resolution, tile_hw, reps: int = 0) -> List[Dict[str, object]]:
+    """K9 forward and backward against their plain versions on the same
+    inputs: ids, win and rows exactly equal; d_bin under a seeded normal
+    d_rows at rtol 2e-4, atol 1e-6 plus 1e-6 of the slot's sum of |d_rows|.
+    The forward's bound reads lanes 0-13 of each row the tiles hold once per
+    hypothesis and the 32 lanes of each won slot, and writes ids, win and
+    rows; its operations are ``_OPS['K8']`` per (hypothesis, pixel, slot).
+    The backward reads win, d_rows at the foreground and writes the slots
+    held.  With ``reps``, ms over ``reps`` launches after one warm-up, and
+    plain_ms: the plain forward's one call that the check makes (timed),
+    the plain backward's over two."""
+    b, k = packed.shape[0], tile_idx.shape[1]
+    (h, w), (th, tw) = resolution, tile_hw
+    nt = tile_idx.shape[0]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ids, rows, win = gather_rows.gather_rows_fwd(packed, tile_idx, counts, resolution,
+                                                 tile_hw)
+    torch.cuda.synchronize()
+    start.record()
+    ids_p, rows_p, win_p = gather_rows.gather_rows_fwd_plain(packed, tile_idx, counts,
+                                                             resolution, tile_hw)
+    end.record()
+    torch.cuda.synchronize()
+    n = counts.long().clamp(max=k)
+    held = torch.arange(k, device=n.device)[None, :] < n[:, None]
+    slots = int(n.sum())
+    n_rows = int(torch.unique(tile_idx[held]).numel())
+    frame_px = b * ids.shape[1] * ids.shape[2]
+    fg = int((ids > 0).sum())
+    fwd = dict(name="K9_gather_rows_fwd",
+               ok=bool(torch.equal(ids, ids_p) and torch.equal(win, win_p)
+                       and torch.equal(rows, rows_p)),
+               max_abs_err=float((rows - rows_p).abs().max()),
+               tolerance="ids, slots and rows exactly equal",
+               id_mismatches=int((ids != ids_p).sum()), slots=slots,
+               table_slots=tile_idx.numel(), fg_pixels=fg, k=k, fullest=int(n.max()),
+               bound=bound(4 * (b * 14 * n_rows + slots + nt + 18 * _won(win, nt * k)
+                                + frame_px * (2 + 32)),
+                           _OPS["K8"] * b * slots * th * tw))
+
+    gen = torch.Generator(device=packed.device).manual_seed(0)
+    d_rows = torch.randn(rows.shape, generator=gen, device=packed.device)
+    d_bin = gather_rows.gather_rows_bwd(d_rows, win, counts, k, tile_hw)
+    d_bin_p = gather_rows.gather_rows_bwd_plain(d_rows, win, nt, k)
+    scale = gather_rows.gather_rows_bwd_plain(d_rows.abs(), win, nt, k)
+    bwd = dict(name="K9_gather_rows_bwd", ok=_close(d_bin, d_bin_p, 2e-4, 1e-6, scale),
+               max_abs_err=float((d_bin - d_bin_p).abs().max()),
+               tolerance="rtol 2e-4, atol 1e-6 + 1e-6 x sum |d_rows|, per slot",
+               worst=_worst(d_bin, d_bin_p, 2e-4, 1e-6, scale), slots=slots,
+               table_slots=tile_idx.numel(),
+               bound=bound(4 * (frame_px + 32 * fg + b * 32 * slots), _OPS["K4"] * 32 * fg))
+    if reps:
+        fwd["ms"] = _time_ms(lambda: gather_rows.gather_rows_fwd(
+            packed, tile_idx, counts, resolution, tile_hw), reps)
+        fwd["plain_ms"] = start.elapsed_time(end)
+        bwd["ms"] = _time_ms(lambda: gather_rows.gather_rows_bwd(
+            d_rows, win, counts, k, tile_hw), reps)
+        bwd["plain_ms"] = _time_ms(lambda: gather_rows.gather_rows_bwd_plain(
+            d_rows, win, nt, k), 2)
+    return [fwd, bwd]

@@ -24,12 +24,22 @@ compact table and K7 over the uniform one (:func:`_raster`).
 - :func:`render_rgb_mask`, the gt render over a compact table sized to the
   bins exactly (``EXACT``), and :func:`compact_capacity`.
 
-Every pack goes through :func:`_pack_dispatch`, so the kernel route and
-its eligibility rules cannot diverge between call sites.
+The reference's environment switches select its planar route on both
+entry points, and the port's (:func:`raster_route`, read when a loss is
+built and once per ``render_batch`` call): ``DD_RASTER=v3`` the sorted-
+range raster K10 over the triangle-order table (``planar.pack_planar``,
+plain torch: no K1/K2, no bins, no back-face cull); ``DD_BINNED=0`` K7
+over that table gathered into the per-tile bins, with the inverted-bin
+backward (``raster.raster_gather_rows_v2``).  Then the plain shade and
+antialiasing (render) or K5/K6 on the full frame (fused loss).
+
+Every bin-ordered pack goes through :func:`_pack_dispatch`, so the kernel
+route and its eligibility rules cannot diverge between call sites.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -45,6 +55,7 @@ from diffdope_tpu_torch.render.fused_loss import (
     fused_loss_sums,
     raster_loss_compact,
 )
+from diffdope_tpu_torch.render.gather_rows import bin_occupancy, invert_bins
 from diffdope_tpu_torch.render.planar import (
     _silhouette_planar,
     _xbounds_ndc,
@@ -53,10 +64,16 @@ from diffdope_tpu_torch.render.planar import (
     compact_bins,
     corner_planes,
     det_planar,
+    pack_planar,
     static_pack_rows,
 )
 from diffdope_tpu_torch.render.pack_kernel import pack_binned_auto
-from diffdope_tpu_torch.render.raster import raster_compact, raster_gather_rows_binned
+from diffdope_tpu_torch.render.raster import (
+    raster_compact,
+    raster_gather_rows_binned,
+    raster_gather_rows_v2,
+)
+from diffdope_tpu_torch.render.raster_v3 import raster_gather_rows_v3
 from diffdope_tpu_torch.render.rasterize import AUTO_REFERENCE_MAX_TRIS, raster_ids_reference
 from diffdope_tpu_torch.render.setup_tris import triangle_setup_from_corners
 from diffdope_tpu_torch.render.shade import (
@@ -85,6 +102,21 @@ CROP_MARGIN = 24
 #: a table capacity: the compact table sized to the bins exactly (reads the
 #: counts on the host), for the gt render and the capacity probe
 EXACT = "exact"
+#: the inverted bin map's width on the ``DD_BINNED=0`` route (the
+#: reference's default, ``pipeline.py:99, 404``): a triangle in more tiles
+#: loses the rest of its gradient; '_bin_occupancy' reports the most
+MAX_OCC = 16
+
+
+def raster_route() -> Optional[str]:
+    """The raster route the reference's environment switches select
+    (``pipeline.py:218-223, 278, 617-621, 740``): None for the bin-ordered
+    pack (the default), else the planar route, 'v3' under ``DD_RASTER=v3``
+    and 'v2' under ``DD_BINNED=0``."""
+    raster = os.environ.get("DD_RASTER", "v2")
+    if os.environ.get("DD_BINNED", "1") == "1" and raster != "v3":
+        return None
+    return "v3" if raster == "v3" else "v2"
 
 
 class _Mesh:
@@ -285,6 +317,59 @@ def _raster(table: _Table, frame_hw, roi):
                           K_CHUNK, frame_hw, TILE_HW, roi)
 
 
+class _Planar(NamedTuple):
+    """The planar route's table (B, 32, T) in triangle order,
+    differentiable in the poses; on the 'v2' route also its bins, their
+    inverted map and the binning telemetry (None and {} on 'v3')."""
+
+    packed: torch.Tensor
+    idx: Optional[torch.Tensor]
+    counts: Optional[torch.Tensor]
+    inv_pos: Optional[torch.Tensor]
+    inv_valid: Optional[torch.Tensor]
+    telemetry: Dict[str, torch.Tensor]
+
+
+def _planar_pack(mesh: _Mesh, mtx: torch.Tensor):
+    """(packed, corner planes, det) of the triangle-order table at poses
+    ``mtx``: ``planar.pack_planar`` with the rotated z of every corner as
+    the depth plane (``pipeline.py:272-277``)."""
+    mvp = matmul44(mesh.proj, mtx)
+    cp = corner_planes(mesh.pos_c, mvp)
+    p = mesh.pos_c
+    zrot = (mtx[:, 2, 0, None] * p[:, 0] + mtx[:, 2, 1, None] * p[:, 1]) \
+        + mtx[:, 2, 2, None] * p[:, 2]  # (B, 3T)
+    packed, det = pack_planar(cp, mesh.attrs, zrot, mesh.adj, mesh.degenerate)
+    return packed, cp, det
+
+
+def _planar(mesh: _Mesh, mtx: torch.Tensor, resolution, route: str, cull: bool = False,
+            max_tris: int = MAX_TRIS_PER_TILE, max_occ: int = MAX_OCC) -> _Planar:
+    """The planar route's inputs at poses ``mtx``: on 'v2' the bins of
+    ``planar.bin_triangles_planar`` (``cull`` reaches only them) and
+    ``gather_rows.invert_bins`` of width ``max_occ``, with '_bin_overflow',
+    '_bin_max' and '_bin_occupancy' (the most tiles a triangle occurs in)."""
+    packed, cp, det = _planar_pack(mesh, mtx)
+    if route == "v3":
+        return _Planar(packed, None, None, None, None, {})
+    idx, counts, overflow = bin_triangles_planar(cp, det.detach(), resolution, TILE_HW,
+                                                 max_tris, cull_backfaces=cull)
+    inv_pos, inv_valid = invert_bins(idx, mesh.t_count, max_occ)
+    telemetry = {"_bin_overflow": overflow, "_bin_max": counts.max(),
+                 "_bin_occupancy": bin_occupancy(idx, mesh.t_count)}
+    return _Planar(packed, idx, counts.contiguous(), inv_pos, inv_valid, telemetry)
+
+
+def _raster_planar(pl: _Planar, resolution):
+    """(ids, rows) of the planar route over the frame padded to whole
+    tiles: K10 (``raster_gather_rows_v3``) on 'v3', K7 over the gathered
+    bins (``raster_gather_rows_v2``) on 'v2'."""
+    if pl.idx is None:
+        return raster_gather_rows_v3(pl.packed, resolution, TILE_HW, padded=True)
+    return raster_gather_rows_v2(pl.packed, pl.idx, pl.counts, pl.inv_pos, pl.inv_valid,
+                                 resolution, TILE_HW, padded=True)
+
+
 def make_fused_loss(
     proj_cam,
     pos,
@@ -304,6 +389,7 @@ def make_fused_loss(
     roi_crop: str = "auto",
     cull_backfaces: bool = False,
     max_tris_per_tile: int = MAX_TRIS_PER_TILE,
+    max_occ: int = MAX_OCC,
     device="cuda",
 ):
     """Build ``fn(mtx) -> (total_loss, logs)``.
@@ -315,6 +401,11 @@ def make_fused_loss(
     numpy or tensor 'rgb' and 'segmentation' (H, W, 3) images, and 'depth'
     (H, W) for ``use_depth``.  ``compact_total`` None runs the uniform-K
     table on the full frame (no ROI crop), as the reference does.
+
+    The route is read from the environment here (:func:`raster_route`):
+    on the planar routes the table is ``planar.pack_planar``'s, the frame
+    is full and ``compact_total`` is not read; 'v3' logs no binning
+    telemetry, 'v2' '_bin_overflow', '_bin_max' and '_bin_occupancy'.
     """
     if tex is not None:
         raise NotImplementedError(
@@ -343,8 +434,9 @@ def make_fused_loss(
     if use_depth:
         planes[6, :h, :w] = _numpy(gt["depth"]).astype(np.float32)
 
+    route = raster_route()
     # the reference crops the compact table only
-    crop_on = roi_crop != "off" and compact_total is not None
+    crop_on = roi_crop != "off" and compact_total is not None and route is None
     window = crop_window(seg_np, resolution) if crop_on else None
     crop = None if window is None else _Crop(window, resolution, device)
     oy, ox, hc, wc = window or (0, 0, hp, wp)
@@ -364,6 +456,10 @@ def make_fused_loss(
         return _table(mesh, mtx, resolution, compact_total, crop,
                       cull_backfaces, max_tris_per_tile)
 
+    def planar(mtx: torch.Tensor) -> _Planar:
+        return _planar(mesh, mtx, resolution, route, cull_backfaces, max_tris_per_tile,
+                       max_occ)
+
     def dplane(mtx: torch.Tensor) -> Optional[torch.Tensor]:
         """gt depth + t_z per hypothesis (B, hc, wc), differentiable in t_z."""
         return None if gtd is None else gtd[None] + mtx[:, 2, 3][:, None, None]
@@ -371,15 +467,20 @@ def make_fused_loss(
     def fn(mtx: torch.Tensor):
         if mtx.dim() == 2:
             mtx = mtx[None]
-        tab = table(mtx)
-        if not use_depth and tab.off_c is not None:
-            sums = raster_loss_compact(
-                tab.packed, tab.counts, tab.off_c, tab.used, gt6, K_CHUNK, (hc, wc),
-                TILE_HW, roi,
-            )
-        else:
-            ids, rows = _raster(tab, (hc, wc), roi)
+        if route is not None:
+            tab = planar(mtx)
+            ids, rows = _raster_planar(tab, resolution)
             sums = fused_loss_sums(rows, ids, gt6, dplane(mtx), (hc, wc), roi)
+        else:
+            tab = table(mtx)
+            if not use_depth and tab.off_c is not None:
+                sums = raster_loss_compact(
+                    tab.packed, tab.counts, tab.off_c, tab.used, gt6, K_CHUNK, (hc, wc),
+                    TILE_HW, roi,
+                )
+            else:
+                ids, rows = _raster(tab, (hc, wc), roi)
+                sums = fused_loss_sums(rows, ids, gt6, dplane(mtx), (hc, wc), roi)
         total = sums.new_zeros(())
         logs = {}
         if use_rgb:
@@ -401,6 +502,7 @@ def make_fused_loss(
     # loss kernels on this loss's own tables
     fn.mesh, fn.binned, fn.table, fn.dplane = mesh, binned, table, dplane
     fn.gt6, fn.frame_hw, fn.roi, fn.crop = gt6, (hc, wc), roi, window
+    fn.route, fn.planar = route, planar
     return fn
 
 
@@ -495,12 +597,15 @@ def _render(mesh: _Mesh, mtx: torch.Tensor, resolution,
             capacity: Optional[Union[int, str]], layout: str = "stacked",
             cull: bool = False, max_tris: int = MAX_TRIS_PER_TILE,
             impl: str = "pallas", return_rast_out: bool = False,
-            antialias_rgb: bool = False) -> Dict[str, object]:
+            antialias_rgb: bool = False, route: Optional[str] = None,
+            max_occ: int = MAX_OCC) -> Dict[str, object]:
     """:func:`render_batch` on a prepared mesh.  ``impl`` 'pallas': K1 ->
     K3 (compact table) or K7 (``capacity`` None: the uniform table), then
-    the plain shade and antialiasing; backward K4 or K7 -> K2.  'reference':
-    the brute-force branch (:func:`_reference_ids_rows`), plain torch
-    throughout; it bins nothing and carries no telemetry.
+    the plain shade and antialiasing; backward K4 or K7 -> K2; or, with a
+    planar ``route`` (:func:`raster_route`), the triangle-order table and
+    K10 ('v3') or K7 over its gathered bins ('v2'), ``capacity`` unread.
+    'reference': the brute-force branch (:func:`_reference_ids_rows`),
+    plain torch throughout; it bins nothing and carries no telemetry.
 
     On the kernel branch the shading is recomputed in the backward
     (``checkpoint``), as the reference does (:339-348): its autograd
@@ -519,12 +624,18 @@ def _render(mesh: _Mesh, mtx: torch.Tensor, resolution,
                             antialias_rgb, return_rast_out, shd)
         tel = {}
     else:
-        tab = _table(mesh, mtx, resolution, capacity, None, cull, max_tris)
-        ids, rows = _raster(tab, _padded(resolution), (0, 0, h, w))
+        if route is None:
+            tab = _table(mesh, mtx, resolution, capacity, None, cull, max_tris)
+            ids, rows = _raster(tab, _padded(resolution), (0, 0, h, w))
+            keys = ("_bin_overflow", "_bin_need")
+        else:
+            tab = _planar(mesh, mtx, resolution, route, cull, max_tris, max_occ)
+            ids, rows = _raster_planar(tab, resolution)
+            keys = ("_bin_overflow", "_bin_occupancy") if tab.telemetry else ()
         ids, rows = ids[:, :h, :w], rows[:, :, :h, :w]
         out = checkpoint(_shade_and_aa, rows, ids, mtx[:, 2, 3], tuple(resolution), 3,
                          antialias_rgb, return_rast_out, use_reentrant=False)
-        tel = {k: tab.telemetry[k].detach() for k in ("_bin_overflow", "_bin_need")}
+        tel = {k: tab.telemetry[k].detach() for k in keys}
     mask, colors, depth = out[0], out[1:4], out[4]
     rast = out[5] if return_rast_out else None
     if layout == "channels":
@@ -555,6 +666,7 @@ def render_batch(
     raster_impl: str = "auto",
     return_rast_out: bool = False,
     antialias_rgb: bool = False,
+    max_occ: int = MAX_OCC,
     device="cuda",
 ) -> Dict[str, object]:
     """Render a mesh under B pose hypotheses ``mtx`` (B, 4, 4),
@@ -562,8 +674,11 @@ def render_batch(
 
     ``raster_impl`` 'pallas' is the reference's pallas branch on the
     kernels: the compact table for ``compact_total`` slots, else the
-    uniform-K table; 'reference' its brute-force branch (no kernel, no
-    binning); 'auto' the brute force for at most 256 triangles.
+    uniform-K table, or the planar route that ``DD_RASTER=v3`` /
+    ``DD_BINNED=0`` select (:func:`raster_route`, read at each call;
+    ``max_occ`` the 'v2' route's inverted-map width); 'reference' its
+    brute-force branch (no kernel, no binning); 'auto' the brute force for
+    at most 256 triangles.
     ``antialias_rgb`` also antialiases the colours (the reference
     antialiases only the mask).
 
@@ -574,13 +689,15 @@ def render_batch(
     ``return_rast_out``, else None, and on the kernel branch
     '_bin_overflow', the (tile, triangle) pairs dropped by the
     capacities, and '_bin_need', the slots a compact table holding every
-    pair would need."""
+    pair would need ('v2': '_bin_overflow' and '_bin_occupancy'; 'v3'
+    bins nothing and carries neither)."""
     compact_total = _check_capacity(compact_total)
     mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors,
                  torch.device(device))
     return _render(mesh, tensor(mtx, device).reshape(-1, 4, 4), tuple(resolution),
                    compact_total, layout, cull_backfaces, max_tris_per_tile,
-                   _impl(raster_impl, mesh.t_count), return_rast_out, antialias_rgb)
+                   _impl(raster_impl, mesh.t_count), return_rast_out, antialias_rgb,
+                   raster_route(), max_occ)
 
 
 @torch.no_grad()
@@ -588,14 +705,15 @@ def render_rgb_mask(proj_cam, mtx, pos, pos_idx, resolution, edge_adj=None,
                     vtx_color=None, corner_colors=None,
                     device="cuda") -> Dict[str, torch.Tensor]:
     """Render (B, H, W, 3) 'rgb' and 'mask' and (B, H, W) 'depth' at poses
-    ``mtx`` (B, 4, 4) over a compact table sized to the bins exactly (the
-    gt render): ``render_batch``'s stacked semantics, the mask antialiased,
-    the rgb not."""
+    ``mtx`` (B, 4, 4) over a compact table sized to the bins exactly, or on
+    the planar route the environment selects (the gt render):
+    ``render_batch``'s stacked semantics, the mask antialiased, the rgb
+    not."""
     mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors,
                  torch.device(device))
     out = _render(mesh, tensor(mtx, device).reshape(-1, 4, 4), tuple(resolution),
-                  EXACT)
-    dropped = int(out["_bin_overflow"])
+                  EXACT, route=raster_route())
+    dropped = int(out.get("_bin_overflow", 0))  # the 'v3' route bins nothing
     if dropped:
         raise RuntimeError(f"gt render dropped {dropped} (tile, triangle) pairs: "
                            f"more than {MAX_TRIS_PER_TILE} triangles in a tile")

@@ -175,6 +175,39 @@ def packed_planar(
     return torch.stack([p.expand(b, t) for p in lanes], dim=1)
 
 
+def pack_planar(
+    cp: Dict[str, torch.Tensor],
+    corner_attrs: Optional[torch.Tensor],
+    zrot: Optional[torch.Tensor],
+    edge_adj: Optional[torch.Tensor],
+    degenerate: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The triangle-order table of the planar route (``planar.py:62-195``
+    with its defaults): (packed (B, 32, T), det (B, T)), differentiable in
+    the corner planes (so in mvp) and in ``zrot``.
+
+    Args:
+        cp: interleaved corner planes (B, 3T) (:func:`corner_planes`).
+        corner_attrs: (T, 3, C) static per-corner attributes, or None.
+        zrot: (B, 3T) per-corner rotated camera z (the depth plane), or None.
+        edge_adj: (T, 3) silhouette adjacency, or None (all edges).
+        degenerate: (T,) bool padding-triangle mask.
+
+    Lane 13 is the triangle index, lanes 28-31 the conservative NDC x/y
+    bounds that the sorted-range raster gates on."""
+    det = det_planar(cp, degenerate)
+    t = det.shape[1]
+    attrs = None
+    if corner_attrs is not None:
+        attrs = [[corner_attrs[:, k, c][None] for c in range(corner_attrs.shape[-1])]
+                 for k in range(3)]
+    zr = None if zrot is None else [_corner(zrot, k) for k in range(3)]
+    tri_idx = torch.arange(t, device=det.device)
+    packed = packed_planar(cp, attrs, zr, degenerate, tri_idx,
+                           _silhouette_planar(det, edge_adj))
+    return packed, det
+
+
 def static_pack_rows(pc: torch.Tensor, corner_attrs: Optional[torch.Tensor],
                      degenerate: Optional[torch.Tensor]):
     """The (R, T) static per-triangle table (``planar.py:215-231``): 9

@@ -1,5 +1,6 @@
 """Bin-table raster forward and backward: the compact table (K3, K4) and
-the uniform-K table (K7).
+the uniform-K table (K7), also over bins gathered from a triangle-order
+table (the ``DD_BINNED=0`` route, :class:`RasterV2`).
 
 Counterpart of ``diffdope_tpu/render/raster_v2.py``: for the compact table
 ``_fwd_from_bins_compact`` (:1827), ``_compact_dbins`` (:2033) and their
@@ -122,12 +123,19 @@ def raster_fwd_plain(bins, counts, off_c, used, k_chunk, frame_hw, tile_hw,
     tile, in slot chunks, keeping the (z, id) lexicographic minimum."""
     n = torch.minimum(counts, used * k_chunk).long()
     base = off_c.long() * k_chunk
-    return _raster_plain(bins, base, n, frame_hw, tile_hw, roi, slot_chunk)
+    return _raster_plain(bins, *_ranges(base, n), frame_hw, tile_hw, roi, slot_chunk)
 
 
-def _raster_plain(bins, base, n, frame_hw, tile_hw, roi, slot_chunk):
-    """The plain raster of K3 and K7: tile t's slots are [base[t],
-    base[t] + n[t])."""
+def _ranges(base: torch.Tensor, n: torch.Tensor):
+    """(slots (nt, S), valid (nt, S)) of the slot ranges [base[t], base[t] +
+    n[t]), S the longest."""
+    j = torch.arange(int(n.max()) if n.numel() else 0, device=base.device)
+    return base[:, None] + j[None, :], j[None, :] < n[:, None]
+
+
+def _raster_plain(bins, slots, valid, frame_hw, tile_hw, roi, slot_chunk):
+    """The plain raster of K3, K7 and K10: tile t walks the slots
+    ``slots[t]`` where ``valid[t]``, ``slot_chunk`` columns at a time."""
     b, _, tot = bins.shape
     nty, ntx = _frame_tiles(frame_hw, tile_hw)
     hc, wc = frame_hw
@@ -144,7 +152,7 @@ def _raster_plain(bins, base, n, frame_hw, tile_hw, roi, slot_chunk):
     x = ndc(pcol + ox, fw)[..., None]  # (nt, npx, 1)
     y = ndc(prow + oy, fh)[..., None]
 
-    smax = int(n.max()) if nt else 0
+    smax = slots.shape[1]
     inf = torch.tensor(float("inf"), device=dev)
     big = torch.tensor(_BIG, device=dev)
 
@@ -157,9 +165,8 @@ def _raster_plain(bins, base, n, frame_hw, tile_hw, roi, slot_chunk):
         ib = torch.full((nt, npx), _BIG, device=dev)
         sb = torch.full((nt, npx), -1, dtype=torch.long, device=dev)
         for s0 in range(0, smax, slot_chunk):
-            j = torch.arange(s0, min(s0 + slot_chunk, smax), device=dev)
-            slot = base[:, None] + j[None, :]  # (nt, ch)
-            in_tile = j[None, :] < n[:, None]
+            slot = slots[:, s0:s0 + slot_chunk]  # (nt, ch)
+            in_tile = valid[:, s0:s0 + slot_chunk]
             lanes = bins[bi, :_ID_LANES][:, slot.clamp(max=tot - 1)]  # (14, nt, ch)
             lanes = lanes[:, :, None, :]  # (14, nt, 1, ch)
             det = lanes[12]
@@ -337,8 +344,8 @@ def raster_uniform_fwd_plain(bins, counts, resolution, tile_hw,
     (h, w), (th, tw) = resolution, tile_hw
     base = torch.arange(nty * ntx, device=bins.device) * k
     n = counts.long().clamp(max=k)
-    return _raster_plain(bins, base, n, (nty * th, ntx * tw), tile_hw, (0, 0, h, w),
-                         slot_chunk)
+    return _raster_plain(bins, *_ranges(base, n), (nty * th, ntx * tw), tile_hw,
+                         (0, 0, h, w), slot_chunk)
 
 
 def raster_uniform_bwd(
@@ -411,3 +418,62 @@ def raster_gather_rows_binned(bins, counts, resolution, tile_hw):
     """(ids, rows) of the uniform table over the (h, w) frame
     ``resolution``, on that frame padded to whole tiles."""
     return RasterBinned.apply(bins, counts, tuple(resolution), tuple(tile_hw))
+
+
+def bins_planar(packed: torch.Tensor, tile_idx: torch.Tensor) -> torch.Tensor:
+    """The uniform table (B, 32, num_tiles*K) of a triangle-order table
+    (B, 32, T) and its bins (``raster_v2._bins_planar``, :1337): slot
+    t*K + k is triangle tile_idx[t, k] (sentinels read triangle T-1, past
+    every tile's count)."""
+    safe = tile_idx.reshape(-1).long().clamp(max=packed.shape[2] - 1)
+    return packed.index_select(2, safe)
+
+
+class RasterV2(torch.autograd.Function):
+    """(ids, rows) of the planar route of ``DD_BINNED=0``, differentiable in
+    the triangle-order table (``raster_gather_rows_v2``, :1247): K7 over the
+    gathered uniform table, backward K7 to d_bins, then the inverted-bin
+    gather-sum (plain torch; XLA in the reference, :1701-1708).  Outputs
+    cover the frame padded to whole tiles."""
+
+    @staticmethod
+    def forward(ctx, packed, tile_idx, tile_counts, inv_pos, inv_valid, resolution,
+                tile_hw):
+        bins = bins_planar(packed, tile_idx)
+        ids, rows, win = raster_uniform_fwd(bins, tile_counts, resolution, tile_hw)
+        ctx.save_for_backward(win, inv_pos, inv_valid)
+        ctx.n_slots, ctx.tile_hw = bins.shape[2], tile_hw
+        ctx.mark_non_differentiable(ids)
+        return ids, rows
+
+    @staticmethod
+    def backward(ctx, d_ids, d_rows):
+        win, inv_pos, inv_valid = ctx.saved_tensors
+        d_bins = raster_uniform_bwd(d_rows.contiguous(), win, ctx.n_slots, ctx.tile_hw)
+        b, width = d_bins.shape[:2]
+        t_count, m = inv_pos.shape
+        gathered = d_bins[:, :, inv_pos.reshape(-1)].reshape(b, width, t_count, m)
+        d_packed = torch.where(inv_valid[None, None], gathered, 0.0).sum(dim=3)
+        return d_packed, None, None, None, None, None, None
+
+
+def raster_gather_rows_v2(packed, tile_idx, tile_counts, inv_pos, inv_valid,
+                          resolution, tile_hw, padded: bool = False):
+    """Planar rasterize + row gather over per-tile bins (``raster_v2.py:1247``).
+
+    Args:
+        packed: (B, 32, T) triangle-order table (``planar.pack_planar``).
+        tile_idx / tile_counts: ``planar.bin_triangles_planar``'s bins at
+            ``tile_hw``.
+        inv_pos / inv_valid: ``gather_rows.invert_bins`` of ``tile_idx``.
+        padded: return the frame padded to whole tiles.
+
+    Returns ids (B, H, W) int32 (+1, 0 = background) and rows
+    (B, 32, H, W)."""
+    ids, rows = RasterV2.apply(packed.contiguous(), tile_idx.contiguous(),
+                               tile_counts.contiguous(), inv_pos, inv_valid,
+                               tuple(resolution), tuple(tile_hw))
+    if padded:
+        return ids, rows
+    h, w = resolution
+    return ids[:, :h, :w], rows[:, :, :h, :w]

@@ -1,6 +1,6 @@
-"""The port's hand kernels (K1-K8, and K5/K6 with the depth lane) against
-their plain torch versions, a DiffDope run and the ``rasterize`` op on the
-card against the same on the CPU.
+"""The port's hand kernels (K1-K10, and K5/K6 with the depth lane) against
+their plain torch versions, a DiffDope run, the planar routes' loss and
+the ``rasterize`` op on the card against the same on the CPU.
 
 A CUDA kernel has no CPU mode, so every test here needs a card and skips
 without one.  On a machine with a card (the repo's conftest imports jax,
@@ -17,9 +17,11 @@ from diffdope_tpu_torch import kernels
 from diffdope_tpu_torch.bench import bench_problem, distinct_poses
 from diffdope_tpu_torch.geometry import matmul44, xfm_points
 from diffdope_tpu_torch.kernels.check import (
+    check_gather_rows,
     check_kernels,
     check_pack,
     check_raster_ids,
+    gather_rows_inputs,
     raster_ids_inputs,
 )
 from diffdope_tpu_torch.optimize import pose_matrix
@@ -193,3 +195,76 @@ def test_rasterize_on_card_matches_cpu(problem, params):
     got, want = out["cuda"][2].numpy(), out["cpu"][2].numpy()
     scale = np.abs(want).max(axis=-1, keepdims=True)
     assert np.all(np.abs(got - want) <= 1e-6 + 2e-4 * np.abs(want) + 1e-6 * scale)
+
+
+@pytest.fixture(scope="module")
+def planar_checks(problem, params):
+    """K10 on the 'v3' route's sorted table and K7 over the 'v2' route's
+    gathered bins, each with K5/K6, at three distinct poses."""
+    mtx, _, _ = pose_matrix(params)
+    d_sums = torch.tensor([[1.0, 0.7, 0.0], [0.5, 1.3, 0.0], [2.0, 0.2, 0.0]],
+                          device=mtx.device)
+    rows = {}
+    for route in ("v3", "v2"):
+        fn = bench_problem(RES, subdiv=2, batch=B, device=mtx.device, route=route)["fn"]
+        rows[route] = {row["name"]: row for row in check_kernels(fn, mtx, d_sums)}
+    return rows
+
+
+@pytest.mark.parametrize("route,kernel", [
+    ("v3", "K10_raster_v3_fwd"), ("v3", "K10_raster_v3_bwd"), ("v3", "K6_loss_bwd"),
+    ("v2", "K7_raster_uniform_fwd"), ("v2", "K7_raster_uniform_bwd")])
+def test_planar_kernels_match_plain_on_card(planar_checks, route, kernel):
+    row = planar_checks[route][kernel]
+    assert row["ok"], row
+
+
+@pytest.mark.parametrize("tile", [(16, 32), (32, 128)])
+def test_k9_matches_plain_on_card(problem, params, tile):
+    """K9's forward and backward against their plain versions on the packed
+    rows and bins of three distinct poses, one launch each."""
+    s = problem["scene"]
+    pos_clip = _pos_clip(problem, params, "cuda")
+    tri = torch.as_tensor(s["tri"], device="cuda").long()
+    inputs = gather_rows_inputs(pos_clip, tri, RES, tile,
+                                torch.as_tensor(s["vtx_color"], device="cuda"),
+                                torch.as_tensor(s["edge_adj"], device="cuda").long())
+    kernels.reset_launches()
+    fwd, bwd = check_gather_rows(*inputs, RES, tile)
+    assert kernels.launches["gather_rows_fwd"] == kernels.launches["gather_rows_bwd"] == 1
+    assert fwd["ok"] and fwd["fg_pixels"] > 1000, fwd
+    assert bwd["ok"], bwd
+
+
+@pytest.mark.parametrize("route", ["v3", "v2"])
+def test_planar_fused_loss_on_card_matches_cpu(problem, params, route):
+    """A planar route's whole step on the card (K10, or K7 over the gathered
+    bins, then K5/K6; no pack kernel) against the same on the CPU: loss
+    rtol 1e-5, pose gradients rtol 2e-4 / atol 1e-6."""
+    from diffdope_tpu_torch.bench import raster_env
+    from diffdope_tpu_torch.render.pipeline import make_fused_loss
+
+    s = problem["scene"]
+    fns = {}
+    with raster_env(route):
+        for device in ("cuda", "cpu"):
+            fns[device] = make_fused_loss(
+                s["proj"], s["pos"], s["tri"], RES, problem["gt"], problem["lrs"],
+                problem["weights"], use_rgb=True, use_mask=True, edge_adj=s["edge_adj"],
+                vtx_color=s["vtx_color"], device=device)
+    out = {}
+    for device, fn in fns.items():
+        kernels.reset_launches()
+        p = {k: v.detach().to(device).requires_grad_(True) for k, v in params.items()}
+        mtx, _, _ = pose_matrix(p)
+        total, _ = fn(mtx)
+        grads = torch.autograd.grad(total, list(p.values()))
+        out[device] = (total.detach().cpu(), [g.cpu() for g in grads], dict(kernels.launches))
+    on = (("raster_v3_fwd", "raster_v3_bwd") if route == "v3"
+          else ("raster_uniform_fwd", "raster_uniform_bwd")) + ("loss_fwd", "loss_bwd")
+    launches = out["cuda"][2]
+    assert all(launches[c] == (1 if c in on else 0) for c in launches), launches
+    np.testing.assert_allclose(out["cuda"][0].numpy(), out["cpu"][0].numpy(), rtol=1e-5,
+                               atol=1e-7)
+    for g, want in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=2e-4, atol=1e-6)

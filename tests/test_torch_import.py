@@ -14,9 +14,9 @@ PORTED = (
     "camera.py", "config.py", "diffdope.py", "geometry.py", "image.py",
     "losses.py", "mesh.py", "metrics.py", "object3d.py", "optimize.py",
     "testing.py", "render/antialias.py", "render/fused_loss.py",
-    "render/interpolate.py", "render/pack_kernel.py", "render/pipeline.py",
-    "render/planar.py", "render/rasterize.py", "render/setup_tris.py",
-    "render/shade.py",
+    "render/gather_rows.py", "render/interpolate.py", "render/pack_kernel.py",
+    "render/pipeline.py", "render/planar.py", "render/raster_v3.py",
+    "render/rasterize.py", "render/setup_tris.py", "render/shade.py",
 )
 
 
@@ -90,6 +90,34 @@ def test_torch_wrappers_refuse_unsupported_devices():
         raster_ids(torch.zeros((1, 4, 16), device="meta"),
                    torch.zeros((1, 128), dtype=torch.int32, device="meta"),
                    torch.zeros(1, dtype=torch.int32, device="meta"), (16, 16), (16, 16))
+
+
+def test_torch_new_wrappers_refuse_unsupported_devices():
+    """K9's and K10's wrappers, like the others, take the plain versions for
+    CPU tensors only."""
+    import torch
+
+    from diffdope_tpu_torch.render import gather_rows, raster_v3
+
+    i32 = dict(dtype=torch.int32, device="meta")
+    tile_idx, counts = torch.zeros((1, 128), **i32), torch.zeros(1, **i32)
+    with pytest.raises(ValueError, match="unsupported device"):  # K9 forward
+        gather_rows.gather_rows_fwd(torch.zeros((1, 4, 32), device="meta"), tile_idx,
+                                    counts, (16, 16), (16, 16))
+    with pytest.raises(ValueError, match="unsupported device"):  # K9 backward
+        gather_rows.gather_rows_bwd(torch.zeros((1, 32, 16, 16), device="meta"),
+                                    torch.zeros((1, 16, 16), **i32), counts, 128, (16, 16))
+    tables = raster_v3.Tables(
+        torch.zeros(4, dtype=torch.long, device="meta"),
+        torch.zeros(4, dtype=torch.long, device="meta"), torch.zeros(1, **i32),
+        torch.zeros(1, **i32), torch.zeros((1, 1), **i32), torch.zeros((1, 1), **i32),
+        raster_v3.K_CHUNK, raster_v3.K_CHUNK)
+    with pytest.raises(ValueError, match="unsupported device"):  # K10 forward
+        raster_v3.raster_v3_fwd(torch.zeros((1, 32, raster_v3.K_CHUNK), device="meta"),
+                                tables, (16, 16), (16, 16))
+    with pytest.raises(ValueError, match="unsupported device"):  # K10 backward
+        raster_v3.raster_v3_bwd(torch.zeros((1, 32, 16, 16), device="meta"),
+                                torch.zeros((1, 16, 16), **i32), tables, (16, 16))
 
 
 def test_torch_texture_says_it_is_not_ported():

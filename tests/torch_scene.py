@@ -225,3 +225,51 @@ def random_clip_scene(seed=42, n_tri=40, batch=2, behind=False):
     tri = np.arange(3 * n_tri, dtype=np.int32).reshape(n_tri, 3)
     tri[5] = [15, 15, 16]
     return pos.astype(np.float32), tri
+
+
+#: the environment of each planar route, in both packages
+ROUTES = {"v3": {"DD_RASTER": "v3"}, "v2": {"DD_BINNED": "0"}}
+
+
+def set_route(mp, route):
+    for name in ("DD_RASTER", "DD_BINNED"):
+        mp.delenv(name, raising=False)
+    for name, value in ROUTES[route].items():
+        mp.setenv(name, value)
+
+
+def planar_capture(mp, route, store):
+    """Record (in ``store``) the planar table each reference raster call
+    consumes, under ``jax.jit`` too."""
+    import jax
+
+    from diffdope_tpu.render import raster_v2, raster_v3
+
+    module, name = ((raster_v3, "raster_gather_rows_v3") if route == "v3"
+                    else (raster_v2, "raster_gather_rows_v2"))
+    own = getattr(module, name)
+
+    def wrapped(packed, *args, **kwargs):
+        jax.debug.callback(lambda p: store.append(np.asarray(p)), packed)
+        return own(packed, *args, **kwargs)
+
+    mp.setattr(module, name, wrapped)
+
+
+def feed_planar_table(mp, table):
+    """Make the port's planar pack return ``table``'s values, its own
+    autograd carrying the gradient (value + (ref - value).detach())."""
+    import torch
+
+    from diffdope_tpu_torch.render import pipeline
+
+    own = pipeline._planar_pack
+
+    def pack(mesh, mtx):
+        packed, cp, det = own(mesh, mtx)
+        ref = torch.tensor(table)
+        assert ref.shape == packed.shape
+        np.testing.assert_allclose(packed.detach().numpy(), table, rtol=1e-4, atol=1e-4)
+        return packed + (ref - packed).detach(), cp, det
+
+    mp.setattr(pipeline, "_planar_pack", pack)
