@@ -92,8 +92,40 @@ result line):
    gradient; K9 forward and backward launched once each, its ids equal
    the brute force's on the same coefficients, its rows a plain gather's
    bit for bit, the pose gradients the plain-gather path's at rtol 2e-4,
-   atol 1e-6; forward and backward times and peak memory printed.
+   atol 1e-6; forward and backward times and peak memory printed;
+14. ``DiffDope`` with exact texture at the default configuration's full
+   size (960x540, B=8, 61 SGD steps, mask + rgb L1, ``tpu.texture_mode:
+   exact``) on the textured stand-in (``texture_mesh``: the geometry and uv
+   of ``data/standins/standin_tex_checker.ply``, which
+   ``tools/make_standins.py`` wrote from ``make_asym_uv()``, and its
+   ``make_texture('checker')`` 1024x1024 texture quantized to 8 bits, as a
+   PNG load gives it, so the packed sampler runs), the scene the port's
+   unfused texture render at the configured pose: K1-K4 and the colour lane
+   of K5/K6 launched once a step each (of each run the overflow recovery
+   makes: no ROI crop here, so an overshooting hypothesis grows the bins)
+   and nothing else (no plain pack); step-0 logs equal the unfused texture
+   route's at rtol 1e-5 and the pose gradients at the init its at rtol
+   2e-4, atol 1e-6; the chosen (step, hypothesis) scores below its start
+   and get_pose() ends closer to the gt pose (ADD) (most hypotheses
+   overshoot on the checker, on the unfused route too:
+   ``tools/port_texture_trajectories.py``; the configured two re-runs
+   allowed); the kernels held on its tables at its last poses; then the
+   same on ``make_texture('smooth')``, without and with the depth loss
+   (the colour lane with the depth plane), where most hypotheses' losses
+   must fall with at most one re-run, and with the depth term the init's
+   gradients are held with the gt depth moved off the few pixels whose
+   depth residual the two routes round to opposite signs (at most
+   ``MAX_DEPTH_TIES`` of the gt mask);
+15. appearance refinement on the texture leaf: the same scene, the mesh's
+   texture flat at 0.4, ``enable_gradients_texture()``, 11 steps: K1-K4
+   launched (the static uv takes the pack kernel), K5/K6 not, the texture
+   moved and written back into the mesh, the mean rgb loss falls; time and
+   peak memory printed.
 
+K5/K6's colour lane (with and without the depth plane) and K1/K2 at the uv
+table's two channels are held to their plain versions at the test scene
+and at the bench shapes (``bench_problem(texture=True)``: the bench's
+sphere at spherical uv, a 1024x1024 8-bit texture), where both are timed.
 K8 (the API's binned id search) is also held to its plain version at the
 test scene, at tiles (16, 32) and (32, 128) over a 70x100 frame, and at
 the bench shapes (B=64, 400x400, icosphere(5), tile (32, 128), K from the
@@ -162,6 +194,19 @@ AUTO_HYPER = {"nb_iterations": 4, "learning_rates_bound": [0.5, 2.0]}
 #: the planar routes' launch counters (phases 11 and 12)
 V3_FUSED = ("raster_v3_fwd", "raster_v3_bwd", "loss_fwd", "loss_bwd")
 V2_FUSED = ("raster_uniform_fwd", "raster_uniform_bwd", "loss_fwd", "loss_bwd")
+#: the exact-texture route's launch counters (phase 14)
+TEXTURE_FUSED = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd", "loss_fwd_color",
+                 "loss_bwd_color")
+#: phases 14/15: mask + rgb L1 (the configured weights), the texture sampled
+TEXTURE_TPU = {"texture_mode": "exact"}
+TEXTURE_LOSSES = {"l1_rgb_with_mask": True}
+#: phase 14's depth variant: the most gt-mask pixels (a share) at which the
+#: fused and the unfused route may round the init's depth residual to
+#: opposite signs (:func:`depth_ties`); 1 of its 2,983 read on the card and
+#: on the CPU at 960x540 (tools/port_texture_gradients.py), whose gradient
+#: gap of 10.3x the rtol 2e-4, atol 1e-6 allowance falls to 0.025x with
+#: the gt depth moved off it
+MAX_DEPTH_TIES = 0.001
 #: the DiffDope phases' init: the configured pose moved by this OpenCV-frame
 #: translation (mm, before the 0.01 scale) and rotated by this many degrees
 #: about ``axis``; the default SGD configuration recovers it (the phase
@@ -203,12 +248,13 @@ def check_all(fn, mtx, d_sums, reps=0):
 
 
 def diffdope_session(fused: bool, offset=None, tpu=None, losses=None, hyper=None,
-                     mesh=None):
-    """A DiffDope on the card at ``DEFAULT_CONFIG`` (``tpu``, ``losses`` and
-    ``hyper`` entries overriding its groups; ``mesh`` in place of the
-    configured model): the scene is the port's render at the configured
-    pose, the init that pose moved by ``offset`` (default ``INIT_OFFSET``).
-    Returns the session, the mesh's vertices (for ADD) and the gt pose."""
+                     mesh=None, device="cuda", resize=None):
+    """A DiffDope on ``device`` at ``DEFAULT_CONFIG`` (``tpu``, ``losses``
+    and ``hyper`` entries overriding its groups; ``mesh`` in place of the
+    configured model; ``resize`` in place of the configured image_resize):
+    the scene is the port's render at the configured pose, the init that
+    pose moved by ``offset`` (default ``INIT_OFFSET``).  Returns the
+    session, the mesh's vertices (for ADD) and the gt pose."""
     import numpy as np
     import torch
 
@@ -235,19 +281,23 @@ def diffdope_session(fused: bool, offset=None, tpu=None, losses=None, hyper=None
         cfg.losses[key] = value
     for key, value in (hyper or {}).items():
         cfg.hyperparameters[key] = value
+    if resize is not None:
+        cfg.scene.image_resize = resize
     camera = Camera(**cfg.camera)
     h = int(cfg.camera.im_height * cfg.scene.image_resize)
     w = int(cfg.camera.im_width * cfg.scene.image_resize)
     gt_obj = Object3D(**cfg.object3d, mesh=mesh)
     mesh = gt_obj.mesh
-    mtx_gt = pose_matrix(gt_obj.initial_params(1))[0]
+    mtx_gt = pose_matrix(gt_obj.initial_params(1, device))[0]
     # the gt render bins every triangle a tile touches: no capacity to drop
     t_all = len(mesh.pos_idx)
-    cap = compact_capacity(camera.cam_proj, mesh.pos, mesh.pos_idx, mtx_gt, (h, w), t_all)
+    cap = compact_capacity(camera.cam_proj, mesh.pos, mesh.pos_idx, mtx_gt, (h, w), t_all,
+                           device=device)
     with torch.no_grad():
         gt = render_batch(camera.cam_proj, mtx_gt, mesh.pos, mesh.pos_idx, (h, w),
                           vtx_color=mesh.vtx_color, edge_adj=mesh.edge_adj,
-                          max_tris_per_tile=t_all, compact_total=cap)
+                          max_tris_per_tile=t_all, compact_total=cap, tex=mesh.tex,
+                          uv=mesh.uv, uv_idx=mesh.uv_idx, device=device)
     dropped = int(gt.get("_bin_overflow", 0))  # none on the brute-force route
     if dropped:
         fail(f"the gt render dropped {dropped} (tile, triangle) pairs")
@@ -263,9 +313,28 @@ def diffdope_session(fused: bool, offset=None, tpu=None, losses=None, hyper=None
     obj = Object3D(position=np.asarray(o3.position) + offset["translation_mm"],
                    rotation=quat_from_matrix33(dr @ rot_cv),
                    batchsize=cfg.hyperparameters.batchsize, scale=o3.scale, mesh=mesh)
-    dd = DiffDope(cfg=cfg, camera=camera, object3d=obj, scene=scene)
-    points = torch.as_tensor(mesh.pos[: mesh.num_vertices], device="cuda")
+    dd = DiffDope(cfg=cfg, camera=camera, object3d=obj, scene=scene, device=device)
+    points = torch.as_tensor(mesh.pos[: mesh.num_vertices], device=device)
     return dd, points, mtx_gt[0]
+
+
+def texture_mesh(kind: str = "checker", quantized: bool = True):
+    """The textured stand-in at the configured scale: the geometry and uv of
+    ``data/standins/standin_tex_checker.ply`` (``make_asym_uv()``'s, written
+    by ``tools/make_standins.py``; its PNG is not in the repo) and
+    ``make_texture(kind)`` quantized to 8 bits (unless ``quantized`` is
+    False), built as ``load_mesh`` builds a textured PLY
+    (``testing.textured_mesh``: V flip, winding, padding, baked corner
+    colours)."""
+    from diffdope_tpu_torch.mesh import load_ply
+    from diffdope_tpu_torch.testing import quantize8, textured_mesh
+    from tools.make_standins import make_texture
+
+    data = load_ply(HERE / "data/standins/standin_tex_checker.ply")
+    tex = make_texture(kind)
+    return textured_mesh(data["vertices"], data["faces"], data["uv"],
+                         quantize8(tex) if quantized else tex.astype("float32"),
+                         scale=DEFAULT_CONFIG["object3d"]["scale"])
 
 
 def add_to(points, mtx_gt, m) -> float:
@@ -275,13 +344,13 @@ def add_to(points, mtx_gt, m) -> float:
 
     from diffdope_tpu_torch.metrics import add_metric
 
-    m = torch.as_tensor(np.asarray(m), device="cuda", dtype=torch.float64)
-    g = mtx_gt.to(device="cuda", dtype=torch.float64)
+    m = torch.as_tensor(np.asarray(m), device=points.device, dtype=torch.float64)
+    g = mtx_gt.to(device=points.device, dtype=torch.float64)
     return float(add_metric(points.double(), m[:3, :3], m[:3, 3], g[:3, :3], g[:3, 3]))
 
 
 def diffdope_phase(fused: bool, gpu: str, route: str, tpu=None, losses=None,
-                   raster=None):
+                   raster=None, mesh=None):
     """One default-configuration DiffDope run on the card, then the kernels
     of its route against their plain versions on its tables; returns the
     session, its launch counts, and the ADD of the init and of
@@ -295,7 +364,7 @@ def diffdope_phase(fused: bool, gpu: str, route: str, tpu=None, losses=None,
     from diffdope_tpu_torch.bench import raster_env
     from diffdope_tpu_torch.kernels.check import check_kernels
 
-    dd, points, mtx_gt = diffdope_session(fused, tpu=tpu, losses=losses)
+    dd, points, mtx_gt = diffdope_session(fused, tpu=tpu, losses=losses, mesh=mesh)
     h, w = dd.resolution
     with raster_env(raster):
         torch.cuda.synchronize()
@@ -408,15 +477,19 @@ def same_slots(fn_compact, fn_uniform, mtx) -> int:
     return n
 
 
-def check_diffdope(dd, route, add0, add1, total_falls: bool = True):
+def check_diffdope(dd, route, add0, add1, total_falls: bool = True,
+                   max_reruns: int = 1, most_fall: bool = True):
     """Phase 5's criteria on a kept run: no overflow or crop leak left, at
-    most one re-run, a finite loss that falls, and get_pose() closer to the
-    gt pose than the init.  ``total_falls`` False (phase 11) asks instead
-    that most hypotheses' losses fall and the chosen (step, hypothesis)
-    score below its hypothesis' start, and prints the total: at the default
-    configuration's loss scales (up to ~90 at base lr 20) one hypothesis
-    overshoots on every cull-free run, whose weighted total then ends above
-    its start (tools/port_planar_trajectories.py)."""
+    most ``max_reruns`` re-runs, a finite loss that falls, and get_pose()
+    closer to the gt pose than the init.  ``total_falls`` False (phase 11)
+    asks instead that most hypotheses' losses fall (unless ``most_fall`` is
+    False) and the chosen (step, hypothesis) score below its hypothesis'
+    start, and prints the total: at the default configuration's loss scales
+    (up to ~90 at base lr 20) one hypothesis overshoots on every cull-free
+    run, whose weighted total then ends above its start
+    (tools/port_planar_trajectories.py), and on the checker texture most
+    do, on the fused and the unfused route alike
+    (tools/port_texture_trajectories.py)."""
     telem = dd._result.telemetry or {}
     for key in ("_bin_overflow", "_crop_leak"):
         worst = int(telem[key].max()) if key in telem else 0
@@ -428,8 +501,8 @@ def check_diffdope(dd, route, add0, add1, total_falls: bool = True):
           f"{getattr(dd, '_capacity_boost', 1.0)}, slots seen "
           f"{getattr(dd, '_slots_seen', 0)}, crop disabled "
           f"{getattr(dd, '_crop_disable', False)})", flush=True)
-    if reruns > 1:
-        fail(f"DiffDope {route}: {reruns} recovery re-runs (at most one allowed)")
+    if reruns > max_reruns:
+        fail(f"DiffDope {route}: {reruns} recovery re-runs (at most {max_reruns} allowed)")
     total = dd._result.total_loss.cpu()
     print(f"DiffDope {route} loss: first {float(total[0]):.6f}, last "
           f"{float(total[-1]):.6f}; argmin {dd.get_argmin()}; ADD {add0:.6f} -> "
@@ -446,7 +519,8 @@ def check_diffdope(dd, route, add0, add1, total_falls: bool = True):
               f"(first {per_hyp[0].tolist()}, last {per_hyp[-1].tolist()}); the chosen "
               f"step {step}, hypothesis {hyp}: {float(per_hyp[step, hyp]):.6f} from "
               f"{float(per_hyp[0, hyp]):.6f}", flush=True)
-        if 2 * fell <= per_hyp.shape[1] or not per_hyp[step, hyp] < per_hyp[0, hyp]:
+        if (most_fall and 2 * fell <= per_hyp.shape[1]) or not (
+                per_hyp[step, hyp] < per_hyp[0, hyp]):
             fail(f"DiffDope {route}: the hypotheses' losses did not fall")
     if not add1 < add0:
         fail(f"DiffDope {route}: get_pose() did not end closer to the gt pose")
@@ -748,13 +822,14 @@ def planar_phases(gpu, step0_f):
     occ = dd2._telemetry_max(dd2._result, "_bin_occupancy")
     with raster_env("v2"):
         fn2 = dd2._make_fused_loss_fn(dd2.gt_tensors)
-        last = int(fn2.planar(torch.as_tensor(dd2.mtx_history[-1], device="cuda"))
-                   .telemetry["_bin_occupancy"])
-    print(f"DiffDope v2: bin occupancy at most {occ} a step, {last} at the last poses "
-          f"(inverted map width {MAX_OCC})", flush=True)
-    if not 0 < occ <= MAX_OCC or last > MAX_OCC:
-        fail(f"DiffDope v2: a triangle occurs in more than {MAX_OCC} tiles: its gradient "
-             "is truncated")
+        last = fn2.planar(torch.as_tensor(dd2.mtx_history[-1], device="cuda"))
+    width = last.inv_pos.shape[1]
+    print(f"DiffDope v2: bin occupancy at most {occ} a step, "
+          f"{int(last.telemetry['_bin_occupancy'])} at the last poses (inverted map "
+          f"width {MAX_OCC}: {width} there)", flush=True)
+    if occ <= 0 or width < int(last.telemetry["_bin_occupancy"]):
+        fail("DiffDope v2: the inverted map is narrower than the bins' occupancy: a "
+             "triangle's gradient is truncated")
     step0_2 = {k: v[0] for k, v in dd2.losses_values.items()}
     agree_step0("DiffDope v2 against fused (phase 5)", step0_2, step0_f, sorted(step0_f))
     if all(np.allclose(step0_3[k], step0_2[k], rtol=1e-5, atol=0.0) for k in step0_2):
@@ -901,6 +976,198 @@ def k9_phase(gpu):
     return launches["gather_rows_fwd"]
 
 
+def step0_grads(dd, gt_np=None):
+    """The pose gradients at the session's init through its fused loss and
+    through its unfused render + loss functions, on the gt arrays ``gt_np``
+    (default the session's)."""
+    import torch
+
+    from diffdope_tpu_torch.optimize import pose_matrix
+
+    gt_np = dd.gt_tensors if gt_np is None else gt_np
+    gt = {k: torch.as_tensor(v, device=dd.device) for k, v in gt_np.items()}
+    fused_fn, render_fn = dd._make_fused_loss_fn(gt_np), dd._make_render_fn()
+
+    def grads(objective):
+        p = {k: v.requires_grad_(True)
+             for k, v in dd.object3d.initial_params(dd.batchsize, dd.device).items()}
+        g = torch.autograd.grad(objective(pose_matrix(p)[0]), list(p.values()))
+        return {k: v.cpu().numpy() for k, v in zip(p, g)}
+
+    def unfused(mtx):
+        renders = render_fn(mtx)
+        return sum(fn(renders, gt, dd.learning_rates, dd.loss_weights)[0]
+                   for fn in dd.loss_functions)
+
+    return grads(lambda m: fused_fn(m)[0]), grads(unfused)
+
+
+def grad_gap(got, want) -> float:
+    """The largest |got - want| / (1e-6 + 2e-4 |want|) over the pose
+    gradients (dicts of arrays): at most 1 where they agree at rtol 2e-4,
+    atol 1e-6."""
+    import numpy as np
+
+    return max(float(np.max(np.abs(g - want[k]) / (1e-6 + 2e-4 * np.abs(want[k]))))
+               for k, g in got.items())
+
+
+def depth_ties(dd):
+    """The real pixels (H, W), any hypothesis, where at the session's init
+    the fused and the unfused route differentiate the depth term in
+    opposite directions.  The term is |attr_z + gt depth + t_z| * seg0 on
+    both, but the fused route adds attr_z to (gt depth + t_z) and the
+    unfused one takes (-(attr_z + t_z) - gt depth) * seg0: within a
+    rounding of 0 the two residuals can take opposite signs, and at 0
+    itself |.|'s derivative (+1 at 0) points opposite ways.  The init
+    keeps the configured t_z (``INIT_OFFSET`` has no z), so the
+    residual crosses 0 where the offset leaves a surface point's depth
+    unchanged."""
+    import torch
+
+    from diffdope_tpu_torch.optimize import pose_matrix
+    from diffdope_tpu_torch.render.pipeline import _raster
+    from diffdope_tpu_torch.render.shade import pixel_ndc, shade_from_rows
+
+    fn = dd._make_fused_loss_fn(dd.gt_tensors)
+    mtx0 = pose_matrix(dd.object3d.initial_params(dd.batchsize, dd.device))[0]
+    h, w = dd.resolution
+    with torch.no_grad():
+        ids, rows = _raster(fn.table(mtx0), fn.frame_hw, fn.roi)
+        n_ch = 2 if fn.sample is not None else 3  # uv or colours, then z
+        shd = shade_from_rows(ids, rows, fn.frame_hw, attr_channels=n_ch + 1,
+                              xy=pixel_ndc(fn.frame_hw, fn.roi, device=rows.device))
+        attr_z = shd["attrs_list"][n_ch]
+        fused = attr_z + fn.dplane(mtx0)
+        oy, ox = fn.roi[:2]
+        fused = fused[:, : h - oy, : w - ox]
+        attr_z = attr_z[:, : h - oy, : w - ox]
+        gt = {k: torch.as_tensor(v, device=dd.device) for k, v in dd.gt_tensors.items()}
+        gtd = gt["depth"][oy:, ox:][: fused.shape[1], : fused.shape[2]]
+        seg0 = gt["segmentation"][oy:, ox:, 0][: fused.shape[1], : fused.shape[2]]
+        unfused = (-(attr_z + mtx0[:, 2, 3, None, None]) - gtd) * seg0
+        # d/d attr_z: fused +sgn(fused), unfused -sgn(unfused), sgn(0) = +1
+        ties = ((fused >= 0) == (unfused >= 0)) & (seg0 > 0)
+    out = torch.zeros((h, w), dtype=torch.bool, device=dd.device)
+    out[oy: oy + ties.shape[1], ox: ox + ties.shape[2]] = ties.any(dim=0)
+    return out
+
+
+def untie_depth(dd, ties, step: float = 1e-3):
+    """The session's gt arrays with the gt depth moved by ``step`` at the
+    ``ties`` pixels: both routes then see a residual ~``step`` from 0
+    there, far past a rounding, and the same everywhere else."""
+    gt = dict(dd.gt_tensors)
+    depth = gt["depth"].copy()
+    depth[ties.cpu().numpy()] += step
+    gt["depth"] = depth
+    return gt
+
+
+def texture_phase(gpu, kind: str, depth: bool):
+    """Phase 14: DiffDope with exact texture at the default configuration,
+    on the ``kind`` texture, with the depth term if ``depth``.  Each run
+    launches K1-K4 and the colour lane once a step, equals the unfused
+    texture route's step-0 logs and init pose gradients, and gets closer
+    to the gt pose.  On the checker (the main path's run) most hypotheses
+    overshoot at the default loss scales, on the fused and the unfused
+    route alike (tools/port_texture_trajectories.py), and their bins
+    outgrow the init's capacity: the run checks the chosen hypothesis and
+    may take the configured re-runs.  On the smooth texture most
+    hypotheses' losses must fall, with at most one re-run.  With the depth
+    term the gradients are compared with the gt depth moved off the
+    pixels where the two routes round the depth residual to opposite signs
+    (:func:`depth_ties`; tools/port_texture_gradients.py).  Returns its
+    launch counts."""
+    losses = dict(TEXTURE_LOSSES, l1_depth_with_mask=depth)
+    route = f"texture {kind}" + (" depth" if depth else "")
+    checker = kind == "checker"
+    dd, launches, add0, add1 = diffdope_phase(True, gpu, route, tpu=TEXTURE_TPU,
+                                              losses=losses, mesh=texture_mesh(kind))
+    on = tuple(c + "_depth" if c.startswith("loss") and depth else c for c in TEXTURE_FUSED)
+    check_launches(f"DiffDope {route}", launches, on, set(launches) - set(on))
+    runs = dd.last_run_stats["steps"] * (1 + dd.last_run_stats["recovery_reruns"])
+    if any(launches[c] != runs for c in on):
+        fail(f"DiffDope {route}: the kernels did not launch once a step ({launches}, "
+             f"{runs} steps)")
+    fn = dd._make_fused_loss_fn(dd.gt_tensors)
+    print(f"DiffDope {route}: texture {dd.object3d.mesh.tex.shape}, packed sampler "
+          f"{fn.sample.packed}, gt-seg crop {fn.sample.crop} of {fn.frame_hw}", flush=True)
+    if not fn.sample.packed:
+        fail(f"DiffDope {route}: the 8-bit texture did not take the packed sampler")
+    # the texture route takes no ROI crop, so a hypothesis that overshoots
+    # grows the full frame's bins past the init's capacity
+    need = dd._result.telemetry["_bin_need"].cpu().numpy()
+    print(f"DiffDope {route}: slots a step needs: first {int(need[0])}, most "
+          f"{int(need.max())} (step {int(need.argmax())}), last {int(need[-1])}",
+          flush=True)
+    step0 = {k: v[0] for k, v in dd.losses_values.items()}
+    agree_step0(f"DiffDope {route} against its unfused texture route", step0,
+                unfused_step0(dd), sorted(step0))
+    g_fused, g_unfused = step0_grads(dd)
+    gap = grad_gap(g_fused, g_unfused)
+    print(f"DiffDope {route}: the init's pose gradients against the unfused route's: "
+          f"largest |fused - unfused| / (1e-6 + 2e-4 |unfused|) {gap:.3e}", flush=True)
+    if depth:
+        ties = depth_ties(dd)
+        seg = int((dd.gt_tensors["segmentation"][..., 0] > 0).sum())
+        g_fused, g_unfused = step0_grads(dd, untie_depth(dd, ties))
+        gap = grad_gap(g_fused, g_unfused)
+        print(f"DiffDope {route}: {int(ties.sum())} of {seg} gt-mask pixels round the "
+              f"depth residual to opposite signs on the two routes; with the gt depth "
+              f"moved off them the gap is {gap:.3e}", flush=True)
+        if int(ties.sum()) > MAX_DEPTH_TIES * seg:
+            fail(f"DiffDope {route}: {int(ties.sum())} sign ties of the depth residual, "
+                 f"more than {MAX_DEPTH_TIES:.1%} of the {seg} gt-mask pixels")
+    if gap > 1.0:
+        fail(f"DiffDope {route}: the init's pose gradients differ from the unfused "
+             f"route's beyond rtol 2e-4, atol 1e-6 ({gap:.3e} of it): fused {g_fused}, "
+             f"unfused {g_unfused}")
+    max_reruns = int(dd._tpu().get("overflow_retries", 2)) if checker else 1
+    check_diffdope(dd, route, add0, add1, total_falls=False, max_reruns=max_reruns,
+                   most_fall=not checker)
+    return launches
+
+
+def appearance_phase(gpu):
+    """Phase 15: the texture leaf refined with the pose (unfused route)."""
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch import kernels
+
+    mesh = texture_mesh()
+    dd, _, _ = diffdope_session(True, tpu=TEXTURE_TPU, losses=TEXTURE_LOSSES,
+                                hyper={"nb_iterations": 10}, mesh=mesh)
+    mesh.tex = np.full_like(mesh.tex, 0.4)  # the scene keeps the checker
+    start = mesh.tex
+    mesh.enable_gradients_texture()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    dd.run_optimization()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    stats = dd.last_run_stats
+    rgb = dd.losses_values["rgb"].mean(axis=1)
+    moved = float(np.abs(mesh.tex - 0.4).max())
+    print(f"DiffDope appearance: {stats['steps']} steps, B={dd.batchsize}, texture "
+          f"{mesh.tex.shape}: kept run {stats['wall_time_s']:.4f} s, "
+          f"{stats['steps_per_sec']:.3f} steps/s; run_optimization {total_s:.4f} s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB [{gpu}]", flush=True)
+    print(f"DiffDope appearance launches: {launches}", flush=True)
+    print(f"DiffDope appearance: mean rgb loss {rgb[0]:.6f} -> {rgb[-1]:.6f}; the texture "
+          f"moved up to {moved:.6f} from 0.4", flush=True)
+    on = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd")
+    check_launches("DiffDope appearance", launches, on, set(launches) - set(on))
+    if mesh.tex is start or not moved > 1e-5:
+        fail("DiffDope appearance: the texture did not move or was not written back")
+    if not rgb[-1] < rgb[0]:
+        fail("DiffDope appearance: the rgb loss did not fall")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -943,8 +1210,14 @@ def main() -> None:
                              uniform=True)
     d_small_du = torch.tensor([[1.0, 0.7, 0.9], [0.5, 1.3, 1.1], [2.0, 0.2, 0.4]],
                               device="cuda")
+    # K1/K2 at the uv table's two channels and K5/K6's colour lane, without
+    # and with the depth plane, on the test scene textured
+    small_t = [bench_problem((64, 96), subdiv=2, batch=3, device="cuda", texture=True,
+                             depth=depth) for depth in (False, True)]
     for row in (check_all(small["fn"], mtx, d_small)
-                + check_all(small_du["fn"], mtx, d_small_du)):
+                + check_all(small_du["fn"], mtx, d_small_du)
+                + check_all(small_t[0]["fn"], mtx, d_small)
+                + check_all(small_t[1]["fn"], mtx, d_small_du)):
         print(f"test scene {row['name']}: ok={row['ok']} "
               f"max_abs_err={row['max_abs_err']:.3e} ({row['tolerance']})", flush=True)
         if not row["ok"]:
@@ -985,9 +1258,14 @@ def main() -> None:
     # the depth lane of K5/K6 at the bench problem's crop (its depth
     # variant), and K7 on its uniform-K table (the full frame, K 1,024);
     # only the rows the kernel line takes from each
+    # and K5/K6's colour lane on the bench problem textured (no ROI crop on
+    # the texture route: the full frame), without and with the depth plane
     for variant, names in (({"depth": True}, ("K5_loss_fwd_depth", "K6_loss_bwd_depth")),
                            ({"uniform": True}, ("K7_raster_uniform_fwd",
-                                                "K7_raster_uniform_bwd"))):
+                                                "K7_raster_uniform_bwd")),
+                           ({"texture": True}, ("K5_loss_fwd_color", "K6_loss_bwd_color")),
+                           ({"texture": True, "depth": True},
+                            ("K5_loss_fwd_color_depth", "K6_loss_bwd_color_depth"))):
         extra = bench_problem((400, 400), subdiv=5, batch=64, device="cuda", **variant)
         print(f"bench problem {variant}: crop {extra['fn'].crop}", flush=True)
         for row in check_kernels(extra["fn"], mtx, d_sums, reps=20):
@@ -1145,15 +1423,28 @@ def main() -> None:
     launches_3, _ = planar_phases(gpu, step0_f)
     torch.cuda.empty_cache()
     k9_launches = k9_phase(gpu)
+    torch.cuda.empty_cache()
+
+    # ---- exact texture and appearance refinement ---------------------------
+    launches_t = texture_phase(gpu, "checker", depth=False)
+    torch.cuda.empty_cache()
+    texture_phase(gpu, "smooth", depth=False)
+    torch.cuda.empty_cache()
+    launches_td = texture_phase(gpu, "smooth", depth=True)
+    torch.cuda.empty_cache()
+    appearance_phase(gpu)
 
     # launches on the path that runs each kernel: the bench main path, the
     # depth phase on the compact table, the depth phase on the uniform one,
-    # the API path, phase 11 (K10) and phase 13 (K9)
+    # the API path, phase 11 (K10), phase 13 (K9) and phase 14 and its depth
+    # variant (the colour lane)
     path = {**launches_c, **{c: launches_k[c] for c in
                              ("raster_uniform_fwd", "raster_uniform_bwd")},
             **{c: launches[c] for c in COMPACT_FUSED}, "raster_ids": k8_launches,
             "gather_rows_fwd": k9_launches, "gather_rows_bwd": k9_launches,
-            **{c: launches_3[c] for c in ("raster_v3_fwd", "raster_v3_bwd")}}
+            **{c: launches_3[c] for c in ("raster_v3_fwd", "raster_v3_bwd")},
+            **{c: launches_t[c] for c in ("loss_fwd_color", "loss_bwd_color")},
+            **{c: launches_td[c] for c in ("loss_fwd_color_depth", "loss_bwd_color_depth")}}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = bench_rows[name]

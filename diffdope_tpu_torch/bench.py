@@ -38,11 +38,13 @@ from diffdope_tpu_torch.render.pipeline import (
     make_fused_loss,
     render_rgb_mask,
 )
-from diffdope_tpu_torch.testing import bench_scene
+from diffdope_tpu_torch.testing import bench_scene, quantize8, spherical_uv
 
 BATCH = 64
 STEPS = 100
 RES = (400, 400)
+#: the texture of ``bench_problem(texture=True)`` (pixels a side)
+TEXTURE_SIZE = 1024
 
 
 def log(*args) -> None:
@@ -81,7 +83,7 @@ def raster_env(route: Optional[str]):
 
 def bench_problem(resolution=RES, subdiv=5, batch=BATCH, device="cuda",
                   depth: bool = False, uniform: bool = False,
-                  route: Optional[str] = None) -> Dict[str, object]:
+                  route: Optional[str] = None, texture: bool = False) -> Dict[str, object]:
     """The bench protocol's problem on ``device``: the icosphere scene, gt
     images rendered by the port at the gt pose, loss scales
     ``np.random.default_rng(0).uniform(0.5, 4, B)``, rgb+mask weights
@@ -92,12 +94,20 @@ def bench_problem(resolution=RES, subdiv=5, batch=BATCH, device="cuda",
     the depth L1 (weight 1.0) against the gt render's depth; ``uniform``
     runs the uniform-K table (full frame, no crop) in place of the compact
     one; ``route`` 'v3' or 'v2' builds the loss on that planar route (the
-    gt render stays on the default one)."""
+    gt render stays on the default one); ``texture`` colours the sphere by
+    a ``TEXTURE_SIZE``-square 8-bit texture at spherical uv
+    (``testing.spherical_uv``), in the gt render and in the loss, which
+    then takes the exact-texture route (K5/K6's colour lane)."""
     s = bench_scene(resolution, subdiv)
+    colors = dict(vtx_color=s["vtx_color"])
+    if texture:
+        rng = np.random.default_rng(3)
+        colors = dict(tex=quantize8(rng.uniform(0.1, 0.9, (TEXTURE_SIZE,) * 2 + (3,))),
+                      uv=spherical_uv(s["pos"]), uv_idx=s["tri"])
     mtx_gt, _, _ = pose_matrix(pose_params(s["q_gt"], s["t_gt"], 1, device))
     gt = render_rgb_mask(
         s["proj"], mtx_gt, s["pos"], s["tri"], resolution,
-        edge_adj=s["edge_adj"], vtx_color=s["vtx_color"], device=device,
+        edge_adj=s["edge_adj"], device=device, **colors,
     )
     gt_np = {"rgb": gt["rgb"][0].cpu().numpy(),
              "segmentation": gt["mask"][0].cpu().numpy(),
@@ -113,9 +123,8 @@ def bench_problem(resolution=RES, subdiv=5, batch=BATCH, device="cuda",
     with raster_env(route):
         fn = make_fused_loss(
             s["proj"], s["pos"], s["tri"], resolution, gt_np, lrs, weights,
-            use_rgb=True, use_depth=depth, use_mask=True,
-            edge_adj=s["edge_adj"], vtx_color=s["vtx_color"],
-            compact_total=None if uniform else total, device=device,
+            use_rgb=True, use_depth=depth, use_mask=True, edge_adj=s["edge_adj"],
+            compact_total=None if uniform else total, device=device, **colors,
         )
     params0 = pose_params(s["q0"], s["t0"], batch, device)
     return dict(scene=s, gt=gt_np, lrs=lrs, weights=weights, fn=fn,

@@ -1,7 +1,8 @@
 """Carry the reference's state across to the port.
 
 The system has no weights: its state is the pose parameters {qx..z} (B,),
-the mesh (pos, tri, edge_adj, vtx_color or corner_colors), the gt images,
+the mesh (pos, tri, edge_adj, its colours: vtx_color, or a texture with
+its uv, uv_idx and baked corner_colors), the gt images,
 the per-hypothesis loss scales and the projection.  :func:`state` takes
 the JAX package's inputs as numpy arrays (``np.asarray`` of a jax array
 works), nested in dicts as the reference passes them, and returns the
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 #: keys of integer arrays (triangle and neighbour indices); all else is float32
-INDEX_KEYS = ("tri", "pos_idx", "edge_adj")
+INDEX_KEYS = ("tri", "pos_idx", "edge_adj", "uv_idx")
 
 
 def tensor(a, device, dtype=torch.float32) -> torch.Tensor:
@@ -54,7 +55,8 @@ def _plain(value):
 
 def diffdope_state(dd) -> Dict[str, object]:
     """A reference ``DiffDope``'s state as numpy: the mesh arrays ('pos',
-    'pos_idx', 'edge_adj', 'vtx_color' or 'corner_colors', 'is_closed',
+    'pos_idx', 'edge_adj', each colour array the mesh has: 'vtx_color',
+    'corner_colors', and 'tex' with 'uv' and 'uv_idx'; 'is_closed',
     'is_oriented'), the projection 'proj', the initial pose 'params0'
     (seven (B,) arrays), the loss scales 'learning_rates', the gt arrays
     'gt' (its 'depth' too, where the scene has one), and the config groups
@@ -76,8 +78,7 @@ def diffdope_state(dd) -> Dict[str, object]:
         "losses": _plain(dd.cfg.get("losses", {})),
         "tpu": _plain(dd.cfg.get("tpu", {})),
     }
-    if mesh.corner_colors is not None:
-        out["corner_colors"] = np.asarray(mesh.corner_colors)
-    else:
-        out["vtx_color"] = np.asarray(mesh.vtx_color)
+    for key in ("vtx_color", "corner_colors", "tex", "uv", "uv_idx"):
+        if getattr(mesh, key) is not None:
+            out[key] = np.asarray(getattr(mesh, key))
     return out

@@ -35,10 +35,25 @@
 // pixel.  d|v|/dv is +1 at v = 0 everywhere: the TPU kernel takes
 // jnp.sign (0 at 0) on slabs without foreground, a rule that depends on
 // its slab height; the port keeps one rule.  The rgb + mask launch
-// (kDepth false) is the same code as before the depth lane existed.
+// (kDepth and kColors false) keeps the arithmetic it had before the depth
+// and colour lanes existed.
+//
+// The colour lane (kColors, when the caller passes colour planes (B, 3, hc,
+// wc): the semi-fused exact-texture route's texture samples, foreground-
+// masked by the caller; the TPU kernel's with_colors=True): the rows then
+// hold n_ch = 2 uv channels (lanes 16-21) before the rotated z (22-24), and
+// the rgb term reads colors[b, c, p] in place of the shaded colour
+// (fused_loss.py:115).  The shade computes only what is still read: s
+// and, with depth, the z channel.  K6 writes d_colors[b, c, p] = dr * seg_c
+// * sgn(col_c - rgb_c) at every real pixel (0 past the frame) and no rgb
+// cotangent into the attribute lanes; the uv lanes' cotangent comes from
+// the sampler outside.  The TPU kernel writes d_colors only in slabs with
+// foreground (zeros elsewhere, :346-356); the caller's foreground factor
+// removes the background values in both.
 //
 // Bound on this card: the rows reads — 23 of the 32 lanes (0-12, 14, 16-24)
-// of each foreground pixel, 26 with the depth lane (memory bound).
+// of each foreground pixel, 26 with the depth lane; the colour lane reads
+// 14 (17 with depth) and the colour planes (memory bound).
 //
 // Numeric contract (build with -fmad=false, no fast math): every product
 // and sum is rounded as in the reference's f32 expression order.
@@ -221,15 +236,26 @@ __device__ float aa_at(const Frame& f, int r, int c) {
   return __fadd_rn(color, delta);
 }
 
-// kCh = 3 colour channels, or 4 with the rotated-z depth channel
-template <int kCh>
-struct Shade {
-  float e[3], s, s_safe, num[kCh], attr[kCh];
+// The attribute channels a launch reads: the rows hold kNCh colour (3) or
+// uv (2) channels from lane 16, then the rotated z; the rgb + mask lanes
+// read the colours (and z), the colour lane z alone, with depth.
+template <bool kDepth, bool kColors>
+struct Lanes {
+  static constexpr int kNCh = kColors ? 2 : 3;
+  static constexpr int kFirst = kColors ? kNCh : 0;  // first channel read
+  static constexpr int kRead = (kColors ? 0 : kNCh) + (kDepth ? 1 : 0);
+  static constexpr int kZ = kRead - 1;  // index of z among those read
 };
 
-template <int kCh>
-__device__ Shade<kCh> shade_at(const Frame& f, int r, int c, bool fg) {
-  Shade<kCh> sh;
+// kN >= 1 attribute channels from channel kFirst (lanes 16 + 3 kFirst on)
+template <int kN>
+struct Shade {
+  float e[3], s, s_safe, num[kN], attr[kN];
+};
+
+template <int kFirst, int kN>
+__device__ Shade<kN> shade_at(const Frame& f, int r, int c, bool fg) {
+  Shade<kN> sh;
   const size_t p = (size_t)r * f.wc + c;
   const float x = f.x(c), y = f.y(r);
 #pragma unroll
@@ -239,22 +265,23 @@ __device__ Shade<kCh> shade_at(const Frame& f, int r, int c, bool fg) {
   sh.s = __fadd_rn(__fadd_rn(sh.e[0], sh.e[1]), sh.e[2]);
   sh.s_safe = fabsf(sh.s) > kEps ? sh.s : 1.0f;
 #pragma unroll
-  for (int ch = 0; ch < kCh; ++ch) {
-    sh.num[ch] = lin3(f.lane(16 + 3 * ch, p), x, f.lane(17 + 3 * ch, p), y,
-                      f.lane(18 + 3 * ch, p));
+  for (int ch = 0; ch < kN; ++ch) {
+    const int k = 16 + 3 * (kFirst + ch);
+    sh.num[ch] = lin3(f.lane(k, p), x, f.lane(k + 1, p), y, f.lane(k + 2, p));
     sh.attr[ch] = fg ? __fdiv_rn(sh.num[ch], sh.s_safe) : 0.0f;
   }
   return sh;
 }
 
-template <bool kDepth>
+template <bool kDepth, bool kColors>
 __global__ void loss_fwd_kernel(const float* __restrict__ rows,
                                 const int* __restrict__ ids,
                                 const float* __restrict__ gt6,
-                                const float* __restrict__ dplane, int hc,
+                                const float* __restrict__ dplane,
+                                const float* __restrict__ colors, int hc,
                                 int wc, int oy, int ox, int fh, int fw,
                                 float* __restrict__ partials) {
-  constexpr int kCh = kDepth ? 4 : 3;
+  using L = Lanes<kDepth, kColors>;
   constexpr int kSums = kDepth ? 3 : 2;
   __shared__ float red[kSums][kBlock];
   const int b = blockIdx.y;
@@ -266,18 +293,30 @@ __global__ void loss_fwd_kernel(const float* __restrict__ rows,
     if (f.valid(r, c)) {
       const bool fg = f.ids[p] > 0;
       const float aa = aa_at(f, r, c);
-      const Shade<kCh> sh = shade_at<kCh>(f, r, c, fg);
+      float col[3];
+      float attr_z = 0.0f;
+      if constexpr (L::kRead > 0) {
+        const Shade<L::kRead> sh = shade_at<L::kFirst, L::kRead>(f, r, c, fg);
+        if constexpr (!kColors) {
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) col[ch] = sh.attr[ch];
+        }
+        if constexpr (kDepth) attr_z = sh.attr[L::kZ];
+      }
+      if constexpr (kColors) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          col[ch] = colors[((size_t)b * 3 + ch) * f.plane + p];
+      }
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
         const float seg = f.gt6[ch * f.plane + p];
         const float rgb = f.gt6[(3 + ch) * f.plane + p];
         m_term = __fadd_rn(m_term, fabsf(__fsub_rn(aa, seg)));
-        r_term = __fadd_rn(
-            r_term, __fmul_rn(fabsf(__fsub_rn(sh.attr[ch], rgb)), seg));
+        r_term = __fadd_rn(r_term, __fmul_rn(fabsf(__fsub_rn(col[ch], rgb)), seg));
       }
       if constexpr (kDepth) {
-        const float v = __fadd_rn(sh.attr[kCh - 1],
-                                  dplane[(size_t)b * f.plane + p]);
+        const float v = __fadd_rn(attr_z, dplane[(size_t)b * f.plane + p]);
         d_term = __fmul_rn(fabsf(v), f.gt6[p]);
       }
     }
@@ -348,19 +387,22 @@ __device__ __forceinline__ void add_lane(float (&d)[9], int k, float v) {
     if (i == k) d[i] = __fadd_rn(d[i], v);
 }
 
-// K6 pass B: d_rows per pixel (a gather over the pixel's own terms), and
-// with the depth lane d_dplane per pixel
-template <bool kDepth>
+// K6 pass B: d_rows per pixel (a gather over the pixel's own terms), with
+// the depth lane d_dplane per pixel, with the colour lane d_colors
+template <bool kDepth, bool kColors>
 __global__ void loss_bwd_rows_kernel(const float* __restrict__ rows,
                                      const int* __restrict__ ids,
                                      const float* __restrict__ gt6,
                                      const float* __restrict__ dplane,
+                                     const float* __restrict__ colors,
                                      const float* __restrict__ d_sums, int hc,
                                      int wc, int oy, int ox, int fh, int fw,
                                      const float* __restrict__ g,
                                      float* __restrict__ d_rows,
-                                     float* __restrict__ d_dplane) {
-  constexpr int kCh = kDepth ? 4 : 3;
+                                     float* __restrict__ d_dplane,
+                                     float* __restrict__ d_colors) {
+  using L = Lanes<kDepth, kColors>;
+  constexpr int kN = L::kRead > 0 ? L::kRead : 1;  // array extent
   const int b = blockIdx.y;
   const Frame f = make_frame(rows, ids, gt6, b, hc, wc, oy, ox, fh, fw);
   const int p = blockIdx.x * kBlock + threadIdx.x;
@@ -368,58 +410,76 @@ __global__ void loss_bwd_rows_kernel(const float* __restrict__ rows,
   const int r = p / wc, c = p % wc;
   const float* gb = g + (size_t)b * f.plane;
   float d_edge[9];
-  float d_attr[3 * kCh];
+  float d_attr[3 * kN];
 #pragma unroll
   for (int k = 0; k < 9; ++k) d_edge[k] = 0.0f;
 #pragma unroll
-  for (int k = 0; k < 3 * kCh; ++k) d_attr[k] = 0.0f;
+  for (int k = 0; k < 3 * kN; ++k) d_attr[k] = 0.0f;
 
   const bool fg = f.ids[p] > 0;
   const bool valid = f.valid(r, c);
-  Shade<kCh> sh;  // read only at a real foreground pixel
-  if (fg && valid) sh = shade_at<kCh>(f, r, c, true);
-  float h[kCh];  // the cotangent of each attribute channel
-  if constexpr (kDepth) {
-    // d|attr_z + dplane| * seg0: the same cotangent reaches dplane and,
-    // on a foreground pixel, attr_z
-    float dz = 0.0f;
-    if (valid) {
-      const float attr_z = fg ? sh.attr[kCh - 1] : 0.0f;
-      const float v = __fadd_rn(attr_z, dplane[(size_t)b * f.plane + p]);
-      dz = __fmul_rn(__fmul_rn(d_sums[b * 3 + 2], f.gt6[p]), sgn_jax(v));
-    }
-    d_dplane[(size_t)b * f.plane + p] = dz;
-    h[kCh - 1] = dz;
-  }
-  if (fg && valid) {
-    const float dr = d_sums[b * 3 + 1];
-    const float x = f.x(c), y = f.y(r);
+  const float dr = d_sums[b * 3 + 1];
+  if constexpr (kColors) {
+    // d|col_c - rgb_c| * seg_c: the cotangent of the colour planes
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
-      const float seg = f.gt6[ch * f.plane + p];
-      const float rgb = f.gt6[(3 + ch) * f.plane + p];
-      h[ch] = __fmul_rn(__fmul_rn(dr, seg), sgn_jax(__fsub_rn(sh.attr[ch], rgb)));
+      float dc = 0.0f;
+      if (valid) {
+        const float seg = f.gt6[ch * f.plane + p];
+        const float rgb = f.gt6[(3 + ch) * f.plane + p];
+        const float col = colors[((size_t)b * 3 + ch) * f.plane + p];
+        dc = __fmul_rn(__fmul_rn(dr, seg), sgn_jax(__fsub_rn(col, rgb)));
+      }
+      d_colors[((size_t)b * 3 + ch) * f.plane + p] = dc;
     }
-    // attr = num / s: d num = h / s, d s = -h * ((num / s) / s) — the
-    // division's derivative in the plain version's (autograd's) rounding;
-    // the terms can cancel, so their order matters too: autograd adds the
-    // channels' d s last channel first
-    float ds = 0.0f;
-#pragma unroll
-    for (int ch = kCh - 1; ch >= 0; --ch) {
-      const float dn = __fdiv_rn(h[ch], sh.s_safe);
-      const float ds_c = __fmul_rn(-h[ch], __fdiv_rn(sh.attr[ch], sh.s_safe));
-      ds = ch == kCh - 1 ? ds_c : __fadd_rn(ds, ds_c);
-      d_attr[3 * ch + 0] = __fmul_rn(dn, x);
-      d_attr[3 * ch + 1] = __fmul_rn(dn, y);
-      d_attr[3 * ch + 2] = dn;
+  }
+  if constexpr (L::kRead > 0) {
+    Shade<kN> sh;  // read only at a real foreground pixel
+    if (fg && valid) sh = shade_at<L::kFirst, kN>(f, r, c, true);
+    float h[kN];  // the cotangent of each attribute channel read
+    if constexpr (kDepth) {
+      // d|attr_z + dplane| * seg0: the same cotangent reaches dplane and,
+      // on a foreground pixel, attr_z
+      float dz = 0.0f;
+      if (valid) {
+        const float attr_z = fg ? sh.attr[L::kZ] : 0.0f;
+        const float v = __fadd_rn(attr_z, dplane[(size_t)b * f.plane + p]);
+        dz = __fmul_rn(__fmul_rn(d_sums[b * 3 + 2], f.gt6[p]), sgn_jax(v));
+      }
+      d_dplane[(size_t)b * f.plane + p] = dz;
+      h[L::kZ] = dz;
     }
-    if (fabsf(sh.s) > kEps) {
+    if (fg && valid) {
+      const float x = f.x(c), y = f.y(r);
+      if constexpr (!kColors) {
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        d_edge[3 * j + 0] = __fadd_rn(d_edge[3 * j + 0], __fmul_rn(ds, x));
-        d_edge[3 * j + 1] = __fadd_rn(d_edge[3 * j + 1], __fmul_rn(ds, y));
-        d_edge[3 * j + 2] = __fadd_rn(d_edge[3 * j + 2], ds);
+        for (int ch = 0; ch < 3; ++ch) {
+          const float seg = f.gt6[ch * f.plane + p];
+          const float rgb = f.gt6[(3 + ch) * f.plane + p];
+          h[ch] = __fmul_rn(__fmul_rn(dr, seg), sgn_jax(__fsub_rn(sh.attr[ch], rgb)));
+        }
+      }
+      // attr = num / s: d num = h / s, d s = -h * ((num / s) / s) — the
+      // division's derivative in the plain version's (autograd's) rounding;
+      // the terms can cancel, so their order matters too: autograd adds the
+      // channels' d s last channel first
+      float ds = 0.0f;
+#pragma unroll
+      for (int ch = kN - 1; ch >= 0; --ch) {
+        const float dn = __fdiv_rn(h[ch], sh.s_safe);
+        const float ds_c = __fmul_rn(-h[ch], __fdiv_rn(sh.attr[ch], sh.s_safe));
+        ds = ch == kN - 1 ? ds_c : __fadd_rn(ds, ds_c);
+        d_attr[3 * ch + 0] = __fmul_rn(dn, x);
+        d_attr[3 * ch + 1] = __fmul_rn(dn, y);
+        d_attr[3 * ch + 2] = dn;
+      }
+      if (fabsf(sh.s) > kEps) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          d_edge[3 * j + 0] = __fadd_rn(d_edge[3 * j + 0], __fmul_rn(ds, x));
+          d_edge[3 * j + 1] = __fadd_rn(d_edge[3 * j + 1], __fmul_rn(ds, y));
+          d_edge[3 * j + 2] = __fadd_rn(d_edge[3 * j + 2], ds);
+        }
       }
     }
   }
@@ -467,65 +527,97 @@ __global__ void loss_bwd_rows_kernel(const float* __restrict__ rows,
     }
   }
 
+  // lanes 16 + 3 kFirst on carry the channels read; every other lane is 0
+  constexpr int kLo = 16 + 3 * L::kFirst, kHi = kLo + 3 * L::kRead;
   float* out = d_rows + (size_t)b * kLanes * f.plane + p;
 #pragma unroll
   for (int k = 0; k < 9; ++k) out[k * f.plane] = d_edge[k];
 #pragma unroll
-  for (int k = 9; k < 16; ++k) out[k * f.plane] = 0.0f;
+  for (int k = 9; k < kLo; ++k) out[k * f.plane] = 0.0f;
 #pragma unroll
-  for (int k = 0; k < 3 * kCh; ++k) out[(16 + k) * f.plane] = d_attr[k];
+  for (int k = kLo; k < kHi; ++k) out[k * f.plane] = d_attr[k - kLo];
 #pragma unroll
-  for (int k = 16 + 3 * kCh; k < kLanes; ++k) out[k * f.plane] = 0.0f;
+  for (int k = kHi; k < kLanes; ++k) out[k * f.plane] = 0.0f;
 }
 
-}  // namespace
-
-// dplane (B, hc, wc) may be null: the rgb + mask launch, depth sum 0
-extern "C" int dd_loss_fwd(const float* rows, const int* ids, const float* gt6,
-                           const float* dplane, int B, int hc, int wc, int oy,
-                           int ox, int fh, int fw, float* partials,
-                           float* sums, void* stream) {
+template <bool kDepth, bool kColors>
+int loss_fwd_launch(const float* rows, const int* ids, const float* gt6,
+                    const float* dplane, const float* colors, int B, int hc,
+                    int wc, int oy, int ox, int fh, int fw, float* partials,
+                    float* sums, cudaStream_t st) {
+  constexpr int kSums = kDepth ? 3 : 2;
   const int nblk = (hc * wc + kBlock - 1) / kBlock;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dplane) {
-    loss_fwd_kernel<true><<<dim3(nblk, B), kBlock, 0, st>>>(
-        rows, ids, gt6, dplane, hc, wc, oy, ox, fh, fw, partials);
-  } else {
-    loss_fwd_kernel<false><<<dim3(nblk, B), kBlock, 0, st>>>(
-        rows, ids, gt6, nullptr, hc, wc, oy, ox, fh, fw, partials);
-  }
+  loss_fwd_kernel<kDepth, kColors><<<dim3(nblk, B), kBlock, 0, st>>>(
+      rows, ids, gt6, dplane, colors, hc, wc, oy, ox, fh, fw, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (dplane) {
-    loss_reduce_kernel<3><<<(B + 31) / 32, 32, 0, st>>>(partials, B, nblk, sums);
-  } else {
-    loss_reduce_kernel<2><<<(B + 31) / 32, 32, 0, st>>>(partials, B, nblk, sums);
-  }
+  loss_reduce_kernel<kSums><<<(B + 31) / 32, 32, 0, st>>>(partials, B, nblk, sums);
   return (int)cudaGetLastError();
 }
 
-// dplane and d_dplane (B, hc, wc) both null (rgb + mask) or both set
-extern "C" int dd_loss_bwd(const float* rows, const int* ids, const float* gt6,
-                           const float* dplane, const float* d_sums, int B,
-                           int hc, int wc, int oy, int ox, int fh, int fw,
-                           float* g, float* d_rows, float* d_dplane,
-                           void* stream) {
-  if ((dplane == nullptr) != (d_dplane == nullptr))
-    return (int)cudaErrorInvalidValue;
+template <bool kDepth, bool kColors>
+int loss_bwd_launch(const float* rows, const int* ids, const float* gt6,
+                    const float* dplane, const float* colors,
+                    const float* d_sums, int B, int hc, int wc, int oy, int ox,
+                    int fh, int fw, float* g, float* d_rows, float* d_dplane,
+                    float* d_colors, cudaStream_t st) {
   const int nblk = (hc * wc + kBlock - 1) / kBlock;
-  cudaStream_t st = (cudaStream_t)stream;
   loss_bwd_g_kernel<<<dim3(nblk, B), kBlock, 0, st>>>(
       rows, ids, gt6, d_sums, hc, wc, oy, ox, fh, fw, g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (dplane) {
-    loss_bwd_rows_kernel<true><<<dim3(nblk, B), kBlock, 0, st>>>(
-        rows, ids, gt6, dplane, d_sums, hc, wc, oy, ox, fh, fw, g, d_rows,
-        d_dplane);
-  } else {
-    loss_bwd_rows_kernel<false><<<dim3(nblk, B), kBlock, 0, st>>>(
-        rows, ids, gt6, nullptr, d_sums, hc, wc, oy, ox, fh, fw, g, d_rows,
-        nullptr);
-  }
+  loss_bwd_rows_kernel<kDepth, kColors><<<dim3(nblk, B), kBlock, 0, st>>>(
+      rows, ids, gt6, dplane, colors, d_sums, hc, wc, oy, ox, fh, fw, g, d_rows,
+      d_dplane, d_colors);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dplane (B, hc, wc) may be null: depth sum 0; colors (B, 3, hc, wc) may be
+// null: the rgb term reads the rows' colour channels
+extern "C" int dd_loss_fwd(const float* rows, const int* ids, const float* gt6,
+                           const float* dplane, const float* colors, int B,
+                           int hc, int wc, int oy, int ox, int fh, int fw,
+                           float* partials, float* sums, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dplane && colors)
+    return loss_fwd_launch<true, true>(rows, ids, gt6, dplane, colors, B, hc, wc,
+                                       oy, ox, fh, fw, partials, sums, st);
+  if (dplane)
+    return loss_fwd_launch<true, false>(rows, ids, gt6, dplane, nullptr, B, hc,
+                                        wc, oy, ox, fh, fw, partials, sums, st);
+  if (colors)
+    return loss_fwd_launch<false, true>(rows, ids, gt6, nullptr, colors, B, hc,
+                                        wc, oy, ox, fh, fw, partials, sums, st);
+  return loss_fwd_launch<false, false>(rows, ids, gt6, nullptr, nullptr, B, hc,
+                                       wc, oy, ox, fh, fw, partials, sums, st);
+}
+
+// dplane and d_dplane (B, hc, wc) both null or both set; so colors and
+// d_colors (B, 3, hc, wc)
+extern "C" int dd_loss_bwd(const float* rows, const int* ids, const float* gt6,
+                           const float* dplane, const float* colors,
+                           const float* d_sums, int B, int hc, int wc, int oy,
+                           int ox, int fh, int fw, float* g, float* d_rows,
+                           float* d_dplane, float* d_colors, void* stream) {
+  if ((dplane == nullptr) != (d_dplane == nullptr) ||
+      (colors == nullptr) != (d_colors == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dplane && colors)
+    return loss_bwd_launch<true, true>(rows, ids, gt6, dplane, colors, d_sums, B,
+                                       hc, wc, oy, ox, fh, fw, g, d_rows,
+                                       d_dplane, d_colors, st);
+  if (dplane)
+    return loss_bwd_launch<true, false>(rows, ids, gt6, dplane, nullptr, d_sums,
+                                        B, hc, wc, oy, ox, fh, fw, g, d_rows,
+                                        d_dplane, nullptr, st);
+  if (colors)
+    return loss_bwd_launch<false, true>(rows, ids, gt6, nullptr, colors, d_sums,
+                                        B, hc, wc, oy, ox, fh, fw, g, d_rows,
+                                        nullptr, d_colors, st);
+  return loss_bwd_launch<false, false>(rows, ids, gt6, nullptr, nullptr, d_sums,
+                                       B, hc, wc, oy, ox, fh, fw, g, d_rows,
+                                       nullptr, nullptr, st);
 }

@@ -12,8 +12,17 @@ A run takes one of two routes, as the reference's does:
   K6 -> K4 -> K2) for the three standard losses, mask, rgb and depth;
 - the unfused route (``render_batch``: K1 -> K3, plain shade and
   antialiasing, backward K4 -> K2, then the loss functions) for
-  ``tpu.fused_loss: false``, custom losses, and the depth loss of a scene
-  without a gt depth image.
+  ``tpu.fused_loss: false``, custom losses, the depth loss of a scene
+  without a gt depth image, and appearance refinement.
+
+A textured mesh renders its corner colours baked from the texture
+(``tpu.texture_mode: baked``, the default) or samples the texture at each
+pixel (``exact``: on the fused route the semi-fused exact-texture loss,
+K5/K6's colour lane).  ``Mesh.enable_gradients_texture()`` refines the
+appearance with the pose (``diffdope.py:510-536``): the texture map under
+``exact``, else the corner colours, else the vertex colours, on the
+unfused route (the pack takes the plain version for traced colours, as
+the reference's does), written back into the mesh after the run.
 
 Either runs on the compact bin table, or on the uniform-K table with
 ``tpu.compact_bins: false`` (the raster K7 in place of K3/K4, the full
@@ -212,21 +221,32 @@ class DiffDope:
     # render and loss closures
     # ------------------------------------------------------------------ #
     def _mesh_arrays(self) -> dict:
+        """The mesh's arrays, its colours as ``tpu.texture_mode`` chooses
+        them for a textured mesh (``diffdope.py:206-220``): 'baked' (the
+        default) the corner colours, 'exact' the texture with its uv."""
         mesh = self.object3d.mesh
         if mesh is None:
             raise ValueError("Object3D has no mesh attached")
-        if mesh.has_textured_map and mesh.corner_colors is None:
-            raise _not_ported("rendering a texture map (texture_mode exact)", 2)
         out = {
             "pos": np.asarray(mesh.pos),
             "pos_idx": np.asarray(mesh.pos_idx),
             "edge_adj": None if mesh.edge_adj is None else np.asarray(mesh.edge_adj),
         }
-        if mesh.corner_colors is not None:
-            out["corner_colors"] = np.asarray(mesh.corner_colors)
+        texture_mode = str(self._tpu().get("texture_mode", "baked"))
+        if mesh.has_textured_map:
+            if texture_mode == "baked" and mesh.corner_colors is not None:
+                out["corner_colors"] = np.asarray(mesh.corner_colors)
+            else:
+                out.update(uv=np.asarray(mesh.uv), uv_idx=np.asarray(mesh.uv_idx),
+                           tex=np.asarray(mesh.tex))
         else:
             out["vtx_color"] = np.asarray(mesh.vtx_color)
         return out
+
+    def _mesh(self, arrays, proj) -> _Mesh:
+        return _Mesh(proj, arrays["pos"], arrays["pos_idx"], arrays["edge_adj"],
+                     arrays.get("vtx_color"), arrays.get("corner_colors"), self.device,
+                     arrays.get("tex"), arrays.get("uv"), arrays.get("uv_idx"))
 
     def _mtx0(self) -> torch.Tensor:
         return pose_matrix(self.object3d.initial_params(1, self.device))[0]
@@ -297,30 +317,43 @@ class DiffDope:
         return _impl(self.raster_impl, int(arrays["pos_idx"].shape[0]))
 
     def _make_render_fn(self, layout: str = "channels"):
-        """``mtx -> render_batch(...)`` on the mesh, prepared once.  The
-        reference rasterizer bins nothing, so it probes no capacity and
-        takes no compact table (``diffdope.py:282-283``)."""
+        """``render_fn(mtx, tex=None, vtx_color=None, corner_colors=None)
+        -> render_batch(...)`` on the mesh, prepared once; a colour given
+        overrides the mesh's (an appearance leaf, ``diffdope.py:383-406``:
+        a texture displaces baked corner colours).  The reference
+        rasterizer bins nothing, so it probes no capacity and takes no
+        compact table (``diffdope.py:282-283``)."""
         arrays = self._mesh_arrays()
         proj = np.asarray(self.camera.cam_proj, np.float32)
         resolution = tuple(self.resolution)
-        if self._impl(arrays) == "reference":
-            mesh = _Mesh(proj, arrays["pos"], arrays["pos_idx"], arrays["edge_adj"],
-                         arrays.get("vtx_color"), arrays.get("corner_colors"),
-                         self.device)
+        mesh = self._mesh(arrays, proj)
 
-            def reference_fn(mtx):
-                return _render(mesh, mtx, resolution, None, layout, impl="reference")
+        def colored(tex, vtx_color, corner_colors) -> _Mesh:
+            if tex is None and vtx_color is None and corner_colors is None:
+                return mesh
+            kw = {k: arrays.get(k) for k in ("vtx_color", "corner_colors", "tex", "uv",
+                                             "uv_idx")}
+            if tex is not None:
+                kw.update(tex=tex, corner_colors=None)
+            if vtx_color is not None:
+                kw["vtx_color"] = vtx_color
+            if corner_colors is not None:
+                kw["corner_colors"] = corner_colors
+            return mesh.recolored(**kw)
+
+        if self._impl(arrays) == "reference":
+            def reference_fn(mtx, tex=None, vtx_color=None, corner_colors=None):
+                return _render(colored(tex, vtx_color, corner_colors), mtx, resolution,
+                               None, layout, impl="reference")
 
             return reference_fn
         route = raster_route()
         max_tris, capacity = self._capacities(arrays, proj, resolution, route)
         cull = self._resolve_cull()
-        mesh = _Mesh(proj, arrays["pos"], arrays["pos_idx"], arrays["edge_adj"],
-                     arrays.get("vtx_color"), arrays.get("corner_colors"), self.device)
 
-        def render_fn(mtx):
-            return _render(mesh, mtx, resolution, capacity, layout, cull, max_tris,
-                           route=route)
+        def render_fn(mtx, tex=None, vtx_color=None, corner_colors=None):
+            return _render(colored(tex, vtx_color, corner_colors), mtx, resolution,
+                           capacity, layout, cull, max_tris, route=route)
 
         # what the kernel checks need to drive the pack and the raster of
         # the render's table (as make_fused_loss's fn carries)
@@ -378,7 +411,8 @@ class DiffDope:
             use_rgb=LOSS_REGISTRY["l1_rgb_with_mask"] in fns, use_depth=use_depth,
             use_mask=LOSS_REGISTRY["l1_mask"] in fns,
             edge_adj=arrays["edge_adj"], corner_colors=arrays.get("corner_colors"),
-            vtx_color=arrays.get("vtx_color"),
+            vtx_color=arrays.get("vtx_color"), tex=arrays.get("tex"),
+            uv=arrays.get("uv"), uv_idx=arrays.get("uv_idx"),
             compact_total=capacity, roi_crop="off" if crop_off else "auto",
             cull_backfaces=self._resolve_cull(), max_tris_per_tile=max_tris,
             device=self.device,
@@ -412,7 +446,11 @@ class DiffDope:
         triangle left the ROI
         crop's interior, the run restarts on the full frame; at most
         ``tpu.overflow_retries`` times, unless ``tpu.overflow_recovery`` is
-        off."""
+        off.
+
+        After ``Mesh.enable_gradients_texture()`` the appearance leaf
+        (:meth:`_appearance`) is refined with the pose on the unfused route
+        and written back into the mesh (``diffdope.py:697-708``)."""
         self._check_ported()
         tpu_cfg = self._tpu()
         gt_np = self.gt_tensors
@@ -420,12 +458,13 @@ class DiffDope:
         params0 = self.object3d.initial_params(self.batchsize, self.device)
         segment = int(tpu_cfg.get("scan_segment", 40))
         show_progress = bool(tpu_cfg.get("progress", True))
+        extra_params = self._appearance()
 
         def progress(done, total_steps, last_loss):
             log.info("refine %d/%d steps, loss %.5f", done, total_steps, last_loss)
 
         def dispatch():
-            fused_fn = self._make_fused_loss_fn(gt_np)
+            fused_fn = None if extra_params else self._make_fused_loss_fn(gt_np)
             render_fn = self._make_render_fn() if fused_fn is None else None
             t0 = time.perf_counter()
             result = refine_segmented(
@@ -435,6 +474,7 @@ class DiffDope:
                 progress_fn=progress if show_progress else None,
                 base_lr=self.base_lr, lr_decay=self.lr_decay,
                 optimizer=self.optimizer_name, fused_loss_fn=fused_fn,
+                extra_params=extra_params,
             )
             return result, time.perf_counter() - t0
 
@@ -462,7 +502,10 @@ class DiffDope:
                     "ROI crop leak mid-refinement (up to %d triangles/step outside "
                     "the crop interior): disabling the crop and re-running "
                     "(attempt %d/%d)", leak, attempt + 1, max_retries)
-        self._render_fn = None  # the capacities may have grown
+        self._render_fn = None  # the capacities (and the colours) may have changed
+        mesh = self.object3d.mesh
+        for key in extra_params or ():
+            setattr(mesh, key, result.params[key].detach().cpu().numpy())
 
         self._check_bin_overflow(result)
         self._result = result
@@ -487,6 +530,22 @@ class DiffDope:
         log.info("refined %d hypotheses, %d steps in %.3fs (%.1f steps/s), "
                  "final loss %.5f", self.batchsize, steps, dt, steps / dt,
                  self.last_run_stats["final_loss"])
+
+    def _appearance(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The appearance leaf that ``Mesh.enable_gradients_texture()``
+        asks to refine (``diffdope.py:510-536``), or None: the texture map
+        under ``tpu.texture_mode: exact``, else the corner colours, else
+        the vertex colours."""
+        mesh = self.object3d.mesh
+        if not getattr(mesh, "optimize_appearance", False):
+            return None
+        exact = str(self._tpu().get("texture_mode", "baked")) == "exact"
+        for key, value in (("tex", mesh.tex if exact else None),
+                           ("corner_colors", mesh.corner_colors),
+                           ("vtx_color", mesh.vtx_color)):
+            if value is not None:
+                return {key: torch.tensor(np.asarray(value, np.float32), device=self.device)}
+        return None
 
     @staticmethod
     def _telemetry_max(result, key: str) -> int:

@@ -38,10 +38,14 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
-#: launches per wrapper: the fused loss counts its depth-lane launches apart
-launches = {"pack_fwd": 0, "pack_bwd": 0, "raster_fwd": 0, "raster_bwd": 0,
-            "raster_uniform_fwd": 0, "raster_uniform_bwd": 0,
+#: launches per wrapper: the fused loss counts its depth- and colour-lane
+#: launches apart; 'pack_plain' counts the bin-ordered tables that the
+#: reference's eligibility rule sends to the plain pack (traced attributes)
+launches = {"pack_fwd": 0, "pack_bwd": 0, "pack_plain": 0, "raster_fwd": 0,
+            "raster_bwd": 0, "raster_uniform_fwd": 0, "raster_uniform_bwd": 0,
             "loss_fwd": 0, "loss_bwd": 0, "loss_fwd_depth": 0, "loss_bwd_depth": 0,
+            "loss_fwd_color": 0, "loss_bwd_color": 0, "loss_fwd_color_depth": 0,
+            "loss_bwd_color_depth": 0,
             "raster_ids": 0, "gather_rows_fwd": 0, "gather_rows_bwd": 0,
             "raster_v3_fwd": 0, "raster_v3_bwd": 0}
 
@@ -60,12 +64,12 @@ _SIGNATURES = {
     "dd_raster_uniform_fwd": [_P] * 2 + [_I] * 8 + [_P] * 4,
     # (d_rows, win, B, k, nty, ntx, th, tw, d_bins, stream)
     "dd_raster_uniform_bwd": [_P] * 2 + [_I] * 6 + [_P] * 2,
-    # (rows, ids, gt6, dplane | null, B, hc, wc, oy, ox, fh, fw, partials,
-    #  sums, stream)
-    "dd_loss_fwd": [_P] * 4 + [_I] * 7 + [_P] * 3,
-    # (rows, ids, gt6, dplane | null, d_sums, B, hc, wc, oy, ox, fh, fw, g,
-    #  d_rows, d_dplane | null, stream)
-    "dd_loss_bwd": [_P] * 5 + [_I] * 7 + [_P] * 4,
+    # (rows, ids, gt6, dplane | null, colors | null, B, hc, wc, oy, ox, fh,
+    #  fw, partials, sums, stream)
+    "dd_loss_fwd": [_P] * 5 + [_I] * 7 + [_P] * 3,
+    # (rows, ids, gt6, dplane | null, colors | null, d_sums, B, hc, wc, oy, ox,
+    #  fh, fw, g, d_rows, d_dplane | null, d_colors | null, stream)
+    "dd_loss_bwd": [_P] * 6 + [_I] * 7 + [_P] * 5,
     # (coef, tile_idx, counts, B, T, K, nty, ntx, th, tw, fh, fw, ids, stream)
     "dd_raster_ids": [_P] * 3 + [_I] * 9 + [_P] * 2,
     # (packed, tile_idx, counts, B, T, K, nty, ntx, th, tw, fh, fw, ids, win,

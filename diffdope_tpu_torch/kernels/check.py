@@ -8,14 +8,17 @@ K9 the packed rows and bins of ``gather_rows.raster_gather_rows``), and
 time both.  A function's tables are checked in their own layout: K3/K4 on
 the compact table, K7 on the uniform-K table, on the planar routes K10
 ('v3') or K7 over the gathered bins ('v2'); K5/K6 take the depth lane
-(the ``_depth`` variants) where the loss has a depth term.
+(the ``_depth`` variants) where the loss has a depth term, and the colour
+lane (the ``_color`` variants, on the colour planes the loss samples from
+the raster's rows) where it samples a texture.
 
 Tolerances: K1's table must equal ``planar.pack_binned``'s bit for bit in
 all 32 lanes, K3's, K7's, K9's and K10's ids, slots and rows exactly, and
 K8's ids exactly (same f32 operation order, no FMA); K5's sums rtol 1e-5,
 atol 1e-7; K2's (d_mvp, d_mtx row 2), K6's d_rows and K4's, K7's, K9's and
 K10's slot gradients (also reduced per triangle) rtol 2e-4, atol 1e-6
-against the plain autograd, plus 1e-6 of a local scale; K6's d_dplane rtol 2e-4, atol 1e-6.  That term is
+against the plain autograd, plus 1e-6 of a local scale; K6's d_dplane and
+d_colors rtol 2e-4, atol 1e-6.  That term is
 there because these gradients are sums of terms that can cancel: a pixel's
 lane sums the rgb term (three channels through s) and up to four pair
 terms, a slot sums its pixels, a d_mvp entry sums ~4e4 slots; a cancelled
@@ -29,8 +32,8 @@ of its bytes (each input the kernel must read, read once; each output
 written once) over the HBM rate and its FP32 operations over the FP32
 rate, from the shapes and data of the call: the table slots the tiles
 hold, the foreground pixels whose rows are read, the lanes that carry a
-gradient.  The per-element operation counts are counted from the
-CUDA sources, as estimates; every kernel here is bound by bytes.
+gradient.  The operation counts are counted from the CUDA sources, as
+estimates, per element or (K5/K6) per pixel and pair at the call's ids.
 """
 
 from __future__ import annotations
@@ -109,6 +112,22 @@ KERNELS = {
         "diffdope_tpu_torch/csrc/fused_loss.cu",
         "diffdope_tpu/render/fused_loss.py:268",
     ),
+    "K5_loss_fwd_color": (
+        "diffdope_tpu_torch/csrc/fused_loss.cu",
+        "diffdope_tpu/render/fused_loss.py:221",
+    ),
+    "K6_loss_bwd_color": (
+        "diffdope_tpu_torch/csrc/fused_loss.cu",
+        "diffdope_tpu/render/fused_loss.py:268",
+    ),
+    "K5_loss_fwd_color_depth": (
+        "diffdope_tpu_torch/csrc/fused_loss.cu",
+        "diffdope_tpu/render/fused_loss.py:221",
+    ),
+    "K6_loss_bwd_color_depth": (
+        "diffdope_tpu_torch/csrc/fused_loss.cu",
+        "diffdope_tpu/render/fused_loss.py:268",
+    ),
     "K8_raster_ids": (
         "diffdope_tpu_torch/csrc/rasterize.cu",
         "diffdope_tpu/render/rasterize.py:110",
@@ -142,6 +161,10 @@ COUNTERS = {
     "K7_raster_uniform_bwd": "raster_uniform_bwd",
     "K5_loss_fwd_depth": "loss_fwd_depth",
     "K6_loss_bwd_depth": "loss_bwd_depth",
+    "K5_loss_fwd_color": "loss_fwd_color",
+    "K6_loss_bwd_color": "loss_bwd_color",
+    "K5_loss_fwd_color_depth": "loss_fwd_color_depth",
+    "K6_loss_bwd_color_depth": "loss_bwd_color_depth",
     "K8_raster_ids": "raster_ids",
     "K9_gather_rows_fwd": "gather_rows_fwd",
     "K9_gather_rows_bwd": "gather_rows_bwd",
@@ -156,20 +179,72 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 #: FP32 operations per element, counted from the CUDA sources (estimates):
 #: K1/K2 per (hypothesis, slot) at n_ch colour channels, K3 per
-#: (pixel, slot) edge test, K4 per (foreground pixel, lane), K5/K6 per pixel,
+#: (pixel, slot) edge test, K4 per (foreground pixel, lane),
 #: K8 (and K9's search) per (pixel, slot) test: the three edge functions (4
 #: each) and their sign tests, which every test runs (a covered test's
 #: depth, 8 more, is not counted: how many there are depends on the data);
-#: K10 takes K3's count per test
+#: K10 takes K3's count per test; K5/K6 by :func:`_loss_ops`
 _OPS = {"K1": lambda n_ch: 195 + 15 * n_ch, "K2": lambda n_ch: 330 + 18 * n_ch,
-        "K3": 25, "K4": 1, "K5": 450, "K6": 900, "K8": 15}
+        "K3": 25, "K4": 1, "K8": 15}
+
+#: K5/K6's FP32 operations by part of ``csrc/fused_loss.cu``, each add,
+#: sub, mul, div, abs, min, max, negation and compare one (``ndc`` is 4):
+#: ``zw_at`` at a foreground pixel (x, y, lin3, the det test, the
+#: division); ``eval_pair``'s depth order of its pixels, and its crossing
+#: search (three ndc, seg, det_sign, 24 per edge line, the deltas) when the
+#: pair is active (ids differ, one of them foreground: else it returns
+#: early); a pair's backward at its foreground pixel (K6 pass B);
+#: ``shade_at``'s x, y, edges, s and s_safe, and per channel read its lin3
+#: (and its division at a foreground pixel); K5's mask and rgb terms of a
+#: pixel and its depth term; K6's rgb (or d_colors) cotangents of a pixel,
+#: its depth cotangent, a channel's division backward and the edge lanes' d s
+_LOSS_OPS = dict(zw=14, order=1, search=97, pair_bwd=27, shade=24, channel=4,
+                 terms=21, depth=3, rgb_bwd=12, depth_bwd=4, channel_bwd=7, edge_bwd=17)
+
+
+def _loss_ops(ids: torch.Tensor, roi, depth: bool, colors: bool) -> Tuple[int, int]:
+    """(K5, K6) FP32 operations at this call's ids, from the lanes' own
+    bodies: the pairs each pixel evaluates (the crossing search only where
+    the pair is active; K6's backward counted at every active pair, the
+    crossing test that gates it not replayed here) and the attribute
+    channels the launch shades: the rgb + mask lane three colours (and z
+    with depth), the colour lane none (z alone with depth).  Pairs and
+    pixels past the real frame are not counted."""
+    c = _LOSS_OPS
+    b, hc, wc = ids.shape
+    oy, ox, h, w = roi
+    idv = ids[:, : min(hc, h - oy), : min(wc, w - ox)]
+    n_px, n_fg = idv.numel(), int((idv > 0).sum())
+    pairs_k5 = pairs_fg = active = 0
+    for a, z in ((idv[:, :, :-1], idv[:, :, 1:]), (idv[:, :-1], idv[:, 1:])):
+        ends = (a > 0).long() + (z > 0).long()
+        act = (a != z) & (ends > 0)
+        cost = c["zw"] * ends + c["order"] + c["search"] * act.long()
+        pairs_k5 += 2 * int(cost.sum())  # by both its pixels
+        pairs_fg += int((cost * ends).sum())  # by its foreground pixels
+        active += int(act.sum())
+    n_read = (0 if colors else 3) + (1 if depth else 0)
+    n_sums = 3 if depth else 2  # a pixel's adds in the block's tree
+    aa = n_px * 5 + pairs_k5  # the pixel's colour test and the deltas' sum
+    k5 = aa + n_px * (c["terms"] + (c["depth"] if depth else 0) + n_sums)
+    if n_read:
+        k5 += n_px * (c["shade"] + c["channel"] * n_read) + n_fg * n_read
+    k6 = aa + n_px * 10  # pass A: aa, the three signs and the product
+    k6 += n_px * ((c["rgb_bwd"] if colors else 0) + (c["depth_bwd"] if depth else 0))
+    k6 += pairs_fg + active * c["pair_bwd"]
+    if n_read:
+        k6 += n_fg * (c["shade"] + (c["channel"] + 1 + c["channel_bwd"]) * n_read
+                      + (0 if colors else c["rgb_bwd"]) + c["edge_bwd"])
+    return k5, k6
 
 
 #: lanes of a foreground pixel's rows that K5 and K6 read: the edge planes
 #: and z (0-12), the silhouette bit (14) and the colour planes (16-24),
-#: with the depth lane also the rotated-z plane (25-27)
+#: with the depth lane also the rotated-z plane (25-27); the colour lane
+#: reads no colour plane of the rows (its rotated z: 22-24)
 ROW_LANES_READ = 13 + 1 + 9
 ROW_LANES_READ_DEPTH = ROW_LANES_READ + 3
+ROW_LANES_READ_COLOR = 13 + 1
 
 
 def bound(n_bytes: float, n_ops: float) -> Tuple[float, str]:
@@ -347,9 +422,9 @@ def check_kernels(fn, mtx: torch.Tensor, d_sums: Optional[torch.Tensor] = None,
     loss has a depth term), each against its plain version on the table of
     ``mtx``.
 
-    ``fn`` is a fused loss (``make_fused_loss``: the raster forward, K5,
-    K6, then the raster backward under K6's d_rows for the cotangent
-    ``d_sums``) or a render function (``DiffDope._make_render_fn``, the
+    ``fn`` is a fused loss (``make_fused_loss``: the raster forward, its
+    texture samples on the texture route, K5, K6, then the raster backward
+    under K6's d_rows for the cotangent ``d_sums``) or a render function (``DiffDope._make_render_fn``, the
     unfused route: the raster forward, then its backward under a seeded
     normal d_rows on every lane).  Returns one dict per kernel: name, ok,
     max_abs_err, tolerance, bound (the raster rows also the slots the
@@ -379,36 +454,47 @@ def check_kernels(fn, mtx: torch.Tensor, d_sums: Optional[torch.Tensor] = None,
 
     if fused:
         depth = dplane is not None
-        sfx = "_depth" if depth else ""
-        # K5/K6 read ids everywhere, the plane(s) and, where ids > 0 only (a
-        # background pixel shades to 0; a mask pair reads its foreground
-        # side), the ROW_LANES_READ(_DEPTH) lanes of rows
-        lanes = ROW_LANES_READ_DEPTH if depth else ROW_LANES_READ
-        plane_bytes = 4 * npx if depth else 0
-        sums = loss_sums(rows, ids, fn.gt6, fn.roi, dplane)
-        sums_p = loss_sums_plain(rows, ids, fn.gt6, fn.roi, dplane)
+        colors = None
+        if getattr(fn, "sample", None) is not None:
+            with torch.no_grad():
+                colors = fn.sample(rows, ids)
+        sfx = ("_color" if colors is not None else "") + ("_depth" if depth else "")
+        # K5/K6 read ids everywhere, the planes (the depth plane, the colour
+        # planes) and, where ids > 0 only (a background pixel shades to 0;
+        # a mask pair reads its foreground side), the ROW_LANES_READ* lanes
+        # of rows; K6 writes d_rows, d_dplane and d_colors everywhere
+        lanes = (ROW_LANES_READ if colors is None else ROW_LANES_READ_COLOR) \
+            + (3 if depth else 0)
+        plane_bytes = (4 * npx if depth else 0) + (12 * npx if colors is not None else 0)
+        loss_args = (rows, ids, fn.gt6, fn.roi)
+        ops5, ops6 = _loss_ops(ids, fn.roi, depth, colors is not None)
+        sums = loss_sums(*loss_args, dplane, colors)
+        sums_p = loss_sums_plain(*loss_args, dplane, colors)
         out.append(dict(name="K5_loss_fwd" + sfx, ok=_close(sums, sums_p, 1e-5, 1e-7),
                         max_abs_err=float((sums - sums_p).abs().max()),
                         tolerance="rtol 1e-5, atol 1e-7",
                         bound=bound(4 * npx + 4 * lanes * fg + 4 * fn.gt6.numel()
-                                    + plane_bytes + 4 * b * 3, _OPS["K5"] * npx)))
+                                    + plane_bytes + 4 * b * 3, ops5)))
 
-        d_rows, d_dplane = loss_bwd(rows, ids, fn.gt6, fn.roi, d_sums, dplane)
-        d_rows_p, d_dplane_p = loss_bwd_plain(rows, ids, fn.gt6, fn.roi, d_sums, dplane)
+        d_rows, d_dplane, d_colors = loss_bwd(*loss_args, d_sums, dplane, colors)
+        d_rows_p, d_dplane_p, d_colors_p = loss_bwd_plain(*loss_args, d_sums, dplane,
+                                                          colors)
         px_scale = d_rows_p.abs().amax(dim=1, keepdim=True)
         ok6 = _close(d_rows, d_rows_p, 2e-4, 1e-6, px_scale)
         err6 = float((d_rows - d_rows_p).abs().max())
         tol6 = "d_rows rtol 2e-4, atol 1e-6 + 1e-6 x pixel's largest lane"
-        if depth:
-            ok6 = ok6 and _close(d_dplane, d_dplane_p, 2e-4, 1e-6)
-            err6 = max(err6, float((d_dplane - d_dplane_p).abs().max()))
-            tol6 += "; d_dplane rtol 2e-4, atol 1e-6"
+        for plane, name in ((d_dplane, "d_dplane"), (d_colors, "d_colors")):
+            if plane is not None:
+                want = d_dplane_p if name == "d_dplane" else d_colors_p
+                ok6 = ok6 and _close(plane, want, 2e-4, 1e-6)
+                err6 = max(err6, float((plane - want).abs().max()))
+                tol6 += f"; {name} rtol 2e-4, atol 1e-6"
         out.append(dict(name="K6_loss_bwd" + sfx, ok=ok6, max_abs_err=err6,
                         tolerance=tol6,
                         worst=_worst(d_rows, d_rows_p, 2e-4, 1e-6, px_scale),
                         bound=bound(4 * npx + 4 * lanes * fg + 4 * fn.gt6.numel()
                                     + 2 * plane_bytes + 4 * b * 3 + 4 * 32 * npx,
-                                    _OPS["K6"] * npx)))
+                                    ops6)))
     else:
         gen = torch.Generator(device=rows.device).manual_seed(0)
         d_rows = torch.randn(rows.shape, generator=gen, device=rows.device)
@@ -445,11 +531,11 @@ def check_kernels(fn, mtx: torch.Tensor, d_sums: Optional[torch.Tensor] = None,
         }
         if fused:
             timed["K5_loss_fwd" + sfx] = (
-                lambda: loss_sums(rows, ids, fn.gt6, fn.roi, dplane),
-                lambda: loss_sums_plain(rows, ids, fn.gt6, fn.roi, dplane))
+                lambda: loss_sums(*loss_args, dplane, colors),
+                lambda: loss_sums_plain(*loss_args, dplane, colors))
             timed["K6_loss_bwd" + sfx] = (
-                lambda: loss_bwd(rows, ids, fn.gt6, fn.roi, d_sums, dplane),
-                lambda: loss_bwd_plain(rows, ids, fn.gt6, fn.roi, d_sums, dplane))
+                lambda: loss_bwd(*loss_args, d_sums, dplane, colors),
+                lambda: loss_bwd_plain(*loss_args, d_sums, dplane, colors))
         for row in out:
             kern, plain = timed[row["name"]]
             row["ms"] = _time_ms(kern, reps)

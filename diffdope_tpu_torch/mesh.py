@@ -4,9 +4,10 @@ Counterpart of ``diffdope_tpu/mesh.py``: the PLY (ascii and binary) and
 OBJ parsers, winding repair, vertex normals, edge adjacency, and
 :func:`load_mesh` with its padding to multiples of 8 (padded triangles are
 degenerate and never rasterize).  Copied, not imported: importing the JAX
-package pulls in jax.  Textured meshes (texture loading needs cv2, and the
-corner-colour bake) and the .glb/.stl loaders are not ported yet (ROADMAP
-queue 1, item 2).
+package pulls in jax.  Textured meshes are built from arrays
+(:func:`mesh_from_arrays`, with the V flip and the corner-colour bake):
+reading a texture image waits for an image reader (ROADMAP queue 1, item
+1), and the .glb/.stl loaders are not ported yet (queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -466,8 +467,8 @@ def build_edge_adjacency(faces: np.ndarray) -> np.ndarray:
 class Mesh:
     """A mesh ready for the render path (``mesh.py:790-845``): ``pos``
     (N, 3) f32 scaled, ``pos_idx`` (T, 3) i32, ``vtx_normals``,
-    ``vtx_color`` (or the texture fields, not ported), the bounding volume,
-    dimensions and centre.  Arrays include padding: ``num_vertices`` and
+    ``vtx_color``, or the texture fields ``tex``, ``uv``, ``uv_idx`` and the
+    baked ``corner_colors``, the bounding volume, dimensions and centre.  Arrays include padding: ``num_vertices`` and
     ``num_triangles`` give the true counts.  ``is_closed`` and
     ``is_oriented`` are the winding diagnosis of
     :func:`orient_faces_consistently`: a closed, oriented mesh may cull
@@ -497,13 +498,26 @@ class Mesh:
         return self.tex is not None
 
 
-def load_mesh(path, scale: float = 1.0, vertex_pad: int = 8,
-              triangle_pad: int = 8, fix_winding: bool = True) -> Mesh:
-    """Load a .ply or .obj mesh with vertex colours, the reference's
-    conventions (``mesh.py:848-967``): vertices scaled, faces rewound to a
-    consistent outward winding when orientable, normals computed when the
-    file has none, a flat 0.7 grey when it has no colours, and the arrays
-    padded to multiples of ``vertex_pad`` / ``triangle_pad``."""
+
+    def enable_gradients_texture(self) -> None:
+        """Refine the appearance with the pose (``mesh.py:833-841``):
+        ``DiffDope.run_optimization`` then optimizes the texture map under
+        ``tpu.texture_mode: exact``, else the corner or vertex colours, and
+        writes the refined leaf back here."""
+        self.optimize_appearance = True
+
+
+def load_mesh(path, scale: float = 1.0, vertex_pad: int = 8, triangle_pad: int = 8,
+              texture_path=None, fix_winding: bool = True) -> Mesh:
+    """Load a .ply or .obj mesh with the reference's conventions
+    (``mesh.py:848-967``): see :func:`mesh_from_arrays`.
+
+    A texture image (``texture_path``, or the PLY's TextureFile next to the
+    mesh) is not read: the port has no image reader yet, so an existing
+    file raises; build a textured mesh from arrays instead
+    (``testing.textured_mesh``).  A PLY whose texture file is absent loads
+    as the reference's does, flat grey (or its vertex colours) with its uv
+    dropped."""
     path = Path(path)
     suffix = path.suffix.lower()
     if suffix == ".ply":
@@ -516,9 +530,58 @@ def load_mesh(path, scale: float = 1.0, vertex_pad: int = 8,
         )
     else:
         raise ValueError(f"unsupported mesh format: {path.suffix}")
+    if texture_path is None and "texture_file" in data:
+        cand = path.parent / data["texture_file"]
+        if cand.exists():
+            texture_path = cand
+    if texture_path is not None and data.get("uv") is not None:
+        raise NotImplementedError(
+            f"reading the texture image {texture_path} is not ported yet (ROADMAP "
+            "queue 1, item 1); build the textured mesh from arrays "
+            "(testing.textured_mesh)"
+        )
+    return mesh_from_arrays(data["vertices"], data["faces"], scale, vertex_pad,
+                            triangle_pad, fix_winding, normals=data.get("normals"),
+                            colors=data.get("colors"), path_model=str(path))
 
-    pos = data["vertices"].astype(np.float32) * float(scale)
-    faces = data["faces"].astype(np.int32)
+
+def bake_corner_colors(tex: np.ndarray, uv: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """The texture sampled bilinearly (wrap) at each triangle corner's uv ->
+    (T, 3, 3) (``mesh.py:1003-1027``); uv already V-flipped (texture row 0
+    at v = 0)."""
+    th, tw = tex.shape[:2]
+    uv_c = uv[faces]  # (T, 3, 2)
+    fx = uv_c[..., 0] * tw - 0.5
+    fy = uv_c[..., 1] * th - 0.5
+    x0 = np.floor(fx).astype(np.int64)
+    y0 = np.floor(fy).astype(np.int64)
+    ax = (fx - x0)[..., None]
+    ay = (fy - y0)[..., None]
+
+    def tap(ix, iy):
+        return tex[np.remainder(iy, th), np.remainder(ix, tw)]
+
+    top = tap(x0, y0) * (1 - ax) + tap(x0 + 1, y0) * ax
+    bot = tap(x0, y0 + 1) * (1 - ax) + tap(x0 + 1, y0 + 1) * ax
+    return (top * (1 - ay) + bot * ay).astype(np.float32)
+
+
+def mesh_from_arrays(vertices, faces, scale: float = 1.0, vertex_pad: int = 8,
+                     triangle_pad: int = 8, fix_winding: bool = True, normals=None,
+                     colors=None, uv=None, tex=None, path_model: Optional[str] = None) -> Mesh:
+    """A :class:`Mesh` from parsed arrays, as :func:`load_mesh` and the
+    reference's loader build it: vertices scaled, faces rewound to a
+    consistent outward winding when orientable, normals computed when none
+    are given, and the arrays padded to multiples of ``vertex_pad`` /
+    ``triangle_pad``.
+
+    With a texture ``tex`` (TH, TW, 3) and its per-vertex ``uv`` in the
+    file's convention (v up), the uv is V-flipped (``mesh.py:903-925``),
+    ``uv_idx`` is the faces and the corner colours are baked
+    (:func:`bake_corner_colors`); otherwise the vertex colours are
+    ``colors``, or a flat 0.7 grey, and uv is dropped."""
+    pos = np.asarray(vertices).astype(np.float32) * float(scale)
+    faces = np.asarray(faces).astype(np.int32)
     n, t = len(pos), len(faces)
 
     wind_info = {"closed": False, "orientable": False, "n_flipped": 0}
@@ -527,35 +590,40 @@ def load_mesh(path, scale: float = 1.0, vertex_pad: int = 8,
         if wind_info["n_flipped"]:
             log.info("rewound %d/%d faces to consistent orientation (closed=%s)",
                      wind_info["n_flipped"], t, wind_info["closed"])
-
-    normals = data.get("normals")
     if normals is None:
         normals = _compute_vertex_normals(pos, faces)
-
     bv = np.stack([pos.min(axis=0), pos.max(axis=0)])
-    if "texture_file" in data and "uv" in data and (path.parent / data["texture_file"]).exists():
-        raise NotImplementedError(
-            "textured meshes are not ported yet (ROADMAP queue 1, item 2)"
-        )
-    vtx_color = data.get("colors")
-    if vtx_color is None:
-        vtx_color = np.full((n, 3), 0.7, dtype=np.float32)
+
+    vtx_color = corner_colors = None
+    if tex is not None and uv is not None:
+        tex = np.asarray(tex, np.float32)
+        uv = np.array(uv, np.float32)
+        uv[:, 1] = 1.0 - uv[:, 1]
+        corner_colors = bake_corner_colors(tex, uv, faces)
+    else:
+        tex = uv = None
+        vtx_color = colors if colors is not None else np.full((n, 3), 0.7, np.float32)
 
     n_pad = pad_to_multiple(max(n, 1), vertex_pad)
     t_pad = pad_to_multiple(max(t, 1), triangle_pad)
 
     def pad_rows(a, total, fill=0):
+        if a is None:
+            return None
         pad = np.full((total - len(a),) + a.shape[1:], fill, a.dtype)
         return np.concatenate([a, pad], axis=0)
 
     mesh = Mesh(
         pos=pad_rows(pos, n_pad),
         pos_idx=pad_rows(faces, t_pad),  # zero-index padding = degenerate tris
-        vtx_normals=pad_rows(normals.astype(np.float32), n_pad),
+        vtx_normals=pad_rows(np.asarray(normals, np.float32), n_pad),
         num_vertices=n,
         num_triangles=t,
+        uv=pad_rows(uv, n_pad),
+        uv_idx=None if uv is None else pad_rows(faces, t_pad),
+        tex=tex,
         vtx_color=pad_rows(vtx_color, n_pad),
-        path_model=str(path),
+        path_model=path_model,
         bounding_volume=bv,
         dimensions=(bv[1] - bv[0]).tolist(),
         center_point=((bv[0] + bv[1]) / 2.0).tolist(),
@@ -563,7 +631,8 @@ def load_mesh(path, scale: float = 1.0, vertex_pad: int = 8,
         is_closed=wind_info["closed"],
         is_oriented=wind_info["orientable"],
         n_rewound=wind_info["n_flipped"],
+        corner_colors=pad_rows(corner_colors, t_pad),
     )
-    log.info("loaded mesh %s: %d verts (pad %d), %d tris (pad %d)",
-             path, n, n_pad, t, t_pad)
+    log.info("mesh %s: %d verts (pad %d), %d tris (pad %d), textured=%s",
+             path_model, n, n_pad, t, t_pad, mesh.has_textured_map)
     return mesh

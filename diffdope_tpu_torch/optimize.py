@@ -25,7 +25,7 @@ from diffdope_tpu_torch.geometry import matrix44_from_quat_trans, quat_normalize
 class RefineResult(NamedTuple):
     """Outputs of a refinement run (stacked over steps)."""
 
-    params: Dict[str, torch.Tensor]         # final pose params, each (B,)
+    params: Dict[str, torch.Tensor]         # final pose params (B,) + extra leaves
     mtx_history: torch.Tensor               # (steps, B, 4, 4) pre-update poses
     losses_values: Dict[str, torch.Tensor]  # per-term logs, each (steps, B)
     total_loss: torch.Tensor                # (steps,)
@@ -147,21 +147,30 @@ def refine(
     opt_state: Any = None,
     num_steps: Optional[int] = None,
     fused_loss_fn: Optional[Callable] = None,
+    extra_params: Optional[Dict[str, torch.Tensor]] = None,
 ) -> RefineResult:
     """Run ``nb_iterations + 1`` optimizer steps (or ``num_steps``, for a
     segment; ``nb_iterations`` still shapes the learning-rate schedule,
     which continues from ``opt_state``'s step count).
 
     Each step scores the poses with ``fused_loss_fn(mtx) -> (total, logs)``
-    when given, else with ``render_fn(mtx)`` and the sum of
-    ``fn(renders, gt, learning_rates, weights)`` over ``loss_fns``.  Logs
-    stay on the device; nothing synchronizes with the host inside the
-    loop.  Underscore log keys go to ``telemetry``.
+    when given, else with ``render_fn(mtx, **extra)`` and the sum of
+    ``fn(renders, gt, learning_rates, weights)`` over ``loss_fns``.
+    ``extra_params`` are further optimized leaves (the appearance: 'tex',
+    'vtx_color' or 'corner_colors', ``optimize.py:173, 226-269``), passed
+    to ``render_fn`` as keyword arguments and updated by the same optimizer
+    as the pose; ``params`` of the result holds them too.  Logs stay on
+    the device; nothing synchronizes with the host inside the loop.
+    Underscore log keys go to ``telemetry``.
     """
     if fused_loss_fn is None and render_fn is None:
         raise ValueError("refine needs fused_loss_fn or render_fn + loss_fns")
+    if fused_loss_fn is not None and extra_params:
+        raise ValueError("fused_loss_fn does not support extra_params")
     opt = make_optimizer(optimizer, base_lr, lr_decay, nb_iterations)
     params = {k: v.detach() for k, v in params0.items()}
+    extra_keys = tuple(extra_params or ())
+    params.update({k: v.detach() for k, v in (extra_params or {}).items()})
     if opt_state is None:
         opt_state = opt.init(params)
     length = nb_iterations + 1 if num_steps is None else num_steps
@@ -172,15 +181,18 @@ def refine(
         if fused_loss_fn is not None:
             total, logs = fused_loss_fn(mtx)
         else:
-            renders = render_fn(mtx)
+            renders = render_fn(mtx, **{k: leaves[k] for k in extra_keys})
             total = mtx.new_zeros(())
             logs = {k: v for k, v in renders.items() if k.startswith("_")}
             for fn in loss_fns:
                 term, (key, values) = fn(renders, gt, learning_rates, weights)
                 total = total + term
                 logs[key] = values
-        grads = torch.autograd.grad(total, [leaves[k] for k in params])
-        grads = dict(zip(params, grads))
+        # a leaf the render does not read (vertex colours under corner
+        # colours) gets a zero gradient, as JAX's grad gives it
+        grads = torch.autograd.grad(total, [leaves[k] for k in params], allow_unused=True)
+        grads = {k: torch.zeros_like(leaves[k]) if g is None else g
+                 for k, g in zip(params, grads)}
         mtxs.append(mtx.detach())
         totals.append(total.detach())
         for k, v in logs.items():
@@ -210,15 +222,17 @@ def refine_segmented(
     nb_iterations: int = 60,
     segment_steps: int = 40,
     progress_fn: Optional[Callable] = None,
+    extra_params: Optional[Dict[str, torch.Tensor]] = None,
     **refine_kwargs,
 ) -> RefineResult:
     """:func:`refine` in segments of ``segment_steps`` steps, the optimizer
-    state and the schedule's step count carried across, so the result is
-    the unsegmented run's.  ``progress_fn(done_steps, total_steps,
-    last_total_loss)`` is called after every segment (the one host sync of
-    a segment, which also times it: ``segment_times``)."""
+    state, the schedule's step count and the ``extra_params`` leaves
+    carried across, so the result is the unsegmented run's.
+    ``progress_fn(done_steps, total_steps, last_total_loss)`` is called
+    after every segment (the one host sync of a segment, which also times
+    it: ``segment_times``)."""
     total = nb_iterations + 1
-    params, opt_state = params0, None
+    params, extra, opt_state = params0, extra_params, None
     parts, segment_times = [], []
     done = 0
     while done < total:
@@ -226,10 +240,12 @@ def refine_segmented(
         t0 = time.perf_counter()
         res = refine(params, render_fn, loss_fns, gt, learning_rates, weights,
                      nb_iterations=nb_iterations, opt_state=opt_state, num_steps=n,
-                     **refine_kwargs)
+                     extra_params=extra, **refine_kwargs)
         last = float(res.total_loss[-1])
         segment_times.append((n, time.perf_counter() - t0))
-        params, opt_state = res.params, res.opt_state
+        opt_state = res.opt_state
+        params = {k: v for k, v in res.params.items() if k in params0}
+        extra = {k: v for k, v in res.params.items() if k not in params0} or None
         parts.append(res)
         done += n
         if progress_fn is not None:
@@ -241,7 +257,7 @@ def refine_segmented(
     telemetry = {k: cat(lambda r, k=k: r.telemetry[k])
                  for k in (parts[0].telemetry or {})}
     return RefineResult(
-        params=params,
+        params=res.params,
         mtx_history=cat(lambda r: r.mtx_history),
         losses_values={k: cat(lambda r, k=k: r.losses_values[k])
                        for k in parts[0].losses_values},

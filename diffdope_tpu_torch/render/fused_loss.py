@@ -4,23 +4,26 @@ two autograd ops over them.
 Counterpart of ``diffdope_tpu/render/fused_loss.py``: ``fused_loss_sums``
 (:440, kernel ``_fwd_kernel`` :221, here :class:`FusedLossSums`),
 ``backward_pass`` (:524, kernel ``_bwd_kernel`` :268) and
-``raster_loss_compact`` (:601-684, here :class:`RasterLossCompact`), with
-per-corner colours (no pre-sampled texture colours).
+``raster_loss_compact`` (:601-684, here :class:`RasterLossCompact`).
 
 The loss sums of one hypothesis over its (hc, wc) frame window are
 
     mask  = sum_px sum_c |aa - seg_c| * lm
-    rgb   = sum_px sum_c |attr_c - rgb_c| * seg_c * lm
+    rgb   = sum_px sum_c |col_c - rgb_c| * seg_c * lm
     depth = sum_px |attr_z + dplane| * seg0 * lm      (with a dplane)
 
-with aa the antialiased foreground mask, attr_c the interpolated vertex
-colour, attr_z the interpolated rotated z (0 on background), dplane = gt
-depth + t_z per hypothesis (the render's depth is -(attr_z + t_z)), gt6 =
-[seg0..2, rgb0..2] planes of the window, and lm the real pixels of the
-frame (``fused_loss.py:78-143``).  Without a dplane the depth sum is 0.
-|.| differentiates as JAX's abs does, +1 at 0, everywhere: the reference
-takes jnp.sign (0 at 0) for d_dplane on slabs without foreground
-(:346-354), which depends on its slab height; the port keeps one rule.
+with aa the antialiased foreground mask, col_c the interpolated vertex
+colour, or with ``colors`` (B, 3, hc, wc) the given colour planes (the
+semi-fused exact-texture route's texture samples, foreground-masked by
+the caller: the colour lane), attr_z the interpolated rotated z (0 on
+background), dplane = gt depth + t_z per hypothesis (the render's depth
+is -(attr_z + t_z)), gt6 = [seg0..2, rgb0..2] planes of the window, and
+lm the real pixels of the frame (``fused_loss.py:78-143``).  The rows hold
+:func:`n_channels` attribute channels before z: 3 colours, or with
+``colors`` 2 uv.  Without a dplane the depth sum is 0.  |.| differentiates
+as JAX's abs does, +1 at 0, everywhere: the reference takes jnp.sign (0
+at 0) for d_dplane on slabs without foreground (:346-354), which depends
+on its slab height; the port keeps one rule.
 
 Each of K5 and K6 has a plain torch version here — K5's is the
 differentiable composition of ``shade.shade_from_rows`` and
@@ -48,6 +51,20 @@ MASK_LANE, RGB_LANE, DEPTH_LANE = 0, 1, 2
 _BLOCK = 256  # pixels per K5/K6 thread block (csrc/fused_loss.cu)
 
 
+def n_channels(colors: Optional[torch.Tensor]) -> int:
+    """The attribute channels the rows hold before the rotated z: 3
+    colours, or 2 uv on the colour lane (``colors`` given)."""
+    return 3 if colors is None else 2
+
+
+def counter(name: str, dplane, colors) -> str:
+    """The launch counter of K5 ('loss_fwd') or K6 ('loss_bwd') for the
+    lanes a call takes: '_color' with colour planes, '_depth' with a
+    dplane."""
+    return name + ("_color" if colors is not None else "") + (
+        "_depth" if dplane is not None else "")
+
+
 def _l1(d: torch.Tensor) -> torch.Tensor:
     """|d| with JAX's derivative rule (+1 at d == 0)."""
     return torch.where(d >= 0, d, -d)
@@ -61,14 +78,17 @@ def _valid_mask(frame_hw, roi, device) -> torch.Tensor:
     return rows[:, None] & cols[None, :]
 
 
-def loss_sums_plain(rows, ids, gt6, roi, dplane=None) -> torch.Tensor:
+def loss_sums_plain(rows, ids, gt6, roi, dplane=None, colors=None) -> torch.Tensor:
     """Plain torch K5: (B, 3) [mask, rgb, depth] sums, differentiable in
-    rows and dplane (the depth sum is 0 without a dplane)."""
+    rows, dplane and colors (the depth sum is 0 without a dplane).  The
+    shade computes only the channels read: the colours (or none, with
+    ``colors``), then z with a dplane."""
     b, _, hc, wc = rows.shape
     xy = pixel_ndc((hc, wc), roi, device=rows.device)
     valid = _valid_mask((hc, wc), roi, rows.device)
-    shd = shade_from_rows(ids, rows, (hc, wc),
-                          attr_channels=3 if dplane is None else 4, xy=xy)
+    n_ch = n_channels(colors)
+    n_attr = (n_ch + 1) if dplane is not None else (0 if colors is not None else n_ch)
+    shd = shade_from_rows(ids, rows, (hc, wc), attr_channels=n_attr, xy=xy)
     fgm = (ids > 0).to(rows.dtype)
     aa = antialias_rows(fgm, ids, shd["zw"], rows, (hc, wc), xy=xy,
                         valid=valid[None])
@@ -76,33 +96,38 @@ def loss_sums_plain(rows, ids, gt6, roi, dplane=None) -> torch.Tensor:
     m_sum = rows.new_zeros(b)
     r_sum = rows.new_zeros(b)
     for c in range(3):
+        col = shd["attrs_list"][c] if colors is None else colors[:, c]
         m_sum = m_sum + (_l1(aa - gt6[c]) * lm).sum(dim=(1, 2))
-        r_sum = r_sum + (
-            _l1(shd["attrs_list"][c] - gt6[3 + c]) * gt6[c] * lm
-        ).sum(dim=(1, 2))
+        r_sum = r_sum + (_l1(col - gt6[3 + c]) * gt6[c] * lm).sum(dim=(1, 2))
     if dplane is None:
         d_sum = torch.zeros_like(m_sum)
     else:
-        d_sum = (_l1(shd["attrs_list"][3] + dplane) * gt6[0] * lm).sum(dim=(1, 2))
+        d_sum = (_l1(shd["attrs_list"][n_ch] + dplane) * gt6[0] * lm).sum(dim=(1, 2))
     return torch.stack([m_sum, r_sum, d_sum], dim=-1)
 
 
-def loss_bwd_plain(rows, ids, gt6, roi, d_sums, dplane=None):
-    """Plain torch K6: (d_rows, d_dplane) = torch.autograd of the plain K5
-    (d_dplane None without a dplane)."""
+def loss_bwd_plain(rows, ids, gt6, roi, d_sums, dplane=None, colors=None):
+    """Plain torch K6: (d_rows, d_dplane, d_colors) = torch.autograd of the
+    plain K5 (d_dplane None without a dplane, d_colors None without
+    colors)."""
     with torch.enable_grad():
-        r = rows.detach().requires_grad_(True)
-        if dplane is None:
-            sums = loss_sums_plain(r, ids, gt6, roi)
-            (d_rows,) = torch.autograd.grad(sums, r, grad_outputs=d_sums)
-            return d_rows, None
-        dp = dplane.detach().requires_grad_(True)
-        sums = loss_sums_plain(r, ids, gt6, roi, dp)
-        d_rows, d_dplane = torch.autograd.grad(sums, (r, dp), grad_outputs=d_sums)
-    return d_rows, d_dplane
+        leaves = [rows.detach().requires_grad_(True)]
+        dp = cp = None
+        if dplane is not None:
+            dp = dplane.detach().requires_grad_(True)
+            leaves.append(dp)
+        if colors is not None:
+            cp = colors.detach().requires_grad_(True)
+            leaves.append(cp)
+        sums = loss_sums_plain(leaves[0], ids, gt6, roi, dp, cp)
+        grads = list(torch.autograd.grad(sums, leaves, grad_outputs=d_sums))
+    d_rows = grads.pop(0)
+    d_dplane = grads.pop(0) if dplane is not None else None
+    d_colors = grads.pop(0) if colors is not None else None
+    return d_rows, d_dplane, d_colors
 
 
-def _check_loss_inputs(rows, ids, gt6, dplane):
+def _check_loss_inputs(rows, ids, gt6, dplane, colors):
     dev = rows.device
     _check(rows, "rows", torch.float32, 4, dev)
     _check(ids, "ids", torch.int32, 3, dev)
@@ -116,6 +141,10 @@ def _check_loss_inputs(rows, ids, gt6, dplane):
         _check(dplane, "dplane", torch.float32, 3, dev)
         if tuple(dplane.shape) != (b, hc, wc):
             raise ValueError(f"dplane {tuple(dplane.shape)}, expected {(b, hc, wc)}")
+    if colors is not None:
+        _check(colors, "colors", torch.float32, 4, dev)
+        if tuple(colors.shape) != (b, 3, hc, wc):
+            raise ValueError(f"colors {tuple(colors.shape)}, expected {(b, 3, hc, wc)}")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -123,13 +152,15 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def loss_sums(rows, ids, gt6, roi: Tuple[int, int, int, int],
-              dplane: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K5: (B, 3) loss sums, the depth lane with a dplane (B, hc, wc).  CPU
-    tensors take :func:`loss_sums_plain`; CUDA tensors launch the kernel,
-    anything else raises."""
-    _check_loss_inputs(rows, ids, gt6, dplane)
+              dplane: Optional[torch.Tensor] = None,
+              colors: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K5: (B, 3) loss sums, the depth lane with a dplane (B, hc, wc), the
+    colour lane with colour planes (B, 3, hc, wc).  CPU tensors take
+    :func:`loss_sums_plain`; CUDA tensors launch the kernel, anything else
+    raises."""
+    _check_loss_inputs(rows, ids, gt6, dplane, colors)
     if rows.device.type == "cpu":
-        return loss_sums_plain(rows, ids, gt6, roi, dplane)
+        return loss_sums_plain(rows, ids, gt6, roi, dplane, colors)
     if rows.device.type != "cuda":
         raise ValueError(f"loss_sums: unsupported device {rows.device}")
     b, _, hc, wc = rows.shape
@@ -139,21 +170,23 @@ def loss_sums(rows, ids, gt6, roi: Tuple[int, int, int, int],
                            device=rows.device)
     sums = torch.empty((b, 3), dtype=torch.float32, device=rows.device)
     kernels.launch(
-        "dd_loss_fwd", "loss_fwd" if dplane is None else "loss_fwd_depth",
-        rows.data_ptr(), ids.data_ptr(), gt6.data_ptr(), _ptr(dplane),
+        "dd_loss_fwd", counter("loss_fwd", dplane, colors),
+        rows.data_ptr(), ids.data_ptr(), gt6.data_ptr(), _ptr(dplane), _ptr(colors),
         b, hc, wc, oy, ox, fh, fw, partials.data_ptr(), sums.data_ptr(),
     )
     return sums
 
 
-def loss_bwd(rows, ids, gt6, roi, d_sums, dplane: Optional[torch.Tensor] = None):
-    """K6: (d_rows (B, 32, hc, wc), d_dplane (B, hc, wc) or None) from d_sums
-    (B, 3).  CPU tensors take :func:`loss_bwd_plain`; CUDA tensors launch
-    the kernel, anything else raises."""
-    _check_loss_inputs(rows, ids, gt6, dplane)
+def loss_bwd(rows, ids, gt6, roi, d_sums, dplane: Optional[torch.Tensor] = None,
+             colors: Optional[torch.Tensor] = None):
+    """K6: (d_rows (B, 32, hc, wc), d_dplane (B, hc, wc) or None, d_colors
+    (B, 3, hc, wc) or None) from d_sums (B, 3).  CPU tensors take
+    :func:`loss_bwd_plain`; CUDA tensors launch the kernel, anything else
+    raises."""
+    _check_loss_inputs(rows, ids, gt6, dplane, colors)
     _check(d_sums, "d_sums", torch.float32, 2, rows.device)
     if rows.device.type == "cpu":
-        return loss_bwd_plain(rows, ids, gt6, roi, d_sums, dplane)
+        return loss_bwd_plain(rows, ids, gt6, roi, d_sums, dplane, colors)
     if rows.device.type != "cuda":
         raise ValueError(f"loss_bwd: unsupported device {rows.device}")
     b, _, hc, wc = rows.shape
@@ -161,41 +194,44 @@ def loss_bwd(rows, ids, gt6, roi, d_sums, dplane: Optional[torch.Tensor] = None)
     g = torch.empty((b, hc, wc), dtype=torch.float32, device=rows.device)
     d_rows = torch.empty_like(rows)
     d_dplane = None if dplane is None else torch.empty_like(dplane)
+    d_colors = None if colors is None else torch.empty_like(colors)
     kernels.launch(
-        "dd_loss_bwd", "loss_bwd" if dplane is None else "loss_bwd_depth",
-        rows.data_ptr(), ids.data_ptr(), gt6.data_ptr(), _ptr(dplane),
+        "dd_loss_bwd", counter("loss_bwd", dplane, colors),
+        rows.data_ptr(), ids.data_ptr(), gt6.data_ptr(), _ptr(dplane), _ptr(colors),
         d_sums.data_ptr(), b, hc, wc, oy, ox, fh, fw, g.data_ptr(),
-        d_rows.data_ptr(), _ptr(d_dplane),
+        d_rows.data_ptr(), _ptr(d_dplane), _ptr(d_colors),
     )
-    return d_rows, d_dplane
+    return d_rows, d_dplane, d_colors
 
 
 class FusedLossSums(torch.autograd.Function):
-    """(B, 3) loss sums from a raster's (rows, ids), differentiable in rows
-    and dplane (counterpart of ``fused_loss_sums`` with its custom VJP):
-    K5 forward, K6 backward.  d_rows stays f32, as on the reference's
-    non-spanning route; the ground truth is a constant."""
+    """(B, 3) loss sums from a raster's (rows, ids), differentiable in rows,
+    dplane and colors (counterpart of ``fused_loss_sums`` with its custom
+    VJP): K5 forward, K6 backward.  d_rows stays f32, as on the
+    reference's non-spanning route; the ground truth is a constant."""
 
     @staticmethod
-    def forward(ctx, rows, ids, gt6, dplane, roi):
-        ctx.save_for_backward(rows, ids, gt6, dplane)
+    def forward(ctx, rows, ids, gt6, dplane, colors, roi):
+        ctx.save_for_backward(rows, ids, gt6, dplane, colors)
         ctx.roi = roi
-        return loss_sums(rows, ids, gt6, roi, dplane)
+        return loss_sums(rows, ids, gt6, roi, dplane, colors)
 
     @staticmethod
     def backward(ctx, d_sums):
-        rows, ids, gt6, dplane = ctx.saved_tensors
-        d_rows, d_dplane = loss_bwd(rows, ids, gt6, ctx.roi, d_sums.contiguous(), dplane)
-        return d_rows, None, None, d_dplane, None
+        rows, ids, gt6, dplane, colors = ctx.saved_tensors
+        d_rows, d_dplane, d_colors = loss_bwd(rows, ids, gt6, ctx.roi, d_sums.contiguous(),
+                                              dplane, colors)
+        return d_rows, None, None, d_dplane, d_colors, None
 
 
-def fused_loss_sums(rows, ids, gt6, dplane, frame_hw, roi) -> torch.Tensor:
+def fused_loss_sums(rows, ids, gt6, dplane, colors, frame_hw, roi) -> torch.Tensor:
     """(B, 3) [mask, rgb, depth] sums over the (hc, wc) window ``frame_hw``
     of rows (B, 32, hc, wc) and ids, at ``roi=(oy, ox, fh, fw)``; dplane
-    (B, hc, wc) or None."""
+    (B, hc, wc) or None; colors (B, 3, hc, wc), foreground-masked, or
+    None."""
     if tuple(rows.shape[2:]) != tuple(frame_hw):
         raise ValueError(f"rows {tuple(rows.shape)} do not cover the window {frame_hw}")
-    return FusedLossSums.apply(rows, ids, gt6, dplane, tuple(roi))
+    return FusedLossSums.apply(rows, ids, gt6, dplane, colors, tuple(roi))
 
 
 class RasterLossCompact(torch.autograd.Function):
@@ -225,7 +261,7 @@ class RasterLossCompact(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_sums):
         rows, ids, win, gt6 = ctx.saved_tensors
-        d_rows, _ = loss_bwd(rows, ids, gt6, ctx.roi, d_sums.contiguous())
+        d_rows, _, _ = loss_bwd(rows, ids, gt6, ctx.roi, d_sums.contiguous())
         d_bins = raster_bwd(d_rows, win, ctx.n_slots, ctx.tile_hw)
         return d_bins, None, None, None, None, None, None, None, None
 

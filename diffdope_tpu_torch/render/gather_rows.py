@@ -46,16 +46,13 @@ def invert_bins(tile_idx: torch.Tensor, t_count: int,
     (T, M) bool), element for element the reference's.
 
     ``max_occ`` 'auto' sizes M to the largest occurrence count (at least 4,
-    read on the host); an int fixes M, and a triangle in more than M tiles
-    loses the rest of its gradient (check :func:`bin_occupancy`).  The
-    reference's sort-then-scatter with a stable sort: a triangle's
-    occurrences keep their flat order."""
+    read on the host from the sort's ranks: one wait for the device, and
+    ``inv_valid.sum(1)`` is then each triangle's occurrence count); an int
+    fixes M, and a triangle in more than M tiles loses the rest of its
+    gradient (check :func:`bin_occupancy`).  The reference's
+    sort-then-scatter with a stable sort: a triangle's occurrences keep
+    their flat order."""
     flat = tile_idx.reshape(-1).long()
-    if isinstance(max_occ, str):
-        if max_occ != "auto":
-            raise ValueError(f"max_occ must be an int or 'auto': {max_occ!r}")
-        occ = torch.bincount(flat[flat < t_count], minlength=t_count)
-        max_occ = max(4, int(occ.max()) if occ.numel() else 0)
     n = flat.numel()
     order = torch.argsort(flat, stable=True)
     vals = flat[order]
@@ -64,6 +61,11 @@ def invert_bins(tile_idx: torch.Tensor, t_count: int,
     first[1:] = vals[1:] != vals[:-1]
     seg_start = torch.cummax(torch.where(first, iota, -1), dim=0).values
     rank = iota - seg_start  # occurrence index within the triangle's group
+    if isinstance(max_occ, str):
+        if max_occ != "auto":
+            raise ValueError(f"max_occ must be an int or 'auto': {max_occ!r}")
+        most = torch.where(vals < t_count, rank + 1, 0).max() if n else 0
+        max_occ = max(4, int(most))
     ok = (rank < max_occ) & (vals < t_count)
     inv = torch.full((t_count * max_occ,), -1, dtype=torch.long, device=flat.device)
     inv[(vals * max_occ + rank)[ok]] = order[ok]

@@ -5,7 +5,8 @@ and ``_mvpm`` (:318-349), ``pack_binned_pallas`` (:415-448, kernels
 ``_fwd_pack_kernel`` :65 and ``_bwd_pack_kernel`` :165) and the
 eligibility rules of ``pack_binned_auto`` (:451-490).  The kernels are in
 ``csrc/pack.cu``; their plain version is ``planar.pack_binned`` and its
-autograd, which CPU tensors take.
+autograd, which CPU tensors take, and which inputs the rules refuse (traced
+vertices or colours) take on every device, as the reference's XLA pack.
 
 K1 builds the (B, 32, n) table from the (B, 20) per-hypothesis scalars
 (mvp rows, then row 2 of the pose) and the static per-slot table; K2
@@ -134,10 +135,11 @@ class PackBinned(torch.autograd.Function):
 
 
 def _eligible(pos_c: torch.Tensor, corner_attrs: Optional[torch.Tensor]) -> bool:
-    """The reference's rules (``pack_binned_auto``): static shared vertices
-    and static per-corner attributes.  K2 differentiates the pose only, so
-    traced vertices or attributes (vertex or appearance optimization) would
-    silently lose their gradients."""
+    """The reference's rules (``pack_binned_auto``, :472-485): static shared
+    vertices and static per-corner attributes, read from the inputs alone.
+    K2 differentiates the pose only, so traced vertices or attributes
+    (vertex or appearance optimization) would silently lose their
+    gradients."""
     if pos_c.dim() != 2 or pos_c.requires_grad:
         return False
     if corner_attrs is not None and (
@@ -161,20 +163,21 @@ def pack_binned_auto(
 ) -> torch.Tensor:
     """``planar.pack_binned``'s table, (B, 32, n_slots): K1/K2 for CUDA
     tensors, the plain ``planar.pack_binned`` for CPU tensors; anything
-    else raises (so do ineligible inputs on the card: appearance and vertex
-    optimization are not ported, ROADMAP queue 1 item 2)."""
+    else raises.  Inputs that :func:`_eligible` refuses (a gradient to
+    the vertices or the colours, per-hypothesis colours) take the plain
+    pack on every device, whose autograd carries d_attrs, as the
+    reference's return of None sends them to its XLA pack; the
+    'pack_plain' counter counts them."""
     flat = flat.reshape(-1)
+    if mvp.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"pack_binned_auto: unsupported device {mvp.device}")
+    if not _eligible(pos_c, corner_attrs):
+        kernels.launches["pack_plain"] += 1
+        return pack_binned(pos_c, mvp, mtx, flat, corner_attrs, sil, degenerate,
+                           t_count, static_table)
     if mvp.device.type == "cpu":
         return pack_binned(pos_c, mvp, mtx, flat, corner_attrs, sil, degenerate,
                            t_count, static_table)
-    if mvp.device.type != "cuda":
-        raise ValueError(f"pack_binned_auto: unsupported device {mvp.device}")
-    if not _eligible(pos_c, corner_attrs):
-        raise NotImplementedError(
-            "the pack kernel takes static vertices and static per-corner "
-            "attributes only; vertex and appearance optimization are not "
-            "ported yet (ROADMAP queue 1 item 2)"
-        )
     tab, n_ch = _static_table(flat, t_count, static_table)
     sil_b = sil[:, flat.clamp(max=t_count - 1)].to(torch.float32).contiguous()
     return PackBinned.apply(mvp, mtx, tab.contiguous(), sil_b, n_ch)

@@ -1,9 +1,10 @@
 """The port's render and fused refinement loss.
 
 Counterpart of ``diffdope_tpu/render/pipeline.py``, restricted to its
-Pallas configuration on the card: per-corner colour planes, the bin-ordered
-pack (``DD_PACK=pallas``, the reference's default; here K1/K2), and one of
-two bin tables.  ``compact_total`` (slots) selects the compact table, every
+Pallas configuration on the card: per-corner colour planes or an exact
+per-pixel texture, the bin-ordered pack (``DD_PACK=pallas``, the
+reference's default; here K1/K2, or the plain pack where the reference's
+eligibility rule sends traced colours), and one of two bin tables.  ``compact_total`` (slots) selects the compact table, every
 tile's slots in one chunk-aligned table; None selects the uniform-K table,
 K slots for every tile, as in the reference.  The raster is K3/K4 over the
 compact table and K7 over the uniform one (:func:`_raster`).
@@ -14,13 +15,18 @@ compact table and K7 over the uniform one (:func:`_raster`).
   backward K6 -> K4 -> K2), and with depth the raster and the fused loss
   are chained (K1 -> K3 -> K5, backward K6 -> K4 -> K2, d_dplane to t_z
   by autograd).  The uniform table runs the full frame (K1 -> K7 -> K5,
-  backward K6 -> K7 -> K2).
+  backward K6 -> K7 -> K2).  With a texture (``tex``, ``uv``, ``uv_idx``)
+  the semi-fused exact-texture route (reference :770-822): the table holds
+  the uv corners, no ROI crop, the raster and the colour lane of K5/K6
+  chained around the plain uv shade and texture sampler
+  (``render/texture.py``) on the gt segmentation's crop (``DD_TEX_CROP``).
 - :func:`render_batch` (reference :79-380): on its pallas branch K1 -> K3
   or K7 with the plain shade and mask antialiasing, backward K4 or K7 ->
   K2; on its reference branch (``raster_impl`` 'reference', or 'auto' for
   at most 256 triangles) the brute-force id search and the same shade,
   plain torch throughout; the ``stacked`` and ``channels`` layouts,
-  ``return_rast_out`` and ``antialias_rgb``.
+  ``return_rast_out`` and ``antialias_rgb``; colours per corner or by
+  sampling a texture at the interpolated uv (its 'texture' mode, :322-325).
 - :func:`render_rgb_mask`, the gt render over a compact table sized to the
   bins exactly (``EXACT``), and :func:`compact_capacity`.
 
@@ -39,6 +45,7 @@ route and its eligibility rules cannot diverge between call sites.
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
@@ -55,7 +62,7 @@ from diffdope_tpu_torch.render.fused_loss import (
     fused_loss_sums,
     raster_loss_compact,
 )
-from diffdope_tpu_torch.render.gather_rows import bin_occupancy, invert_bins
+from diffdope_tpu_torch.render.gather_rows import invert_bins
 from diffdope_tpu_torch.render.planar import (
     _silhouette_planar,
     _xbounds_ndc,
@@ -85,6 +92,13 @@ from diffdope_tpu_torch.render.shade import (
     shade_rows,
     silhouette_bits,
 )
+from diffdope_tpu_torch.render.texture import (
+    pack_bilinear_blocks4,
+    table_tensor,
+    texture,
+    texture_planar,
+    texture_planar_packed4,
+)
 
 #: GPU raster tile (pixels): one thread per pixel, one block per tile
 TILE_HW = (16, 16)
@@ -102,10 +116,14 @@ CROP_MARGIN = 24
 #: a table capacity: the compact table sized to the bins exactly (reads the
 #: counts on the host), for the gt render and the capacity probe
 EXACT = "exact"
-#: the inverted bin map's width on the ``DD_BINNED=0`` route (the
-#: reference's default, ``pipeline.py:99, 404``): a triangle in more tiles
-#: loses the rest of its gradient; '_bin_occupancy' reports the most
-MAX_OCC = 16
+#: the inverted bin map's width on the ``DD_BINNED=0`` route: sized from
+#: the bins a step builds (``gather_rows.invert_bins``' 'auto', as the
+#: reference's ``precompute_bins`` does, ``pipeline.py:926``), so no
+#: triangle loses gradient; the reference's fixed 16 (``pipeline.py:99,
+#: 404``) was set for its 32x128 tiles, and any fixed width may drop
+#: gradient, so ``render_batch`` and ``make_fused_loss`` take no ``max_occ``
+#: (the reference's do).  '_bin_occupancy' reports the width
+MAX_OCC = "auto"
 
 
 def raster_route() -> Optional[str]:
@@ -122,28 +140,58 @@ def raster_route() -> Optional[str]:
 class _Mesh:
     """The per-mesh constants every entry point needs, as tensors: the
     projection, triangle indices, corner-expanded positions (3T, 3), the
-    per-corner colours (T, 3, 3), the degenerate-triangle mask, the edge
-    adjacency and the static pack table."""
+    per-corner attributes (T, 3, n_ch) — colours (n_ch 3), or with a
+    texture its uv (n_ch 2) — the texture (None for colours), the
+    degenerate-triangle mask, the edge adjacency and the static pack
+    table.  Colours may be tensors that carry a gradient (appearance
+    refinement), and per hypothesis: vertex colours (B, N, 3), corner
+    colours (B, T, 3, 3)."""
 
     def __init__(self, proj_cam, pos, pos_idx, edge_adj, vtx_color,
-                 corner_colors, device):
+                 corner_colors, device, tex=None, uv=None, uv_idx=None):
+        self.device = device
         self.proj = tensor(proj_cam, device).reshape(4, 4)
         self.tri = tensor(pos_idx, device, torch.int64)
         self.t_count = self.tri.shape[0]
-        flat = self.tri.reshape(-1)
-        self.pos_c = tensor(pos, device)[flat]
-        if corner_colors is not None:
-            self.attrs = tensor(corner_colors, device)
-        elif vtx_color is not None:
-            self.attrs = tensor(vtx_color, device)[flat].reshape(self.t_count, 3, 3)
-        else:
-            self.attrs = None
+        self.pos_c = tensor(pos, device)[self.tri.reshape(-1)]
         tri = self.tri
         self.degenerate = (
             (tri[:, 0] == tri[:, 1]) | (tri[:, 1] == tri[:, 2]) | (tri[:, 2] == tri[:, 0])
         )
         self.adj = None if edge_adj is None else tensor(edge_adj, device, torch.int64)
-        self.static = static_pack_rows(self.pos_c, self.attrs, self.degenerate)
+        self._set_colors(vtx_color, corner_colors, tex, uv, uv_idx)
+
+    def _set_colors(self, vtx_color, corner_colors, tex, uv, uv_idx) -> None:
+        """The attributes by the reference's priority (``pipeline.py:146-
+        160``): corner colours, else the texture's uv, else vertex
+        colours."""
+        dev, t, flat = self.device, self.t_count, self.tri.reshape(-1)
+        self.tex = None
+        if corner_colors is not None:
+            self.attrs = tensor(corner_colors, dev)
+        elif tex is not None:
+            if uv is None or uv_idx is None:
+                raise ValueError("textured render requires uv and uv_idx")
+            self.tex = tensor(tex, dev)
+            uv_flat = tensor(uv_idx, dev, torch.int64).reshape(-1)
+            self.attrs = tensor(uv, dev)[uv_flat].reshape(t, 3, 2)
+        elif vtx_color is not None:
+            vtx = tensor(vtx_color, dev)
+            self.attrs = (vtx[flat].reshape(t, 3, 3) if vtx.dim() == 2
+                          else vtx[:, flat].reshape(vtx.shape[0], t, 3, 3))
+        else:
+            self.attrs = None
+        self.n_ch = 0 if self.attrs is None else self.attrs.shape[-1]
+        shared = self.attrs is not None and self.attrs.dim() == 3
+        self.static = static_pack_rows(self.pos_c, self.attrs if shared else None,
+                                       self.degenerate)
+
+    def recolored(self, vtx_color=None, corner_colors=None, tex=None, uv=None,
+                  uv_idx=None) -> "_Mesh":
+        """This mesh with other colours (a step's appearance leaves)."""
+        out = copy.copy(self)
+        out._set_colors(vtx_color, corner_colors, tex, uv, uv_idx)
+        return out
 
 
 def _numpy(a) -> np.ndarray:
@@ -157,6 +205,18 @@ def _padded(resolution):
     return -(-h // th) * th, -(-w // tw) * tw
 
 
+def _seg_bounds(seg: np.ndarray) -> Optional[Tuple[int, int, int, int]]:
+    """(r0, r1, c0, c1), the half-open rows and columns that hold the gt
+    segmentation's support, or None when it is empty."""
+    seg_any = seg.max(axis=-1) if seg.ndim == 3 else seg
+    rows_any = (seg_any > 0).any(axis=1)
+    cols_any = (seg_any > 0).any(axis=0)
+    if not rows_any.any():
+        return None
+    return (int(np.argmax(rows_any)), int(len(rows_any) - np.argmax(rows_any[::-1])),
+            int(np.argmax(cols_any)), int(len(cols_any) - np.argmax(cols_any[::-1])))
+
+
 def crop_window(seg: np.ndarray, resolution):
     """Tile-aligned ROI (oy, ox, hc, wc) around the gt segmentation support
     plus ``CROP_MARGIN`` px (``pipeline.py:548-579``), or None when it would
@@ -164,15 +224,10 @@ def crop_window(seg: np.ndarray, resolution):
     margin = CROP_MARGIN
     hp, wp = _padded(resolution)
     th, tw = TILE_HW
-    seg_any = seg.max(axis=-1) if seg.ndim == 3 else seg
-    rows_any = (seg_any > 0).any(axis=1)
-    cols_any = (seg_any > 0).any(axis=0)
-    if not rows_any.any():
+    bounds = _seg_bounds(seg)
+    if bounds is None:
         return None
-    r0 = int(np.argmax(rows_any))
-    r1 = int(len(rows_any) - np.argmax(rows_any[::-1]))
-    c0 = int(np.argmax(cols_any))
-    c1 = int(len(cols_any) - np.argmax(cols_any[::-1]))
+    r0, r1, c0, c1 = bounds
     oy = max(0, r0 - margin) // th * th
     ox = max(0, c0 - margin) // tw * tw
     hc = min(hp, -(-(r1 + margin - oy) // th) * th)
@@ -344,19 +399,22 @@ def _planar_pack(mesh: _Mesh, mtx: torch.Tensor):
 
 
 def _planar(mesh: _Mesh, mtx: torch.Tensor, resolution, route: str, cull: bool = False,
-            max_tris: int = MAX_TRIS_PER_TILE, max_occ: int = MAX_OCC) -> _Planar:
+            max_tris: int = MAX_TRIS_PER_TILE) -> _Planar:
     """The planar route's inputs at poses ``mtx``: on 'v2' the bins of
     ``planar.bin_triangles_planar`` (``cull`` reaches only them) and
-    ``gather_rows.invert_bins`` of width ``max_occ``, with '_bin_overflow',
-    '_bin_max' and '_bin_occupancy' (the most tiles a triangle occurs in)."""
+    ``gather_rows.invert_bins`` of width ``MAX_OCC`` (the most tiles a
+    triangle occurs in at these bins), with '_bin_overflow',
+    '_bin_max' and '_bin_occupancy' (that most)."""
     packed, cp, det = _planar_pack(mesh, mtx)
     if route == "v3":
         return _Planar(packed, None, None, None, None, {})
     idx, counts, overflow = bin_triangles_planar(cp, det.detach(), resolution, TILE_HW,
                                                  max_tris, cull_backfaces=cull)
-    inv_pos, inv_valid = invert_bins(idx, mesh.t_count, max_occ)
+    inv_pos, inv_valid = invert_bins(idx, mesh.t_count, MAX_OCC)
+    # the 'auto' width holds every occurrence: a triangle's valid entries
+    # are its tile count (``gather_rows.bin_occupancy``, with no wait)
     telemetry = {"_bin_overflow": overflow, "_bin_max": counts.max(),
-                 "_bin_occupancy": bin_occupancy(idx, mesh.t_count)}
+                 "_bin_occupancy": inv_valid.sum(dim=1).max()}
     return _Planar(packed, idx, counts.contiguous(), inv_pos, inv_valid, telemetry)
 
 
@@ -389,8 +447,9 @@ def make_fused_loss(
     roi_crop: str = "auto",
     cull_backfaces: bool = False,
     max_tris_per_tile: int = MAX_TRIS_PER_TILE,
-    max_occ: int = MAX_OCC,
     device="cuda",
+    uv=None,
+    uv_idx=None,
 ):
     """Build ``fn(mtx) -> (total_loss, logs)``.
 
@@ -402,15 +461,20 @@ def make_fused_loss(
     (H, W) for ``use_depth``.  ``compact_total`` None runs the uniform-K
     table on the full frame (no ROI crop), as the reference does.
 
+    With ``tex`` (TH, TW, 3) and its ``uv`` (N, 2) / ``uv_idx`` (T, 3) the
+    colours are the texture sampled at each pixel's uv (the semi-fused
+    exact-texture route, reference :770-822): no ROI crop; the raster, then
+    the uv shade and the sampler on the crop around the gt segmentation
+    (``DD_TEX_CROP``, default on, reference :503-532; 8-bit textures
+    through ``texture_planar_packed4``, others ``texture_planar``), the
+    colours foreground-masked and padded back to the frame, then K5/K6's
+    colour lane; the sums' backward reaches the uv through the sampler.
+
     The route is read from the environment here (:func:`raster_route`):
     on the planar routes the table is ``planar.pack_planar``'s, the frame
     is full and ``compact_total`` is not read; 'v3' logs no binning
     telemetry, 'v2' '_bin_overflow', '_bin_max' and '_bin_occupancy'.
     """
-    if tex is not None:
-        raise NotImplementedError(
-            "exact texture is not ported yet: ROADMAP queue 1, item 2"
-        )
     if gt is None:
         raise NotImplementedError(
             "deferred (per-call) ground truth is not ported yet: it serves "
@@ -420,9 +484,11 @@ def make_fused_loss(
     if use_depth and gt.get("depth") is None:
         raise ValueError("the depth loss needs gt['depth']")
     device = torch.device(device)
-    mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors, device)
+    mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors, device,
+                 tex, uv, uv_idx)
     if mesh.attrs is None:
-        raise ValueError("fused loss requires corner_colors or vtx_color")
+        raise ValueError("fused loss requires corner_colors, vtx_color, or tex(+uv)")
+    texture_mode = mesh.tex is not None
 
     h, w = resolution
     hp, wp = _padded(resolution)
@@ -435,8 +501,9 @@ def make_fused_loss(
         planes[6, :h, :w] = _numpy(gt["depth"]).astype(np.float32)
 
     route = raster_route()
-    # the reference crops the compact table only
-    crop_on = roi_crop != "off" and compact_total is not None and route is None
+    # the reference crops the compact table only, and not in texture mode
+    crop_on = (roi_crop != "off" and compact_total is not None and route is None
+               and not texture_mode)
     window = crop_window(seg_np, resolution) if crop_on else None
     crop = None if window is None else _Crop(window, resolution, device)
     oy, ox, hc, wc = window or (0, 0, hp, wp)
@@ -447,6 +514,7 @@ def make_fused_loss(
     roi = (oy, ox, h, w)
     npx = float(h * w)
     lrs = tensor(learning_rates, device)
+    sample = _texture_sampler(mesh, seg_np, (hc, wc), resolution) if texture_mode else None
 
     def binned(mtx: torch.Tensor) -> _Binned:
         return _binned(mesh, mtx, resolution, compact_total, crop,
@@ -457,30 +525,31 @@ def make_fused_loss(
                       cull_backfaces, max_tris_per_tile)
 
     def planar(mtx: torch.Tensor) -> _Planar:
-        return _planar(mesh, mtx, resolution, route, cull_backfaces, max_tris_per_tile,
-                       max_occ)
+        return _planar(mesh, mtx, resolution, route, cull_backfaces, max_tris_per_tile)
 
     def dplane(mtx: torch.Tensor) -> Optional[torch.Tensor]:
         """gt depth + t_z per hypothesis (B, hc, wc), differentiable in t_z."""
         return None if gtd is None else gtd[None] + mtx[:, 2, 3][:, None, None]
+
+    def sums_of(ids, rows, mtx):
+        colors = None if sample is None else sample(rows, ids)
+        return fused_loss_sums(rows, ids, gt6, dplane(mtx), colors, (hc, wc), roi)
 
     def fn(mtx: torch.Tensor):
         if mtx.dim() == 2:
             mtx = mtx[None]
         if route is not None:
             tab = planar(mtx)
-            ids, rows = _raster_planar(tab, resolution)
-            sums = fused_loss_sums(rows, ids, gt6, dplane(mtx), (hc, wc), roi)
+            sums = sums_of(*_raster_planar(tab, resolution), mtx)
         else:
             tab = table(mtx)
-            if not use_depth and tab.off_c is not None:
+            if not use_depth and not texture_mode and tab.off_c is not None:
                 sums = raster_loss_compact(
                     tab.packed, tab.counts, tab.off_c, tab.used, gt6, K_CHUNK, (hc, wc),
                     TILE_HW, roi,
                 )
             else:
-                ids, rows = _raster(tab, (hc, wc), roi)
-                sums = fused_loss_sums(rows, ids, gt6, dplane(mtx), (hc, wc), roi)
+                sums = sums_of(*_raster(tab, (hc, wc), roi), mtx)
         total = sums.new_zeros(())
         logs = {}
         if use_rgb:
@@ -499,11 +568,57 @@ def make_fused_loss(
         return total, logs
 
     # what the kernel checks need to drive the pack, the raster and the
-    # loss kernels on this loss's own tables
+    # loss kernels on this loss's own tables (``sample``: the colour
+    # planes of a raster's rows and ids on the texture route, else None)
     fn.mesh, fn.binned, fn.table, fn.dplane = mesh, binned, table, dplane
     fn.gt6, fn.frame_hw, fn.roi, fn.crop = gt6, (hc, wc), roi, window
-    fn.route, fn.planar = route, planar
+    fn.route, fn.planar, fn.sample = route, planar, sample
     return fn
+
+
+def _texture_sampler(mesh: _Mesh, seg: np.ndarray, frame_hw, resolution):
+    """``sample(rows, ids) -> colors (B, 3, hc, wc)`` of the semi-fused
+    exact-texture route (reference ``pipeline.py:503-532, 770-822``): the
+    uv shade of the rows on the crop around the gt segmentation (8-px
+    aligned; the whole frame under ``DD_TEX_CROP=0``), bit for bit the
+    frame's pixels there, the texture sampled at that uv, masked to the
+    foreground and padded back to the frame.  The rgb term reads colours
+    only where the segmentation is nonzero, so the crop is loss- and
+    gradient-exact.  A texture that no gradient reaches and that is 8-bit
+    quantized is sampled from its packed 2x2 blocks (one row gather a
+    pixel, the regather-free backward); any other by ``texture_planar``."""
+    hp, wp = frame_hw
+    h, w = resolution
+    ct, cl, chh, cww = 0, 0, hp, wp
+    bounds = _seg_bounds(seg)
+    if os.environ.get("DD_TEX_CROP", "1") == "1" and bounds is not None:
+        r0, r1, c0, c1 = bounds
+        ct, cl = r0 // 8 * 8, c0 // 8 * 8
+        chh = min(hp - ct, -(-(r1 - ct) // 8) * 8)
+        cww = min(wp - cl, -(-(c1 - cl) // 8) * 8)
+    tex = mesh.tex
+    th, tw, n_col = tex.shape
+    blocks = None if tex.requires_grad else pack_bilinear_blocks4(tex)
+    table4 = None if blocks is None else table_tensor(blocks, tex.device)
+    xy = pixel_ndc((chh, cww), (ct, cl, h, w), device=tex.device)
+
+    def sample(rows: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        rows_c = rows[:, :, ct:ct + chh, cl:cl + cww]
+        ids_c = ids[:, ct:ct + chh, cl:cl + cww]
+        shd = shade_from_rows(ids_c, rows_c, (chh, cww), attr_channels=2, xy=xy)
+        u, v = shd["attrs_list"]
+        fg = (ids_c > 0).to(rows.dtype)
+        if table4 is not None:
+            colors = (texture_planar_packed4(table4, u, v, th, tw, n_col) * fg).movedim(0, 1)
+        else:
+            colors = torch.stack([c * fg for c in texture_planar(tex, u, v)], dim=1)
+        if (chh, cww) != (hp, wp):
+            colors = torch.nn.functional.pad(colors, (cl, wp - cl - cww, ct, hp - ct - chh))
+        return colors.contiguous()
+
+    sample.crop = (ct, cl, chh, cww)
+    sample.packed = table4 is not None
+    return sample
 
 
 def _check_capacity(compact_total) -> Optional[int]:
@@ -543,19 +658,26 @@ def max_tile_count(proj_cam, pos, pos_idx, mtx, resolution, device="cuda") -> in
 
 
 def _shade_and_aa(rows, ids, tz, resolution, n_ch: int, antialias_rgb: bool = False,
-                  with_rast: bool = False, shd=None):
+                  with_rast: bool = False, shd=None, tex=None):
     """The plain shade and antialiasing of ``render_batch`` (reference
-    :308-337): the antialiased mask, the n_ch colour planes (antialiased
+    :308-337): the antialiased mask, the three colour planes (antialiased
     too with ``antialias_rgb``), the depth -(rotated z + t_z) (background
-    -t_z) and, ``with_rast``, the (B, H, W, 4) rast.  ``shd`` is the shade
-    of ``rows`` where the caller has it (``shade.shade_rows``)."""
+    -t_z) and, ``with_rast``, the (B, H, W, 4) rast.  The colours are the
+    first of the n_ch attribute channels, or with a texture ``tex`` its
+    bilinear samples at the uv channels, masked to the foreground.
+    ``shd`` is the shade of ``rows`` where the caller has it
+    (``shade.shade_rows``)."""
     xy = pixel_ndc(resolution, device=rows.device)
     if shd is None:
         shd = shade_from_rows(ids, rows, resolution, attr_channels=n_ch + 1, xy=xy,
                               stack_outputs=with_rast)
     fg = (ids > 0).to(rows.dtype)
     mask = antialias_rows(fg, ids, shd["zw"], rows, resolution, xy=xy)
-    colors = shd["attrs_list"][:n_ch]
+    if tex is not None:
+        img = texture(tex, torch.stack(shd["attrs_list"][:2], dim=-1), filter_mode="linear")
+        colors = [img[..., c] * fg for c in range(3)]
+    else:
+        colors = shd["attrs_list"][:3]
     if antialias_rgb:
         colors = [antialias_rows(c, ids, shd["zw"], rows, resolution, xy=xy)
                   for c in colors]
@@ -566,20 +688,22 @@ def _shade_and_aa(rows, ids, tz, resolution, n_ch: int, antialias_rgb: bool = Fa
 def _reference_ids_rows(mesh: _Mesh, mtx: torch.Tensor, resolution, with_rast: bool):
     """The reference branch of ``render_batch`` (reference :167-188): the
     corners' clip positions by ``xfm_points``, their setup, attribute
-    planes of the colours and the rotated z, the packed rows, the brute-
-    force id search (no kernel) and the shade of the gathered rows."""
+    planes of the colours (or uv) and the rotated z, the packed rows, the
+    brute-force id search (no kernel) and the shade of the gathered
+    rows."""
     b, t = mtx.shape[0], mesh.t_count
     mvp = matmul44(mesh.proj, mtx)
     setup = triangle_setup_from_corners(xfm_points(mesh.pos_c, mvp).reshape(b, t, 3, 4))
     p = mesh.pos_c
     zrot = (mtx[:, 2, 0, None] * p[:, 0] + mtx[:, 2, 1, None] * p[:, 1]) \
         + mtx[:, 2, 2, None] * p[:, 2]  # (B, 3T)
-    corner_vals = torch.cat([mesh.attrs.expand(b, t, 3, 3), zrot.reshape(b, t, 3, 1)],
-                            dim=-1)
+    corner_vals = torch.cat([mesh.attrs.expand(b, t, 3, mesh.n_ch),
+                             zrot.reshape(b, t, 3, 1)], dim=-1)
     packed = pack_rows(setup, silhouette_bits(setup.det, mesh.adj),
                        attribute_planes(corner_vals, setup))
     ids = raster_ids_reference(setup.coef, resolution)
-    shd = shade_rows(ids, packed, resolution, attr_channels=4, stack_outputs=with_rast)
+    shd = shade_rows(ids, packed, resolution, attr_channels=mesh.n_ch + 1,
+                     stack_outputs=with_rast)
     return ids, shd
 
 
@@ -597,8 +721,7 @@ def _render(mesh: _Mesh, mtx: torch.Tensor, resolution,
             capacity: Optional[Union[int, str]], layout: str = "stacked",
             cull: bool = False, max_tris: int = MAX_TRIS_PER_TILE,
             impl: str = "pallas", return_rast_out: bool = False,
-            antialias_rgb: bool = False, route: Optional[str] = None,
-            max_occ: int = MAX_OCC) -> Dict[str, object]:
+            antialias_rgb: bool = False, route: Optional[str] = None) -> Dict[str, object]:
     """:func:`render_batch` on a prepared mesh.  ``impl`` 'pallas': K1 ->
     K3 (compact table) or K7 (``capacity`` None: the uniform table), then
     the plain shade and antialiasing; backward K4 or K7 -> K2; or, with a
@@ -613,15 +736,17 @@ def _render(mesh: _Mesh, mtx: torch.Tensor, resolution,
     costs a few elementwise passes; the raster kernel is not re-run."""
     if layout not in ("stacked", "channels"):
         raise ValueError(f"unknown layout {layout!r} (stacked | channels)")
-    if mesh.attrs is None or mesh.attrs.shape[-1] != 3:
+    if mesh.attrs is None:
+        raise ValueError("render requires corner_colors, tex(+uv), or vtx_color")
+    if mesh.tex is None and mesh.n_ch != 3:
         raise ValueError("render_batch requires 3-channel corner_colors or vtx_color")
     if mtx.dim() == 2:
         mtx = mtx[None]
     h, w = resolution
     if impl == "reference":
         ids, shd = _reference_ids_rows(mesh, mtx, resolution, return_rast_out)
-        out = _shade_and_aa(shd["rows"], ids, mtx[:, 2, 3], tuple(resolution), 3,
-                            antialias_rgb, return_rast_out, shd)
+        out = _shade_and_aa(shd["rows"], ids, mtx[:, 2, 3], tuple(resolution), mesh.n_ch,
+                            antialias_rgb, return_rast_out, shd, mesh.tex)
         tel = {}
     else:
         if route is None:
@@ -629,12 +754,13 @@ def _render(mesh: _Mesh, mtx: torch.Tensor, resolution,
             ids, rows = _raster(tab, _padded(resolution), (0, 0, h, w))
             keys = ("_bin_overflow", "_bin_need")
         else:
-            tab = _planar(mesh, mtx, resolution, route, cull, max_tris, max_occ)
+            tab = _planar(mesh, mtx, resolution, route, cull, max_tris)
             ids, rows = _raster_planar(tab, resolution)
             keys = ("_bin_overflow", "_bin_occupancy") if tab.telemetry else ()
         ids, rows = ids[:, :h, :w], rows[:, :, :h, :w]
-        out = checkpoint(_shade_and_aa, rows, ids, mtx[:, 2, 3], tuple(resolution), 3,
-                         antialias_rgb, return_rast_out, use_reentrant=False)
+        out = checkpoint(_shade_and_aa, rows, ids, mtx[:, 2, 3], tuple(resolution),
+                         mesh.n_ch, antialias_rgb, return_rast_out, None, mesh.tex,
+                         use_reentrant=False)
         tel = {k: tab.telemetry[k].detach() for k in keys}
     mask, colors, depth = out[0], out[1:4], out[4]
     rast = out[5] if return_rast_out else None
@@ -666,17 +792,26 @@ def render_batch(
     raster_impl: str = "auto",
     return_rast_out: bool = False,
     antialias_rgb: bool = False,
-    max_occ: int = MAX_OCC,
     device="cuda",
+    tex=None,
+    uv=None,
+    uv_idx=None,
 ) -> Dict[str, object]:
     """Render a mesh under B pose hypotheses ``mtx`` (B, 4, 4),
-    differentiably in mtx.
+    differentiably in mtx and in the colours (``vtx_color``,
+    ``corner_colors`` or ``tex`` may carry a gradient).
+
+    The colours are ``corner_colors`` (T, 3, 3), else the texture ``tex``
+    (TH, TW, 3) sampled bilinearly at the uv (N, 2) interpolated by
+    ``uv_idx`` (T, 3) (the reference's 'texture' mode, ``pipeline.py:322-
+    325``; the texture's gradient is the sampler's scatter-add), else
+    ``vtx_color`` (N, 3).
 
     ``raster_impl`` 'pallas' is the reference's pallas branch on the
     kernels: the compact table for ``compact_total`` slots, else the
     uniform-K table, or the planar route that ``DD_RASTER=v3`` /
-    ``DD_BINNED=0`` select (:func:`raster_route`, read at each call;
-    ``max_occ`` the 'v2' route's inverted-map width); 'reference' its
+    ``DD_BINNED=0`` select (:func:`raster_route`, read at each call);
+    'reference' its
     brute-force branch (no kernel, no binning); 'auto' the brute force for
     at most 256 triangles.
     ``antialias_rgb`` also antialiases the colours (the reference
@@ -693,24 +828,24 @@ def render_batch(
     bins nothing and carries neither)."""
     compact_total = _check_capacity(compact_total)
     mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors,
-                 torch.device(device))
+                 torch.device(device), tex, uv, uv_idx)
     return _render(mesh, tensor(mtx, device).reshape(-1, 4, 4), tuple(resolution),
                    compact_total, layout, cull_backfaces, max_tris_per_tile,
                    _impl(raster_impl, mesh.t_count), return_rast_out, antialias_rgb,
-                   raster_route(), max_occ)
+                   raster_route())
 
 
 @torch.no_grad()
 def render_rgb_mask(proj_cam, mtx, pos, pos_idx, resolution, edge_adj=None,
-                    vtx_color=None, corner_colors=None,
-                    device="cuda") -> Dict[str, torch.Tensor]:
+                    vtx_color=None, corner_colors=None, device="cuda", tex=None,
+                    uv=None, uv_idx=None) -> Dict[str, torch.Tensor]:
     """Render (B, H, W, 3) 'rgb' and 'mask' and (B, H, W) 'depth' at poses
     ``mtx`` (B, 4, 4) over a compact table sized to the bins exactly, or on
     the planar route the environment selects (the gt render):
-    ``render_batch``'s stacked semantics, the mask antialiased, the rgb
-    not."""
+    ``render_batch``'s stacked semantics and colours, the mask
+    antialiased, the rgb not."""
     mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors,
-                 torch.device(device))
+                 torch.device(device), tex, uv, uv_idx)
     out = _render(mesh, tensor(mtx, device).reshape(-1, 4, 4), tuple(resolution),
                   EXACT, route=raster_route())
     dropped = int(out.get("_bin_overflow", 0))  # the 'v3' route bins nothing

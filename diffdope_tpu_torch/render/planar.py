@@ -188,7 +188,8 @@ def pack_planar(
 
     Args:
         cp: interleaved corner planes (B, 3T) (:func:`corner_planes`).
-        corner_attrs: (T, 3, C) static per-corner attributes, or None.
+        corner_attrs: (T, 3, C) per-corner attributes, (B, T, 3, C) per
+            hypothesis, or None.
         zrot: (B, 3T) per-corner rotated camera z (the depth plane), or None.
         edge_adj: (T, 3) silhouette adjacency, or None (all edges).
         degenerate: (T,) bool padding-triangle mask.
@@ -199,8 +200,8 @@ def pack_planar(
     t = det.shape[1]
     attrs = None
     if corner_attrs is not None:
-        attrs = [[corner_attrs[:, k, c][None] for c in range(corner_attrs.shape[-1])]
-                 for k in range(3)]
+        per_b = corner_attrs if corner_attrs.dim() == 4 else corner_attrs[None]
+        attrs = [[per_b[:, :, k, c] for c in range(per_b.shape[-1])] for k in range(3)]
     zr = None if zrot is None else [_corner(zrot, k) for k in range(3)]
     tri_idx = torch.arange(t, device=det.device)
     packed = packed_planar(cp, attrs, zr, degenerate, tri_idx,
@@ -241,20 +242,20 @@ def pack_binned(
         pos_c: (3T, 3) corner-expanded object-space points.
         mvp/mtx: (B, 4, 4).
         idx: bin slot -> triangle (any shape; sentinel t_count).
-        corner_attrs: (T, 3, C) static per-corner attributes.
+        corner_attrs: (T, 3, C) per-corner attributes (which may carry a
+            gradient), or (B, T, 3, C) per hypothesis: gathered per slot
+            for every hypothesis (``planar.py:314-322``).
         sil: (B, T) silhouette bits in triangle order.
         degenerate: (T,) bool padding-triangle mask (or None).
-        static_table: optional precomputed ``static_pack_rows`` result.
+        static_table: optional precomputed ``static_pack_rows`` result
+            (without the attribute rows for per-hypothesis attributes).
     """
-    if corner_attrs is not None and corner_attrs.dim() != 3:
-        raise NotImplementedError(
-            "traced per-hypothesis attributes (appearance optimization) are "
-            "not ported yet: ROADMAP queue 1, item 2"
-        )
     flat = idx.reshape(-1).long()
     safe = flat.clamp(max=t_count - 1)
+    shared = corner_attrs is not None and corner_attrs.dim() == 3
     if static_table is None:
-        static_table = static_pack_rows(pos_c, corner_attrs, degenerate)
+        static_table = static_pack_rows(pos_c, corner_attrs if shared else None,
+                                        degenerate)
     table, n_ch = static_table
     tab = table[:, safe]  # (R, n_slots)
 
@@ -278,8 +279,11 @@ def pack_binned(
     }
     zrot_b = transform(mtx[:, 2, :3], mtx.new_zeros(mtx.shape[:1]))
     attr_b = None
-    if corner_attrs is not None:
+    if shared:
         attr_b = [[row(9 + k * n_ch + c) for c in range(n_ch)] for k in range(3)]
+    elif corner_attrs is not None:
+        attr_b = [[corner_attrs[:, :, k, c][:, safe] for c in range(corner_attrs.shape[-1])]
+                  for k in range(3)]
     sil_b = sil[:, safe]
     degen_b = flat >= t_count
     if degenerate is not None:

@@ -1,8 +1,9 @@
 """Synthetic scenes for tests, the bench and the chip smoke run (numpy only).
 
 Counterpart of ``diffdope_tpu/testing.py``: the same procedural icosphere
-(copied, not imported — importing the JAX package pulls in jax), plus the
-bench protocol's scene as plain numpy arrays.
+(copied, not imported — importing the JAX package pulls in jax), the
+bench protocol's scene as plain numpy arrays, and the textured stand-in
+builder.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 from diffdope_tpu_torch import geometry as geo
-from diffdope_tpu_torch.mesh import build_edge_adjacency
+from diffdope_tpu_torch.mesh import Mesh, build_edge_adjacency, mesh_from_arrays
 
 
 def icosphere(subdiv: int = 3) -> Tuple[np.ndarray, np.ndarray]:
@@ -95,3 +96,27 @@ def bench_scene(
         "q0": q0.astype(np.float32),
         "t0": t0.astype(np.float32),
     }
+
+
+def spherical_uv(pos: np.ndarray) -> np.ndarray:
+    """(N, 2) float32 spherical uv of vertices about the origin (the JAX
+    texture tests' formula, ``tests/test_fused_loss.py:271-276``)."""
+    n = pos / np.maximum(np.linalg.norm(pos, axis=1, keepdims=True), 1e-9)
+    return np.stack([0.5 + np.arctan2(n[:, 2], n[:, 0]) / (2 * np.pi),
+                     0.5 - np.arcsin(np.clip(n[:, 1], -1, 1)) / np.pi],
+                    axis=1).astype(np.float32)
+
+
+def quantize8(tex: np.ndarray) -> np.ndarray:
+    """A [0, 1] texture rounded to 8 bits and back, as a PNG load gives it."""
+    return np.round(np.asarray(tex) * 255).astype(np.uint8).astype(np.float32) / 255
+
+
+def textured_mesh(verts: np.ndarray, faces: np.ndarray, uv: np.ndarray,
+                  tex: np.ndarray, scale: float = 1.0) -> Mesh:
+    """A textured stand-in mesh from arrays, as ``load_mesh`` builds a
+    textured PLY (V flip of the file's uv, winding, padding, baked corner
+    colours; ``mesh.mesh_from_arrays``): e.g. ``tools/make_standins.py``'s
+    ``make_asym_uv()`` geometry (or ``data/standins/standin_tex_*.ply``)
+    with a ``make_texture`` image."""
+    return mesh_from_arrays(verts, faces, scale, uv=uv, tex=tex)

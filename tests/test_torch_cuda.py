@@ -1,6 +1,7 @@
-"""The port's hand kernels (K1-K10, and K5/K6 with the depth lane) against
-their plain torch versions, a DiffDope run, the planar routes' loss and
-the ``rasterize`` op on the card against the same on the CPU.
+"""The port's hand kernels (K1-K10, K5/K6 with the depth and the colour
+lane, K1/K2 at the uv tables' two channels) against their plain torch
+versions, a DiffDope run, the planar routes' and the exact-texture loss
+and the ``rasterize`` op on the card against the same on the CPU.
 
 A CUDA kernel has no CPU mode, so every test here needs a card and skips
 without one.  On a machine with a card (the repo's conftest imports jax,
@@ -262,6 +263,54 @@ def test_planar_fused_loss_on_card_matches_cpu(problem, params, route):
         out[device] = (total.detach().cpu(), [g.cpu() for g in grads], dict(kernels.launches))
     on = (("raster_v3_fwd", "raster_v3_bwd") if route == "v3"
           else ("raster_uniform_fwd", "raster_uniform_bwd")) + ("loss_fwd", "loss_bwd")
+    launches = out["cuda"][2]
+    assert all(launches[c] == (1 if c in on else 0) for c in launches), launches
+    np.testing.assert_allclose(out["cuda"][0].numpy(), out["cpu"][0].numpy(), rtol=1e-5,
+                               atol=1e-7)
+    for g, want in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=2e-4, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def texture_checks(params):
+    """K1/K2 at n_ch 2 (the uv table) and K3-K6 with the colour lane on the
+    bench problem textured, without and with the depth plane."""
+    mtx, _, _ = pose_matrix(params)
+    d_sums = torch.tensor([[1.0, 0.7, 0.9], [0.5, 1.3, 1.1], [2.0, 0.2, 0.4]],
+                          device=mtx.device)
+    rows = {}
+    for depth in (False, True):
+        fn = bench_problem(RES, subdiv=2, batch=B, device=mtx.device, texture=True,
+                           depth=depth)["fn"]
+        assert fn.mesh.n_ch == 2 and fn.sample.packed
+        for row in check_pack(fn, mtx) + check_kernels(fn, mtx, d_sums):
+            rows[row["name"]] = row
+    return rows
+
+
+@pytest.mark.parametrize(
+    "kernel", ["K1_pack_fwd", "K2_pack_bwd", "K5_loss_fwd_color", "K6_loss_bwd_color",
+               "K5_loss_fwd_color_depth", "K6_loss_bwd_color_depth"]
+)
+def test_texture_kernels_match_plain_on_card(texture_checks, kernel):
+    row = texture_checks[kernel]
+    assert row["ok"], row
+
+
+def test_fused_texture_loss_on_card_matches_cpu(problem, params):
+    """The exact-texture step on the card (K1-K4, the colour lane of K5/K6,
+    the plain sampler between them) against the same on the CPU: loss rtol
+    1e-5, pose gradients rtol 2e-4 / atol 1e-6; the plain pack never runs."""
+    out = {}
+    for device in ("cuda", "cpu"):
+        fn = bench_problem(RES, subdiv=2, batch=B, device=device, texture=True)["fn"]
+        kernels.reset_launches()
+        p = {k: v.detach().to(device).requires_grad_(True) for k, v in params.items()}
+        total, _ = fn(pose_matrix(p)[0])
+        grads = torch.autograd.grad(total, list(p.values()))
+        out[device] = (total.detach().cpu(), [g.cpu() for g in grads], dict(kernels.launches))
+    on = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd", "loss_fwd_color",
+          "loss_bwd_color")
     launches = out["cuda"][2]
     assert all(launches[c] == (1 if c in on else 0) for c in launches), launches
     np.testing.assert_allclose(out["cuda"][0].numpy(), out["cpu"][0].numpy(), rtol=1e-5,

@@ -98,10 +98,11 @@ def _port_session(state, cfg):
     import diffdope_tpu_torch as tdd
 
     n, t = len(state["pos"]), len(state["pos_idx"])
+    colors = {k: state.get(k) for k in ("vtx_color", "corner_colors", "tex", "uv", "uv_idx")}
     mesh = tdd.Mesh(pos=state["pos"], pos_idx=state["pos_idx"], vtx_normals=state["pos"],
-                    num_vertices=n, num_triangles=t, vtx_color=state["vtx_color"],
-                    edge_adj=state["edge_adj"], is_closed=state["is_closed"],
-                    is_oriented=state["is_oriented"])
+                    num_vertices=n, num_triangles=t, edge_adj=state["edge_adj"],
+                    is_closed=state["is_closed"], is_oriented=state["is_oriented"],
+                    **colors)
     obj = tdd.Object3D(position=INIT_POSITION, rotation=INIT_ROTATION,
                        batchsize=B, mesh=mesh)
     depth = state["gt"].get("depth")

@@ -82,9 +82,10 @@ def test_torch_loss_sums_match(case):
 
 
 def test_torch_loss_rows_gradient_match(case):
-    d_rows, d_dplane = tf.loss_bwd(torch.tensor(case["rows"]), torch.tensor(case["ids"]),
-                                   torch.tensor(case["gt6"]), case["roi"],
-                                   torch.tensor(D_SUMS))
+    d_rows, d_dplane, _ = tf.loss_bwd(torch.tensor(case["rows"]),
+                                      torch.tensor(case["ids"]),
+                                      torch.tensor(case["gt6"]), case["roi"],
+                                      torch.tensor(D_SUMS))
     assert d_dplane is None
     ref = case["d_rows"]
     assert np.abs(ref[:, :9]).max() > 0 and np.abs(ref[:, 16:25]).max() > 0
@@ -106,10 +107,11 @@ def test_torch_loss_depth_gradient_match(case):
     """The depth lane of K6's plain version: d_rows as without it (its
     rotated-z lanes 25-27 now carry the depth term), d_dplane rtol 2e-4,
     atol 1e-6, on background pixels too."""
-    d_rows, d_dplane = tf.loss_bwd(torch.tensor(case["rows"]), torch.tensor(case["ids"]),
-                                   torch.tensor(case["gt6"]), case["roi"],
-                                   torch.tensor(D_SUMS_DEPTH),
-                                   torch.tensor(case["dplane"]))
+    d_rows, d_dplane, _ = tf.loss_bwd(torch.tensor(case["rows"]),
+                                      torch.tensor(case["ids"]),
+                                      torch.tensor(case["gt6"]), case["roi"],
+                                      torch.tensor(D_SUMS_DEPTH),
+                                      torch.tensor(case["dplane"]))
     ref = case["d_rows_depth"]
     assert np.abs(ref[:, 25:28]).max() > 0
     _assert_rows_close(d_rows.numpy(), ref)

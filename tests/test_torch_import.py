@@ -17,6 +17,7 @@ PORTED = (
     "render/gather_rows.py", "render/interpolate.py", "render/pack_kernel.py",
     "render/pipeline.py", "render/planar.py", "render/raster_v3.py",
     "render/rasterize.py", "render/setup_tris.py", "render/shade.py",
+    "render/texture.py",
 )
 
 
@@ -120,8 +121,33 @@ def test_torch_new_wrappers_refuse_unsupported_devices():
                                 torch.zeros((1, 16, 16), **i32), tables, (16, 16))
 
 
-def test_torch_texture_says_it_is_not_ported():
-    import diffdope_tpu_torch as tdd
+def test_torch_colour_lane_wrappers_refuse_unsupported_devices():
+    """K5/K6 with colour planes, like every wrapper, take the plain
+    versions for CPU tensors only, and check the planes' shape."""
+    import torch
 
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        tdd.texture(None, None)
+    from diffdope_tpu_torch.render import fused_loss
+
+    rows = torch.zeros((1, 32, 16, 16), device="meta")
+    ids = torch.zeros((1, 16, 16), dtype=torch.int32, device="meta")
+    gt6 = torch.zeros((6, 16, 16), device="meta")
+    colors = torch.zeros((1, 3, 16, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_loss.loss_sums(rows, ids, gt6, (0, 0, 16, 16), colors=colors)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_loss.loss_bwd(rows, ids, gt6, (0, 0, 16, 16),
+                            torch.zeros((1, 3), device="meta"), colors=colors)
+    with pytest.raises(ValueError, match="colors"):
+        fused_loss.loss_sums(torch.zeros((1, 32, 16, 16)),
+                             torch.zeros((1, 16, 16), dtype=torch.int32),
+                             torch.zeros((6, 16, 16)), (0, 0, 16, 16),
+                             colors=torch.zeros((1, 2, 16, 16)))
+
+
+def test_torch_texture_op_is_exported():
+    """The nvdiffrast-style texture op is the package's, as the reference
+    exports its own."""
+    import diffdope_tpu_torch as tdd
+    from diffdope_tpu_torch.render.texture import texture
+
+    assert tdd.texture is texture

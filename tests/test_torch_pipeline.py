@@ -109,16 +109,14 @@ def test_torch_roi_crop_is_loss_exact_with_depth():
 
 
 def test_torch_unported_paths_raise():
-    """What the port still refuses: exact texture and deferred ground truth
-    (not ported), a compact capacity off the chunk, and the depth loss
-    without a gt depth image."""
+    """What the port still refuses: deferred ground truth (not ported), a
+    compact capacity off the chunk, and the depth loss without a gt depth
+    image."""
     sc = jax_scene()
     args = (sc["proj"], sc["pos"], sc["tri"], (64, 96), sc["gt"], np.ones(B), {})
     from diffdope_tpu_torch.render.pipeline import make_fused_loss
 
     kw = dict(vtx_color=sc["vtx_color"], device="cpu")
-    with pytest.raises(NotImplementedError, match="exact texture"):
-        make_fused_loss(*args, tex=np.zeros((8, 8, 3), np.float32), **kw)
     with pytest.raises(NotImplementedError, match="deferred"):
         make_fused_loss(*args[:4], None, *args[5:], **kw)
     with pytest.raises(ValueError, match="multiple of"):

@@ -60,7 +60,8 @@ def test_torch_planar_fused_loss_matches_reference(route):
         assert not any(k.startswith("_bin") for k in logs)
     else:
         assert int(logs["_bin_overflow"]) == 0 == int(j_logs["_bin_overflow"])
-        assert int(logs["_bin_occupancy"]) <= pipeline.MAX_OCC
+        # the inverted map is as wide as the most tiles a triangle occupies
+        assert pipeline.MAX_OCC == "auto" and int(logs["_bin_occupancy"]) > 0
 
 
 def test_torch_planar_diffdope_matches_reference():

@@ -103,7 +103,8 @@ def test_torch_planar_render_batch_matches_reference(renders):
         assert "_bin_overflow" not in got and "_bin_overflow" not in ref
     else:
         assert int(got["_bin_overflow"]) == 0 == int(ref["_bin_overflow"])
-        assert 0 < int(got["_bin_occupancy"]) <= pipeline.MAX_OCC
+        # the inverted map is as wide as the most tiles a triangle occupies
+        assert pipeline.MAX_OCC == "auto" and int(got["_bin_occupancy"]) > 0
 
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
@@ -132,3 +133,50 @@ def test_torch_raster_route_reads_the_environment(monkeypatch):
         for name, value in env.items():
             monkeypatch.setenv(name, value)
         assert pipeline.raster_route() == want, env
+
+
+def test_torch_v2_gradient_of_a_triangle_past_16_tiles(monkeypatch):
+    """A triangle that covers more than 16 of the port's 16x16 tiles keeps
+    its whole gradient on the ``DD_BINNED=0`` route: its inverted bin map
+    is as wide as the bins need (a fixed width of 16, the reference's for
+    its 32x128 tiles, dropped the rest).  The pose gradient equals the
+    compact route's, which has no inverted map, at rtol 2e-4, atol 1e-6."""
+    from diffdope_tpu_torch import geometry as geo
+    from diffdope_tpu_torch.optimize import pose_matrix, pose_params
+    from diffdope_tpu_torch.render.pipeline import compact_capacity, make_fused_loss
+
+    res = (96, 128)
+    f = 1.2 * max(res)
+    proj = geo.projection_from_intrinsics(f, f, res[1] / 2, res[0] / 2, res[1], res[0],
+                                          0.01, 100.0).astype(np.float32)
+    pos = np.asarray([[-0.5, -0.4, 0.0], [0.55, -0.3, 0.05], [0.05, 0.5, -0.05],
+                      [0.6, 0.3, 0.1], [0.7, 0.4, 0.1], [0.65, 0.45, 0.12]], np.float32)
+    tri = np.asarray([[0, 1, 2], [3, 4, 5]], np.int32)
+    colors = np.random.default_rng(9).uniform(0.2, 0.9, (6, 3)).astype(np.float32)
+    q = np.asarray(geo.quat_from_axis_angle(np.array([0.3, 1.0, 0.2]), 0.3), np.float32)
+    gt_mtx, _, _ = pose_matrix(pose_params(q, [0.02, -0.01, -2.0], 1, "cpu"))
+    gt = pipeline.render_rgb_mask(proj, gt_mtx, pos, tri, res, vtx_color=colors, device="cpu")
+    gt = {"rgb": gt["rgb"][0].numpy(), "segmentation": gt["mask"][0].numpy()}
+    weights = {"rgb": 0.7, "mask": 1.0}
+
+    def step(route_env):
+        for name in ("DD_RASTER", "DD_BINNED"):
+            monkeypatch.delenv(name, raising=False)
+        for name, value in route_env.items():
+            monkeypatch.setenv(name, value)
+        cap = 2 * compact_capacity(proj, pos, tri, gt_mtx, res, device="cpu")
+        fn = make_fused_loss(proj, pos, tri, res, gt, np.ones(2, np.float32), weights,
+                             use_rgb=True, use_mask=True, vtx_color=colors,
+                             compact_total=cap, device="cpu")
+        p = {k: (v + 0.01 * torch.arange(2)).requires_grad_(True)
+             for k, v in pose_params(q, [0.0, 0.0, -2.0], 2, "cpu").items()}
+        total, logs = fn(pose_matrix(p)[0])
+        return logs, dict(zip(p, torch.autograd.grad(total, list(p.values()))))
+
+    logs_v2, g_v2 = step(ROUTES["v2"])
+    assert int(logs_v2["_bin_occupancy"]) > 16 and int(logs_v2["_bin_overflow"]) == 0
+    _, g_compact = step({})
+    for k, g in g_compact.items():
+        assert g.abs().max() > 0, k
+        np.testing.assert_allclose(g_v2[k].numpy(), g.numpy(), rtol=2e-4, atol=1e-6,
+                                   err_msg=k)

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_scene import COMPACT_TOTAL, JAX_TILE_HW, MAX_K, RES, jax_scene
+from torch_scene import COMPACT_TOTAL, JAX_TILE_HW, MAX_K, RES, feed_reference_pack, jax_scene
 
 from diffdope_tpu_torch.render.pipeline import render_batch
 
@@ -33,28 +33,6 @@ def _weights():
     b = jax_scene()["mtx0"].shape[0]
     return (rng.uniform(0.5, 1.5, (b,) + RES).astype(np.float32),
             rng.uniform(0.5, 1.5, (b,) + RES + (3,)).astype(np.float32))
-
-
-def _reference_pack(monkeypatch):
-    """Make the port's pack return the reference's table values."""
-    import jax.numpy as jnp
-
-    from diffdope_tpu.render.pack_kernel import pack_binned_auto as j_pack
-    from diffdope_tpu_torch.render import pipeline
-
-    own = pipeline._pack_dispatch
-
-    def dispatch(mesh, mvp, mtx, flat, sil):
-        packed = own(mesh, mvp, mtx, flat, sil)
-        ref = j_pack(*(jnp.asarray(a.detach().numpy()) for a in (
-            mesh.pos_c, mvp, mtx, flat, mesh.attrs, sil, mesh.degenerate)),
-            mesh.t_count, interpret=True)
-        ref = torch.tensor(np.asarray(ref))
-        swapped = packed + (ref - packed).detach()
-        assert torch.equal(swapped, ref)
-        return swapped
-
-    monkeypatch.setattr(pipeline, "_pack_dispatch", dispatch)
 
 
 @pytest.fixture(scope="module", params=["stacked", "channels"])
@@ -90,7 +68,7 @@ def renders(request):
 
     mtx = torch.tensor(sc["mtx0"], requires_grad=True)
     with pytest.MonkeyPatch.context() as mp:
-        _reference_pack(mp)
+        feed_reference_pack(mp)
         got = render_batch(sc["proj"], mtx, sc["pos"], sc["tri"], RES,
                            vtx_color=sc["vtx_color"], edge_adj=sc["edge_adj"],
                            layout=layout, compact_total=COMPACT_TOTAL, device="cpu")
@@ -169,7 +147,7 @@ def uniform_renders():
 
     mtx = torch.tensor(sc["mtx0"], requires_grad=True)
     with pytest.MonkeyPatch.context() as mp:
-        _reference_pack(mp)
+        feed_reference_pack(mp)
         got = render_batch(sc["proj"], mtx, sc["pos"], sc["tri"], RES,
                            vtx_color=sc["vtx_color"], edge_adj=sc["edge_adj"],
                            layout="channels", compact_total=None, device="cpu")

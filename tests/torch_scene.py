@@ -273,3 +273,118 @@ def feed_planar_table(mp, table):
         return packed + (ref - packed).detach(), cp, det
 
     mp.setattr(pipeline, "_planar_pack", pack)
+
+
+def scene_texture(quantized=True, seed=3, size=32):
+    """The texture tests' colouring of the scene's sphere: spherical uv
+    (``testing.spherical_uv``, the JAX tests' formula), the faces as
+    uv_idx, and a ``size``-square texture, 8-bit quantized (the packed
+    sampler's) or not (the f32 sampler's)."""
+    from diffdope_tpu_torch.testing import quantize8, spherical_uv
+
+    sc = jax_scene()
+    tex = np.random.default_rng(seed).uniform(0.1, 0.9, (size, size, 3)).astype(np.float32)
+    return dict(tex=quantize8(tex) if quantized else tex, uv=spherical_uv(sc["pos"]),
+                uv_idx=sc["tri"])
+
+
+@functools.lru_cache(maxsize=None)
+def jax_texture_table():
+    """The JAX compact table of the scene textured (uv corners, n_ch 2),
+    its raster at the scene's initial poses (interpret mode), as numpy."""
+    import jax
+    import jax.numpy as jnp
+
+    from diffdope_tpu.render.planar import (
+        _silhouette_planar,
+        bin_triangles_planar,
+        compact_bins,
+        corner_planes,
+        det_planar,
+        pack_binned,
+    )
+    from diffdope_tpu.render.raster_v2 import _fwd_from_bins_compact, _pick_chunk
+
+    sc, tx = jax_scene(), scene_texture()
+    tri = sc["tri"]
+    t_count = tri.shape[0]
+    kc = _pick_chunk(COMPACT_TOTAL)
+    degenerate = np.zeros((t_count,), bool)
+
+    @jax.jit
+    def run(mtx):
+        mvp = jnp.einsum("ij,bjk->bik", sc["proj"], mtx, precision="highest")
+        pos_c = sc["pos"][tri.reshape(-1)]
+        cp = corner_planes(pos_c, mvp)
+        det = det_planar(cp, degenerate)
+        idx, counts, _ = bin_triangles_planar(cp, det, RES, JAX_TILE_HW, MAX_K)
+        sil = _silhouette_planar(det, sc["edge_adj"])
+        flat, off_c, used, _ = compact_bins(idx, counts, t_count, kc, COMPACT_TOTAL)
+        attrs = tx["uv"][tx["uv_idx"].reshape(-1)].reshape(t_count, 3, 2)
+        packed = pack_binned(pos_c, mvp, mtx, flat, attrs, sil, degenerate, t_count)
+        _, ids, rows, _ = _fwd_from_bins_compact(
+            packed, counts, off_c, used, RES, JAX_TILE_HW, idx.shape[1] // kc, True)
+        return dict(ids=ids, rows=rows)
+
+    return {k: np.asarray(v) for k, v in run(jnp.asarray(sc["mtx0"])).items()}
+
+
+def jax_fused_texture_loss(monkeypatch, tex, use_depth=False):
+    """The JAX exact-texture fused loss on the scene (compact table, XLA
+    pack, f32 d_rows), as :func:`jax_fused_loss` builds the colour one."""
+    from diffdope_tpu.render import pack_kernel
+    from diffdope_tpu.render.pipeline import make_fused_loss
+
+    monkeypatch.setenv("DD_DROWS_BF16", "0")
+    monkeypatch.setenv("DD_PACK", "xla")
+    monkeypatch.setattr(pack_kernel, "pack_binned_auto", None)
+    sc, tx = jax_scene(), scene_texture()
+    return make_fused_loss(
+        sc["proj"], sc["pos"], sc["tri"], RES, sc["gt"], LRS, WEIGHTS,
+        use_rgb=True, use_depth=use_depth, use_mask=True, edge_adj=sc["edge_adj"],
+        tex=tex, uv=tx["uv"], uv_idx=tx["uv_idx"], max_tris_per_tile=MAX_K,
+        compact_total=COMPACT_TOTAL,
+    )
+
+
+def port_fused_texture_loss(tex, use_depth=False, device="cpu"):
+    """The port's exact-texture fused loss on the same scene (compact
+    capacity twice the probe's)."""
+    from diffdope_tpu_torch import convert
+    from diffdope_tpu_torch.render.pipeline import compact_capacity, make_fused_loss
+
+    sc, tx = convert.state(jax_scene(), device), scene_texture()
+    total = 2 * compact_capacity(sc["proj"], sc["pos"], sc["tri"], sc["mtx0"], RES,
+                                 device=device)
+    return make_fused_loss(
+        sc["proj"], sc["pos"], sc["tri"], RES, sc["gt"], LRS, WEIGHTS,
+        use_rgb=True, use_depth=use_depth, use_mask=True, edge_adj=sc["edge_adj"],
+        tex=tex, uv=tx["uv"], uv_idx=tx["uv_idx"], compact_total=total, device=device,
+    )
+
+
+def feed_reference_pack(monkeypatch):
+    """Make the port's bin-ordered pack return the reference's Pallas pack
+    of the same slots (value + (ref - value).detach(), so the port's own
+    pack autograd carries the gradient): XLA's CPU fusions contract the
+    pack's multiply-adds into FMAs, which puts the two tables ~1e-6 apart
+    and flips the z winner of a silhouette pixel now and then."""
+    import jax.numpy as jnp
+    import torch
+
+    from diffdope_tpu.render.pack_kernel import pack_binned_auto as j_pack
+    from diffdope_tpu_torch.render import pipeline
+
+    own = pipeline._pack_dispatch
+
+    def dispatch(mesh, mvp, mtx, flat, sil):
+        packed = own(mesh, mvp, mtx, flat, sil)
+        ref = j_pack(*(jnp.asarray(a.detach().numpy()) for a in (
+            mesh.pos_c, mvp, mtx, flat, mesh.attrs, sil, mesh.degenerate)),
+            mesh.t_count, interpret=True)
+        ref = torch.tensor(np.asarray(ref))
+        swapped = packed + (ref - packed).detach()
+        assert torch.equal(swapped, ref)
+        return swapped
+
+    monkeypatch.setattr(pipeline, "_pack_dispatch", dispatch)

@@ -1,13 +1,14 @@
 """Where the device time of a PyTorch-port DiffDope step goes, on the card.
 
 Runs ``chip_smoke.py``'s default-configuration DiffDope session (960x540,
-B=8, 61 SGD steps, stand-in mesh) in three settings: mask L1 on the
+B=8, 61 SGD steps, stand-in mesh) in four settings: mask L1 on the
 compact table (``chip_smoke`` phase 5), mask + depth L1 on the compact
-table (phase 7) and mask + depth L1 on the uniform-K table (phase 8).
+table (phase 7), mask + depth L1 on the uniform-K table (phase 8), and
+mask + rgb L1 with exact texture on the textured stand-in (phase 14).
 Each setting runs once to warm up (recovery re-runs included), once
 untraced for the step's wall time, and once under ``torch.profiler``.
 
-    python tools/port_profile_diffdope.py
+    python tools/port_profile_diffdope.py [setting ...]   # default: all
 
 Prints, per setting, one JSON line: the untraced wall time per step, the
 device busy time per step (sum of the CUDA kernels' self time over the
@@ -22,10 +23,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+#: name: (tpu overrides, loss overrides, the textured stand-in or the configured mesh)
 SETTINGS = {
-    "mask_compact": ({}, {}),
-    "depth_compact": ({}, {"l1_depth_with_mask": True}),
-    "depth_uniform": ({"compact_bins": False}, {"l1_depth_with_mask": True}),
+    "mask_compact": ({}, {}, False),
+    "depth_compact": ({}, {"l1_depth_with_mask": True}, False),
+    "depth_uniform": ({"compact_bins": False}, {"l1_depth_with_mask": True}, False),
+    "texture_exact": ({"texture_mode": "exact"}, {"l1_rgb_with_mask": True}, True),
 }
 TOP = 12
 
@@ -41,8 +44,10 @@ def main() -> int:
         print("no CUDA device: this profile measures the card only", file=sys.stderr)
         return 2
     gpu = card()
-    for name, (tpu, losses) in SETTINGS.items():
-        dd, _, _ = chip_smoke.diffdope_session(True, tpu=tpu, losses=losses)
+    for name in sys.argv[1:] or SETTINGS:
+        tpu, losses, textured = SETTINGS[name]
+        mesh = chip_smoke.texture_mesh() if textured else None
+        dd, _, _ = chip_smoke.diffdope_session(True, tpu=tpu, losses=losses, mesh=mesh)
         dd.run_optimization()  # warm-up, and the recovery's capacities
         torch.cuda.synchronize()
         dd.run_optimization()
