@@ -10,23 +10,28 @@ result line):
 2. builds the hand kernels from ``diffdope_tpu_torch/csrc`` (one nvcc per
    source, in parallel, sm_90a) and reports the build time;
 3. holds each kernel (K1 pack fwd, K2 pack bwd, K3 raster fwd, K4 raster
-   bwd, K5 loss fwd, K6 loss bwd; K7 uniform raster fwd and bwd on the
-   uniform-K table; K5/K6 with the depth lane) against its plain torch
-   version on the card, at the test scene and at the bench shapes, each
-   hypothesis at a pose of its own (K1 bit for bit in all 32 lanes), and
-   times both at the bench shapes;
+   bwd, K5 loss fwd, K6 loss bwd, and the spanning op's bf16 d_rows lane
+   of K6 and K4; K7 uniform raster fwd and bwd on the uniform-K table;
+   K5/K6 with the depth lane) against its plain torch version on the card,
+   at the test scene and at the bench shapes, each hypothesis at a pose of
+   its own (K1 bit for bit in all 32 lanes, K3 and K7 ids, slots and rows
+   exactly), and times both at the bench shapes;
 4. drives the bench main path: the bench protocol (B=64, 400x400,
    icosphere(5), rgb+mask, 100 Adam steps) through ``make_fused_loss`` +
    ``refine``, with every launch counter reset just before and read just
-   after: all six kernels launched, every table packed by K1 (pack_fwd ==
-   raster_fwd); the loss must be finite and fall, the best hypothesis must
-   end closer to the gt pose (ADD) than it started, and no step may drop
-   bin slots or leak out of the ROI crop;
+   after: K1, K2, K3, K5 and the bf16 lane of K6 and K4 launched (the
+   default ``DD_DROWS_BF16``), their f32 instantiations not, every table
+   packed by K1 (pack_fwd == raster_fwd); the loss must be finite and
+   fall, the best hypothesis must end closer to the gt pose (ADD) than it
+   started, and no step may drop bin slots or leak out of the ROI crop;
+   at the init the bf16 lane's pose gradients agree with the f32 lane's
+   within the contract's bf16 clause (atol 2e-2 of scale);
 5. drives ``DiffDope(cfg).run_optimization()`` at the default
    configuration's full size (``DEFAULT_CONFIG``: configs/diffdope.yaml
    with the in-repo stand-in mesh; 960x540, B=8, 61 SGD steps, mask L1),
    the scene the port's own render at the configured pose, the init
-   ``INIT_OFFSET`` away: the fused route through K1-K6, no overflow or
+   ``INIT_OFFSET`` away: the fused route through K1-K5 and the bf16 lane
+   of K6/K4, no overflow or
    crop leak left in the kept run (after at most one recovery re-run,
    logged), the loss falls, ``get_pose()`` ends closer to the gt pose
    (ADD) than the init, and K1-K6 agree with their plain versions on the
@@ -59,9 +64,13 @@ result line):
    -> L1 against the phase's gt rgb and mask -> the pose gradient; K8
    launched once, its ids equal the brute force's (``impl='reference'``)
    exactly, so do rast and rast_db, the pose gradients agree at rtol 1e-6,
-   atol 1e-9 (the gathers' backward adds with atomics), and the coverage
-   differs from ``render_batch``'s ids at the same poses on at most 0.5%
-   of the foreground; forward and backward times and peak memory printed;
+   atol 1e-9 (antialias's and interpolate's gathers add with atomics), and
+   the coverage differs from ``render_batch``'s ids at the same poses on at
+   most 0.5% of the foreground; forward and backward times and peak memory
+   printed; ``rasterize``'s backward (the setup rows' segmented sum,
+   launched once a backward) twice at the same poses gives the same clip
+   gradient bit for bit, and the segmented sum agrees with its plain twin
+   and is timed beside ``index_add_``;
 10. ``DiffDope`` with ``tpu.raster_impl: auto`` on icosphere(1) (80
    triangles, vertex colours) at 960x540, B=8, 5 SGD steps (``AUTO_HYPER``):
    auto picks the brute-force rasterizer (the unfused route, no kernel
@@ -182,9 +191,11 @@ DEFAULT_CONFIG = {
             "argmin_rule": "best_step", "roi_crop": "auto"},
 }
 #: the launch counters of the fused compact route without depth (the bench
-#: main path, phase 5); the unfused route runs the first four
-COMPACT_FUSED = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd", "loss_fwd",
-                 "loss_bwd")
+#: main path, phase 5): the spanning op's default bf16 d_rows lane of K6
+#: and K4; the unfused route runs K1-K4 with f32 d_rows
+COMPACT_FUSED = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd_bf16", "loss_fwd",
+                 "loss_bwd_bf16")
+COMPACT_UNFUSED = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd")
 #: the API path's tile (the op's default)
 API_TILE = (32, 128)
 #: phase 10's run: 5 SGD steps, loss scales in [0.5, 2] (the DiffDope parity
@@ -238,6 +249,39 @@ def versions() -> str:
         tri = "not installed"
     return (f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"nvcc {nvcc}, triton {tri}")
+
+
+def drows_lanes(problem):
+    """At the bench init, the pose gradients of the main path's default
+    bf16 d_rows lane against those of the f32 lane (the loss rebuilt under
+    DD_DROWS_BF16=0): within the contract's bf16 clause, atol 2e-2 of the
+    component's largest |value|, and not equal (the lane is taken)."""
+    import torch
+
+    from diffdope_tpu_torch.bench import bench_problem, drows_env
+    from diffdope_tpu_torch.optimize import pose_matrix
+
+    with drows_env(False):
+        fn32 = bench_problem((400, 400), subdiv=5, batch=64, device="cuda")["fn"]
+
+    def grads(fn):
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in problem["params0"].items()}
+        total, _ = fn(pose_matrix(p)[0])
+        return dict(zip(p, torch.autograd.grad(total, list(p.values()))))
+
+    if not problem["fn"].drows_bf16 or fn32.drows_bf16:
+        fail("the bench problem's loss is not on the bf16 lane, or its rebuild not on f32")
+    g16, g32 = grads(problem["fn"]), grads(fn32)
+    gap = max(float((g16[k] - g32[k]).abs().max() / (2e-2 * g32[k].abs().max()))
+              for k in g32)
+    rel = max(float(((g16[k] - g32[k]).abs() / (1e-6 + 2e-4 * g32[k].abs())).max())
+              for k in g32)
+    print(f"main path init: bf16 against f32 d_rows pose gradients: largest |diff| "
+          f"{gap:.3e} of the bf16 clause (atol 2e-2 x scale), {rel:.3e} of rtol 2e-4, "
+          f"atol 1e-6", flush=True)
+    if gap > 1.0 or all(torch.equal(g16[k], g32[k]) for k in g32):
+        fail("the bf16 lane's gradients break the bf16 clause, or equal the f32 lane's")
 
 
 def check_all(fn, mtx, d_sums, reps=0):
@@ -624,9 +668,10 @@ def api_phase(gpu):
           f"{run['bwd_s'] * 1e3:.4f} ms, peak {peak_gib:.3f} GiB, loss {run['loss']:.6f} "
           f"[{gpu}]", flush=True)
     print(f"API path launches: {launches}", flush=True)
-    check_launches("API path", launches, ("raster_ids",), set(launches) - {"raster_ids"})
-    if launches["raster_ids"] != 1:
-        fail(f"API path: K8 launched {launches['raster_ids']} times for one rasterize")
+    on = ("raster_ids", "setup_rows_bwd")
+    check_launches("API path", launches, on, set(launches) - set(on))
+    if launches["raster_ids"] != 1 or launches["setup_rows_bwd"] != 1:
+        fail(f"API path: {launches} for one rasterize and its backward")
 
     torch.cuda.reset_peak_memory_stats()
     ref = api_path(mesh_t, params, "reference", k, gt)
@@ -646,6 +691,7 @@ def api_phase(gpu):
                  f"brute force's {want} beyond rtol 1e-6, atol 1e-9")
     print(f"API path: rast and rast_db equal, pose gradients agree at rtol 1e-6, "
           f"atol 1e-9; loss {run['loss']:.6f} / {ref['loss']:.6f}", flush=True)
+    row = rasterize_backward_repeats(mesh_t, mtx.detach(), res, k, gpu)
 
     # render_batch at the same poses: the same coverage but on silhouette
     # pixels, where its planar coefficients and the API's setup round apart
@@ -666,7 +712,68 @@ def api_phase(gpu):
     if n_diff > 0.005 * int(fg_rb.sum()):
         fail("API path: coverage differs from render_batch's on more than 0.5% of the "
              "foreground")
-    return launches["raster_ids"]
+    return launches, row
+
+
+def rasterize_backward_repeats(mesh_t, mtx, res, k, gpu):
+    """rasterize's backward at phase 9's poses, twice: the clip positions'
+    gradient must repeat bit for bit (the setup rows' segmented sum).  Then
+    the segmented sum against its plain twin (an index_add, atomics on the
+    card) on a seeded cotangent at the pass's ids, rtol 2e-4, atol 1e-6 +
+    1e-6 of the row's sum of |terms|, timed beside the one PyTorch call
+    that computes the same sum (``index_add_``); returns its kernel row."""
+    import torch
+
+    from diffdope_tpu_torch import rasterize, xfm_points
+    from diffdope_tpu_torch.geometry import matmul44
+    from diffdope_tpu_torch.kernels.check import _time_ms, bound
+    from diffdope_tpu_torch.render.rasterize import (
+        segments,
+        setup_rows_bwd,
+        setup_rows_bwd_plain,
+    )
+
+    proj, pos, tri = mesh_t[:3]
+    grads = []
+    for _ in range(2):
+        pos_clip = xfm_points(pos, matmul44(proj, mtx)).requires_grad_(True)
+        rast, db = rasterize(pos_clip, tri, res, impl="pallas", tile_hw=API_TILE,
+                             max_tris_per_tile=k)
+        (g,) = torch.autograd.grad(rast[..., :3].sum() + 1e-3 * db.sum(), pos_clip)
+        grads.append(g)
+    if not torch.equal(grads[0], grads[1]) or not bool(grads[0].abs().max() > 0):
+        fail("API path: rasterize's backward does not repeat bit for bit")
+    print("API path: rasterize's pos_clip gradient repeats bit for bit over two "
+          "backwards", flush=True)
+    b, t_count = mtx.shape[0], tri.shape[0]
+    ids = rast[..., 3].detach().to(torch.int32).reshape(b, -1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    d = torch.randn(ids.shape + (16,), generator=gen, device="cuda")
+    got = setup_rows_bwd(d, ids, t_count)
+    want = setup_rows_bwd_plain(d, ids, t_count)
+    scale = setup_rows_bwd_plain(d.abs(), ids, t_count)
+    ok = bool(torch.all((got - want).abs() <= 1e-6 + 2e-4 * want.abs() + 1e-6 * scale))
+    fg = int((ids > 0).sum())
+    key = torch.where(ids > 0, torch.arange(b, device="cuda")[:, None] * t_count
+                      + ids.long() - 1, b * t_count).reshape(-1)
+    acc = torch.zeros((b * t_count + 1, 16), device="cuda")
+    order, start = segments(ids, t_count)
+    row = dict(name="setup_rows_bwd", ok=ok, max_abs_err=float((got - want).abs().max()),
+               ms=_time_ms(lambda: setup_rows_bwd(d, ids, t_count), 20),
+               plain_ms=_time_ms(lambda: setup_rows_bwd_plain(d, ids, t_count), 2),
+               library_ms=_time_ms(lambda: acc.index_add_(0, key, d.reshape(-1, 16)), 20),
+               # the foreground rows read, the order and the starts, and the
+               # rows written; one add a foreground term
+               bound=bound(4 * (16 * fg + order.numel() + start.numel() + got.numel()),
+                           16 * fg))
+    print(f"API path shapes setup_rows_bwd: ok={ok} max_abs_err={row['max_abs_err']:.3e} "
+          f"(rtol 2e-4, atol 1e-6 + 1e-6 x sum |terms|) kernel {row['ms']:.4f} ms "
+          f"(the sort and the starts included), plain {row['plain_ms']:.4f} ms, index_add_ "
+          f"{row['library_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms ({row['bound'][1]}), "
+          f"{fg} foreground px [{gpu}]", flush=True)
+    if not ok:
+        fail(f"setup_rows_bwd disagrees with its plain version: {row}")
+    return row
 
 
 def auto_phase(gpu):
@@ -1344,6 +1451,7 @@ def main() -> None:
           flush=True)
     if not add1 < add0:
         fail("the best hypothesis did not end closer to the gt pose")
+    drows_lanes(problem)
 
     # ---- DiffDope at the default configuration ------------------------------
     dd_f, launches_f, add0, add1 = diffdope_phase(True, gpu, "fused")
@@ -1352,8 +1460,8 @@ def main() -> None:
     check_diffdope(dd_f, "fused", add0, add1)
 
     dd_u, launches_u, add0, add1 = diffdope_phase(False, gpu, "unfused")
-    check_launches("DiffDope unfused", launches_u, COMPACT_FUSED[:4],
-                   set(launches_u) - set(COMPACT_FUSED[:4]))
+    check_launches("DiffDope unfused", launches_u, COMPACT_UNFUSED,
+                   set(launches_u) - set(COMPACT_UNFUSED))
     check_diffdope(dd_u, "unfused", add0, add1)
     step0_f = {k: v[0] for k, v in dd_f.losses_values.items()}
     agree_step0("DiffDope unfused against fused",
@@ -1414,7 +1522,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- the API path (K8) and DiffDope on the reference rasterizer -------
-    k8_launches = api_phase(gpu)
+    api_launches, seg_row = api_phase(gpu)
     torch.cuda.empty_cache()
     auto_phase(gpu)
     torch.cuda.empty_cache()
@@ -1434,26 +1542,35 @@ def main() -> None:
     torch.cuda.empty_cache()
     appearance_phase(gpu)
 
-    # launches on the path that runs each kernel: the bench main path, the
-    # depth phase on the compact table, the depth phase on the uniform one,
-    # the API path, phase 11 (K10), phase 13 (K9) and phase 14 and its depth
-    # variant (the colour lane)
+    # launches on the path that runs each kernel: the bench main path (its
+    # bf16 lane of K6/K4), the depth phase on the compact table (K4 with
+    # f32 d_rows), the depth phase on the uniform one, phase 11 (K10, and
+    # the f32 rgb + mask K6 of its chained ops), the API path (K8 and the
+    # setup rows' sum), phase 13 (K9) and phase 14 and its depth variant
+    # (the colour lane)
     path = {**launches_c, **{c: launches_k[c] for c in
                              ("raster_uniform_fwd", "raster_uniform_bwd")},
-            **{c: launches[c] for c in COMPACT_FUSED}, "raster_ids": k8_launches,
+            **{c: launches[c] for c in COMPACT_FUSED},
+            **{c: api_launches[c] for c in ("raster_ids", "setup_rows_bwd")},
             "gather_rows_fwd": k9_launches, "gather_rows_bwd": k9_launches,
-            **{c: launches_3[c] for c in ("raster_v3_fwd", "raster_v3_bwd")},
+            **{c: launches_3[c] for c in ("raster_v3_fwd", "raster_v3_bwd", "loss_bwd")},
             **{c: launches_t[c] for c in ("loss_fwd_color", "loss_bwd_color")},
             **{c: launches_td[c] for c in ("loss_fwd_color_depth", "loss_bwd_color_depth")}}
+    bench_rows["setup_rows_bwd"] = seg_row
+    kernel_rows = dict(KERNELS, setup_rows_bwd=(
+        "diffdope_tpu_torch/csrc/rasterize.cu", "diffdope_tpu/render/rasterize.py:245"))
+    counters = dict(COUNTERS, setup_rows_bwd="setup_rows_bwd")
     rows = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces) in kernel_rows.items():
         r = bench_rows[name]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": path[COUNTERS[name]], "max_abs_err": r["max_abs_err"],
+            "launches": path[counters[name]], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": None,
+            "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
         })
+        if not path[counters[name]]:
+            fail(f"{name} was launched no time on its path")
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

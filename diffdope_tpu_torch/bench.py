@@ -65,13 +65,11 @@ ROUTE_ENV = {None: {}, "v3": {"DD_RASTER": "v3"}, "v2": {"DD_BINNED": "0"}}
 
 
 @contextlib.contextmanager
-def raster_env(route: Optional[str]):
-    """Select the raster ``route`` (None, 'v3' or 'v2') for what is built
-    or run inside, as the reference's users do (``DD_RASTER`` and
-    ``DD_BINNED``); the previous values come back on exit."""
-    names = ("DD_RASTER", "DD_BINNED")
+def _environ(names, values: Dict[str, str]):
+    """``names`` unset but for ``values`` inside; the previous values come
+    back on exit."""
     saved = {name: os.environ.pop(name, None) for name in names}
-    os.environ.update(ROUTE_ENV[route])
+    os.environ.update(values)
     try:
         yield
     finally:
@@ -79,6 +77,19 @@ def raster_env(route: Optional[str]):
             os.environ.pop(name, None)
             if value is not None:
                 os.environ[name] = value
+
+
+def raster_env(route: Optional[str]):
+    """Select the raster ``route`` (None, 'v3' or 'v2') for what is built
+    or run inside, as the reference's users do (``DD_RASTER`` and
+    ``DD_BINNED``)."""
+    return _environ(("DD_RASTER", "DD_BINNED"), ROUTE_ENV[route])
+
+
+def drows_env(bf16: bool):
+    """Select the spanning op's d_rows lane for a loss built inside:
+    ``DD_DROWS_BF16`` "1" (bf16, the default) or "0" (f32)."""
+    return _environ(("DD_DROWS_BF16",), {"DD_DROWS_BF16": "1" if bf16 else "0"})
 
 
 def bench_problem(resolution=RES, subdiv=5, batch=BATCH, device="cuda",

@@ -51,6 +51,11 @@
 // foreground (zeros elsewhere, :346-356); the caller's foreground factor
 // removes the background values in both.
 //
+// The bf16 lane (dd_loss_bwd_bf16, the rgb + mask launch only): the
+// reference's spanning op writes its d_rows cotangent in bf16 by default
+// (DD_DROWS_BF16=1, fused_loss.py:552); the same f32 values are rounded
+// once with __float2bfloat16_rn at the store, halving the d_rows write.
+//
 // Bound on this card: the rows reads — 23 of the 32 lanes (0-12, 14, 16-24)
 // of each foreground pixel, 26 with the depth lane; the colour lane reads
 // 14 (17 with depth) and the colour planes (memory bound).
@@ -58,6 +63,7 @@
 // Numeric contract (build with -fmad=false, no fast math): every product
 // and sum is rounded as in the reference's f32 expression order.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -387,9 +393,18 @@ __device__ __forceinline__ void add_lane(float (&d)[9], int k, float v) {
     if (i == k) d[i] = __fadd_rn(d[i], v);
 }
 
+// d_rows' element types: f32, or bf16 rounded once to nearest even (the
+// reference's .astype(bfloat16) of the f32 value)
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // K6 pass B: d_rows per pixel (a gather over the pixel's own terms), with
-// the depth lane d_dplane per pixel, with the colour lane d_colors
-template <bool kDepth, bool kColors>
+// the depth lane d_dplane per pixel, with the colour lane d_colors; d_rows
+// in TOut (bf16 on the spanning op's rgb + mask lane, else f32), every
+// value computed in f32 and rounded once at the store
+template <bool kDepth, bool kColors, typename TOut = float>
 __global__ void loss_bwd_rows_kernel(const float* __restrict__ rows,
                                      const int* __restrict__ ids,
                                      const float* __restrict__ gt6,
@@ -398,7 +413,7 @@ __global__ void loss_bwd_rows_kernel(const float* __restrict__ rows,
                                      const float* __restrict__ d_sums, int hc,
                                      int wc, int oy, int ox, int fh, int fw,
                                      const float* __restrict__ g,
-                                     float* __restrict__ d_rows,
+                                     TOut* __restrict__ d_rows,
                                      float* __restrict__ d_dplane,
                                      float* __restrict__ d_colors) {
   using L = Lanes<kDepth, kColors>;
@@ -529,15 +544,15 @@ __global__ void loss_bwd_rows_kernel(const float* __restrict__ rows,
 
   // lanes 16 + 3 kFirst on carry the channels read; every other lane is 0
   constexpr int kLo = 16 + 3 * L::kFirst, kHi = kLo + 3 * L::kRead;
-  float* out = d_rows + (size_t)b * kLanes * f.plane + p;
+  TOut* out = d_rows + (size_t)b * kLanes * f.plane + p;
 #pragma unroll
-  for (int k = 0; k < 9; ++k) out[k * f.plane] = d_edge[k];
+  for (int k = 0; k < 9; ++k) store(out + k * f.plane, d_edge[k]);
 #pragma unroll
-  for (int k = 9; k < kLo; ++k) out[k * f.plane] = 0.0f;
+  for (int k = 9; k < kLo; ++k) store(out + k * f.plane, 0.0f);
 #pragma unroll
-  for (int k = kLo; k < kHi; ++k) out[k * f.plane] = d_attr[k - kLo];
+  for (int k = kLo; k < kHi; ++k) store(out + k * f.plane, d_attr[k - kLo]);
 #pragma unroll
-  for (int k = kHi; k < kLanes; ++k) out[k * f.plane] = 0.0f;
+  for (int k = kHi; k < kLanes; ++k) store(out + k * f.plane, 0.0f);
 }
 
 template <bool kDepth, bool kColors>
@@ -555,18 +570,18 @@ int loss_fwd_launch(const float* rows, const int* ids, const float* gt6,
   return (int)cudaGetLastError();
 }
 
-template <bool kDepth, bool kColors>
+template <bool kDepth, bool kColors, typename TOut = float>
 int loss_bwd_launch(const float* rows, const int* ids, const float* gt6,
                     const float* dplane, const float* colors,
                     const float* d_sums, int B, int hc, int wc, int oy, int ox,
-                    int fh, int fw, float* g, float* d_rows, float* d_dplane,
+                    int fh, int fw, float* g, TOut* d_rows, float* d_dplane,
                     float* d_colors, cudaStream_t st) {
   const int nblk = (hc * wc + kBlock - 1) / kBlock;
   loss_bwd_g_kernel<<<dim3(nblk, B), kBlock, 0, st>>>(
       rows, ids, gt6, d_sums, hc, wc, oy, ox, fh, fw, g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  loss_bwd_rows_kernel<kDepth, kColors><<<dim3(nblk, B), kBlock, 0, st>>>(
+  loss_bwd_rows_kernel<kDepth, kColors, TOut><<<dim3(nblk, B), kBlock, 0, st>>>(
       rows, ids, gt6, dplane, colors, d_sums, hc, wc, oy, ox, fh, fw, g, d_rows,
       d_dplane, d_colors);
   return (int)cudaGetLastError();
@@ -620,4 +635,16 @@ extern "C" int dd_loss_bwd(const float* rows, const int* ids, const float* gt6,
   return loss_bwd_launch<false, false>(rows, ids, gt6, nullptr, nullptr, d_sums,
                                        B, hc, wc, oy, ox, fh, fw, g, d_rows,
                                        nullptr, nullptr, st);
+}
+
+// K6 on the spanning op's rgb + mask lane with bf16 d_rows (the reference's
+// default, DD_DROWS_BF16=1: fused_loss.py:552, raster_loss_compact's
+// d_rows_bf16): the f32 launch's values, each rounded to nearest even
+extern "C" int dd_loss_bwd_bf16(const float* rows, const int* ids,
+                                const float* gt6, const float* d_sums, int B,
+                                int hc, int wc, int oy, int ox, int fh, int fw,
+                                float* g, __nv_bfloat16* d_rows, void* stream) {
+  return loss_bwd_launch<false, false, __nv_bfloat16>(
+      rows, ids, gt6, nullptr, nullptr, d_sums, B, hc, wc, oy, ox, fh, fw, g,
+      d_rows, nullptr, nullptr, (cudaStream_t)stream);
 }

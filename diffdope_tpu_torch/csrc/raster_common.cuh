@@ -1,7 +1,9 @@
 // Device code shared by the bin-table rasters (K3, K7: raster.cu) and the
 // sorted-range raster (K10: raster_v3.cu): pixel NDC, the pre-signed edge
 // planes, the per-slot z test with its (z, triangle id) lexicographic
-// minimum, and the winner's write.
+// minimum, and the winner's write.  K3/K7 stage the planes pre-signed and
+// run the same test's arithmetic over four pixels of a row (raster.cu);
+// test_slot and write_winner are K10's.
 //
 // Numeric contract (build with -fmad=false, no fast math): coverage
 // e = x*a + (y*b + c) with a, b, c pre-scaled by sign(det), z = zlin *

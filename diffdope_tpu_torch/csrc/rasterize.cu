@@ -350,3 +350,41 @@ extern "C" int dd_gather_rows_bwd(const float* d_rows, const int* win,
       d_rows, win, counts, K, ntx, th, tw, nty * th, ntx * tw, d_bin);
   return (int)cudaGetLastError();
 }
+
+// The backward of rasterize()'s setup-row gather (render/rasterize.py:
+// SetupRows): no TPU kernel; the reference leaves the transpose of its
+// take_along_axis (diffdope_tpu/render/rasterize.py:245) to XLA.  out[s, k]
+// = the sum, in ascending i, of src[order[i], k] over i in [start[s],
+// start[s + 1]): the caller sorts the foreground pixels stably by (hypothesis,
+// triangle), so a triangle's row sums its pixels' row cotangents in pixel
+// order, every call the same and as the CPU's index_add_ does (the
+// scatter-add of autograd's gather adds with atomics).  One thread per
+// (segment, lane); a warp reads two 64-byte rows at a time.  Bound: the src
+// rows read and out written (memory bound).
+namespace {
+
+__global__ void segment_sum_kernel(const float* __restrict__ src,
+                                   const int* __restrict__ order,
+                                   const int* __restrict__ start, int nseg,
+                                   int width, float* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)nseg * width) return;
+  const int s = (int)(i / width), k = (int)(i % width);
+  float acc = 0.0f;
+  for (int q = start[s]; q < start[s + 1]; ++q)
+    acc = __fadd_rn(acc, src[(size_t)order[q] * width + k]);
+  out[i] = acc;
+}
+
+}  // namespace
+
+extern "C" int dd_segment_sum(const float* src, const int* order,
+                              const int* start, int nseg, int width,
+                              float* out, void* stream) {
+  const long long n = (long long)nseg * width;
+  if (n == 0) return 0;
+  segment_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
+                       (cudaStream_t)stream>>>(src, order, start, nseg, width,
+                                               out);
+  return (int)cudaGetLastError();
+}

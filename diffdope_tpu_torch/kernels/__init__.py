@@ -39,15 +39,17 @@ NVCC_FLAGS = (
 )
 
 #: launches per wrapper: the fused loss counts its depth- and colour-lane
-#: launches apart; 'pack_plain' counts the bin-ordered tables that the
-#: reference's eligibility rule sends to the plain pack (traced attributes)
+#: launches apart, K6 and K4 their bf16 d_rows lane ('_bf16'); 'pack_plain'
+#: counts the bin-ordered tables that the reference's eligibility rule
+#: sends to the plain pack (traced attributes); 'setup_rows_bwd' the
+#: segmented sum of rasterize's setup-row gather
 launches = {"pack_fwd": 0, "pack_bwd": 0, "pack_plain": 0, "raster_fwd": 0,
-            "raster_bwd": 0, "raster_uniform_fwd": 0, "raster_uniform_bwd": 0,
-            "loss_fwd": 0, "loss_bwd": 0, "loss_fwd_depth": 0, "loss_bwd_depth": 0,
-            "loss_fwd_color": 0, "loss_bwd_color": 0, "loss_fwd_color_depth": 0,
-            "loss_bwd_color_depth": 0,
+            "raster_bwd": 0, "raster_bwd_bf16": 0, "raster_uniform_fwd": 0,
+            "raster_uniform_bwd": 0, "loss_fwd": 0, "loss_bwd": 0, "loss_bwd_bf16": 0,
+            "loss_fwd_depth": 0, "loss_bwd_depth": 0, "loss_fwd_color": 0,
+            "loss_bwd_color": 0, "loss_fwd_color_depth": 0, "loss_bwd_color_depth": 0,
             "raster_ids": 0, "gather_rows_fwd": 0, "gather_rows_bwd": 0,
-            "raster_v3_fwd": 0, "raster_v3_bwd": 0}
+            "raster_v3_fwd": 0, "raster_v3_bwd": 0, "setup_rows_bwd": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -58,8 +60,10 @@ _SIGNATURES = {
     # (bins, counts, off_c, used, B, tot, k_chunk, nty, ntx, th, tw,
     #  oy, ox, fh, fw, ids, win, rows, stream)
     "dd_raster_fwd": [_P] * 4 + [_I] * 11 + [_P] * 4,
-    # (d_rows, win, B, tot, nty, ntx, th, tw, d_bins, stream)
+    # (d_rows, win, B, tot, nty, ntx, th, tw, d_bins, stream); the same for
+    # bf16 d_rows
     "dd_raster_bwd": [_P] * 2 + [_I] * 6 + [_P] * 2,
+    "dd_raster_bwd_bf16": [_P] * 2 + [_I] * 6 + [_P] * 2,
     # (bins, counts, B, k, nty, ntx, th, tw, fh, fw, ids, win, rows, stream)
     "dd_raster_uniform_fwd": [_P] * 2 + [_I] * 8 + [_P] * 4,
     # (d_rows, win, B, k, nty, ntx, th, tw, d_bins, stream)
@@ -70,6 +74,9 @@ _SIGNATURES = {
     # (rows, ids, gt6, dplane | null, colors | null, d_sums, B, hc, wc, oy, ox,
     #  fh, fw, g, d_rows, d_dplane | null, d_colors | null, stream)
     "dd_loss_bwd": [_P] * 6 + [_I] * 7 + [_P] * 5,
+    # (rows, ids, gt6, d_sums, B, hc, wc, oy, ox, fh, fw, g, d_rows bf16,
+    #  stream)
+    "dd_loss_bwd_bf16": [_P] * 4 + [_I] * 7 + [_P] * 3,
     # (coef, tile_idx, counts, B, T, K, nty, ntx, th, tw, fh, fw, ids, stream)
     "dd_raster_ids": [_P] * 3 + [_I] * 9 + [_P] * 2,
     # (packed, tile_idx, counts, B, T, K, nty, ntx, th, tw, fh, fw, ids, win,
@@ -83,6 +90,8 @@ _SIGNATURES = {
     # (d_rows, win, clo, chi, rlo_tc, rhi_tc, B, tp, nty, ntx, th, tw,
     #  d_packed_s, stream)
     "dd_raster_v3_bwd": [_P] * 6 + [_I] * 6 + [_P] * 2,
+    # (src, order, start, nseg, width, out, stream)
+    "dd_segment_sum": [_P] * 3 + [_I] * 2 + [_P] * 2,
 }
 
 _fns: Optional[Dict[str, object]] = None

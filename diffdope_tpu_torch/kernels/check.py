@@ -58,6 +58,7 @@ from diffdope_tpu_torch.render.pack_kernel import (
 from diffdope_tpu_torch.render.pipeline import K_CHUNK, TILE_HW
 from diffdope_tpu_torch.render.raster import (
     bins_planar,
+    slot_ranges,
     raster_bwd,
     raster_bwd_plain,
     raster_fwd,
@@ -88,11 +89,19 @@ KERNELS = {
         "diffdope_tpu_torch/csrc/raster.cu",
         "diffdope_tpu/render/raster_v2.py:1040",
     ),
+    "K4_raster_bwd_bf16": (
+        "diffdope_tpu_torch/csrc/raster.cu",
+        "diffdope_tpu/render/raster_v2.py:1040",
+    ),
     "K5_loss_fwd": (
         "diffdope_tpu_torch/csrc/fused_loss.cu",
         "diffdope_tpu/render/fused_loss.py:221",
     ),
     "K6_loss_bwd": (
+        "diffdope_tpu_torch/csrc/fused_loss.cu",
+        "diffdope_tpu/render/fused_loss.py:268",
+    ),
+    "K6_loss_bwd_bf16": (
         "diffdope_tpu_torch/csrc/fused_loss.cu",
         "diffdope_tpu/render/fused_loss.py:268",
     ),
@@ -155,8 +164,10 @@ COUNTERS = {
     "K2_pack_bwd": "pack_bwd",
     "K3_raster_fwd": "raster_fwd",
     "K4_raster_bwd": "raster_bwd",
+    "K4_raster_bwd_bf16": "raster_bwd_bf16",
     "K5_loss_fwd": "loss_fwd",
     "K6_loss_bwd": "loss_bwd",
+    "K6_loss_bwd_bf16": "loss_bwd_bf16",
     "K7_raster_uniform_fwd": "raster_uniform_fwd",
     "K7_raster_uniform_bwd": "raster_uniform_bwd",
     "K5_loss_fwd_depth": "loss_fwd_depth",
@@ -178,14 +189,16 @@ COUNTERS = {
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 #: FP32 operations per element, counted from the CUDA sources (estimates):
-#: K1/K2 per (hypothesis, slot) at n_ch colour channels, K3 per
-#: (pixel, slot) edge test, K4 per (foreground pixel, lane),
-#: K8 (and K9's search) per (pixel, slot) test: the three edge functions (4
-#: each) and their sign tests, which every test runs (a covered test's
-#: depth, 8 more, is not counted: how many there are depends on the data);
-#: K10 takes K3's count per test; K5/K6 by :func:`_loss_ops`
+#: K1/K2 per (hypothesis, slot) at n_ch colour channels, K4 per (foreground
+#: pixel, lane), K8 (and K9's search) per (pixel, slot) test: the three
+#: edge functions (4 each) and their sign tests, which every test runs (a
+#: covered test's depth, 8 more, is not counted: how many there are
+#: depends on the data).  K3, K7 and K10 take K8's count per test, over the
+#: (pixel, slot) pairs inside each slot's conservative row and column range
+#: only (:func:`range_tests`): a test outside it cannot cover, and signing
+#: the planes and 1/det are per-slot work.  K5/K6 by :func:`_loss_ops`
 _OPS = {"K1": lambda n_ch: 195 + 15 * n_ch, "K2": lambda n_ch: 330 + 18 * n_ch,
-        "K3": 25, "K4": 1, "K8": 15}
+        "K3": 15, "K4": 1, "K8": 15}
 
 #: K5/K6's FP32 operations by part of ``csrc/fused_loss.cu``, each add,
 #: sub, mul, div, abs, min, max, negation and compare one (``ndc`` is 4):
@@ -245,6 +258,44 @@ def _loss_ops(ids: torch.Tensor, roi, depth: bool, colors: bool) -> Tuple[int, i
 ROW_LANES_READ = 13 + 1 + 9
 ROW_LANES_READ_DEPTH = ROW_LANES_READ + 3
 ROW_LANES_READ_COLOR = 13 + 1
+
+
+def range_tests(bins: torch.Tensor, slot_tile: torch.Tensor, frame_hw, tile_hw,
+                roi) -> int:
+    """The (hypothesis, pixel, slot) tests the K3/K7 forward cannot skip:
+    for each slot a tile holds (``slot_tile`` (n_slots,), the slot's tile,
+    -1 where no tile holds it), the tile's pixels inside the slot's row
+    and column range (``raster.slot_ranges``, the rule the kernel stages),
+    summed over the table's hypotheses.  Tiles are row-major over the
+    (hc, wc) window ``frame_hw`` at ``roi=(oy, ox, fh, fw)``."""
+    th, tw = tile_hw
+    ntx = frame_hw[1] // tw
+    oy, ox, fh, fw = roi
+    slots = torch.nonzero(slot_tile >= 0).reshape(-1)
+    t = slot_tile[slots].long()
+    rlo, rhi, clo, chi = slot_ranges(bins[:, :, slots], (fh, fw))
+    r0, c0 = (t // ntx) * th + oy, (t % ntx) * tw + ox
+    n_r = (torch.minimum(rhi, r0 + th - 1) - torch.maximum(rlo, r0) + 1).clamp(min=0)
+    n_c = (torch.minimum(chi, c0 + tw - 1) - torch.maximum(clo, c0) + 1).clamp(min=0)
+    return int((n_r * n_c).sum())
+
+
+def held_slots(base: torch.Tensor, n: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """(n_slots,) the tile holding each slot, -1 for none: tile t holds
+    [base[t], base[t] + n[t])."""
+    out = torch.full((n_slots,), -1, dtype=torch.long, device=base.device)
+    j = torch.arange(int(n.max()) if n.numel() else 0, device=base.device)
+    ok = j[None, :] < n[:, None]
+    slot = (base[:, None] + j[None, :])[ok]
+    tile = torch.arange(n.numel(), device=base.device)[:, None].expand_as(ok)[ok]
+    out[slot] = tile
+    return out
+
+
+def d_rows_bytes(n_values: int, dtype) -> int:
+    """The bytes of ``n_values`` d_rows values in ``dtype``: 4 in f32, 2 in
+    the spanning op's bf16 lane."""
+    return n_values * (2 if dtype == torch.bfloat16 else 4)
 
 
 def bound(n_bytes: float, n_ops: float) -> Tuple[float, str]:
@@ -315,34 +366,40 @@ def _binned_spec(fn, mtx, npx: int) -> _RasterSpec:
     b, _, n_slots = packed.shape
     if tab.off_c is None:  # the uniform table: K7
         k = n_slots // counts.numel()
-        n_read = int(counts.clamp(max=k).sum())  # slots the tiles hold
+        n = counts.long().clamp(max=k)
+        held = held_slots(torch.arange(counts.numel(), device=n.device) * k, n, n_slots)
         names = ("K7_raster_uniform_fwd", "K7_raster_uniform_bwd")
         res = fn.roi[2:]
+        frame = (-(-res[0] // TILE_HW[0]) * TILE_HW[0], -(-res[1] // TILE_HW[1]) * TILE_HW[1])
         calls = (lambda: raster_uniform_fwd(packed, counts, res, TILE_HW),
                  lambda: raster_uniform_fwd_plain(packed, counts, res, TILE_HW),
                  lambda d, win: raster_uniform_bwd(d, win, n_slots, TILE_HW),
                  lambda d, win: raster_uniform_bwd_plain(d, win, n_slots))
+        n_read = int(n.sum())  # slots the tiles hold
         written = b * 32 * n_read
     else:
         args = (packed, counts, tab.off_c, tab.used, K_CHUNK, fn.frame_hw, TILE_HW,
                 fn.roi)
-        n_read = int(torch.minimum(counts, tab.used * K_CHUNK).sum())
+        n = torch.minimum(counts, tab.used * K_CHUNK).long()
+        held = held_slots(tab.off_c.long() * K_CHUNK, n, n_slots)
+        frame = fn.frame_hw
         names = ("K3_raster_fwd", "K4_raster_bwd")
         calls = (lambda: raster_fwd(*args), lambda: raster_fwd_plain(*args),
                  lambda d, win: raster_bwd(d, win, n_slots, TILE_HW),
                  lambda d, win: raster_bwd_plain(d, win, n_slots))
+        n_read = int(n.sum())
         written = packed.numel()
-    tested = b * n_read * TILE_HW[0] * TILE_HW[1]
+    tested = range_tests(packed, held, frame, TILE_HW, fn.roi)
 
     def fwd_bound(win, fg):
         # the forward reads 14 lanes of every slot its tiles hold, the other
         # 18 lanes of each won slot, and writes ids, win and every pixel's
-        # 32 lanes
+        # 32 lanes; it tests the pixels in each slot's range
         return bound(4 * (b * 14 * n_read + 18 * _won(win, n_slots) + 3 * counts.numel())
                      + npx * (4 + 4 + 4 * 32), _OPS["K3"] * tested)
 
     return _RasterSpec(*names, *calls, packed, fwd_bound, written,
-                       dict(slots=n_read, table_slots=n_slots))
+                       dict(slots=n_read, table_slots=n_slots, range_tests=tested))
 
 
 def _won(win: torch.Tensor, n_slots: int) -> int:
@@ -379,25 +436,35 @@ def _planar_spec(fn, mtx, npx: int) -> _RasterSpec:
                  lambda d, win: raster_v3.raster_v3_bwd(d, win, tables, TILE_HW),
                  lambda d, win: raster_v3.raster_v3_bwd_plain(d, win, n_slots))
         exact = exact_bin_slots(fn.mesh, mtx, res)
-        gate = raster_v3._gate(tables, *(-(-n // t) for n, t in zip(res, TILE_HW)),
-                               TILE_HW[0])
+        nty, ntx = (-(-n // t) for n, t in zip(res, TILE_HW))
+        gate = raster_v3._gate(tables, nty, ntx, TILE_HW[0])
         walked = int(gate.sum()) * tables.k_chunk
+        # the tests exact per-tile bins need at these poses: each triangle's
+        # range over the padded frame (as K3's over its tiles)
+        tested = range_tests(pl.packed, torch.zeros(pl.packed.shape[2], dtype=torch.long,
+                                                    device=pl.packed.device),
+                             (nty * TILE_HW[0], ntx * TILE_HW[1]),
+                             (nty * TILE_HW[0], ntx * TILE_HW[1]), (0, 0) + tuple(res))
 
         def fwd_bound(win, fg):
             # bytes: 14 lanes of every triangle, the other 18 of each won
-            # slot, the tables, and ids, win and 32 lanes of every pixel;
-            # operations: the tests exact per-tile bins need at these poses
+            # slot, the tables, and ids, win and 32 lanes of every pixel
             return bound(4 * (b * 14 * n_slots + 18 * _won(win, n_slots)
                               + 2 * tables.rlo_tc.numel()) + npx * (4 + 4 + 4 * 32),
-                         _OPS["K3"] * b * exact * TILE_HW[0] * TILE_HW[1])
+                         _OPS["K3"] * tested)
 
         return _RasterSpec("K10_raster_v3_fwd", "K10_raster_v3_bwd", *calls, packed,
                            fwd_bound, b * 32 * n_slots,
-                           dict(slots=walked, table_slots=n_slots, exact_slots=exact))
+                           dict(slots=walked, table_slots=n_slots, exact_slots=exact,
+                                range_tests=tested))
     bins = bins_planar(pl.packed, pl.idx)
     n_slots = bins.shape[2]
     k = n_slots // pl.counts.numel()
-    n_read = int(pl.counts.clamp(max=k).sum())
+    n = pl.counts.long().clamp(max=k)
+    n_read = int(n.sum())
+    frame = (-(-res[0] // TILE_HW[0]) * TILE_HW[0], -(-res[1] // TILE_HW[1]) * TILE_HW[1])
+    tested = range_tests(bins, held_slots(torch.arange(n.numel(), device=n.device) * k,
+                                          n, n_slots), frame, TILE_HW, (0, 0) + tuple(res))
     calls = (lambda: raster_uniform_fwd(bins, pl.counts, res, TILE_HW),
              lambda: raster_uniform_fwd_plain(bins, pl.counts, res, TILE_HW),
              lambda d, win: raster_uniform_bwd(d, win, n_slots, TILE_HW),
@@ -406,11 +473,11 @@ def _planar_spec(fn, mtx, npx: int) -> _RasterSpec:
     def fwd_bound(win, fg):
         return bound(4 * (b * 14 * n_read + 18 * _won(win, n_slots)
                           + 3 * pl.counts.numel()) + npx * (4 + 4 + 4 * 32),
-                     _OPS["K3"] * b * n_read * TILE_HW[0] * TILE_HW[1])
+                     _OPS["K3"] * tested)
 
     return _RasterSpec("K7_raster_uniform_fwd", "K7_raster_uniform_bwd", *calls, bins,
                        fwd_bound, b * 32 * n_read,
-                       dict(slots=n_read, table_slots=n_slots,
+                       dict(slots=n_read, table_slots=n_slots, range_tests=tested,
                             occupancy=int(pl.telemetry["_bin_occupancy"])))
 
 
@@ -499,36 +566,62 @@ def check_kernels(fn, mtx: torch.Tensor, d_sums: Optional[torch.Tensor] = None,
         gen = torch.Generator(device=rows.device).manual_seed(0)
         d_rows = torch.randn(rows.shape, generator=gen, device=rows.device)
 
-    d_bins = spec.bwd(d_rows, win)
-    d_bins_p = spec.bwd_plain(d_rows, win)
     tri = spec.packed[0, 13].long()  # triangle of each slot (sentinel: T)
 
     def per_triangle(d):
         acc = d.new_zeros((d.shape[0], d.shape[1], int(tri.max()) + 1))
         return acc.index_add_(2, tri, d)
 
-    slot_scale = spec.bwd_plain(d_rows.abs(), win)
-    ok4 = _close(d_bins, d_bins_p, 2e-4, 1e-6, slot_scale) and _close(
-        per_triangle(d_bins), per_triangle(d_bins_p), 2e-4, 1e-6,
-        per_triangle(slot_scale))
-    # the backward reads win everywhere and d_rows only at foreground
-    # pixels, and writes its output: all of it for K4 and K10; for K7 the
-    # slots its tiles hold (the uniform padding is the layout's, as in the
-    # forward)
-    out.append(dict(name=spec.b_name, ok=ok4, **spec.info,
+    def check_bwd(name, d_rows):
+        d_bins = spec.bwd(d_rows, win)
+        d_bins_p = spec.bwd_plain(d_rows, win)
+        slot_scale = spec.bwd_plain(d_rows.abs(), win)
+        ok4 = _close(d_bins, d_bins_p, 2e-4, 1e-6, slot_scale) and _close(
+            per_triangle(d_bins), per_triangle(d_bins_p), 2e-4, 1e-6,
+            per_triangle(slot_scale))
+        # the backward reads win everywhere and d_rows only at foreground
+        # pixels, and writes its output: all of it for K4 and K10; for K7
+        # the slots its tiles hold (the uniform padding is the layout's, as
+        # in the forward)
+        return dict(name=name, ok=ok4, **spec.info,
                     max_abs_err=float((d_bins - d_bins_p).abs().max()),
                     tolerance="rtol 2e-4, atol 1e-6 + 1e-6 x sum |d_rows|, "
                               "per slot and per triangle",
                     worst=_worst(d_bins, d_bins_p, 2e-4, 1e-6, slot_scale),
-                    bound=bound(4 * npx + 4 * 32 * fg + 4 * spec.written,
-                                _OPS["K4"] * 32 * fg)))
+                    bound=bound(4 * npx + d_rows_bytes(32 * fg, d_rows.dtype)
+                                + 4 * spec.written, _OPS["K4"] * 32 * fg))
+
+    out.append(check_bwd(spec.b_name, d_rows))
+    timed = {spec.f_name: (spec.fwd, spec.fwd_plain),
+             spec.b_name: (lambda: spec.bwd(d_rows, win),
+                           lambda: spec.bwd_plain(d_rows, win))}
+    if fused and getattr(fn, "drows_bf16", False):
+        # the spanning op's bf16 lane: K6's values rounded once (its f32
+        # lane's output cast to bf16 bit for bit; the plain twin's within
+        # K6's tolerance plus one bf16 spacing of each value), then K4 on
+        # the same bf16 d_rows as its plain twin
+        bf16 = torch.bfloat16
+        d16, _, _ = loss_bwd(*loss_args, d_sums, d_rows_dtype=bf16)
+        want = d_rows_p.to(bf16).float()
+        spacing = torch.where(want == 0, 0.0, torch.ldexp(torch.ones_like(want),
+                                                          torch.frexp(want)[1] - 8))
+        ok16 = bool(torch.equal(d16, d_rows.to(bf16))) and _close(
+            d16.float(), want, 2e-4, 1e-6 + spacing, px_scale)
+        out.append(dict(name="K6_loss_bwd_bf16", ok=ok16,
+                        max_abs_err=float((d16.float() - want).abs().max()),
+                        tolerance="the f32 lane's d_rows rounded to bf16 bit for bit; "
+                                  + tol6 + " + one bf16 spacing of each value",
+                        worst=_worst(d16.float(), want, 2e-4, 1e-6 + spacing, px_scale),
+                        bound=bound(4 * npx + 4 * lanes * fg + 4 * fn.gt6.numel()
+                                    + 4 * b * 3 + d_rows_bytes(32 * npx, bf16), ops6)))
+        out.append(check_bwd("K4_raster_bwd_bf16", d16))
+        timed["K6_loss_bwd_bf16"] = (
+            lambda: loss_bwd(*loss_args, d_sums, d_rows_dtype=bf16),
+            lambda: loss_bwd_plain(*loss_args, d_sums)[0].to(bf16))
+        timed["K4_raster_bwd_bf16"] = (lambda: spec.bwd(d16, win),
+                                       lambda: spec.bwd_plain(d16, win))
 
     if reps:
-        timed = {
-            spec.f_name: (spec.fwd, spec.fwd_plain),
-            spec.b_name: (lambda: spec.bwd(d_rows, win),
-                          lambda: spec.bwd_plain(d_rows, win)),
-        }
         if fused:
             timed["K5_loss_fwd" + sfx] = (
                 lambda: loss_sums(*loss_args, dplane, colors),

@@ -3,8 +3,10 @@ two autograd ops over them.
 
 Counterpart of ``diffdope_tpu/render/fused_loss.py``: ``fused_loss_sums``
 (:440, kernel ``_fwd_kernel`` :221, here :class:`FusedLossSums`),
-``backward_pass`` (:524, kernel ``_bwd_kernel`` :268) and
-``raster_loss_compact`` (:601-684, here :class:`RasterLossCompact`).
+``backward_pass`` (:524, kernel ``_bwd_kernel`` :268; its ``d_rows_dtype``
+bf16 here K6's bf16 lane) and ``raster_loss_compact`` (:601-684, here
+:class:`RasterLossCompact`, whose d_rows cotangent is bf16 by default, as
+the reference's).
 
 The loss sums of one hypothesis over its (hc, wc) frame window are
 
@@ -178,21 +180,38 @@ def loss_sums(rows, ids, gt6, roi: Tuple[int, int, int, int],
 
 
 def loss_bwd(rows, ids, gt6, roi, d_sums, dplane: Optional[torch.Tensor] = None,
-             colors: Optional[torch.Tensor] = None):
+             colors: Optional[torch.Tensor] = None, d_rows_dtype=torch.float32):
     """K6: (d_rows (B, 32, hc, wc), d_dplane (B, hc, wc) or None, d_colors
-    (B, 3, hc, wc) or None) from d_sums (B, 3).  CPU tensors take
-    :func:`loss_bwd_plain`; CUDA tensors launch the kernel, anything else
-    raises."""
+    (B, 3, hc, wc) or None) from d_sums (B, 3).  ``d_rows_dtype`` bf16 (the
+    rgb + mask lane only: no dplane, no colors) rounds each f32 d_rows
+    value once to nearest even, as the reference's spanning op does under
+    DD_DROWS_BF16=1.  CPU tensors take :func:`loss_bwd_plain` (then the
+    cast); CUDA tensors launch the kernel (the bf16 lane its own
+    instantiation, counted apart), anything else raises."""
     _check_loss_inputs(rows, ids, gt6, dplane, colors)
     _check(d_sums, "d_sums", torch.float32, 2, rows.device)
+    bf16 = d_rows_dtype == torch.bfloat16
+    if d_rows_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"d_rows_dtype: f32 or bf16, not {d_rows_dtype}")
+    if bf16 and (dplane is not None or colors is not None):
+        raise ValueError("bf16 d_rows: the rgb + mask lane only (no dplane, no colors)")
     if rows.device.type == "cpu":
-        return loss_bwd_plain(rows, ids, gt6, roi, d_sums, dplane, colors)
+        d_rows, d_dplane, d_colors = loss_bwd_plain(rows, ids, gt6, roi, d_sums, dplane,
+                                                    colors)
+        return d_rows.to(d_rows_dtype), d_dplane, d_colors
     if rows.device.type != "cuda":
         raise ValueError(f"loss_bwd: unsupported device {rows.device}")
     b, _, hc, wc = rows.shape
     oy, ox, fh, fw = roi
     g = torch.empty((b, hc, wc), dtype=torch.float32, device=rows.device)
-    d_rows = torch.empty_like(rows)
+    d_rows = torch.empty_like(rows, dtype=d_rows_dtype)
+    if bf16:
+        kernels.launch(
+            "dd_loss_bwd_bf16", "loss_bwd_bf16",
+            rows.data_ptr(), ids.data_ptr(), gt6.data_ptr(), d_sums.data_ptr(), b, hc,
+            wc, oy, ox, fh, fw, g.data_ptr(), d_rows.data_ptr(),
+        )
+        return d_rows, None, None
     d_dplane = None if dplane is None else torch.empty_like(dplane)
     d_colors = None if colors is None else torch.empty_like(colors)
     kernels.launch(
@@ -238,16 +257,18 @@ class RasterLossCompact(torch.autograd.Function):
     """(B, 3) loss sums from the compact bin table in one differentiable op
     (counterpart of ``fused_loss.raster_loss_compact``).
 
-    Forward: K3 (raster) then K5 (loss sums).  Backward: K6 (d_rows, kept
-    in f32) then K4 (d_bins).  Differentiable w.r.t. ``bins`` only; the
-    ground truth is a constant.  The rgb + mask route: with a depth plane
-    the raster and :class:`FusedLossSums` are chained, as the reference
-    does.
+    Forward: K3 (raster) then K5 (loss sums).  Backward: K6 (d_rows) then
+    K4 (d_bins), the d_rows between them in bf16 with ``d_rows_bf16`` (the
+    reference's default: one rounding of each f32 value, all sums in f32)
+    or f32 (then bit for bit the chained ops).  Differentiable w.r.t.
+    ``bins`` only; the ground truth is a constant.  The rgb + mask route:
+    with a depth plane the raster and :class:`FusedLossSums` are chained,
+    as the reference does.
     """
 
     @staticmethod
     def forward(ctx, bins, counts, off_c, used, gt6, k_chunk, frame_hw,
-                tile_hw, roi):
+                tile_hw, roi, d_rows_bf16):
         ids, rows, win = raster_fwd(
             bins, counts, off_c, used, k_chunk, frame_hw, tile_hw, roi
         )
@@ -256,19 +277,24 @@ class RasterLossCompact(torch.autograd.Function):
         ctx.n_slots = bins.shape[2]
         ctx.tile_hw = tile_hw
         ctx.roi = roi
+        ctx.d_rows_dtype = torch.bfloat16 if d_rows_bf16 else torch.float32
         return sums
 
     @staticmethod
     def backward(ctx, d_sums):
         rows, ids, win, gt6 = ctx.saved_tensors
-        d_rows, _, _ = loss_bwd(rows, ids, gt6, ctx.roi, d_sums.contiguous())
+        d_rows, _, _ = loss_bwd(rows, ids, gt6, ctx.roi, d_sums.contiguous(),
+                                d_rows_dtype=ctx.d_rows_dtype)
         d_bins = raster_bwd(d_rows, win, ctx.n_slots, ctx.tile_hw)
-        return d_bins, None, None, None, None, None, None, None, None
+        return d_bins, None, None, None, None, None, None, None, None, None
 
 
 def raster_loss_compact(bins, counts, off_c, used, gt6, k_chunk, frame_hw,
-                        tile_hw, roi) -> torch.Tensor:
+                        tile_hw, roi, d_rows_bf16: bool = True) -> torch.Tensor:
+    """:class:`RasterLossCompact`; ``d_rows_bf16`` is the reference's
+    argument of the same name (``pipeline.make_fused_loss`` reads it from
+    DD_DROWS_BF16 when the loss is built)."""
     return RasterLossCompact.apply(
         bins, counts, off_c, used, gt6, k_chunk, tuple(frame_hw),
-        tuple(tile_hw), tuple(roi),
+        tuple(tile_hw), tuple(roi), bool(d_rows_bf16),
     )

@@ -12,9 +12,10 @@ compact table and K7 over the uniform one (:func:`_raster`).
 - :func:`make_fused_loss` (reference :383-858): rgb, depth and mask L1
   terms.  On the compact table the ROI crop with ``_crop_leak`` telemetry;
   rgb + mask there take the spanning raster+loss op (K1 -> K3 -> K5,
-  backward K6 -> K4 -> K2), and with depth the raster and the fused loss
-  are chained (K1 -> K3 -> K5, backward K6 -> K4 -> K2, d_dplane to t_z
-  by autograd).  The uniform table runs the full frame (K1 -> K7 -> K5,
+  backward K6 -> K4 -> K2, the d_rows between K6 and K4 in bf16 unless
+  ``DD_DROWS_BF16=0``, read when the loss is built), and with depth the
+  raster and the fused loss are chained (K1 -> K3 -> K5, backward K6 ->
+  K4 -> K2, d_dplane to t_z by autograd).  The uniform table runs the full frame (K1 -> K7 -> K5,
   backward K6 -> K7 -> K2).  With a texture (``tex``, ``uv``, ``uv_idx``)
   the semi-fused exact-texture route (reference :770-822): the table holds
   the uv corners, no ROI crop, the raster and the colour lane of K5/K6
@@ -470,6 +471,11 @@ def make_fused_loss(
     colours foreground-masked and padded back to the frame, then K5/K6's
     colour lane; the sums' backward reaches the uv through the sampler.
 
+    ``DD_DROWS_BF16`` (default "1", as in the reference, :583-590) is read
+    here, once: "1" gives the spanning op bf16 d_rows between K6 and K4,
+    anything else f32; changing it after the build has no effect.  Only
+    the spanning op (rgb + mask on the compact table) reads it.
+
     The route is read from the environment here (:func:`raster_route`):
     on the planar routes the table is ``planar.pack_planar``'s, the frame
     is full and ``compact_total`` is not read; 'v3' logs no binning
@@ -501,6 +507,7 @@ def make_fused_loss(
         planes[6, :h, :w] = _numpy(gt["depth"]).astype(np.float32)
 
     route = raster_route()
+    drows_bf16 = os.environ.get("DD_DROWS_BF16", "1") == "1"
     # the reference crops the compact table only, and not in texture mode
     crop_on = (roi_crop != "off" and compact_total is not None and route is None
                and not texture_mode)
@@ -546,7 +553,7 @@ def make_fused_loss(
             if not use_depth and not texture_mode and tab.off_c is not None:
                 sums = raster_loss_compact(
                     tab.packed, tab.counts, tab.off_c, tab.used, gt6, K_CHUNK, (hc, wc),
-                    TILE_HW, roi,
+                    TILE_HW, roi, drows_bf16,
                 )
             else:
                 sums = sums_of(*_raster(tab, (hc, wc), roi), mtx)
@@ -573,6 +580,9 @@ def make_fused_loss(
     fn.mesh, fn.binned, fn.table, fn.dplane = mesh, binned, table, dplane
     fn.gt6, fn.frame_hw, fn.roi, fn.crop = gt6, (hc, wc), roi, window
     fn.route, fn.planar, fn.sample = route, planar, sample
+    # the spanning op's d_rows lane, where this loss takes the op
+    fn.drows_bf16 = drows_bf16 and not use_depth and not texture_mode and route is None \
+        and compact_total is not None
     return fn
 
 

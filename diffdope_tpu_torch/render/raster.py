@@ -77,6 +77,44 @@ def _check_fwd_inputs(bins, counts, off_c, used, frame_hw, tile_hw):
     return nty, ntx
 
 
+#: pixels of one tile row per thread of the K3/K7 forward (csrc/raster.cu)
+_FWD_PIX = 4
+
+
+def _check_fwd_tile(tile_hw) -> None:
+    th, tw = tile_hw
+    if tw % _FWD_PIX or th * tw > 1024 * _FWD_PIX:
+        raise ValueError(f"tile {tile_hw}: the forward kernel takes a width that is a "
+                         f"multiple of {_FWD_PIX} and at most {1024 * _FWD_PIX} pixels")
+
+
+def slot_ranges(bins: torch.Tensor, frame_hw: Tuple[int, int]):
+    """(rlo, rhi, clo, chi), int64 (B, n_slots): the first and last frame
+    pixel row and column each slot of a table (B, 32, n_slots) can cover,
+    from its conservative NDC ranges (lanes 28-31) by the reference's rule
+    with half a row of slack (``raster_v2.py:1346-1377``), as the K3/K7
+    forward stages them: rows ceil((ylo + 1) h/2 - 1) to floor((yhi + 1)
+    h/2), clamped to [-1, h] with NaN widening to the frame; columns the
+    same over the frame width.  Slots with det == 0, which no pixel
+    covers, get an empty range (rlo h, rhi -1)."""
+    h, w = frame_hw
+
+    def first(lo, n):
+        v = (lo + 1.0) * (n / 2) - 1.0
+        v = torch.where(v > -1.0, v, -1.0)  # NaN and below the frame
+        return torch.where(v < n, torch.ceil(v), float(n)).long()
+
+    def last(hi, n):
+        v = (hi + 1.0) * (n / 2)
+        v = torch.where(v < n, v, float(n))  # NaN and past the frame
+        return torch.where(v > -1.0, torch.floor(v), -1.0).long()
+
+    empty = bins[:, 12] == 0.0
+    rlo = torch.where(empty, h, first(bins[:, 30], h))
+    rhi = torch.where(empty, -1, last(bins[:, 31], h))
+    return rlo, rhi, first(bins[:, 28], w), last(bins[:, 29], w)
+
+
 def raster_fwd(
     bins: torch.Tensor,
     counts: torch.Tensor,
@@ -98,9 +136,8 @@ def raster_fwd(
         )
     if bins.device.type != "cuda":
         raise ValueError(f"raster_fwd: unsupported device {bins.device}")
+    _check_fwd_tile(tile_hw)
     th, tw = tile_hw
-    if th * tw > 1024:
-        raise ValueError(f"tile {tile_hw} exceeds 1024 threads per block")
     b, _, tot = bins.shape
     hc, wc = frame_hw
     oy, ox, fh, fw = roi
@@ -213,12 +250,15 @@ def raster_bwd(
     n_slots: int,
     tile_hw: Tuple[int, int],
 ) -> torch.Tensor:
-    """K4: d_bins (B, 32, n_slots) = for each slot, the sum of d_rows over
-    the pixels whose winner it is (zeros elsewhere).
+    """K4: d_bins (B, 32, n_slots) f32 = for each slot, the sum of d_rows
+    over the pixels whose winner it is (zeros elsewhere).  d_rows is f32
+    or bf16 (the spanning op's default lane), summed in f32.
 
     CPU tensors take :func:`raster_bwd_plain`; CUDA tensors launch the
-    kernel (csrc/raster.cu), anything else raises."""
-    _check(d_rows, "d_rows", torch.float32, 4, d_rows.device)
+    kernel (csrc/raster.cu; bf16 d_rows its bf16 instantiation, counted
+    apart), anything else raises."""
+    bf16 = d_rows.dtype == torch.bfloat16
+    _check(d_rows, "d_rows", torch.bfloat16 if bf16 else torch.float32, 4, d_rows.device)
     _check(win, "win", torch.int32, 3, d_rows.device)
     b, width, hc, wc = d_rows.shape
     if width != PACKED_WIDTH or tuple(win.shape) != (b, hc, wc):
@@ -234,7 +274,8 @@ def raster_bwd(
     d_bins = torch.zeros((b, PACKED_WIDTH, n_slots), dtype=torch.float32,
                          device=d_rows.device)
     kernels.launch(
-        "dd_raster_bwd", "raster_bwd",
+        "dd_raster_bwd_bf16" if bf16 else "dd_raster_bwd",
+        "raster_bwd_bf16" if bf16 else "raster_bwd",
         d_rows.data_ptr(), win.data_ptr(), b, n_slots, nty, ntx, th, tw,
         d_bins.data_ptr(),
     )
@@ -242,8 +283,10 @@ def raster_bwd(
 
 
 def raster_bwd_plain(d_rows: torch.Tensor, win: torch.Tensor, n_slots: int) -> torch.Tensor:
-    """Plain torch K4: an index_add of every foreground pixel's d_rows into
-    its winner slot (background pixels land in a discarded extra row)."""
+    """Plain torch K4: an index_add of every foreground pixel's d_rows
+    (bf16 widened to f32) into its winner slot (background pixels land in
+    a discarded extra row)."""
+    d_rows = d_rows.float()
     b, width, hc, wc = d_rows.shape
     dev = d_rows.device
     w = win.reshape(b, -1).long()
@@ -319,9 +362,8 @@ def raster_uniform_fwd(
         return raster_uniform_fwd_plain(bins, counts, resolution, tile_hw)
     if bins.device.type != "cuda":
         raise ValueError(f"raster_uniform_fwd: unsupported device {bins.device}")
+    _check_fwd_tile(tile_hw)
     th, tw = tile_hw
-    if th * tw > 1024:
-        raise ValueError(f"tile {tile_hw} exceeds 1024 threads per block")
     b = bins.shape[0]
     ids = torch.empty((b, nty * th, ntx * tw), dtype=torch.int32, device=bins.device)
     win = torch.empty_like(ids)

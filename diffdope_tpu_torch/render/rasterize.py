@@ -15,7 +15,9 @@ Two phases, as in the reference:
   (:func:`raster_ids_reference`), for small meshes;
 - the differentiable re-evaluation of (u, v, z/w) and their pixel
   derivatives at each pixel's triangle (:func:`rast_from_ids`, plain torch
-  autograd): the gradient reaches ``pos_clip`` through it.  Coverage
+  autograd but for the setup rows' gather, :class:`SetupRows`, whose
+  backward sums each triangle's pixels in a fixed order): the gradient
+  reaches ``pos_clip`` through it.  Coverage
   itself has no gradient; ``antialias`` supplies the coverage gradient.
 
 The id search's numeric contract (``rasterize.py:123-143``): pixel NDC
@@ -184,6 +186,92 @@ def raster_ids_binned_plain(coef, tile_idx, tile_counts, resolution,
     return ids[:, :h, :w]
 
 
+def setup_rows_bwd(d_rows: torch.Tensor, ids: torch.Tensor, t_count: int) -> torch.Tensor:
+    """d_coef (B, T, W): each triangle's row the sum of its foreground
+    pixels' row cotangents ``d_rows`` (B, P, W), in ascending pixel order
+    (ids (B, P), +1, 0 = background).
+
+    CPU tensors take :func:`setup_rows_bwd_plain`; CUDA tensors sort the
+    foreground pixels stably by (hypothesis, triangle) and launch the
+    segmented sum (csrc/rasterize.cu, ``dd_segment_sum``), anything else
+    raises."""
+    _check(d_rows, "d_rows", torch.float32, 3, d_rows.device)
+    _check(ids, "ids", torch.int32, 2, d_rows.device)
+    b, p, width = d_rows.shape
+    if tuple(ids.shape) != (b, p):
+        raise ValueError(f"d_rows {tuple(d_rows.shape)} / ids {tuple(ids.shape)}")
+    if d_rows.device.type == "cpu":
+        return setup_rows_bwd_plain(d_rows, ids, t_count)
+    if d_rows.device.type != "cuda":
+        raise ValueError(f"setup_rows_bwd: unsupported device {d_rows.device}")
+    if b * p >= 2 ** 31 or b * t_count >= 2 ** 31:
+        raise ValueError(f"{b * p} pixels / {b * t_count} rows exceed int32 indexing")
+    order, start = segments(ids, t_count)
+    out = torch.empty((b, t_count, width), dtype=torch.float32, device=d_rows.device)
+    kernels.launch(
+        "dd_segment_sum", "setup_rows_bwd",
+        d_rows.data_ptr(), order.data_ptr(), start.data_ptr(), b * t_count, width,
+        out.data_ptr(),
+    )
+    return out
+
+
+def segments(ids: torch.Tensor, t_count: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(order, start), int32: the flat indices of the foreground pixels of
+    ids (B, P) sorted stably by (hypothesis, triangle), and where each of
+    the B*T (hypothesis, triangle) segments starts in ``order`` (B*T + 1
+    entries).  Background pixels sort past every segment, so nothing waits
+    on the host."""
+    b = ids.shape[0]
+    nseg = b * t_count
+    hyp = torch.arange(b, device=ids.device, dtype=torch.int64)[:, None] * t_count
+    key = torch.where(ids > 0, hyp + ids.long() - 1, nseg).reshape(-1)
+    sorted_key, order = torch.sort(key, stable=True)
+    start = torch.searchsorted(
+        sorted_key, torch.arange(nseg + 1, device=ids.device, dtype=torch.int64))
+    return order.to(torch.int32), start.to(torch.int32)
+
+
+def setup_rows_bwd_plain(d_rows: torch.Tensor, ids: torch.Tensor,
+                         t_count: int) -> torch.Tensor:
+    """Plain torch :func:`setup_rows_bwd`: an index_add of the foreground
+    pixels' cotangents into their triangles' rows (in index order on the
+    CPU; with atomics, in no fixed order, on the card)."""
+    b, p, width = d_rows.shape
+    hyp = torch.arange(b, device=ids.device)[:, None] * t_count
+    key = torch.where(ids > 0, hyp + ids.long() - 1, b * t_count).reshape(-1)
+    acc = torch.zeros((b * t_count + 1, width), dtype=d_rows.dtype, device=d_rows.device)
+    acc.index_add_(0, key, d_rows.reshape(-1, width))
+    return acc[:-1].reshape(b, t_count, width)
+
+
+class SetupRows(torch.autograd.Function):
+    """(B, P, W) the setup row of each pixel's triangle, zeros on
+    background (ids (B, P), +1, 0 = background), differentiable in the
+    rows ``coef`` (B, T, W) through :func:`setup_rows_bwd`; the
+    reference's take_along_axis (``rasterize.py:245``) reads triangle 0
+    on background, where every output is then masked to 0."""
+
+    @staticmethod
+    def forward(ctx, coef, ids):
+        b, t_count, width = coef.shape
+        idx = (ids.long() - 1).clamp(min=0)
+        rows = coef.gather(1, idx[..., None].expand(-1, -1, width))
+        ctx.save_for_backward(ids)
+        ctx.t_count = t_count
+        return torch.where((ids > 0)[..., None], rows, torch.zeros_like(rows))
+
+    @staticmethod
+    def backward(ctx, d_rows):
+        (ids,) = ctx.saved_tensors
+        return setup_rows_bwd(d_rows.contiguous(), ids, ctx.t_count), None
+
+
+def setup_rows(coef: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The setup rows (B, H*W, 16) of ids (B, H, W): :class:`SetupRows`."""
+    return SetupRows.apply(coef, ids.reshape(ids.shape[0], -1).to(torch.int32).contiguous())
+
+
 def rast_from_ids(
     ids: torch.Tensor,
     setup: TriangleSetup,
@@ -199,17 +287,13 @@ def rast_from_ids(
         resolution: (H, W).  with_db: also return ``rast_db``.
 
     Returns rast (B, H, W, 4) = (u, v, z/w, id as float) and rast_db
-    (B, H, W, 4) or None; both zero on background.  The gather's backward
-    is a scatter-add (atomics on the card: gradients there are equal run
-    to run only to rounding)."""
+    (B, H, W, 4) or None; both zero on background.  The rows' gather
+    (:class:`SetupRows`) has a deterministic backward: the card's gradient
+    repeats bit for bit from call to call."""
     h, w = resolution
     x, y = pixel_ndc(resolution, device=ids.device)
     fg = (ids > 0)[..., None]
-    idx = (ids.long() - 1).clamp(min=0)
-    b = ids.shape[0]
-    rows = setup.coef.gather(
-        1, idx.reshape(b, -1, 1).expand(-1, -1, SETUP_WIDTH)
-    ).reshape(ids.shape + (SETUP_WIDTH,))
+    rows = setup_rows(setup.coef, ids).reshape(ids.shape + (SETUP_WIDTH,))
     r = [rows[..., i] for i in range(13)]
 
     e0 = (r[0] * x + r[1] * y) + r[2]

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from diffdope_tpu_torch import kernels
-from diffdope_tpu_torch.bench import bench_problem, distinct_poses
+from diffdope_tpu_torch.bench import bench_problem, distinct_poses, drows_env
 from diffdope_tpu_torch.geometry import matmul44, xfm_points
 from diffdope_tpu_torch.kernels.check import (
     check_gather_rows,
@@ -53,8 +53,9 @@ def params(problem):
 
 @pytest.fixture(scope="module")
 def checks(problem, params):
-    """K1-K6 on the bench problem's compact tables; K7 and the depth lane of
-    K5/K6 on its uniform-table depth variant."""
+    """K1-K6 (and the spanning op's bf16 lane of K6 and K4) on the bench
+    problem's compact tables; K7 and the depth lane of K5/K6 on its
+    uniform-table depth variant."""
     mtx, _, _ = pose_matrix(params)
     d_sums = torch.tensor([[1.0, 0.7, 0.9], [0.5, 1.3, 1.1], [2.0, 0.2, 0.4]],
                           device=mtx.device)
@@ -68,44 +69,79 @@ def checks(problem, params):
 @pytest.mark.parametrize(
     "kernel", ["K1_pack_fwd", "K2_pack_bwd", "K3_raster_fwd", "K4_raster_bwd",
                "K5_loss_fwd", "K6_loss_bwd", "K7_raster_uniform_fwd",
-               "K7_raster_uniform_bwd", "K5_loss_fwd_depth", "K6_loss_bwd_depth"]
+               "K7_raster_uniform_bwd", "K5_loss_fwd_depth", "K6_loss_bwd_depth",
+               "K6_loss_bwd_bf16", "K4_raster_bwd_bf16"]
 )
 def test_kernel_matches_plain_on_card(checks, kernel):
     row = checks[kernel]
     assert row["ok"], row
 
 
-def test_fused_loss_on_card_matches_cpu(problem, params):
-    """The whole step (table, spanning op, total) on the card, through the
-    kernels, against the same step on the CPU, through the plain versions:
-    loss rtol 1e-5, pose gradients rtol 2e-4 / atol 1e-6."""
+def _value_and_grad(fn, params, device):
+    p = {k: v.detach().to(device).requires_grad_(True) for k, v in params.items()}
+    mtx, _, _ = pose_matrix(p)
+    total, _ = fn(mtx)
+    grads = torch.autograd.grad(total, list(p.values()))
+    return total.detach().cpu(), {k: g.cpu() for k, g in zip(p, grads)}
+
+
+def _cpu_fused_loss(problem):
     from diffdope_tpu_torch.render.pipeline import make_fused_loss
 
     s = problem["scene"]
-
-    def value_and_grad(fn, device):
-        p = {k: v.detach().to(device).requires_grad_(True) for k, v in params.items()}
-        mtx, _, _ = pose_matrix(p)
-        total, _ = fn(mtx)
-        grads = torch.autograd.grad(total, list(p.values()))
-        return total.detach().cpu(), {k: g.cpu() for k, g in zip(p, grads)}
-
-    fn_cpu = make_fused_loss(
+    return make_fused_loss(
         s["proj"], s["pos"], s["tri"], RES, problem["gt"], problem["lrs"],
         problem["weights"], use_rgb=True, use_mask=True, edge_adj=s["edge_adj"],
         vtx_color=s["vtx_color"], compact_total=problem["compact_total"],
         device="cpu",
     )
+
+
+def test_fused_loss_on_card_matches_cpu(problem, params):
+    """The whole step (table, spanning op with f32 d_rows, total) on the
+    card, through the kernels, against the same step on the CPU, through
+    the plain versions: loss rtol 1e-5, pose gradients rtol 2e-4 / atol
+    1e-6."""
+    with drows_env(False):
+        fn_gpu = bench_problem(RES, subdiv=2, batch=B, device=problem["fn"].gt6.device)["fn"]
+        fn_cpu = _cpu_fused_loss(problem)
     kernels.reset_launches()
-    v_gpu, g_gpu = value_and_grad(problem["fn"], "cuda")
+    v_gpu, g_gpu = _value_and_grad(fn_gpu, params, "cuda")
     six = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd", "loss_fwd", "loss_bwd")
     assert all(kernels.launches[c] == (1 if c in six else 0)
                for c in kernels.launches), kernels.launches
-    v_cpu, g_cpu = value_and_grad(fn_cpu, "cpu")
+    v_cpu, g_cpu = _value_and_grad(fn_cpu, params, "cpu")
     np.testing.assert_allclose(v_gpu.numpy(), v_cpu.numpy(), rtol=1e-5, atol=1e-7)
     for k in g_cpu:
         np.testing.assert_allclose(g_gpu[k].numpy(), g_cpu[k].numpy(),
                                    rtol=2e-4, atol=1e-6, err_msg=k)
+
+
+def test_fused_loss_bf16_lane_on_card(problem, params):
+    """The default lane (DD_DROWS_BF16 unset: bf16 d_rows between K6 and
+    K4) on the card: the bf16 K6 and K4 launch once each and their f32
+    instantiations not at all; its pose gradients against the CPU's
+    bf16 lane and the card's f32 lane within the contract's bf16 clause
+    (atol 2e-2 of the component's scale), and apart from the f32 lane's."""
+    assert problem["fn"].drows_bf16
+    kernels.reset_launches()
+    v_gpu, g_gpu = _value_and_grad(problem["fn"], params, "cuda")
+    on = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd_bf16", "loss_fwd",
+          "loss_bwd_bf16")
+    assert all(kernels.launches[c] == (1 if c in on else 0)
+               for c in kernels.launches), kernels.launches
+    with drows_env(True):
+        fn_cpu = _cpu_fused_loss(problem)
+    with drows_env(False):
+        fn_f32 = bench_problem(RES, subdiv=2, batch=B, device=problem["fn"].gt6.device)["fn"]
+    _, g_cpu = _value_and_grad(fn_cpu, params, "cpu")
+    _, g_f32 = _value_and_grad(fn_f32, params, "cuda")
+    assert any(not torch.equal(g_gpu[k], g_f32[k]) for k in g_gpu)
+    for want in (g_cpu, g_f32):
+        for k, g in want.items():
+            scale = float(g.abs().max())
+            np.testing.assert_allclose(g_gpu[k].numpy(), g.numpy(), rtol=0,
+                                       atol=2e-2 * scale, err_msg=k)
 
 
 def _diffdope_session(device, fused):
@@ -143,14 +179,15 @@ def _diffdope_session(device, fused):
 @pytest.mark.parametrize("fused", [True, False])
 def test_diffdope_on_card_matches_cpu(cuda, fused):
     """The same session on the card (K1-K6 or K1-K4) and on the CPU (the
-    plain versions): step-0 losses rtol 1e-5, the poses after one SGD step
-    atol 1e-5."""
+    plain versions), the spanning op's d_rows in f32: step-0 losses rtol
+    1e-5, the poses after one SGD step atol 1e-5."""
     kernels.reset_launches()
-    on_card = _diffdope_session(cuda, fused)
-    counters = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd") + (
-        ("loss_fwd", "loss_bwd") if fused else ())
-    assert all(kernels.launches[c] > 0 for c in counters), kernels.launches
-    on_cpu = _diffdope_session("cpu", fused)
+    with drows_env(False):  # the f32 d_rows lane, bit for bit the chained ops
+        on_card = _diffdope_session(cuda, fused)
+        counters = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd") + (
+            ("loss_fwd", "loss_bwd") if fused else ())
+        assert all(kernels.launches[c] > 0 for c in counters), kernels.launches
+        on_cpu = _diffdope_session("cpu", fused)
     for k, v in on_cpu.losses_values.items():
         np.testing.assert_allclose(on_card.losses_values[k][0], v[0], rtol=1e-5, err_msg=k)
     np.testing.assert_allclose(on_card.mtx_history, on_cpu.mtx_history, atol=1e-5)
@@ -196,6 +233,38 @@ def test_rasterize_on_card_matches_cpu(problem, params):
     got, want = out["cuda"][2].numpy(), out["cpu"][2].numpy()
     scale = np.abs(want).max(axis=-1, keepdims=True)
     assert np.all(np.abs(got - want) <= 1e-6 + 2e-4 * np.abs(want) + 1e-6 * scale)
+
+
+def test_rasterize_gradient_repeats_on_card(problem, params):
+    """rasterize's backward on the card (the setup rows' segmented sum,
+    one launch a backward) gives the same gradient bit for bit from call
+    to call, and the segmented sum equals its plain twin (an index_add,
+    with atomics on the card) within rtol 2e-4, atol 1e-6 plus 1e-6 of the
+    row's largest term sum."""
+    from diffdope_tpu_torch.render.rasterize import (
+        rasterize,
+        setup_rows_bwd,
+        setup_rows_bwd_plain,
+    )
+
+    tri = problem["scene"]["tri"]
+    grads = []
+    for _ in range(2):
+        pos_clip = _pos_clip(problem, params, "cuda").detach().requires_grad_(True)
+        rast, db = rasterize(pos_clip, tri, RES, impl="pallas")
+        kernels.reset_launches()
+        (grad,) = torch.autograd.grad((rast[..., :3].sum() + 1e-3 * db.sum()), pos_clip)
+        assert kernels.launches["setup_rows_bwd"] == 1, kernels.launches
+        grads.append(grad)
+    assert torch.equal(grads[0], grads[1]) and float(grads[0].abs().max()) > 0
+    ids = rast[..., 3].to(torch.int32).reshape(B, -1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    d = torch.randn(ids.shape + (16,), generator=gen, device="cuda")
+    got = setup_rows_bwd(d, ids, len(tri))
+    want = setup_rows_bwd_plain(d, ids, len(tri))
+    scale = setup_rows_bwd_plain(d.abs(), ids, len(tri))
+    assert torch.equal(got, setup_rows_bwd(d, ids, len(tri)))
+    assert bool(torch.all((got - want).abs() <= 1e-6 + 2e-4 * want.abs() + 1e-6 * scale))
 
 
 @pytest.fixture(scope="module")

@@ -2,8 +2,8 @@
 session (device="cpu") on the reference test's synthetic scene
 (tests/test_diffdope.py: icosphere(2), 48x64, B=3, 4 steps), the port
 session built from the reference's state (convert.diffdope_state), its
-loss scales included.  Both run the compact table; the reference keeps its
-d_rows cotangent in f32 (DD_DROWS_BF16=0), as the port does, and bins on
+loss scales included.  Both run the compact table with the spanning op's
+d_rows cotangent in f32 (DD_DROWS_BF16=0, set for both), and the reference bins on
 8-row tiles (tpu.tile_h, which the port does not read): on 16- and 32-row
 tiles its compact raster drops the object's bottom two pixel rows on this
 scene, where its uniform-K raster and the port do not (ROADMAP queue 3).
@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from diffdope_tpu_torch import convert
+from diffdope_tpu_torch.bench import drows_env
 
 RES = (48, 64)
 B = 3
@@ -137,7 +138,8 @@ def sessions(request, references):
     ref = references[request.param]
     state = convert.diffdope_state(ref)
     port = _port_session(state, _cfg(request.param))
-    port.run_optimization()
+    with drows_env(False):  # the reference's DD_DROWS_BF16=0
+        port.run_optimization()
     return request.param, ref, port, state
 
 

@@ -144,6 +144,33 @@ def test_torch_colour_lane_wrappers_refuse_unsupported_devices():
                              colors=torch.zeros((1, 2, 16, 16)))
 
 
+def test_torch_bf16_lane_and_segment_sum_refuse_unsupported_devices():
+    """The bf16 lane of K6 and K4 and rasterize's segmented sum take their
+    plain versions for CPU tensors only; the bf16 lane is the rgb + mask
+    lane's alone."""
+    import torch
+
+    from diffdope_tpu_torch.render import fused_loss, raster
+    from diffdope_tpu_torch.render.rasterize import setup_rows_bwd
+
+    rows = torch.zeros((1, 32, 16, 16), device="meta")
+    ids = torch.zeros((1, 16, 16), dtype=torch.int32, device="meta")
+    gt6 = torch.zeros((6, 16, 16), device="meta")
+    d_sums = torch.zeros((1, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_loss.loss_bwd(rows, ids, gt6, (0, 0, 16, 16), d_sums,
+                            d_rows_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="rgb \\+ mask lane only"):
+        fused_loss.loss_bwd(rows, ids, gt6, (0, 0, 16, 16), d_sums,
+                            dplane=torch.zeros((1, 16, 16), device="meta"),
+                            d_rows_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        raster.raster_bwd(rows.to(torch.bfloat16), ids, 64, (16, 16))
+    with pytest.raises(ValueError, match="unsupported device"):
+        setup_rows_bwd(torch.zeros((1, 256, 16), device="meta"),
+                       torch.zeros((1, 256), dtype=torch.int32, device="meta"), 8)
+
+
 def test_torch_texture_op_is_exported():
     """The nvdiffrast-style texture op is the package's, as the reference
     exports its own."""

@@ -140,7 +140,9 @@ def test_torch_v2_gradient_of_a_triangle_past_16_tiles(monkeypatch):
     its whole gradient on the ``DD_BINNED=0`` route: its inverted bin map
     is as wide as the bins need (a fixed width of 16, the reference's for
     its 32x128 tiles, dropped the rest).  The pose gradient equals the
-    compact route's, which has no inverted map, at rtol 2e-4, atol 1e-6."""
+    compact route's (its spanning op with f32 d_rows, as the planar
+    route's chained ops), which has no inverted map, at rtol 2e-4, atol
+    1e-6."""
     from diffdope_tpu_torch import geometry as geo
     from diffdope_tpu_torch.optimize import pose_matrix, pose_params
     from diffdope_tpu_torch.render.pipeline import compact_capacity, make_fused_loss
@@ -175,7 +177,7 @@ def test_torch_v2_gradient_of_a_triangle_past_16_tiles(monkeypatch):
 
     logs_v2, g_v2 = step(ROUTES["v2"])
     assert int(logs_v2["_bin_occupancy"]) > 16 and int(logs_v2["_bin_overflow"]) == 0
-    _, g_compact = step({})
+    _, g_compact = step({"DD_DROWS_BF16": "0"})  # the spanning op's f32 lane
     for k, g in g_compact.items():
         assert g.abs().max() > 0, k
         np.testing.assert_allclose(g_v2[k].numpy(), g.numpy(), rtol=2e-4, atol=1e-6,

@@ -16,6 +16,12 @@ setups a few ulps apart, and where a coefficient cancels (0.22 relative
 on this scene) that moves u by ~2e-5 near an edge.  The gradient also
 allows 1e-6 of the vertex's largest component (see the test).  The whole
 op is held to the JAX id search run on the port's own coefficients.
+
+The setup rows' gather has a backward of its own (``SetupRows``): each
+triangle's row sums its pixels in ascending pixel order, on the card by
+a stable sort and a segmented sum; here it is held to autograd's gather
+gradient and to itself from call to call, and the sort's segments to the
+pixels they must hold.
 """
 
 import numpy as np
@@ -42,6 +48,8 @@ from diffdope_tpu_torch.render.rasterize import (
     raster_ids_binned_plain,
     raster_ids_reference,
     rasterize,
+    segments,
+    setup_rows,
 )
 
 RES = (40, 150)  # a multiple of neither tile
@@ -169,3 +177,63 @@ def test_torch_rasterize_takes_numpy_and_corners():
     assert torch.equal(auto, rasterize(torch.tensor(pos), tri, RES, impl="reference")[0])
     with pytest.raises(ValueError, match="unknown rasterize impl"):
         rasterize(torch.tensor(pos), tri, RES, impl="v3")
+
+
+def _gather_grads(coef, ids, weights, own: bool):
+    """d(sum(rows * weights))/d coef through SetupRows (``own``) or
+    through autograd's gather of the same rows."""
+    c = coef.detach().clone().requires_grad_(True)
+    flat = ids.reshape(ids.shape[0], -1)
+    if own:
+        rows = setup_rows(c, ids)
+    else:
+        idx = (flat.long() - 1).clamp(min=0)[..., None].expand(-1, -1, c.shape[2])
+        rows = torch.where((flat > 0)[..., None], c.gather(1, idx), 0.0)
+    (g,) = torch.autograd.grad((rows * weights).sum(), c)
+    return g
+
+
+def test_torch_setup_rows_backward_matches_gather_and_repeats():
+    """SetupRows' backward (the deterministic sum rasterize's gradient goes
+    through) against autograd's gather gradient on the CPU, rtol 2e-4,
+    atol 1e-6, and bit for bit from call to call; through rast_from_ids
+    too, its pos_clip gradient repeats bit for bit."""
+    pos, tri = random_clip_scene(seed=3, n_tri=60, batch=3)
+    p = torch.tensor(pos, requires_grad=True)
+    setup = t_setup.triangle_setup(p, torch.tensor(tri))
+    ids = raster_ids_reference(setup.coef.detach(), RES)
+    assert (ids > 0).sum() > 1000 and len(torch.unique(ids)) > 40
+    weights = torch.tensor(np.random.default_rng(4).normal(
+        size=(3, RES[0] * RES[1], setup.coef.shape[2])).astype(np.float32))
+    got = _gather_grads(setup.coef, ids, weights, own=True)
+    want = _gather_grads(setup.coef, ids, weights, own=False)
+    assert torch.equal(got, _gather_grads(setup.coef, ids, weights, own=True))
+    assert float(want.abs().max()) > 1.0
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4, atol=1e-6)
+
+    def pos_grad():
+        rast, db = rast_from_ids(ids, t_setup.triangle_setup(p, torch.tensor(tri)), RES)
+        (g,) = torch.autograd.grad(rast[..., :3].sum() + 1e-3 * db.sum(), p)
+        return g
+
+    first = pos_grad()
+    assert torch.equal(first, pos_grad()) and float(first.abs().max()) > 0
+
+
+def test_torch_setup_rows_segments_hold_each_triangles_pixels():
+    """The card's ordering of the backward (``segments``): segment b*T + t
+    holds exactly the pixels of hypothesis b whose id is t + 1, in
+    ascending order; background pixels are in no segment."""
+    pos, tri = random_clip_scene(seed=5, n_tri=30, batch=2)
+    coef = t_setup.triangle_setup(torch.tensor(pos), torch.tensor(tri)).coef
+    ids = raster_ids_reference(coef, RES).reshape(2, -1)
+    t_count = len(tri)
+    order, start = segments(ids, t_count)
+    assert order.dtype == start.dtype == torch.int32
+    assert start.shape == (2 * t_count + 1,) and int(start[-1]) == int((ids > 0).sum())
+    flat = ids.reshape(-1)
+    for s in range(2 * t_count):
+        b, t = divmod(s, t_count)
+        want = torch.nonzero(flat == t + 1).reshape(-1)
+        want = want[(want >= b * ids.shape[1]) & (want < (b + 1) * ids.shape[1])]
+        assert torch.equal(order[start[s]:start[s + 1]].long(), want), s

@@ -163,10 +163,12 @@ def jax_uniform_table():
     return out
 
 
-def jax_fused_loss(monkeypatch, use_depth=False, compact_total=COMPACT_TOTAL):
+def jax_fused_loss(monkeypatch, use_depth=False, compact_total=COMPACT_TOTAL,
+                   drows_bf16=False):
     """The JAX fused loss in the port's configuration: the compact table
     (``compact_total`` None: the uniform-K table), spanning op, pack in
-    plain XLA (DD_PACK=xla), f32 d_rows.
+    plain XLA (DD_PACK=xla), f32 d_rows (bf16 with ``drows_bf16``, the
+    reference's default).
 
     The reference reads DD_PACK when the loss is traced, so ``monkeypatch``
     must stay in force until the caller's jit has traced it; while it is,
@@ -177,7 +179,7 @@ def jax_fused_loss(monkeypatch, use_depth=False, compact_total=COMPACT_TOTAL):
     def no_pallas_pack(*args, **kwargs):
         raise AssertionError("the slice's reference packs in XLA (DD_PACK=xla)")
 
-    monkeypatch.setenv("DD_DROWS_BF16", "0")
+    monkeypatch.setenv("DD_DROWS_BF16", "1" if drows_bf16 else "0")
     monkeypatch.setenv("DD_PACK", "xla")
     monkeypatch.setattr(pack_kernel, "pack_binned_auto", no_pallas_pack)
     sc = jax_scene()
@@ -189,21 +191,25 @@ def jax_fused_loss(monkeypatch, use_depth=False, compact_total=COMPACT_TOTAL):
     )
 
 
-def port_fused_loss(device="cpu", use_depth=False, uniform=False):
+def port_fused_loss(device="cpu", use_depth=False, uniform=False, drows_bf16=False):
     """The port's fused loss on the same scene, its state carried across
     by ``convert.state``; compact capacity twice the probe's, or the
-    uniform-K table."""
+    uniform-K table; the spanning op's d_rows in f32 (the contract's
+    DD_DROWS_BF16=0 reference, :func:`jax_fused_loss`'s default) unless
+    ``drows_bf16``."""
     from diffdope_tpu_torch import convert
+    from diffdope_tpu_torch.bench import drows_env
     from diffdope_tpu_torch.render.pipeline import compact_capacity, make_fused_loss
 
     sc = convert.state(jax_scene(), device)
     total = None if uniform else 2 * compact_capacity(
         sc["proj"], sc["pos"], sc["tri"], sc["mtx0"], RES, device=device)
-    return make_fused_loss(
-        sc["proj"], sc["pos"], sc["tri"], RES, sc["gt"], LRS, WEIGHTS,
-        use_rgb=True, use_depth=use_depth, use_mask=True, edge_adj=sc["edge_adj"],
-        vtx_color=sc["vtx_color"], compact_total=total, device=device,
-    )
+    with drows_env(drows_bf16):
+        return make_fused_loss(
+            sc["proj"], sc["pos"], sc["tri"], RES, sc["gt"], LRS, WEIGHTS,
+            use_rgb=True, use_depth=use_depth, use_mask=True, edge_adj=sc["edge_adj"],
+            vtx_color=sc["vtx_color"], compact_total=total, device=device,
+        )
 
 
 def random_clip_scene(seed=42, n_tri=40, batch=2, behind=False):
