@@ -8,16 +8,30 @@
 // these are held to are in diffdope_tpu_torch/render/fused_loss.py (K6's is
 // torch.autograd of K5's).
 //
-// One thread per pixel of a hypothesis' (hc, wc) frame window.  A pixel's
+// A thread takes pixels of a hypothesis' (hc, wc) frame window.  A pixel's
 // antialiased mask needs its four neighbour pairs (shade.py:264-292); the
-// TPU kernel's row slabs and 2-row halos exist only for VMEM, so here a
-// pixel reads its neighbours' rows directly from device memory.
+// TPU kernel's row slabs and 2-row halos exist only for VMEM.
 //
 // K5: shade (shade.py:168-197), mask AA over the pixel's horizontal and
-// vertical pairs (pairs active only when both pixels are valid), masked L1
-// terms (fused_loss.py:78-121); a fixed-order shared-memory tree per block,
-// then one thread per hypothesis adds the block partials in order (double)
-// — deterministic, no atomics.
+// vertical pairs, masked L1 terms (fused_loss.py:78-121).  Bound on this
+// card: the bytes (below).  The design (loss_fwd_kernel):
+// - a pair is evaluated only on the silhouette (one pixel foreground, the
+//   other not, both real), which is exact: on a pair of two foreground
+//   pixels the mask colour is 1 on both sides, so both deltas are +-0, and
+//   x + +-0 = x for every x the sum meets.  The foreground side is then the
+//   one with id > 0, so K5 needs no depth order (zw_at) at all;
+// - a block takes a 16 x 16 pixel tile, two pixels a thread, with its ids
+//   and a one-pixel halo and the NDC of its rows and columns in shared
+//   memory; its silhouette pairs are listed there and searched once each,
+//   one a thread, so no warp runs four divergent searches;
+// - a background pixel reads no rows (its attributes are 0); a foreground
+//   pixel reads its edge planes and the channels its lane shades;
+// - the block's sums: warp shuffles, then the warps in order; then one
+//   block per hypothesis adds its tile partials, 256 strided runs in
+//   order, then the same tree — deterministic, no atomics in a sum, all in
+//   f32 (every term is >= 0, so the rounding stays ~1e-6 of the sum).
+// The pixel terms are the previous kernel's bit for bit; only the order of
+// the sums changed.
 //
 // K6: pass A writes g = dL/d(aa) per pixel (needs aa, i.e. the pixel's four
 // pairs); pass B writes d_rows per pixel as a gather: the rgb term through
@@ -56,9 +70,12 @@
 // (DD_DROWS_BF16=1, fused_loss.py:552); the same f32 values are rounded
 // once with __float2bfloat16_rn at the store, halving the d_rows write.
 //
-// Bound on this card: the rows reads — 23 of the 32 lanes (0-12, 14, 16-24)
-// of each foreground pixel, 26 with the depth lane; the colour lane reads
-// 14 (17 with depth) and the colour planes (memory bound).
+// Bound on this card: the rows reads (memory bound).  K5 reads, of each
+// foreground pixel, the edge lanes 0-8 and its lane's channels (16-24, and
+// the rotated z with depth), and lanes 12 and 14 at a silhouette pair; K6
+// reads 23 of the 32 lanes (0-12, 14, 16-24) of each foreground pixel, 26
+// with the depth lane, 14 (17 with depth) on the colour lane, and the colour
+// planes.
 //
 // Numeric contract (build with -fmad=false, no fast math): every product
 // and sum is rounded as in the reference's f32 expression order.
@@ -71,6 +88,8 @@ namespace {
 
 constexpr int kLanes = 32;
 constexpr int kBlock = 256;
+constexpr int kTileH = 16, kTileW = 16;  // K5's pixel tile, one block
+constexpr int kPx = 2;                   // K5's pixels a thread
 constexpr float kEps = 1e-12f;
 
 __device__ __forceinline__ float ndc(int pix, int frame) {
@@ -142,23 +161,19 @@ struct Pair {
   float cross = 0.0f, denom = 0.0f, across = 0.0f, seg = 1.0f;
 };
 
-__device__ Pair eval_pair(const Frame& f, int ra, int ca, int rb, int cb,
-                          bool horizontal) {
+// The crossing search of an active pair whose foreground pixel is a
+// (fg_is_a) or b, on that pixel's edge planes: the pair's deltas and, for
+// the backward, its selected edge line.  xy gives the pixels' NDC
+// (xy.x(c), xy.y(r)): the frame itself, or a table of the same values.
+template <class XY>
+__device__ Pair search_pair(const Frame& f, const XY& xy, int ra, int ca, int rb,
+                            int cb, bool horizontal, bool fg_is_a, int id_a, int id_b) {
   Pair out;
-  const size_t pa = (size_t)ra * f.wc + ca, pb = (size_t)rb * f.wc + cb;
-  const int id_a = f.ids[pa], id_b = f.ids[pb];
-  const float zw_a = zw_at(f, ra, ca, id_a), zw_b = zw_at(f, rb, cb, id_b);
-  const bool fg_is_a = id_a > 0 && (id_b == 0 || zw_a <= zw_b);
   out.fg_is_a = fg_is_a;
-  const bool active = id_a != id_b &&
-                      ((fg_is_a && id_a > 0) || (!fg_is_a && id_b > 0)) &&
-                      f.valid(ra, ca) && f.valid(rb, cb);
-  if (!active) return out;
-
-  const size_t pf = fg_is_a ? pa : pb;
-  const float along = horizontal ? f.x(ca) : f.y(ra);
-  const float along_next = horizontal ? f.x(cb) : f.y(rb);
-  const float across = horizontal ? f.y(ra) : f.x(ca);
+  const size_t pf = fg_is_a ? (size_t)ra * f.wc + ca : (size_t)rb * f.wc + cb;
+  const float along = horizontal ? xy.x(ca) : xy.y(ra);
+  const float along_next = horizontal ? xy.x(cb) : xy.y(rb);
+  const float across = horizontal ? xy.y(ra) : xy.x(ca);
   const float seg = __fsub_rn(along_next, along);
   const int sil = (int)f.lane(14, pf);
   const float det = f.lane(12, pf);
@@ -231,6 +246,23 @@ __device__ Pair eval_pair(const Frame& f, int ra, int ca, int rb, int cb,
   return out;
 }
 
+__device__ Pair eval_pair(const Frame& f, int ra, int ca, int rb, int cb,
+                          bool horizontal) {
+  const size_t pa = (size_t)ra * f.wc + ca, pb = (size_t)rb * f.wc + cb;
+  const int id_a = f.ids[pa], id_b = f.ids[pb];
+  const float zw_a = zw_at(f, ra, ca, id_a), zw_b = zw_at(f, rb, cb, id_b);
+  const bool fg_is_a = id_a > 0 && (id_b == 0 || zw_a <= zw_b);
+  const bool active = id_a != id_b &&
+                      ((fg_is_a && id_a > 0) || (!fg_is_a && id_b > 0)) &&
+                      f.valid(ra, ca) && f.valid(rb, cb);
+  if (!active) {
+    Pair out;
+    out.fg_is_a = fg_is_a;
+    return out;
+  }
+  return search_pair(f, f, ra, ca, rb, cb, horizontal, fg_is_a, id_a, id_b);
+}
+
 // antialiased foreground mask at (r, c): color + ((h_a + h_b) + v_a) + v_b
 __device__ float aa_at(const Frame& f, int r, int c) {
   const float color = f.ids[(size_t)r * f.wc + c] > 0 ? 1.0f : 0.0f;
@@ -259,11 +291,11 @@ struct Shade {
   float e[3], s, s_safe, num[kN], attr[kN];
 };
 
-template <int kFirst, int kN>
-__device__ Shade<kN> shade_at(const Frame& f, int r, int c, bool fg) {
+template <int kFirst, int kN, class XY>
+__device__ Shade<kN> shade_at(const Frame& f, const XY& xy, int r, int c, bool fg) {
   Shade<kN> sh;
   const size_t p = (size_t)r * f.wc + c;
-  const float x = f.x(c), y = f.y(r);
+  const float x = xy.x(c), y = xy.y(r);
 #pragma unroll
   for (int j = 0; j < 3; ++j)
     sh.e[j] = lin3(f.lane(3 * j, p), x, f.lane(3 * j + 1, p), y,
@@ -279,87 +311,220 @@ __device__ Shade<kN> shade_at(const Frame& f, int r, int c, bool fg) {
   return sh;
 }
 
-template <bool kDepth, bool kColors>
-__global__ void loss_fwd_kernel(const float* __restrict__ rows,
-                                const int* __restrict__ ids,
-                                const float* __restrict__ gt6,
-                                const float* __restrict__ dplane,
-                                const float* __restrict__ colors, int hc,
-                                int wc, int oy, int ox, int fh, int fw,
-                                float* __restrict__ partials) {
-  using L = Lanes<kDepth, kColors>;
-  constexpr int kSums = kDepth ? 3 : 2;
-  __shared__ float red[kSums][kBlock];
-  const int b = blockIdx.y;
-  const Frame f = make_frame(rows, ids, gt6, b, hc, wc, oy, ox, fh, fw);
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  float m_term = 0.0f, r_term = 0.0f, d_term = 0.0f;
-  if (p < hc * wc) {
-    const int r = p / wc, c = p % wc;
-    if (f.valid(r, c)) {
-      const bool fg = f.ids[p] > 0;
-      const float aa = aa_at(f, r, c);
-      float col[3];
-      float attr_z = 0.0f;
-      if constexpr (L::kRead > 0) {
-        const Shade<L::kRead> sh = shade_at<L::kFirst, L::kRead>(f, r, c, fg);
-        if constexpr (!kColors) {
+// The NDC of a tile's columns and rows and its one-pixel halo, staged once
+// by the block (the frame's own values: Frame::x, Frame::y).
+struct TileXY {
+  const float* xs;  // kTileW + 2 columns from c0 - 1
+  const float* ys;  // kTileH + 2 rows from r0 - 1
+  int c0, r0;
+  __device__ float x(int c) const { return xs[c - c0 + 1]; }
+  __device__ float y(int r) const { return ys[r - r0 + 1]; }
+};
+
+// K5's gate of a pair (a, b), b right of / below a: a silhouette pair, one
+// pixel foreground and the other not, both real (a past the window's first
+// row or column is not).  A pair of two foreground pixels adds +-0 to both
+// (the mask colour is 1 on both sides, so diff = 0), and adding +-0 changes
+// no antialiased value: the reference evaluates those pairs, K5 skips them.
+// On a silhouette pair the foreground side is the one with id > 0, so no
+// depth order is needed.
+__device__ __forceinline__ bool silhouette(const Frame& f, int ra, int ca, int rb,
+                                           int cb, int id_a, int id_b) {
+  return (id_a > 0) != (id_b > 0) && ra >= 0 && ca >= 0 && f.valid(rb, cb);
+}
+
+// the sum of v over the block's threads: warp shuffles, then the warps in
+// order (thread 0 holds it)
+template <int kN>
+__device__ __forceinline__ void block_sum(float (&v)[kN], float (&warp_sums)[kN][32]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-          for (int ch = 0; ch < 3; ++ch) col[ch] = sh.attr[ch];
-        }
-        if constexpr (kDepth) attr_z = sh.attr[L::kZ];
-      }
-      if constexpr (kColors) {
+  for (int k = 0; k < kN; ++k) {
 #pragma unroll
-        for (int ch = 0; ch < 3; ++ch)
-          col[ch] = colors[((size_t)b * 3 + ch) * f.plane + p];
-      }
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) {
-        const float seg = f.gt6[ch * f.plane + p];
-        const float rgb = f.gt6[(3 + ch) * f.plane + p];
-        m_term = __fadd_rn(m_term, fabsf(__fsub_rn(aa, seg)));
-        r_term = __fadd_rn(r_term, __fmul_rn(fabsf(__fsub_rn(col[ch], rgb)), seg));
-      }
-      if constexpr (kDepth) {
-        const float v = __fadd_rn(attr_z, dplane[(size_t)b * f.plane + p]);
-        d_term = __fmul_rn(fabsf(v), f.gt6[p]);
-      }
-    }
+    for (int off = 16; off > 0; off >>= 1)
+      v[k] = __fadd_rn(v[k], __shfl_down_sync(0xffffffffu, v[k], off));
+    if (lane == 0) warp_sums[k][warp] = v[k];
   }
-  red[0][threadIdx.x] = m_term;
-  red[1][threadIdx.x] = r_term;
-  if constexpr (kDepth) red[kSums - 1][threadIdx.x] = d_term;
   __syncthreads();
-  for (int s = kBlock / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) {
-#pragma unroll
-      for (int k = 0; k < kSums; ++k)
-        red[k][threadIdx.x] = __fadd_rn(red[k][threadIdx.x], red[k][threadIdx.x + s]);
-    }
-    __syncthreads();
-  }
   if (threadIdx.x == 0) {
-    float* out = partials + ((size_t)b * gridDim.x + blockIdx.x) * kSums;
 #pragma unroll
-    for (int k = 0; k < kSums; ++k) out[k] = red[k][0];
+    for (int k = 0; k < kN; ++k) {
+      v[k] = warp_sums[k][0];
+      for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
+        v[k] = __fadd_rn(v[k], warp_sums[k][w]);
+    }
   }
 }
 
-// the block partials of each hypothesis, added in block order (double)
-template <int kSums>
-__global__ void loss_reduce_kernel(const float* __restrict__ partials, int B,
-                                   int nblk, float* __restrict__ sums) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  double acc[3] = {0.0, 0.0, 0.0};
-  const float* pp = partials + (size_t)b * nblk * kSums;
-  for (int i = 0; i < nblk; ++i) {
+// K5: one block per (kTileH x kTileW pixel tile, hypothesis), kPx pixels
+// of one column a thread (rows kTileH / kPx apart).  The tile's ids with a
+// one-pixel halo and the NDC of its rows and columns are staged in shared
+// memory, so the pair gates read no device memory and no pixel divides for
+// its NDC; the loads that need no id (gt6, the planes) go out before the
+// staging barrier.  The tile's silhouette pairs (its pixels' right and
+// lower pairs, and the pairs into its left and upper halo) are listed in
+// shared memory and searched one a thread, each once, in place of a
+// divergent search by both pixels of the pair; their deltas wait in
+// shared memory for the pixels.  Only a foreground pixel reads rows (its
+// edge planes and the channels its lane shades), and only a silhouette
+// pair's search reads its foreground pixel's det and silhouette lanes.  A
+// thread adds its pixels' terms in row order; the block's sums go to
+// partials[b, tile, :] by block_sum.
+template <bool kDepth, bool kColors>
+__global__ void __launch_bounds__(kTileH * kTileW / kPx)
+    loss_fwd_kernel(const float* __restrict__ rows, const int* __restrict__ ids,
+                    const float* __restrict__ gt6, const float* __restrict__ dplane,
+                    const float* __restrict__ colors, int hc, int wc, int oy,
+                    int ox, int fh, int fw, float* __restrict__ partials) {
+  using L = Lanes<kDepth, kColors>;
+  constexpr int kSums = kDepth ? 3 : 2;
+  constexpr int kStep = kTileH / kPx;  // rows between a thread's pixels
+  constexpr int kPairs = kTileH * (kTileW + 1) + (kTileH + 1) * kTileW;
+  __shared__ int tile_ids[kTileH + 2][kTileW + 2];
+  __shared__ float xs[kTileW + 2], ys[kTileH + 2];
+  // the deltas of a's and b's side: dh[i][j] of the horizontal pair at row
+  // r0 + i, a in column c0 - 1 + j; dv[i][j] of the vertical pair at column
+  // c0 + j, a in row r0 - 1 + i
+  __shared__ float dh[kTileH][kTileW + 1][2], dv[kTileH + 1][kTileW][2];
+  __shared__ int pairs[kPairs], n_pairs;
+  __shared__ float warp_sums[kSums][32];
+  const int b = blockIdx.y;
+  const Frame f = make_frame(rows, ids, gt6, b, hc, wc, oy, ox, fh, fw);
+  const int ntx = (wc + kTileW - 1) / kTileW;
+  const int r0 = (blockIdx.x / ntx) * kTileH, c0 = (blockIdx.x % ntx) * kTileW;
+  const int lx = threadIdx.x % kTileW + 1, ly0 = threadIdx.x / kTileW + 1;
+  const int c = c0 + lx - 1;
+  // the loads that need no id go out with the tile's ids, one round trip
+  float seg[kPx][3], rgb[kPx][3], col[kPx][3], dpl[kPx];
 #pragma unroll
-    for (int k = 0; k < kSums; ++k) acc[k] += (double)pp[kSums * i + k];
+  for (int q = 0; q < kPx; ++q) {
+    const int r = r0 + ly0 - 1 + q * kStep;
+    const size_t p = (size_t)r * wc + c;
+    const bool real = r < hc && c < wc && f.valid(r, c);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      seg[q][ch] = real ? f.gt6[ch * f.plane + p] : 0.0f;
+      rgb[q][ch] = real ? f.gt6[(3 + ch) * f.plane + p] : 0.0f;
+      col[q][ch] = kColors && real ? colors[((size_t)b * 3 + ch) * f.plane + p] : 0.0f;
+    }
+    dpl[q] = kDepth && real ? dplane[(size_t)b * f.plane + p] : 0.0f;
   }
+  for (int i = threadIdx.x; i < (kTileH + 2) * (kTileW + 2); i += blockDim.x) {
+    const int rr = r0 - 1 + i / (kTileW + 2), cc = c0 - 1 + i % (kTileW + 2);
+    tile_ids[i / (kTileW + 2)][i % (kTileW + 2)] =
+        rr >= 0 && rr < hc && cc >= 0 && cc < wc ? f.ids[(size_t)rr * wc + cc] : 0;
+  }
+  for (int i = threadIdx.x; i < kTileW + 2; i += blockDim.x) xs[i] = f.x(c0 - 1 + i);
+  for (int i = threadIdx.x; i < kTileH + 2; i += blockDim.x) ys[i] = f.y(r0 - 1 + i);
+  if (threadIdx.x == 0) n_pairs = 0;
+  __syncthreads();
+
+  // list the silhouette pairs (code: vertical << 16 | i << 8 | j); the
+  // list's order does not matter, each pair's deltas have a place of their own
 #pragma unroll
-  for (int k = 0; k < 3; ++k) sums[b * 3 + k] = (float)acc[k];
+  for (int q = 0; q < kPx; ++q) {
+    const int ly = ly0 + q * kStep, r = r0 + ly - 1;
+    if (!(r < hc && c < wc && f.valid(r, c))) continue;
+    const int id = tile_ids[ly][lx];
+    if (silhouette(f, r, c, r, c + 1, id, tile_ids[ly][lx + 1]))
+      pairs[atomicAdd(&n_pairs, 1)] = (ly - 1) << 8 | lx;
+    if (silhouette(f, r, c, r + 1, c, id, tile_ids[ly + 1][lx]))
+      pairs[atomicAdd(&n_pairs, 1)] = 1 << 16 | ly << 8 | (lx - 1);
+    if (lx == 1 && silhouette(f, r, c - 1, r, c, tile_ids[ly][0], id))
+      pairs[atomicAdd(&n_pairs, 1)] = (ly - 1) << 8;
+    if (ly == 1 && silhouette(f, r - 1, c, r, c, tile_ids[0][lx], id))
+      pairs[atomicAdd(&n_pairs, 1)] = 1 << 16 | (lx - 1);
+  }
+  __syncthreads();
+  const TileXY xy{xs, ys, c0, r0};
+  for (int k = threadIdx.x; k < n_pairs; k += blockDim.x) {
+    const bool vertical = pairs[k] >> 16;
+    const int i = (pairs[k] >> 8) & 0xff, j = pairs[k] & 0xff;
+    // a's and b's place in the tile (1-based, 0 the halo)
+    const int ya = vertical ? i : i + 1, xa = vertical ? j + 1 : j;
+    const int yb = i + 1, xb = j + 1;
+    const int id_a = tile_ids[ya][xa], id_b = tile_ids[yb][xb];
+    const Pair pr = search_pair(f, xy, r0 + ya - 1, c0 + xa - 1, r0 + yb - 1, c0 + xb - 1,
+                                !vertical, id_a > 0, id_a, id_b);
+    float* d = vertical ? dv[i][j] : dh[i][j];
+    d[0] = pr.delta_a;
+    d[1] = pr.delta_b;
+  }
+  __syncthreads();
+
+  float sums[kSums];
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) sums[k] = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kPx; ++q) {
+    const int ly = ly0 + q * kStep, r = r0 + ly - 1;
+    if (!(r < hc && c < wc && f.valid(r, c))) continue;
+    const int id = tile_ids[ly][lx];
+    const bool fg = id > 0;
+    float attr_z = 0.0f;
+    if constexpr (L::kRead > 0) {
+      if (fg) {  // a background pixel's attributes are 0
+        const Shade<L::kRead> sh = shade_at<L::kFirst, L::kRead>(f, xy, r, c, true);
+        if constexpr (!kColors) {
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) col[q][ch] = sh.attr[ch];
+        }
+        if constexpr (kDepth) attr_z = sh.attr[L::kZ];
+      }
+    }
+    // antialiased foreground mask: color + ((h_a + h_b) + v_a) + v_b
+    const float h_a =
+        silhouette(f, r, c, r, c + 1, id, tile_ids[ly][lx + 1]) ? dh[ly - 1][lx][0] : 0.0f;
+    const float h_b = silhouette(f, r, c - 1, r, c, tile_ids[ly][lx - 1], id)
+                          ? dh[ly - 1][lx - 1][1] : 0.0f;
+    const float v_a =
+        silhouette(f, r, c, r + 1, c, id, tile_ids[ly + 1][lx]) ? dv[ly][lx - 1][0] : 0.0f;
+    const float v_b = silhouette(f, r - 1, c, r, c, tile_ids[ly - 1][lx], id)
+                          ? dv[ly - 1][lx - 1][1] : 0.0f;
+    const float aa = __fadd_rn(fg ? 1.0f : 0.0f,
+                               __fadd_rn(__fadd_rn(__fadd_rn(h_a, h_b), v_a), v_b));
+    float m_term = 0.0f, r_term = 0.0f;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      m_term = __fadd_rn(m_term, fabsf(__fsub_rn(aa, seg[q][ch])));
+      r_term = __fadd_rn(r_term,
+                         __fmul_rn(fabsf(__fsub_rn(col[q][ch], rgb[q][ch])), seg[q][ch]));
+    }
+    sums[0] = __fadd_rn(sums[0], m_term);
+    sums[1] = __fadd_rn(sums[1], r_term);
+    if constexpr (kDepth)
+      sums[kSums - 1] = __fadd_rn(sums[kSums - 1],
+                                  __fmul_rn(fabsf(__fadd_rn(attr_z, dpl[q])), seg[q][0]));
+  }
+  block_sum(sums, warp_sums);
+  if (threadIdx.x == 0) {
+    float* out = partials + ((size_t)b * gridDim.x + blockIdx.x) * kSums;
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) out[k] = sums[k];
+  }
+}
+
+// sums[b, :]: hypothesis b's tile partials (one block), thread t adding
+// tiles t, t + 256, ... in order, then block_sum; the depth sum is 0
+// without the depth lane
+template <int kSums>
+__global__ void loss_reduce_kernel(const float* __restrict__ partials, int ntiles,
+                                   float* __restrict__ sums) {
+  __shared__ float warp_sums[kSums][32];
+  const int b = blockIdx.x;
+  const float* pp = partials + (size_t)b * ntiles * kSums;
+  float v[kSums];
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) v[k] = 0.0f;
+  for (int i = threadIdx.x; i < ntiles; i += blockDim.x) {
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) v[k] = __fadd_rn(v[k], pp[(size_t)kSums * i + k]);
+  }
+  block_sum(v, warp_sums);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) sums[b * 3 + k] = k < kSums ? v[k] : 0.0f;
+  }
 }
 
 // K6 pass A: g = d(loss)/d(aa) = dm * lm * sum_c sgn(aa - seg_c)
@@ -450,7 +615,7 @@ __global__ void loss_bwd_rows_kernel(const float* __restrict__ rows,
   }
   if constexpr (L::kRead > 0) {
     Shade<kN> sh;  // read only at a real foreground pixel
-    if (fg && valid) sh = shade_at<L::kFirst, kN>(f, r, c, true);
+    if (fg && valid) sh = shade_at<L::kFirst, kN>(f, f, r, c, true);
     float h[kN];  // the cotangent of each attribute channel read
     if constexpr (kDepth) {
       // d|attr_z + dplane| * seg0: the same cotangent reaches dplane and,
@@ -561,12 +726,12 @@ int loss_fwd_launch(const float* rows, const int* ids, const float* gt6,
                     int wc, int oy, int ox, int fh, int fw, float* partials,
                     float* sums, cudaStream_t st) {
   constexpr int kSums = kDepth ? 3 : 2;
-  const int nblk = (hc * wc + kBlock - 1) / kBlock;
-  loss_fwd_kernel<kDepth, kColors><<<dim3(nblk, B), kBlock, 0, st>>>(
+  const int ntiles = ((hc + kTileH - 1) / kTileH) * ((wc + kTileW - 1) / kTileW);
+  loss_fwd_kernel<kDepth, kColors><<<dim3(ntiles, B), kTileH * kTileW / kPx, 0, st>>>(
       rows, ids, gt6, dplane, colors, hc, wc, oy, ox, fh, fw, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  loss_reduce_kernel<kSums><<<(B + 31) / 32, 32, 0, st>>>(partials, B, nblk, sums);
+  loss_reduce_kernel<kSums><<<B, kBlock, 0, st>>>(partials, ntiles, sums);
   return (int)cudaGetLastError();
 }
 

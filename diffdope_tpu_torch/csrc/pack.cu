@@ -27,8 +27,26 @@
 // launch adds the partials of each hypothesis in chunk order.  No atomics:
 // the result is deterministic.  The adjoint is the reference's, written out
 // (pack_kernel.py:225-308).  Bound: the d_packed read of the 16 + 3*n_ch
-// lanes that carry a gradient, 100 bytes per (b, slot) at n_ch = 3.
-//
+// lanes that carry a gradient, 100 bytes per (b, slot) at n_ch = 3, at the
+// slots whose degenerate flag is clear.  What the design does about it:
+// - The slot body is instantiated per n_ch and fully unrolled, so a
+//   thread's 25 cotangent loads and 19 table loads of a slot go out
+//   together; a loop over a run-time n_ch, a load and a dependent add an
+//   iteration, had chained ~9 L2 round trips per slot.
+// - A degenerate slot (mesh padding, a sentinel) has keep = 0, so each of
+//   its terms is +-0 for any finite cotangent, and adding +-0 leaves a sum
+//   that starts at +0 unchanged: the kernel skips such slots, their
+//   cotangent reads and their adjoint, per thread, and a warp of them
+//   (the uniform table's padding) costs one load of the flags.
+// - The sums keep their order, so the result is the previous kernel's bit
+//   for bit.  A redesign that staged a chunk's rows once for many
+//   hypotheses (chunks of 768, other trees) ran as fast at the bench shapes
+//   but changed the sums' rounding, and with it the default
+//   configuration's trajectories (PERF.md §6).
+// - 2 blocks of 256 threads an SM: the unrolled slot body takes ~120
+//   registers; capped at 85 (3 blocks) it spilled and ran 0.170 against
+//   0.107 ms at the bench shapes.
+
 // Numeric contract (build with -fmad=false, no fast math): K1 evaluates every
 // expression in planar.pack_binned's order, each product and sum rounded
 // (m0*p0 + m1*p1 + m2*p2 + m3, left to right; the rotated z adds the zero
@@ -44,7 +62,8 @@ constexpr int kLanes = 32;
 constexpr int kMvpm = 20;
 constexpr int kOut = 19;         // d_mvp (16, row-major) + d_mtx row 2 (3)
 constexpr int kThreads = 256;
-constexpr int kChunk = 2048;     // slots per K2 block
+constexpr int kChunk = 2048;        // slots per K2 block
+constexpr int kBwdBlocksPerSm = 2;  // 128 registers a thread at most: no spill
 constexpr float kEpsW = 1e-9f;   // planar._axis_bounds_ndc eps
 constexpr float kOpen = 4.0f;    // planar._Y_OPEN
 
@@ -180,42 +199,43 @@ __global__ void pack_fwd_kernel(const float* __restrict__ mvpm,
   put(31, hi);
 }
 
-// One slot's 19 contributions to d_mvp / d_mtx row 2 (pack_kernel.py:
-// _bwd_pack_kernel, per column), added into acc.
-__device__ void pack_bwd_slot(const float* M, const float* tab, const float* gb,
-                              int n, int n_ch, int s, float acc[kOut]) {
+// One live slot's 19 contributions to d_mvp / d_mtx row 2 (pack_kernel.py:
+// _bwd_pack_kernel, per column), added into acc.  The slot's degenerate
+// flag is clear, so its keep factor is 1 and every product with it is
+// dropped (exactly: x * 1 = x); the arithmetic is otherwise the
+// reference's adjoint in its order.
+template <int kNCh>
+__device__ __forceinline__ void pack_bwd_slot(const float* M, const float* tab,
+                                              const float* gb, int n, int s,
+                                              float acc[kOut]) {
   Corners cr;
   cr.load(tab, n, s);
   cr.transform(M);
-  const float keep = 1.0f - tab[(size_t)(10 + 3 * n_ch) * n + s];
   auto g = [&](int lane) { return gb[(size_t)lane * n + s]; };
+  auto attr = [&](int k, int ch) { return tab[(size_t)(9 + k * kNCh + ch) * n + s]; };
 
-  float cr_raw[3][3], cm[3][3];
-  cr.cross(1, 2, cr_raw[0]);
-  cr.cross(2, 0, cr_raw[1]);
-  cr.cross(0, 1, cr_raw[2]);
-#pragma unroll
-  for (int m = 0; m < 3; ++m)
-#pragma unroll
-    for (int i = 0; i < 3; ++i) cm[m][i] = cr_raw[m][i] * keep;
+  float cm[3][3];
+  cr.cross(1, 2, cm[0]);
+  cr.cross(2, 0, cm[1]);
+  cr.cross(0, 1, cm[2]);
 
-  const int zr_base = 16 + 3 * n_ch;
+  constexpr int zr_base = 16 + 3 * kNCh;
   float g_zc[3], g_zr[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     g_zc[i] = g(9 + i);
     g_zr[i] = g(zr_base + i);
   }
-  // adjoints of the masked cross planes: direct lanes, zc, attrs, zrot
-  float dC[3][3];
+  // adjoints of the cross planes: direct lanes, zc, attrs, zrot
+  float dcr[3][3];
 #pragma unroll
   for (int m = 0; m < 3; ++m)
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       float d = g(3 * m + i) + cr.z[m] * g_zc[i] + cr.zr[m] * g_zr[i];
-      for (int ch = 0; ch < n_ch; ++ch)
-        d = d + tab[(size_t)(9 + m * n_ch + ch) * n + s] * g(16 + 3 * ch + i);
-      dC[m][i] = d;
+#pragma unroll
+      for (int ch = 0; ch < kNCh; ++ch) d = d + attr(m, ch) * g(16 + 3 * ch + i);
+      dcr[m][i] = d;
     }
   float d_z[3], d_zr[3];
 #pragma unroll
@@ -223,16 +243,11 @@ __device__ void pack_bwd_slot(const float* M, const float* tab, const float* gb,
     d_z[m] = cm[m][0] * g_zc[0] + cm[m][1] * g_zc[1] + cm[m][2] * g_zc[2];
     d_zr[m] = cm[m][0] * g_zr[0] + cm[m][1] * g_zr[1] + cm[m][2] * g_zr[2];
   }
-  // det = keep * (c0r . (x0, y0, w0))
-  const float g_det = g(12) * keep;
-  float d_x[3] = {cr_raw[0][0] * g_det, 0.0f, 0.0f};
-  float d_y[3] = {cr_raw[0][1] * g_det, 0.0f, 0.0f};
-  float d_w[3] = {cr_raw[0][2] * g_det, 0.0f, 0.0f};
-  float dcr[3][3];
-#pragma unroll
-  for (int m = 0; m < 3; ++m)
-#pragma unroll
-    for (int i = 0; i < 3; ++i) dcr[m][i] = keep * dC[m][i];
+  // det = c0 . (x0, y0, w0)
+  const float g_det = g(12);
+  float d_x[3] = {cm[0][0] * g_det, 0.0f, 0.0f};
+  float d_y[3] = {cm[0][1] * g_det, 0.0f, 0.0f};
+  float d_w[3] = {cm[0][2] * g_det, 0.0f, 0.0f};
   dcr[0][0] = dcr[0][0] + cr.x[0] * g_det;
   dcr[0][1] = dcr[0][1] + cr.y[0] * g_det;
   dcr[0][2] = dcr[0][2] + cr.w[0] * g_det;
@@ -275,10 +290,18 @@ __device__ void pack_bwd_slot(const float* M, const float* tab, const float* gb,
         d_zr[0] * cr.p[0][c] + d_zr[1] * cr.p[1][c] + d_zr[2] * cr.p[2][c];
 }
 
-__global__ void pack_bwd_partial_kernel(const float* __restrict__ mvpm,
-                                        const float* __restrict__ tab,
-                                        const float* __restrict__ g, int n,
-                                        int n_ch, float* __restrict__ partial) {
+// K2's partial sums: one block per (chunk, hypothesis), thread t adding
+// its live slots t, t + 256, ... of the chunk in order, then a fixed-order
+// tree (warp shuffles, then the warps in order).  A degenerate slot adds
+// only +-0 terms, so skipping it leaves every sum bit for bit as it was:
+// the sums are the previous kernel's, in its order (the trajectories of a
+// refinement follow the rounding of these sums: see PERF.md).
+template <int kNCh>
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
+    pack_bwd_partial_kernel(const float* __restrict__ mvpm,
+                            const float* __restrict__ tab,
+                            const float* __restrict__ g, int n,
+                            float* __restrict__ partial) {
   __shared__ float M[kMvpm];
   __shared__ float warp_sums[kThreads / 32][kOut];
   const int b = blockIdx.y;
@@ -290,9 +313,10 @@ __global__ void pack_bwd_partial_kernel(const float* __restrict__ mvpm,
 #pragma unroll
   for (int o = 0; o < kOut; ++o) acc[o] = 0.0f;
   const float* gb = g + (size_t)b * kLanes * n;
+  const float* degen = tab + (size_t)(10 + 3 * kNCh) * n;
   const int end = min(n, (chunk + 1) * kChunk);
   for (int s = chunk * kChunk + threadIdx.x; s < end; s += blockDim.x)
-    pack_bwd_slot(M, tab, gb, n, n_ch, s, acc);
+    if (degen[s] <= 0.5f) pack_bwd_slot<kNCh>(M, tab, gb, n, s, acc);
 
   // fixed-order tree: within each warp, then the warps in order
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -322,6 +346,18 @@ __global__ void pack_bwd_reduce_kernel(const float* __restrict__ partial,
   out[b * kOut + o] = v;
 }
 
+template <int kNCh>
+int pack_bwd_launch(const float* mvpm, const float* tab, const float* g, int B,
+                    int n, float* partial, float* out, cudaStream_t st) {
+  const int n_chunks = (n + kChunk - 1) / kChunk;
+  pack_bwd_partial_kernel<kNCh><<<dim3(n_chunks, B), kThreads, 0, st>>>(mvpm, tab, g, n,
+                                                                        partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  pack_bwd_reduce_kernel<<<B, 32, 0, st>>>(partial, n_chunks, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int dd_pack_fwd(const float* mvpm, const float* tab,
@@ -337,13 +373,12 @@ extern "C" int dd_pack_fwd(const float* mvpm, const float* tab,
 extern "C" int dd_pack_bwd(const float* mvpm, const float* tab, const float* g,
                            int B, int n, int n_ch, float* partial, float* out,
                            void* stream) {
-  const int n_chunks = (n + kChunk - 1) / kChunk;
-  dim3 grid(n_chunks, B);
-  pack_bwd_partial_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      mvpm, tab, g, n, n_ch, partial);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  pack_bwd_reduce_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(partial, n_chunks,
-                                                             out);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (n_ch) {
+    case 0: return pack_bwd_launch<0>(mvpm, tab, g, B, n, partial, out, st);
+    case 1: return pack_bwd_launch<1>(mvpm, tab, g, B, n, partial, out, st);
+    case 2: return pack_bwd_launch<2>(mvpm, tab, g, B, n, partial, out, st);
+    case 3: return pack_bwd_launch<3>(mvpm, tab, g, B, n, partial, out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

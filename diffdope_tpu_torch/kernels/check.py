@@ -215,34 +215,51 @@ _LOSS_OPS = dict(zw=14, order=1, search=97, pair_bwd=27, shade=24, channel=4,
                  terms=21, depth=3, rgb_bwd=12, depth_bwd=4, channel_bwd=7, edge_bwd=17)
 
 
+def _silhouette(idv: torch.Tensor):
+    """The horizontal and vertical pairs of ``idv`` (B, h, w) with one pixel
+    foreground and the other not, and the foreground pixels in one."""
+    fg = idv > 0
+    h, v = fg[:, :, 1:] != fg[:, :, :-1], fg[:, 1:] != fg[:, :-1]
+    edge = torch.zeros_like(fg)
+    edge[:, :, 1:] |= h
+    edge[:, :, :-1] |= h
+    edge[:, 1:] |= v
+    edge[:, :-1] |= v
+    return int(h.sum()) + int(v.sum()), int((edge & fg).sum())
+
+
 def _loss_ops(ids: torch.Tensor, roi, depth: bool, colors: bool) -> Tuple[int, int]:
     """(K5, K6) FP32 operations at this call's ids, from the lanes' own
-    bodies: the pairs each pixel evaluates (the crossing search only where
-    the pair is active; K6's backward counted at every active pair, the
-    crossing test that gates it not replayed here) and the attribute
-    channels the launch shades: the rgb + mask lane three colours (and z
-    with depth), the colour lane none (z alone with depth).  Pairs and
-    pixels past the real frame are not counted."""
+    bodies: the pairs evaluated (K5 runs the crossing search once per
+    silhouette pair and needs no depth order; K6 evaluates every pair by
+    both its pixels, the search only where the pair is active, its backward
+    counted at every active pair, the crossing test that gates it not
+    replayed here) and the attribute channels the launch shades: the rgb +
+    mask lane three colours (and z with depth), the colour lane none (z
+    alone with depth); K5 shades foreground pixels only.  Pairs and pixels
+    past the real frame are not counted."""
     c = _LOSS_OPS
     b, hc, wc = ids.shape
     oy, ox, h, w = roi
     idv = ids[:, : min(hc, h - oy), : min(wc, w - ox)]
     n_px, n_fg = idv.numel(), int((idv > 0).sum())
-    pairs_k5 = pairs_fg = active = 0
+    pairs_k6 = pairs_fg = active = 0
     for a, z in ((idv[:, :, :-1], idv[:, :, 1:]), (idv[:, :-1], idv[:, 1:])):
         ends = (a > 0).long() + (z > 0).long()
         act = (a != z) & (ends > 0)
         cost = c["zw"] * ends + c["order"] + c["search"] * act.long()
-        pairs_k5 += 2 * int(cost.sum())  # by both its pixels
+        pairs_k6 += 2 * int(cost.sum())  # by both its pixels
         pairs_fg += int((cost * ends).sum())  # by its foreground pixels
         active += int(act.sum())
     n_read = (0 if colors else 3) + (1 if depth else 0)
     n_sums = 3 if depth else 2  # a pixel's adds in the block's tree
-    aa = n_px * 5 + pairs_k5  # the pixel's colour test and the deltas' sum
-    k5 = aa + n_px * (c["terms"] + (c["depth"] if depth else 0) + n_sums)
+    # the pixel's colour test and the deltas' sum; K5 searches each
+    # silhouette pair once
+    k5 = n_px * 5 + c["search"] * _silhouette(idv)[0]
+    k5 += n_px * (c["terms"] + (c["depth"] if depth else 0) + n_sums)
     if n_read:
-        k5 += n_px * (c["shade"] + c["channel"] * n_read) + n_fg * n_read
-    k6 = aa + n_px * 10  # pass A: aa, the three signs and the product
+        k5 += n_fg * (c["shade"] + (c["channel"] + 1) * n_read)
+    k6 = n_px * 5 + pairs_k6 + n_px * 10  # pass A: aa, the three signs, the product
     k6 += n_px * ((c["rgb_bwd"] if colors else 0) + (c["depth_bwd"] if depth else 0))
     k6 += pairs_fg + active * c["pair_bwd"]
     if n_read:
@@ -251,10 +268,27 @@ def _loss_ops(ids: torch.Tensor, roi, depth: bool, colors: bool) -> Tuple[int, i
     return k5, k6
 
 
-#: lanes of a foreground pixel's rows that K5 and K6 read: the edge planes
-#: and z (0-12), the silhouette bit (14) and the colour planes (16-24),
-#: with the depth lane also the rotated-z plane (25-27); the colour lane
-#: reads no colour plane of the rows (its rotated z: 22-24)
+def k5_row_lanes(ids: torch.Tensor, roi, depth: bool, colors: bool) -> int:
+    """The row lanes K5's function must read at this call's ids: at each
+    real foreground pixel the edge planes (0-8) and the channels its lane
+    shades (3 colours, or none on the colour lane, and z with depth; 3
+    lanes each) where it shades any; at a foreground pixel of a silhouette
+    pair also the det and silhouette lanes (12, 14), and the edge planes
+    where it shades none.  A pair of two foreground pixels adds nothing
+    (``csrc/fused_loss.cu``'s silhouette gate), so it reads nothing."""
+    b, hc, wc = ids.shape
+    oy, ox, h, w = roi
+    idv = ids[:, : min(hc, h - oy), : min(wc, w - ox)]
+    n_read = (0 if colors else 3) + (1 if depth else 0)
+    n_fg, n_edge = int((idv > 0).sum()), _silhouette(idv)[1]
+    shade = 9 + 3 * n_read if n_read else 0
+    return n_fg * shade + n_edge * (2 + (0 if n_read else 9))
+
+
+#: lanes of a foreground pixel's rows that K6 reads: the edge planes and z
+#: (0-12), the silhouette bit (14) and the colour planes (16-24), with the
+#: depth lane also the rotated-z plane (25-27); the colour lane reads no
+#: colour plane of the rows (its rotated z: 22-24)
 ROW_LANES_READ = 13 + 1 + 9
 ROW_LANES_READ_DEPTH = ROW_LANES_READ + 3
 ROW_LANES_READ_COLOR = 13 + 1
@@ -528,8 +562,9 @@ def check_kernels(fn, mtx: torch.Tensor, d_sums: Optional[torch.Tensor] = None,
         sfx = ("_color" if colors is not None else "") + ("_depth" if depth else "")
         # K5/K6 read ids everywhere, the planes (the depth plane, the colour
         # planes) and, where ids > 0 only (a background pixel shades to 0;
-        # a mask pair reads its foreground side), the ROW_LANES_READ* lanes
-        # of rows; K6 writes d_rows, d_dplane and d_colors everywhere
+        # a mask pair reads its foreground side), rows: K5 the lanes of
+        # k5_row_lanes, K6 the ROW_LANES_READ* lanes; K6 writes d_rows,
+        # d_dplane and d_colors everywhere
         lanes = (ROW_LANES_READ if colors is None else ROW_LANES_READ_COLOR) \
             + (3 if depth else 0)
         plane_bytes = (4 * npx if depth else 0) + (12 * npx if colors is not None else 0)
@@ -540,8 +575,9 @@ def check_kernels(fn, mtx: torch.Tensor, d_sums: Optional[torch.Tensor] = None,
         out.append(dict(name="K5_loss_fwd" + sfx, ok=_close(sums, sums_p, 1e-5, 1e-7),
                         max_abs_err=float((sums - sums_p).abs().max()),
                         tolerance="rtol 1e-5, atol 1e-7",
-                        bound=bound(4 * npx + 4 * lanes * fg + 4 * fn.gt6.numel()
-                                    + plane_bytes + 4 * b * 3, ops5)))
+                        bound=bound(4 * npx + 4 * k5_row_lanes(ids, fn.roi, depth,
+                                                               colors is not None)
+                                    + 4 * fn.gt6.numel() + plane_bytes + 4 * b * 3, ops5)))
 
         d_rows, d_dplane, d_colors = loss_bwd(*loss_args, d_sums, dplane, colors)
         d_rows_p, d_dplane_p, d_colors_p = loss_bwd_plain(*loss_args, d_sums, dplane,
@@ -672,6 +708,38 @@ def _pack_term_scale(fn, bn, mtx: torch.Tensor, g: torch.Tensor) -> torch.Tensor
     return torch.stack(cols, dim=1)
 
 
+class PackInputs(NamedTuple):
+    """K1/K2's inputs for a function's table at some poses."""
+
+    bn: object  # the function's binned slots (``fn.binned``)
+    mvpm: torch.Tensor  # (B, 20)
+    tab: torch.Tensor  # (9 + 3 n_ch + 2, n) static rows, ids, degenerate flag
+    sil_b: torch.Tensor  # (B, n)
+    n_ch: int
+
+
+def pack_inputs(fn, mtx: torch.Tensor) -> PackInputs:
+    """The pack kernels' inputs for ``fn``'s table at poses ``mtx``, as
+    ``pack_kernel.pack_binned_auto`` makes them."""
+    t_count = fn.mesh.t_count
+    with torch.no_grad():
+        bn = fn.binned(mtx)
+    tab, n_ch = _static_table(bn.flat, t_count, fn.mesh.static)
+    sil_b = bn.sil[:, bn.flat.clamp(max=t_count - 1)].to(torch.float32).contiguous()
+    return PackInputs(bn, _mvpm(bn.mvp, mtx), tab.contiguous(), sil_b, n_ch)
+
+
+def pack_bwd_bytes(tab: torch.Tensor, b: int, n_ch: int) -> int:
+    """The bytes K2's function must move: the degenerate row of every slot;
+    for each slot whose flag is clear (a degenerate slot's terms are all
+    +-0) its 9 + 3 n_ch static rows and, per hypothesis, the 16 + 3 n_ch
+    cotangent lanes that carry a gradient; the (B, 20) scalars in and the
+    (B, 19) sums out."""
+    live = int((tab[-1] <= 0.5).sum())
+    return 4 * (tab.shape[1] + live * (9 + 3 * n_ch) + b * live * (16 + 3 * n_ch)
+                + b * (20 + 19))
+
+
 def check_pack(fn, mtx: torch.Tensor, reps: int = 0) -> List[Dict[str, object]]:
     """K1 and K2 against ``planar.pack_binned`` and its autograd, on the
     pack inputs of ``fn`` at poses ``mtx``; K2 under a seeded normal
@@ -679,13 +747,8 @@ def check_pack(fn, mtx: torch.Tensor, reps: int = 0) -> List[Dict[str, object]]:
 
     Returns one dict per kernel, as :func:`check_kernels` does."""
     mesh = fn.mesh
-    with torch.no_grad():
-        bn = fn.binned(mtx)
     t_count = mesh.t_count
-    tab, n_ch = _static_table(bn.flat, t_count, mesh.static)
-    tab = tab.contiguous()
-    sil_b = bn.sil[:, bn.flat.clamp(max=t_count - 1)].to(torch.float32).contiguous()
-    mvpm = _mvpm(bn.mvp, mtx)
+    bn, mvpm, tab, sil_b, n_ch = pack_inputs(fn, mtx)
     b, n = mvpm.shape[0], tab.shape[1]
 
     def plain(mvp, mtx_):
@@ -715,17 +778,15 @@ def check_pack(fn, mtx: torch.Tensor, reps: int = 0) -> List[Dict[str, object]]:
     rest = d_mtx.clone()
     rest[:, 2, :3] = 0.0
     scale = _pack_term_scale(fn, bn, mtx, g)
+    live = int((tab[-1] <= 0.5).sum())  # slots whose terms are not all +-0
     ok2 = _close(d, want2, 2e-4, 1e-6, scale) and not bool(rest.any())
     out.append(dict(name="K2_pack_bwd", ok=ok2,
                     max_abs_err=float((d - want2).abs().max()),
                     tolerance="rtol 2e-4, atol 1e-6 + 1e-6 x the hypothesis' "
                               "sum of |terms|",
                     worst=_worst(d, want2, 2e-4, 1e-6, scale),
-                    # K2 reads every table row but the triangle ids, and
-                    # the 16 + 3 n_ch lanes of g that carry a gradient
-                    bound=bound(4 * (mvpm.numel() + (tab.shape[0] - 1) * n
-                                     + b * n * (16 + 3 * n_ch) + d.numel()),
-                                _OPS["K2"](n_ch) * b * n)))
+                    slots=live, table_slots=n,
+                    bound=bound(pack_bwd_bytes(tab, b, n_ch), _OPS["K2"](n_ch) * b * live)))
     if reps:
         with torch.no_grad():
             out[0]["ms"] = _time_ms(lambda: pack_fwd(mvpm, tab, sil_b, n_ch), reps)

@@ -50,7 +50,7 @@ from diffdope_tpu_torch.render.shade import (
 
 #: lanes of the (B, 3) sums: mask, rgb, depth
 MASK_LANE, RGB_LANE, DEPTH_LANE = 0, 1, 2
-_BLOCK = 256  # pixels per K5/K6 thread block (csrc/fused_loss.cu)
+_TILE = (16, 16)  # K5's pixel tile, one thread block (csrc/fused_loss.cu)
 
 
 def n_channels(colors: Optional[torch.Tensor]) -> int:
@@ -167,8 +167,8 @@ def loss_sums(rows, ids, gt6, roi: Tuple[int, int, int, int],
         raise ValueError(f"loss_sums: unsupported device {rows.device}")
     b, _, hc, wc = rows.shape
     oy, ox, fh, fw = roi
-    nblk = -(-(hc * wc) // _BLOCK)
-    partials = torch.empty((b, nblk, 2 if dplane is None else 3), dtype=torch.float32,
+    ntiles = -(-hc // _TILE[0]) * -(-wc // _TILE[1])
+    partials = torch.empty((b, ntiles, 2 if dplane is None else 3), dtype=torch.float32,
                            device=rows.device)
     sums = torch.empty((b, 3), dtype=torch.float32, device=rows.device)
     kernels.launch(

@@ -386,3 +386,114 @@ def test_fused_texture_loss_on_card_matches_cpu(problem, params):
                                atol=1e-7)
     for g, want in zip(out["cuda"][1], out["cpu"][1]):
         np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=2e-4, atol=1e-6)
+
+
+def _pack_fn(n_ch, b, n, seed, all_sentinel=False):
+    """A stand-in for a loss function's pack inputs (``mesh`` and
+    ``binned``, what ``check_pack`` reads) on the random problem of
+    ``test_torch_pack_kernel`` (sentinel slots, degenerate triangles),
+    on the card; with ``all_sentinel`` every slot is a sentinel."""
+    from types import SimpleNamespace
+
+    from test_torch_pack_kernel import _inputs_random
+
+    from diffdope_tpu_torch.render.planar import static_pack_rows
+
+    x = _inputs_random(n_ch, b=b, n=n, seed=seed)
+    if all_sentinel:
+        x["flat"][:] = x["t_count"]
+    dev = torch.device("cuda")
+    pos_c = torch.tensor(x["pos_c"], device=dev)
+    attrs = torch.tensor(x["attrs"], device=dev)
+    degen = torch.tensor(x["degen"], device=dev)
+    mesh = SimpleNamespace(pos_c=pos_c, attrs=attrs, degenerate=degen, t_count=x["t_count"],
+                           static=static_pack_rows(pos_c, attrs, degen))
+    bn = SimpleNamespace(flat=torch.tensor(x["flat"], device=dev),
+                         mvp=torch.tensor(x["mvp"], device=dev),
+                         sil=torch.tensor(x["sil"], device=dev))
+    return SimpleNamespace(mesh=mesh, binned=lambda mtx: bn), torch.tensor(x["mtx"], device=dev)
+
+
+@pytest.mark.parametrize("case", ["random_rgb", "random_uv", "all_sentinel", "scene_uniform",
+                                  "scene_uv"])
+def test_k2_matches_plain_and_repeats_on_card(cuda, params, case):
+    """K2 against its plain twin (rtol 2e-4, atol 1e-6 plus 1e-6 of the
+    hypothesis' sum of |terms|) at n_ch 3 and 2, with B and n no multiple
+    of K2's 2048-slot chunk, on a table of sentinels only, on the test
+    scene's uniform-K and uv tables; two launches bit for bit."""
+    from diffdope_tpu_torch.kernels.check import pack_inputs
+    from diffdope_tpu_torch.render.pack_kernel import _CHUNK, pack_bwd
+
+    if case.startswith("scene"):
+        kw = {"uniform": True} if case == "scene_uniform" else {"texture": True}
+        fn = bench_problem(RES, subdiv=2, batch=B, device=cuda, **kw)["fn"]
+        mtx, _, _ = pose_matrix(params)
+    else:
+        fn, mtx = _pack_fn(2 if case == "random_uv" else 3, 5, 5000, seed=3,
+                           all_sentinel=case == "all_sentinel")
+    row = [r for r in check_pack(fn, mtx) if r["name"] == "K2_pack_bwd"][0]
+    assert row["ok"], row
+    _, mvpm, tab, _, n_ch = pack_inputs(fn, mtx)
+    b, n = mvpm.shape[0], tab.shape[1]
+    if case.startswith(("random", "all")):
+        assert n % _CHUNK and n > 2 * _CHUNK
+    assert row["slots"] == 0 if case == "all_sentinel" else 0 < row["slots"] <= n
+    g = torch.randn((b, 32, n), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    first = pack_bwd(mvpm, tab, g, n_ch)
+    assert torch.equal(first, pack_bwd(mvpm, tab, g, n_ch))
+    if case == "all_sentinel":
+        assert not first.any()
+
+
+def _k5_window(fn, mtx):
+    """(rows, ids, gt6, dplane, colors, roi) of ``fn``'s raster at poses
+    ``mtx``, cut to a window 5 rows and 7 columns short of its frame (no
+    multiple of K5's 16-pixel tile) whose last 3 rows and 5 columns lie
+    past the frame ``roi`` says, with the second hypothesis' foreground
+    removed; a seeded depth plane, the colour planes ``fn`` samples from
+    the rows (foreground-masked) where it samples a texture."""
+    from diffdope_tpu_torch.kernels.check import _binned_spec
+
+    b = mtx.shape[0]
+    hf, wf = fn.frame_hw
+    with torch.no_grad():
+        ids, rows, _ = _binned_spec(fn, mtx, b * hf * wf).fwd()
+        colors = fn.sample(rows, ids) if getattr(fn, "sample", None) else None
+    hc, wc = hf - 5, wf - 7
+    ids = ids[:, :hc, :wc].contiguous()
+    ids[1] = 0
+    rows = rows[:, :, :hc, :wc].contiguous()
+    gt6 = fn.gt6[:, :hc, :wc].contiguous()
+    gen = torch.Generator(device=mtx.device).manual_seed(5)
+    dplane = torch.randn((b, hc, wc), generator=gen, device=mtx.device)
+    if colors is not None:
+        colors = (colors[:, :, :hc, :wc] * (ids > 0)[:, None]).contiguous()
+    return rows, ids, gt6, dplane, colors, (2, 3, hc - 3 + 2, wc - 5 + 3)
+
+
+@pytest.mark.parametrize("depth", [False, True], ids=["no_depth", "depth"])
+@pytest.mark.parametrize("lane", ["rgb", "color"])
+def test_k5_lanes_match_plain_and_repeat_on_card(cuda, params, lane, depth):
+    """K5 in each of its four lanes on a window cut by the frame (vh < hc,
+    vw < wc) and no multiple of its tile, one hypothesis without
+    foreground: sums within rtol 1e-5, atol 1e-7 of the plain twin, two
+    launches bit for bit, and bit for bit the sums with every foreground id
+    collapsed to 1 (only silhouette pairs add to the mask)."""
+    from diffdope_tpu_torch.render.fused_loss import loss_sums, loss_sums_plain
+
+    fn = bench_problem(RES, subdiv=2, batch=B, device=cuda, texture=lane == "color",
+                       uniform=lane == "rgb")["fn"]
+    mtx, _, _ = pose_matrix(params)
+    rows, ids, gt6, dplane, colors, roi = _k5_window(fn, mtx)
+    hc, wc = ids.shape[1:]
+    assert hc % 16 and wc % 16 and roi[2] - roi[0] < hc and roi[3] - roi[1] < wc
+    assert (ids[0] > 0).any() and not (ids[1] > 0).any()
+    dpl = dplane if depth else None
+    sums = loss_sums(rows, ids, gt6, roi, dpl, colors)
+    want = loss_sums_plain(rows, ids, gt6, roi, dpl, colors)
+    assert want[:, 0].min() > 0 and (want[:, 2].min() > 0 if depth else True)
+    np.testing.assert_allclose(sums.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-7)
+    assert torch.equal(sums, loss_sums(rows, ids, gt6, roi, dpl, colors))
+    one = (ids > 0).to(ids.dtype)
+    assert torch.equal(sums, loss_sums(rows, one, gt6, roi, dpl, colors))

@@ -1,0 +1,351 @@
+"""Hand kernels of several trees of the repo, side by side on the card: per
+tree, ptxas' registers and spills and the SASS loops of each kernel, and
+its time at the bench shapes, with every tree's outputs held to the first
+tree's.
+
+    python tools/port_kernel_ab.py ROOT [ROOT ...] [--kernels K2,K5,K3]
+                                   [--sass-dir DIR] [--out FILE] [--reps N]
+
+Each ROOT is a checkout of the repo (this one, or the parent unpacked with
+``git archive`` into the gitignored ``chip_proof/``), or any directory
+that holds ``diffdope_tpu_torch/csrc/`` (a variant of a kernel).  For each kernel
+asked for, ROOT's source (``pack.cu`` for K2, ``fused_loss.cu`` for K5,
+``raster.cu`` for K3/K7's forward) is built with the port's nvcc flags and
+``-Xptxas=-v`` into a library of its own.  ``cuobjdump -sass`` of it gives,
+for each of the kernel's functions, every loop (a backward branch) with
+its instruction count and the count of each opcode class; with
+``--sass-dir`` the whole SASS goes there too.  The C interfaces are the
+same in every tree, so each tree's entry point runs on the same inputs,
+made in this checkout at the bench shapes (``bench_problem()``: B=64,
+400x400, icosphere(5), 64 distinct poses):
+
+- K2 (``dd_pack_bwd``) on the compact table, the uniform-K table and the
+  textured problem's uv table (n_ch 2), under a seeded normal cotangent;
+  printed with the table's slots whose degenerate flag is clear, and the
+  32-slot groups that are all degenerate;
+- K5 (``dd_loss_fwd``) in its four lanes: rgb + mask on the compact crop,
+  with depth, the colour lane on the textured problem's full frame, and
+  the colour lane with depth;
+- K3 and K7's forward (``dd_raster_fwd``, ``dd_raster_uniform_fwd``) on
+  the compact and the uniform-K table.
+
+Each case is timed by CUDA events over ``--reps`` launches after a warm-up,
+in turns A B ... B A, twice.  K2's sums are held to the first tree's at
+rtol 2e-4, atol 1e-6 plus 1e-6 of the hypothesis' sum of |terms|, K5's at
+rtol 1e-5, atol 1e-7, K3/K7's outputs exactly, and each tree's output is
+said to equal the first's bit for bit or not; each tree's output is also
+compared with its own second launch, bit for bit.  Prints one JSON line
+per tree and case, with the card's name and power limit; with ``--out``
+the same lines, with each tree's ptxas lines and SASS loops, go to FILE.
+"""
+
+import argparse
+import collections
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(HERE))
+
+#: per kernel: its source and the substrings naming its device functions
+SOURCES = {"K2": ("pack.cu", ("pack_bwd",)),
+           "K5": ("fused_loss.cu", ("loss_fwd", "loss_reduce")),
+           "K3": ("raster.cu", ("raster_fwd_kernel",))}
+#: opcode classes, by the SASS mnemonic's first word
+CLASSES = {
+    "shared loads": ("LDS",), "global loads": ("LDG",), "stores": ("STG", "STS"),
+    "FP32": ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FRND", "MUFU", "FCHK"),
+    "integer": ("IADD3", "IMAD", "LOP3", "ISETP", "SHF", "LEA", "SEL", "IMNMX", "PRMT",
+                "IABS", "I2F", "F2I", "MOV", "S2R", "SHL", "SHR"),
+    "shuffles": ("SHFL",),
+    "branches": ("BRA", "BSSY", "BSYNC", "EXIT", "CALL", "RET", "BAR", "WARPSYNC",
+                 "VOTE"),
+}
+
+
+def build(root: Path, kernel: str, out_dir: Path, tag: str):
+    """(library, {function: ptxas' registers / spill lines}) of ROOT's source
+    of ``kernel``, built with the port's flags and -Xptxas=-v."""
+    from diffdope_tpu_torch import kernels
+
+    source, names = SOURCES[kernel]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / f"{Path(source).stem}_{tag}.so"
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas=-v", "-o", str(lib),
+           str(root / "diffdope_tpu_torch/csrc" / source)]
+    log = subprocess.run(cmd, check=True, capture_output=True, text=True).stderr
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        elif name and any(k in name for k in names) and ("Used" in line or "spill" in line):
+            usage[name] = (usage.get(name, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    return lib, usage
+
+
+def sass_loops(lib: Path, names, sass_dir=None):
+    """{function: [loop, ...]} for the functions whose name holds one of
+    ``names``, each loop a dict of its instruction count and its opcode
+    classes, innermost (fewest instructions) first."""
+    from diffdope_tpu_torch import kernels
+
+    cuobjdump = str(Path(kernels._nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    if sass_dir:
+        Path(sass_dir).mkdir(parents=True, exist_ok=True)
+        (Path(sass_dir) / f"{lib.stem}.sass").write_text(text)
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if not any(k in name for k in names):
+            continue
+        inst = []  # (address, opcode, branch target)
+        for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)([^;]*);",
+                             part):
+            target = re.search(r"0x([0-9a-f]+)", m.group(4)) if m.group(3).startswith(
+                "BRA") else None
+            inst.append((int(m.group(1), 16), m.group(3),
+                         int(target.group(1), 16) if target else None))
+        loops = []
+        for addr, op, target in inst:
+            if target is not None and target < addr:
+                body = [o for a, o, _ in inst if target <= a <= addr]
+                count = collections.Counter(
+                    next((c for c, ops in CLASSES.items() if o.split(".")[0] in ops),
+                         "other") for o in body)
+                loops.append(dict(start=hex(target), end=hex(addr),
+                                  instructions=len(body), classes=dict(count)))
+        out[name] = dict(instructions=len(inst),
+                         loops=sorted(loops, key=lambda lp: lp["instructions"])[:4])
+    return out
+
+
+def time_ms(f, reps: int) -> float:
+    import torch
+
+    f()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        f()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+P, I = ctypes.c_void_p, ctypes.c_int
+
+
+def k2_cases(problems, mtx):
+    """{case: (make_call(lib) -> call() -> output, compare(a, b), info)} for
+    K2 on each problem's table."""
+    import torch
+
+    from diffdope_tpu_torch.kernels.check import _pack_term_scale, _close, pack_inputs
+
+    cases = {}
+    for case, fn in problems.items():
+        bn, mvpm, tab, _, n_ch = pack_inputs(fn, mtx)
+        b, n = mvpm.shape[0], tab.shape[1]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        g = torch.randn((b, 32, n), generator=gen, device="cuda")
+        scale = _pack_term_scale(fn, bn, mtx, g)
+        live = tab[-1] <= 0.5
+        groups = torch.nn.functional.pad(live, (0, -n % 32)).reshape(-1, 32)
+        # scratch for chunks as small as 32 slots: every tree's fits
+        partial = torch.empty(b * -(-n // 32) * 19, device="cuda")
+
+        def make(lib, mvpm=mvpm, tab=tab, g=g, n_ch=n_ch, b=b, n=n, partial=partial):
+            f = lib.dd_pack_bwd
+            f.argtypes = [P] * 3 + [I] * 3 + [P] * 3
+            out = torch.empty((b, 19), device="cuda")
+
+            def call():
+                err = f(mvpm.data_ptr(), tab.data_ptr(), g.data_ptr(), b, n, n_ch,
+                        partial.data_ptr(), out.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+                return (out,)
+            return call
+
+        cases[f"K2 {case}"] = (
+            make, lambda a, c, scale=scale: _close(c[0], a[0], 2e-4, 1e-6, scale),
+            dict(slots=n, live_slots=int(live.sum()),
+                 all_degenerate_groups=int((~groups.any(dim=1)).sum()),
+                 groups=groups.shape[0]))
+    return cases
+
+
+def k5_cases(problems, mtx):
+    """K5's four lanes on the rows and ids of each problem's raster."""
+    import torch
+
+    from diffdope_tpu_torch.kernels.check import _binned_spec, _close
+
+    cases = {}
+    for case, fn in problems.items():
+        b = mtx.shape[0]
+        hc, wc = fn.frame_hw
+        with torch.no_grad():
+            ids, rows, _ = _binned_spec(fn, mtx, b * hc * wc).fwd()
+            dplane = fn.dplane(mtx)
+            colors = fn.sample(rows, ids) if getattr(fn, "sample", None) else None
+        oy, ox, fh, fw = fn.roi
+        # scratch for blocks as small as 64 pixels: every tree's fits
+        partials = torch.empty(b * (-(-hc // 8) * -(-wc // 8)) * 3, device="cuda")
+
+        def make(lib, rows=rows, ids=ids, gt6=fn.gt6, dplane=dplane, colors=colors,
+                 b=b, hc=hc, wc=wc, roi=(oy, ox, fh, fw), partials=partials):
+            f = lib.dd_loss_fwd
+            f.argtypes = [P] * 5 + [I] * 7 + [P] * 3
+            sums = torch.empty((b, 3), device="cuda")
+
+            def call():
+                err = f(rows.data_ptr(), ids.data_ptr(), gt6.data_ptr(),
+                        None if dplane is None else dplane.data_ptr(),
+                        None if colors is None else colors.data_ptr(), b, hc, wc, *roi,
+                        partials.data_ptr(), sums.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+                return (sums,)
+            return call
+
+        fg = ids > 0
+        cases[f"K5 {case}"] = (make, lambda a, c: _close(c[0], a[0], 1e-5, 1e-7),
+                               dict(frame=[hc, wc], fg_pixels=int(fg.sum()),
+                                    silhouette_pairs=int(
+                                        (fg[:, :, 1:] != fg[:, :, :-1]).sum()
+                                        + (fg[:, 1:] != fg[:, :-1]).sum())))
+    return cases
+
+
+def k3_cases(problems, mtx):
+    """K3 on the compact table and K7's forward on the uniform-K table."""
+    import torch
+
+    from diffdope_tpu_torch.render.pipeline import K_CHUNK, TILE_HW
+
+    cases = {}
+    b = mtx.shape[0]
+    (th, tw) = TILE_HW
+    for case, fn in problems.items():
+        with torch.no_grad():
+            tab = fn.table(mtx)
+        (hc, wc), (oy, ox, fh, fw) = fn.frame_hw, fn.roi
+        uniform = tab.off_c is None
+        h, w = (-(-fh // th) * th, -(-fw // tw) * tw) if uniform else (hc, wc)
+        nty, ntx = h // th, w // tw
+
+        def make(lib, tab=tab, uniform=uniform, h=h, w=w, nty=nty, ntx=ntx,
+                 roi=(oy, ox, fh, fw)):
+            outs = (torch.empty((b, h, w), dtype=torch.int32, device="cuda"),
+                    torch.empty((b, h, w), dtype=torch.int32, device="cuda"),
+                    torch.empty((b, 32, h, w), device="cuda"))
+            if uniform:
+                f = lib.dd_raster_uniform_fwd
+                f.argtypes = [P] * 2 + [I] * 8 + [P] * 4
+                args = (tab.packed.data_ptr(), tab.counts.data_ptr(), b,
+                        tab.packed.shape[2] // (nty * ntx), nty, ntx, th, tw, *roi[2:])
+            else:
+                f = lib.dd_raster_fwd
+                f.argtypes = [P] * 4 + [I] * 11 + [P] * 4
+                args = (tab.packed.data_ptr(), tab.counts.data_ptr(),
+                        tab.off_c.data_ptr(), tab.used.data_ptr(), b,
+                        tab.packed.shape[2], K_CHUNK, nty, ntx, th, tw, *roi)
+
+            def call():
+                err = f(*args, *(o.data_ptr() for o in outs),
+                        torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+                return outs
+            return call
+
+        cases[("K7 " if uniform else "K3 ") + case] = (
+            make, lambda a, c: all(torch.equal(x, y) for x, y in zip(a, c)),
+            dict(slots=tab.packed.shape[2]))
+    return cases
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("roots", nargs="+")
+    parser.add_argument("--kernels", default="K2,K5")
+    parser.add_argument("--sass-dir")
+    parser.add_argument("--out")
+    parser.add_argument("--reps", type=int, default=20)
+    args = parser.parse_args()
+    import torch
+
+    from diffdope_tpu_torch.bench import bench_problem, card, distinct_poses
+    from diffdope_tpu_torch.optimize import pose_matrix
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: this measures the card only", file=sys.stderr)
+        return 2
+    gpu = card()
+    roots = [Path(r).resolve() for r in args.roots]
+    kinds = args.kernels.split(",")
+    base = bench_problem(device="cuda")
+    mtx, _, _ = pose_matrix(distinct_poses(base["params0"], 1e-3))
+    variants = {"compact": base["fn"]}
+
+    def variant(name, **kw):
+        if name not in variants:
+            variants[name] = bench_problem(device="cuda", **kw)["fn"]
+        return variants[name]
+
+    makers = {
+        "K2": lambda: k2_cases({"compact": base["fn"],
+                                "uniform": variant("uniform", uniform=True),
+                                "uv": variant("texture", texture=True)}, mtx),
+        "K5": lambda: k5_cases({"rgb": base["fn"],
+                                "depth": variant("depth", depth=True),
+                                "color": variant("texture", texture=True),
+                                "color_depth": variant("texture_depth", texture=True,
+                                                       depth=True)}, mtx),
+        "K3": lambda: k3_cases({"compact": base["fn"],
+                                "uniform": variant("uniform", uniform=True)}, mtx),
+    }
+    order = list(range(len(roots)))
+    turns = order + order[::-1]
+    out = open(args.out, "w") if args.out else None
+    for kind in kinds:
+        built = [build(r, kind, HERE / "build" / "kernel_ab", f"{kind}_{i}")
+                 for i, r in enumerate(roots)]
+        sass = [sass_loops(lib, SOURCES[kind][1], args.sass_dir) for lib, _ in built]
+        for case, (make, close, info) in makers[kind]().items():
+            calls = [make(ctypes.CDLL(str(lib))) for lib, _ in built]
+            first = [o.clone() for o in calls[0]()]
+            agree, equal, repeats = [], [], []
+            for call in calls:
+                once = [o.clone() for o in call()]
+                agree.append(bool(close(first, once)))
+                equal.append(all(torch.equal(x, y) for x, y in zip(first, once)))
+                repeats.append(all(torch.equal(x, y) for x, y in zip(once, call())))
+            ms = {i: [] for i in order}
+            for _ in range(2):
+                for i in turns:
+                    ms[i].append(time_ms(calls[i], args.reps))
+            for i in order:
+                row = {"tree": str(roots[i]), "case": case, "card": gpu, "ms": ms[i],
+                       "agrees_with_first_tree": agree[i],
+                       "bit_equal_to_first_tree": equal[i],
+                       "repeats_bit_for_bit": repeats[i], **info}
+                print(json.dumps(row), flush=True)
+                if out:
+                    out.write(json.dumps(dict(row, ptxas=built[i][1], sass=sass[i])) + "\n")
+                    out.flush()
+            del calls
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
