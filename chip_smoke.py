@@ -449,9 +449,15 @@ def diffdope_phase(fused: bool, gpu: str, route: str, tpu=None, losses=None,
 
 
 def slots(row) -> str:
-    """The slots a raster check walked, of its table's, for its printed
-    line."""
-    return f", {row['slots']} of {row['table_slots']} slots" if "slots" in row else ""
+    """The slots a raster check walked, of its table's (and those of the
+    compact table's tail, past every tile's chunks), and the library call's
+    time where one was taken, for its printed line."""
+    out = f", {row['slots']} of {row['table_slots']} slots" if "slots" in row else ""
+    if "tail_slots" in row:
+        out += f" ({row['tail_slots']} in the tail)"
+    if row.get("library_ms") is not None:
+        out += f", library {row['library_ms']:.4f} ms"
+    return out
 
 
 def check_launches(route, launches, on, off) -> None:

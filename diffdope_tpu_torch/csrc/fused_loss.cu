@@ -19,7 +19,7 @@
 //   other not, both real), which is exact: on a pair of two foreground
 //   pixels the mask colour is 1 on both sides, so both deltas are +-0, and
 //   x + +-0 = x for every x the sum meets.  The foreground side is then the
-//   one with id > 0, so K5 needs no depth order (zw_at) at all;
+//   one with id > 0, so K5 needs no depth order (the reference's zw) at all;
 // - a block takes a 16 x 16 pixel tile, two pixels a thread, with its ids
 //   and a one-pixel halo and the NDC of its rows and columns in shared
 //   memory; its silhouette pairs are listed there and searched once each,
@@ -33,11 +33,20 @@
 // The pixel terms are the previous kernel's bit for bit; only the order of
 // the sums changed.
 //
-// K6: pass A writes g = dL/d(aa) per pixel (needs aa, i.e. the pixel's four
-// pairs); pass B writes d_rows per pixel as a gather: the rgb term through
-// s and lanes 16-24, plus, for each pair this pixel is the foreground pixel
-// of, the mask term through the pair's lam into that edge line's lanes 0-8.
-// Tie rules are JAX's: d|x|/dx = +1 at 0, maximum/clip split 0.5/0.5.
+// K6: d_rows per pixel as a gather over the pixel's own terms: the rgb term
+// through s and lanes 16-24, plus, for each silhouette pair this pixel is
+// the foreground pixel of, the mask term through the pair's lam into that
+// edge line's lanes 0-8.  Tie rules are JAX's: d|x|/dx = +1 at 0,
+// maximum/clip split 0.5/0.5.  The design (loss_bwd_kernel), as the TPU
+// kernel's one pallas_call with 2-row halos (fused_loss.py:284-343): one
+// launch, a block per 16 x 16 tile with its ids staged with a two-pixel
+// halo, g = dL/d(aa) computed in shared memory at the pixels of the tile
+// and its one-pixel halo that a silhouette pair reads (K5's gate and
+// premise: a pair of two foreground pixels adds +-0 to the mask and to
+// every edge lane), each silhouette pair searched once; two consecutive
+// pixels a thread, so each of the 32 lanes goes out as one vector store.
+// Every output value is bit for bit what a per-pixel evaluation of all four
+// pairs of both pixels gives in the reference's order.
 //
 // The depth lane (kDepth, when the caller passes a dplane = gt depth + t_z
 // per hypothesis): K5 adds |attr_z + dplane| * seg0 per pixel
@@ -70,12 +79,11 @@
 // (DD_DROWS_BF16=1, fused_loss.py:552); the same f32 values are rounded
 // once with __float2bfloat16_rn at the store, halving the d_rows write.
 //
-// Bound on this card: the rows reads (memory bound).  K5 reads, of each
-// foreground pixel, the edge lanes 0-8 and its lane's channels (16-24, and
-// the rotated z with depth), and lanes 12 and 14 at a silhouette pair; K6
-// reads 23 of the 32 lanes (0-12, 14, 16-24) of each foreground pixel, 26
-// with the depth lane, 14 (17 with depth) on the colour lane, and the colour
-// planes.
+// Bound on this card: the bytes (memory bound).  K5 and K6 read the same
+// row lanes: of each foreground pixel the edge lanes 0-8 and its lane's
+// channels (16-24, and the rotated z with depth), and lanes 12 and 14 at a
+// silhouette pair's foreground pixel (kernels/check.py:k5_row_lanes); K6
+// writes all 32 lanes of d_rows at every pixel.
 //
 // Numeric contract (build with -fmad=false, no fast math): every product
 // and sum is rounded as in the reference's f32 expression order.
@@ -83,6 +91,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -140,15 +150,6 @@ __device__ Frame make_frame(const float* rows, const int* ids,
   f.vh = min(hc, fh - oy);
   f.vw = min(wc, fw - ox);
   return f;
-}
-
-__device__ float zw_at(const Frame& f, int r, int c, int id) {
-  if (id <= 0) return 0.0f;
-  const size_t p = (size_t)r * f.wc + c;
-  const float zlin =
-      lin3(f.lane(9, p), f.x(c), f.lane(10, p), f.y(r), f.lane(11, p));
-  const float det = f.lane(12, p);
-  return __fdiv_rn(zlin, det != 0.0f ? det : 1.0f);
 }
 
 // One antialiasing pair (a, b), b right of / below a (shade.py:296-387).
@@ -244,34 +245,6 @@ __device__ Pair search_pair(const Frame& f, const XY& xy, int ra, int ca, int rb
   out.across = across;
   out.seg = seg;
   return out;
-}
-
-__device__ Pair eval_pair(const Frame& f, int ra, int ca, int rb, int cb,
-                          bool horizontal) {
-  const size_t pa = (size_t)ra * f.wc + ca, pb = (size_t)rb * f.wc + cb;
-  const int id_a = f.ids[pa], id_b = f.ids[pb];
-  const float zw_a = zw_at(f, ra, ca, id_a), zw_b = zw_at(f, rb, cb, id_b);
-  const bool fg_is_a = id_a > 0 && (id_b == 0 || zw_a <= zw_b);
-  const bool active = id_a != id_b &&
-                      ((fg_is_a && id_a > 0) || (!fg_is_a && id_b > 0)) &&
-                      f.valid(ra, ca) && f.valid(rb, cb);
-  if (!active) {
-    Pair out;
-    out.fg_is_a = fg_is_a;
-    return out;
-  }
-  return search_pair(f, f, ra, ca, rb, cb, horizontal, fg_is_a, id_a, id_b);
-}
-
-// antialiased foreground mask at (r, c): color + ((h_a + h_b) + v_a) + v_b
-__device__ float aa_at(const Frame& f, int r, int c) {
-  const float color = f.ids[(size_t)r * f.wc + c] > 0 ? 1.0f : 0.0f;
-  const float h_a = c + 1 < f.wc ? eval_pair(f, r, c, r, c + 1, true).delta_a : 0.0f;
-  const float h_b = c >= 1 ? eval_pair(f, r, c - 1, r, c, true).delta_b : 0.0f;
-  const float v_a = r + 1 < f.hc ? eval_pair(f, r, c, r + 1, c, false).delta_a : 0.0f;
-  const float v_b = r >= 1 ? eval_pair(f, r - 1, c, r, c, false).delta_b : 0.0f;
-  const float delta = __fadd_rn(__fadd_rn(__fadd_rn(h_a, h_b), v_a), v_b);
-  return __fadd_rn(color, delta);
 }
 
 // The attribute channels a launch reads: the rows hold kNCh colour (3) or
@@ -527,30 +500,6 @@ __global__ void loss_reduce_kernel(const float* __restrict__ partials, int ntile
   }
 }
 
-// K6 pass A: g = d(loss)/d(aa) = dm * lm * sum_c sgn(aa - seg_c)
-__global__ void loss_bwd_g_kernel(const float* __restrict__ rows,
-                                  const int* __restrict__ ids,
-                                  const float* __restrict__ gt6,
-                                  const float* __restrict__ d_sums, int hc,
-                                  int wc, int oy, int ox, int fh, int fw,
-                                  float* __restrict__ g) {
-  const int b = blockIdx.y;
-  const Frame f = make_frame(rows, ids, gt6, b, hc, wc, oy, ox, fh, fw);
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  if (p >= hc * wc) return;
-  const int r = p / wc, c = p % wc;
-  float out = 0.0f;
-  if (f.valid(r, c)) {
-    const float aa = aa_at(f, r, c);
-    float s = 0.0f;
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch)
-      s = __fadd_rn(s, sgn_jax(__fsub_rn(aa, f.gt6[ch * f.plane + p])));
-    out = __fmul_rn(d_sums[b * 3 + 0], s);
-  }
-  g[(size_t)b * f.plane + p] = out;
-}
-
 // adds v to lane k (0 <= k < 9) with static register indices
 __device__ __forceinline__ void add_lane(float (&d)[9], int k, float v) {
 #pragma unroll
@@ -559,165 +508,369 @@ __device__ __forceinline__ void add_lane(float (&d)[9], int k, float v) {
 }
 
 // d_rows' element types: f32, or bf16 rounded once to nearest even (the
-// reference's .astype(bfloat16) of the f32 value)
+// reference's .astype(bfloat16) of the f32 value).  Two consecutive pixels'
+// values of one lane go out as one vector store where ``pair`` (the first
+// pixel's index even, the frame's width even, the base aligned), else one
+// store each (the second where ``second``).
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+__device__ __forceinline__ void store2(float* p, float a, float b, bool pair,
+                                       bool second) {
+  if (pair) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+    return;
+  }
+  p[0] = a;
+  if (second) p[1] = b;
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b,
+                                       bool pair, bool second) {
+  if (pair) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+    return;
+  }
+  store(p, a);
+  if (second) store(p + 1, b);
+}
 
-// K6 pass B: d_rows per pixel (a gather over the pixel's own terms), with
-// the depth lane d_dplane per pixel, with the colour lane d_colors; d_rows
-// in TOut (bf16 on the spanning op's rgb + mask lane, else f32), every
-// value computed in f32 and rounded once at the store
-template <bool kDepth, bool kColors, typename TOut = float>
-__global__ void loss_bwd_rows_kernel(const float* __restrict__ rows,
-                                     const int* __restrict__ ids,
-                                     const float* __restrict__ gt6,
-                                     const float* __restrict__ dplane,
-                                     const float* __restrict__ colors,
-                                     const float* __restrict__ d_sums, int hc,
-                                     int wc, int oy, int ox, int fh, int fw,
-                                     const float* __restrict__ g,
-                                     TOut* __restrict__ d_rows,
-                                     float* __restrict__ d_dplane,
-                                     float* __restrict__ d_colors) {
+// K6's tile: the ids are staged with a two-pixel halo (tile_ids[0][0] is
+// pixel (r0 - 2, c0 - 2)); g lives on the region, the tile and its
+// one-pixel halo (gs[0][0] is pixel (r0 - 1, c0 - 1)); the pairs are the
+// region's: horizontal pair (i, j) joins (r0 - 1 + i, c0 - 2 + j) and the
+// pixel to its right, vertical pair (i, j) joins (r0 - 2 + i, c0 - 1 + j)
+// and the pixel below.  A pair's code is its index: the horizontal pairs,
+// then the vertical ones.
+constexpr int kBwdPx = 2;  // K6: consecutive pixels of one tile row a thread
+constexpr int kRegH = kTileH + 2, kRegW = kTileW + 2;
+constexpr int kHPairs = kRegH * (kRegW + 1), kVPairs = (kRegH + 1) * kRegW;
+
+// pair ``code``: whether it is vertical, its (i, j), and its pixels a and b
+// in tile_ids
+__device__ __forceinline__ bool pair_at(int code, int& i, int& j, int& ya, int& xa,
+                                        int& yb, int& xb) {
+  const bool vertical = code >= kHPairs;
+  if (vertical) {
+    code -= kHPairs;
+    i = code / kRegW;
+    j = code % kRegW;
+    ya = i;
+    yb = i + 1;
+    xa = xb = j + 1;
+  } else {
+    i = code / (kRegW + 1);
+    j = code % (kRegW + 1);
+    ya = yb = i + 1;
+    xa = j;
+    xb = j + 1;
+  }
+  return vertical;
+}
+
+// K6: one block per (kTileH x kTileW pixel tile, hypothesis), kBwdPx
+// consecutive pixels of one tile row a thread; g = dL/d(aa) never leaves
+// the block.  (1) The tile's ids with a two-pixel halo and the NDC of its
+// rows and columns are staged in shared memory (the loads that every real
+// pixel needs, and no id, go out first).  (2) The region's silhouette pairs
+// are listed (none, with no barrier, where its ids hold no foreground) and
+// (3) searched once each, one a thread: their deltas and the backward's
+// scalars (lam, cross, denom, m) wait in shared memory.  (4) g at every
+// region pixel on a silhouette pair: aa from its four pairs (the
+// reference's sum order, K5's gate), then dm * sum_c sgn(aa - seg_c).
+// (5) Each pixel's cotangent in the previous kernel's order: the shading
+// backward into the edge lanes, then its pairs right, left, below, above,
+// each a silhouette pair (on a pair of two foreground pixels diff = 0 and
+// every term is +-0, and an edge lane that starts at +0 is never -0 under
+// round to nearest, so x + +-0 = x: skipping them is exact); then the 32
+// lanes of the two pixels, one vector store a lane.  A background pixel
+// reads no rows, and on the rgb lane no ground truth either.
+template <bool kDepth, bool kColors, typename TOut>
+__global__ void __launch_bounds__(kTileH * kTileW / kBwdPx)
+    loss_bwd_kernel(const float* __restrict__ rows, const int* __restrict__ ids,
+                    const float* __restrict__ gt6, const float* __restrict__ dplane,
+                    const float* __restrict__ colors, const float* __restrict__ d_sums,
+                    int hc, int wc, int oy, int ox, int fh, int fw, bool pair_stores,
+                    TOut* __restrict__ d_rows, float* __restrict__ d_dplane,
+                    float* __restrict__ d_colors) {
   using L = Lanes<kDepth, kColors>;
   constexpr int kN = L::kRead > 0 ? L::kRead : 1;  // array extent
+  constexpr int kOut = 9 + 3 * kN;                 // the edge lanes, the channels read
+  __shared__ int tile_ids[kTileH + 4][kTileW + 4];
+  __shared__ float xs[kTileW + 4], ys[kTileH + 4];
+  __shared__ float2 dh[kRegH][kRegW + 1], dv[kRegH + 1][kRegW];  // delta_a, delta_b
+  __shared__ float4 bh[kRegH][kRegW + 1], bv[kRegH + 1][kRegW];  // lam, cross, denom, m
+  __shared__ float gs[kRegH][kRegW];
+  __shared__ unsigned short pairs[kHPairs + kVPairs];
+  __shared__ int n_pairs;
   const int b = blockIdx.y;
   const Frame f = make_frame(rows, ids, gt6, b, hc, wc, oy, ox, fh, fw);
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  if (p >= hc * wc) return;
-  const int r = p / wc, c = p % wc;
-  const float* gb = g + (size_t)b * f.plane;
-  float d_edge[9];
-  float d_attr[3 * kN];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) d_edge[k] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 3 * kN; ++k) d_attr[k] = 0.0f;
+  const int ntx = (wc + kTileW - 1) / kTileW;
+  const int r0 = (blockIdx.x / ntx) * kTileH, c0 = (blockIdx.x % ntx) * kTileW;
+  const int ty = threadIdx.x / (kTileW / kBwdPx), tx = threadIdx.x % (kTileW / kBwdPx);
+  const int r = r0 + ty, c = c0 + kBwdPx * tx;  // the thread's first pixel
 
-  const bool fg = f.ids[p] > 0;
-  const bool valid = f.valid(r, c);
-  const float dr = d_sums[b * 3 + 1];
-  if constexpr (kColors) {
-    // d|col_c - rgb_c| * seg_c: the cotangent of the colour planes
+  // the loads that need no id go out with the tile's ids: what every real
+  // pixel needs (the colour lane's planes, the depth lane's seg0 and
+  // dplane); the rgb lane's planes wait for a foreground pixel
+  float seg[kBwdPx][3], rgb[kBwdPx][3], col[kBwdPx][3], dpl[kBwdPx];
+  bool real[kBwdPx], valid[kBwdPx];
+#pragma unroll
+  for (int e = 0; e < kBwdPx; ++e) {
+    const size_t p = (size_t)r * wc + c + e;
+    real[e] = r < hc && c + e < wc;
+    valid[e] = real[e] && f.valid(r, c + e);
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
-      float dc = 0.0f;
-      if (valid) {
-        const float seg = f.gt6[ch * f.plane + p];
-        const float rgb = f.gt6[(3 + ch) * f.plane + p];
-        const float col = colors[((size_t)b * 3 + ch) * f.plane + p];
-        dc = __fmul_rn(__fmul_rn(dr, seg), sgn_jax(__fsub_rn(col, rgb)));
-      }
-      d_colors[((size_t)b * 3 + ch) * f.plane + p] = dc;
+      const bool now = valid[e] && (kColors || (kDepth && ch == 0));
+      seg[e][ch] = now ? f.gt6[ch * f.plane + p] : 0.0f;
+      rgb[e][ch] = kColors && valid[e] ? f.gt6[(3 + ch) * f.plane + p] : 0.0f;
+      col[e][ch] = kColors && valid[e] ? colors[((size_t)b * 3 + ch) * f.plane + p] : 0.0f;
     }
+    dpl[e] = kDepth && valid[e] ? dplane[(size_t)b * f.plane + p] : 0.0f;
   }
-  if constexpr (L::kRead > 0) {
-    Shade<kN> sh;  // read only at a real foreground pixel
-    if (fg && valid) sh = shade_at<L::kFirst, kN>(f, f, r, c, true);
-    float h[kN];  // the cotangent of each attribute channel read
-    if constexpr (kDepth) {
-      // d|attr_z + dplane| * seg0: the same cotangent reaches dplane and,
-      // on a foreground pixel, attr_z
-      float dz = 0.0f;
-      if (valid) {
-        const float attr_z = fg ? sh.attr[L::kZ] : 0.0f;
-        const float v = __fadd_rn(attr_z, dplane[(size_t)b * f.plane + p]);
-        dz = __fmul_rn(__fmul_rn(d_sums[b * 3 + 2], f.gt6[p]), sgn_jax(v));
-      }
-      d_dplane[(size_t)b * f.plane + p] = dz;
-      h[L::kZ] = dz;
-    }
-    if (fg && valid) {
-      const float x = f.x(c), y = f.y(r);
-      if constexpr (!kColors) {
-#pragma unroll
-        for (int ch = 0; ch < 3; ++ch) {
-          const float seg = f.gt6[ch * f.plane + p];
-          const float rgb = f.gt6[(3 + ch) * f.plane + p];
-          h[ch] = __fmul_rn(__fmul_rn(dr, seg), sgn_jax(__fsub_rn(sh.attr[ch], rgb)));
-        }
-      }
-      // attr = num / s: d num = h / s, d s = -h * ((num / s) / s) — the
-      // division's derivative in the plain version's (autograd's) rounding;
-      // the terms can cancel, so their order matters too: autograd adds the
-      // channels' d s last channel first
-      float ds = 0.0f;
-#pragma unroll
-      for (int ch = kN - 1; ch >= 0; --ch) {
-        const float dn = __fdiv_rn(h[ch], sh.s_safe);
-        const float ds_c = __fmul_rn(-h[ch], __fdiv_rn(sh.attr[ch], sh.s_safe));
-        ds = ch == kN - 1 ? ds_c : __fadd_rn(ds, ds_c);
-        d_attr[3 * ch + 0] = __fmul_rn(dn, x);
-        d_attr[3 * ch + 1] = __fmul_rn(dn, y);
-        d_attr[3 * ch + 2] = dn;
-      }
-      if (fabsf(sh.s) > kEps) {
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          d_edge[3 * j + 0] = __fadd_rn(d_edge[3 * j + 0], __fmul_rn(ds, x));
-          d_edge[3 * j + 1] = __fadd_rn(d_edge[3 * j + 1], __fmul_rn(ds, y));
-          d_edge[3 * j + 2] = __fadd_rn(d_edge[3 * j + 2], ds);
-        }
+  int any_fg = 0;
+  for (int i = threadIdx.x; i < (kTileH + 4) * (kTileW + 4); i += blockDim.x) {
+    const int rr = r0 - 2 + i / (kTileW + 4), cc = c0 - 2 + i % (kTileW + 4);
+    const int id =
+        rr >= 0 && rr < hc && cc >= 0 && cc < wc ? f.ids[(size_t)rr * wc + cc] : 0;
+    tile_ids[i / (kTileW + 4)][i % (kTileW + 4)] = id;
+    any_fg |= id > 0;
+  }
+  for (int i = threadIdx.x; i < kTileW + 4; i += blockDim.x) xs[i] = f.x(c0 - 2 + i);
+  for (int i = threadIdx.x; i < kTileH + 4; i += blockDim.x) ys[i] = f.y(r0 - 2 + i);
+  if (threadIdx.x == 0) n_pairs = 0;
+  any_fg = __syncthreads_or(any_fg);
+
+  // list the region's silhouette pairs (none without foreground); the
+  // list's order does not matter, each pair has its own place
+  for (int k = threadIdx.x; any_fg && k < kHPairs + kVPairs; k += blockDim.x) {
+    int i, j, ya, xa, yb, xb;
+    pair_at(k, i, j, ya, xa, yb, xb);
+    if (silhouette(f, r0 - 2 + ya, c0 - 2 + xa, r0 - 2 + yb, c0 - 2 + xb,
+                   tile_ids[ya][xa], tile_ids[yb][xb]))
+      pairs[atomicAdd(&n_pairs, 1)] = (unsigned short)k;
+  }
+  if (any_fg) __syncthreads();  // the same for the whole block
+  const TileXY xy{xs, ys, c0 - 1, r0 - 1};  // xs[0] is column c0 - 2
+  const int np = n_pairs;
+  if (np > 0) {  // the same for the whole block
+    for (int k = threadIdx.x; k < np; k += blockDim.x) {
+      int i, j, ya, xa, yb, xb;
+      const bool vertical = pair_at(pairs[k], i, j, ya, xa, yb, xb);
+      const int id_a = tile_ids[ya][xa], id_b = tile_ids[yb][xb];
+      const Pair pr = search_pair(f, xy, r0 - 2 + ya, c0 - 2 + xa, r0 - 2 + yb,
+                                  c0 - 2 + xb, !vertical, id_a > 0, id_a, id_b);
+      const float2 d = make_float2(pr.delta_a, pr.delta_b);
+      const float4 bw = make_float4(pr.lam, pr.cross, pr.denom, __int_as_float(pr.m));
+      if (vertical) {
+        dv[i][j] = d;
+        bv[i][j] = bw;
+      } else {
+        dh[i][j] = d;
+        bh[i][j] = bw;
       }
     }
+    __syncthreads();
+    // g = dm * sum_c sgn(aa - seg_c) where a silhouette pair reads it
+    for (int k = threadIdx.x; k < kRegH * kRegW; k += blockDim.x) {
+      const int yy = k / kRegW, xx = k % kRegW;
+      const int rr = r0 - 1 + yy, cc = c0 - 1 + xx;
+      const int id = tile_ids[yy + 1][xx + 1];
+      const bool ha = silhouette(f, rr, cc, rr, cc + 1, id, tile_ids[yy + 1][xx + 2]);
+      const bool hb = silhouette(f, rr, cc - 1, rr, cc, tile_ids[yy + 1][xx], id);
+      const bool va = silhouette(f, rr, cc, rr + 1, cc, id, tile_ids[yy + 2][xx + 1]);
+      const bool vb = silhouette(f, rr - 1, cc, rr, cc, tile_ids[yy][xx + 1], id);
+      if (!(ha || hb || va || vb)) continue;
+      // antialiased foreground mask: color + ((h_a + h_b) + v_a) + v_b
+      const float delta = __fadd_rn(
+          __fadd_rn(__fadd_rn(ha ? dh[yy][xx + 1].x : 0.0f, hb ? dh[yy][xx].y : 0.0f),
+                    va ? dv[yy + 1][xx].x : 0.0f),
+          vb ? dv[yy][xx].y : 0.0f);
+      const float aa = __fadd_rn(id > 0 ? 1.0f : 0.0f, delta);
+      const size_t p = (size_t)rr * wc + cc;
+      float s = 0.0f;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch)
+        s = __fadd_rn(s, sgn_jax(__fsub_rn(aa, f.gt6[ch * f.plane + p])));
+      gs[yy][xx] = __fmul_rn(d_sums[b * 3 + 0], s);
+    }
+    __syncthreads();
   }
 
-  if (fg) {
-    // the four pairs holding this pixel: (self, right), (left, self),
-    // (self, below), (above, self)
+  const float dr = d_sums[b * 3 + 1];
+  float out[kBwdPx][kOut];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const bool horizontal = q < 2;
-      const bool self_is_a = (q % 2) == 0;
-      int ra = r, ca = c, rb = r, cb = c;
-      if (q == 0) { if (c + 1 >= wc) continue; cb = c + 1; }
-      if (q == 1) { if (c < 1) continue; ca = c - 1; }
-      if (q == 2) { if (r + 1 >= hc) continue; rb = r + 1; }
-      if (q == 3) { if (r < 1) continue; ra = r - 1; }
-      const Pair pr = eval_pair(f, ra, ca, rb, cb, horizontal);
-      if (!pr.gate || pr.fg_is_a != self_is_a) continue;
-      const float g_a = gb[(size_t)ra * wc + ca];
-      const float g_b = gb[(size_t)rb * wc + cb];
-      const float g_fg = pr.fg_is_a ? g_a : g_b;
-      const float g_bg = pr.fg_is_a ? g_b : g_a;
-      // delta_bg = max(mu, 0) * diff, delta_fg = -max(-mu, 0) * diff
-      const float m_bg = pr.mu > 0.0f ? 1.0f : (pr.mu == 0.0f ? 0.5f : 0.0f);
-      const float m_fg = pr.mu < 0.0f ? 1.0f : (pr.mu == 0.0f ? 0.5f : 0.0f);
-      const float dmu = __fmul_rn(
-          __fadd_rn(__fmul_rn(g_bg, m_bg), __fmul_rn(g_fg, m_fg)), pr.diff);
-      const float d_lam_c = pr.fg_is_a ? dmu : -dmu;
-      // clip(lam, 0, 1) = minimum(1, maximum(0, lam))
-      const float lo = fmaxf(pr.lam, 0.0f);
-      const float c_lo = pr.lam > 0.0f ? 1.0f : (pr.lam == 0.0f ? 0.5f : 0.0f);
-      const float c_hi = lo < 1.0f ? 1.0f : (lo == 1.0f ? 0.5f : 0.0f);
-      const float d_lam = __fmul_rn(__fmul_rn(d_lam_c, c_lo), c_hi);
-      // lam = (cross - along) / seg, cross = num / denom,
-      // num = -(coef * across + c_m); d denom = -d_cross * (cross / denom)
-      const float d_cross = __fdiv_rn(d_lam, pr.seg);
-      const float d_num = __fdiv_rn(d_cross, pr.denom);
-      const float d_den = __fmul_rn(-d_cross, __fdiv_rn(pr.cross, pr.denom));
-      const int m = pr.m;
-      const int k_den = horizontal ? 3 * m : 3 * m + 1;
-      const int k_num = horizontal ? 3 * m + 1 : 3 * m;
-      add_lane(d_edge, k_den, d_den);
-      add_lane(d_edge, k_num, __fmul_rn(-d_num, pr.across));
-      add_lane(d_edge, 3 * m + 2, -d_num);
+  for (int e = 0; e < kBwdPx; ++e) {
+    float d_edge[9];
+#pragma unroll
+    for (int k = 0; k < kOut; ++k) out[e][k] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) d_edge[k] = 0.0f;
+    if (!real[e]) continue;
+    const int px = c + e;
+    const size_t p = (size_t)r * wc + px;
+    const int yy = ty + 1, xx = kBwdPx * tx + e + 1;  // in the region
+    const int id = tile_ids[yy + 1][xx + 1];
+    const bool fg = id > 0;
+    if constexpr (kColors) {
+      // d|col_c - rgb_c| * seg_c: the cotangent of the colour planes
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        const float dc = valid[e] ? __fmul_rn(__fmul_rn(dr, seg[e][ch]),
+                                              sgn_jax(__fsub_rn(col[e][ch], rgb[e][ch])))
+                                  : 0.0f;
+        d_colors[((size_t)b * 3 + ch) * f.plane + p] = dc;
+      }
     }
+    if constexpr (L::kRead > 0) {
+      Shade<kN> sh;  // read only at a real foreground pixel
+      if (fg && valid[e]) sh = shade_at<L::kFirst, kN>(f, xy, r, px, true);
+      float h[kN];  // the cotangent of each attribute channel read
+      if constexpr (kDepth) {
+        // d|attr_z + dplane| * seg0: the same cotangent reaches dplane and,
+        // on a foreground pixel, attr_z
+        float dz = 0.0f;
+        if (valid[e]) {
+          const float attr_z = fg ? sh.attr[L::kZ] : 0.0f;
+          const float v = __fadd_rn(attr_z, dpl[e]);
+          dz = __fmul_rn(__fmul_rn(d_sums[b * 3 + 2], seg[e][0]), sgn_jax(v));
+        }
+        d_dplane[(size_t)b * f.plane + p] = dz;
+        h[L::kZ] = dz;
+      }
+      if (fg && valid[e]) {
+        const float x = xy.x(px), y = xy.y(r);
+        if constexpr (!kColors) {
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) {
+            const float sg = f.gt6[ch * f.plane + p], rg = f.gt6[(3 + ch) * f.plane + p];
+            h[ch] = __fmul_rn(__fmul_rn(dr, sg), sgn_jax(__fsub_rn(sh.attr[ch], rg)));
+          }
+        }
+        // attr = num / s: d num = h / s, d s = -h * ((num / s) / s) — the
+        // division's derivative in the plain version's (autograd's)
+        // rounding; the terms can cancel, so their order matters too:
+        // autograd adds the channels' d s last channel first
+        float ds = 0.0f;
+#pragma unroll
+        for (int ch = kN - 1; ch >= 0; --ch) {
+          const float dn = __fdiv_rn(h[ch], sh.s_safe);
+          const float ds_c = __fmul_rn(-h[ch], __fdiv_rn(sh.attr[ch], sh.s_safe));
+          ds = ch == kN - 1 ? ds_c : __fadd_rn(ds, ds_c);
+          out[e][9 + 3 * ch + 0] = __fmul_rn(dn, x);
+          out[e][9 + 3 * ch + 1] = __fmul_rn(dn, y);
+          out[e][9 + 3 * ch + 2] = dn;
+        }
+        if (fabsf(sh.s) > kEps) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            d_edge[3 * j + 0] = __fadd_rn(d_edge[3 * j + 0], __fmul_rn(ds, x));
+            d_edge[3 * j + 1] = __fadd_rn(d_edge[3 * j + 1], __fmul_rn(ds, y));
+            d_edge[3 * j + 2] = __fadd_rn(d_edge[3 * j + 2], ds);
+          }
+        }
+      }
+    }
+
+    if (fg) {
+      // the silhouette pairs holding this pixel, each with this pixel as its
+      // foreground side: (self, right), (left, self), (self, below), (above,
+      // self)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool horizontal = q < 2;
+        const bool fg_is_a = (q % 2) == 0;
+        bool sil;
+        float4 bw;
+        float g_a, g_b, along, along_next, across;
+        if (q == 0) {
+          sil = silhouette(f, r, px, r, px + 1, id, tile_ids[yy + 1][xx + 2]);
+          bw = bh[yy][xx + 1];
+          g_a = gs[yy][xx];
+          g_b = gs[yy][xx + 1];
+          along = xy.x(px);
+          along_next = xy.x(px + 1);
+          across = xy.y(r);
+        } else if (q == 1) {
+          sil = silhouette(f, r, px - 1, r, px, tile_ids[yy + 1][xx], id);
+          bw = bh[yy][xx];
+          g_a = gs[yy][xx - 1];
+          g_b = gs[yy][xx];
+          along = xy.x(px - 1);
+          along_next = xy.x(px);
+          across = xy.y(r);
+        } else if (q == 2) {
+          sil = silhouette(f, r, px, r + 1, px, id, tile_ids[yy + 2][xx + 1]);
+          bw = bv[yy + 1][xx];
+          g_a = gs[yy][xx];
+          g_b = gs[yy + 1][xx];
+          along = xy.y(r);
+          along_next = xy.y(r + 1);
+          across = xy.x(px);
+        } else {
+          sil = silhouette(f, r - 1, px, r, px, tile_ids[yy][xx + 1], id);
+          bw = bv[yy][xx];
+          g_a = gs[yy - 1][xx];
+          g_b = gs[yy][xx];
+          along = xy.y(r - 1);
+          along_next = xy.y(r);
+          across = xy.x(px);
+        }
+        if (!sil) continue;
+        const int m = __float_as_int(bw.w);
+        if (m < 0) continue;  // no valid crossing: the pair is gated off
+        const float lam = bw.x, cross = bw.y, denom = bw.z;
+        const float seg_len = __fsub_rn(along_next, along);
+        const float lam_c = fminf(fmaxf(lam, 0.0f), 1.0f);
+        const float mu = fg_is_a ? __fsub_rn(lam_c, 0.5f) : __fsub_rn(0.5f, lam_c);
+        const float diff = 1.0f;  // c_fg - c_bg on a silhouette pair
+        const float g_fg = fg_is_a ? g_a : g_b;
+        const float g_bg = fg_is_a ? g_b : g_a;
+        // delta_bg = max(mu, 0) * diff, delta_fg = -max(-mu, 0) * diff
+        const float m_bg = mu > 0.0f ? 1.0f : (mu == 0.0f ? 0.5f : 0.0f);
+        const float m_fg = mu < 0.0f ? 1.0f : (mu == 0.0f ? 0.5f : 0.0f);
+        const float dmu =
+            __fmul_rn(__fadd_rn(__fmul_rn(g_bg, m_bg), __fmul_rn(g_fg, m_fg)), diff);
+        const float d_lam_c = fg_is_a ? dmu : -dmu;
+        // clip(lam, 0, 1) = minimum(1, maximum(0, lam))
+        const float lo = fmaxf(lam, 0.0f);
+        const float c_lo = lam > 0.0f ? 1.0f : (lam == 0.0f ? 0.5f : 0.0f);
+        const float c_hi = lo < 1.0f ? 1.0f : (lo == 1.0f ? 0.5f : 0.0f);
+        const float d_lam = __fmul_rn(__fmul_rn(d_lam_c, c_lo), c_hi);
+        // lam = (cross - along) / seg, cross = num / denom,
+        // num = -(coef * across + c_m); d denom = -d_cross * (cross / denom)
+        const float d_cross = __fdiv_rn(d_lam, seg_len);
+        const float d_num = __fdiv_rn(d_cross, denom);
+        const float d_den = __fmul_rn(-d_cross, __fdiv_rn(cross, denom));
+        const int k_den = horizontal ? 3 * m : 3 * m + 1;
+        const int k_num = horizontal ? 3 * m + 1 : 3 * m;
+        add_lane(d_edge, k_den, d_den);
+        add_lane(d_edge, k_num, __fmul_rn(-d_num, across));
+        add_lane(d_edge, 3 * m + 2, -d_num);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 9; ++k) out[e][k] = d_edge[k];
   }
 
   // lanes 16 + 3 kFirst on carry the channels read; every other lane is 0
-  constexpr int kLo = 16 + 3 * L::kFirst, kHi = kLo + 3 * L::kRead;
-  TOut* out = d_rows + (size_t)b * kLanes * f.plane + p;
+  if (real[0]) {
+    constexpr int kLo = 16 + 3 * L::kFirst, kHi = kLo + 3 * L::kRead;
+    TOut* o = d_rows + (size_t)b * kLanes * f.plane + (size_t)r * wc + c;
 #pragma unroll
-  for (int k = 0; k < 9; ++k) store(out + k * f.plane, d_edge[k]);
-#pragma unroll
-  for (int k = 9; k < kLo; ++k) store(out + k * f.plane, 0.0f);
-#pragma unroll
-  for (int k = kLo; k < kHi; ++k) store(out + k * f.plane, d_attr[k - kLo]);
-#pragma unroll
-  for (int k = kHi; k < kLanes; ++k) store(out + k * f.plane, 0.0f);
+    for (int k = 0; k < kLanes; ++k) {
+      float v0 = 0.0f, v1 = 0.0f;
+      if (k < 9) {
+        v0 = out[0][k];
+        v1 = out[1][k];
+      } else if (k >= kLo && k < kHi) {
+        v0 = out[0][9 + k - kLo];
+        v1 = out[1][9 + k - kLo];
+      }
+      store2(o + k * f.plane, v0, v1, pair_stores, real[1]);
+    }
+  }
 }
 
 template <bool kDepth, bool kColors>
@@ -739,16 +892,15 @@ template <bool kDepth, bool kColors, typename TOut = float>
 int loss_bwd_launch(const float* rows, const int* ids, const float* gt6,
                     const float* dplane, const float* colors,
                     const float* d_sums, int B, int hc, int wc, int oy, int ox,
-                    int fh, int fw, float* g, TOut* d_rows, float* d_dplane,
+                    int fh, int fw, TOut* d_rows, float* d_dplane,
                     float* d_colors, cudaStream_t st) {
-  const int nblk = (hc * wc + kBlock - 1) / kBlock;
-  loss_bwd_g_kernel<<<dim3(nblk, B), kBlock, 0, st>>>(
-      rows, ids, gt6, d_sums, hc, wc, oy, ox, fh, fw, g);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  loss_bwd_rows_kernel<kDepth, kColors, TOut><<<dim3(nblk, B), kBlock, 0, st>>>(
-      rows, ids, gt6, dplane, colors, d_sums, hc, wc, oy, ox, fh, fw, g, d_rows,
-      d_dplane, d_colors);
+  const int ntiles = ((hc + kTileH - 1) / kTileH) * ((wc + kTileW - 1) / kTileW);
+  const bool pair_stores =
+      wc % 2 == 0 && reinterpret_cast<uintptr_t>(d_rows) % (2 * sizeof(TOut)) == 0;
+  loss_bwd_kernel<kDepth, kColors, TOut>
+      <<<dim3(ntiles, B), kTileH * kTileW / kBwdPx, 0, st>>>(
+          rows, ids, gt6, dplane, colors, d_sums, hc, wc, oy, ox, fh, fw, pair_stores,
+          d_rows, d_dplane, d_colors);
   return (int)cudaGetLastError();
 }
 
@@ -775,7 +927,10 @@ extern "C" int dd_loss_fwd(const float* rows, const int* ids, const float* gt6,
 }
 
 // dplane and d_dplane (B, hc, wc) both null or both set; so colors and
-// d_colors (B, 3, hc, wc)
+// d_colors (B, 3, hc, wc).  g is not read and may be null: the g buffer of
+// the earlier two-launch K6, kept in the interface so that
+// tools/port_kernel_ab.py runs trees before and after on one set of
+// arguments.
 extern "C" int dd_loss_bwd(const float* rows, const int* ids, const float* gt6,
                            const float* dplane, const float* colors,
                            const float* d_sums, int B, int hc, int wc, int oy,
@@ -787,29 +942,30 @@ extern "C" int dd_loss_bwd(const float* rows, const int* ids, const float* gt6,
   cudaStream_t st = (cudaStream_t)stream;
   if (dplane && colors)
     return loss_bwd_launch<true, true>(rows, ids, gt6, dplane, colors, d_sums, B,
-                                       hc, wc, oy, ox, fh, fw, g, d_rows,
+                                       hc, wc, oy, ox, fh, fw, d_rows,
                                        d_dplane, d_colors, st);
   if (dplane)
     return loss_bwd_launch<true, false>(rows, ids, gt6, dplane, nullptr, d_sums,
-                                        B, hc, wc, oy, ox, fh, fw, g, d_rows,
+                                        B, hc, wc, oy, ox, fh, fw, d_rows,
                                         d_dplane, nullptr, st);
   if (colors)
     return loss_bwd_launch<false, true>(rows, ids, gt6, nullptr, colors, d_sums,
-                                        B, hc, wc, oy, ox, fh, fw, g, d_rows,
+                                        B, hc, wc, oy, ox, fh, fw, d_rows,
                                         nullptr, d_colors, st);
   return loss_bwd_launch<false, false>(rows, ids, gt6, nullptr, nullptr, d_sums,
-                                       B, hc, wc, oy, ox, fh, fw, g, d_rows,
+                                       B, hc, wc, oy, ox, fh, fw, d_rows,
                                        nullptr, nullptr, st);
 }
 
 // K6 on the spanning op's rgb + mask lane with bf16 d_rows (the reference's
 // default, DD_DROWS_BF16=1: fused_loss.py:552, raster_loss_compact's
-// d_rows_bf16): the f32 launch's values, each rounded to nearest even
+// d_rows_bf16): the f32 launch's values, each rounded to nearest even; g
+// unused, as in dd_loss_bwd
 extern "C" int dd_loss_bwd_bf16(const float* rows, const int* ids,
                                 const float* gt6, const float* d_sums, int B,
                                 int hc, int wc, int oy, int ox, int fh, int fw,
                                 float* g, __nv_bfloat16* d_rows, void* stream) {
   return loss_bwd_launch<false, false, __nv_bfloat16>(
-      rows, ids, gt6, nullptr, nullptr, d_sums, B, hc, wc, oy, ox, fh, fw, g,
+      rows, ids, gt6, nullptr, nullptr, d_sums, B, hc, wc, oy, ox, fh, fw,
       d_rows, nullptr, nullptr, (cudaStream_t)stream);
 }

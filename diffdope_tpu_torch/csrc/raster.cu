@@ -35,24 +35,37 @@
 // along a row).  The TPU kernel's quad windows and one-hot matmul gather
 // are not carried over: a row gather is a plain indexed load here.
 //
-// K4: one block per (tile, hypothesis).  Every slot belongs to
+// K4: one block per (16 x 16 tile, hypothesis).  Every slot belongs to
 // exactly one tile, and every pixel's winner lies in its own tile, so the
 // block sums the d_rows of the pixels that share a winner in pixel order
-// (the first such pixel's thread does the sum) and writes each won slot
-// once: deterministic, no atomics.  d_bins is zero-filled by the caller.
-// Bound: the d_rows read (32 floats per foreground pixel).
-//
+// and writes every slot the tile holds: deterministic, no atomics.  The
+// design (raster_bwd_kernel): the tile's pixels are grouped by winner with a
+// bitonic sort of 256 (slot, pixel) keys, O(n log^2 n), no per-pixel scan
+// of the tile; the tile's d_rows are staged in shared memory with 4-pixel
+// vector loads; one warp a run, one thread a lane, adds the run from +0 in
+// ascending pixel order (each slot's sum in the reference's order);
+// the held slots are written coalesced, consecutive threads on consecutive
+// slots of a lane in float4 streaming stores, 0 where no pixel won (the TPU
+// kernel's zero_tail), and
+// extra blocks zero the compact table's tail past the held chunks, so the
+// caller allocates d_bins without a zero fill.  Bound: the d_rows read (32
+// lanes per foreground pixel), win, and the d_bins write.
+
 // K7 runs the same two bodies over the uniform table, so its bounds are
 // K3's and K4's: a tile walks only the slots its bin holds, never the
 // padding up to K.
 //
 // K4 (and the spanning op's bf16 lane, dd_raster_bwd_bf16) reads d_rows in
-// f32 or bf16 and sums in f32; K7's backward takes f32 only.
+// f32 or bf16 and sums in f32; K7's backward takes f32 only and writes each
+// tile's whole bin, the padding past its count included.
 //
 // Numeric contract (build with -fmad=false, no fast math): the reference's
 // f32 operation order, in raster_common.cuh (test_slot, which K10 runs).
 
 #include <cuda_bf16.h>
+
+#include <cstdint>
+#include <cstring>
 
 #include "raster_common.cuh"
 
@@ -258,42 +271,217 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// d_rows in T: f32, or bf16 (the spanning op's default lane), read as f32
-template <typename T>
-__global__ void raster_bwd_kernel(const T* __restrict__ d_rows,
-                                  const int* __restrict__ win, int tot,
-                                  int ntx, int th, int tw, int hc, int wc,
-                                  float* __restrict__ d_bins) {
-  extern __shared__ int sw[];  // winner slot per tile pixel
+// the tile K4 takes: 16 x 16 pixels, one a thread (the sort's width)
+constexpr int kBwdTh = 16, kBwdTw = 16, kBwdPx = kBwdTh * kBwdTw;
+constexpr int kRowPad = kLanes + 1;  // a staged pixel's lanes, padded
+constexpr int kMapChunk = 1024;      // held slots mapped to their run a round
+constexpr int kTailSlots = 4096;     // slots of the table's tail a block zeroes
+constexpr unsigned kNoKey = 0xffffffffu;  // a background pixel's key
+
+// the slots [base, base + n) that tile t holds in the compact table: its
+// chunks, the slots past its count in its last chunk included
+struct CompactHeld {
+  const int* off_c;
+  const int* used;
+  int k_chunk;
+  __device__ void operator()(int t, int& base, int& n) const {
+    base = off_c[t] * k_chunk;
+    n = used[t] * k_chunk;
+  }
+  // the end of the chunks the tiles hold: the table's tail starts there
+  __device__ int end(int ntiles) const {
+    int e = 0;
+    for (int t = threadIdx.x; t < ntiles; t += blockDim.x)
+      e = max(e, (off_c[t] + used[t]) * k_chunk);
+    return e;
+  }
+};
+
+// the slots [t*K, (t + 1)*K) of the uniform table: its whole bin, the
+// padding past its count included; no tail
+struct UniformHeld {
+  int k;
+  __device__ void operator()(int t, int& base, int& n) const {
+    base = t * k;
+    n = k;
+  }
+  __device__ int end(int ntiles) const { return ntiles * k; }
+};
+
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const unsigned w[2] = {q.x, q.y};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat16 h;
+    const unsigned short bits = (unsigned short)(w[i / 2] >> (16 * (i % 2)));
+    memcpy(&h, &bits, sizeof(h));
+    v[i] = __bfloat162float(h);  // exact
+  }
+}
+
+// K4/K7 backward, d_rows in T (f32, or bf16 widened to f32): one block of
+// 256 threads per (16 x 16 tile, hypothesis), thread p on pixel p of the
+// tile (row-major).  (1) Each pixel's key, its winner's slot relative to
+// the tile's first held slot and its index, (rel << 8) | p (background
+// last), and the tile's d_rows staged in shared memory: one 4-pixel vector
+// load per (lane, tile row, quarter row), none where the four pixels are
+// background.  (2) A bitonic sort of the 256 keys (shuffles within a warp,
+// shared memory across warps): each winner's pixels form a run in
+// ascending pixel order.  (3) One warp per run, one thread per lane, sums
+// the run from +0 in that order.
+// (4) Every slot the tile holds is written, consecutive threads on
+// consecutive slots of a lane, four slots a thread in one streaming float4
+// store (__stcs: d_bins is read by a later kernel, not this one) where
+// ``vec4`` (every held range and the lane stride a multiple of 4, the base
+// aligned): the run's sum at a won slot, 0 elsewhere.
+// Blocks past the tiles zero the table's tail (slots no tile holds, after
+// the held chunks), each kTailSlots of it, so d_bins needs no zero fill.
+template <typename T, class Held>
+__global__ void __launch_bounds__(kBwdPx)
+    raster_bwd_kernel(const T* __restrict__ d_rows, const int* __restrict__ win,
+                      Held held, int tot, int ntiles, int ntx, int hc, int wc,
+                      bool vec4, float* __restrict__ d_bins) {
+  __shared__ float st[kBwdPx][kRowPad];  // the staged d_rows, then run sums
+  __shared__ unsigned keys[kBwdPx];
+  __shared__ unsigned run_starts[kBwdPx / 32];
+  __shared__ int run_pos[kBwdPx + 1];  // sorted position of each run's start
+  __shared__ int map[kMapChunk];       // held slot -> its run's first pixel
+  __shared__ int tail_start;
   const int t = blockIdx.x;
   const int b = blockIdx.y;
-  const int npx = th * tw;
-  const int r0 = (t / ntx) * th, c0 = (t % ntx) * tw;
-  const size_t plane_px = (size_t)hc * wc;
   const int p = threadIdx.x;
-  auto pix_of = [&](int q) {
-    return (size_t)(r0 + q / tw) * wc + (c0 + q % tw);
-  };
-  sw[p] = win[(size_t)b * plane_px + pix_of(p)];
-  __syncthreads();
-  const int s = sw[p];
-  if (s < 0) return;
-  for (int q = 0; q < p; ++q)
-    if (sw[q] == s) return;  // an earlier pixel of this tile owns the sum
-  float acc[kLanes];
-#pragma unroll
-  for (int k = 0; k < kLanes; ++k) acc[k] = 0.0f;
-  const T* db = d_rows + (size_t)b * kLanes * plane_px;
-  for (int q = p; q < npx; ++q) {
-    if (sw[q] != s) continue;
-    const T* src = db + pix_of(q);
-#pragma unroll
-    for (int k = 0; k < kLanes; ++k)
-      acc[k] = __fadd_rn(acc[k], to_f32(src[k * plane_px]));
+  float* out = d_bins + (size_t)b * kLanes * tot;
+  if (t >= ntiles) {  // the tail: slots past every held chunk
+    if (p == 0) tail_start = 0;
+    __syncthreads();
+    atomicMax(&tail_start, held.end(ntiles));
+    __syncthreads();
+    const int lo = max(tail_start, (t - ntiles) * kTailSlots);
+    const int hi = min(tot, (t - ntiles + 1) * kTailSlots);
+    for (int k = 0; k < kLanes; ++k) {
+      if (vec4) {  // lo and hi are multiples of 4
+        for (int j = lo + 4 * p; j < hi; j += 4 * kBwdPx)
+          __stcs(reinterpret_cast<float4*>(out + (size_t)k * tot + j),
+                 make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+      } else {
+        for (int j = lo + p; j < hi; j += kBwdPx) out[(size_t)k * tot + j] = 0.0f;
+      }
+    }
+    return;
   }
-  float* dst = d_bins + (size_t)b * kLanes * tot + s;
+  const int r0 = (t / ntx) * kBwdTh, c0 = (t % ntx) * kBwdTw;
+  const size_t plane_px = (size_t)hc * wc;
+  int base, n_held;
+  held(t, base, n_held);
+  const int s = win[(size_t)b * plane_px + (size_t)(r0 + p / kBwdTw) * wc + c0 + p % kBwdTw];
+  unsigned key = s >= 0 ? (unsigned)(s - base) << 8 | p : kNoKey;
+  keys[p] = key;
+  const int n_fg = __syncthreads_count(s >= 0);
+
+  int n_runs = 0;
+  if (n_fg > 0) {  // the same for the whole block
+    // (1) stage: item i is (lane 4 kh + kl, row 2 rh + rl, quarter g), so a
+    // warp's 32 stores to st hit 32 banks
+    const T* db = d_rows + (size_t)b * kLanes * plane_px;
+    for (int i = p; i < kLanes * kBwdTh * (kBwdTw / 4); i += kBwdPx) {
+      const int g = i & 3, rl = (i >> 2) & 1, kl = (i >> 3) & 3, rh = (i >> 5) & 7,
+                kh = i >> 8;
+      const int row = 2 * rh + rl, k = 4 * kh + kl, p0 = row * kBwdTw + 4 * g;
+      if (keys[p0] == kNoKey && keys[p0 + 1] == kNoKey && keys[p0 + 2] == kNoKey &&
+          keys[p0 + 3] == kNoKey)
+        continue;
+      float v[4];
+      load4(db + k * plane_px + (size_t)(r0 + row) * wc + c0 + 4 * g, v);
 #pragma unroll
-  for (int k = 0; k < kLanes; ++k) dst[(size_t)k * tot] = acc[k];
+      for (int e = 0; e < 4; ++e) st[p0 + e][k] = v[e];
+    }
+    // (2) bitonic sort, ascending; keys are distinct (they hold the pixel)
+    for (int size = 2; size <= kBwdPx; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        unsigned other;
+        if (stride >= 32) {
+          __syncthreads();
+          keys[p] = key;
+          __syncthreads();
+          other = keys[p ^ stride];
+        } else {
+          other = __shfl_xor_sync(0xffffffffu, key, stride);
+        }
+        const bool ascending = (p & size) == 0, lower = (p & stride) == 0;
+        key = lower == ascending ? min(key, other) : max(key, other);
+      }
+    }
+    __syncthreads();
+    keys[p] = key;
+    __syncthreads();
+    // the runs: a run starts where the winner changes
+    const bool start = key != kNoKey && (p == 0 || (keys[p - 1] >> 8) != (key >> 8));
+    const unsigned ballot = __ballot_sync(0xffffffffu, start);
+    if ((p & 31) == 0) run_starts[p >> 5] = ballot;
+    __syncthreads();
+    int before = __popc(ballot & ((1u << (p & 31)) - 1u));
+    for (int w = 0; w < kBwdPx / 32; ++w) {
+      if (w < (p >> 5)) before += __popc(run_starts[w]);
+      n_runs += __popc(run_starts[w]);
+    }
+    if (start) run_pos[before] = p;
+    if (p == 0) run_pos[n_runs] = n_fg;
+    __syncthreads();
+    // (3) a warp a run, a thread a lane: the sum from +0 in pixel order,
+    // left at the run's first pixel
+    const int lane = p & 31;
+    for (int r = p >> 5; r < n_runs; r += kBwdPx / 32) {
+      const int first = keys[run_pos[r]] & 0xff;
+      float acc = 0.0f;
+      for (int q = run_pos[r]; q < run_pos[r + 1]; ++q)
+        acc = __fadd_rn(acc, st[keys[q] & 0xff][lane]);
+      st[first][lane] = acc;
+    }
+  }
+
+  // (4) every held slot: its run's sum, or 0
+  for (int j0 = 0; j0 < n_held; j0 += kMapChunk) {
+    const int cn = min(kMapChunk, n_held - j0);
+    if (n_runs > 0) {
+      __syncthreads();
+      for (int j = p; j < cn; j += kBwdPx) map[j] = -1;
+      __syncthreads();
+      for (int r = p; r < n_runs; r += kBwdPx) {
+        const unsigned kr = keys[run_pos[r]];
+        const int rel = (int)(kr >> 8) - j0;
+        if (rel >= 0 && rel < cn) map[rel] = kr & 0xff;
+      }
+      __syncthreads();
+    }
+    float* dst = out + base + j0;
+    if (vec4) {  // cn is a multiple of 4
+      for (int k = 0; k < kLanes; ++k)
+        for (int j = 4 * p; j < cn; j += 4 * kBwdPx) {
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = n_runs > 0 ? map[j + e] : -1;
+            v[e] = q >= 0 ? st[q][k] : 0.0f;
+          }
+          __stcs(reinterpret_cast<float4*>(dst + (size_t)k * tot + j),
+                 make_float4(v[0], v[1], v[2], v[3]));
+        }
+    } else {
+      for (int k = 0; k < kLanes; ++k)
+        for (int j = p; j < cn; j += kBwdPx) {
+          const int q = n_runs > 0 ? map[j] : -1;
+          dst[(size_t)k * tot + j] = q >= 0 ? st[q][k] : 0.0f;
+        }
+    }
+  }
 }
 
 }  // namespace
@@ -310,30 +498,41 @@ extern "C" int dd_raster_fwd(const float* bins, const int* counts,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int raster_bwd_launch(const T* d_rows, const int* win, int B, int tot,
-                      int nty, int ntx, int th, int tw, float* d_bins,
+// ``align`` divides every tile's held range (its base and its size)
+template <typename T, class Held>
+int raster_bwd_launch(const T* d_rows, const int* win, Held held, int align, int n_tail,
+                      int B, int tot, int nty, int ntx, int th, int tw, float* d_bins,
                       cudaStream_t stream) {
-  dim3 grid(nty * ntx, B);
-  raster_bwd_kernel<T><<<grid, th * tw, th * tw * sizeof(int), stream>>>(
-      d_rows, win, tot, ntx, th, tw, nty * th, ntx * tw, d_bins);
+  // the keys hold a relative slot in 24 bits (all ones: background)
+  if (th != kBwdTh || tw != kBwdTw || tot >= (1 << 24) - 1)
+    return (int)cudaErrorInvalidValue;
+  const bool vec4 = align % 4 == 0 && tot % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(d_bins) % sizeof(float4) == 0;
+  dim3 grid(nty * ntx + n_tail, B);
+  raster_bwd_kernel<T, Held><<<grid, kBwdPx, 0, stream>>>(
+      d_rows, win, held, tot, nty * ntx, ntx, nty * th, ntx * tw, vec4, d_bins);
   return (int)cudaGetLastError();
 }
 
-extern "C" int dd_raster_bwd(const float* d_rows, const int* win, int B,
-                             int tot, int nty, int ntx, int th, int tw,
-                             float* d_bins, void* stream) {
-  return raster_bwd_launch(d_rows, win, B, tot, nty, ntx, th, tw, d_bins,
-                           (cudaStream_t)stream);
+// K4: d_bins (B, 32, tot) of the compact table, every slot written (the
+// held chunks by their tiles, the tail past them by extra blocks)
+extern "C" int dd_raster_bwd(const float* d_rows, const int* win, const int* off_c,
+                             const int* used, int B, int tot, int k_chunk, int nty,
+                             int ntx, int th, int tw, float* d_bins, void* stream) {
+  return raster_bwd_launch(d_rows, win, CompactHeld{off_c, used, k_chunk}, k_chunk,
+                           (tot + kTailSlots - 1) / kTailSlots, B, tot, nty, ntx, th,
+                           tw, d_bins, (cudaStream_t)stream);
 }
 
 // K4 on bf16 d_rows (the spanning op's default lane, DD_DROWS_BF16=1): each
 // value widened to f32, the same f32 sums in the same order
 extern "C" int dd_raster_bwd_bf16(const __nv_bfloat16* d_rows, const int* win,
-                                  int B, int tot, int nty, int ntx, int th,
-                                  int tw, float* d_bins, void* stream) {
-  return raster_bwd_launch(d_rows, win, B, tot, nty, ntx, th, tw, d_bins,
-                           (cudaStream_t)stream);
+                                  const int* off_c, const int* used, int B, int tot,
+                                  int k_chunk, int nty, int ntx, int th, int tw,
+                                  float* d_bins, void* stream) {
+  return raster_bwd_launch(d_rows, win, CompactHeld{off_c, used, k_chunk}, k_chunk,
+                           (tot + kTailSlots - 1) / kTailSlots, B, tot, nty, ntx, th,
+                           tw, d_bins, (cudaStream_t)stream);
 }
 
 // K7 forward: the uniform table (B, 32, nty*ntx*k), the full frame padded
@@ -350,11 +549,11 @@ extern "C" int dd_raster_uniform_fwd(const float* bins, const int* counts,
 }
 
 // K7 backward: d_bins (B, 32, nty*ntx*k) from d_rows over the winner-slot
-// map of K7's forward; d_bins is zero-filled by the caller (the tail of
-// every tile stays 0, the TPU kernel's zero_tail)
+// map of K7's forward; every tile writes its whole bin (the padding past its
+// count as 0, the TPU kernel's zero_tail), so every slot is written
 extern "C" int dd_raster_uniform_bwd(const float* d_rows, const int* win,
                                      int B, int k, int nty, int ntx, int th,
                                      int tw, float* d_bins, void* stream) {
-  return raster_bwd_launch(d_rows, win, B, nty * ntx * k, nty, ntx, th, tw,
-                           d_bins, (cudaStream_t)stream);
+  return raster_bwd_launch(d_rows, win, UniformHeld{k}, k, 0, B, nty * ntx * k, nty, ntx,
+                           th, tw, d_bins, (cudaStream_t)stream);
 }

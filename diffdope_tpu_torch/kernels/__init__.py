@@ -60,10 +60,10 @@ _SIGNATURES = {
     # (bins, counts, off_c, used, B, tot, k_chunk, nty, ntx, th, tw,
     #  oy, ox, fh, fw, ids, win, rows, stream)
     "dd_raster_fwd": [_P] * 4 + [_I] * 11 + [_P] * 4,
-    # (d_rows, win, B, tot, nty, ntx, th, tw, d_bins, stream); the same for
-    # bf16 d_rows
-    "dd_raster_bwd": [_P] * 2 + [_I] * 6 + [_P] * 2,
-    "dd_raster_bwd_bf16": [_P] * 2 + [_I] * 6 + [_P] * 2,
+    # (d_rows, win, off_c, used, B, tot, k_chunk, nty, ntx, th, tw, d_bins,
+    #  stream); the same for bf16 d_rows
+    "dd_raster_bwd": [_P] * 4 + [_I] * 7 + [_P] * 2,
+    "dd_raster_bwd_bf16": [_P] * 4 + [_I] * 7 + [_P] * 2,
     # (bins, counts, B, k, nty, ntx, th, tw, fh, fw, ids, win, rows, stream)
     "dd_raster_uniform_fwd": [_P] * 2 + [_I] * 8 + [_P] * 4,
     # (d_rows, win, B, k, nty, ntx, th, tw, d_bins, stream)
@@ -72,10 +72,11 @@ _SIGNATURES = {
     #  fw, partials, sums, stream)
     "dd_loss_fwd": [_P] * 5 + [_I] * 7 + [_P] * 3,
     # (rows, ids, gt6, dplane | null, colors | null, d_sums, B, hc, wc, oy, ox,
-    #  fh, fw, g, d_rows, d_dplane | null, d_colors | null, stream)
-    "dd_loss_bwd": [_P] * 6 + [_I] * 7 + [_P] * 5,
-    # (rows, ids, gt6, d_sums, B, hc, wc, oy, ox, fh, fw, g, d_rows bf16,
+    #  fh, fw, g (unused: null), d_rows, d_dplane | null, d_colors | null,
     #  stream)
+    "dd_loss_bwd": [_P] * 6 + [_I] * 7 + [_P] * 5,
+    # (rows, ids, gt6, d_sums, B, hc, wc, oy, ox, fh, fw, g (unused: null),
+    #  d_rows bf16, stream)
     "dd_loss_bwd_bf16": [_P] * 4 + [_I] * 7 + [_P] * 3,
     # (coef, tile_idx, counts, B, T, K, nty, ntx, th, tw, fh, fw, ids, stream)
     "dd_raster_ids": [_P] * 3 + [_I] * 9 + [_P] * 2,

@@ -34,6 +34,10 @@ rate, from the shapes and data of the call: the table slots the tiles
 hold, the foreground pixels whose rows are read, the lanes that carry a
 gradient.  The operation counts are counted from the CUDA sources, as
 estimates, per element or (K5/K6) per pixel and pair at the call's ids.
+
+Library: where one PyTorch call computes a kernel's function (the raster
+backwards K4, K7 and K10: :func:`bwd_library`), the timed rows carry its
+time as ``library_ms``, a yardstick the port never calls.
 """
 
 from __future__ import annotations
@@ -202,22 +206,22 @@ _OPS = {"K1": lambda n_ch: 195 + 15 * n_ch, "K2": lambda n_ch: 330 + 18 * n_ch,
 
 #: K5/K6's FP32 operations by part of ``csrc/fused_loss.cu``, each add,
 #: sub, mul, div, abs, min, max, negation and compare one (``ndc`` is 4):
-#: ``zw_at`` at a foreground pixel (x, y, lin3, the det test, the
-#: division); ``eval_pair``'s depth order of its pixels, and its crossing
-#: search (three ndc, seg, det_sign, 24 per edge line, the deltas) when the
-#: pair is active (ids differ, one of them foreground: else it returns
-#: early); a pair's backward at its foreground pixel (K6 pass B);
+#: a silhouette pair's crossing search (three ndc, seg, det_sign, 24 per
+#: edge line, the deltas), once per pair in both kernels; K6's g at a pixel
+#: on a silhouette pair (aa from its four deltas, the three signs, the
+#: product) and a pair's backward at its foreground pixel;
 #: ``shade_at``'s x, y, edges, s and s_safe, and per channel read its lin3
 #: (and its division at a foreground pixel); K5's mask and rgb terms of a
 #: pixel and its depth term; K6's rgb (or d_colors) cotangents of a pixel,
 #: its depth cotangent, a channel's division backward and the edge lanes' d s
-_LOSS_OPS = dict(zw=14, order=1, search=97, pair_bwd=27, shade=24, channel=4,
-                 terms=21, depth=3, rgb_bwd=12, depth_bwd=4, channel_bwd=7, edge_bwd=17)
+_LOSS_OPS = dict(search=97, g=15, pair_bwd=27, shade=24, channel=4, terms=21, depth=3,
+                 rgb_bwd=12, depth_bwd=4, channel_bwd=7, edge_bwd=17)
 
 
-def _silhouette(idv: torch.Tensor):
-    """The horizontal and vertical pairs of ``idv`` (B, h, w) with one pixel
-    foreground and the other not, and the foreground pixels in one."""
+def _silhouette(idv: torch.Tensor) -> Tuple[int, int, int]:
+    """Of ``idv`` (B, h, w): the horizontal and vertical pairs with one
+    pixel foreground and the other not, the foreground pixels in one, and
+    all pixels in one."""
     fg = idv > 0
     h, v = fg[:, :, 1:] != fg[:, :, :-1], fg[:, 1:] != fg[:, :-1]
     edge = torch.zeros_like(fg)
@@ -225,43 +229,34 @@ def _silhouette(idv: torch.Tensor):
     edge[:, :, :-1] |= h
     edge[:, 1:] |= v
     edge[:, :-1] |= v
-    return int(h.sum()) + int(v.sum()), int((edge & fg).sum())
+    return int(h.sum()) + int(v.sum()), int((edge & fg).sum()), int(edge.sum())
 
 
 def _loss_ops(ids: torch.Tensor, roi, depth: bool, colors: bool) -> Tuple[int, int]:
     """(K5, K6) FP32 operations at this call's ids, from the lanes' own
-    bodies: the pairs evaluated (K5 runs the crossing search once per
-    silhouette pair and needs no depth order; K6 evaluates every pair by
-    both its pixels, the search only where the pair is active, its backward
-    counted at every active pair, the crossing test that gates it not
-    replayed here) and the attribute channels the launch shades: the rgb +
-    mask lane three colours (and z with depth), the colour lane none (z
-    alone with depth); K5 shades foreground pixels only.  Pairs and pixels
-    past the real frame are not counted."""
+    bodies: both kernels run the crossing search once per silhouette pair
+    and need no depth order (a pair of two foreground pixels adds +-0);
+    K6 computes g at the pixels of silhouette pairs and a pair's backward
+    once (the crossing test that gates it not replayed here); the
+    attribute channels the launch shades: the rgb + mask lane three
+    colours (and z with depth), the colour lane none (z alone with depth),
+    at foreground pixels only.  Pairs and pixels past the real frame are
+    not counted."""
     c = _LOSS_OPS
     b, hc, wc = ids.shape
     oy, ox, h, w = roi
     idv = ids[:, : min(hc, h - oy), : min(wc, w - ox)]
     n_px, n_fg = idv.numel(), int((idv > 0).sum())
-    pairs_k6 = pairs_fg = active = 0
-    for a, z in ((idv[:, :, :-1], idv[:, :, 1:]), (idv[:, :-1], idv[:, 1:])):
-        ends = (a > 0).long() + (z > 0).long()
-        act = (a != z) & (ends > 0)
-        cost = c["zw"] * ends + c["order"] + c["search"] * act.long()
-        pairs_k6 += 2 * int(cost.sum())  # by both its pixels
-        pairs_fg += int((cost * ends).sum())  # by its foreground pixels
-        active += int(act.sum())
+    n_sil, _, n_sil_px = _silhouette(idv)
     n_read = (0 if colors else 3) + (1 if depth else 0)
     n_sums = 3 if depth else 2  # a pixel's adds in the block's tree
-    # the pixel's colour test and the deltas' sum; K5 searches each
-    # silhouette pair once
-    k5 = n_px * 5 + c["search"] * _silhouette(idv)[0]
+    # the pixel's colour test and the deltas' sum
+    k5 = n_px * 5 + c["search"] * n_sil
     k5 += n_px * (c["terms"] + (c["depth"] if depth else 0) + n_sums)
     if n_read:
         k5 += n_fg * (c["shade"] + (c["channel"] + 1) * n_read)
-    k6 = n_px * 5 + pairs_k6 + n_px * 10  # pass A: aa, the three signs, the product
+    k6 = (c["search"] + c["pair_bwd"]) * n_sil + c["g"] * n_sil_px
     k6 += n_px * ((c["rgb_bwd"] if colors else 0) + (c["depth_bwd"] if depth else 0))
-    k6 += pairs_fg + active * c["pair_bwd"]
     if n_read:
         k6 += n_fg * (c["shade"] + (c["channel"] + 1 + c["channel_bwd"]) * n_read
                       + (0 if colors else c["rgb_bwd"]) + c["edge_bwd"])
@@ -269,13 +264,14 @@ def _loss_ops(ids: torch.Tensor, roi, depth: bool, colors: bool) -> Tuple[int, i
 
 
 def k5_row_lanes(ids: torch.Tensor, roi, depth: bool, colors: bool) -> int:
-    """The row lanes K5's function must read at this call's ids: at each
-    real foreground pixel the edge planes (0-8) and the channels its lane
-    shades (3 colours, or none on the colour lane, and z with depth; 3
-    lanes each) where it shades any; at a foreground pixel of a silhouette
-    pair also the det and silhouette lanes (12, 14), and the edge planes
-    where it shades none.  A pair of two foreground pixels adds nothing
-    (``csrc/fused_loss.cu``'s silhouette gate), so it reads nothing."""
+    """The row lanes K5's function must read at this call's ids, and K6's
+    (the same set): at each real foreground pixel the edge planes (0-8)
+    and the channels its lane shades (3 colours, or none on the colour
+    lane, and z with depth; 3 lanes each) where it shades any; at a
+    foreground pixel of a silhouette pair also the det and silhouette
+    lanes (12, 14), and the edge planes where it shades none.  A pair of
+    two foreground pixels adds nothing (``csrc/fused_loss.cu``'s
+    silhouette gate), so it reads nothing."""
     b, hc, wc = ids.shape
     oy, ox, h, w = roi
     idv = ids[:, : min(hc, h - oy), : min(wc, w - ox)]
@@ -285,13 +281,17 @@ def k5_row_lanes(ids: torch.Tensor, roi, depth: bool, colors: bool) -> int:
     return n_fg * shade + n_edge * (2 + (0 if n_read else 9))
 
 
-#: lanes of a foreground pixel's rows that K6 reads: the edge planes and z
-#: (0-12), the silhouette bit (14) and the colour planes (16-24), with the
-#: depth lane also the rotated-z plane (25-27); the colour lane reads no
-#: colour plane of the rows (its rotated z: 22-24)
-ROW_LANES_READ = 13 + 1 + 9
-ROW_LANES_READ_DEPTH = ROW_LANES_READ + 3
-ROW_LANES_READ_COLOR = 13 + 1
+def loss_bwd_bytes(ids: torch.Tensor, roi, depth: bool, colors: bool, d_rows_dtype) -> int:
+    """The bytes K6's function must move at this call's ids: ids and the
+    ground truth's six planes of every pixel, the row lanes of
+    :func:`k5_row_lanes`, the depth plane (or the colour planes) in and
+    its cotangent out, the (B, 3) cotangent of the sums, and all 32 lanes
+    of d_rows at every pixel in ``d_rows_dtype``."""
+    b, hc, wc = ids.shape
+    npx = b * hc * wc
+    planes = (4 * npx if depth else 0) + (12 * npx if colors else 0)
+    return (4 * npx + 4 * 6 * hc * wc + 4 * k5_row_lanes(ids, roi, depth, colors)
+            + 2 * planes + 4 * b * 3 + d_rows_bytes(32 * npx, d_rows_dtype))
 
 
 def range_tests(bins: torch.Tensor, slot_tile: torch.Tensor, frame_hw, tile_hw,
@@ -388,7 +388,7 @@ class _RasterSpec(NamedTuple):
     bwd_plain: Callable
     packed: torch.Tensor
     fwd_bound: Callable  # (win, fg) -> (ms, by)
-    written: int  # output floats of the backward (B * 32 * slots held)
+    written: int  # output floats of the backward: all of d_bins
     info: Dict[str, object]
 
 
@@ -410,7 +410,6 @@ def _binned_spec(fn, mtx, npx: int) -> _RasterSpec:
                  lambda d, win: raster_uniform_bwd(d, win, n_slots, TILE_HW),
                  lambda d, win: raster_uniform_bwd_plain(d, win, n_slots))
         n_read = int(n.sum())  # slots the tiles hold
-        written = b * 32 * n_read
     else:
         args = (packed, counts, tab.off_c, tab.used, K_CHUNK, fn.frame_hw, TILE_HW,
                 fn.roi)
@@ -419,10 +418,10 @@ def _binned_spec(fn, mtx, npx: int) -> _RasterSpec:
         frame = fn.frame_hw
         names = ("K3_raster_fwd", "K4_raster_bwd")
         calls = (lambda: raster_fwd(*args), lambda: raster_fwd_plain(*args),
-                 lambda d, win: raster_bwd(d, win, n_slots, TILE_HW),
+                 lambda d, win: raster_bwd(d, win, n_slots, TILE_HW, tab.off_c, tab.used,
+                                           K_CHUNK),
                  lambda d, win: raster_bwd_plain(d, win, n_slots))
         n_read = int(n.sum())
-        written = packed.numel()
     tested = range_tests(packed, held, frame, TILE_HW, fn.roi)
 
     def fwd_bound(win, fg):
@@ -432,8 +431,10 @@ def _binned_spec(fn, mtx, npx: int) -> _RasterSpec:
         return bound(4 * (b * 14 * n_read + 18 * _won(win, n_slots) + 3 * counts.numel())
                      + npx * (4 + 4 + 4 * 32), _OPS["K3"] * tested)
 
-    return _RasterSpec(*names, *calls, packed, fwd_bound, written,
-                       dict(slots=n_read, table_slots=n_slots, range_tests=tested))
+    info = dict(slots=n_read, table_slots=n_slots, range_tests=tested)
+    if tab.off_c is not None:  # the slots past every tile's chunks
+        info["tail_slots"] = n_slots - int(((tab.off_c + tab.used) * K_CHUNK).max())
+    return _RasterSpec(*names, *calls, packed, fwd_bound, packed.numel(), info)
 
 
 def _won(win: torch.Tensor, n_slots: int) -> int:
@@ -510,7 +511,7 @@ def _planar_spec(fn, mtx, npx: int) -> _RasterSpec:
                      _OPS["K3"] * tested)
 
     return _RasterSpec("K7_raster_uniform_fwd", "K7_raster_uniform_bwd", *calls, bins,
-                       fwd_bound, b * 32 * n_read,
+                       fwd_bound, bins.numel(),
                        dict(slots=n_read, table_slots=n_slots, range_tests=tested,
                             occupancy=int(pl.telemetry["_bin_occupancy"])))
 
@@ -562,11 +563,9 @@ def check_kernels(fn, mtx: torch.Tensor, d_sums: Optional[torch.Tensor] = None,
         sfx = ("_color" if colors is not None else "") + ("_depth" if depth else "")
         # K5/K6 read ids everywhere, the planes (the depth plane, the colour
         # planes) and, where ids > 0 only (a background pixel shades to 0;
-        # a mask pair reads its foreground side), rows: K5 the lanes of
-        # k5_row_lanes, K6 the ROW_LANES_READ* lanes; K6 writes d_rows,
-        # d_dplane and d_colors everywhere
-        lanes = (ROW_LANES_READ if colors is None else ROW_LANES_READ_COLOR) \
-            + (3 if depth else 0)
+        # a mask pair reads its foreground side), the row lanes of
+        # k5_row_lanes; K6 writes d_rows, d_dplane and d_colors everywhere
+        # (loss_bwd_bytes)
         plane_bytes = (4 * npx if depth else 0) + (12 * npx if colors is not None else 0)
         loss_args = (rows, ids, fn.gt6, fn.roi)
         ops5, ops6 = _loss_ops(ids, fn.roi, depth, colors is not None)
@@ -595,9 +594,8 @@ def check_kernels(fn, mtx: torch.Tensor, d_sums: Optional[torch.Tensor] = None,
         out.append(dict(name="K6_loss_bwd" + sfx, ok=ok6, max_abs_err=err6,
                         tolerance=tol6,
                         worst=_worst(d_rows, d_rows_p, 2e-4, 1e-6, px_scale),
-                        bound=bound(4 * npx + 4 * lanes * fg + 4 * fn.gt6.numel()
-                                    + 2 * plane_bytes + 4 * b * 3 + 4 * 32 * npx,
-                                    ops6)))
+                        bound=bound(loss_bwd_bytes(ids, fn.roi, depth, colors is not None,
+                                                   torch.float32), ops6)))
     else:
         gen = torch.Generator(device=rows.device).manual_seed(0)
         d_rows = torch.randn(rows.shape, generator=gen, device=rows.device)
@@ -616,9 +614,8 @@ def check_kernels(fn, mtx: torch.Tensor, d_sums: Optional[torch.Tensor] = None,
             per_triangle(d_bins), per_triangle(d_bins_p), 2e-4, 1e-6,
             per_triangle(slot_scale))
         # the backward reads win everywhere and d_rows only at foreground
-        # pixels, and writes its output: all of it for K4 and K10; for K7
-        # the slots its tiles hold (the uniform padding is the layout's, as
-        # in the forward)
+        # pixels, and writes its output, all of it (K4 and K7 their tables'
+        # tails and padding too, with no zero fill before them)
         return dict(name=name, ok=ok4, **spec.info,
                     max_abs_err=float((d_bins - d_bins_p).abs().max()),
                     tolerance="rtol 2e-4, atol 1e-6 + 1e-6 x sum |d_rows|, "
@@ -648,8 +645,7 @@ def check_kernels(fn, mtx: torch.Tensor, d_sums: Optional[torch.Tensor] = None,
                         tolerance="the f32 lane's d_rows rounded to bf16 bit for bit; "
                                   + tol6 + " + one bf16 spacing of each value",
                         worst=_worst(d16.float(), want, 2e-4, 1e-6 + spacing, px_scale),
-                        bound=bound(4 * npx + 4 * lanes * fg + 4 * fn.gt6.numel()
-                                    + 4 * b * 3 + d_rows_bytes(32 * npx, bf16), ops6)))
+                        bound=bound(loss_bwd_bytes(ids, fn.roi, False, False, bf16), ops6)))
         out.append(check_bwd("K4_raster_bwd_bf16", d16))
         timed["K6_loss_bwd_bf16"] = (
             lambda: loss_bwd(*loss_args, d_sums, d_rows_dtype=bf16),
@@ -665,11 +661,31 @@ def check_kernels(fn, mtx: torch.Tensor, d_sums: Optional[torch.Tensor] = None,
             timed["K6_loss_bwd" + sfx] = (
                 lambda: loss_bwd(*loss_args, d_sums, dplane, colors),
                 lambda: loss_bwd_plain(*loss_args, d_sums, dplane, colors))
+        # one PyTorch call computes each raster backward's function
+        library = {spec.b_name: lambda: bwd_library(d_rows, win, n_slots)}
+        if "K4_raster_bwd_bf16" in timed:
+            library["K4_raster_bwd_bf16"] = lambda: bwd_library(d16, win, n_slots)
         for row in out:
             kern, plain = timed[row["name"]]
             row["ms"] = _time_ms(kern, reps)
             row["plain_ms"] = _time_ms(plain, max(1, reps // 10))
+            if row["name"] in library:
+                row["library_ms"] = _time_ms(library[row["name"]], reps)
     return out
+
+
+def bwd_library(d_rows: torch.Tensor, win: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """K4's function (and K7's and K10's) in one PyTorch call, the library
+    yardstick of the kernel table (the port never calls it): ``scatter_add_``
+    of d_rows (bf16 widened to f32) into a zeroed (B, 32, n_slots + 1) by
+    each pixel's winner slot, background pixels into the extra slot; the
+    result is its first n_slots.  Atomic adds: the order of a slot's sum
+    varies from call to call."""
+    b, width = d_rows.shape[:2]
+    slot = torch.where(win >= 0, win, n_slots).reshape(b, 1, -1).long()
+    out = torch.zeros((b, width, n_slots + 1), dtype=torch.float32, device=d_rows.device)
+    out.scatter_add_(2, slot.expand(b, width, -1), d_rows.reshape(b, width, -1).float())
+    return out[:, :, :n_slots]
 
 
 def _pack_term_scale(fn, bn, mtx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -203,13 +203,12 @@ def loss_bwd(rows, ids, gt6, roi, d_sums, dplane: Optional[torch.Tensor] = None,
         raise ValueError(f"loss_bwd: unsupported device {rows.device}")
     b, _, hc, wc = rows.shape
     oy, ox, fh, fw = roi
-    g = torch.empty((b, hc, wc), dtype=torch.float32, device=rows.device)
     d_rows = torch.empty_like(rows, dtype=d_rows_dtype)
     if bf16:
         kernels.launch(
             "dd_loss_bwd_bf16", "loss_bwd_bf16",
             rows.data_ptr(), ids.data_ptr(), gt6.data_ptr(), d_sums.data_ptr(), b, hc,
-            wc, oy, ox, fh, fw, g.data_ptr(), d_rows.data_ptr(),
+            wc, oy, ox, fh, fw, None, d_rows.data_ptr(),
         )
         return d_rows, None, None
     d_dplane = None if dplane is None else torch.empty_like(dplane)
@@ -217,7 +216,7 @@ def loss_bwd(rows, ids, gt6, roi, d_sums, dplane: Optional[torch.Tensor] = None,
     kernels.launch(
         "dd_loss_bwd", counter("loss_bwd", dplane, colors),
         rows.data_ptr(), ids.data_ptr(), gt6.data_ptr(), _ptr(dplane), _ptr(colors),
-        d_sums.data_ptr(), b, hc, wc, oy, ox, fh, fw, g.data_ptr(),
+        d_sums.data_ptr(), b, hc, wc, oy, ox, fh, fw, None,
         d_rows.data_ptr(), _ptr(d_dplane), _ptr(d_colors),
     )
     return d_rows, d_dplane, d_colors
@@ -273,8 +272,9 @@ class RasterLossCompact(torch.autograd.Function):
             bins, counts, off_c, used, k_chunk, frame_hw, tile_hw, roi
         )
         sums = loss_sums(rows, ids, gt6, roi)
-        ctx.save_for_backward(rows, ids, win, gt6)
+        ctx.save_for_backward(rows, ids, win, gt6, off_c, used)
         ctx.n_slots = bins.shape[2]
+        ctx.k_chunk = k_chunk
         ctx.tile_hw = tile_hw
         ctx.roi = roi
         ctx.d_rows_dtype = torch.bfloat16 if d_rows_bf16 else torch.float32
@@ -282,10 +282,11 @@ class RasterLossCompact(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_sums):
-        rows, ids, win, gt6 = ctx.saved_tensors
+        rows, ids, win, gt6, off_c, used = ctx.saved_tensors
         d_rows, _, _ = loss_bwd(rows, ids, gt6, ctx.roi, d_sums.contiguous(),
                                 d_rows_dtype=ctx.d_rows_dtype)
-        d_bins = raster_bwd(d_rows, win, ctx.n_slots, ctx.tile_hw)
+        d_bins = raster_bwd(d_rows, win, ctx.n_slots, ctx.tile_hw, off_c, used,
+                            ctx.k_chunk)
         return d_bins, None, None, None, None, None, None, None, None, None
 
 

@@ -244,15 +244,32 @@ def _raster_plain(bins, slots, valid, frame_hw, tile_hw, roi, slot_chunk):
     return ids, rows, win
 
 
+#: the tile of the K4/K7 backward kernel (csrc/raster.cu): one thread a
+#: pixel, 256 keys sorted a block
+_BWD_TILE = (16, 16)
+
+
+def _check_bwd_tile(tile_hw) -> None:
+    if tuple(tile_hw) != _BWD_TILE:
+        raise ValueError(f"tile {tile_hw}: the backward kernel takes {_BWD_TILE} tiles")
+
+
 def raster_bwd(
     d_rows: torch.Tensor,
     win: torch.Tensor,
     n_slots: int,
     tile_hw: Tuple[int, int],
+    off_c: torch.Tensor,
+    used: torch.Tensor,
+    k_chunk: int,
 ) -> torch.Tensor:
     """K4: d_bins (B, 32, n_slots) f32 = for each slot, the sum of d_rows
     over the pixels whose winner it is (zeros elsewhere).  d_rows is f32
-    or bf16 (the spanning op's default lane), summed in f32.
+    or bf16 (the spanning op's default lane), summed in f32.  ``off_c``,
+    ``used`` and ``k_chunk`` are the compact table's: tile t holds the
+    chunks [off_c[t], off_c[t] + used[t]), and the kernel writes every slot
+    (its held chunks by the tile, the tail past them by extra blocks), so
+    d_bins is allocated without a zero fill.
 
     CPU tensors take :func:`raster_bwd_plain`; CUDA tensors launch the
     kernel (csrc/raster.cu; bf16 d_rows its bf16 instantiation, counted
@@ -264,20 +281,23 @@ def raster_bwd(
     if width != PACKED_WIDTH or tuple(win.shape) != (b, hc, wc):
         raise ValueError(f"d_rows {tuple(d_rows.shape)} / win {tuple(win.shape)}")
     nty, ntx = _frame_tiles((hc, wc), tile_hw)
+    for t, name in ((off_c, "off_c"), (used, "used")):
+        _check(t, name, torch.int32, 1, d_rows.device)
+        if t.shape[0] != nty * ntx:
+            raise ValueError(f"{name}: {t.shape[0]} tiles, expected {nty * ntx}")
     if d_rows.device.type == "cpu":
         return raster_bwd_plain(d_rows, win, n_slots)
     if d_rows.device.type != "cuda":
         raise ValueError(f"raster_bwd: unsupported device {d_rows.device}")
+    _check_bwd_tile(tile_hw)
     th, tw = tile_hw
-    if th * tw > 1024:
-        raise ValueError(f"tile {tile_hw} exceeds 1024 threads per block")
-    d_bins = torch.zeros((b, PACKED_WIDTH, n_slots), dtype=torch.float32,
+    d_bins = torch.empty((b, PACKED_WIDTH, n_slots), dtype=torch.float32,
                          device=d_rows.device)
     kernels.launch(
         "dd_raster_bwd_bf16" if bf16 else "dd_raster_bwd",
         "raster_bwd_bf16" if bf16 else "raster_bwd",
-        d_rows.data_ptr(), win.data_ptr(), b, n_slots, nty, ntx, th, tw,
-        d_bins.data_ptr(),
+        d_rows.data_ptr(), win.data_ptr(), off_c.data_ptr(), used.data_ptr(), b, n_slots,
+        k_chunk, nty, ntx, th, tw, d_bins.data_ptr(),
     )
     return d_bins
 
@@ -310,16 +330,18 @@ class RasterCompact(torch.autograd.Function):
         ids, rows, win = raster_fwd(
             bins, counts, off_c, used, k_chunk, frame_hw, tile_hw, roi
         )
-        ctx.save_for_backward(win)
+        ctx.save_for_backward(win, off_c, used)
         ctx.n_slots = bins.shape[2]
         ctx.tile_hw = tile_hw
+        ctx.k_chunk = k_chunk
         ctx.mark_non_differentiable(ids)
         return ids, rows
 
     @staticmethod
     def backward(ctx, d_ids, d_rows):
-        (win,) = ctx.saved_tensors
-        d_bins = raster_bwd(d_rows.contiguous(), win, ctx.n_slots, ctx.tile_hw)
+        win, off_c, used = ctx.saved_tensors
+        d_bins = raster_bwd(d_rows.contiguous(), win, ctx.n_slots, ctx.tile_hw, off_c,
+                            used, ctx.k_chunk)
         return d_bins, None, None, None, None, None, None, None
 
 
@@ -398,11 +420,11 @@ def raster_uniform_bwd(
 ) -> torch.Tensor:
     """K7 backward: d_bins (B, 32, n_slots) of the uniform table, for each
     slot the sum of d_rows over the pixels it wins (zeros elsewhere, the
-    padding of every tile included).
+    padding of every tile included: each tile writes its whole bin, so
+    d_bins is allocated without a zero fill).
 
     CPU tensors take :func:`raster_uniform_bwd_plain`; CUDA tensors launch
-    the kernel
-    (csrc/raster.cu), anything else raises."""
+    the kernel (csrc/raster.cu), anything else raises."""
     _check(d_rows, "d_rows", torch.float32, 4, d_rows.device)
     _check(win, "win", torch.int32, 3, d_rows.device)
     b, width, hc, wc = d_rows.shape
@@ -415,10 +437,9 @@ def raster_uniform_bwd(
         return raster_uniform_bwd_plain(d_rows, win, n_slots)
     if d_rows.device.type != "cuda":
         raise ValueError(f"raster_uniform_bwd: unsupported device {d_rows.device}")
+    _check_bwd_tile(tile_hw)
     th, tw = tile_hw
-    if th * tw > 1024:
-        raise ValueError(f"tile {tile_hw} exceeds 1024 threads per block")
-    d_bins = torch.zeros((b, PACKED_WIDTH, n_slots), dtype=torch.float32,
+    d_bins = torch.empty((b, PACKED_WIDTH, n_slots), dtype=torch.float32,
                          device=d_rows.device)
     kernels.launch(
         "dd_raster_uniform_bwd", "raster_uniform_bwd",

@@ -497,3 +497,163 @@ def test_k5_lanes_match_plain_and_repeat_on_card(cuda, params, lane, depth):
     assert torch.equal(sums, loss_sums(rows, ids, gt6, roi, dpl, colors))
     one = (ids > 0).to(ids.dtype)
     assert torch.equal(sums, loss_sums(rows, one, gt6, roi, dpl, colors))
+
+
+def _k6_window(fn, mtx):
+    """(rows, ids, gt6, dplane, colors, roi) of ``fn``'s raster at poses
+    ``mtx`` cut to its first 57 rows and 75 columns (no multiple of the
+    16-pixel tile: the object's lower and right silhouette lies in the
+    last partial tiles), a seeded depth plane, the colour planes ``fn``
+    samples from the rows (foreground-masked) where it samples a texture."""
+    from diffdope_tpu_torch.kernels.check import _binned_spec
+
+    b = mtx.shape[0]
+    hf, wf = fn.frame_hw
+    with torch.no_grad():
+        ids, rows, _ = _binned_spec(fn, mtx, b * hf * wf).fwd()
+        colors = fn.sample(rows, ids) if getattr(fn, "sample", None) else None
+    hc, wc = 57, 75
+    cut = np.s_[..., :hc, :wc]
+    ids, rows, gt6 = (x[cut].contiguous() for x in (ids, rows, fn.gt6))
+    gen = torch.Generator(device=mtx.device).manual_seed(5)
+    dplane = torch.randn((b, hc, wc), generator=gen, device=mtx.device)
+    if colors is not None:
+        colors = (colors[cut] * (ids > 0)[:, None]).contiguous()
+    return rows, ids, gt6, dplane, colors, tuple(fn.roi)
+
+
+def _border_pairs(fg):
+    """Silhouette pairs that straddle a 16-pixel tile border, by the side
+    their foreground pixel lies on: left, right, above, below."""
+    h = (fg[:, :, 15:-1:16] != fg[:, :, 16::16])
+    v = (fg[:, 15:-1:16] != fg[:, 16::16])
+    return dict(left=int((h & fg[:, :, 15:-1:16]).sum()), right=int((h & fg[:, :, 16::16]).sum()),
+                above=int((v & fg[:, 15:-1:16]).sum()), below=int((v & fg[:, 16::16]).sum()))
+
+
+@pytest.mark.parametrize("lane", ["rgb", "bf16", "depth", "color", "color_depth"])
+def test_k6_lanes_match_plain_and_repeat_on_card(cuda, params, lane):
+    """K6 in each of its five lanes on a window whose silhouette crosses
+    tile borders in all four directions and lies in the last partial tiles
+    of both axes: d_rows within K6's tolerance of the plain twin (rtol
+    2e-4, atol 1e-6 plus 1e-6 of the pixel's largest lane), d_dplane and
+    d_colors rtol 2e-4, atol 1e-6; the bf16 lane the f32 lane's d_rows
+    rounded bit for bit; two launches bit for bit, and bit for bit the
+    same with every foreground id collapsed to 1 (only silhouette pairs
+    reach the edge lanes)."""
+    from diffdope_tpu_torch.kernels.check import _close
+    from diffdope_tpu_torch.render.fused_loss import loss_bwd, loss_bwd_plain
+
+    fn = bench_problem(RES, subdiv=2, batch=B, device=cuda,
+                       texture=lane.startswith("color"))["fn"]
+    mtx, _, _ = pose_matrix(params)
+    rows, ids, gt6, dplane, colors, roi = _k6_window(fn, mtx)
+    fg = ids > 0
+    assert all(n > 0 for n in _border_pairs(fg).values()), _border_pairs(fg)
+    assert fg[:, 48:].any() and fg[:, :, 64:].any()  # the last partial tiles
+    dpl = dplane if lane.endswith("depth") else None
+    d_sums = torch.tensor([[1.0, 0.7, 0.9], [0.5, 1.3, 1.1], [2.0, 0.2, 0.4]], device=cuda)
+    dtype = torch.bfloat16 if lane == "bf16" else torch.float32
+    got = loss_bwd(rows, ids, gt6, roi, d_sums, dpl, colors, d_rows_dtype=dtype)
+    want = loss_bwd_plain(rows, ids, gt6, roi, d_sums, dpl, colors)
+    scale = want[0].abs().amax(dim=1, keepdim=True)
+    if lane == "bf16":
+        f32 = loss_bwd(rows, ids, gt6, roi, d_sums)[0]
+        assert torch.equal(got[0], f32.to(torch.bfloat16))
+        got = (f32,) + got[1:]
+    assert _close(got[0], want[0], 2e-4, 1e-6, scale)
+    assert float(want[0][:, :9].abs().max()) > 0
+    for plane, ref in zip(got[1:], want[1:]):
+        assert (plane is None) == (ref is None)
+        if ref is not None:
+            assert _close(plane, ref, 2e-4, 1e-6)
+
+    def bits(out):
+        return [x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+                for x in out if x is not None]
+
+    first = bits(loss_bwd(rows, ids, gt6, roi, d_sums, dpl, colors, d_rows_dtype=dtype))
+    again = bits(loss_bwd(rows, ids, gt6, roi, d_sums, dpl, colors, d_rows_dtype=dtype))
+    one = bits(loss_bwd(rows, fg.to(ids.dtype), gt6, roi, d_sums, dpl, colors,
+                        d_rows_dtype=dtype))
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    assert all(torch.equal(x, y) for x, y in zip(first, one))
+
+
+def _edge_tiles(b, table, kc, device):
+    """A winner map (b, 32, 48) over 2 x 3 tiles of 16 x 16 and its table:
+    tile 0 one winner for all 256 pixels, tile 1 256 distinct winners,
+    tile 2 no foreground, the rest 60% foreground on 9 winners; the compact
+    table holds 1, 70, 0, 8, 2 and 40 chunks of ``kc`` and a tail of 5
+    chunks, the uniform table K = 68 ``kc`` a tile, plus one where ``kc``
+    is odd (with ``kc`` 32, 2,240 and 2,176 slots: more than the kernel
+    maps a round).  Returns (win, n_slots, off_c, used)."""
+    rng = np.random.default_rng(0)
+    nt = 6
+    if table == "compact":
+        used = np.array([1, 70, 0, 8, 2, 40], np.int32)
+        off_c = np.concatenate([[0], np.cumsum(used)[:-1]]).astype(np.int32)
+        base, n = off_c * kc, used * kc
+        n_slots = int((used.sum() + 5) * kc)
+    else:
+        k = 68 * kc + kc % 2
+        base, n = np.arange(nt) * k, np.full(nt, k)
+        off_c = used = None
+        n_slots = nt * k
+    win = np.full((b, 32, 48), -1, np.int32)
+    for bi in range(b):
+        for t in range(nt):
+            tile = win[bi, (t // 3) * 16:(t // 3 + 1) * 16, (t % 3) * 16:(t % 3 + 1) * 16]
+            if t == 0:
+                tile[:] = base[t] + 3
+            elif t == 1:
+                tile[:] = (base[t] + rng.permutation(n[t])[:256]).reshape(16, 16)
+            elif t > 2:
+                m = rng.random((16, 16)) < 0.6
+                tile[m] = base[t] + rng.integers(0, min(n[t], 9), m.sum())
+    as_t = (lambda a: None if a is None else torch.tensor(a, device=device))
+    return as_t(win), n_slots, as_t(off_c), as_t(used)
+
+
+@pytest.mark.parametrize("kc", [32, 5], ids=["aligned", "odd"])
+@pytest.mark.parametrize("lane", ["compact_f32", "compact_bf16", "uniform"])
+def test_k4_edge_tiles_match_plain_and_repeat_on_card(cuda, lane, kc):
+    """K4 (both lanes) and K7's backward on edge tiles: one triangle winning
+    a whole tile, 256 distinct winners, a tile without foreground, a tile
+    holding more slots than one round maps; d_bins within K4's tolerance
+    of the plain twin (its zeros exactly: the held slots no pixel won,
+    the compact table's tail, each uniform bin's padding), with the
+    allocator's block filled with NaN before; two launches bit for bit.
+    Chunks (or K) of 5 slots take the kernel's one-float stores, 32 its
+    float4 stores."""
+    from diffdope_tpu_torch.kernels.check import _close
+    from diffdope_tpu_torch.render.raster import (
+        raster_bwd,
+        raster_bwd_plain,
+        raster_uniform_bwd,
+    )
+
+    b = 2
+    win, n_slots, off_c, used = _edge_tiles(b, lane.split("_")[0], kc, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    d_rows = torch.randn((b, 32, 32, 48), generator=gen, device=cuda)
+    if lane == "compact_bf16":
+        d_rows = d_rows.to(torch.bfloat16)
+
+    def run():
+        junk = torch.full((b, 32, n_slots), float("nan"), device=cuda)
+        del junk  # the caching allocator hands the same block to d_bins
+        if lane == "uniform":
+            return raster_uniform_bwd(d_rows, win, n_slots, (16, 16))
+        return raster_bwd(d_rows, win, n_slots, (16, 16), off_c, used, kc)
+
+    got = run()
+    want = raster_bwd_plain(d_rows, win, n_slots)
+    scale = raster_bwd_plain(d_rows.abs(), win, n_slots)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got == 0, want == 0)
+    assert _close(got, want, 2e-4, 1e-6, scale)
+    if lane != "uniform":
+        end = int(((off_c + used) * kc).max())
+        assert end < n_slots and not got[:, :, end:].any()
+    assert torch.equal(got.view(torch.int32), run().view(torch.int32))

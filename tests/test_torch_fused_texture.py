@@ -210,10 +210,10 @@ def test_torch_loss_bounds_count_each_lanes_body(depth):
     colour lane shades no colour channel (the rgb + mask lane shades three
     and divides them, at a foreground pixel in K5, at every real pixel in
     K6) and writes d_colors at every real pixel in place of the rgb
-    cotangent of a foreground pixel; a pair's crossing search counts only
-    where the pair is on the silhouette (K5: the count is the same with
-    the foreground ids collapsed to one) or active (K6); nothing past the
-    real frame counts."""
+    cotangent of a foreground pixel; a pair's crossing search (and K6's g
+    and pair backward) counts only where the pair is on the silhouette,
+    once (the counts are the same with the foreground ids collapsed to
+    one); nothing past the real frame counts."""
     from diffdope_tpu_torch.kernels.check import _LOSS_OPS as c
     from diffdope_tpu_torch.kernels.check import _loss_ops
 
@@ -225,15 +225,19 @@ def test_torch_loss_bounds_count_each_lanes_body(depth):
     rgb5, rgb6 = _loss_ops(ids, roi, depth, colors=False)
     col5, col6 = _loss_ops(ids, roi, depth, colors=True)
     assert rgb5 - col5 == n_fg * (3 * (c["channel"] + 1) + (0 if depth else c["shade"]))
-    assert _loss_ops((ids > 0).to(ids.dtype), roi, depth, colors=True)[0] == col5
+    assert _loss_ops((ids > 0).to(ids.dtype), roi, depth, colors=True) == (col5, col6)
     assert rgb6 - col6 == n_fg * (3 * (c["channel"] + 1 + c["channel_bwd"]) + c["rgb_bwd"]
                                   + (0 if depth else c["shade"] + c["edge_bwd"])) \
         - n_px * c["rgb_bwd"]
     empty5, empty6 = _loss_ops(torch.zeros_like(ids), roi, depth, colors=True)
-    h_pairs, v_pairs = 2 * 10 * 13, 2 * 9 * 14
     assert empty5 == n_px * (5 + c["terms"] + (c["depth"] + 3 if depth else 2))
-    assert empty6 == n_px * (15 + c["rgb_bwd"] + (c["depth_bwd"] if depth else 0)) \
-        + 2 * c["order"] * (h_pairs + v_pairs)
+    assert empty6 == n_px * (c["rgb_bwd"] + (c["depth_bwd"] if depth else 0))
+    # a 4 x 5 block: 18 silhouette pairs, 14 foreground and 18 background
+    # pixels on them, per hypothesis
+    n_sil, n_sil_px = 2 * 18, 2 * (14 + 18)
+    assert col6 - empty6 == (c["search"] + c["pair_bwd"]) * n_sil + c["g"] * n_sil_px \
+        + (n_fg * (c["shade"] + c["channel"] + 1 + c["channel_bwd"] + c["edge_bwd"])
+           if depth else 0)
     past = ids.clone()
     past[:, 10:, :] = 7
     past[:, :, 14:] = 7

@@ -75,8 +75,9 @@ def test_torch_wrappers_refuse_unsupported_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         fused_loss.loss_bwd(rows, ids, gt6, (0, 0, 16, 16),
                             torch.zeros((1, 3), device="meta"))
+    one = torch.zeros(1, dtype=torch.int32, device="meta")  # one tile's off_c, used
     with pytest.raises(ValueError, match="unsupported device"):
-        raster.raster_bwd(rows, ids, 64, (16, 16))
+        raster.raster_bwd(rows, ids, 64, (16, 16), one, one, 32)
     with pytest.raises(ValueError, match="unsupported device"):
         raster.raster_compact(torch.zeros((1, 32, 64), device="meta"),
                               *(torch.zeros(1, dtype=torch.int32, device="meta"),) * 3,
@@ -164,8 +165,9 @@ def test_torch_bf16_lane_and_segment_sum_refuse_unsupported_devices():
         fused_loss.loss_bwd(rows, ids, gt6, (0, 0, 16, 16), d_sums,
                             dplane=torch.zeros((1, 16, 16), device="meta"),
                             d_rows_dtype=torch.bfloat16)
+    one = torch.zeros(1, dtype=torch.int32, device="meta")  # one tile's off_c, used
     with pytest.raises(ValueError, match="unsupported device"):
-        raster.raster_bwd(rows.to(torch.bfloat16), ids, 64, (16, 16))
+        raster.raster_bwd(rows.to(torch.bfloat16), ids, 64, (16, 16), one, one, 32)
     with pytest.raises(ValueError, match="unsupported device"):
         setup_rows_bwd(torch.zeros((1, 256, 16), device="meta"),
                        torch.zeros((1, 256), dtype=torch.int32, device="meta"), 8)

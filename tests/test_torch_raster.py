@@ -57,7 +57,9 @@ def test_torch_raster_bwd_per_triangle():
         jnp.asarray(ref["used"]), jnp.asarray(ref["bounds"]), RES, JAX_TILE_HW,
         True, True,
     ))
-    d_port = tr.raster_bwd(torch.tensor(d_rows), win, tot, JAX_TILE_HW).numpy()
+    d_port = tr.raster_bwd(torch.tensor(d_rows), win, tot, JAX_TILE_HW,
+                           torch.tensor(ref["off_c"]), torch.tensor(ref["used"]),
+                           ref["k_chunk"]).numpy()
 
     tri = ref["packed"][0, 13].astype(np.int64)
     n = tri.max() + 1

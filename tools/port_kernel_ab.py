@@ -3,21 +3,21 @@ tree, ptxas' registers and spills and the SASS loops of each kernel, and
 its time at the bench shapes, with every tree's outputs held to the first
 tree's.
 
-    python tools/port_kernel_ab.py ROOT [ROOT ...] [--kernels K2,K5,K3]
+    python tools/port_kernel_ab.py ROOT [ROOT ...] [--kernels K2,K5,K3,K4,K6]
                                    [--sass-dir DIR] [--out FILE] [--reps N]
 
 Each ROOT is a checkout of the repo (this one, or the parent unpacked with
 ``git archive`` into the gitignored ``chip_proof/``), or any directory
 that holds ``diffdope_tpu_torch/csrc/`` (a variant of a kernel).  For each kernel
-asked for, ROOT's source (``pack.cu`` for K2, ``fused_loss.cu`` for K5,
-``raster.cu`` for K3/K7's forward) is built with the port's nvcc flags and
-``-Xptxas=-v`` into a library of its own.  ``cuobjdump -sass`` of it gives,
-for each of the kernel's functions, every loop (a backward branch) with
-its instruction count and the count of each opcode class; with
-``--sass-dir`` the whole SASS goes there too.  The C interfaces are the
-same in every tree, so each tree's entry point runs on the same inputs,
-made in this checkout at the bench shapes (``bench_problem()``: B=64,
-400x400, icosphere(5), 64 distinct poses):
+asked for, ROOT's source (``pack.cu`` for K2, ``fused_loss.cu`` for K5 and
+K6, ``raster.cu`` for K3/K7's forward and K4/K7's backward) is built with
+the port's nvcc flags and ``-Xptxas=-v`` into a library of its own.
+``cuobjdump -sass`` of it gives, for each of the kernel's functions, every
+loop (a backward branch) with its instruction count and the count of each
+opcode class; with ``--sass-dir`` the whole SASS goes there too.  Each
+tree's entry point runs on the same inputs, made in this checkout at the
+bench shapes (``bench_problem()``: B=64, 400x400, icosphere(5), 64
+distinct poses):
 
 - K2 (``dd_pack_bwd``) on the compact table, the uniform-K table and the
   textured problem's uv table (n_ch 2), under a seeded normal cotangent;
@@ -27,16 +27,26 @@ made in this checkout at the bench shapes (``bench_problem()``: B=64,
   with depth, the colour lane on the textured problem's full frame, and
   the colour lane with depth;
 - K3 and K7's forward (``dd_raster_fwd``, ``dd_raster_uniform_fwd``) on
-  the compact and the uniform-K table.
+  the compact and the uniform-K table;
+- K6 (``dd_loss_bwd``, ``dd_loss_bwd_bf16``) in its five lanes, K5's four
+  and the rgb + mask lane's bf16 d_rows, under a seeded cotangent of the
+  sums;
+- K4 (``dd_raster_bwd`` and its bf16 lane) on the compact table and K7's
+  backward (``dd_raster_uniform_bwd``) on the uniform-K table, under K6's
+  d_rows of the same raster; a tree whose K4 takes no held chunks
+  (``off_c``, ``used``) writes only the won slots, so its call zero-fills
+  d_bins first, as its wrapper did.
 
 Each case is timed by CUDA events over ``--reps`` launches after a warm-up,
 in turns A B ... B A, twice.  K2's sums are held to the first tree's at
 rtol 2e-4, atol 1e-6 plus 1e-6 of the hypothesis' sum of |terms|, K5's at
-rtol 1e-5, atol 1e-7, K3/K7's outputs exactly, and each tree's output is
-said to equal the first's bit for bit or not; each tree's output is also
-compared with its own second launch, bit for bit.  Prints one JSON line
-per tree and case, with the card's name and power limit; with ``--out``
-the same lines, with each tree's ptxas lines and SASS loops, go to FILE.
+rtol 1e-5, atol 1e-7, K3/K7's outputs exactly, K4's, K6's and K7's
+backward bit for bit (every output starts as NaN, so an unwritten value
+shows), and each tree's output is said to equal the first's bit for bit or
+not; each tree's output is also compared with its own second launch, bit
+for bit.  Prints one JSON line per tree and case, with the card's name and
+power limit; with ``--out`` the same lines, with each tree's ptxas lines
+and SASS loops, go to FILE.
 """
 
 import argparse
@@ -54,7 +64,9 @@ sys.path.insert(0, str(HERE))
 #: per kernel: its source and the substrings naming its device functions
 SOURCES = {"K2": ("pack.cu", ("pack_bwd",)),
            "K5": ("fused_loss.cu", ("loss_fwd", "loss_reduce")),
-           "K3": ("raster.cu", ("raster_fwd_kernel",))}
+           "K3": ("raster.cu", ("raster_fwd_kernel",)),
+           "K4": ("raster.cu", ("raster_bwd_kernel",)),
+           "K6": ("fused_loss.cu", ("loss_bwd",))}
 #: opcode classes, by the SASS mnemonic's first word
 CLASSES = {
     "shared loads": ("LDS",), "global loads": ("LDG",), "stores": ("STG", "STS"),
@@ -77,7 +89,10 @@ def build(root: Path, kernel: str, out_dir: Path, tag: str):
     lib = out_dir / f"{Path(source).stem}_{tag}.so"
     cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas=-v", "-o", str(lib),
            str(root / "diffdope_tpu_torch/csrc" / source)]
-    log = subprocess.run(cmd, check=True, capture_output=True, text=True).stderr
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {root}:\n{proc.stdout}{proc.stderr}")
+    log = proc.stderr
     usage, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -273,6 +288,187 @@ def k3_cases(problems, mtx):
     return cases
 
 
+def _bits(x):
+    import torch
+
+    return x.view(torch.int16) if x.dtype == torch.bfloat16 else x.view(torch.int32)
+
+
+def _diffs(a, c):
+    """Per output that differs in its bits: how many values, the first
+    one's index and both values."""
+    import torch
+
+    out = []
+    for k, (x, y) in enumerate(zip(a, c)):
+        bad = _bits(x) != _bits(y)
+        if bool(bad.any()):
+            i = tuple(int(v) for v in bad.nonzero()[0])
+            out.append(dict(output=k, n=int(bad.sum()), at=i, first=float(x[i]),
+                            this=float(y[i]), nan_first=int(torch.isnan(x.float()).sum()),
+                            nan_this=int(torch.isnan(y.float()).sum())))
+    return out
+
+
+def _bit_equal(a, c) -> bool:
+    import torch
+
+    return all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, c))
+
+
+def k6_inputs(fn, mtx):
+    """(rows, ids, dplane, colors, d_sums) of a fused loss' raster at poses
+    ``mtx``, the cotangent of its sums drawn from a seeded uniform [0.5, 2)."""
+    import torch
+
+    from diffdope_tpu_torch.kernels.check import _binned_spec
+
+    b = mtx.shape[0]
+    hc, wc = fn.frame_hw
+    with torch.no_grad():
+        ids, rows, win = _binned_spec(fn, mtx, b * hc * wc).fwd()
+        dplane = fn.dplane(mtx)
+        colors = fn.sample(rows, ids) if getattr(fn, "sample", None) else None
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    d_sums = 0.5 + 1.5 * torch.rand((b, 3), generator=gen, device="cuda")
+    return rows, ids, win, dplane, colors, d_sums
+
+
+def k6_cases(problems, mtx):
+    """K6 in its five lanes: rgb + mask on the compact crop in f32 and bf16,
+    with depth, the colour lane on the textured problem's full frame, and
+    the colour lane with depth.  Outputs are held bit for bit."""
+    import torch
+
+    cases = {}
+    for case, fn in problems.items():
+        rows, ids, _, dplane, colors, d_sums = k6_inputs(fn, mtx)
+        b, _, hc, wc = rows.shape
+        bf16 = case == "bf16"
+
+        # the two-launch K6's g: shared by the trees, alive with the case
+        g = torch.empty((b, hc, wc), device="cuda")
+
+        def make(lib, rows=rows, ids=ids, gt6=fn.gt6, dplane=dplane, colors=colors,
+                 d_sums=d_sums, roi=tuple(fn.roi), bf16=bf16, g=g):
+            b, _, hc, wc = rows.shape
+            outs = [torch.full(rows.shape, float("nan"), device="cuda",
+                               dtype=torch.bfloat16 if bf16 else torch.float32)]
+            outs += [torch.full_like(x, float("nan")) for x in (dplane, colors)
+                     if x is not None]
+            if bf16:
+                f = lib.dd_loss_bwd_bf16
+                f.argtypes = [P] * 4 + [I] * 7 + [P] * 3
+                args = (rows.data_ptr(), ids.data_ptr(), gt6.data_ptr(), d_sums.data_ptr(),
+                        b, hc, wc, *roi, g.data_ptr(), outs[0].data_ptr())
+            else:
+                f = lib.dd_loss_bwd
+                f.argtypes = [P] * 6 + [I] * 7 + [P] * 5
+                it = iter(outs[1:])
+                d_dplane = next(it) if dplane is not None else None
+                d_colors = next(it) if colors is not None else None
+                args = (rows.data_ptr(), ids.data_ptr(), gt6.data_ptr(),
+                        None if dplane is None else dplane.data_ptr(),
+                        None if colors is None else colors.data_ptr(), d_sums.data_ptr(),
+                        b, hc, wc, *roi, g.data_ptr(), outs[0].data_ptr(),
+                        None if d_dplane is None else d_dplane.data_ptr(),
+                        None if d_colors is None else d_colors.data_ptr())
+
+            def call():
+                err = f(*args, torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+                return outs
+            return call
+
+        fg = ids > 0
+        cases[f"K6 {case}"] = (make, _bit_equal,
+                               dict(frame=[hc, wc], fg_pixels=int(fg.sum()),
+                                    silhouette_pairs=int(
+                                        (fg[:, :, 1:] != fg[:, :, :-1]).sum()
+                                        + (fg[:, 1:] != fg[:, :-1]).sum())))
+    return cases
+
+
+def _params(root: Path, name: str) -> int:
+    """The number of parameters of C entry point ``name`` in ROOT's
+    raster.cu: K4's interface with the held chunks (off_c, used, k_chunk)
+    has 13 and writes every slot; the earlier one had 10."""
+    text = (root / "diffdope_tpu_torch/csrc/raster.cu").read_text()
+    return re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text).group(1).count(",") + 1
+
+
+def k4_cases(problems, mtx):
+    """K4 on the compact table in f32 and bf16 and K7's backward on the
+    uniform-K table, each under K6's own d_rows at the problem's raster.
+    A tree whose K4 takes no held chunks writes the won slots only: its
+    call zero-fills d_bins first (as its wrapper did), so its time includes
+    the fill.  Outputs are held bit for bit."""
+    import torch
+
+    from diffdope_tpu_torch.render.fused_loss import loss_bwd
+    from diffdope_tpu_torch.render.pipeline import K_CHUNK, TILE_HW
+
+    (th, tw) = TILE_HW
+    cases = {}
+    for case, fn in problems.items():
+        rows, ids, win, dplane, colors, d_sums = k6_inputs(fn, mtx)
+        with torch.no_grad():
+            tab = fn.table(mtx)
+            d32, _, _ = loss_bwd(rows, ids, fn.gt6, fn.roi, d_sums, dplane, colors)
+        b, _, hc, wc = rows.shape
+        nty, ntx = hc // th, wc // tw
+        tot = tab.packed.shape[2]
+        uniform = tab.off_c is None
+        for dtype in ((torch.float32,) if uniform else (torch.float32, torch.bfloat16)):
+            d_rows = d32.to(dtype).contiguous()
+
+            def make(lib, d_rows=d_rows, win=win, tab=tab, tot=tot, nty=nty, ntx=ntx,
+                     uniform=uniform, b=b):
+                out = torch.full((b, 32, tot), float("nan"), device="cuda")
+                held = _params(lib.root, "dd_raster_bwd")
+                if uniform:
+                    f = lib.dd_raster_uniform_bwd
+                    f.argtypes = [P] * 2 + [I] * 6 + [P] * 2
+                    args = (d_rows.data_ptr(), win.data_ptr(), b, tot // (nty * ntx), nty,
+                            ntx, th, tw, out.data_ptr())
+                else:
+                    f = lib.dd_raster_bwd if d_rows.dtype == torch.float32 \
+                        else lib.dd_raster_bwd_bf16
+                    if held == 13:
+                        f.argtypes = [P] * 4 + [I] * 7 + [P] * 2
+                        args = (d_rows.data_ptr(), win.data_ptr(), tab.off_c.data_ptr(),
+                                tab.used.data_ptr(), b, tot, K_CHUNK, nty, ntx, th, tw,
+                                out.data_ptr())
+                    else:
+                        f.argtypes = [P] * 2 + [I] * 6 + [P] * 2
+                        args = (d_rows.data_ptr(), win.data_ptr(), b, tot, nty, ntx, th, tw,
+                                out.data_ptr())
+                fill = held != 13
+
+                def call():
+                    if fill:
+                        out.zero_()
+                    err = f(*args, torch.cuda.current_stream().cuda_stream)
+                    assert err == 0, err
+                    return (out,)
+                return call
+
+            name = ("K7 bwd " if uniform else "K4 ") + case + (
+                " bf16" if dtype == torch.bfloat16 else "")
+            end = tot if uniform else int(((tab.off_c + tab.used) * K_CHUNK).max())
+            cases[name] = (make, _bit_equal,
+                           dict(slots=tot, tail_slots=tot - end,
+                                fg_pixels=int((win >= 0).sum())))
+    return cases
+
+
+def _load(lib: Path, root: Path):
+    """The library, knowing the tree it was built from."""
+    cdll = ctypes.CDLL(str(lib))
+    cdll.root = root
+    return cdll
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("roots", nargs="+")
@@ -312,6 +508,13 @@ def main() -> int:
                                                        depth=True)}, mtx),
         "K3": lambda: k3_cases({"compact": base["fn"],
                                 "uniform": variant("uniform", uniform=True)}, mtx),
+        "K6": lambda: k6_cases({"rgb": base["fn"], "bf16": base["fn"],
+                                "depth": variant("depth", depth=True),
+                                "color": variant("texture", texture=True),
+                                "color_depth": variant("texture_depth", texture=True,
+                                                       depth=True)}, mtx),
+        "K4": lambda: k4_cases({"compact": base["fn"],
+                                "uniform": variant("uniform", uniform=True)}, mtx),
     }
     order = list(range(len(roots)))
     turns = order + order[::-1]
@@ -321,14 +524,15 @@ def main() -> int:
                  for i, r in enumerate(roots)]
         sass = [sass_loops(lib, SOURCES[kind][1], args.sass_dir) for lib, _ in built]
         for case, (make, close, info) in makers[kind]().items():
-            calls = [make(ctypes.CDLL(str(lib))) for lib, _ in built]
+            calls = [make(_load(lib, root)) for (lib, _), root in zip(built, roots)]
             first = [o.clone() for o in calls[0]()]
-            agree, equal, repeats = [], [], []
+            agree, equal, repeats, diffs = [], [], [], []
             for call in calls:
                 once = [o.clone() for o in call()]
                 agree.append(bool(close(first, once)))
-                equal.append(all(torch.equal(x, y) for x, y in zip(first, once)))
-                repeats.append(all(torch.equal(x, y) for x, y in zip(once, call())))
+                equal.append(_bit_equal(first, once))
+                repeats.append(_bit_equal(once, call()))
+                diffs.append(_diffs(first, once))
             ms = {i: [] for i in order}
             for _ in range(2):
                 for i in turns:
@@ -338,6 +542,8 @@ def main() -> int:
                        "agrees_with_first_tree": agree[i],
                        "bit_equal_to_first_tree": equal[i],
                        "repeats_bit_for_bit": repeats[i], **info}
+                if diffs[i]:
+                    row["differs_from_first_tree"] = diffs[i]
                 print(json.dumps(row), flush=True)
                 if out:
                     out.write(json.dumps(dict(row, ptxas=built[i][1], sass=sass[i])) + "\n")
