@@ -140,7 +140,10 @@ test scene, at tiles (16, 32) and (32, 128) over a 70x100 frame, and at
 the bench shapes (B=64, 400x400, icosphere(5), tile (32, 128), K from the
 counts), where both are timed; so are K9 (the same inputs, with packed
 rows) and K10 (and K7 on the 'v2' route's gathered bins) on the planar
-variants of the test scene's and the bench problem's losses.
+variants of the test scene's and the bench problem's losses.  The raster
+backwards K4, K7, K9 and K10 are timed beside one PyTorch call of the
+same function (``check.bwd_library``, a ``scatter_add_`` by winner slot:
+``library_ms``).
 
 The line before the last is the card; before it, one JSON object with a
 row per kernel.  The last line is ``{"ok": true, "device": {...}}``.

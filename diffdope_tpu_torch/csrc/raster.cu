@@ -1,5 +1,7 @@
 // Bin-table raster forward and backward for Hopper (sm_90a): over the
-// compact table (K3, K4) and over the uniform-K table (K7).
+// compact table (K3, K4) and over the uniform-K table (K7); and the
+// sorted-range raster's forward (K10): K3's stage and tests over the
+// chunks of the sorted table.
 //
 // K3 replaces diffdope_tpu/render/raster_v2.py:_fwd_kernel_v2_compact
 // (-> _fwd_kernel_body, driven by _fwd_from_bins_compact).  K4 replaces
@@ -30,10 +32,11 @@
 // reads; the tests are those of the (pixel, slot) pairs inside the slots'
 // ranges, 15 FP32 operations each (kernels/check.py).  The design keeps
 // the numeric contract: a skipped test could not cover, and every test that
-// runs is test_slot's arithmetic bit for bit (signing and 1/det are exact
-// per-slot work, and the contract's order x*a + (y*b + c) shares y*b + c
-// along a row).  The TPU kernel's quad windows and one-hot matmul gather
-// are not carried over: a row gather is a plain indexed load here.
+// runs is the reference's per-slot arithmetic bit for bit (signing and
+// 1/det are exact per-slot work, and the contract's order x*a + (y*b + c)
+// shares y*b + c along a row).  The TPU kernel's quad windows and one-hot
+// matmul gather are not carried over: a row gather is a plain indexed load
+// here.
 //
 // K4: one block per (16 x 16 tile, hypothesis).  Every slot belongs to
 // exactly one tile, and every pixel's winner lies in its own tile, so the
@@ -55,12 +58,26 @@
 // K3's and K4's: a tile walks only the slots its bin holds, never the
 // padding up to K.
 //
+// K10's forward replaces diffdope_tpu/render/raster_v3.py:_fwd_kernel_v3
+// (driven by raster_gather_rows_v3; its backward is in raster_v3.cu).  The
+// tile's candidates are the 128-slot chunks of the (band, x_min)-sorted
+// table that the chunk gate admits (SortedRange), and a chunk that
+// straddles tiles is a candidate in each: the TPU kernel tests every slot
+// of them (~4.85x the exact bins' slots at the bench shapes).  Here each
+// candidate's rows and columns are taken from its edge planes first
+// (cover_range: they hold over the padded frame and for slivers, where
+// K3's vertex bounds do not), and only the slots whose rows and columns
+// meet the tile are staged, many chunks to a stage (raster_v3_fwd_kernel);
+// the pixels, the stage and the tests are K3's.  So the outputs are the
+// TPU kernel's and the plain twin's on every pixel of the padded frame.
+// Bound: the rows write, as K3's, and the tests inside the slots' ranges.
+//
 // K4 (and the spanning op's bf16 lane, dd_raster_bwd_bf16) reads d_rows in
 // f32 or bf16 and sums in f32; K7's backward takes f32 only and writes each
 // tile's whole bin, the padding past its count included.
 //
 // Numeric contract (build with -fmad=false, no fast math): the reference's
-// f32 operation order, in raster_common.cuh (test_slot, which K10 runs).
+// f32 operation order, as raster_common.cuh states it.
 
 #include <cuda_bf16.h>
 
@@ -95,6 +112,52 @@ struct UniformRange {
   __device__ void operator()(int t, int& base, int& n) const {
     n = min(counts[t], k);
     base = t * k;
+  }
+};
+
+// K10: the chunks [c*kChunk, (c + 1)*kChunk) of the sorted table that
+// tile t walks (the gate of dd::v3_gated), in ascending order.  A warp
+// decides the gate of 32 chunks at once, lane l on chunk c0 + l (one
+// coalesced load of the tile's rlo_tc/rhi_tc row), and every warp of the
+// block gets the same ballot: the block's threads must be whole warps.
+struct SortedRange {
+  const int* clo;
+  const int* chi;
+  const int* rlo_tc;
+  const int* rhi_tc;
+  int nc, ntx, th;
+  struct Cursor {
+    const int* lo_t;  // the tile's rlo_tc and rhi_tc rows
+    const int* hi_t;
+    int c0, end, y0, y1;
+    unsigned mask;  // the gated chunks of [c0, c0 + 32) not yet walked
+    __device__ unsigned window() const {
+      const int c = c0 + (threadIdx.x & 31);
+      bool g = false;
+      if (c < end) {
+        const int lo = lo_t[c], hi = hi_t[c];
+        g = lo <= hi && lo <= y1 && hi >= y0;
+      }
+      return __ballot_sync(0xffffffffu, g);
+    }
+    // the next chunk's first slot
+    __device__ bool next(int& base) {
+      while (mask == 0) {
+        c0 += 32;
+        if (c0 >= end) return false;
+        mask = window();
+      }
+      base = (c0 + __ffs(mask) - 1) * dd::kChunk;
+      mask &= mask - 1;
+      return true;
+    }
+  };
+  __device__ Cursor cursor(int t) const {
+    const int ty = t / ntx;
+    Cursor c{rlo_tc + (size_t)t * nc, rhi_tc + (size_t)t * nc, clo[ty], chi[ty], ty * th,
+             ty * th + th - 1, 0u};
+    c.mask = c.window();
+    return c;
   }
 };
 
@@ -146,8 +209,10 @@ __device__ __forceinline__ void store_px(int* p, const int (&v)[4]) {
   *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
 }
 
-// dd::write_winner for a thread's kPix consecutive pixels pix.. of
-// hypothesis b, each lane of the rows in one vector store
+// writes a thread's kPix consecutive pixels pix.. of hypothesis b: ids
+// (+1, 0 = background), win (the winner's slot, -1) and the winner's 32
+// lanes of table tb (B's slice, ``tot`` slots a lane; zeros on
+// background), each lane of the rows in one vector store
 __device__ __forceinline__ void write_winners(const Best (&best)[kPix],
                                               const float* __restrict__ tb,
                                               int tot, size_t plane_px, int b,
@@ -180,8 +245,8 @@ __device__ __forceinline__ void write_winners(const Best (&best)[kPix],
 // slot's tile-relative row and column ranges, empty when det == 0); then a
 // warp skips a slot whose rows miss its rows, a thread one whose rows or
 // columns miss its pixels, and a thread that tests computes y*b + c of
-// each plane once for its kPix pixels.  Every test that runs is test_slot's
-// arithmetic, bit for bit.
+// each plane once for its kPix pixels.  Every test that runs is the
+// reference's per-slot arithmetic, bit for bit.
 template <class Range>
 __global__ void raster_fwd_kernel(
     const float* __restrict__ bins, Range range, int tot, int ntx, int th,
@@ -217,7 +282,7 @@ __global__ void raster_fwd_kernel(
       const float* src = tb + base + s0 + j;
       auto lane = [&](int k) { return src[(size_t)k * tot]; };
       const float det = lane(12);
-      if (det == 0.0f) {  // test_slot's early return: an empty row range
+      if (det == 0.0f) {  // no pixel is covered: an empty row range
         st_m[j] = make_float4(0.0f, 0.0f, pack_range(th, -1, th), 0.0f);
         continue;
       }
@@ -262,6 +327,255 @@ __global__ void raster_fwd_kernel(
       }
     }
   }
+  write_winners(best, tb, tot, (size_t)hc * wc, b, (size_t)(r0 + lr) * wc + c0 + lc,
+                ids, win, rows);
+}
+
+// The frame pixel rows [rlo, rhi] and columns [clo, chi] at which a
+// slot's pre-signed edge planes e_k = x*a_k + (y*b_k + c_k) can all test
+// >= 0 in f32 (K3's arithmetic), taken from the planes themselves.  An f32
+// e_k >= 0 means an exact e_k >= -d_k, d_k = 4u (xm |a_k| + ym |b_k| +
+// |c_k|) (three roundings; |x| <= xm, |y| <= ym over the padded frame), so
+// the pixel lies in the triangle that the three relaxed lines bound.  Its
+// corners are computed in f64 (the signs of the 2x2 determinants exactly:
+// f32 products are exact in f64), and a hundredth of a pixel of margin
+// takes up the rounding of pixel NDC.  Lines that bound no triangle
+// (parallel, or an open wedge, as when a corner lies behind the camera)
+// or non-finite values give every pixel.  The vertex bounds of lanes
+// 28-31 (K3's rule) do not hold for a sliver, whose f32 planes can cover
+// pixels past its corners (phase 11 of chip_smoke.py met one 8 rows off).
+__device__ __forceinline__ void cover_range(const float (&a)[3], const float (&b)[3],
+                                            const float (&c)[3], double xm, double ym,
+                                            int fh, int fw, int& rlo, int& rhi, int& clo,
+                                            int& chi) {
+  constexpr double kU = 1.0 / (1 << 24);  // f32 unit roundoff
+  constexpr double kAll = 1 << 20;        // past any pixel
+  constexpr double kSlack = 0.01;         // pixels
+  rlo = clo = -(1 << 20);
+  rhi = chi = 1 << 20;
+  double cc[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    cc[k] = c[k] + 4.0 * kU * (xm * fabs((double)a[k]) + ym * fabs((double)b[k]) +
+                               fabs((double)c[k]));
+  double x0 = CUDART_INF, x1 = -CUDART_INF, y0 = CUDART_INF, y1 = -CUDART_INF;
+  int pos = 0, neg = 0;
+  bool finite = true;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {  // lines k and k + 1 meet at one corner
+    const int j = (k + 1) % 3;
+    const double d = (double)a[k] * b[j] - (double)a[j] * b[k];
+    pos += d > 0.0;
+    neg += d < 0.0;
+    const double r = __drcp_rn(d);
+    const double cx = ((double)b[k] * cc[j] - (double)b[j] * cc[k]) * r;
+    const double cy = ((double)a[j] * cc[k] - (double)a[k] * cc[j]) * r;
+    finite = finite && fabs(cx) < kAll && fabs(cy) < kAll;
+    x0 = fmin(x0, cx);
+    x1 = fmax(x1, cx);
+    y0 = fmin(y0, cy);
+    y1 = fmax(y1, cy);
+  }
+  if ((pos != 3 && neg != 3) || !finite) return;  // no triangle: every pixel
+  // pixel r's NDC is (2r + 1)/n - 1, within 2^-22 (< 1e-3 pixel) in f32
+  auto px = [](double v) { return (int)fmin(fmax(v, -kAll), kAll); };
+  rlo = px(floor(((y0 + 1.0) * fh - 1.0) * 0.5 - kSlack));
+  rhi = px(ceil(((y1 + 1.0) * fh - 1.0) * 0.5 + kSlack));
+  clo = px(floor(((x0 + 1.0) * fw - 1.0) * 0.5 - kSlack));
+  chi = px(ceil(((x1 + 1.0) * fw - 1.0) * 0.5 + kSlack));
+}
+
+// K10 forward: one block of kV3Threads threads per (16 x 16 tile,
+// hypothesis), the pixels, the stage and the tests of K3/K7's body above;
+// only the staging differs.  The tile's candidates are the gated chunks of
+// the sorted table (SortedRange).  For each chunk a thread loads the det
+// and the box (the pre-pass's cover_range) of its kCand candidates (j =
+// i*kV3Threads + tid) at once; a slot whose rows or columns miss the whole
+// tile cannot win in it and is not staged; the others fill the stage in
+// the order of a block prefix sum of the threads' survivors, from as many
+// chunks as fit, and the stage keeps each survivor's table slot for win.
+// The order in which slots are tested does not change the (z, id)
+// minimum: ids are unique in the table.  The boxes hold over the whole
+// padded frame (nty*16, ntx*16), padding included, so every pixel gets the
+// plain twin's winner.  (K3's body itself, walked over segments, measured
+// 3.5% slower for K3 and 7% for K7: the two keep their loop.)
+constexpr int kV3Th = 16, kV3Tw = 16;               // K10's tile
+constexpr int kV3Threads = kV3Th * kV3Tw / kPix;    // 64: two warps
+constexpr int kCand = dd::kChunk / kV3Threads;      // a chunk's candidates a thread
+static_assert(dd::kChunk == kStage, "a chunk's survivors fit one stage");
+
+// (rlo, rhi) as one word, each clamped to 16 bits (frames below 2^15
+// pixels a side)
+__device__ __forceinline__ int pack_box(int lo, int hi) {
+  lo = min(max(lo, -32768), 32767);
+  hi = min(max(hi, -32768), 32767);
+  return (int)(((unsigned)lo & 0xffffu) | ((unsigned)hi << 16));
+}
+
+__device__ __forceinline__ void unpack_box(int v, int& lo, int& hi) {
+  lo = (int)(short)(v & 0xffff);
+  hi = v >> 16;
+}
+
+// K10's pre-pass: one thread per (hypothesis, slot) of the sorted table,
+// its frame rows and columns (cover_range over the padded frame hc x wc)
+// packed into boxes[b*tot + slot]: the f64 work once per slot, not once
+// per tile that walks it
+__global__ void raster_v3_boxes_kernel(const float* __restrict__ bins, int tot, int hc,
+                                       int wc, int fh, int fw, int2* __restrict__ boxes) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = blockIdx.y;
+  if (j >= tot) return;
+  const float* src = bins + (size_t)b * kLanes * tot + j;
+  const float sg = src[(size_t)12 * tot] > 0.0f ? 1.0f : -1.0f;
+  float pa[3], pb[3], pc[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    pa[k] = src[(size_t)(3 * k) * tot] * sg;
+    pb[k] = src[(size_t)(3 * k + 1) * tot] * sg;
+    pc[k] = src[(size_t)(3 * k + 2) * tot] * sg;
+  }
+  // |x| and |y| over the padded frame
+  const double xm = fmax(1.0, (2.0 * wc - 1.0) / fw - 1.0);
+  const double ym = fmax(1.0, (2.0 * hc - 1.0) / fh - 1.0);
+  int rlo, rhi, clo, chi;
+  cover_range(pa, pb, pc, xm, ym, fh, fw, rlo, rhi, clo, chi);
+  boxes[(size_t)b * tot + j] = make_int2(pack_box(rlo, rhi), pack_box(clo, chi));
+}
+
+__global__ void __launch_bounds__(kV3Threads)
+    raster_v3_fwd_kernel(const float* __restrict__ bins, const int2* __restrict__ boxes,
+                         SortedRange range, int tot, int ntx, int hc, int wc, int fh,
+                         int fw, int* __restrict__ ids, int* __restrict__ win,
+                         float* __restrict__ rows) {
+  __shared__ float4 st_e0[kStage];  // a0 b0 c0 a1, pre-signed by sign(det)
+  __shared__ float4 st_e1[kStage];  // b1 c1 a2 b2
+  __shared__ float4 st_z[kStage];   // c2, the z plane
+  __shared__ float4 st_m[kStage];   // 1/det, id, row range, column range
+  __shared__ int st_slot[kStage];   // the staged slot's index in the table
+  __shared__ int st_warp[2][kV3Threads / 32];  // survivors a warp, two rounds in turn
+  const int t = blockIdx.x;
+  const int b = blockIdx.y;
+  const int r0 = (t / ntx) * kV3Th, c0 = (t % ntx) * kV3Tw;  // the tile's origin
+  const int lr = kPix * threadIdx.x / kV3Tw;                  // tile-relative row
+  const int lc = kPix * threadIdx.x % kV3Tw;                  // first column
+  const int lane_id = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr0 = kPix * 32 * warp / kV3Tw, wr1 = wr0 + kPix * 32 / kV3Tw - 1;  // warp's rows
+  const float y = dd::ndc(r0 + lr, fh);
+  float x[kPix];
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) x[p] = dd::ndc(c0 + lc + p, fw);
+  auto cur = range.cursor(t);
+  const float* tb = bins + (size_t)b * kLanes * tot;
+
+  Best best[kPix];
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) best[p] = dd::none();
+  // the m staged slots against the thread's pixels: K3's loop
+  auto test = [&](int m) {
+    for (int j = 0; j < m; ++j) {
+      const float4 mj = st_m[j];
+      int lo, hi;
+      unpack_range(mj.z, lo, hi);
+      if (hi < wr0 || lo > wr1) continue;  // the same for the whole warp
+      if (lr < lo || lr > hi) continue;
+      unpack_range(mj.w, lo, hi);
+      if (lc + kPix - 1 < lo || lc > hi) continue;
+      const float4 e0 = st_e0[j], e1 = st_e1[j], ez = st_z[j];
+      const float yb0 = __fadd_rn(__fmul_rn(y, e0.y), e0.z);
+      const float yb1 = __fadd_rn(__fmul_rn(y, e1.x), e1.y);
+      const float yb2 = __fadd_rn(__fmul_rn(y, e1.w), ez.x);
+      const float ybz = __fadd_rn(__fmul_rn(y, ez.z), ez.w);
+#pragma unroll
+      for (int p = 0; p < kPix; ++p) {
+        const float a = __fadd_rn(__fmul_rn(x[p], e0.x), yb0);
+        const float c = __fadd_rn(__fmul_rn(x[p], e0.w), yb1);
+        const float d = __fadd_rn(__fmul_rn(x[p], e1.z), yb2);
+        if (!(a >= 0.0f && c >= 0.0f && d >= 0.0f)) continue;
+        const float z = __fmul_rn(__fadd_rn(__fmul_rn(x[p], ez.y), ybz), mj.x);
+        if (!(z >= -1.0f && z <= 1.0f)) continue;
+        if (z < best[p].z || (z == best[p].z && mj.y < best[p].id)) {
+          best[p].z = z;
+          best[p].id = mj.y;
+          best[p].slot = st_slot[j];
+        }
+      }
+    }
+  };
+
+  int base, m = 0, round = 0;
+  while (cur.next(base)) {
+    // the thread's candidates: det and the frame rows and columns each can
+    // cover (cover_range, from the pre-pass), all loads at once
+    float det[kCand];
+    int2 box[kCand];
+#pragma unroll
+    for (int i = 0; i < kCand; ++i) {
+      const int j = base + i * kV3Threads + threadIdx.x;
+      det[i] = tb[(size_t)12 * tot + j];
+      box[i] = boxes[(size_t)b * tot + j];
+    }
+    // those whose rows and columns meet the tile (det 0: no pixel is
+    // covered), and their tile-relative ranges
+    unsigned keep = 0;
+    int rlo[kCand], rhi[kCand], clo[kCand], chi[kCand];
+#pragma unroll
+    for (int i = 0; i < kCand; ++i) {
+      unpack_box(box[i].x, rlo[i], rhi[i]);
+      unpack_box(box[i].y, clo[i], chi[i]);
+      rlo[i] -= r0;
+      rhi[i] -= r0;
+      clo[i] -= c0;
+      chi[i] -= c0;
+      if (det[i] != 0.0f && rlo[i] <= rhi[i] && rhi[i] >= 0 && rlo[i] <= kV3Th - 1 &&
+          clo[i] <= chi[i] && chi[i] >= 0 && clo[i] <= kV3Tw - 1)
+        keep |= 1u << i;
+    }
+    // a block prefix sum of the survivors, in thread order
+    const int cnt = __popc(keep);
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane_id >= o) incl += v;
+    }
+    if (lane_id == 31) st_warp[round][warp] = incl;
+    __syncthreads();  // the stage's writes before it are done too
+    int pos = incl - cnt, total = 0;
+#pragma unroll
+    for (int w = 0; w < kV3Threads / 32; ++w) {
+      const int v = st_warp[round][w];
+      total += v;
+      if (w < warp) pos += v;
+    }
+    round ^= 1;
+    if (m + total > kStage) {  // the same for the whole block
+      test(m);
+      __syncthreads();
+      m = 0;
+    }
+    pos += m;
+    // stage the survivors as K3 does: the planes pre-signed, the z plane,
+    // 1/det, the id and the packed ranges
+#pragma unroll
+    for (int i = 0; i < kCand; ++i) {
+      if (!(keep >> i & 1u)) continue;
+      const int j = base + i * kV3Threads + threadIdx.x;
+      const float* src = tb + j;
+      auto lane = [&](int k) { return src[(size_t)k * tot]; };
+      const float sg = det[i] > 0.0f ? 1.0f : -1.0f;
+      st_e0[pos] = make_float4(lane(0) * sg, lane(1) * sg, lane(2) * sg, lane(3) * sg);
+      st_e1[pos] = make_float4(lane(4) * sg, lane(5) * sg, lane(6) * sg, lane(7) * sg);
+      st_z[pos] = make_float4(lane(8) * sg, lane(9), lane(10), lane(11));
+      st_m[pos] = make_float4(__fdiv_rn(1.0f, det[i]), lane(13),
+                              pack_range(rlo[i], rhi[i], kV3Th),
+                              pack_range(clo[i], chi[i], kV3Tw));
+      st_slot[pos++] = j;
+    }
+    m += total;
+  }
+  __syncthreads();
+  test(m);
   write_winners(best, tb, tot, (size_t)hc * wc, b, (size_t)(r0 + lr) * wc + c0 + lc,
                 ids, win, rows);
 }
@@ -556,4 +870,27 @@ extern "C" int dd_raster_uniform_bwd(const float* d_rows, const int* win,
                                      int tw, float* d_bins, void* stream) {
   return raster_bwd_launch(d_rows, win, UniformHeld{k}, k, 0, B, nty * ntx * k, nty, ntx,
                            th, tw, d_bins, (cudaStream_t)stream);
+}
+
+// K10 forward: the sorted table packed_s (B, 32, tp) over the chunks each
+// tile walks (SortedRange), compacted to the slots whose boxes meet the
+// tile; the frame padded to whole 16 x 16 tiles (nty*16, ntx*16), below
+// 2^15 pixels a side, pixel NDC over the real (fh, fw) frame; boxes is
+// scratch of B*tp int2 for the pre-pass
+extern "C" int dd_raster_v3_fwd(const float* packed_s, const int* clo,
+                                const int* chi, const int* rlo_tc,
+                                const int* rhi_tc, int B, int tp, int nty,
+                                int ntx, int th, int tw, int fh, int fw,
+                                int* ids, int* win, float* rows, int* boxes,
+                                void* stream) {
+  const int hc = nty * kV3Th, wc = ntx * kV3Tw;
+  if (th != kV3Th || tw != kV3Tw || tp % dd::kChunk || hc > 32767 || wc > 32767)
+    return (int)cudaErrorInvalidValue;
+  int2* box = reinterpret_cast<int2*>(boxes);
+  raster_v3_boxes_kernel<<<dim3((tp + 255) / 256, B), 256, 0, (cudaStream_t)stream>>>(
+      packed_s, tp, hc, wc, fh, fw, box);
+  raster_v3_fwd_kernel<<<dim3(nty * ntx, B), kV3Threads, 0, (cudaStream_t)stream>>>(
+      packed_s, box, SortedRange{clo, chi, rlo_tc, rhi_tc, tp / dd::kChunk, ntx, kV3Th},
+      tp, ntx, hc, wc, fh, fw, ids, win, rows);
+  return (int)cudaGetLastError();
 }

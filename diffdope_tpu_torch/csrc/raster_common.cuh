@@ -1,9 +1,7 @@
 // Device code shared by the bin-table rasters (K3, K7: raster.cu) and the
-// sorted-range raster (K10: raster_v3.cu): pixel NDC, the pre-signed edge
-// planes, the per-slot z test with its (z, triangle id) lexicographic
-// minimum, and the winner's write.  K3/K7 stage the planes pre-signed and
-// run the same test's arithmetic over four pixels of a row (raster.cu);
-// test_slot and write_winner are K10's.
+// sorted-range raster (K10: its forward in raster.cu, its backward in
+// raster_v3.cu): pixel NDC, the best slot at a pixel, and the sorted
+// table's chunk gate.
 //
 // Numeric contract (build with -fmad=false, no fast math): coverage
 // e = x*a + (y*b + c) with a, b, c pre-scaled by sign(det), z = zlin *
@@ -18,18 +16,12 @@
 namespace dd {
 
 constexpr int kLanes = 32;
-constexpr int kIdLanes = 14;  // lanes 0..12 (coverage, z) and 13 (id)
+constexpr int kChunk = 128;  // slots a chunk of the sorted table (raster_v3.K_CHUNK)
 
 __device__ __forceinline__ float ndc(int pix, int frame) {
   return __fsub_rn(
       __fdiv_rn(__fadd_rn(__fmul_rn(2.0f, (float)pix), 1.0f), (float)frame),
       1.0f);
-}
-
-// e = x*a + (y*b + c), each product and sum rounded (no FMA)
-__device__ __forceinline__ float plane(float x, float y, float a, float b,
-                                       float c) {
-  return __fadd_rn(__fmul_rn(x, a), __fadd_rn(__fmul_rn(y, b), c));
 }
 
 // the best slot so far at one pixel; start from none()
@@ -41,52 +33,19 @@ struct Best {
 
 __device__ __forceinline__ Best none() { return Best{CUDART_INF_F, 0.0f, -1}; }
 
-// tests staged slot j (lanes st[lane][j], stride kStage) at NDC (x, y) and
-// keeps the (z, id) lexicographic minimum among covered slots with
-// |z| <= 1; ``slot`` is the slot's index in the table
-template <int kStage>
-__device__ __forceinline__ void test_slot(const float (*st)[kStage], int j,
-                                          int slot, float x, float y,
-                                          Best& best) {
-  const float det = st[12][j];
-  if (det == 0.0f) return;
-  const float sg = det > 0.0f ? 1.0f : -1.0f;
-  const float e0 = plane(x, y, st[0][j] * sg, st[1][j] * sg, st[2][j] * sg);
-  const float e1 = plane(x, y, st[3][j] * sg, st[4][j] * sg, st[5][j] * sg);
-  const float e2 = plane(x, y, st[6][j] * sg, st[7][j] * sg, st[8][j] * sg);
-  if (!(e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f)) return;
-  const float zlin = plane(x, y, st[9][j], st[10][j], st[11][j]);
-  const float z = __fmul_rn(zlin, __fdiv_rn(1.0f, det));
-  if (!(z >= -1.0f && z <= 1.0f)) return;
-  const float id = st[13][j];
-  if (z < best.z || (z == best.z && id < best.id)) {
-    best.z = z;
-    best.id = id;
-    best.slot = slot;
-  }
-}
-
-// writes pixel ``pix`` of hypothesis b: ids (+1, 0 = background), win (the
-// winner's slot, -1) and the winner's 32 lanes of table tb (B's slice,
-// ``tot`` slots a lane) into the planar rows (zeros on background)
-__device__ __forceinline__ void write_winner(const Best& best,
-                                             const float* __restrict__ tb,
-                                             int tot, size_t plane_px,
-                                             int b, size_t pix,
-                                             int* __restrict__ ids,
-                                             int* __restrict__ win,
-                                             float* __restrict__ rows) {
-  ids[(size_t)b * plane_px + pix] = best.slot >= 0 ? (int)best.id + 1 : 0;
-  win[(size_t)b * plane_px + pix] = best.slot;
-  float* out = rows + (size_t)b * kLanes * plane_px + pix;
-  if (best.slot >= 0) {
-    const float* src = tb + best.slot;
-#pragma unroll
-    for (int k = 0; k < kLanes; ++k) out[k * plane_px] = src[(size_t)k * tot];
-  } else {
-#pragma unroll
-    for (int k = 0; k < kLanes; ++k) out[k * plane_px] = 0.0f;
-  }
+// whether K10 walks chunk c at tile t (row ty, first pixel row y0, th
+// rows): c in the row's [clo, chi) and the chunk's row interval at the
+// tile (rlo_tc, rhi_tc: (tiles, nc), empty off its x range) not empty and
+// meeting the tile's rows: the gate (raster_v3._gate); its four loads go
+// out together
+__device__ __forceinline__ bool v3_gated(const int* __restrict__ clo,
+                                         const int* __restrict__ chi,
+                                         const int* __restrict__ rlo_tc,
+                                         const int* __restrict__ rhi_tc, int nc,
+                                         int t, int ty, int c, int y0, int th) {
+  const int a = clo[ty], z = chi[ty];
+  const int lo = rlo_tc[(size_t)t * nc + c], hi = rhi_tc[(size_t)t * nc + c];
+  return (c >= a) & (c < z) & (lo <= hi) & (lo <= y0 + th - 1) & (hi >= y0);
 }
 
 }  // namespace dd

@@ -86,8 +86,8 @@ _SIGNATURES = {
     # (d_rows, win, counts, B, K, nty, ntx, th, tw, d_bin, stream)
     "dd_gather_rows_bwd": [_P] * 3 + [_I] * 6 + [_P] * 2,
     # (packed_s, clo, chi, rlo_tc, rhi_tc, B, tp, nty, ntx, th, tw, fh, fw,
-    #  ids, win, rows, stream)
-    "dd_raster_v3_fwd": [_P] * 5 + [_I] * 8 + [_P] * 4,
+    #  ids, win, rows, boxes (scratch), stream)
+    "dd_raster_v3_fwd": [_P] * 5 + [_I] * 8 + [_P] * 5,
     # (d_rows, win, clo, chi, rlo_tc, rhi_tc, B, tp, nty, ntx, th, tw,
     #  d_packed_s, stream)
     "dd_raster_v3_bwd": [_P] * 6 + [_I] * 6 + [_P] * 2,

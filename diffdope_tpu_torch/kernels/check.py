@@ -36,8 +36,8 @@ gradient.  The operation counts are counted from the CUDA sources, as
 estimates, per element or (K5/K6) per pixel and pair at the call's ids.
 
 Library: where one PyTorch call computes a kernel's function (the raster
-backwards K4, K7 and K10: :func:`bwd_library`), the timed rows carry its
-time as ``library_ms``, a yardstick the port never calls.
+backwards K4, K7, K9 and K10: :func:`bwd_library`), the timed rows carry
+its time as ``library_ms``, a yardstick the port never calls.
 """
 
 from __future__ import annotations
@@ -154,7 +154,7 @@ KERNELS = {
         "diffdope_tpu/render/gather_rows.py:191",
     ),
     "K10_raster_v3_fwd": (
-        "diffdope_tpu_torch/csrc/raster_v3.cu",
+        "diffdope_tpu_torch/csrc/raster.cu",
         "diffdope_tpu/render/raster_v3.py:161",
     ),
     "K10_raster_v3_bwd": (
@@ -675,7 +675,7 @@ def check_kernels(fn, mtx: torch.Tensor, d_sums: Optional[torch.Tensor] = None,
 
 
 def bwd_library(d_rows: torch.Tensor, win: torch.Tensor, n_slots: int) -> torch.Tensor:
-    """K4's function (and K7's and K10's) in one PyTorch call, the library
+    """K4's function (and K7's, K9's and K10's) in one PyTorch call, the library
     yardstick of the kernel table (the port never calls it): ``scatter_add_``
     of d_rows (bf16 widened to f32) into a zeroed (B, 32, n_slots + 1) by
     each pixel's winner slot, background pixels into the extra slot; the
@@ -900,7 +900,9 @@ def check_gather_rows(packed: torch.Tensor, tile_idx: torch.Tensor, counts: torc
     The backward reads win, d_rows at the foreground and writes the slots
     held.  With ``reps``, ms over ``reps`` launches after one warm-up, and
     plain_ms: the plain forward's one call that the check makes (timed),
-    the plain backward's over two."""
+    the plain backward's over two; the backward's library_ms is
+    :func:`bwd_library` on the same winner-slot map (the slots' sums lane
+    by lane, (B, 32, tiles x K), where K9 writes them (B, tiles, K, 32))."""
     b, k = packed.shape[0], tile_idx.shape[1]
     (h, w), (th, tw) = resolution, tile_hw
     nt = tile_idx.shape[0]
@@ -950,4 +952,5 @@ def check_gather_rows(packed: torch.Tensor, tile_idx: torch.Tensor, counts: torc
             d_rows, win, counts, k, tile_hw), reps)
         bwd["plain_ms"] = _time_ms(lambda: gather_rows.gather_rows_bwd_plain(
             d_rows, win, nt, k), 2)
+        bwd["library_ms"] = _time_ms(lambda: bwd_library(d_rows, win, nt * k), reps)
     return [fwd, bwd]

@@ -22,8 +22,10 @@ where bins would overflow.
   each sorted slot the sum of d_rows over the pixels it wins; the op
   unpermutes it with ``rank``.
 
-The wrappers take their plain versions for CPU tensors and launch
-``csrc/raster_v3.cu`` for CUDA tensors; any other device raises.
+The wrappers take their plain versions for CPU tensors and launch the
+kernels for CUDA tensors (the forward is K3's body over the gated chunks,
+``csrc/raster.cu``; the backward ``csrc/raster_v3.cu``); any other device
+raises.
 """
 
 from __future__ import annotations
@@ -44,9 +46,11 @@ from diffdope_tpu_torch.render.shade import PACKED_WIDTH
 
 #: sort-key row band (pixels), the reference's default
 BAND_PX = 4
-#: sorted-table chunk (slots): the K10 kernels stage and gate one chunk at
-#: a time, and the backward runs one thread per slot of a chunk
+#: sorted-table chunk (slots): the K10 kernels gate one chunk at a time,
+#: and the backward sums one chunk's slots a thread block
 K_CHUNK = 128
+#: the tile the kernels take (the plain versions take any)
+_KERNEL_TILE = (16, 16)
 _EMPTY_KEY = 2 ** 30
 
 
@@ -167,6 +171,49 @@ def _gate(tables: Tables, nty: int, ntx: int, th: int) -> torch.Tensor:
     return in_range & (lo <= hi) & (lo <= y0 + th - 1) & (hi >= y0)
 
 
+def cover_ranges(packed_s: torch.Tensor, resolution, padded_hw):
+    """(rlo, rhi, clo, chi), int64 (B, n_slots): the frame pixel rows and
+    columns at which each slot of a table (B, 32, n_slots) can be covered,
+    taken from its f32 edge planes, pre-signed by sign(det) as K3's test
+    takes them: the plain twin of K10's staging rule (``cover_range`` in
+    ``csrc/raster.cu``), in float64.  A test e_k = x*a_k + (y*b_k + c_k) >= 0
+    in f32 means an exact e_k >= -4u (xm |a_k| + ym |b_k| + |c_k|) (u the
+    f32 unit roundoff, |x| <= xm, |y| <= ym over the padded frame), so the
+    pixel lies in the triangle the three relaxed lines bound; its corners'
+    box, a hundredth of a pixel wider, gives the rows and columns.  Lines that bound no
+    triangle, or non-finite corners, give every pixel (+-2**20).  Unlike
+    the vertex bounds of lanes 28-31 (``raster.slot_ranges``), this holds
+    for slivers, whose f32 planes can cover pixels past their corners."""
+    (h, w), (hp, wp) = resolution, padded_hw
+    xm, ym = max(1.0, (2.0 * wp - 1.0) / w - 1.0), max(1.0, (2.0 * hp - 1.0) / h - 1.0)
+    far = 2.0 ** 20
+    sg = torch.where(packed_s[:, 12] > 0.0, 1.0, -1.0)
+    a, b, c = ([(packed_s[:, 3 * k + m] * sg).double() for k in range(3)] for m in range(3))
+    cc = [c[k] + 4.0 * 2.0 ** -24 * (xm * a[k].abs() + ym * b[k].abs() + c[k].abs())
+          for k in range(3)]
+    d, cx, cy = [], [], []
+    for k in range(3):
+        j = (k + 1) % 3
+        d.append(a[k] * b[j] - a[j] * b[k])
+        cx.append((b[k] * cc[j] - b[j] * cc[k]) / d[k])
+        cy.append((a[j] * cc[k] - a[k] * cc[j]) / d[k])
+    d, cx, cy = torch.stack(d), torch.stack(cx), torch.stack(cy)
+    bounded = (d > 0).all(dim=0) | (d < 0).all(dim=0)
+    finite = ((cx.abs() < far) & (cy.abs() < far)).all(dim=0)
+    every = ~(bounded & finite)
+
+    def px(v, lo):
+        return torch.where(every, -far if lo else far, v.clamp(-far, far)).long()
+
+    # pixel r's NDC is (2r + 1)/n - 1, within a thousandth of a pixel in f32
+    x0, x1 = cx.amin(dim=0), cx.amax(dim=0)
+    y0, y1 = cy.amin(dim=0), cy.amax(dim=0)
+    return (px(torch.floor(((y0 + 1.0) * h - 1.0) * 0.5 - 0.01), True),
+            px(torch.ceil(((y1 + 1.0) * h - 1.0) * 0.5 + 0.01), False),
+            px(torch.floor(((x0 + 1.0) * w - 1.0) * 0.5 - 0.01), True),
+            px(torch.ceil(((x1 + 1.0) * w - 1.0) * 0.5 + 0.01), False))
+
+
 def _check_tables(packed_s, tables: Tables, resolution, tile_hw):
     _check(packed_s, "packed_s", torch.float32, 3, packed_s.device)
     if packed_s.shape[1] != PACKED_WIDTH or packed_s.shape[2] != tables.t_pad:
@@ -190,28 +237,31 @@ def raster_v3_fwd(packed_s: torch.Tensor, tables: Tables, resolution: Tuple[int,
     (B, 32, Hp, Wp), win (B, Hp, Wp) int32 sorted slot, -1 background).
 
     CPU tensors take :func:`raster_v3_fwd_plain`; CUDA tensors launch the
-    kernel (csrc/raster_v3.cu), anything else raises."""
+    kernel (csrc/raster.cu), anything else raises."""
     nty, ntx = _check_tables(packed_s, tables, resolution, tile_hw)
     if packed_s.device.type == "cpu":
         return raster_v3_fwd_plain(packed_s, tables, resolution, tile_hw)
     if packed_s.device.type != "cuda":
         raise ValueError(f"raster_v3_fwd: unsupported device {packed_s.device}")
     (h, w), (th, tw) = resolution, tile_hw
-    if th * tw > 1024 or tables.k_chunk != K_CHUNK:
-        raise ValueError(f"K10 takes tiles of at most 1024 pixels and chunks of "
-                         f"{K_CHUNK} (tile {tile_hw}, chunk {tables.k_chunk})")
+    if tuple(tile_hw) != _KERNEL_TILE or tables.k_chunk != K_CHUNK:
+        raise ValueError(f"K10 takes {_KERNEL_TILE} tiles and chunks of {K_CHUNK} "
+                         f"(tile {tile_hw}, chunk {tables.k_chunk})")
+    if max(nty * th, ntx * tw) >= 2 ** 15:
+        raise ValueError(f"K10's forward takes frames below {2 ** 15} pixels a side")
     b = packed_s.shape[0]
     dev = packed_s.device
     ids = torch.empty((b, nty * th, ntx * tw), dtype=torch.int32, device=dev)
     win = torch.empty_like(ids)
     rows = torch.empty((b, PACKED_WIDTH, nty * th, ntx * tw), dtype=torch.float32,
                        device=dev)
+    boxes = torch.empty((b, tables.t_pad, 2), dtype=torch.int32, device=dev)  # scratch
     kernels.launch(
         "dd_raster_v3_fwd", "raster_v3_fwd",
         packed_s.data_ptr(), tables.clo.data_ptr(), tables.chi.data_ptr(),
         tables.rlo_tc.data_ptr(), tables.rhi_tc.data_ptr(),
         b, tables.t_pad, nty, ntx, th, tw, h, w,
-        ids.data_ptr(), win.data_ptr(), rows.data_ptr(),
+        ids.data_ptr(), win.data_ptr(), rows.data_ptr(), boxes.data_ptr(),
     )
     return ids, rows, win
 
@@ -259,9 +309,11 @@ def raster_v3_bwd(d_rows: torch.Tensor, win: torch.Tensor, tables: Tables,
     if d_rows.device.type != "cuda":
         raise ValueError(f"raster_v3_bwd: unsupported device {d_rows.device}")
     th, tw = tile_hw
-    if th * tw > 1024 or tables.k_chunk != K_CHUNK:
-        raise ValueError(f"K10 takes tiles of at most 1024 pixels and chunks of "
-                         f"{K_CHUNK} (tile {tile_hw}, chunk {tables.k_chunk})")
+    if tuple(tile_hw) != _KERNEL_TILE or tables.k_chunk != K_CHUNK:
+        raise ValueError(f"K10 takes {_KERNEL_TILE} tiles and chunks of {K_CHUNK} "
+                         f"(tile {tile_hw}, chunk {tables.k_chunk})")
+    if d_rows.data_ptr() % 16:
+        raise ValueError("raster_v3_bwd: d_rows must be 16-byte aligned (float4 loads)")
     d_packed_s = torch.empty((b, PACKED_WIDTH, tables.t_pad), dtype=torch.float32,
                              device=d_rows.device)
     kernels.launch(

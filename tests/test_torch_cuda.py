@@ -657,3 +657,117 @@ def test_k4_edge_tiles_match_plain_and_repeat_on_card(cuda, lane, kc):
         end = int(((off_c + used) * kc).max())
         assert end < n_slots and not got[:, :, end:].any()
     assert torch.equal(got.view(torch.int32), run().view(torch.int32))
+
+
+@pytest.fixture(scope="module")
+def v3_table(cuda, params):
+    """The 'v3' bench problem at the test scene's three distinct poses: the
+    fused loss, the poses, the sorted table and its tables."""
+    from diffdope_tpu_torch.render import raster_v3
+    from diffdope_tpu_torch.render.pipeline import TILE_HW
+
+    fn = bench_problem(RES, subdiv=2, batch=B, device=cuda, route="v3")["fn"]
+    mtx, _, _ = pose_matrix(params)
+    with torch.no_grad():
+        pl = fn.planar(mtx)
+    tables = raster_v3.prepare(pl.packed, RES, TILE_HW)
+    return fn, mtx, raster_v3.sorted_table(pl.packed, tables), tables
+
+
+def test_k10_repeats_bit_for_bit_on_card(v3_table):
+    """K10's forward (ids, win, rows) and backward (under a seeded normal
+    d_rows) give the same bits on a second launch."""
+    from diffdope_tpu_torch.render import raster_v3
+    from diffdope_tpu_torch.render.pipeline import TILE_HW
+
+    _, _, packed_s, tables = v3_table
+    first = [o.clone() for o in raster_v3.raster_v3_fwd(packed_s, tables, RES, TILE_HW)]
+    again = raster_v3.raster_v3_fwd(packed_s, tables, RES, TILE_HW)
+    assert int((first[0] > 0).sum()) > 1000
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(first, again))
+    win = first[2]
+    gen = torch.Generator(device=win.device).manual_seed(3)
+    d_rows = torch.randn((B, 32) + tuple(win.shape[1:]), generator=gen, device=win.device)
+    d1 = raster_v3.raster_v3_bwd(d_rows, win, tables, TILE_HW).clone()
+    d2 = raster_v3.raster_v3_bwd(d_rows, win, tables, TILE_HW)
+    assert torch.equal(d1.view(torch.int32), d2.view(torch.int32))
+
+
+def test_k10_backward_writes_every_slot_on_card(v3_table):
+    """K10's backward launched on an output filled with NaN: every value is
+    written, +0 at each (hypothesis, slot) that won no pixel, and the sums
+    agree with the plain twin at rtol 2e-4, atol 1e-6 plus 1e-6 of the
+    summed |d_rows|."""
+    from diffdope_tpu_torch.kernels.check import _close
+    from diffdope_tpu_torch.render import raster_v3
+    from diffdope_tpu_torch.render.pipeline import TILE_HW
+
+    _, _, packed_s, tables = v3_table
+    _, _, win = raster_v3.raster_v3_fwd(packed_s, tables, RES, TILE_HW)
+    nty, ntx = RES[0] // TILE_HW[0], RES[1] // TILE_HW[1]
+    gen = torch.Generator(device=win.device).manual_seed(4)
+    d_rows = torch.randn((B, 32) + tuple(win.shape[1:]), generator=gen, device=win.device)
+    out = torch.full((B, 32, tables.t_pad), float("nan"), device=win.device)
+    kernels.reset_launches()
+    kernels.launch("dd_raster_v3_bwd", "raster_v3_bwd", d_rows.data_ptr(), win.data_ptr(),
+                   tables.clo.data_ptr(), tables.chi.data_ptr(), tables.rlo_tc.data_ptr(),
+                   tables.rhi_tc.data_ptr(), B, tables.t_pad, nty, ntx, *TILE_HW,
+                   out.data_ptr())
+    torch.cuda.synchronize()
+    assert kernels.launches["raster_v3_bwd"] == 1
+    assert bool(torch.isfinite(out).all())
+    won = torch.zeros((B, tables.t_pad), dtype=torch.bool, device=win.device)
+    bi = torch.arange(B, device=win.device)[:, None, None].expand_as(win)
+    won[bi[win >= 0], win[win >= 0].long()] = True
+    assert 0 < int(won.sum()) < won.numel()
+    assert bool((out.view(torch.int32)[~won[:, None, :].expand_as(out)] == 0).all())
+    want = raster_v3.raster_v3_bwd_plain(d_rows, win, tables.t_pad)
+    scale = raster_v3.raster_v3_bwd_plain(d_rows.abs(), win, tables.t_pad)
+    assert _close(out, want, 2e-4, 1e-6, scale)
+
+
+def test_k10_equals_k7_over_exact_bins_on_card(v3_table):
+    """At the test scene K10's ids and rows equal, bit for bit, K7's over
+    exact per-tile bins gathered from the same triangle-order table (no
+    capacity, no cull), as phase 11 holds at its own shapes."""
+    from diffdope_tpu_torch.render import pipeline
+    from diffdope_tpu_torch.render.gather_rows import invert_bins
+    from diffdope_tpu_torch.render.planar import bin_triangles_planar
+    from diffdope_tpu_torch.render.raster import raster_gather_rows_v2
+    from diffdope_tpu_torch.render.raster_v3 import raster_gather_rows_v3
+
+    fn, mtx, _, _ = v3_table
+    t_count = fn.mesh.t_count
+    with torch.no_grad():
+        packed, cp, det = pipeline._planar_pack(fn.mesh, mtx)
+        idx, counts, overflow = bin_triangles_planar(cp, det, RES, pipeline.TILE_HW, t_count)
+        assert int(overflow) == 0
+        inv = invert_bins(idx, t_count, "auto")
+        ids2, rows2 = raster_gather_rows_v2(packed, idx, counts, *inv, RES, pipeline.TILE_HW,
+                                            padded=True)
+        ids3, rows3 = raster_gather_rows_v3(packed, RES, pipeline.TILE_HW, padded=True)
+    assert int((ids3 > 0).sum()) > 1000
+    assert torch.equal(ids2, ids3) and torch.equal(rows2, rows3)
+
+
+def test_k10_matches_plain_over_the_padding_on_card(cuda, params):
+    """K10 on a 70x100 frame (padded to 80x112) with the object moved across
+    its bottom and right edges: the forward's ids, win and rows equal the
+    plain twin's on every pixel of the padded frame, foreground in the
+    padding included; the backward within its tolerance."""
+    from diffdope_tpu_torch.render import raster_v3
+    from diffdope_tpu_torch.render.pipeline import TILE_HW
+
+    res = (70, 100)
+    fn = bench_problem(res, subdiv=2, batch=B, device=cuda, route="v3")["fn"]
+    moved = dict(params, x=params["x"] + 0.4, y=params["y"] - 0.3)
+    mtx, _, _ = pose_matrix(moved)
+    d_sums = torch.tensor([[1.0, 0.7, 0.0], [0.5, 1.3, 0.0], [2.0, 0.2, 0.0]], device=cuda)
+    rows = {row["name"]: row for row in check_kernels(fn, mtx, d_sums)}
+    assert rows["K10_raster_v3_fwd"]["ok"], rows["K10_raster_v3_fwd"]
+    assert rows["K10_raster_v3_bwd"]["ok"], rows["K10_raster_v3_bwd"]
+    with torch.no_grad():
+        ids, _ = raster_v3.raster_gather_rows_v3(fn.planar(mtx).packed, res, TILE_HW,
+                                                  padded=True)
+    assert int((ids[:, res[0]:] > 0).sum() + (ids[:, :, res[1]:] > 0).sum()) > 0

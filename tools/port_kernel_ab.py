@@ -3,15 +3,16 @@ tree, ptxas' registers and spills and the SASS loops of each kernel, and
 its time at the bench shapes, with every tree's outputs held to the first
 tree's.
 
-    python tools/port_kernel_ab.py ROOT [ROOT ...] [--kernels K2,K5,K3,K4,K6]
+    python tools/port_kernel_ab.py ROOT [ROOT ...] [--kernels K2,K5,K3,K4,K6,K10]
                                    [--sass-dir DIR] [--out FILE] [--reps N]
 
 Each ROOT is a checkout of the repo (this one, or the parent unpacked with
 ``git archive`` into the gitignored ``chip_proof/``), or any directory
 that holds ``diffdope_tpu_torch/csrc/`` (a variant of a kernel).  For each kernel
 asked for, ROOT's source (``pack.cu`` for K2, ``fused_loss.cu`` for K5 and
-K6, ``raster.cu`` for K3/K7's forward and K4/K7's backward) is built with
-the port's nvcc flags and ``-Xptxas=-v`` into a library of its own.
+K6, ``raster.cu`` for K3/K7's forward and K4/K7's backward, ``raster_v3.cu``
+and ``raster.cu`` for K10) is built with the port's nvcc flags and
+``-Xptxas=-v`` into a library of its own.
 ``cuobjdump -sass`` of it gives, for each of the kernel's functions, every
 loop (a backward branch) with its instruction count and the count of each
 opcode class; with ``--sass-dir`` the whole SASS goes there too.  Each
@@ -35,13 +36,19 @@ distinct poses):
   backward (``dd_raster_uniform_bwd``) on the uniform-K table, under K6's
   d_rows of the same raster; a tree whose K4 takes no held chunks
   (``off_c``, ``used``) writes only the won slots, so its call zero-fills
-  d_bins first, as its wrapper did.
+  d_bins first, as its wrapper did;
+- K10 (``dd_raster_v3_fwd``, ``dd_raster_v3_bwd``) on the sorted table of
+  the bench problem's 'v3' variant at the same poses and of
+  ``chip_smoke.py``'s phase 11 at its last poses (the default
+  configuration run under ``DD_RASTER=v3``: 960x540, B=8, the stand-in),
+  the backward under K6's d_rows of this tree's forward; printed with the
+  gated (tile, chunk) pairs, the slots they walk and the exact bins'.
 
 Each case is timed by CUDA events over ``--reps`` launches after a warm-up,
 in turns A B ... B A, twice.  K2's sums are held to the first tree's at
 rtol 2e-4, atol 1e-6 plus 1e-6 of the hypothesis' sum of |terms|, K5's at
-rtol 1e-5, atol 1e-7, K3/K7's outputs exactly, K4's, K6's and K7's
-backward bit for bit (every output starts as NaN, so an unwritten value
+rtol 1e-5, atol 1e-7, K3/K7's outputs exactly, K4's, K6's, K7's
+backward and K10's bit for bit (every output starts as NaN, so an unwritten value
 shows), and each tree's output is said to equal the first's bit for bit or
 not; each tree's output is also compared with its own second launch, bit
 for bit.  Prints one JSON line per tree and case, with the card's name and
@@ -61,12 +68,16 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(HERE))
 
-#: per kernel: its source and the substrings naming its device functions
-SOURCES = {"K2": ("pack.cu", ("pack_bwd",)),
-           "K5": ("fused_loss.cu", ("loss_fwd", "loss_reduce")),
-           "K3": ("raster.cu", ("raster_fwd_kernel",)),
-           "K4": ("raster.cu", ("raster_bwd_kernel",)),
-           "K6": ("fused_loss.cu", ("loss_bwd",))}
+#: per kernel: its sources and the substrings naming its device functions
+#: (K10's forward lives in raster_v3.cu or, as K3's body over the sorted
+#: table, in raster.cu: both are built and the entry point is looked up in
+#: either)
+SOURCES = {"K2": (("pack.cu",), ("pack_bwd",)),
+           "K5": (("fused_loss.cu",), ("loss_fwd", "loss_reduce")),
+           "K3": (("raster.cu",), ("raster_fwd_kernel",)),
+           "K4": (("raster.cu",), ("raster_bwd_kernel",)),
+           "K6": (("fused_loss.cu",), ("loss_bwd",)),
+           "K10": (("raster_v3.cu", "raster.cu"), ("raster_v3", "SortedRange"))}
 #: opcode classes, by the SASS mnemonic's first word
 CLASSES = {
     "shared loads": ("LDS",), "global loads": ("LDG",), "stores": ("STG", "STS"),
@@ -80,27 +91,32 @@ CLASSES = {
 
 
 def build(root: Path, kernel: str, out_dir: Path, tag: str):
-    """(library, {function: ptxas' registers / spill lines}) of ROOT's source
-    of ``kernel``, built with the port's flags and -Xptxas=-v."""
+    """([library, ...], {function: ptxas' registers / spill lines}) of
+    ROOT's sources of ``kernel``, built with the port's flags and
+    -Xptxas=-v."""
     from diffdope_tpu_torch import kernels
 
-    source, names = SOURCES[kernel]
+    sources, names = SOURCES[kernel]
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / f"{Path(source).stem}_{tag}.so"
-    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas=-v", "-o", str(lib),
-           str(root / "diffdope_tpu_torch/csrc" / source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {root}:\n{proc.stdout}{proc.stderr}")
-    log = proc.stderr
-    usage, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-        elif name and any(k in name for k in names) and ("Used" in line or "spill" in line):
-            usage[name] = (usage.get(name, "") + " " + line.split(":", 1)[-1].strip()).strip()
-    return lib, usage
+    libs, usage = [], {}
+    for source in sources:
+        lib = out_dir / f"{Path(source).stem}_{tag}.so"
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas=-v", "-o", str(lib),
+               str(root / "diffdope_tpu_torch/csrc" / source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {root}:\n{proc.stdout}{proc.stderr}")
+        name = None
+        for line in proc.stderr.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+            elif name and any(k in name for k in names) and ("Used" in line
+                                                              or "spill" in line):
+                usage[name] = (usage.get(name, "") + " "
+                               + line.split(":", 1)[-1].strip()).strip()
+        libs.append(lib)
+    return libs, usage
 
 
 def sass_loops(lib: Path, names, sass_dir=None):
@@ -389,12 +405,17 @@ def k6_cases(problems, mtx):
     return cases
 
 
-def _params(root: Path, name: str) -> int:
-    """The number of parameters of C entry point ``name`` in ROOT's
-    raster.cu: K4's interface with the held chunks (off_c, used, k_chunk)
-    has 13 and writes every slot; the earlier one had 10."""
-    text = (root / "diffdope_tpu_torch/csrc/raster.cu").read_text()
-    return re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text).group(1).count(",") + 1
+def _params(root: Path, name: str, sources=("raster.cu",)) -> int:
+    """The number of parameters of C entry point ``name`` in the first of
+    ROOT's ``sources`` that defines it: K4's interface with the held chunks
+    (off_c, used, k_chunk) has 13 and writes every slot, the earlier one 10;
+    K10's forward with its boxes pre-pass 18, the earlier one 17."""
+    for source in sources:
+        text = (root / "diffdope_tpu_torch/csrc" / source).read_text()
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+        if m:
+            return m.group(1).count(",") + 1
+    raise ValueError(f"{name} is in none of {sources} under {root}")
 
 
 def k4_cases(problems, mtx):
@@ -462,11 +483,122 @@ def k4_cases(problems, mtx):
     return cases
 
 
-def _load(lib: Path, root: Path):
-    """The library, knowing the tree it was built from."""
-    cdll = ctypes.CDLL(str(lib))
-    cdll.root = root
-    return cdll
+def k10_inputs(fn, mtx):
+    """The sorted table and tables of a 'v3' fused loss at poses ``mtx``,
+    the forward's outputs (this tree's K10) and K6's d_rows there under a
+    seeded cotangent of the sums."""
+    import torch
+
+    from diffdope_tpu_torch.render import raster_v3
+    from diffdope_tpu_torch.render.fused_loss import loss_bwd
+    from diffdope_tpu_torch.render.pipeline import TILE_HW
+
+    res = fn.roi[2:]
+    with torch.no_grad():
+        pl = fn.planar(mtx)
+        tables = raster_v3.prepare(pl.packed, res, TILE_HW)
+        packed = raster_v3.sorted_table(pl.packed, tables)
+        ids, rows, win = raster_v3.raster_v3_fwd(packed, tables, res, TILE_HW)
+        gen = torch.Generator(device=mtx.device).manual_seed(1)
+        d_sums = 0.5 + 1.5 * torch.rand((mtx.shape[0], 3), generator=gen, device=mtx.device)
+        d_rows, _, _ = loss_bwd(rows, ids, fn.gt6, fn.roi, d_sums)
+    return packed, tables, win, d_rows.contiguous()
+
+
+def k10_cases(problems):
+    """K10's forward and backward on each problem's 'v3' sorted table at its
+    poses (``problems``: {case: (fn, mtx)}), the backward under K6's d_rows
+    of the forward.  Outputs are held bit for bit (every output starts as
+    NaN, or -7 for the int maps, so an unwritten value shows)."""
+    import torch
+
+    from diffdope_tpu_torch.kernels.check import exact_bin_slots
+    from diffdope_tpu_torch.render import raster_v3
+    from diffdope_tpu_torch.render.pipeline import TILE_HW
+
+    (th, tw) = TILE_HW
+    cases = {}
+    for case, (fn, mtx) in problems.items():
+        packed, tables, win, d_rows = k10_inputs(fn, mtx)
+        b, _, tp = packed.shape
+        h, w = fn.roi[2:]
+        nty, ntx = -(-h // th), -(-w // tw)
+        tabs = (tables.clo, tables.chi, tables.rlo_tc, tables.rhi_tc)
+        gate = raster_v3._gate(tables, nty, ntx, th)
+
+        def make_fwd(lib, packed=packed, tabs=tabs, b=b, tp=tp, h=h, w=w, nty=nty,
+                     ntx=ntx):
+            f = lib.dd_raster_v3_fwd
+            # a tree whose K10 forward has the boxes pre-pass takes its scratch
+            boxes = (torch.empty((b, tp, 2), dtype=torch.int32, device="cuda"),) if _params(
+                lib.root, "dd_raster_v3_fwd", ("raster.cu", "raster_v3.cu")) == 18 else ()
+            f.argtypes = [P] * 5 + [I] * 8 + [P] * (4 + len(boxes))
+            outs = (torch.full((b, nty * th, ntx * tw), -7, dtype=torch.int32,
+                               device="cuda"),
+                    torch.full((b, nty * th, ntx * tw), -7, dtype=torch.int32,
+                               device="cuda"),
+                    torch.full((b, 32, nty * th, ntx * tw), float("nan"), device="cuda"))
+
+            def call():
+                err = f(packed.data_ptr(), *(t.data_ptr() for t in tabs), b, tp, nty, ntx,
+                        th, tw, h, w, *(o.data_ptr() for o in outs + boxes),
+                        torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+                return outs
+            return call
+
+        def make_bwd(lib, d_rows=d_rows, win=win, tabs=tabs, b=b, tp=tp, nty=nty,
+                     ntx=ntx):
+            f = lib.dd_raster_v3_bwd
+            f.argtypes = [P] * 6 + [I] * 6 + [P] * 2
+            out = torch.full((b, 32, tp), float("nan"), device="cuda")
+
+            def call():
+                err = f(d_rows.data_ptr(), win.data_ptr(), *(t.data_ptr() for t in tabs),
+                        b, tp, nty, ntx, th, tw, out.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+                return (out,)
+            return call
+
+        info = dict(frame=[nty * th, ntx * tw], batch=b, slots=tp,
+                    gated_pairs=int(gate.sum()), walked_slots=int(gate.sum()) * tables.k_chunk,
+                    exact_slots=exact_bin_slots(fn.mesh, mtx, (h, w)),
+                    fg_pixels=int((win >= 0).sum()))
+        cases[f"K10 fwd {case}"] = (make_fwd, _bit_equal, info)
+        cases[f"K10 bwd {case}"] = (make_bwd, _bit_equal, info)
+    return cases
+
+
+def phase11_problem():
+    """(fused loss, poses) of ``chip_smoke.py``'s phase 11: the default
+    configuration (960x540, B=8, the stand-in) run under ``DD_RASTER=v3``,
+    its loss built on that route, at the run's last poses."""
+    import torch
+
+    import chip_smoke
+    from diffdope_tpu_torch.bench import raster_env
+
+    dd, _, _ = chip_smoke.diffdope_session(True)
+    with raster_env("v3"):
+        dd.run_optimization()
+        fn = dd._make_fused_loss_fn(dd.gt_tensors)
+    return fn, torch.as_tensor(dd.mtx_history[-1], device="cuda")
+
+
+class _Libs:
+    """A tree's libraries of one kernel: an entry point is looked up in
+    each in turn; ``root`` is the tree they were built from."""
+
+    def __init__(self, libs, root: Path):
+        self.cdlls = [ctypes.CDLL(str(lib)) for lib in libs]
+        self.root = root
+
+    def __getattr__(self, name):
+        for cdll in self.cdlls:
+            if hasattr(cdll, name):
+                return getattr(cdll, name)
+        raise AttributeError(name)
 
 
 def main() -> int:
@@ -515,6 +647,8 @@ def main() -> int:
                                                        depth=True)}, mtx),
         "K4": lambda: k4_cases({"compact": base["fn"],
                                 "uniform": variant("uniform", uniform=True)}, mtx),
+        "K10": lambda: k10_cases({"bench": (variant("v3", route="v3"), mtx),
+                                  "phase11": phase11_problem()}),
     }
     order = list(range(len(roots)))
     turns = order + order[::-1]
@@ -522,9 +656,11 @@ def main() -> int:
     for kind in kinds:
         built = [build(r, kind, HERE / "build" / "kernel_ab", f"{kind}_{i}")
                  for i, r in enumerate(roots)]
-        sass = [sass_loops(lib, SOURCES[kind][1], args.sass_dir) for lib, _ in built]
+        sass = [{k: v for lib in libs for k, v in
+                 sass_loops(lib, SOURCES[kind][1], args.sass_dir).items()}
+                for libs, _ in built]
         for case, (make, close, info) in makers[kind]().items():
-            calls = [make(_load(lib, root)) for (lib, _), root in zip(built, roots)]
+            calls = [make(_Libs(libs, root)) for (libs, _), root in zip(built, roots)]
             first = [o.clone() for o in calls[0]()]
             agree, equal, repeats, diffs = [], [], [], []
             for call in calls:

@@ -1,12 +1,14 @@
 """Where the device time of a PyTorch-port DiffDope step goes, on the card.
 
 Runs ``chip_smoke.py``'s default-configuration DiffDope session (960x540,
-B=8, 61 SGD steps, stand-in mesh) in four settings: mask L1 on the
+B=8, 61 SGD steps, stand-in mesh) in five settings: mask L1 on the
 compact table (``chip_smoke`` phase 5), mask + depth L1 on the compact
-table (phase 7), mask + depth L1 on the uniform-K table (phase 8), and
-mask + rgb L1 with exact texture on the textured stand-in (phase 14).
-Each setting runs once to warm up (recovery re-runs included), once
-untraced for the step's wall time, and once under ``torch.profiler``.
+table (phase 7), mask + depth L1 on the uniform-K table (phase 8), mask
++ rgb L1 with exact texture on the textured stand-in (phase 14), and
+mask L1 on the sorted-range raster under ``DD_RASTER=v3`` (phase 11: K10,
+no ROI crop, the padded 960x544 frame).  Each setting runs once to warm
+up (recovery re-runs included), once untraced for the step's wall time,
+and once under ``torch.profiler``.
 
     python tools/port_profile_diffdope.py [setting ...]   # default: all
 
@@ -23,12 +25,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-#: name: (tpu overrides, loss overrides, the textured stand-in or the configured mesh)
+#: name: (tpu overrides, loss overrides, the textured stand-in or the
+#: configured mesh, the raster route)
 SETTINGS = {
-    "mask_compact": ({}, {}, False),
-    "depth_compact": ({}, {"l1_depth_with_mask": True}, False),
-    "depth_uniform": ({"compact_bins": False}, {"l1_depth_with_mask": True}, False),
-    "texture_exact": ({"texture_mode": "exact"}, {"l1_rgb_with_mask": True}, True),
+    "mask_compact": ({}, {}, False, None),
+    "depth_compact": ({}, {"l1_depth_with_mask": True}, False, None),
+    "depth_uniform": ({"compact_bins": False}, {"l1_depth_with_mask": True}, False, None),
+    "texture_exact": ({"texture_mode": "exact"}, {"l1_rgb_with_mask": True}, True, None),
+    "v3": ({}, {}, False, "v3"),
 }
 TOP = 12
 
@@ -38,25 +42,26 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
-    from diffdope_tpu_torch.bench import card
+    from diffdope_tpu_torch.bench import card, raster_env
 
     if not torch.cuda.is_available():
         print("no CUDA device: this profile measures the card only", file=sys.stderr)
         return 2
     gpu = card()
     for name in sys.argv[1:] or SETTINGS:
-        tpu, losses, textured = SETTINGS[name]
+        tpu, losses, textured, route = SETTINGS[name]
         mesh = chip_smoke.texture_mesh() if textured else None
         dd, _, _ = chip_smoke.diffdope_session(True, tpu=tpu, losses=losses, mesh=mesh)
-        dd.run_optimization()  # warm-up, and the recovery's capacities
-        torch.cuda.synchronize()
-        dd.run_optimization()
-        torch.cuda.synchronize()
-        steps = dd.last_run_stats["steps"]
-        step_ms = 1e3 * dd.last_run_stats["wall_time_s"] / steps
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with raster_env(route):
+            dd.run_optimization()  # warm-up, and the recovery's capacities
+            torch.cuda.synchronize()
             dd.run_optimization()
             torch.cuda.synchronize()
+            steps = dd.last_run_stats["steps"]
+            step_ms = 1e3 * dd.last_run_stats["wall_time_s"] / steps
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                dd.run_optimization()
+                torch.cuda.synchronize()
         cuda = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in cuda) / 1e3 / steps
