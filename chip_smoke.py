@@ -15,7 +15,11 @@ result line):
    K5/K6 with the depth lane) against its plain torch version on the card,
    at the test scene and at the bench shapes, each hypothesis at a pose of
    its own (K1 bit for bit in all 32 lanes, K3 and K7 ids, slots and rows
-   exactly), and times both at the bench shapes;
+   exactly), and times both at the bench shapes; and K3, K7, K8 and K9 at
+   a sliver of the default configuration's frame, whose f32 planes cover a
+   pixel 8 rows past its vertex bounds (``sliver_checks``: each kernel
+   stages by the boxes its planes give, the pixel is the sliver's as in
+   the plain twins);
 4. drives the bench main path: the bench protocol (B=64, 400x400,
    icosphere(5), rgb+mask, 100 Adam steps) through ``make_fused_loss`` +
    ``refine``, with every launch counter reset just before and read just
@@ -63,12 +67,14 @@ result line):
    colours with ``rast_db`` -> ``antialias`` of the mask with ``edge_adj``
    -> L1 against the phase's gt rgb and mask -> the pose gradient; K8
    launched once, its ids equal the brute force's (``impl='reference'``)
-   exactly, so do rast and rast_db, the pose gradients agree at rtol 1e-6,
-   atol 1e-9 (antialias's and interpolate's gathers add with atomics), and
-   the coverage differs from ``render_batch``'s ids at the same poses on at
-   most 0.5% of the foreground; forward and backward times and peak memory
-   printed; ``rasterize``'s backward (the setup rows' segmented sum,
-   launched once a backward) twice at the same poses gives the same clip
+   exactly, so do rast and rast_db; the pose gradients repeat bit for bit
+   from pass to pass and equal the brute force's bit for bit (rasterize's,
+   interpolate's and antialias's gathers sum in a fixed order: the
+   segmented sum, launched once for rasterize's and once for each of
+   antialias's two passes), and the coverage differs from
+   ``render_batch``'s ids at the same poses on at most 0.5% of the
+   foreground; forward and backward times and peak memory printed;
+   ``rasterize``'s backward twice at the same poses gives the same clip
    gradient bit for bit, and the segmented sum agrees with its plain twin
    and is timed beside ``index_add_``;
 10. ``DiffDope`` with ``tpu.raster_impl: auto`` on icosphere(1) (80
@@ -135,12 +141,15 @@ K5/K6's colour lane (with and without the depth plane) and K1/K2 at the uv
 table's two channels are held to their plain versions at the test scene
 and at the bench shapes (``bench_problem(texture=True)``: the bench's
 sphere at spherical uv, a 1024x1024 8-bit texture), where both are timed.
-K8 (the API's binned id search) is also held to its plain version at the
-test scene, at tiles (16, 32) and (32, 128) over a 70x100 frame, and at
-the bench shapes (B=64, 400x400, icosphere(5), tile (32, 128), K from the
+K8 (the API's binned id search: a box pre-pass, then one block per 16x16
+sub-tile of a bin's tile) is also held to its plain version at the test
+scene, at tiles (16, 32) and (32, 128) over a 70x100 frame, and at the
+bench shapes (B=64, 400x400, icosphere(5), tile (32, 128), K from the
 counts), where both are timed; so are K9 (the same inputs, with packed
 rows) and K10 (and K7 on the 'v2' route's gathered bins) on the planar
-variants of the test scene's and the bench problem's losses.  The raster
+variants of the test scene's and the bench problem's losses.  K3, K7, K8,
+K9 and K10 are bound by the tests inside their slots' boxes (K8's and
+K9's rows print the TPU kernel's all-pairs tests beside).  The raster
 backwards K4, K7, K9 and K10 are timed beside one PyTorch call of the
 same function (``check.bwd_library``, a ``scatter_add_`` by winner slot:
 ``library_ms``).
@@ -436,8 +445,8 @@ def diffdope_phase(fused: bool, gpu: str, route: str, tpu=None, losses=None,
                 else check_all(fn, mtx_last, d_sums))
     for row in rows:
         print(f"DiffDope {route} shapes {row['name']}: ok={row['ok']} "
-              f"max_abs_err={row['max_abs_err']:.3e} ({row['tolerance']}){slots(row)}",
-              flush=True)
+              f"max_abs_err={row['max_abs_err']:.3e} ({row['tolerance']}){slots(row)}, "
+              f"bound {row['bound'][0]:.4f} ms ({row['bound'][1]})", flush=True)
         if not row["ok"]:
             fail(f"{row['name']} disagrees with its plain version on the DiffDope "
                  f"{route} tables: {row}")
@@ -456,6 +465,10 @@ def slots(row) -> str:
     compact table's tail, past every tile's chunks), and the library call's
     time where one was taken, for its printed line."""
     out = f", {row['slots']} of {row['table_slots']} slots" if "slots" in row else ""
+    if "range_tests" in row:
+        out += f", {row['range_tests']} tests inside the boxes"
+    if "tested_pairs" in row:
+        out += f" (the TPU kernel's {row['tested_pairs']})"
     if "tail_slots" in row:
         out += f" ({row['tail_slots']} in the tail)"
     if row.get("library_ms") is not None:
@@ -666,7 +679,7 @@ def api_phase(gpu):
     print(f"API path: {res[1]}x{res[0]}, B={dd.batchsize}, {len(mesh.pos_idx)} triangles, "
           f"tile {API_TILE}, K {k}, no pair dropped", flush=True)
 
-    api_path(mesh_t, params, "pallas", k, gt)  # warm-up
+    warm = api_path(mesh_t, params, "pallas", k, gt)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -677,10 +690,16 @@ def api_phase(gpu):
           f"{run['bwd_s'] * 1e3:.4f} ms, peak {peak_gib:.3f} GiB, loss {run['loss']:.6f} "
           f"[{gpu}]", flush=True)
     print(f"API path launches: {launches}", flush=True)
-    on = ("raster_ids", "setup_rows_bwd")
+    on = ("raster_ids", "setup_rows_bwd", "index_rows_bwd")
     check_launches("API path", launches, on, set(launches) - set(on))
-    if launches["raster_ids"] != 1 or launches["setup_rows_bwd"] != 1:
-        fail(f"API path: {launches} for one rasterize and its backward")
+    if (launches["raster_ids"], launches["setup_rows_bwd"], launches["index_rows_bwd"]) != (
+            1, 1, 2):
+        fail(f"API path: {launches} for one rasterize and its backward (and antialias's two "
+             "passes)")
+    for name, g in run["grads"].items():
+        if not torch.equal(g, warm["grads"][name]) or not bool(g.abs().max() > 0):
+            fail(f"API path: the pose gradient '{name}' does not repeat bit for bit")
+    print("API path: the pose gradients repeat bit for bit over two passes", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
     ref = api_path(mesh_t, params, "reference", k, gt)
@@ -694,12 +713,11 @@ def api_phase(gpu):
     if not (torch.equal(run["rast"], ref["rast"]) and torch.equal(run["db"], ref["db"])):
         fail("API path: K8's rast / rast_db differ from the brute force's")
     for name, g in run["grads"].items():
-        want = ref["grads"][name].cpu().numpy()
-        if not np.allclose(g.cpu().numpy(), want, rtol=1e-6, atol=1e-9):
+        if not torch.equal(g, ref["grads"][name]):
             fail(f"API path: the pose gradient '{name}' {g.cpu().numpy()} differs from the "
-                 f"brute force's {want} beyond rtol 1e-6, atol 1e-9")
-    print(f"API path: rast and rast_db equal, pose gradients agree at rtol 1e-6, "
-          f"atol 1e-9; loss {run['loss']:.6f} / {ref['loss']:.6f}", flush=True)
+                 f"brute force's {ref['grads'][name].cpu().numpy()}")
+    print(f"API path: rast and rast_db equal, pose gradients equal bit for bit; loss "
+          f"{run['loss']:.6f} / {ref['loss']:.6f}", flush=True)
     row = rasterize_backward_repeats(mesh_t, mtx.detach(), res, k, gpu)
 
     # render_batch at the same poses: the same coverage but on silhouette
@@ -1297,7 +1315,7 @@ def main() -> None:
         distinct_poses,
         run_refinement,
     )
-    from diffdope_tpu_torch.kernels.check import COUNTERS, KERNELS, check_kernels
+    from diffdope_tpu_torch.kernels.check import COUNTERS, KERNELS, check_kernels, check_sliver
     from diffdope_tpu_torch.metrics import add_metric
     from diffdope_tpu_torch.optimize import argmin_hypothesis, pose_matrix, pose_params
     from diffdope_tpu_torch.testing import bench_scene
@@ -1348,6 +1366,13 @@ def main() -> None:
                  k8_scene["tri"], k8_res, tile)
         k9_check("test scene", gpu, k8_scene["proj"], k8_mtx, k8_scene["pos"],
                  k8_scene["tri"], k8_scene["vtx_color"], k8_scene["edge_adj"], k8_res, tile)
+    # K3, K7, K8 and K9 at a sliver whose f32 planes cover a pixel 8 rows
+    # past its vertex bounds
+    for row in check_sliver():
+        print(f"sliver {row['name']}: ok={row['ok']} covered {row['covered']} "
+              f"({row['tolerance']})", flush=True)
+        if not row["ok"]:
+            fail(f"{row['name']} disagrees with its plain version at the sliver: {row}")
     # K10 and K7 over the gathered bins on the planar routes, same frame
     for route in ("v3", "v2"):
         planar_checks(f"test scene {route}", gpu,

@@ -19,13 +19,18 @@
 // walks its tile's compact slots through shared memory, 128 slots at a
 // time, staged slot-major once per block: the edge planes pre-signed by
 // sign(det), the z plane, 1/det (the same IEEE divide), the id, and the
-// rows and columns of the tile the slot can cover, from the packed table's
-// conservative NDC ranges (lanes 28-31) by the reference's rule and its
-// half-row slack (raster_v2.py:1346-1377, where the TPU kernel gates its
-// chunks on them).  A warp skips a slot whose rows miss its eight rows, a
-// thread one whose rows or columns miss its pixels; a thread that tests
-// computes y*b + c of each plane once for its four pixels, then x*a + that
-// per pixel.  It keeps the (z, triangle id) lexicographic minimum among
+// rows and columns of the tile the slot can cover, taken from its f32 edge
+// planes (dd::cover_range, over the whole window: they hold in the padding
+// and for slivers).  Every slot belongs to one tile, so the staging block
+// is the one place its box is computed, once per (hypothesis, slot), and
+// nothing is computed for the uniform table's padding past a tile's count.
+// (The TPU kernel gates whole 128-slot chunks on the packed table's vertex
+// bounds, lanes 28-31, with slack, raster_v2.py:1346-1377: those miss a
+// sliver's pixels past its corners and the padding past the frame's
+// edge.)  A warp skips a slot whose rows miss its eight rows, a thread one
+// whose rows or columns miss its pixels; a thread that tests computes
+// y*b + c of each plane once for its four pixels, then x*a + that per
+// pixel.  It keeps the (z, triangle id) lexicographic minimum among
 // covered slots with |z| <= 1 and writes ids (+1, 0 = background), the
 // winner's 32 lanes and the winner's slot index (the backward's map).
 // Bound on this card: the rows write (32 lanes a pixel) and the table
@@ -65,9 +70,9 @@
 // straddles tiles is a candidate in each: the TPU kernel tests every slot
 // of them (~4.85x the exact bins' slots at the bench shapes).  Here each
 // candidate's rows and columns are taken from its edge planes first
-// (cover_range: they hold over the padded frame and for slivers, where
-// K3's vertex bounds do not), and only the slots whose rows and columns
-// meet the tile are staged, many chunks to a stage (raster_v3_fwd_kernel);
+// (dd::cover_range, as K3's: they hold over the padded frame and for
+// slivers), and only the slots whose rows and columns meet the tile are
+// staged, many chunks to a stage (raster_v3_fwd_kernel);
 // the pixels, the stage and the tests are K3's.  So the outputs are the
 // TPU kernel's and the plain twin's on every pixel of the padded frame.
 // Bound: the rows write, as K3's, and the tests inside the slots' ranges.
@@ -174,24 +179,6 @@ __device__ __forceinline__ void unpack_range(float v, int& lo, int& hi) {
   hi = (pk >> 16) - 1;
 }
 
-// the first and the last pixel row (or column) of a frame of n that a
-// slot's NDC range [lo, hi] can cover: the reference's rule with half a
-// row of slack (raster_v2.py:1346-1377), ceil((lo + 1) n/2 - 1) and
-// floor((hi + 1) n/2); NaN and out-of-frame values widen to the frame
-__device__ __forceinline__ int first_px(float lo, int n) {
-  const float v = __fsub_rn(__fmul_rn(__fadd_rn(lo, 1.0f), 0.5f * n), 1.0f);
-  if (!(v > -1.0f)) return -1;
-  if (!(v < (float)n)) return n;
-  return (int)ceilf(v);
-}
-
-__device__ __forceinline__ int last_px(float hi, int n) {
-  const float v = __fmul_rn(__fadd_rn(hi, 1.0f), 0.5f * n);
-  if (!(v < (float)n)) return n;
-  if (!(v > -1.0f)) return -1;
-  return (int)floorf(v);
-}
-
 // kPix values of consecutive pixels as one store (aligned: kPix divides
 // the pixel index and every plane's size)
 __device__ __forceinline__ void store_px(float* p, const float (&v)[1]) { *p = v[0]; }
@@ -242,9 +229,10 @@ __device__ __forceinline__ void write_winners(const Best (&best)[kPix],
 // thread i owns pixels kPix*i .. kPix*i + kPix - 1 of the tile (row-major,
 // one tile row).  Each round stages kStage slots slot-major in four float4
 // groups (the pre-signed edge planes, the z plane, 1/det, the id and the
-// slot's tile-relative row and column ranges, empty when det == 0); then a
-// warp skips a slot whose rows miss its rows, a thread one whose rows or
-// columns miss its pixels, and a thread that tests computes y*b + c of
+// slot's tile-relative row and column ranges, dd::cover_range of its
+// planes over the window, empty when det == 0); then a warp skips a slot
+// whose rows miss its rows, a thread one whose rows or columns miss its
+// pixels, and a thread that tests computes y*b + c of
 // each plane once for its kPix pixels.  Every test that runs is the
 // reference's per-slot arithmetic, bit for bit.
 template <class Range>
@@ -271,6 +259,8 @@ __global__ void raster_fwd_kernel(
   int base, n;
   range(t, base, n);
   const float* tb = bins + (size_t)b * kLanes * tot;
+  // |x| and |y| over the window: the boxes hold over all of it
+  const double xm = dd::extent(ox, wc, fw), ym = dd::extent(oy, hc, fh);
 
   Best best[kPix];
 #pragma unroll
@@ -287,14 +277,22 @@ __global__ void raster_fwd_kernel(
         continue;
       }
       const float sg = det > 0.0f ? 1.0f : -1.0f;
-      st_e0[j] = make_float4(lane(0) * sg, lane(1) * sg, lane(2) * sg, lane(3) * sg);
-      st_e1[j] = make_float4(lane(4) * sg, lane(5) * sg, lane(6) * sg, lane(7) * sg);
-      st_z[j] = make_float4(lane(8) * sg, lane(9), lane(10), lane(11));
+      float pa[3], pb[3], pc[3];  // the edge planes, pre-signed
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        pa[k] = lane(3 * k) * sg;
+        pb[k] = lane(3 * k + 1) * sg;
+        pc[k] = lane(3 * k + 2) * sg;
+      }
+      st_e0[j] = make_float4(pa[0], pb[0], pc[0], pa[1]);
+      st_e1[j] = make_float4(pb[1], pc[1], pa[2], pb[2]);
+      st_z[j] = make_float4(pc[2], lane(9), lane(10), lane(11));
+      int rlo, rhi, clo, chi;
+      dd::cover_range(pa, pb, pc, xm, ym, fh, fw, rlo, rhi, clo, chi);
       const int ra = r0 + oy, ca = c0 + ox;  // the tile's frame pixel origin
-      st_m[j] = make_float4(
-          __fdiv_rn(1.0f, det), lane(13),
-          pack_range(first_px(lane(30), fh) - ra, last_px(lane(31), fh) - ra, th),
-          pack_range(first_px(lane(28), fw) - ca, last_px(lane(29), fw) - ca, tw));
+      st_m[j] = make_float4(__fdiv_rn(1.0f, det), lane(13),
+                            pack_range(rlo - ra, rhi - ra, th),
+                            pack_range(clo - ca, chi - ca, tw));
     }
     __syncthreads();
     for (int j = 0; j < m; ++j) {
@@ -331,60 +329,6 @@ __global__ void raster_fwd_kernel(
                 ids, win, rows);
 }
 
-// The frame pixel rows [rlo, rhi] and columns [clo, chi] at which a
-// slot's pre-signed edge planes e_k = x*a_k + (y*b_k + c_k) can all test
-// >= 0 in f32 (K3's arithmetic), taken from the planes themselves.  An f32
-// e_k >= 0 means an exact e_k >= -d_k, d_k = 4u (xm |a_k| + ym |b_k| +
-// |c_k|) (three roundings; |x| <= xm, |y| <= ym over the padded frame), so
-// the pixel lies in the triangle that the three relaxed lines bound.  Its
-// corners are computed in f64 (the signs of the 2x2 determinants exactly:
-// f32 products are exact in f64), and a hundredth of a pixel of margin
-// takes up the rounding of pixel NDC.  Lines that bound no triangle
-// (parallel, or an open wedge, as when a corner lies behind the camera)
-// or non-finite values give every pixel.  The vertex bounds of lanes
-// 28-31 (K3's rule) do not hold for a sliver, whose f32 planes can cover
-// pixels past its corners (phase 11 of chip_smoke.py met one 8 rows off).
-__device__ __forceinline__ void cover_range(const float (&a)[3], const float (&b)[3],
-                                            const float (&c)[3], double xm, double ym,
-                                            int fh, int fw, int& rlo, int& rhi, int& clo,
-                                            int& chi) {
-  constexpr double kU = 1.0 / (1 << 24);  // f32 unit roundoff
-  constexpr double kAll = 1 << 20;        // past any pixel
-  constexpr double kSlack = 0.01;         // pixels
-  rlo = clo = -(1 << 20);
-  rhi = chi = 1 << 20;
-  double cc[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-    cc[k] = c[k] + 4.0 * kU * (xm * fabs((double)a[k]) + ym * fabs((double)b[k]) +
-                               fabs((double)c[k]));
-  double x0 = CUDART_INF, x1 = -CUDART_INF, y0 = CUDART_INF, y1 = -CUDART_INF;
-  int pos = 0, neg = 0;
-  bool finite = true;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {  // lines k and k + 1 meet at one corner
-    const int j = (k + 1) % 3;
-    const double d = (double)a[k] * b[j] - (double)a[j] * b[k];
-    pos += d > 0.0;
-    neg += d < 0.0;
-    const double r = __drcp_rn(d);
-    const double cx = ((double)b[k] * cc[j] - (double)b[j] * cc[k]) * r;
-    const double cy = ((double)a[j] * cc[k] - (double)a[k] * cc[j]) * r;
-    finite = finite && fabs(cx) < kAll && fabs(cy) < kAll;
-    x0 = fmin(x0, cx);
-    x1 = fmax(x1, cx);
-    y0 = fmin(y0, cy);
-    y1 = fmax(y1, cy);
-  }
-  if ((pos != 3 && neg != 3) || !finite) return;  // no triangle: every pixel
-  // pixel r's NDC is (2r + 1)/n - 1, within 2^-22 (< 1e-3 pixel) in f32
-  auto px = [](double v) { return (int)fmin(fmax(v, -kAll), kAll); };
-  rlo = px(floor(((y0 + 1.0) * fh - 1.0) * 0.5 - kSlack));
-  rhi = px(ceil(((y1 + 1.0) * fh - 1.0) * 0.5 + kSlack));
-  clo = px(floor(((x0 + 1.0) * fw - 1.0) * 0.5 - kSlack));
-  chi = px(ceil(((x1 + 1.0) * fw - 1.0) * 0.5 + kSlack));
-}
-
 // K10 forward: one block of kV3Threads threads per (16 x 16 tile,
 // hypothesis), the pixels, the stage and the tests of K3/K7's body above;
 // only the staging differs.  The tile's candidates are the gated chunks of
@@ -404,21 +348,8 @@ constexpr int kV3Threads = kV3Th * kV3Tw / kPix;    // 64: two warps
 constexpr int kCand = dd::kChunk / kV3Threads;      // a chunk's candidates a thread
 static_assert(dd::kChunk == kStage, "a chunk's survivors fit one stage");
 
-// (rlo, rhi) as one word, each clamped to 16 bits (frames below 2^15
-// pixels a side)
-__device__ __forceinline__ int pack_box(int lo, int hi) {
-  lo = min(max(lo, -32768), 32767);
-  hi = min(max(hi, -32768), 32767);
-  return (int)(((unsigned)lo & 0xffffu) | ((unsigned)hi << 16));
-}
-
-__device__ __forceinline__ void unpack_box(int v, int& lo, int& hi) {
-  lo = (int)(short)(v & 0xffff);
-  hi = v >> 16;
-}
-
 // K10's pre-pass: one thread per (hypothesis, slot) of the sorted table,
-// its frame rows and columns (cover_range over the padded frame hc x wc)
+// its frame rows and columns (dd::slot_box over the padded frame hc x wc)
 // packed into boxes[b*tot + slot]: the f64 work once per slot, not once
 // per tile that walks it
 __global__ void raster_v3_boxes_kernel(const float* __restrict__ bins, int tot, int hc,
@@ -427,20 +358,9 @@ __global__ void raster_v3_boxes_kernel(const float* __restrict__ bins, int tot, 
   const int b = blockIdx.y;
   if (j >= tot) return;
   const float* src = bins + (size_t)b * kLanes * tot + j;
-  const float sg = src[(size_t)12 * tot] > 0.0f ? 1.0f : -1.0f;
-  float pa[3], pb[3], pc[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    pa[k] = src[(size_t)(3 * k) * tot] * sg;
-    pb[k] = src[(size_t)(3 * k + 1) * tot] * sg;
-    pc[k] = src[(size_t)(3 * k + 2) * tot] * sg;
-  }
-  // |x| and |y| over the padded frame
-  const double xm = fmax(1.0, (2.0 * wc - 1.0) / fw - 1.0);
-  const double ym = fmax(1.0, (2.0 * hc - 1.0) / fh - 1.0);
-  int rlo, rhi, clo, chi;
-  cover_range(pa, pb, pc, xm, ym, fh, fw, rlo, rhi, clo, chi);
-  boxes[(size_t)b * tot + j] = make_int2(pack_box(rlo, rhi), pack_box(clo, chi));
+  boxes[(size_t)b * tot + j] =
+      dd::slot_box([&](int k) { return src[(size_t)k * tot]; }, dd::extent(0, wc, fw),
+                   dd::extent(0, hc, fh), fh, fw);
 }
 
 __global__ void __launch_bounds__(kV3Threads)
@@ -521,8 +441,8 @@ __global__ void __launch_bounds__(kV3Threads)
     int rlo[kCand], rhi[kCand], clo[kCand], chi[kCand];
 #pragma unroll
     for (int i = 0; i < kCand; ++i) {
-      unpack_box(box[i].x, rlo[i], rhi[i]);
-      unpack_box(box[i].y, clo[i], chi[i]);
+      dd::unpack_box(box[i].x, rlo[i], rhi[i]);
+      dd::unpack_box(box[i].y, clo[i], chi[i]);
       rlo[i] -= r0;
       rhi[i] -= r0;
       clo[i] -= c0;

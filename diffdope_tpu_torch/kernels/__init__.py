@@ -42,14 +42,16 @@ NVCC_FLAGS = (
 #: launches apart, K6 and K4 their bf16 d_rows lane ('_bf16'); 'pack_plain'
 #: counts the bin-ordered tables that the reference's eligibility rule
 #: sends to the plain pack (traced attributes); 'setup_rows_bwd' the
-#: segmented sum of rasterize's setup-row gather
+#: segmented sum of rasterize's setup-row gather, 'index_rows_bwd' the same
+#: kernel under the gathers of interpolate and antialias
 launches = {"pack_fwd": 0, "pack_bwd": 0, "pack_plain": 0, "raster_fwd": 0,
             "raster_bwd": 0, "raster_bwd_bf16": 0, "raster_uniform_fwd": 0,
             "raster_uniform_bwd": 0, "loss_fwd": 0, "loss_bwd": 0, "loss_bwd_bf16": 0,
             "loss_fwd_depth": 0, "loss_bwd_depth": 0, "loss_fwd_color": 0,
             "loss_bwd_color": 0, "loss_fwd_color_depth": 0, "loss_bwd_color_depth": 0,
             "raster_ids": 0, "gather_rows_fwd": 0, "gather_rows_bwd": 0,
-            "raster_v3_fwd": 0, "raster_v3_bwd": 0, "setup_rows_bwd": 0}
+            "raster_v3_fwd": 0, "raster_v3_bwd": 0, "setup_rows_bwd": 0,
+            "index_rows_bwd": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -78,11 +80,12 @@ _SIGNATURES = {
     # (rows, ids, gt6, d_sums, B, hc, wc, oy, ox, fh, fw, g (unused: null),
     #  d_rows bf16, stream)
     "dd_loss_bwd_bf16": [_P] * 4 + [_I] * 7 + [_P] * 3,
-    # (coef, tile_idx, counts, B, T, K, nty, ntx, th, tw, fh, fw, ids, stream)
-    "dd_raster_ids": [_P] * 3 + [_I] * 9 + [_P] * 2,
+    # (coef, tile_idx, counts, B, T, K, nty, ntx, th, tw, fh, fw, ids,
+    #  boxes (scratch), stream)
+    "dd_raster_ids": [_P] * 3 + [_I] * 9 + [_P] * 3,
     # (packed, tile_idx, counts, B, T, K, nty, ntx, th, tw, fh, fw, ids, win,
-    #  rows, stream)
-    "dd_gather_rows_fwd": [_P] * 3 + [_I] * 9 + [_P] * 4,
+    #  rows, boxes (scratch), stream)
+    "dd_gather_rows_fwd": [_P] * 3 + [_I] * 9 + [_P] * 5,
     # (d_rows, win, counts, B, K, nty, ntx, th, tw, d_bin, stream)
     "dd_gather_rows_bwd": [_P] * 3 + [_I] * 6 + [_P] * 2,
     # (packed_s, clo, chi, rlo_tc, rhi_tc, B, tp, nty, ntx, th, tw, fh, fw,

@@ -62,7 +62,6 @@ from diffdope_tpu_torch.render.pack_kernel import (
 from diffdope_tpu_torch.render.pipeline import K_CHUNK, TILE_HW
 from diffdope_tpu_torch.render.raster import (
     bins_planar,
-    slot_ranges,
     raster_bwd,
     raster_bwd_plain,
     raster_fwd,
@@ -195,12 +194,14 @@ FP32_OPS_PER_S = 67e12
 #: FP32 operations per element, counted from the CUDA sources (estimates):
 #: K1/K2 per (hypothesis, slot) at n_ch colour channels, K4 per (foreground
 #: pixel, lane), K8 (and K9's search) per (pixel, slot) test: the three
-#: edge functions (4 each) and their sign tests, which every test runs (a
-#: covered test's depth, 8 more, is not counted: how many there are
-#: depends on the data).  K3, K7 and K10 take K8's count per test, over the
-#: (pixel, slot) pairs inside each slot's conservative row and column range
-#: only (:func:`range_tests`): a test outside it cannot cover, and signing
-#: the planes and 1/det are per-slot work.  K5/K6 by :func:`_loss_ops`
+#: edge functions (4 each) and their sign tests (a covered test's depth,
+#: 8 more, is not counted: how many there are depends on the data).  K3,
+#: K7, K10, K8 and K9 count them over the (pixel, slot) pairs inside each
+#: slot's cover box only (:func:`range_tests`, :func:`bin_box_tests`): a
+#: test outside it cannot cover, and the boxes, signing the planes and
+#: 1/det are per-slot work.  K8's and K9's rows keep the TPU kernel's
+#: tests, every pixel of a tile against every entry of its bin, as
+#: ``tested_pairs``.  K5/K6 by :func:`_loss_ops`
 _OPS = {"K1": lambda n_ch: 195 + 15 * n_ch, "K2": lambda n_ch: 330 + 18 * n_ch,
         "K3": 15, "K4": 1, "K8": 15}
 
@@ -294,24 +295,53 @@ def loss_bwd_bytes(ids: torch.Tensor, roi, depth: bool, colors: bool, d_rows_dty
             + 2 * planes + 4 * b * 3 + d_rows_bytes(32 * npx, d_rows_dtype))
 
 
+def _box_tile_pixels(boxes, t: torch.Tensor, ntx: int, tile_hw, origin=(0, 0)) -> int:
+    """The pixels of tile t (row-major, ``ntx`` a row, from ``origin``)
+    inside each box ``boxes`` = (rlo, rhi, clo, chi) (B, n), summed."""
+    th, tw = tile_hw
+    rlo, rhi, clo, chi = boxes
+    r0, c0 = (t // ntx) * th + origin[0], (t % ntx) * tw + origin[1]
+    n_r = (torch.minimum(rhi, r0 + th - 1) - torch.maximum(rlo, r0) + 1).clamp(min=0)
+    n_c = (torch.minimum(chi, c0 + tw - 1) - torch.maximum(clo, c0) + 1).clamp(min=0)
+    return int((n_r * n_c).sum())
+
+
 def range_tests(bins: torch.Tensor, slot_tile: torch.Tensor, frame_hw, tile_hw,
                 roi) -> int:
     """The (hypothesis, pixel, slot) tests the K3/K7 forward cannot skip:
     for each slot a tile holds (``slot_tile`` (n_slots,), the slot's tile,
-    -1 where no tile holds it), the tile's pixels inside the slot's row
-    and column range (``raster.slot_ranges``, the rule the kernel stages),
-    summed over the table's hypotheses.  Tiles are row-major over the
-    (hc, wc) window ``frame_hw`` at ``roi=(oy, ox, fh, fw)``."""
-    th, tw = tile_hw
-    ntx = frame_hw[1] // tw
-    oy, ox, fh, fw = roi
+    -1 where no tile holds it), the tile's pixels inside the slot's cover
+    box (``raster_v3.cover_ranges`` over the window, the box the kernel
+    stages; empty for det == 0), summed over the table's hypotheses.
+    Tiles are row-major over the (hc, wc) window ``frame_hw`` at
+    ``roi=(oy, ox, fh, fw)``."""
+    (hc, wc), (oy, ox, fh, fw) = frame_hw, roi
     slots = torch.nonzero(slot_tile >= 0).reshape(-1)
-    t = slot_tile[slots].long()
-    rlo, rhi, clo, chi = slot_ranges(bins[:, :, slots], (fh, fw))
-    r0, c0 = (t // ntx) * th + oy, (t % ntx) * tw + ox
-    n_r = (torch.minimum(rhi, r0 + th - 1) - torch.maximum(rlo, r0) + 1).clamp(min=0)
-    n_c = (torch.minimum(chi, c0 + tw - 1) - torch.maximum(clo, c0) + 1).clamp(min=0)
-    return int((n_r * n_c).sum())
+    boxes = raster_v3.cover_ranges(bins[:, :, slots], (fh, fw), (oy + hc, ox + wc))
+    return _box_tile_pixels(boxes, slot_tile[slots].long(), wc // tile_hw[1], tile_hw,
+                            (oy, ox))
+
+
+def bin_box_tests(rows: torch.Tensor, tile_idx: torch.Tensor, counts: torch.Tensor,
+                  resolution, tile_hw) -> Tuple[int, int]:
+    """(box tests, tested pairs) of the K8/K9 forward on rows (B, T, W) of
+    setup-row lanes (``setup_tris`` or ``shade.pack_rows``) and the bins
+    tile_idx (num_tiles, K), counts: the (hypothesis, pixel, entry) tests
+    it cannot skip, each held entry's triangle's cover box
+    (``raster_v3.cover_ranges`` over the padded frame) met with its tile;
+    and the TPU kernel's, every pixel of the tile against every held
+    entry."""
+    (h, w), (th, tw) = resolution, tile_hw
+    nty, ntx = -(-h // th), -(-w // tw)
+    k = tile_idx.shape[1]
+    n = counts.long().clamp(max=k)
+    held = torch.arange(k, device=n.device)[None, :] < n[:, None]
+    tri = tile_idx.long().clamp(max=rows.shape[1] - 1)[held]
+    t = torch.arange(n.numel(), device=n.device)[:, None].expand_as(held)[held]
+    boxes = raster_v3.cover_ranges(rows.transpose(1, 2)[:, :, tri], resolution,
+                                   (nty * th, ntx * tw))
+    return (_box_tile_pixels(boxes, t, ntx, tile_hw),
+            rows.shape[0] * int(n.sum()) * th * tw)
 
 
 def held_slots(base: torch.Tensor, n: torch.Tensor, n_slots: int) -> torch.Tensor:
@@ -837,7 +867,9 @@ def check_raster_ids(coef: torch.Tensor, tile_idx: torch.Tensor, counts: torch.T
     exactly equal.  The bound reads lanes 0-12 of each triangle row the
     tiles hold once per hypothesis, the valid bin entries and the counts,
     and writes the padded frame's ids; its operations are ``_OPS['K8']``
-    per (hypothesis, pixel, slot) over the tiles' slots.  With ``reps``,
+    per (hypothesis, pixel, slot) test inside the slots' cover boxes
+    (:func:`bin_box_tests`; the TPU kernel's all-pairs count is the row's
+    ``tested_pairs``).  With ``reps``,
     ms (CUDA events over ``reps`` launches after one warm-up) and
     plain_ms (the plain twin's one call that the check makes, timed)."""
     start = torch.cuda.Event(enable_timing=True)
@@ -855,13 +887,14 @@ def check_raster_ids(coef: torch.Tensor, tile_idx: torch.Tensor, counts: torch.T
     slots = int(n.sum())
     rows = int(torch.unique(tile_idx[held]).numel())
     frame_px = -(-h // th) * th * (-(-w // tw) * tw)
+    tests, pairs = bin_box_tests(coef, tile_idx, counts, resolution, tile_hw)
     row = dict(name="K8_raster_ids", ok=bool(torch.equal(ids, plain)),
                max_abs_err=float((ids - plain).abs().max()),
                tolerance="ids exactly equal", id_mismatches=int((ids != plain).sum()),
                slots=slots, table_slots=tile_idx.numel(), fg_pixels=int((ids > 0).sum()),
-               k=k, fullest=int(n.max()),
+               k=k, fullest=int(n.max()), range_tests=tests, tested_pairs=pairs,
                bound=bound(4 * (b * 13 * rows + slots + counts.numel() + b * frame_px),
-                           _OPS["K8"] * b * slots * th * tw))
+                           _OPS["K8"] * tests))
     if reps:
         row["ms"] = _time_ms(lambda: raster_ids(coef, tile_idx, counts, resolution, tile_hw),
                              reps)
@@ -896,7 +929,7 @@ def check_gather_rows(packed: torch.Tensor, tile_idx: torch.Tensor, counts: torc
     d_rows at rtol 2e-4, atol 1e-6 plus 1e-6 of the slot's sum of |d_rows|.
     The forward's bound reads lanes 0-13 of each row the tiles hold once per
     hypothesis and the 32 lanes of each won slot, and writes ids, win and
-    rows; its operations are ``_OPS['K8']`` per (hypothesis, pixel, slot).
+    rows; its operations are K8's, over the tests inside the boxes.
     The backward reads win, d_rows at the foreground and writes the slots
     held.  With ``reps``, ms over ``reps`` launches after one warm-up, and
     plain_ms: the plain forward's one call that the check makes (timed),
@@ -922,6 +955,7 @@ def check_gather_rows(packed: torch.Tensor, tile_idx: torch.Tensor, counts: torc
     n_rows = int(torch.unique(tile_idx[held]).numel())
     frame_px = b * ids.shape[1] * ids.shape[2]
     fg = int((ids > 0).sum())
+    tests, pairs = bin_box_tests(packed, tile_idx, counts, resolution, tile_hw)
     fwd = dict(name="K9_gather_rows_fwd",
                ok=bool(torch.equal(ids, ids_p) and torch.equal(win, win_p)
                        and torch.equal(rows, rows_p)),
@@ -929,9 +963,9 @@ def check_gather_rows(packed: torch.Tensor, tile_idx: torch.Tensor, counts: torc
                tolerance="ids, slots and rows exactly equal",
                id_mismatches=int((ids != ids_p).sum()), slots=slots,
                table_slots=tile_idx.numel(), fg_pixels=fg, k=k, fullest=int(n.max()),
+               range_tests=tests, tested_pairs=pairs,
                bound=bound(4 * (b * 14 * n_rows + slots + nt + 18 * _won(win, nt * k)
-                                + frame_px * (2 + 32)),
-                           _OPS["K8"] * b * slots * th * tw))
+                                + frame_px * (2 + 32)), _OPS["K8"] * tests))
 
     gen = torch.Generator(device=packed.device).manual_seed(0)
     d_rows = torch.randn(rows.shape, generator=gen, device=packed.device)
@@ -954,3 +988,57 @@ def check_gather_rows(packed: torch.Tensor, tile_idx: torch.Tensor, counts: torc
             d_rows, win, nt, k), 2)
         bwd["library_ms"] = _time_ms(lambda: bwd_library(d_rows, win, nt * k), reps)
     return [fwd, bwd]
+
+
+def check_sliver(device="cuda") -> List[Dict[str, object]]:
+    """K3, K7, K8 and K9's forward against their plain versions on the
+    sliver of ``testing.SLIVER_LANES`` (960x540; B = 2, in both windings),
+    whose f32 planes cover one pixel 8 rows past its vertex bounds: K3 on a
+    compact table of a 16x128 window of 16x16 tiles at (96, 256), the
+    sliver in its tile; K7 on the frame's uniform table, one slot a tile;
+    K8 and K9 on its setup (packed) row binned in its 32x128 tile.  Each
+    row: ok when every output equals the plain twin's bit for bit and the
+    sliver wins that pixel, and only it, in both hypotheses."""
+    from diffdope_tpu_torch.testing import SLIVER_FRAME, SLIVER_PIXEL, sliver_rows
+
+    (h, w), (py, px) = SLIVER_FRAME, SLIVER_PIXEL
+    rows = torch.as_tensor(sliver_rows(2), device=device)  # (2, 32)
+    out = []
+
+    def row(name, got, want, pixel_of):
+        fg = torch.nonzero(got[0]).tolist()
+        out.append(dict(name=name, ok=all(torch.equal(a, c) for a, c in zip(got, want))
+                        and fg == [[b, *pixel_of] for b in range(2)], covered=fg,
+                        tolerance="outputs exactly equal; the sliver's pixel covered"))
+
+    # K3: a window at (96, 256) of 16x128, its 8 tiles of 16x16
+    oy, ox = 96, 256
+    table = torch.zeros((2, 32, 128), device=device)
+    table[:, :, 0] = rows
+    zero = torch.zeros(8, dtype=torch.int32, device=device)
+    held = zero.clone()
+    held[(px - ox) // 16] = 1
+    args = (table, held, zero, held, 128, (16, 128), (16, 16), (oy, ox, h, w))
+    row("K3_raster_fwd", raster_fwd(*args), raster_fwd_plain(*args), (py - oy, px - ox))
+    # K7: the frame's uniform table at 16x16, one slot a tile
+    nty, ntx = -(-h // 16), -(-w // 16)
+    uni = torch.zeros((2, 32, nty * ntx), device=device)
+    t = (py // 16) * ntx + px // 16
+    uni[:, :, t] = rows
+    counts = torch.zeros(nty * ntx, dtype=torch.int32, device=device)
+    counts[t] = 1
+    row("K7_raster_uniform_fwd", raster_uniform_fwd(uni, counts, (h, w), (16, 16)),
+        raster_uniform_fwd_plain(uni, counts, (h, w), (16, 16)), (py, px))
+    # K8 and K9: the row binned in its 32x128 tile
+    tile = (32, 128)
+    nty, ntx = -(-h // tile[0]), -(-w // tile[1])
+    idx = torch.zeros((nty * ntx, 128), dtype=torch.int32, device=device)
+    counts = torch.zeros(nty * ntx, dtype=torch.int32, device=device)
+    counts[(py // tile[0]) * ntx + px // tile[1]] = 1
+    coef = rows[:, None, :16].contiguous()
+    row("K8_raster_ids", (raster_ids(coef, idx, counts, (h, w), tile),),
+        (raster_ids_binned_plain(coef, idx, counts, (h, w), tile),), (py, px))
+    packed = rows[:, None, :].contiguous()
+    row("K9_gather_rows_fwd", gather_rows.gather_rows_fwd(packed, idx, counts, (h, w), tile),
+        gather_rows.gather_rows_fwd_plain(packed, idx, counts, (h, w), tile), (py, px))
+    return out

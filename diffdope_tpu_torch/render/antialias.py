@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 
 from diffdope_tpu_torch.convert import tensor
+from diffdope_tpu_torch.render.rasterize import IndexRows
 from diffdope_tpu_torch.render.shade import ndc
 
 _EPS = 1e-12
@@ -101,10 +102,12 @@ def antialias(
             v[..., 2] - v[..., 0]) * (u[..., 1] - u[..., 0])
         facing = area2 > 0.0  # (B, T)
 
+    sxy = torch.stack([sx, sy], dim=-1)  # (B, 3T, 2): one gather for both
+
     def pairs(sl_a, sl_b, along, along_next, across, horizontal):
         return _aa_pairs(
             color[sl_a], color[sl_b], ids[sl_a], ids[sl_b], zw[sl_a], zw[sl_b],
-            along, along_next, across, sx, sy, horizontal, edge_adj, facing)
+            along, along_next, across, sxy, horizontal, edge_adj, facing)
 
     full = slice(None)
     # horizontal pairs (i, j) | (i, j+1): the segment along X at Y = ys[i]
@@ -121,21 +124,25 @@ def antialias(
 
 
 def _aa_pairs(c_a, c_b, id_a, id_b, zw_a, zw_b, along, along_next, across,
-              sx, sy, horizontal: bool, edge_adj=None, facing=None):
+              sxy, horizontal: bool, edge_adj=None, facing=None):
     """Blend deltas (delta_a, delta_b) of one pass of adjacent pixel pairs
     (``antialias.py:151-245``): a is the pixel at ``along``, b the one at
-    ``along_next``; ``across`` is the segment's shared coordinate."""
+    ``along_next``; ``across`` is the segment's shared coordinate; ``sxy``
+    (B, 3T, 2) the corners' screen x and y."""
     differ = id_a != id_b
     fg_is_a = (id_a > 0) & ((id_b == 0) | (zw_a <= zw_b))
     fg_id = torch.where(fg_is_a, id_a, id_b)
     active = differ & (fg_id > 0)
 
     tri_idx = (fg_id - 1).clamp(min=0)
-    bsz = sx.shape[0]
-    flat = (tri_idx[..., None] * 3 + torch.arange(3, device=sx.device)).reshape(bsz, -1)
+    bsz = sxy.shape[0]
+    flat = (tri_idx[..., None] * 3 + torch.arange(3, device=sxy.device)).reshape(bsz, -1)
     shape3 = tuple(tri_idx.shape) + (3,)
-    vx = sx.gather(1, flat).reshape(shape3)
-    vy = sy.gather(1, flat).reshape(shape3)
+    # an inactive pair reads triangle 0's corners and blends nothing, so its
+    # corners take no part in the gradient's sums
+    v = IndexRows.apply(sxy, flat, active[..., None].expand(shape3).reshape(bsz, -1))
+    vx = v[..., 0].reshape(shape3)
+    vy = v[..., 1].reshape(shape3)
     e_along, e_across = (vx, vy) if horizontal else (vy, vx)
 
     silhouette = None

@@ -32,7 +32,7 @@ import torch
 
 from diffdope_tpu_torch import kernels
 from diffdope_tpu_torch.render.raster import _check, raster_bwd_plain
-from diffdope_tpu_torch.render.rasterize import _ID_LANES, _edges_z
+from diffdope_tpu_torch.render.rasterize import _ID_LANES, _edges_z, check_kernel_frame
 from diffdope_tpu_torch.render.shade import PACKED_WIDTH, ndc
 
 #: shared memory a block of the K9 backward may take (bytes, sm_90)
@@ -121,6 +121,7 @@ def gather_rows_fwd(packed: torch.Tensor, tile_idx: torch.Tensor,
         return gather_rows_fwd_plain(packed, tile_idx, tile_counts, resolution, tile_hw)
     if packed.device.type != "cuda":
         raise ValueError(f"gather_rows_fwd: unsupported device {packed.device}")
+    check_kernel_frame(packed, nty, ntx, tile_hw)
     b, t_count, _ = packed.shape
     (h, w), (th, tw) = resolution, tile_hw
     dev = packed.device
@@ -128,11 +129,12 @@ def gather_rows_fwd(packed: torch.Tensor, tile_idx: torch.Tensor,
     win = torch.empty_like(ids)
     rows = torch.empty((b, PACKED_WIDTH, nty * th, ntx * tw), dtype=torch.float32,
                        device=dev)
+    boxes = torch.empty((b, t_count, 2), dtype=torch.int32, device=dev)  # scratch
     kernels.launch(
         "dd_gather_rows_fwd", "gather_rows_fwd",
         packed.data_ptr(), tile_idx.data_ptr(), tile_counts.data_ptr(),
         b, t_count, tile_idx.shape[1], nty, ntx, th, tw, h, w,
-        ids.data_ptr(), win.data_ptr(), rows.data_ptr(),
+        ids.data_ptr(), win.data_ptr(), rows.data_ptr(), boxes.data_ptr(),
     )
     return ids, rows, win
 

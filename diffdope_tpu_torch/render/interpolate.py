@@ -7,8 +7,9 @@ perspective-correct barycentrics of ``rast``,
 
     out = a0 * (1 - u - v) + a1 * u + a2 * v,
 
-differentiable in the attributes (the gather's backward is a scatter-add,
-with atomics on the card) and in the (u, v) channels of ``rast`` (and
+differentiable in the attributes (the gather's backward sums each vertex's
+pixels in ascending pixel order, ``rasterize.IndexRows``: the same bits
+from call to call on the card) and in the (u, v) channels of ``rast`` (and
 through them the clip positions).  With ``diff_attrs`` also the image-space
 derivatives J_attr . (du/dx, du/dy, dv/dx, dv/dy).  Background is 0.
 """
@@ -20,6 +21,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from diffdope_tpu_torch.convert import tensor
+from diffdope_tpu_torch.render.rasterize import IndexRows
 
 
 def interpolate(
@@ -55,8 +57,10 @@ def interpolate(
     ids = rast[..., 3].detach().to(torch.int64)  # 0 = background
     fg = (ids > 0)[..., None]
     corners = tri[(ids - 1).clamp(min=0)]  # (B, H, W, 3) vertex indices
-    flat = corners.reshape(b, -1, 1).expand(-1, -1, n_ch)
-    a = attr.gather(1, flat).reshape(b, h, w, 3, n_ch)
+    # background pixels read triangle 0's corners; their outputs are masked,
+    # so they take no part in the gradient's sums
+    a = IndexRows.apply(attr, corners.reshape(b, -1),
+                   fg.expand(-1, -1, -1, 3).reshape(b, -1)).reshape(b, h, w, 3, n_ch)
 
     u = rast[..., 0:1]
     v = rast[..., 1:2]

@@ -90,13 +90,16 @@ def _check_fwd_tile(tile_hw) -> None:
 
 def slot_ranges(bins: torch.Tensor, frame_hw: Tuple[int, int]):
     """(rlo, rhi, clo, chi), int64 (B, n_slots): the first and last frame
-    pixel row and column each slot of a table (B, 32, n_slots) can cover,
-    from its conservative NDC ranges (lanes 28-31) by the reference's rule
-    with half a row of slack (``raster_v2.py:1346-1377``), as the K3/K7
-    forward stages them: rows ceil((ylo + 1) h/2 - 1) to floor((yhi + 1)
-    h/2), clamped to [-1, h] with NaN widening to the frame; columns the
-    same over the frame width.  Slots with det == 0, which no pixel
-    covers, get an empty range (rlo h, rhi -1)."""
+    pixel row and column of each slot of a table (B, 32, n_slots) by its
+    vertex bounds (lanes 28-31) and the reference's rule with half a row
+    of slack (``raster_v2.py:1346-1377``, by which its TPU kernel gates
+    chunks): rows ceil((ylo + 1) h/2 - 1) to floor((yhi + 1) h/2), clamped
+    to [-1, h] with NaN widening to the frame; columns the same over the
+    frame width.  Slots with det == 0, which no pixel covers, get an empty
+    range (rlo h, rhi -1).  These miss a sliver's f32 coverage past its
+    corners and the padding past the frame's edge: the kernels stage by
+    ``raster_v3.cover_ranges`` instead; the premise tests hold the two
+    apart."""
     h, w = frame_hw
 
     def first(lo, n):

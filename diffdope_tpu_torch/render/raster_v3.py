@@ -181,9 +181,12 @@ def cover_ranges(packed_s: torch.Tensor, resolution, padded_hw):
     f32 unit roundoff, |x| <= xm, |y| <= ym over the padded frame), so the
     pixel lies in the triangle the three relaxed lines bound; its corners'
     box, a hundredth of a pixel wider, gives the rows and columns.  Lines that bound no
-    triangle, or non-finite corners, give every pixel (+-2**20).  Unlike
-    the vertex bounds of lanes 28-31 (``raster.slot_ranges``), this holds
-    for slivers, whose f32 planes can cover pixels past their corners."""
+    triangle, or non-finite corners, give every pixel (+-2**20); det == 0,
+    which covers no pixel, an empty box (2**20, -2**20).  Unlike the vertex
+    bounds of lanes 28-31 (``raster.slot_ranges``), this holds for slivers,
+    whose f32 planes can cover pixels past their corners.  K3/K7 (their
+    window padded_hw from the frame's origin) and K8/K9 (setup rows,
+    transposed to (B, 16, T)) stage by the same boxes."""
     (h, w), (hp, wp) = resolution, padded_hw
     xm, ym = max(1.0, (2.0 * wp - 1.0) / w - 1.0), max(1.0, (2.0 * hp - 1.0) / h - 1.0)
     far = 2.0 ** 20
@@ -202,8 +205,11 @@ def cover_ranges(packed_s: torch.Tensor, resolution, padded_hw):
     finite = ((cx.abs() < far) & (cy.abs() < far)).all(dim=0)
     every = ~(bounded & finite)
 
+    empty = packed_s[:, 12] == 0.0
+
     def px(v, lo):
-        return torch.where(every, -far if lo else far, v.clamp(-far, far)).long()
+        v = torch.where(every, -far if lo else far, v.clamp(-far, far))
+        return torch.where(empty, far if lo else -far, v).long()
 
     # pixel r's NDC is (2r + 1)/n - 1, within a thousandth of a pixel in f32
     x0, x1 = cx.amin(dim=0), cx.amax(dim=0)

@@ -133,15 +133,31 @@ def raster_ids(
         return raster_ids_binned_plain(coef, tile_idx, tile_counts, resolution, tile_hw)
     if coef.device.type != "cuda":
         raise ValueError(f"raster_ids: unsupported device {coef.device}")
+    check_kernel_frame(coef, nty, ntx, tile_hw)
     b, t_count, _ = coef.shape
     (h, w), (th, tw) = resolution, tile_hw
     ids = torch.empty((b, nty * th, ntx * tw), dtype=torch.int32, device=coef.device)
+    boxes = torch.empty((b, t_count, 2), dtype=torch.int32, device=coef.device)  # scratch
     kernels.launch(
         "dd_raster_ids", "raster_ids",
         coef.data_ptr(), tile_idx.data_ptr(), tile_counts.data_ptr(),
         b, t_count, tile_idx.shape[1], nty, ntx, th, tw, h, w, ids.data_ptr(),
+        boxes.data_ptr(),
     )
     return ids[:, :h, :w]
+
+
+def check_kernel_frame(rows: torch.Tensor, nty: int, ntx: int, tile_hw) -> None:
+    """Raise on inputs the K8/K9 forward kernel does not take: rows that
+    are not 16-byte aligned (it stages them with float4 loads) or a padded
+    frame of 2^15 pixels a side or more (its boxes pack a pixel range in 16
+    bits)."""
+    if rows.data_ptr() % 16:
+        raise ValueError("the K8/K9 forward takes 16-byte aligned rows (float4 loads)")
+    th, tw = tile_hw
+    if max(nty * th, ntx * tw) >= 2 ** 15:
+        raise ValueError(f"the K8/K9 forward takes padded frames below {2 ** 15} pixels "
+                         f"a side, not {(nty * th, ntx * tw)}")
 
 
 @torch.no_grad()
@@ -186,30 +202,32 @@ def raster_ids_binned_plain(coef, tile_idx, tile_counts, resolution,
     return ids[:, :h, :w]
 
 
-def setup_rows_bwd(d_rows: torch.Tensor, ids: torch.Tensor, t_count: int) -> torch.Tensor:
+def setup_rows_bwd(d_rows: torch.Tensor, ids: torch.Tensor, t_count: int,
+                   counter: str = "setup_rows_bwd") -> torch.Tensor:
     """d_coef (B, T, W): each triangle's row the sum of its foreground
     pixels' row cotangents ``d_rows`` (B, P, W), in ascending pixel order
     (ids (B, P), +1, 0 = background).
 
-    CPU tensors take :func:`setup_rows_bwd_plain`; CUDA tensors sort the
-    foreground pixels stably by (hypothesis, triangle) and launch the
-    segmented sum (csrc/rasterize.cu, ``dd_segment_sum``), anything else
-    raises."""
-    _check(d_rows, "d_rows", torch.float32, 3, d_rows.device)
+    CPU tensors take :func:`setup_rows_bwd_plain`; CUDA tensors (f32) sort
+    the foreground pixels stably by (hypothesis, triangle) and launch the
+    segmented sum (csrc/rasterize.cu, ``dd_segment_sum``), counted under
+    ``counter``; anything else raises."""
     _check(ids, "ids", torch.int32, 2, d_rows.device)
-    b, p, width = d_rows.shape
-    if tuple(ids.shape) != (b, p):
+    b, p = ids.shape
+    if d_rows.dim() != 3 or tuple(d_rows.shape[:2]) != (b, p):
         raise ValueError(f"d_rows {tuple(d_rows.shape)} / ids {tuple(ids.shape)}")
     if d_rows.device.type == "cpu":
         return setup_rows_bwd_plain(d_rows, ids, t_count)
     if d_rows.device.type != "cuda":
         raise ValueError(f"setup_rows_bwd: unsupported device {d_rows.device}")
+    _check(d_rows, "d_rows", torch.float32, 3, d_rows.device)
+    width = d_rows.shape[2]
     if b * p >= 2 ** 31 or b * t_count >= 2 ** 31:
         raise ValueError(f"{b * p} pixels / {b * t_count} rows exceed int32 indexing")
     order, start = segments(ids, t_count)
     out = torch.empty((b, t_count, width), dtype=torch.float32, device=d_rows.device)
     kernels.launch(
-        "dd_segment_sum", "setup_rows_bwd",
+        "dd_segment_sum", counter,
         d_rows.data_ptr(), order.data_ptr(), start.data_ptr(), b * t_count, width,
         out.data_ptr(),
     )
@@ -265,6 +283,29 @@ class SetupRows(torch.autograd.Function):
     def backward(ctx, d_rows):
         (ids,) = ctx.saved_tensors
         return setup_rows_bwd(d_rows.contiguous(), ids, ctx.t_count), None
+
+
+class IndexRows(torch.autograd.Function):
+    """(B, P, W) the rows ``src[b, idx[b, p]]`` of src (B, N, W) at idx
+    (B, P) int64, differentiable in ``src`` with a deterministic backward: row n of the
+    gradient sums, in ascending p, the cotangents of the entries idx[b, p]
+    = n where ``valid`` (B, P), by :func:`setup_rows_bwd` (counted under
+    'index_rows_bwd' on the card).  An entry outside ``valid`` must carry
+    a zero cotangent (its output is masked by the caller): it is left out
+    of the sums.  The gathers of ``interpolate`` and ``antialias`` take it
+    in place of autograd's scatter-add, which adds with atomics on the
+    card, so their gradients repeat bit for bit."""
+
+    @staticmethod
+    def forward(ctx, src, idx, valid):
+        ctx.save_for_backward(torch.where(valid, idx + 1, 0).to(torch.int32).contiguous())
+        ctx.n_rows = src.shape[1]
+        return src.gather(1, idx[..., None].expand(-1, -1, src.shape[2]))
+
+    @staticmethod
+    def backward(ctx, d_rows):
+        (ids,) = ctx.saved_tensors
+        return setup_rows_bwd(d_rows.contiguous(), ids, ctx.n_rows, "index_rows_bwd"), None, None
 
 
 def setup_rows(coef: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

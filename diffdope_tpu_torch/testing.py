@@ -120,3 +120,34 @@ def textured_mesh(verts: np.ndarray, faces: np.ndarray, uv: np.ndarray,
     ``make_asym_uv()`` geometry (or ``data/standins/standin_tex_*.ply``)
     with a ``make_texture`` image."""
     return mesh_from_arrays(verts, faces, scale, uv=uv, tex=tex)
+
+
+#: a sliver of the default configuration's frame (960x540, padded to
+#: 960x544; hypothesis 4 at step 12 of its run under DD_RASTER=v3): lanes
+#: 0-12 (edge planes, z plane, det) and 28-31 (its vertex bounds in NDC) of
+#: its packed row as f32.  Its f32 planes cover pixel SLIVER_PIXEL (row,
+#: column), which its vertex bounds put 8 rows away (rows 101-103, column
+#: 326): the case a raster that skips by vertex bounds gets wrong.
+SLIVER_LANES = {0: 0.003505706787109375, 1: -0.00049591064453125, 2: 0.0008153915405273438,
+                3: 0.4310111999511719, 4: -0.058162689208984375, 5: 0.10189437866210938,
+                6: -0.4336738586425781, 7: 0.058544158935546875, 8: -0.10251045227050781,
+                9: -1.8358230590820312e-05, 10: -2.1457672119140625e-06,
+                11: -3.933906555175781e-06, 12: 6.455928087234497e-06,
+                28: -0.32055214047431946, 29: -0.31952375173568726, 30: -0.6235520243644714,
+                31: -0.6159341335296631}
+SLIVER_FRAME = (540, 960)
+SLIVER_PIXEL = (111, 328)
+
+
+def sliver_rows(batch: int = 2, width: int = 32) -> np.ndarray:
+    """(batch, width) rows of the sliver (``SLIVER_LANES``, the lanes below
+    ``width``; lane 13, the id, 5): even hypotheses in its winding, odd
+    ones in the other (the planes and det negated, z unchanged)."""
+    rows = np.zeros((batch, width), np.float32)
+    for lane, value in SLIVER_LANES.items():
+        if lane < width:
+            rows[:, lane] = value
+    rows[:, 13] = 5.0
+    rows[1::2, :9] *= -1.0
+    rows[1::2, 12] *= -1.0
+    return rows

@@ -771,3 +771,114 @@ def test_k10_matches_plain_over_the_padding_on_card(cuda, params):
         ids, _ = raster_v3.raster_gather_rows_v3(fn.planar(mtx).packed, res, TILE_HW,
                                                   padded=True)
     assert int((ids[:, res[0]:] > 0).sum() + (ids[:, :, res[1]:] > 0).sum()) > 0
+
+
+def _moved(params):
+    """The poses moved across a 70x100 frame's bottom and right edges."""
+    return dict(params, x=params["x"] + 0.4, y=params["y"] - 0.3)
+
+
+@pytest.mark.parametrize("tile", [(16, 32), (32, 128)])
+def test_k8_k9_match_plain_over_the_padding_and_repeat_on_card(cuda, params, tile):
+    """K8's ids and K9's ids, win and rows on a 70x100 frame (padded to
+    whole tiles) with the object across its bottom and right edges: equal
+    to the plain twins' on every pixel (K9's of the padded frame,
+    foreground in the padding included), and the same bits from launch to
+    launch."""
+    from diffdope_tpu_torch.render.gather_rows import gather_rows_fwd, gather_rows_fwd_plain
+    from diffdope_tpu_torch.render.rasterize import raster_ids, raster_ids_binned_plain
+
+    res = (70, 100)
+    problem = bench_problem(res, subdiv=2, batch=B, device=cuda)
+    s = problem["scene"]
+    pos_clip = _pos_clip(problem, _moved(params), "cuda")
+    tri = torch.as_tensor(s["tri"], device="cuda").long()
+    coef, idx, counts = raster_ids_inputs(pos_clip, tri, res, tile)
+    ids = raster_ids(coef, idx, counts, res, tile)  # the frame (K9's pads it)
+    assert torch.equal(ids, raster_ids_binned_plain(coef, idx, counts, res, tile))
+    assert torch.equal(ids, raster_ids(coef, idx, counts, res, tile))
+    packed, idx, counts = gather_rows_inputs(pos_clip, tri, res, tile,
+                                             torch.as_tensor(s["vtx_color"], device="cuda"),
+                                             torch.as_tensor(s["edge_adj"], device="cuda").long())
+    got = gather_rows_fwd(packed, idx, counts, res, tile)
+    want = gather_rows_fwd_plain(packed, idx, counts, res, tile)
+    again = gather_rows_fwd(packed, idx, counts, res, tile)
+    assert all(torch.equal(a, w) and torch.equal(a, c) for a, w, c in zip(got, want, again))
+    fg = got[0] > 0
+    assert int(fg.sum()) > 1000
+    assert int(fg[:, res[0]:].sum() + fg[:, :, res[1]:].sum()) > 0
+
+
+@pytest.fixture(scope="module")
+def sliver(cuda):
+    from diffdope_tpu_torch.kernels.check import check_sliver
+
+    return {row["name"]: row for row in check_sliver(cuda)}
+
+
+@pytest.mark.parametrize("kernel", ["K3_raster_fwd", "K7_raster_uniform_fwd", "K8_raster_ids",
+                                    "K9_gather_rows_fwd"])
+def test_raster_forwards_match_plain_at_a_sliver_on_card(sliver, kernel):
+    """K3 (a compact window of 16x16 tiles), K7 (the frame's uniform
+    table), K8 and K9 (the 32x128 bins) on a sliver of the 960x540 frame
+    (``check.check_sliver``), in both windings: the pixel its f32 planes
+    cover 8 rows past its vertex bounds is the sliver's on the card, as in
+    the plain twins, and the outputs are the twins' bit for bit."""
+    row = sliver[kernel]
+    assert row["ok"], row
+
+
+@pytest.mark.parametrize("uniform", [False, True], ids=["compact", "uniform"])
+def test_k3_k7_match_plain_over_the_padding_on_card(cuda, params, uniform):
+    """K3 (compact table, its crop) and K7 (uniform table, the padded full
+    frame) on a 70x100 frame with the object across its bottom and right
+    edges: ids, win and rows equal the plain twin's on every pixel, and
+    the uniform table's foreground reaches into the padding."""
+    res = (70, 100)
+    fn = bench_problem(res, subdiv=2, batch=B, device=cuda, uniform=uniform)["fn"]
+    mtx, _, _ = pose_matrix(_moved(params))
+    d_sums = torch.tensor([[1.0, 0.7, 0.0], [0.5, 1.3, 0.0], [2.0, 0.2, 0.0]], device=cuda)
+    row = check_kernels(fn, mtx, d_sums)[0]
+    assert row["name"] == ("K7_raster_uniform_fwd" if uniform else "K3_raster_fwd")
+    assert row["ok"] and row["fg_pixels"] > 1000, row
+    if uniform:
+        from diffdope_tpu_torch.render.raster import raster_uniform_fwd
+        from diffdope_tpu_torch.render.pipeline import TILE_HW
+
+        with torch.no_grad():
+            tab = fn.table(mtx)
+            ids, _, _ = raster_uniform_fwd(tab.packed, tab.counts, res, TILE_HW)
+        assert int((ids[:, res[0]:] > 0).sum() + (ids[:, :, res[1]:] > 0).sum()) > 0
+
+
+def test_api_path_gradient_repeats_and_equals_the_brute_force_on_card(problem, params):
+    """rasterize (K8) -> interpolate (of vertex colours that take a
+    gradient) -> antialias -> L1: the clip positions' and the colours'
+    gradients repeat bit for bit from backward to backward, and equal the
+    brute force's (impl='reference', whose rast is the same) bit for bit;
+    interpolate's and antialias's gathers sum in a fixed order (one launch
+    for interpolate's, one for each of antialias's two passes)."""
+    from diffdope_tpu_torch.render.antialias import antialias
+    from diffdope_tpu_torch.render.interpolate import interpolate
+    from diffdope_tpu_torch.render.rasterize import rasterize
+
+    s = problem["scene"]
+    tri = torch.as_tensor(s["tri"], device="cuda").long()
+    adj = torch.as_tensor(s["edge_adj"], device="cuda").long()
+    colors = torch.as_tensor(s["vtx_color"], device="cuda")
+    target = torch.as_tensor(np.random.default_rng(3).uniform(0, 1, (B,) + RES + (3,)),
+                             dtype=torch.float32, device="cuda")
+    out = {}
+    for run, impl in (("k8", "pallas"), ("again", "pallas"), ("brute", "reference")):
+        pos_clip = _pos_clip(problem, params, "cuda").detach().requires_grad_(True)
+        attr = colors.clone().requires_grad_(True)
+        rast, db = rasterize(pos_clip, tri, RES, impl=impl)
+        rgb, _ = interpolate(attr, rast, tri, db, diff_attrs="all")
+        aa = antialias(rgb, rast, pos_clip, tri, edge_adj=adj)
+        kernels.reset_launches()
+        grads = torch.autograd.grad((aa - target).abs().mean(), (pos_clip, attr))
+        assert kernels.launches["index_rows_bwd"] == 3, kernels.launches
+        out[run] = (rast.detach(), *grads)
+    assert float(out["k8"][1].abs().max()) > 0 and float(out["k8"][2].abs().max()) > 0
+    for run in ("again", "brute"):
+        assert all(torch.equal(a, c) for a, c in zip(out["k8"], out[run])), run

@@ -42,6 +42,7 @@ import torch
 from diffdope_tpu_torch.render import raster_v3 as port
 from diffdope_tpu_torch.render.raster import raster_bwd_plain, slot_ranges
 from diffdope_tpu_torch.render.shade import ndc
+from diffdope_tpu_torch.testing import SLIVER_LANES
 
 RES = (60, 90)
 PAD = (64, 96)
@@ -167,23 +168,10 @@ def test_torch_k10_ranges_hold_every_pixel_a_slot_can_win(source):
     assert float(inside[live].float().mean()) < 0.05
 
 
-#: a sliver of phase 11 (960x540, padded to 960x544; hypothesis 4 at step
-#: 12 of the default configuration's run under DD_RASTER=v3), lanes 0-12
-#: and 28-31 as f32: its f32 planes cover pixel (111, 328), which its
-#: vertex bounds put 8 rows away (rows 101-103, column 326)
-SLIVER = {0: 0.003505706787109375, 1: -0.00049591064453125, 2: 0.0008153915405273438,
-          3: 0.4310111999511719, 4: -0.058162689208984375, 5: 0.10189437866210938,
-          6: -0.4336738586425781, 7: 0.058544158935546875, 8: -0.10251045227050781,
-          9: -1.8358230590820312e-05, 10: -2.1457672119140625e-06,
-          11: -3.933906555175781e-06, 12: 6.455928087234497e-06,
-          28: -0.32055214047431946, 29: -0.31952375173568726, 30: -0.6235520243644714,
-          31: -0.6159341335296631}
-
-
 def test_torch_k10_ranges_hold_a_slivers_coverage_past_its_corners():
     res, pad, pixel = (540, 960), (544, 960), (111, 328)
     packed = torch.zeros((1, 32, 1))
-    for lane, value in SLIVER.items():
+    for lane, value in SLIVER_LANES.items():
         packed[0, lane, 0] = value
     x = ndc(torch.tensor([pixel[1]]), res[1])
     y = ndc(torch.tensor([pixel[0]]), res[0])

@@ -1,16 +1,18 @@
 """K3/K7's slot ranges and the recounted kernel bounds (kernels/check.py).
 
-``raster.slot_ranges`` is the rule by which the K3/K7 forward skips the
-(pixel, slot) tests that cannot cover, and by which ``check.range_tests``
-counts the tests the bound charges: the reference's conservative rows
+``raster.slot_ranges`` are the reference's conservative rows
 (``raster_v2.py:1346-1377``) and columns from the packed table's NDC
-ranges, lanes 28-31.  Held here, at the bench scene's shapes cut to 64x96
-(icosphere(2), triangles of ~20 px, and icosphere(4), of 1-2 px), to
-never exclude a covered pixel: neither a brute-force winner
+ranges, lanes 28-31, by which its TPU kernel gates chunks.  Held here, at
+the bench scene's shapes cut to 64x96 (icosphere(2), triangles of ~20 px,
+and icosphere(4), of 1-2 px), to exclude no covered pixel of the frame on
+these scenes: neither a brute-force winner
 (``rasterize.raster_ids_reference``) nor any pixel that K3's own test
-(the plain twin's arithmetic) covers.  The K3 bound's operations are 15
-per in-range pair, counted independently; the bf16 lane's d_rows count 2
-bytes a value.
+(the plain twin's arithmetic) covers.  (They do miss a sliver's coverage
+and the padding, so the K3/K7 forward stages by the cover boxes instead:
+tests/test_torch_k3_premises.py.)  The K3 bound's operations are 15 per
+pair inside a slot's cover box (``raster_v3.cover_ranges``, what the
+kernel stages and ``check.range_tests`` counts), counted independently;
+the bf16 lane's d_rows count 2 bytes a value.
 """
 
 import numpy as np
@@ -21,7 +23,7 @@ from diffdope_tpu_torch.bench import bench_problem, distinct_poses
 from diffdope_tpu_torch.geometry import matmul44, xfm_points
 from diffdope_tpu_torch.kernels import check
 from diffdope_tpu_torch.optimize import pose_matrix
-from diffdope_tpu_torch.render import pipeline
+from diffdope_tpu_torch.render import pipeline, raster_v3
 from diffdope_tpu_torch.render.raster import slot_ranges
 from diffdope_tpu_torch.render.rasterize import raster_ids_reference
 from diffdope_tpu_torch.render.setup_tris import triangle_setup
@@ -78,7 +80,7 @@ def test_torch_slot_ranges_hold_every_covered_pixel(scene):
 
 def test_torch_k3_bound_counts_15_per_in_range_pair(scene, monkeypatch):
     """The K3 forward's bound charges 15 operations per (hypothesis, pixel,
-    slot) pair inside the slot's range within its tile, counted here by
+    slot) pair inside the slot's cover box within its tile, counted here by
     brute force over each held slot's tile."""
     problem, mtx = scene
     fn = problem["fn"]
@@ -87,7 +89,7 @@ def test_torch_k3_bound_counts_15_per_in_range_pair(scene, monkeypatch):
     n = torch.minimum(tab.counts, tab.used * pipeline.K_CHUNK).long()
     base = tab.off_c.long() * pipeline.K_CHUNK
     (th, tw), (hc, wc), (oy, ox, fh, fw) = pipeline.TILE_HW, fn.frame_hw, fn.roi
-    rlo, rhi, clo, chi = slot_ranges(tab.packed, (fh, fw))
+    rlo, rhi, clo, chi = raster_v3.cover_ranges(tab.packed, (fh, fw), (oy + hc, ox + wc))
     want = 0
     for t in range(n.numel()):
         r0, c0 = (t // (wc // tw)) * th + oy, (t % (wc // tw)) * tw + ox

@@ -3,15 +3,16 @@ tree, ptxas' registers and spills and the SASS loops of each kernel, and
 its time at the bench shapes, with every tree's outputs held to the first
 tree's.
 
-    python tools/port_kernel_ab.py ROOT [ROOT ...] [--kernels K2,K5,K3,K4,K6,K10]
-                                   [--sass-dir DIR] [--out FILE] [--reps N]
+    python tools/port_kernel_ab.py ROOT [ROOT ...]
+        [--kernels K2,K5,K3,K4,K6,K10,K8,K9] [--sass-dir DIR] [--out FILE] [--reps N]
 
 Each ROOT is a checkout of the repo (this one, or the parent unpacked with
 ``git archive`` into the gitignored ``chip_proof/``), or any directory
 that holds ``diffdope_tpu_torch/csrc/`` (a variant of a kernel).  For each kernel
 asked for, ROOT's source (``pack.cu`` for K2, ``fused_loss.cu`` for K5 and
 K6, ``raster.cu`` for K3/K7's forward and K4/K7's backward, ``raster_v3.cu``
-and ``raster.cu`` for K10) is built with the port's nvcc flags and
+and ``raster.cu`` for K10, ``rasterize.cu`` for K8 and K9's forward) is
+built with the port's nvcc flags and
 ``-Xptxas=-v`` into a library of its own.
 ``cuobjdump -sass`` of it gives, for each of the kernel's functions, every
 loop (a backward branch) with its instruction count and the count of each
@@ -42,7 +43,17 @@ distinct poses):
   ``chip_smoke.py``'s phase 11 at its last poses (the default
   configuration run under ``DD_RASTER=v3``: 960x540, B=8, the stand-in),
   the backward under K6's d_rows of this tree's forward; printed with the
-  gated (tile, chunk) pairs, the slots they walk and the exact bins'.
+  gated (tile, chunk) pairs, the slots they walk and the exact bins';
+- K8 (``dd_raster_ids``) and K9's forward (``dd_gather_rows_fwd``) at tile
+  (32, 128) on the bench scene's setup (or packed) rows and bins at its
+  64 poses, and at ``chip_smoke.py``'s phase 9 and 13 inputs (960x540,
+  B=8 distinct poses around the default configuration's init, the
+  stand-in); printed with the held bin entries, the tests inside the
+  boxes and the TPU kernel's all-pairs tests.
+
+K3/K7's, K8's and K9's outputs are also held to their plain twins: each
+tree's row counts the (hypothesis, pixel) pairs at which any output
+differs from the twin's (``pixels_off_the_plain_twin``).
 
 Each case is timed by CUDA events over ``--reps`` launches after a warm-up,
 in turns A B ... B A, twice.  K2's sums are held to the first tree's at
@@ -72,7 +83,9 @@ sys.path.insert(0, str(HERE))
 #: (K10's forward lives in raster_v3.cu or, as K3's body over the sorted
 #: table, in raster.cu: both are built and the entry point is looked up in
 #: either)
-SOURCES = {"K2": (("pack.cu",), ("pack_bwd",)),
+SOURCES = {"K8": (("rasterize.cu",), ("raster_ids_kernel", "row_boxes")),
+           "K9": (("rasterize.cu",), ("raster_ids_kernel", "row_boxes")),
+           "K2": (("pack.cu",), ("pack_bwd",)),
            "K5": (("fused_loss.cu",), ("loss_fwd", "loss_reduce")),
            "K3": (("raster.cu",), ("raster_fwd_kernel",)),
            "K4": (("raster.cu",), ("raster_bwd_kernel",)),
@@ -298,9 +311,23 @@ def k3_cases(problems, mtx):
                 return outs
             return call
 
+        def twin(tab=tab, uniform=uniform, fn=fn, roi=(oy, ox, fh, fw)):
+            from diffdope_tpu_torch.render.raster import (
+                raster_fwd_plain,
+                raster_uniform_fwd_plain,
+            )
+
+            with torch.no_grad():
+                ids, rows, win = (
+                    raster_uniform_fwd_plain(tab.packed, tab.counts, roi[2:], TILE_HW)
+                    if uniform else
+                    raster_fwd_plain(tab.packed, tab.counts, tab.off_c, tab.used, K_CHUNK,
+                                     fn.frame_hw, TILE_HW, roi))
+            return ids, win, rows
+
         cases[("K7 " if uniform else "K3 ") + case] = (
             make, lambda a, c: all(torch.equal(x, y) for x, y in zip(a, c)),
-            dict(slots=tab.packed.shape[2]))
+            dict(slots=tab.packed.shape[2]), twin)
     return cases
 
 
@@ -570,6 +597,123 @@ def k10_cases(problems):
     return cases
 
 
+def k8_cases(problems, rows: bool):
+    """K8 (``dd_raster_ids``) or, with ``rows``, K9's forward
+    (``dd_gather_rows_fwd``) on each problem's setup rows (or packed rows)
+    and bins at tile (32, 128), K from the fullest tile (``problems``:
+    {case: (pos_clip, tri, colors, edge_adj, resolution)}).  A tree whose
+    forward has the box pre-pass takes its scratch.  Outputs start as -7
+    and NaN, are held bit for bit, and each tree's ids (K9: ids, win and
+    rows) are compared with the plain twin's at every pixel of the frame."""
+    import torch
+
+    from diffdope_tpu_torch.kernels.check import (
+        bin_box_tests,
+        gather_rows_inputs,
+        raster_ids_inputs,
+    )
+    from diffdope_tpu_torch.render.gather_rows import gather_rows_fwd_plain
+    from diffdope_tpu_torch.render.rasterize import raster_ids_binned_plain
+
+    tile = (32, 128)
+    (th, tw) = tile
+    name = "dd_gather_rows_fwd" if rows else "dd_raster_ids"
+    cases = {}
+    for case, (pos_clip, tri, colors, adj, res) in problems.items():
+        with torch.no_grad():
+            inputs = (gather_rows_inputs(pos_clip, tri, res, tile, colors, adj) if rows
+                      else raster_ids_inputs(pos_clip, tri, res, tile))
+        src, idx, counts = inputs
+        b, t_count, _ = src.shape
+        nty, ntx = -(-res[0] // th), -(-res[1] // tw)
+        hp, wp = nty * th, ntx * tw
+
+        def make(lib, src=src, idx=idx, counts=counts, b=b, t_count=t_count, nty=nty,
+                 ntx=ntx, hp=hp, wp=wp, res=res):
+            f = getattr(lib, name)
+            n_out = 3 if rows else 1
+            boxes = (torch.empty((b, t_count, 2), dtype=torch.int32, device="cuda"),) if (
+                _params(lib.root, name, ("rasterize.cu",)) == (17 if rows else 15)) else ()
+            f.argtypes = [P] * 3 + [I] * 9 + [P] * (n_out + len(boxes) + 1)
+            outs = (torch.full((b, hp, wp), -7, dtype=torch.int32, device="cuda"),)
+            if rows:
+                outs += (torch.full((b, hp, wp), -7, dtype=torch.int32, device="cuda"),
+                         torch.full((b, 32, hp, wp), float("nan"), device="cuda"))
+
+            def call():
+                err = f(src.data_ptr(), idx.data_ptr(), counts.data_ptr(), b, t_count,
+                        idx.shape[1], nty, ntx, th, tw, *res,
+                        *(o.data_ptr() for o in outs + boxes),
+                        torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+                return outs
+            return call
+
+        def twin(src=src, idx=idx, counts=counts, res=res):
+            with torch.no_grad():
+                if rows:  # (ids, rows, win) -> the kernel's order
+                    ids, rws, win = gather_rows_fwd_plain(src, idx, counts, res, tile)
+                    return ids, win, rws
+                return (raster_ids_binned_plain(src, idx, counts, res, tile),)
+
+        tests, pairs = bin_box_tests(src, idx, counts, res, tile)
+        n = counts.long().clamp(max=idx.shape[1])
+        cases[("K9 fwd " if rows else "K8 ") + case] = (
+            make, _bit_equal,
+            dict(frame=[hp, wp], batch=b, k=idx.shape[1], held_slots=int(n.sum()),
+                 box_tests=tests, tested_pairs=pairs), twin)
+    return cases
+
+
+def api_problems(base_scene, mtx):
+    """{case: (pos_clip, tri, colors, edge_adj, resolution)}: the bench
+    scene at its 64 poses, and ``chip_smoke.py``'s phase 9 (and 13) inputs:
+    the default configuration's 960x540 frame, its 8 distinct poses
+    around the init, the stand-in mesh."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from diffdope_tpu_torch.bench import distinct_poses
+    from diffdope_tpu_torch.geometry import matmul44, xfm_points
+    from diffdope_tpu_torch.optimize import pose_matrix
+
+    def case(proj, pos, tri, colors, adj, mtx, res):
+        with torch.no_grad():
+            clip = xfm_points(torch.as_tensor(pos, device="cuda"),
+                              matmul44(torch.as_tensor(np.asarray(proj, np.float32),
+                                                       device="cuda"), mtx))
+        return (clip, torch.as_tensor(tri, device="cuda").long(),
+                torch.as_tensor(colors, device="cuda"),
+                torch.as_tensor(adj, device="cuda").long(), res)
+
+    sc = base_scene
+    dd, _, _ = chip_smoke.diffdope_session(True)
+    mesh = dd.object3d.mesh
+    params = distinct_poses(dd.object3d.initial_params(dd.batchsize, "cuda"), 1e-3)
+    with torch.no_grad():
+        mtx9, _, _ = pose_matrix(params)
+    return {"bench": case(sc["proj"], sc["pos"], sc["tri"], sc["vtx_color"], sc["edge_adj"],
+                          mtx, (400, 400)),
+            "phase9_13": case(dd.camera.cam_proj, mesh.pos, mesh.pos_idx, mesh.vtx_color,
+                              mesh.edge_adj, mtx9, tuple(dd.resolution))}
+
+
+def _twin_pixels(outs, want) -> int:
+    """The (hypothesis, pixel) pairs of the twin's frame at which any
+    output of a kernel (ids (B, H, W), win, rows (B, 32, H, W), padded
+    frames cut to the twin's) differs from the twin's, bit for bit."""
+    import torch
+
+    bad = None
+    for x, y in zip(outs, want):
+        x = x[..., :y.shape[-2], :y.shape[-1]]
+        d = _bits(x) != _bits(y)
+        d = d.any(dim=1) if d.dim() == 4 else d
+        bad = d if bad is None else bad | d
+    return int(bad.sum()) if bad is not None else 0
+
+
 def phase11_problem():
     """(fused loss, poses) of ``chip_smoke.py``'s phase 11: the default
     configuration (960x540, B=8, the stand-in) run under ``DD_RASTER=v3``,
@@ -649,7 +793,15 @@ def main() -> int:
                                 "uniform": variant("uniform", uniform=True)}, mtx),
         "K10": lambda: k10_cases({"bench": (variant("v3", route="v3"), mtx),
                                   "phase11": phase11_problem()}),
+        "K8": lambda: k8_cases(api(), rows=False),
+        "K9": lambda: k8_cases(api(), rows=True),
     }
+    api_cache = {}
+
+    def api():
+        if not api_cache:
+            api_cache.update(api_problems(base["scene"], mtx))
+        return api_cache
     order = list(range(len(roots)))
     turns = order + order[::-1]
     out = open(args.out, "w") if args.out else None
@@ -659,16 +811,18 @@ def main() -> int:
         sass = [{k: v for lib in libs for k, v in
                  sass_loops(lib, SOURCES[kind][1], args.sass_dir).items()}
                 for libs, _ in built]
-        for case, (make, close, info) in makers[kind]().items():
+        for case, (make, close, info, *twin) in makers[kind]().items():
             calls = [make(_Libs(libs, root)) for (libs, _), root in zip(built, roots)]
             first = [o.clone() for o in calls[0]()]
-            agree, equal, repeats, diffs = [], [], [], []
+            want = twin[0]() if twin else None
+            agree, equal, repeats, diffs, off_twin = [], [], [], [], []
             for call in calls:
                 once = [o.clone() for o in call()]
                 agree.append(bool(close(first, once)))
                 equal.append(_bit_equal(first, once))
                 repeats.append(_bit_equal(once, call()))
                 diffs.append(_diffs(first, once))
+                off_twin.append(_twin_pixels(once, want) if want is not None else None)
             ms = {i: [] for i in order}
             for _ in range(2):
                 for i in turns:
@@ -680,6 +834,8 @@ def main() -> int:
                        "repeats_bit_for_bit": repeats[i], **info}
                 if diffs[i]:
                     row["differs_from_first_tree"] = diffs[i]
+                if off_twin[i] is not None:
+                    row["pixels_off_the_plain_twin"] = off_twin[i]
                 print(json.dumps(row), flush=True)
                 if out:
                     out.write(json.dumps(dict(row, ptxas=built[i][1], sass=sass[i])) + "\n")
