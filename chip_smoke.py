@@ -107,7 +107,9 @@ result line):
    gradient; K9 forward and backward launched once each, its ids equal
    the brute force's on the same coefficients, its rows a plain gather's
    bit for bit, the pose gradients the plain-gather path's at rtol 2e-4,
-   atol 1e-6; forward and backward times and peak memory printed;
+   atol 1e-6; forward and backward times and peak memory printed, and
+   whether the warm-up and the timed pass give bit-identical pose
+   gradients, d_rows and d_packed;
 14. ``DiffDope`` with exact texture at the default configuration's full
    size (960x540, B=8, 61 SGD steps, mask + rgb L1, ``tpu.texture_mode:
    exact``) on the textured stand-in (``texture_mesh``: the geometry and uv
@@ -861,8 +863,10 @@ def k9_check(label, gpu, proj, mtx, pos, tri, colors, adj, resolution, tile_hw, 
                                     torch.as_tensor(adj, device=cuda).long())
     rows = check_gather_rows(*inputs, resolution, tile_hw, reps)
     for row in rows:
+        held = (f", held slots only {row['bound_held'][0]:.4f} ms" if "bound_held" in row
+                else "")
         times = (f" kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-                 f"{row['bound'][0]:.4f} ms ({row['bound'][1]}) [{gpu}]" if reps else "")
+                 f"{row['bound'][0]:.4f} ms ({row['bound'][1]}){held} [{gpu}]" if reps else "")
         print(f"{label} {row['name']} tile {tile_hw}, {resolution[1]}x{resolution[0]}, "
               f"B={mtx.shape[0]}: ok={row['ok']} max_abs_err={row['max_abs_err']:.3e} "
               f"({row['tolerance']}){slots(row)}{times}", flush=True)
@@ -989,8 +993,9 @@ def k9_chain(mesh_t, params, k: int, gt, brute: bool):
     triangle_setup -> bin_triangles (K ``k``) -> pack_rows -> K9 (or, with
     ``brute``, the brute-force ids and a plain gather of the rows) -> the
     shaded rgb and the antialiased mask -> L1 against gt -> the pose
-    gradient; returns ids, rows, the gradients, the loss and the forward
-    and backward seconds (synchronized)."""
+    gradient; returns ids, rows, the gradients (and those of the rows,
+    d_rows, and of the packed rows, d_packed), the loss and the forward and
+    backward seconds (synchronized)."""
     import torch
 
     from diffdope_tpu_torch.geometry import matmul44, xfm_points
@@ -1035,10 +1040,11 @@ def k9_chain(mesh_t, params, k: int, gt, brute: bool):
     loss = (rgb - gt["rgb"]).abs().mean() + (mask[..., None] - gt["mask"]).abs().mean()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    grads = torch.autograd.grad(loss, list(p.values()))
+    *grads, d_rows, d_packed = torch.autograd.grad(loss, list(p.values()) + [rows, packed])
     torch.cuda.synchronize()
     return dict(ids=ids, rows=rows.detach(), loss=float(loss.detach()),
-                grads=dict(zip(p, grads)), fwd_s=t1 - t0, bwd_s=time.perf_counter() - t1)
+                grads=dict(zip(p, grads)), d_rows=d_rows, d_packed=d_packed,
+                fwd_s=t1 - t0, bwd_s=time.perf_counter() - t1)
 
 
 def k9_phase(gpu):
@@ -1072,7 +1078,9 @@ def k9_phase(gpu):
     print(f"phase 13: {res[1]}x{res[0]}, B={dd.batchsize}, {len(mesh.pos_idx)} triangles, "
           f"tile {API_TILE}, K {k}, no pair dropped", flush=True)
 
-    k9_chain(mesh_t, params, k, gt, brute=False)  # warm-up
+    warm = k9_chain(mesh_t, params, k, gt, brute=False)  # warm-up, kept on the host
+    warm = {"pose gradients": [g.cpu() for g in warm["grads"].values()],
+            "d_rows": [warm["d_rows"].cpu()], "d_packed": [warm["d_packed"].cpu()]}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -1083,6 +1091,11 @@ def k9_phase(gpu):
           f"{run['bwd_s'] * 1e3:.4f} ms, peak {peak_gib:.3f} GiB, loss {run['loss']:.6f} "
           f"[{gpu}]", flush=True)
     print(f"phase 13 launches: {launches}", flush=True)
+    same = {name: all(bool(torch.equal(a.view(torch.int32), c.cpu().view(torch.int32)))
+                      for a, c in zip(warm[name], got))
+            for name, got in (("pose gradients", run["grads"].values()),
+                              ("d_rows", [run["d_rows"]]), ("d_packed", [run["d_packed"]]))}
+    print(f"phase 13: warm-up and timed pass bit-identical: {same}", flush=True)
     on = ("gather_rows_fwd", "gather_rows_bwd")
     check_launches("phase 13", launches, on, set(launches) - set(on))
     if launches["gather_rows_fwd"] != 1 or launches["gather_rows_bwd"] != 1:

@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <cstdint>
+
 #include "raster_common.cuh"
 
 namespace {
@@ -382,103 +384,156 @@ extern "C" int dd_raster_ids(const float* coef, const int* tile_idx,
 // plain indexed load here.
 //
 // Backward: d_bin (B, tiles, K, 32), for each (tile, slot) the sum of
-// d_rows over the tile's pixels that the slot wins.  Every slot belongs to
-// one tile, so one block per (tile, hypothesis) writes it alone, with no
-// atomics; but a tile has up to 4,096 pixels and K up to thousands of
-// slots, so K4's owner scan (quadratic in the tile's pixels) is replaced by
-// a stable counting sort of the tile's pixels by winner slot in shared
-// memory: warp 0 counts and places them 32 pixels at a time (__match_any_sync
-// groups equal slots; a pixel's place is its slot's offset, the count
-// placed so far and its rank among earlier lanes of its group), so each
-// slot's pixels keep pixel order.  Then a thread per slot sums its pixels'
-// d_rows in that order: a fixed order, bit-identical across launches.  Bound:
-// the d_rows read at the foreground pixels and the d_bin write.
+// d_rows over the tile's pixels that the slot wins, from +0 in ascending
+// pixel order (the frame's row-major order within the tile), and +0 at
+// every other slot, the tile's count to K included.  Every slot belongs to
+// one tile, so one block of 1,024 threads per (tile, hypothesis) owns the
+// tile's K x 32 floats, one contiguous span, and writes them with no
+// atomics.  Bound on this card: the d_bin write, every entry (1.8 GB at the
+// bench shapes, 83% of it past the tiles' counts), then win and the d_rows
+// read at the foreground pixels.  So:
+// (1) +0 over the span in float4 stores (a slot's 32 lanes are 128
+//     contiguous bytes): the tile's block writes its held slots in plain
+//     stores (its won rows are read back below), and a tail block per
+//     (tile, hypothesis), launched after all the tiles' blocks so that no
+//     walk starts late, the slots past the count in streaming stores; a
+//     tile that holds no slot does nothing else;
+// (2) the tile's block walks its pixels in row-major chunks of 1,024,
+//     thread e on pixel e of the chunk, as K4 walks a 16 x 16 tile: each
+//     foreground pixel's key (slot << 10) | e, the chunk's d_rows staged
+//     in shared memory by coalesced loads (none at background pixels), a
+//     bitonic sort of the keys (shuffles within a warp, shared memory
+//     across warps), so each winner's pixels of the chunk form a run in
+//     ascending pixel order;
+// (3) a warp a run, a thread a lane: the slot's row as the earlier chunks
+//     left it (+0 before its first), the run's pixels added in order with
+//     __fadd_rn, and the row stored; a warp loads the rows of up to
+//     kRowBatch of its runs at once.  Each slot's sum is one fixed
+//     sequence of additions over its pixels in ascending order, chunk
+//     after chunk, bit-identical across launches; shared memory does not
+//     grow with the tile or with K.  The chunk is the tile's 32 x 128
+//     pixels a quarter at a time: chunks of 256 and 512 pixels took more
+//     rounds of the walk, each a few memory latencies long under the
+//     fill's traffic.
 
 namespace {
 
-constexpr int kBwdThreads = 256;
+constexpr int kBwdThreads = 1024;         // a thread a pixel of a chunk
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kChunkPx = kBwdThreads;     // consecutive tile pixels (row-major) a chunk
+constexpr int kPxBits = 10;               // a key's pixel bits: kChunkPx = 1 << kPxBits
+constexpr int kChunkPad = kRowWidth + 1;  // a staged pixel's lanes, padded
+constexpr int kStageBatch = 16;           // a thread's d_rows loads in flight
+constexpr int kRowBatch = 8;              // a warp's runs whose rows load at once
+constexpr unsigned kNoKey = 0xffffffffu;  // background, sorted last
+static_assert(kChunkPx == 1 << kPxBits, "a key holds a chunk's pixel");
+// the stage: 135,168 bytes of dynamic shared memory
+constexpr int kBwdShared = kChunkPx * kChunkPad * (int)sizeof(float);
 
-__global__ void gather_rows_bwd_kernel(const float* __restrict__ d_rows,
-                                       const int* __restrict__ win,
-                                       const int* __restrict__ counts, int K,
-                                       int ntx, int th, int tw, int hp,
-                                       int wp, float* __restrict__ d_bin) {
-  extern __shared__ int sh[];
-  const int t = blockIdx.x;
-  const int b = blockIdx.y;
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    gather_rows_bwd_kernel(const float* __restrict__ d_rows, const int* __restrict__ win,
+                           const int* __restrict__ counts, int K, int ntx, int th, int tw,
+                           int hp, int wp, float* __restrict__ d_bin) {
+  extern __shared__ float stage[];  // the chunk's staged d_rows
+  float(*st)[kChunkPad] = reinterpret_cast<float(*)[kChunkPad]>(stage);
+  __shared__ unsigned keys[kChunkPx];
+  __shared__ unsigned run_starts[kBwdWarps];
+  __shared__ int run_at[kChunkPx + 1];  // sorted position of each run's start
+  const int t = blockIdx.x, b = blockIdx.y;
+  const int e = threadIdx.x, lane = e & 31, warp = e >> 5;
   const int npx = th * tw;
   const int n = min(counts[t], K);
-  int* slot = sh;             // npx: the pixel's winner slot in the tile, -1
-  int* order = slot + npx;    // npx: the pixels, stably sorted by slot
-  int* cnt = order + npx;     // K: pixels per slot (then placed so far)
-  int* off = cnt + K;         // K: first place of each slot's pixels
   const int r0 = (t / ntx) * th, c0 = (t % ntx) * tw;
   const size_t plane_px = (size_t)hp * wp;
   auto pix_of = [&](int p) { return (size_t)(r0 + p / tw) * wp + c0 + p % tw; };
-
-  for (int p = threadIdx.x; p < npx; p += blockDim.x) {
-    const int w = win[(size_t)b * plane_px + pix_of(p)];
-    slot[p] = w >= 0 ? w - t * K : -1;
-  }
-  for (int k = threadIdx.x; k < n; k += blockDim.x) cnt[k] = 0;
-  __syncthreads();
-
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const unsigned lower = (1u << lane) - 1u;
-    for (int i = 0; i < npx; i += 32) {  // counts
-      const int p = i + lane;
-      const int s = p < npx ? slot[p] : -1;
-      const unsigned m = __match_any_sync(0xffffffffu, s);
-      if (s >= 0 && (m & lower) == 0u) cnt[s] += __popc(m);
-      __syncwarp();
-    }
-    // exclusive scan of cnt into off: lane L takes a contiguous segment
-    const int seg = (n + 31) / 32;
-    const int lo = min(n, lane * seg), hi = min(n, lo + seg);
-    int local = 0;
-    for (int k = lo; k < hi; ++k) local += cnt[k];
-    int incl = local;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += v;
-    }
-    int run = incl - local;
-    for (int k = lo; k < hi; ++k) {
-      off[k] = run;
-      run += cnt[k];
-      cnt[k] = 0;
-    }
-    __syncwarp();
-    for (int i = 0; i < npx; i += 32) {  // stable placement
-      const int p = i + lane;
-      const int s = p < npx ? slot[p] : -1;
-      const unsigned m = __match_any_sync(0xffffffffu, s);
-      if (s >= 0) order[off[s] + cnt[s] + __popc(m & lower)] = p;
-      __syncwarp();
-      if (s >= 0 && (m & lower) == 0u) cnt[s] += __popc(m);
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-
-  const float* db = d_rows + (size_t)b * kRowWidth * plane_px;
   float* out = d_bin + ((size_t)b * gridDim.x + t) * K * kRowWidth;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    float acc[kRowWidth];
+
+  // (1) +0 everywhere: a tail block past the tile's count, in streaming
+  // stores; the tile's block over its held slots
+  float4* out4 = reinterpret_cast<float4*>(out);
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (blockIdx.z) {
+    for (int i = n * (kRowWidth / 4) + e; i < K * (kRowWidth / 4); i += kBwdThreads)
+      __stcs(out4 + i, zero);
+    return;
+  }
+  if (n == 0) return;  // the same for the whole block
+  for (int i = e; i < n * (kRowWidth / 4); i += kBwdThreads) out4[i] = zero;
+  __syncthreads();  // the held rows' zeros before any block load of them
+
+  const int* wb = win + (size_t)b * plane_px;
+  const float* db = d_rows + (size_t)b * kRowWidth * plane_px;
+  int s_next = e < npx ? wb[pix_of(e)] - t * K : -1;
+  for (int p0 = 0; p0 < npx; p0 += kChunkPx) {
+    // (2) the chunk: keys, staged d_rows, sort
+    const int s = s_next;
+    s_next = p0 + kChunkPx + e < npx ? wb[pix_of(p0 + kChunkPx + e)] - t * K : -1;
+    const bool fg = s >= 0 && s < n;
+    const int n_fg = __syncthreads_count(fg);  // st, keys and run_at are free too
+    if (n_fg == 0) continue;  // the same for the whole block
+    if (fg) {
+      const float* src = db + pix_of(p0 + e);
 #pragma unroll
-    for (int l = 0; l < kRowWidth; ++l) acc[l] = 0.0f;
-    if (k < n) {
-      for (int q = off[k]; q < off[k] + cnt[k]; ++q) {
-        const float* src = db + pix_of(order[q]);
+      for (int l0 = 0; l0 < kRowWidth; l0 += kStageBatch) {
+        float v[kStageBatch];
 #pragma unroll
-        for (int l = 0; l < kRowWidth; ++l)
-          acc[l] = __fadd_rn(acc[l], src[l * plane_px]);
+        for (int l = 0; l < kStageBatch; ++l) v[l] = __ldg(src + (size_t)(l0 + l) * plane_px);
+#pragma unroll
+        for (int l = 0; l < kStageBatch; ++l) st[e][l0 + l] = v[l];
       }
     }
-    float* dst = out + (size_t)k * kRowWidth;
+    unsigned key = fg ? (unsigned)s << kPxBits | (unsigned)e : kNoKey;
+    for (int size = 2; size <= kChunkPx; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        unsigned other;
+        if (stride >= 32) {
+          __syncthreads();
+          keys[e] = key;
+          __syncthreads();
+          other = keys[e ^ stride];
+        } else {
+          other = __shfl_xor_sync(0xffffffffu, key, stride);
+        }
+        const bool ascending = (e & size) == 0, lower = (e & stride) == 0;
+        key = lower == ascending ? min(key, other) : max(key, other);
+      }
+    }
+    __syncthreads();
+    keys[e] = key;
+    __syncthreads();
+    // the runs: a run starts where the winner changes
+    const bool start =
+        key != kNoKey && (e == 0 || (keys[e - 1] >> kPxBits) != (key >> kPxBits));
+    const unsigned ballot = __ballot_sync(0xffffffffu, start);
+    if (lane == 0) run_starts[warp] = ballot;
+    __syncthreads();
+    int before = __popc(ballot & ((1u << lane) - 1u)), n_run = 0;
 #pragma unroll
-    for (int l = 0; l < kRowWidth; ++l) dst[l] = acc[l];
+    for (int w = 0; w < kBwdWarps; ++w) {
+      const int c = __popc(run_starts[w]);
+      if (w < warp) before += c;
+      n_run += c;
+    }
+    if (start) run_at[before] = e;
+    if (e == 0) run_at[n_run] = n_fg;
+    __syncthreads();
+    // (3) a warp a run, a thread a lane, kRowBatch runs' rows loaded at once
+    for (int rb = warp; rb < n_run; rb += kBwdWarps * kRowBatch) {
+      float acc[kRowBatch];
+#pragma unroll
+      for (int j = 0; j < kRowBatch; ++j) {
+        const int r = rb + j * kBwdWarps;
+        if (r < n_run) acc[j] = out[(size_t)(keys[run_at[r]] >> kPxBits) * kRowWidth + lane];
+      }
+#pragma unroll
+      for (int j = 0; j < kRowBatch; ++j) {
+        const int r = rb + j * kBwdWarps;
+        if (r >= n_run) break;
+        for (int q = run_at[r]; q < run_at[r + 1]; ++q)
+          acc[j] = __fadd_rn(acc[j], st[keys[q] & (kChunkPx - 1)][lane]);
+        out[(size_t)(keys[run_at[r]] >> kPxBits) * kRowWidth + lane] = acc[j];
+      }
+    }
   }
 }
 
@@ -497,21 +552,21 @@ extern "C" int dd_gather_rows_fwd(const float* packed, const int* tile_idx,
                       win, rows, boxes, (cudaStream_t)stream);
 }
 
-// K9 backward: d_bin (B, nty*ntx, K, 32), every entry written, from d_rows
-// (B, 32, nty*th, ntx*tw) over the forward's map win
+// K9 backward: d_bin (B, nty*ntx, K, 32) (16-byte aligned), every entry
+// written, from d_rows (B, 32, nty*th, ntx*tw) over the forward's map win;
+// K below 2^22 (a key holds the slot in 22 bits)
 extern "C" int dd_gather_rows_bwd(const float* d_rows, const int* win,
                                   const int* counts, int B, int K, int nty,
                                   int ntx, int th, int tw, float* d_bin,
                                   void* stream) {
-  const int shared = 4 * (2 * th * tw + 2 * K);
-  if (shared > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gather_rows_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        shared);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(nty * ntx, B);
-  gather_rows_bwd_kernel<<<grid, kBwdThreads, shared, (cudaStream_t)stream>>>(
+  if (K >= (1 << (32 - kPxBits)) - 1 ||
+      reinterpret_cast<uintptr_t>(d_bin) % sizeof(float4))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      gather_rows_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdShared);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(nty * ntx, B, 2);  // the tiles' blocks first, then their tails'
+  gather_rows_bwd_kernel<<<grid, kBwdThreads, kBwdShared, (cudaStream_t)stream>>>(
       d_rows, win, counts, K, ntx, th, tw, nty * th, ntx * tw, d_bin);
   return (int)cudaGetLastError();
 }

@@ -930,10 +930,15 @@ def check_gather_rows(packed: torch.Tensor, tile_idx: torch.Tensor, counts: torc
     The forward's bound reads lanes 0-13 of each row the tiles hold once per
     hypothesis and the 32 lanes of each won slot, and writes ids, win and
     rows; its operations are K8's, over the tests inside the boxes.
-    The backward reads win, d_rows at the foreground and writes the slots
-    held.  With ``reps``, ms over ``reps`` launches after one warm-up, and
-    plain_ms: the plain forward's one call that the check makes (timed),
-    the plain backward's over two; the backward's library_ms is
+    The backward reads win and d_rows at the foreground and writes the
+    whole d_bin (B, tiles, K, 32): the op's output is defined at every
+    entry (+0 past a tile's count and in an empty tile, in the TPU kernel,
+    the plain twin and the kernel alike), so ``bound`` counts every slot of
+    the table; ``bound_held`` counts the slots the tiles hold only, the
+    write an output of held slots alone would need (17% of the bytes at
+    the bench shapes).  With ``reps``, ms over ``reps`` launches after one
+    warm-up, and plain_ms: the plain forward's one call that the check
+    makes (timed), the plain backward's over two; the backward's library_ms is
     :func:`bwd_library` on the same winner-slot map (the slots' sums lane
     by lane, (B, 32, tiles x K), where K9 writes them (B, tiles, K, 32))."""
     b, k = packed.shape[0], tile_idx.shape[1]
@@ -977,7 +982,10 @@ def check_gather_rows(packed: torch.Tensor, tile_idx: torch.Tensor, counts: torc
                tolerance="rtol 2e-4, atol 1e-6 + 1e-6 x sum |d_rows|, per slot",
                worst=_worst(d_bin, d_bin_p, 2e-4, 1e-6, scale), slots=slots,
                table_slots=tile_idx.numel(),
-               bound=bound(4 * (frame_px + 32 * fg + b * 32 * slots), _OPS["K4"] * 32 * fg))
+               bound=bound(4 * (frame_px + 32 * fg + b * 32 * tile_idx.numel()),
+                           _OPS["K4"] * 32 * fg),
+               bound_held=bound(4 * (frame_px + 32 * fg + b * 32 * slots),
+                                _OPS["K4"] * 32 * fg))
     if reps:
         fwd["ms"] = _time_ms(lambda: gather_rows.gather_rows_fwd(
             packed, tile_idx, counts, resolution, tile_hw), reps)

@@ -35,8 +35,8 @@ from diffdope_tpu_torch.render.raster import _check, raster_bwd_plain
 from diffdope_tpu_torch.render.rasterize import _ID_LANES, _edges_z, check_kernel_frame
 from diffdope_tpu_torch.render.shade import PACKED_WIDTH, ndc
 
-#: shared memory a block of the K9 backward may take (bytes, sm_90)
-_MAX_SHARED = 232448
+#: K9's backward keys a pixel by its slot in 22 bits (csrc/rasterize.cu)
+_MAX_BWD_K = (1 << 22) - 2
 
 
 def invert_bins(tile_idx: torch.Tensor, t_count: int,
@@ -215,12 +215,8 @@ def gather_rows_bwd(d_rows: torch.Tensor, win: torch.Tensor, tile_counts: torch.
         return gather_rows_bwd_plain(d_rows, win, nty * ntx, k)
     if d_rows.device.type != "cuda":
         raise ValueError(f"gather_rows_bwd: unsupported device {d_rows.device}")
-    # a block holds the tile's slot map and pixel order and the slots'
-    # counts and offsets in shared memory (csrc/rasterize.cu)
-    shared = 4 * (2 * th * tw + 2 * k)
-    if shared > _MAX_SHARED:
-        raise ValueError(f"K9 backward: tile {tile_hw} with K={k} needs {shared} bytes "
-                         f"of shared memory, more than {_MAX_SHARED}")
+    if k > _MAX_BWD_K:
+        raise ValueError(f"K9 backward: K={k} slots a tile, more than {_MAX_BWD_K}")
     d_bin = torch.empty((b, nty * ntx, k, PACKED_WIDTH), dtype=torch.float32,
                         device=d_rows.device)
     kernels.launch(

@@ -809,6 +809,59 @@ def test_k8_k9_match_plain_over_the_padding_and_repeat_on_card(cuda, params, til
     assert int(fg[:, res[0]:].sum() + fg[:, :, res[1]:].sum()) > 0
 
 
+def _k9_bwd_inputs(seed=3):
+    """A winner map over 3 x 4 tiles of 32x128, B = 2, K = 4,352 (more
+    slots than a tile's 4,096 pixels), with seeded normal d_rows: tile 0
+    holds no slot; tile 1 holds K, every pixel won by a random one; in
+    tile 2 one slot wins a 20x60 block (a run of 1,200 pixels); tile 3
+    holds 50 slots and wins none; the rest hold random counts, about 60%
+    of their pixels won.  Returns (d_rows, win, counts, K) as numpy."""
+    rng = np.random.default_rng(seed)
+    b, nty, ntx, (th, tw), k = 2, 3, 4, (32, 128), 4352
+    counts = rng.integers(1, k, nty * ntx).astype(np.int32)
+    counts[:4] = (0, k, 700, 50)
+    win = np.full((b, nty * th, ntx * tw), -1, np.int32)
+    for bi in range(b):
+        for t in range(1, nty * ntx):
+            if t == 3:
+                continue
+            r0, c0 = (t // ntx) * th, (t % ntx) * tw
+            fg = rng.random((th, tw)) < (1.0 if t == 1 else 0.6)
+            slot = rng.integers(0, counts[t], (th, tw))
+            if t == 2:
+                fg[4:24, 10:70], slot[4:24, 10:70] = True, 17
+            win[bi, r0:r0 + th, c0:c0 + tw] = np.where(fg, t * k + slot, -1)
+    d_rows = rng.normal(size=(b, 32) + win.shape[1:]).astype(np.float32)
+    return d_rows, win, counts, k
+
+
+def test_k9_backward_tail_and_long_run_on_card(cuda):
+    """K9's backward at K = 4,352 over a map with an empty tile, a tile
+    holding K slots, held slots no pixel wins and a 1,200-pixel run: d_bin
+    equals the plain twin's (rtol 2e-4, atol 1e-6 plus 1e-6 of the slot's
+    sum of |d_rows|), repeats bit for bit, and is +0 (its bits all zero) at
+    every slot past a tile's count."""
+    from diffdope_tpu_torch.kernels.check import _close
+    from diffdope_tpu_torch.render.gather_rows import gather_rows_bwd, gather_rows_bwd_plain
+
+    d_rows, win, counts, k = _k9_bwd_inputs()
+    d_rows, win, counts = (torch.as_tensor(x, device=cuda) for x in (d_rows, win, counts))
+    tile = (32, 128)
+    nt = counts.shape[0]
+    kernels.reset_launches()
+    got = gather_rows_bwd(d_rows, win, counts, k, tile)
+    again = gather_rows_bwd(d_rows, win, counts, k, tile)
+    assert kernels.launches["gather_rows_bwd"] == 2
+    want = gather_rows_bwd_plain(d_rows, win, nt, k)
+    scale = gather_rows_bwd_plain(d_rows.abs(), win, nt, k)
+    assert _close(got, want, 2e-4, 1e-6, scale)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    past = torch.arange(k, device=cuda)[None, :] >= counts[:, None].long()
+    assert int(past.sum()) > 2 * k
+    assert not bool(got.view(torch.int32)[:, past].any())
+    assert float(want[:, 2, 17].abs().sum()) > 0 and int((win == 2 * k + 17).sum()) >= 2400
+
+
 @pytest.fixture(scope="module")
 def sliver(cuda):
     from diffdope_tpu_torch.kernels.check import check_sliver

@@ -4,14 +4,15 @@ its time at the bench shapes, with every tree's outputs held to the first
 tree's.
 
     python tools/port_kernel_ab.py ROOT [ROOT ...]
-        [--kernels K2,K5,K3,K4,K6,K10,K8,K9] [--sass-dir DIR] [--out FILE] [--reps N]
+        [--kernels K2,K5,K3,K4,K6,K10,K8,K9,K9bwd] [--sass-dir DIR] [--out FILE]
+        [--reps N]
 
 Each ROOT is a checkout of the repo (this one, or the parent unpacked with
 ``git archive`` into the gitignored ``chip_proof/``), or any directory
 that holds ``diffdope_tpu_torch/csrc/`` (a variant of a kernel).  For each kernel
 asked for, ROOT's source (``pack.cu`` for K2, ``fused_loss.cu`` for K5 and
 K6, ``raster.cu`` for K3/K7's forward and K4/K7's backward, ``raster_v3.cu``
-and ``raster.cu`` for K10, ``rasterize.cu`` for K8 and K9's forward) is
+and ``raster.cu`` for K10, ``rasterize.cu`` for K8 and K9) is
 built with the port's nvcc flags and
 ``-Xptxas=-v`` into a library of its own.
 ``cuobjdump -sass`` of it gives, for each of the kernel's functions, every
@@ -49,16 +50,22 @@ distinct poses):
   64 poses, and at ``chip_smoke.py``'s phase 9 and 13 inputs (960x540,
   B=8 distinct poses around the default configuration's init, the
   stand-in); printed with the held bin entries, the tests inside the
-  boxes and the TPU kernel's all-pairs tests.
+  boxes and the TPU kernel's all-pairs tests;
+- K9's backward (``dd_gather_rows_bwd``) on the same problems' bins, under
+  one seeded normal d_rows and the winner map of this checkout's K9
+  forward; printed with the held and the table's slots and the empty
+  tiles.
 
-K3/K7's, K8's and K9's outputs are also held to their plain twins: each
-tree's row counts the (hypothesis, pixel) pairs at which any output
-differs from the twin's (``pixels_off_the_plain_twin``).
+K3/K7's, K8's and K9's forward outputs are also held to their plain twins:
+each tree's row counts the (hypothesis, pixel) pairs at which any output
+differs from the twin's (``pixels_off_the_plain_twin``); K9's backward is
+held to its twin at ``check_gather_rows``' tolerance
+(``agrees_with_plain_twin``).
 
 Each case is timed by CUDA events over ``--reps`` launches after a warm-up,
 in turns A B ... B A, twice.  K2's sums are held to the first tree's at
 rtol 2e-4, atol 1e-6 plus 1e-6 of the hypothesis' sum of |terms|, K5's at
-rtol 1e-5, atol 1e-7, K3/K7's outputs exactly, K4's, K6's, K7's
+rtol 1e-5, atol 1e-7, K3/K7's outputs exactly, K4's, K6's, K7's and K9's
 backward and K10's bit for bit (every output starts as NaN, so an unwritten value
 shows), and each tree's output is said to equal the first's bit for bit or
 not; each tree's output is also compared with its own second launch, bit
@@ -85,6 +92,7 @@ sys.path.insert(0, str(HERE))
 #: either)
 SOURCES = {"K8": (("rasterize.cu",), ("raster_ids_kernel", "row_boxes")),
            "K9": (("rasterize.cu",), ("raster_ids_kernel", "row_boxes")),
+           "K9bwd": (("rasterize.cu",), ("gather_rows_bwd",)),
            "K2": (("pack.cu",), ("pack_bwd",)),
            "K5": (("fused_loss.cu",), ("loss_fwd", "loss_reduce")),
            "K3": (("raster.cu",), ("raster_fwd_kernel",)),
@@ -665,6 +673,56 @@ def k8_cases(problems, rows: bool):
     return cases
 
 
+def k9bwd_cases(problems):
+    """K9's backward (``dd_gather_rows_bwd``) at tile (32, 128) on each
+    problem's packed rows and bins (``problems`` as :func:`k8_cases`'),
+    under one seeded normal d_rows and the winner map of this checkout's
+    K9 forward.  d_bin starts as NaN and is held bit for bit, and each
+    tree's to the plain twin at ``check_gather_rows``' tolerance."""
+    import torch
+
+    from diffdope_tpu_torch.kernels.check import _close, gather_rows_inputs
+    from diffdope_tpu_torch.render.gather_rows import gather_rows_bwd_plain, gather_rows_fwd
+
+    tile = (32, 128)
+    (th, tw) = tile
+    cases = {}
+    for case, (pos_clip, tri, colors, adj, res) in problems.items():
+        with torch.no_grad():
+            packed, idx, counts = gather_rows_inputs(pos_clip, tri, res, tile, colors, adj)
+            _, rows, win = gather_rows_fwd(packed, idx, counts, res, tile)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        d_rows = torch.randn(rows.shape, generator=gen, device="cuda")
+        del rows, packed
+        b, _, hp, wp = d_rows.shape
+        nty, ntx, k = hp // th, wp // tw, idx.shape[1]
+
+        def make(lib, d_rows=d_rows, win=win, counts=counts, b=b, nty=nty, ntx=ntx, k=k):
+            f = lib.dd_gather_rows_bwd
+            f.argtypes = [P] * 3 + [I] * 6 + [P] * 2
+            out = torch.full((b, nty * ntx, k, 32), float("nan"), device="cuda")
+
+            def call():
+                err = f(d_rows.data_ptr(), win.data_ptr(), counts.data_ptr(), b, k, nty, ntx,
+                        th, tw, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+                return (out,)
+            return call
+
+        def twin(d_rows=d_rows, win=win, nt=nty * ntx, k=k):
+            return (gather_rows_bwd_plain(d_rows, win, nt, k),
+                    gather_rows_bwd_plain(d_rows.abs(), win, nt, k))  # the sums' scale
+
+        n = counts.long().clamp(max=k)
+        cases[f"K9 bwd {case}"] = (
+            make, _bit_equal,
+            dict(frame=[hp, wp], batch=b, k=k, held_slots=int(n.sum()),
+                 table_slots=idx.numel(), empty_tiles=int((n == 0).sum()),
+                 fg_pixels=int((win >= 0).sum())),
+            twin, lambda outs, want: _close(outs[0], want[0], 2e-4, 1e-6, want[1]))
+    return cases
+
+
 def api_problems(base_scene, mtx):
     """{case: (pos_clip, tri, colors, edge_adj, resolution)}: the bench
     scene at its 64 poses, and ``chip_smoke.py``'s phase 9 (and 13) inputs:
@@ -795,6 +853,7 @@ def main() -> int:
                                   "phase11": phase11_problem()}),
         "K8": lambda: k8_cases(api(), rows=False),
         "K9": lambda: k8_cases(api(), rows=True),
+        "K9bwd": lambda: k9bwd_cases(api()),
     }
     api_cache = {}
 
@@ -815,6 +874,7 @@ def main() -> int:
             calls = [make(_Libs(libs, root)) for (libs, _), root in zip(built, roots)]
             first = [o.clone() for o in calls[0]()]
             want = twin[0]() if twin else None
+            near = twin[1] if len(twin) > 1 else None  # a twin held at a tolerance
             agree, equal, repeats, diffs, off_twin = [], [], [], [], []
             for call in calls:
                 once = [o.clone() for o in call()]
@@ -822,7 +882,8 @@ def main() -> int:
                 equal.append(_bit_equal(first, once))
                 repeats.append(_bit_equal(once, call()))
                 diffs.append(_diffs(first, once))
-                off_twin.append(_twin_pixels(once, want) if want is not None else None)
+                off_twin.append(None if want is None else near(once, want) if near
+                                else _twin_pixels(once, want))
             ms = {i: [] for i in order}
             for _ in range(2):
                 for i in turns:
@@ -835,7 +896,8 @@ def main() -> int:
                 if diffs[i]:
                     row["differs_from_first_tree"] = diffs[i]
                 if off_twin[i] is not None:
-                    row["pixels_off_the_plain_twin"] = off_twin[i]
+                    row["agrees_with_plain_twin" if near else
+                        "pixels_off_the_plain_twin"] = off_twin[i]
                 print(json.dumps(row), flush=True)
                 if out:
                     out.write(json.dumps(dict(row, ptxas=built[i][1], sass=sass[i])) + "\n")
