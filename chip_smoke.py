@@ -137,7 +137,23 @@ result line):
    texture flat at 0.4, ``enable_gradients_texture()``, 11 steps: K1-K4
    launched (the static uv takes the pack kernel), K5/K6 not, the texture
    moved and written back into the mesh, the mean rgb loss falls; time and
-   peak memory printed.
+   peak memory printed;
+16. the default configuration from files: the textured stand-in (a copy of
+   ``data/standins/standin_tex_checker.ply`` beside its checker texture as
+   the PNG its TextureFile names) rendered at the camera's full 1920x1080
+   and written as rgb.png (8-bit), depth.png (16-bit) and seg.png, every
+   row filter by turns (``testing.write_png``), each file's read time
+   printed; ``DiffDope(cfg)`` built from ``DEFAULT_CONFIG`` with only the
+   scene's paths, the model path and the init changed (image_resize 0.5:
+   960x540): (a) the gt arrays are the files' 2x2 means (rgb, mask) and
+   nearest samples (depth); (b) the default losses meet phase 5's
+   criteria; (c) with ``tpu.restarts: 1``, the init jitter, precomputed
+   bins, ``live_loss: step`` and the rgb + depth losses: 61 steps logged
+   with a live line each, no binning inside the refinement, hypothesis 0
+   at the unjittered init, the chosen (step, hypothesis) below its start,
+   ``get_pose()`` closer to the gt pose, K1-K6 held on its tables; (d) the
+   stand-in as binary and ascii STL and as a .glb with its texture
+   embedded as PNG, each load held to the PLY's.
 
 K5/K6's colour lane (with and without the depth plane) and K1/K2 at the uv
 table's two channels are held to their plain versions at the test scene
@@ -232,6 +248,13 @@ TEXTURE_LOSSES = {"l1_rgb_with_mask": True}
 #: gap of 10.3x the rtol 2e-4, atol 1e-6 allowance falls to 0.025x with
 #: the gt depth moved off it
 MAX_DEPTH_TIES = 0.001
+#: phase 16 (c): the refinement options of run_optimization, on the rgb +
+#: depth + mask losses
+FILES_OPTIONS = {"restarts": 1, "init_jitter_deg": 5.0, "init_jitter_trans": 0.005,
+                 "precompute_bins": True, "live_loss": "step"}
+FILES_LOSSES = {"l1_rgb_with_mask": True, "l1_depth_with_mask": True}
+#: the Image default the configuration keeps (``image.py``'s depth_scale)
+DEFAULT_DEPTH_SCALE = 100.0
 #: the DiffDope phases' init: the configured pose moved by this OpenCV-frame
 #: translation (mm, before the 0.01 scale) and rotated by this many degrees
 #: about ``axis``; the default SGD configuration recovers it (the phase
@@ -408,13 +431,14 @@ def add_to(points, mtx_gt, m) -> float:
 
 
 def diffdope_phase(fused: bool, gpu: str, route: str, tpu=None, losses=None,
-                   raster=None, mesh=None):
+                   raster=None, mesh=None, session=None):
     """One default-configuration DiffDope run on the card, then the kernels
     of its route against their plain versions on its tables; returns the
     session, its launch counts, and the ADD of the init and of
     get_pose().  ``raster`` 'v3' or 'v2' selects that planar route (its
     environment in force for the run and the checks; the scene is rendered
-    before, on the default route)."""
+    before, on the default route).  ``session`` (dd, points, mtx_gt) is a
+    session built elsewhere (phase 16's, from files)."""
     import numpy as np
     import torch
 
@@ -422,7 +446,8 @@ def diffdope_phase(fused: bool, gpu: str, route: str, tpu=None, losses=None,
     from diffdope_tpu_torch.bench import raster_env
     from diffdope_tpu_torch.kernels.check import check_kernels
 
-    dd, points, mtx_gt = diffdope_session(fused, tpu=tpu, losses=losses, mesh=mesh)
+    dd, points, mtx_gt = session or diffdope_session(fused, tpu=tpu, losses=losses,
+                                                     mesh=mesh)
     h, w = dd.resolution
     with raster_env(raster):
         torch.cuda.synchronize()
@@ -438,7 +463,9 @@ def diffdope_phase(fused: bool, gpu: str, route: str, tpu=None, losses=None,
         # the kernels at this phase's shapes: the kept run's tables (its
         # final capacities and crop, or the unfused route's full frame) at
         # its last poses, which differ per hypothesis
-        fn = dd._make_fused_loss_fn(dd.gt_tensors) if fused else dd._make_render_fn()
+        use_bins = dd._use_bins()
+        fn = (dd._make_fused_loss_fn(dd.gt_tensors, use_bins=use_bins) if fused
+              else dd._make_render_fn(with_bins=use_bins))
         mtx_last = torch.as_tensor(dd.mtx_history[-1], device="cuda")
         d_sums = torch.as_tensor(
             np.random.default_rng(2).uniform(0.5, 2.0, (dd.batchsize, 3)),
@@ -1315,6 +1342,321 @@ def appearance_phase(gpu):
         fail("DiffDope appearance: the rgb loss did not fall")
 
 
+class BinningInRefine:
+    """Counts the per-step binnings (``pipeline.bin_triangles_planar``
+    called while ``optimize.refine`` runs) for as long as it is entered;
+    the capacity probes, the precompute and the final-pose check bin
+    outside the refinement."""
+
+    def __enter__(self):
+        from diffdope_tpu_torch import optimize
+        from diffdope_tpu_torch.render import pipeline
+
+        self.count, self._in = 0, False
+        self._saved = (pipeline.bin_triangles_planar, optimize.refine)
+        bin_fn, refine_fn = self._saved
+
+        def counted_bins(*args, **kwargs):
+            self.count += int(self._in)
+            return bin_fn(*args, **kwargs)
+
+        def counted_refine(*args, **kwargs):
+            self._in = True
+            try:
+                return refine_fn(*args, **kwargs)
+            finally:
+                self._in = False
+
+        pipeline.bin_triangles_planar, optimize.refine = counted_bins, counted_refine
+        return self
+
+    def __exit__(self, *exc):
+        from diffdope_tpu_torch import optimize
+        from diffdope_tpu_torch.render import pipeline
+
+        pipeline.bin_triangles_planar, optimize.refine = self._saved
+
+
+class LiveLines:
+    """Collects the "step i/N loss x" records ``tpu.live_loss: step`` logs."""
+
+    def __enter__(self):
+        import logging
+
+        self.lines = []
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                if msg.startswith("step "):
+                    outer.lines.append(msg)
+
+        self._logger = logging.getLogger("diffdope_tpu_torch.diffdope")
+        self._level = self._logger.level
+        self._handler = Handler()
+        self._logger.addHandler(self._handler)
+        self._logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self._handler)
+        self._logger.setLevel(self._level)
+
+
+def write_scene_files(root: Path, gpu: str):
+    """Phase 16's setup: the textured stand-in (a copy of
+    ``data/standins/standin_tex_checker.ply`` beside ``make_texture('checker')``
+    as the PNG its TextureFile names) rendered at the camera's full
+    1920x1080 at the configured pose, written as rgb.png (8-bit), depth.png
+    (16-bit, depth x depth_scale rounded) and seg.png (8-bit), each row
+    filtered by turns with all five PNG filters, flipped as the loader
+    flips them back.  Returns the paths, the quantised arrays as written
+    (unflipped) and the gt pose."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch.camera import Camera
+    from diffdope_tpu_torch.config import ConfigNode
+    from diffdope_tpu_torch.mesh import load_mesh
+    from diffdope_tpu_torch.object3d import Object3D
+    from diffdope_tpu_torch.optimize import pose_matrix
+    from diffdope_tpu_torch.render.pipeline import compact_capacity, render_batch
+    from diffdope_tpu_torch.testing import write_png
+    from tools.make_standins import make_texture
+
+    ply = root / "standin_tex_checker.ply"
+    shutil.copy(HERE / "data/standins/standin_tex_checker.ply", ply)
+    tex8 = np.round(make_texture("checker") * 255).astype(np.uint8)
+    write_png(root / "standin_checker.png", tex8, filters="cycle")
+    cfg = ConfigNode(copy.deepcopy(DEFAULT_CONFIG))
+    camera = Camera(**cfg.camera)
+    mesh = load_mesh(ply, scale=cfg.object3d.scale)
+    if not mesh.has_textured_map:
+        fail("phase 16: the textured PLY loaded without its texture")
+    gt_obj = Object3D(position=cfg.object3d.position, rotation=cfg.object3d.rotation,
+                      scale=cfg.object3d.scale, mesh=mesh, batchsize=1)
+    mtx_gt = pose_matrix(gt_obj.initial_params(1, "cuda"))[0]
+    h, w = cfg.camera.im_height, cfg.camera.im_width
+    t_all = len(mesh.pos_idx)
+    cap = compact_capacity(camera.cam_proj, mesh.pos, mesh.pos_idx, mtx_gt, (h, w), t_all,
+                           device="cuda")
+    with torch.no_grad():
+        gt = render_batch(camera.cam_proj, mtx_gt, mesh.pos, mesh.pos_idx, (h, w),
+                          edge_adj=mesh.edge_adj, max_tris_per_tile=t_all, compact_total=cap,
+                          tex=mesh.tex, uv=mesh.uv, uv_idx=mesh.uv_idx, device="cuda")
+    if int(gt["_bin_overflow"]):
+        fail("phase 16: the full-frame gt render dropped (tile, triangle) pairs")
+    scale = float(DEFAULT_DEPTH_SCALE)
+    arrays = {
+        "rgb": np.round(gt["rgb"][0].cpu().numpy()[::-1] * 255).astype(np.uint8),
+        "depth": np.round(gt["depth"][0].cpu().numpy()[::-1] * scale).astype(np.uint16),
+        "seg": np.round(gt["mask"][0, ..., 0].cpu().numpy()[::-1] * 255).astype(np.uint8),
+    }
+    paths = {}
+    for name, array in arrays.items():
+        paths[name] = root / f"{name}.png"
+        write_png(paths[name], array, filters="cycle")
+    print(f"phase 16: wrote {w}x{h} rgb, depth (16-bit) and seg PNGs and the "
+          f"{tex8.shape[1]}x{tex8.shape[0]} texture, every row filter by turns", flush=True)
+    return paths, arrays, ply, mtx_gt[0]
+
+
+def files_session(paths, ply, tpu=None, losses=None):
+    """``DiffDope(cfg)`` from ``DEFAULT_CONFIG`` with only the scene's
+    paths, the model path and the init (``INIT_OFFSET`` from the
+    configured pose) changed; ``tpu`` and ``losses`` override their
+    groups.  Returns (dd, points, seconds to build it)."""
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch.config import ConfigNode
+    from diffdope_tpu_torch.diffdope import DiffDope
+    from diffdope_tpu_torch.geometry import (
+        matrix33_from_quat,
+        quat_from_axis_angle,
+        quat_from_matrix33,
+    )
+
+    cfg = ConfigNode(copy.deepcopy(DEFAULT_CONFIG))
+    cfg.scene.path_img = str(paths["rgb"])
+    cfg.scene.path_depth = str(paths["depth"])
+    cfg.scene.path_segmentation = str(paths["seg"])
+    cfg.object3d.model_path = str(ply)
+    rot_cv = np.asarray(cfg.object3d.rotation, np.float64).reshape(3, 3)
+    dq = quat_from_axis_angle(np.asarray(INIT_OFFSET["axis"]),
+                              np.deg2rad(INIT_OFFSET["degrees"]))
+    dr = matrix33_from_quat(torch.as_tensor(dq)).numpy()
+    cfg.object3d.position = (np.asarray(cfg.object3d.position)
+                             + INIT_OFFSET["translation_mm"]).tolist()
+    cfg.object3d.rotation = quat_from_matrix33(dr @ rot_cv).tolist()
+    for key, value in (tpu or {}).items():
+        cfg.tpu[key] = value
+    for key, value in (losses or {}).items():
+        cfg.losses[key] = value
+    t0 = time.perf_counter()
+    dd = DiffDope(cfg=cfg)
+    seconds = time.perf_counter() - t0
+    mesh = dd.object3d.mesh
+    return dd, torch.as_tensor(mesh.pos[: mesh.num_vertices], device="cuda"), seconds
+
+
+def files_read_back(dd, arrays) -> None:
+    """Phase 16 (a): the session's gt arrays are the written files through
+    the reference's rules: rgb and mask the plain 2x2 mean of the
+    quantised values (within float32 rounding), depth the nearest
+    (top-left) sample within half a unit of depth_scale."""
+    import numpy as np
+
+    gt = dd.gt_tensors
+    h, w = dd.resolution
+
+    def mean2(q):
+        q = q[::-1].astype(np.float64)  # the loader's flip
+        return ((q[0::2, 0::2] + q[0::2, 1::2]) + (q[1::2, 0::2] + q[1::2, 1::2])) / 1020.0
+
+    rgb, seg = mean2(arrays["rgb"]), mean2(arrays["seg"])[..., None].repeat(3, -1)
+    depth = arrays["depth"][::-1][0::2, 0::2].astype(np.float64) / DEFAULT_DEPTH_SCALE
+    worst = {"rgb": float(np.abs(gt["rgb"] - rgb).max()),
+             "segmentation": float(np.abs(gt["segmentation"] - seg).max()),
+             "depth": float(np.abs(gt["depth"] - depth).max())}
+    print(f"phase 16 (a): gt arrays {w}x{h}: largest |read - written| {worst} "
+          f"(limits: rgb and mask 1.2e-7, float32 rounding; depth {0.5 / DEFAULT_DEPTH_SCALE})",
+          flush=True)
+    if gt["rgb"].shape != (h, w, 3) or gt["depth"].shape != (h, w):
+        fail(f"phase 16 (a): gt shapes {gt['rgb'].shape}, {gt['depth'].shape}")
+    if worst["rgb"] > 1.2e-7 or worst["segmentation"] > 1.2e-7:
+        fail("phase 16 (a): the rgb or mask read back is not the 2x2 mean of the file")
+    if worst["depth"] > 0.5 / DEFAULT_DEPTH_SCALE + 1e-6:
+        fail("phase 16 (a): the depth read back is not the file's nearest sample")
+
+
+def png_read_times(paths, gpu: str) -> None:
+    """Phase 16: each file's read time (best of three)."""
+    from diffdope_tpu_torch import png
+
+    for name, path in paths.items():
+        read = png.imread_color if name != "depth" else png.imread_unchanged
+        best = min(_timed(read, path) for _ in range(3))
+        print(f"phase 16: PNG read {name} ({path.stat().st_size} bytes): {best:.4f} s "
+              f"[{gpu}; host CPU]", flush=True)
+
+
+def _timed(fn, *args) -> float:
+    t0 = time.perf_counter()
+    fn(*args)
+    return time.perf_counter() - t0
+
+
+def other_formats(root: Path, ply: Path) -> None:
+    """Phase 16 (d): the stand-in written as binary STL, ascii STL and a
+    .glb with its checker texture embedded as PNG, each loaded and held to
+    the PLY load: triangle corners exactly (STL welds its vertices in its
+    own order), the glb's vertices, faces, uv, texture and baked corner
+    colours exactly."""
+    import numpy as np
+
+    from diffdope_tpu_torch.mesh import load_mesh, load_ply
+    from diffdope_tpu_torch.testing import png_bytes, write_gltf, write_stl
+
+    scale = DEFAULT_CONFIG["object3d"]["scale"]
+    data = load_ply(ply)
+    ref = load_mesh(ply, scale=scale)
+    corners = ref.pos[ref.pos_idx[: ref.num_triangles]]
+    for binary in (True, False):
+        path = root / f"standin_{'binary' if binary else 'ascii'}.stl"
+        write_stl(path, data["vertices"], data["faces"], binary=binary)
+        m = load_mesh(path, scale=scale)
+        same = (m.num_triangles == ref.num_triangles and np.array_equal(
+            m.pos[m.pos_idx[: m.num_triangles]], corners))
+        print(f"phase 16 (d): {path.name}: {m.num_vertices} vertices, {m.num_triangles} "
+              f"triangles, corners equal to the PLY's: {same}", flush=True)
+        if not same:
+            fail(f"phase 16 (d): {path.name} differs from the PLY load")
+    tex8 = np.round(ref.tex * 255).astype(np.uint8)
+    uv = np.stack([data["uv"][:, 0], 1.0 - data["uv"][:, 1]], -1)  # glTF: v down
+    glb = root / "standin.glb"
+    write_gltf(glb, data["vertices"], data["faces"], uv=uv, image=png_bytes(tex8, "cycle"))
+    m = load_mesh(glb, scale=scale)
+    fields = ("pos", "pos_idx", "uv", "uv_idx", "tex", "corner_colors")
+    equal = {k: bool(np.array_equal(getattr(m, k), getattr(ref, k))) for k in fields}
+    print(f"phase 16 (d): {glb.name} ({glb.stat().st_size} bytes): equal to the PLY "
+          f"load: {equal}", flush=True)
+    if not all(equal.values()):
+        fail("phase 16 (d): the glb differs from the PLY load")
+
+
+def files_phase(gpu: str):
+    """Phase 16: the default configuration from files; returns the
+    launches of run (c)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch.optimize import pose_matrix
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        paths, arrays, ply, mtx_gt = write_scene_files(root, gpu)
+        png_read_times(dict(paths, texture=root / "standin_checker.png"), gpu)
+
+        # (a) the files read back, (b) the default losses
+        dd, points, build_s = files_session(paths, ply)
+        print(f"phase 16: DiffDope(cfg) from files built in {build_s:.4f} s (the three "
+              f"PNGs and the textured PLY read, resized to {dd.resolution[1]}x"
+              f"{dd.resolution[0]}) [{gpu}]", flush=True)
+        files_read_back(dd, arrays)
+        dd, launches, add0, add1 = diffdope_phase(True, gpu, "from files", session=(
+            dd, points, mtx_gt))
+        check_launches("DiffDope from files", launches, COMPACT_FUSED,
+                       set(launches) - set(COMPACT_FUSED))
+        check_diffdope(dd, "from files", add0, add1)
+        del dd
+        torch.cuda.empty_cache()
+
+        # (c) restarts, init jitter, precomputed bins, the live loss, rgb + depth
+        dd, points, _ = files_session(paths, ply, tpu=FILES_OPTIONS, losses=FILES_LOSSES)
+        with BinningInRefine() as binning, LiveLines() as live:
+            dd, launches_c, add0, add1 = diffdope_phase(True, gpu, "from files, options",
+                                                        session=(dd, points, mtx_gt))
+        steps = dd.nb_iterations + 1
+        reruns = dd.last_run_stats["recovery_reruns"]
+        print(f"phase 16 (c): {dd.mtx_history.shape[0]} steps logged, {len(live.lines)} "
+              f"live lines over {reruns + 1} run(s) (first {live.lines[:1]}, last "
+              f"{live.lines[-1:]}); per-step binnings inside the refinement: "
+              f"{binning.count}; bins {tuple(dd._bins.idx.shape)} holding "
+              f"{int(dd._bins.counts.sum())} pairs, {dd._bins_escaped} pairs of the "
+              f"final poses outside them", flush=True)
+        if dd.mtx_history.shape[0] != steps or len(live.lines) != steps * (reruns + 1):
+            fail("phase 16 (c): not one logged step and one live line a step")
+        if binning.count:
+            fail(f"phase 16 (c): the refinement binned {binning.count} times")
+        on = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd", "loss_fwd_depth",
+              "loss_bwd_depth")
+        check_launches("DiffDope from files, options", launches_c, on,
+                       set(launches_c) - set(on))
+        init = pose_matrix(dd.object3d.initial_params(1, "cuda"))[0][0].cpu().numpy()
+        off = float(np.abs(dd.mtx_history[0][0] - init).max())
+        print(f"phase 16 (c): hypothesis 0 starts {off:.3e} from the unjittered init, the "
+              f"others up to {float(np.abs(dd.mtx_history[0][1:] - init).max()):.3e}",
+              flush=True)
+        if off > 1e-6:
+            fail("phase 16 (c): hypothesis 0 does not start at the unjittered init")
+        if np.allclose(dd.mtx_history[0][1:], init[None]):
+            fail("phase 16 (c): the other hypotheses start unjittered")
+        check_diffdope(dd, "from files, options", add0, add1, total_falls=False,
+                       max_reruns=2, most_fall=False)
+        del dd
+        torch.cuda.empty_cache()
+
+        # (d) STL and glb
+        other_formats(root, ply)
+    return launches_c
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1588,6 +1930,10 @@ def main() -> None:
     launches_td = texture_phase(gpu, "smooth", depth=True)
     torch.cuda.empty_cache()
     appearance_phase(gpu)
+    torch.cuda.empty_cache()
+
+    # ---- the default configuration from files -------------------------------
+    files_phase(gpu)
 
     # launches on the path that runs each kernel: the bench main path (its
     # bf16 lane of K6/K4), the depth phase on the compact table (K4 with

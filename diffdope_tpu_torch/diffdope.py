@@ -35,15 +35,30 @@ on a mesh of at most 256 triangles, the reference's rule) takes the
 unfused route on the brute-force rasterizer instead: plain torch, no
 kernel, no bins and so no capacity to probe or recover.
 
+The refinement options follow the reference's order of precedence
+(``diffdope.py:485-640``): ``tpu.init_jitter_deg`` / ``init_jitter_trans``
+jitter the initial hypotheses (all but the first) from a generator seeded
+``tpu.seed + 1``; appearance refinement, when asked, wins over
+``tpu.restarts``, which re-seeds every hypothesis around the best one
+between segments (``optimize.refine_with_restarts``, jitter from a
+generator seeded ``tpu.seed + 2``); else the plain segmented run.
+``tpu.precompute_bins`` bins once at the initial poses, widened by
+``tpu.bin_margin_px``, for the fused loss and the unfused render alike
+(``pipeline.precompute_bins``), and re-bins once at the final poses to
+warn if they left the bins.  ``tpu.live_loss: step`` logs every step's
+total loss (a host sync a step); ``segment``, the default, logs once a
+segment.  The draws are the port's own: torch's RNG cannot reproduce
+``jax.random``.  An overflow or crop-leak re-run repeats the same draws.
+
 Settings the port reads differently: ``tpu.tile_h`` / ``tpu.tile_w`` are
 TPU layout knobs and are not read (the port's raster tile is
 ``pipeline.TILE_HW``); ``tpu.max_tris_per_tile`` and
-``tpu.compact_total`` count the port's tiles and slots; ``tpu.live_loss``
-is read as ``segment``.
+``tpu.compact_total`` count the port's tiles and slots.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import time
 from typing import Callable, Dict, Optional
@@ -53,20 +68,25 @@ import torch
 
 from diffdope_tpu_torch.camera import Camera
 from diffdope_tpu_torch.config import ConfigNode
-from diffdope_tpu_torch.geometry import opengl_to_opencv
+from diffdope_tpu_torch.geometry import matmul44, opengl_to_opencv
 from diffdope_tpu_torch.image import Scene
 from diffdope_tpu_torch.losses import LOSS_REGISTRY, select_losses
 from diffdope_tpu_torch.object3d import Object3D
 from diffdope_tpu_torch.optimize import (
     argmin_step_hypothesis,
     draw_learning_rates,
+    draw_pose_jitter,
+    jitter_pose_params,
     pose_matrix,
     refine_segmented,
+    refine_with_restarts,
 )
 from diffdope_tpu_torch.render.pipeline import (
     CAPACITY_SLACK,
     K_CHUNK,
     MAX_TRIS_PER_TILE,
+    TILE_HW,
+    Bins,
     _Mesh,
     _binned,
     _impl,
@@ -77,8 +97,10 @@ from diffdope_tpu_torch.render.pipeline import (
     compact_capacity,
     make_fused_loss,
     max_tile_count,
+    precompute_bins,
     raster_route,
 )
+from diffdope_tpu_torch.render.planar import bin_triangles_planar, corner_planes, det_planar
 
 log = logging.getLogger(__name__)
 
@@ -268,20 +290,23 @@ class DiffDope:
         log.info("auto max_tris_per_tile: measured %d -> K=%d", max_count, k)
         return k
 
-    def _resolve_compact_total(self, arrays, proj, resolution,
-                               max_tris) -> Optional[int]:
+    def _resolve_compact_total(self, arrays, proj, resolution, max_tris,
+                               bins: Optional[Bins] = None) -> Optional[int]:
         """The compact table's capacity, or None for the uniform-K table
         (``tpu.compact_bins: false``): ``tpu.compact_total`` (rounded up to
         the chunk), else the initial pose's chunk-padded occupancy x
         ``TABLE_MARGIN`` (x the recovery's boost) plus a chunk
         (``diffdope.py:268-316``, there x1.35).  After an overflow it is at
         least the most slots a step of the failed run needed ('_bin_need')
-        x 1.35 plus a chunk, which a x1.5 boost need not reach."""
+        x 1.35 plus a chunk, which a x1.5 boost need not reach.  Over
+        precomputed ``bins``, which no step changes, it is what they fill."""
         if not self._compact_bins():
             return None
         override = self._tpu().get("compact_total", None)
         if override:
             return -(-int(override) // K_CHUNK) * K_CHUNK
+        if bins is not None:
+            return int((-(-bins.counts // K_CHUNK) * K_CHUNK).sum()) or K_CHUNK
         total = compact_capacity(proj, arrays["pos"], arrays["pos_idx"], self._mtx0(),
                                  resolution, max_tris,
                                  getattr(self, "_capacity_boost", 1.0), self.device,
@@ -316,13 +341,33 @@ class DiffDope:
         the mesh's triangle count (``diffdope.py:372-374``)."""
         return _impl(self.raster_impl, int(arrays["pos_idx"].shape[0]))
 
-    def _make_render_fn(self, layout: str = "channels"):
+    def _precompute_bins(self, arrays, proj, resolution) -> Bins:
+        """The bins of ``tpu.precompute_bins`` (``diffdope.py:348-363``):
+        binned once at the initial poses (unjittered, as the reference's),
+        each triangle widened by ``tpu.bin_margin_px``; K sized to the
+        fullest bin under 'auto', else the configured (boosted) K, which
+        raises on a drop."""
+        params0 = self.object3d.initial_params(self.batchsize, self.device)
+        margin = float(self._tpu().get("bin_margin_px", 24.0))
+        k = ("auto" if self.max_tris_per_tile == "auto"
+             else self._resolve_max_tris(arrays, proj, resolution))
+        self._bins = precompute_bins(proj, pose_matrix(params0)[0], arrays["pos"],
+                                     arrays["pos_idx"], resolution, k, margin,
+                                     device=self.device)
+        return self._bins
+
+    def _use_bins(self) -> bool:
+        return bool(self._tpu().get("precompute_bins", False))
+
+    def _make_render_fn(self, layout: str = "channels", with_bins: bool = False):
         """``render_fn(mtx, tex=None, vtx_color=None, corner_colors=None)
         -> render_batch(...)`` on the mesh, prepared once; a colour given
         overrides the mesh's (an appearance leaf, ``diffdope.py:383-406``:
         a texture displaces baked corner colours).  The reference
         rasterizer bins nothing, so it probes no capacity and takes no
-        compact table (``diffdope.py:282-283``)."""
+        compact table (``diffdope.py:282-283``).  ``with_bins`` renders
+        over :meth:`_precompute_bins`' bins, as ``tpu.precompute_bins``
+        asks of a run."""
         arrays = self._mesh_arrays()
         proj = np.asarray(self.camera.cam_proj, np.float32)
         resolution = tuple(self.resolution)
@@ -348,46 +393,51 @@ class DiffDope:
 
             return reference_fn
         route = raster_route()
-        max_tris, capacity = self._capacities(arrays, proj, resolution, route)
+        bins = self._precompute_bins(arrays, proj, resolution) if with_bins else None
+        max_tris, capacity = self._capacities(arrays, proj, resolution, route, bins)
         cull = self._resolve_cull()
 
         def render_fn(mtx, tex=None, vtx_color=None, corner_colors=None):
             return _render(colored(tex, vtx_color, corner_colors), mtx, resolution,
-                           capacity, layout, cull, max_tris, route=route)
+                           capacity, layout, cull, max_tris, route=route, bins=bins)
 
         # what the kernel checks need to drive the pack and the raster of
         # the render's table (as make_fused_loss's fn carries)
         render_fn.mesh, render_fn.route = mesh, route
         render_fn.planar = lambda mtx: _planar(mesh, mtx, resolution, route, cull,
-                                               max_tris)
+                                               max_tris, bins)
         render_fn.binned = lambda mtx: _binned(mesh, mtx, resolution, capacity, None,
-                                               cull, max_tris)
+                                               cull, max_tris, bins)
         render_fn.table = lambda mtx: _table(mesh, mtx, resolution, capacity, None,
-                                             cull, max_tris)
+                                             cull, max_tris, bins)
         render_fn.frame_hw, render_fn.roi = _padded(resolution), (0, 0) + resolution
         return render_fn
 
-    def _capacities(self, arrays, proj, resolution, route):
+    def _capacities(self, arrays, proj, resolution, route, bins=None):
         """(per-tile K, compact capacity) of a run on ``route``: the 'v3'
         route bins nothing and needs neither (the default K is passed
-        unread), 'v2' needs K only."""
-        if route == "v3":
+        unread), 'v2' needs K only; over precomputed ``bins`` K is theirs
+        and the compact table holds them."""
+        if route == "v3" and bins is None:
             return MAX_TRIS_PER_TILE, None
-        max_tris = self._resolve_max_tris(arrays, proj, resolution)
+        max_tris = (bins.idx.shape[1] if bins is not None
+                    else self._resolve_max_tris(arrays, proj, resolution))
         if route is not None:
             return max_tris, None
-        return max_tris, self._resolve_compact_total(arrays, proj, resolution, max_tris)
+        return max_tris, self._resolve_compact_total(arrays, proj, resolution, max_tris,
+                                                     bins)
 
     def _render(self, mtx):
         if self._render_fn is None:
             self._render_fn = self._make_render_fn(layout="stacked")
         return self._render_fn(mtx)
 
-    def _make_fused_loss_fn(self, gt):
+    def _make_fused_loss_fn(self, gt, use_bins: bool = False):
         """The fused route's loss when the configuration allows it (standard
         mask / rgb / depth losses, ``tpu.fused_loss`` on, the gt images
         they read), else None: the unfused route runs
-        (``diffdope.py:415-480``)."""
+        (``diffdope.py:415-480``).  ``use_bins`` takes
+        :meth:`_precompute_bins`' bins in place of each step's binning."""
         if not bool(self._tpu().get("fused_loss", True)):
             return None
         fns = set(self.loss_functions)
@@ -402,7 +452,9 @@ class DiffDope:
             return None  # the reference rasterizer runs the unfused route
         proj = np.asarray(self.camera.cam_proj, np.float32)
         resolution = tuple(self.resolution)
-        max_tris, capacity = self._capacities(arrays, proj, resolution, raster_route())
+        bins = self._precompute_bins(arrays, proj, resolution) if use_bins else None
+        max_tris, capacity = self._capacities(arrays, proj, resolution, raster_route(),
+                                              bins)
         crop_off = (getattr(self, "_crop_disable", False)
                     or str(self.cfg.get_dotted("tpu.roi_crop", "auto")) == "off")
         return make_fused_loss(
@@ -415,23 +467,15 @@ class DiffDope:
             uv=arrays.get("uv"), uv_idx=arrays.get("uv_idx"),
             compact_total=capacity, roi_crop="off" if crop_off else "auto",
             cull_backfaces=self._resolve_cull(), max_tris_per_tile=max_tris,
-            device=self.device,
+            device=self.device, bins=bins,
         )
 
     # ------------------------------------------------------------------ #
     # optimization
     # ------------------------------------------------------------------ #
     def _check_ported(self) -> None:
-        tpu_cfg = self._tpu()
-        if int(tpu_cfg.get("mesh_axis", 1)) > 1:
+        if int(self._tpu().get("mesh_axis", 1)) > 1:
             raise _not_ported("sharding the hypotheses over devices (mesh_axis > 1)", 4)
-        if bool(tpu_cfg.get("precompute_bins", False)):
-            raise _not_ported("precompute_bins", 4)
-        if int(tpu_cfg.get("restarts", 0)) > 0:
-            raise _not_ported("basin-hopping restarts", 4)
-        if float(tpu_cfg.get("init_jitter_deg", 0.0)) > 0.0 or float(
-                tpu_cfg.get("init_jitter_trans", 0.0)) > 0.0:
-            raise _not_ported("the initial pose jitter", 4)
 
     def run_optimization(self) -> None:
         """Run the refinement: ``nb_iterations + 1`` steps in segments of
@@ -450,32 +494,66 @@ class DiffDope:
 
         After ``Mesh.enable_gradients_texture()`` the appearance leaf
         (:meth:`_appearance`) is refined with the pose on the unfused route
-        and written back into the mesh (``diffdope.py:697-708``)."""
+        and written back into the mesh (``diffdope.py:697-708``).
+
+        The options of the module docstring apply in the reference's order:
+        the init jitter, then appearance refinement, else restarts, else
+        the plain segmented run; ``tpu.precompute_bins`` under any of
+        them."""
         self._check_ported()
         tpu_cfg = self._tpu()
         gt_np = self.gt_tensors
         gt = {k: torch.tensor(v, device=self.device) for k, v in gt_np.items()}
         params0 = self.object3d.initial_params(self.batchsize, self.device)
+        jitter_deg = float(tpu_cfg.get("init_jitter_deg", 0.0))
+        jitter_trans = float(tpu_cfg.get("init_jitter_trans", 0.0))
+        params0 = jitter_pose_params(params0, torch.Generator().manual_seed(self.seed + 1),
+                                     jitter_deg, jitter_trans)
         segment = int(tpu_cfg.get("scan_segment", 40))
         show_progress = bool(tpu_cfg.get("progress", True))
         extra_params = self._appearance()
+        use_bins = self._use_bins()
+        restarts = int(tpu_cfg.get("restarts", 0))
+        steps = self.nb_iterations + 1
+        live_step = str(tpu_cfg.get("live_loss", "segment")) == "step"
 
         def progress(done, total_steps, last_loss):
             log.info("refine %d/%d steps, loss %.5f", done, total_steps, last_loss)
 
         def dispatch():
-            fused_fn = None if extra_params else self._make_fused_loss_fn(gt_np)
-            render_fn = self._make_render_fn() if fused_fn is None else None
+            fused_fn = (None if extra_params
+                        else self._make_fused_loss_fn(gt_np, use_bins=use_bins))
+            render_fn = (self._make_render_fn(with_bins=use_bins) if fused_fn is None
+                         else None)
+            logged = itertools.count(1)
+
+            def step_cb(i, total):
+                # the reference's per-step callback (diffdope.py:545-560),
+                # numbered across segments and restarts
+                log.info("step %d/%d loss %.5f", next(logged), steps, float(total))
+
+            kw = dict(base_lr=self.base_lr, lr_decay=self.lr_decay,
+                      optimizer=self.optimizer_name, fused_loss_fn=fused_fn,
+                      step_callback=step_cb if live_step else None)
             t0 = time.perf_counter()
-            result = refine_segmented(
-                params0, render_fn, tuple(self.loss_functions), gt,
-                self.learning_rates, self.loss_weights,
-                nb_iterations=self.nb_iterations, segment_steps=segment,
-                progress_fn=progress if show_progress else None,
-                base_lr=self.base_lr, lr_decay=self.lr_decay,
-                optimizer=self.optimizer_name, fused_loss_fn=fused_fn,
-                extra_params=extra_params,
-            )
+            if restarts > 0 and not extra_params:
+                deg = float(tpu_cfg.get("restart_jitter_deg", 10.0))
+                trans = float(tpu_cfg.get("restart_jitter_trans", 0.02))
+                gen = torch.Generator().manual_seed(self.seed + 2)
+                result = refine_with_restarts(
+                    params0, render_fn, tuple(self.loss_functions), gt,
+                    self.learning_rates, self.loss_weights,
+                    nb_iterations=self.nb_iterations, restarts=restarts,
+                    restart_jitter_deg=deg, restart_jitter_trans=trans,
+                    draw_jitter=lambda b: draw_pose_jitter(b, gen, deg, trans),
+                    segment_steps=segment, **kw)
+            else:
+                result = refine_segmented(
+                    params0, render_fn, tuple(self.loss_functions), gt,
+                    self.learning_rates, self.loss_weights,
+                    nb_iterations=self.nb_iterations, segment_steps=segment,
+                    progress_fn=progress if show_progress and not live_step else None,
+                    extra_params=extra_params, **kw)
             return result, time.perf_counter() - t0
 
         recovery = bool(tpu_cfg.get("overflow_recovery", True))
@@ -508,11 +586,12 @@ class DiffDope:
             setattr(mesh, key, result.params[key].detach().cpu().numpy())
 
         self._check_bin_overflow(result)
+        self._bins_escaped = (self._check_bins(result) if getattr(self, "_bins", None)
+                              is not None and use_bins else None)
         self._result = result
         self.mtx_history = result.mtx_history.cpu().numpy()
         self.losses_values = {k: v.cpu().numpy() for k, v in result.losses_values.items()}
         self.optimization_results = RenderHistory(self)
-        steps = self.nb_iterations + 1
         compile_s = steady_sps = None
         seg = result.segment_times
         if seg and len(seg) > 1:
@@ -570,6 +649,36 @@ class DiffDope:
                 "dropped per step (worst at step %d/%d; %d steps affected); raise "
                 "tpu.max_tris_per_tile", int(ov.max()), int(ov.argmax()), len(ov),
                 int((ov > 0).sum()))
+
+    @torch.no_grad()
+    def _check_bins(self, result) -> int:
+        """After a run over precomputed bins, which log no per-step binning
+        telemetry: re-bin once at the final poses (``diffdope.py:786-
+        820``), warn if the per-tile K would drop pairs there, and count
+        the (tile, triangle) pairs those poses need that the precomputed
+        bins lack (the poses left the margin), warned too; returns that
+        count."""
+        arrays, bins = self._mesh_arrays(), self._bins
+        proj = np.asarray(self.camera.cam_proj, np.float32)
+        mesh = _Mesh(proj, arrays["pos"], arrays["pos_idx"], None, None, None, self.device)
+        cp = corner_planes(mesh.pos_c, matmul44(mesh.proj, result.mtx_history[-1]))
+        det = det_planar(cp, mesh.degenerate)
+        idx, counts, _ = bin_triangles_planar(cp, det, tuple(self.resolution), TILE_HW,
+                                              mesh.t_count)
+        k = bins.idx.shape[1]
+        if int(counts.max()) > k:
+            log.warning("bin overflow at the final poses: %d triangles in a tile, more "
+                        "than the bins' K=%d", int(counts.max()), k)
+        t = mesh.t_count
+        held = torch.zeros((idx.shape[0], t + 1), dtype=torch.bool, device=self.device)
+        held.scatter_(1, bins.idx.long(), True)
+        need = torch.zeros_like(held)
+        need.scatter_(1, idx.long(), True)
+        escaped = int((need[:, :t] & ~held[:, :t]).sum())
+        if escaped:
+            log.warning("the final poses need %d (tile, triangle) pairs outside the "
+                        "precomputed bins: raise tpu.bin_margin_px", escaped)
+        return escaped
 
     @property
     def renders(self) -> dict:

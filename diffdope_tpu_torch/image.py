@@ -1,16 +1,26 @@
 """Image and Scene containers (counterpart of ``diffdope_tpu/image.py``).
 
-Images come from arrays (``img_tensor=``): one (H, W[, C]) float32 array
-each, shared by every hypothesis.  Reading image files needs cv2, which
-the port does not depend on: a path raises (ROADMAP queue 1, item 1).
+An image is one (H, W[, C]) float32 array, shared by every hypothesis,
+given as an array (``img_tensor=``) or read from a PNG file
+(``img_path=``) the way the reference reads it with cv2
+(``image.py:55-80``): colour as RGB / 255, depth unchanged / depth_scale,
+both in float64, flipped vertically, resized below a resize factor of 1
+(linear for colour, nearest for depth), then cast to float32.  The port
+reads PNG files only (``png.py``): JPEG and other formats raise.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+
+from diffdope_tpu_torch.png import imread_color, imread_unchanged, resize_linear, \
+    resize_nearest
+
+log = logging.getLogger(__name__)
 
 
 @dataclass
@@ -26,16 +36,27 @@ class Image:
 
     def __post_init__(self):
         if self.img_path is not None:
-            raise NotImplementedError(
-                "reading images from files needs cv2 and is not ported yet: "
-                "pass img_tensor= (ROADMAP queue 1, item 1)"
-            )
-        if self.img_tensor is not None:
+            if self.depth:
+                im = imread_unchanged(self.img_path).astype(np.float64) / self.depth_scale
+            else:
+                im = imread_color(self.img_path) / 255.0
+            if self.flip_img:
+                im = im[::-1]
+            if self.img_resize is not None and self.img_resize < 1.0:
+                size = (int(im.shape[1] * self.img_resize), int(im.shape[0] * self.img_resize))
+                im = (resize_nearest if self.depth else resize_linear)(im, size)
+            self.img_tensor = np.ascontiguousarray(im, dtype=np.float32)
+            log.info("Loaded image %s, shape %s", self.img_path, self.img_tensor.shape)
+        elif self.img_tensor is not None:
             self.img_tensor = np.asarray(self.img_tensor, dtype=np.float32)
 
     @property
     def shape(self):
         return self.img_tensor.shape
+
+    def __repr__(self):
+        shape = None if self.img_tensor is None else self.img_tensor.shape
+        return f"Image({shape} @ {self.img_path})"
 
 
 @dataclass

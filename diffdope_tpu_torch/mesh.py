@@ -1,13 +1,14 @@
 """Mesh loading and preparation (numpy only).
 
-Counterpart of ``diffdope_tpu/mesh.py``: the PLY (ascii and binary) and
-OBJ parsers, winding repair, vertex normals, edge adjacency, and
-:func:`load_mesh` with its padding to multiples of 8 (padded triangles are
-degenerate and never rasterize).  Copied, not imported: importing the JAX
-package pulls in jax.  Textured meshes are built from arrays
-(:func:`mesh_from_arrays`, with the V flip and the corner-colour bake):
-reading a texture image waits for an image reader (ROADMAP queue 1, item
-1), and the .glb/.stl loaders are not ported yet (queue 1, item 2).
+Counterpart of ``diffdope_tpu/mesh.py``: the PLY (ascii and binary), OBJ,
+STL (binary and ascii) and glTF (.glb and .gltf) parsers, winding
+repair, vertex normals, edge adjacency, and :func:`load_mesh` with its
+padding to multiples of 8 (padded triangles are degenerate and never
+rasterize).  Copied, not imported: importing the JAX package pulls in
+jax.  A textured mesh reads its texture from a PNG file (a PLY's
+TextureFile, or ``texture_path=``) or from a glTF's embedded PNG
+(``png.py``), or is built from arrays (:func:`mesh_from_arrays`, with the
+V flip and the corner-colour bake).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
+
+from diffdope_tpu_torch import png
 
 log = logging.getLogger(__name__)
 
@@ -314,6 +317,306 @@ def load_obj(path) -> Dict[str, np.ndarray]:
 
 
 # ---------------------------------------------------------------------------
+# STL and glTF parsing (mesh.py:326-614)
+# ---------------------------------------------------------------------------
+
+def load_stl(path) -> Dict[str, np.ndarray]:
+    """STL loader (binary + ascii), same dict contract as :func:`load_ply`.
+
+    STL stores independent triangles (no shared-vertex topology or
+    attributes); exact-duplicate vertices are welded back so silhouette
+    edge adjacency and winding repair work.  Per-facet normals are
+    dropped (recomputed downstream when needed).  Closes the practical
+    remainder of the reference's trimesh.load format breadth
+    (reference diffdope.py:784).
+    """
+    path = Path(path)
+    raw = path.read_bytes()
+
+    # ascii STLs start with 'solid', but some binary exporters write that
+    # too — trust the binary triangle-count arithmetic over the prefix
+    is_binary = len(raw) >= 84
+    if is_binary:
+        (ntri,) = np.frombuffer(raw[80:84], "<u4")
+        is_binary = len(raw) >= 84 + int(ntri) * 50
+    if is_binary:
+        rec = np.frombuffer(
+            raw, dtype=np.dtype([("n", "<f4", 3), ("v", "<f4", (3, 3)),
+                                 ("attr", "<u2")]),
+            count=int(ntri), offset=84,
+        )
+        tri_pts = rec["v"].astype(np.float32).reshape(-1, 3)
+    else:
+        pts = []
+        for line in raw.decode("ascii", "replace").splitlines():
+            parts = line.split()
+            if parts[:1] == ["vertex"]:
+                pts.append([float(parts[1]), float(parts[2]),
+                            float(parts[3])])
+        if len(pts) % 3:
+            raise ValueError(f"{path}: ascii STL vertex count not a "
+                             f"multiple of 3 ({len(pts)})")
+        tri_pts = np.asarray(pts, np.float32).reshape(-1, 3)
+    if len(tri_pts) == 0:
+        raise ValueError(f"{path}: no triangles")
+
+    verts, inverse = np.unique(tri_pts, axis=0, return_inverse=True)
+    return {
+        "vertices": verts.astype(np.float32),
+        "faces": inverse.reshape(-1, 3).astype(np.int32),
+    }
+
+
+# ---------------------------------------------------------------------------
+# glTF / GLB parsing (the reference loads any trimesh-readable format,
+# reference diffdope.py:784; .glb is the common interchange one beyond
+# PLY/OBJ)
+# ---------------------------------------------------------------------------
+
+_GLTF_CTYPES = {
+    5120: np.int8, 5121: np.uint8, 5122: np.int16,
+    5123: np.uint16, 5125: np.uint32, 5126: np.float32,
+}
+_GLTF_NCOMP = {"SCALAR": 1, "VEC2": 2, "VEC3": 3, "VEC4": 4}
+
+
+def _gltf_read_accessor(gltf, buffers, idx):
+    """Accessor -> (count, n_comp) numpy array (tightly packed or strided)."""
+    acc = gltf["accessors"][idx]
+    if "sparse" in acc:
+        # loading a sparse accessor as its (possibly zero) base view would
+        # silently produce wrong geometry — fail loudly instead
+        raise ValueError(
+            "glTF sparse accessors are not supported (accessor "
+            f"{idx}); re-export the asset with dense buffers"
+        )
+    n_comp = _GLTF_NCOMP[acc["type"]]
+    dtype = np.dtype(_GLTF_CTYPES[acc["componentType"]]).newbyteorder("<")
+    count = acc["count"]
+    bv = gltf["bufferViews"][acc["bufferView"]]
+    buf = buffers[bv.get("buffer", 0)]
+    start = bv.get("byteOffset", 0) + acc.get("byteOffset", 0)
+    stride = bv.get("byteStride") or dtype.itemsize * n_comp
+    if stride == dtype.itemsize * n_comp:
+        arr = np.frombuffer(buf, dtype=dtype, count=count * n_comp,
+                            offset=start).reshape(count, n_comp)
+    else:  # interleaved vertex buffer
+        rows = np.frombuffer(buf, dtype=np.uint8, count=count * stride,
+                             offset=start).reshape(count, stride)
+        arr = rows[:, : dtype.itemsize * n_comp].copy().view(dtype).reshape(
+            count, n_comp
+        )
+    if acc.get("normalized") and arr.dtype != np.float32:
+        arr = arr.astype(np.float32) / np.iinfo(arr.dtype).max
+    return arr
+
+
+def _gltf_decode_image(gltf, buffers, image_idx):
+    """An embedded image (a bufferView or a ``data:`` URI) as float32 RGB
+    in [0, 1], as ``cv2.imdecode`` + BGR2RGB gives it (``mesh.py:417-
+    438``); None for an external URI (the caller reads the file) or bytes
+    of no known image format (cv2 decodes none either).  A PNG is decoded
+    (``png.py``); another image format (JPEG, ...) raises, since cv2
+    would have read it and the port cannot."""
+    img_def = gltf["images"][image_idx]
+    if "bufferView" in img_def:
+        bv = gltf["bufferViews"][img_def["bufferView"]]
+        data = bytes(buffers[bv.get("buffer", 0)][
+            bv.get("byteOffset", 0): bv.get("byteOffset", 0) + bv["byteLength"]
+        ])
+    elif img_def.get("uri", "").startswith("data:"):
+        import base64
+
+        data = base64.b64decode(img_def["uri"].split(",", 1)[1])
+    else:
+        return None  # external file URI resolved by the caller
+    name = png.format_name(data)
+    if name == "unknown":
+        return None
+    if name != "PNG":
+        raise NotImplementedError(
+            f"glTF image {image_idx} is {name}: the port decodes embedded PNG "
+            "textures only")
+    return png.decode_color(data).astype(np.float32) / 255.0
+
+
+def load_glb(path) -> Dict[str, np.ndarray]:
+    """Minimal glTF 2.0 binary (.glb) / JSON (.gltf) loader.
+
+    Returns the same dict contract as :func:`load_ply`: ``vertices``,
+    ``faces``, and when present ``normals``, ``uv``, ``colors``, plus
+    ``texture_image`` (decoded (H,W,3) float RGB from the material's
+    baseColorTexture) and ``uv_origin`` = 'top' (glTF uv v=0 is the image
+    TOP row, already matching texture storage — no V flip needed, unlike
+    the PLY convention).
+
+    All primitives of all mesh instances are concatenated with their node
+    world transforms APPLIED (positions by the 4x4, normals by its
+    inverse-transpose) — matching what the trimesh-backed reference loads
+    (reference diffdope.py:784).  A mesh referenced by several nodes is
+    emitted once per instance.  Sparse accessors raise (unsupported).
+    """
+    import json as _json
+    import struct
+
+    path = Path(path)
+    raw = path.read_bytes()
+    buffers = []
+    if raw[:4] == b"glTF":
+        _, _, total_len = struct.unpack("<4sII", raw[:12])
+        off = 12
+        gltf = None
+        while off < min(total_len, len(raw)):
+            clen, ctype = struct.unpack("<II", raw[off:off + 8])
+            chunk = raw[off + 8: off + 8 + clen]
+            if ctype == 0x4E4F534A:  # 'JSON'
+                gltf = _json.loads(chunk)
+            elif ctype == 0x004E4942:  # 'BIN\0'
+                buffers.append(chunk)
+            off += 8 + clen
+        if gltf is None:
+            raise ValueError(f"{path}: GLB without a JSON chunk")
+    else:
+        gltf = _json.loads(raw)
+        for b in gltf.get("buffers", []):
+            uri = b.get("uri", "")
+            if uri.startswith("data:"):
+                import base64
+
+                buffers.append(base64.b64decode(uri.split(",", 1)[1]))
+            else:
+                buffers.append((path.parent / uri).read_bytes())
+
+    # mesh instances = (mesh index, node world matrix) from the scene graph;
+    # assets with no nodes fall back to identity-placed meshes
+    def _node_local(nd):
+        if "matrix" in nd:  # column-major 16 floats
+            return np.asarray(nd["matrix"], np.float64).reshape(4, 4).T
+        m = np.eye(4)
+        if "scale" in nd:
+            m[:3, :3] = np.diag(np.asarray(nd["scale"], np.float64))
+        if "rotation" in nd:  # quat x,y,z,w
+            x, y, z, w = (float(v) for v in nd["rotation"])
+            r = np.array([
+                [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+                [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+                [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+            ])
+            m[:3, :3] = r @ m[:3, :3]
+        if "translation" in nd:
+            m[:3, 3] = np.asarray(nd["translation"], np.float64)
+        return m
+
+    nodes = gltf.get("nodes", [])
+    instances = []  # (mesh_idx, (4,4) world)
+    if nodes:
+        scenes = gltf.get("scenes", [])
+        roots = (
+            scenes[gltf.get("scene", 0)].get("nodes", range(len(nodes)))
+            if scenes else range(len(nodes))
+        )
+
+        def _walk(i, parent):
+            nd = nodes[i]
+            world = parent @ _node_local(nd)
+            if "mesh" in nd:
+                instances.append((nd["mesh"], world))
+            for c in nd.get("children", []):
+                _walk(c, world)
+
+        for r in roots:
+            _walk(r, np.eye(4))
+    if not instances:
+        instances = [(i, np.eye(4)) for i in range(len(gltf.get("meshes", [])))]
+
+    verts, faces, normals, uvs, colors = [], [], [], [], []
+    tex_image = None
+    base = 0
+    for mesh_idx, world in instances:
+        mesh_def = gltf["meshes"][mesh_idx]
+        is_identity = np.allclose(world, np.eye(4))
+        if not is_identity:
+            nrm_mat = np.linalg.inv(world[:3, :3]).T
+        for prim in mesh_def.get("primitives", []):
+            if prim.get("mode", 4) != 4:  # TRIANGLES only
+                continue
+            attrs = prim["attributes"]
+            pos = _gltf_read_accessor(gltf, buffers, attrs["POSITION"])
+            pos = pos.astype(np.float32)
+            if not is_identity:
+                pos = (
+                    pos.astype(np.float64) @ world[:3, :3].T + world[:3, 3]
+                ).astype(np.float32)
+            npts = len(pos)
+            if "indices" in prim:
+                idx = _gltf_read_accessor(
+                    gltf, buffers, prim["indices"]
+                ).reshape(-1).astype(np.int64)
+            else:
+                idx = np.arange(npts, dtype=np.int64)
+            verts.append(pos)
+            faces.append(idx.reshape(-1, 3) + base)
+            nrm = (
+                _gltf_read_accessor(gltf, buffers, attrs["NORMAL"])
+                .astype(np.float32)
+                if "NORMAL" in attrs else np.zeros((npts, 3), np.float32)
+            )
+            if not is_identity and np.abs(nrm).max() > 0:
+                nrm = nrm.astype(np.float64) @ nrm_mat.T
+                nrm = (
+                    nrm / np.maximum(
+                        np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-12
+                    )
+                ).astype(np.float32)
+            normals.append(nrm)
+            uvs.append(
+                _gltf_read_accessor(gltf, buffers, attrs["TEXCOORD_0"])
+                .astype(np.float32)
+                if "TEXCOORD_0" in attrs else np.zeros((npts, 2), np.float32)
+            )
+            colors.append(
+                _gltf_read_accessor(gltf, buffers, attrs["COLOR_0"])
+                .astype(np.float32)[:, :3]
+                if "COLOR_0" in attrs else np.full((npts, 3), 0.7, np.float32)
+            )
+            if tex_image is None and "material" in prim:
+                mat = gltf["materials"][prim["material"]]
+                bct = mat.get("pbrMetallicRoughness", {}).get(
+                    "baseColorTexture"
+                )
+                if bct is not None:
+                    src = gltf["textures"][bct["index"]].get("source")
+                    if src is not None:
+                        tex_image = _gltf_decode_image(gltf, buffers, src)
+                        if tex_image is None:
+                            uri = gltf["images"][src].get("uri")
+                            if uri and not uri.startswith("data:"):
+                                tex_image = _load_texture(path.parent / uri)
+            base += npts
+    if not verts:
+        raise ValueError(f"{path}: no triangle primitives found")
+
+    out: Dict[str, np.ndarray] = {
+        "vertices": np.concatenate(verts, 0),
+        "faces": np.concatenate(faces, 0).astype(np.int32),
+    }
+    nrm = np.concatenate(normals, 0)
+    if np.abs(nrm).max() > 0:
+        out["normals"] = nrm
+    uv = np.concatenate(uvs, 0)
+    has_uv = np.ptp(uv, axis=0).max() > 0
+    if has_uv:
+        out["uv"] = uv
+        out["uv_origin"] = "top"
+    col = np.concatenate(colors, 0)
+    if not np.allclose(col, 0.7):
+        out["colors"] = col
+    if tex_image is not None and has_uv:
+        out["texture_image"] = tex_image
+    return out
+
+
+# ---------------------------------------------------------------------------
 # topology and normals
 # ---------------------------------------------------------------------------
 
@@ -509,40 +812,39 @@ class Mesh:
 
 def load_mesh(path, scale: float = 1.0, vertex_pad: int = 8, triangle_pad: int = 8,
               texture_path=None, fix_winding: bool = True) -> Mesh:
-    """Load a .ply or .obj mesh with the reference's conventions
-    (``mesh.py:848-967``): see :func:`mesh_from_arrays`.
+    """Load a .ply, .obj, .stl, .glb or .gltf mesh with the reference's
+    conventions (``mesh.py:848-967``): see :func:`mesh_from_arrays`.
 
-    A texture image (``texture_path``, or the PLY's TextureFile next to the
-    mesh) is not read: the port has no image reader yet, so an existing
-    file raises; build a textured mesh from arrays instead
-    (``testing.textured_mesh``).  A PLY whose texture file is absent loads
-    as the reference's does, flat grey (or its vertex colours) with its uv
-    dropped."""
+    The texture is ``texture_path``, else the PLY's TextureFile next to
+    the mesh if that file exists, read as a PNG (:func:`_load_texture`),
+    its uv V-flipped; else a glTF's embedded texture, whose uv already
+    has the image's top row at v = 0.  A mesh with no texture (or no uv)
+    takes its vertex colours, or flat grey, with its uv dropped."""
     path = Path(path)
-    suffix = path.suffix.lower()
-    if suffix == ".ply":
-        data = load_ply(path)
-    elif suffix == ".obj":
-        data = load_obj(path)
-    elif suffix in (".glb", ".gltf", ".stl"):
-        raise NotImplementedError(
-            f"{suffix} meshes are not ported yet (ROADMAP queue 1, item 2)"
-        )
-    else:
+    loaders = {".ply": load_ply, ".obj": load_obj, ".glb": load_glb, ".gltf": load_glb,
+               ".stl": load_stl}
+    if path.suffix.lower() not in loaders:
         raise ValueError(f"unsupported mesh format: {path.suffix}")
+    data = loaders[path.suffix.lower()](path)
     if texture_path is None and "texture_file" in data:
         cand = path.parent / data["texture_file"]
         if cand.exists():
             texture_path = cand
-    if texture_path is not None and data.get("uv") is not None:
-        raise NotImplementedError(
-            f"reading the texture image {texture_path} is not ported yet (ROADMAP "
-            "queue 1, item 1); build the textured mesh from arrays "
-            "(testing.textured_mesh)"
-        )
+    tex, flip_v = None, True
+    if data.get("uv") is not None:
+        if texture_path is not None:
+            tex = _load_texture(texture_path)
+        elif data.get("texture_image") is not None:
+            tex, flip_v = data["texture_image"], False
     return mesh_from_arrays(data["vertices"], data["faces"], scale, vertex_pad,
                             triangle_pad, fix_winding, normals=data.get("normals"),
-                            colors=data.get("colors"), path_model=str(path))
+                            colors=data.get("colors"), uv=data.get("uv"), tex=tex,
+                            path_model=str(path), flip_v=flip_v)
+
+
+def _load_texture(texture_path) -> np.ndarray:
+    """A texture image as float32 RGB in [0, 1] (``mesh.py:1030-1037``)."""
+    return png.imread_color(texture_path).astype(np.float32) / 255.0
 
 
 def bake_corner_colors(tex: np.ndarray, uv: np.ndarray, faces: np.ndarray) -> np.ndarray:
@@ -568,7 +870,8 @@ def bake_corner_colors(tex: np.ndarray, uv: np.ndarray, faces: np.ndarray) -> np
 
 def mesh_from_arrays(vertices, faces, scale: float = 1.0, vertex_pad: int = 8,
                      triangle_pad: int = 8, fix_winding: bool = True, normals=None,
-                     colors=None, uv=None, tex=None, path_model: Optional[str] = None) -> Mesh:
+                     colors=None, uv=None, tex=None, path_model: Optional[str] = None,
+                     flip_v: bool = True) -> Mesh:
     """A :class:`Mesh` from parsed arrays, as :func:`load_mesh` and the
     reference's loader build it: vertices scaled, faces rewound to a
     consistent outward winding when orientable, normals computed when none
@@ -576,7 +879,8 @@ def mesh_from_arrays(vertices, faces, scale: float = 1.0, vertex_pad: int = 8,
     ``triangle_pad``.
 
     With a texture ``tex`` (TH, TW, 3) and its per-vertex ``uv`` in the
-    file's convention (v up), the uv is V-flipped (``mesh.py:903-925``),
+    file's convention (v up), the uv is V-flipped (``mesh.py:903-925``;
+    not with ``flip_v`` False: a glTF's uv has v down already),
     ``uv_idx`` is the faces and the corner colours are baked
     (:func:`bake_corner_colors`); otherwise the vertex colours are
     ``colors``, or a flat 0.7 grey, and uv is dropped."""
@@ -598,7 +902,8 @@ def mesh_from_arrays(vertices, faces, scale: float = 1.0, vertex_pad: int = 8,
     if tex is not None and uv is not None:
         tex = np.asarray(tex, np.float32)
         uv = np.array(uv, np.float32)
-        uv[:, 1] = 1.0 - uv[:, 1]
+        if flip_v:
+            uv[:, 1] = 1.0 - uv[:, 1]
         corner_colors = bake_corner_colors(tex, uv, faces)
     else:
         tex = uv = None

@@ -19,7 +19,11 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from diffdope_tpu_torch.geometry import matrix44_from_quat_trans, quat_normalize
+from diffdope_tpu_torch.convert import tensor
+from diffdope_tpu_torch.geometry import matrix44_from_quat_trans, quat_multiply, quat_normalize
+
+#: the pose leaves of the optimized parameters
+POSE_KEYS = ("qx", "qy", "qz", "qw", "x", "y", "z")
 
 
 class RefineResult(NamedTuple):
@@ -52,6 +56,67 @@ def pose_matrix(params: Dict[str, torch.Tensor]):
     q = quat_normalize(q)
     t = torch.stack([params["x"], params["y"], params["z"]], dim=-1)
     return matrix44_from_quat_trans(q, t), q, t
+
+
+def draw_pose_jitter(batchsize: int, generator: torch.Generator, jitter_deg: float,
+                     jitter_trans: float) -> Dict[str, torch.Tensor]:
+    """The random draws of :func:`jitter_pose_params` (``optimize.py:81-
+    125``), on the host from ``generator``: a rotation axis (B, 3) and a
+    translation direction (B, 3), each standard normal, an angle (B,)
+    uniform in [0, jitter_deg] (in radians) and a magnitude (B,) uniform in
+    [0, jitter_trans].  Torch's RNG cannot reproduce ``jax.random``:
+    parity tests pass the reference's draws to :func:`apply_pose_jitter`."""
+    f32 = torch.float32
+    axis = torch.randn((batchsize, 3), generator=generator, dtype=f32)
+    angle = torch.rand((batchsize,), generator=generator, dtype=f32)
+    direction = torch.randn((batchsize, 3), generator=generator, dtype=f32)
+    magnitude = torch.rand((batchsize,), generator=generator, dtype=f32)
+    return {"axis": axis, "angle": angle * float(np.deg2rad(jitter_deg)),
+            "direction": direction, "magnitude": magnitude * float(jitter_trans)}
+
+
+def apply_pose_jitter(params: Dict[str, torch.Tensor], draws: Dict[str, torch.Tensor],
+                      keep_first: bool = True) -> Dict[str, torch.Tensor]:
+    """Each hypothesis rotated by its drawn angle about its drawn axis
+    (applied before its own rotation, the product normalized) and moved by
+    its drawn magnitude along its drawn direction; with ``keep_first``
+    hypothesis 0 keeps the unjittered pose (its quaternion normalized),
+    as the reference's ``jitter_pose_params`` does.  Computed on the host
+    and moved to ``params``' device, so the card starts from the CPU's
+    bits (its sin and cos may round otherwise)."""
+    dev = params["qx"].device
+    d = {k: tensor(v, "cpu") for k, v in draws.items()}
+    pose = {k: params[k].detach().cpu() for k in POSE_KEYS}
+
+    def unit(v):
+        return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-9)
+
+    half = 0.5 * d["angle"]
+    dq = torch.cat([unit(d["axis"]) * torch.sin(half)[:, None],
+                    torch.cos(half)[:, None]], dim=-1)
+    q = quat_normalize(torch.stack([pose[k] for k in POSE_KEYS[:4]], dim=-1))
+    qj = quat_normalize(quat_multiply(dq, q))
+    t = torch.stack([pose[k] for k in POSE_KEYS[4:]], dim=-1)
+    tj = t + unit(d["direction"]) * d["magnitude"][:, None]
+    if keep_first:
+        qj = torch.cat([q[:1], qj[1:]])
+        tj = torch.cat([t[:1], tj[1:]])
+    out = dict(params)
+    out.update((k, v.to(dev)) for k, v in zip(POSE_KEYS, list(qj.unbind(-1))
+                                                + list(tj.unbind(-1))))
+    return out
+
+
+def jitter_pose_params(params: Dict[str, torch.Tensor], generator: torch.Generator,
+                       jitter_deg: float = 0.0, jitter_trans: float = 0.0,
+                       keep_first: bool = True) -> Dict[str, torch.Tensor]:
+    """Seeded per-hypothesis pose jitter (``optimize.py:81-125``): draw
+    (:func:`draw_pose_jitter`) and apply (:func:`apply_pose_jitter`);
+    magnitudes of 0 return ``params`` as they are."""
+    if jitter_deg <= 0.0 and jitter_trans <= 0.0:
+        return params
+    draws = draw_pose_jitter(params["qx"].shape[0], generator, jitter_deg, jitter_trans)
+    return apply_pose_jitter(params, draws, keep_first)
 
 
 def draw_learning_rates(seed: int, batchsize: int, bounds: Sequence[float],
@@ -148,6 +213,7 @@ def refine(
     num_steps: Optional[int] = None,
     fused_loss_fn: Optional[Callable] = None,
     extra_params: Optional[Dict[str, torch.Tensor]] = None,
+    step_callback: Optional[Callable] = None,
 ) -> RefineResult:
     """Run ``nb_iterations + 1`` optimizer steps (or ``num_steps``, for a
     segment; ``nb_iterations`` still shapes the learning-rate schedule,
@@ -160,7 +226,10 @@ def refine(
     'vtx_color' or 'corner_colors', ``optimize.py:173, 226-269``), passed
     to ``render_fn`` as keyword arguments and updated by the same optimizer
     as the pose; ``params`` of the result holds them too.  Logs stay on
-    the device; nothing synchronizes with the host inside the loop.
+    the device; nothing synchronizes with the host inside the loop, unless
+    ``step_callback(step_index, total)`` is given: it is called after
+    every step with that step's total loss (a tensor; reading it is the
+    per-step host sync the reference's ``jax.debug.callback`` pays).
     Underscore log keys go to ``telemetry``.
     """
     if fused_loss_fn is None and render_fn is None:
@@ -175,7 +244,7 @@ def refine(
         opt_state = opt.init(params)
     length = nb_iterations + 1 if num_steps is None else num_steps
     mtxs, totals, logs_hist = [], [], {}
-    for _ in range(length):
+    for step in range(length):
         leaves = {k: v.requires_grad_(True) for k, v in params.items()}
         mtx, _, _ = pose_matrix(leaves)
         if fused_loss_fn is not None:
@@ -201,6 +270,8 @@ def refine(
             params, opt_state = opt.update(
                 grads, opt_state, {k: v.detach() for k, v in leaves.items()}
             )
+        if step_callback is not None:
+            step_callback(step, totals[-1])
     stacked = {k: torch.stack(v) for k, v in logs_hist.items()}
     return RefineResult(
         params=params,
@@ -265,6 +336,77 @@ def refine_segmented(
         telemetry=telemetry or None,
         opt_state=opt_state,
         segment_times=segment_times,
+    )
+
+
+def refine_with_restarts(
+    params0: Dict[str, torch.Tensor],
+    render_fn: Optional[Callable] = None,
+    loss_fns: Sequence[Callable] = (),
+    gt: Optional[Dict[str, torch.Tensor]] = None,
+    learning_rates: Optional[torch.Tensor] = None,
+    weights: Optional[Dict[str, float]] = None,
+    nb_iterations: int = 60,
+    restarts: int = 1,
+    restart_jitter_deg: float = 10.0,
+    restart_jitter_trans: float = 0.02,
+    draw_jitter: Optional[Callable] = None,
+    segment_steps: Optional[int] = None,
+    **refine_kwargs,
+) -> RefineResult:
+    """Basin-hopping refinement (``optimize.py:402-516``): the
+    ``nb_iterations + 1`` steps in ``restarts + 1`` segments of ``(total -
+    done) // (segments left)`` steps.  After each segment but the last,
+    every hypothesis re-seeds at the best one's pose (the argmin over B of
+    the mean logged term at the segment's last step), jittered by
+    ``draw_jitter(B)``'s draws (:func:`apply_pose_jitter`; hypothesis 0
+    exactly at the winner, no jitter at all when both magnitudes are 0),
+    and the optimizer state, the schedule's step count included, resets.
+    A segment runs in chunks of ``segment_steps``, the optimizer state
+    carried across them.  ``draw_jitter`` defaults to
+    :func:`draw_pose_jitter` from a generator seeded 0.  Histories, logs
+    and telemetry are the segments' concatenated."""
+    total = nb_iterations + 1
+    n_seg = restarts + 1
+    if draw_jitter is None:
+        gen = torch.Generator().manual_seed(0)
+
+        def draw_jitter(b):
+            return draw_pose_jitter(b, gen, restart_jitter_deg, restart_jitter_trans)
+
+    params, parts, done = params0, [], 0
+    for seg in range(n_seg):
+        n = (total - done) // (n_seg - seg)
+        seg_done, opt_state = 0, None
+        while seg_done < n:
+            m = n if segment_steps is None else min(segment_steps, n - seg_done)
+            res = refine(params, render_fn, loss_fns, gt, learning_rates, weights,
+                         nb_iterations=nb_iterations, opt_state=opt_state, num_steps=m,
+                         **refine_kwargs)
+            params, opt_state = res.params, res.opt_state
+            parts.append(res)
+            seg_done += m
+        done += n
+        if seg < n_seg - 1:
+            mean = torch.stack([v[-1] for v in res.losses_values.values()]).mean(dim=0)
+            best = int(torch.argmin(mean))
+            shared = {k: res.params[k][best].expand_as(res.params[k]).clone()
+                      for k in POSE_KEYS}
+            if restart_jitter_deg > 0.0 or restart_jitter_trans > 0.0:
+                shared = apply_pose_jitter(shared, draw_jitter(shared["qx"].shape[0]))
+            params = shared
+
+    def cat(get):
+        return torch.cat([get(r) for r in parts], dim=0)
+
+    telemetry = {k: cat(lambda r, k=k: r.telemetry[k]) for k in (parts[0].telemetry or {})}
+    return RefineResult(
+        params=params,
+        mtx_history=cat(lambda r: r.mtx_history),
+        losses_values={k: cat(lambda r, k=k: r.losses_values[k])
+                       for k in parts[0].losses_values},
+        total_loss=cat(lambda r: r.total_loss),
+        telemetry=telemetry or None,
     )
 
 

@@ -299,9 +299,22 @@ class _Table(NamedTuple):
     telemetry: Dict[str, torch.Tensor]
 
 
+class Bins(NamedTuple):
+    """Bins computed once for a whole refinement (:func:`precompute_bins`):
+    the per-tile slot lists (tiles, K) int32 (sentinel T), their counts,
+    and the inverted map (T, max_occ) with its validity, for the planar
+    'v2' raster's backward."""
+
+    idx: torch.Tensor
+    counts: torch.Tensor
+    inv_pos: torch.Tensor
+    inv_valid: torch.Tensor
+
+
 def _binned(mesh: _Mesh, mtx: torch.Tensor, resolution,
             capacity: Optional[Union[int, str]] = None, crop: Optional[_Crop] = None,
-            cull: bool = False, max_tris: int = MAX_TRIS_PER_TILE) -> _Binned:
+            cull: bool = False, max_tris: int = MAX_TRIS_PER_TILE,
+            bins: Optional[Bins] = None) -> _Binned:
     """Bin the mesh at poses ``mtx`` (B, 4, 4) into a table's layout.
 
     ``capacity`` is the compact table's slots, ``EXACT`` to size it to the
@@ -310,20 +323,29 @@ def _binned(mesh: _Mesh, mtx: torch.Tensor, resolution,
     tiles outside it before compaction and counts '_crop_leak'.
     '_bin_need' is the slots a full-frame compact table needs at these
     poses: the chunk-rounded bins plus the pairs the per-tile capacity
-    dropped (the overflow recovery sizes its re-run from it)."""
+    dropped (the overflow recovery sizes its re-run from it).
+
+    With precomputed ``bins`` nothing is binned (as the reference's
+    ``bins=``, ``pipeline.py:228, 628``): '_bin_overflow' counts the
+    compact table's drops only, and the uniform table logs none."""
     mvp = matmul44(mesh.proj, mtx)
     cp = corner_planes(mesh.pos_c, mvp)
     det = det_planar(cp, mesh.degenerate)
-    idx, counts, bin_overflow = bin_triangles_planar(
-        cp, det, resolution, TILE_HW, max_tris, cull_backfaces=cull
-    )
-    need = (-(-counts // K_CHUNK) * K_CHUNK).sum(dtype=torch.int32) + bin_overflow
-    telemetry = {"_bin_max": counts.max(), "_bin_need": need}
+    if bins is None:
+        idx, counts, bin_overflow = bin_triangles_planar(
+            cp, det, resolution, TILE_HW, max_tris, cull_backfaces=cull
+        )
+    else:
+        idx, counts, bin_overflow = bins.idx, bins.counts, None
+    need = (-(-counts // K_CHUNK) * K_CHUNK).sum(dtype=torch.int32)
+    telemetry = {"_bin_max": counts.max(),
+                 "_bin_need": need if bin_overflow is None else need + bin_overflow}
     sil = _silhouette_planar(det, mesh.adj)
     if capacity is None:
         if crop is not None:
             raise ValueError("the uniform-K table covers the whole frame: no ROI crop")
-        telemetry["_bin_overflow"] = bin_overflow
+        if bin_overflow is not None:
+            telemetry["_bin_overflow"] = bin_overflow
         return _Binned(mvp, idx.reshape(-1), sil, counts.contiguous(), None, None,
                        telemetry)
     if crop is not None:
@@ -334,7 +356,7 @@ def _binned(mesh: _Mesh, mtx: torch.Tensor, resolution,
     flat, off_c, used, c_ovf = compact_bins(
         idx, counts, mesh.t_count, K_CHUNK, capacity
     )
-    telemetry["_bin_overflow"] = bin_overflow + c_ovf
+    telemetry["_bin_overflow"] = c_ovf if bin_overflow is None else bin_overflow + c_ovf
     return _Binned(mvp, flat, sil, counts.contiguous(), off_c, used, telemetry)
 
 
@@ -350,10 +372,11 @@ def _pack_dispatch(mesh: _Mesh, mvp: torch.Tensor, mtx: torch.Tensor,
 
 def _table(mesh: _Mesh, mtx: torch.Tensor, resolution,
            capacity: Optional[Union[int, str]] = None, crop: Optional[_Crop] = None,
-           cull: bool = False, max_tris: int = MAX_TRIS_PER_TILE) -> _Table:
+           cull: bool = False, max_tris: int = MAX_TRIS_PER_TILE,
+           bins: Optional[Bins] = None) -> _Table:
     """The packed table at poses ``mtx`` (B, 4, 4), differentiable in mtx,
     in the layout ``capacity`` selects (see :func:`_binned`)."""
-    bn = _binned(mesh, mtx, resolution, capacity, crop, cull, max_tris)
+    bn = _binned(mesh, mtx, resolution, capacity, crop, cull, max_tris, bins)
     packed = _pack_dispatch(mesh, bn.mvp, mtx, bn.flat, bn.sil)
     return _Table(packed, bn.counts, bn.off_c, bn.used, bn.telemetry)
 
@@ -400,13 +423,17 @@ def _planar_pack(mesh: _Mesh, mtx: torch.Tensor):
 
 
 def _planar(mesh: _Mesh, mtx: torch.Tensor, resolution, route: str, cull: bool = False,
-            max_tris: int = MAX_TRIS_PER_TILE) -> _Planar:
+            max_tris: int = MAX_TRIS_PER_TILE, bins: Optional[Bins] = None) -> _Planar:
     """The planar route's inputs at poses ``mtx``: on 'v2' the bins of
     ``planar.bin_triangles_planar`` (``cull`` reaches only them) and
     ``gather_rows.invert_bins`` of width ``MAX_OCC`` (the most tiles a
     triangle occurs in at these bins), with '_bin_overflow',
-    '_bin_max' and '_bin_occupancy' (that most)."""
+    '_bin_max' and '_bin_occupancy' (that most).  Precomputed ``bins``
+    take the 'v2' raster on either route, no telemetry (the reference's
+    ``bins=``, ``pipeline.py:278-286, 740-750``)."""
     packed, cp, det = _planar_pack(mesh, mtx)
+    if bins is not None:
+        return _Planar(packed, bins.idx, bins.counts, bins.inv_pos, bins.inv_valid, {})
     if route == "v3":
         return _Planar(packed, None, None, None, None, {})
     idx, counts, overflow = bin_triangles_planar(cp, det.detach(), resolution, TILE_HW,
@@ -451,6 +478,7 @@ def make_fused_loss(
     device="cuda",
     uv=None,
     uv_idx=None,
+    bins: Optional[Bins] = None,
 ):
     """Build ``fn(mtx) -> (total_loss, logs)``.
 
@@ -480,6 +508,11 @@ def make_fused_loss(
     on the planar routes the table is ``planar.pack_planar``'s, the frame
     is full and ``compact_total`` is not read; 'v3' logs no binning
     telemetry, 'v2' '_bin_overflow', '_bin_max' and '_bin_occupancy'.
+
+    ``bins`` (:func:`precompute_bins`) replaces each step's binning (the
+    reference's ``bins=``, :628, :749): the compact or uniform table,
+    crop included, is laid out from them (see :func:`_binned`), and on
+    the planar routes the 'v2' raster runs over them.
     """
     if gt is None:
         raise NotImplementedError(
@@ -525,14 +558,15 @@ def make_fused_loss(
 
     def binned(mtx: torch.Tensor) -> _Binned:
         return _binned(mesh, mtx, resolution, compact_total, crop,
-                       cull_backfaces, max_tris_per_tile)
+                       cull_backfaces, max_tris_per_tile, bins)
 
     def table(mtx: torch.Tensor) -> _Table:
         return _table(mesh, mtx, resolution, compact_total, crop,
-                      cull_backfaces, max_tris_per_tile)
+                      cull_backfaces, max_tris_per_tile, bins)
 
     def planar(mtx: torch.Tensor) -> _Planar:
-        return _planar(mesh, mtx, resolution, route, cull_backfaces, max_tris_per_tile)
+        return _planar(mesh, mtx, resolution, route, cull_backfaces, max_tris_per_tile,
+                       bins)
 
     def dplane(mtx: torch.Tensor) -> Optional[torch.Tensor]:
         """gt depth + t_z per hypothesis (B, hc, wc), differentiable in t_z."""
@@ -667,6 +701,45 @@ def max_tile_count(proj_cam, pos, pos_idx, mtx, resolution, device="cuda") -> in
     return int(counts.max())
 
 
+@torch.no_grad()
+def precompute_bins(proj_cam, mtx0, pos, pos_idx, resolution,
+                    max_tris_per_tile: Union[int, str] = "auto", margin_px: float = 24.0,
+                    device="cuda") -> Bins:
+    """One binning for a whole refinement (``pipeline.py:861-935``): the
+    mesh binned at the initial poses ``mtx0`` (B, 4, 4), union over the
+    batch, on the port's ``TILE_HW`` tiles, each triangle's pixel bounds
+    widened by ``margin_px`` to cover the poses' drift, with the inverted
+    map sized to the most tiles a triangle occurs in ('auto').
+
+    A bin need only hold every triangle that can cover one of its tile's
+    pixels: the rasters test each (pixel, slot) pair by the slot's own f32
+    planes, and K3/K7 skip a slot outside the pixel box those planes give
+    (F5), so the slots a margin adds never win a pixel
+    (``tests/test_torch_refine_options.py`` holds the ids equal in both
+    packages).  ``max_tris_per_tile`` 'auto' sizes K to the fullest bin
+    (rounded up to 128); a given K that drops a (tile, triangle) pair
+    raises, as the reference's does.  No back face is culled, as the
+    reference's ``DiffDope`` bins none: a face that is back-facing at the
+    init may face the camera later."""
+    device = torch.device(device)
+    mesh = _Mesh(proj_cam, pos, pos_idx, None, None, None, device)
+    mtx0 = tensor(mtx0, device).reshape(-1, 4, 4)
+    cp = corner_planes(mesh.pos_c, matmul44(mesh.proj, mtx0))
+    det = det_planar(cp, mesh.degenerate)
+    k = mesh.t_count if max_tris_per_tile == "auto" else int(max_tris_per_tile)
+    idx, counts, overflow = bin_triangles_planar(cp, det, resolution, TILE_HW, k,
+                                                 margin_px=margin_px)
+    if int(overflow) > 0:
+        raise ValueError(
+            f"bin overflow: {int(overflow)} (tile, triangle) pairs dropped at "
+            f"max_tris_per_tile={k} (max tile count {int(counts.max())}); raise "
+            "max_tris_per_tile")
+    if max_tris_per_tile == "auto":
+        idx = idx[:, : max(128, -(-int(counts.max()) // 128) * 128)].contiguous()
+    inv_pos, inv_valid = invert_bins(idx, mesh.t_count, "auto")
+    return Bins(idx, counts.contiguous(), inv_pos, inv_valid)
+
+
 def _shade_and_aa(rows, ids, tz, resolution, n_ch: int, antialias_rgb: bool = False,
                   with_rast: bool = False, shd=None, tex=None):
     """The plain shade and antialiasing of ``render_batch`` (reference
@@ -731,7 +804,8 @@ def _render(mesh: _Mesh, mtx: torch.Tensor, resolution,
             capacity: Optional[Union[int, str]], layout: str = "stacked",
             cull: bool = False, max_tris: int = MAX_TRIS_PER_TILE,
             impl: str = "pallas", return_rast_out: bool = False,
-            antialias_rgb: bool = False, route: Optional[str] = None) -> Dict[str, object]:
+            antialias_rgb: bool = False, route: Optional[str] = None,
+            bins: Optional[Bins] = None) -> Dict[str, object]:
     """:func:`render_batch` on a prepared mesh.  ``impl`` 'pallas': K1 ->
     K3 (compact table) or K7 (``capacity`` None: the uniform table), then
     the plain shade and antialiasing; backward K4 or K7 -> K2; or, with a
@@ -739,6 +813,8 @@ def _render(mesh: _Mesh, mtx: torch.Tensor, resolution,
     K10 ('v3') or K7 over its gathered bins ('v2'), ``capacity`` unread.
     'reference': the brute-force branch (:func:`_reference_ids_rows`),
     plain torch throughout; it bins nothing and carries no telemetry.
+    Precomputed ``bins`` replace the kernel branch's binning (as in
+    :func:`make_fused_loss`).
 
     On the kernel branch the shading is recomputed in the backward
     (``checkpoint``), as the reference does (:339-348): its autograd
@@ -760,11 +836,11 @@ def _render(mesh: _Mesh, mtx: torch.Tensor, resolution,
         tel = {}
     else:
         if route is None:
-            tab = _table(mesh, mtx, resolution, capacity, None, cull, max_tris)
+            tab = _table(mesh, mtx, resolution, capacity, None, cull, max_tris, bins)
             ids, rows = _raster(tab, _padded(resolution), (0, 0, h, w))
-            keys = ("_bin_overflow", "_bin_need")
+            keys = tuple(k for k in ("_bin_overflow", "_bin_need") if k in tab.telemetry)
         else:
-            tab = _planar(mesh, mtx, resolution, route, cull, max_tris)
+            tab = _planar(mesh, mtx, resolution, route, cull, max_tris, bins)
             ids, rows = _raster_planar(tab, resolution)
             keys = ("_bin_overflow", "_bin_occupancy") if tab.telemetry else ()
         ids, rows = ids[:, :h, :w], rows[:, :, :h, :w]
@@ -806,6 +882,7 @@ def render_batch(
     tex=None,
     uv=None,
     uv_idx=None,
+    bins: Optional[Bins] = None,
 ) -> Dict[str, object]:
     """Render a mesh under B pose hypotheses ``mtx`` (B, 4, 4),
     differentiably in mtx and in the colours (``vtx_color``,
@@ -835,14 +912,17 @@ def render_batch(
     '_bin_overflow', the (tile, triangle) pairs dropped by the
     capacities, and '_bin_need', the slots a compact table holding every
     pair would need ('v2': '_bin_overflow' and '_bin_occupancy'; 'v3'
-    bins nothing and carries neither)."""
+    bins nothing and carries neither).  ``bins`` (:func:`precompute_bins`)
+    replaces the kernel branch's per-call binning (the reference's
+    ``bins=``, ``pipeline.py:228, 285``); the uniform table then logs no
+    '_bin_overflow', the compact table its own drops only."""
     compact_total = _check_capacity(compact_total)
     mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors,
                  torch.device(device), tex, uv, uv_idx)
     return _render(mesh, tensor(mtx, device).reshape(-1, 4, 4), tuple(resolution),
                    compact_total, layout, cull_backfaces, max_tris_per_tile,
                    _impl(raster_impl, mesh.t_count), return_rast_out, antialias_rgb,
-                   raster_route())
+                   raster_route(), bins)
 
 
 @torch.no_grad()

@@ -300,9 +300,11 @@ def bin_triangles_planar(
     tile_hw: Tuple[int, int],
     max_tris_per_tile: int,
     cull_backfaces: bool = False,
+    margin_px: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Conservative tile binning, union over the batch, y-sorted slots
-    (``planar.py:394-546``, its fused-rank ordering).
+    (``planar.py:394-546``, its fused-rank ordering).  ``margin_px`` widens
+    every triangle's pixel bounds (``pipeline.precompute_bins``).
 
     ``cull_backfaces`` drops triangles that are back-facing (det <= 0) in
     every hypothesis, unless a corner is behind the camera (then the sign
@@ -331,6 +333,8 @@ def bin_triangles_planar(
 
     px_min, px_max = minmax3(px)
     py_min, py_max = minmax3(py)
+    px_min, px_max = px_min - margin_px, px_max + margin_px
+    py_min, py_max = py_min - margin_px, py_max + margin_px
     behind = (
         _corner(behind_c, 0) | _corner(behind_c, 1) | _corner(behind_c, 2)
     ).any(dim=0)

@@ -2,13 +2,17 @@
 
 Counterpart of ``diffdope_tpu/testing.py``: the same procedural icosphere
 (copied, not imported — importing the JAX package pulls in jax), the
-bench protocol's scene as plain numpy arrays, and the textured stand-in
-builder.
+bench protocol's scene as plain numpy arrays, textured stand-ins from
+arrays, and minimal PNG, STL and glTF writers (:func:`write_png`,
+:func:`write_stl`, :func:`write_gltf`) for tests and smoke runs that must
+write such files where no cv2 is installed.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import struct
+import zlib
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 
@@ -151,3 +155,178 @@ def sliver_rows(batch: int = 2, width: int = 32) -> np.ndarray:
     rows[1::2, :9] *= -1.0
     rows[1::2, 12] *= -1.0
     return rows
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _filter_rows(rows: np.ndarray, bpp: int, kinds) -> bytes:
+    """Scanlines (h, stride) uint8 filtered with filter type ``kinds[y]``
+    each, every line after its filter byte."""
+    cur = rows.astype(np.int32)
+    left = np.zeros_like(cur)
+    left[:, bpp:] = cur[:, :-bpp]
+    up = np.zeros_like(cur)
+    up[1:] = cur[:-1]
+    upleft = np.zeros_like(cur)
+    upleft[1:, bpp:] = cur[:-1, :-bpp]
+    preds = (np.zeros_like(cur), left, up, (left + up) >> 1, _paeth(left, up, upleft))
+    out = bytearray()
+    for y, k in enumerate(kinds):
+        out.append(k)
+        out += ((cur[y] - preds[k][y]) & 255).astype(np.uint8).tobytes()
+    return bytes(out)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode_png(samples: np.ndarray, color_type: int, bit_depth: int,
+               filters: Union[str, int] = "none", interlace: bool = False,
+               palette: Optional[np.ndarray] = None, trns: Optional[bytes] = None,
+               level: int = 6, idat_size: int = 1 << 16) -> bytes:
+    """PNG bytes of ``samples`` (H, W, C) as stored (palette indices for
+    colour type 3, values below 8 bits unscaled): each scanline filtered
+    with ``filters`` (a type 0-4, "none", or "cycle": row y of each pass
+    takes type y % 5, so a decode runs all five), Adam7 with
+    ``interlace``, the stream split into IDAT chunks of ``idat_size``."""
+    samples = np.asarray(samples)
+    h, w, ch = samples.shape
+    passes = (((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+               (1, 0, 2, 2), (0, 1, 1, 2)) if interlace else ((0, 0, 1, 1),))
+    raw = b""
+    for x0, y0, dx, dy in passes:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        ph, pw = sub.shape[:2]
+        if bit_depth == 16:
+            rows = sub.astype(">u2").view(np.uint8).reshape(ph, pw * ch * 2)
+        elif bit_depth == 8:
+            rows = sub.astype(np.uint8).reshape(ph, pw * ch)
+        else:
+            vals = sub.reshape(ph, pw * ch).astype(np.uint8)
+            bits = (vals[..., None] >> np.arange(bit_depth - 1, -1, -1)) & 1
+            rows = np.packbits(bits.reshape(ph, -1).astype(np.uint8), axis=1)
+        bpp = max(1, ch * bit_depth // 8)
+        kinds = ([y % 5 for y in range(ph)] if filters == "cycle"
+                 else [0 if filters == "none" else int(filters)] * ph)
+        raw += _filter_rows(rows, bpp, kinds)
+    stream = zlib.compress(raw, level)
+    out = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, bit_depth, color_type, 0, 0, int(interlace)))
+    if palette is not None:
+        out += _chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        out += _chunk(b"tRNS", trns)
+    for at in range(0, len(stream), idat_size):
+        out += _chunk(b"IDAT", stream[at:at + idat_size])
+    return out + _chunk(b"IEND", b"")
+
+
+def write_png(path, array: np.ndarray, filters: Union[str, int] = "none") -> None:
+    """Write an 8-bit (uint8) or 16-bit (uint16) grey (H, W), RGB (H, W, 3)
+    or RGBA (H, W, 4) image as a PNG (channels in RGB order, as the file
+    stores them; ``cv2.imwrite`` takes BGR), rows filtered as
+    :func:`encode_png`'s ``filters`` says."""
+    with open(path, "wb") as f:
+        f.write(png_bytes(array, filters))
+
+
+def write_stl(path, vertices: np.ndarray, faces: np.ndarray, binary: bool = True) -> None:
+    """Write a triangle mesh as an STL file (binary, or ascii ``solid``),
+    each facet's normal from its corners."""
+    tri = np.asarray(vertices, np.float32)[np.asarray(faces)]  # (T, 3, 3)
+    nrm = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    nrm = (nrm / np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-20))
+    if binary:
+        rec = np.zeros(len(tri), np.dtype([("n", "<f4", 3), ("v", "<f4", (3, 3)),
+                                           ("attr", "<u2")]))
+        rec["n"], rec["v"] = nrm, tri
+        with open(path, "wb") as f:
+            f.write(b"solid binary stl".ljust(80, b" ")
+                    + struct.pack("<I", len(tri)) + rec.tobytes())
+        return
+    lines = ["solid mesh"]
+    for n, t in zip(nrm, tri):
+        lines.append("facet normal {:.9g} {:.9g} {:.9g}".format(*n))
+        lines.append("  outer loop")
+        lines += ["    vertex {:.9g} {:.9g} {:.9g}".format(*v) for v in t]
+        lines += ["  endloop", "endfacet"]
+    lines.append("endsolid mesh")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_gltf(path, vertices: np.ndarray, faces: np.ndarray, uv=None, normals=None,
+               image: Optional[bytes] = None, node: Optional[dict] = None) -> None:
+    """Write a one-primitive glTF 2.0 mesh: a ``.glb`` (the buffer and the
+    ``image`` bytes, e.g. a PNG, in its BIN chunk) or a ``.gltf`` (the
+    buffer and the image as ``data:`` URIs).  ``uv`` is TEXCOORD_0 (v down,
+    glTF's convention); ``node`` (e.g. translation / rotation / scale)
+    places the mesh."""
+    import base64
+    import json
+
+    arrays = [("POSITION", np.asarray(vertices, "<f4"), "VEC3", 5126)]
+    if normals is not None:
+        arrays.append(("NORMAL", np.asarray(normals, "<f4"), "VEC3", 5126))
+    if uv is not None:
+        arrays.append(("TEXCOORD_0", np.asarray(uv, "<f4"), "VEC2", 5126))
+    blob, views, accessors, attrs = b"", [], [], {}
+    for name, arr, kind, ctype in arrays + [
+            ("indices", np.asarray(faces, "<u4").reshape(-1, 1), "SCALAR", 5125)]:
+        data = arr.tobytes()
+        views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": len(data)})
+        acc = {"bufferView": len(views) - 1, "componentType": ctype,
+               "count": len(arr), "type": kind}
+        if name == "POSITION":
+            acc.update(min=arr.min(0).tolist(), max=arr.max(0).tolist())
+        accessors.append(acc)
+        blob += data + b"\0" * (-len(data) % 4)
+        if name != "indices":
+            attrs[name] = len(accessors) - 1
+    prim = {"attributes": attrs, "indices": len(accessors) - 1, "mode": 4}
+    gltf = {"asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": [0]}],
+            "nodes": [dict(node or {}, mesh=0)], "meshes": [{"primitives": [prim]}],
+            "accessors": accessors, "bufferViews": views}
+    glb = str(path).lower().endswith(".glb")
+    if image is not None:
+        prim["material"] = 0
+        gltf.update(materials=[{"pbrMetallicRoughness": {
+            "baseColorTexture": {"index": 0}}}], textures=[{"source": 0}])
+        if glb:
+            views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": len(image)})
+            gltf["images"] = [{"bufferView": len(views) - 1, "mimeType": "image/png"}]
+            blob += image + b"\0" * (-len(image) % 4)
+        else:
+            gltf["images"] = [{"uri": "data:image/png;base64,"
+                               + base64.b64encode(image).decode()}]
+    if not glb:
+        gltf["buffers"] = [{"byteLength": len(blob), "uri":
+                            "data:application/octet-stream;base64,"
+                            + base64.b64encode(blob).decode()}]
+        with open(path, "w") as f:
+            json.dump(gltf, f)
+        return
+    gltf["buffers"] = [{"byteLength": len(blob)}]
+    head = json.dumps(gltf).encode()
+    head += b" " * (-len(head) % 4)
+    body = (struct.pack("<II", len(head), 0x4E4F534A) + head
+            + struct.pack("<II", len(blob), 0x004E4942) + blob)
+    with open(path, "wb") as f:
+        f.write(b"glTF" + struct.pack("<II", 2, 12 + len(body)) + body)
+
+
+def png_bytes(array: np.ndarray, filters: Union[str, int] = "none") -> bytes:
+    """:func:`write_png`'s bytes, without a file."""
+    array = np.asarray(array)
+    if array.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"a PNG holds uint8 or uint16, not {array.dtype}")
+    samples = array[..., None] if array.ndim == 2 else array
+    return encode_png(samples, {1: 0, 3: 2, 4: 6}[samples.shape[-1]], 8 * array.itemsize,
+                      filters)

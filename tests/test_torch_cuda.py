@@ -935,3 +935,116 @@ def test_api_path_gradient_repeats_and_equals_the_brute_force_on_card(problem, p
     assert float(out["k8"][1].abs().max()) > 0 and float(out["k8"][2].abs().max()) > 0
     for run in ("again", "brute"):
         assert all(torch.equal(a, c) for a, c in zip(out["k8"], out[run])), run
+
+
+def _files_scene(root):
+    """rgb / depth / seg PNGs of the test scene's sphere at 96x128 (the
+    port's gt render, written with ``testing.write_png``), a PLY of it, and
+    the configuration that reads them at image_resize 0.5."""
+    import copy
+
+    from diffdope_tpu_torch.camera import Camera
+    from diffdope_tpu_torch.mesh import mesh_from_arrays
+    from diffdope_tpu_torch.optimize import pose_params
+    from diffdope_tpu_torch.render.pipeline import render_rgb_mask
+    from diffdope_tpu_torch.testing import icosphere, write_png
+
+    v, f = icosphere(2)
+    ply = root / "sphere.ply"
+    with open(ply, "w") as fh:
+        fh.write(f"ply\nformat ascii 1.0\nelement vertex {len(v)}\nproperty float x\n"
+                 "property float y\nproperty float z\nproperty uchar red\n"
+                 "property uchar green\nproperty uchar blue\n"
+                 f"element face {len(f)}\nproperty list uchar int vertex_indices\n"
+                 "end_header\n")
+        for p, c in zip(v * 0.4, np.round((v * 0.5 + 0.5) * 255).astype(int)):
+            fh.write(f"{p[0]:.6f} {p[1]:.6f} {p[2]:.6f} {c[0]} {c[1]} {c[2]}\n")
+        for t in f:
+            fh.write(f"3 {t[0]} {t[1]} {t[2]}\n")
+    cam = dict(fx=120.0, fy=120.0, cx=64.0, cy=48.0, im_width=128, im_height=96)
+    mesh = mesh_from_arrays(v * 0.4, f, colors=v * 0.5 + 0.5)
+    mtx = pose_matrix(pose_params([0, 0, 0, 1.0], [0.05, 0.0, -3.0], 1, "cpu"))[0]
+    gt = render_rgb_mask(Camera(**cam).cam_proj, mtx, mesh.pos, mesh.pos_idx, (96, 128),
+                         edge_adj=mesh.edge_adj, vtx_color=mesh.vtx_color, device="cpu")
+    paths = {k: root / f"{k}.png" for k in ("rgb", "depth", "seg")}
+    write_png(paths["rgb"], np.round(gt["rgb"][0].numpy()[::-1] * 255).astype(np.uint8))
+    write_png(paths["depth"], np.round(gt["depth"][0].numpy()[::-1] * 100).astype(np.uint16))
+    write_png(paths["seg"], np.round(gt["mask"][0, ..., 0].numpy()[::-1] * 255)
+              .astype(np.uint8), filters="cycle")
+    return copy.deepcopy({
+        "camera": cam,
+        "scene": {"path_img": str(paths["rgb"]), "path_depth": str(paths["depth"]),
+                  "path_segmentation": str(paths["seg"]), "image_resize": 0.5},
+        "object3d": {"position": [0.013, -0.021, 3.0], "rotation": [0.01, -0.02, 0.015, 1.0],
+                     "model_path": str(ply)},
+        "losses": {"l1_mask": True, "weight_mask": 1.0, "l1_rgb_with_mask": True,
+                   "weight_rgb": 0.7, "l1_depth_with_mask": True, "weight_depth": 1.0},
+        "hyperparameters": {"batchsize": 3, "nb_iterations": 3, "base_lr": 20.0,
+                            "lr_decay": 0.1, "learning_rates_bound": [0.5, 2.0]},
+        "tpu": {"seed": 1, "raster_impl": "pallas", "progress": False},
+    })
+
+
+@pytest.mark.parametrize("options", [{}, {"restarts": 1, "init_jitter_deg": 5.0,
+                                          "init_jitter_trans": 0.005,
+                                          "precompute_bins": True}])
+def test_diffdope_from_files_on_card_matches_cpu(cuda, tmp_path, options):
+    """DiffDope(cfg) from PNG files and a PLY, on the card against the same
+    on the CPU: the gt arrays equal, step-0 logs at rtol 1e-5 (with
+    restarts, init jitter and precomputed bins too: the same draws on both
+    devices, the same number of steps, every pair of the final poses
+    inside the bins)."""
+    from diffdope_tpu_torch.config import ConfigNode
+    from diffdope_tpu_torch.diffdope import DiffDope
+
+    cfg = _files_scene(tmp_path)
+    cfg["tpu"].update(options)
+    runs = {}
+    for device in ("cpu", cuda):
+        dd = DiffDope(cfg=ConfigNode(cfg), device=device)
+        with drows_env(False):
+            kernels.reset_launches()
+            dd.run_optimization()
+        runs[str(device)] = dd, dict(kernels.launches)
+    (cpu, _), (card, launches) = runs["cpu"], runs[str(cuda)]
+    for key, value in cpu.gt_tensors.items():
+        np.testing.assert_array_equal(card.gt_tensors[key], value, err_msg=key)
+    assert card.mtx_history.shape == cpu.mtx_history.shape == (4, 3, 4, 4)
+    np.testing.assert_array_equal(card.mtx_history[0], cpu.mtx_history[0])
+    for key, value in cpu.losses_values.items():
+        np.testing.assert_allclose(card.losses_values[key][0], value[0], rtol=1e-5,
+                                   err_msg=key)
+    assert launches["pack_fwd"] > 0 and launches["loss_fwd_depth"] > 0
+    if options:
+        assert card._bins_escaped == 0
+
+
+def test_glb_mesh_renders_on_card_as_on_cpu(cuda, tmp_path):
+    """A .glb with its texture embedded as PNG loads and renders (the exact
+    texture route) on the card as on the CPU."""
+    from diffdope_tpu_torch.mesh import load_mesh, load_ply
+    from diffdope_tpu_torch.render.pipeline import render_batch
+    from diffdope_tpu_torch.testing import png_bytes, write_gltf
+
+    data = load_ply("data/standins/standin_tex_checker.ply")
+    rng = np.random.default_rng(0)
+    tex = rng.integers(0, 256, (64, 64, 3)).astype(np.uint8)
+    path = tmp_path / "m.glb"
+    uv = np.stack([data["uv"][:, 0], 1.0 - data["uv"][:, 1]], -1)
+    write_gltf(path, data["vertices"], data["faces"], uv=uv, image=png_bytes(tex, "cycle"))
+    mesh = load_mesh(path, scale=0.01)
+    assert mesh.has_textured_map
+    np.testing.assert_array_equal(mesh.tex, tex.astype(np.float32) / 255.0)
+    from diffdope_tpu_torch.camera import Camera
+    from diffdope_tpu_torch.optimize import pose_params
+
+    cam = Camera(fx=120.0, fy=120.0, cx=48.0, cy=32.0, im_width=96, im_height=64)
+    mtx = pose_matrix(pose_params([0.1, 0.2, 0.0, 1.0], [0.0, 0.0, -3.0], 2, "cpu"))[0]
+    out = {}
+    for device in ("cpu", cuda):
+        r = render_batch(cam.cam_proj, mtx.to(device), mesh.pos, mesh.pos_idx, (64, 96),
+                         tex=mesh.tex, uv=mesh.uv, uv_idx=mesh.uv_idx, layout="channels",
+                         edge_adj=mesh.edge_adj, raster_impl="pallas", device=device)
+        out[str(device)] = {k: r[k] for k in ("ids", "mask")}
+    np.testing.assert_array_equal(out[str(cuda)]["ids"].cpu().numpy(), out["cpu"]["ids"].numpy())
+    assert int((out["cpu"]["ids"] > 0).sum()) > 100
