@@ -153,7 +153,27 @@ result line):
    at the unjittered init, the chosen (step, hypothesis) below its start,
    ``get_pose()`` closer to the gt pose, K1-K6 held on its tables; (d) the
    stand-in as binary and ascii STL and as a .glb with its texture
-   embedded as PNG, each load held to the PLY's.
+   embedded as PNG, each load held to the PLY's;
+17. the BOP evaluation path: (a) the synthesized sweep through
+   ``examples.run_bop_sweep.main`` at the JAX package's own defaults
+   (``SWEEP_ARGS``: 160x160, B=16, 40 Adam steps, rgb + mask, all three
+   levels) on a ``hope/val/000001`` tree of perturbation JSONs written
+   here (one frame, three objects at seeded rotations), the stand-in mesh:
+   one fused loss with its ground truth fed per call, its compact table
+   sized from the 16 probe poses; each level's table, capacity, slots
+   needed, ``_bin_overflow`` and re-runs printed, then every object's ADD
+   before and after; K1-K6 (the bf16 lane of K6/K4) launched and nothing
+   else; every final loss finite, no level's acc@0.1d below its init's,
+   K1-K6 held on the last context's full-frame tables at the last poses
+   with the last ground truth bound; (b) the real-BOP branch through
+   ``examples.run_bop_scene.main`` at the default configuration
+   (configs/diffdope.yaml: B=8, 60 SGD steps, mask L1, image_resize 0.5)
+   on a 1920x1080 BOP scene written here (``write_bop_scene``: the two
+   stand-ins as models by ``save_ply``, rgb / 16-bit depth / mask_visib
+   PNGs, cam_K with a depth_scale, scene_gt.json, an error JSON 10 degrees
+   and 40 mm off each pose): each object's ADD before and after, its
+   diameter and kept hypothesis, the wall time; every object's ADD must
+   fall.
 
 K5/K6's colour lane (with and without the depth plane) and K1/K2 at the uv
 table's two channels are held to their plain versions at the test scene
@@ -260,6 +280,22 @@ DEFAULT_DEPTH_SCALE = 100.0
 #: about ``axis``; the default SGD configuration recovers it (the phase
 #: prints the ADD before and after)
 INIT_OFFSET = {"translation_mm": [5.0, -5.0, 0.0], "degrees": 4.0, "axis": [0.0, 1.0, 0.0]}
+#: phase 17 (a): the synthesized BOP sweep at the JAX package's defaults
+#: (``bop.py:70-94``: 160x160, B=16, 40 Adam steps at base lr 0.02, loss
+#: scales in [0.5, 4], weights rgb 0.7 / depth 0 / mask 1, obj_scale 0.01,
+#: best_step, all three levels), the stand-in in place of AlphabetSoup
+SWEEP_ARGS = ("--resolution", "160x160", "--batchsize", "16", "--iterations", "40")
+SWEEP_MESH = "data/standins/standin_asym.ply"
+#: phase 17 (b): the BOP scene's two models (stand-ins, millimetres), their
+#: true poses in the OpenCV frame (mm, the first the default configuration's
+#: object pose) and the perturbation of each init (degrees, mm)
+BOP_MODELS = ("data/standins/standin_asym.ply", "data/standins/standin_sym.ply")
+BOP_T_MM = ([-161.16877980209404, 206.22094040904116, 747.151333695172],
+            [150.0, -120.0, 820.0])
+BOP_PERTURB = (10.0, 40.0)
+#: scene_camera.json's depth_scale (YCB-V's: the depth PNG in 0.1 mm)
+BOP_DEPTH_SCALE = 0.1
+
 
 
 def fail(msg: str) -> None:
@@ -1377,8 +1413,13 @@ class BinningInRefine:
         pipeline.bin_triangles_planar, optimize.refine = self._saved
 
 
-class LiveLines:
-    """Collects the "step i/N loss x" records ``tpu.live_loss: step`` logs."""
+class LogLines:
+    """Collects the records of ``DiffDope``'s logger whose message starts
+    with ``prefix`` (default: the "step i/N loss x" lines of
+    ``tpu.live_loss: step``) or, with ``contains``, holds it."""
+
+    def __init__(self, prefix: str = "step ", contains=None):
+        self.prefix, self.contains = prefix, contains
 
     def __enter__(self):
         import logging
@@ -1389,7 +1430,8 @@ class LiveLines:
         class Handler(logging.Handler):
             def emit(self, record):
                 msg = record.getMessage()
-                if msg.startswith("step "):
+                if (msg.startswith(outer.prefix) if outer.contains is None
+                        else outer.contains in msg):
                     outer.lines.append(msg)
 
         self._logger = logging.getLogger("diffdope_tpu_torch.diffdope")
@@ -1619,7 +1661,7 @@ def files_phase(gpu: str):
 
         # (c) restarts, init jitter, precomputed bins, the live loss, rgb + depth
         dd, points, _ = files_session(paths, ply, tpu=FILES_OPTIONS, losses=FILES_LOSSES)
-        with BinningInRefine() as binning, LiveLines() as live:
+        with BinningInRefine() as binning, LogLines() as live:
             dd, launches_c, add0, add1 = diffdope_phase(True, gpu, "from files, options",
                                                         session=(dd, points, mtx_gt))
         steps = dd.nb_iterations + 1
@@ -1655,6 +1697,296 @@ def files_phase(gpu: str):
         # (d) STL and glb
         other_formats(root, ply)
     return launches_c
+
+
+class RefineRecorder:
+    """Records every ``bop.refine`` call of the synthesized sweep (the
+    contexts bind ``bop.refine`` when they are built): its fused loss, its
+    ground truth and its result, in order."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from diffdope_tpu_torch import bop
+
+        self._bop, self._own = bop, bop.refine
+
+        def recorded(*args, **kwargs):
+            result = self._own(*args, **kwargs)
+            self.calls.append((kwargs["fused_loss_fn"], kwargs["gt"], result))
+            return result
+
+        bop.refine = recorded
+        bop._synth_ctx_cache.clear()
+        bop._synth_escalation.clear()
+        return self
+
+    def __exit__(self, *exc):
+        self._bop.refine = self._own
+
+    def objects(self):
+        """The calls grouped by object (a re-run feeds the same gt), each
+        group's last call the kept run."""
+        groups = []
+        for call in self.calls:
+            if groups and groups[-1][-1][1] is call[1]:
+                groups[-1].append(call)
+            else:
+                groups.append([call])
+        return groups
+
+
+def write_error_tree(root: Path, n_obj: int = 3):
+    """``hope/val/000001/scene_error_<level>.json`` for every level: one frame
+    of ``n_obj`` objects at rotations from a seeded numpy draw, in the
+    reference's schema."""
+    import numpy as np
+
+    from diffdope_tpu_torch.bop import PERTURBATION_LEVELS
+    from diffdope_tpu_torch.geometry import matrix33_from_quat
+
+    import torch
+
+    rng = np.random.default_rng(17)
+    q = rng.normal(size=(n_obj, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    rots = matrix33_from_quat(torch.tensor(q)).numpy()
+    objs = [{"cam_R_m2c": r.reshape(-1).tolist(), "cam_t_m2c": [0.0, 0.0, 700.0],
+             "obj_id": i + 1} for i, r in enumerate(rots)]
+    scene = root / "hope" / "val" / "000001"
+    scene.mkdir(parents=True)
+    for level in PERTURBATION_LEVELS:
+        with open(scene / f"scene_error_{level}.json", "w") as f:
+            json.dump({"0": objs}, f)
+
+
+def bop_sweep_phase(gpu: str):
+    """Phase 17 (a): the synthesized BOP sweep through
+    ``examples.run_bop_sweep.main``; returns its launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch import bop, kernels
+    from diffdope_tpu_torch.examples import run_bop_sweep
+
+    with tempfile.TemporaryDirectory() as tmp, RefineRecorder() as rec:
+        write_error_tree(Path(tmp))
+        argv = ["--data-root", tmp, "--mesh", str(HERE / SWEEP_MESH), "--device", "cuda",
+                *SWEEP_ARGS]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        results = run_bop_sweep.main(argv)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+    groups = rec.objects()
+    levels = list(results)
+    per_level = len(groups) // len(levels)
+    ctxs = list(bop._synth_ctx_cache.values())
+    print(f"phase 17 (a): {len(levels)} levels x {per_level} objects, "
+          f"{len(rec.calls)} refinements ({len(rec.calls) - len(groups)} re-runs), "
+          f"{len(ctxs)} context(s): {sweep_s:.4f} s through run_bop_sweep.main "
+          f"[{gpu}]", flush=True)
+    for i, level in enumerate(levels):
+        kept = [g[-1] for g in groups[i * per_level:(i + 1) * per_level]]
+        reruns = sum(len(g) - 1 for g in groups[i * per_level:(i + 1) * per_level])
+        caps = sorted({next(c["compact_total"] for c in ctxs if c["fused"] is fn)
+                       for fn, _, _ in kept})
+        caps_k = sorted({next(c["max_tris_per_tile"] for c in ctxs if c["fused"] is fn)
+                         for fn, _, _ in kept})
+        worst = max(int(r.telemetry["_bin_overflow"].max()) for _, _, r in kept)
+        need = max(int(r.telemetry["_bin_need"].max()) for _, _, r in kept)
+        r = results[level]
+        print(f"phase 17 (a) {level}: compact capacity {caps} slots, per-tile cap "
+              f"{caps_k}; most slots a step needed {need}; _bin_overflow max {worst}; "
+              f"{reruns} re-run(s); acc@0.1d {r['acc_01d']:.3f} (init "
+              f"{r['acc_01d_init']:.3f}), ADD mean {r['add_mean']:.6f} (init "
+              f"{r['add_init_mean']:.6f})", flush=True)
+        for e in r["per_object"]:
+            print(f"phase 17 (a) {level} object {e['i_obj']}: ADD {e['add_init']:.6f} -> "
+                  f"{e['add']:.6f}, ADD-S {e['adds_init']:.6f} -> {e['adds']:.6f}, "
+                  f"diameter {e['diameter']:.6f}, step {e['best_step']} hypothesis "
+                  f"{e['best_hyp']}, final loss {e['final_loss']:.6f}", flush=True)
+            if not np.isfinite(e["final_loss"]):
+                fail(f"phase 17 (a): {level} object {e['i_obj']}: non-finite final loss")
+        if r["acc_01d"] < r["acc_01d_init"]:
+            fail(f"phase 17 (a): {level}: acc@0.1d {r['acc_01d']} below the init's "
+                 f"{r['acc_01d_init']}")
+    print(f"phase 17 (a) launches: {launches}", flush=True)
+    check_launches("phase 17 (a)", launches, COMPACT_FUSED,
+                   set(launches) - set(COMPACT_FUSED))
+    # K1-K6 on the last context's own full-frame tables at the last poses
+    fn, gt, result = rec.calls[-1]
+    mtx_last = result.mtx_history[-1]
+    d_sums = torch.zeros((mtx_last.shape[0], 3), device="cuda")
+    d_sums[:, :2] = torch.as_tensor(
+        np.random.default_rng(17).uniform(0.5, 2.0, (mtx_last.shape[0], 2)), device="cuda")
+    for row in check_all(fn.bind_gt(gt), mtx_last, d_sums):
+        print(f"phase 17 (a) shapes {row['name']}: ok={row['ok']} "
+              f"max_abs_err={row['max_abs_err']:.3e} ({row['tolerance']}){slots(row)}, "
+              f"bound {row['bound'][0]:.4f} ms ({row['bound'][1]})", flush=True)
+        if not row["ok"]:
+            fail(f"{row['name']} disagrees with its plain version on the sweep's tables: "
+                 f"{row}")
+    return launches
+
+
+def _perturbed(r, t_mm, rng, deg, trans_mm):
+    """(R, t) moved by ``deg`` about a drawn axis and ``trans_mm`` along a
+    drawn direction."""
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch.geometry import matrix33_from_quat, quat_from_axis_angle
+
+    dq = quat_from_axis_angle(rng.normal(size=3), np.deg2rad(deg))
+    r0 = matrix33_from_quat(torch.tensor(dq)).numpy() @ r
+    d = rng.normal(size=3)
+    return r0, np.asarray(t_mm, float) + d / np.linalg.norm(d) * trans_mm
+
+
+def write_bop_scene(root: Path):
+    """Phase 17 (b)'s BOP scene at the default camera's 1920x1080: the
+    two stand-ins (millimetres, vertex-coloured) as models/obj_00000{1,2}.ply
+    by ``save_ply``; rgb, 16-bit depth (depth_scale ``BOP_DEPTH_SCALE``) and
+    mask_visib PNGs of the port's render of both at their true poses
+    (``write_png``); scene_camera.json, scene_gt.json and the error JSON
+    (each pose ``BOP_PERTURB`` off).  Returns the paths and the objects."""
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch.camera import Camera
+    from diffdope_tpu_torch.config import ConfigNode
+    from diffdope_tpu_torch.mesh import load_mesh, load_ply, save_ply
+    from diffdope_tpu_torch.object3d import Object3D
+    from diffdope_tpu_torch.optimize import pose_matrix
+    from diffdope_tpu_torch.render.pipeline import render_rgb_mask
+    from diffdope_tpu_torch.testing import write_png
+
+    cfg = ConfigNode(copy.deepcopy(DEFAULT_CONFIG))
+    cam = Camera(**{k: cfg.camera[k] for k in ("fx", "fy", "cx", "cy", "im_width",
+                                               "im_height")})
+    h, w = cam.im_height, cam.im_width
+    models = root / "models"
+    scene = root / "hope" / "val" / "000001"
+    for sub in ("rgb", "depth", "mask_visib"):
+        (scene / sub).mkdir(parents=True)
+    models.mkdir()
+    rng = np.random.default_rng(170)
+    rots = [np.asarray(cfg.object3d.rotation, float).reshape(3, 3)]
+    q = rng.normal(size=4)
+    from diffdope_tpu_torch.geometry import matrix33_from_quat
+
+    rots.append(matrix33_from_quat(torch.tensor(q / np.linalg.norm(q))).numpy())
+    rgb = np.zeros((h, w, 3), np.float32)
+    depth = np.full((h, w), np.inf, np.float32)
+    masks, gt_objs, init_objs = [], [], []
+    for i, (src, r, t) in enumerate(zip(BOP_MODELS, rots, BOP_T_MM)):
+        data = load_ply(HERE / src)
+        v = data["vertices"]
+        colors = (v - v.min(0)) / (v.max(0) - v.min(0)) * 0.8 + 0.1
+        path = models / f"obj_{i + 1:06d}.ply"
+        save_ply(path, v, data["faces"], colors=colors)
+        mesh = load_mesh(path, scale=0.01)
+        obj = Object3D(position=t, rotation=r.reshape(-1).tolist(), scale=0.01, mesh=mesh,
+                       batchsize=1)
+        mtx = pose_matrix(obj.initial_params(1, "cuda"))[0]
+        with torch.no_grad():
+            out = render_rgb_mask(cam.cam_proj, mtx, mesh.pos, mesh.pos_idx, (h, w),
+                                  edge_adj=mesh.edge_adj, vtx_color=mesh.vtx_color,
+                                  device="cuda", cull_backfaces=True)
+        m = out["mask"][0, ..., 0].cpu().numpy() > 0.5
+        d = out["depth"][0].cpu().numpy()
+        near = m & (d < depth)
+        rgb[near], depth[near] = out["rgb"][0].cpu().numpy()[near], d[near]
+        masks.append(m)
+        gt_objs.append({"cam_R_m2c": r.reshape(-1).tolist(), "cam_t_m2c": list(t),
+                        "obj_id": i + 1})
+        r0, t0 = _perturbed(r, t, rng, *BOP_PERTURB)
+        init_objs.append({"cam_R_m2c": r0.reshape(-1).tolist(), "cam_t_m2c": t0.tolist(),
+                          "obj_id": i + 1})
+    if masks[0].sum() == 0 or masks[1].sum() == 0 or (masks[0] & masks[1]).any():
+        fail("phase 17 (b): the two objects are not both visible and apart")
+    fr = "000000"
+    # the loader flips rows back; depth in mm / depth_scale, 0 off the objects
+    write_png(scene / "rgb" / f"{fr}.png", np.round(rgb[::-1] * 255).astype(np.uint8))
+    depth_png = np.where(np.isfinite(depth), depth / 0.01 / BOP_DEPTH_SCALE, 0.0)
+    write_png(scene / "depth" / f"{fr}.png", np.round(depth_png[::-1]).astype(np.uint16))
+    for i, m in enumerate(masks):
+        write_png(scene / "mask_visib" / f"{fr}_{i:06d}.png",
+                  (m[::-1] * 255).astype(np.uint8))
+    k = [cam.fx, 0.0, cam.cx, 0.0, cam.fy, cam.cy, 0.0, 0.0, 1.0]
+    files = {"scene_camera.json": {"0": {"cam_K": k, "depth_scale": BOP_DEPTH_SCALE}},
+             "scene_gt.json": {"0": gt_objs}, "scene_error.json": {"0": init_objs}}
+    for name, body in files.items():
+        with open(scene / name, "w") as f:
+            json.dump(body, f)
+    print(f"phase 17 (b): wrote a {w}x{h} BOP scene: {len(masks)} objects of "
+          f"{[int(m.sum()) for m in masks]} visible pixels, each init "
+          f"{BOP_PERTURB[0]} degrees and {BOP_PERTURB[1]} mm off", flush=True)
+    return scene, models, gt_objs, init_objs
+
+
+def bop_scene_phase(gpu: str):
+    """Phase 17 (b): the real-BOP branch at the default configuration
+    through ``examples.run_bop_scene.main``; returns its launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch import kernels
+    from diffdope_tpu_torch.examples import run_bop_scene
+    from diffdope_tpu_torch.mesh import load_mesh
+    from diffdope_tpu_torch.metrics import add_metric, subsample_points
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        scene, models, gt_objs, init_objs = write_bop_scene(root)
+        argv = [f"bop.scene_dir={scene}", f"bop.models_dir={models}",
+                f"bop.error_json={scene / 'scene_error.json'}", "bop.frame=0",
+                f"bop.out_dir={root}", f"bop.gt_json={scene / 'scene_gt.json'}",
+                "--device", "cuda"]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with LogLines(contains="re-running") as reruns:
+            results = run_bop_scene.main(argv)
+        torch.cuda.synchronize()
+        scene_s = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        written = json.loads((root / "refined_poses.json").read_text())
+        meshes = [load_mesh(models / f"obj_{o['obj_id']:06d}.ply", scale=0.01)
+                  for o in gt_objs]
+    print(f"phase 17 (b): run_bop_scene.main {scene_s:.4f} s for {len(results)} objects "
+          f"(the PNG reads, two DiffDope runs, their re-runs) [{gpu}]; "
+          f"{len(reruns.lines)} recovery re-run(s): {reruns.lines}", flush=True)
+    if set(written) != set(results):
+        fail("phase 17 (b): refined_poses.json differs from the returned poses")
+    f32 = torch.float32
+    for k, entry in results.items():
+        i = int(k)
+        mesh = meshes[i]
+        pts = subsample_points(mesh.pos[: mesh.num_vertices])
+
+        def rt(o):
+            return (torch.tensor(o["cam_R_m2c"], dtype=f32).reshape(3, 3),
+                    torch.tensor(o["cam_t_m2c"], dtype=f32) * 0.01)
+
+        add0 = float(add_metric(pts, *rt(init_objs[i]), *rt(gt_objs[i])))
+        print(f"phase 17 (b) object {i} (obj_id {entry['obj_id']}): ADD {add0:.6f} -> "
+              f"{entry['add']:.6f} (ADD-S {entry['adds']:.6f}), diameter "
+              f"{entry['diameter']:.6f}, kept hypothesis {entry['argmin']}, final loss "
+              f"{entry['final_loss']:.6f}", flush=True)
+        if not np.isfinite(entry["final_loss"]) or not entry["add"] < add0:
+            fail(f"phase 17 (b): object {i}: ADD {entry['add']} not below the init's {add0}")
+    print(f"phase 17 (b) launches: {launches}", flush=True)
+    check_launches("phase 17 (b)", launches, COMPACT_FUSED, set(launches) - set(COMPACT_FUSED))
+    return launches
 
 
 def main() -> None:
@@ -1934,6 +2266,12 @@ def main() -> None:
 
     # ---- the default configuration from files -------------------------------
     files_phase(gpu)
+    torch.cuda.empty_cache()
+
+    # ---- the BOP evaluation path: the synthesized sweep, a real-format scene -
+    bop_sweep_phase(gpu)
+    torch.cuda.empty_cache()
+    bop_scene_phase(gpu)
 
     # launches on the path that runs each kernel: the bench main path (its
     # bf16 lane of K6/K4), the depth phase on the compact table (K4 with

@@ -842,6 +842,37 @@ def load_mesh(path, scale: float = 1.0, vertex_pad: int = 8, triangle_pad: int =
                             path_model=str(path), flip_v=flip_v)
 
 
+def save_ply(path, vertices: np.ndarray, faces: np.ndarray,
+             colors: Optional[np.ndarray] = None,
+             normals: Optional[np.ndarray] = None) -> None:
+    """Write an ascii PLY: vertices, triangles and optional per-vertex
+    colours in [0, 1] (stored as uchar) and normals, with the reference's
+    header and number format (``mesh.py:970-1000``), byte for byte."""
+    vertices = np.asarray(vertices, np.float32)
+    faces = np.asarray(faces, np.int64)
+    n, t = len(vertices), len(faces)
+    props = ["property float x", "property float y", "property float z"]
+    cols = [vertices]
+    if normals is not None:
+        props += ["property float nx", "property float ny", "property float nz"]
+        cols.append(np.asarray(normals, np.float32))
+    header = ["ply", "format ascii 1.0", f"element vertex {n}", *props]
+    if colors is not None:
+        header += ["property uchar red", "property uchar green", "property uchar blue"]
+    header += [f"element face {t}", "property list uchar int vertex_indices", "end_header"]
+    with open(path, "w") as f:
+        f.write("\n".join(header) + "\n")
+        data = np.concatenate(cols, axis=1)
+        for i in range(n):
+            row = " ".join(f"{x:.6f}" for x in data[i])
+            if colors is not None:
+                c = np.clip(np.asarray(colors[i]) * 255, 0, 255).astype(int)
+                row += f" {c[0]} {c[1]} {c[2]}"
+            f.write(row + "\n")
+        for face in faces:
+            f.write(f"3 {face[0]} {face[1]} {face[2]}\n")
+
+
 def _load_texture(texture_path) -> np.ndarray:
     """A texture image as float32 RGB in [0, 1] (``mesh.py:1030-1037``)."""
     return png.imread_color(texture_path).astype(np.float32) / 255.0

@@ -13,6 +13,7 @@ step count.
 
 from __future__ import annotations
 
+import inspect
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
@@ -220,8 +221,11 @@ def refine(
     which continues from ``opt_state``'s step count).
 
     Each step scores the poses with ``fused_loss_fn(mtx) -> (total, logs)``
-    when given, else with ``render_fn(mtx, **extra)`` and the sum of
-    ``fn(renders, gt, learning_rates, weights)`` over ``loss_fns``.
+    when given (``fused_loss_fn(mtx, gt)`` for a loss that takes its
+    ground truth per call, ``make_fused_loss(gt=None)``: the reference's
+    signature test, ``optimize.py:241-258``), else with
+    ``render_fn(mtx, **extra)`` and the sum of ``fn(renders, gt,
+    learning_rates, weights)`` over ``loss_fns``.
     ``extra_params`` are further optimized leaves (the appearance: 'tex',
     'vtx_color' or 'corner_colors', ``optimize.py:173, 226-269``), passed
     to ``render_fn`` as keyword arguments and updated by the same optimizer
@@ -236,6 +240,8 @@ def refine(
         raise ValueError("refine needs fused_loss_fn or render_fn + loss_fns")
     if fused_loss_fn is not None and extra_params:
         raise ValueError("fused_loss_fn does not support extra_params")
+    fused_takes_gt = (fused_loss_fn is not None
+                      and len(inspect.signature(fused_loss_fn).parameters) >= 2)
     opt = make_optimizer(optimizer, base_lr, lr_decay, nb_iterations)
     params = {k: v.detach() for k, v in params0.items()}
     extra_keys = tuple(extra_params or ())
@@ -248,7 +254,7 @@ def refine(
         leaves = {k: v.requires_grad_(True) for k, v in params.items()}
         mtx, _, _ = pose_matrix(leaves)
         if fused_loss_fn is not None:
-            total, logs = fused_loss_fn(mtx)
+            total, logs = fused_loss_fn(mtx, gt) if fused_takes_gt else fused_loss_fn(mtx)
         else:
             renders = render_fn(mtx, **{k: leaves[k] for k in extra_keys})
             total = mtx.new_zeros(())

@@ -21,6 +21,8 @@ compact table and K7 over the uniform one (:func:`_raster`).
   the uv corners, no ROI crop, the raster and the colour lane of K5/K6
   chained around the plain uv shade and texture sampler
   (``render/texture.py``) on the gt segmentation's crop (``DD_TEX_CROP``).
+  With ``gt=None`` the ground truth comes with each call, ``fn(mtx, gt)``,
+  on the full frame (no crop needs it at build time).
 - :func:`render_batch` (reference :79-380): on its pallas branch K1 -> K3
   or K7 with the plain shade and mask antialiasing, backward K4 or K7 ->
   K2; on its reference branch (``raster_impl`` 'reference', or 'auto' for
@@ -461,7 +463,7 @@ def make_fused_loss(
     pos,
     pos_idx,
     resolution: Tuple[int, int],
-    gt: Dict[str, object],
+    gt: Optional[Dict[str, object]],
     learning_rates,
     weights: Dict[str, float],
     use_rgb: bool = False,
@@ -490,6 +492,15 @@ def make_fused_loss(
     (H, W) for ``use_depth``.  ``compact_total`` None runs the uniform-K
     table on the full frame (no ROI crop), as the reference does.
 
+    ``gt`` None defers the ground truth (reference :425-427, 487-499):
+    the returned function is ``fn(mtx, gt)``, its gt planes laid out from
+    the given dict at every call, so one loss serves many scenes (the BOP
+    sweep).  Both crops need the gt at build time, so a deferred loss has
+    neither, as in the reference (:501-512, 546-553): the full frame, and
+    on the texture route the texture sampled over all of it.
+    ``fn.bind_gt(gt)`` is the deferred loss with one gt bound, carrying
+    the planes the kernel checks read, as a baked loss does.
+
     With ``tex`` (TH, TW, 3) and its ``uv`` (N, 2) / ``uv_idx`` (T, 3) the
     colours are the texture sampled at each pixel's uv (the semi-fused
     exact-texture route, reference :770-822): no ROI crop; the raster, then
@@ -514,13 +525,9 @@ def make_fused_loss(
     crop included, is laid out from them (see :func:`_binned`), and on
     the planar routes the 'v2' raster runs over them.
     """
-    if gt is None:
-        raise NotImplementedError(
-            "deferred (per-call) ground truth is not ported yet: it serves "
-            "the BOP sweep, ROADMAP queue 1, item 4"
-        )
+    deferred = gt is None
     compact_total = _check_capacity(compact_total)
-    if use_depth and gt.get("depth") is None:
+    if not deferred and use_depth and gt.get("depth") is None:
         raise ValueError("the depth loss needs gt['depth']")
     device = torch.device(device)
     mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors, device,
@@ -531,30 +538,38 @@ def make_fused_loss(
 
     h, w = resolution
     hp, wp = _padded(resolution)
-    seg_np = _numpy(gt["segmentation"]).astype(np.float32)
-    planes = np.zeros((7, hp, wp), np.float32)
-    planes[0:3, :h, :w] = np.moveaxis(seg_np[..., :3], -1, 0)
-    if gt.get("rgb") is not None:
-        planes[3:6, :h, :w] = np.moveaxis(_numpy(gt["rgb"]).astype(np.float32), -1, 0)
-    if use_depth:
-        planes[6, :h, :w] = _numpy(gt["depth"]).astype(np.float32)
+    seg_np = None if deferred else _numpy(gt["segmentation"]).astype(np.float32)
 
     route = raster_route()
     drows_bf16 = os.environ.get("DD_DROWS_BF16", "1") == "1"
-    # the reference crops the compact table only, and not in texture mode
+    # the reference crops the compact table only, not in texture mode, and
+    # only around a gt given at build time
     crop_on = (roi_crop != "off" and compact_total is not None and route is None
-               and not texture_mode)
+               and not texture_mode and not deferred)
     window = crop_window(seg_np, resolution) if crop_on else None
     crop = None if window is None else _Crop(window, resolution, device)
     oy, ox, hc, wc = window or (0, 0, hp, wp)
-    planes = torch.as_tensor(
-        np.ascontiguousarray(planes[:, oy : oy + hc, ox : ox + wc]), device=device
-    )
-    gt6, gtd = planes[:6].contiguous(), planes[6] if use_depth else None
     roi = (oy, ox, h, w)
     npx = float(h * w)
     lrs = tensor(learning_rates, device)
     sample = _texture_sampler(mesh, seg_np, (hc, wc), resolution) if texture_mode else None
+
+    def gt_planes(g) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The gt segmentation and rgb as planes (6, hc, wc) over the
+        window, and the depth plane (hc, wc) for ``use_depth`` (reference
+        ``prep_gt``, :487-499), zero past the frame."""
+        if g.get("segmentation") is None:
+            raise ValueError("fused loss requires gt['segmentation']")
+        if use_depth and g.get("depth") is None:
+            raise ValueError("the depth loss needs gt['depth']")
+        planes = torch.zeros((7, hp, wp), dtype=torch.float32, device=device)
+        planes[0:3, :h, :w] = tensor(g["segmentation"], device)[..., :3].permute(2, 0, 1)
+        if g.get("rgb") is not None:
+            planes[3:6, :h, :w] = tensor(g["rgb"], device).permute(2, 0, 1)
+        if use_depth:
+            planes[6, :h, :w] = tensor(g["depth"], device)
+        planes = planes[:, oy : oy + hc, ox : ox + wc]
+        return planes[:6].contiguous(), planes[6].contiguous() if use_depth else None
 
     def binned(mtx: torch.Tensor) -> _Binned:
         return _binned(mesh, mtx, resolution, compact_total, crop,
@@ -568,20 +583,20 @@ def make_fused_loss(
         return _planar(mesh, mtx, resolution, route, cull_backfaces, max_tris_per_tile,
                        bins)
 
-    def dplane(mtx: torch.Tensor) -> Optional[torch.Tensor]:
+    def depth_plane(gtd, mtx: torch.Tensor) -> Optional[torch.Tensor]:
         """gt depth + t_z per hypothesis (B, hc, wc), differentiable in t_z."""
         return None if gtd is None else gtd[None] + mtx[:, 2, 3][:, None, None]
 
-    def sums_of(ids, rows, mtx):
+    def sums_of(ids, rows, mtx, gt6, gtd):
         colors = None if sample is None else sample(rows, ids)
-        return fused_loss_sums(rows, ids, gt6, dplane(mtx), colors, (hc, wc), roi)
+        return fused_loss_sums(rows, ids, gt6, depth_plane(gtd, mtx), colors, (hc, wc), roi)
 
-    def fn(mtx: torch.Tensor):
+    def loss(mtx: torch.Tensor, gt6: torch.Tensor, gtd: Optional[torch.Tensor]):
         if mtx.dim() == 2:
             mtx = mtx[None]
         if route is not None:
             tab = planar(mtx)
-            sums = sums_of(*_raster_planar(tab, resolution), mtx)
+            sums = sums_of(*_raster_planar(tab, resolution), mtx, gt6, gtd)
         else:
             tab = table(mtx)
             if not use_depth and not texture_mode and tab.off_c is not None:
@@ -590,7 +605,7 @@ def make_fused_loss(
                     TILE_HW, roi, drows_bf16,
                 )
             else:
-                sums = sums_of(*_raster(tab, (hc, wc), roi), mtx)
+                sums = sums_of(*_raster(tab, (hc, wc), roi), mtx, gt6, gtd)
         total = sums.new_zeros(())
         logs = {}
         if use_rgb:
@@ -608,24 +623,45 @@ def make_fused_loss(
         logs.update({k: v.detach() for k, v in tab.telemetry.items()})
         return total, logs
 
-    # what the kernel checks need to drive the pack, the raster and the
-    # loss kernels on this loss's own tables (``sample``: the colour
-    # planes of a raster's rows and ids on the texture route, else None)
-    fn.mesh, fn.binned, fn.table, fn.dplane = mesh, binned, table, dplane
-    fn.gt6, fn.frame_hw, fn.roi, fn.crop = gt6, (hc, wc), roi, window
-    fn.route, fn.planar, fn.sample = route, planar, sample
-    # the spanning op's d_rows lane, where this loss takes the op
-    fn.drows_bf16 = drows_bf16 and not use_depth and not texture_mode and route is None \
-        and compact_total is not None
+    def attach(f, gt6, gtd):
+        # what the kernel checks need to drive the pack, the raster and the
+        # loss kernels on this loss's own tables (``sample``: the colour
+        # planes of a raster's rows and ids on the texture route, else None)
+        f.mesh, f.binned, f.table = mesh, binned, table
+        f.gt6, f.dplane = gt6, lambda mtx: depth_plane(gtd, mtx)
+        f.frame_hw, f.roi, f.crop = (hc, wc), roi, window
+        f.route, f.planar, f.sample = route, planar, sample
+        # the spanning op's d_rows lane, where this loss takes the op
+        f.drows_bf16 = drows_bf16 and not use_depth and not texture_mode \
+            and route is None and compact_total is not None
+        return f
+
+    def bind_gt(g):
+        gt6, gtd = gt_planes(g)
+
+        def fn(mtx: torch.Tensor):
+            return loss(mtx, gt6, gtd)
+
+        return attach(fn, gt6, gtd)
+
+    if not deferred:
+        return bind_gt(gt)
+
+    def fn(mtx: torch.Tensor, gt):
+        return loss(mtx, *gt_planes(gt))
+
+    attach(fn, None, None)
+    fn.bind_gt = bind_gt
     return fn
 
 
-def _texture_sampler(mesh: _Mesh, seg: np.ndarray, frame_hw, resolution):
+def _texture_sampler(mesh: _Mesh, seg: Optional[np.ndarray], frame_hw, resolution):
     """``sample(rows, ids) -> colors (B, 3, hc, wc)`` of the semi-fused
     exact-texture route (reference ``pipeline.py:503-532, 770-822``): the
     uv shade of the rows on the crop around the gt segmentation (8-px
     aligned; the whole frame under ``DD_TEX_CROP=0``), bit for bit the
-    frame's pixels there, the texture sampled at that uv, masked to the
+    frame's pixels there (the whole frame for a ``seg`` of None, a gt
+    given per call), the texture sampled at that uv, masked to the
     foreground and padded back to the frame.  The rgb term reads colours
     only where the segmentation is nonzero, so the crop is loss- and
     gradient-exact.  A texture that no gradient reaches and that is 8-bit
@@ -634,7 +670,7 @@ def _texture_sampler(mesh: _Mesh, seg: np.ndarray, frame_hw, resolution):
     hp, wp = frame_hw
     h, w = resolution
     ct, cl, chh, cww = 0, 0, hp, wp
-    bounds = _seg_bounds(seg)
+    bounds = None if seg is None else _seg_bounds(seg)
     if os.environ.get("DD_TEX_CROP", "1") == "1" and bounds is not None:
         r0, r1, c0, c1 = bounds
         ct, cl = r0 // 8 * 8, c0 // 8 * 8
@@ -928,16 +964,17 @@ def render_batch(
 @torch.no_grad()
 def render_rgb_mask(proj_cam, mtx, pos, pos_idx, resolution, edge_adj=None,
                     vtx_color=None, corner_colors=None, device="cuda", tex=None,
-                    uv=None, uv_idx=None) -> Dict[str, torch.Tensor]:
+                    uv=None, uv_idx=None, cull_backfaces: bool = False
+                    ) -> Dict[str, torch.Tensor]:
     """Render (B, H, W, 3) 'rgb' and 'mask' and (B, H, W) 'depth' at poses
     ``mtx`` (B, 4, 4) over a compact table sized to the bins exactly, or on
     the planar route the environment selects (the gt render):
     ``render_batch``'s stacked semantics and colours, the mask
-    antialiased, the rgb not."""
+    antialiased, the rgb not; ``cull_backfaces`` as ``render_batch``'s."""
     mesh = _Mesh(proj_cam, pos, pos_idx, edge_adj, vtx_color, corner_colors,
                  torch.device(device), tex, uv, uv_idx)
     out = _render(mesh, tensor(mtx, device).reshape(-1, 4, 4), tuple(resolution),
-                  EXACT, route=raster_route())
+                  EXACT, cull=cull_backfaces, route=raster_route())
     dropped = int(out.get("_bin_overflow", 0))  # the 'v3' route bins nothing
     if dropped:
         raise RuntimeError(f"gt render dropped {dropped} (tile, triangle) pairs: "

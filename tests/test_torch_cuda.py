@@ -1048,3 +1048,68 @@ def test_glb_mesh_renders_on_card_as_on_cpu(cuda, tmp_path):
         out[str(device)] = {k: r[k] for k in ("ids", "mask")}
     np.testing.assert_array_equal(out[str(cuda)]["ids"].cpu().numpy(), out["cpu"]["ids"].numpy())
     assert int((out["cpu"]["ids"] > 0).sum()) > 100
+
+
+def _fused_value_and_grad(fn, params, *gt):
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    total, logs = fn(pose_matrix(p)[0], *gt)
+    grads = torch.autograd.grad(total, list(p.values()))
+    return total.detach(), {k: v.detach() for k, v in logs.items()}, dict(zip(p, grads))
+
+
+@pytest.mark.parametrize("depth", [False, True], ids=["rgb_mask", "depth"])
+def test_per_call_gt_equals_baked_on_card(cuda, params, depth):
+    """``make_fused_loss(gt=None)`` on the card (the spanning op's bf16
+    lane without depth, K3 -> K5 chained with it): for two ground truths
+    in turn, fed per call, the total, logs and pose gradients equal a
+    baked closure's with no crop bit for bit, so no kernel wrapper keeps
+    a plane of an earlier call."""
+    from diffdope_tpu_torch.render.pipeline import make_fused_loss
+
+    pb = bench_problem(RES, subdiv=2, batch=B, device=cuda, depth=depth)
+    s = pb["scene"]
+    gts = [pb["gt"], {k: np.ascontiguousarray(np.roll(v, (4, -6), axis=(0, 1)))
+                      for k, v in pb["gt"].items()}]
+
+    def build(gt):
+        return make_fused_loss(
+            s["proj"], s["pos"], s["tri"], RES, gt, pb["lrs"], pb["weights"], use_rgb=True,
+            use_depth=depth, use_mask=True, edge_adj=s["edge_adj"], vtx_color=s["vtx_color"],
+            compact_total=pb["compact_total"], roi_crop="off", device=cuda)
+
+    deferred = build(None)
+    kernels.reset_launches()
+    for gt in gts + gts[:1]:
+        gt_t = {k: torch.tensor(v, device=cuda) for k, v in gt.items()}
+        t_d, logs_d, g_d = _fused_value_and_grad(deferred, params, gt_t)
+        t_b, logs_b, g_b = _fused_value_and_grad(build(gt), params)
+        assert torch.equal(t_d, t_b)
+        assert set(logs_d) == set(logs_b)
+        for k in logs_b:
+            assert torch.equal(logs_d[k], logs_b[k]), k
+        for k in g_b:
+            assert torch.equal(g_d[k], g_b[k]), k
+    launched = dict(kernels.launches)
+    fwd, bwd = ("loss_fwd_depth", "loss_bwd_depth") if depth else ("loss_fwd",
+                                                                   "loss_bwd_bf16")
+    assert launched[fwd] == launched[bwd] == 6 and launched["pack_fwd"] == 6
+
+
+def test_sweep_capacity_drops_no_pair_at_the_probe_poses(cuda):
+    """The synthesized sweep's context on the card (the JAX package's
+    defaults: 160x160, B=16, the stand-in mesh): its compact capacity,
+    sized from the 16 probe poses, holds every (tile, triangle) pair at
+    each of them, with the deferred ground truth rendered there."""
+    from diffdope_tpu_torch import bop
+
+    ctx = bop._synth_context("data/standins/standin_asym.ply", (160, 160), 16, 40, 0.01, 0,
+                             device=cuda)
+    assert ctx["compact_total"] and ctx["compact_total"] % 32 == 0
+    qs, ts = bop.probe_poses()
+    with torch.no_grad():
+        for q, t in zip(qs, ts):
+            gt, mtx = ctx["gt_render"](q, t)
+            total, logs = ctx["fused"](mtx.expand(16, 4, 4).contiguous(), gt)
+            assert torch.isfinite(total)
+            assert int(logs["_bin_overflow"]) == 0, (q, t, int(logs["_bin_need"]))
+            assert int(logs["_bin_need"]) <= ctx["compact_total"]

@@ -13,7 +13,7 @@ PKG = pathlib.Path(__file__).resolve().parent.parent / "diffdope_tpu_torch"
 REF = PKG.parent / "diffdope_tpu"
 #: the port's modules that carry a module of the reference, under its name
 PORTED = (
-    "camera.py", "config.py", "diffdope.py", "geometry.py", "image.py",
+    "bop.py", "camera.py", "config.py", "diffdope.py", "geometry.py", "image.py",
     "losses.py", "mesh.py", "metrics.py", "object3d.py", "optimize.py",
     "testing.py", "render/antialias.py", "render/fused_loss.py",
     "render/gather_rows.py", "render/interpolate.py", "render/pack_kernel.py",
@@ -54,6 +54,33 @@ def test_torch_sources_import_no_jax(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "optax", "diffdope_tpu", "cv2", "PIL",
                                 "torchvision"), (path, name)
+
+
+def test_torch_bop_entry_points_import_without_jax_or_cv2():
+    """``bop.py`` and the BOP scripts, imported and their argument parsers
+    run (``--help``), pull in neither jax, the JAX package nor cv2; the
+    scripts sit where the reference's do, by name."""
+    code = (
+        "import sys, contextlib, io\n"
+        "from diffdope_tpu_torch import bop\n"
+        "from diffdope_tpu_torch.examples import run_bop_scene, run_bop_sweep\n"
+        "for main in (run_bop_scene.main, run_bop_sweep.main):\n"
+        "    with contextlib.redirect_stdout(io.StringIO()):\n"
+        "        try:\n"
+        "            main(['--help'])\n"
+        "        except SystemExit as e:\n"
+        "            assert e.code == 0, e.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'diffdope_tpu', 'cv2', 'PIL', 'torchvision')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=PKG.parent)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for name in ("run_bop_scene.py", "run_bop_sweep.py"):
+        assert (PKG / "examples" / name).exists(), name
+        assert (PKG.parent / "examples" / name).exists(), name
 
 
 def test_torch_modules_keep_the_reference_names():

@@ -109,18 +109,22 @@ def test_torch_roi_crop_is_loss_exact_with_depth():
 
 
 def test_torch_unported_paths_raise():
-    """What the port still refuses: deferred ground truth (not ported), a
-    compact capacity off the chunk, and the depth loss without a gt depth
-    image."""
+    """What the port refuses: a compact capacity off the chunk, and the
+    depth loss without a gt depth image, given at build time or, to a
+    deferred loss, with a call; a deferred call without a segmentation."""
     sc = jax_scene()
     args = (sc["proj"], sc["pos"], sc["tri"], (64, 96), sc["gt"], np.ones(B), {})
     from diffdope_tpu_torch.render.pipeline import make_fused_loss
 
     kw = dict(vtx_color=sc["vtx_color"], device="cpu")
-    with pytest.raises(NotImplementedError, match="deferred"):
-        make_fused_loss(*args[:4], None, *args[5:], **kw)
     with pytest.raises(ValueError, match="multiple of"):
         make_fused_loss(*args, compact_total=1000, **kw)
     no_depth = {k: v for k, v in sc["gt"].items() if k != "depth"}
     with pytest.raises(ValueError, match="depth"):
         make_fused_loss(*args[:4], no_depth, *args[5:], use_depth=True, **kw)
+    deferred = make_fused_loss(*args[:4], None, *args[5:], use_depth=True, **kw)
+    mtx = torch.tensor(sc["mtx0"])
+    with pytest.raises(ValueError, match="depth"):
+        deferred(mtx, no_depth)
+    with pytest.raises(ValueError, match="segmentation"):
+        deferred(mtx, {"rgb": sc["gt"]["rgb"], "depth": sc["gt"]["depth"]})

@@ -21,7 +21,16 @@ import numpy as np
 import pytest
 import torch
 
-from torch_scene import LRS, MAX_K, RES, WEIGHTS, jax_fused_loss, jax_scene, port_fused_loss
+from torch_scene import (
+    LRS,
+    MAX_K,
+    RES,
+    WEIGHTS,
+    jax_fused_loss,
+    jax_jitter_draws,
+    jax_scene,
+    port_fused_loss,
+)
 
 from diffdope_tpu_torch import convert
 from diffdope_tpu_torch.optimize import apply_pose_jitter, pose_matrix, refine_with_restarts
@@ -29,23 +38,6 @@ from diffdope_tpu_torch.optimize import apply_pose_jitter, pose_matrix, refine_w
 STEPS = 6
 SGD = dict(base_lr=0.5, lr_decay=0.1, optimizer="sgd")
 DEG, TRANS = 10.0, 0.02
-
-
-def _jax_draws(key, b, deg, trans):
-    """The draws of the reference's ``jitter_pose_params(params, key, deg,
-    trans)``, as numpy (``optimize.py:99-114``)."""
-    import jax
-    import jax.numpy as jnp
-
-    k_ax, k_ang, k_dir, k_mag = jax.random.split(jnp.asarray(key), 4)
-    return {
-        "axis": np.asarray(jax.random.normal(k_ax, (b, 3), jnp.float32)),
-        "angle": np.asarray(jax.random.uniform(k_ang, (b,), jnp.float32, 0.0,
-                                               float(np.deg2rad(deg)))),
-        "direction": np.asarray(jax.random.normal(k_dir, (b, 3), jnp.float32)),
-        "magnitude": np.asarray(jax.random.uniform(k_mag, (b,), jnp.float32, 0.0,
-                                                   float(trans))),
-    }
 
 
 @pytest.mark.parametrize("deg,trans", [(5.0, 0.0), (0.0, 0.01), (10.0, 0.02)])
@@ -59,7 +51,7 @@ def test_torch_jitter_apply_matches_reference(deg, trans):
     key = jax.random.PRNGKey(7)
     want = jitter_pose_params({k: jnp.asarray(v) for k, v in params.items()}, key,
                               deg, trans)
-    got = apply_pose_jitter(convert.state(params, "cpu"), _jax_draws(key, 3, deg, trans))
+    got = apply_pose_jitter(convert.state(params, "cpu"), jax_jitter_draws(key, 3, deg, trans))
     for k, v in want.items():
         np.testing.assert_allclose(got[k].numpy(), np.asarray(v), rtol=1e-6, atol=1e-7,
                                    err_msg=k)
@@ -101,7 +93,7 @@ def test_torch_restarts_match_reference(jax_refine, restarts, segment):
     draws, k = [], key
     for _ in range(restarts):
         k, sub = jax.random.split(k)
-        draws.append(_jax_draws(sub, 3, DEG, TRANS))
+        draws.append(jax_jitter_draws(sub, 3, DEG, TRANS))
     feed = iter(draws)
     got = refine_with_restarts(
         convert.state(sc["params0"], "cpu"), fused_loss_fn=port_fused_loss(),

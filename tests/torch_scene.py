@@ -394,3 +394,20 @@ def feed_reference_pack(monkeypatch):
         return swapped
 
     monkeypatch.setattr(pipeline, "_pack_dispatch", dispatch)
+
+
+def jax_jitter_draws(key, b, deg, trans):
+    """The draws of the reference's ``jitter_pose_params(params, key, deg,
+    trans)``, as numpy (``optimize.py:99-114``)."""
+    import jax
+    import jax.numpy as jnp
+
+    k_ax, k_ang, k_dir, k_mag = jax.random.split(jnp.asarray(key), 4)
+    return {
+        "axis": np.asarray(jax.random.normal(k_ax, (b, 3), jnp.float32)),
+        "angle": np.asarray(jax.random.uniform(k_ang, (b,), jnp.float32, 0.0,
+                                               float(np.deg2rad(deg)))),
+        "direction": np.asarray(jax.random.normal(k_dir, (b, 3), jnp.float32)),
+        "magnitude": np.asarray(jax.random.uniform(k_mag, (b,), jnp.float32, 0.0,
+                                                   float(trans))),
+    }
