@@ -173,7 +173,34 @@ result line):
    PNGs, cam_K with a depth_scale, scene_gt.json, an error JSON 10 degrees
    and 40 mm off each pose): each object's ADD before and after, its
    diameter and kept hypothesis, the wall time; every object's ADD must
-   fall.
+   fall;
+18. viz on phase 5's session (960x540, B=8, 61 steps, crop_around_mask):
+   ``render_img()`` for rgb, depth and mask from one render (K1 and K3 once
+   each), each composite equal byte for byte to the one
+   ``_compose_overlay`` builds from the plain twins' render of the same
+   poses (``check.plain_render``: no kernel launched); ``make_animation``
+   of the argmin hypothesis into an mp4 (final_width 800, chunk 16: K1 and
+   K3 four times), read back with cv2: one frame a step, of the composite's
+   size; each chunk's ``_bin_overflow`` printed and, where it is not 0, the
+   frames that dropped pairs; the wall times; ``plot_losses`` driven only
+   where matplotlib is installed (else the reason is printed);
+19. the hypotheses sharded over two gloo ranks on the one card (NCCL
+   refuses two ranks on a device), spawned: (a) ``DiffDope`` at phase 5's
+   configuration with ``tpu.mesh_axis: 2`` on each rank against phase 5's
+   unsharded run: ``mtx_history`` at rtol 2e-4, atol 2e-5 and the total
+   loss at rtol 2e-4, atol 1e-6 (the reference's tolerances), the same
+   argmin, the telemetry phase 5's (the ranks bin over their union, so
+   the table's counters are the same on every rank), both ranks the same
+   global result, each rank's K1-K6 launched on its 4 hypotheses only
+   (K1's batch extent), bit-identity printed; (b)
+   ``examples.multichip_refine`` under ``torch.distributed.run
+   --nproc-per-node 2`` at the JAX script's defaults (B=64, 400x400, 50
+   Adam steps, icosphere(3): the uniform-K table, K7), rank 0's global
+   histories (``--out``) held to the same problem refined unsharded in
+   this process at the same tolerances, the same best hypothesis,
+   bit-identity printed; each wall time beside the unsharded one for the
+   same work (two ranks sharing one card: the cost of the collectives
+   and of the sharing, not a speedup).
 
 K5/K6's colour lane (with and without the depth plane) and K1/K2 at the uv
 table's two channels are held to their plain versions at the test scene
@@ -295,6 +322,8 @@ BOP_T_MM = ([-161.16877980209404, 206.22094040904116, 747.151333695172],
 BOP_PERTURB = (10.0, 40.0)
 #: scene_camera.json's depth_scale (YCB-V's: the depth PNG in 0.1 mm)
 BOP_DEPTH_SCALE = 0.1
+#: phase 19 (a): the two ranks' deadline, start to exit (they take ~20 s)
+SPAWN_DEADLINE_S = 300
 
 
 
@@ -1989,6 +2018,261 @@ def bop_scene_phase(gpu: str):
     return launches
 
 
+def viz_phase(dd, gpu: str) -> None:
+    """Phase 18: render_img and make_animation on phase 5's kept run."""
+    import importlib.util
+    import tempfile
+
+    import cv2
+    import torch
+
+    from diffdope_tpu_torch import kernels
+    from diffdope_tpu_torch.diffdope import RenderHistory
+    from diffdope_tpu_torch.kernels.check import plain_render
+
+    if not dd.cfg.render_images.crop_around_mask:
+        fail("phase 18: the configuration does not crop around the mask")
+    dd._render_fn, dd.optimization_results = None, RenderHistory(dd)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    imgs = {sel: dd.render_img(render_selection=sel) for sel in ("rgb", "depth", "mask")}
+    img_s = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    print(f"phase 18: render_img rgb/depth/mask {imgs['rgb'].shape}: {img_s:.4f} s "
+          f"(one render of B={dd.batchsize}); launches {launches} [{gpu}]", flush=True)
+    if launches != {"pack_fwd": 1, "raster_fwd": 1}:
+        fail(f"phase 18: render_img launched {launches}, not K1 and K3 once")
+
+    mtx = torch.as_tensor(dd.mtx_history[-1], device="cuda")
+    kernels.reset_launches()
+    with plain_render(), torch.no_grad():
+        plain = dd._make_render_fn(layout="stacked")(mtx)
+    if any(kernels.launches.values()):
+        fail(f"phase 18: the plain twins' render launched {dict(kernels.launches)}")
+    for sel, img in imgs.items():
+        want = dd._compose_overlay(plain[sel].cpu().numpy(), None, sel)
+        if img.shape != want.shape or img.tobytes() != want.tobytes():
+            diff = (-1 if img.shape != want.shape
+                    else int((img != want).sum()))
+            fail(f"phase 18: render_img({sel!r}) differs from the plain twins' composite "
+                 f"({diff} bytes)")
+    print("phase 18: render_img's rgb, depth and mask composites equal the plain twins' "
+          "byte for byte", flush=True)
+
+    # the animation, each chunk's render recorded for its dropped pairs
+    render_fn, chunks = dd._make_render_fn(layout="stacked"), []
+
+    def recording(mtxs):
+        out = render_fn(mtxs)
+        chunks.append((mtxs, int(out["_bin_overflow"])))
+        return out
+
+    dd._render_fn = recording
+    steps, chunk, width = dd.mtx_history.shape[0], 16, 800
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "animation.mp4"
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        dd.make_animation(str(path), chunk=chunk, final_width=width)
+        anim_s = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        cap = cv2.VideoCapture(str(path))
+        frames, size = 0, None
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames, size = frames + 1, frame.shape[:2]
+        cap.release()
+        mp4_bytes = path.stat().st_size
+    want_size = dd._compose_overlay(plain["rgb"][:1].cpu().numpy(), None, "rgb",
+                                    final_width=width).shape[:2]
+    n_chunks = -(-steps // chunk)
+    overflow = [ov for _, ov in chunks]
+    print(f"phase 18: make_animation of hypothesis {dd.get_argmin()}: {frames} frames of "
+          f"{size}, {mp4_bytes} bytes, {anim_s:.4f} s ({steps} steps, {n_chunks} renders of "
+          f"{chunk}); launches {launches}; _bin_overflow per render {overflow} [{gpu}]",
+          flush=True)
+    if frames != steps or tuple(size or ()) != tuple(want_size):
+        fail(f"phase 18: the mp4 holds {frames} frames of {size}, not {steps} of "
+             f"{tuple(want_size)}")
+    if launches != {"pack_fwd": n_chunks, "raster_fwd": n_chunks}:
+        fail(f"phase 18: make_animation launched {launches}, not K1 and K3 {n_chunks} times")
+    dropped = 0
+    with torch.no_grad():
+        for mtxs, ov in chunks:
+            if ov:
+                dropped += sum(int(render_fn(m[None])["_bin_overflow"]) > 0 for m in mtxs)
+    if dropped:
+        print(f"phase 18: {dropped} of {steps} frames dropped (tile, triangle) pairs at the "
+              "init's capacities", flush=True)
+    dd._render_fn = None
+    if importlib.util.find_spec("matplotlib") is None:
+        print("phase 18: plot_losses left out: this host has no matplotlib (tested on the "
+              "CPU: tests/test_torch_viz.py)", flush=True)
+    else:
+        plot = dd.plot_losses()
+        print(f"phase 18: plot_losses {None if plot is None else plot.shape}", flush=True)
+
+
+def sharded_rank(rank: int, root: str) -> None:
+    """Phase 19 (a), one of two gloo ranks sharing the card: DiffDope at
+    phase 5's configuration with ``tpu.mesh_axis: 2``; what it got to
+    ``root/rank<r>.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from diffdope_tpu_torch import kernels
+    from diffdope_tpu_torch.render import pack_kernel
+
+    dist.init_process_group("gloo", init_method=f"file://{root}/rendezvous", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=120))
+    dd, _, _ = diffdope_session(True, tpu={"mesh_axis": 2})
+    kernels.library()
+    extents, pack_fwd = [], pack_kernel.pack_fwd
+
+    def spy(mvpm, *args):
+        extents.append(int(mvpm.shape[0]))
+        return pack_fwd(mvpm, *args)
+
+    pack_kernel.pack_fwd = spy
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    dd.run_optimization()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    torch.save({"mtx": dd.mtx_history, "total": dd._result.total_loss.cpu().numpy(),
+                "telemetry": {k: v.cpu().numpy() for k, v in dd._result.telemetry.items()},
+                "argmin": dd.get_argmin(), "pose": dd.get_pose(), "wall": wall,
+                "kept_s": dd.last_run_stats["wall_time_s"],
+                "reruns": dd.last_run_stats["recovery_reruns"],
+                "launches": dict(kernels.launches), "extents": sorted(set(extents)),
+                "device": str(dd.device)}, f"{root}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def sharded_phase(dd_f, gpu: str) -> None:
+    """Phase 19: (a) DiffDope sharded over two ranks against phase 5's
+    unsharded run; (b) the multichip example under torch.distributed.run."""
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from diffdope_tpu_torch.examples import multichip_refine
+    from diffdope_tpu_torch.optimize import argmin_hypothesis, refine
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ctx = mp.spawn(sharded_rank, args=(root,), nprocs=2, join=False)
+        while not ctx.join(timeout=5):  # raises when a rank fails
+            if time.perf_counter() - t0 > SPAWN_DEADLINE_S:
+                for proc in ctx.processes:
+                    proc.terminate()
+                fail(f"phase 19 (a): the ranks did not finish within {SPAWN_DEADLINE_S} s")
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(Path(root) / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    want_mtx, want_total = dd_f.mtx_history, dd_f._result.total_loss.cpu().numpy()
+    for r, got in enumerate(ranks):
+        print(f"phase 19 (a) rank {r} ({got['device']}): run_optimization {got['wall']:.4f} s, "
+              f"kept run {got['kept_s']:.4f} s, {got['reruns']} re-run(s); K1 batch extents "
+              f"{got['extents']}; launches "
+              f"{ {k: v for k, v in got['launches'].items() if v} }", flush=True)
+        check_launches(f"phase 19 (a) rank {r}", got["launches"], COMPACT_FUSED,
+                       set(got["launches"]) - set(COMPACT_FUSED))
+        if got["extents"] != [dd_f.batchsize // 2]:
+            fail(f"phase 19 (a): rank {r}'s K1 saw batches {got['extents']}, not "
+                 f"{dd_f.batchsize // 2}")
+        if got["mtx"].shape != want_mtx.shape:
+            fail(f"phase 19 (a): rank {r}'s history is {got['mtx'].shape}, not "
+                 f"{want_mtx.shape}")
+        gap_mtx = float(np.max(np.abs(got["mtx"] - want_mtx)
+                               / (2e-5 + 2e-4 * np.abs(want_mtx))))
+        gap_tot = float(np.max(np.abs(got["total"] - want_total)
+                               / (1e-6 + 2e-4 * np.abs(want_total))))
+        print(f"phase 19 (a) rank {r} against phase 5: mtx_history {gap_mtx:.3e} and total "
+              f"loss {gap_tot:.3e} of their allowances; argmin {got['argmin']} against "
+              f"{dd_f.get_argmin()}", flush=True)
+        if gap_mtx > 1.0 or gap_tot > 1.0 or got["argmin"] != dd_f.get_argmin():
+            fail(f"phase 19 (a): rank {r}'s sharded run differs from phase 5's")
+        want_tel = {k: v.cpu().numpy() for k, v in dd_f._result.telemetry.items()}
+        if set(got["telemetry"]) != set(want_tel) or not all(
+                np.array_equal(got["telemetry"][k], v) for k, v in want_tel.items()):
+            fail(f"phase 19 (a): rank {r}'s telemetry {sorted(got['telemetry'])} differs "
+                 f"from phase 5's {sorted(want_tel)}")
+    if not (np.array_equal(ranks[0]["mtx"], ranks[1]["mtx"])
+            and np.array_equal(ranks[0]["total"], ranks[1]["total"])
+            and np.array_equal(ranks[0]["pose"], ranks[1]["pose"])):
+        fail("phase 19 (a): the two ranks returned different global results")
+    print(f"phase 19 (a): DiffDope over 2 ranks on one card: spawn to results "
+          f"{spawn_s:.4f} s, run_optimization {max(r['wall'] for r in ranks):.4f} s, kept "
+          f"run {max(r['kept_s'] for r in ranks):.4f} s, against phase 5's unsharded kept run "
+          f"{dd_f.last_run_stats['wall_time_s']:.4f} s; bit-identical to phase 5: mtx_history "
+          f"{np.array_equal(ranks[0]['mtx'], want_mtx)}, total loss "
+          f"{np.array_equal(ranks[0]['total'], want_total)} [{gpu}]", flush=True)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as root:
+        out = Path(root) / "multichip.npz"
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+               "--master-addr", "127.0.0.1", "--master-port", str(port),
+               "-m", "diffdope_tpu_torch.examples.multichip_refine", "--out", str(out)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+        run_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr, flush=True)
+            fail(f"phase 19 (b): multichip_refine under torch.distributed.run exited "
+                 f"{proc.returncode}")
+        if not out.exists():
+            fail(f"phase 19 (b): rank 0 wrote no result: {proc.stdout[-2000:]}")
+        with np.load(out) as saved:
+            got = {k: saved[k] for k in saved.files}
+    lines = proc.stdout.splitlines()
+    wall = [ln for ln in lines if " steps on 2 rank(s): " in ln]
+    best = [ln for ln in lines if ln.startswith("best hypothesis")]
+    if len(wall) != 1 or len(best) != 1:
+        fail(f"phase 19 (b): unexpected output: {proc.stdout[-2000:]}")
+    sharded_s = float(wall[0].split(": ")[1].split("s")[0])
+
+    args = multichip_refine.parse_args([])
+    problem = multichip_refine.build_problem(args, torch.device("cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = refine(*problem, nb_iterations=args.iterations, **multichip_refine.REFINE_KW)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    want_mtx, want_total = res.mtx_history.cpu().numpy(), res.total_loss.cpu().numpy()
+    want_best = int(argmin_hypothesis(res.losses_values))
+    if got["mtx_history"].shape != want_mtx.shape or got["total_loss"].shape != want_total.shape:
+        fail(f"phase 19 (b): the sharded histories are {got['mtx_history'].shape} and "
+             f"{got['total_loss'].shape}, not {want_mtx.shape} and {want_total.shape}")
+    # the reference's tolerances (tests/test_parallel.py:47-54)
+    gap_mtx = float(np.max(np.abs(got["mtx_history"] - want_mtx)
+                           / (2e-5 + 2e-4 * np.abs(want_mtx))))
+    gap_tot = float(np.max(np.abs(got["total_loss"] - want_total)
+                           / (1e-6 + 2e-4 * np.abs(want_total))))
+    print(f"phase 19 (b): multichip_refine (B={args.batchsize}, {args.resolution}, "
+          f"{args.iterations} Adam steps) over 2 ranks on one card: {lines[0]}; refinement "
+          f"{sharded_s:.4f} s (the ranks' first launches included), command {run_s:.4f} s; "
+          f"{best[0]}; unsharded in this process {whole_s:.4f} s, best hypothesis "
+          f"{want_best}, final loss {float(want_total[-1]):.5f}; against it: mtx_history "
+          f"{gap_mtx:.3e} and total loss {gap_tot:.3e} of their allowances, bit-identical: "
+          f"mtx_history {np.array_equal(got['mtx_history'], want_mtx)}, total loss "
+          f"{np.array_equal(got['total_loss'], want_total)} [{gpu}]", flush=True)
+    if not (gap_mtx <= 1.0 and gap_tot <= 1.0) or int(got["best"]) != want_best:
+        fail("phase 19 (b): the sharded multichip_refine differs from its unsharded run")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2188,7 +2472,7 @@ def main() -> None:
     agree_step0("DiffDope unfused against fused",
                 {k: v[0] for k, v in dd_u.losses_values.items()}, step0_f,
                 sorted(step0_f))
-    del dd_f, dd_u
+    del dd_u
 
     # ---- DiffDope with the depth loss: the compact and the uniform table ----
     depth = {"l1_depth_with_mask": True}
@@ -2272,6 +2556,12 @@ def main() -> None:
     bop_sweep_phase(gpu)
     torch.cuda.empty_cache()
     bop_scene_phase(gpu)
+    torch.cuda.empty_cache()
+
+    # ---- viz and the hypotheses sharded over two ranks (phase 5's session) --
+    viz_phase(dd_f, gpu)
+    sharded_phase(dd_f, gpu)
+    del dd_f
 
     # launches on the path that runs each kernel: the bench main path (its
     # bf16 lane of K6/K4), the depth phase on the compact table (K4 with

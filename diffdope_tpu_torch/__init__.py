@@ -23,6 +23,7 @@ from diffdope_tpu_torch.geometry import (
     quat_from_axis_angle,
     quat_multiply,
     quat_normalize,
+    quat_rotate,
     xfm_points,
     xfm_vectors,
 )

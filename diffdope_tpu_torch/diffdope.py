@@ -3,7 +3,9 @@
 
 Same surface: ``DiffDope(cfg=cfg).run_optimization()``, then
 ``get_argmin()``, ``get_pose()``, ``get_pose_opencv()``, ``renders``,
-``optimization_results``, ``add_loss_value()``, ``set_batchsize()``.  It
+``optimization_results``, ``add_loss_value()``, ``set_batchsize()``, and
+the pictures ``render_img()``, ``make_animation()`` and ``plot_losses()``
+(``viz``: cv2, matplotlib for the plot, imageio or cv2 for the mp4).  It
 runs on the card unless ``device`` says otherwise.
 
 A run takes one of two routes, as the reference's does:
@@ -38,7 +40,11 @@ kernel, no bins and so no capacity to probe or recover.
 The refinement options follow the reference's order of precedence
 (``diffdope.py:485-640``): ``tpu.init_jitter_deg`` / ``init_jitter_trans``
 jitter the initial hypotheses (all but the first) from a generator seeded
-``tpu.seed + 1``; appearance refinement, when asked, wins over
+``tpu.seed + 1``; ``tpu.mesh_axis`` > 1 shards the hypotheses over that
+many ranks (``parallel.refine_sharded``: one process a rank, launched by
+torchrun; every rank builds the same session from the same configuration
+and gets the global results), before any option below, so restarts do
+not run under it; appearance refinement, when asked, wins over
 ``tpu.restarts``, which re-seeds every hypothesis around the best one
 between segments (``optimize.refine_with_restarts``, jitter from a
 generator seeded ``tpu.seed + 2``); else the plain segmented run.
@@ -66,6 +72,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from diffdope_tpu_torch import viz
 from diffdope_tpu_torch.camera import Camera
 from diffdope_tpu_torch.config import ConfigNode
 from diffdope_tpu_torch.geometry import matmul44, opengl_to_opencv
@@ -81,6 +88,7 @@ from diffdope_tpu_torch.optimize import (
     refine_segmented,
     refine_with_restarts,
 )
+from diffdope_tpu_torch.parallel import hypothesis_mesh, rank_device, refine_sharded
 from diffdope_tpu_torch.render.pipeline import (
     CAPACITY_SLACK,
     K_CHUNK,
@@ -112,10 +120,6 @@ log = logging.getLogger(__name__)
 #: to 1.2x and 1.5x of its own (tools/port_capacity_study.py)
 TILE_MARGIN = 3.0
 TABLE_MARGIN = 5.0
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
 class RenderHistory:
@@ -169,6 +173,9 @@ class DiffDope:
         self.device = torch.device(device)
         tpu_cfg = self.cfg.get("tpu", ConfigNode())
         self.seed = int(tpu_cfg.get("seed", 0))
+        self.mesh_axis = int(tpu_cfg.get("mesh_axis", 1))
+        if self.mesh_axis > 1:
+            self.device = rank_device(self.device)
         self.optimizer_name = str(tpu_cfg.get("optimizer", "sgd"))
         self.raster_impl = str(tpu_cfg.get("raster_impl", "auto"))
         if self.raster_impl not in ("auto", "pallas", "reference"):
@@ -473,10 +480,6 @@ class DiffDope:
     # ------------------------------------------------------------------ #
     # optimization
     # ------------------------------------------------------------------ #
-    def _check_ported(self) -> None:
-        if int(self._tpu().get("mesh_axis", 1)) > 1:
-            raise _not_ported("sharding the hypotheses over devices (mesh_axis > 1)", 4)
-
     def run_optimization(self) -> None:
         """Run the refinement: ``nb_iterations + 1`` steps in segments of
         ``tpu.scan_segment``.  Populates ``losses_values``,
@@ -497,10 +500,10 @@ class DiffDope:
         and written back into the mesh (``diffdope.py:697-708``).
 
         The options of the module docstring apply in the reference's order:
-        the init jitter, then appearance refinement, else restarts, else
-        the plain segmented run; ``tpu.precompute_bins`` under any of
-        them."""
-        self._check_ported()
+        the init jitter, then ``tpu.mesh_axis`` > 1 (the hypotheses sharded
+        over the ranks, appearance leaves included, restarts not run),
+        else appearance refinement, else restarts, else the plain
+        segmented run; ``tpu.precompute_bins`` under any of them."""
         tpu_cfg = self._tpu()
         gt_np = self.gt_tensors
         gt = {k: torch.tensor(v, device=self.device) for k, v in gt_np.items()}
@@ -536,7 +539,16 @@ class DiffDope:
                       optimizer=self.optimizer_name, fused_loss_fn=fused_fn,
                       step_callback=step_cb if live_step else None)
             t0 = time.perf_counter()
-            if restarts > 0 and not extra_params:
+            if self.mesh_axis > 1:
+                # the hypotheses sharded over the group's ranks, each rank
+                # refining its B/n (the reference's first branch,
+                # diffdope.py:579-592: no restarts, no segments)
+                result = refine_sharded(
+                    params0, render_fn, tuple(self.loss_functions), gt,
+                    self.learning_rates, self.loss_weights,
+                    hypothesis_mesh(self.mesh_axis, self.device),
+                    extra_params=extra_params, nb_iterations=self.nb_iterations, **kw)
+            elif restarts > 0 and not extra_params:
                 deg = float(tpu_cfg.get("restart_jitter_deg", 10.0))
                 trans = float(tpu_cfg.get("restart_jitter_trans", 0.02))
                 gen = torch.Generator().manual_seed(self.seed + 2)
@@ -722,11 +734,96 @@ class DiffDope:
         """The refined pose in the OpenCV/BOP frame."""
         return opengl_to_opencv(self.get_pose(batch_index))
 
-    def render_img(self, *args, **kwargs):
-        raise _not_ported("render_img (viz needs cv2)", 1)
+    # ------------------------------------------------------------------ #
+    # visualization (host-side, cv2)
+    # ------------------------------------------------------------------ #
+    def render_img(self, index: Optional[int] = None, batch_index: Optional[int] = None,
+                   render_selection: str = "rgb") -> np.ndarray:
+        """The overlay grid (uint8 BGR) of one step's renders, 'rgb',
+        'depth' or 'mask', over the scene's (``diffdope.py:890-901``): the
+        last step by default, every hypothesis or ``batch_index`` alone."""
+        index = -1 if index is None else index
+        entry = self.optimization_results[index]
+        return self._compose_overlay(entry[render_selection], batch_index, render_selection)
 
-    def make_animation(self, *args, **kwargs):
-        raise _not_ported("make_animation (viz needs cv2)", 1)
+    def _compose_overlay(self, gu: np.ndarray, batch_index: Optional[int],
+                         render_selection: str,
+                         final_width: Optional[int] = None) -> np.ndarray:
+        """Crop, overlay and contours of rendered frames ``gu`` ((B, H, W[,
+        C]) numpy) against the scene's gt (``diffdope.py:903-950``), as the
+        ``render_images`` group of the configuration asks."""
+        ri = self.cfg.get("render_images", ConfigNode())
+        gt_map = {"rgb": "rgb", "depth": "depth", "mask": "segmentation"}
+        gt = self.gt_tensors.get(gt_map.get(render_selection, render_selection))
 
-    def plot_losses(self, *args, **kwargs):
-        raise _not_ported("plot_losses", 1)
+        crop = None
+        if ri.get("crop_around_mask", False):
+            seg = self.gt_tensors.get("segmentation")
+            crop = viz.find_crop(seg if seg is not None else gu[0])
+
+        def prep(arr, batched):
+            if arr is None:
+                return None
+            a = np.asarray(arr)
+            if not batched:
+                a = np.broadcast_to(a, (gu.shape[0],) + a.shape)
+            if a.ndim == 3:
+                a = viz.depth_to_rgb(a) if render_selection == "depth" else a[..., None]
+            if crop is not None:
+                t, l, s = crop
+                a = a[:, t : t + s + 1, l : l + s + 1]
+            return a
+
+        fg = prep(gu, batched=True)
+        bg = prep(gt, batched=False)
+        if batch_index is not None:
+            fg = fg[batch_index : batch_index + 1]
+            bg = bg[batch_index : batch_index + 1] if bg is not None else None
+
+        return viz.make_grid_overlay_batch(
+            foreground=fg,
+            background=bg,
+            alpha=float(ri.get("alpha_overlay", 0.7)),
+            row=int(ri.get("nrow", 4)),
+            final_width=int(final_width or ri.get("final_width_batch", 2000)),
+            add_background=bool(ri.get("add_background", True)),
+            add_contour=bool(ri.get("add_countour", True)),
+            color_contour=list(ri.get("color_countour", [0.46, 0.73, 0])),
+            flip_result=bool(ri.get("flip_result", True)),
+        )
+
+    def make_animation(self, output_file_path: str = "animation.mp4", frame_rate: int = 10,
+                       batch_index: int = -1, chunk: int = 16,
+                       final_width: int = 800) -> None:
+        """Write the refinement of one hypothesis (the argmin's by default)
+        as an mp4 (``diffdope.py:952-990``): ``chunk`` steps per render,
+        the step axis on the render's batch axis (the last chunk padded
+        with its last pose), each frame composited at ``final_width``."""
+        if batch_index == -1:
+            batch_index = self.get_argmin()
+        n = 0 if self.mtx_history is None else self.mtx_history.shape[0]
+        if n == 0:
+            raise ValueError("run_optimization() before make_animation()")
+        poses = np.asarray(self.mtx_history[:, batch_index])  # (S, 4, 4)
+
+        def frames():
+            for s in range(0, n, chunk):
+                mtxs = poses[s : s + chunk]
+                pad = chunk - mtxs.shape[0]
+                if pad:
+                    mtxs = np.concatenate([mtxs, np.broadcast_to(mtxs[-1:], (pad, 4, 4))])
+                with torch.no_grad():
+                    rgb = self._render(torch.as_tensor(mtxs, device=self.device))["rgb"]
+                rgb = rgb.cpu().numpy()
+                for i in range(min(chunk, n - s)):
+                    yield self._compose_overlay(rgb[i : i + 1], None, "rgb",
+                                                final_width=final_width)
+
+        viz.write_animation(frames(), output_file_path, frame_rate)
+
+    def plot_losses(self, batch_index: int = -1) -> Optional[np.ndarray]:
+        """The loss curves of one hypothesis (the argmin's by default) as a
+        BGR image (``diffdope.py:992-997``; needs matplotlib)."""
+        if batch_index == -1:
+            batch_index = self.get_argmin()
+        return viz.plot_losses_image(self.losses_values, batch_index)

@@ -87,6 +87,17 @@ def quat_multiply_np(q1: np.ndarray, q2: np.ndarray) -> np.ndarray:
     ).numpy()
 
 
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v by unit quaternion(s) q (active rotation), in
+    the reference's operation order (``geometry.py:83-88``)."""
+    shape = torch.broadcast_shapes(q.shape[:-1] + (3,), v.shape)
+    qv = q[..., :3].expand(shape)  # torch's cross does not broadcast ranks
+    v = v.expand(shape)
+    w = q[..., 3:4]
+    t = 2.0 * torch.linalg.cross(qv, v, dim=-1)
+    return v + w * t + torch.linalg.cross(qv, t, dim=-1)
+
+
 def matrix33_from_quat(q: torch.Tensor) -> torch.Tensor:
     """Column-vector rotation matrix from unit quaternion (...,4)->(...,3,3)."""
     x, y, z, w = q.unbind(-1)

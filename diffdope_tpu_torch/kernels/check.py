@@ -38,10 +38,15 @@ estimates, per element or (K5/K6) per pixel and pair at the call's ids.
 Library: where one PyTorch call computes a kernel's function (the raster
 backwards K4, K7, K9 and K10: :func:`bwd_library`), the timed rows carry
 its time as ``library_ms``, a yardstick the port never calls.
+
+Renders: :func:`plain_render` makes a render's forward take the plain
+twins of K1, K3 and K7 on the card too, to hold a whole render (e.g. the
+composite of ``DiffDope.render_img``) against the kernel route's.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -1050,3 +1055,26 @@ def check_sliver(device="cuda") -> List[Dict[str, object]]:
     row("K9_gather_rows_fwd", gather_rows.gather_rows_fwd(packed, idx, counts, (h, w), tile),
         gather_rows.gather_rows_fwd_plain(packed, idx, counts, (h, w), tile), (py, px))
     return out
+
+
+@contextlib.contextmanager
+def plain_render():
+    """Within the block, a render's forward takes the plain twins of K1
+    (``planar.pack_binned``), K3 and K7 (``raster_fwd_plain``,
+    ``raster_uniform_fwd_plain``) on every device, and launches neither
+    kernel: the render to hold a kernel-route render against, bit for bit.
+    Only for such checks; the backwards keep their kernels."""
+    from diffdope_tpu_torch.render import raster
+
+    saved = (pipeline.pack_binned_auto, raster.raster_fwd, raster.raster_uniform_fwd)
+
+    def pack(pos_c, mvp, mtx, flat, *rest):
+        return planar.pack_binned(pos_c, mvp, mtx, flat.reshape(-1), *rest)
+
+    pipeline.pack_binned_auto = pack
+    raster.raster_fwd = raster_fwd_plain
+    raster.raster_uniform_fwd = raster_uniform_fwd_plain
+    try:
+        yield
+    finally:
+        pipeline.pack_binned_auto, raster.raster_fwd, raster.raster_uniform_fwd = saved

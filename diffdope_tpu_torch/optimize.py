@@ -13,6 +13,7 @@ step count.
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
@@ -22,6 +23,7 @@ import torch
 
 from diffdope_tpu_torch.convert import tensor
 from diffdope_tpu_torch.geometry import matrix44_from_quat_trans, quat_multiply, quat_normalize
+from diffdope_tpu_torch.render.planar import union_over
 
 #: the pose leaves of the optimized parameters
 POSE_KEYS = ("qx", "qy", "qz", "qw", "x", "y", "z")
@@ -215,6 +217,8 @@ def refine(
     fused_loss_fn: Optional[Callable] = None,
     extra_params: Optional[Dict[str, torch.Tensor]] = None,
     step_callback: Optional[Callable] = None,
+    loss_scale: float = 1.0,
+    process_group: Any = None,
 ) -> RefineResult:
     """Run ``nb_iterations + 1`` optimizer steps (or ``num_steps``, for a
     segment; ``nb_iterations`` still shapes the learning-rate schedule,
@@ -223,7 +227,9 @@ def refine(
     Each step scores the poses with ``fused_loss_fn(mtx) -> (total, logs)``
     when given (``fused_loss_fn(mtx, gt)`` for a loss that takes its
     ground truth per call, ``make_fused_loss(gt=None)``: the reference's
-    signature test, ``optimize.py:241-258``), else with
+    signature test, ``optimize.py:241-258``; a fused loss that takes a
+    ``learning_rates`` keyword is handed this call's, so a shard scores
+    its own slice), else with
     ``render_fn(mtx, **extra)`` and the sum of ``fn(renders, gt,
     learning_rates, weights)`` over ``loss_fns``.
     ``extra_params`` are further optimized leaves (the appearance: 'tex',
@@ -235,13 +241,29 @@ def refine(
     every step with that step's total loss (a tensor; reading it is the
     per-step host sync the reference's ``jax.debug.callback`` pays).
     Underscore log keys go to ``telemetry``.
+
+    ``loss_scale`` multiplies the objective (``parallel.refine_sharded``
+    passes 1/n, so each rank's mean over its B/n hypotheses becomes its
+    share of the global mean).  Under ``process_group`` (a
+    ``torch.distributed`` group over the ranks that share the batch, the
+    reference's ``axis_name``, ``optimize.py:177-178, 271-290``) every
+    binning inside the run takes the union over the group's hypotheses
+    (``planar.union_over``), so each rank lays out the unsharded run's
+    table, where the reference's shards bin their own.  The logged total
+    and the telemetry are all-reduced every step, so every rank logs the
+    global values: MAX for the table's '_bin_*' counters (the same on
+    every rank) and for '*_max' keys, SUM for the rest; so are the
+    gradients of ``extra_params`` (SUM), which every rank shares.  The
+    pose gradients need no collective: the hypotheses are independent.
     """
     if fused_loss_fn is None and render_fn is None:
         raise ValueError("refine needs fused_loss_fn or render_fn + loss_fns")
     if fused_loss_fn is not None and extra_params:
         raise ValueError("fused_loss_fn does not support extra_params")
-    fused_takes_gt = (fused_loss_fn is not None
-                      and len(inspect.signature(fused_loss_fn).parameters) >= 2)
+    fused_sig = () if fused_loss_fn is None else inspect.signature(fused_loss_fn).parameters
+    fused_takes_gt = len([p for p in fused_sig if p != "learning_rates"]) >= 2
+    fused_kw = ({"learning_rates": learning_rates}
+                if "learning_rates" in fused_sig and learning_rates is not None else {})
     opt = make_optimizer(optimizer, base_lr, lr_decay, nb_iterations)
     params = {k: v.detach() for k, v in params0.items()}
     extra_keys = tuple(extra_params or ())
@@ -250,34 +272,43 @@ def refine(
         opt_state = opt.init(params)
     length = nb_iterations + 1 if num_steps is None else num_steps
     mtxs, totals, logs_hist = [], [], {}
-    for step in range(length):
-        leaves = {k: v.requires_grad_(True) for k, v in params.items()}
-        mtx, _, _ = pose_matrix(leaves)
-        if fused_loss_fn is not None:
-            total, logs = fused_loss_fn(mtx, gt) if fused_takes_gt else fused_loss_fn(mtx)
-        else:
-            renders = render_fn(mtx, **{k: leaves[k] for k in extra_keys})
-            total = mtx.new_zeros(())
-            logs = {k: v for k, v in renders.items() if k.startswith("_")}
-            for fn in loss_fns:
-                term, (key, values) = fn(renders, gt, learning_rates, weights)
-                total = total + term
-                logs[key] = values
-        # a leaf the render does not read (vertex colours under corner
-        # colours) gets a zero gradient, as JAX's grad gives it
-        grads = torch.autograd.grad(total, [leaves[k] for k in params], allow_unused=True)
-        grads = {k: torch.zeros_like(leaves[k]) if g is None else g
-                 for k, g in zip(params, grads)}
-        mtxs.append(mtx.detach())
-        totals.append(total.detach())
-        for k, v in logs.items():
-            logs_hist.setdefault(k, []).append(v.detach())
-        with torch.no_grad():
-            params, opt_state = opt.update(
-                grads, opt_state, {k: v.detach() for k, v in leaves.items()}
-            )
-        if step_callback is not None:
-            step_callback(step, totals[-1])
+    # under a group every binning takes the union over the ranks' hypotheses
+    union = contextlib.nullcontext() if process_group is None else union_over(process_group)
+    with union:
+        for step in range(length):
+            leaves = {k: v.requires_grad_(True) for k, v in params.items()}
+            mtx, _, _ = pose_matrix(leaves)
+            if fused_loss_fn is not None:
+                total, logs = (fused_loss_fn(mtx, gt, **fused_kw) if fused_takes_gt
+                               else fused_loss_fn(mtx, **fused_kw))
+            else:
+                renders = render_fn(mtx, **{k: leaves[k] for k in extra_keys})
+                total = mtx.new_zeros(())
+                logs = {k: v for k, v in renders.items() if k.startswith("_")}
+                for fn in loss_fns:
+                    term, (key, values) = fn(renders, gt, learning_rates, weights)
+                    total = total + term
+                    logs[key] = values
+            if loss_scale != 1.0:
+                total = total * loss_scale
+            # a leaf the render does not read (vertex colours under corner
+            # colours) gets a zero gradient, as JAX's grad gives it
+            grads = torch.autograd.grad(total, [leaves[k] for k in params], allow_unused=True)
+            grads = {k: torch.zeros_like(leaves[k]) if g is None else g
+                     for k, g in zip(params, grads)}
+            if process_group is not None:
+                total, logs = _all_reduce_step(grads, extra_keys, total.detach(), logs,
+                                               process_group)
+            mtxs.append(mtx.detach())
+            totals.append(total.detach())
+            for k, v in logs.items():
+                logs_hist.setdefault(k, []).append(v.detach())
+            with torch.no_grad():
+                params, opt_state = opt.update(
+                    grads, opt_state, {k: v.detach() for k, v in leaves.items()}
+                )
+            if step_callback is not None:
+                step_callback(step, totals[-1])
     stacked = {k: torch.stack(v) for k, v in logs_hist.items()}
     return RefineResult(
         params=params,
@@ -287,6 +318,30 @@ def refine(
         telemetry={k: v for k, v in stacked.items() if k.startswith("_")} or None,
         opt_state=opt_state,
     )
+
+
+def _all_reduce_step(grads, extra_keys, total, logs, group):
+    """One step's collectives over ``group`` (the reference's psum/pmax
+    under ``axis_name``): the shared leaves' gradients (SUM, in place),
+    the total (SUM) and the telemetry (MAX for the union table's '_bin_*'
+    counters, which every rank shares, and for '*_max'; else SUM, as
+    '_crop_leak' counts the rank's own hypotheses); the per-hypothesis
+    logs stay the rank's own."""
+    import torch.distributed as dist
+
+    for k in extra_keys:
+        dist.all_reduce(grads[k], op=dist.ReduceOp.SUM, group=group)
+    total = total.clone()
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    logs = dict(logs)
+    for k, v in logs.items():
+        if k.startswith("_"):
+            v = v.detach().clone()
+            shared = k.startswith("_bin_") or k.endswith("_max")
+            op = dist.ReduceOp.MAX if shared else dist.ReduceOp.SUM
+            dist.all_reduce(v, op=op, group=group)
+            logs[k] = v
+    return total, logs
 
 
 def refine_segmented(

@@ -482,22 +482,26 @@ def make_fused_loss(
     uv_idx=None,
     bins: Optional[Bins] = None,
 ):
-    """Build ``fn(mtx) -> (total_loss, logs)``.
+    """Build ``fn(mtx, learning_rates=None) -> (total_loss, logs)``.
 
     Same loss semantics as the reference: per-term per-hypothesis means,
     per-hypothesis loss scales, weighted total, logs under 'rgb', 'depth'
     and 'mask_selection', and underscore telemetry keys '_bin_overflow',
-    '_bin_max', '_bin_need' and (with the crop) '_crop_leak'.  ``gt`` holds
+    '_bin_max', '_bin_need' and (with the crop) '_crop_leak'.
+    ``learning_rates`` given to ``fn`` replace the build's loss scales for
+    that call (the reference's, :592-597: ``optimize.refine`` hands each
+    rank of a sharded run its own slice).  ``gt`` holds
     numpy or tensor 'rgb' and 'segmentation' (H, W, 3) images, and 'depth'
     (H, W) for ``use_depth``.  ``compact_total`` None runs the uniform-K
     table on the full frame (no ROI crop), as the reference does.
 
     ``gt`` None defers the ground truth (reference :425-427, 487-499):
-    the returned function is ``fn(mtx, gt)``, its gt planes laid out from
-    the given dict at every call, so one loss serves many scenes (the BOP
-    sweep).  Both crops need the gt at build time, so a deferred loss has
-    neither, as in the reference (:501-512, 546-553): the full frame, and
-    on the texture route the texture sampled over all of it.
+    the returned function is ``fn(mtx, gt, learning_rates=None)``, its gt
+    planes laid out from the given dict at every call, so one loss serves
+    many scenes (the BOP sweep).  Both crops need the gt at build time, so
+    a deferred loss has neither, as in the reference (:501-512, 546-553):
+    the full frame, and on the texture route the texture sampled over all
+    of it.
     ``fn.bind_gt(gt)`` is the deferred loss with one gt bound, carrying
     the planes the kernel checks read, as a baked loss does.
 
@@ -591,9 +595,11 @@ def make_fused_loss(
         colors = None if sample is None else sample(rows, ids)
         return fused_loss_sums(rows, ids, gt6, depth_plane(gtd, mtx), colors, (hc, wc), roi)
 
-    def loss(mtx: torch.Tensor, gt6: torch.Tensor, gtd: Optional[torch.Tensor]):
+    def loss(mtx: torch.Tensor, gt6: torch.Tensor, gtd: Optional[torch.Tensor],
+             learning_rates=None):
         if mtx.dim() == 2:
             mtx = mtx[None]
+        scales = lrs if learning_rates is None else tensor(learning_rates, device)
         if route is not None:
             tab = planar(mtx)
             sums = sums_of(*_raster_planar(tab, resolution), mtx, gt6, gtd)
@@ -610,15 +616,15 @@ def make_fused_loss(
         logs = {}
         if use_rgb:
             per_hyp = sums[:, RGB_LANE] / (3.0 * npx)
-            total = total + torch.mean(per_hyp * lrs) * weights["rgb"]
+            total = total + torch.mean(per_hyp * scales) * weights["rgb"]
             logs["rgb"] = per_hyp * weights["rgb"]
         if use_depth:
             per_hyp = sums[:, DEPTH_LANE] / npx
-            total = total + torch.mean(per_hyp * lrs) * weights["depth"]
+            total = total + torch.mean(per_hyp * scales) * weights["depth"]
             logs["depth"] = per_hyp * weights["depth"]
         if use_mask:
             per_hyp = sums[:, MASK_LANE] / (3.0 * npx)
-            total = total + torch.mean(per_hyp * lrs) * weights["mask"]
+            total = total + torch.mean(per_hyp * scales) * weights["mask"]
             logs["mask_selection"] = per_hyp * weights["mask"]
         logs.update({k: v.detach() for k, v in tab.telemetry.items()})
         return total, logs
@@ -639,16 +645,16 @@ def make_fused_loss(
     def bind_gt(g):
         gt6, gtd = gt_planes(g)
 
-        def fn(mtx: torch.Tensor):
-            return loss(mtx, gt6, gtd)
+        def fn(mtx: torch.Tensor, learning_rates=None):
+            return loss(mtx, gt6, gtd, learning_rates)
 
         return attach(fn, gt6, gtd)
 
     if not deferred:
         return bind_gt(gt)
 
-    def fn(mtx: torch.Tensor, gt):
-        return loss(mtx, *gt_planes(gt))
+    def fn(mtx: torch.Tensor, gt, learning_rates=None):
+        return loss(mtx, *gt_planes(gt), learning_rates)
 
     attach(fn, None, None)
     fn.bind_gt = bind_gt

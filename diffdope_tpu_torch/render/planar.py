@@ -6,14 +6,18 @@ table is (B, 32, n_slots) in bin-slot order, the layout the raster
 kernels read.  ``pack_binned`` is the plain version of the pack kernels
 K1/K2 (``render/pack_kernel.py``), which CPU tensors take.
 
-Binning differs from the reference in one way only: tiles are the GPU
+Binning differs from the reference in two ways: tiles are the GPU
 raster tile (``tile_hw``), and the frame is padded to that tile alone —
 the reference's 128-wide super-tile grid (``raster_v2._sub_split``) is a
-TPU lane artifact.
+TPU lane artifact; and inside :func:`union_over` (a sharded run's
+ranks) the bins are the union over every rank's hypotheses, where the
+reference's shards bin their own.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -27,6 +31,44 @@ XHI_LANE = PACKED_WIDTH - 3  # 29
 YLO_LANE = PACKED_WIDTH - 2  # 30
 YHI_LANE = PACKED_WIDTH - 1  # 31
 _Y_OPEN = 4.0  # beyond any pixel row's NDC y in (-1, 1)
+
+
+#: the process group whose hypotheses :func:`bin_triangles_planar` takes
+#: the union over (:func:`union_over`), or None: the batch's own; scoped
+#: to the block (and the thread) that set it
+_UNION_GROUP = contextvars.ContextVar("union_group", default=None)
+
+
+@contextlib.contextmanager
+def union_over(group):
+    """Within the block, :func:`bin_triangles_planar` bins the union over
+    the hypotheses of every rank of ``group`` (a ``torch.distributed``
+    group; one all-reduce a call, every rank calling in step), so each
+    rank of a sharded run bins, culls and lays out its table as the
+    unsharded run does.  A batch's bins are the union over its hypotheses
+    and the cull keeps a triangle that faces the camera in any of them,
+    so a rank's own union would change its hypotheses' renders (F1's back
+    faces win pixels) and the order of K2's sums."""
+    token = _UNION_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _UNION_GROUP.reset(token)
+
+
+def _union(lows, highs, flags):
+    """Minima, maxima and any-flags (each (T,)) over the union group's
+    ranks, in one all-reduce (MIN of the lows, the negated highs and the
+    negated flags)."""
+    import torch.distributed as dist
+
+    dtype = lows[0].dtype
+    packed = torch.stack(list(lows) + [-h for h in highs]
+                         + [-f.to(dtype) for f in flags])
+    dist.all_reduce(packed, op=dist.ReduceOp.MIN, group=_UNION_GROUP.get())
+    n_lo, n_hi = len(lows), len(highs)
+    return (list(packed[:n_lo]), [-h for h in packed[n_lo:n_lo + n_hi]],
+            [-f > 0.5 for f in packed[n_lo + n_hi:]])
 
 
 def corner_planes(pos_c: torch.Tensor, mvp: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -304,7 +346,8 @@ def bin_triangles_planar(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Conservative tile binning, union over the batch, y-sorted slots
     (``planar.py:394-546``, its fused-rank ordering).  ``margin_px`` widens
-    every triangle's pixel bounds (``pipeline.precompute_bins``).
+    every triangle's pixel bounds (``pipeline.precompute_bins``).  Inside
+    :func:`union_over` the union is over every rank's hypotheses.
 
     ``cull_backfaces`` drops triangles that are back-facing (det <= 0) in
     every hypothesis, unless a corner is behind the camera (then the sign
@@ -338,9 +381,13 @@ def bin_triangles_planar(
     behind = (
         _corner(behind_c, 0) | _corner(behind_c, 1) | _corner(behind_c, 2)
     ).any(dim=0)
-    valid = (det != 0.0).any(dim=0)
+    nonzero, front = (det != 0.0).any(dim=0), (det > 0.0).any(dim=0)
+    if _UNION_GROUP.get() is not None:
+        (px_min, py_min), (px_max, py_max), (behind, nonzero, front) = _union(
+            (px_min, py_min), (px_max, py_max), (behind, nonzero, front))
+    valid = nonzero
     if cull_backfaces:
-        valid = valid & ((det > 0.0).any(dim=0) | behind)
+        valid = valid & (front | behind)
 
     def tile_range(lo, hi, size, n):
         a = torch.floor(lo / size).clamp(0, n - 1).to(torch.int32)

@@ -1,8 +1,9 @@
-"""Synthetic scenes for tests, the bench and the chip smoke run (numpy only).
+"""Synthetic scenes for tests, the bench and the chip smoke run.
 
 Counterpart of ``diffdope_tpu/testing.py``: the same procedural icosphere
 (copied, not imported — importing the JAX package pulls in jax), the
-bench protocol's scene as plain numpy arrays, textured stand-ins from
+bench protocol's scene as plain numpy arrays, the synthetic refinement
+problem (:func:`synthetic_scene`, torch tensors), textured stand-ins from
 arrays, and minimal PNG, STL and glTF writers (:func:`write_png`,
 :func:`write_stl`, :func:`write_gltf`) for tests and smoke runs that must
 write such files where no cv2 is installed.
@@ -100,6 +101,71 @@ def bench_scene(
         "q0": q0.astype(np.float32),
         "t0": t0.astype(np.float32),
     }
+
+
+def synthetic_scene(
+    subdiv: int = 3,
+    resolution: Tuple[int, int] = (128, 128),
+    batchsize: int = 8,
+    seed: int = 0,
+    perturb_deg: float = 10.0,
+    perturb_trans: float = 0.08,
+    radius: float = 0.4,
+    distance: float = 3.0,
+    raster_impl: str = "auto",
+    device="cuda",
+) -> Dict:
+    """A whole synthetic refinement problem (``testing.py:68-131``) on
+    ``device``: an icosphere of radius ``radius`` with positional vertex
+    colours, its gt pose (a random axis and angle, ``distance`` in front
+    of the camera) and the gt render there, and the B initial poses, the
+    gt rotated by ``perturb_deg`` about a random axis and moved by
+    ``perturb_trans`` per axis.  The numpy draws are the reference's, in
+    its order, so ``q_gt``, ``t_gt`` and ``params0`` are its values.
+
+    ``raster_impl`` is :func:`render_batch`'s: 'reference' the brute
+    force, 'pallas' the kernels, 'auto' the brute force for at most 256
+    triangles.  Returns a dict with: render_fn (mtx -> renders), gt,
+    params0, q_gt, t_gt, proj, pos, tri, vtx_color, edge_adj, resolution.
+    """
+    import torch
+
+    from diffdope_tpu_torch.optimize import pose_matrix, pose_params
+    from diffdope_tpu_torch.render.pipeline import render_batch
+
+    h, w = resolution
+    f = 1.2 * max(h, w)
+    proj = torch.as_tensor(geo.projection_from_intrinsics(f, f, w / 2, h / 2, w, h, 0.01,
+                                                          100.0), dtype=torch.float32)
+    verts, faces = icosphere(subdiv)
+    pos = torch.as_tensor(verts * radius)
+    tri = torch.as_tensor(faces)
+    vtx_color = torch.as_tensor((verts * 0.5 + 0.5).astype(np.float32))
+    edge_adj = torch.as_tensor(build_edge_adjacency(faces))
+
+    def render_fn(mtx):
+        return render_batch(proj, mtx, pos, tri, resolution, vtx_color=vtx_color,
+                            raster_impl=raster_impl, edge_adj=edge_adj, device=device)
+
+    rng = np.random.default_rng(seed)
+    q_gt = geo.quat_from_axis_angle(rng.normal(size=3), rng.uniform(0, np.pi))
+    t_gt = np.array([0.0, 0.0, -distance])
+    mtx_gt, _, _ = pose_matrix(pose_params(q_gt, t_gt, 1, device))
+    with torch.no_grad():
+        gt_render = render_fn(mtx_gt)
+    gt = {"rgb": gt_render["rgb"][0], "segmentation": gt_render["mask"][0],
+          "depth": gt_render["depth"][0]}
+
+    dq = geo.quat_from_axis_angle(rng.normal(size=3), np.deg2rad(perturb_deg))
+    # the reference multiplies in float32
+    q0 = geo.quat_multiply(torch.as_tensor(dq, dtype=torch.float32),
+                           torch.as_tensor(q_gt, dtype=torch.float32)).numpy()
+    t0 = t_gt + rng.normal(size=3) * perturb_trans
+    params0 = pose_params(q0.astype(np.float32), t0.astype(np.float32), batchsize, device)
+
+    return dict(render_fn=render_fn, gt=gt, params0=params0, q_gt=q_gt, t_gt=t_gt,
+                proj=proj, pos=pos, tri=tri, vtx_color=vtx_color, edge_adj=edge_adj,
+                resolution=resolution)
 
 
 def spherical_uv(pos: np.ndarray) -> np.ndarray:

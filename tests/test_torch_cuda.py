@@ -1113,3 +1113,92 @@ def test_sweep_capacity_drops_no_pair_at_the_probe_poses(cuda):
             assert torch.isfinite(total)
             assert int(logs["_bin_overflow"]) == 0, (q, t, int(logs["_bin_need"]))
             assert int(logs["_bin_need"]) <= ctx["compact_total"]
+
+
+def test_render_img_composite_on_card_equals_plain_twins(cuda):
+    """``render_img``'s composite from the kernel route (K1 -> K3) equals,
+    byte for byte, the composite ``_compose_overlay`` builds from the plain
+    twins' render of the same poses (``check.plain_render``: no kernel
+    launched)."""
+    pytest.importorskip("cv2")
+    from diffdope_tpu_torch.config import ConfigNode
+    from diffdope_tpu_torch.kernels.check import plain_render
+
+    d = _diffdope_session(cuda, True)
+    d.cfg["render_images"] = ConfigNode({"nrow": 2, "final_width_batch": 300,
+                                         "crop_around_mask": True})
+    kernels.reset_launches()
+    for sel in ("rgb", "depth", "mask"):
+        img = d.render_img(render_selection=sel)
+        assert img.dtype == np.uint8 and img.ndim == 3
+    assert kernels.launches["pack_fwd"] == kernels.launches["raster_fwd"] == 1
+    mtx = torch.as_tensor(d.mtx_history[-1], device=cuda)
+    kernels.reset_launches()
+    with plain_render(), torch.no_grad():
+        plain = d._make_render_fn(layout="stacked")(mtx)
+    assert not any(kernels.launches.values()), kernels.launches
+    for sel in ("rgb", "depth", "mask"):
+        want = d._compose_overlay(plain[sel].cpu().numpy(), None, sel)
+        assert d.render_img(render_selection=sel).tobytes() == want.tobytes(), sel
+
+
+def _sharded_rank(rank, root, steps):
+    """One of two gloo ranks sharing the card: the bench problem's fused
+    loss, B=4 at distinct poses, its 2 hypotheses refined here."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from diffdope_tpu_torch import parallel
+
+    dist.init_process_group("gloo", init_method=f"file://{root}/rdv", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=60))
+    mesh = parallel.hypothesis_mesh(2, "cuda")
+    pb = bench_problem(RES, subdiv=2, batch=4, device=mesh.device)
+    kernels.reset_launches()
+    res = parallel.refine_sharded(distinct_poses(pb["params0"], 0.01), None, (), None,
+                                  pb["lrs"], pb["weights"], mesh, fused_loss_fn=pb["fn"],
+                                  nb_iterations=steps - 1, base_lr=0.02, lr_decay=0.1,
+                                  optimizer="adam")
+    torch.save({"mtx": res.mtx_history.cpu(), "total": res.total_loss.cpu(),
+                "launches": dict(kernels.launches), "device": str(mesh.device)},
+               f"{root}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def test_sharded_two_ranks_on_card_match_unsharded(cuda, tmp_path):
+    """Two gloo ranks on one card (NCCL refuses two ranks on a device), each
+    refining 2 of the 4 hypotheses through K1-K6: every rank returns the
+    global history, equal to the unsharded run's at the reference's
+    tolerances (mtx rtol 2e-4, atol 2e-5; total rtol 2e-4, atol 1e-6), the
+    poses bit for bit (the ranks bin over the group's union)."""
+    import torch.multiprocessing as mp
+
+    from diffdope_tpu_torch.optimize import refine
+
+    steps = 4
+    ctx = mp.spawn(_sharded_rank, args=(str(tmp_path), steps), nprocs=2, join=False)
+    for _ in range(60):  # five minutes
+        if ctx.join(timeout=5):  # raises when a rank fails
+            break
+    else:
+        for proc in ctx.processes:
+            proc.terminate()
+        pytest.fail("the ranks did not finish within 300 s")
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    pb = bench_problem(RES, subdiv=2, batch=4, device=cuda)
+    whole = refine(distinct_poses(pb["params0"], 0.01), None, (), None, pb["lrs"],
+                   pb["weights"], fused_loss_fn=pb["fn"], nb_iterations=steps - 1,
+                   base_lr=0.02, lr_decay=0.1, optimizer="adam")
+    for got in ranks:
+        assert got["device"].startswith("cuda")
+        for c in ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd_bf16", "loss_fwd",
+                  "loss_bwd_bf16"):
+            assert got["launches"][c] == steps, (c, got["launches"])
+        np.testing.assert_allclose(got["mtx"].numpy(), whole.mtx_history.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(got["total"].numpy(), whole.total_loss.cpu().numpy(),
+                                   rtol=2e-4, atol=1e-6)
+    assert torch.equal(ranks[0]["mtx"], ranks[1]["mtx"])
+    # the ranks bin over the group's union: the unsharded steps bit for bit
+    assert torch.equal(ranks[0]["mtx"], whole.mtx_history.cpu())

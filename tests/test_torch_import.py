@@ -1,6 +1,9 @@
-"""The port imports without jax and never reaches into the JAX package;
-nor does it import cv2, PIL or torchvision (its image reader is its own,
-``png.py``: the card's host has none of them)."""
+"""The port imports without jax and never reaches into the JAX package,
+PIL or torchvision (its image reader is its own, ``png.py``).  The
+picture libraries, cv2, matplotlib and imageio, are imported only inside
+the functions that draw (``viz.py`` and the two examples that write
+pictures), so importing any module of the port loads none of them: the
+card's host has cv2 but neither matplotlib nor imageio."""
 
 import ast
 import pathlib
@@ -14,8 +17,8 @@ REF = PKG.parent / "diffdope_tpu"
 #: the port's modules that carry a module of the reference, under its name
 PORTED = (
     "bop.py", "camera.py", "config.py", "diffdope.py", "geometry.py", "image.py",
-    "losses.py", "mesh.py", "metrics.py", "object3d.py", "optimize.py",
-    "testing.py", "render/antialias.py", "render/fused_loss.py",
+    "losses.py", "mesh.py", "metrics.py", "object3d.py", "optimize.py", "parallel.py",
+    "testing.py", "viz.py", "render/antialias.py", "render/fused_loss.py",
     "render/gather_rows.py", "render/interpolate.py", "render/pack_kernel.py",
     "render/pipeline.py", "render/planar.py", "render/raster_v3.py",
     "render/rasterize.py", "render/setup_tris.py", "render/shade.py",
@@ -38,47 +41,64 @@ def test_torch_package_imports_without_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+#: never imported by the port
+FORBIDDEN = ("jax", "jaxlib", "optax", "diffdope_tpu", "PIL", "torchvision")
+#: imported only inside functions, and only by the modules that draw
+PICTURES = ("cv2", "matplotlib", "imageio")
+DRAWING = ("viz.py", "examples/simple_scene.py", "examples/appearance_refinement.py")
+
+
+def _imports(nodes):
+    for node in nodes:
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield (node.module or "").split(".")[0]
+
+
 @pytest.mark.parametrize(
     "path", sorted(str(p.relative_to(PKG)) for p in PKG.rglob("*.py"))
 )
 def test_torch_sources_import_no_jax(path):
     tree = ast.parse((PKG / path).read_text())
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom):
-            names = [node.module or ""]
-        else:
-            continue
-        for name in names:
-            root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "optax", "diffdope_tpu", "cv2", "PIL",
-                                "torchvision"), (path, name)
+    for root in _imports(ast.walk(tree)):
+        assert root not in FORBIDDEN, (path, root)
+    in_functions = {id(n) for f in ast.walk(tree)
+                    if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+                    for n in ast.walk(f)}
+    for root in _imports(n for n in ast.walk(tree) if id(n) not in in_functions):
+        assert root not in PICTURES, (path, root, "imported at module level")
+    if path not in DRAWING:
+        for root in _imports(ast.walk(tree)):
+            assert root not in PICTURES, (path, root)
 
 
 def test_torch_bop_entry_points_import_without_jax_or_cv2():
-    """``bop.py`` and the BOP scripts, imported and their argument parsers
-    run (``--help``), pull in neither jax, the JAX package nor cv2; the
+    """``bop.py`` and every script, imported and their argument parsers run
+    (``--help``), pull in neither jax, the JAX package nor cv2; the
     scripts sit where the reference's do, by name."""
     code = (
         "import sys, contextlib, io\n"
         "from diffdope_tpu_torch import bop\n"
-        "from diffdope_tpu_torch.examples import run_bop_scene, run_bop_sweep\n"
-        "for main in (run_bop_scene.main, run_bop_sweep.main):\n"
+        "from diffdope_tpu_torch.examples import (appearance_refinement, multichip_refine,\n"
+        "    run_bop_scene, run_bop_sweep, simple_scene)\n"
+        "for main in (run_bop_scene.main, run_bop_sweep.main, simple_scene.main,\n"
+        "             appearance_refinement.main, multichip_refine.main):\n"
         "    with contextlib.redirect_stdout(io.StringIO()):\n"
         "        try:\n"
         "            main(['--help'])\n"
         "        except SystemExit as e:\n"
         "            assert e.code == 0, e.code\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'diffdope_tpu', 'cv2', 'PIL', 'torchvision')]\n"
+        " ('jax', 'diffdope_tpu', 'cv2', 'matplotlib', 'imageio', 'PIL', 'torchvision')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=PKG.parent)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    for name in ("run_bop_scene.py", "run_bop_sweep.py"):
+    for name in ("run_bop_scene.py", "run_bop_sweep.py", "simple_scene.py",
+                 "appearance_refinement.py", "multichip_refine.py"):
         assert (PKG / "examples" / name).exists(), name
         assert (PKG.parent / "examples" / name).exists(), name
 
