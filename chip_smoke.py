@@ -192,15 +192,24 @@ result line):
    argmin, the telemetry phase 5's (the ranks bin over their union, so
    the table's counters are the same on every rank), both ranks the same
    global result, each rank's K1-K6 launched on its 4 hypotheses only
-   (K1's batch extent), bit-identity printed; (b)
-   ``examples.multichip_refine`` under ``torch.distributed.run
-   --nproc-per-node 2`` at the JAX script's defaults (B=64, 400x400, 50
-   Adam steps, icosphere(3): the uniform-K table, K7), rank 0's global
-   histories (``--out``) held to the same problem refined unsharded in
-   this process at the same tolerances, the same best hypothesis,
-   bit-identity printed; each wall time beside the unsharded one for the
-   same work (two ranks sharing one card: the cost of the collectives
-   and of the sharing, not a speedup).
+   (K1's batch extent), bit-identity printed; (b) then, on the same two
+   ranks, ``examples.multichip_refine.main(["--out", ...])`` in
+   torchrun's environment variables (no second launch) at the JAX
+   script's defaults (B=64, 400x400, 50 Adam steps, icosphere(3): the
+   uniform-K table, K7), rank 0's global histories held to the same
+   problem refined unsharded in this process at the same tolerances, the
+   same best hypothesis, bit-identity printed; each wall time beside the
+   unsharded one for the same work (two ranks sharing one card: the cost
+   of the collectives and of the sharing, not a speedup);
+20. the reference's last public surface on the card: ``DiffDope`` from
+   ``load_config().copy()`` with ``tpu.roi_crop`` deleted (its default
+   'auto' applies: the fused loss crops), on the stand-in loaded at scale
+   1 and brought to the configured scale by ``Mesh.scaled``, after the
+   no-op ``cuda()`` of the session, its camera and its object, 5 SGD
+   steps (``AUTO_HYPER``) on the fused route: K1-K6 launched and nothing
+   else, the session still on the card, the source config unchanged
+   (its YAML text), ``Object3D.forward()`` the scaled vertices, the loss
+   falls.
 
 K5/K6's colour lane (with and without the depth plane) and K1/K2 at the uv
 table's two channels are held to their plain versions at the test scene
@@ -322,7 +331,7 @@ BOP_T_MM = ([-161.16877980209404, 206.22094040904116, 747.151333695172],
 BOP_PERTURB = (10.0, 40.0)
 #: scene_camera.json's depth_scale (YCB-V's: the depth PNG in 0.1 mm)
 BOP_DEPTH_SCALE = 0.1
-#: phase 19 (a): the two ranks' deadline, start to exit (they take ~20 s)
+#: phase 19: the two ranks' deadline, start to exit ((a) then (b): ~30-40 s)
 SPAWN_DEADLINE_S = 300
 
 
@@ -394,9 +403,10 @@ def check_all(fn, mtx, d_sums, reps=0):
 
 
 def diffdope_session(fused: bool, offset=None, tpu=None, losses=None, hyper=None,
-                     mesh=None, device="cuda", resize=None):
-    """A DiffDope on ``device`` at ``DEFAULT_CONFIG`` (``tpu``, ``losses``
-    and ``hyper`` entries overriding its groups; ``mesh`` in place of the
+                     mesh=None, device="cuda", resize=None, cfg=None):
+    """A DiffDope on ``device`` at ``DEFAULT_CONFIG`` or ``cfg`` (a
+    ConfigNode the session takes and changes; ``tpu``, ``losses`` and
+    ``hyper`` entries overriding its groups; ``mesh`` in place of the
     configured model; ``resize`` in place of the configured image_resize):
     the scene is the port's render at the configured pose, the init that
     pose moved by ``offset`` (default ``INIT_OFFSET``).  Returns the
@@ -418,7 +428,7 @@ def diffdope_session(fused: bool, offset=None, tpu=None, losses=None, hyper=None
     from diffdope_tpu_torch.render.pipeline import compact_capacity, render_batch
 
     offset = INIT_OFFSET if offset is None else offset
-    cfg = ConfigNode(copy.deepcopy(DEFAULT_CONFIG))
+    cfg = ConfigNode(copy.deepcopy(DEFAULT_CONFIG)) if cfg is None else cfg
     cfg.object3d.model_path = str(HERE / cfg.object3d.model_path)
     cfg.tpu.fused_loss = fused
     for key, value in (tpu or {}).items():
@@ -2117,16 +2127,23 @@ def viz_phase(dd, gpu: str) -> None:
         print(f"phase 18: plot_losses {None if plot is None else plot.shape}", flush=True)
 
 
-def sharded_rank(rank: int, root: str) -> None:
-    """Phase 19 (a), one of two gloo ranks sharing the card: DiffDope at
-    phase 5's configuration with ``tpu.mesh_axis: 2``; what it got to
-    ``root/rank<r>.pt``."""
+def sharded_rank(rank: int, root: str, port: int) -> None:
+    """Phase 19 on one of two gloo ranks sharing the card: (a) DiffDope at
+    phase 5's configuration with ``tpu.mesh_axis: 2``, what it got to
+    ``root/rank<r>.pt``; then (b) ``multichip_refine.main(["--out",
+    ...])`` in torchrun's environment (rendezvous at ``port``), its
+    printed lines and wall time to ``root/rank<r>_b.pt`` and rank 0's
+    histories to ``root/multichip.npz``."""
+    import contextlib
     import datetime
+    import io
+    import os
 
     import torch
     import torch.distributed as dist
 
     from diffdope_tpu_torch import kernels
+    from diffdope_tpu_torch.examples import multichip_refine
     from diffdope_tpu_torch.render import pack_kernel
 
     dist.init_process_group("gloo", init_method=f"file://{root}/rendezvous", rank=rank,
@@ -2154,11 +2171,24 @@ def sharded_rank(rank: int, root: str) -> None:
                 "launches": dict(kernels.launches), "extents": sorted(set(extents)),
                 "device": str(dd.device)}, f"{root}/rank{rank}.pt")
     dist.destroy_process_group()
+    pack_kernel.pack_fwd = pack_fwd
+    del dd
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                      LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        multichip_refine.main(["--out", f"{root}/multichip.npz"])
+    dist.destroy_process_group()
+    torch.save({"stdout": out.getvalue(), "run_s": time.perf_counter() - t0},
+               f"{root}/rank{rank}_b.pt")
 
 
 def sharded_phase(dd_f, gpu: str) -> None:
-    """Phase 19: (a) DiffDope sharded over two ranks against phase 5's
-    unsharded run; (b) the multichip example under torch.distributed.run."""
+    """Phase 19, on two spawned ranks: (a) DiffDope sharded over them
+    against phase 5's unsharded run; (b) then the multichip example's
+    ``main`` on the same ranks against its problem refined unsharded."""
     import socket
     import tempfile
 
@@ -2169,16 +2199,25 @@ def sharded_phase(dd_f, gpu: str) -> None:
     from diffdope_tpu_torch.examples import multichip_refine
     from diffdope_tpu_torch.optimize import argmin_hypothesis, refine
 
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        ctx = mp.spawn(sharded_rank, args=(root,), nprocs=2, join=False)
+        ctx = mp.spawn(sharded_rank, args=(root, port), nprocs=2, join=False)
         while not ctx.join(timeout=5):  # raises when a rank fails
             if time.perf_counter() - t0 > SPAWN_DEADLINE_S:
                 for proc in ctx.processes:
                     proc.terminate()
-                fail(f"phase 19 (a): the ranks did not finish within {SPAWN_DEADLINE_S} s")
+                fail(f"phase 19: the ranks did not finish within {SPAWN_DEADLINE_S} s")
         spawn_s = time.perf_counter() - t0
         ranks = [torch.load(Path(root) / f"rank{r}.pt", weights_only=False) for r in range(2)]
+        b0 = torch.load(Path(root) / "rank0_b.pt", weights_only=False)
+        out = Path(root) / "multichip.npz"
+        if not out.exists():
+            fail(f"phase 19 (b): rank 0 wrote no result: {b0['stdout'][-2000:]}")
+        with np.load(out) as saved:
+            got_b = {k: saved[k] for k in saved.files}
     want_mtx, want_total = dd_f.mtx_history, dd_f._result.total_loss.cpu().numpy()
     for r, got in enumerate(ranks):
         print(f"phase 19 (a) rank {r} ({got['device']}): run_optimization {got['wall']:.4f} s, "
@@ -2211,37 +2250,20 @@ def sharded_phase(dd_f, gpu: str) -> None:
             and np.array_equal(ranks[0]["total"], ranks[1]["total"])
             and np.array_equal(ranks[0]["pose"], ranks[1]["pose"])):
         fail("phase 19 (a): the two ranks returned different global results")
-    print(f"phase 19 (a): DiffDope over 2 ranks on one card: spawn to results "
-          f"{spawn_s:.4f} s, run_optimization {max(r['wall'] for r in ranks):.4f} s, kept "
+    print(f"phase 19: DiffDope, then multichip_refine, over 2 ranks on one card: spawn "
+          f"to results {spawn_s:.4f} s; (a) run_optimization "
+          f"{max(r['wall'] for r in ranks):.4f} s, kept "
           f"run {max(r['kept_s'] for r in ranks):.4f} s, against phase 5's unsharded kept run "
           f"{dd_f.last_run_stats['wall_time_s']:.4f} s; bit-identical to phase 5: mtx_history "
           f"{np.array_equal(ranks[0]['mtx'], want_mtx)}, total loss "
           f"{np.array_equal(ranks[0]['total'], want_total)} [{gpu}]", flush=True)
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    with tempfile.TemporaryDirectory() as root:
-        out = Path(root) / "multichip.npz"
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
-               "--master-addr", "127.0.0.1", "--master-port", str(port),
-               "-m", "diffdope_tpu_torch.examples.multichip_refine", "--out", str(out)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
-        run_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr, flush=True)
-            fail(f"phase 19 (b): multichip_refine under torch.distributed.run exited "
-                 f"{proc.returncode}")
-        if not out.exists():
-            fail(f"phase 19 (b): rank 0 wrote no result: {proc.stdout[-2000:]}")
-        with np.load(out) as saved:
-            got = {k: saved[k] for k in saved.files}
-    lines = proc.stdout.splitlines()
+    got, run_s = got_b, b0["run_s"]
+    lines = b0["stdout"].splitlines()
     wall = [ln for ln in lines if " steps on 2 rank(s): " in ln]
     best = [ln for ln in lines if ln.startswith("best hypothesis")]
     if len(wall) != 1 or len(best) != 1:
-        fail(f"phase 19 (b): unexpected output: {proc.stdout[-2000:]}")
+        fail(f"phase 19 (b): unexpected output: {b0['stdout'][-2000:]}")
     sharded_s = float(wall[0].split(": ")[1].split("s")[0])
 
     args = multichip_refine.parse_args([])
@@ -2263,7 +2285,8 @@ def sharded_phase(dd_f, gpu: str) -> None:
                            / (1e-6 + 2e-4 * np.abs(want_total))))
     print(f"phase 19 (b): multichip_refine (B={args.batchsize}, {args.resolution}, "
           f"{args.iterations} Adam steps) over 2 ranks on one card: {lines[0]}; refinement "
-          f"{sharded_s:.4f} s (the ranks' first launches included), command {run_s:.4f} s; "
+          f"{sharded_s:.4f} s (the ranks' first launches included), main() on rank 0 "
+          f"{run_s:.4f} s; "
           f"{best[0]}; unsharded in this process {whole_s:.4f} s, best hypothesis "
           f"{want_best}, final loss {float(want_total[-1]):.5f}; against it: mtx_history "
           f"{gap_mtx:.3e} and total loss {gap_tot:.3e} of their allowances, bit-identical: "
@@ -2271,6 +2294,62 @@ def sharded_phase(dd_f, gpu: str) -> None:
           f"{np.array_equal(got['total_loss'], want_total)} [{gpu}]", flush=True)
     if not (gap_mtx <= 1.0 and gap_tot <= 1.0) or int(got["best"]) != want_best:
         fail("phase 19 (b): the sharded multichip_refine differs from its unsharded run")
+
+
+def host_api_phase(gpu: str) -> None:
+    """Phase 20: DiffDope from ``load_config().copy()`` with
+    ``tpu.roi_crop`` deleted (its default applies), on the stand-in loaded
+    at scale 1 and brought to the configured scale by ``Mesh.scaled``,
+    after ``cuda()`` on the session, its camera and its object (no-ops:
+    the session stays on the card), ``AUTO_HYPER``'s 5 SGD steps on the
+    fused route: K1-K6 launched and nothing else, the source config
+    unchanged, ``Object3D.forward()`` the scaled arrays, the loss falls."""
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch import kernels
+    from diffdope_tpu_torch.config import load_config
+    from diffdope_tpu_torch.mesh import load_mesh
+
+    t_phase = time.perf_counter()
+    src = load_config()
+    text = src.yaml()
+    cfg = src.copy()
+    del cfg.tpu.roi_crop
+    unit = load_mesh(HERE / DEFAULT_CONFIG["object3d"]["model_path"])
+    mesh = unit.scaled(cfg.object3d.scale)
+    dd, points, mtx_gt = diffdope_session(True, hyper=AUTO_HYPER, mesh=mesh, cfg=cfg)
+    for part in (dd, dd.camera, dd.object3d):
+        part.cuda()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    dd.run_optimization()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    total = dd._result.total_loss.cpu()
+    add0 = add_to(points, mtx_gt, dd.object3d.initial_matrix())
+    add1 = add_to(points, mtx_gt, dd.get_pose())
+    crop = dd._make_fused_loss_fn(dd.gt_tensors).crop
+    print(f"phase 20: DiffDope from load_config().copy() without tpu.roi_crop (crop "
+          f"{crop}), the stand-in by Mesh.scaled({cfg.object3d.scale}), {total.shape[0]} "
+          f"steps on {dd.device}: run_optimization {wall:.4f} s, phase "
+          f"{time.perf_counter() - t_phase:.4f} s; loss {float(total[0]):.6f} -> "
+          f"{float(total[-1]):.6f}; ADD {add0:.6f} -> {add1:.6f}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } [{gpu}]", flush=True)
+    check_launches("phase 20", launches, COMPACT_FUSED, set(launches) - set(COMPACT_FUSED))
+    if dd.device.type != "cuda":
+        fail(f"phase 20: the session runs on {dd.device} after cuda()")
+    if crop is None:
+        fail("phase 20: without tpu.roi_crop the fused loss has no crop (default 'auto')")
+    if src.yaml() != text or "roi_crop" not in src.tpu or "roi_crop" in cfg.tpu:
+        fail("phase 20: the copy's deleted key, or the session, changed the source config")
+    pos = dd.object3d.forward()["pos"]
+    if not np.array_equal(pos, unit.pos * cfg.object3d.scale) or np.array_equal(pos, unit.pos):
+        fail("phase 20: Object3D.forward() does not return the scaled vertices")
+    if not bool(total.isfinite().all()) or not float(total[-1]) < float(total[0]):
+        fail("phase 20: the loss did not fall")
 
 
 def main() -> None:
@@ -2562,6 +2641,10 @@ def main() -> None:
     viz_phase(dd_f, gpu)
     sharded_phase(dd_f, gpu)
     del dd_f
+    torch.cuda.empty_cache()
+
+    # ---- the reference's last public surface: the config's copy, Mesh.scaled -
+    host_api_phase(gpu)
 
     # launches on the path that runs each kernel: the bench main path (its
     # bf16 lane of K6/K4), the depth phase on the compact table (K4 with

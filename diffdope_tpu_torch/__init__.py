@@ -21,6 +21,7 @@ from diffdope_tpu_torch.geometry import (
     opengl_to_opencv,
     projection_from_intrinsics,
     quat_from_axis_angle,
+    quat_from_matrix33,
     quat_multiply,
     quat_normalize,
     quat_rotate,
@@ -28,8 +29,17 @@ from diffdope_tpu_torch.geometry import (
     xfm_vectors,
 )
 from diffdope_tpu_torch.image import Image, Scene
-from diffdope_tpu_torch.losses import select_losses
+from diffdope_tpu_torch.losses import (
+    LOSS_REGISTRY,
+    dist_batch_lr,
+    l1_depth_with_mask,
+    l1_mask,
+    l1_rgb_with_mask,
+    register_loss,
+    select_losses,
+)
 from diffdope_tpu_torch.mesh import Mesh, build_edge_adjacency, load_mesh
+from diffdope_tpu_torch.metrics import add_auc, add_metric, adds_metric, object_diameter
 from diffdope_tpu_torch.object3d import Object3D
 from diffdope_tpu_torch.optimize import (
     RefineResult,

@@ -46,3 +46,10 @@ class Camera:
         self.im_width = int(percentage * self.im_width)
         self.im_height = int(percentage * self.im_height)
         self.cam_proj = self.get_projection_matrix()
+
+    def set_batchsize(self, batchsize: int) -> None:  # noqa: ARG002
+        """No-op: one projection serves every hypothesis."""
+
+    def cuda(self) -> None:
+        """No-op: the projection goes to the device of the entry point that
+        uses it (its ``device=``, the card by default)."""

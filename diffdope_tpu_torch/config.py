@@ -3,11 +3,13 @@
 Counterpart of ``diffdope_tpu/config.py``: an attribute-accessible nested
 dict (``cfg.camera.fx``, ``**cfg.camera``), loaded from YAML, with
 hydra-like override strings.  ``yaml`` is imported only where a file or an
-override string is parsed, so a config built from a dict needs no PyYAML.
+override string is parsed or the config is written out
+(:meth:`ConfigNode.yaml`), so a config built from a dict needs no PyYAML.
 """
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 from typing import Any, Iterable, Mapping, Optional, Sequence, Union
 
@@ -47,6 +49,12 @@ class ConfigNode(dict):
     def __setattr__(self, name: str, value: Any) -> None:
         self[name] = value
 
+    def __delattr__(self, name: str) -> None:
+        try:
+            del self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
     def merge(self, other: Mapping[str, Any]) -> "ConfigNode":
         """Recursively merge ``other`` into self (other wins)."""
         for k, v in other.items():
@@ -73,6 +81,29 @@ class ConfigNode(dict):
                 return default
             node = node[p]
         return node
+
+    def to_dict(self) -> dict:
+        """Plain dicts all the way down, lists of nodes included."""
+        out: dict = {}
+        for k, v in self.items():
+            if isinstance(v, ConfigNode):
+                out[k] = v.to_dict()
+            elif isinstance(v, list):
+                out[k] = [x.to_dict() if isinstance(x, ConfigNode) else x for x in v]
+            else:
+                out[k] = v
+        return out
+
+    def copy(self) -> "ConfigNode":  # type: ignore[override]
+        """A deep copy, itself a ConfigNode (not ``dict.copy``'s shallow
+        dict)."""
+        return ConfigNode(copy.deepcopy(self.to_dict()))
+
+    def yaml(self) -> str:
+        """The config as YAML text, in key order."""
+        import yaml
+
+        return yaml.safe_dump(self.to_dict(), sort_keys=False)
 
 
 def load_config(

@@ -546,7 +546,7 @@ class DiffDope:
                 result = refine_sharded(
                     params0, render_fn, tuple(self.loss_functions), gt,
                     self.learning_rates, self.loss_weights,
-                    hypothesis_mesh(self.mesh_axis, self.device),
+                    hypothesis_mesh(n_devices=self.mesh_axis, device=self.device),
                     extra_params=extra_params, nb_iterations=self.nb_iterations, **kw)
             elif restarts > 0 and not extra_params:
                 deg = float(tpu_cfg.get("restart_jitter_deg", 10.0))
@@ -827,3 +827,7 @@ class DiffDope:
         if batch_index == -1:
             batch_index = self.get_argmin()
         return viz.plot_losses_image(self.losses_values, batch_index)
+
+    def cuda(self) -> None:
+        """No-op (``diffdope.py:999``): the session runs on its ``device``,
+        given when it is built."""

@@ -111,7 +111,7 @@ def main(argv=None):
     from diffdope_tpu_torch.optimize import argmin_hypothesis, pose_matrix
     from diffdope_tpu_torch.parallel import hypothesis_mesh, refine_sharded
 
-    mesh = hypothesis_mesh(args.devices, args.device)
+    mesh = hypothesis_mesh(n_devices=args.devices, device=args.device)
     n = mesh.size
     problem = build_problem(args, mesh.device)
     if mesh.rank == 0:

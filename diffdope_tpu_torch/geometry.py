@@ -37,13 +37,16 @@ def matmul44(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def xfm_points(points: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
+def xfm_points(points: torch.Tensor, matrix: torch.Tensor,
+               use_python: bool = False) -> torch.Tensor:
     """Transform (..., N, 3) points by (..., 4, 4) matrices -> (..., N, 4),
     the homogeneous w kept (``geometry.py:289-312``, the reference's
     ``dd.xfm_points``).  True float32 (the reference's
     ``precision="highest"``): products summed in a fixed order, never a
     BLAS product, so TF32 cannot apply and every device gives the same
-    bits.  Differentiable in both arguments."""
+    bits.  Differentiable in both arguments.  ``use_python`` is accepted
+    and ignored, as in the reference: this is the only path."""
+    del use_python
     p = [points[..., c] for c in range(3)]  # (..., N) each
 
     def m(r, c):  # (..., 1): broadcasts against (..., N)
@@ -54,10 +57,12 @@ def xfm_points(points: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=-1)
 
 
-def xfm_vectors(vectors: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
+def xfm_vectors(vectors: torch.Tensor, matrix: torch.Tensor,
+                use_python: bool = False) -> torch.Tensor:
     """Transform (..., N, 3) direction vectors by the rotation part of
     (..., 4, 4) matrices -> (..., N, 3) (``geometry.py:315-324``), in the
-    fixed order of :func:`xfm_points`."""
+    fixed order of :func:`xfm_points`; ``use_python`` is ignored."""
+    del use_python
     v = [vectors[..., c] for c in range(3)]
     out = [(matrix[..., r, 0, None] * v[0] + matrix[..., r, 1, None] * v[1])
            + matrix[..., r, 2, None] * v[2] for r in range(3)]
@@ -190,23 +195,27 @@ def _rotation_from_any(rotation) -> np.ndarray:
     raise ValueError(f"rotation must be quat(4), flat 3x3(9) or (3,3); got {rot.shape}")
 
 
-def opencv_to_opengl(position, rotation) -> Tuple[np.ndarray, np.ndarray]:
+def opencv_to_opengl(position, rotation,
+                     conjugate_flip: bool = True) -> Tuple[np.ndarray, np.ndarray]:
     """An object pose in the OpenCV camera frame -> (position (3,), quat
-    (4,)) in the OpenGL frame, float64: ``R_gl = F R_cv F``, ``t_gl = F t``
-    with F = diag(1, -1, -1) (the reference's default conjugate flip,
-    ``geometry.py:195-220``)."""
+    (4,)) in the OpenGL frame, float64 (``geometry.py:195-220``):
+    ``t_gl = F t`` with F = diag(1, -1, -1), and ``R_gl = F R_cv F`` (the
+    conjugate flip, the default) or, with ``conjugate_flip=False``, the
+    single-sided ``R_gl = F R_cv``."""
     p = np.asarray(position, dtype=np.float64).reshape(3)
     f = CV_TO_GL_FLIP
-    return f @ p, quat_from_matrix33(f @ _rotation_from_any(rotation) @ f)
+    r_cv = _rotation_from_any(rotation)
+    return f @ p, quat_from_matrix33(f @ r_cv @ f if conjugate_flip else f @ r_cv)
 
 
-def opengl_to_opencv(matrix44) -> np.ndarray:
+def opengl_to_opencv(matrix44, conjugate_flip: bool = True) -> np.ndarray:
     """Inverse of :func:`opencv_to_opengl` on a 4x4 OpenGL-frame pose ->
-    the 4x4 OpenCV/BOP-frame pose (``geometry.py:223-238``)."""
+    the 4x4 OpenCV/BOP-frame pose (``geometry.py:223-238``): ``F R F``, or
+    ``F.T R`` with ``conjugate_flip=False``."""
     m = np.asarray(matrix44, dtype=np.float64)
     f = CV_TO_GL_FLIP
     out = np.eye(4)
-    out[:3, :3] = f @ m[:3, :3] @ f
+    out[:3, :3] = f @ m[:3, :3] @ f if conjugate_flip else f.T @ m[:3, :3]
     out[:3, 3] = f @ m[:3, 3]
     return out
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import logging
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -800,14 +800,21 @@ class Mesh:
     def has_textured_map(self) -> bool:
         return self.tex is not None
 
-
-
     def enable_gradients_texture(self) -> None:
         """Refine the appearance with the pose (``mesh.py:833-841``):
         ``DiffDope.run_optimization`` then optimizes the texture map under
         ``tpu.texture_mode: exact``, else the corner or vertex colours, and
         writes the refined leaf back here."""
         self.optimize_appearance = True
+
+    def scaled(self, scale: float) -> "Mesh":
+        """A copy with ``pos`` (padding rows included) times ``scale`` and
+        the bounding volume of the true vertices recomputed, then scaled
+        (``mesh.py:843-845``).  ``dimensions`` and ``center_point`` are
+        kept as they are, as the reference keeps them."""
+        bv = np.stack([self.pos[: self.num_vertices].min(0),
+                       self.pos[: self.num_vertices].max(0)])
+        return replace(self, pos=self.pos * scale, bounding_volume=bv * scale)
 
 
 def load_mesh(path, scale: float = 1.0, vertex_pad: int = 8, triangle_pad: int = 8,

@@ -79,3 +79,32 @@ class Object3D:
 
     def set_batchsize(self, batchsize: int) -> None:
         self.batchsize = batchsize
+
+    def reset_pose(self) -> None:
+        """No-op: ``run_optimization`` builds the parameters from the stored
+        pose on every run (``object3d.py:96-98``)."""
+
+    def cuda(self) -> None:
+        """No-op: each tensor goes to the device of the entry point that
+        uses it (its ``device=``, the card by default)."""
+
+    def forward(self) -> dict:
+        """The mesh's arrays (``pos``, ``pos_idx``, ``vtx_color``, ``tex``,
+        ``uv``, ``uv_idx``, ``vtx_normals``, where present) and copies of
+        the initial ``quat`` and ``trans``, all numpy (``object3d.py:103-114``),
+        for user code that inspects the object."""
+        out = {}
+        if self.mesh is not None:
+            for key in ("pos", "pos_idx", "vtx_color", "tex", "uv", "uv_idx", "vtx_normals"):
+                val = getattr(self.mesh, key, None)
+                if val is not None:
+                    out[key] = val
+        out["quat"] = self._rotation.copy()
+        out["trans"] = self._position.copy()
+        return out
+
+    __call__ = forward
+
+    def __repr__(self):
+        return (f"Object3D(pos={self._position}, quat={self._rotation}, "
+                f"batch={self.batchsize}, mesh={getattr(self.mesh, 'path_model', None)})")

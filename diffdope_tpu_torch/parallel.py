@@ -84,8 +84,8 @@ def rank_device(device=None) -> torch.device:
     return dev
 
 
-def hypothesis_mesh(n: Optional[int] = None, device=None) -> HypothesisMesh:
-    """The default process group as a hypothesis mesh of ``n`` ranks
+def hypothesis_mesh(n_devices: Optional[int] = None, device=None) -> HypothesisMesh:
+    """The default process group as a hypothesis mesh of ``n_devices`` ranks
     (the reference's 1-D device mesh, ``parallel.py:44-49``).
 
     A group already initialized is taken as it is.  Else it is initialized
@@ -95,8 +95,8 @@ def hypothesis_mesh(n: Optional[int] = None, device=None) -> HypothesisMesh:
     the CPU (``device`` "cpu"); a caller that wants another timeout than
     torch's initializes the group itself.  Raises RuntimeError when there is
     neither a group nor that environment, and ValueError when the group's
-    size is not ``n``.  On a card, local rank 0 builds the kernels before
-    any other rank loads them."""
+    size is not ``n_devices``.  On a card, local rank 0 builds the kernels
+    before any other rank loads them."""
     import torch.distributed as dist
 
     if not dist.is_available():
@@ -112,8 +112,9 @@ def hypothesis_mesh(n: Optional[int] = None, device=None) -> HypothesisMesh:
         own_cards = dev.type == "cuda" and torch.cuda.device_count() >= _local_world()
         dist.init_process_group("nccl" if own_cards else "gloo", init_method="env://")
     size, rank = dist.get_world_size(), dist.get_rank()
-    if n is not None and size != int(n):
-        raise ValueError(f"hypothesis_mesh: the process group has {size} ranks, not {n}")
+    if n_devices is not None and size != int(n_devices):
+        raise ValueError(
+            f"hypothesis_mesh: the process group has {size} ranks, not {n_devices}")
     dev = rank_device(device)
     if dev.type == "cuda":
         from diffdope_tpu_torch import kernels

@@ -389,7 +389,8 @@ def _raster(table: _Table, frame_hw, roi):
     (``RasterBinned``) for the uniform one, whose window is the whole
     frame padded to whole tiles."""
     if table.off_c is None:
-        ids, rows = raster_gather_rows_binned(table.packed, table.counts, roi[2:], TILE_HW)
+        ids, rows = raster_gather_rows_binned(table.packed, table.counts, roi[2:], TILE_HW,
+                                              padded=True)
         if tuple(ids.shape[1:]) != tuple(frame_hw):
             raise ValueError(f"the uniform table covers {tuple(ids.shape[1:])}, "
                              f"not the window {frame_hw}")
@@ -746,7 +747,7 @@ def max_tile_count(proj_cam, pos, pos_idx, mtx, resolution, device="cuda") -> in
 @torch.no_grad()
 def precompute_bins(proj_cam, mtx0, pos, pos_idx, resolution,
                     max_tris_per_tile: Union[int, str] = "auto", margin_px: float = 24.0,
-                    device="cuda") -> Bins:
+                    cull_backfaces: bool = False, device="cuda") -> Bins:
     """One binning for a whole refinement (``pipeline.py:861-935``): the
     mesh binned at the initial poses ``mtx0`` (B, 4, 4), union over the
     batch, on the port's ``TILE_HW`` tiles, each triangle's pixel bounds
@@ -760,9 +761,10 @@ def precompute_bins(proj_cam, mtx0, pos, pos_idx, resolution,
     (``tests/test_torch_refine_options.py`` holds the ids equal in both
     packages).  ``max_tris_per_tile`` 'auto' sizes K to the fullest bin
     (rounded up to 128); a given K that drops a (tile, triangle) pair
-    raises, as the reference's does.  No back face is culled, as the
-    reference's ``DiffDope`` bins none: a face that is back-facing at the
-    init may face the camera later."""
+    raises, as the reference's does.  ``cull_backfaces`` drops the faces
+    back-facing at every initial pose (:func:`planar.bin_triangles_planar`);
+    ``DiffDope`` culls none, as the reference's bins none: a face that is
+    back-facing at the init may face the camera later."""
     device = torch.device(device)
     mesh = _Mesh(proj_cam, pos, pos_idx, None, None, None, device)
     mtx0 = tensor(mtx0, device).reshape(-1, 4, 4)
@@ -770,6 +772,7 @@ def precompute_bins(proj_cam, mtx0, pos, pos_idx, resolution,
     det = det_planar(cp, mesh.degenerate)
     k = mesh.t_count if max_tris_per_tile == "auto" else int(max_tris_per_tile)
     idx, counts, overflow = bin_triangles_planar(cp, det, resolution, TILE_HW, k,
+                                                 cull_backfaces=cull_backfaces,
                                                  margin_px=margin_px)
     if int(overflow) > 0:
         raise ValueError(

@@ -480,10 +480,16 @@ class RasterBinned(torch.autograd.Function):
         return d_bins, None, None, None
 
 
-def raster_gather_rows_binned(bins, counts, resolution, tile_hw):
+def raster_gather_rows_binned(bins, tile_counts, resolution, tile_hw,
+                              padded: bool = False):
     """(ids, rows) of the uniform table over the (h, w) frame
-    ``resolution``, on that frame padded to whole tiles."""
-    return RasterBinned.apply(bins, counts, tuple(resolution), tuple(tile_hw))
+    ``resolution`` (``raster_v2.py:1733``); ``padded`` returns the frame
+    padded to whole tiles, as the raster leaves it."""
+    ids, rows = RasterBinned.apply(bins, tile_counts, tuple(resolution), tuple(tile_hw))
+    if padded:
+        return ids, rows
+    h, w = resolution
+    return ids[:, :h, :w], rows[:, :, :h, :w]
 
 
 def bins_planar(packed: torch.Tensor, tile_idx: torch.Tensor) -> torch.Tensor:

@@ -111,13 +111,14 @@ def triangle_setup_from_corners(
     return TriangleSetup(coef=coef)
 
 
-def pixel_ndc(resolution: Tuple[int, int], device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """NDC of pixel centres as (H, W) grids (``setup_tris.py:147-160``):
-    X = (2j+1)/W - 1, Y = (2i+1)/H - 1 with an IEEE divide
-    (:func:`shade.ndc`).  Row 0 is the NDC bottom."""
+def pixel_ndc(resolution: Tuple[int, int], dtype=torch.float32,
+              device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NDC of pixel centres as (H, W) grids of ``dtype``
+    (``setup_tris.py:147-160``): X = (2j+1)/W - 1, Y = (2i+1)/H - 1 with
+    an IEEE divide (:func:`shade.ndc`).  Row 0 is the NDC bottom."""
     h, w = resolution
-    x = ndc(torch.arange(w, device=device), w)
-    y = ndc(torch.arange(h, device=device), h)
+    x = ndc(torch.arange(w, device=device), w, dtype)
+    y = ndc(torch.arange(h, device=device), h, dtype)
     return x[None, :].expand(h, w), y[:, None].expand(h, w)
 
 

@@ -57,11 +57,11 @@ def pixel_ndc(
     return x[None, :], y[:, None]
 
 
-def ndc(pix: torch.Tensor, frame: int) -> torch.Tensor:
-    """(2*pix + 1)/frame - 1 in float32 with an IEEE divide.  The divisor is
-    a tensor on purpose: torch divides a CUDA tensor by a Python scalar as
-    a multiply by its reciprocal, which is not the reference's rounding."""
-    v = 2.0 * pix.to(torch.float32) + 1.0
+def ndc(pix: torch.Tensor, frame: int, dtype=torch.float32) -> torch.Tensor:
+    """(2*pix + 1)/frame - 1 in ``dtype`` with an IEEE divide.  The divisor
+    is a tensor on purpose: torch divides a CUDA tensor by a Python scalar
+    as a multiply by its reciprocal, which is not the reference's rounding."""
+    v = 2.0 * pix.to(dtype) + 1.0
     return v / torch.full_like(v, float(frame)) - 1.0
 
 

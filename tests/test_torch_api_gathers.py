@@ -31,6 +31,7 @@ from diffdope_tpu.render.rasterize import rasterize as j_rasterize
 from diffdope_tpu_torch.render.antialias import antialias
 from diffdope_tpu_torch.render.interpolate import interpolate
 from diffdope_tpu_torch.render.rasterize import IndexRows, rasterize
+from torch_scene import one_torch_thread  # noqa: F401
 
 
 def test_torch_index_rows_sums_valid_entries_in_order():

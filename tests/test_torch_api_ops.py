@@ -26,6 +26,7 @@ from diffdope_tpu.testing import icosphere
 from diffdope_tpu_torch.render.antialias import antialias
 from diffdope_tpu_torch.render.interpolate import interpolate
 from diffdope_tpu_torch.render.rasterize import rasterize
+from torch_scene import one_torch_thread  # noqa: F401
 
 RES = (48, 64)
 B = 3

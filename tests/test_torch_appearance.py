@@ -26,6 +26,7 @@ from torch_scene import LRS, MAX_K, RES, WEIGHTS, feed_reference_pack, jax_scene
 
 from diffdope_tpu_torch import convert
 from diffdope_tpu_torch.optimize import refine
+from torch_scene import one_torch_thread  # noqa: F401
 
 STEPS = 3
 LEAVES = ("tex", "vtx_color")

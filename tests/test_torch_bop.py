@@ -21,6 +21,7 @@ import json
 import numpy as np
 import pytest
 import torch
+from torch_scene import one_torch_thread  # noqa: F401
 
 RES = (64, 64)
 F = 70.0

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from torch_scene import jax_jitter_draws
+from torch_scene import one_torch_thread  # noqa: F401
 
 LEVEL = "deg_010_trans_004"
 RES = (48, 48)

@@ -26,6 +26,7 @@ from diffdope_tpu_torch.kernels.check import (
     raster_ids_inputs,
 )
 from diffdope_tpu_torch.optimize import pose_matrix
+from torch_scene import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -1153,7 +1154,7 @@ def _sharded_rank(rank, root, steps):
 
     dist.init_process_group("gloo", init_method=f"file://{root}/rdv", rank=rank,
                             world_size=2, timeout=datetime.timedelta(seconds=60))
-    mesh = parallel.hypothesis_mesh(2, "cuda")
+    mesh = parallel.hypothesis_mesh(n_devices=2, device="cuda")
     pb = bench_problem(RES, subdiv=2, batch=4, device=mesh.device)
     kernels.reset_launches()
     res = parallel.refine_sharded(distinct_poses(pb["params0"], 0.01), None, (), None,

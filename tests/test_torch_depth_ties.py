@@ -16,6 +16,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch_scene import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 

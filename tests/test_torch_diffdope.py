@@ -22,6 +22,7 @@ import torch
 
 from diffdope_tpu_torch import convert
 from diffdope_tpu_torch.bench import drows_env
+from torch_scene import one_torch_thread  # noqa: F401
 
 RES = (48, 64)
 B = 3

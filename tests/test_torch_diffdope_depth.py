@@ -16,6 +16,7 @@ import pytest
 from test_torch_diffdope import BASE_CFG, STEPS, _port_session, _reference_session
 
 from diffdope_tpu_torch import convert
+from torch_scene import one_torch_thread  # noqa: F401
 
 DEPTH_CFG = copy.deepcopy(BASE_CFG)
 DEPTH_CFG["losses"].update({"l1_depth_with_mask": True, "weight_depth": 1.0})

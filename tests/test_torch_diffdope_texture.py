@@ -7,6 +7,7 @@ its step 0.  Step-0 logs rtol 1e-5, atol 1e-7; initial poses rtol 1e-6."""
 import numpy as np
 
 from diffdope_tpu_torch import convert
+from torch_scene import one_torch_thread  # noqa: F401
 
 
 def test_torch_baked_texture_diffdope_step0_matches_reference(monkeypatch):

@@ -31,6 +31,7 @@ from diffdope_tpu_torch.render.fused_loss import (
 )
 from diffdope_tpu_torch.render.pipeline import K_CHUNK, TILE_HW
 from diffdope_tpu_torch.render.raster import raster_compact, raster_fwd
+from torch_scene import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

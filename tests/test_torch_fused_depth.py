@@ -15,6 +15,7 @@ from torch_scene import COMPACT_TOTAL, jax_fused_loss, jax_scene, port_fused_los
 
 from diffdope_tpu_torch import convert
 from diffdope_tpu_torch.optimize import pose_matrix
+from torch_scene import one_torch_thread  # noqa: F401
 
 TABLES = {"compact": COMPACT_TOTAL, "uniform": None}
 

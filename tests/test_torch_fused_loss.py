@@ -12,6 +12,7 @@ import torch
 from torch_scene import RES, jax_compact_table, jax_scene
 
 from diffdope_tpu_torch.render import fused_loss as tf
+from torch_scene import one_torch_thread  # noqa: F401
 
 D_SUMS = np.asarray([[1.0, 0.7, 0.0], [0.5, 1.3, 0.0], [2.0, 0.2, 0.0]], np.float32)
 D_SUMS_DEPTH = np.asarray([[1.0, 0.7, 0.9], [0.5, 1.3, 1.1], [2.0, 0.2, 0.4]], np.float32)

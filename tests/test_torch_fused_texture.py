@@ -36,6 +36,7 @@ from test_torch_fused_loss import _assert_rows_close
 from diffdope_tpu_torch import convert
 from diffdope_tpu_torch.optimize import pose_matrix
 from diffdope_tpu_torch.render import fused_loss as tf
+from torch_scene import one_torch_thread  # noqa: F401
 
 D_SUMS = np.asarray([[1.0, 0.7, 0.9], [0.5, 1.3, 1.1], [2.0, 0.2, 0.4]], np.float32)
 

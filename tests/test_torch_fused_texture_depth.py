@@ -7,6 +7,7 @@ pose gradients rtol 2e-4, atol 1e-6."""
 
 from torch_scene import port_fused_texture_loss, scene_texture
 from test_torch_fused_texture import _port_step, assert_step_matches, reference_step
+from torch_scene import one_torch_thread  # noqa: F401
 
 
 def test_torch_fused_texture_f32_sampler_matches_reference():

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from diffdope_tpu_torch.render import gather_rows as port
+from torch_scene import one_torch_thread  # noqa: F401
 
 RES = (32, 128)
 TILE = (8, 128)

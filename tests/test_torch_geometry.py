@@ -16,6 +16,7 @@ from diffdope_tpu import geometry as jgeo
 from diffdope_tpu import optimize as jopt
 from diffdope_tpu_torch import geometry as tgeo
 from diffdope_tpu_torch import optimize as topt
+from torch_scene import one_torch_thread  # noqa: F401
 
 
 def _vjp_pair(jfn, tfn, inputs, seed):

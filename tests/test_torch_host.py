@@ -8,6 +8,7 @@ import pathlib
 import numpy as np
 import pytest
 import torch
+from torch_scene import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 STANDINS = ("standin_asym.ply", "standin_sym.ply")

@@ -17,6 +17,7 @@ import pytest
 cv2 = pytest.importorskip("cv2")
 
 from diffdope_tpu_torch.bench import drows_env  # noqa: E402
+from torch_scene import one_torch_thread  # noqa: F401
 
 DEPTH_SCALE = 100.0
 

@@ -11,6 +11,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_scene import one_torch_thread  # noqa: F401
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "diffdope_tpu_torch"
 REF = PKG.parent / "diffdope_tpu"
@@ -230,3 +231,36 @@ def test_torch_texture_op_is_exported():
     from diffdope_tpu_torch.render.texture import texture
 
     assert tdd.texture is texture
+
+
+#: the names the reference's ``__init__.py`` exports beyond the port's
+#: first slices, each from the port module that defines it
+EXPORTS = {
+    "LOSS_REGISTRY": "losses", "register_loss": "losses", "dist_batch_lr": "losses",
+    "l1_rgb_with_mask": "losses", "l1_depth_with_mask": "losses", "l1_mask": "losses",
+    "add_metric": "metrics", "adds_metric": "metrics", "add_auc": "metrics",
+    "object_diameter": "metrics", "quat_from_matrix33": "geometry",
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXPORTS))
+def test_torch_package_exports_the_reference_names(name):
+    import importlib
+
+    import diffdope_tpu_torch as tdd
+
+    module = importlib.import_module(f"diffdope_tpu_torch.{EXPORTS[name]}")
+    assert getattr(tdd, name) is getattr(module, name)
+
+
+def test_torch_package_has_every_reference_export():
+    """Every name the reference's ``__init__.py`` binds (read with ast, the
+    JAX package not imported) is an attribute of the port's package."""
+    import diffdope_tpu_torch as tdd
+
+    tree = ast.parse((REF / "__init__.py").read_text())
+    names = [a.asname or a.name for n in tree.body if isinstance(n, ast.ImportFrom)
+             for a in n.names]
+    names += [t.id for n in tree.body if isinstance(n, ast.Assign) for t in n.targets]
+    assert len(names) > 30
+    assert [n for n in names if not hasattr(tdd, n)] == []

@@ -43,6 +43,7 @@ from diffdope_tpu_torch.render import raster_v3 as port
 from diffdope_tpu_torch.render.raster import raster_bwd_plain, slot_ranges
 from diffdope_tpu_torch.render.shade import ndc
 from diffdope_tpu_torch.testing import SLIVER_LANES
+from torch_scene import one_torch_thread  # noqa: F401
 
 RES = (60, 90)
 PAD = (64, 96)

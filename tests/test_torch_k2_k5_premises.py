@@ -33,6 +33,7 @@ from diffdope_tpu_torch.kernels.check import pack_bwd_bytes
 from diffdope_tpu_torch.render import fused_loss as tf
 from diffdope_tpu_torch.render import pack_kernel as tpk
 from diffdope_tpu_torch.render.planar import static_pack_rows
+from torch_scene import one_torch_thread  # noqa: F401
 
 #: a window of the padded frame whose last 8 rows and 8 columns lie past
 #: the real (64, 96) frame; 84 columns, no multiple of K5's 16-pixel tile

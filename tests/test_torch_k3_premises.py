@@ -41,6 +41,7 @@ from diffdope_tpu_torch.render import raster as tr
 from diffdope_tpu_torch.render.raster import slot_ranges
 from diffdope_tpu_torch.render.raster_v3 import cover_ranges
 from diffdope_tpu_torch.testing import SLIVER_FRAME, SLIVER_PIXEL, sliver_rows
+from torch_scene import one_torch_thread  # noqa: F401
 
 K_CHUNK = 32
 TOTAL = 2048  # compact slots, a multiple of K_CHUNK past the scene's need

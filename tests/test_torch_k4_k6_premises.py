@@ -31,6 +31,7 @@ from torch_scene import RES
 
 from diffdope_tpu_torch.kernels import check
 from diffdope_tpu_torch.render import fused_loss as tf
+from torch_scene import one_torch_thread  # noqa: F401
 
 
 def _port_bwd(rows, ids, gt6, roi, d_sums, dplane, colors):

@@ -43,6 +43,7 @@ from diffdope_tpu_torch.render.raster_v3 import cover_ranges
 from diffdope_tpu_torch.render.rasterize import raster_ids_binned_plain
 from diffdope_tpu_torch.render.shade import ndc
 from diffdope_tpu_torch.testing import SLIVER_LANES
+from torch_scene import one_torch_thread  # noqa: F401
 
 TILES = [(16, 32), (32, 128)]
 SUB = 16  # the kernel's sub-tile

@@ -35,6 +35,7 @@ import pytest
 import torch
 
 from diffdope_tpu_torch.render import gather_rows as port
+from torch_scene import one_torch_thread  # noqa: F401
 
 SCENES = ["seed0", "seed1_two_poses", "empty_tiles_full_tile"]
 

@@ -19,6 +19,7 @@ cv2 = pytest.importorskip("cv2")
 
 from diffdope_tpu_torch import mesh as port  # noqa: E402
 from diffdope_tpu_torch.testing import png_bytes, write_gltf, write_png, write_stl  # noqa: E402
+from torch_scene import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 STANDIN = REPO / "data/standins/standin_asym.ply"

@@ -18,6 +18,7 @@ from torch_scene import B, LRS, MAX_K, RES, WEIGHTS, jax_scene
 from diffdope_tpu_torch import convert
 from diffdope_tpu_torch import metrics as tm
 from diffdope_tpu_torch.optimize import pose_matrix
+from torch_scene import one_torch_thread  # noqa: F401
 
 
 def _poses(seed, n):

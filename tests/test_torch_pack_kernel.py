@@ -16,6 +16,7 @@ from torch_scene import jax_compact_table, jax_scene
 
 from diffdope_tpu_torch.render import pack_kernel as tpk
 from diffdope_tpu_torch.render.planar import static_pack_rows
+from torch_scene import one_torch_thread  # noqa: F401
 
 
 def _inputs_scene():

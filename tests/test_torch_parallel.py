@@ -27,6 +27,7 @@ import torch
 
 from diffdope_tpu_torch.losses import select_losses
 from diffdope_tpu_torch.optimize import pose_matrix, pose_params, refine
+from torch_scene import one_torch_thread  # noqa: F401
 
 B = 8
 N = 4
@@ -53,17 +54,6 @@ DD_CFG = {
     "tpu": {"seed": 1, "raster_impl": "pallas", "compact_total": 2048,
             "progress": False},
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module: the tier-1 command runs six test
-    workers on the CPU, and the plain twins' many small parallel regions
-    ran up to 100x slower when every worker's threads oversubscribed it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _proj(res):
@@ -209,11 +199,11 @@ def _worker(rank, root, lrs, lrs_app):
     dist.init_process_group("gloo", init_method=f"file://{root}/rdv4", rank=rank,
                             world_size=N, timeout=timeout)
     out = {}
-    mesh = parallel.hypothesis_mesh(N)
+    mesh = parallel.hypothesis_mesh(n_devices=N)
     out["mesh"] = (mesh.rank, mesh.size, str(mesh.device))
     out["replicated"] = str(parallel.replicate({"a": np.zeros(2)}, mesh)["a"].device)
     with pytest.raises(ValueError, match="not 2"):
-        parallel.hypothesis_mesh(2)
+        parallel.hypothesis_mesh(n_devices=2)
 
     loss_fns, weights = select_losses(MASK)
     params0, render_fn, gt = _unfused_problem()
@@ -448,7 +438,7 @@ def test_torch_hypothesis_mesh_refuses_without_a_group(monkeypatch):
     for key in parallel.TORCHRUN_ENV:
         monkeypatch.delenv(key, raising=False)
     with pytest.raises(RuntimeError, match="no process group"):
-        parallel.hypothesis_mesh(2)
+        parallel.hypothesis_mesh(n_devices=2)
     dd = _dd_session(mesh_axis=2)
     with pytest.raises(RuntimeError, match="torchrun"):
         dd.run_optimization()

@@ -10,6 +10,7 @@ from torch_scene import B, jax_fused_loss, jax_scene, port_fused_loss
 
 from diffdope_tpu_torch import convert
 from diffdope_tpu_torch.optimize import pose_matrix
+from torch_scene import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

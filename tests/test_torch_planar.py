@@ -8,6 +8,7 @@ import torch
 from torch_scene import COMPACT_TOTAL, JAX_TILE_HW, MAX_K, RES, jax_compact_table, jax_scene
 
 from diffdope_tpu_torch.render import planar as tp
+from torch_scene import one_torch_thread  # noqa: F401
 
 
 def _port_setup():

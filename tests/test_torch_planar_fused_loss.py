@@ -14,6 +14,7 @@ from torch_scene import LRS, MAX_K, RES, ROUTES, WEIGHTS, feed_planar_table, jax
 
 from diffdope_tpu_torch.render import pipeline
 from diffdope_tpu_torch.render.pipeline import make_fused_loss
+from torch_scene import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("route", sorted(ROUTES))

@@ -30,6 +30,7 @@ from torch_scene import MAX_K, RES, ROUTES, feed_planar_table, jax_scene, planar
 
 from diffdope_tpu_torch.render import pipeline
 from diffdope_tpu_torch.render.pipeline import render_batch
+from torch_scene import one_torch_thread  # noqa: F401
 
 
 def _weights():

@@ -23,6 +23,7 @@ cv2 = pytest.importorskip("cv2")
 
 from diffdope_tpu_torch import png  # noqa: E402
 from diffdope_tpu_torch.testing import encode_png, write_png  # noqa: E402
+from torch_scene import one_torch_thread  # noqa: E402, F401
 
 
 def _smooth(shape, maxval, dtype, seed=0):

@@ -9,6 +9,7 @@ import torch
 from torch_scene import B, JAX_TILE_HW, RES, jax_compact_table
 
 from diffdope_tpu_torch.render import raster as tr
+from torch_scene import one_torch_thread  # noqa: F401
 
 
 def _port_fwd(ref):

@@ -28,6 +28,7 @@ from diffdope_tpu_torch.render.raster import slot_ranges
 from diffdope_tpu_torch.render.rasterize import raster_ids_reference
 from diffdope_tpu_torch.render.setup_tris import triangle_setup
 from diffdope_tpu_torch.render.shade import ndc
+from torch_scene import one_torch_thread  # noqa: F401
 
 RES = (64, 96)
 

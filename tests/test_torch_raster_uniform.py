@@ -17,6 +17,7 @@ from torch_scene import B, MAX_K, PORT_TILE_HW, RES, jax_uniform_table
 
 from diffdope_tpu_torch.render import planar as tp
 from diffdope_tpu_torch.render import raster as tr
+from torch_scene import one_torch_thread  # noqa: F401
 
 NTY, NTX = -(-RES[0] // 16), -(-RES[1] // 16)  # the port's tile grid, 4 x 6
 
@@ -118,3 +119,19 @@ def test_torch_raster_binned_autograd_and_checks():
     meta = (packed.to("meta"), counts.to("meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         tr.raster_uniform_fwd(*meta, RES, PORT_TILE_HW)
+
+
+def test_torch_raster_binned_padded_frame():
+    """``raster_gather_rows_binned`` returns the (h, w) frame, as the
+    reference's does by default, and with ``padded=True`` the frame padded
+    to whole tiles, as the raster leaves it."""
+    _, _, packed, counts = _port_table()
+    frame = (RES[0] - 4, RES[1] - 6)  # the same 16x16 tiles as RES
+    ids, rows = tr.raster_gather_rows_binned(packed, tile_counts=counts, resolution=frame,
+                                             tile_hw=PORT_TILE_HW)
+    ids_p, rows_p = tr.raster_gather_rows_binned(packed, counts, frame, PORT_TILE_HW,
+                                                 padded=True)
+    assert tuple(ids.shape[1:]) == frame and tuple(rows.shape[2:]) == frame
+    assert tuple(ids_p.shape[1:]) == RES
+    assert torch.equal(ids, ids_p[:, :frame[0], :frame[1]])
+    assert torch.equal(rows, rows_p[:, :, :frame[0], :frame[1]])

@@ -23,6 +23,7 @@ from diffdope_tpu_torch.render import raster_v3 as port
 from diffdope_tpu_torch.render.gather_rows import invert_bins
 from diffdope_tpu_torch.render.planar import bin_triangles_planar
 from diffdope_tpu_torch.render.raster import raster_bwd_plain, raster_gather_rows_v2
+from torch_scene import one_torch_thread  # noqa: F401
 
 RES = (64, 96)
 B = 2

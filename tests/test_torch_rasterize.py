@@ -51,6 +51,7 @@ from diffdope_tpu_torch.render.rasterize import (
     segments,
     setup_rows,
 )
+from torch_scene import one_torch_thread  # noqa: F401
 
 RES = (40, 150)  # a multiple of neither tile
 

@@ -12,6 +12,7 @@ from torch_scene import LRS, WEIGHTS, jax_fused_loss, jax_scene, port_fused_loss
 
 from diffdope_tpu_torch import convert
 from diffdope_tpu_torch.optimize import argmin_hypothesis, refine
+from torch_scene import one_torch_thread  # noqa: F401
 
 STEPS = 4
 

@@ -34,6 +34,7 @@ from torch_scene import (
 
 from diffdope_tpu_torch import convert
 from diffdope_tpu_torch.optimize import apply_pose_jitter, pose_matrix, refine_with_restarts
+from torch_scene import one_torch_thread  # noqa: F401
 
 STEPS = 6
 SGD = dict(base_lr=0.5, lr_decay=0.1, optimizer="sgd")

@@ -26,6 +26,7 @@ import torch
 from torch_scene import COMPACT_TOTAL, JAX_TILE_HW, MAX_K, RES, feed_reference_pack, jax_scene
 
 from diffdope_tpu_torch.render.pipeline import render_batch
+from torch_scene import one_torch_thread  # noqa: F401
 
 
 def _weights():

@@ -35,6 +35,7 @@ from diffdope_tpu_torch import convert
 from diffdope_tpu_torch import kernels
 from diffdope_tpu_torch.render import pipeline
 from diffdope_tpu_torch.render.pipeline import render_batch
+from torch_scene import one_torch_thread  # noqa: F401
 
 RENDER_KW = dict(raster_impl="reference", return_rast_out=True, antialias_rgb=True)
 

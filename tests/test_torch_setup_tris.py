@@ -21,6 +21,7 @@ from diffdope_tpu.render import setup_tris as j_setup
 from diffdope_tpu_torch import geometry as t_geo
 from diffdope_tpu_torch.render import setup_tris as t_setup
 from torch_scene import random_clip_scene as random_scene
+from torch_scene import one_torch_thread  # noqa: F401
 
 RES = (40, 150)  # a multiple of neither tile below
 

@@ -14,17 +14,7 @@ import torch
 from diffdope_tpu_torch.geometry import quat_rotate
 from diffdope_tpu_torch.optimize import pose_matrix
 from diffdope_tpu_torch.testing import synthetic_scene
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module: the tier-1 command runs six test
-    workers on the CPU, and the plain twins' many small parallel regions
-    ran up to 100x slower when every worker's threads oversubscribed it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_scene import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("shapes", [((6, 4), (6, 3)), ((4,), (9, 3)), ((2, 5, 4), (2, 5, 3))])

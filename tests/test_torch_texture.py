@@ -17,6 +17,7 @@ import importlib
 import numpy as np
 import pytest
 import torch
+from torch_scene import one_torch_thread  # noqa: F401
 
 # the module (the package exports its ``texture`` op under the same name)
 tt = importlib.import_module("diffdope_tpu_torch.render.texture")

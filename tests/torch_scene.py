@@ -10,6 +10,8 @@ packages.
 import functools
 
 import numpy as np
+import pytest
+import torch
 
 RES = (64, 96)
 B = 3
@@ -21,6 +23,18 @@ JAX_TILE_HW = (32, 128)
 PORT_TILE_HW = (16, 16)
 COMPACT_TOTAL = 1024
 MAX_K = 512
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for a test module that imports this fixture by name:
+    the tier-1 command runs six test workers on the CPU, and the plain
+    twins' many small parallel regions ran up to 100x slower when every
+    worker's threads oversubscribed it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @functools.lru_cache(maxsize=None)
