@@ -209,7 +209,19 @@ result line):
    steps (``AUTO_HYPER``) on the fused route: K1-K6 launched and nothing
    else, the session still on the card, the source config unchanged
    (its YAML text), ``Object3D.forward()`` the scaled vertices, the loss
-   falls.
+   falls;
+21. the default configuration from JPEG files: phase 16's 1920x1080 scene
+   with the rgb frame written by cv2 as a JPEG (``JPEG_QUALITY`` 95, 4:2:0)
+   stored turned so that its EXIF orientation (``JPEG_ORIENTATION`` 6:
+   transpose, then flip left-right) gives the frame back, depth and seg as
+   PNG, and the textured stand-in's texture as a JPEG its PLY names: each
+   file read by the port (``png.py``, ``jpeg.py``) equal bit for bit to
+   the card host's ``cv2.imread`` (``IMREAD_COLOR`` and
+   ``IMREAD_UNCHANGED``), the JPEG and the PNG of the rgb frame's read
+   times printed; ``DiffDope(cfg)`` from those files: the gt rgb the 2x2
+   mean of cv2's decode, the mesh's texture the JPEG's, then phase 16
+   (b): K1-K6 launched and nothing else, phase 5's criteria (the loss
+   falls), K1-K6 held on its tables.
 
 K5/K6's colour lane (with and without the depth plane) and K1/K2 at the uv
 table's two channels are held to their plain versions at the test scene
@@ -235,6 +247,7 @@ Needs a CUDA device: it does not fall back to the CPU.
 
 import copy
 import json
+import struct
 import subprocess
 import sys
 import time
@@ -309,6 +322,9 @@ MAX_DEPTH_TIES = 0.001
 FILES_OPTIONS = {"restarts": 1, "init_jitter_deg": 5.0, "init_jitter_trans": 0.005,
                  "precompute_bins": True, "live_loss": "step"}
 FILES_LOSSES = {"l1_rgb_with_mask": True, "l1_depth_with_mask": True}
+#: phase 21: the rgb frame's JPEG (cv2's quality, 4:2:0) and the EXIF
+#: orientation stored with it (6: cv2 transposes, then flips left-right)
+JPEG_QUALITY, JPEG_ORIENTATION = 95, 6
 #: the Image default the configuration keeps (``image.py``'s depth_scale)
 DEFAULT_DEPTH_SCALE = 100.0
 #: the DiffDope phases' init: the configured pose moved by this OpenCV-frame
@@ -1485,7 +1501,7 @@ class LogLines:
         self._logger.setLevel(self._level)
 
 
-def write_scene_files(root: Path, gpu: str):
+def write_scene_files(root: Path, gpu: str, label: str = "phase 16"):
     """Phase 16's setup: the textured stand-in (a copy of
     ``data/standins/standin_tex_checker.ply`` beside ``make_texture('checker')``
     as the PNG its TextureFile names) rendered at the camera's full
@@ -1516,7 +1532,7 @@ def write_scene_files(root: Path, gpu: str):
     camera = Camera(**cfg.camera)
     mesh = load_mesh(ply, scale=cfg.object3d.scale)
     if not mesh.has_textured_map:
-        fail("phase 16: the textured PLY loaded without its texture")
+        fail(f"{label}: the textured PLY loaded without its texture")
     gt_obj = Object3D(position=cfg.object3d.position, rotation=cfg.object3d.rotation,
                       scale=cfg.object3d.scale, mesh=mesh, batchsize=1)
     mtx_gt = pose_matrix(gt_obj.initial_params(1, "cuda"))[0]
@@ -1529,7 +1545,7 @@ def write_scene_files(root: Path, gpu: str):
                           edge_adj=mesh.edge_adj, max_tris_per_tile=t_all, compact_total=cap,
                           tex=mesh.tex, uv=mesh.uv, uv_idx=mesh.uv_idx, device="cuda")
     if int(gt["_bin_overflow"]):
-        fail("phase 16: the full-frame gt render dropped (tile, triangle) pairs")
+        fail(f"{label}: the full-frame gt render dropped (tile, triangle) pairs")
     scale = float(DEFAULT_DEPTH_SCALE)
     arrays = {
         "rgb": np.round(gt["rgb"][0].cpu().numpy()[::-1] * 255).astype(np.uint8),
@@ -1540,7 +1556,7 @@ def write_scene_files(root: Path, gpu: str):
     for name, array in arrays.items():
         paths[name] = root / f"{name}.png"
         write_png(paths[name], array, filters="cycle")
-    print(f"phase 16: wrote {w}x{h} rgb, depth (16-bit) and seg PNGs and the "
+    print(f"{label}: wrote {w}x{h} rgb, depth (16-bit) and seg PNGs and the "
           f"{tex8.shape[1]}x{tex8.shape[0]} texture, every row filter by turns", flush=True)
     return paths, arrays, ply, mtx_gt[0]
 
@@ -1736,6 +1752,120 @@ def files_phase(gpu: str):
         # (d) STL and glb
         other_formats(root, ply)
     return launches_c
+
+
+def exif_app1(orientation: int) -> bytes:
+    """A JPEG APP1 segment of EXIF holding IFD0's orientation tag alone."""
+    tiff = b"MM\x00*\x00\x00\x00\x08\x00\x01" \
+        + struct.pack(">HHIHH", 0x0112, 3, 1, orientation, 0) + b"\x00" * 4
+    body = b"Exif\x00\x00" + tiff
+    return b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body
+
+
+def write_jpeg_files(root: Path, arrays, ply: Path):
+    """Phase 21's files beside phase 16's: rgb.jpg, the frame turned so
+    that ``JPEG_ORIENTATION`` 6 (transpose, then flip left-right) gives it
+    back, written by cv2 at ``JPEG_QUALITY`` and 4:2:0 with the EXIF APP1
+    after SOI; the checker texture as standin_checker.jpg and a copy of
+    the PLY naming it.  Returns (rgb.jpg, texture JPEG, PLY)."""
+    import cv2
+    import numpy as np
+
+    from diffdope_tpu_torch import png
+
+    params = [cv2.IMWRITE_JPEG_QUALITY, JPEG_QUALITY, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+              cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420]
+    stored = np.ascontiguousarray(arrays["rgb"][:, ::-1].swapaxes(0, 1)[..., ::-1])
+    ok, enc = cv2.imencode(".jpg", stored, params)
+    if not ok:
+        fail("phase 21: cv2 did not encode the rgb frame")
+    data = enc.tobytes()
+    rgb = root / "rgb.jpg"
+    rgb.write_bytes(data[:2] + exif_app1(JPEG_ORIENTATION) + data[2:])
+    tex = png.imread_color(root / "standin_checker.png")
+    ok, enc = cv2.imencode(".jpg", np.ascontiguousarray(tex[..., ::-1]), params)
+    if not ok:
+        fail("phase 21: cv2 did not encode the texture")
+    tex_jpg = root / "standin_checker.jpg"
+    tex_jpg.write_bytes(enc.tobytes())
+    ply_jpg = root / "standin_tex_jpeg.ply"
+    text = ply.read_text()
+    if "standin_checker.png" not in text:
+        fail("phase 21: the PLY does not name its PNG texture")
+    ply_jpg.write_text(text.replace("standin_checker.png", tex_jpg.name))
+    return rgb, tex_jpg, ply_jpg
+
+
+def jpeg_phase(gpu: str) -> None:
+    """Phase 21: the default configuration from JPEG files (rgb and the
+    texture), each read held to the card host's cv2 bit for bit, the read
+    times of the rgb frame as JPEG and as PNG, then phase 16 (b)."""
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch import png
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        paths, arrays, ply, mtx_gt = write_scene_files(root, gpu, label="phase 21")
+        rgb_jpg, tex_jpg, ply_jpg = write_jpeg_files(root, arrays, ply)
+        color = lambda p: cv2.cvtColor(cv2.imread(str(p), cv2.IMREAD_COLOR),  # noqa: E731
+                                       cv2.COLOR_BGR2RGB)
+        unchanged = lambda p: cv2.imread(str(p), cv2.IMREAD_UNCHANGED)  # noqa: E731
+        reads = {"rgb.jpg colour": (rgb_jpg, png.imread_color, color),
+                 "rgb.jpg unchanged": (rgb_jpg, png.imread_unchanged, unchanged),
+                 "texture jpg colour": (tex_jpg, png.imread_color, color),
+                 "seg.png colour": (paths["seg"], png.imread_color, color),
+                 "depth.png unchanged": (paths["depth"], png.imread_unchanged, unchanged)}
+        for name, (path, read, cv2_read) in reads.items():
+            got, want = read(path), cv2_read(path)
+            equal = (got.dtype == want.dtype and got.shape == want.shape
+                     and bool(np.array_equal(got, want)))
+            print(f"phase 21: {name} ({path.stat().st_size} bytes) {got.shape} "
+                  f"{got.dtype}: equal to cv2 {cv2.__version__}'s bit for bit: {equal}",
+                  flush=True)
+            if not equal:
+                fail(f"phase 21: the port's read of {name} differs from cv2's")
+        frame = png.imread_color(rgb_jpg)
+        err = np.abs(frame.astype(np.int64) - arrays["rgb"])
+        print(f"phase 21: rgb.jpg as read (EXIF orientation {JPEG_ORIENTATION} applied) "
+              f"against the rendered frame: largest difference {int(err.max())}, mean "
+              f"{float(err.mean()):.4f} (uint8 steps)", flush=True)
+        if frame.shape != arrays["rgb"].shape or float(err.mean()) > 2.0:
+            fail("phase 21: the JPEG frame does not read back as the rendered frame")
+        times = {}
+        for name, path in (("jpeg", rgb_jpg), ("png", paths["rgb"])):
+            times[name] = min(_timed(png.imread_color, path) for _ in range(3))
+        print(f"phase 21: read of the {arrays['rgb'].shape[1]}x{arrays['rgb'].shape[0]} "
+              f"rgb frame: JPEG (quality {JPEG_QUALITY}, 4:2:0, {rgb_jpg.stat().st_size} "
+              f"bytes) {times['jpeg']:.4f} s, PNG ({paths['rgb'].stat().st_size} bytes) "
+              f"{times['png']:.4f} s, best of three each [{gpu}; host CPU]", flush=True)
+
+        dd, points, build_s = files_session(dict(paths, rgb=rgb_jpg), ply_jpg)
+        print(f"phase 21: DiffDope(cfg) from rgb.jpg, depth.png, seg.png and the PLY with "
+              f"its JPEG texture built in {build_s:.4f} s [{gpu}]", flush=True)
+        q = cv2.cvtColor(cv2.imread(str(rgb_jpg)), cv2.COLOR_BGR2RGB)[::-1].astype(np.float64)
+        mean2 = ((q[0::2, 0::2] + q[0::2, 1::2]) + (q[1::2, 0::2] + q[1::2, 1::2])) / 1020.0
+        gap = float(np.abs(dd.gt_tensors["rgb"] - mean2).max())
+        tex = png.imread_color(tex_jpg).astype(np.float32) / 255.0
+        same_tex = bool(np.array_equal(np.asarray(dd.object3d.mesh.tex), tex))
+        print(f"phase 21: gt rgb against the 2x2 mean of cv2's decode: {gap:.3e} (limit "
+              f"1.2e-7, float32 rounding); the mesh's texture is the JPEG's: {same_tex}",
+              flush=True)
+        if gap > 1.2e-7 or not same_tex:
+            fail("phase 21: the session's rgb or texture is not the JPEG's")
+        dd, launches, add0, add1 = diffdope_phase(True, gpu, "from JPEG", session=(
+            dd, points, mtx_gt))
+        check_launches("DiffDope from JPEG", launches, COMPACT_FUSED,
+                       set(launches) - set(COMPACT_FUSED))
+        check_diffdope(dd, "from JPEG", add0, add1)
+        del dd
+        torch.cuda.empty_cache()
+    print(f"phase 21: {time.perf_counter() - t_phase:.4f} s [{gpu}]", flush=True)
 
 
 class RefineRecorder:
@@ -2645,6 +2775,10 @@ def main() -> None:
 
     # ---- the reference's last public surface: the config's copy, Mesh.scaled -
     host_api_phase(gpu)
+    torch.cuda.empty_cache()
+
+    # ---- the default configuration from JPEG files ---------------------------
+    jpeg_phase(gpu)
 
     # launches on the path that runs each kernel: the bench main path (its
     # bf16 lane of K6/K4), the depth phase on the compact table (K4 with

@@ -1,12 +1,14 @@
 """Image and Scene containers (counterpart of ``diffdope_tpu/image.py``).
 
 An image is one (H, W[, C]) float32 array, shared by every hypothesis,
-given as an array (``img_tensor=``) or read from a PNG file
+given as an array (``img_tensor=``) or read from a PNG or JPEG file
 (``img_path=``) the way the reference reads it with cv2
-(``image.py:55-80``): colour as RGB / 255, depth unchanged / depth_scale,
-both in float64, flipped vertically, resized below a resize factor of 1
-(linear for colour, nearest for depth), then cast to float32.  The port
-reads PNG files only (``png.py``): JPEG and other formats raise.
+(``image.py:55-80``): colour as RGB / 255 with the EXIF orientation
+applied, depth unchanged / depth_scale, both in float64, flipped
+vertically, resized below a resize factor of 1 (linear for colour,
+nearest for depth), then cast to float32.  The port reads PNG and JPEG
+files (``png.py``, ``jpeg.py``): other formats and the JPEG variants
+``jpeg.py`` refuses raise.
 """
 
 from __future__ import annotations

@@ -5,10 +5,10 @@ STL (binary and ascii) and glTF (.glb and .gltf) parsers, winding
 repair, vertex normals, edge adjacency, and :func:`load_mesh` with its
 padding to multiples of 8 (padded triangles are degenerate and never
 rasterize).  Copied, not imported: importing the JAX package pulls in
-jax.  A textured mesh reads its texture from a PNG file (a PLY's
-TextureFile, or ``texture_path=``) or from a glTF's embedded PNG
-(``png.py``), or is built from arrays (:func:`mesh_from_arrays`, with the
-V flip and the corner-colour bake).
+jax.  A textured mesh reads its texture from a PNG or JPEG file (a PLY's
+TextureFile, or ``texture_path=``) or from a glTF's embedded PNG or JPEG
+(``png.py``, ``jpeg.py``), or is built from arrays
+(:func:`mesh_from_arrays`, with the V flip and the corner-colour bake).
 """
 
 from __future__ import annotations
@@ -415,9 +415,10 @@ def _gltf_decode_image(gltf, buffers, image_idx):
     """An embedded image (a bufferView or a ``data:`` URI) as float32 RGB
     in [0, 1], as ``cv2.imdecode`` + BGR2RGB gives it (``mesh.py:417-
     438``); None for an external URI (the caller reads the file) or bytes
-    of no known image format (cv2 decodes none either).  A PNG is decoded
-    (``png.py``); another image format (JPEG, ...) raises, since cv2
-    would have read it and the port cannot."""
+    of no known image format (cv2 decodes none either).  A PNG or a JPEG
+    is decoded (``png.decode_color``, its EXIF orientation applied as
+    cv2's ``IMREAD_COLOR`` does); another image format (TIFF, WebP, ...)
+    raises, since cv2 would have read it and the port cannot."""
     img_def = gltf["images"][image_idx]
     if "bufferView" in img_def:
         bv = gltf["bufferViews"][img_def["bufferView"]]
@@ -433,10 +434,10 @@ def _gltf_decode_image(gltf, buffers, image_idx):
     name = png.format_name(data)
     if name == "unknown":
         return None
-    if name != "PNG":
+    if name not in ("PNG", "JPEG"):
         raise NotImplementedError(
-            f"glTF image {image_idx} is {name}: the port decodes embedded PNG "
-            "textures only")
+            f"glTF image {image_idx} is {name}: the port decodes embedded PNG and "
+            "JPEG textures only")
     return png.decode_color(data).astype(np.float32) / 255.0
 
 
@@ -881,7 +882,8 @@ def save_ply(path, vertices: np.ndarray, faces: np.ndarray,
 
 
 def _load_texture(texture_path) -> np.ndarray:
-    """A texture image as float32 RGB in [0, 1] (``mesh.py:1030-1037``)."""
+    """A texture image (PNG or JPEG) as float32 RGB in [0, 1]
+    (``mesh.py:1030-1037``)."""
     return png.imread_color(texture_path).astype(np.float32) / 255.0
 
 

@@ -1,22 +1,28 @@
-"""PNG reading in numpy and zlib, and the image resizes of the reference.
+"""Image reading in numpy and zlib (PNG here, JPEG in ``jpeg.py``), and
+the image resizes of the reference.
 
 The reference reads its images with cv2 (``diffdope_tpu/image.py:55-80``,
 ``mesh.py:1030``, ``mesh.py:417``), which the port does not depend on.
-This module decodes PNG files itself and returns what cv2 returns:
+This module decodes PNG files itself, hands JPEG files (told by their
+signature, whatever the file's name) to :func:`jpeg.decode_jpeg`, and
+returns what cv2 returns:
 
 - :func:`imread_color` is ``cv2.imread(path)`` (``IMREAD_COLOR``) then
   ``COLOR_BGR2RGB``: RGB uint8 (H, W, 3), grey replicated, alpha dropped,
-  a palette expanded, 16 bits reduced to their high byte;
+  a palette expanded, 16 bits reduced to their high byte, and the EXIF
+  orientation (a JPEG's APP1, a PNG's ``eXIf``) applied as cv2 applies it
+  (:func:`orient`); :func:`decode_color` is the same for bytes
+  (``cv2.imdecode``);
 - :func:`imread_unchanged` is ``cv2.imread(path, IMREAD_UNCHANGED)``: the
   file's depth (uint8 or uint16), (H, W) for grey, else cv2's BGR or BGRA
-  channel order.
+  channel order, the orientation ignored.
 
-Every colour type, every bit depth and Adam7 interlacing are read; the
-five row filters are undone along the image's anti-diagonals, so a step
-is one vectorised update of every row (:func:`_unfilter`).  Other formats
-(JPEG, TIFF, EXR...) and a PNG whose ``eXIf`` orientation asks for a
-rotation raise ``ValueError``: cv2 would read them, the port cannot read
-them the way it does.
+Every PNG colour type, every bit depth and Adam7 interlacing are read;
+the five row filters are undone along the image's anti-diagonals, so a
+step is one vectorised update of every row (:func:`_unfilter`).  Other
+formats (TIFF, OpenEXR, BMP, WebP, GIF...) and the JPEG variants
+``jpeg.py`` refuses raise ``ValueError`` naming the format and the file:
+cv2 would read them, the port cannot read them the way it does.
 
 :func:`resize_linear` and :func:`resize_nearest` are ``cv2.resize`` with
 ``INTER_LINEAR`` and ``INTER_NEAREST`` on float64 images, down to their
@@ -28,9 +34,11 @@ from __future__ import annotations
 import struct
 import zlib
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from diffdope_tpu_torch import jpeg
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 #: samples per pixel of each colour type
@@ -39,8 +47,8 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 #: Adam7 passes: (x0, y0, dx, dy)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
           (1, 0, 2, 2), (0, 1, 1, 2))
-#: the signatures of the formats cv2 reads and this module does not
-_OTHER_FORMATS = {b"\xff\xd8\xff": "JPEG", b"II*\x00": "TIFF", b"MM\x00*": "TIFF",
+#: the signatures of the formats cv2 reads and the port does not
+_OTHER_FORMATS = {b"II*\x00": "TIFF", b"MM\x00*": "TIFF",
                   b"v/1\x01": "OpenEXR", b"BM": "BMP", b"RIFF": "WebP",
                   b"GIF8": "GIF"}
 
@@ -53,7 +61,8 @@ def _format_name(data: bytes) -> str:
 
 
 def _exif_orientation(exif: bytes) -> int:
-    """The TIFF orientation tag (0x0112) of an ``eXIf`` chunk, 1 if absent."""
+    """The TIFF orientation tag (0x0112) of a PNG ``eXIf`` chunk or a JPEG
+    APP1 EXIF block, 1 if absent."""
     if len(exif) < 8 or exif[:2] not in (b"II", b"MM"):
         return 1
     end = "<" if exif[:2] == b"II" else ">"
@@ -155,17 +164,34 @@ def _samples(raw: np.ndarray, h: int, w: int, ch: int, depth: int) -> np.ndarray
     return out.reshape(h, w, ch)
 
 
-def decode_png(data: bytes) -> Tuple[np.ndarray, Dict]:
+def orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """An image as cv2's ``IMREAD_COLOR`` leaves it for an EXIF orientation
+    (``ExifTransform`` in ``loadsave.cpp``): 2 flips left-right, 3 turns
+    180 degrees, 4 flips top-bottom, 5 transposes, 6, 7 and 8 transpose and
+    then flip left-right, both ways or top-bottom; 1 and any other value
+    leave it as it is."""
+    if orientation in (5, 6, 7, 8):
+        img = img.swapaxes(0, 1)
+    if orientation in (2, 3, 6, 7):
+        img = img[:, ::-1]
+    if orientation in (3, 4, 7, 8):
+        img = img[::-1]
+    return np.ascontiguousarray(img)
+
+
+def decode_png(data: bytes, source: Optional[str] = None) -> Tuple[np.ndarray, Dict]:
     """Decode PNG bytes -> (samples (H, W, C) uint8 or uint16, header).
 
     The samples are as stored: palette indices for colour type 3, values
     below 8 bits unscaled.  The header holds 'width', 'height',
     'bit_depth', 'color_type', 'interlace', 'palette' ((n, 3) uint8 or
-    None) and 'trns' (the tRNS body or None)."""
+    None), 'trns' (the tRNS body or None) and 'orientation' (the eXIf
+    chunk's, 1 without one).  ``source`` (a path) names the file in the
+    errors."""
     if not data.startswith(SIGNATURE):
-        raise ValueError(f"not a PNG file (format: {_format_name(data)}): the port "
-                         "reads PNG images only")
-    head, idat, palette, trns = None, [], None, None
+        raise ValueError(f"{source or '<bytes>'}: not a PNG file (format: "
+                         f"{format_name(data)}): the port reads PNG and JPEG images only")
+    head, idat, palette, trns, orientation = None, [], None, None, 1
     for kind, body in _chunks(data):
         if kind == b"IHDR":
             w, h, depth, ctype, comp, filt, inter = struct.unpack(">IIBBBBB", body)
@@ -182,15 +208,12 @@ def decode_png(data: bytes) -> Tuple[np.ndarray, Dict]:
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"eXIf":
-            orient = _exif_orientation(body)
-            if orient != 1:
-                raise ValueError(f"PNG eXIf orientation {orient}: cv2 would rotate the "
-                                 "image, the port does not")
+            orientation = _exif_orientation(body)
     if head is None or not idat:
         raise ValueError("PNG without IHDR or IDAT")
     if head["color_type"] == 3 and palette is None:
         raise ValueError("palette PNG without PLTE")
-    head.update(palette=palette, trns=trns)
+    head.update(palette=palette, trns=trns, orientation=orientation)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     h, w, depth = head["height"], head["width"], head["bit_depth"]
     ch = _CHANNELS[head["color_type"]]
@@ -208,11 +231,11 @@ def decode_png(data: bytes) -> Tuple[np.ndarray, Dict]:
     return out, head
 
 
-def _read(path) -> Tuple[np.ndarray, Dict]:
+def _read(path) -> bytes:
     path = Path(path)
     if not path.is_file():
         raise FileNotFoundError(str(path))
-    return decode_png(path.read_bytes())
+    return path.read_bytes()
 
 
 def _to8(samples: np.ndarray, depth: int) -> np.ndarray:
@@ -250,22 +273,34 @@ def _rgba(samples: np.ndarray, head: Dict, keep16: bool) -> np.ndarray:
 
 
 def imread_color(path) -> np.ndarray:
-    """``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`` for a PNG:
-    (H, W, 3) uint8 RGB; grey replicated, alpha dropped (never blended),
-    16 bits reduced to the high byte.  ``FileNotFoundError`` for a missing
-    file, ``ValueError`` for anything but a PNG."""
-    return _color(*_read(path))
+    """``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`` for a PNG or a
+    JPEG: (H, W, 3) uint8 RGB; grey replicated, alpha dropped (never
+    blended), 16 bits reduced to the high byte, the EXIF orientation
+    applied.  ``FileNotFoundError`` for a missing file, ``ValueError`` for
+    any other format or a JPEG variant ``jpeg.py`` refuses."""
+    return _decode_color(_read(path), str(path))
 
 
 def decode_color(data: bytes) -> np.ndarray:
-    """:func:`imread_color` of PNG bytes (``cv2.imdecode`` with
+    """:func:`imread_color` of PNG or JPEG bytes (``cv2.imdecode`` with
     ``IMREAD_COLOR``, then RGB)."""
-    return _color(*decode_png(data))
+    return _decode_color(data, None)
+
+
+def _decode_color(data: bytes, source: Optional[str]) -> np.ndarray:
+    if data.startswith(jpeg.SIGNATURE):
+        img = jpeg.decode_jpeg(data, source)
+        img = np.repeat(img[..., None], 3, axis=-1) if img.ndim == 2 else img[..., ::-1]
+        return orient(img, _exif_orientation(jpeg.exif(data)))
+    samples, head = decode_png(data, source)
+    return orient(_color(samples, head), head["orientation"])
 
 
 def format_name(data: bytes) -> str:
-    """'PNG', or the name of another image format by its signature."""
-    return "PNG" if data.startswith(SIGNATURE) else _format_name(data)
+    """'PNG', 'JPEG', or the name of another image format by its signature."""
+    if data.startswith(SIGNATURE):
+        return "PNG"
+    return "JPEG" if data.startswith(jpeg.SIGNATURE) else _format_name(data)
 
 
 def _color(samples: np.ndarray, head: Dict) -> np.ndarray:
@@ -276,13 +311,17 @@ def _color(samples: np.ndarray, head: Dict) -> np.ndarray:
 
 
 def imread_unchanged(path) -> np.ndarray:
-    """``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` for a PNG: the file's
-    depth (uint16 at 16 bits, else uint8, values below 8 bits scaled to
-    0..255 for grey); (H, W) for grey, (H, W, 3) BGR or (H, W, 4) BGRA in
-    cv2's channel order for colour, a palette expanded, a tRNS as alpha
-    (on a palette or an RGB image; a grey one's is ignored), grey with
-    alpha as BGRA."""
-    samples, head = _read(path)
+    """``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` for a PNG or a JPEG, the
+    EXIF orientation ignored as cv2 ignores it in this mode.  A JPEG is
+    (H, W) uint8 grey or (H, W, 3) BGR.  A PNG keeps its depth (uint16 at
+    16 bits, else uint8, values below 8 bits scaled to 0..255 for grey);
+    (H, W) for grey, (H, W, 3) BGR or (H, W, 4) BGRA in cv2's channel
+    order for colour, a palette expanded, a tRNS as alpha (on a palette or
+    an RGB image; a grey one's is ignored), grey with alpha as BGRA."""
+    data = _read(path)
+    if data.startswith(jpeg.SIGNATURE):
+        return jpeg.decode_jpeg(data, str(path))
+    samples, head = decode_png(data, str(path))
     img = _rgba(samples, head, keep16=True)
     if head["color_type"] == 0:
         if head["bit_depth"] < 8:

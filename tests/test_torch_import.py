@@ -1,5 +1,6 @@
 """The port imports without jax and never reaches into the JAX package,
-PIL or torchvision (its image reader is its own, ``png.py``).  The
+PIL or torchvision (its image readers are its own, ``png.py`` and
+``jpeg.py``, numpy and the standard library only).  The
 picture libraries, cv2, matplotlib and imageio, are imported only inside
 the functions that draw (``viz.py`` and the two examples that write
 pictures), so importing any module of the port loads none of them: the
@@ -72,6 +73,18 @@ def test_torch_sources_import_no_jax(path):
     if path not in DRAWING:
         for root in _imports(ast.walk(tree)):
             assert root not in PICTURES, (path, root)
+
+
+#: what the image readers may import: numpy, the standard library's
+#: byte tools and each other
+READER_IMPORTS = {"__future__", "array", "functools", "pathlib", "struct", "typing",
+                  "zlib", "numpy", "diffdope_tpu_torch"}
+
+
+@pytest.mark.parametrize("path", ["png.py", "jpeg.py"])
+def test_torch_image_readers_import_numpy_only(path):
+    tree = ast.parse((PKG / path).read_text())
+    assert set(_imports(ast.walk(tree))) <= READER_IMPORTS, path
 
 
 def test_torch_bop_entry_points_import_without_jax_or_cv2():

@@ -4,8 +4,8 @@ writes: a textured PLY with its PNG texture (``load_mesh`` of
 binary and ascii STL (``load_stl``) and glTF, a ``.glb`` with its texture
 embedded as PNG and a ``.gltf`` with ``data:`` URIs, placed by a node
 transform (``load_glb``).  Arrays are held exactly; the baked corner
-colours within 1e-6.  An embedded JPEG, which cv2 would decode, must
-raise in the port rather than drop the texture.  Computed vertex normals
+colours within 1e-6.  A .glb with an embedded JPEG reads as the
+reference's, the JPEG decoded as cv2 decodes it.  Computed vertex normals
 (those of a file without any) agree within 1e-6: the two packages sum a
 vertex's face normals in different orders."""
 
@@ -115,13 +115,26 @@ def test_torch_gltf_matches_reference(tmp_path, suffix):
     _same_mesh(port.load_mesh(path, scale=0.01), ref_load_mesh(path, scale=0.01))
 
 
-def test_torch_gltf_embedded_jpeg_raises(tmp_path):
+def test_torch_gltf_embedded_jpeg_matches_reference(tmp_path):
+    """A .glb whose texture is an embedded JPEG: both ``load_glb``s decode
+    it (cv2.imdecode in the reference, ``jpeg.py`` in the port) to the same
+    float32 texture, and ``load_mesh`` gives the same mesh."""
+    from diffdope_tpu.mesh import load_glb as ref_load_glb
+    from diffdope_tpu.mesh import load_mesh as ref_load_mesh
+
     data = port.load_ply(TEXTURED)
     ok, jpeg = cv2.imencode(".jpg", _checker())
     assert ok
     path = tmp_path / "m.glb"
-    write_gltf(path, data["vertices"], data["faces"], uv=data["uv"], image=jpeg.tobytes())
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        port.load_glb(path)
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        port.load_mesh(path)
+    uv = np.stack([data["uv"][:, 0], 1.0 - data["uv"][:, 1]], -1)  # glTF: v down
+    write_gltf(path, data["vertices"], data["faces"], uv=uv, image=jpeg.tobytes())
+    got, want = port.load_glb(path), ref_load_glb(path)
+    assert set(got) == set(want)
+    assert "texture_image" in want
+    for key in want:
+        if key == "uv_origin":
+            assert got[key] == want[key] == "top"
+            continue
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    _same_mesh(port.load_mesh(path, scale=0.01), ref_load_mesh(path, scale=0.01))

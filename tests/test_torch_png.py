@@ -5,7 +5,9 @@ cv2 writes PNGs of every colour type and depth it can (grey, BGR, BGRA at
 8 and 16 bits) at several compression levels and row filters; the port's
 own encoder (``testing.encode_png``) writes what cv2 cannot (palettes,
 1/2/4-bit grey, grey with alpha, tRNS, Adam7 interlacing), with every row
-filter.  Both read modes must equal ``cv2.imread`` exactly.  The resizes
+filter.  Both read modes must equal ``cv2.imread`` exactly, a JPEG and a
+PNG ``eXIf`` orientation included (``tests/test_torch_jpeg.py`` holds the
+JPEG reader at length); a TIFF raises by name.  The resizes
 are held to ``cv2.resize``: INTER_NEAREST exactly, INTER_LINEAR within
 1e-12 in float64 (measured: 2.5e-14 at most; the exact 2x downscale, cv2's
 INTER_AREA path, 2.2e-16, as cv2's sum of the four differs by an ulp
@@ -156,20 +158,29 @@ def test_torch_resizes_match_cv2(factor, size):
 
 
 def test_torch_png_refuses_what_it_cannot_read(tmp_path):
+    """A JPEG and a PNG with an ``eXIf`` orientation of 6 read as cv2 reads
+    them; a PNG with a bad CRC and a TIFF raise by name, the file's path in
+    the message; a missing file raises ``FileNotFoundError``."""
     img = _smooth((16, 16, 3), 255, np.uint8)
     jpg = tmp_path / "a.jpg"
     cv2.imwrite(str(jpg), img)
-    with pytest.raises(ValueError, match="JPEG"):
-        png.imread_color(jpg)
+    _same(png.imread_color(jpg), _cv2_color(jpg))
+    _same(png.imread_unchanged(jpg), cv2.imread(str(jpg), cv2.IMREAD_UNCHANGED))
     data = bytearray(encode_png(img, 2, 8))
     data[40] ^= 0xFF  # inside the first IDAT
     bad = tmp_path / "bad.png"
     bad.write_bytes(bytes(data))
     with pytest.raises(ValueError, match="CRC"):
         png.imread_color(bad)
+    tif = tmp_path / "a.tif"
+    assert cv2.imwrite(str(tif), img)
+    for read in (png.imread_color, png.imread_unchanged):
+        with pytest.raises(ValueError, match="TIFF") as err:
+            read(tif)
+        assert str(tif) in str(err.value)
     with pytest.raises(FileNotFoundError):
         png.imread_color(tmp_path / "missing.png")
-    # an eXIf orientation of 6 (rotate 90): cv2 would rotate the image
+    # an eXIf orientation of 6 (rotate 90): cv2 rotates the image, so does the port
     exif = b"MM\x00*\x00\x00\x00\x08\x00\x01" + struct.pack(">HHIHH", 0x0112, 3, 1, 6, 0) \
         + b"\x00\x00\x00\x00"
     good = encode_png(img, 2, 8)
@@ -177,5 +188,6 @@ def test_torch_png_refuses_what_it_cannot_read(tmp_path):
         + struct.pack(">I", zlib.crc32(b"eXIf" + exif) & 0xFFFFFFFF)
     rotated = tmp_path / "rot.png"
     rotated.write_bytes(good[:33] + chunk + good[33:])
-    with pytest.raises(ValueError, match="orientation 6"):
-        png.imread_color(rotated)
+    _same(png.imread_color(rotated), _cv2_color(rotated))
+    assert png.imread_color(rotated).shape == (16, 16, 3)
+    _same(png.imread_unchanged(rotated), cv2.imread(str(rotated), cv2.IMREAD_UNCHANGED))
