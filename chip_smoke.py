@@ -221,7 +221,24 @@ result line):
    times printed; ``DiffDope(cfg)`` from those files: the gt rgb the 2x2
    mean of cv2's decode, the mesh's texture the JPEG's, then phase 16
    (b): K1-K6 launched and nothing else, phase 5's criteria (the loss
-   falls), K1-K6 held on its tables.
+   falls), K1-K6 held on its tables;
+22. the default configuration from TIFF, BMP and Netpbm files: every
+   variant of ``testing.image_variants`` (TIFF, BMP, PNM/PAM/PFM) read by
+   the port from bytes and from a file, equal bit for bit to the card
+   host's ``cv2.imdecode`` / ``cv2.imread`` (``tools/port_cv2_formats``);
+   then phase 16's 1920x1080 scene written by cv2 as rgb.bmp (24-bit) and
+   rgb.ppm, seg.pgm and seg.bmp (8-bit palette), depth.tif (cv2's default:
+   LZW, the horizontal predictor, 2-row strips), depth_f32.tif (deflate,
+   the floating-point predictor) and depth.pfm of the same values, and
+   the checker texture as a TIFF a copy of the PLY names: each read in
+   both modes equal to cv2's (None where cv2's is), sizes and read times
+   printed (the 16-bit TIFF's beside depth.png's); ``DiffDope(cfg)`` with
+   rgb + mask + depth from the BMP, the PGM and the 16-bit TIFF, then the
+   same from phase 16's PNGs: equal gt arrays (and the float32 TIFF's and
+   the PFM's depth equal to the 16-bit one's), equal loss histories,
+   argmin and ``get_pose()`` bit for bit, K1-K6 with the depth lane
+   launched and nothing else and held on the kept run's tables, phase 5's
+   criteria, the TIFF texture equal to the PNG one.
 
 K5/K6's colour lane (with and without the depth plane) and K1/K2 at the uv
 table's two channels are held to their plain versions at the test scene
@@ -325,6 +342,10 @@ FILES_LOSSES = {"l1_rgb_with_mask": True, "l1_depth_with_mask": True}
 #: phase 21: the rgb frame's JPEG (cv2's quality, 4:2:0) and the EXIF
 #: orientation stored with it (6: cv2 transposes, then flips left-right)
 JPEG_QUALITY, JPEG_ORIENTATION = 95, 6
+#: phase 22: the launch counters of the fused compact route with the depth
+#: lane (rgb + mask + depth, FILES_LOSSES)
+COMPACT_DEPTH = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd", "loss_fwd_depth",
+                 "loss_bwd_depth")
 #: the Image default the configuration keeps (``image.py``'s depth_scale)
 DEFAULT_DEPTH_SCALE = 100.0
 #: the DiffDope phases' init: the configured pose moved by this OpenCV-frame
@@ -1868,6 +1889,176 @@ def jpeg_phase(gpu: str) -> None:
     print(f"phase 21: {time.perf_counter() - t_phase:.4f} s [{gpu}]", flush=True)
 
 
+def write_format_files(root: Path, arrays, ply: Path):
+    """Phase 22's files beside phase 16's, written by cv2: rgb.bmp
+    (24-bit), rgb.ppm (binary), seg.pgm (8-bit), seg.bmp (cv2 writes 8-bit
+    grey as a palette BMP), depth.tif (cv2's default for 16 bits: LZW, the
+    horizontal predictor, 2-row strips, checked in its directory),
+    depth_f32.tif (the same values as float32: deflate, the floating-point
+    predictor; ``testing.encode_tiff`` writes it where the host's cv2
+    does not), depth.pfm (the same values, ``Pf``), the
+    checker texture as standin_checker.tif and a copy of the PLY naming
+    it.  Returns (files by name, PLY)."""
+    import cv2
+    import numpy as np
+
+    from diffdope_tpu_torch import png, tiff
+    from diffdope_tpu_torch.testing import encode_tiff
+
+    bgr = np.ascontiguousarray(arrays["rgb"][..., ::-1])
+    depth = arrays["depth"]
+    files = {name: root / name for name in (
+        "rgb.bmp", "rgb.ppm", "seg.pgm", "seg.bmp", "depth.tif", "depth_f32.tif",
+        "depth.pfm", "standin_checker.tif")}
+    writes = (("rgb.bmp", bgr, []), ("rgb.ppm", bgr, []), ("seg.pgm", arrays["seg"], []),
+              ("seg.bmp", arrays["seg"], []), ("depth.tif", depth, []),
+              ("depth_f32.tif", depth.astype(np.float32),
+               [cv2.IMWRITE_TIFF_COMPRESSION, 8, cv2.IMWRITE_TIFF_PREDICTOR, 3]),
+              ("depth.pfm", depth.astype(np.float32), []),
+              ("standin_checker.tif",
+               np.ascontiguousarray(png.imread_color(root / "standin_checker.png")[..., ::-1]),
+               []))
+    for name, img, params in writes:
+        if not cv2.imwrite(str(files[name]), img, params):
+            fail(f"phase 22: cv2 did not write {name}")
+    head = tiff._header(files["depth.tif"].read_bytes(), None)
+    layout = (head["compression"], head["predictor"], head["block"], len(head["offsets"]))
+    print(f"phase 22: depth.tif as cv2 {cv2.__version__} writes it: compression, predictor, "
+          f"strip (width, rows), strips = {layout}", flush=True)
+    if layout[:2] != (5, 2) or layout[2][1] != 2:
+        fail("phase 22: cv2's 16-bit TIFF is not LZW with the horizontal predictor in "
+             "2-row strips")
+    head = tiff._header(files["depth_f32.tif"].read_bytes(), None)
+    print(f"phase 22: depth_f32.tif as cv2 {cv2.__version__} writes it with deflate and "
+          f"predictor 3 asked: compression {head['compression']}, predictor "
+          f"{head['predictor']}", flush=True)
+    if (head["compression"], head["predictor"]) != (8, 3):
+        # the host's cv2 did not write what it was asked for float32: the
+        # port's writer gives the file its deflate and predictor
+        files["depth_f32.tif"].write_bytes(encode_tiff(
+            depth.astype(np.float32), compression=8, predictor=3, rows_per_strip=2))
+        print("phase 22: depth_f32.tif rewritten by testing.encode_tiff (deflate, "
+              "predictor 3, 2-row strips)", flush=True)
+    ply_tif = root / "standin_tex_tiff.ply"
+    text = ply.read_text()
+    if "standin_checker.png" not in text:
+        fail("phase 22: the PLY does not name its PNG texture")
+    ply_tif.write_text(text.replace("standin_checker.png", "standin_checker.tif"))
+    return files, ply_tif
+
+
+def same_bits(a, b) -> bool:
+    import numpy as np
+
+    if a is None or b is None:
+        return a is None and b is None
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and bool(np.array_equal(a, b))
+
+
+def formats_phase(gpu: str) -> None:
+    """Phase 22: the variants against the card host's cv2, then the default
+    configuration from TIFF, BMP and Netpbm files against the same from
+    PNG files."""
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch import png
+    from diffdope_tpu_torch.image import Image
+    from diffdope_tpu_torch.testing import image_variants
+    from tools.port_cv2_formats import compare
+
+    t_phase = time.perf_counter()
+    variants = image_variants()
+    differ = [row["variant"] for row in compare(variants) if row["differ"]]
+    print(f"phase 22: {len(variants)} TIFF/BMP/Netpbm variants read by the port from bytes "
+          f"and from a file in their cv2 modes: {len(differ)} differ from cv2 "
+          f"{cv2.__version__} {differ[:8]} ({time.perf_counter() - t_phase:.2f} s)",
+          flush=True)
+    if differ:
+        fail(f"phase 22: the port's reads differ from cv2's on {differ}")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        paths, arrays, ply, mtx_gt = write_scene_files(root, gpu, label="phase 22")
+        files, ply_tif = write_format_files(root, arrays, ply)
+        modes = (("unchanged", png.imread_unchanged, cv2.IMREAD_UNCHANGED),
+                 ("colour", png.imread_color, cv2.IMREAD_COLOR))
+        for name, path in list(files.items()) + [("depth.png", paths["depth"])]:
+            for mode, read, flag in modes:
+                got, want = read(path), cv2.imread(str(path), flag)
+                if want is not None and flag == cv2.IMREAD_COLOR:
+                    want = cv2.cvtColor(want, cv2.COLOR_BGR2RGB)
+                best = min(_timed(read, path) for _ in range(3))
+                shape = None if got is None else (tuple(got.shape), got.dtype.name)
+                equal = same_bits(got, want)
+                print(f"phase 22: {name} {mode} ({path.stat().st_size} bytes) {shape}: read "
+                      f"in {best:.4f} s (best of three) [{gpu}; host CPU]; equal to cv2 "
+                      f"{cv2.__version__}'s bit for bit: {equal}", flush=True)
+                if not equal:
+                    fail(f"phase 22: the port's {mode} read of {name} differs from cv2's")
+        depth16 = png.imread_unchanged(files["depth.tif"])
+        if not same_bits(depth16, arrays["depth"]):
+            fail("phase 22: depth.tif does not read back as the written frame")
+        # LZW's worst case: a frame of uniform noise, one code per 1-2 bytes
+        noise = root / "depth_noise.tif"
+        cv2.imwrite(str(noise), np.random.default_rng(0).integers(
+            0, 65536, arrays["depth"].shape, dtype=np.uint16))
+        t0 = time.perf_counter()
+        got = png.imread_unchanged(noise)
+        seconds = time.perf_counter() - t0
+        equal = same_bits(got, cv2.imread(str(noise), cv2.IMREAD_UNCHANGED))
+        print(f"phase 22: depth_noise.tif (uniform 16-bit noise, {noise.stat().st_size} "
+              f"bytes) unchanged: read in {seconds:.4f} s (once) [{gpu}; host CPU]; "
+              f"equal to cv2's bit for bit: {equal}", flush=True)
+        if not equal:
+            fail("phase 22: the port's read of depth_noise.tif differs from cv2's")
+
+        runs = {}
+        for label, scene, model in (
+                ("BMP/PGM/TIFF", dict(rgb=files["rgb.bmp"], seg=files["seg.pgm"],
+                                      depth=files["depth.tif"]), ply_tif),
+                ("PNG", paths, ply)):
+            dd, points, build_s = files_session(scene, model, losses=FILES_LOSSES)
+            print(f"phase 22: DiffDope(cfg) from the {label} files built in {build_s:.4f} s "
+                  f"[{gpu}]", flush=True)
+            dd, launches, add0, add1 = diffdope_phase(True, gpu, f"from {label}", session=(
+                dd, points, mtx_gt))
+            check_launches(f"DiffDope from {label}", launches, COMPACT_DEPTH,
+                           set(launches) - set(COMPACT_DEPTH))
+            check_diffdope(dd, f"from {label}", add0, add1)
+            runs[label] = dict(
+                gt={k: np.asarray(v) for k, v in dd.gt_tensors.items()},
+                losses={k: np.asarray(v) for k, v in dd.losses_values.items()},
+                argmin=dd.get_argmin(), pose=np.asarray(dd.get_pose()),
+                tex=np.asarray(dd.object3d.mesh.tex), resize=dd.cfg.scene.image_resize)
+            del dd
+            torch.cuda.empty_cache()
+        a, b = runs["BMP/PGM/TIFF"], runs["PNG"]
+        gt_equal = {k: same_bits(a["gt"][k], b["gt"][k]) for k in b["gt"]}
+        depth_equal = {name: same_bits(Image(img_path=str(files[name]), depth=True,
+                                             img_resize=a["resize"]).img_tensor,
+                                       a["gt"]["depth"])
+                       for name in ("depth_f32.tif", "depth.pfm")}
+        run_equal = {"losses": set(a["losses"]) == set(b["losses"]) and all(
+            same_bits(a["losses"][k], b["losses"][k]) for k in b["losses"]),
+            "argmin": a["argmin"] == b["argmin"], "get_pose": same_bits(a["pose"], b["pose"]),
+            "texture": same_bits(a["tex"], b["tex"])}
+        print(f"phase 22: the BMP/PGM/TIFF session against the PNG one: gt arrays equal "
+              f"{gt_equal}; the float32 TIFF's and the PFM's gt depth equal to the 16-bit "
+              f"TIFF's {depth_equal}; {run_equal} bit for bit (argmin {a['argmin']})",
+              flush=True)
+        if not (all(gt_equal.values()) and set(a["gt"]) == set(b["gt"])):
+            fail("phase 22: the gt arrays from BMP/PGM/TIFF differ from the PNGs'")
+        if not all(depth_equal.values()):
+            fail("phase 22: a float32 depth file gives another gt depth than the 16-bit TIFF")
+        if not all(run_equal.values()):
+            fail(f"phase 22: the runs from the two sets of files differ: {run_equal}")
+    print(f"phase 22: {time.perf_counter() - t_phase:.4f} s [{gpu}]", flush=True)
+
+
 class RefineRecorder:
     """Records every ``bop.refine`` call of the synthesized sweep (the
     contexts bind ``bop.refine`` when they are built): its fused loss, its
@@ -2779,6 +2970,10 @@ def main() -> None:
 
     # ---- the default configuration from JPEG files ---------------------------
     jpeg_phase(gpu)
+    torch.cuda.empty_cache()
+
+    # ---- the default configuration from TIFF, BMP and Netpbm files ----------
+    formats_phase(gpu)
 
     # launches on the path that runs each kernel: the bench main path (its
     # bf16 lane of K6/K4), the depth phase on the compact table (K4 with

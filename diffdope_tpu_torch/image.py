@@ -1,14 +1,17 @@
 """Image and Scene containers (counterpart of ``diffdope_tpu/image.py``).
 
 An image is one (H, W[, C]) float32 array, shared by every hypothesis,
-given as an array (``img_tensor=``) or read from a PNG or JPEG file
-(``img_path=``) the way the reference reads it with cv2
-(``image.py:55-80``): colour as RGB / 255 with the EXIF orientation
-applied, depth unchanged / depth_scale, both in float64, flipped
-vertically, resized below a resize factor of 1 (linear for colour,
-nearest for depth), then cast to float32.  The port reads PNG and JPEG
-files (``png.py``, ``jpeg.py``): other formats and the JPEG variants
-``jpeg.py`` refuses raise.
+given as an array (``img_tensor=``) or read from a file (``img_path=``)
+the way the reference reads it with cv2 (``image.py:55-80``): colour as
+RGB / 255 with the orientation applied, depth unchanged / depth_scale,
+both in float64, flipped vertically, resized below a resize factor of 1
+(linear for colour, nearest for depth), then cast to float32.  The port
+reads PNG, JPEG, TIFF (16-bit and float32 depth too), BMP and the Netpbm
+family (PGM/PPM/PAM/PFM) as cv2 does (``png.py`` and the decoders it
+hands them to); a file cv2 reads no image from (a float32 TIFF as
+colour, a TIFF whose orientation transposes it) raises
+``FileNotFoundError`` as the reference does, other formats
+and the variants the decoders refuse raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -39,9 +42,15 @@ class Image:
     def __post_init__(self):
         if self.img_path is not None:
             if self.depth:
-                im = imread_unchanged(self.img_path).astype(np.float64) / self.depth_scale
+                im = imread_unchanged(self.img_path)
+                if im is None:
+                    raise FileNotFoundError(self.img_path)
+                im = im.astype(np.float64) / self.depth_scale
             else:
-                im = imread_color(self.img_path) / 255.0
+                im = imread_color(self.img_path)
+                if im is None:
+                    raise FileNotFoundError(self.img_path)
+                im = im / 255.0
             if self.flip_img:
                 im = im[::-1]
             if self.img_resize is not None and self.img_resize < 1.0:

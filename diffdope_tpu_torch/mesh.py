@@ -5,10 +5,11 @@ STL (binary and ascii) and glTF (.glb and .gltf) parsers, winding
 repair, vertex normals, edge adjacency, and :func:`load_mesh` with its
 padding to multiples of 8 (padded triangles are degenerate and never
 rasterize).  Copied, not imported: importing the JAX package pulls in
-jax.  A textured mesh reads its texture from a PNG or JPEG file (a PLY's
-TextureFile, or ``texture_path=``) or from a glTF's embedded PNG or JPEG
-(``png.py``, ``jpeg.py``), or is built from arrays
-(:func:`mesh_from_arrays`, with the V flip and the corner-colour bake).
+jax.  A textured mesh reads its texture from an image file (a PLY's
+TextureFile, or ``texture_path=``) or from a glTF's embedded image, PNG,
+JPEG, TIFF, BMP or Netpbm, as cv2 reads it (``png.py`` and the decoders
+it hands them to), or is built from arrays (:func:`mesh_from_arrays`,
+with the V flip and the corner-colour bake).
 """
 
 from __future__ import annotations
@@ -414,11 +415,12 @@ def _gltf_read_accessor(gltf, buffers, idx):
 def _gltf_decode_image(gltf, buffers, image_idx):
     """An embedded image (a bufferView or a ``data:`` URI) as float32 RGB
     in [0, 1], as ``cv2.imdecode`` + BGR2RGB gives it (``mesh.py:417-
-    438``); None for an external URI (the caller reads the file) or bytes
-    of no known image format (cv2 decodes none either).  A PNG or a JPEG
-    is decoded (``png.decode_color``, its EXIF orientation applied as
-    cv2's ``IMREAD_COLOR`` does); another image format (TIFF, WebP, ...)
-    raises, since cv2 would have read it and the port cannot."""
+    438``); None for an external URI (the caller reads the file), bytes
+    of no known image format or a float32 TIFF (cv2 decodes neither).  A
+    PNG, JPEG, TIFF, BMP or Netpbm image is decoded (``png.decode_color``,
+    its orientation applied as cv2's ``IMREAD_COLOR`` does); another
+    image format (WebP, GIF, ...) raises, since cv2 would have read it
+    and the port cannot."""
     img_def = gltf["images"][image_idx]
     if "bufferView" in img_def:
         bv = gltf["bufferViews"][img_def["bufferView"]]
@@ -434,11 +436,12 @@ def _gltf_decode_image(gltf, buffers, image_idx):
     name = png.format_name(data)
     if name == "unknown":
         return None
-    if name not in ("PNG", "JPEG"):
+    if name not in ("PNG", "JPEG", "TIFF", "BMP", "PNM", "PAM", "PFM"):
         raise NotImplementedError(
-            f"glTF image {image_idx} is {name}: the port decodes embedded PNG and "
-            "JPEG textures only")
-    return png.decode_color(data).astype(np.float32) / 255.0
+            f"glTF image {image_idx} is {name}: the port decodes embedded PNG, JPEG, "
+            "TIFF, BMP and Netpbm textures only")
+    img = png.decode_color(data)
+    return None if img is None else img.astype(np.float32) / 255.0
 
 
 def load_glb(path) -> Dict[str, np.ndarray]:
@@ -824,7 +827,8 @@ def load_mesh(path, scale: float = 1.0, vertex_pad: int = 8, triangle_pad: int =
     conventions (``mesh.py:848-967``): see :func:`mesh_from_arrays`.
 
     The texture is ``texture_path``, else the PLY's TextureFile next to
-    the mesh if that file exists, read as a PNG (:func:`_load_texture`),
+    the mesh if that file exists, read as cv2 reads it
+    (:func:`_load_texture`: PNG, JPEG, TIFF, BMP or Netpbm),
     its uv V-flipped; else a glTF's embedded texture, whose uv already
     has the image's top row at v = 0.  A mesh with no texture (or no uv)
     takes its vertex colours, or flat grey, with its uv dropped."""
@@ -882,9 +886,13 @@ def save_ply(path, vertices: np.ndarray, faces: np.ndarray,
 
 
 def _load_texture(texture_path) -> np.ndarray:
-    """A texture image (PNG or JPEG) as float32 RGB in [0, 1]
-    (``mesh.py:1030-1037``)."""
-    return png.imread_color(texture_path).astype(np.float32) / 255.0
+    """A texture image (PNG, JPEG, TIFF, BMP or Netpbm) as float32 RGB in
+    [0, 1] (``mesh.py:1030-1037``); ``FileNotFoundError`` where cv2 reads
+    no image (a missing file, a float32 TIFF), as the reference raises."""
+    img = png.imread_color(texture_path)
+    if img is None:
+        raise FileNotFoundError(f"cannot read texture {texture_path}")
+    return img.astype(np.float32) / 255.0
 
 
 def bake_corner_colors(tex: np.ndarray, uv: np.ndarray, faces: np.ndarray) -> np.ndarray:

@@ -1,28 +1,33 @@
-"""Image reading in numpy and zlib (PNG here, JPEG in ``jpeg.py``), and
-the image resizes of the reference.
+"""Image reading in numpy and zlib (PNG here; JPEG, TIFF, BMP and the
+Netpbm family in ``jpeg.py``, ``tiff.py``, ``bmp.py`` and ``netpbm.py``),
+and the image resizes of the reference.
 
 The reference reads its images with cv2 (``diffdope_tpu/image.py:55-80``,
 ``mesh.py:1030``, ``mesh.py:417``), which the port does not depend on.
-This module decodes PNG files itself, hands JPEG files (told by their
-signature, whatever the file's name) to :func:`jpeg.decode_jpeg`, and
-returns what cv2 returns:
+This module decodes PNG files itself, hands the other formats (told by
+their signature, whatever the file's name) to their decoders, and returns
+what cv2 returns:
 
 - :func:`imread_color` is ``cv2.imread(path)`` (``IMREAD_COLOR``) then
   ``COLOR_BGR2RGB``: RGB uint8 (H, W, 3), grey replicated, alpha dropped,
-  a palette expanded, 16 bits reduced to their high byte, and the EXIF
-  orientation (a JPEG's APP1, a PNG's ``eXIf``) applied as cv2 applies it
-  (:func:`orient`); :func:`decode_color` is the same for bytes
-  (``cv2.imdecode``);
+  a palette expanded, 16 bits reduced to their high byte (a PNG's), and
+  the EXIF orientation (a JPEG's APP1, a PNG's ``eXIf``, a TIFF's tag)
+  applied as cv2 applies it (``tiff.orient``); None where cv2 gives None
+  (a float32 TIFF, and from a file a TIFF whose orientation transposes
+  it or a one-channel PFM); :func:`decode_color` is the same for bytes
+  (``cv2.imdecode``, which returns the transposed TIFF);
 - :func:`imread_unchanged` is ``cv2.imread(path, IMREAD_UNCHANGED)``: the
-  file's depth (uint8 or uint16), (H, W) for grey, else cv2's BGR or BGRA
-  channel order, the orientation ignored.
+  file's depth (uint8, uint16, or float32 for a TIFF or PFM), (H, W) for
+  grey, else cv2's BGR or BGRA channel order; a PNG's or JPEG's
+  orientation ignored (a TIFF's applied, as cv2 does);
+  :func:`decode_unchanged` is the same for bytes.
 
 Every PNG colour type, every bit depth and Adam7 interlacing are read;
 the five row filters are undone along the image's anti-diagonals, so a
 step is one vectorised update of every row (:func:`_unfilter`).  Other
-formats (TIFF, OpenEXR, BMP, WebP, GIF...) and the JPEG variants
-``jpeg.py`` refuses raise ``ValueError`` naming the format and the file:
-cv2 would read them, the port cannot read them the way it does.
+formats (OpenEXR, WebP, GIF, JPEG 2000, Radiance HDR...) and the variants
+the other decoders refuse raise ``ValueError`` naming the format and the
+file: cv2 would read them, the port cannot read them the way it does.
 
 :func:`resize_linear` and :func:`resize_nearest` are ``cv2.resize`` with
 ``INTER_LINEAR`` and ``INTER_NEAREST`` on float64 images, down to their
@@ -38,7 +43,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from diffdope_tpu_torch import jpeg
+from diffdope_tpu_torch import bmp, jpeg, netpbm, tiff
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 #: samples per pixel of each colour type
@@ -48,9 +53,9 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
           (1, 0, 2, 2), (0, 1, 1, 2))
 #: the signatures of the formats cv2 reads and the port does not
-_OTHER_FORMATS = {b"II*\x00": "TIFF", b"MM\x00*": "TIFF",
-                  b"v/1\x01": "OpenEXR", b"BM": "BMP", b"RIFF": "WebP",
-                  b"GIF8": "GIF"}
+_OTHER_FORMATS = {b"v/1\x01": "OpenEXR", b"RIFF": "WebP", b"GIF8": "GIF",
+                  b"\x00\x00\x00\x0cjP  ": "JPEG 2000", b"\xffO\xffQ": "JPEG 2000",
+                  b"#?RADIANCE": "Radiance HDR", b"#?RGBE": "Radiance HDR"}
 
 
 def _format_name(data: bytes) -> str:
@@ -164,21 +169,6 @@ def _samples(raw: np.ndarray, h: int, w: int, ch: int, depth: int) -> np.ndarray
     return out.reshape(h, w, ch)
 
 
-def orient(img: np.ndarray, orientation: int) -> np.ndarray:
-    """An image as cv2's ``IMREAD_COLOR`` leaves it for an EXIF orientation
-    (``ExifTransform`` in ``loadsave.cpp``): 2 flips left-right, 3 turns
-    180 degrees, 4 flips top-bottom, 5 transposes, 6, 7 and 8 transpose and
-    then flip left-right, both ways or top-bottom; 1 and any other value
-    leave it as it is."""
-    if orientation in (5, 6, 7, 8):
-        img = img.swapaxes(0, 1)
-    if orientation in (2, 3, 6, 7):
-        img = img[:, ::-1]
-    if orientation in (3, 4, 7, 8):
-        img = img[::-1]
-    return np.ascontiguousarray(img)
-
-
 def decode_png(data: bytes, source: Optional[str] = None) -> Tuple[np.ndarray, Dict]:
     """Decode PNG bytes -> (samples (H, W, C) uint8 or uint16, header).
 
@@ -190,7 +180,8 @@ def decode_png(data: bytes, source: Optional[str] = None) -> Tuple[np.ndarray, D
     errors."""
     if not data.startswith(SIGNATURE):
         raise ValueError(f"{source or '<bytes>'}: not a PNG file (format: "
-                         f"{format_name(data)}): the port reads PNG and JPEG images only")
+                         f"{format_name(data)}): the port reads PNG, JPEG, TIFF, BMP, "
+                         "PBM/PGM/PPM, PAM and PFM images only")
     head, idat, palette, trns, orientation = None, [], None, None, 1
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -272,35 +263,56 @@ def _rgba(samples: np.ndarray, head: Dict, keep16: bool) -> np.ndarray:
     return _to8(samples, depth)
 
 
-def imread_color(path) -> np.ndarray:
-    """``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`` for a PNG or a
-    JPEG: (H, W, 3) uint8 RGB; grey replicated, alpha dropped (never
-    blended), 16 bits reduced to the high byte, the EXIF orientation
-    applied.  ``FileNotFoundError`` for a missing file, ``ValueError`` for
-    any other format or a JPEG variant ``jpeg.py`` refuses."""
-    return _decode_color(_read(path), str(path))
+def imread_color(path) -> Optional[np.ndarray]:
+    """``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)``: (H, W, 3)
+    uint8 RGB; grey replicated, alpha dropped (never blended), 16 bits
+    reduced to the high byte, the orientation applied; None where
+    ``cv2.imread`` gives None (a float32 TIFF, a TIFF whose orientation
+    transposes it, a one-channel PFM).  ``FileNotFoundError`` for a
+    missing file, ``ValueError`` for any other format or a variant the
+    decoders refuse."""
+    return _decode_color(_read(path), str(path), True)
 
 
-def decode_color(data: bytes) -> np.ndarray:
-    """:func:`imread_color` of PNG or JPEG bytes (``cv2.imdecode`` with
-    ``IMREAD_COLOR``, then RGB)."""
-    return _decode_color(data, None)
+def decode_color(data: bytes) -> Optional[np.ndarray]:
+    """:func:`imread_color` of bytes (``cv2.imdecode`` with
+    ``IMREAD_COLOR``, then RGB).  ``cv2.imdecode`` differs from
+    ``cv2.imread`` where a decoder replaces the image it was handed: a
+    TIFF whose orientation transposes it is returned transposed, a
+    one-channel PFM raises (cv2 returns one channel)."""
+    return _decode_color(data, None, False)
 
 
-def _decode_color(data: bytes, source: Optional[str]) -> np.ndarray:
+def _decode_color(data: bytes, source: Optional[str], from_file: bool
+                  ) -> Optional[np.ndarray]:
     if data.startswith(jpeg.SIGNATURE):
         img = jpeg.decode_jpeg(data, source)
         img = np.repeat(img[..., None], 3, axis=-1) if img.ndim == 2 else img[..., ::-1]
-        return orient(img, _exif_orientation(jpeg.exif(data)))
+        return tiff.orient(img, _exif_orientation(jpeg.exif(data)))
+    if data[:4] in tiff.SIGNATURES + tiff.BIGTIFF:
+        return tiff.decode_color(data, source, from_file)
+    if data.startswith(bmp.SIGNATURE):
+        return bmp.decode_color(data, source)
+    if netpbm.matches(data):
+        return netpbm.decode_color(data, source, from_file)
     samples, head = decode_png(data, source)
-    return orient(_color(samples, head), head["orientation"])
+    return tiff.orient(_color(samples, head), head["orientation"])
 
 
 def format_name(data: bytes) -> str:
-    """'PNG', 'JPEG', or the name of another image format by its signature."""
+    """'PNG', 'JPEG', 'TIFF', 'BMP', 'PNM', 'PAM', 'PFM', or the name of
+    another image format by its signature."""
     if data.startswith(SIGNATURE):
         return "PNG"
-    return "JPEG" if data.startswith(jpeg.SIGNATURE) else _format_name(data)
+    if data.startswith(jpeg.SIGNATURE):
+        return "JPEG"
+    if data[:4] in tiff.SIGNATURES + tiff.BIGTIFF:
+        return "TIFF"
+    if data.startswith(bmp.SIGNATURE):
+        return "BMP"
+    if netpbm.matches(data):
+        return netpbm.format_name(data)
+    return _format_name(data)
 
 
 def _color(samples: np.ndarray, head: Dict) -> np.ndarray:
@@ -310,18 +322,37 @@ def _color(samples: np.ndarray, head: Dict) -> np.ndarray:
     return np.ascontiguousarray(img[..., :3])
 
 
-def imread_unchanged(path) -> np.ndarray:
-    """``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` for a PNG or a JPEG, the
-    EXIF orientation ignored as cv2 ignores it in this mode.  A JPEG is
-    (H, W) uint8 grey or (H, W, 3) BGR.  A PNG keeps its depth (uint16 at
-    16 bits, else uint8, values below 8 bits scaled to 0..255 for grey);
-    (H, W) for grey, (H, W, 3) BGR or (H, W, 4) BGRA in cv2's channel
-    order for colour, a palette expanded, a tRNS as alpha (on a palette or
-    an RGB image; a grey one's is ignored), grey with alpha as BGRA."""
-    data = _read(path)
+def imread_unchanged(path) -> Optional[np.ndarray]:
+    """``cv2.imread(path, cv2.IMREAD_UNCHANGED)``, None where cv2 gives
+    None (a TIFF whose orientation transposes it).  A JPEG is (H, W) uint8
+    grey or (H, W, 3) BGR, its EXIF orientation ignored as cv2 ignores it
+    in this mode.  A PNG keeps its depth (uint16 at 16 bits, else uint8,
+    values below 8 bits scaled to 0..255 for grey); (H, W) for grey,
+    (H, W, 3) BGR or (H, W, 4) BGRA in cv2's channel order for colour, a
+    palette expanded, a tRNS as alpha (on a palette or an RGB image; a
+    grey one's is ignored), grey with alpha as BGRA.  TIFF, BMP and the
+    Netpbm family as ``tiff.py``, ``bmp.py`` and ``netpbm.py`` say."""
+    return _decode_unchanged(_read(path), str(path), True)
+
+
+def decode_unchanged(data: bytes) -> np.ndarray:
+    """:func:`imread_unchanged` of bytes (``cv2.imdecode`` with
+    ``IMREAD_UNCHANGED``): a TIFF whose orientation transposes it is
+    returned transposed."""
+    return _decode_unchanged(data, None, False)
+
+
+def _decode_unchanged(data: bytes, source: Optional[str], from_file: bool
+                      ) -> Optional[np.ndarray]:
     if data.startswith(jpeg.SIGNATURE):
-        return jpeg.decode_jpeg(data, str(path))
-    samples, head = decode_png(data, str(path))
+        return jpeg.decode_jpeg(data, source)
+    if data[:4] in tiff.SIGNATURES + tiff.BIGTIFF:
+        return tiff.decode_unchanged(data, source, from_file)
+    if data.startswith(bmp.SIGNATURE):
+        return bmp.decode_unchanged(data, source)
+    if netpbm.matches(data):
+        return netpbm.decode_unchanged(data, source)
+    samples, head = decode_png(data, source)
     img = _rgba(samples, head, keep16=True)
     if head["color_type"] == 0:
         if head["bit_depth"] < 8:

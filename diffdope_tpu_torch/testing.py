@@ -6,7 +6,11 @@ bench protocol's scene as plain numpy arrays, the synthetic refinement
 problem (:func:`synthetic_scene`, torch tensors), textured stand-ins from
 arrays, and minimal PNG, STL and glTF writers (:func:`write_png`,
 :func:`write_stl`, :func:`write_gltf`) for tests and smoke runs that must
-write such files where no cv2 is installed.
+write such files where no cv2 is installed.  TIFF, BMP, Netpbm, PAM and
+PFM writers (:func:`encode_tiff`, :func:`encode_bmp`, :func:`encode_pnm`,
+:func:`encode_pam`, :func:`encode_pfm`) write the variants cv2 cannot,
+and :func:`image_variants` is the set of small files the readers are
+held to cv2 on.
 """
 
 from __future__ import annotations
@@ -396,3 +400,602 @@ def png_bytes(array: np.ndarray, filters: Union[str, int] = "none") -> bytes:
     samples = array[..., None] if array.ndim == 2 else array
     return encode_png(samples, {1: 0, 3: 2, 4: 6}[samples.shape[-1]], 8 * array.itemsize,
                       filters)
+
+
+# ---------------------------------------------------------------------------
+# TIFF, BMP and Netpbm writers: the variants cv2 cannot write
+# ---------------------------------------------------------------------------
+
+def lzw_encode(data: bytes, old_style: bool = False) -> bytes:
+    """TIFF LZW of ``data``: a Clear first, codes of 9 to 12 bits packed
+    most significant bit first, each width taken one code early (libtiff's
+    encoder), a Clear when the table is full, EOI last.  ``old_style``
+    writes the pre-6.0 form instead: codes least significant bit first,
+    widths taken on time."""
+    table = {bytes([i]): i for i in range(256)}
+    codes, free, early = [256], 258, 0 if old_style else 1
+    codes_w = [9]
+    width = 9
+
+    def emit(code):
+        codes.append(code)
+        codes_w.append(width)
+
+    w = b""
+    for byte in data:
+        wc = w + bytes([byte])
+        if wc in table:
+            w = wc
+            continue
+        emit(table[w])
+        table[wc] = free
+        free += 1
+        if free + early > (1 << width):
+            width += 1
+        if free >= 4094:
+            emit(256)
+            table = {bytes([i]): i for i in range(256)}
+            free, width = 258, 9
+        w = bytes([byte])
+    if w:
+        emit(table[w])
+        free += 1
+        if free + early > (1 << width) and width < 12:
+            width += 1
+    emit(257)
+    acc, nacc, out = 0, 0, bytearray()
+    for code, nbits in zip(codes, codes_w):
+        if old_style:
+            acc |= code << nacc
+            nacc += nbits
+            while nacc >= 8:
+                out.append(acc & 255)
+                acc >>= 8
+                nacc -= 8
+        else:
+            acc = (acc << nbits) | code
+            nacc += nbits
+            while nacc >= 8:
+                out.append((acc >> (nacc - 8)) & 255)
+                nacc -= 8
+            acc &= (1 << nacc) - 1
+    if nacc:
+        out.append(acc & 255 if old_style else (acc << (8 - nacc)) & 255)
+    return bytes(out)
+
+
+def packbits_encode(data: bytes) -> bytes:
+    """PackBits: runs of 3 to 128 equal bytes as (1 - n, byte), the rest as
+    literal blocks of at most 128 bytes."""
+    out, lit, i, n = bytearray(), bytearray(), 0, len(data)
+
+    def flush():
+        for at in range(0, len(lit), 128):
+            block = lit[at:at + 128]
+            out.append(len(block) - 1)
+            out.extend(block)
+        lit.clear()
+
+    while i < n:
+        run = 1
+        while i + run < n and run < 128 and data[i + run] == data[i]:
+            run += 1
+        if run >= 3:
+            flush()
+            out += bytes([(257 - run) & 255, data[i]])
+        else:
+            lit.extend(data[i:i + run])
+        i += run
+    flush()
+    return bytes(out)
+
+
+#: TIFF field types: (code, numpy format without byte order)
+_TIFF_TYPES = {3: "u2", 4: "u4", 16: "u8"}
+
+
+def _tiff_ifd(entries, end: str, at: int, big: bool) -> bytes:
+    """An IFD at file offset ``at``: ``entries`` (tag, type, values) in tag
+    order, values that do not fit an entry after it."""
+    head, slot = (8, 8) if big else (2, 4)
+    size = head + len(entries) * (20 if big else 12) + slot
+    count_fmt, off_fmt = ("Q", "Q") if big else ("H", "I")
+    body, extra = struct.pack(end + count_fmt, len(entries)), b""
+    for tag, kind, values in sorted(entries):
+        raw = np.asarray(values, end + _TIFF_TYPES[kind]).tobytes()
+        body += struct.pack(end + "HH" + ("Q" if big else "I"), tag, kind, len(values))
+        if len(raw) <= slot:
+            body += raw.ljust(slot, b"\0")
+        else:
+            body += struct.pack(end + off_fmt, at + size + len(extra))
+            extra += raw + b"\0" * (len(raw) % 2)
+    return body + b"\0" * slot + extra
+
+
+def encode_tiff(samples: np.ndarray, photometric: Optional[int] = None,
+                compression: int = 1, predictor: int = 1, big_endian: bool = False,
+                rows_per_strip: Optional[int] = None, tile: Optional[Tuple[int, int]] = None,
+                planar: int = 1, colormap: Optional[np.ndarray] = None,
+                extra_samples: Optional[Tuple[int, ...]] = None,
+                orientation: Optional[int] = None, sample_format: Optional[int] = None,
+                bits: Optional[int] = None, bigtiff: bool = False,
+                old_lzw: bool = False) -> bytes:
+    """TIFF bytes of ``samples`` (H, W) or (H, W, C) as stored (palette
+    indices for ``photometric`` 3, RGB order): uint8, uint16, float32 or
+    any other dtype, or ``bits`` 1, 2 or 4 packed from uint8 values.
+
+    ``compression`` 1 (none), 5 (LZW; ``old_lzw`` the pre-6.0 bit order),
+    8 or 32946 (deflate) or 32773 (PackBits) compresses each strip or tile;
+    any other value is written into the tag over uncompressed data.
+    ``predictor`` 2 differences each row's samples, 3 shuffles each row's
+    bytes into planes (most significant first) and differences them.
+    Strips of ``rows_per_strip`` rows (all rows by default) or ``tile``
+    (width, height) tiles, ``planar`` 2 for one plane a sample, a
+    ``colormap`` (3, 2**bits) uint16, ``extra_samples`` (338), an
+    ``orientation`` (274) and a ``sample_format`` (339) tag.  ``bigtiff``
+    writes the 64-bit form (BigTIFF)."""
+    arr = np.asarray(samples)
+    arr3 = arr[..., None] if arr.ndim == 2 else arr
+    h, w, spp = arr3.shape
+    bps = bits or 8 * arr.itemsize
+    end = ">" if big_endian else "<"
+    if photometric is None:
+        photometric = 1 if spp < 3 else 2
+    if sample_format is None:
+        sample_format = {"u": 1, "i": 2, "f": 3}[arr.dtype.kind]
+    planes = [arr3[..., c:c + 1] for c in range(spp)] if planar == 2 else [arr3]
+    bw, bh = tile if tile else (w, rows_per_strip or h)
+    stride = 0
+    # libtiff runs a predictor with LZW and deflate only
+    predictor_on = predictor if compression in (5, 8, 32946) else 1
+    nx, ny = (-(-w // bw), -(-h // bh)) if tile else (1, -(-h // bh))
+
+    def block_bytes(block: np.ndarray) -> bytes:
+        nonlocal stride
+        rows, cols, ch = block.shape
+        stride = -(-cols * ch * bps // 8)
+        if bps < 8:
+            vals = block.reshape(rows, cols * ch).astype(np.uint8)
+            bit = (vals[..., None] >> np.arange(bps - 1, -1, -1)) & 1
+            return np.packbits(bit.reshape(rows, -1).astype(np.uint8), axis=1).tobytes()
+        if predictor_on == 3:
+            wc = cols * ch
+            be = block.reshape(rows, wc).astype(">" + block.dtype.str[1:])
+            planes_ = be.view(np.uint8).reshape(rows, wc, -1).transpose(0, 2, 1)
+            flat = planes_.reshape(rows, -1).astype(np.int32)
+            flat[:, ch:] = flat[:, ch:] - flat[:, :-ch]
+            return (flat & 255).astype(np.uint8).tobytes()
+        if predictor_on == 2:
+            kind = block.dtype.str[1:].replace("i", "u").replace("f", "u")
+            u = block.view(kind).reshape(rows, cols, ch).astype(np.int64)
+            d = u.copy()
+            d[:, 1:] = u[:, 1:] - u[:, :-1]
+            block = (d % (1 << bps)).astype(kind).view(block.dtype).reshape(rows, cols, ch)
+        return block.astype(end + block.dtype.str[1:]).tobytes()
+
+    def compress(raw: bytes) -> bytes:
+        if compression == 5:
+            return lzw_encode(raw, old_lzw)
+        if compression in (8, 32946):
+            return zlib.compress(raw)
+        if compression == 32773:  # each row on its own, as libtiff packs them
+            return b"".join(packbits_encode(raw[r * stride:(r + 1) * stride])
+                            for r in range(len(raw) // stride))
+        return raw
+
+    blocks = []
+    for plane in planes:
+        for by in range(ny):
+            for bx in range(nx):
+                block = plane[by * bh:(by + 1) * bh, bx * bw:(bx + 1) * bw]
+                if tile:  # tiles are whole: the edge ones padded
+                    pad = np.zeros((bh, bw, block.shape[2]), block.dtype)
+                    pad[:block.shape[0], :block.shape[1]] = block
+                    block = pad
+                blocks.append(compress(block_bytes(block)))
+    head = 16 if bigtiff else 8
+    offsets, data = [], b""
+    for block in blocks:
+        offsets.append(head + len(data))
+        data += block + b"\0" * (len(block) % 2)
+    ifd_at = head + len(data)
+    off_type = 16 if bigtiff else 4
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bps] * spp), (259, 3, [compression]),
+               (262, 3, [photometric]), (277, 3, [spp]), (284, 3, [planar]),
+               (339, 3, [sample_format] * spp)]
+    if tile:
+        entries += [(322, 4, [bw]), (323, 4, [bh]), (324, off_type, offsets),
+                    (325, 4, [len(b) for b in blocks])]
+    else:
+        entries += [(273, off_type, offsets), (278, 4, [bh]),
+                    (279, 4, [len(b) for b in blocks])]
+    if predictor != 1:
+        entries.append((317, 3, [predictor]))
+    if colormap is not None:
+        entries.append((320, 3, np.asarray(colormap, np.uint16).reshape(-1).tolist()))
+    if extra_samples is not None:
+        entries.append((338, 3, list(extra_samples)))
+    if orientation is not None:
+        entries.append((274, 3, [orientation]))
+    if bigtiff:
+        magic = (b"MM\x00+" if big_endian else b"II+\x00") + struct.pack(end + "HHQ", 8, 0,
+                                                                          ifd_at)
+    else:
+        magic = (b"MM\x00*" if big_endian else b"II*\x00") + struct.pack(end + "I", ifd_at)
+    return magic + data + _tiff_ifd(entries, end, ifd_at, bigtiff)
+
+
+def _rle_row(row: np.ndarray, four: bool, eol_tail: bool, delta: bool) -> Tuple[bytes, int]:
+    """One row of RLE8 (``four`` False) or RLE4 palette indices: runs of
+    equal indices (RLE4: of alternating nibble pairs) as (count, value),
+    other stretches of 3 or more as absolute blocks padded to 16 bits.
+    ``eol_tail`` drops the row's trailing zero indices (the end of line
+    ends it early), ``delta`` writes each run of 4 or more zeros as a
+    delta escape (0, 2, dx, 0).  Returns the bytes and the number of
+    pixels the row leaves to the decoder's fill."""
+    vals = row.tolist()
+    n = len(vals)
+    if eol_tail:
+        while n and vals[n - 1] == 0:
+            n -= 1
+    out, i, lit = bytearray(), 0, []
+    cap = 255 if not four else 254
+
+    def flush():
+        at = 0
+        while at < len(lit):
+            block = lit[at:at + cap]
+            at += len(block)
+            if len(block) < 3:
+                for v in block:
+                    out.extend((1, (v << 4) | v if four else v))
+                continue
+            out.extend((0, len(block)))
+            if four:
+                pad = block + [0] * (len(block) % 2)
+                data = bytes((pad[k] << 4) | pad[k + 1] for k in range(0, len(pad), 2))
+            else:
+                data = bytes(block)
+            out.extend(data + b"\0" * (len(data) % 2))
+        lit.clear()
+
+    while i < n:
+        run = 1
+        while i + run < n and run < cap and vals[i + run] == vals[i]:
+            run += 1
+        if delta and vals[i] == 0 and run >= 4 and i + run < n:
+            flush()
+            out.extend((0, 2, run, 0))
+        elif run >= 3:
+            flush()
+            v = vals[i]
+            out.extend((run, (v << 4) | v if four else v))
+        else:
+            lit.extend(vals[i:i + run])
+        i += run
+    flush()
+    return bytes(out), len(vals) - n
+
+
+def encode_bmp(pixels: np.ndarray, bits: int, palette: Optional[np.ndarray] = None,
+               header: int = 40, rle: bool = False, top_down: bool = False,
+               masks: Optional[Tuple[int, int, int, int]] = None,
+               colors_used: Optional[int] = None, eol_tail: bool = False,
+               delta: bool = False, early_end: bool = False) -> bytes:
+    """BMP bytes.  ``pixels`` is (H, W) palette indices for ``bits`` 1, 4
+    or 8 (``palette`` (n, 3) RGB, written BGR0, or BGR with the 12-byte
+    header), (H, W) uint16 words for 16, (H, W, 3) RGB for 24 and (H, W,
+    4) RGBA for 32.  ``header`` is the info header's size (12, 40, 108 or
+    124); ``masks`` (red, green, blue, alpha) writes BI_BITFIELDS (in the
+    header from 108 bytes on, after a 40-byte one otherwise); ``rle``
+    writes RLE8 at 8 bits, RLE4 at 4 (with ``eol_tail``, ``delta`` as
+    :func:`_rle_row`; ``early_end`` ends the bitmap before its trailing
+    rows of zero indices).  Rows are bottom-up unless ``top_down`` (a
+    negative height), each padded to 4 bytes; ``colors_used`` is the
+    header's palette count (0 for 2**bits entries)."""
+    pix = np.asarray(pixels)
+    h, w = pix.shape[:2]
+    if bits <= 8:
+        pal = np.asarray(palette, np.uint8)[:, ::-1]
+        if colors_used is None and header != 12:
+            colors_used = len(pal) if len(pal) != 1 << bits else 0
+        n_pal = 1 << bits if header == 12 else (colors_used or 1 << bits)
+        pal = np.concatenate([pal, np.zeros((max(0, n_pal - len(pal)), 3), np.uint8)])[:n_pal]
+        if header != 12:
+            pal = np.concatenate([pal, np.zeros((n_pal, 1), np.uint8)], axis=1)
+        pal_bytes = pal.tobytes()
+    else:
+        n_pal, pal_bytes = 0, b""
+    rows = pix[::-1] if not top_down else pix
+    if rle:
+        body = bytearray()
+        tail_zero = 0
+        if early_end:
+            while tail_zero < h and not rows[h - 1 - tail_zero].any():
+                tail_zero += 1
+        for y in range(h - tail_zero):
+            data, _ = _rle_row(rows[y], bits == 4, eol_tail, delta)
+            body += data + (b"\x00\x00" if y < h - tail_zero - 1 else b"")
+        body += b"\x00\x01"
+        body = bytes(body)
+        comp = 2 if bits == 4 else 1
+    else:
+        if bits < 8:
+            vals = rows.astype(np.uint8)
+            bit = (vals[..., None] >> np.arange(bits - 1, -1, -1)) & 1
+            packed = np.packbits(bit.reshape(h, -1).astype(np.uint8), axis=1)
+        elif bits == 8:
+            packed = rows.astype(np.uint8)
+        elif bits == 16:
+            packed = rows.astype("<u2").view(np.uint8).reshape(h, -1)
+        else:
+            order = [2, 1, 0] if bits == 24 else [2, 1, 0, 3]
+            packed = np.ascontiguousarray(rows[..., order]).astype(np.uint8).reshape(h, -1)
+        stride = -(-w * bits // 32) * 4
+        buf = np.zeros((h, stride), np.uint8)
+        buf[:, :packed.shape[1]] = packed
+        body = buf.tobytes()
+        comp = 3 if masks is not None else 0
+    height = -h if top_down else h
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+        extra = b""
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, height, 1, bits, comp, len(body),
+                           2835, 2835, colors_used or 0, 0)
+        fields = struct.pack("<4I", *masks) if masks is not None else b"\0" * 16
+        if header >= 108:
+            info += fields + b"BGRs" + b"\0" * (header - 40 - 20)
+            extra = b""
+        else:
+            extra = fields[:12] if masks is not None else b""
+    offset = 14 + len(info) + len(extra) + len(pal_bytes)
+    size = offset + len(body)
+    return (b"BM" + struct.pack("<IHHI", size, 0, 0, offset) + info + extra + pal_bytes
+            + body)
+
+
+def encode_pnm(samples: np.ndarray, magic: str, maxval: Optional[int] = None,
+               comment: Optional[str] = None, line: int = 17) -> bytes:
+    """Netpbm bytes: ``magic`` P1-P6 of (H, W) grey or (H, W, 3) RGB
+    samples (P1/P4: 1 is black), ``maxval`` (default 255, or 65535 for
+    uint16 samples; 2 bytes a sample big-endian above 255), a ``comment``
+    line after the magic, ascii samples ``line`` to a line."""
+    arr = np.asarray(samples)
+    h, w = arr.shape[:2]
+    kind = int(magic[1])
+    if maxval is None:
+        maxval = 65535 if arr.dtype == np.uint16 else 255
+    head = magic + "\n" + (f"# {comment}\n" if comment is not None else "") + f"{w} {h}\n"
+    if kind not in (1, 4):
+        head += f"{maxval}\n"
+    flat = arr.reshape(h, -1)
+    if kind == 4:
+        return head.encode() + np.packbits(flat.astype(np.uint8), axis=1).tobytes()
+    if kind >= 4:
+        dtype = ">u2" if maxval > 255 else np.uint8
+        return head.encode() + flat.astype(dtype).tobytes()
+    vals = [str(v) for v in flat.reshape(-1).tolist()]
+    sep = "" if kind == 1 else " "
+    body = "\n".join(sep.join(vals[at:at + line]) for at in range(0, len(vals), line))
+    return (head + body + "\n").encode()
+
+
+def encode_pam(samples: np.ndarray, maxval: Optional[int] = None,
+               tupltype: Optional[str] = None) -> bytes:
+    """PAM (P7) bytes of (H, W) or (H, W, C) samples, 2 bytes big-endian
+    a sample above a ``maxval`` of 255."""
+    arr = np.asarray(samples)
+    arr3 = arr[..., None] if arr.ndim == 2 else arr
+    h, w, depth = arr3.shape
+    if maxval is None:
+        maxval = 65535 if arr.dtype == np.uint16 else 255
+    head = f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH {depth}\nMAXVAL {maxval}\n"
+    if tupltype:
+        head += f"TUPLTYPE {tupltype}\n"
+    dtype = ">u2" if maxval > 255 else np.uint8
+    return (head + "ENDHDR\n").encode() + arr3.astype(dtype).tobytes()
+
+
+def encode_pfm(samples: np.ndarray, scale: float = -1.0) -> bytes:
+    """PFM bytes of float32 (H, W) ("Pf") or (H, W, 3) RGB ("PF") samples,
+    rows bottom-up, little-endian for a negative ``scale``."""
+    arr = np.asarray(samples, np.float32)
+    h, w = arr.shape[:2]
+    magic = "PF" if arr.ndim == 3 else "Pf"
+    dtype = "<f4" if scale < 0 else ">f4"
+    return f"{magic}\n{w} {h}\n{scale}\n".encode() + arr[::-1].astype(dtype).tobytes()
+
+
+def variant_image(h: int, w: int, channels: int, dtype, seed: int) -> np.ndarray:
+    """Gradients with noise over a dtype's range (float32: [-2, 3])."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    base = (np.sin(x / 5.0) * np.cos(y / 4.0) * 0.4 + 0.5)[..., None] \
+        * np.linspace(0.4, 1.0, max(channels, 1))
+    base = np.clip(base + rng.uniform(-0.1, 0.1, base.shape), 0.0, 1.0)
+    if np.dtype(dtype).kind == "f":
+        out = (base * 5.0 - 2.0).astype(dtype)
+    else:
+        out = np.round(base * np.iinfo(dtype).max).astype(dtype)
+    return out[..., 0] if channels == 0 else out
+
+
+#: the modes a variant is read in: both, or only IMREAD_UNCHANGED / COLOR
+BOTH, UNCHANGED, COLOR = ("unchanged", "color"), ("unchanged",), ("color",)
+
+
+def image_variants() -> Dict[str, Tuple[bytes, Tuple[str, ...]]]:
+    """Small TIFF, BMP, Netpbm, PAM and PFM files of every variant the
+    port's readers decode, each with the cv2 modes it is held to cv2 in:
+    name -> (bytes, modes).  Sizes are odd and tiles partial, except
+    16-bit tiles (cv2's 8-bit path leaves partial 16-bit tiles
+    unwritten) and uncompressed tiles, which are read unchanged at 16 bits
+    only (cv2's 8-bit path refuses uncompressed tiles smaller than four
+    bytes a pixel)."""
+    out: Dict[str, Tuple[bytes, Tuple[str, ...]]] = {}
+    h, w = 19, 27
+    g8, c8 = variant_image(h, w, 0, np.uint8, 1), variant_image(h, w, 3, np.uint8, 2)
+    a8 = variant_image(h, w, 4, np.uint8, 3)
+    g16, c16 = variant_image(h, w, 0, np.uint16, 4), variant_image(h, w, 3, np.uint16, 5)
+    a16 = variant_image(h, w, 4, np.uint16, 6)
+    f32, f3 = variant_image(h, w, 0, np.float32, 7), variant_image(h, w, 3, np.float32, 8)
+    # ---- TIFF
+    for comp in (1, 5, 8, 32946, 32773):
+        for name, arr in (("g8", g8), ("c8", c8), ("a8", a8), ("g16", g16), ("c16", c16),
+                          ("a16", a16), ("f32", f32), ("f3", f3)):
+            preds = (1, 2, 3) if arr.dtype == np.float32 else (1, 2)
+            for pred in preds if comp in (5, 8, 32946) else (1,):
+                for be in (False, True):
+                    out[f"tiff_{name}_c{comp}_p{pred}_{'be' if be else 'le'}"] = (encode_tiff(
+                        arr, compression=comp, predictor=pred, big_endian=be,
+                        rows_per_strip=5), BOTH)
+    for comp in (5, 8, 32773):
+        for name, arr in (("g8", g8), ("c8", c8), ("a8", a8)):
+            out[f"tiff_tiles_{name}_c{comp}"] = (encode_tiff(
+                arr, compression=comp, predictor=2 if comp != 32773 else 1,
+                tile=(16, 16)), BOTH)
+    g16t = variant_image(32, 48, 0, np.uint16, 9)
+    c16t = variant_image(32, 48, 3, np.uint16, 10)
+    f32t = variant_image(h, w, 0, np.float32, 11)
+    for comp in (1, 5, 8):
+        out[f"tiff_tiles_g16_c{comp}"] = (encode_tiff(g16t, compression=comp, tile=(16, 16),
+                                                      big_endian=comp == 8),
+                                          BOTH if comp != 1 else UNCHANGED)
+        out[f"tiff_tiles_c16_c{comp}"] = (encode_tiff(c16t, compression=comp, tile=(16, 32)),
+                                          BOTH if comp != 1 else UNCHANGED)
+        out[f"tiff_tiles_f32_c{comp}"] = (encode_tiff(f32t, compression=comp, tile=(16, 16),
+                                                      predictor=3 if comp != 1 else 1), BOTH)
+    out["tiff_tiles_a8_c1"] = (encode_tiff(a8, tile=(16, 16)), BOTH)
+    for name, arr in (("c8", c8), ("a8", a8)):
+        for comp in (1, 5, 32773):
+            out[f"tiff_planar2_{name}_c{comp}"] = (encode_tiff(
+                arr, compression=comp, planar=2, rows_per_strip=4,
+                predictor=2 if comp == 5 else 1), BOTH)
+    out["tiff_planar2_tiles_c8_c8"] = (encode_tiff(c8, compression=8, planar=2,
+                                                   tile=(16, 16)), BOTH)
+    out["tiff_planar2_c16_c5"] = (encode_tiff(c16, compression=5, planar=2,
+                                              rows_per_strip=4), COLOR)
+    out["tiff_planar2_g16_c5"] = (encode_tiff(g16, compression=5, planar=2), BOTH)
+    for name, arr in (("g8", g8), ("g16", g16), ("f32", f32)):
+        out[f"tiff_whiteiszero_{name}"] = (encode_tiff(arr, photometric=0, compression=5), BOTH)
+    idx = variant_image(h, w, 0, np.uint8, 12)
+    cmap16 = np.random.default_rng(13).integers(0, 65536, (3, 256)).astype(np.uint16)
+    out["tiff_palette_cmap16"] = (encode_tiff(idx, photometric=3, colormap=cmap16,
+                                              compression=5), BOTH)
+    out["tiff_palette_cmap8"] = (encode_tiff(idx, photometric=3, colormap=cmap16 >> 8,
+                                             compression=8, big_endian=True), BOTH)
+    for extra in (None, (0,), (1,), (2,)):
+        tag = "none" if extra is None else extra[0]
+        out[f"tiff_rgba8_extra{tag}"] = (encode_tiff(a8, extra_samples=extra, compression=5),
+                                         BOTH)
+        out[f"tiff_rgba16_extra{tag}"] = (encode_tiff(a16, extra_samples=extra,
+                                                      compression=5), BOTH)
+    ga8, ga16 = variant_image(h, w, 2, np.uint8, 14), variant_image(h, w, 2, np.uint16, 15)
+    for extra in (None, (2,)):
+        tag = "none" if extra is None else extra[0]
+        out[f"tiff_grey_alpha8_extra{tag}"] = (encode_tiff(ga8, extra_samples=extra,
+                                                           compression=5), BOTH)
+        out[f"tiff_grey_alpha16_extra{tag}"] = (encode_tiff(ga16, extra_samples=extra,
+                                                            compression=5), BOTH)
+    out["tiff_whiteiszero_grey_alpha8"] = (encode_tiff(ga8, photometric=0, compression=5),
+                                           BOTH)
+    c8t = variant_image(37, 45, 3, np.uint8, 16)
+    for o in range(1, 9):
+        out[f"tiff_orient{o}_c8"] = (encode_tiff(c8, orientation=o, compression=5,
+                                                 rows_per_strip=4), BOTH)
+        out[f"tiff_orient{o}_g16"] = (encode_tiff(g16, orientation=o, compression=8,
+                                                  rows_per_strip=7), BOTH)
+        out[f"tiff_orient{o}_f32"] = (encode_tiff(f32, orientation=o), BOTH)
+        out[f"tiff_orient{o}_tiles_c8"] = (encode_tiff(c8t, orientation=o, compression=5,
+                                                       tile=(16, 16)), BOTH)
+        out[f"tiff_orient{o}_tiles_g16"] = (encode_tiff(g16t, orientation=o, compression=5,
+                                                        tile=(16, 16)), UNCHANGED)
+    out["tiff_one_column"] = (encode_tiff(g16[:, :1], compression=5, predictor=2), BOTH)
+    out["tiff_one_row"] = (encode_tiff(c8[:1], compression=5, predictor=2), BOTH)
+    # ---- Netpbm, PAM, PFM
+    for magic in ("P2", "P5"):
+        for maxval in (1, 100, 255, 1000, 65535):
+            top = maxval + 1
+            arr = (g16.astype(np.int64) * top // 65536).astype(
+                np.uint16 if maxval > 255 else np.uint8)
+            out[f"pnm_{magic}_max{maxval}"] = (encode_pnm(arr, magic, maxval), BOTH)
+    for magic in ("P3", "P6"):
+        for maxval in (100, 255, 1000, 65535):
+            arr = (c16.astype(np.int64) * (maxval + 1) // 65536).astype(
+                np.uint16 if maxval > 255 else np.uint8)
+            out[f"pnm_{magic}_max{maxval}"] = (encode_pnm(arr, magic, maxval), BOTH)
+    bits = (g8 > 127).astype(np.uint8)
+    out["pnm_P1"] = (encode_pnm(bits, "P1"), BOTH)
+    out["pnm_P4"] = (encode_pnm(bits, "P4"), BOTH)
+    out["pnm_P5_comment"] = (encode_pnm(g8, "P5", comment="made by a test"), BOTH)
+    out["pnm_P2_over_maxval"] = (encode_pnm(g8, "P2", maxval=200), BOTH)
+    out["pnm_P5_over_maxval"] = (encode_pnm(g8, "P5", maxval=200), BOTH)
+    out["pnm_P6_crlf"] = (b"P6 27 19 255\r\n" + c8.tobytes(), BOTH)
+    out["pnm_P2_tabs_comments"] = (b"P2\t# a\n27\n# b\r19 # c\n255\n"
+                                   + " ".join(map(str, g8.reshape(-1).tolist())).encode() + b"\n",
+                                   BOTH)
+    for tupl, arr, modes in (("GRAYSCALE", g8, BOTH), ("RGB", c8, BOTH), ("RGB", c16, BOTH),
+                             ("RGB_ALPHA", a8, UNCHANGED), ("GRAYSCALE_ALPHA", ga16, UNCHANGED),
+                             (None, c8, BOTH), (None, g8, BOTH)):
+        name = f"pam_{tupl or 'none'}_{arr.dtype.name}_{arr.shape[-1] if arr.ndim == 3 else 1}"
+        out[name] = (encode_pam(arr, tupltype=tupl), modes)
+    out["pam_GRAYSCALE_max1000"] = (encode_pam((g16 % 1001).astype(np.uint16), 1000,
+                                               "GRAYSCALE"), BOTH)
+    out["pam_RGB_max100"] = (encode_pam((c8 % 101).astype(np.uint8), 100, "RGB"), BOTH)
+    for scale in (-1.0, 1.0, -3.0, 2.0):
+        out[f"pfm_Pf_{scale}"] = (encode_pfm(f32, scale), UNCHANGED)
+        out[f"pfm_PF_{scale}"] = (encode_pfm(f3, scale), BOTH)
+    wide = f3 * 80.0 + 100.0
+    wide[0, :8, 0] = [np.nan, np.inf, -np.inf, 3e9, 2.5, 3.5, 254.5, 255.5]
+    out["pfm_PF_saturating"] = (encode_pfm(wide, -1.0), BOTH)
+    # ---- BMP
+    grey_pal = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
+    col_pal = np.random.default_rng(17).integers(0, 256, (256, 3)).astype(np.uint8)
+    for header in (12, 40, 108, 124):
+        for pname, pal in (("grey", grey_pal), ("colour", col_pal)):
+            for depth in (1, 4, 8):
+                n = 1 << depth
+                sub = pal[:: 256 // n] if pname == "grey" else pal[:n]
+                ix = (idx.astype(np.int64) * n // 256).astype(np.uint8)
+                out[f"bmp_h{header}_{pname}_{depth}bit"] = (encode_bmp(ix, depth, sub, header),
+                                                            BOTH)
+            if header != 12:
+                out[f"bmp_h{header}_{pname}_8bit_topdown"] = (encode_bmp(
+                    idx, 8, pal, header, top_down=True), BOTH)
+    out["bmp_grey16_of_256"] = (encode_bmp(idx % 16, 8, grey_pal[::17][:16],
+                                           colors_used=16), BOTH)
+    out["bmp_index_past_colors_used"] = (encode_bmp(idx, 8, col_pal[:40], colors_used=40),
+                                         BOTH)
+    rle_ix = (idx.astype(np.int64) % 3).astype(np.uint8)
+    rle_ix[:, 8:15] = 5
+    rle_ix[3:5] = 0
+    rle_ix[:, 22:] = 0
+    rle_ix[-2:] = 0
+    for depth in (4, 8):
+        for opts in ({}, {"eol_tail": True}, {"delta": True}, {"early_end": True},
+                     {"eol_tail": True, "delta": True, "early_end": True}):
+            tag = "_".join(sorted(opts)) or "plain"
+            for pname, pal in (("grey", grey_pal[::17][:16]), ("colour", col_pal[:16])):
+                out[f"bmp_rle{depth}_{tag}_{pname}"] = (encode_bmp(
+                    rle_ix, depth, pal, rle=True, **opts), BOTH)
+    words = variant_image(h, w, 0, np.uint16, 18)
+    out["bmp_16_rgb555"] = (encode_bmp(words & 0x7FFF, 16), BOTH)
+    out["bmp_16_bitfields555"] = (encode_bmp(words & 0x7FFF, 16,
+                                             masks=(0x7C00, 0x3E0, 0x1F, 0)), BOTH)
+    out["bmp_16_bitfields565"] = (encode_bmp(words, 16, masks=(0xF800, 0x7E0, 0x1F, 0)),
+                                  BOTH)
+    out["bmp_16_bitfields565_topdown"] = (encode_bmp(words, 16, top_down=True,
+                                                     masks=(0xF800, 0x7E0, 0x1F, 0)), BOTH)
+    out["bmp_24"] = (encode_bmp(c8, 24), BOTH)
+    out["bmp_24_topdown"] = (encode_bmp(c8, 24, top_down=True), BOTH)
+    out["bmp_24_h12"] = (encode_bmp(c8, 24, header=12), BOTH)
+    out["bmp_32_rgb"] = (encode_bmp(a8, 32), BOTH)
+    out["bmp_32_h12"] = (encode_bmp(a8, 32, header=12), BOTH)
+    for header in (40, 108, 124):
+        for mname, masks in (("alpha", (0xFF0000, 0xFF00, 0xFF, 0xFF000000)),
+                             ("noalpha", (0xFF0000, 0xFF00, 0xFF, 0)),
+                             ("swapped", (0xFF, 0xFF00, 0xFF0000, 0xFF000000))):
+            out[f"bmp_32_h{header}_{mname}"] = (encode_bmp(a8, 32, header=header,
+                                                           masks=masks), BOTH)
+    return out
