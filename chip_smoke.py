@@ -238,7 +238,22 @@ result line):
    the PFM's depth equal to the 16-bit one's), equal loss histories,
    argmin and ``get_pose()`` bit for bit, K1-K6 with the depth lane
    launched and nothing else and held on the kept run's tables, phase 5's
-   criteria, the TIFF texture equal to the PNG one.
+   criteria, the TIFF texture equal to the PNG one;
+23. the default configuration from WebP files: every file of the WebP
+   corpus (``testing.webp_variants``: lossy, lossless, alpha, animations,
+   EXIF orientations, truncated and malformed files) read by the port from
+   bytes and from a file in both modes, equal bit for bit to the card
+   host's cv2 (None where cv2's is); then (a) phase 16's 1920x1080 scene
+   written by cv2 as lossless rgb.webp and seg.webp, lossy rgb at
+   qualities 50 and 90, and the checker texture as a lossy WebP: each read
+   equal to cv2's, the colour read times printed beside rgb.png's; (b)
+   ``DiffDope(cfg)`` with rgb + mask + depth from the lossless rgb.webp
+   and seg.webp (depth.png as it is) and from phase 16's PNGs: equal gt
+   arrays, loss histories, argmin and ``get_pose()`` bit for bit, K1-K6
+   with the depth lane launched and held; (c) ``DiffDope(cfg)`` from the
+   quality-90 rgb.webp and a .glb whose texture is the embedded WebP (the
+   mesh's texture equal to ``cv2.imdecode``'s): K1-K6 on the compact fused
+   route, phase 5's criteria.
 
 K5/K6's colour lane (with and without the depth plane) and K1/K2 at the uv
 table's two channels are held to their plain versions at the test scene
@@ -346,6 +361,8 @@ JPEG_QUALITY, JPEG_ORIENTATION = 95, 6
 #: lane (rgb + mask + depth, FILES_LOSSES)
 COMPACT_DEPTH = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd", "loss_fwd_depth",
                  "loss_bwd_depth")
+#: phase 23: cv2's ``IMWRITE_WEBP_QUALITY`` above 100 writes lossless WebP
+WEBP_LOSSLESS = 101
 #: the Image default the configuration keeps (``image.py``'s depth_scale)
 DEFAULT_DEPTH_SCALE = 100.0
 #: the DiffDope phases' init: the configured pose moved by this OpenCV-frame
@@ -1889,6 +1906,147 @@ def jpeg_phase(gpu: str) -> None:
     print(f"phase 21: {time.perf_counter() - t_phase:.4f} s [{gpu}]", flush=True)
 
 
+def write_webp_files(root: Path, arrays, ply: Path):
+    """Phase 23's files beside phase 16's, written by the card host's cv2:
+    rgb.webp and seg.webp lossless (``IMWRITE_WEBP_QUALITY`` 101), the rgb
+    frame lossy at qualities 50 and 90, and a .glb of the stand-in whose
+    texture is the checker as a lossy WebP (quality 90) embedded in its
+    binary chunk.  Returns (files by name, the .glb, the texture's bytes)."""
+    import cv2
+    import numpy as np
+
+    from diffdope_tpu_torch import png
+    from diffdope_tpu_torch.mesh import load_ply
+    from diffdope_tpu_torch.testing import write_gltf
+
+    bgr = np.ascontiguousarray(arrays["rgb"][..., ::-1])
+    files = {}
+    for name, img, quality in (("rgb.webp", bgr, WEBP_LOSSLESS), ("seg.webp", arrays["seg"],
+                                                                   WEBP_LOSSLESS),
+                               ("rgb_q50.webp", bgr, 50), ("rgb_q90.webp", bgr, 90)):
+        files[name] = root / name
+        if not cv2.imwrite(str(files[name]), img, [cv2.IMWRITE_WEBP_QUALITY, quality]):
+            fail(f"phase 23: cv2 did not write {name}")
+    tex = png.imread_color(root / "standin_checker.png")
+    ok, tex_webp = cv2.imencode(".webp", np.ascontiguousarray(tex[..., ::-1]),
+                                [cv2.IMWRITE_WEBP_QUALITY, 90])
+    if not ok:
+        fail("phase 23: cv2 did not encode the texture")
+    data = load_ply(ply)
+    uv = np.stack([data["uv"][:, 0], 1.0 - data["uv"][:, 1]], -1)  # glTF: v down
+    glb = root / "standin_webp.glb"
+    write_gltf(glb, data["vertices"], data["faces"], uv=uv, image=tex_webp.tobytes())
+    kinds = {name: path.read_bytes()[12:16].decode() for name, path in files.items()}
+    print(f"phase 23: cv2 {cv2.__version__} wrote {kinds} and a .glb embedding the "
+          f"{tex.shape[1]}x{tex.shape[0]} texture as a {len(tex_webp)}-byte lossy WebP",
+          flush=True)
+    if kinds["rgb.webp"] != "VP8L" or kinds["rgb_q90.webp"] != "VP8 ":
+        fail("phase 23: cv2's WebP files are not lossless and lossy as asked")
+    return files, glb, tex_webp.tobytes()
+
+
+def webp_phase(gpu: str) -> None:
+    """Phase 23: the WebP corpus and phase 16's frame as WebP against the
+    card host's cv2, the default configuration from lossless WebP files
+    against the same from PNGs, and from a lossy rgb.webp with a .glb whose
+    texture is an embedded WebP."""
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch import png
+    from diffdope_tpu_torch.testing import BOTH, webp_variants
+    from tools.port_cv2_formats import compare
+
+    t_phase = time.perf_counter()
+    variants = webp_variants()
+    differ = [row["variant"] for row in compare(variants) if row["differ"]]
+    print(f"phase 23: {len(variants)} WebP corpus files read by the port from bytes and "
+          f"from a file in both cv2 modes: {len(differ)} differ from cv2 {cv2.__version__} "
+          f"{differ[:8]} ({time.perf_counter() - t_phase:.2f} s)", flush=True)
+    if differ:
+        fail(f"phase 23: the port's reads differ from cv2's on {differ}")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        paths, arrays, ply, mtx_gt = write_scene_files(root, gpu, label="phase 23")
+        files, glb, tex_webp = write_webp_files(root, arrays, ply)
+
+        # (a) phase 16's frame as WebP, every read against cv2's
+        frames = {name: (path.read_bytes(), BOTH) for name, path in files.items()}
+        frames["texture.webp"] = (tex_webp, BOTH)
+        t0 = time.perf_counter()
+        rows = list(compare(frames))
+        differ = [row["variant"] for row in rows if row["differ"]]
+        print(f"phase 23 (a): {len(frames)} files of phase 16's scene read by the port from "
+              f"bytes and from a file in both modes: {len(differ)} differ from cv2 "
+              f"{cv2.__version__} {differ} ({time.perf_counter() - t0:.2f} s)", flush=True)
+        if differ:
+            fail(f"phase 23 (a): the port's reads differ from cv2's on {differ}")
+        for name, path in files.items():
+            best = min(_timed(png.imread_color, path) for _ in range(3))
+            got = png.imread_color(path)
+            print(f"phase 23 (a): {name} ({path.stat().st_size} bytes, {got.shape[1]}x"
+                  f"{got.shape[0]}) colour read in {best:.4f} s, best of three [{gpu}; "
+                  f"host CPU]", flush=True)
+        if not same_bits(png.imread_color(files["rgb.webp"]), arrays["rgb"]):
+            fail("phase 23 (a): rgb.webp does not read back as the rendered frame")
+        best = min(_timed(png.imread_color, paths["rgb"]) for _ in range(3))
+        print(f"phase 23 (a): rgb.png ({paths['rgb'].stat().st_size} bytes) colour read in "
+              f"{best:.4f} s, best of three [{gpu}; host CPU]", flush=True)
+
+        # (b) lossless rgb and seg against the PNGs, bit for bit
+        runs = {}
+        for label, scene in (("lossless WebP", dict(paths, rgb=files["rgb.webp"],
+                                                    seg=files["seg.webp"])),
+                             ("PNG", paths)):
+            dd, points, build_s = files_session(scene, ply, losses=FILES_LOSSES)
+            print(f"phase 23 (b): DiffDope(cfg) from the {label} files built in "
+                  f"{build_s:.4f} s [{gpu}]", flush=True)
+            dd, launches, add0, add1 = diffdope_phase(True, gpu, f"from {label}", session=(
+                dd, points, mtx_gt))
+            check_launches(f"DiffDope from {label}", launches, COMPACT_DEPTH,
+                           set(launches) - set(COMPACT_DEPTH))
+            check_diffdope(dd, f"from {label}", add0, add1)
+            runs[label] = dict(
+                gt={k: np.asarray(v) for k, v in dd.gt_tensors.items()},
+                losses={k: np.asarray(v) for k, v in dd.losses_values.items()},
+                argmin=dd.get_argmin(), pose=np.asarray(dd.get_pose()))
+            del dd
+            torch.cuda.empty_cache()
+        a, b = runs["lossless WebP"], runs["PNG"]
+        gt_equal = {k: same_bits(a["gt"][k], b["gt"][k]) for k in b["gt"]}
+        run_equal = {"losses": set(a["losses"]) == set(b["losses"]) and all(
+            same_bits(a["losses"][k], b["losses"][k]) for k in b["losses"]),
+            "argmin": a["argmin"] == b["argmin"], "get_pose": same_bits(a["pose"], b["pose"])}
+        print(f"phase 23 (b): the lossless WebP session against the PNG one: gt arrays "
+              f"equal {gt_equal}; {run_equal} bit for bit (argmin {a['argmin']})", flush=True)
+        if not (all(gt_equal.values()) and set(a["gt"]) == set(b["gt"])):
+            fail("phase 23 (b): the gt arrays from lossless WebP differ from the PNGs'")
+        if not all(run_equal.values()):
+            fail(f"phase 23 (b): the runs from the two sets of files differ: {run_equal}")
+
+        # (c) a lossy rgb.webp and the .glb with its WebP texture
+        dd, points, build_s = files_session(dict(paths, rgb=files["rgb_q90.webp"]), glb)
+        want = cv2.cvtColor(cv2.imdecode(np.frombuffer(tex_webp, np.uint8), cv2.IMREAD_COLOR),
+                            cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+        same_tex = same_bits(np.asarray(dd.object3d.mesh.tex), want)
+        print(f"phase 23 (c): DiffDope(cfg) from rgb_q90.webp, depth.png, seg.png and the "
+              f".glb built in {build_s:.4f} s; the mesh's texture equals cv2.imdecode's of "
+              f"the embedded WebP: {same_tex} [{gpu}]", flush=True)
+        if not same_tex:
+            fail("phase 23 (c): the .glb's texture is not cv2's decode of its WebP")
+        dd, launches, add0, add1 = diffdope_phase(True, gpu, "from lossy WebP", session=(
+            dd, points, mtx_gt))
+        check_launches("DiffDope from lossy WebP", launches, COMPACT_FUSED,
+                       set(launches) - set(COMPACT_FUSED))
+        check_diffdope(dd, "from lossy WebP", add0, add1)
+        del dd
+        torch.cuda.empty_cache()
+    print(f"phase 23: {time.perf_counter() - t_phase:.4f} s [{gpu}]", flush=True)
+
+
 def write_format_files(root: Path, arrays, ply: Path):
     """Phase 22's files beside phase 16's, written by cv2: rgb.bmp
     (24-bit), rgb.ppm (binary), seg.pgm (8-bit), seg.bmp (cv2 writes 8-bit
@@ -2974,6 +3132,10 @@ def main() -> None:
 
     # ---- the default configuration from TIFF, BMP and Netpbm files ----------
     formats_phase(gpu)
+    torch.cuda.empty_cache()
+
+    # ---- the WebP corpus, and the default configuration from WebP files -----
+    webp_phase(gpu)
 
     # launches on the path that runs each kernel: the bench main path (its
     # bf16 lane of K6/K4), the depth phase on the compact table (K4 with

@@ -7,7 +7,7 @@ padding to multiples of 8 (padded triangles are degenerate and never
 rasterize).  Copied, not imported: importing the JAX package pulls in
 jax.  A textured mesh reads its texture from an image file (a PLY's
 TextureFile, or ``texture_path=``) or from a glTF's embedded image, PNG,
-JPEG, TIFF, BMP or Netpbm, as cv2 reads it (``png.py`` and the decoders
+JPEG, TIFF, BMP, Netpbm or WebP, as cv2 reads it (``png.py`` and the decoders
 it hands them to), or is built from arrays (:func:`mesh_from_arrays`,
 with the V flip and the corner-colour bake).
 """
@@ -417,10 +417,10 @@ def _gltf_decode_image(gltf, buffers, image_idx):
     in [0, 1], as ``cv2.imdecode`` + BGR2RGB gives it (``mesh.py:417-
     438``); None for an external URI (the caller reads the file), bytes
     of no known image format or a float32 TIFF (cv2 decodes neither).  A
-    PNG, JPEG, TIFF, BMP or Netpbm image is decoded (``png.decode_color``,
-    its orientation applied as cv2's ``IMREAD_COLOR`` does); another
-    image format (WebP, GIF, ...) raises, since cv2 would have read it
-    and the port cannot."""
+    PNG, JPEG, TIFF, BMP, Netpbm or WebP image is decoded
+    (``png.decode_color``, its orientation applied as cv2's
+    ``IMREAD_COLOR`` does); another image format (GIF, ...) raises, since
+    cv2 would have read it and the port cannot."""
     img_def = gltf["images"][image_idx]
     if "bufferView" in img_def:
         bv = gltf["bufferViews"][img_def["bufferView"]]
@@ -436,10 +436,10 @@ def _gltf_decode_image(gltf, buffers, image_idx):
     name = png.format_name(data)
     if name == "unknown":
         return None
-    if name not in ("PNG", "JPEG", "TIFF", "BMP", "PNM", "PAM", "PFM"):
+    if name not in ("PNG", "JPEG", "TIFF", "BMP", "PNM", "PAM", "PFM", "WebP"):
         raise NotImplementedError(
             f"glTF image {image_idx} is {name}: the port decodes embedded PNG, JPEG, "
-            "TIFF, BMP and Netpbm textures only")
+            "TIFF, BMP, Netpbm and WebP textures only")
     img = png.decode_color(data)
     return None if img is None else img.astype(np.float32) / 255.0
 
@@ -828,7 +828,7 @@ def load_mesh(path, scale: float = 1.0, vertex_pad: int = 8, triangle_pad: int =
 
     The texture is ``texture_path``, else the PLY's TextureFile next to
     the mesh if that file exists, read as cv2 reads it
-    (:func:`_load_texture`: PNG, JPEG, TIFF, BMP or Netpbm),
+    (:func:`_load_texture`: PNG, JPEG, TIFF, BMP, Netpbm or WebP),
     its uv V-flipped; else a glTF's embedded texture, whose uv already
     has the image's top row at v = 0.  A mesh with no texture (or no uv)
     takes its vertex colours, or flat grey, with its uv dropped."""
@@ -886,9 +886,10 @@ def save_ply(path, vertices: np.ndarray, faces: np.ndarray,
 
 
 def _load_texture(texture_path) -> np.ndarray:
-    """A texture image (PNG, JPEG, TIFF, BMP or Netpbm) as float32 RGB in
-    [0, 1] (``mesh.py:1030-1037``); ``FileNotFoundError`` where cv2 reads
-    no image (a missing file, a float32 TIFF), as the reference raises."""
+    """A texture image (PNG, JPEG, TIFF, BMP, Netpbm or WebP) as float32
+    RGB in [0, 1] (``mesh.py:1030-1037``); ``FileNotFoundError`` where cv2
+    reads no image (a missing file, a float32 TIFF), as the reference
+    raises."""
     img = png.imread_color(texture_path)
     if img is None:
         raise FileNotFoundError(f"cannot read texture {texture_path}")

@@ -69,15 +69,19 @@ def _local_world() -> int:
 
 
 def rank_device(device=None) -> torch.device:
-    """This rank's device: ``device`` if it is the CPU or names a card;
-    else (``"cuda"`` or None with a card present) the card of the local
-    rank, modulo the cards there are, made the current device (the
-    kernels launch on the current device's stream); else the CPU."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(device)
+    """This rank's device: the CPU only when ``device`` asks for it
+    ("cpu"); else a card, the one ``device`` names or (None or "cuda") the
+    card of the local rank, modulo the cards there are, made the current
+    device (the kernels launch on the current device's stream).  Raises
+    RuntimeError, naming the missing card, when there is none: nothing
+    falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type != "cuda":
         return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"rank_device: no CUDA card is available for device {str(dev)!r}; "
+            "pass device='cpu' to run on the CPU")
     if dev.index is None:
         dev = torch.device("cuda", _local_rank() % torch.cuda.device_count())
     torch.cuda.set_device(dev)

@@ -1,6 +1,6 @@
-"""Image reading in numpy and zlib (PNG here; JPEG, TIFF, BMP and the
-Netpbm family in ``jpeg.py``, ``tiff.py``, ``bmp.py`` and ``netpbm.py``),
-and the image resizes of the reference.
+"""Image reading in numpy and zlib (PNG here; JPEG, TIFF, BMP, the
+Netpbm family and WebP in ``jpeg.py``, ``tiff.py``, ``bmp.py``,
+``netpbm.py`` and ``webp.py``), and the image resizes of the reference.
 
 The reference reads its images with cv2 (``diffdope_tpu/image.py:55-80``,
 ``mesh.py:1030``, ``mesh.py:417``), which the port does not depend on.
@@ -11,11 +11,12 @@ what cv2 returns:
 - :func:`imread_color` is ``cv2.imread(path)`` (``IMREAD_COLOR``) then
   ``COLOR_BGR2RGB``: RGB uint8 (H, W, 3), grey replicated, alpha dropped,
   a palette expanded, 16 bits reduced to their high byte (a PNG's), and
-  the EXIF orientation (a JPEG's APP1, a PNG's ``eXIf``, a TIFF's tag)
-  applied as cv2 applies it (``tiff.orient``); None where cv2 gives None
-  (a float32 TIFF, and from a file a TIFF whose orientation transposes
-  it or a one-channel PFM); :func:`decode_color` is the same for bytes
-  (``cv2.imdecode``, which returns the transposed TIFF);
+  the EXIF orientation (a JPEG's APP1, a PNG's ``eXIf``, a TIFF's tag, a
+  WebP's EXIF chunk) applied as cv2 applies it (``tiff.orient``); None
+  where cv2 gives None (a float32 TIFF, a WebP libwebp rejects, and from
+  a file a TIFF whose orientation transposes it or a one-channel PFM);
+  :func:`decode_color` is the same for bytes (``cv2.imdecode``, which
+  returns the transposed TIFF);
 - :func:`imread_unchanged` is ``cv2.imread(path, IMREAD_UNCHANGED)``: the
   file's depth (uint8, uint16, or float32 for a TIFF or PFM), (H, W) for
   grey, else cv2's BGR or BGRA channel order; a PNG's or JPEG's
@@ -25,7 +26,7 @@ what cv2 returns:
 Every PNG colour type, every bit depth and Adam7 interlacing are read;
 the five row filters are undone along the image's anti-diagonals, so a
 step is one vectorised update of every row (:func:`_unfilter`).  Other
-formats (OpenEXR, WebP, GIF, JPEG 2000, Radiance HDR...) and the variants
+formats (OpenEXR, GIF, JPEG 2000, Radiance HDR...) and the variants
 the other decoders refuse raise ``ValueError`` naming the format and the
 file: cv2 would read them, the port cannot read them the way it does.
 
@@ -43,7 +44,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from diffdope_tpu_torch import bmp, jpeg, netpbm, tiff
+from diffdope_tpu_torch import bmp, jpeg, netpbm, tiff, webp
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 #: samples per pixel of each colour type
@@ -53,7 +54,7 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
           (1, 0, 2, 2), (0, 1, 1, 2))
 #: the signatures of the formats cv2 reads and the port does not
-_OTHER_FORMATS = {b"v/1\x01": "OpenEXR", b"RIFF": "WebP", b"GIF8": "GIF",
+_OTHER_FORMATS = {b"v/1\x01": "OpenEXR", b"GIF8": "GIF",
                   b"\x00\x00\x00\x0cjP  ": "JPEG 2000", b"\xffO\xffQ": "JPEG 2000",
                   b"#?RADIANCE": "Radiance HDR", b"#?RGBE": "Radiance HDR"}
 
@@ -181,7 +182,7 @@ def decode_png(data: bytes, source: Optional[str] = None) -> Tuple[np.ndarray, D
     if not data.startswith(SIGNATURE):
         raise ValueError(f"{source or '<bytes>'}: not a PNG file (format: "
                          f"{format_name(data)}): the port reads PNG, JPEG, TIFF, BMP, "
-                         "PBM/PGM/PPM, PAM and PFM images only")
+                         "PBM/PGM/PPM, PAM, PFM and WebP images only")
     head, idat, palette, trns, orientation = None, [], None, None, 1
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -295,13 +296,19 @@ def _decode_color(data: bytes, source: Optional[str], from_file: bool
         return bmp.decode_color(data, source)
     if netpbm.matches(data):
         return netpbm.decode_color(data, source, from_file)
+    if webp.matches(data):
+        out = webp.decode_webp(data, source)
+        if out is None:
+            return None
+        img, exif = out
+        return tiff.orient(img[..., 2::-1], _exif_orientation(exif))
     samples, head = decode_png(data, source)
     return tiff.orient(_color(samples, head), head["orientation"])
 
 
 def format_name(data: bytes) -> str:
-    """'PNG', 'JPEG', 'TIFF', 'BMP', 'PNM', 'PAM', 'PFM', or the name of
-    another image format by its signature."""
+    """'PNG', 'JPEG', 'TIFF', 'BMP', 'PNM', 'PAM', 'PFM', 'WebP', or the
+    name of another image format by its signature."""
     if data.startswith(SIGNATURE):
         return "PNG"
     if data.startswith(jpeg.SIGNATURE):
@@ -312,6 +319,8 @@ def format_name(data: bytes) -> str:
         return "BMP"
     if netpbm.matches(data):
         return netpbm.format_name(data)
+    if webp.matches(data):
+        return "WebP"
     return _format_name(data)
 
 
@@ -331,7 +340,9 @@ def imread_unchanged(path) -> Optional[np.ndarray]:
     (H, W, 3) BGR or (H, W, 4) BGRA in cv2's channel order for colour, a
     palette expanded, a tRNS as alpha (on a palette or an RGB image; a
     grey one's is ignored), grey with alpha as BGRA.  TIFF, BMP and the
-    Netpbm family as ``tiff.py``, ``bmp.py`` and ``netpbm.py`` say."""
+    Netpbm family as ``tiff.py``, ``bmp.py`` and ``netpbm.py`` say; a WebP
+    is BGR, or BGRA when its header declares alpha, its orientation
+    ignored; None where libwebp rejects the file, as cv2 gives."""
     return _decode_unchanged(_read(path), str(path), True)
 
 
@@ -352,6 +363,9 @@ def _decode_unchanged(data: bytes, source: Optional[str], from_file: bool
         return bmp.decode_unchanged(data, source)
     if netpbm.matches(data):
         return netpbm.decode_unchanged(data, source)
+    if webp.matches(data):
+        out = webp.decode_webp(data, source)
+        return None if out is None else out[0]
     samples, head = decode_png(data, source)
     img = _rgba(samples, head, keep16=True)
     if head["color_type"] == 0:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import struct
 import zlib
+from pathlib import Path
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -823,6 +824,19 @@ def variant_image(h: int, w: int, channels: int, dtype, seed: int) -> np.ndarray
 
 #: the modes a variant is read in: both, or only IMREAD_UNCHANGED / COLOR
 BOTH, UNCHANGED, COLOR = ("unchanged", "color"), ("unchanged",), ("color",)
+
+
+#: the committed WebP corpus (``tools/port_webp_corpus.py`` writes it)
+WEBP_CORPUS = Path(__file__).resolve().parent.parent / "tests" / "torch_data" / "webp"
+
+
+def webp_variants() -> Dict[str, Tuple[bytes, Tuple[str, ...]]]:
+    """The WebP corpus as ``image_variants`` lists its files: "webp_" and
+    the file's stem -> (bytes, both modes).  Lossy and lossless files,
+    alpha (VP8L-coded, raw, each filter), animations, EXIF orientations,
+    ICC and XMP chunks, truncated and malformed files."""
+    return {f"webp_{p.stem}": (p.read_bytes(), BOTH)
+            for p in sorted(WEBP_CORPUS.glob("*.webp"))}
 
 
 def image_variants() -> Dict[str, Tuple[bytes, Tuple[str, ...]]]:

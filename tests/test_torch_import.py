@@ -81,7 +81,8 @@ READER_IMPORTS = {"__future__", "array", "functools", "pathlib", "struct", "typi
                   "zlib", "numpy", "diffdope_tpu_torch"}
 
 
-@pytest.mark.parametrize("path", ["png.py", "jpeg.py", "tiff.py", "netpbm.py", "bmp.py"])
+@pytest.mark.parametrize("path", ["png.py", "jpeg.py", "tiff.py", "netpbm.py", "bmp.py",
+                                  "webp.py"])
 def test_torch_image_readers_import_numpy_only(path):
     tree = ast.parse((PKG / path).read_text())
     assert set(_imports(ast.walk(tree))) <= READER_IMPORTS, path

@@ -19,6 +19,7 @@ group and run ``DiffDope`` with ``tpu.mesh_axis: 2``.
 
 import copy
 import datetime
+import tempfile
 import time
 
 import numpy as np
@@ -199,11 +200,11 @@ def _worker(rank, root, lrs, lrs_app):
     dist.init_process_group("gloo", init_method=f"file://{root}/rdv4", rank=rank,
                             world_size=N, timeout=timeout)
     out = {}
-    mesh = parallel.hypothesis_mesh(n_devices=N)
+    mesh = parallel.hypothesis_mesh(n_devices=N, device="cpu")
     out["mesh"] = (mesh.rank, mesh.size, str(mesh.device))
     out["replicated"] = str(parallel.replicate({"a": np.zeros(2)}, mesh)["a"].device)
     with pytest.raises(ValueError, match="not 2"):
-        parallel.hypothesis_mesh(n_devices=2)
+        parallel.hypothesis_mesh(n_devices=2, device="cpu")
 
     loss_fns, weights = select_losses(MASK)
     params0, render_fn, gt = _unfused_problem()
@@ -425,6 +426,32 @@ def test_torch_diffdope_mesh_axis_matches_unsharded(spawned):
     for k, v in telemetry.items():
         np.testing.assert_array_equal(ranks[0]["dd"]["telemetry"][k], v, err_msg=k)
     assert "dd" not in ranks[2] and "dd" not in ranks[3]
+
+
+def test_torch_rank_device_never_picks_the_cpu_unasked(monkeypatch):
+    """With no card, ``rank_device()`` and ``rank_device("cuda")`` raise,
+    naming the missing card, and so does ``hypothesis_mesh()`` on a group:
+    only ``device="cpu"`` gives the CPU."""
+    import torch.distributed as dist
+
+    from diffdope_tpu_torch import parallel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda", "cuda:0", torch.device("cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            parallel.rank_device(device)
+    assert parallel.rank_device("cpu") == torch.device("cpu")
+    assert parallel.rank_device(torch.device("cpu")) == torch.device("cpu")
+    with tempfile.TemporaryDirectory() as root:
+        dist.init_process_group("gloo", init_method=f"file://{root}/rdv", rank=0,
+                                world_size=1)
+        try:
+            with pytest.raises(RuntimeError, match="no CUDA card"):
+                parallel.hypothesis_mesh(n_devices=1)
+            assert parallel.hypothesis_mesh(n_devices=1, device="cpu").device == \
+                torch.device("cpu")
+        finally:
+            dist.destroy_process_group()
 
 
 def test_torch_hypothesis_mesh_refuses_without_a_group(monkeypatch):

@@ -159,7 +159,7 @@ def test_torch_resizes_match_cv2(factor, size):
 
 def test_torch_png_refuses_what_it_cannot_read(tmp_path):
     """A JPEG and a PNG with an ``eXIf`` orientation of 6 read as cv2 reads
-    them; a PNG with a bad CRC and a WebP raise by name, the file's path in
+    them; a PNG with a bad CRC and a GIF raise by name, the file's path in
     the message; a missing file raises ``FileNotFoundError``."""
     img = _smooth((16, 16, 3), 255, np.uint8)
     jpg = tmp_path / "a.jpg"
@@ -172,12 +172,13 @@ def test_torch_png_refuses_what_it_cannot_read(tmp_path):
     bad.write_bytes(bytes(data))
     with pytest.raises(ValueError, match="CRC"):
         png.imread_color(bad)
-    webp = tmp_path / "a.webp"
-    assert cv2.imwrite(str(webp), img)
+    gif = tmp_path / "a.gif"
+    assert cv2.imwrite(str(gif), img)
+    assert gif.read_bytes().startswith(b"GIF8")
     for read in (png.imread_color, png.imread_unchanged):
-        with pytest.raises(ValueError, match="WebP") as err:
-            read(webp)
-        assert str(webp) in str(err.value)
+        with pytest.raises(ValueError, match="GIF") as err:
+            read(gif)
+        assert str(gif) in str(err.value)
     with pytest.raises(FileNotFoundError):
         png.imread_color(tmp_path / "missing.png")
     # an eXIf orientation of 6 (rotate 90): cv2 rotates the image, so does the port

@@ -1,4 +1,5 @@
-"""The image variants of ``testing.image_variants`` through this host's
+"""The image variants of ``testing.image_variants`` and the WebP corpus of
+``testing.webp_variants`` through this host's
 cv2 and through the port's readers: one JSON line each with the variant,
 its size and, per cv2 mode it is held in (``IMREAD_UNCHANGED`` and
 ``IMREAD_COLOR``), ``cv2.imdecode``'s dtype, shape and SHA-1 (or None),
@@ -20,7 +21,7 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from diffdope_tpu_torch.testing import image_variants  # noqa: E402
+from diffdope_tpu_torch.testing import image_variants, webp_variants  # noqa: E402
 
 
 def summary(img):
@@ -91,7 +92,7 @@ def main(argv):
 
     cv2_only = "--cv2-only" in argv
     keys = [a for a in argv if not a.startswith("--")]
-    variants = image_variants()
+    variants = {**image_variants(), **webp_variants()}
     if cv2_only:
         variants.update(cv2_oddities())
     variants = {k: v for k, v in variants.items() if not keys or any(s in k for s in keys)}
