@@ -253,7 +253,28 @@ result line):
    with the depth lane launched and held; (c) ``DiffDope(cfg)`` from the
    quality-90 rgb.webp and a .glb whose texture is the embedded WebP (the
    mesh's texture equal to ``cv2.imdecode``'s): K1-K6 on the compact fused
-   route, phase 5's criteria.
+   route, phase 5's criteria;
+24. the masks, depths and images cv2 reads that phase 22 did not: (a)
+   every variant of ``testing.format_variants`` (TIFF at 1, 2, 4, 10-14
+   bits, signed, 32/64-bit integer and float64 samples, FillOrder 2,
+   JPEG-in-TIFF; GIF; Sun Raster; Radiance HDR) read by the port from
+   bytes and from a file in both modes, held to the card host's cv2, or
+   to cv2 5.0's committed reads (``tests/torch_data/format_variants_cv2
+   .json``) for a format the host's cv2 lacks and for the variants that
+   file lists as read otherwise by the host's cv2 (whose own reads must
+   then be the listed ones), the yardstick printed per format; then phase
+   16's 1920x1080 scene as seg.tif (1-bit), seg.gif, depth_i32.tif and
+   depth_i16.tif (the depth PNG's values), rgb.ras, rgb.hdr (cv2's
+   float32 HDR of the frame) and rgb_jpeg.tif (JPEG-in-TIFF, YCbCr 4:2:0
+   from the host cv2's JPEG encoder), each read equal to the host's cv2,
+   read times printed beside rgb.png's; (b) ``DiffDope(cfg)`` with rgb +
+   mask + depth from rgb.ras, seg.tif and depth_i32.tif, from seg.gif and
+   depth_i16.tif, and from the PNGs (seg made two-valued): equal gt
+   arrays, loss histories, argmin and ``get_pose()`` bit for bit, K1-K6
+   with the depth lane launched and held; (c) ``DiffDope(cfg)`` from
+   rgb.hdr and a PLY whose texture is a JPEG-in-TIFF: the gt rgb the
+   loader's arithmetic on cv2's read of the HDR, the texture cv2's read,
+   K1-K6 on the compact fused route, phase 5's criteria.
 
 K5/K6's colour lane (with and without the depth plane) and K1/K2 at the uv
 table's two channels are held to their plain versions at the test scene
@@ -363,6 +384,9 @@ COMPACT_DEPTH = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd", "loss_fwd_d
                  "loss_bwd_depth")
 #: phase 23: cv2's ``IMWRITE_WEBP_QUALITY`` above 100 writes lossless WebP
 WEBP_LOSSLESS = 101
+#: phase 24: the JPEG-in-TIFF frame's and texture's strips (rows) and
+#: cv2's JPEG quality for them
+JPEG_TIFF_ROWS, JPEG_TIFF_QUALITY = 64, 90
 #: the Image default the configuration keeps (``image.py``'s depth_scale)
 DEFAULT_DEPTH_SCALE = 100.0
 #: the DiffDope phases' init: the configured pose moved by this OpenCV-frame
@@ -2217,6 +2241,232 @@ def formats_phase(gpu: str) -> None:
     print(f"phase 22: {time.perf_counter() - t_phase:.4f} s [{gpu}]", flush=True)
 
 
+def write_later_files(root: Path, arrays, ply: Path):
+    """Phase 24's files beside phase 16's: seg.tif (1-bit MinIsBlack, LZW)
+    and seg.gif (two colours) of the seg mask made two-valued (and the
+    same as seg_bin.png), depth_i32.tif and depth_i16.tif (the depth PNG's
+    values; deflate, the horizontal predictor), rgb.ras (cv2's 24-bit Sun
+    Raster), rgb.hdr (cv2's Radiance HDR of the frame / 255 in float32),
+    rgb_jpeg.tif and the checker texture as JPEG-in-TIFF (YCbCr 4:2:0 in
+    ``JPEG_TIFF_ROWS``-row strips with shared tables, coded by the host
+    cv2's JPEG encoder) and a copy of the PLY naming the texture.  Returns
+    (files by name, the PLY, the texture's bytes)."""
+    import cv2
+    import numpy as np
+
+    from diffdope_tpu_torch import png
+    from diffdope_tpu_torch.testing import encode_gif, encode_jpeg_tiff, encode_tiff, write_png
+
+    def jpeg(arr):
+        ok, buf = cv2.imencode(".jpg", np.ascontiguousarray(arr[..., ::-1]),
+                               [cv2.IMWRITE_JPEG_QUALITY, JPEG_TIFF_QUALITY,
+                                cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420])
+        if not ok:
+            fail("phase 24: cv2 did not encode a JPEG strip")
+        return buf.tobytes()
+
+    bits = (arrays["seg"] > 127).astype(np.uint8)
+    files = {name: root / name for name in (
+        "seg.tif", "seg.gif", "seg_bin.png", "depth_i32.tif", "depth_i16.tif", "rgb.ras",
+        "rgb.hdr", "rgb_jpeg.tif")}
+    files["seg.tif"].write_bytes(encode_tiff(bits, bits=1, compression=5))
+    files["seg.gif"].write_bytes(encode_gif([bits], np.array([[0, 0, 0], [255, 255, 255]],
+                                                             np.uint8)))
+    write_png(files["seg_bin.png"], bits * 255, filters="cycle")
+    depth = arrays["depth"]
+    if int(depth.max()) > 32767:
+        fail(f"phase 24: depth values up to {int(depth.max())} do not fit 16 signed bits")
+    for name, dtype in (("depth_i32.tif", np.int32), ("depth_i16.tif", np.int16)):
+        files[name].write_bytes(encode_tiff(depth.astype(dtype), compression=8, predictor=2))
+    bgr = np.ascontiguousarray(arrays["rgb"][..., ::-1])
+    if not cv2.imwrite(str(files["rgb.ras"]), bgr):
+        fail("phase 24: cv2 did not write rgb.ras")
+    if not cv2.imwrite(str(files["rgb.hdr"]), bgr.astype(np.float32) / np.float32(255)):
+        fail("phase 24: cv2 did not write rgb.hdr")
+    files["rgb_jpeg.tif"].write_bytes(encode_jpeg_tiff(arrays["rgb"], jpeg,
+                                                       rows_per_strip=JPEG_TIFF_ROWS))
+    tex = png.imread_color(root / "standin_checker.png")
+    tex_tif = encode_jpeg_tiff(tex, jpeg, rows_per_strip=JPEG_TIFF_ROWS)
+    (root / "standin_checker_jpeg.tif").write_bytes(tex_tif)
+    ply_tif = root / "standin_tex_jpeg_tiff.ply"
+    text = ply.read_text()
+    if "standin_checker.png" not in text:
+        fail("phase 24: the PLY does not name its PNG texture")
+    ply_tif.write_text(text.replace("standin_checker.png", "standin_checker_jpeg.tif"))
+    print(f"phase 24: wrote seg.tif (1-bit), seg.gif, depth_i32.tif, depth_i16.tif, rgb.ras, "
+          f"rgb.hdr and rgb_jpeg.tif of the {depth.shape[1]}x{depth.shape[0]} scene (seg "
+          f"two-valued as written: {bool(np.isin(arrays['seg'], (0, 255)).all())}) and the "
+          f"{tex.shape[1]}x{tex.shape[0]} texture as a {len(tex_tif)}-byte JPEG-in-TIFF",
+          flush=True)
+    return files, ply_tif, tex_tif
+
+
+def later_variants_check(t_phase: float) -> None:
+    """Phase 24 (a): ``testing.format_variants`` against the card host's
+    cv2, or against cv2 5.0's committed reads where the host's cv2 lacks
+    the format or reads the variant otherwise as the record lists."""
+    import hashlib
+
+    import cv2
+
+    from diffdope_tpu_torch.testing import format_variants
+    from tools.port_cv2_formats import compare, cv2_formats, format_of, load_recorded
+
+    variants = format_variants()
+    rec = load_recorded()
+    have = cv2_formats()
+    moved = [n for n, (data, _) in variants.items()
+             if rec["variants"].get(n, {}).get("sha1") != hashlib.sha1(data).hexdigest()]
+    if moved or set(variants) != set(rec["variants"]):
+        fail(f"phase 24 (a): the variants' bytes differ from the recorded ones: {moved[:8]}")
+    yard = {n: rec["variants"][n] for n in variants
+            if format_of(n) not in have or n in rec["differs"]}
+    by_format = {}
+    for n in variants:
+        fmt = format_of(n)
+        live = format_of(n) in have
+        by_format.setdefault(fmt, f"cv2 {cv2.__version__} (live)" if live else
+                             f"cv2 {rec['cv2']} (recorded)")
+    rows = list(compare(variants, recorded=yard))
+    differ = [row["variant"] for row in rows if row["differ"]]
+    # a listed variant: the host's own reads must be the ones listed for it
+    unlisted = []
+    for row in rows:
+        listed = rec["differs"].get(row["variant"])
+        if listed is None or format_of(row["variant"]) not in have:
+            continue
+        host = {k: v for k, v in row.items() if k.startswith(("unchanged", "color"))
+                and not k.endswith("port_equal")}
+        if host != listed.get(cv2.__version__, listed[rec["cv2"]]):
+            unlisted.append(row["variant"])
+    others = sorted({v for d in rec["differs"].values() for v in d} - {rec["cv2"]})
+    print(f"phase 24 (a): {len(variants)} variants of the later formats read by the port "
+          f"from bytes and from a file in both modes; yardsticks {by_format}; "
+          f"{len(rec['differs'])} listed as read otherwise by cv2 {others}, the port held "
+          f"to cv2 {rec['cv2']} on them; {len(differ)} "
+          f"differ {differ[:8]}; {len(unlisted)} read by the host's cv2 otherwise than "
+          f"listed {unlisted[:8]} ({time.perf_counter() - t_phase:.2f} s)", flush=True)
+    if differ:
+        fail(f"phase 24 (a): the port's reads differ from the yardstick on {differ}")
+    if unlisted:
+        fail(f"phase 24 (a): cv2 {cv2.__version__} reads {unlisted} otherwise than listed")
+
+
+def later_formats_phase(gpu: str) -> None:
+    """Phase 24: the later formats' variants against the card host's cv2
+    (or cv2 5.0's record), the default configuration from a 1-bit TIFF,
+    a GIF, signed depth TIFFs and a Sun Raster frame against the same from
+    PNGs, and from a Radiance HDR frame with a JPEG-in-TIFF texture."""
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch import png
+    from diffdope_tpu_torch.testing import BOTH
+    from tools.port_cv2_formats import compare
+
+    t_phase = time.perf_counter()
+    later_variants_check(t_phase)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        paths, arrays, ply, mtx_gt = write_scene_files(root, gpu, label="phase 24")
+        files, ply_tif, tex_tif = write_later_files(root, arrays, ply)
+
+        # (a) the scene's files against the host's cv2, and their read times
+        frames = {name: (path.read_bytes(), BOTH) for name, path in files.items()}
+        frames["texture_jpeg.tif"] = (tex_tif, BOTH)
+        t0 = time.perf_counter()
+        differ = [row["variant"] for row in compare(frames) if row["differ"]]
+        print(f"phase 24 (a): {len(frames)} files of phase 16's scene read by the port from "
+              f"bytes and from a file in both modes: {len(differ)} differ from cv2 "
+              f"{cv2.__version__} {differ} ({time.perf_counter() - t0:.2f} s)", flush=True)
+        if differ:
+            fail(f"phase 24 (a): the port's reads differ from cv2's on {differ}")
+        timed = [("rgb.png", paths["rgb"], png.imread_color)] + [
+            (name, files[name], png.imread_unchanged if name.startswith("depth")
+             else png.imread_color)
+            for name in ("seg.tif", "seg.gif", "depth_i32.tif", "rgb_jpeg.tif", "rgb.ras",
+                         "rgb.hdr")]
+        for name, path, read in timed:
+            best = min(_timed(read, path) for _ in range(3))
+            mode = "unchanged" if read is png.imread_unchanged else "colour"
+            print(f"phase 24 (a): {name} ({path.stat().st_size} bytes) {mode} read in "
+                  f"{best:.4f} s, best of three [{gpu}; host CPU]", flush=True)
+        checks = {"seg.tif": arrays["seg"] > 127, "seg.gif": arrays["seg"] > 127,
+                  "rgb.ras": arrays["rgb"]}
+        for name, want in checks.items():
+            got = png.imread_color(files[name])
+            got = got[..., 0] > 127 if want.dtype == bool else got
+            if not same_bits(got, want):
+                fail(f"phase 24 (a): {name} does not read back as the written frame")
+        for name in ("depth_i32.tif", "depth_i16.tif"):
+            if not np.array_equal(png.imread_unchanged(files[name]), arrays["depth"]):
+                fail(f"phase 24 (a): {name} does not read back as the depth PNG's values")
+
+        # (b) the 1-bit TIFF, GIF, signed depth TIFFs and Sun Raster against PNGs
+        runs = {}
+        for label, scene in (
+                ("Sun Raster/1-bit TIFF/int32 TIFF", dict(rgb=files["rgb.ras"],
+                                                          seg=files["seg.tif"],
+                                                          depth=files["depth_i32.tif"])),
+                ("Sun Raster/GIF/int16 TIFF", dict(rgb=files["rgb.ras"], seg=files["seg.gif"],
+                                                   depth=files["depth_i16.tif"])),
+                ("PNG", dict(paths, seg=files["seg_bin.png"]))):
+            dd, points, build_s = files_session(scene, ply, losses=FILES_LOSSES)
+            print(f"phase 24 (b): DiffDope(cfg) from the {label} files built in "
+                  f"{build_s:.4f} s [{gpu}]", flush=True)
+            dd, launches, add0, add1 = diffdope_phase(True, gpu, f"from {label}", session=(
+                dd, points, mtx_gt))
+            check_launches(f"DiffDope from {label}", launches, COMPACT_DEPTH,
+                           set(launches) - set(COMPACT_DEPTH))
+            check_diffdope(dd, f"from {label}", add0, add1)
+            runs[label] = dict(
+                gt={k: np.asarray(v) for k, v in dd.gt_tensors.items()},
+                losses={k: np.asarray(v) for k, v in dd.losses_values.items()},
+                argmin=dd.get_argmin(), pose=np.asarray(dd.get_pose()))
+            del dd
+            torch.cuda.empty_cache()
+        b = runs.pop("PNG")
+        for label, a in runs.items():
+            gt_equal = {k: same_bits(a["gt"][k], b["gt"][k]) for k in b["gt"]}
+            run_equal = {"losses": set(a["losses"]) == set(b["losses"]) and all(
+                same_bits(a["losses"][k], b["losses"][k]) for k in b["losses"]),
+                "argmin": a["argmin"] == b["argmin"],
+                "get_pose": same_bits(a["pose"], b["pose"])}
+            print(f"phase 24 (b): the {label} session against the PNG one: gt arrays equal "
+                  f"{gt_equal}; {run_equal} bit for bit (argmin {a['argmin']})", flush=True)
+            if not (all(gt_equal.values()) and set(a["gt"]) == set(b["gt"])):
+                fail(f"phase 24 (b): the gt arrays from {label} differ from the PNGs'")
+            if not all(run_equal.values()):
+                fail(f"phase 24 (b): the runs from {label} and PNG differ: {run_equal}")
+
+        # (c) a Radiance HDR rgb frame and a JPEG-in-TIFF texture
+        dd, points, build_s = files_session(dict(paths, rgb=files["rgb.hdr"]), ply_tif)
+        rgb = cv2.cvtColor(cv2.imread(str(files["rgb.hdr"])), cv2.COLOR_BGR2RGB)
+        h, w = dd.resolution
+        want_rgb = png.resize_linear(rgb[::-1] / 255.0, (w, h)).astype(np.float32)
+        want_tex = cv2.cvtColor(cv2.imdecode(np.frombuffer(tex_tif, np.uint8), cv2.IMREAD_COLOR),
+                                cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+        same = {"gt rgb": same_bits(np.asarray(dd.gt_tensors["rgb"]), want_rgb),
+                "texture": same_bits(np.asarray(dd.object3d.mesh.tex), want_tex)}
+        print(f"phase 24 (c): DiffDope(cfg) from rgb.hdr, depth.png, seg.png and the PLY with "
+              f"a JPEG-in-TIFF texture built in {build_s:.4f} s; equal to the loader's "
+              f"arithmetic on cv2 {cv2.__version__}'s reads: {same} [{gpu}]", flush=True)
+        if not all(same.values()):
+            fail(f"phase 24 (c): the session's inputs are not cv2's reads: {same}")
+        dd, launches, add0, add1 = diffdope_phase(True, gpu, "from Radiance HDR", session=(
+            dd, points, mtx_gt))
+        check_launches("DiffDope from Radiance HDR", launches, COMPACT_FUSED,
+                       set(launches) - set(COMPACT_FUSED))
+        check_diffdope(dd, "from Radiance HDR", add0, add1)
+        del dd
+        torch.cuda.empty_cache()
+    print(f"phase 24: {time.perf_counter() - t_phase:.4f} s [{gpu}]", flush=True)
+
+
 class RefineRecorder:
     """Records every ``bop.refine`` call of the synthesized sweep (the
     contexts bind ``bop.refine`` when they are built): its fused loss, its
@@ -3136,6 +3386,10 @@ def main() -> None:
 
     # ---- the WebP corpus, and the default configuration from WebP files -----
     webp_phase(gpu)
+    torch.cuda.empty_cache()
+
+    # ---- the later formats: masks, depths and images cv2 reads --------------
+    later_formats_phase(gpu)
 
     # launches on the path that runs each kernel: the bench main path (its
     # bf16 lane of K6/K4), the depth phase on the compact table (K4 with

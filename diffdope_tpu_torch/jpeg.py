@@ -632,22 +632,26 @@ def _colour_space(frame, jfif: bool, adobe: Optional[int]) -> str:
     return "rgb" if ids == (82, 71, 66) else "ycc"
 
 
-def decode_jpeg(data: bytes, source: Optional[str] = None) -> np.ndarray:
+def decode_jpeg(data: bytes, source: Optional[str] = None,
+                colour: Optional[str] = None) -> np.ndarray:
     """Decode JPEG bytes as cv2 does with ``IMREAD_UNCHANGED``: (H, W) uint8
     for a grey file, (H, W, 3) uint8 in cv2's BGR order otherwise, the
     EXIF orientation not applied.  ``source`` (a path) names the file in
-    the errors.  A refused variant raises ``ValueError`` by name; so does
-    corrupt or truncated data, where libjpeg would pad the scan with
-    zeros and cv2 return what it decoded."""
+    the errors.  ``colour`` sets a three-component stream's colour space
+    as libtiff sets it for JPEG-in-TIFF: "ycc" converts to RGB, "rgb" keeps
+    the components as stored; None guesses as libjpeg does.  A refused
+    variant raises ``ValueError`` by name; so does corrupt or truncated
+    data, where libjpeg would pad the scan with zeros and cv2 return what
+    it decoded."""
     where = _where(source)
     try:
-        return _decode(data, where)
+        return _decode(data, where, colour)
     except (_Corrupt, IndexError, OverflowError, struct.error) as err:
         why = f" ({err})" if isinstance(err, _Corrupt) else ""
         raise ValueError(f"{where}: corrupt or truncated JPEG data{why}") from None
 
 
-def _decode(data: bytes, where: str) -> np.ndarray:
+def _decode(data: bytes, where: str, colour: Optional[str] = None) -> np.ndarray:
     arr = np.frombuffer(data, np.uint8)
     quant: Dict[int, np.ndarray] = {}
     huff: Dict[Tuple[int, int], Tuple[bytes, bytes]] = {}
@@ -712,8 +716,8 @@ def _decode(data: bytes, where: str) -> np.ndarray:
             break
     if frame is None:
         raise ValueError(f"{where}: JPEG without a frame")
-    return _output(frame, np.frombuffer(coefs, np.int32), latched, coef_bits, jfif,
-                   adobe, where)
+    return _output(frame, np.frombuffer(coefs, np.int32), latched, coef_bits,
+                   colour or _colour_space(frame, jfif, adobe), where)
 
 
 def _scan(arr, body, end, frame, coefs, quant, huff, latched, restart, coef_bits, where):
@@ -788,7 +792,7 @@ def _smoothed(comps, coef_bits, latched) -> bool:
     return any(b != 0 for bits in coef_bits for b in bits[1:10])
 
 
-def _output(frame, coefs, latched, coef_bits, jfif, adobe, where) -> np.ndarray:
+def _output(frame, coefs, latched, coef_bits, colour: str, where) -> np.ndarray:
     comps = frame["comps"]
     if frame["progressive"] and _smoothed(comps, coef_bits, latched):
         raise ValueError(
@@ -809,6 +813,6 @@ def _output(frame, coefs, latched, coef_bits, jfif, adobe, where) -> np.ndarray:
         planes.append(plane[:h, :w])
     if len(planes) == 1:
         return np.ascontiguousarray(planes[0])
-    if _colour_space(frame, jfif, adobe) == "rgb":
+    if colour == "rgb":
         return np.ascontiguousarray(np.stack(planes[::-1], axis=-1))
     return _ycc_to_bgr(*planes)

@@ -416,11 +416,11 @@ def _gltf_decode_image(gltf, buffers, image_idx):
     """An embedded image (a bufferView or a ``data:`` URI) as float32 RGB
     in [0, 1], as ``cv2.imdecode`` + BGR2RGB gives it (``mesh.py:417-
     438``); None for an external URI (the caller reads the file), bytes
-    of no known image format or a float32 TIFF (cv2 decodes neither).  A
-    PNG, JPEG, TIFF, BMP, Netpbm or WebP image is decoded
-    (``png.decode_color``, its orientation applied as cv2's
-    ``IMREAD_COLOR`` does); another image format (GIF, ...) raises, since
-    cv2 would have read it and the port cannot."""
+    of no known image format or a 32-bit TIFF (cv2 decodes neither).  A
+    PNG, JPEG, TIFF, BMP, Netpbm, WebP, GIF, Sun Raster or Radiance HDR
+    image is decoded (``png.decode_color``, its orientation applied as
+    cv2's ``IMREAD_COLOR`` does); another image format (JPEG 2000, AVIF,
+    OpenEXR) raises, since cv2 would have read it and the port cannot."""
     img_def = gltf["images"][image_idx]
     if "bufferView" in img_def:
         bv = gltf["bufferViews"][img_def["bufferView"]]
@@ -436,10 +436,10 @@ def _gltf_decode_image(gltf, buffers, image_idx):
     name = png.format_name(data)
     if name == "unknown":
         return None
-    if name not in ("PNG", "JPEG", "TIFF", "BMP", "PNM", "PAM", "PFM", "WebP"):
+    if name in ("JPEG 2000", "AVIF", "OpenEXR"):
         raise NotImplementedError(
             f"glTF image {image_idx} is {name}: the port decodes embedded PNG, JPEG, "
-            "TIFF, BMP, Netpbm and WebP textures only")
+            "TIFF, BMP, Netpbm, WebP, GIF, Sun Raster and Radiance HDR textures only")
     img = png.decode_color(data)
     return None if img is None else img.astype(np.float32) / 255.0
 

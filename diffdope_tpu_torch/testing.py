@@ -18,7 +18,7 @@ from __future__ import annotations
 import struct
 import zlib
 from pathlib import Path
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -492,7 +492,7 @@ def packbits_encode(data: bytes) -> bytes:
 
 
 #: TIFF field types: (code, numpy format without byte order)
-_TIFF_TYPES = {3: "u2", 4: "u4", 16: "u8"}
+_TIFF_TYPES = {3: "u2", 4: "u4", 7: "u1", 16: "u8"}
 
 
 def _tiff_ifd(entries, end: str, at: int, big: bool) -> bytes:
@@ -520,7 +520,9 @@ def encode_tiff(samples: np.ndarray, photometric: Optional[int] = None,
                 extra_samples: Optional[Tuple[int, ...]] = None,
                 orientation: Optional[int] = None, sample_format: Optional[int] = None,
                 bits: Optional[int] = None, bigtiff: bool = False,
-                old_lzw: bool = False) -> bytes:
+                old_lzw: bool = False, fill_order: int = 1,
+                coded: Optional[List[bytes]] = None,
+                tags: Sequence[Tuple[int, int, list]] = ()) -> bytes:
     """TIFF bytes of ``samples`` (H, W) or (H, W, C) as stored (palette
     indices for ``photometric`` 3, RGB order): uint8, uint16, float32 or
     any other dtype, or ``bits`` 1, 2 or 4 packed from uint8 values.
@@ -534,7 +536,13 @@ def encode_tiff(samples: np.ndarray, photometric: Optional[int] = None,
     (width, height) tiles, ``planar`` 2 for one plane a sample, a
     ``colormap`` (3, 2**bits) uint16, ``extra_samples`` (338), an
     ``orientation`` (274) and a ``sample_format`` (339) tag.  ``bigtiff``
-    writes the 64-bit form (BigTIFF)."""
+    writes the 64-bit form (BigTIFF); ``fill_order`` 2 stores each byte
+    with its bits reversed (FillOrder 266), the compressed bytes too.
+    ``coded`` gives each strip's or
+    tile's bytes as they are to be stored (a JPEG stream a strip for
+    ``compression`` 7), in place of ``samples``' own; ``tags`` adds
+    entries (tag, TIFF type, values), such as JPEGTables (347, 7) or
+    YCbCrSubsampling (530, 3)."""
     arr = np.asarray(samples)
     arr3 = arr[..., None] if arr.ndim == 2 else arr
     h, w, spp = arr3.shape
@@ -555,8 +563,8 @@ def encode_tiff(samples: np.ndarray, photometric: Optional[int] = None,
         nonlocal stride
         rows, cols, ch = block.shape
         stride = -(-cols * ch * bps // 8)
-        if bps < 8:
-            vals = block.reshape(rows, cols * ch).astype(np.uint8)
+        if bps % 8:
+            vals = block.reshape(rows, cols * ch).astype(np.uint16)
             bit = (vals[..., None] >> np.arange(bps - 1, -1, -1)) & 1
             return np.packbits(bit.reshape(rows, -1).astype(np.uint8), axis=1).tobytes()
         if predictor_on == 3:
@@ -568,10 +576,10 @@ def encode_tiff(samples: np.ndarray, photometric: Optional[int] = None,
             return (flat & 255).astype(np.uint8).tobytes()
         if predictor_on == 2:
             kind = block.dtype.str[1:].replace("i", "u").replace("f", "u")
-            u = block.view(kind).reshape(rows, cols, ch).astype(np.int64)
+            u = np.ascontiguousarray(block).view(kind).reshape(rows, cols, ch)
             d = u.copy()
-            d[:, 1:] = u[:, 1:] - u[:, :-1]
-            block = (d % (1 << bps)).astype(kind).view(block.dtype).reshape(rows, cols, ch)
+            d[:, 1:] = u[:, 1:] - u[:, :-1]  # wraps, as the unsigned samples do
+            block = d.view(block.dtype).reshape(rows, cols, ch)
         return block.astype(end + block.dtype.str[1:]).tobytes()
 
     def compress(raw: bytes) -> bytes:
@@ -593,7 +601,11 @@ def encode_tiff(samples: np.ndarray, photometric: Optional[int] = None,
                     pad = np.zeros((bh, bw, block.shape[2]), block.dtype)
                     pad[:block.shape[0], :block.shape[1]] = block
                     block = pad
-                blocks.append(compress(block_bytes(block)))
+                stored = compress(block_bytes(block)) if coded is None else coded[len(blocks)]
+                if fill_order == 2:
+                    bits_ = np.unpackbits(np.frombuffer(stored, np.uint8)[:, None], axis=1)
+                    stored = np.packbits(bits_[:, ::-1], axis=1).tobytes()
+                blocks.append(stored)
     head = 16 if bigtiff else 8
     offsets, data = [], b""
     for block in blocks:
@@ -618,12 +630,73 @@ def encode_tiff(samples: np.ndarray, photometric: Optional[int] = None,
         entries.append((338, 3, list(extra_samples)))
     if orientation is not None:
         entries.append((274, 3, [orientation]))
+    if fill_order != 1:
+        entries.append((266, 3, [fill_order]))
+    entries += list(tags)
     if bigtiff:
         magic = (b"MM\x00+" if big_endian else b"II+\x00") + struct.pack(end + "HHQ", 8, 0,
                                                                           ifd_at)
     else:
         magic = (b"MM\x00*" if big_endian else b"II*\x00") + struct.pack(end + "I", ifd_at)
     return magic + data + _tiff_ifd(entries, end, ifd_at, bigtiff)
+
+
+def jpeg_split_tables(stream: bytes) -> Tuple[bytes, bytes]:
+    """A JPEG stream as JPEG-in-TIFF stores it with shared tables: (the
+    tables-only stream SOI DQT.. DHT.. EOI, the abbreviated stream without
+    its tables and APPn segments)."""
+    at, tables, rest = 2, b"\xff\xd8", b"\xff\xd8"
+    while at + 4 <= len(stream):
+        marker = stream[at + 1]
+        (length,) = struct.unpack(">H", stream[at + 2:at + 4])
+        seg = stream[at:at + 2 + length]
+        if marker == 0xDA:
+            return tables + b"\xff\xd9", rest + stream[at:]
+        if marker in (0xDB, 0xC4):
+            tables += seg
+        elif not 0xE0 <= marker <= 0xEF:
+            rest += seg
+        at += 2 + length
+    raise ValueError("a JPEG stream without a scan")
+
+
+def encode_jpeg_tiff(samples: np.ndarray, encode, rows_per_strip: Optional[int] = None,
+                     tile: Optional[Tuple[int, int]] = None, photometric: int = 6,
+                     subsampling: Optional[Tuple[int, int]] = (2, 2), shared_tables: bool = True,
+                     **kwargs) -> bytes:
+    """JPEG-in-TIFF (compression 7) bytes of ``samples`` (H, W) grey or (H,
+    W, 3) RGB: ``encode`` (an array, RGB or grey, -> a JPEG stream, such as
+    cv2's ``imencode`` in the caller) codes each strip of
+    ``rows_per_strip`` rows (the last one shorter) or each ``tile`` (width,
+    height; the edge ones padded with zeros); ``shared_tables`` moves the
+    quantisation and Huffman tables into JPEGTables (347) and stores
+    abbreviated streams.  ``photometric`` 6 (YCbCr) writes
+    ``subsampling`` as YCbCrSubsampling (530); 2 (RGB) and 1 (grey) store
+    the components as coded.  Other keywords go to :func:`encode_tiff`."""
+    arr = np.asarray(samples)
+    h, w = arr.shape[:2]
+    coded = []
+    if tile:
+        tw, th = tile
+        for by in range(0, h, th):
+            for bx in range(0, w, tw):
+                block = np.zeros((th, tw) + arr.shape[2:], arr.dtype)
+                part = arr[by:by + th, bx:bx + tw]
+                block[:part.shape[0], :part.shape[1]] = part
+                coded.append(encode(block))
+    else:
+        rows = rows_per_strip or h
+        coded = [encode(arr[y:y + rows]) for y in range(0, h, rows)]
+    tags = list(kwargs.pop("tags", ()))
+    if shared_tables:
+        split = [jpeg_split_tables(c) for c in coded]
+        coded = [rest for _, rest in split]
+        tags.append((347, 7, list(split[0][0])))
+    if photometric == 6 and subsampling is not None:
+        tags.append((530, 3, list(subsampling)))
+    return encode_tiff(arr, photometric=photometric, compression=7,
+                       rows_per_strip=rows_per_strip, tile=tile, coded=coded, tags=tags,
+                       **kwargs)
 
 
 def _rle_row(row: np.ndarray, four: bool, eol_tail: bool, delta: bool) -> Tuple[bytes, int]:
@@ -1012,4 +1085,504 @@ def image_variants() -> Dict[str, Tuple[bytes, Tuple[str, ...]]]:
                              ("swapped", (0xFF, 0xFF00, 0xFF0000, 0xFF000000))):
             out[f"bmp_32_h{header}_{mname}"] = (encode_bmp(a8, 32, header=header,
                                                            masks=masks), BOTH)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# GIF, Sun Raster and Radiance HDR writers
+# ---------------------------------------------------------------------------
+
+def gif_lzw_encode(indices: bytes, min_size: int, clear_every: Optional[int] = None) -> bytes:
+    """GIF LZW of palette ``indices``: a Clear first, codes from
+    ``min_size`` + 1 bits wide up to 12, least significant bit first, each
+    width taken when the next free code reaches it, a Clear when the table
+    is full (or after every ``clear_every`` codes), End last."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    codes: List[Tuple[int, int]] = []
+    width = min_size + 1
+
+    def reset():
+        return {bytes([i]): i for i in range(clear)}, end + 1, min_size + 1
+
+    table, free, width = reset()
+    codes.append((clear, width))
+    w = b""
+    emitted = 0
+    for byte in indices:
+        wc = w + bytes([byte])
+        if wc in table:
+            w = wc
+            continue
+        codes.append((table[w], width))
+        emitted += 1
+        if free < 4096:
+            table[wc] = free
+            free += 1
+            if free > (1 << width) and width < 12:
+                width += 1
+        if free >= 4096 or (clear_every and emitted % clear_every == 0):
+            codes.append((clear, width))
+            table, free, width = reset()
+        w = bytes([byte])
+    if w:
+        codes.append((table[w], width))
+        if free < 4096:
+            free += 1
+            if free > (1 << width) and width < 12:
+                width += 1
+    codes.append((end, width))
+    acc, nacc, out = 0, 0, bytearray()
+    for code, nbits in codes:
+        acc |= code << nacc
+        nacc += nbits
+        while nacc >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nacc -= 8
+    if nacc:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def _gif_blocks(data: bytes) -> bytes:
+    return b"".join(bytes([len(data[at:at + 255])]) + data[at:at + 255]
+                    for at in range(0, len(data), 255)) + b"\0"
+
+
+def encode_gif(frames, palette: Optional[np.ndarray] = None,
+               screen: Optional[Tuple[int, int]] = None, background: int = 0,
+               version: bytes = b"89a", min_size: Optional[int] = None,
+               clear_every: Optional[int] = None) -> bytes:
+    """GIF bytes.  ``frames`` is a list of (H, W) uint8 palette-index arrays
+    or of dicts with ``indices`` and optional ``left``/``top`` (the frame's
+    offset on the logical screen), ``palette`` (a local colour table),
+    ``interlace``, ``transparent`` (the graphic control extension's
+    index), ``disposal`` and ``delay``.  ``palette`` is the global colour
+    table ((n, 3) uint8 RGB, n a power of two from 2 to 256; None writes
+    none), ``screen`` the logical screen (width, height), by default the
+    first frame's size, ``background`` its background index;
+    ``min_size`` the LZW minimum code size (by default the colour table's
+    bits, at least 2)."""
+    frames = [f if isinstance(f, dict) else {"indices": f} for f in frames]
+    first = np.asarray(frames[0]["indices"])
+    sw, sh = screen or (first.shape[1], first.shape[0])
+
+    def table_bits(pal):
+        n = len(pal)
+        bits = max(1, int(np.ceil(np.log2(max(n, 2)))))
+        return bits, np.concatenate([np.asarray(pal, np.uint8),
+                                     np.zeros(((1 << bits) - n, 3), np.uint8)])
+
+    out = bytearray(b"GIF" + version)
+    flags = 0
+    gct = b""
+    if palette is not None:
+        bits, pal = table_bits(palette)
+        flags = 0x80 | ((bits - 1) << 4) | (bits - 1)
+        gct = pal.tobytes()
+    out += struct.pack("<HHBBB", sw, sh, flags, background, 0) + gct
+    if len(frames) > 1:
+        out += b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"
+    for f in frames:
+        idx = np.asarray(f["indices"], np.uint8)
+        h, w = idx.shape
+        if "transparent" in f or "disposal" in f or "delay" in f:
+            t = f.get("transparent")
+            packed = (f.get("disposal", 0) << 2) | (t is not None)
+            out += b"\x21\xf9\x04" + struct.pack("<BHB", packed, f.get("delay", 0),
+                                                 t or 0) + b"\0"
+        lflags, lct = 0, b""
+        local = f.get("palette")
+        if local is not None:
+            bits, pal = table_bits(local)
+            lflags = 0x80 | (bits - 1)
+            lct = pal.tobytes()
+        else:
+            bits = table_bits(palette)[0] if palette is not None else 8
+        rows = idx
+        if f.get("interlace"):
+            lflags |= 0x40
+            order = np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8), np.arange(2, h, 4),
+                                    np.arange(1, h, 2)])
+            rows = idx[order]
+        out += b"\x2c" + struct.pack("<HHHHB", f.get("left", 0), f.get("top", 0), w, h,
+                                     lflags) + lct
+        size = min_size or max(2, bits)
+        out += bytes([size]) + _gif_blocks(gif_lzw_encode(rows.tobytes(), size, clear_every))
+    return bytes(out + b"\x3b")
+
+
+def sunras_rle(data: bytes) -> bytes:
+    """Sun Raster's byte encoding: runs of 3 to 256 equal bytes (and any
+    run of 0x80) as 0x80, count - 1, byte; a single 0x80 as 0x80 0x00;
+    other bytes as they are."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        run = 1
+        while i + run < n and run < 256 and data[i + run] == data[i]:
+            run += 1
+        if run >= 3 or (data[i] == 0x80 and run > 1):
+            out += bytes((0x80, run - 1, data[i]))
+        elif data[i] == 0x80:
+            out += b"\x80\x00"
+        else:
+            out += data[i:i + run]
+        i += run
+    return bytes(out)
+
+
+def encode_sunras(pixels: np.ndarray, depth: int, kind: int = 1,
+                  colormap: Optional[np.ndarray] = None, map_length: Optional[int] = None,
+                  length: Optional[int] = None) -> bytes:
+    """Sun Raster bytes.  ``pixels`` is (H, W) indices (``depth`` 1 to 8,
+    most significant bit first) or (H, W, 3) RGB (24 and 32: stored BGR and XBGR, or RGB and
+    XRGB for ``kind`` 3).  ``kind`` is the header's type: 0 old, 1
+    standard, 2 byte-encoded (:func:`sunras_rle` over all rows), 3 RGB;
+    ``colormap`` (n, 3) RGB is written plane by plane (``map_length``
+    overrides its length in the header).  Rows are padded to 16 bits;
+    ``length`` overrides the header's data length (0 in old files)."""
+    pix = np.asarray(pixels)
+    h, w = pix.shape[:2]
+    if depth < 8:
+        bit = (pix.astype(np.uint8).reshape(h, w)[..., None] >> np.arange(depth - 1, -1, -1)) & 1
+        packed = np.packbits(bit.reshape(h, -1), axis=1)
+    elif depth == 8:
+        packed = pix.astype(np.uint8).reshape(h, w)
+    else:
+        order = [0, 1, 2] if kind == 3 else [2, 1, 0]
+        ch = pix.astype(np.uint8)[..., order]
+        if depth == 32:
+            ch = np.concatenate([np.zeros((h, w, 1), np.uint8), ch], axis=-1)
+        packed = ch.reshape(h, -1)
+    stride = (packed.shape[1] + 1) & ~1
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :packed.shape[1]] = packed
+    body = rows.tobytes()
+    if kind == 2:
+        body = sunras_rle(body)
+    cmap = b""
+    if colormap is not None:
+        cmap = np.ascontiguousarray(np.asarray(colormap, np.uint8).T).tobytes()
+    size = len(body) if length is None else length
+    head = struct.pack(">8I", 0x59A66A95, w, h, depth, size, kind, 1 if cmap else 0,
+                       len(cmap) if map_length is None else map_length)
+    return head + cmap + body
+
+
+def _hdr_rle(channel: bytes) -> bytes:
+    """One scanline channel in Radiance's new-style RLE: runs of 3 to 127
+    equal bytes as (128 + n, byte), the rest in literal blocks of up to
+    128 bytes (n, bytes...)."""
+    out, lit, i, n = bytearray(), bytearray(), 0, len(channel)
+
+    def flush():
+        for at in range(0, len(lit), 128):
+            block = lit[at:at + 128]
+            out.append(len(block))
+            out.extend(block)
+        lit.clear()
+
+    while i < n:
+        run = 1
+        while i + run < n and run < 127 and channel[i + run] == channel[i]:
+            run += 1
+        if run >= 3:
+            flush()
+            out += bytes((128 + run, channel[i]))
+        else:
+            lit.extend(channel[i:i + run])
+        i += run
+    flush()
+    return bytes(out)
+
+
+def encode_hdr(rgbe: np.ndarray, encoding: str = "rle", magic: bytes = b"#?RADIANCE",
+               header: Sequence[bytes] = (b"FORMAT=32-bit_rle_rgbe",),
+               size_line: Optional[bytes] = None) -> bytes:
+    """Radiance HDR bytes of (H, W, 4) uint8 RGBE pixels.  ``encoding``
+    "rle" writes each scanline new-style (2, 2, width, then the four
+    channels run-length coded), "flat" the pixels as they are, and "old"
+    old-style runs (a pixel repeated as (1, 1, 1, count) after it, counts
+    of up to 255).  ``magic`` is the first line, ``header`` the lines
+    before the blank one, ``size_line`` the resolution line (by default
+    "-Y H +X W")."""
+    px = np.asarray(rgbe, np.uint8)
+    h, w = px.shape[:2]
+    out = bytearray(magic + b"\n" + b"".join(line + b"\n" for line in header) + b"\n")
+    out += (size_line or f"-Y {h} +X {w}".encode()) + b"\n"
+    for row in px:
+        if encoding == "rle":
+            out += bytes((2, 2, w >> 8, w & 255))
+            for c in range(4):
+                out += _hdr_rle(row[:, c].tobytes())
+        elif encoding == "old":
+            x = 0
+            while x < w:
+                run = 1
+                while x + run < w and run < 256 and (row[x + run] == row[x]).all():
+                    run += 1
+                out += row[x].tobytes()
+                if run > 1:
+                    out += bytes((1, 1, 1, run - 1))
+                x += run
+        else:
+            out += row.tobytes()
+    return bytes(out)
+
+
+#: the committed JPEG-in-TIFF corpus (``tools/port_tiff_jpeg_corpus.py``
+#: writes it)
+TIFF_JPEG_CORPUS = Path(__file__).resolve().parent.parent / "tests" / "torch_data" / "tiff_jpeg"
+
+
+def format_variants() -> Dict[str, Tuple[bytes, Tuple[str, ...]]]:
+    """The files of the readers' later variants and formats, as
+    :func:`image_variants` lists its own (name -> (bytes, modes)): TIFF at
+    1, 2, 4, 10, 12 and 14 bits, signed and 32/64-bit integer, 16- and
+    64-bit float samples, FillOrder 2 and the predictors libtiff refuses
+    on them; the JPEG-in-TIFF corpus; GIF (colour tables, transparency,
+    frames off the screen's corner, interlace, animations, LZW resets);
+    Sun Raster (each type, depth and colour map); Radiance HDR (new-style
+    runs, flat and old-style scanlines, the header's variants).  Each is
+    read in both modes; a variant cv2 reads no image from is None in both
+    (libtiff's, cv2's refusals, named in the variant)."""
+    out: Dict[str, Tuple[bytes, Tuple[str, ...]]] = {}
+    h, w = 19, 27
+    g8, g16 = variant_image(h, w, 0, np.uint8, 1), variant_image(h, w, 0, np.uint16, 4)
+    c16 = variant_image(h, w, 3, np.uint16, 5)
+    rng = np.random.default_rng(20)
+    full = ((g8.astype(np.int64) - g8.min()) * 255 // max(1, int(np.ptp(g8)))).astype(np.uint8)
+    # ---- TIFF: samples below 8 bits (masks)
+    mask = (full > 127).astype(np.uint8)
+    for comp in (1, 5, 8, 32773):
+        for photo in (0, 1):
+            out[f"tiff_b1_ph{photo}_c{comp}"] = (encode_tiff(
+                mask, bits=1, photometric=photo, compression=comp, rows_per_strip=5), BOTH)
+    for bits in (1, 4):
+        idx = (full.astype(np.int64) * (1 << bits) // 256).astype(np.uint8)
+        for cname, cmap in (("cmap16", rng.integers(0, 65536, (3, 1 << bits))),
+                            ("cmap8", rng.integers(0, 256, (3, 1 << bits)))):
+            out[f"tiff_b{bits}_palette_{cname}"] = (encode_tiff(
+                idx, bits=bits, photometric=3, colormap=cmap.astype(np.uint16),
+                compression=5, rows_per_strip=7), BOTH)
+        cmap = rng.integers(0, 65536, (3, 1 << bits)).astype(np.uint16)
+        out[f"tiff_b{bits}_palette_tiles"] = (encode_tiff(
+            idx, bits=bits, photometric=3, colormap=cmap, compression=8, tile=(16, 16)), BOTH)
+        out[f"tiff_b{bits}_palette_be_packbits"] = (encode_tiff(
+            idx, bits=bits, photometric=3, colormap=cmap, compression=32773,
+            big_endian=True), BOTH)
+        for o in (3, 6):
+            out[f"tiff_b{bits}_orient{o}"] = (encode_tiff(
+                idx if bits == 4 else mask, bits=bits, photometric=3 if bits == 4 else 0,
+                colormap=cmap if bits == 4 else None, orientation=o, compression=5), BOTH)
+            out[f"tiff_b{bits}_orient{o}_tiles"] = (encode_tiff(
+                idx if bits == 4 else mask, bits=bits, photometric=3 if bits == 4 else 1,
+                colormap=cmap if bits == 4 else None, orientation=o, compression=8,
+                tile=(16, 16)), BOTH)
+    out["tiff_b1_tiles"] = (encode_tiff(mask, bits=1, compression=5, tile=(16, 16)), BOTH)
+    out["tiff_b1_signed"] = (encode_tiff(mask, bits=1, sample_format=2, compression=8), BOTH)
+    out["tiff_b1_fill2"] = (encode_tiff(mask, bits=1, compression=5, fill_order=2), BOTH)
+    out["tiff_b1_planar2"] = (encode_tiff(mask, bits=1, planar=2, compression=8), BOTH)
+    g4 = full >> 4
+    out["tiff_none_b2_grey"] = (encode_tiff(full >> 6, bits=2, photometric=1), BOTH)
+    out["tiff_none_b2_palette"] = (encode_tiff(full >> 6, bits=2, photometric=3,
+                                               colormap=rng.integers(0, 65536, (3, 4)).astype(
+                                                   np.uint16)), BOTH)
+    out["tiff_none_b4_grey"] = (encode_tiff(g4, bits=4, photometric=1, compression=5), BOTH)
+    out["tiff_none_b1_rgb"] = (encode_tiff(np.stack([mask] * 3, -1), bits=1), BOTH)
+    out["tiff_none_b1_grey_alpha"] = (encode_tiff(np.stack([mask] * 2, -1), bits=1), BOTH)
+    out["tiff_none_b1_predictor2"] = (encode_tiff(mask, bits=1, compression=5, predictor=2),
+                                      BOTH)
+    out["tiff_none_b1_float"] = (encode_tiff(mask, bits=1, sample_format=3), BOTH)
+    # ---- TIFF: 10 to 14 bits (cv2 moves them to the top of 16)
+    for bits in (10, 12, 14):
+        for name, arr in (("g", g16), ("c", c16)):
+            vals = (arr >> (16 - bits)).astype(np.uint16)
+            out[f"tiff_b{bits}_{name}_c5"] = (encode_tiff(vals, bits=bits, compression=5,
+                                                          rows_per_strip=6), BOTH)
+            out[f"tiff_b{bits}_{name}_c1_tiles"] = (encode_tiff(vals, bits=bits,
+                                                                tile=(16, 16)), BOTH)
+        out[f"tiff_b{bits}_g_signed"] = (encode_tiff((g16 >> (16 - bits)).astype(np.uint16),
+                                                     bits=bits, sample_format=2,
+                                                     compression=8), BOTH)
+        out[f"tiff_b{bits}_g_whiteiszero_orient3"] = (encode_tiff(
+            (g16 >> (16 - bits)).astype(np.uint16), bits=bits, photometric=0, orientation=3),
+            BOTH)
+        out[f"tiff_none_b{bits}_predictor2"] = (encode_tiff(
+            (g16 >> (16 - bits)).astype(np.uint16), bits=bits, compression=5, predictor=2),
+            BOTH)
+    # ---- TIFF: signed, 32/64-bit integer, 16/64-bit float samples (depth)
+    wide = g16.astype(np.int64) - 30000
+    for dtype in (np.int8, np.int16, np.int32, np.uint32, np.int64, np.uint64, np.float64):
+        name = np.dtype(dtype).name
+        kind = np.dtype(dtype).kind
+        for ch in (0, 3, 4):
+            arr = variant_image(h, w, ch, np.uint16, 30 + ch).astype(np.int64) - 30000
+            arr = arr.astype(dtype) if kind != "f" else (arr / 7.0).astype(dtype)
+            pred = 3 if kind == "f" else 2
+            out[f"tiff_{name}_ch{ch}_c8_p{pred}"] = (encode_tiff(
+                arr, compression=8, predictor=pred, rows_per_strip=4), BOTH)
+            out[f"tiff_{name}_ch{ch}_c5_be"] = (encode_tiff(
+                arr, compression=5, big_endian=True, rows_per_strip=7), BOTH)
+        arr = wide.astype(dtype) if kind != "f" else (wide / 7.0).astype(dtype)
+        out[f"tiff_{name}_tiles_orient6"] = (encode_tiff(
+            variant_image(32, 48, 0, np.uint16, 9).astype(np.int64).astype(dtype),
+            tile=(16, 16), orientation=6, compression=8), BOTH)
+        out[f"tiff_{name}_c32773_whiteiszero"] = (encode_tiff(arr, compression=32773,
+                                                              photometric=0), BOTH)
+        out[f"tiff_{name}_planar2"] = (encode_tiff(
+            variant_image(h, w, 3, np.uint16, 33).astype(np.int64).astype(dtype),
+            planar=2, compression=8), ("color",))
+        if np.dtype(dtype).itemsize >= 4:
+            out[f"tiff_none_{name}_grey_alpha"] = (encode_tiff(
+                np.stack([arr, arr], -1), compression=8), BOTH)
+    ga16 = variant_image(32, 48, 2, np.uint16, 15).astype(np.int16)
+    out["tiff_int16_grey_alpha_tiles"] = (encode_tiff(ga16, compression=5, tile=(16, 16)), BOTH)
+    out["tiff_int16_grey_alpha"] = (encode_tiff(ga16, compression=8), BOTH)
+    out["tiff_int8_palette"] = (encode_tiff(g8.astype(np.int8), photometric=3,
+                                            colormap=rng.integers(0, 65536, (3, 256)).astype(
+                                                np.uint16), compression=5), BOTH)
+    out["tiff_none_float16"] = (encode_tiff((g16 / 1000.0).astype(np.float16), compression=8),
+                                BOTH)
+    out["tiff_none_float16_rgb"] = (encode_tiff((c16 / 1000.0).astype(np.float16)), BOTH)
+    out["tiff_none_float8"] = (encode_tiff(g8, sample_format=3), BOTH)
+    for dtype in (np.uint8, np.int16, np.uint16):
+        out[f"tiff_none_{np.dtype(dtype).name}_predictor3"] = (encode_tiff(
+            g16.astype(dtype), compression=8, predictor=3), BOTH)
+    for comp in (1, 5, 8, 32773):
+        out[f"tiff_fill2_g8_c{comp}"] = (encode_tiff(g8, compression=comp, fill_order=2,
+                                                     predictor=2 if comp in (5, 8) else 1),
+                                         BOTH)
+    out["tiff_fill2_c16_c5"] = (encode_tiff(c16, compression=5, fill_order=2, predictor=2),
+                                BOTH)
+    # ---- JPEG-in-TIFF
+    for p in sorted(TIFF_JPEG_CORPUS.glob("*.tif")):
+        out[f"tiff_jpeg_{p.stem}"] = (p.read_bytes(), BOTH)
+    # ---- GIF
+    pal16 = rng.integers(0, 256, (16, 3)).astype(np.uint8)
+    pal256 = rng.integers(0, 256, (256, 3)).astype(np.uint8)
+    idx16 = full >> 4
+    small = idx16[:7, :9]
+    out["gif_plain"] = (encode_gif([idx16], pal16), BOTH)
+    out["gif_87a"] = (encode_gif([idx16], pal16, version=b"87a"), BOTH)
+    out["gif_256"] = (encode_gif([full], pal256), BOTH)
+    out["gif_noise_full_table"] = (encode_gif(
+        [rng.integers(0, 256, (61, 97)).astype(np.uint8)], pal256), BOTH)
+    out["gif_2colour_mask"] = (encode_gif([mask], np.array([[0, 0, 0], [255, 255, 255]],
+                                                           np.uint8)), BOTH)
+    out["gif_min_size_8"] = (encode_gif([idx16], pal16, min_size=8), BOTH)
+    out["gif_clear_every_7"] = (encode_gif([idx16], pal16, clear_every=7), BOTH)
+    out["gif_transparent"] = (encode_gif([{"indices": idx16, "transparent": 3}], pal16,
+                                         background=5), BOTH)
+    out["gif_transparent_is_background"] = (encode_gif(
+        [{"indices": idx16, "transparent": 5}], pal16, background=5), BOTH)
+    out["gif_transparent_unused"] = (encode_gif(
+        [{"indices": idx16 % 8, "transparent": 12}], pal16), BOTH)
+    out["gif_gce_without_transparency"] = (encode_gif(
+        [{"indices": idx16, "disposal": 2, "delay": 10}], pal16), BOTH)
+    for disposal in (0, 1, 2, 3):
+        out[f"gif_offset_disposal{disposal}"] = (encode_gif(
+            [{"indices": small, "left": 5, "top": 3, "disposal": disposal}], pal16,
+            screen=(w, h), background=5), BOTH)
+    out["gif_offset_transparent"] = (encode_gif(
+        [{"indices": small, "left": 5, "top": 3, "transparent": 3}], pal16, screen=(w, h),
+        background=5), BOTH)
+    out["gif_offset_local_only"] = (encode_gif(
+        [{"indices": small, "left": 2, "top": 1, "palette": pal16}], None, screen=(w, h),
+        background=5), BOTH)
+    out["gif_offset_local_only_transparent"] = (encode_gif(
+        [{"indices": small, "left": 2, "top": 1, "palette": pal16, "transparent": 3}], None,
+        screen=(w, h), background=5), BOTH)
+    out["gif_local_and_global"] = (encode_gif(
+        [{"indices": small, "left": 2, "top": 1, "palette": pal16[::-1].copy()}], pal16,
+        screen=(w, h), background=5), BOTH)
+    out["gif_no_colour_table"] = (encode_gif([idx16], None), BOTH)
+    for rows in (1, 2, 3, 5, 8, 9, 19):
+        out[f"gif_interlaced_{rows}_rows"] = (encode_gif(
+            [{"indices": idx16[:rows], "interlace": True}], pal16), BOTH)
+    out["gif_interlaced_offset"] = (encode_gif(
+        [{"indices": small, "left": 3, "top": 2, "interlace": True}], pal16, screen=(w, h),
+        background=5), BOTH)
+    out["gif_animation"] = (encode_gif([idx16, 15 - idx16, (idx16 + 3) % 16], pal16), BOTH)
+    out["gif_animation_transparent_later"] = (encode_gif(
+        [{"indices": small, "left": 2, "top": 1}, {"indices": idx16, "transparent": 3}],
+        pal16, screen=(w, h), background=5), BOTH)
+    out["gif_none_background_past_table"] = (encode_gif(
+        [{"indices": small % 4, "left": 2, "top": 1}], pal16[:4], screen=(w, h),
+        background=9), BOTH)
+    out["gif_none_frame_past_screen"] = (encode_gif(
+        [{"indices": idx16, "left": 4, "top": 3}], pal16, screen=(w, h)), BOTH)
+    out["gif_none_index_past_table"] = (encode_gif([idx16], pal16[:4], min_size=4), BOTH)
+    out["gif_none_no_frame"] = (b"GIF89a" + struct.pack("<HHBBB", w, h, 0x80, 0, 0)
+                                + pal16[:2].tobytes() + b"\x3b", BOTH)
+    # ---- Sun Raster
+    grey_map = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
+    c8 = variant_image(h, w, 3, np.uint8, 2)
+    for kind in (0, 1):
+        for depth, pix, cmap, tag in (
+                (8, g8, None, "nomap"), (8, g8, grey_map, "greymap"), (8, g8, pal256, "map"),
+                (8, g8 % 100, pal256[:100], "map100"), (1, mask, None, "nomap"),
+                (1, mask, pal256[:2], "map"), (1, mask, grey_map[[30, 200]], "greymap"),
+                (24, c8, None, "nomap"), (32, c8, None, "nomap")):
+            out[f"sunras_t{kind}_d{depth}_{tag}"] = (encode_sunras(pix, depth, kind, cmap),
+                                                     BOTH)
+    for cols in (1, 2, 9, 16):
+        out[f"sunras_d1_{cols}_cols"] = (encode_sunras(mask[:, :cols], 1), BOTH)
+        out[f"sunras_d24_{cols}_cols"] = (encode_sunras(c8[:, :cols], 24), BOTH)
+    for kind in (2, 3):
+        for depth, pix, cmap in ((8, g8, pal256), (24, c8, None), (1, mask, None)):
+            out[f"sunras_none_t{kind}_d{depth}"] = (encode_sunras(pix, depth, kind, cmap), BOTH)
+    out["sunras_none_d4"] = (encode_sunras(g8 >> 4, 4), BOTH)
+    out["sunras_none_map_too_long"] = (encode_sunras(g8, 8, 1, pal256, map_length=769), BOTH)
+    out["sunras_none_map_on_24"] = (encode_sunras(c8, 24, 1, pal256[:4]), BOTH)
+    # ---- Radiance HDR
+    def rgbe(rows, cols, lo=120, hi=140, seed=0):
+        r = np.random.default_rng(seed)
+        px = r.integers(0, 256, (rows, cols, 4)).astype(np.uint8)
+        px[..., 3] = r.integers(lo, hi, (rows, cols))
+        px[:, cols // 3:cols // 2] = px[:, cols // 3:cols // 3 + 1]  # runs
+        px[1:2] = px[0:1]
+        return px
+
+    for enc in ("rle", "flat"):
+        for rows, cols in ((h, w), (4, 7), (3, 8), (5, 300)):
+            out[f"hdr_{enc}_{rows}x{cols}"] = (encode_hdr(rgbe(rows, cols, seed=cols), enc),
+                                               BOTH)
+    out["hdr_old_style_runs"] = (encode_hdr(rgbe(h, w), "old"), BOTH)
+    flat_old = rgbe(h, w, seed=5)
+    flat_old[:, ::2, :3] = 1  # (1, 1, 1, n) pixels without a run to expand
+    flat_old[:, ::2, 3] = rng.integers(1, 5, (h, (w + 1) // 2))
+    out["hdr_old_style_markers_flat"] = (encode_hdr(flat_old, "flat"), BOTH)
+    zeros = rgbe(9, 20)
+    zeros[2, 3] = 0
+    zeros[4, :, 3] = 0
+    out["hdr_zero_exponent"] = (encode_hdr(zeros), BOTH)
+    out["hdr_every_exponent"] = (encode_hdr(rgbe(16, 20, 0, 256, 3)), BOTH)
+    out["hdr_huge"] = (encode_hdr(rgbe(9, 20, 250, 256, 4)), BOTH)
+    out["hdr_unit_range"] = (encode_hdr(rgbe(9, 20, 128, 136, 6)), BOTH)
+    out["hdr_rgbe_magic"] = (encode_hdr(rgbe(9, 20), magic=b"#?RGBE"), BOTH)
+    out["hdr_exposure_after_format"] = (encode_hdr(rgbe(9, 20), header=(
+        b"FORMAT=32-bit_rle_rgbe", b"EXPOSURE=2.0")), BOTH)
+    out["hdr_comments_before_format"] = (encode_hdr(rgbe(9, 20), header=(
+        b"# made by a test", b"EXPOSURE=2.0", b"GAMMA=2.2", b"FORMAT=32-bit_rle_rgbe")), BOTH)
+    out["hdr_long_header_line"] = (encode_hdr(rgbe(9, 20), header=(
+        b"# " + b"x" * 200, b"FORMAT=32-bit_rle_rgbe")), BOTH)
+    for i, line in enumerate((b"-Y9+X20", b"-Y   9   +X   20 trailing", b"-Y +9 +X +20")):
+        out[f"hdr_size_line_{i}"] = (encode_hdr(rgbe(9, 20), size_line=line), BOTH)
+    mixed = rgbe(6, 20)
+    head = encode_hdr(mixed[:3])
+    body_rle = head[head.index(b"+X 20\n") + 6:]
+    body_flat = encode_hdr(mixed[3:], "flat")
+    body_flat = body_flat[body_flat.index(b"+X 20\n") + 6:]
+    out["hdr_rle_then_flat"] = (head[:head.index(b"-Y")] + b"-Y 6 +X 20\n" + body_rle
+                                + body_flat, BOTH)
+    for i, (kw, tag) in enumerate(((dict(header=(b"EXPOSURE=2.0",)), "no_format"),
+                                   (dict(header=(b"FORMAT=32-bit_rle_xyze",)), "xyze"),
+                                   (dict(size_line=b"+Y 9 +X 20"), "orientation_plus_y"),
+                                   (dict(size_line=b"-Y 9 -X 20"), "orientation_minus_x"),
+                                   (dict(size_line=b"+X 20 -Y 9"), "orientation_x_first"),
+                                   (dict(size_line=b"-Y 0 +X 20"), "zero_rows"))):
+        out[f"hdr_none_{tag}"] = (encode_hdr(rgbe(9, 20), **kw), BOTH)
+    trunc = encode_hdr(rgbe(9, 20), "flat")
+    out["hdr_none_truncated"] = (trunc[:-5], BOTH)
     return out

@@ -5,18 +5,31 @@ The reference reads every image through cv2 (``diffdope_tpu/image.py:59``,
 page of a TIFF file along one of two paths, and :func:`decode_unchanged`
 and :func:`decode_color` repeat both bit for bit:
 
-- 8-bit results (``IMREAD_COLOR``, and ``IMREAD_UNCHANGED`` of an 8-bit
-  file or of 16-bit grey with alpha) go through libtiff's RGBA reader
-  (``tif_getimage.c``): grey keeps the high byte of 16 bits and is
-  inverted for WhiteIsZero, 16-bit RGB becomes ``(v + 128) // 257``, a
-  colormap is taken as 8-bit when no entry reaches 256 and shifted right
-  by 8 otherwise, and an unassociated alpha (ExtraSamples 2) premultiplies
-  the colour, ``(c * a + 127) // 255``.  ``IMREAD_UNCHANGED`` then gives
-  (H, W) for grey (its alpha dropped), BGR for a palette or RGB and BGRA
-  for RGB with an extra sample.  A float32 file gives None here, as cv2
-  does (libtiff's RGBA reader takes no 32-bit samples).
-- Other ``IMREAD_UNCHANGED`` results (16-bit and float32 files) are the
-  samples as stored: (H, W), BGR or BGRA, WhiteIsZero not inverted.
+- 8-bit results (``IMREAD_COLOR``, and ``IMREAD_UNCHANGED`` of samples of
+  8 bits or fewer or of 16-bit grey with alpha) go through libtiff's RGBA
+  reader (``tif_getimage.c``): grey keeps the high byte of 16 bits, is
+  scaled to 0..255 below 8 bits and inverted for WhiteIsZero, 16-bit RGB
+  becomes ``(v + 128) // 257``, a colormap is taken as 8-bit when no
+  entry reaches 256 and shifted right by 8 otherwise, signed samples are
+  read as unsigned, and an unassociated alpha (ExtraSamples 2)
+  premultiplies the colour, ``(c * a + 127) // 255``.
+  ``IMREAD_UNCHANGED`` then gives (H, W) for grey (its alpha dropped),
+  and for every 1-bit file (a palette's colours made grey by cv2's
+  fixed-point weights), BGR for a palette or RGB and BGRA for RGB with an
+  extra sample, int8 where the samples are signed.  32- and 64-bit files
+  give None here, as cv2 does (the RGBA reader takes none).
+- Other ``IMREAD_UNCHANGED`` results (16 to 64-bit integer, float32 and
+  float64 files) are the samples as stored: (H, W), BGR or BGRA,
+  WhiteIsZero not inverted, 10- to 14-bit samples moved to the top of 16
+  bits as cv2 moves them.
+
+JPEG-in-TIFF (compression 7) goes through the RGBA reader too: libtiff
+hands each strip or tile to libjpeg after the shared JPEGTables, and the
+reader sets ``JPEGCOLORMODE_RGB``, so YCbCr is converted by libjpeg (with
+its upsampling) and RGB and grey are taken as coded; ``jpeg.py``
+repeats libjpeg-turbo's arithmetic.  A stream whose sampling libtiff
+refuses (RGB not at 1x1, a strip sampled otherwise than the first) gives
+None, as in cv2.
 
 The orientation tag (274) is applied as cv2 (5.0 and 4.13) applies it in
 both modes: the EXIF transform of :func:`orient`, except that on a tiled
@@ -27,16 +40,22 @@ columns inside a tile (libtiff flips each tile, cv2 the whole row).
 in both modes, ``cv2.imdecode`` the transposed image (``from_file``).
 
 Layout: classic TIFF in either byte order, strips or tiles,
-PlanarConfiguration 1 or 2, compression none, LZW (new style), deflate
-(8 and 32946) and PackBits, predictor 2 (horizontal, per sample at 8, 16
-and 32 bits) and 3 (floating point) where libtiff runs one (LZW and
-deflate), 8- and 16-bit unsigned and 32-bit float samples, photometric
-WhiteIsZero, BlackIsZero, RGB (with or without an extra sample) and
-palette.  Everything else that cv2 reads raises ``ValueError`` naming the
-variant and the file: BigTIFF, JPEG and CCITT compression, old-style LZW,
-YCbCr, CMYK and CIE Lab colour, 1/2/4-bit, signed, 32-bit integer, 16- and
-64-bit float samples, and, under ``IMREAD_UNCHANGED``, planar samples at
-16 or 32 bits (cv2 reads those planes as interleaved samples).
+PlanarConfiguration 1 or 2, FillOrder 1 or 2, compression none, LZW (new
+style), deflate (8 and 32946), PackBits and JPEG (7), predictor 2
+(horizontal, per sample at 8 to 64 bits) and 3 (floating point) where
+libtiff runs one (LZW and deflate); 1, 4, 8 to 16-bit, 32 and 64-bit
+integer samples, signed or not, and 32/64-bit floats; photometric
+WhiteIsZero, BlackIsZero, RGB (with or without an extra sample),
+palette, and YCbCr inside JPEG.  cv2's header check gives None for 2
+bits, 4 bits other than a palette, 16-bit floats and samples of other
+formats; libtiff's for several samples below 8 bits, grey with alpha at
+32 or 64 bits and a predictor on samples it cannot difference, and so
+does the port.  Everything else that cv2 reads raises ``ValueError``
+naming the variant and the file: BigTIFF, old-style JPEG and CCITT
+compression, the other codecs, old-style LZW, YCbCr outside JPEG, CMYK
+and CIE Lab colour, JPEG-in-TIFF in planes or above 8 bits, and, under
+``IMREAD_UNCHANGED``, planar samples at 16 bits or more (cv2 reads those
+planes as interleaved samples).
 
 LZW is the one Python loop: the code-by-code string table
 (:func:`_lzw_decode`); the variable-width codes are cut from the bits in
@@ -50,6 +69,8 @@ import zlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from diffdope_tpu_torch import jpeg
 
 SIGNATURES = (b"II*\x00", b"MM\x00*")
 BIGTIFF = (b"II+\x00", b"MM\x00+")
@@ -66,10 +87,21 @@ _COMPRESSION = {2: "CCITT modified Huffman RLE", 3: "CCITT Group 3 fax",
 _PHOTOMETRIC = {4: "transparency mask", 5: "CMYK (separated)", 6: "YCbCr",
                 8: "CIE L*a*b*", 9: "ICC L*a*b*", 10: "ITU L*a*b*", 32844: "LogL",
                 32845: "LogLuv", 32803: "CFA"}
+#: bits per sample -> the SampleFormats cv2 reads at that width (1
+#: unsigned, 2 signed, 3 IEEE float)
+_CV2_FORMATS = {1: (1, 2), 4: (1, 2), 8: (1, 2), 10: (1, 2), 12: (1, 2), 14: (1, 2),
+                16: (1, 2), 32: (1, 2, 3), 64: (1, 2, 3)}
+#: each byte with its bits in reverse order (FillOrder 2)
+_REVERSED = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None], axis=1)[:, ::-1]
+_REVERSED = np.packbits(_REVERSED, axis=1)[:, 0]
 #: LZW: codes read after a Clear at 9, 10 and 11 bits (then 12)
 _LZW_RUNS = ((254, 9), (766, 10), (1790, 11))
 _LZW_ROOTS = [bytes((i,)) for i in range(256)]
 _LZW_CSIZE = 4095 + 1024
+
+
+class _NoImage(Exception):
+    """A file cv2 reads no image from (its decoder fails after the header)."""
 
 
 def _where(source: Optional[str]) -> str:
@@ -141,25 +173,26 @@ def _header(data: bytes, source: Optional[str]) -> Dict:
     photo = _one(f, 262, 1)
     planar = _one(f, 284, 1)
     predictor = _one(f, 317, 1)
-    if comp not in (1, 5, 8, 32773, 32946):
+    if comp not in (1, 5, 7, 8, 32773, 32946):
         _refuse(source, f"compression {comp} ({_COMPRESSION.get(comp, 'unknown')})")
-    if photo in _PHOTOMETRIC or photo not in (0, 1, 2, 3):
+    if photo in _PHOTOMETRIC and not (photo == 6 and comp == 7) or photo not in (0, 1, 2, 3, 6):
         _refuse(source, f"photometric {photo} ({_PHOTOMETRIC.get(photo, 'unknown')})")
-    if _one(f, 266, 1) != 1:
-        _refuse(source, "FillOrder 2 (bits least significant first)")
-    if bits in (1, 2, 4):
-        _refuse(source, f"{bits}-bit samples")
-    if fmt == 2:
-        _refuse(source, f"signed {bits}-bit samples")
-    if fmt == 3 and bits != 32:
-        _refuse(source, f"{bits}-bit float samples")
-    if fmt not in (1, 3) or bits not in (8, 16, 32) or (fmt == 1 and bits == 32):
-        _refuse(source, f"{bits}-bit samples of SampleFormat {fmt}")
+    fill = _one(f, 266, 1)
+    if fill not in (1, 2):
+        raise ValueError(f"{_where(source)}: TIFF FillOrder {fill}")
+    # cv2's readHeader: the sample formats it takes at each width; any
+    # other width or format, and 4 bits other than a palette's, read as None
+    if fmt not in _CV2_FORMATS.get(bits, ()) or (bits == 4 and photo != 3):
+        return dict(none=True)
     extra = tuple(int(v) for v in f.get(338, []))
-    colours = 3 if photo == 2 else 1
-    if spp not in (colours, colours + 1) or (fmt == 3 and spp == 2):
+    colours = 3 if photo in (2, 6) else 1
+    if spp not in (colours, colours + 1):
         _refuse(source, f"{spp} samples per pixel with photometric {photo}")
-    if photo == 3 and (bits != 8 or spp != 1 or 320 not in f):
+    if (bits < 8 and (spp != 1 or photo == 2)) or (bits >= 32 and spp == 2):
+        # libtiff's RGBA reader takes one sample below 8 bits; cv2 reads no
+        # grey with alpha at 32 or 64 bits
+        return dict(none=True)
+    if photo == 3 and (spp != 1 or 320 not in f):
         _refuse(source, f"palette at {bits} bits and {spp} samples (or no ColorMap)")
     if planar not in (1, 2):
         raise ValueError(f"{_where(source)}: TIFF PlanarConfiguration {planar}")
@@ -167,8 +200,18 @@ def _header(data: bytes, source: Optional[str]) -> Dict:
         _refuse(source, f"predictor {predictor}")
     if comp not in (5, 8, 32946):
         predictor = 1  # libtiff registers the predictor with LZW and deflate only
-    if predictor == 3 and fmt != 3:
-        _refuse(source, f"floating-point predictor on {bits}-bit integer samples")
+    if (predictor == 3 and fmt != 3) or (predictor == 2 and bits % 8):
+        # libtiff differences 8 to 64-bit samples only, floating point
+        # only as floating point
+        return dict(none=True)
+    tables = b""
+    if comp == 7:
+        if bits != 8:
+            raise ValueError(f"{_where(source)}: TIFF JPEG-in-TIFF at {bits} bits: the port "
+                             "reads 8-bit JPEG-in-TIFF only")
+        if planar == 2 and spp > 1:
+            _refuse(source, "JPEG-in-TIFF with planar configuration 2")
+        tables = bytes(f.get(347, []))
     tiled = 322 in f
     if tiled:
         tw, th = _one(f, 322, 0), _one(f, 323, 0)
@@ -183,13 +226,13 @@ def _header(data: bytes, source: Optional[str]) -> Dict:
     cmap = None
     if photo == 3:
         cmap = np.asarray(f[320], np.uint16)
-        if cmap.size != 3 * 256:
+        if cmap.size != 3 << bits:
             raise ValueError(f"{_where(source)}: TIFF ColorMap of {cmap.size} entries")
-        cmap = cmap.reshape(3, 256)
-    return dict(end=end, width=w, height=h, spp=spp, bits=bits, float=fmt == 3,
-                compression=comp, photometric=photo, planar=planar, predictor=predictor,
-                tiled=tiled, block=(tw, th), offsets=offsets, counts=counts,
-                extra=extra, colormap=cmap, orientation=_one(f, 274, 1))
+        cmap = cmap.reshape(3, 1 << bits)
+    return dict(end=end, width=w, height=h, spp=spp, bits=bits, format=fmt, compression=comp,
+                photometric=photo, planar=planar, predictor=predictor, tiled=tiled,
+                block=(tw, th), offsets=offsets, counts=counts, extra=extra, colormap=cmap,
+                orientation=_one(f, 274, 1), tables=tables, fill=fill, none=False)
 
 
 # ---------------------------------------------------------------------------
@@ -303,26 +346,87 @@ def _decompress(raw: bytes, comp: int, size: int, source: Optional[str]) -> byte
     return data[:size]
 
 
+def _dtype(head: Dict) -> np.dtype:
+    """The samples' numpy dtype in native byte order (8 bits below 8, 16
+    at 10 to 14)."""
+    bits = head["bits"]
+    return np.dtype("uif"[head["format"] - 1] + str(1 if bits < 8 else -(-bits // 8)))
+
+
+def _jpeg_block(raw: bytes, head: Dict, rows: int, cols: int,
+                source: Optional[str]) -> np.ndarray:
+    """A JPEG-in-TIFF strip or tile (rows, cols, spp) as libtiff hands it to
+    the RGBA reader: the JPEGTables' quantisation and Huffman tables read
+    before an abbreviated stream's own, YCbCr converted to RGB by libjpeg
+    (the reader sets ``JPEGCOLORMODE_RGB``) and RGB taken as stored."""
+    tables = head["tables"]
+    if tables[:2] == b"\xff\xd8" and raw[:2] == b"\xff\xd8":
+        body = tables[2:-2] if tables.endswith(b"\xff\xd9") else tables[2:]
+        raw = raw[:2] + body + raw[2:]
+    sampling = _jpeg_sampling(raw)
+    # libtiff takes the YCbCr subsampling from the first stream and every
+    # other component at 1x1; cv2 reads no image where a stream differs
+    want = head.setdefault("sampling", sampling[:1] + [(1, 1)] * (len(sampling) - 1)
+                           if head["photometric"] == 6 else [(1, 1)] * len(sampling))
+    if sampling != want:
+        raise _NoImage
+    img = jpeg.decode_jpeg(raw, source, colour="ycc" if head["photometric"] == 6 else "rgb")
+    spp = head["spp"]
+    if img.shape[:2] != (rows, cols) or (img.ndim == 3) != (spp > 1) or \
+            (img.ndim == 3 and img.shape[2] != spp):
+        raise ValueError(f"{_where(source)}: TIFF JPEG {'tile' if head['tiled'] else 'strip'} "
+                         f"of {img.shape} where the directory gives {(rows, cols, spp)}")
+    return img[..., None] if img.ndim == 2 else img[..., ::-1]
+
+
+def _jpeg_sampling(stream: bytes) -> List[Tuple[int, int]]:
+    """The (h, v) sampling factors of a JPEG stream's frame components."""
+    at = 2
+    while at + 4 <= len(stream):
+        marker = stream[at + 1]
+        (length,) = struct.unpack(">H", stream[at + 2:at + 4])
+        if marker in (0xC0, 0xC1, 0xC2):
+            n = stream[at + 9]
+            return [(stream[at + 11 + 3 * i] >> 4, stream[at + 11 + 3 * i] & 15)
+                    for i in range(n)]
+        if marker == 0xDA:
+            break
+        at += 2 + length
+    return []
+
+
 def _block(data: bytes, head: Dict, index: int, rows: int, cols: int, ch: int,
            source: Optional[str]) -> np.ndarray:
     """Strip or tile ``index``: (rows, cols, ch) samples, native order,
-    the predictor undone."""
+    the predictor undone; rows below 8 bits padded to a byte, their
+    samples most significant bit first."""
     bits = head["bits"]
-    size = rows * cols * ch * bits // 8
     off, count = int(head["offsets"][index]), int(head["counts"][index])
-    raw = _decompress(data[off:off + count], head["compression"], size, source)
-    kind = "f" if head["float"] else "u"
+    if head["compression"] == 7:
+        return _jpeg_block(data[off:off + count], head, rows, cols, source)
+    stride = -(-cols * ch * bits // 8)
+    raw = data[off:off + count]
+    if head["fill"] == 2:  # libtiff reverses the stored bits before decoding
+        raw = _REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
+    raw = _decompress(raw, head["compression"], rows * stride, source)
+    dtype = _dtype(head)
+    if bits % 8:
+        bit = np.unpackbits(np.frombuffer(raw, np.uint8).reshape(rows, stride), axis=1)
+        weights = (1 << np.arange(bits - 1, -1, -1)).astype(np.uint16)
+        bit = bit[:, :cols * ch * bits].reshape(rows, cols * ch, bits)
+        vals = (bit * weights).sum(axis=-1, dtype=np.uint16)
+        return vals.astype(dtype.str.replace("i", "u")).view(dtype).reshape(rows, cols, ch)
+    size = bits // 8
     if head["predictor"] == 3:
-        planes = np.frombuffer(raw, np.uint8).reshape(rows, cols * 4, ch)
-        planes = np.cumsum(planes, axis=1, dtype=np.uint8).reshape(rows, 4, cols * ch)
-        samples = np.ascontiguousarray(planes.transpose(0, 2, 1)).view(">f4")
-        return samples.astype(np.float32).reshape(rows, cols, ch)
-    dtype = np.dtype(head["end"] + kind + str(bits // 8))
-    samples = np.frombuffer(raw, dtype).reshape(rows, cols, ch)
-    samples = samples.astype(dtype.newbyteorder("="))
+        planes = np.frombuffer(raw, np.uint8).reshape(rows, cols * size, ch)
+        planes = np.cumsum(planes, axis=1, dtype=np.uint8).reshape(rows, size, cols * ch)
+        samples = np.ascontiguousarray(planes.transpose(0, 2, 1)).view(f">f{size}")
+        return samples.astype(dtype).reshape(rows, cols, ch)
+    samples = np.frombuffer(raw, dtype.newbyteorder(head["end"])).reshape(rows, cols, ch)
+    samples = samples.astype(dtype)
     if head["predictor"] == 2:
-        ints = samples.view(f"u{bits // 8}")
-        samples = np.cumsum(ints, axis=1, dtype=ints.dtype).view(samples.dtype)
+        ints = samples.view(f"u{size}")
+        samples = np.cumsum(ints, axis=1, dtype=ints.dtype).view(dtype)
     return samples
 
 
@@ -336,8 +440,7 @@ def _samples(data: bytes, head: Dict, source: Optional[str]) -> np.ndarray:
     if len(head["offsets"]) < planes * across * down or \
             len(head["counts"]) < planes * across * down:
         raise ValueError(f"{_where(source)}: TIFF with too few strips or tiles")
-    dtype = np.float32 if head["float"] else np.dtype(f"u{head['bits'] // 8}")
-    out = np.empty((h, w, spp), dtype)
+    out = np.empty((h, w, spp), _dtype(head))
     index = 0
     for plane in range(planes):
         for by in range(down):
@@ -387,8 +490,10 @@ def _orient_rgba(img: np.ndarray, head: Dict) -> np.ndarray:
 
 def _rgba8(samples: np.ndarray, head: Dict) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """libtiff's RGBA reader on the samples: (RGB (H, W, 3) uint8, alpha
-    (H, W) uint8 or None)."""
+    (H, W) uint8 or None).  Signed samples are read as unsigned, grey
+    below 8 bits scaled to 0..255, and YCbCr is RGB by now (libjpeg's)."""
     photo, bits = head["photometric"], head["bits"]
+    samples = samples.view(samples.dtype.str.replace("i", "u"))
     if photo == 3:
         cmap = head["colormap"]
         if (cmap >= 256).any():
@@ -396,7 +501,10 @@ def _rgba8(samples: np.ndarray, head: Dict) -> Tuple[np.ndarray, Optional[np.nda
         return cmap.astype(np.uint8).T[samples[..., 0]], None
     if photo in (0, 1):
         grey = samples[..., 0]
-        grey = (grey >> 8).astype(np.uint8) if bits == 16 else grey
+        if bits == 16:
+            grey = (grey >> 8).astype(np.uint8)
+        elif bits < 8:
+            grey = grey * np.uint8(255 // ((1 << bits) - 1))
         if photo == 0:
             grey = 255 - grey
         return np.repeat(grey[..., None], 3, axis=-1), None
@@ -411,36 +519,56 @@ def _rgba8(samples: np.ndarray, head: Dict) -> Tuple[np.ndarray, Optional[np.nda
     return rgb.astype(np.uint8), None if alpha is None else alpha.astype(np.uint8)
 
 
+def _grey(rgb: np.ndarray) -> np.ndarray:
+    """cv2's ``icvCvt_BGRA2Gray_8u_C4C1R`` on the RGBA reader's pixels:
+    (R 4899 + G 9617 + B 1868 + 2**13) >> 14."""
+    v = rgb.astype(np.int32)
+    return ((v[..., 0] * 4899 + v[..., 1] * 9617 + v[..., 2] * 1868 + 8192) >> 14
+            ).astype(np.uint8)
+
+
 def _through_rgba(head: Dict) -> bool:
-    """Whether ``IMREAD_UNCHANGED`` takes libtiff's RGBA reader (8-bit
-    samples, and 16-bit grey with alpha, which cv2 reads as 8-bit)."""
-    return head["bits"] == 8 or (head["bits"] == 16 and head["photometric"] in (0, 1)
+    """Whether ``IMREAD_UNCHANGED`` takes libtiff's RGBA reader (samples of
+    8 bits or fewer, and 16-bit grey with alpha, which cv2 reads as
+    8-bit)."""
+    return head["bits"] <= 8 or (head["bits"] == 16 and head["photometric"] in (0, 1)
                                  and head["spp"] == 2)
 
 
 def decode_unchanged(data: bytes, source: Optional[str] = None,
                      from_file: bool = False) -> Optional[np.ndarray]:
-    """``cv2.imdecode(data, IMREAD_UNCHANGED)`` of TIFF bytes: uint8,
-    uint16 or float32; (H, W) grey, BGR or BGRA.  ``from_file`` gives
-    ``cv2.imread``'s result instead, None for an orientation that
-    transposes the image (cv2's ``imread`` refuses the image its TIFF
-    decoder reallocates)."""
+    """``cv2.imdecode(data, IMREAD_UNCHANGED)`` of TIFF bytes: the samples'
+    own dtype (8 bits and fewer as uint8 or int8); (H, W) grey, BGR or
+    BGRA.  ``from_file`` gives ``cv2.imread``'s result instead, None for
+    an orientation that transposes the image (cv2's ``imread`` refuses the
+    image its TIFF decoder reallocates).  None where cv2's header check
+    refuses the file (2 bits, 4 bits other than a palette, 16-bit float,
+    several samples below 8 bits)."""
     head = _header(data, source)
-    if from_file and head["orientation"] in (5, 6, 7, 8):
+    if head["none"] or from_file and head["orientation"] in (5, 6, 7, 8):
         return None
-    samples = _samples(data, head, source)
+    try:
+        samples = _samples(data, head, source)
+    except _NoImage:
+        return None
     if _through_rgba(head):
         rgb, alpha = _rgba8(samples, head)
-        if head["photometric"] in (0, 1):
+        if head["bits"] == 1:  # cv2 reads one channel at 1 bit, a palette's as grey
+            img = _grey(rgb)
+        elif head["photometric"] in (0, 1):
             img = rgb[..., 0]
         elif alpha is not None:
             img = np.concatenate([rgb[..., ::-1], alpha[..., None]], axis=-1)
         else:
             img = rgb[..., ::-1]
+        if head["format"] == 2:
+            img = img.view(np.int8)
         return _orient_rgba(img, head)
     if head["planar"] == 2 and head["spp"] > 1:
         _refuse(source, f"planar configuration 2 at {head['bits']} bits under "
                 "IMREAD_UNCHANGED (cv2 reads the planes as interleaved samples)")
+    if head["bits"] in (10, 12, 14):  # cv2 moves the samples to the top bits
+        samples = (samples.view(np.uint16) << (16 - head["bits"])).view(samples.dtype)
     if head["spp"] == 1:
         img = samples[..., 0]
     else:
@@ -451,11 +579,15 @@ def decode_unchanged(data: bytes, source: Optional[str] = None,
 def decode_color(data: bytes, source: Optional[str] = None,
                  from_file: bool = False) -> Optional[np.ndarray]:
     """``cv2.imdecode(data, IMREAD_COLOR)`` of TIFF bytes, then RGB: (H, W,
-    3) uint8, or None for float32 samples, as cv2 gives (and, with
-    ``from_file``, for an orientation that transposes the image, as
-    ``cv2.imread`` gives)."""
+    3) uint8, or None for 32- and 64-bit samples (libtiff's RGBA reader
+    takes none), as cv2 gives (and, with ``from_file``, for an orientation
+    that transposes the image, as ``cv2.imread`` gives)."""
     head = _header(data, source)
-    if head["float"] or (from_file and head["orientation"] in (5, 6, 7, 8)):
+    if head["none"] or head["bits"] not in (1, 4, 8, 16) or \
+            (from_file and head["orientation"] in (5, 6, 7, 8)):
         return None
-    rgb, _ = _rgba8(_samples(data, head, source), head)
+    try:
+        rgb, _ = _rgba8(_samples(data, head, source), head)
+    except _NoImage:
+        return None
     return _orient_rgba(rgb, head)

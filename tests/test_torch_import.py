@@ -82,7 +82,7 @@ READER_IMPORTS = {"__future__", "array", "functools", "pathlib", "struct", "typi
 
 
 @pytest.mark.parametrize("path", ["png.py", "jpeg.py", "tiff.py", "netpbm.py", "bmp.py",
-                                  "webp.py"])
+                                  "webp.py", "gif.py", "sunras.py", "hdr.py"])
 def test_torch_image_readers_import_numpy_only(path):
     tree = ast.parse((PKG / path).read_text())
     assert set(_imports(ast.walk(tree))) <= READER_IMPORTS, path

@@ -158,9 +158,10 @@ def test_torch_resizes_match_cv2(factor, size):
 
 
 def test_torch_png_refuses_what_it_cannot_read(tmp_path):
-    """A JPEG and a PNG with an ``eXIf`` orientation of 6 read as cv2 reads
-    them; a PNG with a bad CRC and a GIF raise by name, the file's path in
-    the message; a missing file raises ``FileNotFoundError``."""
+    """A JPEG, a GIF and a PNG with an ``eXIf`` orientation of 6 read as
+    cv2 reads them; a PNG with a bad CRC and an AVIF raise by name, the
+    file's path in the message; a missing file raises
+    ``FileNotFoundError``."""
     img = _smooth((16, 16, 3), 255, np.uint8)
     jpg = tmp_path / "a.jpg"
     cv2.imwrite(str(jpg), img)
@@ -175,10 +176,14 @@ def test_torch_png_refuses_what_it_cannot_read(tmp_path):
     gif = tmp_path / "a.gif"
     assert cv2.imwrite(str(gif), img)
     assert gif.read_bytes().startswith(b"GIF8")
+    _same(png.imread_color(gif), _cv2_color(gif))
+    _same(png.imread_unchanged(gif), cv2.imread(str(gif), cv2.IMREAD_UNCHANGED))
+    avif = tmp_path / "a.avif"
+    assert cv2.imwrite(str(avif), img)
     for read in (png.imread_color, png.imread_unchanged):
-        with pytest.raises(ValueError, match="GIF") as err:
-            read(gif)
-        assert str(gif) in str(err.value)
+        with pytest.raises(ValueError, match="AVIF") as err:
+            read(avif)
+        assert str(avif) in str(err.value)
     with pytest.raises(FileNotFoundError):
         png.imread_color(tmp_path / "missing.png")
     # an eXIf orientation of 6 (rotate 90): cv2 rotates the image, so does the port

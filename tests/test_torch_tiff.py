@@ -23,7 +23,7 @@ import pytest
 cv2 = pytest.importorskip("cv2")
 
 from diffdope_tpu_torch import png, testing  # noqa: E402
-from diffdope_tpu_torch.testing import encode_tiff  # noqa: E402
+from diffdope_tpu_torch.testing import encode_jpeg_tiff, encode_tiff  # noqa: E402
 from torch_scene import one_torch_thread  # noqa: E402, F401
 
 VARIANTS = testing.image_variants()
@@ -46,7 +46,10 @@ def _check(data: bytes, modes=testing.BOTH, tmp_path=None):
         path.write_bytes(data)
     if "unchanged" in modes:
         want = cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)
-        _same(png.decode_unchanged(data), want)
+        got = png.decode_unchanged(data)
+        assert (got is None) == (want is None)
+        if want is not None:
+            _same(got, want)
         if path is not None:
             want = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
             got = png.imread_unchanged(path)
@@ -152,6 +155,13 @@ def test_torch_tiff_1080p_depth_frames_match_cv2(tmp_path):
           f"{seconds:.3f} s on this CPU")
 
 
+#: the variants of the refusal list below that the port reads now: each
+#: is held to cv2 instead (read as cv2 reads it, None where cv2 gives None)
+READ_NOW = {"JPEG-in-TIFF", "4-bit samples", "1-bit samples", "signed 16-bit samples",
+            "signed 8-bit samples", "64-bit float samples",
+            "32-bit samples of SampleFormat 1", "16-bit float samples"}
+
+
 @pytest.mark.parametrize("variant,kwargs", [
     ("BigTIFF", dict(bigtiff=True)),
     ("old-style LZW", dict(compression=5, old_lzw=True)),
@@ -169,10 +179,26 @@ def test_torch_tiff_1080p_depth_frames_match_cv2(tmp_path):
     ("16-bit float samples", dict(dtype=np.float16, channels=0)),
     ("planar configuration 2 at 16 bits", dict(dtype=np.uint16, planar=2, compression=5,
                                                 modes=("unchanged",))),
+    ("old-style JPEG", dict(compression=6)),
+    ("CCITT Group 3", dict(compression=3)),
+    ("CCITT modified Huffman", dict(compression=2)),
+    ("ZSTD", dict(compression=50000)),
+    ("LZMA", dict(compression=34925)),
+    ("JPEG 2000", dict(compression=34712)),
+    ("PixarLog", dict(compression=32909)),
+    ("ICC L", dict(photometric=9)),
+    ("LogLuv", dict(photometric=32845)),
+    ("JPEG-in-TIFF at 16 bits", dict(compression=7, dtype=np.uint16)),
+    ("JPEG-in-TIFF with planar configuration 2", dict(compression=7, planar=2)),
 ])
 def test_torch_tiff_refused_variants_raise_by_name(tmp_path, variant, kwargs):
     """What the port does not decode raises ``ValueError`` naming the
-    variant and the file, in each mode it would be read in."""
+    variant and the file, in each mode it would be read in.  The variants
+    of ``READ_NOW`` (a JPEG-in-TIFF header over raw samples, 1- and 4-bit
+    grey, signed, 32-bit unsigned, 16- and 64-bit float samples) were
+    refused before and are read now: each gives cv2's reads (None where
+    cv2 gives None, as for 4-bit grey and 16-bit float samples, and a
+    JPEG-in-TIFF whose strips hold no JPEG stream raises as corrupt)."""
     kwargs = dict(kwargs)
     channels = kwargs.pop("channels", 3)
     dtype = kwargs.pop("dtype", np.uint8)
@@ -184,14 +210,18 @@ def test_torch_tiff_refused_variants_raise_by_name(tmp_path, variant, kwargs):
     data = encode_tiff(arr, **kwargs)
     path = tmp_path / "v.tif"
     path.write_bytes(data)
+    if variant in READ_NOW and variant != "JPEG-in-TIFF":
+        _check(data, modes, tmp_path)
+        return
     readers = {"unchanged": (png.imread_unchanged, png.decode_unchanged),
                "color": (png.imread_color, png.decode_color)}
+    match = "not a JPEG file" if variant in READ_NOW else variant
     for mode in modes:
         from_path, from_bytes = readers[mode]
-        with pytest.raises(ValueError, match=variant) as err:
+        with pytest.raises(ValueError, match=match) as err:
             from_path(path)
         assert str(path) in str(err.value)
-        with pytest.raises(ValueError, match=variant):
+        with pytest.raises(ValueError, match=match):
             from_bytes(data)
 
 
@@ -365,3 +395,118 @@ def test_torch_diffdope_gt_from_tiff_matches_reference(tmp_path):
     assert set(port.gt_tensors) == set(ref.gt_tensors) == {"rgb", "depth", "segmentation"}
     for key, value in ref.gt_tensors.items():
         _same(np.asarray(port.gt_tensors[key]), np.asarray(value))
+
+
+LATER = testing.format_variants()
+LATER_TIFFS = sorted(k for k in LATER if k.startswith("tiff_"))
+
+
+@pytest.mark.parametrize("name", LATER_TIFFS)
+def test_torch_tiff_later_variant_matches_cv2(name, tmp_path):
+    """Masks and depth: 1-bit bilevel (MinIsWhite and MinIsBlack), 1- and
+    4-bit palettes, 10/12/14-bit, signed 8 to 64-bit, unsigned 32/64-bit
+    and float64 samples under every compression, both predictors, tiles,
+    the orientation tag and FillOrder 2; the variants cv2 reads no image
+    from (2 bits, 4-bit grey, 16-bit float, a predictor libtiff refuses;
+    ``tiff_none_*``); and the JPEG-in-TIFF corpus (``tiff_jpeg_*``: strips
+    and tiles, shared JPEGTables and abbreviated streams, RGB, YCbCr at
+    4:2:0, 4:2:2, 4:4:4 and grey), in both modes, from bytes and files."""
+    data, modes = LATER[name]
+    _check(data, modes, tmp_path)
+    if name.startswith("tiff_none_"):
+        assert png.decode_unchanged(data) is None and png.decode_color(data) is None
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32, np.uint32, np.int64,
+                                   np.uint64, np.float64])
+@pytest.mark.parametrize("channels", [0, 3])
+def test_torch_tiff_wide_writer_round_trips_through_cv2(dtype, channels):
+    """``testing.encode_tiff``'s signed, 32/64-bit and float64 files read by
+    cv2 give back their samples (BGR order) with the predictor each
+    takes, and its 1- and 12-bit files the bits cv2 makes of them (0/255,
+    the samples moved to the top of 16 bits): so a writer bug cannot
+    make a reader test pass."""
+    arr = testing.variant_image(17, 23, channels, np.uint16, 40).astype(np.int64) - 30000
+    arr = arr.astype(dtype) if np.dtype(dtype).kind != "f" else (arr / 3.0).astype(dtype)
+    want = arr if not channels else arr[..., ::-1]
+    for pred in (1, 3 if np.dtype(dtype).kind == "f" else 2):
+        data = encode_tiff(arr, compression=8, predictor=pred, big_endian=pred == 1)
+        _same(cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED), want)
+        _check(data)
+    mask = (testing.variant_image(17, 23, 0, np.uint8, 41) > 50).astype(np.uint8)
+    data = encode_tiff(mask, bits=1, compression=5)
+    _same(cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED), mask * 255)
+    vals = (testing.variant_image(17, 23, 0, np.uint16, 42) >> 4).astype(np.uint16)
+    data = encode_tiff(vals, bits=12)
+    _same(cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED),
+          (vals << 4).astype(np.uint16))
+
+
+def _jpeg(sampling):
+    def encode(arr):
+        img = np.ascontiguousarray(arr[..., ::-1]) if arr.ndim == 3 else arr
+        ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 92,
+                                             cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling,
+                                             cv2.IMWRITE_JPEG_RST_INTERVAL, 3])
+        assert ok
+        return buf.tobytes()
+    return encode
+
+
+@pytest.mark.parametrize("layout", [dict(rows_per_strip=64), dict(tile=(64, 48)),
+                                    dict(rows_per_strip=240, shared_tables=False)])
+def test_torch_tiff_jpeg_photo_matches_cv2(tmp_path, layout):
+    """A 320x240 photograph-like frame as JPEG-in-TIFF, YCbCr 4:2:0 with
+    restart markers, coded by cv2's JPEG encoder (``testing.encode_jpeg_tiff``):
+    strips with shared tables, tiles, and one strip with its own tables;
+    both modes bit for bit, and within the JPEG's error of the frame."""
+    h, w = 240, 320
+    y, x = np.mgrid[0:h, 0:w]
+    rgb = np.stack([128 + 100 * np.sin(x / 17.0 + c) * np.cos(y / 23.0) for c in range(3)], -1)
+    rgb = np.clip(rgb + np.random.default_rng(7).normal(0, 6, rgb.shape), 0, 255)
+    rgb = rgb.astype(np.uint8)
+    data = encode_jpeg_tiff(rgb, _jpeg(cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420), **layout)
+    _check(data, testing.BOTH, tmp_path)
+    got = png.decode_color(data).astype(np.int64)
+    assert np.abs(got - rgb).mean() < 8.0  # the JPEG's error on this noise is ~4.5
+
+
+def _mask_depth_files(tmp_path):
+    """seg as a 1-bit TIFF (Pillow's default for a bool mask: no
+    BitsPerSample tag) and depth as a signed 32-bit and a signed 16-bit
+    TIFF of the same millimetre values (0 background)."""
+    from PIL import Image as PILImage
+
+    h, w = 48, 64
+    y, x = np.mgrid[0:h, 0:w]
+    inside = (x - 30) ** 2 + (y - 22) ** 2 < 15 ** 2
+    paths = {"seg": tmp_path / "seg.tif", "depth32": tmp_path / "depth32.tif",
+             "depth16": tmp_path / "depth16.tif"}
+    PILImage.fromarray(inside).save(paths["seg"])
+    depth = np.where(inside, 700 + (x * 3 + y) % 50, 0)
+    PILImage.fromarray(depth.astype(np.int32), "I").save(paths["depth32"])
+    paths["depth16"].write_bytes(encode_tiff(depth.astype(np.int16), compression=5,
+                                             predictor=2))
+    return paths
+
+
+@pytest.mark.parametrize("resize", [1.0, 0.5])
+def test_torch_mask_and_int_depth_tiffs_match_reference(tmp_path, resize):
+    """The JAX package's ``Image`` (cv2's reads) and the port's on a 1-bit
+    mask and signed 32- and 16-bit depth TIFFs: equal bit for bit, and the
+    mask reads as cv2's 0/255."""
+    import diffdope_tpu.image as ref
+
+    import diffdope_tpu_torch.image as port
+
+    paths = _mask_depth_files(tmp_path)
+    _same(png.imread_unchanged(paths["seg"]),
+          cv2.imread(str(paths["seg"]), cv2.IMREAD_UNCHANGED))
+    assert set(np.unique(png.imread_unchanged(paths["seg"])).tolist()) == {0, 255}
+    assert png.imread_unchanged(paths["depth32"]).dtype == np.int32
+    for kw in (dict(img_path=str(paths["seg"]), img_resize=resize, flip_img=False),
+               dict(img_path=str(paths["depth32"]), img_resize=resize, depth=True),
+               dict(img_path=str(paths["depth16"]), img_resize=resize, depth=True)):
+        _same(port.Image(**kw).img_tensor, ref.Image(**kw).img_tensor)
+    depth32 = port.Image(img_path=str(paths["depth32"]), depth=True).img_tensor
+    _same(port.Image(img_path=str(paths["depth16"]), depth=True).img_tensor, depth32)

@@ -1,14 +1,23 @@
-"""The image variants of ``testing.image_variants`` and the WebP corpus of
-``testing.webp_variants`` through this host's
-cv2 and through the port's readers: one JSON line each with the variant,
-its size and, per cv2 mode it is held in (``IMREAD_UNCHANGED`` and
-``IMREAD_COLOR``), ``cv2.imdecode``'s dtype, shape and SHA-1 (or None),
-``cv2.imread``'s of the bytes written to a file where it differs
-(``<mode>_imread``), and whether the port's reads of the bytes and of the
-file are equal bit for bit (``--cv2-only`` skips the port).  The last
-line counts the variants and the reads that differ.
+"""The image variants of ``testing.image_variants``, the WebP corpus of
+``testing.webp_variants`` and the later formats' variants of
+``testing.format_variants`` through this host's cv2 and through the
+port's readers: one JSON line each with the variant, its size and, per
+cv2 mode it is held in (``IMREAD_UNCHANGED`` and ``IMREAD_COLOR``),
+``cv2.imdecode``'s dtype, shape and SHA-1 (or None), ``cv2.imread``'s of
+the bytes written to a file where it differs (``<mode>_imread``), and
+whether the port's reads of the bytes and of the file are equal bit for
+bit (``--cv2-only`` skips the port).  The last line counts the variants
+and the reads that differ.
 
     python tools/port_cv2_formats.py [--cv2-only] [name-substring ...]
+    python tools/port_cv2_formats.py --record [CV2_ONLY_LINES]
+
+``--record`` (with the cv2 the tests run against, 5.0) writes
+``tests/torch_data/format_variants_cv2.json``: each ``format_variants``
+file's SHA-1 and that cv2's reads of it, the yardstick where another
+host's cv2 lacks the format; given the ``--cv2-only`` lines of another
+cv2 (the card host's 4.13), it also records the variants that cv2 reads
+otherwise, with both reads, in ``differs``.
 """
 
 import hashlib
@@ -19,9 +28,20 @@ from pathlib import Path
 
 import numpy as np
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
 
-from diffdope_tpu_torch.testing import image_variants, webp_variants  # noqa: E402
+from diffdope_tpu_torch.testing import (  # noqa: E402
+    format_variants,
+    image_variants,
+    webp_variants,
+)
+
+#: cv2 5.0's reads of ``format_variants`` (``--record`` writes it)
+RECORDED = ROOT / "tests" / "torch_data" / "format_variants_cv2.json"
+#: the formats of ``format_variants`` by name prefix, as cv2's build
+#: information names them
+FORMATS = {"gif_": "GIF", "sunras_": "SUNRASTER", "hdr_": "HDR", "tiff_": "TIFF"}
 
 
 def summary(img):
@@ -39,6 +59,8 @@ def cv2_oddities():
     c8 = variant_image(19, 27, 3, np.uint8, 2)
     g16 = variant_image(19, 27, 0, np.uint16, 4)
     c16 = variant_image(19, 27, 3, np.uint16, 5)
+    mask = (variant_image(19, 27, 0, np.uint8, 1) > 50).astype(np.uint8)
+    ga8 = variant_image(19, 27, 2, np.uint8, 14)
     return {
         "odd_tiff_tiles_c8_c1": (encode_tiff(c8, tile=(16, 16)), BOTH),
         "odd_tiff_tiles_g16_partial": (encode_tiff(g16, compression=5, tile=(16, 16)), BOTH),
@@ -46,17 +68,37 @@ def cv2_oddities():
         "odd_pfm_Pf": (encode_pfm(variant_image(19, 27, 0, np.float32, 7)), BOTH),
         "odd_pam_rgb_alpha": (encode_pam(variant_image(19, 27, 4, np.uint8, 3),
                                          tupltype="RGB_ALPHA"), BOTH),
+        # cv2.imdecode gives None, cv2.imread the image
+        "odd_tiff_b1_tiles_c1": (encode_tiff(mask, bits=1, tile=(16, 16)), BOTH),
+        # partial tiles of grey with alpha: cv2 leaves pixels unwritten
+        "odd_tiff_grey_alpha8_tiles_partial": (encode_tiff(ga8, compression=5,
+                                                           tile=(16, 16)), BOTH),
+        # signed 12-bit colour: cv2 shifts the samples across pixels
+        "odd_tiff_b12_c_signed": (encode_tiff((c16 >> 4).astype(np.uint16), bits=12,
+                                              sample_format=2, compression=8), BOTH),
     }
 
 
-def compare(variants, port: bool = True):
+def _read(path_or_data, mode: str, how: str):
+    from diffdope_tpu_torch import png
+
+    fn = getattr(png, f"decode_{mode}" if how == "decode" else f"imread_{mode}")
+    got = fn(path_or_data)
+    if mode == "color" and got is not None:
+        got = np.ascontiguousarray(got[..., ::-1])
+    return got
+
+
+def compare(variants, port: bool = True, recorded=None):
     """Yield one row (a dict, as printed) per variant: cv2's reads of its
     bytes (``imdecode``) and of a file of them (``imread``) in each of its
     modes, and with ``port`` whether the port's reads equal them; the
-    count of differing port reads is in each row's ``differ``."""
+    count of differing port reads is in each row's ``differ``.  Where
+    ``recorded`` (name -> a row of another cv2, as ``--record`` keeps
+    them) holds a variant, the port is held to that row instead (the row
+    gets ``yardstick``: that cv2's version) and the row keeps this cv2's
+    own reads as they are."""
     import cv2
-
-    from diffdope_tpu_torch import png
 
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "variant"
@@ -64,6 +106,12 @@ def compare(variants, port: bool = True):
             buf = np.frombuffer(data, np.uint8)
             path.write_bytes(data)
             row = {"variant": name, "bytes": len(data), "cv2": cv2.__version__, "differ": 0}
+            other = (recorded or {}).get(name)
+            if other is not None:
+                row["yardstick"] = other["cv2"]
+                if other["sha1"] != hashlib.sha1(data).hexdigest():
+                    row["differ"] += 1
+                    row["bytes_differ_from_recorded"] = True
             for mode in modes:
                 flag = cv2.IMREAD_UNCHANGED if mode == "unchanged" else cv2.IMREAD_COLOR
                 want = {"decode": summary(cv2.imdecode(buf, flag)),
@@ -71,15 +119,14 @@ def compare(variants, port: bool = True):
                 row[mode] = want["decode"]
                 if want["read"] != want["decode"]:
                     row[f"{mode}_imread"] = want["read"]
+                if other is not None:
+                    want = {"decode": other[mode], "read": other.get(f"{mode}_imread",
+                                                                     other[mode])}
                 if not port:
                     continue
                 for how, arg in (("decode", data), ("read", path)):
-                    fn = getattr(png, f"decode_{mode}" if how == "decode" else f"imread_{mode}")
                     try:
-                        got = fn(arg)
-                        if mode == "color" and got is not None:
-                            got = np.ascontiguousarray(got[..., ::-1])
-                        same = summary(got) == want[how]
+                        same = summary(_read(arg, mode, how)) == want[how]
                     except ValueError as err:
                         same = f"raised: {err}"
                     row[f"{mode}_{how}_port_equal"] = same
@@ -87,12 +134,76 @@ def compare(variants, port: bool = True):
             yield row
 
 
+def load_recorded():
+    """The committed record: {"cv2": version, "variants": {name: row},
+    "differs": {name: {"<version>": row, ...}}}."""
+    return json.loads(RECORDED.read_text())
+
+
+def cv2_formats():
+    """The formats of ``FORMATS`` this host's cv2 was built to read
+    (``getBuildInformation``'s Media I/O lines)."""
+    import cv2
+
+    info = cv2.getBuildInformation()
+    have = set()
+    for name in FORMATS.values():
+        for line in info.splitlines():
+            key, _, value = line.strip().partition(":")
+            if key.strip() == name:
+                if value.strip() and not value.strip().upper().startswith("NO"):
+                    have.add(name)
+                break
+    return have
+
+
+def format_of(name: str) -> str:
+    return next(fmt for prefix, fmt in FORMATS.items() if name.startswith(prefix))
+
+
+def record(argv):
+    """``--record``: write RECORDED from this host's cv2, and the variants
+    another cv2's ``--cv2-only`` lines (``argv[0]``, if given) read
+    otherwise."""
+    import cv2
+
+    variants = format_variants()
+    rows = {}
+    for row in compare(variants, port=False):
+        name = row.pop("variant")
+        row.pop("differ")
+        row.pop("bytes")
+        row["sha1"] = hashlib.sha1(variants[name][0]).hexdigest()
+        rows[name] = row
+    differs = {}
+    if argv:
+        for line in Path(argv[0]).read_text().splitlines():
+            other = json.loads(line)
+            name = other.get("variant")
+            if name not in rows:
+                continue
+            keys = [k for k in rows[name] if k not in ("cv2", "sha1")]
+            if any(other.get(k) != rows[name].get(k) for k in keys) or \
+                    any(k not in rows[name] for k in other if k.startswith(("unchanged",
+                                                                            "color"))):
+                differs[name] = {rows[name]["cv2"]: {k: rows[name][k] for k in keys},
+                                 other["cv2"]: {k: v for k, v in other.items()
+                                                if k.startswith(("unchanged", "color"))}}
+    RECORDED.write_text(json.dumps({"cv2": cv2.__version__, "variants": rows,
+                                    "differs": differs}, indent=1, sort_keys=True) + "\n")
+    print(json.dumps({"recorded": len(rows), "cv2": cv2.__version__,
+                      "differs": sorted(differs)}))
+
+
 def main(argv):
     import cv2
 
+    if "--record" in argv:
+        record([a for a in argv if not a.startswith("--")])
+        return
     cv2_only = "--cv2-only" in argv
     keys = [a for a in argv if not a.startswith("--")]
-    variants = {**image_variants(), **webp_variants()}
+    variants = {**image_variants(), **webp_variants(), **format_variants()}
     if cv2_only:
         variants.update(cv2_oddities())
     variants = {k: v for k, v in variants.items() if not keys or any(s in k for s in keys)}
@@ -101,6 +212,7 @@ def main(argv):
         differ += row.pop("differ")
         print(json.dumps(row), flush=True)
     print(json.dumps({"variants": len(variants), "cv2": cv2.__version__,
+                      "formats": sorted(cv2_formats()),
                       "port_differs": None if cv2_only else differ}), flush=True)
 
 
