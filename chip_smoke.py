@@ -274,7 +274,26 @@ result line):
    with the depth lane launched and held; (c) ``DiffDope(cfg)`` from
    rgb.hdr and a PLY whose texture is a JPEG-in-TIFF: the gt rgb the
    loader's arithmetic on cv2's read of the HDR, the texture cv2's read,
-   K1-K6 on the compact fused route, phase 5's criteria.
+   K1-K6 on the compact fused route, phase 5's criteria;
+25. OpenEXR (cv2 4.13 reads it only with ``OPENCV_IO_ENABLE_OPENEXR`` set,
+   which this phase sets and restores): (a) every file of the committed
+   corpus (``testing.exr_variants``) read by the port from bytes and from
+   a file in both modes, equal bit for bit to the card host's cv2 run in
+   a process with the variable set (None where cv2's is; the deep
+   scanline file, which cv2 composites, refused by name), and the host's
+   reads equal to the committed record (``tests/torch_data/exr_cv2.json``);
+   (b) ``DiffDope(cfg)`` with rgb + mask + depth from phase 16's 1920x1080
+   scene with the depth as cv2's float32 EXR (ZIP, and PIZ) and as a
+   float32 TIFF: equal gt arrays, loss histories, argmin, ``get_pose()``
+   and launches, K1-K6 with the depth lane launched and held; a half DWAA
+   depth as cv2 4.13 writes it (no data: cv2 and the port read None, the
+   loader raises ``FileNotFoundError``); then a half DWAA depth with data
+   (``testing.encode_exr``'s lossy DCT, the channel flagged perceptually
+   linear) with a float RGB EXR (the frame's
+   0..255 values) read as colour: the inputs the loader's arithmetic on
+   cv2's reads, phase 5's criteria; (c) the 1080p depth under every
+   coding (and the DWAA depth with data, and the float RGB) equal to cv2
+   in both modes, its read times (best of three) beside rgb.png's.
 
 K5/K6's colour lane (with and without the depth plane) and K1/K2 at the uv
 table's two channels are held to their plain versions at the test scene
@@ -300,6 +319,7 @@ Needs a CUDA device: it does not fall back to the CPU.
 
 import copy
 import json
+import os
 import struct
 import subprocess
 import sys
@@ -2467,6 +2487,246 @@ def later_formats_phase(gpu: str) -> None:
     print(f"phase 24: {time.perf_counter() - t_phase:.4f} s [{gpu}]", flush=True)
 
 
+#: phase 25: the corpus files the port refuses by name (cv2 4.13 reads a
+#: deep scanline file's composite), and the 1080p depth's EXR codings
+#: (name, ``IMWRITE_EXR_COMPRESSION``, half samples) whose reads are timed
+EXR_REFUSED = {"exr_np_deep_scanline": "OpenEXR deep data"}
+EXR_DEPTHS = (("none", 0, False), ("rle", 1, False), ("zips", 2, False), ("zip", 3, False),
+              ("piz", 4, False), ("pxr24", 5, False), ("b44_half", 6, True),
+              ("b44a_half", 7, True), ("dwaa_half", 8, True), ("dwab_half", 9, True))
+
+
+def exr_corpus_check(t_phase: float) -> None:
+    """Phase 25 (a): every file of the OpenEXR corpus read by the port from
+    bytes and from a file in both modes against the card host's cv2 live
+    (``tools/port_cv2_formats.py exr_`` in a process with
+    ``OPENCV_IO_ENABLE_OPENEXR`` set: cv2 4.13 raises on every EXR read
+    without it), and the host's reads against the committed record."""
+    import hashlib
+    import subprocess
+
+    from diffdope_tpu_torch.testing import exr_variants
+    from tools.port_cv2_formats import load_exr_recorded
+
+    variants, rec = exr_variants(), load_exr_recorded()
+    moved = [n for n, (data, _) in variants.items()
+             if rec["variants"].get(n, {}).get("sha1") != hashlib.sha1(data).hexdigest()]
+    if moved or set(variants) != set(rec["variants"]):
+        fail(f"phase 25 (a): the corpus differs from the recorded one: {moved[:8]}")
+    env = dict(os.environ, OPENCV_IO_ENABLE_OPENEXR="1")
+    run = subprocess.run([sys.executable, str(HERE / "tools" / "port_cv2_formats.py"), "exr_"],
+                         env=env, cwd=HERE, capture_output=True, text=True, timeout=300)
+    lines = [json.loads(line) for line in run.stdout.splitlines() if line.startswith("{")]
+    if run.returncode or not lines or lines[-1].get("variants") != len(variants):
+        fail(f"phase 25 (a): the cv2 comparison did not run to its end (exit "
+             f"{run.returncode}): {run.stderr[-500:]}")
+    last, rows = lines[-1], lines[:-1]
+    differ, refused, unrecorded = [], [], []
+    for row in rows:
+        name = row["variant"]
+        port = {k: v for k, v in row.items() if k.endswith("port_equal")}
+        if name in EXR_REFUSED:
+            if all(isinstance(v, str) and EXR_REFUSED[name] in v for v in port.values()):
+                refused.append(name)
+            else:
+                differ.append(name)
+        elif not port or any(v is not True for v in port.values()):
+            differ.append(name)
+        host = {k: v for k, v in row.items() if k.startswith(("unchanged", "color"))
+                and not k.endswith("port_equal")}
+        want = {k: v for k, v in rec["variants"][name].items()
+                if k.startswith(("unchanged", "color"))}
+        if host != want:
+            unrecorded.append(name)
+    print(f"phase 25 (a): {len(rows)} OpenEXR corpus files read by the port from bytes and "
+          f"from a file in both modes against cv2 {last['cv2']} (OpenEXR "
+          f"{last['openexr']}) live, the codec enabled: {len(differ)} differ {differ[:8]}, "
+          f"{len(refused)} refused by name as cv2 composites them {refused}; the host's "
+          f"reads against the committed record: {len(unrecorded)} differ {unrecorded[:8]} "
+          f"({time.perf_counter() - t_phase:.2f} s)", flush=True)
+    if differ or unrecorded or set(refused) != set(EXR_REFUSED):
+        fail(f"phase 25 (a): port or host reads differ: {differ} {unrecorded} {refused}")
+
+
+def write_exr_files(root: Path, arrays) -> dict:
+    """Phase 25's files beside phase 16's, written by the card host's cv2
+    (the codec enabled): the depth PNG's values as float32 EXR at each
+    lossless coding, PXR24, and as half at B44, B44A, DWAA and DWAB
+    (``EXR_DEPTHS``; cv2 4.13 writes its DWA files without data);
+    depth_dwaa_data.exr, the same values as half Y in DWAA coded by
+    ``testing.encode_exr`` (OpenEXR's default rules: lossy DCT; the channel
+    flagged perceptually linear, so the DCT codes the values themselves,
+    not their ``toNonlinear`` logarithm, whose half DC values err by
+    ~0.4%: too coarse a depth to refine on); rgb_float.exr, the rgb
+    frame's 0..255 values as
+    float32 BGR (ZIP); depth_f32.tif as phase 22 writes it."""
+    import cv2
+    import numpy as np
+
+    from diffdope_tpu_torch.testing import encode_exr, encode_tiff
+
+    depth = arrays["depth"].astype(np.float32)
+    files = {}
+    for name, comp, half in EXR_DEPTHS:
+        files[f"depth_{name}.exr"] = root / f"depth_{name}.exr"
+        kind = cv2.IMWRITE_EXR_TYPE_HALF if half else cv2.IMWRITE_EXR_TYPE_FLOAT
+        if not cv2.imwrite(str(files[f"depth_{name}.exr"]), depth,
+                           [cv2.IMWRITE_EXR_COMPRESSION, comp, cv2.IMWRITE_EXR_TYPE, kind]):
+            fail(f"phase 25: cv2 did not write depth_{name}.exr")
+    files["depth_dwaa_data.exr"] = root / "depth_dwaa_data.exr"
+    files["depth_dwaa_data.exr"].write_bytes(encode_exr({"Y": depth}, 8, linear=("Y",)))
+    files["rgb_float.exr"] = root / "rgb_float.exr"
+    bgr = np.ascontiguousarray(arrays["rgb"][..., ::-1]).astype(np.float32)
+    if not cv2.imwrite(str(files["rgb_float.exr"]), bgr,
+                       [cv2.IMWRITE_EXR_COMPRESSION, 3, cv2.IMWRITE_EXR_TYPE,
+                        cv2.IMWRITE_EXR_TYPE_FLOAT]):
+        fail("phase 25: cv2 did not write rgb_float.exr")
+    files["depth_f32.tif"] = root / "depth_f32.tif"
+    files["depth_f32.tif"].write_bytes(encode_tiff(depth, compression=8, predictor=3,
+                                                   rows_per_strip=2))
+    return files
+
+
+def exr_phase(gpu: str) -> None:
+    """Phase 25: the OpenEXR corpus against the card host's cv2 4.13, the
+    default configuration from float32 EXR depth (ZIP, PIZ) against the same
+    from the float32 depth TIFF, from a half DWAA depth and a float RGB
+    EXR, and the 1080p depth's read times under every coding."""
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch import exr, png
+
+    t_phase = time.perf_counter()
+    exr_corpus_check(t_phase)
+    before = os.environ.get(exr.GATE)
+    os.environ[exr.GATE] = "1"  # cv2 reads it at its first EXR call, the port at each
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            paths, arrays, ply, mtx_gt = write_scene_files(root, gpu, label="phase 25")
+            files = write_exr_files(root, arrays)
+
+            # (c) the 1080p depth under each coding against cv2, and the read times
+            modes = (("unchanged", png.imread_unchanged, cv2.IMREAD_UNCHANGED),
+                     ("colour", png.imread_color, cv2.IMREAD_COLOR))
+            for name in [f"depth_{n}.exr" for n, _, _ in EXR_DEPTHS] + [
+                    "depth_dwaa_data.exr", "rgb_float.exr"]:
+                path = files[name]
+                equal = []
+                for mode, read, flag in modes:
+                    got, want = read(path), cv2.imread(str(path), flag)
+                    if want is not None and flag == cv2.IMREAD_COLOR:
+                        want = cv2.cvtColor(want, cv2.COLOR_BGR2RGB)
+                    equal.append(same_bits(got, want))
+                read = png.imread_color if name.startswith("rgb") else png.imread_unchanged
+                best = min(_timed(read, path) for _ in range(3))
+                got = read(path)
+                shape = None if got is None else (tuple(got.shape), got.dtype.name)
+                print(f"phase 25 (c): {name} ({path.stat().st_size} bytes) "
+                      f"{'colour' if read is png.imread_color else 'unchanged'} read {shape} "
+                      f"in {best:.4f} s, best of three [{gpu}; host CPU]; both modes equal to "
+                      f"cv2 {cv2.__version__}'s bit for bit: {all(equal)}", flush=True)
+                if not all(equal):
+                    fail(f"phase 25 (c): the port's read of {name} differs from cv2's")
+            best = min(_timed(png.imread_color, paths["rgb"]) for _ in range(3))
+            print(f"phase 25 (c): rgb.png ({paths['rgb'].stat().st_size} bytes) colour read "
+                  f"in {best:.4f} s, best of three [{gpu}; host CPU]", flush=True)
+            for name in ("depth_none.exr", "depth_zip.exr", "depth_piz.exr"):
+                if not same_bits(png.imread_unchanged(files[name]),
+                                 arrays["depth"].astype(np.float32)):
+                    fail(f"phase 25: {name} does not read back as the depth PNG's values")
+            if not same_bits(png.imread_color(files["rgb_float.exr"]), arrays["rgb"]):
+                fail("phase 25: rgb_float.exr does not read back as the rgb frame")
+
+            # (b) float32 EXR depth (ZIP, PIZ) against the float32 TIFF's session
+            runs = {}
+            for label, depth in (("float32 TIFF", files["depth_f32.tif"]),
+                                 ("float32 EXR (ZIP)", files["depth_zip.exr"]),
+                                 ("float32 EXR (PIZ)", files["depth_piz.exr"])):
+                dd, points, build_s = files_session(dict(paths, depth=depth), ply,
+                                                    losses=FILES_LOSSES)
+                print(f"phase 25 (b): DiffDope(cfg) from rgb.png, seg.png and the "
+                      f"{label} depth built in {build_s:.4f} s [{gpu}]", flush=True)
+                dd, launches, add0, add1 = diffdope_phase(True, gpu, f"from {label}",
+                                                          session=(dd, points, mtx_gt))
+                check_launches(f"DiffDope from {label}", launches, COMPACT_DEPTH,
+                               set(launches) - set(COMPACT_DEPTH))
+                check_diffdope(dd, f"from {label}", add0, add1)
+                runs[label] = dict(
+                    gt={k: np.asarray(v) for k, v in dd.gt_tensors.items()},
+                    losses={k: np.asarray(v) for k, v in dd.losses_values.items()},
+                    argmin=dd.get_argmin(), pose=np.asarray(dd.get_pose()),
+                    launches=launches)
+                del dd
+                torch.cuda.empty_cache()
+            b = runs.pop("float32 TIFF")
+            for label, a in runs.items():
+                gt_equal = {k: same_bits(a["gt"][k], b["gt"][k]) for k in b["gt"]}
+                run_equal = {"losses": set(a["losses"]) == set(b["losses"]) and all(
+                    same_bits(a["losses"][k], b["losses"][k]) for k in b["losses"]),
+                    "argmin": a["argmin"] == b["argmin"],
+                    "get_pose": same_bits(a["pose"], b["pose"]),
+                    "launches": a["launches"] == b["launches"]}
+                print(f"phase 25 (b): the {label} session against the float32 TIFF one: gt "
+                      f"arrays equal {gt_equal}; {run_equal} bit for bit (argmin "
+                      f"{a['argmin']})", flush=True)
+                if not (all(gt_equal.values()) and set(a["gt"]) == set(b["gt"])):
+                    fail(f"phase 25 (b): the gt arrays from the {label} depth differ")
+                if not all(run_equal.values()):
+                    fail(f"phase 25 (b): the {label} and float32 TIFF runs differ: {run_equal}")
+
+            # (b) cv2 4.13 writes its DWAA file without data: both read None, and
+            # the loader raises FileNotFoundError as the reference's None makes it
+            dwaa = files["depth_dwaa_half.exr"]
+            nones = (cv2.imread(str(dwaa), cv2.IMREAD_UNCHANGED), png.imread_unchanged(dwaa))
+            try:
+                files_session(dict(paths, depth=dwaa), ply, losses=FILES_LOSSES)
+                raised = None
+            except FileNotFoundError as err:
+                raised = f"FileNotFoundError({err})"
+            print(f"phase 25 (b): depth_dwaa_half.exr ({dwaa.stat().st_size} bytes): cv2 "
+                  f"reads {nones[0]}, the port {nones[1]}; DiffDope(cfg) from it raises "
+                  f"{raised}", flush=True)
+            if nones != (None, None) or raised is None:
+                fail("phase 25 (b): the DWAA depth is not refused as cv2 refuses it")
+
+            # (b) a half DWAA depth (lossy DCT) and a float RGB EXR read as colour
+            scene = dict(paths, rgb=files["rgb_float.exr"], depth=files["depth_dwaa_data.exr"])
+            dd, points, build_s = files_session(scene, ply, losses=FILES_LOSSES)
+            h, w = dd.resolution
+            rgb = cv2.cvtColor(cv2.imread(str(scene["rgb"])), cv2.COLOR_BGR2RGB)
+            depth = cv2.imread(str(scene["depth"]), cv2.IMREAD_UNCHANGED)
+            want = {"rgb": png.resize_linear(rgb[::-1] / 255.0, (w, h)).astype(np.float32),
+                    "depth": png.resize_nearest(depth[::-1].astype(np.float64)
+                                                / DEFAULT_DEPTH_SCALE, (w, h)).astype(
+                                                    np.float32)}
+            same = {k: same_bits(np.asarray(dd.gt_tensors[k]), v) for k, v in want.items()}
+            lossy = float(np.abs(depth - arrays["depth"]).max())
+            print(f"phase 25 (b): DiffDope(cfg) from rgb_float.exr, depth_dwaa_data.exr "
+                  f"(largest |read - written| {lossy}) and seg.png built in {build_s:.4f} s; "
+                  f"inputs equal to the loader's arithmetic on cv2 {cv2.__version__}'s reads: "
+                  f"{same} [{gpu}]", flush=True)
+            if not all(same.values()):
+                fail(f"phase 25 (b): the session's inputs are not cv2's reads: {same}")
+            dd, launches, add0, add1 = diffdope_phase(True, gpu, "from DWAA/float RGB EXR",
+                                                      session=(dd, points, mtx_gt))
+            check_launches("DiffDope from DWAA/float RGB EXR", launches, COMPACT_DEPTH,
+                           set(launches) - set(COMPACT_DEPTH))
+            check_diffdope(dd, "from DWAA/float RGB EXR", add0, add1)
+            del dd
+            torch.cuda.empty_cache()
+    finally:
+        if before is None:
+            os.environ.pop(exr.GATE, None)
+        else:
+            os.environ[exr.GATE] = before
+    print(f"phase 25: {time.perf_counter() - t_phase:.4f} s [{gpu}]", flush=True)
+
+
 class RefineRecorder:
     """Records every ``bop.refine`` call of the synthesized sweep (the
     contexts bind ``bop.refine`` when they are built): its fused loss, its
@@ -3390,6 +3650,10 @@ def main() -> None:
 
     # ---- the later formats: masks, depths and images cv2 reads --------------
     later_formats_phase(gpu)
+    torch.cuda.empty_cache()
+
+    # ---- OpenEXR: the corpus, and the default configuration from EXR files ---
+    exr_phase(gpu)
 
     # launches on the path that runs each kernel: the bench main path (its
     # bf16 lane of K6/K4), the depth phase on the compact table (K4 with

@@ -6,12 +6,14 @@ the way the reference reads it with cv2 (``image.py:55-80``): colour as
 RGB / 255 with the orientation applied, depth unchanged / depth_scale,
 both in float64, flipped vertically, resized below a resize factor of 1
 (linear for colour, nearest for depth), then cast to float32.  The port
-reads PNG, JPEG, TIFF (16-bit and float32 depth too), BMP, the Netpbm
-family (PGM/PPM/PAM/PFM) and WebP as cv2 does (``png.py`` and the decoders it
-hands them to); a file cv2 reads no image from (a float32 TIFF as
-colour, a TIFF whose orientation transposes it) raises
-``FileNotFoundError`` as the reference does, other formats
-and the variants the decoders refuse raise ``ValueError``.
+reads PNG, JPEG, TIFF (16-bit, integer and float depth too), BMP, the
+Netpbm family (PGM/PPM/PAM/PFM), WebP, GIF, Sun Raster, Radiance HDR and
+OpenEXR (half, float and UINT depth; the gate ``OPENCV_IO_ENABLE_OPENEXR``
+as cv2 4.13 has it) as cv2 does (``png.py`` and the decoders it hands
+them to); a file cv2 reads no image from (a float32 TIFF as colour, a
+TIFF whose orientation transposes it, a truncated EXR) raises
+``FileNotFoundError`` as the reference does, other formats and the
+variants the decoders refuse raise ``ValueError``.
 """
 
 from __future__ import annotations

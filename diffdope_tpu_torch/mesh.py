@@ -416,11 +416,14 @@ def _gltf_decode_image(gltf, buffers, image_idx):
     """An embedded image (a bufferView or a ``data:`` URI) as float32 RGB
     in [0, 1], as ``cv2.imdecode`` + BGR2RGB gives it (``mesh.py:417-
     438``); None for an external URI (the caller reads the file), bytes
-    of no known image format or a 32-bit TIFF (cv2 decodes neither).  A
-    PNG, JPEG, TIFF, BMP, Netpbm, WebP, GIF, Sun Raster or Radiance HDR
-    image is decoded (``png.decode_color``, its orientation applied as
-    cv2's ``IMREAD_COLOR`` does); another image format (JPEG 2000, AVIF,
-    OpenEXR) raises, since cv2 would have read it and the port cannot."""
+    of no known image format, a 32-bit TIFF or an OpenEXR image OpenEXR
+    fails on (cv2 decodes none of them).  A PNG, JPEG, TIFF, BMP, Netpbm,
+    WebP, GIF, Sun Raster, Radiance HDR or OpenEXR image is decoded
+    (``png.decode_color``, its orientation applied as cv2's
+    ``IMREAD_COLOR`` does; an OpenEXR one raises ``exr.CodecDisabled``
+    unless ``OPENCV_IO_ENABLE_OPENEXR`` is 1 or true, as cv2 4.13 raises);
+    another image format (JPEG 2000, AVIF) raises, since cv2 would have
+    read it and the port cannot."""
     img_def = gltf["images"][image_idx]
     if "bufferView" in img_def:
         bv = gltf["bufferViews"][img_def["bufferView"]]
@@ -436,10 +439,11 @@ def _gltf_decode_image(gltf, buffers, image_idx):
     name = png.format_name(data)
     if name == "unknown":
         return None
-    if name in ("JPEG 2000", "AVIF", "OpenEXR"):
+    if name in ("JPEG 2000", "AVIF"):
         raise NotImplementedError(
             f"glTF image {image_idx} is {name}: the port decodes embedded PNG, JPEG, "
-            "TIFF, BMP, Netpbm, WebP, GIF, Sun Raster and Radiance HDR textures only")
+            "TIFF, BMP, Netpbm, WebP, GIF, Sun Raster, Radiance HDR and OpenEXR textures "
+            "only")
     img = png.decode_color(data)
     return None if img is None else img.astype(np.float32) / 255.0
 
@@ -886,10 +890,10 @@ def save_ply(path, vertices: np.ndarray, faces: np.ndarray,
 
 
 def _load_texture(texture_path) -> np.ndarray:
-    """A texture image (PNG, JPEG, TIFF, BMP, Netpbm or WebP) as float32
-    RGB in [0, 1] (``mesh.py:1030-1037``); ``FileNotFoundError`` where cv2
-    reads no image (a missing file, a float32 TIFF), as the reference
-    raises."""
+    """A texture image (PNG, JPEG, TIFF, BMP, Netpbm, WebP, GIF, Sun
+    Raster, Radiance HDR or OpenEXR) as float32 RGB in [0, 1]
+    (``mesh.py:1030-1037``); ``FileNotFoundError`` where cv2 reads no
+    image (a missing file, a float32 TIFF), as the reference raises."""
     img = png.imread_color(texture_path)
     if img is None:
         raise FileNotFoundError(f"cannot read texture {texture_path}")

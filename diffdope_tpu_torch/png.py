@@ -1,7 +1,8 @@
 """Image reading in numpy and zlib (PNG here; JPEG, TIFF, BMP, the
-Netpbm family, WebP, GIF, Sun Raster and Radiance HDR in ``jpeg.py``,
-``tiff.py``, ``bmp.py``, ``netpbm.py``, ``webp.py``, ``gif.py``,
-``sunras.py`` and ``hdr.py``), and the image resizes of the reference.
+Netpbm family, WebP, GIF, Sun Raster, Radiance HDR and OpenEXR in
+``jpeg.py``, ``tiff.py``, ``bmp.py``, ``netpbm.py``, ``webp.py``,
+``gif.py``, ``sunras.py``, ``hdr.py`` and ``exr.py``), and the image
+resizes of the reference.
 
 The reference reads its images with cv2 (``diffdope_tpu/image.py:55-80``,
 ``mesh.py:1030``, ``mesh.py:417``), which the port does not depend on.
@@ -15,24 +16,29 @@ what cv2 returns:
   the EXIF orientation (a JPEG's APP1, a PNG's ``eXIf``, a TIFF's tag, a
   WebP's EXIF chunk) applied as cv2 applies it (``tiff.orient``); None
   where cv2 gives None (a TIFF of 32- or 64-bit samples, a WebP libwebp
-  rejects, a file a decoder's header check refuses, and from a file a
-  TIFF whose orientation transposes it or a one-channel PFM);
+  rejects, a file a decoder's header check refuses, an OpenEXR file
+  OpenEXR 2.3 fails on, and from a file a TIFF whose orientation
+  transposes it or a one-channel PFM);
   :func:`decode_color` is the same for bytes (``cv2.imdecode``, which
   returns the transposed TIFF);
 - :func:`imread_unchanged` is ``cv2.imread(path, IMREAD_UNCHANGED)``: the
-  file's depth (uint8, uint16, float32 for a PFM or a Radiance HDR, and a
-  TIFF's sample type: int8 to 64-bit integers, float32, float64), (H, W)
-  for grey, else cv2's BGR or BGRA channel order; a PNG's or JPEG's
+  file's depth (uint8, uint16, float32 for a PFM, a Radiance HDR or an
+  OpenEXR file, and a TIFF's sample type: int8 to 64-bit integers,
+  float32, float64), (H, W) for grey, else cv2's BGR or BGRA channel
+  order (an OpenEXR file's grey and alpha as two channels); a PNG's or
+  JPEG's
   orientation ignored (a TIFF's applied, as cv2 does);
   :func:`decode_unchanged` is the same for bytes.
 
 Every PNG colour type, every bit depth and Adam7 interlacing are read;
 the five row filters are undone along the image's anti-diagonals, so a
 step is one vectorised update of every row (:func:`_unfilter`).  Other
-formats (JPEG 2000, AVIF, OpenEXR; anything else as "unknown") and the
-variants the other decoders refuse raise ``ValueError`` naming the
-format and the file: cv2 would read them, the port cannot read them the
-way it does.
+formats (JPEG 2000, AVIF; anything else as "unknown") and the variants
+the other decoders refuse (OpenEXR deep data, for one) raise
+``ValueError`` naming the format and the file: cv2 would read them, the
+port cannot read them the way it does.  An OpenEXR read raises
+``exr.CodecDisabled`` (a ``ValueError``) unless ``OPENCV_IO_ENABLE_OPENEXR``
+is 1 or true, as cv2 4.13 raises.
 
 :func:`resize_linear` and :func:`resize_nearest` are ``cv2.resize`` with
 ``INTER_LINEAR`` and ``INTER_NEAREST`` on float64 images, down to their
@@ -48,7 +54,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from diffdope_tpu_torch import bmp, gif, hdr, jpeg, netpbm, sunras, tiff, webp
+from diffdope_tpu_torch import bmp, exr, gif, hdr, jpeg, netpbm, sunras, tiff, webp
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 #: samples per pixel of each colour type
@@ -57,10 +63,8 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 #: Adam7 passes: (x0, y0, dx, dy)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
           (1, 0, 2, 2), (0, 1, 1, 2))
-#: the signatures of the formats cv2 reads (or, OpenEXR, may be built to
-#: read) and the port does not
-_OTHER_FORMATS = {b"v/1\x01": "OpenEXR", b"\x00\x00\x00\x0cjP  ": "JPEG 2000",
-                  b"\xffO\xffQ": "JPEG 2000"}
+#: the signatures of the formats cv2 reads and the port does not
+_OTHER_FORMATS = {b"\x00\x00\x00\x0cjP  ": "JPEG 2000", b"\xffO\xffQ": "JPEG 2000"}
 #: ISO-BMFF brands of AVIF (the ftyp box's major or a compatible brand)
 _AVIF_BRANDS = (b"avif", b"avis")
 
@@ -193,8 +197,8 @@ def decode_png(data: bytes, source: Optional[str] = None) -> Tuple[np.ndarray, D
     if not data.startswith(SIGNATURE):
         raise ValueError(f"{source or '<bytes>'}: not a PNG file (format: "
                          f"{format_name(data)}): the port reads PNG, JPEG, TIFF, BMP, "
-                         "PBM/PGM/PPM, PAM, PFM, WebP, GIF, Sun Raster and Radiance HDR "
-                         "images only")
+                         "PBM/PGM/PPM, PAM, PFM, WebP, GIF, Sun Raster, Radiance HDR and "
+                         "OpenEXR images only")
     head, idat, palette, trns, orientation = None, [], None, None, 1
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -321,14 +325,16 @@ def _decode_color(data: bytes, source: Optional[str], from_file: bool
         return sunras.decode_color(data, source)
     if hdr.matches(data):
         return hdr.decode_color(data, source)
+    if exr.matches(data):
+        return exr.decode_color(data, source)
     samples, head = decode_png(data, source)
     return tiff.orient(_color(samples, head), head["orientation"])
 
 
 def format_name(data: bytes) -> str:
     """'PNG', 'JPEG', 'TIFF', 'BMP', 'PNM', 'PAM', 'PFM', 'WebP', 'GIF',
-    'Sun Raster', 'Radiance HDR', or the name of another image format by
-    its signature ('OpenEXR', 'JPEG 2000', 'AVIF', else 'unknown')."""
+    'Sun Raster', 'Radiance HDR', 'OpenEXR', or the name of another image
+    format by its signature ('JPEG 2000', 'AVIF', else 'unknown')."""
     if data.startswith(SIGNATURE):
         return "PNG"
     if data.startswith(jpeg.SIGNATURE):
@@ -347,6 +353,8 @@ def format_name(data: bytes) -> str:
         return "Sun Raster"
     if hdr.matches(data):
         return "Radiance HDR"
+    if exr.matches(data):
+        return "OpenEXR"
     return _format_name(data)
 
 
@@ -368,7 +376,8 @@ def imread_unchanged(path) -> Optional[np.ndarray]:
     grey one's is ignored), grey with alpha as BGRA.  TIFF, BMP and the
     Netpbm family as ``tiff.py``, ``bmp.py`` and ``netpbm.py`` say; a WebP
     is BGR, or BGRA when its header declares alpha, its orientation
-    ignored; None where libwebp rejects the file, as cv2 gives."""
+    ignored; None where libwebp rejects the file, as cv2 gives.  An
+    OpenEXR file is float32 as ``exr.py`` says."""
     return _decode_unchanged(_read(path), str(path), True)
 
 
@@ -398,6 +407,8 @@ def _decode_unchanged(data: bytes, source: Optional[str], from_file: bool
         return sunras.decode_unchanged(data, source)
     if hdr.matches(data):
         return hdr.decode_unchanged(data, source)
+    if exr.matches(data):
+        return exr.decode_unchanged(data, source)
     samples, head = decode_png(data, source)
     img = _rgba(samples, head, keep16=True)
     if head["color_type"] == 0:

@@ -1586,3 +1586,485 @@ def format_variants() -> Dict[str, Tuple[bytes, Tuple[str, ...]]]:
     trunc = encode_hdr(rgbe(9, 20), "flat")
     out["hdr_none_truncated"] = (trunc[:-5], BOTH)
     return out
+
+
+# ---------------------------------------------------------------------------
+# OpenEXR writing (the structures cv2's writer does not make)
+# ---------------------------------------------------------------------------
+
+#: the committed OpenEXR corpus (``tools/port_exr_corpus.py`` writes it)
+EXR_CORPUS = Path(__file__).resolve().parent.parent / "tests" / "torch_data" / "exr"
+#: OpenEXR's compression names by their header value, and the scanlines of
+#: a block under each
+EXR_COMPRESSIONS = ("none", "rle", "zips", "zip", "piz", "pxr24", "b44", "b44a", "dwaa",
+                    "dwab")
+EXR_BLOCK_LINES = (1, 1, 1, 16, 32, 16, 32, 32, 32, 256)
+#: OpenEXR's sample types: UINT, HALF, FLOAT
+EXR_UINT, EXR_HALF, EXR_FLOAT = 0, 1, 2
+
+
+def exr_content(h: int, w: int, channels: int, seed: int) -> np.ndarray:
+    """(h, w, channels) float32 for EXR files: smooth ramps past [0, 1] on
+    both sides, noise, and at fixed pixels NaN, +-Inf, float and half
+    denormals, -0, the largest half and a value that overflows it."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    ramp = (x / max(w - 1, 1)) * 1.6 - 0.3 + np.sin(y / 6.0) * 0.25
+    out = np.stack([ramp * (1.0 + 0.3 * c) + 0.1 * c for c in range(channels)], axis=-1)
+    out = out + rng.normal(0.0, 0.05, out.shape)
+    out = out.astype(np.float32)
+    specials = [np.nan, np.inf, -np.inf, 1e-40, -1e-40, 3e-6, -0.0, 65504.0, 70000.0, 1e-8,
+                -2.5, 17.0]
+    flat = out.reshape(-1, channels)
+    for i, v in enumerate(specials):
+        at = (i * 7919 + 13) % flat.shape[0]
+        flat[at, i % channels] = v
+    return out
+
+
+def _exr_attr(name: str, kind: str, value: bytes) -> bytes:
+    return name.encode() + b"\0" + kind.encode() + b"\0" + struct.pack("<i", len(value)) + value
+
+
+def _exr_preprocess(raw: bytes) -> bytes:
+    """ZIP's and RLE's reordering (even bytes, then odd ones) and byte
+    predictor (each the difference to the one before, plus 128)."""
+    a = np.frombuffer(raw, np.uint8)
+    t = np.concatenate([a[0::2], a[1::2]]).astype(np.int32)
+    d = t.copy()
+    d[1:] = (t[1:] - t[:-1] + 128) & 255
+    return d.astype(np.uint8).tobytes()
+
+
+def _exr_rle(data: bytes) -> bytes:
+    """OpenEXR's run-length coding: a run of 3 to 128 equal bytes as its
+    length less one and the byte, else up to 127 literal bytes after their
+    negated count."""
+    out = bytearray()
+    i, n = 0, len(data)
+    while i < n:
+        j = i + 1
+        while j < n and data[j] == data[i] and j - i < 128:
+            j += 1
+        if j - i >= 3:
+            out += bytes([j - i - 1, data[i]])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 127 and not (j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += struct.pack("b", -(j - i)) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _exr_float24(f: np.ndarray) -> np.ndarray:
+    """PXR24's float to 24 bits (``floatToFloat24``)."""
+    u = f.astype(np.float32).view(np.uint32).astype(np.int64)
+    s, e, m = u & 0x80000000, u & 0x7F800000, u & 0x007FFFFF
+    nan = (m >> 8) | ((m >> 8) == 0)
+    special = np.where(m != 0, (e >> 8) | nan, e >> 8)
+    i = ((e | m) + (m & 0x80)) >> 8
+    i = np.where(i >= 0x7F8000, (e | m) >> 8, i)
+    return ((s >> 8) | np.where(e == 0x7F800000, special, i)).astype(np.int64)
+
+
+def _exr_samples(arr: np.ndarray, kind: int) -> np.ndarray:
+    if kind == EXR_UINT:
+        return np.asarray(arr).astype(np.uint32)
+    with np.errstate(over="ignore"):  # past the largest half: +-Inf, as OpenEXR converts
+        return np.asarray(arr).astype(np.float16 if kind == EXR_HALF else np.float32)
+
+
+def _exr_compress(lines, compression: int, names=(), dwa=None, linear=()) -> bytes:
+    """One block: ``lines`` is a list of scanlines, each a list of (kind,
+    samples) per channel.  Stored raw where the coding does not shrink
+    it, as OpenEXR stores it."""
+    raw = b"".join(s.astype(s.dtype.newbyteorder("<")).tobytes()
+                   for line in lines for _, s in line)
+    if compression == 0:
+        return raw
+    if compression == 1:
+        coded = _exr_rle(_exr_preprocess(raw))
+    elif compression in (2, 3):
+        coded = zlib.compress(_exr_preprocess(raw), 9)
+    elif compression in (8, 9):
+        coded = _exr_dwa(lines, names, dwa or {}, linear)
+    elif compression == 5:
+        planes = []
+        for line in lines:
+            for kind, s in line:
+                if kind == EXR_UINT:
+                    u, shifts = s.astype(np.int64), (24, 16, 8, 0)
+                elif kind == EXR_HALF:
+                    u, shifts = s.view(np.uint16).astype(np.int64), (8, 0)
+                else:
+                    u, shifts = _exr_float24(s), (16, 8, 0)
+                d = np.diff(u, prepend=0) & 0xFFFFFFFF
+                planes += [((d >> k) & 255).astype(np.uint8) for k in shifts]
+        coded = zlib.compress(np.concatenate(planes).tobytes() if planes else b"", 9)
+    else:
+        raise ValueError(f"the test writer does not code {EXR_COMPRESSIONS[compression]}")
+    return coded if len(coded) < len(raw) else raw
+
+
+#: OpenEXR 2.2+'s default DWA channel rules: (suffix, scheme 1 lossy DCT
+#: / 2 RLE, sample type, CSC index)
+EXR_DWA_RULES = tuple((n, 1, t, i) for n, i in (("R", 0), ("G", 1), ("B", 2), ("Y", -1),
+                                                 ("BY", -1), ("RY", -1)) for t in (1, 2)) \
+    + tuple(("A", 2, t, -1) for t in (0, 1, 2))
+_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34,
+    27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44,
+    51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+
+
+def exr_huf_encode(values: np.ndarray) -> bytes:
+    """OpenEXR's Huffman coding (``hufCompress``'s format) of unsigned
+    shorts: the 20-byte header (smallest and run symbol, table length,
+    bit count), the code lengths packed six bits each with zero runs, the
+    canonical codes (longest first), and runs of 4 or more of a value as
+    the value, then the run symbol (the largest value plus one) and an
+    8-bit count."""
+    import heapq
+    from collections import Counter
+
+    vals = [int(v) for v in np.asarray(values).ravel()]
+    if not vals:
+        return b""
+    im, rlc = min(vals), max(vals) + 1
+    tokens = []  # (symbol, extra run count or None)
+    i = 0
+    while i < len(vals):
+        j = i
+        while j + 1 < len(vals) and vals[j + 1] == vals[i]:
+            j += 1
+        tokens.append((vals[i], None))
+        extra = j - i
+        if extra >= 3:
+            while extra:
+                k = min(extra, 255)
+                tokens.append((rlc, k))
+                extra -= k
+        else:
+            tokens += [(vals[i], None)] * extra
+        i = j + 1
+    freq = Counter(t for t, _ in tokens)
+    freq[rlc] = freq.get(rlc, 0) + 1
+    heap = [(f, k, (sym,)) for k, (sym, f) in enumerate(sorted(freq.items()))]
+    heapq.heapify(heap)
+    lengths = dict.fromkeys(freq, 0)
+    if len(heap) == 1:
+        lengths[heap[0][2][0]] = 1
+    count = len(heap)
+    while len(heap) > 1:
+        f1, _, s1 = heapq.heappop(heap)
+        f2, _, s2 = heapq.heappop(heap)
+        for sym in s1 + s2:
+            lengths[sym] += 1
+        heapq.heappush(heap, (f1 + f2, count, s1 + s2))
+        count += 1
+    assert max(lengths.values()) <= 58
+    n = [0] * 59
+    for ln in lengths.values():
+        n[ln] += 1
+    start, c = [0] * 59, 0
+    for ln in range(58, 0, -1):
+        start[ln], c = c, (c + n[ln]) >> 1
+    codes = {}
+    for sym in sorted(lengths):
+        codes[sym] = start[lengths[sym]]
+        start[lengths[sym]] += 1
+    bits = []
+
+    def put(value, nbits):
+        bits.extend((value >> (nbits - 1 - k)) & 1 for k in range(nbits))
+
+    sym = im
+    while sym <= rlc:
+        ln = lengths.get(sym, 0)
+        if ln == 0:
+            run = 1
+            while sym + run <= rlc and lengths.get(sym + run, 0) == 0 and run < 255 + 6:
+                run += 1
+            if run >= 2:
+                if run >= 6:
+                    put(63, 6)
+                    put(run - 6, 8)
+                else:
+                    put(59 + run - 2, 6)
+                sym += run
+                continue
+        put(ln, 6)
+        sym += 1
+    table = np.packbits(np.array(bits, np.uint8)).tobytes() if bits else b""
+    bits = []
+    for tok, extra in tokens:
+        put(codes[tok], lengths[tok])
+        if extra is not None:
+            put(extra, 8)
+    data = np.packbits(np.array(bits, np.uint8)).tobytes()
+    return struct.pack("<5I", im, rlc, len(table), len(bits), 0) + table + data
+
+
+def _exr_dwa(lines, names, opts, linear=()) -> bytes:
+    """A DWAA/DWAB block (version 2) of unsampled channels.  ``opts``:
+    'rules' (default ``EXR_DWA_RULES``; () puts every channel in the
+    lossless UNKNOWN scheme, zlib of its samples), 'ac' ('huffman', the
+    default, or 'deflate').  A lossy channel's values are made nonlinear (as
+    OpenEXR's ``toNonlinear``, in float64; not for a single channel in
+    ``linear``), then the 8x8 blocks (edges repeated) of each plane, or of
+    the Y'CbCr of an R/G/B set, go through the orthonormal DCT, rounded to
+    half, AC coefficients below 0.02 dropped, zig-zag run-coded (0xffNN skips
+    NN zeros, 0xff00 ends the block); the DC values are ZIP-coded, the AC
+    Huffman- or zlib-coded.  A-channels (RLE scheme): byte planes,
+    OpenEXR's run-length code, zlib."""
+    if any(len(line) != len(lines[0]) for line in lines):
+        raise ValueError("the test writer codes DWA on unsampled channels only")
+    rules = EXR_DWA_RULES if opts.get("rules") is None else opts["rules"]
+    planes = [np.stack([line[k][1] for line in lines]) for k in range(len(names))]
+    kinds = [lines[0][k][0] for k in range(len(names))]
+    schemes, prefixes = [], {}
+    for k, name in enumerate(names):
+        prefix, _, suffix = name.rpartition(".")
+        slots = prefixes.setdefault(prefix, [-1, -1, -1])
+        scheme = 0
+        for rule_suffix, rule_scheme, kind, csc in rules:
+            if suffix == rule_suffix and kind == kinds[k]:
+                scheme = rule_scheme
+                if csc >= 0:
+                    slots[csc] = k
+        schemes.append(scheme)
+    sets = [tuple(v) for _, v in sorted(prefixes.items()) if min(v) >= 0]
+    in_sets = {k for group in sets for k in group}
+    m = np.array([[0.5 * (np.sqrt(0.5) if k == 0 else 1.0) * np.cos((2 * n + 1) * k * np.pi / 16)
+                   for n in range(8)] for k in range(8)])
+    ac_tokens, dc_planes = [], []
+
+    def lossy(comps):
+        h, w = comps[0].shape
+        bh, bw = -(-h // 8) * 8, -(-w // 8) * 8
+        padded = [np.pad(np.nan_to_num(c.astype(np.float64), nan=0.0, posinf=4.0,
+                                       neginf=-4.0), ((0, bh - h), (0, bw - w)), mode="edge")
+                  for c in comps]
+        blocks = np.stack([p.reshape(bh // 8, 8, bw // 8, 8).transpose(0, 2, 1, 3)
+                           .reshape(-1, 8, 8) for p in padded], axis=1)
+        coef = m @ blocks @ m.T
+        with np.errstate(over="ignore"):
+            zz = coef.reshape(coef.shape[0], len(comps), 64)[..., _ZIGZAG].astype(np.float16)
+        zz[..., 1:][np.abs(zz[..., 1:].astype(np.float64)) < 0.02] = 0  # runs of zeros
+        zz = np.where(np.isfinite(zz), zz, np.float16(0)).view(np.uint16)
+        dc_planes.extend(zz[:, c, 0] for c in range(len(comps)))
+        for blk in zz:
+            for comp in blk:
+                run = 0
+                for v in comp[1:].tolist():
+                    if v == 0:
+                        run += 1
+                        continue
+                    if run:
+                        ac_tokens.append(0xFF00 | run)
+                        run = 0
+                    ac_tokens.append(v)
+                if run:
+                    ac_tokens.append(0xFF00)
+
+    def nonlinear(v):
+        """OpenEXR's ``toNonlinear`` in float64: |v| ** (1 / 2.2) up to 1,
+        ln |v| / 2.2 + 1 past it, the sign kept."""
+        v = np.nan_to_num(v.astype(np.float64), nan=0.0, posinf=65504.0, neginf=-65504.0)
+        a = np.abs(v)
+        with np.errstate(divide="ignore"):
+            out = np.where(a <= 1, a ** (1 / 2.2), np.log(np.maximum(a, 1)) / 2.2 + 1)
+        return np.sign(v) * out
+
+    for group in sets:  # taken as nonlinear whatever their flags, as OpenEXR does
+        r, g, b = (nonlinear(planes[k]) for k in group)
+        y = (g + 0.1873 / 1.8556 * b + 0.4682 / 1.5747 * r) / (
+            1 + 0.1873 / 1.8556 + 0.4682 / 1.5747)
+        lossy([y, (b - y) / 1.8556, (r - y) / 1.5747])
+    for k in range(len(names)):
+        if schemes[k] == 1 and k not in in_sets:
+            lossy([planes[k].astype(np.float64) if names[k] in linear else
+                   nonlinear(planes[k])])
+    unknown = b"".join(planes[k].astype(planes[k].dtype.newbyteorder("<")).tobytes()
+                       for k in range(len(names)) if schemes[k] == 0)
+    rle_raw = b"".join(np.ascontiguousarray(
+        planes[k].astype(planes[k].dtype.newbyteorder("<")).view(np.uint8).reshape(
+            -1, planes[k].dtype.itemsize).T).tobytes()
+        for k in range(len(names)) if schemes[k] == 2)
+    dc = np.concatenate(dc_planes).astype("<u2").tobytes() if dc_planes else b""
+    ac = np.asarray(ac_tokens, np.uint16)
+    ac_mode = 1 if opts.get("ac") == "deflate" else 0
+    ac_coded = (zlib.compress(ac.astype("<u2").tobytes(), 9) if ac_mode
+                else exr_huf_encode(ac)) if len(ac) else b""
+    unk_coded = zlib.compress(unknown, 9) if unknown else b""
+    dc_coded = zlib.compress(_exr_preprocess(dc), 9) if dc else b""
+    rle_coded = _exr_rle(rle_raw) if rle_raw else b""
+    rle_zipped = zlib.compress(rle_coded, 9) if rle_raw else b""
+    rule_bytes = b"".join(suffix.encode() + b"\0" + bytes([((csc + 1) << 4) | (scheme << 2),
+                                                           kind])
+                          for suffix, scheme, kind, csc in rules)
+    head = struct.pack("<11Q", 2, len(unknown), len(unk_coded), len(ac_coded), len(dc_coded),
+                       len(rle_zipped), len(rle_coded), len(rle_raw), len(ac),
+                       len(dc) // 2, ac_mode)
+    return (head + struct.pack("<H", 2 + len(rule_bytes)) + rule_bytes + unk_coded + ac_coded
+            + dc_coded + rle_zipped)
+
+
+def _exr_levels(w: int, h: int, mode: int, rounding: int):
+    """The (lx, ly, width, height) of every level of a tiled part, in the
+    offset table's order."""
+    def log2(n):
+        k = 0
+        while (1 << (k + 1)) <= n:
+            k += 1
+        return k + (rounding == 1 and (1 << k) < n)
+
+    def size(n, lv):
+        return max(((n + (1 << lv) - 1) if rounding else n) >> lv, 1)
+
+    if mode == 0:
+        return [(0, 0, w, h)]
+    if mode == 1:
+        return [(lv, lv, size(w, lv), size(h, lv)) for lv in range(log2(max(w, h)) + 1)]
+    return [(lx, ly, size(w, lx), size(h, ly)) for ly in range(log2(h) + 1)
+            for lx in range(log2(w) + 1)]
+
+
+def _exr_part(channels, compression=0, types=None, sampling=None, line_order=0,
+              origin=(0, 0), display=None, tile=None, attrs=(), name=None, deep=False,
+              dwa=None, linear=()):
+    """One part: (header bytes without its end, chunks in table order,
+    the order the chunks are written in)."""
+    names = sorted(channels)
+    types = {n: (types or {}).get(n, EXR_HALF) for n in names}
+    sampling = {n: (sampling or {}).get(n, (1, 1)) for n in names}
+    xs0, ys0 = sampling[names[0]]
+    h = channels[names[0]].shape[0] * ys0
+    w = channels[names[0]].shape[1] * xs0
+    x0, y0 = origin
+    chl = b"".join(n.encode() + b"\0" + struct.pack("<iB3xii", types[n], n in linear,
+                                                    *sampling[n]) for n in names) + b"\0"
+    box = struct.pack("<iiii", x0, y0, x0 + w - 1, y0 + h - 1)
+    disp = box if display is None else struct.pack("<iiii", *display)
+    head = [_exr_attr("channels", "chlist", chl),
+            _exr_attr("compression", "compression", bytes([compression])),
+            _exr_attr("dataWindow", "box2i", box),
+            _exr_attr("displayWindow", "box2i", disp),
+            _exr_attr("lineOrder", "lineOrder", bytes([line_order])),
+            _exr_attr("pixelAspectRatio", "float", struct.pack("<f", 1.0)),
+            _exr_attr("screenWindowCenter", "v2f", struct.pack("<ff", 0.0, 0.0)),
+            _exr_attr("screenWindowWidth", "float", struct.pack("<f", 1.0))]
+    samples = {n: _exr_samples(channels[n], types[n]) for n in names}
+    chunks = []
+    if deep:
+        for y in range(h):
+            counts = np.full(w, 1, np.int32)
+            table = np.cumsum(counts).astype("<i4").tobytes()
+            data = b"".join(samples[n][y].astype(samples[n].dtype.newbyteorder("<")).tobytes()
+                            for n in names)
+            chunks.append(struct.pack("<iqqq", y0 + y, len(table), len(data), len(data))
+                          + table + data)
+        head += [_exr_attr("type", "string", b"deepscanline"),
+                 _exr_attr("version", "int", struct.pack("<i", 1)),
+                 _exr_attr("maxSamplesPerPixel", "int", struct.pack("<i", 1))]
+    elif tile is None:
+        step = EXR_BLOCK_LINES[compression]
+        for b0 in range(0, h, step):
+            lines = []
+            for y in range(b0, min(b0 + step, h)):
+                line = []
+                for n in names:
+                    xs, ys = sampling[n]
+                    if (y0 + y) % ys == 0:
+                        line.append((types[n], samples[n][(y0 + y) // ys - y0 // ys]))
+                lines.append(line)
+            data = _exr_compress(lines, compression, names, dwa, linear)
+            chunks.append(struct.pack("<ii", y0 + b0, len(data)) + data)
+    else:
+        tx, ty, mode, rounding = tile
+        head.append(_exr_attr("tiles", "tiledesc", struct.pack("<IIB", tx, ty,
+                                                               mode | rounding << 4)))
+        for lx, ly, lw, lh in _exr_levels(w, h, mode, rounding):
+            level = {n: samples[n][::1 << ly, ::1 << lx][:lh, :lw] for n in names}
+            for j in range(-(-lh // ty)):
+                for i in range(-(-lw // tx)):
+                    lines = [[(types[n], level[n][r, i * tx:(i + 1) * tx]) for n in names]
+                             for r in range(j * ty, min((j + 1) * ty, lh))]
+                    data = _exr_compress(lines, compression, names, dwa, linear)
+                    chunks.append(struct.pack("<iiiii", i, j, lx, ly, len(data)) + data)
+    if name is not None:
+        kind = "tiledimage" if tile is not None else "scanlineimage"
+        head += [_exr_attr("name", "string", name.encode()),
+                 _exr_attr("type", "string", kind.encode()),
+                 _exr_attr("chunkCount", "int", struct.pack("<i", len(chunks)))]
+    head += [_exr_attr(*a) for a in attrs]
+    order = list(range(len(chunks)))
+    if line_order == 1:
+        if tile is None:
+            order = order[::-1]
+        else:  # each level's rows of tiles from the bottom
+            order, at = [], 0
+            for lx, ly, lw, lh in _exr_levels(w, h, tile[2], tile[3]):
+                nx, ny = -(-lw // tile[0]), -(-lh // tile[1])
+                order += [at + j * nx + i for j in range(ny - 1, -1, -1) for i in range(nx)]
+                at += nx * ny
+    elif line_order == 2:
+        order = [int(i) for i in np.random.default_rng(len(chunks)).permutation(len(chunks))]
+    return b"".join(head), chunks, order
+
+
+def encode_exr(channels: Dict[str, np.ndarray], compression: int = 0, types=None,
+               sampling=None, line_order: int = 0, origin=(0, 0), display=None, tile=None,
+               attrs=(), long_names: bool = False, deep: bool = False,
+               parts: Optional[Sequence[Dict]] = None, dwa=None, linear=()) -> bytes:
+    """An OpenEXR file of ``channels`` (name -> (rows, columns) samples,
+    each its channel's sample grid): ``types`` name -> ``EXR_UINT``/
+    ``EXR_HALF`` (the default)/``EXR_FLOAT``, ``sampling`` name -> (x, y)
+    subsampling, ``compression`` an index of ``EXR_COMPRESSIONS`` (none,
+    RLE, ZIPS, ZIP and PXR24 are coded, and DWAA/DWAB on unsampled
+    channels as :func:`_exr_dwa` says, ``dwa`` its options; a block not
+    shrunk is stored raw), ``linear`` the names flagged perceptually
+    linear, ``line_order`` 0 increasing, 1 decreasing, 2 random (tiles
+    only), ``origin`` the data window's corner, ``display`` the display
+    window (xmin, ymin, xmax, ymax; the data window by default), ``tile``
+    (x size, y size, level mode 0/1/2 one/mip/rip, rounding 0 down/1 up),
+    ``attrs`` more (name, type, value bytes) attributes, ``long_names``
+    the version flag for names past 31 bytes, ``deep`` one sample a pixel
+    as a deep scanline file.  ``parts`` (keyword dicts of the above, each
+    with its ``name``) writes a multi-part file instead."""
+    if parts is None:
+        parts = [dict(channels=channels, compression=compression, types=types,
+                      sampling=sampling, line_order=line_order, origin=origin,
+                      display=display, tile=tile, attrs=attrs, deep=deep, dwa=dwa,
+                      linear=linear)]
+        flags = (0x200 if tile is not None else 0) | (0x800 if deep else 0)
+    else:
+        flags = 0x1000
+    flags |= 0x400 if long_names else 0
+    built = [_exr_part(**p) for p in parts]
+    multi = len(parts) > 1 or flags & 0x1000
+    head = b"v/1\x01" + struct.pack("<I", 2 | flags)
+    head += b"".join(h + b"\0" for h, _, _ in built) + (b"\0" if multi else b"")
+    at = len(head) + 8 * sum(len(c) for _, c, _ in built)
+    offsets, body = [], []
+    for index, (_, chunks, order) in enumerate(built):
+        prefix = struct.pack("<i", index) if multi else b""
+        table = [0] * len(chunks)
+        for k in order:
+            table[k] = at
+            body.append(prefix + chunks[k])
+            at += len(prefix) + len(chunks[k])
+        offsets.append(struct.pack(f"<{len(table)}Q", *table))
+    return head + b"".join(offsets) + b"".join(body)
+
+
+def exr_variants() -> Dict[str, Tuple[bytes, Tuple[str, ...]]]:
+    """The OpenEXR corpus as :func:`image_variants` lists its files:
+    "exr_" and the file's stem -> (bytes, both modes): cv2 4.13's own
+    files (``cv2_*``, every compression, half and float, 1, 3 and 4
+    channels) and this module's (``np_*``: tiles and levels, line orders,
+    windows, sample types, channel layouts, chroma, multi-part, deep and
+    truncated files)."""
+    return {f"exr_{p.stem}": (p.read_bytes(), BOTH) for p in sorted(EXR_CORPUS.glob("*.exr"))}

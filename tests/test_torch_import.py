@@ -76,13 +76,14 @@ def test_torch_sources_import_no_jax(path):
 
 
 #: what the image readers may import: numpy, the standard library's
-#: byte tools and each other
-READER_IMPORTS = {"__future__", "array", "functools", "pathlib", "struct", "typing",
+#: byte tools and each other, and ``os`` (the OpenEXR reader reads cv2's
+#: gate, ``OPENCV_IO_ENABLE_OPENEXR``, from the environment)
+READER_IMPORTS = {"__future__", "array", "functools", "os", "pathlib", "struct", "typing",
                   "zlib", "numpy", "diffdope_tpu_torch"}
 
 
 @pytest.mark.parametrize("path", ["png.py", "jpeg.py", "tiff.py", "netpbm.py", "bmp.py",
-                                  "webp.py", "gif.py", "sunras.py", "hdr.py"])
+                                  "webp.py", "gif.py", "sunras.py", "hdr.py", "exr.py"])
 def test_torch_image_readers_import_numpy_only(path):
     tree = ast.parse((PKG / path).read_text())
     assert set(_imports(ast.walk(tree))) <= READER_IMPORTS, path
