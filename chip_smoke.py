@@ -94,10 +94,13 @@ result line):
    reference's v3 = v2 contract); its unfused route's step-0 logs (one
    ``render_batch`` through K10) equal the fused run's at rtol 1e-5;
 12. the same under ``DD_BINNED=0`` (K7 over the bins gathered from the
-   planar table, the inverted-bin backward): K7 and K5/K6 launched, no
-   K1-K4; the criteria of phase 5; K7 and K5/K6 held on its tables; no
-   triangle in more tiles than the inverted map holds (``max_occ``) at
-   any step; its step-0 logs equal phase 5's and phase 11's at rtol 1e-5,
+   planar table, the gather's backward the segmented sum: each
+   triangle's slots in slot order, every occurrence): K7, K5/K6 and the
+   segmented sum ('index_rows_bwd') launched, no K1-K4; the criteria of
+   phase 5; K7 and K5/K6 held on its tables; the bins' occupancy logged
+   at every step; the segmented sum (``rasterize.slot_sums``) at the last
+   poses' bins and a seeded cotangent through K7's backward equal to its
+   CPU path (an index_add in slot order) bit for bit; its step-0 logs equal phase 5's and phase 11's at rtol 1e-5,
    or, where its cull changes the render, phase 11's equal its own with
    the cull off;
 13. K9, the v1 raster + row gather, at phase 9's frame and poses (tile
@@ -293,7 +296,21 @@ result line):
    0..255 values) read as colour: the inputs the loader's arithmetic on
    cv2's reads, phase 5's criteria; (c) the 1080p depth under every
    coding (and the DWAA depth with data, and the float RGB) equal to cv2
-   in both modes, its read times (best of three) beside rgb.png's.
+   in both modes, its read times (best of three) beside rgb.png's;
+26. the compiled refinement (``compiled_refine_phase``): the bench main
+   path and phase 5's default configuration, each run as the eager loop
+   (``refine(cuda_graph=False)``) and as graph replays, in turns: equal
+   bit for bit with equal launches, phase 5's the session's own run;
+   their wall times, peak memory, step 0 and capture times and device
+   busy shares printed, and the set-up ``torch.cuda.graph`` would add to
+   each capture (a synchronize, ``empty_cache``, ``gc.collect``), which
+   ``refine`` skips.
+
+Every refinement above runs as ``optimize.refine`` runs it by default:
+step 0 eagerly, then one captured CUDA graph replayed for every later
+step (a refine call each, so a segment each), the launch counts those
+the card ran; phase 19's ranks, under a process group, run the eager
+loop.
 
 K5/K6's colour lane (with and without the depth plane) and K1/K2 at the uv
 table's two channels are held to their plain versions at the test scene
@@ -376,7 +393,8 @@ API_TILE = (32, 128)
 AUTO_HYPER = {"nb_iterations": 4, "learning_rates_bound": [0.5, 2.0]}
 #: the planar routes' launch counters (phases 11 and 12)
 V3_FUSED = ("raster_v3_fwd", "raster_v3_bwd", "loss_fwd", "loss_bwd")
-V2_FUSED = ("raster_uniform_fwd", "raster_uniform_bwd", "loss_fwd", "loss_bwd")
+V2_FUSED = ("raster_uniform_fwd", "raster_uniform_bwd", "loss_fwd", "loss_bwd",
+            "index_rows_bwd")
 #: the exact-texture route's launch counters (phase 14)
 TEXTURE_FUSED = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd", "loss_fwd_color",
                  "loss_bwd_color")
@@ -1104,7 +1122,6 @@ def v3_equals_v2(fn, mtx) -> int:
     import torch
 
     from diffdope_tpu_torch.render import pipeline
-    from diffdope_tpu_torch.render.gather_rows import invert_bins
     from diffdope_tpu_torch.render.planar import bin_triangles_planar
     from diffdope_tpu_torch.render.raster import raster_gather_rows_v2
     from diffdope_tpu_torch.render.raster_v3 import raster_gather_rows_v3
@@ -1117,14 +1134,49 @@ def v3_equals_v2(fn, mtx) -> int:
         idx, counts, overflow = bin_triangles_planar(cp, det, res, pipeline.TILE_HW, k)
         if int(overflow):
             fail(f"exact bins dropped {int(overflow)} pairs at K={k}")
-        inv = invert_bins(idx, t_count, "auto")
-        ids2, rows2 = raster_gather_rows_v2(packed, idx, counts, *inv, res,
+        ids2, rows2 = raster_gather_rows_v2(packed, idx, counts, None, None, res,
                                             pipeline.TILE_HW, padded=True)
         ids3, rows3 = raster_gather_rows_v3(packed, res, pipeline.TILE_HW, padded=True)
     if not (torch.equal(ids2, ids3) and torch.equal(rows2, rows3)):
         fail(f"K10 and K7 over the gathered bins differ: {int((ids2 != ids3).sum())} ids, "
              f"rows max {float((rows2 - rows3).abs().max()):.3e}")
     return int((ids3 > 0).sum())
+
+
+def slot_sums_hold(fn, mtx) -> str:
+    """Phase 12's backward sum at its own shapes: the bins ``fn``'s route
+    builds at poses ``mtx`` (its capacity and cull), K7's backward of a
+    seeded cotangent to d_bins, then ``rasterize.slot_sums`` on the card
+    against its CPU path (an index_add in slot order) on the same d_bins:
+    fails unless equal bit for bit; returns the shapes compared."""
+    import torch
+
+    from diffdope_tpu_torch.render import pipeline
+    from diffdope_tpu_torch.render.raster import (
+        bins_planar,
+        raster_uniform_bwd,
+        raster_uniform_fwd,
+    )
+    from diffdope_tpu_torch.render.rasterize import slot_sums
+
+    res, t_count = fn.roi[2:], fn.mesh.t_count
+    with torch.no_grad():
+        pl = fn.planar(mtx)
+        bins = bins_planar(pl.packed, pl.idx)
+        _, rows, win = raster_uniform_fwd(bins, pl.counts, res, pipeline.TILE_HW)
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        d_rows = torch.randn(rows.shape, generator=gen, device="cuda")
+        d_bins = raster_uniform_bwd(d_rows, win, bins.shape[2], pipeline.TILE_HW)
+        got = slot_sums(d_bins, pl.idx, t_count).cpu()
+        want = slot_sums(d_bins.cpu(), pl.idx.cpu(), t_count)
+    if not bool(torch.isfinite(got).all()) or not bool((got != 0).any()):
+        fail("DiffDope v2: the slot sums are not finite, or all zero")
+    if not torch.equal(got, want):
+        fail(f"DiffDope v2: the slot sums on the card differ from their CPU path at "
+             f"{int((got != want).sum())} of {got.numel()} lanes, max "
+             f"{float((got - want).abs().max()):.3e}")
+    return (f"d_bins {tuple(d_bins.shape)}, {t_count} triangles, "
+            f"{int((pl.idx < t_count).sum())} held slots")
 
 
 def planar_phases(gpu, step0_f):
@@ -1134,7 +1186,6 @@ def planar_phases(gpu, step0_f):
     import torch
 
     from diffdope_tpu_torch.bench import raster_env
-    from diffdope_tpu_torch.render.pipeline import MAX_OCC
 
     dd3, launches3, add0, add1 = diffdope_phase(True, gpu, "v3", raster="v3")
     check_launches("DiffDope v3", launches3, V3_FUSED, set(launches3) - set(V3_FUSED))
@@ -1157,17 +1208,19 @@ def planar_phases(gpu, step0_f):
     dd2, launches2, add0, add1 = diffdope_phase(True, gpu, "v2", raster="v2")
     check_launches("DiffDope v2", launches2, V2_FUSED, set(launches2) - set(V2_FUSED))
     check_diffdope(dd2, "v2", add0, add1)
-    occ = dd2._telemetry_max(dd2._result, "_bin_occupancy")
+    occ = dd2._result.telemetry["_bin_occupancy"]
+    print(f"DiffDope v2: bin occupancy at most {int(occ.max())} a step, logged at "
+          f"{occ.shape[0]} of {dd2.nb_iterations + 1} steps (the slot-order sum "
+          "holds every occurrence)", flush=True)
+    if int(occ.min()) <= 0 or occ.shape[0] != dd2.nb_iterations + 1:
+        fail("DiffDope v2: a step logged no bin occupancy")
     with raster_env("v2"):
         fn2 = dd2._make_fused_loss_fn(dd2.gt_tensors)
-        last = fn2.planar(torch.as_tensor(dd2.mtx_history[-1], device="cuda"))
-    width = last.inv_pos.shape[1]
-    print(f"DiffDope v2: bin occupancy at most {occ} a step, "
-          f"{int(last.telemetry['_bin_occupancy'])} at the last poses (inverted map "
-          f"width {MAX_OCC}: {width} there)", flush=True)
-    if occ <= 0 or width < int(last.telemetry["_bin_occupancy"]):
-        fail("DiffDope v2: the inverted map is narrower than the bins' occupancy: a "
-             "triangle's gradient is truncated")
+        shapes = slot_sums_hold(fn2, torch.as_tensor(dd2.mtx_history[-1], device="cuda"))
+    print(f"DiffDope v2: at the last poses the segmented slot sums on the card equal "
+          f"their CPU path bit for bit ({shapes})", flush=True)
+    del fn2
+    torch.cuda.empty_cache()
     step0_2 = {k: v[0] for k, v in dd2.losses_values.items()}
     agree_step0("DiffDope v2 against fused (phase 5)", step0_2, step0_f, sorted(step0_f))
     if all(np.allclose(step0_3[k], step0_2[k], rtol=1e-5, atol=0.0) for k in step0_2):
@@ -3341,6 +3394,175 @@ def host_api_phase(gpu: str) -> None:
         fail("phase 20: the loss did not fall")
 
 
+def session_refine(dd, cuda_graph: bool = True, **refine_kw):
+    """The refinement ``DiffDope.run_optimization`` dispatches for a plain
+    session (no jitter, restarts, appearance or sharding), on the
+    capacities and crop its last run kept: ``refine_segmented`` over the
+    session's fused loss (or its render and loss functions), with
+    ``cuda_graph`` as given, so the eager loop and the graph run side by
+    side (phase 26, ``tools/port_profile_diffdope.py``,
+    ``tools/port_step_times.py``).  ``refine_kw`` go to each ``refine``."""
+    import torch
+
+    from diffdope_tpu_torch.optimize import refine_segmented
+
+    use_bins = dd._use_bins()
+    fn = dd._make_fused_loss_fn(dd.gt_tensors, use_bins=use_bins)
+    render_fn = dd._make_render_fn(with_bins=use_bins) if fn is None else None
+    gt = {k: torch.tensor(v, device=dd.device) for k, v in dd.gt_tensors.items()}
+    return refine_segmented(
+        dd.object3d.initial_params(dd.batchsize, dd.device), render_fn,
+        tuple(dd.loss_functions), gt, dd.learning_rates, dd.loss_weights,
+        nb_iterations=dd.nb_iterations, segment_steps=int(dd._tpu().get("scan_segment", 40)),
+        base_lr=dd.base_lr, lr_decay=dd.lr_decay, optimizer=dd.optimizer_name,
+        fused_loss_fn=fn, cuda_graph=cuda_graph, **refine_kw)
+
+
+def result_diff(a, b) -> list:
+    """The fields of two RefineResults that differ in a bit (or a shape)."""
+    import torch
+
+    pairs = [("mtx_history", a.mtx_history, b.mtx_history),
+             ("total_loss", a.total_loss, b.total_loss)]
+    for group in ("losses_values", "telemetry", "params"):
+        x, y = getattr(a, group) or {}, getattr(b, group) or {}
+        if set(x) != set(y):
+            return [f"{group} keys {sorted(x)} / {sorted(y)}"]
+        pairs += [(f"{group}[{k}]", x[k], y[k]) for k in x]
+    return [name for name, x, y in pairs
+            if x.dtype != y.dtype or not torch.equal(x, y)]
+
+
+def compiled_refine_phase(problem, gpu: str) -> None:
+    """Phase 26: the compiled refinement.  The bench main path (B=64, 100
+    Adam steps, 400x400) and phase 5's default configuration (960x540,
+    B=8, 61 SGD steps in segments of 40, on the capacities and crop its
+    run kept) each run with ``cuda_graph=False`` (the eager loop) and as
+    graph replays (the default), in turns: eager, graph, graph, eager
+    after a warm-up of each.  Every graph run equals every eager run bit
+    for bit (poses, totals, logs, telemetry, params), with equal launch
+    counts; phase 5's graph run equals its session's own run (DiffDope
+    takes the graph without being asked).  Printed: each run's wall time
+    and peak memory, step 0 and each capture (a run whose step callback
+    waits for every step: the first replay's interval less a steady
+    replay's), and the device busy time a step under each (the
+    profiler's kernels, over an untraced step)."""
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from diffdope_tpu_torch import kernels
+    from diffdope_tpu_torch.bench import device_busy, run_refinement
+
+    dd, _, _ = diffdope_session(True)
+    dd.run_optimization()  # the capacities and crop of the kept run
+    cases = {
+        "bench main path": lambda graph, **kw: run_refinement(problem, cuda_graph=graph,
+                                                              **kw)[0],
+        "default configuration": lambda graph, **kw: session_refine(dd, graph, **kw),
+    }
+    for name, go in cases.items():
+        runs = {}
+        for graph in (False, True):
+            go(graph)  # warm-up
+        for graph in (False, True, True, False):
+            label = "graph" if graph else "eager"
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = go(graph)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            launches = {k: v for k, v in kernels.launches.items() if v}
+            steps = res.total_loss.shape[0]
+            print(f"phase 26 {name} {label}: {steps} steps {wall:.4f} s, "
+                  f"{1e3 * wall / steps:.3f} ms/step, peak {peak:.3f} GiB, launches "
+                  f"{launches} [{gpu}]", flush=True)
+            runs.setdefault(label, []).append((res, launches))
+        for res_g, launches_g in runs["graph"]:
+            for res_e, launches_e in runs["eager"]:
+                diff = result_diff(res_g, res_e)
+                if diff or launches_g != launches_e:
+                    fail(f"phase 26 {name}: the graph differs from the eager loop in "
+                         f"{diff}, launches {launches_g} / {launches_e}")
+        print(f"phase 26 {name}: the graph runs equal the eager runs bit for bit, with "
+              f"equal launches", flush=True)
+        if name == "default configuration":
+            res_g = runs["graph"][0][0]
+            for k, v in dd.losses_values.items():
+                if not np.array_equal(res_g.losses_values[k].cpu().numpy(), v):
+                    fail(f"phase 26: the session's own run differs from the graph in {k}")
+            print("phase 26 default configuration: the session's own run is the graph's "
+                  "bit for bit", flush=True)
+        # step 0 and the captures: a callback that waits for every step
+        stamps = []
+
+        def stamp(i, total):
+            float(total)
+            stamps.append((i, time.perf_counter()))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        go(True, step_callback=stamp)
+        times = [t for _, t in stamps]
+        gaps = [b - a for a, b in zip([t0] + times, times)]
+        replay = statistics.median(g for (i, _), g in zip(stamps, gaps) if i >= 2)
+        first = [g for (i, _), g in zip(stamps, gaps) if i == 0]
+        capture = [g - replay for (i, _), g in zip(stamps, gaps) if i == 1]
+        print(f"phase 26 {name}: step 0 (eager, on a side stream) "
+              f"{[round(1e3 * g, 3) for g in first]} ms, capture "
+              f"{[round(1e3 * c, 3) for c in capture]} ms, a replay waited for "
+              f"{1e3 * replay:.3f} ms [{gpu}]", flush=True)
+        # what torch.cuda.graph runs before each capture, and refine skips:
+        # a synchronize and empty_cache, and gc.collect (always, or where
+        # torch.compiler.config.force_cudagraph_gc is set)
+        setup = {"synchronize + empty_cache": [], "gc.collect": []}
+        for _ in range(3):
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            gc.collect()
+            setup["synchronize + empty_cache"].append(round(1e3 * (t1 - t0), 3))
+            setup["gc.collect"].append(round(1e3 * (time.perf_counter() - t1), 3))
+        force = getattr(getattr(torch.compiler, "config", None), "force_cudagraph_gc", None)
+        print(f"phase 26 {name}: torch.cuda.graph's set-up, which refine's capture skips: "
+              f"{setup} ms (force_cudagraph_gc {force}) [{gpu}]", flush=True)
+        for graph in (True, False):
+            label = "graph" if graph else "eager"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = go(graph)
+            torch.cuda.synchronize()
+            steps = res.total_loss.shape[0]
+            step_ms = 1e3 * (time.perf_counter() - t0) / steps
+
+            def traced():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = go(graph)
+                torch.cuda.synchronize()
+                return out, time.perf_counter() - t
+
+            events, busy_ms, wall = device_busy(traced)
+            busy = busy_ms / steps
+            top = sorted((e for e in events
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: -e.self_device_time_total)[:5]
+            print(f"phase 26 {name} {label}: device busy {busy:.4f} ms a step of an "
+                  f"untraced {step_ms:.4f} ms ({100 * busy / step_ms:.1f}%); traced "
+                  f"{1e3 * wall / steps:.4f} ms a step; top "
+                  f"{[(e.key[:40], round(e.self_device_time_total / 1e3 / steps, 4)) for e in top]}"
+                  f" [{gpu}]", flush=True)
+    del dd
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3654,6 +3876,10 @@ def main() -> None:
 
     # ---- OpenEXR: the corpus, and the default configuration from EXR files ---
     exr_phase(gpu)
+    torch.cuda.empty_cache()
+
+    # ---- the compiled refinement: graph replays against the eager loop -------
+    compiled_refine_phase(problem, gpu)
 
     # launches on the path that runs each kernel: the bench main path (its
     # bf16 lane of K6/K4), the depth phase on the compact table (K4 with

@@ -11,10 +11,13 @@ icosphere(5) (20,480 triangles; the AlphabetSoup scan is not in the
 repo).  The gt images are the port's own render at the gt pose.
 
 Needs a CUDA card and fails without one.  Prints exactly one JSON line on
-stdout (the root bench's metric line); progress goes to stderr.
-``DD_PROFILE=N`` also traces N steps
-with ``torch.profiler`` after the timed runs and prints the device time
-by kernel and the device busy share of that window to stderr.
+stdout (the root bench's metric line); progress goes to stderr.  The
+refinements run as ``optimize.refine`` runs them by default: step 0
+eagerly, every later step a replay of the step captured as a CUDA graph.
+``DD_PROFILE=N`` also traces N steps with ``torch.profiler`` after the
+timed runs, as replays of the graph and as the eager loop
+(``cuda_graph=False``) side by side, and prints the device time by
+kernel and the device busy share of each to stderr.
 """
 
 from __future__ import annotations
@@ -150,39 +153,55 @@ def distinct_poses(params, step: float):
             for k, v in params.items()}
 
 
-def run_refinement(problem, steps: int = STEPS):
+def run_refinement(problem, steps: int = STEPS, **refine_kw):
     """One refinement of the problem's hypotheses on the card; returns the
-    RefineResult and its wall time (synchronized)."""
+    RefineResult and its wall time (synchronized).  ``refine_kw`` go to
+    ``refine`` (``cuda_graph=False`` for the eager loop, a
+    ``step_callback``)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = refine(
         problem["params0"], fused_loss_fn=problem["fn"], nb_iterations=steps - 1,
-        base_lr=0.02, lr_decay=0.1, optimizer="adam",
+        base_lr=0.02, lr_decay=0.1, optimizer="adam", **refine_kw,
     )
     torch.cuda.synchronize()
     return res, time.perf_counter() - t0
 
 
-def profile(problem, steps: int, step_s: float) -> None:
-    """Trace ``steps`` refinement steps: device time by kernel (top 25), the
-    share of the traced window that the device was busy, and the device
-    time per step over ``step_s``, an untraced step's wall time (the
-    tracer slows the host, not the kernels)."""
+def device_busy(run):
+    """(the profiler's key averages, device busy ms, traced wall s) of
+    ``run()``, a refinement that returns (result, wall s)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with torch_profile(activities=acts) as prof:
-        _, wall = run_refinement(problem, steps)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = run()
     events = prof.key_averages()
-    log(events.table(sort_by="self_device_time_total", row_limit=25))
     busy_us = sum(e.self_device_time_total for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    log(f"profile: {steps} steps, wall {wall * 1e3:.3f} ms, device busy "
-        f"{busy_us / 1e3:.3f} ms ({100 * busy_us / (wall * 1e6):.1f}%)")
-    per_step_ms = busy_us / 1e3 / steps
-    log(f"device busy per step {per_step_ms:.3f} ms of an untraced step's "
-        f"{step_s * 1e3:.3f} ms ({100 * per_step_ms / (step_s * 1e3):.1f}%)")
+    return events, busy_us / 1e3, wall
+
+
+def profile(problem, steps: int) -> None:
+    """Trace ``steps`` refinement steps as graph replays and as the eager
+    loop: for each, the device time by kernel (top 25), the share of the
+    traced window that the device was busy, and the device time per step
+    over an untraced run's step (the tracer slows the host, not the
+    kernels)."""
+    for graph in (True, False):
+        label = "graph" if graph else "eager"
+        _, step_s = run_refinement(problem, steps, cuda_graph=graph)
+        step_s /= steps
+        events, busy_ms, wall = device_busy(
+            lambda: run_refinement(problem, steps, cuda_graph=graph))
+        log(f"profile ({label}):")
+        log(events.table(sort_by="self_device_time_total", row_limit=25))
+        log(f"profile ({label}): {steps} steps, wall {wall * 1e3:.3f} ms, device busy "
+            f"{busy_ms:.3f} ms ({100 * busy_ms / (wall * 1e3):.1f}%)")
+        per_step_ms = busy_ms / steps
+        log(f"profile ({label}): device busy per step {per_step_ms:.3f} ms of an "
+            f"untraced step's {step_s * 1e3:.3f} ms "
+            f"({100 * per_step_ms / (step_s * 1e3):.1f}%)")
 
 
 def main() -> int:
@@ -209,7 +228,7 @@ def main() -> int:
             log(f"WARNING {key}: up to {int(v.max())}/step")
     n_prof = int(os.environ.get("DD_PROFILE", "0"))
     if n_prof:
-        profile(problem, n_prof, dt / STEPS)
+        profile(problem, n_prof)
     value = 1.0 / dt
     print(json.dumps({
         "metric": "pose_refinements_per_sec",

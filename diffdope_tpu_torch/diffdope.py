@@ -75,6 +75,7 @@ import torch
 from diffdope_tpu_torch import viz
 from diffdope_tpu_torch.camera import Camera
 from diffdope_tpu_torch.config import ConfigNode
+from diffdope_tpu_torch.convert import tensor
 from diffdope_tpu_torch.geometry import matmul44, opengl_to_opencv
 from diffdope_tpu_torch.image import Scene
 from diffdope_tpu_torch.losses import LOSS_REGISTRY, select_losses
@@ -380,11 +381,17 @@ class DiffDope:
         resolution = tuple(self.resolution)
         mesh = self._mesh(arrays, proj)
 
+        # the mesh's colours on the device once: a step that recolours the
+        # mesh (an appearance leaf) copies no host data
+        colors = {k: None if arrays.get(k) is None else
+                  tensor(arrays[k], self.device,
+                         torch.int64 if k == "uv_idx" else torch.float32)
+                  for k in ("vtx_color", "corner_colors", "tex", "uv", "uv_idx")}
+
         def colored(tex, vtx_color, corner_colors) -> _Mesh:
             if tex is None and vtx_color is None and corner_colors is None:
                 return mesh
-            kw = {k: arrays.get(k) for k in ("vtx_color", "corner_colors", "tex", "uv",
-                                             "uv_idx")}
+            kw = dict(colors)
             if tex is not None:
                 kw.update(tex=tex, corner_colors=None)
             if vtx_color is not None:

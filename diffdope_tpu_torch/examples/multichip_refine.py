@@ -51,6 +51,7 @@ def build_problem(args, device):
     """The JAX script's problem on ``device``: (params0, render_fn,
     loss_fns, gt, learning_rates, weights)."""
     from diffdope_tpu_torch import geometry as geo
+    from diffdope_tpu_torch.convert import tensor
     from diffdope_tpu_torch.losses import select_losses
     from diffdope_tpu_torch.optimize import draw_learning_rates, pose_matrix, pose_params
     from diffdope_tpu_torch.render.pipeline import render_batch
@@ -74,6 +75,12 @@ def build_problem(args, device):
         pos, tri, edge_adj = v * 0.4, fc, build_edge_adjacency(fc)
         color_kw = dict(vtx_color=(v * 0.5 + 0.5).astype(np.float32))
         cull = True
+
+    # the mesh on the device once: a step then copies no host data (a step
+    # that does cannot be captured as a CUDA graph)
+    proj, pos = tensor(proj, device), tensor(pos, device)
+    tri, edge_adj = tensor(tri, device, torch.int64), tensor(edge_adj, device, torch.int64)
+    color_kw = {k: tensor(v, device) for k, v in color_kw.items()}
 
     def render_fn(mtx):
         return render_batch(proj, mtx, pos, tri, (h, w), edge_adj=edge_adj,

@@ -24,7 +24,7 @@ def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     is summed in a fixed order, so CPU and GPU give the same bits."""
     x, y, z, w = q.unbind(-1)
     n = torch.sqrt(((x * x + y * y) + z * z) + w * w)[..., None]
-    return q / torch.maximum(n, n.new_tensor(eps))
+    return q / n.clamp(min=eps)
 
 
 def matmul44(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -132,9 +132,9 @@ def matrix44_from_quat_trans(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     r = r.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([r, t[..., :, None]], dim=-1)
-    bottom = torch.tensor(
-        [0.0, 0.0, 0.0, 1.0], dtype=top.dtype, device=top.device
-    ).expand(batch + (1, 4))
+    # (0, 0, 0, 1) made on the device: no host data enters a captured step
+    bottom = top.new_zeros(batch + (1, 4))
+    bottom[..., 3].fill_(1.0)
     return torch.cat([top, bottom], dim=-2)
 
 

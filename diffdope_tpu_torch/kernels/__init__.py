@@ -16,11 +16,16 @@ hash of its source and the flags, so an edited source rebuilds.  The build
 directory is ``build/`` beside the package, or ``$DD_TORCH_BUILD_DIR``.
 
 ``launches`` counts kernel launches per wrapper (a plain int each): a
-wrapper adds one where it launches its kernel and nowhere else.
+wrapper adds one where it launches its kernel and nowhere else.  While a
+CUDA graph is captured (:func:`recording`) a launch only records itself,
+as the capture runs no kernel; each replay of the graph then adds what
+was recorded (:func:`add_launches`, ``optimize.refine``), so the counts
+are the launches the card ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,7 +33,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -43,7 +48,9 @@ NVCC_FLAGS = (
 #: counts the bin-ordered tables that the reference's eligibility rule
 #: sends to the plain pack (traced attributes); 'setup_rows_bwd' the
 #: segmented sum of rasterize's setup-row gather, 'index_rows_bwd' the same
-#: kernel under the gathers of interpolate and antialias
+#: kernel under the gathers of interpolate and antialias and under the
+#: ``DD_BINNED=0`` route's bins (``rasterize.slot_sums``, once per
+#: hypothesis)
 launches = {"pack_fwd": 0, "pack_bwd": 0, "pack_plain": 0, "raster_fwd": 0,
             "raster_bwd": 0, "raster_bwd_bf16": 0, "raster_uniform_fwd": 0,
             "raster_uniform_bwd": 0, "loss_fwd": 0, "loss_bwd": 0, "loss_bwd_bf16": 0,
@@ -99,11 +106,41 @@ _SIGNATURES = {
 }
 
 _fns: Optional[Dict[str, object]] = None
+#: the launches recorded by the capture under way (:func:`recording`), or
+#: None; a plain global, as the autograd engine's thread launches the
+#: backward's kernels
+_recorded: Optional[Dict[str, int]] = None
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def count(counter: str) -> None:
+    """Add one to ``counter``, or record it while a graph is captured."""
+    if _recorded is None:
+        launches[counter] += 1
+    else:
+        _recorded[counter] = _recorded.get(counter, 0) + 1
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Dict[str, int]]:
+    """Inside, every :func:`count` is recorded in the dict this yields
+    instead of counted: the launches of a CUDA graph being captured."""
+    global _recorded
+    outer, _recorded = _recorded, {}
+    try:
+        yield _recorded
+    finally:
+        _recorded = outer
+
+
+def add_launches(recorded: Dict[str, int], times: int = 1) -> None:
+    """Count ``times`` replays of a graph whose capture recorded ``recorded``."""
+    for k, n in recorded.items():
+        launches[k] += n * times
 
 
 def build_dir() -> Path:
@@ -189,4 +226,4 @@ def launch(name: str, counter: str, *args) -> None:
     err = library()[name](*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
-    launches[counter] += 1
+    count(counter)

@@ -1,14 +1,14 @@
 """Pose-hypothesis refinement loop.
 
 Counterpart of ``diffdope_tpu/optimize.py``.  The reference runs the
-steps as one ``lax.scan``; here ``refine`` is a Python loop of
-value-and-grad and an optimizer update, on the fused loss
-(``fused_loss_fn``) or on ``render_fn`` + ``loss_fns`` (the unfused
-route).  Both optimizers follow optax's semantics (the reference's
-``optax.sgd`` / ``optax.adam``), not ``torch.optim``'s: Adam with b1 0.9,
-b2 0.999 and eps 1e-8 outside the square root, bias correction at
-count + 1, and the learning-rate schedule evaluated at the pre-increment
-step count.
+steps as one jitted ``lax.scan``; here ``refine`` captures one step
+(value-and-grad and the optimizer update, on the fused loss
+``fused_loss_fn`` or on ``render_fn`` + ``loss_fns``, the unfused route)
+as a CUDA graph and replays it, or runs it eagerly on the CPU.  Both
+optimizers follow optax's semantics (the reference's ``optax.sgd`` /
+``optax.adam``), not ``torch.optim``'s: Adam with b1 0.9, b2 0.999 and
+eps 1e-8 outside the square root, bias correction at count + 1, and the
+learning-rate schedule evaluated at the pre-increment step count.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from diffdope_tpu_torch import kernels
 from diffdope_tpu_torch.convert import tensor
 from diffdope_tpu_torch.geometry import matrix44_from_quat_trans, quat_multiply, quat_normalize
 from diffdope_tpu_torch.render.planar import union_over
@@ -137,8 +138,9 @@ def draw_learning_rates(seed: int, batchsize: int, bounds: Sequence[float],
 def make_lr_schedule(base_lr: float, lr_decay: float, nb_iterations: int):
     """lr(step) = base_lr * lr_decay ** (step/nb + 1), in float32.
 
-    Host scalars (numpy float32): the optimizer's scalars never cross to
-    the device as tensors, so a step enqueues no host-to-device copy."""
+    Host scalars (numpy float32): :func:`refine` lays a run's values out in
+    a device table once (the optimizers' ``tables``), so no step enqueues a
+    host-to-device copy."""
     f32 = np.float32
 
     def schedule(step: int) -> np.float32:
@@ -157,10 +159,18 @@ class SGD:
     def init(self, params):
         return {"count": 0}
 
-    def update(self, grads, state, params):
-        step = float(-self.schedule(state["count"]))
-        new = {k: params[k] + step * grads[k] for k in params}
-        return new, {"count": state["count"] + 1}
+    def tables(self, count: int, length: int, reciprocal: bool = False
+               ) -> Dict[str, np.ndarray]:
+        """The step scalars of counts ``count`` .. ``count + length - 1``,
+        float32 (length,): 'neg_lr', -lr(count)."""
+        return {"neg_lr": np.asarray([-self.schedule(count + i) for i in range(length)],
+                                     np.float32)}
+
+    def update(self, grads, state, params, row) -> None:
+        """One step in place (under no_grad), ``row`` the step's entries of
+        :meth:`tables` (0-dim tensors)."""
+        for k, p in params.items():
+            p.copy_(p + row["neg_lr"] * grads[k])
 
 
 class Adam:
@@ -176,20 +186,37 @@ class Adam:
             "nu": {k: torch.zeros_like(v) for k, v in params.items()},
         }
 
-    def update(self, grads, state, params):
-        b1, b2 = self.b1, self.b2
+    def tables(self, count: int, length: int, reciprocal: bool = False
+               ) -> Dict[str, np.ndarray]:
+        """The step scalars of counts ``count`` .. ``count + length - 1``,
+        float32 (length,): 'neg_lr' and the bias corrections 1 - b ** (count
+        + 1), 'bc1' and 'bc2', or with ``reciprocal`` their float32
+        reciprocals 'inv_bc1' and 'inv_bc2': the card divides a tensor by a
+        host scalar as a product with its reciprocal, the CPU by a true
+        division, and a step keeps the bits that division gave."""
         f32 = np.float32
-        mu = {k: (1 - b1) * g + b1 * state["mu"][k] for k, g in grads.items()}
-        nu = {k: (1 - b2) * g ** 2 + b2 * state["nu"][k] for k, g in grads.items()}
-        count_inc = state["count"] + 1
-        bc1 = float(f32(1) - np.power(f32(b1), f32(count_inc)))
-        bc2 = float(f32(1) - np.power(f32(b2), f32(count_inc)))
-        step = float(-self.schedule(state["count"]))
-        new = {}
-        for k in params:
-            upd = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps)
-            new[k] = params[k] + step * upd
-        return new, {"count": count_inc, "mu": mu, "nu": nu}
+        out = SGD(self.schedule).tables(count, length)
+        for name, b in (("bc1", self.b1), ("bc2", self.b2)):
+            bc = [f32(1) - np.power(f32(b), f32(count + i + 1)) for i in range(length)]
+            if reciprocal:
+                out["inv_" + name] = np.asarray([f32(1) / c for c in bc], np.float32)
+            else:
+                out[name] = np.asarray(bc, np.float32)
+        return out
+
+    def update(self, grads, state, params, row) -> None:
+        """One step in place (under no_grad): the moments and the params."""
+        b1, b2 = self.b1, self.b2
+        for k, g in grads.items():
+            mu = (1 - b1) * g + b1 * state["mu"][k]
+            nu = (1 - b2) * g ** 2 + b2 * state["nu"][k]
+            if "inv_bc1" in row:
+                upd = (mu * row["inv_bc1"]) / (torch.sqrt(nu * row["inv_bc2"]) + self.eps)
+            else:
+                upd = (mu / row["bc1"]) / (torch.sqrt(nu / row["bc2"]) + self.eps)
+            params[k].copy_(params[k] + row["neg_lr"] * upd)
+            state["mu"][k].copy_(mu)
+            state["nu"][k].copy_(nu)
 
 
 def make_optimizer(name: str, base_lr: float, lr_decay: float, nb_iterations: int):
@@ -219,6 +246,7 @@ def refine(
     step_callback: Optional[Callable] = None,
     loss_scale: float = 1.0,
     process_group: Any = None,
+    cuda_graph: bool = True,
 ) -> RefineResult:
     """Run ``nb_iterations + 1`` optimizer steps (or ``num_steps``, for a
     segment; ``nb_iterations`` still shapes the learning-rate schedule,
@@ -235,12 +263,34 @@ def refine(
     ``extra_params`` are further optimized leaves (the appearance: 'tex',
     'vtx_color' or 'corner_colors', ``optimize.py:173, 226-269``), passed
     to ``render_fn`` as keyword arguments and updated by the same optimizer
-    as the pose; ``params`` of the result holds them too.  Logs stay on
-    the device; nothing synchronizes with the host inside the loop, unless
-    ``step_callback(step_index, total)`` is given: it is called after
-    every step with that step's total loss (a tensor; reading it is the
-    per-step host sync the reference's ``jax.debug.callback`` pays).
+    as the pose; ``params`` of the result holds them too.
     Underscore log keys go to ``telemetry``.
+
+    A step is a function of device state only, the counterpart of the
+    reference's ``lax.scan`` body: the params and the optimizer's moments
+    are buffers that the update writes in place, its learning rate and
+    bias corrections come from tables laid out once per call and read at a
+    step counter on the device, and its pose, total, logs and telemetry go
+    into preallocated (steps, ...) buffers at that counter.  On a CUDA
+    device (``cuda_graph``, the default) step 0 runs eagerly on a side
+    stream, the warm-up a capture needs, under
+    ``torch.cuda.set_sync_debug_mode("error")``; the step is then captured
+    once as a CUDA graph (``torch.cuda.CUDAGraph``: the pose matrix, the
+    loss with its kernels, ``torch.autograd.grad``, the update and the
+    history writes) and replayed for every later step, and the graph and
+    its memory pool are released when ``refine`` returns.  A step that
+    waits for the host (a read of a tensor's value, a data-dependent
+    shape, host data copied in) cannot be captured: ``refine`` raises,
+    naming the loss and its route, and never falls back to the eager
+    loop.  The steps run eagerly, one launch at a time, with
+    ``cuda_graph=False``, on the CPU, and under ``process_group``, whose
+    collectives (gloo's run on the host) are not captured.
+
+    Nothing synchronizes with the host inside the loop, unless
+    ``step_callback(step_index, total)`` is given: it is called after
+    every step (replay) with that step's total loss (a 0-dim view of the
+    total's history; reading it is the per-step host sync the reference's
+    ``jax.debug.callback`` pays).
 
     ``loss_scale`` multiplies the objective (``parallel.refine_sharded``
     passes 1/n, so each rank's mean over its B/n hypotheses becomes its
@@ -260,64 +310,162 @@ def refine(
         raise ValueError("refine needs fused_loss_fn or render_fn + loss_fns")
     if fused_loss_fn is not None and extra_params:
         raise ValueError("fused_loss_fn does not support extra_params")
+    opt = make_optimizer(optimizer, base_lr, lr_decay, nb_iterations)
+    extra_keys = tuple(extra_params or ())
+    # the step's state: copies the run updates in place
+    params = {k: v.detach().clone() for k, v in params0.items()}
+    params.update({k: v.detach().clone() for k, v in (extra_params or {}).items()})
+    dev = next(iter(params.values())).device
+    # host arrays go to the device once: no step copies host data
+    if learning_rates is not None and not isinstance(learning_rates, torch.Tensor):
+        learning_rates = tensor(learning_rates, dev)
+    if gt is not None:
+        gt = {k: v if v is None or isinstance(v, torch.Tensor) else tensor(v, dev)
+              for k, v in gt.items()}
     fused_sig = () if fused_loss_fn is None else inspect.signature(fused_loss_fn).parameters
     fused_takes_gt = len([p for p in fused_sig if p != "learning_rates"]) >= 2
     fused_kw = ({"learning_rates": learning_rates}
                 if "learning_rates" in fused_sig and learning_rates is not None else {})
-    opt = make_optimizer(optimizer, base_lr, lr_decay, nb_iterations)
-    params = {k: v.detach() for k, v in params0.items()}
-    extra_keys = tuple(extra_params or ())
-    params.update({k: v.detach() for k, v in (extra_params or {}).items()})
     if opt_state is None:
-        opt_state = opt.init(params)
+        state = opt.init(params)
+    else:
+        state = {k: ({kk: vv.detach().clone() for kk, vv in v.items()}
+                     if isinstance(v, dict) else v) for k, v in opt_state.items()}
     length = nb_iterations + 1 if num_steps is None else num_steps
-    mtxs, totals, logs_hist = [], [], {}
+    tables = {k: torch.as_tensor(v, device=dev)
+              for k, v in opt.tables(state["count"], length, dev.type == "cuda").items()}
+    step_i = torch.zeros((1,), dtype=torch.int64, device=dev)
+    # the histories by (kind, key), kind 'step' (the pose and the total) or
+    # 'log', allocated by step 0 from its values' shapes on the caller's
+    # stream (step 0 runs on a side stream under the graph)
+    main = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    hist: Dict[Tuple[str, str], torch.Tensor] = {}
+    for p in params.values():
+        p.requires_grad_(True)
+
+    def objective(mtx):
+        if fused_loss_fn is not None:
+            return (fused_loss_fn(mtx, gt, **fused_kw) if fused_takes_gt
+                    else fused_loss_fn(mtx, **fused_kw))
+        renders = render_fn(mtx, **{k: params[k] for k in extra_keys})
+        total = mtx.new_zeros(())
+        logs = {k: v for k, v in renders.items() if k.startswith("_")}
+        for fn in loss_fns:
+            term, (key, values) = fn(renders, gt, learning_rates, weights)
+            total = total + term
+            logs[key] = values
+        return total, logs
+
+    def record(values: Dict[Tuple[str, str], torch.Tensor]) -> None:
+        """Write the step's values into the histories at the counter."""
+        if not hist:
+            with contextlib.nullcontext() if main is None else torch.cuda.stream(main):
+                for k, v in values.items():
+                    hist[k] = v.new_empty((length,) + tuple(v.shape))
+        for k, v in values.items():
+            hist[k].index_copy_(0, step_i, v[None])
+
+    def step() -> None:
+        row = {k: t.index_select(0, step_i).reshape(()) for k, t in tables.items()}
+        mtx, _, _ = pose_matrix(params)
+        total, logs = objective(mtx)
+        if loss_scale != 1.0:
+            total = total * loss_scale
+        # a leaf the render does not read (vertex colours under corner
+        # colours) gets a zero gradient, as JAX's grad gives it
+        grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), grads)}
+        if process_group is not None:
+            total, logs = _all_reduce_step(grads, extra_keys, total.detach(), logs,
+                                           process_group)
+        with torch.no_grad():
+            record({("step", "mtx"): mtx.detach(), ("step", "total"): total.detach(),
+                    **{("log", k): v.detach() for k, v in logs.items()}})
+            opt.update(grads, state, params, row)
+            step_i.add_(1)
+
+    def totals(i: int) -> torch.Tensor:
+        return hist[("step", "total")][i]
+
     # under a group every binning takes the union over the ranks' hypotheses
     union = contextlib.nullcontext() if process_group is None else union_over(process_group)
     with union:
-        for step in range(length):
-            leaves = {k: v.requires_grad_(True) for k, v in params.items()}
-            mtx, _, _ = pose_matrix(leaves)
-            if fused_loss_fn is not None:
-                total, logs = (fused_loss_fn(mtx, gt, **fused_kw) if fused_takes_gt
-                               else fused_loss_fn(mtx, **fused_kw))
-            else:
-                renders = render_fn(mtx, **{k: leaves[k] for k in extra_keys})
-                total = mtx.new_zeros(())
-                logs = {k: v for k, v in renders.items() if k.startswith("_")}
-                for fn in loss_fns:
-                    term, (key, values) = fn(renders, gt, learning_rates, weights)
-                    total = total + term
-                    logs[key] = values
-            if loss_scale != 1.0:
-                total = total * loss_scale
-            # a leaf the render does not read (vertex colours under corner
-            # colours) gets a zero gradient, as JAX's grad gives it
-            grads = torch.autograd.grad(total, [leaves[k] for k in params], allow_unused=True)
-            grads = {k: torch.zeros_like(leaves[k]) if g is None else g
-                     for k, g in zip(params, grads)}
-            if process_group is not None:
-                total, logs = _all_reduce_step(grads, extra_keys, total.detach(), logs,
-                                               process_group)
-            mtxs.append(mtx.detach())
-            totals.append(total.detach())
-            for k, v in logs.items():
-                logs_hist.setdefault(k, []).append(v.detach())
-            with torch.no_grad():
-                params, opt_state = opt.update(
-                    grads, opt_state, {k: v.detach() for k, v in leaves.items()}
-                )
-            if step_callback is not None:
-                step_callback(step, totals[-1])
-    stacked = {k: torch.stack(v) for k, v in logs_hist.items()}
+        if cuda_graph and main is not None and process_group is None:
+            _replayed(step, length, step_callback, totals, main,
+                      _describe(fused_loss_fn, render_fn))
+        else:
+            for i in range(length):
+                step()
+                if step_callback is not None:
+                    step_callback(i, totals(i))
+    state["count"] += length
+    logs = {k: v for (kind, k), v in hist.items() if kind == "log"}
     return RefineResult(
-        params=params,
-        mtx_history=torch.stack(mtxs),
-        losses_values={k: v for k, v in stacked.items() if not k.startswith("_")},
-        total_loss=torch.stack(totals),
-        telemetry={k: v for k, v in stacked.items() if k.startswith("_")} or None,
-        opt_state=opt_state,
+        params={k: p.detach() for k, p in params.items()},
+        mtx_history=hist[("step", "mtx")],
+        losses_values={k: v for k, v in logs.items() if not k.startswith("_")},
+        total_loss=hist[("step", "total")],
+        telemetry={k: v for k, v in logs.items() if k.startswith("_")} or None,
+        opt_state=state,
     )
+
+
+def _describe(fused_loss_fn, render_fn) -> str:
+    """The loss a step runs and its raster route, for an error message."""
+    fn = fused_loss_fn if fused_loss_fn is not None else render_fn
+    kind = "fused_loss_fn" if fused_loss_fn is not None else "render_fn + loss_fns"
+    route = getattr(fn, "route", None) or "binned"
+    return f"{kind} {getattr(fn, '__qualname__', fn)!r} (raster route {route})"
+
+
+def _replayed(step: Callable[[], None], length: int, callback: Optional[Callable],
+              totals: Callable[[int], torch.Tensor], main, what: str) -> None:
+    """Run ``length`` steps on the card: step 0 eagerly on a side stream
+    (the warm-up a capture needs: the kernels' library, autograd's first
+    run) with any host sync an error, then the step captured once as a
+    CUDA graph on that stream and replayed on ``main`` for every later
+    step, each replay adding the launches its capture recorded."""
+    side = torch.cuda.Stream(device=main.device)
+    side.wait_stream(main)
+    mode = torch.cuda.get_sync_debug_mode()
+    with torch.cuda.stream(side):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        except RuntimeError as err:
+            if "synchroniz" not in str(err):
+                raise
+            raise RuntimeError(f"refine: the step of {what} waits for the host, so it "
+                               f"cannot be captured as a CUDA graph: {err}") from err
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    main.wait_stream(side)
+    if callback is not None:
+        callback(0, totals(0))
+    if length == 1:
+        return
+    # captured on the side stream without torch.cuda.graph's set-up (a
+    # synchronize, gc.collect and empty_cache on every call)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with kernels.recording() as recorded, torch.cuda.stream(side):
+            graph.capture_begin()
+            try:
+                step()
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+    except RuntimeError as err:
+        raise RuntimeError(f"refine: the step of {what} cannot be captured as a CUDA "
+                           f"graph: {err}") from err
+    for i in range(1, length):
+        graph.replay()
+        kernels.add_launches(recorded)
+        if callback is not None:
+            callback(i, totals(i))
 
 
 def _all_reduce_step(grads, extra_keys, total, logs, group):

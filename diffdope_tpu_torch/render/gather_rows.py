@@ -75,9 +75,12 @@ def invert_bins(tile_idx: torch.Tensor, t_count: int,
 
 def bin_occupancy(tile_idx: torch.Tensor, t_count: int) -> torch.Tensor:
     """The most tiles any triangle occurs in (a 0-dim int64 tensor): a fixed
-    ``invert_bins`` M below it truncates gradients."""
-    flat = tile_idx.reshape(-1).long()
-    return torch.bincount(flat[flat < t_count], minlength=t_count).max()
+    ``invert_bins`` M below it truncates gradients.  Counted at shapes the
+    bins fix (the sentinels into a spare slot), so nothing waits for the
+    host."""
+    flat = tile_idx.reshape(-1).long().clamp(max=t_count)
+    occ = torch.zeros((t_count + 1,), dtype=torch.int64, device=flat.device)
+    return occ.index_add_(0, flat, torch.ones_like(flat))[:t_count].max()
 
 
 def inverted_sum(d_bin: torch.Tensor, inv_pos: torch.Tensor,

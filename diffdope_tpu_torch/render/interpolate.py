@@ -83,5 +83,6 @@ def interpolate(
     da_dv = a[..., 2, :] - a[..., 0, :]
     dadx = da_du * rast_db[..., 0:1] + da_dv * rast_db[..., 2:3]
     dady = da_du * rast_db[..., 1:2] + da_dv * rast_db[..., 3:4]
-    out_da = torch.stack([dadx[..., sel], dady[..., sel]], dim=-1).reshape(b, h, w, -1)
+    # channel by channel: a list index would copy host data to the device
+    out_da = torch.stack([d[..., c] for c in sel for d in (dadx, dady)], dim=-1)
     return out, torch.where(fg, out_da, torch.zeros_like(out_da))

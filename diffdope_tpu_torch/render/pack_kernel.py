@@ -172,7 +172,7 @@ def pack_binned_auto(
     if mvp.device.type not in ("cpu", "cuda"):
         raise ValueError(f"pack_binned_auto: unsupported device {mvp.device}")
     if not _eligible(pos_c, corner_attrs):
-        kernels.launches["pack_plain"] += 1
+        kernels.count("pack_plain")
         return pack_binned(pos_c, mvp, mtx, flat, corner_attrs, sil, degenerate,
                            t_count, static_table)
     if mvp.device.type == "cpu":

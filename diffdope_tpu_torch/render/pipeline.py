@@ -38,9 +38,10 @@ entry points, and the port's (:func:`raster_route`, read when a loss is
 built and once per ``render_batch`` call): ``DD_RASTER=v3`` the sorted-
 range raster K10 over the triangle-order table (``planar.pack_planar``,
 plain torch: no K1/K2, no bins, no back-face cull); ``DD_BINNED=0`` K7
-over that table gathered into the per-tile bins, with the inverted-bin
-backward (``raster.raster_gather_rows_v2``).  Then the plain shade and
-antialiasing (render) or K5/K6 on the full frame (fused loss).
+over that table gathered into the per-tile bins, the gather's backward
+summing each triangle's slots in slot order (``raster.RasterV2``).  Then
+the plain shade and antialiasing (render) or K5/K6 on the full frame
+(fused loss).
 
 Every bin-ordered pack goes through :func:`_pack_dispatch`, so the kernel
 route and its eligibility rules cannot diverge between call sites.
@@ -65,7 +66,7 @@ from diffdope_tpu_torch.render.fused_loss import (
     fused_loss_sums,
     raster_loss_compact,
 )
-from diffdope_tpu_torch.render.gather_rows import invert_bins
+from diffdope_tpu_torch.render.gather_rows import bin_occupancy, invert_bins
 from diffdope_tpu_torch.render.planar import (
     _silhouette_planar,
     _xbounds_ndc,
@@ -119,13 +120,15 @@ CROP_MARGIN = 24
 #: a table capacity: the compact table sized to the bins exactly (reads the
 #: counts on the host), for the gt render and the capacity probe
 EXACT = "exact"
-#: the inverted bin map's width on the ``DD_BINNED=0`` route: sized from
-#: the bins a step builds (``gather_rows.invert_bins``' 'auto', as the
-#: reference's ``precompute_bins`` does, ``pipeline.py:926``), so no
-#: triangle loses gradient; the reference's fixed 16 (``pipeline.py:99,
-#: 404``) was set for its 32x128 tiles, and any fixed width may drop
-#: gradient, so ``render_batch`` and ``make_fused_loss`` take no ``max_occ``
-#: (the reference's do).  '_bin_occupancy' reports the width
+#: the inverted bin map's width on the ``DD_BINNED=0`` route: every
+#: occurrence of a triangle, as ``gather_rows.invert_bins``' 'auto' (the
+#: reference's ``precompute_bins``, ``pipeline.py:926``), so no triangle
+#: loses gradient; the reference's fixed 16 (``pipeline.py:99, 404``) was
+#: set for its 32x128 tiles, and any fixed width may drop gradient, so
+#: ``render_batch`` and ``make_fused_loss`` take no ``max_occ`` (the
+#: reference's do).  The port's backward sums each triangle's slots in
+#: slot order (``rasterize.slot_sums``), with no map whose width would hang
+#: on the bins; '_bin_occupancy' reports the most occurrences
 MAX_OCC = "auto"
 
 
@@ -304,8 +307,10 @@ class _Table(NamedTuple):
 class Bins(NamedTuple):
     """Bins computed once for a whole refinement (:func:`precompute_bins`):
     the per-tile slot lists (tiles, K) int32 (sentinel T), their counts,
-    and the inverted map (T, max_occ) with its validity, for the planar
-    'v2' raster's backward."""
+    and the inverted map (T, max_occ) with its validity: the reference's
+    ``Bins`` fields, its planar 'v2' backward's input, laid out once here
+    (the width read on the host) and read by no step of the port, whose
+    backward sums each triangle's slots in slot order (:data:`MAX_OCC`)."""
 
     idx: torch.Tensor
     counts: torch.Tensor
@@ -401,14 +406,12 @@ def _raster(table: _Table, frame_hw, roi):
 
 class _Planar(NamedTuple):
     """The planar route's table (B, 32, T) in triangle order,
-    differentiable in the poses; on the 'v2' route also its bins, their
-    inverted map and the binning telemetry (None and {} on 'v3')."""
+    differentiable in the poses; on the 'v2' route also its bins and the
+    binning telemetry (None and {} on 'v3')."""
 
     packed: torch.Tensor
     idx: Optional[torch.Tensor]
     counts: Optional[torch.Tensor]
-    inv_pos: Optional[torch.Tensor]
-    inv_valid: Optional[torch.Tensor]
     telemetry: Dict[str, torch.Tensor]
 
 
@@ -428,25 +431,22 @@ def _planar_pack(mesh: _Mesh, mtx: torch.Tensor):
 def _planar(mesh: _Mesh, mtx: torch.Tensor, resolution, route: str, cull: bool = False,
             max_tris: int = MAX_TRIS_PER_TILE, bins: Optional[Bins] = None) -> _Planar:
     """The planar route's inputs at poses ``mtx``: on 'v2' the bins of
-    ``planar.bin_triangles_planar`` (``cull`` reaches only them) and
-    ``gather_rows.invert_bins`` of width ``MAX_OCC`` (the most tiles a
-    triangle occurs in at these bins), with '_bin_overflow',
-    '_bin_max' and '_bin_occupancy' (that most).  Precomputed ``bins``
-    take the 'v2' raster on either route, no telemetry (the reference's
-    ``bins=``, ``pipeline.py:278-286, 740-750``)."""
+    ``planar.bin_triangles_planar`` (``cull`` reaches only them), with
+    '_bin_overflow', '_bin_max' and '_bin_occupancy' (the most tiles a
+    triangle occurs in at these bins, ``gather_rows.bin_occupancy``).
+    Precomputed ``bins`` take the 'v2' raster on either route, no
+    telemetry (the reference's ``bins=``, ``pipeline.py:278-286,
+    740-750``)."""
     packed, cp, det = _planar_pack(mesh, mtx)
     if bins is not None:
-        return _Planar(packed, bins.idx, bins.counts, bins.inv_pos, bins.inv_valid, {})
+        return _Planar(packed, bins.idx, bins.counts, {})
     if route == "v3":
-        return _Planar(packed, None, None, None, None, {})
+        return _Planar(packed, None, None, {})
     idx, counts, overflow = bin_triangles_planar(cp, det.detach(), resolution, TILE_HW,
                                                  max_tris, cull_backfaces=cull)
-    inv_pos, inv_valid = invert_bins(idx, mesh.t_count, MAX_OCC)
-    # the 'auto' width holds every occurrence: a triangle's valid entries
-    # are its tile count (``gather_rows.bin_occupancy``, with no wait)
     telemetry = {"_bin_overflow": overflow, "_bin_max": counts.max(),
-                 "_bin_occupancy": inv_valid.sum(dim=1).max()}
-    return _Planar(packed, idx, counts.contiguous(), inv_pos, inv_valid, telemetry)
+                 "_bin_occupancy": bin_occupancy(idx, mesh.t_count)}
+    return _Planar(packed, idx, counts.contiguous(), telemetry)
 
 
 def _raster_planar(pl: _Planar, resolution):
@@ -455,8 +455,8 @@ def _raster_planar(pl: _Planar, resolution):
     bins (``raster_gather_rows_v2``) on 'v2'."""
     if pl.idx is None:
         return raster_gather_rows_v3(pl.packed, resolution, TILE_HW, padded=True)
-    return raster_gather_rows_v2(pl.packed, pl.idx, pl.counts, pl.inv_pos, pl.inv_valid,
-                                 resolution, TILE_HW, padded=True)
+    return raster_gather_rows_v2(pl.packed, pl.idx, pl.counts, None, None, resolution,
+                                 TILE_HW, padded=True)
 
 
 def make_fused_loss(
@@ -889,9 +889,11 @@ def _render(mesh: _Mesh, mtx: torch.Tensor, resolution,
             ids, rows = _raster_planar(tab, resolution)
             keys = ("_bin_overflow", "_bin_occupancy") if tab.telemetry else ()
         ids, rows = ids[:, :h, :w], rows[:, :, :h, :w]
+        # the shade draws no random numbers: no RNG state to stash, which a
+        # captured step could not read
         out = checkpoint(_shade_and_aa, rows, ids, mtx[:, 2, 3], tuple(resolution),
                          mesh.n_ch, antialias_rgb, return_rast_out, None, mesh.tex,
-                         use_reentrant=False)
+                         use_reentrant=False, preserve_rng_state=False)
         tel = {k: tab.telemetry[k].detach() for k in keys}
     mask, colors, depth = out[0], out[1:4], out[4]
     rast = out[5] if return_rast_out else None

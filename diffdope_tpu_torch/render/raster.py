@@ -504,47 +504,46 @@ def bins_planar(packed: torch.Tensor, tile_idx: torch.Tensor) -> torch.Tensor:
 class RasterV2(torch.autograd.Function):
     """(ids, rows) of the planar route of ``DD_BINNED=0``, differentiable in
     the triangle-order table (``raster_gather_rows_v2``, :1247): K7 over the
-    gathered uniform table, backward K7 to d_bins, then the inverted-bin
-    gather-sum (plain torch; XLA in the reference, :1701-1708).  Outputs
-    cover the frame padded to whole tiles."""
+    gathered uniform table, backward K7 to d_bins, then each triangle's
+    slots summed (``rasterize.slot_sums``).  Outputs cover the frame padded
+    to whole tiles."""
 
     @staticmethod
-    def forward(ctx, packed, tile_idx, tile_counts, inv_pos, inv_valid, resolution,
-                tile_hw):
+    def forward(ctx, packed, tile_idx, tile_counts, resolution, tile_hw):
         bins = bins_planar(packed, tile_idx)
         ids, rows, win = raster_uniform_fwd(bins, tile_counts, resolution, tile_hw)
-        ctx.save_for_backward(win, inv_pos, inv_valid)
-        ctx.n_slots, ctx.tile_hw = bins.shape[2], tile_hw
+        ctx.save_for_backward(win, tile_idx)
+        ctx.n_slots, ctx.tile_hw, ctx.t_count = bins.shape[2], tile_hw, packed.shape[2]
         ctx.mark_non_differentiable(ids)
         return ids, rows
 
     @staticmethod
     def backward(ctx, d_ids, d_rows):
-        win, inv_pos, inv_valid = ctx.saved_tensors
+        from diffdope_tpu_torch.render.rasterize import slot_sums
+
+        win, tile_idx = ctx.saved_tensors
         d_bins = raster_uniform_bwd(d_rows.contiguous(), win, ctx.n_slots, ctx.tile_hw)
-        b, width = d_bins.shape[:2]
-        t_count, m = inv_pos.shape
-        gathered = d_bins[:, :, inv_pos.reshape(-1)].reshape(b, width, t_count, m)
-        d_packed = torch.where(inv_valid[None, None], gathered, 0.0).sum(dim=3)
-        return d_packed, None, None, None, None, None, None
+        return slot_sums(d_bins, tile_idx, ctx.t_count), None, None, None, None
 
 
 def raster_gather_rows_v2(packed, tile_idx, tile_counts, inv_pos, inv_valid,
                           resolution, tile_hw, padded: bool = False):
-    """Planar rasterize + row gather over per-tile bins (``raster_v2.py:1247``).
+    """Planar rasterize + row gather over per-tile bins (``raster_v2.py:1247``):
+    :class:`RasterV2`.
 
     Args:
         packed: (B, 32, T) triangle-order table (``planar.pack_planar``).
         tile_idx / tile_counts: ``planar.bin_triangles_planar``'s bins at
             ``tile_hw``.
-        inv_pos / inv_valid: ``gather_rows.invert_bins`` of ``tile_idx``.
+        inv_pos / inv_valid: the reference's inverted bin map
+            (``gather_rows.invert_bins``), whose gather-sum
+            ``rasterize.slot_sums`` replaces: not read, may be None.
         padded: return the frame padded to whole tiles.
 
     Returns ids (B, H, W) int32 (+1, 0 = background) and rows
     (B, 32, H, W)."""
     ids, rows = RasterV2.apply(packed.contiguous(), tile_idx.contiguous(),
-                               tile_counts.contiguous(), inv_pos, inv_valid,
-                               tuple(resolution), tuple(tile_hw))
+                               tile_counts.contiguous(), tuple(resolution), tuple(tile_hw))
     if padded:
         return ids, rows
     h, w = resolution

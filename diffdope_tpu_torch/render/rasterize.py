@@ -77,7 +77,7 @@ def raster_ids_reference(coef: torch.Tensor, resolution: Tuple[int, int],
     b, t, _ = coef.shape
     h, w = resolution
     x, y = pixel_ndc(resolution, device=coef.device)
-    inf = torch.tensor(float("inf"), device=coef.device)
+    inf = torch.full((), float("inf"), device=coef.device)
     zbest = torch.full((b, h, w), float("inf"), device=coef.device)
     ibest = torch.zeros((b, h, w), dtype=torch.int32, device=coef.device)
     for start in range(0, t, chunk):
@@ -261,6 +261,46 @@ def setup_rows_bwd_plain(d_rows: torch.Tensor, ids: torch.Tensor,
     acc = torch.zeros((b * t_count + 1, width), dtype=d_rows.dtype, device=d_rows.device)
     acc.index_add_(0, key, d_rows.reshape(-1, width))
     return acc[:-1].reshape(b, t_count, width)
+
+
+def slot_sums(d_bins: torch.Tensor, tile_idx: torch.Tensor, t_count: int) -> torch.Tensor:
+    """d_packed (B, 32, T) of the ``DD_BINNED=0`` route: for each triangle
+    the sum of its slots' cotangents in d_bins (B, 32, num_tiles*K), in
+    ascending slot order, the order in which the reference's inverted bin
+    map lists its occurrences (its gather-sum in XLA,
+    ``raster_v2.py:1701-1708``), every occurrence at shapes the bins fix.
+
+    CPU tensors take :func:`setup_rows_bwd_plain` (an index_add in slot
+    order, the hypotheses side by side in a row); CUDA tensors sort the
+    slots by triangle once (:func:`segments`: sentinel slots past every
+    triangle, never read) and launch the segmented sum once per
+    hypothesis on its slots' rows, transposed into one buffer of
+    (num_tiles*K, 32) that every hypothesis reuses (counted as
+    'index_rows_bwd'); anything else raises."""
+    b, width, n_slots = d_bins.shape
+    flat = tile_idx.reshape(1, n_slots)
+    ids = torch.where(flat < t_count, flat + 1, 0).to(torch.int32)
+    if d_bins.device.type == "cpu":
+        rows = d_bins.permute(2, 0, 1).reshape(1, n_slots, b * width)
+        d = setup_rows_bwd_plain(rows, ids, t_count)
+        return d.reshape(t_count, b, width).permute(1, 2, 0).contiguous()
+    if d_bins.device.type != "cuda":
+        raise ValueError(f"slot_sums: unsupported device {d_bins.device}")
+    _check(d_bins, "d_bins", torch.float32, 3, d_bins.device)
+    if n_slots >= 2 ** 31:
+        raise ValueError(f"{n_slots} slots exceed int32 indexing")
+    order, start = segments(ids, t_count)
+    out = torch.empty((b, t_count, width), dtype=torch.float32, device=d_bins.device)
+    # (n_slots, 32): a slot's lanes a row, one buffer for every hypothesis
+    rows = torch.empty((n_slots, width), dtype=torch.float32, device=d_bins.device)
+    for i in range(b):
+        rows.copy_(d_bins[i].t())
+        kernels.launch(
+            "dd_segment_sum", "index_rows_bwd",
+            rows.data_ptr(), order.data_ptr(), start.data_ptr(), t_count, width,
+            out[i].data_ptr(),
+        )
+    return out.permute(0, 2, 1).contiguous()
 
 
 class SetupRows(torch.autograd.Function):

@@ -26,8 +26,6 @@ import torch
 FILTER_MODES = (
     "nearest", "linear", "linear-mipmap-nearest", "linear-mipmap-linear",
 )
-#: u8 -> f32 / 255 as the texture loader computes it (numpy's IEEE divide)
-_UNIT8 = np.arange(256, dtype=np.float32) / np.float32(255.0)
 
 
 def _wrap_index(i: torch.Tensor, n, mode: str) -> torch.Tensor:
@@ -270,7 +268,10 @@ def table_tensor(table: np.ndarray, device) -> torch.Tensor:
 
 def _unpack(blk: torch.Tensor):
     """The four f32 corner texels (c00, c10, c01, c11) of packed blocks."""
-    unit = torch.as_tensor(_UNIT8, device=blk.device)
+    # the byte values / 255 made on the device by a true division (numpy's
+    # float32 bits): no host data enters a captured step
+    unit = (torch.arange(256, dtype=torch.float32, device=blk.device)
+            / torch.full((), 255.0, device=blk.device))
     return tuple(unit[(blk >> s) & 255] for s in (0, 8, 16, 24))
 
 

@@ -140,13 +140,15 @@ def synthetic_scene(
 
     h, w = resolution
     f = 1.2 * max(h, w)
+    # the mesh on ``device`` once: a step then copies no host data
     proj = torch.as_tensor(geo.projection_from_intrinsics(f, f, w / 2, h / 2, w, h, 0.01,
-                                                          100.0), dtype=torch.float32)
+                                                          100.0), dtype=torch.float32,
+                           device=device)
     verts, faces = icosphere(subdiv)
-    pos = torch.as_tensor(verts * radius)
-    tri = torch.as_tensor(faces)
-    vtx_color = torch.as_tensor((verts * 0.5 + 0.5).astype(np.float32))
-    edge_adj = torch.as_tensor(build_edge_adjacency(faces))
+    pos = torch.as_tensor(verts * radius, device=device)
+    tri = torch.as_tensor(faces, device=device)
+    vtx_color = torch.as_tensor((verts * 0.5 + 0.5).astype(np.float32), device=device)
+    edge_adj = torch.as_tensor(build_edge_adjacency(faces), device=device)
 
     def render_fn(mtx):
         return render_batch(proj, mtx, pos, tri, resolution, vtx_color=vtx_color,

@@ -28,6 +28,8 @@ from diffdope_tpu_torch.kernels.check import (
 from diffdope_tpu_torch.optimize import pose_matrix
 from torch_scene import one_torch_thread  # noqa: F401
 
+import test_torch_refine_capture as capture
+
 pytestmark = pytest.mark.cuda
 
 RES = (64, 96)
@@ -331,10 +333,15 @@ def test_planar_fused_loss_on_card_matches_cpu(problem, params, route):
         total, _ = fn(mtx)
         grads = torch.autograd.grad(total, list(p.values()))
         out[device] = (total.detach().cpu(), [g.cpu() for g in grads], dict(kernels.launches))
-    on = (("raster_v3_fwd", "raster_v3_bwd") if route == "v3"
-          else ("raster_uniform_fwd", "raster_uniform_bwd")) + ("loss_fwd", "loss_bwd")
+    # on 'v2' the segmented sum adds each triangle's slot cotangents, once
+    # per hypothesis
+    on = {c: 1 for c in (("raster_v3_fwd", "raster_v3_bwd") if route == "v3"
+                         else ("raster_uniform_fwd", "raster_uniform_bwd"))
+          + ("loss_fwd", "loss_bwd")}
+    if route == "v2":
+        on["index_rows_bwd"] = B
     launches = out["cuda"][2]
-    assert all(launches[c] == (1 if c in on else 0) for c in launches), launches
+    assert all(launches[c] == on.get(c, 0) for c in launches), launches
     np.testing.assert_allclose(out["cuda"][0].numpy(), out["cpu"][0].numpy(), rtol=1e-5,
                                atol=1e-7)
     for g, want in zip(out["cuda"][1], out["cpu"][1]):
@@ -1203,3 +1210,125 @@ def test_sharded_two_ranks_on_card_match_unsharded(cuda, tmp_path):
     assert torch.equal(ranks[0]["mtx"], ranks[1]["mtx"])
     # the ranks bin over the group's union: the unsharded steps bit for bit
     assert torch.equal(ranks[0]["mtx"], whole.mtx_history.cpu())
+
+
+def _assert_same_result(g, e):
+    """Two RefineResults equal bit for bit, field by field."""
+    assert torch.equal(g.mtx_history, e.mtx_history)
+    assert torch.equal(g.total_loss, e.total_loss)
+    for group in ("losses_values", "telemetry", "params"):
+        a, b = getattr(g, group) or {}, getattr(e, group) or {}
+        assert set(a) == set(b), group
+        for k in a:
+            assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), (group, k)
+
+
+@pytest.mark.parametrize("route", sorted(capture.ROUTES))
+def test_graph_refine_equals_eager_on_card(cuda, route, monkeypatch):
+    """``refine`` as graph replays (the default) and as the eager loop, on
+    every route ``test_torch_refine_capture`` steps on the CPU (the
+    planar routes, the unfused render, the brute force, the API ops, the
+    textures, the appearance leaves, precomputed bins, the BOP context),
+    built on the card at 64x96, B=3 ('compact_bf16' the bench problem):
+    4 steps as graph replays equal the eager loop's bit for bit (poses,
+    totals, logs, telemetry, params), with equal launch counts, one a
+    step for each kernel of the bench route.  Both run under torch's
+    deterministic algorithms: the brute force's plain gathers add their
+    cotangents with atomics otherwise, and two eager runs of it then
+    differ."""
+    from diffdope_tpu_torch.optimize import refine
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    params0, kw = capture.ROUTES[route](monkeypatch, cuda)
+    optimizer, base_lr = capture.optimizer_of(route)
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for graph in (True, False):
+            kernels.reset_launches()
+            res = refine(params0, nb_iterations=3, base_lr=base_lr, optimizer=optimizer,
+                         cuda_graph=graph, **kw)
+            torch.cuda.synchronize()
+            out[graph] = res, {k: v for k, v in kernels.launches.items() if v}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (g, lg), (e, le) = out[True], out[False]
+    assert lg == le, (lg, le)
+    assert all(n % 4 == 0 for n in lg.values()), lg  # whole steps
+    if route == "compact_bf16":
+        assert lg["pack_fwd"] == lg["loss_bwd_bf16"] == 4, lg
+    _assert_same_result(g, e)
+    assert g.opt_state["count"] == e.opt_state["count"] == 4
+
+
+def test_step_that_reads_the_host_raises_on_card(problem):
+    """A step that reads a tensor's value cannot be captured: ``refine``
+    raises, naming the step's loss, and returns no eager result."""
+    from diffdope_tpu_torch.losses import l1_mask
+    from diffdope_tpu_torch.optimize import refine
+    from diffdope_tpu_torch.render.pipeline import render_batch
+
+    s = problem["scene"]
+    gt = {k: torch.as_tensor(v, device="cuda") for k, v in problem["gt"].items()}
+
+    def render_fn(mtx):
+        return render_batch(s["proj"], mtx, s["pos"], s["tri"], RES,
+                            vtx_color=s["vtx_color"], edge_adj=s["edge_adj"],
+                            layout="channels", compact_total=problem["compact_total"],
+                            raster_impl="pallas", device="cuda")
+
+    def reading_loss(renders, gt, lrs, weights):
+        term, log = l1_mask(renders, gt, lrs, weights)
+        if term.item() < 0:  # a host read inside the step
+            raise AssertionError("an L1 loss is never negative")
+        return term, log
+
+    with pytest.raises(RuntimeError, match="render_fn"):
+        refine(problem["params0"], render_fn, (reading_loss,), gt,
+               torch.as_tensor(problem["lrs"], device="cuda"), problem["weights"],
+               nb_iterations=3)
+
+
+def test_k9_backward_captures_on_card(problem, params):
+    """K9's backward sets its shared-memory attribute at each launch
+    (csrc/rasterize.cu): legal inside a capture, the replay's d_bin that of
+    an eager launch."""
+    from diffdope_tpu_torch.render.gather_rows import gather_rows_bwd, gather_rows_fwd
+
+    s = problem["scene"]
+    tri = torch.as_tensor(s["tri"], device="cuda").long()
+    packed, idx, counts = gather_rows_inputs(
+        _pos_clip(problem, params, "cuda"), tri, RES, (32, 128),
+        torch.as_tensor(s["vtx_color"], device="cuda"),
+        torch.as_tensor(s["edge_adj"], device="cuda").long())
+    ids, rows, win = gather_rows_fwd(packed, idx, counts, RES, (32, 128))
+    d_rows = torch.randn(rows.shape, generator=torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    want = gather_rows_bwd(d_rows, win, counts, idx.shape[1], (32, 128))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = gather_rows_bwd(d_rows, win, counts, idx.shape[1], (32, 128))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_slot_sums_on_card_match_cpu(cuda):
+    """The ``DD_BINNED=0`` route's slot sums (the segmented sum once per
+    hypothesis over the slots sorted by triangle) equal the CPU's index_add
+    in slot order bit for bit: both add each triangle's slots in ascending
+    slot order, sentinels (index T) left out."""
+    from diffdope_tpu_torch.render.rasterize import slot_sums
+
+    rng = np.random.default_rng(5)
+    t_count, n_slots = 300, 4096
+    tile_idx = rng.integers(0, t_count + 1, size=(32, n_slots // 32)).astype(np.int32)
+    d_bins = rng.normal(size=(B, 32, n_slots)).astype(np.float32)
+    kernels.reset_launches()
+    got = slot_sums(torch.as_tensor(d_bins, device="cuda"),
+                    torch.as_tensor(tile_idx, device="cuda"), t_count)
+    want = slot_sums(torch.as_tensor(d_bins), torch.as_tensor(tile_idx), t_count)
+    assert kernels.launches["index_rows_bwd"] == B
+    assert torch.equal(got.cpu(), want)

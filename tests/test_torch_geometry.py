@@ -92,7 +92,8 @@ def test_torch_icosphere_and_adjacency_bit_equal(subdiv):
 @pytest.mark.parametrize("optimizer", ["adam", "sgd"])
 def test_torch_optimizer_matches_optax(optimizer):
     """Five updates of the port's optimizer against optax (the reference's
-    optimizer) on the same gradients, schedule included."""
+    optimizer) on the same gradients, schedule included: in place, each
+    step's scalars a row of the run's tables, as ``refine`` runs them."""
     rng = np.random.default_rng(11)
     params = {k: rng.normal(size=4).astype(np.float32) for k in ("qx", "x")}
     grads = [{k: rng.normal(size=4).astype(np.float32) for k in params} for _ in range(5)]
@@ -102,12 +103,14 @@ def test_torch_optimizer_matches_optax(optimizer):
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     tp = {k: torch.tensor(v) for k, v in params.items()}
     js, ts = jo.init(jp), to.init(tp)
+    tables = to.tables(ts["count"], len(grads))
     import optax
 
-    for g in grads:
+    for i, g in enumerate(grads):
         upd, js = jo.update({k: jnp.asarray(v) for k, v in g.items()}, js, jp)
         jp = optax.apply_updates(jp, upd)
-        tp, ts = to.update({k: torch.tensor(v) for k, v in g.items()}, ts, tp)
+        row = {name: torch.as_tensor(t[i]) for name, t in tables.items()}
+        to.update({k: torch.tensor(v) for k, v in g.items()}, ts, tp, row)
         for k in params:
             np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
                                        rtol=1e-6, atol=1e-7, err_msg=k)

@@ -6,20 +6,24 @@ compact table (``chip_smoke`` phase 5), mask + depth L1 on the compact
 table (phase 7), mask + depth L1 on the uniform-K table (phase 8), mask
 + rgb L1 with exact texture on the textured stand-in (phase 14), and
 mask L1 on the sorted-range raster under ``DD_RASTER=v3`` (phase 11: K10,
-no ROI crop, the padded 960x544 frame).  Each setting runs once to warm
-up (recovery re-runs included), once untraced for the step's wall time,
-and once under ``torch.profiler``.
+no ROI crop, the padded 960x544 frame).  Each setting runs
+``run_optimization`` once (its recovery re-runs fix the capacities and
+the crop), then its refinement (``chip_smoke.session_refine``) as graph
+replays and as the eager loop (``refine(cuda_graph=False)``), each once
+to warm up, once untraced for the step's wall time, and once under
+``torch.profiler``.
 
     python tools/port_profile_diffdope.py [setting ...]   # default: all
 
-Prints, per setting, one JSON line: the untraced wall time per step, the
-device busy time per step (sum of the CUDA kernels' self time over the
-traced run, divided by its steps) and its share of the untraced step, and
-the kernels with the most device time per step.
+Prints, per setting and mode, one JSON line: the untraced wall time per
+step, the device busy time per step (sum of the CUDA kernels' self time
+over the traced run, divided by its steps) and its share of the untraced
+step, and the kernels with the most device time per step.
 """
 
 import json
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -39,10 +43,9 @@ TOP = 12
 
 def main() -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
-    from diffdope_tpu_torch.bench import card, raster_env
+    from diffdope_tpu_torch.bench import card, device_busy, raster_env
 
     if not torch.cuda.is_available():
         print("no CUDA device: this profile measures the card only", file=sys.stderr)
@@ -53,28 +56,33 @@ def main() -> int:
         mesh = chip_smoke.texture_mesh() if textured else None
         dd, _, _ = chip_smoke.diffdope_session(True, tpu=tpu, losses=losses, mesh=mesh)
         with raster_env(route):
-            dd.run_optimization()  # warm-up, and the recovery's capacities
-            torch.cuda.synchronize()
-            dd.run_optimization()
-            torch.cuda.synchronize()
-            steps = dd.last_run_stats["steps"]
-            step_ms = 1e3 * dd.last_run_stats["wall_time_s"] / steps
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                dd.run_optimization()
-                torch.cuda.synchronize()
-        cuda = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in cuda) / 1e3 / steps
-        cuda.sort(key=lambda e: -e.self_device_time_total)
-        print(json.dumps({
-            "setting": name, "card": gpu, "steps": steps,
-            "reruns": dd.last_run_stats["recovery_reruns"],
-            "untraced_ms_per_step": step_ms, "device_busy_ms_per_step": busy_ms,
-            "busy_share_of_untraced_step": busy_ms / step_ms,
-            "top_kernels_ms_per_step": [
-                [e.key[:80], e.self_device_time_total / 1e3 / steps, e.count // steps]
-                for e in cuda[:TOP]],
-        }), flush=True)
+            dd.run_optimization()  # the recovery's capacities and crop
+            for graph in (True, False):
+                def run():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = chip_smoke.session_refine(dd, graph)
+                    torch.cuda.synchronize()
+                    return res, time.perf_counter() - t0
+
+                run()  # warm-up
+                res, wall = run()
+                steps = res.total_loss.shape[0]
+                step_ms = 1e3 * wall / steps
+                events, busy_ms, _ = device_busy(run)
+                busy_ms /= steps
+                cuda = sorted((e for e in events
+                               if e.device_type == torch.autograd.DeviceType.CUDA),
+                              key=lambda e: -e.self_device_time_total)
+                print(json.dumps({
+                    "setting": name, "cuda_graph": graph, "card": gpu, "steps": steps,
+                    "reruns": dd.last_run_stats["recovery_reruns"],
+                    "untraced_ms_per_step": step_ms, "device_busy_ms_per_step": busy_ms,
+                    "busy_share_of_untraced_step": busy_ms / step_ms,
+                    "top_kernels_ms_per_step": [
+                        [e.key[:80], e.self_device_time_total / 1e3 / steps,
+                         e.count // steps] for e in cuda[:TOP]],
+                }), flush=True)
         del dd
         torch.cuda.empty_cache()
     return 0
