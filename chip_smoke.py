@@ -70,8 +70,9 @@ result line):
    exactly, so do rast and rast_db; the pose gradients repeat bit for bit
    from pass to pass and equal the brute force's bit for bit (rasterize's,
    interpolate's and antialias's gathers sum in a fixed order: the
-   segmented sum, launched once for rasterize's and once for each of
-   antialias's two passes), and the coverage differs from
+   segmented sum, launched once for rasterize's setup rows, once for each
+   of the clip positions' corner gathers of rasterize and antialias and
+   once for each of antialias's two passes), and the coverage differs from
    ``render_batch``'s ids at the same poses on at most 0.5% of the
    foreground; forward and backward times and peak memory printed;
    ``rasterize``'s backward twice at the same poses gives the same clip
@@ -79,8 +80,10 @@ result line):
    and is timed beside ``index_add_``;
 10. ``DiffDope`` with ``tpu.raster_impl: auto`` on icosphere(1) (80
    triangles, vertex colours) at 960x540, B=8, 5 SGD steps (``AUTO_HYPER``):
-   auto picks the brute-force rasterizer (the unfused route, no kernel
-   launched) and the loss falls;
+   auto picks the brute-force rasterizer (the unfused route: the segmented
+   sum of its row gather launched once a step, nothing else) and the loss
+   falls; run twice, not under torch's deterministic algorithms, the two
+   runs equal bit for bit (poses, totals, loss logs);
 11. ``DiffDope`` at the default configuration under ``DD_RASTER=v3`` (the
    planar route: K10, then K5/K6; no pack kernel, no bins): K10 and K5/K6
    launched and nothing else, the criteria of phase 5 with no re-run but
@@ -95,8 +98,9 @@ result line):
    ``render_batch`` through K10) equal the fused run's at rtol 1e-5;
 12. the same under ``DD_BINNED=0`` (K7 over the bins gathered from the
    planar table, the gather's backward the segmented sum: each
-   triangle's slots in slot order, every occurrence): K7, K5/K6 and the
-   segmented sum ('index_rows_bwd') launched, no K1-K4; the criteria of
+   triangle's slots in slot order, every occurrence, read in place in
+   d_bins): K7, K5/K6 and the segmented sum ('index_rows_bwd', once a
+   step for every hypothesis) launched, no K1-K4; the criteria of
    phase 5; K7 and K5/K6 held on its tables; the bins' occupancy logged
    at every step; the segmented sum (``rasterize.slot_sums``) at the last
    poses' bins and a seeded cotangent through K7's backward equal to its
@@ -107,7 +111,8 @@ result line):
    32x128, K from the fullest tile): ``xfm_points`` -> ``triangle_setup``
    -> ``bin_triangles`` -> ``pack_rows`` -> ``raster_gather_rows`` -> the
    shaded rgb and antialiased mask -> L1 against the gt -> the pose
-   gradient; K9 forward and backward launched once each, its ids equal
+   gradient; K9 forward and backward launched once each (and the
+   segmented sum of ``triangle_setup``'s corner gather), its ids equal
    the brute force's on the same coefficients, its rows a plain gather's
    bit for bit, the pose gradients the plain-gather path's at rtol 2e-4,
    atol 1e-6; forward and backward times and peak memory printed, and
@@ -138,9 +143,15 @@ result line):
    ``MAX_DEPTH_TIES`` of the gt mask);
 15. appearance refinement on the texture leaf: the same scene, the mesh's
    texture flat at 0.4, ``enable_gradients_texture()``, 11 steps: K1-K4
-   launched (the static uv takes the pack kernel), K5/K6 not, the texture
-   moved and written back into the mesh, the mean rgb loss falls; time and
-   peak memory printed;
+   launched (the static uv takes the pack kernel) and the segmented sum
+   four times a step (the bilinear taps), K5/K6 not, the texture moved
+   and written back into the mesh, the mean rgb loss falls; time and peak
+   memory printed; then the same with the vertex colours of phase 5's
+   stand-in and with the textured stand-in's baked corner colours as the
+   leaf (the plain pack, K3/K4, the segmented sum twice and once a step);
+   each leaf run twice, from sessions of its own and not under torch's
+   deterministic algorithms: the two runs equal bit for bit (poses,
+   totals, loss logs, the leaf written back, launches);
 16. the default configuration from files: the textured stand-in (a copy of
    ``data/standins/standin_tex_checker.ply`` beside its checker texture as
    the PNG its TextureFile names) rendered at the camera's full 1920x1080
@@ -913,9 +924,10 @@ def api_phase(gpu):
     on = ("raster_ids", "setup_rows_bwd", "index_rows_bwd")
     check_launches("API path", launches, on, set(launches) - set(on))
     if (launches["raster_ids"], launches["setup_rows_bwd"], launches["index_rows_bwd"]) != (
-            1, 1, 2):
-        fail(f"API path: {launches} for one rasterize and its backward (and antialias's two "
-             "passes)")
+            1, 1, 4):
+        fail(f"API path: {launches} for one rasterize and its backward (the setup rows' "
+             "sum; the clip positions' corner gathers of rasterize and antialias, and "
+             "antialias's two passes)")
     for name, g in run["grads"].items():
         if not torch.equal(g, warm["grads"][name]) or not bool(g.abs().max() > 0):
             fail(f"API path: the pose gradient '{name}' does not repeat bit for bit")
@@ -1024,7 +1036,9 @@ def rasterize_backward_repeats(mesh_t, mtx, res, k, gpu):
 
 
 def auto_phase(gpu):
-    """Phase 10: DiffDope with raster_impl auto on an 80-triangle mesh."""
+    """Phase 10: DiffDope with raster_impl auto on an 80-triangle mesh, run
+    twice: the brute force's row gather sums in a fixed order (the
+    segmented sum, once a step), so the two runs equal bit for bit."""
     import numpy as np
     import torch
 
@@ -1040,26 +1054,37 @@ def auto_phase(gpu):
     print(f"DiffDope auto: {len(faces)} triangles -> raster_impl {impl}", flush=True)
     if impl != "reference":
         fail(f"DiffDope auto picked {impl} on {len(faces)} triangles")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    dd.run_optimization()
-    torch.cuda.synchronize()
-    launches = dict(kernels.launches)
-    stats = dd.last_run_stats
-    total = dd._result.total_loss.cpu()
-    add0 = add_to(points, mtx_gt, dd.object3d.initial_matrix())
-    add1 = add_to(points, mtx_gt, dd.get_pose())
-    print(f"DiffDope auto: {stats['steps']} steps, B={dd.batchsize}, "
-          f"{dd.resolution[1]}x{dd.resolution[0]}: {stats['wall_time_s']:.4f} s, "
-          f"{stats['steps_per_sec']:.3f} steps/s, peak "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; loss first "
-          f"{float(total[0]):.6f}, last {float(total[-1]):.6f}; ADD {add0:.6f} -> "
-          f"{add1:.6f} [{gpu}]", flush=True)
-    print(f"DiffDope auto launches: {launches}", flush=True)
-    check_launches("DiffDope auto", launches, (), set(launches))
-    if not bool(np.isfinite(total.numpy()).all()) or not float(total[-1]) < float(total[0]):
-        fail(f"DiffDope auto: the loss did not fall ({total.numpy()})")
+    results = []
+    for run in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        dd.run_optimization()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        stats = dd.last_run_stats
+        total = dd._result.total_loss.cpu()
+        add0 = add_to(points, mtx_gt, dd.object3d.initial_matrix())
+        add1 = add_to(points, mtx_gt, dd.get_pose())
+        print(f"DiffDope auto run {run}: {stats['steps']} steps, B={dd.batchsize}, "
+              f"{dd.resolution[1]}x{dd.resolution[0]}: {stats['wall_time_s']:.4f} s, "
+              f"{stats['steps_per_sec']:.3f} steps/s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; loss first "
+              f"{float(total[0]):.6f}, last {float(total[-1]):.6f}; ADD {add0:.6f} -> "
+              f"{add1:.6f} [{gpu}]", flush=True)
+        print(f"DiffDope auto run {run} launches: {launches}", flush=True)
+        runs = stats["steps"] * (1 + stats["recovery_reruns"])
+        if launches != {"index_rows_bwd": runs}:
+            fail(f"DiffDope auto: {launches} in {runs} steps; the brute force launches the "
+                 "segmented sum of its row gather once a step and nothing else")
+        if not bool(np.isfinite(total.numpy()).all()) or not float(total[-1]) < float(total[0]):
+            fail(f"DiffDope auto: the loss did not fall ({total.numpy()})")
+        results.append(dd._result)
+    differ = result_diff(*results)
+    if differ:
+        fail(f"DiffDope auto: two runs differ in {differ}")
+    print("DiffDope auto: two runs equal bit for bit (poses, totals, loss logs), without "
+          "deterministic algorithms", flush=True)
 
 
 def k9_check(label, gpu, proj, mtx, pos, tri, colors, adj, resolution, tile_hw, reps=0):
@@ -1143,21 +1168,29 @@ def v3_equals_v2(fn, mtx) -> int:
     return int((ids3 > 0).sum())
 
 
-def slot_sums_hold(fn, mtx) -> str:
+def slot_sums_hold(fn, mtx, gpu) -> str:
     """Phase 12's backward sum at its own shapes: the bins ``fn``'s route
     builds at poses ``mtx`` (its capacity and cull), K7's backward of a
     seeded cotangent to d_bins, then ``rasterize.slot_sums`` on the card
-    against its CPU path (an index_add in slot order) on the same d_bins:
-    fails unless equal bit for bit; returns the shapes compared."""
+    (one launch reading d_bins in place) against its CPU path (an
+    index_add in slot order) and against the per-hypothesis sums of d_bins
+    transposed into a (slots, 32) buffer (the form before the strides):
+    fails unless all three equal bit for bit.  Times the sum (the sort
+    and the starts included) beside the transposed form and prints its
+    bound: the held slots' 32 lanes read for every hypothesis, their order
+    entries, the starts and the (B, T, 32) sums written (the sort of every
+    slot by triangle not counted).  Returns the shapes compared."""
     import torch
 
+    from diffdope_tpu_torch import kernels
+    from diffdope_tpu_torch.kernels.check import _time_ms, bound
     from diffdope_tpu_torch.render import pipeline
     from diffdope_tpu_torch.render.raster import (
         bins_planar,
         raster_uniform_bwd,
         raster_uniform_fwd,
     )
-    from diffdope_tpu_torch.render.rasterize import slot_sums
+    from diffdope_tpu_torch.render.rasterize import segments, slot_sums
 
     res, t_count = fn.roi[2:], fn.mesh.t_count
     with torch.no_grad():
@@ -1167,16 +1200,44 @@ def slot_sums_hold(fn, mtx) -> str:
         gen = torch.Generator(device="cuda").manual_seed(12)
         d_rows = torch.randn(rows.shape, generator=gen, device="cuda")
         d_bins = raster_uniform_bwd(d_rows, win, bins.shape[2], pipeline.TILE_HW)
-        got = slot_sums(d_bins, pl.idx, t_count).cpu()
+        del bins, rows, win, d_rows
+        b, width, n_slots = d_bins.shape
+        flat = pl.idx.reshape(1, n_slots)
+        ids = torch.where(flat < t_count, flat + 1, 0).to(torch.int32)
+
+        def transposed():
+            # the form before the strides: one sort, then each hypothesis's
+            # slots copied into one (slots, 32) buffer and summed
+            order, start = segments(ids, t_count)
+            out = torch.empty((b, t_count, width), device="cuda")
+            buf = torch.empty((n_slots, width), device="cuda")
+            for i in range(b):
+                buf.copy_(d_bins[i].t())
+                kernels.launch("dd_segment_sum", "index_rows_bwd", buf.data_ptr(),
+                               order.data_ptr(), start.data_ptr(), 1, t_count, width, 0,
+                               width, 1, out[i].data_ptr())
+            return out.permute(0, 2, 1)
+
+        got = slot_sums(d_bins, pl.idx, t_count)
+        old = transposed().cpu()
+        ms = _time_ms(lambda: slot_sums(d_bins, pl.idx, t_count), 20)
+        old_ms = _time_ms(transposed, 5)
+        got = got.cpu()
         want = slot_sums(d_bins.cpu(), pl.idx.cpu(), t_count)
     if not bool(torch.isfinite(got).all()) or not bool((got != 0).any()):
         fail("DiffDope v2: the slot sums are not finite, or all zero")
-    if not torch.equal(got, want):
-        fail(f"DiffDope v2: the slot sums on the card differ from their CPU path at "
-             f"{int((got != want).sum())} of {got.numel()} lanes, max "
-             f"{float((got - want).abs().max()):.3e}")
-    return (f"d_bins {tuple(d_bins.shape)}, {t_count} triangles, "
-            f"{int((pl.idx < t_count).sum())} held slots")
+    for name, other in (("their CPU path", want), ("the transposed buffer's sums", old)):
+        if not torch.equal(got, other):
+            fail(f"DiffDope v2: the slot sums on the card differ from {name} at "
+                 f"{int((got != other).sum())} of {got.numel()} lanes, max "
+                 f"{float((got - other).abs().max()):.3e}")
+    held = int((pl.idx < t_count).sum())
+    lim = bound(4 * (b * width * held + held + t_count + 1 + b * t_count * width),
+                b * width * held)
+    print(f"DiffDope v2 shapes slot_sums: {ms:.4f} ms a backward (the sort and the starts "
+          f"included; the transposed buffer's form {old_ms:.4f} ms), bound {lim[0]:.6f} ms "
+          f"({lim[1]}: {held} held slots of {n_slots}, B={b}) [{gpu}]", flush=True)
+    return (f"d_bins {tuple(d_bins.shape)}, {t_count} triangles, {held} held slots")
 
 
 def planar_phases(gpu, step0_f):
@@ -1207,6 +1268,10 @@ def planar_phases(gpu, step0_f):
 
     dd2, launches2, add0, add1 = diffdope_phase(True, gpu, "v2", raster="v2")
     check_launches("DiffDope v2", launches2, V2_FUSED, set(launches2) - set(V2_FUSED))
+    runs = dd2.last_run_stats["steps"] * (1 + dd2.last_run_stats["recovery_reruns"])
+    if launches2["index_rows_bwd"] != runs:
+        fail(f"DiffDope v2: the segmented slot sum launched {launches2['index_rows_bwd']} "
+             f"times in {runs} steps, not once a step for every hypothesis")
     check_diffdope(dd2, "v2", add0, add1)
     occ = dd2._result.telemetry["_bin_occupancy"]
     print(f"DiffDope v2: bin occupancy at most {int(occ.max())} a step, logged at "
@@ -1216,9 +1281,11 @@ def planar_phases(gpu, step0_f):
         fail("DiffDope v2: a step logged no bin occupancy")
     with raster_env("v2"):
         fn2 = dd2._make_fused_loss_fn(dd2.gt_tensors)
-        shapes = slot_sums_hold(fn2, torch.as_tensor(dd2.mtx_history[-1], device="cuda"))
+        shapes = slot_sums_hold(fn2, torch.as_tensor(dd2.mtx_history[-1], device="cuda"),
+                                gpu)
     print(f"DiffDope v2: at the last poses the segmented slot sums on the card equal "
-          f"their CPU path bit for bit ({shapes})", flush=True)
+          f"their CPU path and the transposed buffer's sums bit for bit ({shapes})",
+          flush=True)
     del fn2
     torch.cuda.empty_cache()
     step0_2 = {k: v[0] for k, v in dd2.losses_values.items()}
@@ -1349,10 +1416,11 @@ def k9_phase(gpu):
             for name, got in (("pose gradients", run["grads"].values()),
                               ("d_rows", [run["d_rows"]]), ("d_packed", [run["d_packed"]]))}
     print(f"phase 13: warm-up and timed pass bit-identical: {same}", flush=True)
-    on = ("gather_rows_fwd", "gather_rows_bwd")
+    on = ("gather_rows_fwd", "gather_rows_bwd", "index_rows_bwd")
     check_launches("phase 13", launches, on, set(launches) - set(on))
-    if launches["gather_rows_fwd"] != 1 or launches["gather_rows_bwd"] != 1:
-        fail(f"phase 13: K9 launched {launches} for one pass")
+    if [launches[c] for c in on] != [1, 1, 1]:
+        fail(f"phase 13: {launches} for one pass (K9 and the segmented sum of "
+             "triangle_setup's corner gather once each)")
 
     torch.cuda.reset_peak_memory_stats()
     ref = k9_chain(mesh_t, params, k, gt, brute=True)
@@ -1529,19 +1597,32 @@ def texture_phase(gpu, kind: str, depth: bool):
     return launches
 
 
-def appearance_phase(gpu):
-    """Phase 15: the texture leaf refined with the pose (unfused route)."""
+#: phase 15's appearance leaves, each with its segmented sums a step: the
+#: texture's four bilinear taps; the vertex colours' corner gather and the
+#: plain pack's slot gather of the colours; the corner colours' slot gather
+APPEARANCE_GATHERS = {"tex": 4, "vtx_color": 2, "corner_colors": 1}
+
+
+def appearance_run(gpu, leaf: str):
+    """One phase-15 session of the ``leaf`` appearance leaf, run: the leaf
+    flat at 0.4 (the scene keeps the mesh's own colours), 11 steps.
+    Returns the session, the refined leaf, the launches and the seconds
+    run_optimization took."""
     import numpy as np
     import torch
 
     from diffdope_tpu_torch import kernels
 
-    mesh = texture_mesh()
-    dd, _, _ = diffdope_session(True, tpu=TEXTURE_TPU, losses=TEXTURE_LOSSES,
-                                hyper={"nb_iterations": 10}, mesh=mesh)
-    mesh.tex = np.full_like(mesh.tex, 0.4)  # the scene keeps the checker
-    start = mesh.tex
+    textured = leaf != "vtx_color"
+    dd, _, _ = diffdope_session(True, tpu=TEXTURE_TPU if leaf == "tex" else None,
+                                losses=TEXTURE_LOSSES, hyper={"nb_iterations": 10},
+                                mesh=texture_mesh() if textured else None)
+    mesh = dd.object3d.mesh
+    setattr(mesh, leaf, np.full_like(getattr(mesh, leaf), 0.4))
+    start = getattr(mesh, leaf)
     mesh.enable_gradients_texture()
+    if set(dd._appearance()) != {leaf}:
+        fail(f"DiffDope appearance: the session refines {set(dd._appearance())}, not {leaf}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -1551,21 +1632,57 @@ def appearance_phase(gpu):
     total_s = time.perf_counter() - t0
     launches = dict(kernels.launches)
     stats = dd.last_run_stats
-    rgb = dd.losses_values["rgb"].mean(axis=1)
-    moved = float(np.abs(mesh.tex - 0.4).max())
-    print(f"DiffDope appearance: {stats['steps']} steps, B={dd.batchsize}, texture "
-          f"{mesh.tex.shape}: kept run {stats['wall_time_s']:.4f} s, "
+    refined = getattr(mesh, leaf)
+    print(f"DiffDope appearance {leaf}: {stats['steps']} steps, B={dd.batchsize}, leaf "
+          f"{refined.shape}: kept run {stats['wall_time_s']:.4f} s, "
           f"{stats['steps_per_sec']:.3f} steps/s; run_optimization {total_s:.4f} s; peak "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB [{gpu}]", flush=True)
-    print(f"DiffDope appearance launches: {launches}", flush=True)
-    print(f"DiffDope appearance: mean rgb loss {rgb[0]:.6f} -> {rgb[-1]:.6f}; the texture "
-          f"moved up to {moved:.6f} from 0.4", flush=True)
-    on = ("pack_fwd", "pack_bwd", "raster_fwd", "raster_bwd")
-    check_launches("DiffDope appearance", launches, on, set(launches) - set(on))
-    if mesh.tex is start or not moved > 1e-5:
-        fail("DiffDope appearance: the texture did not move or was not written back")
-    if not rgb[-1] < rgb[0]:
-        fail("DiffDope appearance: the rgb loss did not fall")
+    print(f"DiffDope appearance {leaf} launches: {({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    if refined is start or not float(np.abs(refined - 0.4).max()) > 1e-5:
+        fail(f"DiffDope appearance {leaf}: the leaf did not move or was not written back")
+    return dd, refined, launches, total_s
+
+
+def appearance_phase(gpu):
+    """Phase 15: appearance refinement with the pose (the unfused route):
+    the texture leaf, then the vertex-colour and the corner-colour leaves,
+    each run twice from a session of its own, not under deterministic
+    algorithms: the two runs equal bit for bit (poses, totals, loss logs,
+    the refined leaf), as the leaves' gathers sum in a fixed order (the
+    segmented sum, ``APPEARANCE_GATHERS`` a step); the texture leaf's rgb
+    loss falls."""
+    import numpy as np
+
+    for leaf, gathers in APPEARANCE_GATHERS.items():
+        runs = [appearance_run(gpu, leaf) for _ in range(2)]
+        dd, refined, launches, _ = runs[0]
+        rgb = dd.losses_values["rgb"].mean(axis=1)
+        print(f"DiffDope appearance {leaf}: mean rgb loss {rgb[0]:.6f} -> {rgb[-1]:.6f}; "
+              f"the leaf moved up to {float(np.abs(refined - 0.4).max()):.6f} from 0.4",
+              flush=True)
+        steps = dd.last_run_stats["steps"] * (1 + dd.last_run_stats["recovery_reruns"])
+        # the texture's static uv takes the pack kernel; traced colours the
+        # plain pack, which launches nothing
+        on = (("pack_fwd", "pack_bwd") if leaf == "tex" else ("pack_plain",)) + (
+            "raster_fwd", "raster_bwd", "index_rows_bwd")
+        check_launches(f"DiffDope appearance {leaf}", launches, on, set(launches) - set(on))
+        if launches["index_rows_bwd"] != gathers * steps:
+            fail(f"DiffDope appearance {leaf}: the segmented sum launched "
+                 f"{launches['index_rows_bwd']} times in {steps} steps, not {gathers} a step")
+        if leaf == "tex" and not rgb[-1] < rgb[0]:
+            fail("DiffDope appearance tex: the rgb loss did not fall")
+        (dd2, refined2, launches2, _) = runs[1]
+        differ = result_diff(dd._result, dd2._result)
+        if launches2 != launches:
+            differ.append(f"launches {launches} / {launches2}")
+        if not same_bits(refined, refined2):
+            differ.append("the leaf written back")
+        if differ:
+            fail(f"DiffDope appearance {leaf}: two runs differ in {differ}")
+        print(f"DiffDope appearance {leaf}: two runs equal bit for bit (poses, totals, loss "
+              "logs, the refined leaf, launches), without deterministic algorithms",
+              flush=True)
 
 
 class BinningInRefine:

@@ -572,39 +572,55 @@ extern "C" int dd_gather_rows_bwd(const float* d_rows, const int* win,
 }
 
 // The backward of rasterize()'s setup-row gather (render/rasterize.py:
-// SetupRows): no TPU kernel; the reference leaves the transpose of its
-// take_along_axis (diffdope_tpu/render/rasterize.py:245) to XLA.  out[s, k]
-// = the sum, in ascending i, of src[order[i], k] over i in [start[s],
-// start[s + 1]): the caller sorts the foreground pixels stably by (hypothesis,
-// triangle), so a triangle's row sums its pixels' row cotangents in pixel
-// order, every call the same and as the CPU's index_add_ does (the
-// scatter-add of autograd's gather adds with atomics).  One thread per
-// (segment, lane); a warp reads two 64-byte rows at a time.  Bound: the src
-// rows read and out written (memory bound).
+// SetupRows) and of the port's other gathers (IndexRows, slot_sums): no TPU
+// kernel; the reference leaves the transpose of its take_along_axis
+// (diffdope_tpu/render/rasterize.py:245) and its other gathers to XLA.
+// out[h, s, k] = the sum, in ascending i, of src[h * hyp_stride +
+// order[i] * row_stride + k * lane_stride] over i in [start[s], start[s +
+// 1]), for n_hyp hypotheses of nseg segments: the caller sorts the entries
+// stably by segment, so a segment sums its entries in entry order, every
+// call the same and as the CPU's index_add_ does (the scatter-add of
+// autograd's gather adds with atomics).  The strides let a caller sum rows
+// where they lie: the DD_BINNED=0 route's d_bins (B, 32, slots) is read in
+// place, one launch for every hypothesis (hyp_stride 32 * slots, row
+// stride 1, lane stride slots); a row-major (entries, width) source is
+// (0, width, 1) with one hypothesis.  One thread per (hypothesis,
+// segment, lane).  Bound: the entries' values read and out written
+// (memory bound).
 namespace {
 
 __global__ void segment_sum_kernel(const float* __restrict__ src,
                                    const int* __restrict__ order,
                                    const int* __restrict__ start, int nseg,
-                                   int width, float* __restrict__ out) {
+                                   int width, long long hyp_stride,
+                                   long long row_stride, long long lane_stride,
+                                   long long n, float* __restrict__ out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)nseg * width) return;
-  const int s = (int)(i / width), k = (int)(i % width);
+  if (i >= n) return;
+  const long long per_hyp = (long long)nseg * width;
+  const long long h = i / per_hyp, r = i % per_hyp;
+  const int s = (int)(r / width), k = (int)(r % width);
+  const float* base = src + h * hyp_stride + k * lane_stride;
   float acc = 0.0f;
   for (int q = start[s]; q < start[s + 1]; ++q)
-    acc = __fadd_rn(acc, src[(size_t)order[q] * width + k]);
+    acc = __fadd_rn(acc, base[(long long)order[q] * row_stride]);
   out[i] = acc;
 }
 
 }  // namespace
 
 extern "C" int dd_segment_sum(const float* src, const int* order,
-                              const int* start, int nseg, int width,
-                              float* out, void* stream) {
-  const long long n = (long long)nseg * width;
+                              const int* start, int n_hyp, int nseg, int width,
+                              long long hyp_stride, long long row_stride,
+                              long long lane_stride, float* out,
+                              void* stream) {
+  const long long n = (long long)n_hyp * nseg * width;
   if (n == 0) return 0;
+  if (n_hyp < 0 || nseg < 0 || width < 0 || (n + 255) / 256 > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   segment_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
                        (cudaStream_t)stream>>>(src, order, start, nseg, width,
-                                               out);
+                                               hyp_stride, row_stride,
+                                               lane_stride, n, out);
   return (int)cudaGetLastError();
 }

@@ -48,9 +48,10 @@ NVCC_FLAGS = (
 #: counts the bin-ordered tables that the reference's eligibility rule
 #: sends to the plain pack (traced attributes); 'setup_rows_bwd' the
 #: segmented sum of rasterize's setup-row gather, 'index_rows_bwd' the same
-#: kernel under the gathers of interpolate and antialias and under the
-#: ``DD_BINNED=0`` route's bins (``rasterize.slot_sums``, once per
-#: hypothesis)
+#: kernel under the port's other gathers (``rasterize.IndexRows``: the
+#: shaded rows, the texels, the clip positions' corners, the colours) and
+#: under the ``DD_BINNED=0`` route's bins (``rasterize.slot_sums``, once a
+#: backward for every hypothesis)
 launches = {"pack_fwd": 0, "pack_bwd": 0, "pack_plain": 0, "raster_fwd": 0,
             "raster_bwd": 0, "raster_bwd_bf16": 0, "raster_uniform_fwd": 0,
             "raster_uniform_bwd": 0, "loss_fwd": 0, "loss_bwd": 0, "loss_bwd_bf16": 0,
@@ -60,7 +61,7 @@ launches = {"pack_fwd": 0, "pack_bwd": 0, "pack_plain": 0, "raster_fwd": 0,
             "raster_v3_fwd": 0, "raster_v3_bwd": 0, "setup_rows_bwd": 0,
             "index_rows_bwd": 0}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # (mvpm, tab, sil, B, n, n_ch, out, stream)
     "dd_pack_fwd": [_P] * 3 + [_I] * 3 + [_P] * 2,
@@ -101,8 +102,9 @@ _SIGNATURES = {
     # (d_rows, win, clo, chi, rlo_tc, rhi_tc, B, tp, nty, ntx, th, tw,
     #  d_packed_s, stream)
     "dd_raster_v3_bwd": [_P] * 6 + [_I] * 6 + [_P] * 2,
-    # (src, order, start, nseg, width, out, stream)
-    "dd_segment_sum": [_P] * 3 + [_I] * 2 + [_P] * 2,
+    # (src, order, start, n_hyp, nseg, width, hyp_stride, row_stride,
+    #  lane_stride, out, stream)
+    "dd_segment_sum": [_P] * 3 + [_I] * 3 + [_L] * 3 + [_P] * 2,
 }
 
 _fns: Optional[Dict[str, object]] = None

@@ -29,7 +29,7 @@ from typing import Optional
 import torch
 
 from diffdope_tpu_torch.convert import tensor
-from diffdope_tpu_torch.render.rasterize import IndexRows
+from diffdope_tpu_torch.render.rasterize import IndexRows, gather_rows
 from diffdope_tpu_torch.render.shade import ndc
 
 _EPS = 1e-12
@@ -81,7 +81,7 @@ def antialias(
     if corners_clip is not None:
         src = tensor(corners_clip, dev).reshape(b, -1, 4)  # (B, 3T, 4)
     else:
-        src = tensor(pos_clip, dev)[:, tri.reshape(-1)]
+        src = gather_rows(tensor(pos_clip, dev), tri.reshape(-1))  # (B, 3T, 4)
     wc = src[..., 3]
     w_safe = torch.where(wc.abs() > _EPS, wc, torch.full_like(wc, _EPS))
     sx = src[..., 0] / w_safe

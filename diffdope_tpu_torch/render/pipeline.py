@@ -85,7 +85,11 @@ from diffdope_tpu_torch.render.raster import (
     raster_gather_rows_v2,
 )
 from diffdope_tpu_torch.render.raster_v3 import raster_gather_rows_v3
-from diffdope_tpu_torch.render.rasterize import AUTO_REFERENCE_MAX_TRIS, raster_ids_reference
+from diffdope_tpu_torch.render.rasterize import (
+    AUTO_REFERENCE_MAX_TRIS,
+    gather_rows,
+    raster_ids_reference,
+)
 from diffdope_tpu_torch.render.setup_tris import triangle_setup_from_corners
 from diffdope_tpu_torch.render.shade import (
     antialias_rows,
@@ -182,9 +186,12 @@ class _Mesh:
             uv_flat = tensor(uv_idx, dev, torch.int64).reshape(-1)
             self.attrs = tensor(uv, dev)[uv_flat].reshape(t, 3, 2)
         elif vtx_color is not None:
+            # a vertex-colour leaf's gradient sums each vertex's corners in
+            # a fixed order (rasterize.IndexRows)
             vtx = tensor(vtx_color, dev)
-            self.attrs = (vtx[flat].reshape(t, 3, 3) if vtx.dim() == 2
-                          else vtx[:, flat].reshape(vtx.shape[0], t, 3, 3))
+            corners = gather_rows(vtx if vtx.dim() == 3 else vtx[None], flat)
+            self.attrs = corners.reshape((t, 3, 3) if vtx.dim() == 2
+                                         else (vtx.shape[0], t, 3, 3))
         else:
             self.attrs = None
         self.n_ch = 0 if self.attrs is None else self.attrs.shape[-1]
@@ -938,7 +945,8 @@ def render_batch(
     The colours are ``corner_colors`` (T, 3, 3), else the texture ``tex``
     (TH, TW, 3) sampled bilinearly at the uv (N, 2) interpolated by
     ``uv_idx`` (T, 3) (the reference's 'texture' mode, ``pipeline.py:322-
-    325``; the texture's gradient is the sampler's scatter-add), else
+    325``; the texture's gradient sums each texel's taps in a fixed order,
+    ``texture``), else
     ``vtx_color`` (N, 3).
 
     ``raster_impl`` 'pallas' is the reference's pallas branch on the

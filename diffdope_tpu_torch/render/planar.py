@@ -266,6 +266,14 @@ def static_pack_rows(pc: torch.Tensor, corner_attrs: Optional[torch.Tensor],
     return torch.stack(rows, dim=0), n_ch
 
 
+def _slot_gather(table: torch.Tensor, safe: torch.Tensor) -> torch.Tensor:
+    """(B, R, n_slots) columns ``safe`` of a (B, R, T) table, through
+    ``rasterize.gather_rows``."""
+    from diffdope_tpu_torch.render.rasterize import gather_rows
+
+    return gather_rows(table.transpose(1, 2), safe).transpose(1, 2)
+
+
 def pack_binned(
     pos_c: torch.Tensor,
     mvp: torch.Tensor,
@@ -299,7 +307,9 @@ def pack_binned(
         static_table = static_pack_rows(pos_c, corner_attrs if shared else None,
                                         degenerate)
     table, n_ch = static_table
-    tab = table[:, safe]  # (R, n_slots)
+    # the table's and the colours' slot gathers sum each triangle's slots in
+    # slot order in their backward (rasterize.IndexRows)
+    tab = _slot_gather(table[None], safe)[0]  # (R, n_slots)
 
     def row(r):
         return tab[r : r + 1, :]
@@ -324,8 +334,9 @@ def pack_binned(
     if shared:
         attr_b = [[row(9 + k * n_ch + c) for c in range(n_ch)] for k in range(3)]
     elif corner_attrs is not None:
-        attr_b = [[corner_attrs[:, :, k, c][:, safe] for c in range(corner_attrs.shape[-1])]
-                  for k in range(3)]
+        per_slot = _slot_gather(corner_attrs.flatten(2).transpose(1, 2), safe)
+        n_c = corner_attrs.shape[-1]
+        attr_b = [[per_slot[:, k * n_c + c] for c in range(n_c)] for k in range(3)]
     sil_b = sil[:, safe]
     degen_b = flat >= t_count
     if degenerate is not None:

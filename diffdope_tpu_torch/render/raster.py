@@ -510,10 +510,16 @@ class RasterV2(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, packed, tile_idx, tile_counts, resolution, tile_hw):
+        from diffdope_tpu_torch.render.rasterize import slot_segments
+
         bins = bins_planar(packed, tile_idx)
         ids, rows, win = raster_uniform_fwd(bins, tile_counts, resolution, tile_hw)
-        ctx.save_for_backward(win, tile_idx)
         ctx.n_slots, ctx.tile_hw, ctx.t_count = bins.shape[2], tile_hw, packed.shape[2]
+        del bins
+        # on the card the slots are sorted by triangle here, not beside
+        # d_bins in the backward, whose peak memory the sort would raise
+        segs = slot_segments(tile_idx, ctx.t_count) if tile_idx.is_cuda else ()
+        ctx.save_for_backward(win, tile_idx, *segs)
         ctx.mark_non_differentiable(ids)
         return ids, rows
 
@@ -521,9 +527,10 @@ class RasterV2(torch.autograd.Function):
     def backward(ctx, d_ids, d_rows):
         from diffdope_tpu_torch.render.rasterize import slot_sums
 
-        win, tile_idx = ctx.saved_tensors
+        win, tile_idx, *segs = ctx.saved_tensors
         d_bins = raster_uniform_bwd(d_rows.contiguous(), win, ctx.n_slots, ctx.tile_hw)
-        return slot_sums(d_bins, tile_idx, ctx.t_count), None, None, None, None
+        return (slot_sums(d_bins, tile_idx, ctx.t_count, tuple(segs) or None),
+                None, None, None, None)
 
 
 def raster_gather_rows_v2(packed, tile_idx, tile_counts, inv_pos, inv_valid,

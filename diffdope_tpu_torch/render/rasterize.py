@@ -226,10 +226,11 @@ def setup_rows_bwd(d_rows: torch.Tensor, ids: torch.Tensor, t_count: int,
         raise ValueError(f"{b * p} pixels / {b * t_count} rows exceed int32 indexing")
     order, start = segments(ids, t_count)
     out = torch.empty((b, t_count, width), dtype=torch.float32, device=d_rows.device)
+    # one hypothesis of B*T segments over the (B*P, W) rows
     kernels.launch(
         "dd_segment_sum", counter,
-        d_rows.data_ptr(), order.data_ptr(), start.data_ptr(), b * t_count, width,
-        out.data_ptr(),
+        d_rows.data_ptr(), order.data_ptr(), start.data_ptr(), 1, b * t_count, width,
+        0, width, 1, out.data_ptr(),
     )
     return out
 
@@ -239,15 +240,17 @@ def segments(ids: torch.Tensor, t_count: int) -> Tuple[torch.Tensor, torch.Tenso
     ids (B, P) sorted stably by (hypothesis, triangle), and where each of
     the B*T (hypothesis, triangle) segments starts in ``order`` (B*T + 1
     entries).  Background pixels sort past every segment, so nothing waits
-    on the host."""
+    on the host.  The keys are int32 (B*T < 2**31), which halves the
+    sort's key buffers."""
     b = ids.shape[0]
     nseg = b * t_count
-    hyp = torch.arange(b, device=ids.device, dtype=torch.int64)[:, None] * t_count
-    key = torch.where(ids > 0, hyp + ids.long() - 1, nseg).reshape(-1)
+    hyp = torch.arange(b, device=ids.device, dtype=torch.int32)[:, None] * t_count
+    key = torch.where(ids > 0, hyp + ids.to(torch.int32) - 1, nseg).reshape(-1)
     sorted_key, order = torch.sort(key, stable=True)
     start = torch.searchsorted(
-        sorted_key, torch.arange(nseg + 1, device=ids.device, dtype=torch.int64))
-    return order.to(torch.int32), start.to(torch.int32)
+        sorted_key, torch.arange(nseg + 1, device=ids.device, dtype=torch.int32),
+        out_int32=True)
+    return order.to(torch.int32), start
 
 
 def setup_rows_bwd_plain(d_rows: torch.Tensor, ids: torch.Tensor,
@@ -263,7 +266,18 @@ def setup_rows_bwd_plain(d_rows: torch.Tensor, ids: torch.Tensor,
     return acc[:-1].reshape(b, t_count, width)
 
 
-def slot_sums(d_bins: torch.Tensor, tile_idx: torch.Tensor, t_count: int) -> torch.Tensor:
+def slot_segments(tile_idx: torch.Tensor, t_count: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(order, start) of the slots of bins ``tile_idx`` (num_tiles, K)
+    sorted by triangle (:func:`segments`; sentinel slots, index T, past
+    every triangle): what :func:`slot_sums` reads on the card.  The
+    ``DD_BINNED=0`` route sorts them in its forward, where a step holds
+    less memory than in its backward (``raster.RasterV2``)."""
+    flat = tile_idx.reshape(1, -1)
+    return segments(torch.where(flat < t_count, flat + 1, 0), t_count)
+
+
+def slot_sums(d_bins: torch.Tensor, tile_idx: torch.Tensor, t_count: int,
+              segs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """d_packed (B, 32, T) of the ``DD_BINNED=0`` route: for each triangle
     the sum of its slots' cotangents in d_bins (B, 32, num_tiles*K), in
     ascending slot order, the order in which the reference's inverted bin
@@ -271,16 +285,15 @@ def slot_sums(d_bins: torch.Tensor, tile_idx: torch.Tensor, t_count: int) -> tor
     ``raster_v2.py:1701-1708``), every occurrence at shapes the bins fix.
 
     CPU tensors take :func:`setup_rows_bwd_plain` (an index_add in slot
-    order, the hypotheses side by side in a row); CUDA tensors sort the
-    slots by triangle once (:func:`segments`: sentinel slots past every
-    triangle, never read) and launch the segmented sum once per
-    hypothesis on its slots' rows, transposed into one buffer of
-    (num_tiles*K, 32) that every hypothesis reuses (counted as
-    'index_rows_bwd'); anything else raises."""
+    order, the hypotheses side by side in a row); CUDA tensors take the
+    slots sorted by triangle (``segs``, :func:`slot_segments` if None)
+    and launch the segmented sum once for every hypothesis, reading each
+    held slot's 32 lanes in d_bins where they lie, through its strides
+    (counted as 'index_rows_bwd'); anything else raises."""
     b, width, n_slots = d_bins.shape
-    flat = tile_idx.reshape(1, n_slots)
-    ids = torch.where(flat < t_count, flat + 1, 0).to(torch.int32)
     if d_bins.device.type == "cpu":
+        flat = tile_idx.reshape(1, n_slots)
+        ids = torch.where(flat < t_count, flat + 1, 0).to(torch.int32)
         rows = d_bins.permute(2, 0, 1).reshape(1, n_slots, b * width)
         d = setup_rows_bwd_plain(rows, ids, t_count)
         return d.reshape(t_count, b, width).permute(1, 2, 0).contiguous()
@@ -289,17 +302,14 @@ def slot_sums(d_bins: torch.Tensor, tile_idx: torch.Tensor, t_count: int) -> tor
     _check(d_bins, "d_bins", torch.float32, 3, d_bins.device)
     if n_slots >= 2 ** 31:
         raise ValueError(f"{n_slots} slots exceed int32 indexing")
-    order, start = segments(ids, t_count)
+    order, start = segs if segs is not None else slot_segments(tile_idx, t_count)
     out = torch.empty((b, t_count, width), dtype=torch.float32, device=d_bins.device)
-    # (n_slots, 32): a slot's lanes a row, one buffer for every hypothesis
-    rows = torch.empty((n_slots, width), dtype=torch.float32, device=d_bins.device)
-    for i in range(b):
-        rows.copy_(d_bins[i].t())
-        kernels.launch(
-            "dd_segment_sum", "index_rows_bwd",
-            rows.data_ptr(), order.data_ptr(), start.data_ptr(), t_count, width,
-            out[i].data_ptr(),
-        )
+    hyp_stride, lane_stride, slot_stride = d_bins.stride()
+    kernels.launch(
+        "dd_segment_sum", "index_rows_bwd",
+        d_bins.data_ptr(), order.data_ptr(), start.data_ptr(), b, t_count, width,
+        hyp_stride, slot_stride, lane_stride, out.data_ptr(),
+    )
     return out.permute(0, 2, 1).contiguous()
 
 
@@ -327,25 +337,48 @@ class SetupRows(torch.autograd.Function):
 
 class IndexRows(torch.autograd.Function):
     """(B, P, W) the rows ``src[b, idx[b, p]]`` of src (B, N, W) at idx
-    (B, P) int64, differentiable in ``src`` with a deterministic backward: row n of the
-    gradient sums, in ascending p, the cotangents of the entries idx[b, p]
-    = n where ``valid`` (B, P), by :func:`setup_rows_bwd` (counted under
-    'index_rows_bwd' on the card).  An entry outside ``valid`` must carry
-    a zero cotangent (its output is masked by the caller): it is left out
-    of the sums.  The gathers of ``interpolate`` and ``antialias`` take it
-    in place of autograd's scatter-add, which adds with atomics on the
-    card, so their gradients repeat bit for bit."""
+    (B, P) int64, differentiable in ``src`` with a deterministic backward:
+    row n of the gradient sums, in ascending entry order, the cotangents
+    of the entries idx[b, p] = n where ``valid`` (B, P), by
+    :func:`setup_rows_bwd` (counted under 'index_rows_bwd' on the card).
+    A source of batch 1 is shared by the B hypotheses: its rows sum every
+    hypothesis's entries in ascending flat order (hypothesis by hypothesis,
+    each in ascending p).  An entry outside ``valid`` must carry a zero
+    cotangent (its output is masked by the caller): it is left out of the
+    sums.  Every gather of the port whose source takes a gradient takes
+    it in place of autograd's scatter-add, which adds with atomics on the
+    card, so the gradients repeat bit for bit (:func:`gather_rows`)."""
 
     @staticmethod
     def forward(ctx, src, idx, valid):
-        ctx.save_for_backward(torch.where(valid, idx + 1, 0).to(torch.int32).contiguous())
-        ctx.n_rows = src.shape[1]
-        return src.gather(1, idx[..., None].expand(-1, -1, src.shape[2]))
+        flat = idx.reshape(src.shape[0], -1)
+        if ctx.needs_input_grad[0]:
+            ids = torch.where(valid, idx + 1, 0).to(torch.int32).reshape(flat.shape)
+            ctx.save_for_backward(ids.contiguous())
+            ctx.n_rows = src.shape[1]
+        out = src.gather(1, flat[..., None].expand(-1, -1, src.shape[2]))
+        return out.reshape(tuple(idx.shape) + (src.shape[2],))
 
     @staticmethod
     def backward(ctx, d_rows):
         (ids,) = ctx.saved_tensors
-        return setup_rows_bwd(d_rows.contiguous(), ids, ctx.n_rows, "index_rows_bwd"), None, None
+        d = d_rows.reshape(ids.shape + (d_rows.shape[-1],)).contiguous()
+        # an entry whose cotangent is all zero adds nothing (a sum starts at
+        # +0, and x + (+-0) is x): left out, a row that every masked entry
+        # reads (the background's texel) sums only what reaches it
+        ids = torch.where((d != 0).any(dim=-1), ids, 0)
+        return setup_rows_bwd(d, ids, ctx.n_rows, "index_rows_bwd"), None, None
+
+
+def gather_rows(src: torch.Tensor, idx: torch.Tensor,
+                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:class:`IndexRows` of src (B, N, W) at idx (B, P), or at idx (P,)
+    for every hypothesis; ``valid`` defaults to every entry."""
+    if idx.dim() == 1:
+        idx = idx.expand(src.shape[0], -1)
+    if valid is None:
+        valid = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+    return IndexRows.apply(src, idx, valid)
 
 
 def setup_rows(coef: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

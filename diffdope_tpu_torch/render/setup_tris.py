@@ -66,14 +66,20 @@ class TriangleSetup(NamedTuple):
 def triangle_setup(pos_clip: torch.Tensor, tri: torch.Tensor) -> TriangleSetup:
     """Packed coefficients (B, T, 16) from (B, N, 4) clip positions and
     (T, 3) triangle indices; triangles with a repeated index are
-    degenerate (``setup_tris.py:73-95``)."""
+    degenerate (``setup_tris.py:73-95``).  The corners' gather sums each
+    vertex's corners in a fixed order in its backward
+    (``rasterize.IndexRows``)."""
+    from diffdope_tpu_torch.render.rasterize import gather_rows
+
     tri = tri.long()
     degenerate = (
         (tri[..., 0] == tri[..., 1])
         | (tri[..., 1] == tri[..., 2])
         | (tri[..., 2] == tri[..., 0])
     )
-    return triangle_setup_from_corners(pos_clip[:, tri], degenerate)
+    corners = gather_rows(pos_clip, tri.reshape(-1)).reshape(
+        pos_clip.shape[:1] + tri.shape + pos_clip.shape[2:])
+    return triangle_setup_from_corners(corners, degenerate)
 
 
 def _cross(a, b):

@@ -121,12 +121,16 @@ def shade_rows(
 ) -> Dict[str, object]:
     """One row gather by triangle id, then :func:`shade_from_rows`
     (``shade.py:111-138``): ids (B, H, W) (+1, 0 = background), packed
-    (B, T, 32), differentiable.  The dict also holds 'rows', the gathered
-    rows channel-planar (B, 32, H, W), zero on background."""
+    (B, T, 32), differentiable; the gather's backward sums each triangle's
+    pixels in ascending pixel order (``rasterize.IndexRows``).  The dict
+    also holds 'rows', the gathered rows channel-planar (B, 32, H, W), zero
+    on background."""
+    from diffdope_tpu_torch.render.rasterize import gather_rows
+
     b = ids.shape[0]
-    idx = (ids.long() - 1).clamp(min=0).reshape(b, -1, 1)
-    rows = packed.gather(1, idx.expand(-1, -1, PACKED_WIDTH))
-    rows = torch.where((ids > 0).reshape(b, -1, 1), rows, torch.zeros_like(rows))
+    fg = (ids > 0).reshape(b, -1)
+    rows = gather_rows(packed, (ids.long() - 1).clamp(min=0).reshape(b, -1), fg)
+    rows = torch.where(fg[..., None], rows, torch.zeros_like(rows))
     rows = rows.permute(0, 2, 1).reshape((b, PACKED_WIDTH) + tuple(ids.shape[1:]))
     out = shade_from_rows(ids, rows, resolution, attr_channels,
                           stack_outputs=stack_outputs)

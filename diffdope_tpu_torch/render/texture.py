@@ -9,11 +9,17 @@ samplers of the semi-fused exact-texture loss, ``texture_planar``,
 ``texture_planar_packed4`` (:119-162, 280-459).
 
 Every expression keeps the reference's f32 operation order, so the same
-inputs give the same samples.  The gathers' backward is autograd's
-scatter-add (the reference's take / take_along_axis transposes), except
-for :class:`TexturePlanarPacked4`, whose backward is the reference's
-regather-free VJP.  No kernel here: the texel gathers run as torch ops on
-the card as they ran as XLA ops on the TPU (ROADMAP queue 2 §C).
+inputs give the same samples.  The texel gathers are
+``rasterize.IndexRows`` (the transposes of the reference's take /
+take_along_axis), whose backward sums each texel's taps in a fixed order,
+so a texture's gradient repeats bit for bit on the card: per tap, in
+ascending pixel order; a texture shared by the B hypotheses sums every
+hypothesis's taps in ascending flat order, hypothesis by hypothesis; the
+'zero' mode's outside taps are left out; autograd adds the four taps'
+sums.  :class:`TexturePlanarPacked4`'s backward is the reference's
+regather-free VJP.  No TPU kernel here: the texel gathers run as torch
+ops on the card as they ran as XLA ops on the TPU (ROADMAP queue 2 §C),
+their backward the segmented sum.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from diffdope_tpu_torch.render.rasterize import gather_rows
 
 FILTER_MODES = (
     "nearest", "linear", "linear-mipmap-nearest", "linear-mipmap-linear",
@@ -66,8 +74,8 @@ def _mip_lod(uv_da: torch.Tensor, th: int, tw: int, n_levels: int) -> torch.Tens
 
 
 def _bilinear_any_level(flat, offsets, ths, tws, level, uv, boundary_mode: str):
-    """Bilinear sample at a per-pixel pyramid level: ``flat`` (B, sum of
-    the levels' texels, C), ``offsets``/``ths``/``tws`` per-level int
+    """Bilinear sample at a per-pixel pyramid level: ``flat`` (B or 1, sum
+    of the levels' texels, C), ``offsets``/``ths``/``tws`` per-level int
     tables indexed by ``level`` (B, H, W)."""
     th_l, tw_l, off = ths[level], tws[level], offsets[level]
     fx = uv[..., 0] * tw_l.to(uv.dtype) - 0.5
@@ -82,10 +90,10 @@ def _bilinear_any_level(flat, offsets, ths, tws, level, uv, boundary_mode: str):
         inside = (ix >= 0) & (ix < tw_l) & (iy >= 0) & (iy < th_l)
         lin = (off + _wrap_index(iy, th_l, boundary_mode) * tw_l
                + _wrap_index(ix, tw_l, boundary_mode)).reshape(b, -1)
-        val = flat.gather(1, lin[..., None].expand(-1, -1, c)).reshape(ix.shape + (c,))
-        if boundary_mode == "zero":
-            val = torch.where(inside[..., None], val, torch.zeros_like(val))
-        return val
+        if boundary_mode != "zero":
+            return gather_rows(flat, lin).reshape(ix.shape + (c,))
+        val = gather_rows(flat, lin, inside.reshape(b, -1)).reshape(ix.shape + (c,))
+        return torch.where(inside[..., None], val, torch.zeros_like(val))
 
     c00, c10 = tap(x0, y0), tap(x0 + 1, y0)
     c01, c11 = tap(x0, y0 + 1), tap(x0 + 1, y0 + 1)
@@ -94,17 +102,17 @@ def _bilinear_any_level(flat, offsets, ths, tws, level, uv, boundary_mode: str):
     return top * (1.0 - ay) + bot * ay
 
 
-def _gather_texels(tex: torch.Tensor, ix, iy, boundary_mode: str) -> torch.Tensor:
+def _gather_texels(tex: torch.Tensor, ix, iy, boundary_mode: str,
+                   valid=None) -> torch.Tensor:
     """tex[b, iy, ix, :] of a (B|1, TH, TW, C) texture under the boundary
-    mode (the caller masks 'zero')."""
+    mode (the caller masks 'zero', whose taps outside ``valid`` take no
+    part in the gradient's sums)."""
     tb, th, tw, c = tex.shape
     b = ix.shape[0]
     lin = (_wrap_index(iy, th, boundary_mode) * tw
            + _wrap_index(ix, tw, boundary_mode)).reshape(b, -1)
-    flat = tex.reshape(tb, th * tw, c)
-    if tb == 1 and b > 1:
-        flat = flat.expand(b, -1, -1)
-    return flat.gather(1, lin[..., None].expand(-1, -1, c)).reshape(ix.shape + (c,))
+    return gather_rows(tex.reshape(tb, th * tw, c), lin,
+                       None if valid is None else valid.reshape(b, -1)).reshape(ix.shape + (c,))
 
 
 def texture(tex: torch.Tensor, uv: torch.Tensor, uv_da: Optional[torch.Tensor] = None,
@@ -140,8 +148,6 @@ def texture(tex: torch.Tensor, uv: torch.Tensor, uv_da: Optional[torch.Tensor] =
         offsets = torch.tensor([sum(sizes[:i]) for i in range(n)], dtype=torch.long,
                                device=dev)
         flat = torch.cat([lv.reshape(tb, -1, c) for lv in levels], dim=1)
-        if tb == 1 and b > 1:
-            flat = flat.expand(b, -1, -1)
         lod = _mip_lod(uv_da.detach(), th, tw, n)
         if filter_mode == "linear-mipmap-nearest":
             return _bilinear_any_level(flat, offsets, ths, tws, torch.round(lod).long(), uv,
@@ -158,11 +164,11 @@ def texture(tex: torch.Tensor, uv: torch.Tensor, uv_da: Optional[torch.Tensor] =
     fy = uv[..., 1] * th - 0.5
 
     def tap(ix, iy):
-        val = _gather_texels(tex, ix, iy, boundary_mode)
-        if boundary_mode == "zero":
-            inside = ((ix >= 0) & (ix < tw) & (iy >= 0) & (iy < th))[..., None]
-            val = torch.where(inside, val, torch.zeros_like(val))
-        return val
+        if boundary_mode != "zero":
+            return _gather_texels(tex, ix, iy, boundary_mode)
+        inside = (ix >= 0) & (ix < tw) & (iy >= 0) & (iy < th)
+        val = _gather_texels(tex, ix, iy, boundary_mode, inside)
+        return torch.where(inside[..., None], val, torch.zeros_like(val))
 
     if filter_mode == "nearest":
         return tap(torch.floor(fx + 0.5).long(), torch.floor(fy + 0.5).long())
@@ -194,16 +200,18 @@ def texture_planar(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     Differentiable in u/v and tex."""
     th, tw, c = tex.shape
     x0, y0, ax, ay = _corners(u, v, th, tw)
-    flat = [tex[..., ch].reshape(-1) for ch in range(c)]
+    flat = tex.reshape(1, th * tw, c)
 
     def tap(ix, iy):
         lin = (_wrap_index(iy, th, boundary_mode) * tw
-               + _wrap_index(ix, tw, boundary_mode)).reshape(-1)
-        vals = [fc[lin].reshape(ix.shape) for fc in flat]
-        if boundary_mode == "zero":
-            inside = (ix >= 0) & (ix < tw) & (iy >= 0) & (iy < th)
-            vals = [torch.where(inside, vv, torch.zeros_like(vv)) for vv in vals]
-        return vals
+               + _wrap_index(ix, tw, boundary_mode)).reshape(1, -1)
+        if boundary_mode != "zero":
+            texels = gather_rows(flat, lin)[0]
+        else:
+            inside = ((ix >= 0) & (ix < tw) & (iy >= 0) & (iy < th)).reshape(1, -1)
+            texels = gather_rows(flat, lin, inside)[0]
+            texels = torch.where(inside[0, :, None], texels, torch.zeros_like(texels))
+        return [texels[:, ch].reshape(ix.shape) for ch in range(c)]
 
     c00, c10 = tap(x0, y0), tap(x0 + 1, y0)
     c01, c11 = tap(x0, y0 + 1), tap(x0 + 1, y0 + 1)

@@ -29,6 +29,7 @@ from diffdope_tpu_torch.optimize import pose_matrix
 from torch_scene import one_torch_thread  # noqa: F401
 
 import test_torch_refine_capture as capture
+import test_torch_repeatable as repeatable
 
 pytestmark = pytest.mark.cuda
 
@@ -219,9 +220,9 @@ def test_rasterize_on_card_matches_cpu(problem, params):
     """The rasterize op through K8 on the card and through its plain twin on
     the CPU: the same setup bits, so ids, rast and rast_db equal; the
     gradient to the clip positions rtol 2e-4, atol 1e-6 plus 1e-6 of the
-    vertex's largest component (the gathers' backward adds with atomics on
-    the card, and a component that sums cancelling per-pixel terms keeps
-    their rounding: tests/test_torch_rasterize.py)."""
+    vertex's largest component (the torch ops around the gathers round
+    apart on the two devices, and a component that sums cancelling
+    per-pixel terms keeps their rounding: tests/test_torch_rasterize.py)."""
     from diffdope_tpu_torch.render.rasterize import rasterize
 
     tri = problem["scene"]["tri"]
@@ -333,13 +334,11 @@ def test_planar_fused_loss_on_card_matches_cpu(problem, params, route):
         total, _ = fn(mtx)
         grads = torch.autograd.grad(total, list(p.values()))
         out[device] = (total.detach().cpu(), [g.cpu() for g in grads], dict(kernels.launches))
-    # on 'v2' the segmented sum adds each triangle's slot cotangents, once
-    # per hypothesis
+    # on 'v2' the segmented sum adds each triangle's slot cotangents, one
+    # launch for every hypothesis
     on = {c: 1 for c in (("raster_v3_fwd", "raster_v3_bwd") if route == "v3"
-                         else ("raster_uniform_fwd", "raster_uniform_bwd"))
+                         else ("raster_uniform_fwd", "raster_uniform_bwd", "index_rows_bwd"))
           + ("loss_fwd", "loss_bwd")}
-    if route == "v2":
-        on["index_rows_bwd"] = B
     launches = out["cuda"][2]
     assert all(launches[c] == on.get(c, 0) for c in launches), launches
     np.testing.assert_allclose(out["cuda"][0].numpy(), out["cpu"][0].numpy(), rtol=1e-5,
@@ -917,8 +916,9 @@ def test_api_path_gradient_repeats_and_equals_the_brute_force_on_card(problem, p
     gradient) -> antialias -> L1: the clip positions' and the colours'
     gradients repeat bit for bit from backward to backward, and equal the
     brute force's (impl='reference', whose rast is the same) bit for bit;
-    interpolate's and antialias's gathers sum in a fixed order (one launch
-    for interpolate's, one for each of antialias's two passes)."""
+    the gathers sum in a fixed order (one launch for the clip positions'
+    corner gather of rasterize's setup and one for antialias's, one for
+    interpolate's, one for each of antialias's two passes)."""
     from diffdope_tpu_torch.render.antialias import antialias
     from diffdope_tpu_torch.render.interpolate import interpolate
     from diffdope_tpu_torch.render.rasterize import rasterize
@@ -938,7 +938,7 @@ def test_api_path_gradient_repeats_and_equals_the_brute_force_on_card(problem, p
         aa = antialias(rgb, rast, pos_clip, tri, edge_adj=adj)
         kernels.reset_launches()
         grads = torch.autograd.grad((aa - target).abs().mean(), (pos_clip, attr))
-        assert kernels.launches["index_rows_bwd"] == 3, kernels.launches
+        assert kernels.launches["index_rows_bwd"] == 5, kernels.launches
         out[run] = (rast.detach(), *grads)
     assert float(out["k8"][1].abs().max()) > 0 and float(out["k8"][2].abs().max()) > 0
     for run in ("again", "brute"):
@@ -1232,26 +1232,20 @@ def test_graph_refine_equals_eager_on_card(cuda, route, monkeypatch):
     built on the card at 64x96, B=3 ('compact_bf16' the bench problem):
     4 steps as graph replays equal the eager loop's bit for bit (poses,
     totals, logs, telemetry, params), with equal launch counts, one a
-    step for each kernel of the bench route.  Both run under torch's
-    deterministic algorithms: the brute force's plain gathers add their
-    cotangents with atomics otherwise, and two eager runs of it then
-    differ."""
+    step for each kernel of the bench route.  Not under torch's
+    deterministic algorithms: no step sums floats through autograd's
+    scatters (tests/test_torch_repeatable.py)."""
     from diffdope_tpu_torch.optimize import refine
 
-    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     params0, kw = capture.ROUTES[route](monkeypatch, cuda)
     optimizer, base_lr = capture.optimizer_of(route)
     out = {}
-    torch.use_deterministic_algorithms(True)
-    try:
-        for graph in (True, False):
-            kernels.reset_launches()
-            res = refine(params0, nb_iterations=3, base_lr=base_lr, optimizer=optimizer,
-                         cuda_graph=graph, **kw)
-            torch.cuda.synchronize()
-            out[graph] = res, {k: v for k, v in kernels.launches.items() if v}
-    finally:
-        torch.use_deterministic_algorithms(False)
+    for graph in (True, False):
+        kernels.reset_launches()
+        res = refine(params0, nb_iterations=3, base_lr=base_lr, optimizer=optimizer,
+                     cuda_graph=graph, **kw)
+        torch.cuda.synchronize()
+        out[graph] = res, {k: v for k, v in kernels.launches.items() if v}
     (g, lg), (e, le) = out[True], out[False]
     assert lg == le, (lg, le)
     assert all(n % 4 == 0 for n in lg.values()), lg  # whole steps
@@ -1259,6 +1253,30 @@ def test_graph_refine_equals_eager_on_card(cuda, route, monkeypatch):
         assert lg["pack_fwd"] == lg["loss_bwd_bf16"] == 4, lg
     _assert_same_result(g, e)
     assert g.opt_state["count"] == e.opt_state["count"] == 4
+
+
+@pytest.mark.parametrize("case", repeatable.CASES)
+def test_eager_refine_repeats_on_card(cuda, case, monkeypatch):
+    """Every route of ``test_graph_refine_equals_eager_on_card`` and the
+    vertex-colour and corner-colour appearance leaves, built on the card:
+    the eager loop twice, 4 steps, not under torch's deterministic
+    algorithms, equal bit for bit (poses, totals, logs, telemetry, params)
+    with equal launch counts: every gather's backward sums in a fixed
+    order."""
+    from diffdope_tpu_torch.optimize import refine
+
+    params0, kw = repeatable.build(case, monkeypatch, cuda)
+    optimizer, base_lr = repeatable.optimizer_of(case)
+    out = []
+    for _ in range(2):
+        kernels.reset_launches()
+        res = refine(params0, nb_iterations=3, base_lr=base_lr, optimizer=optimizer,
+                     cuda_graph=False, **kw)
+        torch.cuda.synchronize()
+        out.append((res, {k: v for k, v in kernels.launches.items() if v}))
+    (a, la), (b, lb) = out
+    assert la == lb, (la, lb)
+    _assert_same_result(a, b)
 
 
 def test_step_that_reads_the_host_raises_on_card(problem):
@@ -1316,10 +1334,10 @@ def test_k9_backward_captures_on_card(problem, params):
 
 
 def test_slot_sums_on_card_match_cpu(cuda):
-    """The ``DD_BINNED=0`` route's slot sums (the segmented sum once per
-    hypothesis over the slots sorted by triangle) equal the CPU's index_add
-    in slot order bit for bit: both add each triangle's slots in ascending
-    slot order, sentinels (index T) left out."""
+    """The ``DD_BINNED=0`` route's slot sums (the segmented sum, one launch
+    for every hypothesis, over the slots sorted by triangle) equal the
+    CPU's index_add in slot order bit for bit: both add each triangle's
+    slots in ascending slot order, sentinels (index T) left out."""
     from diffdope_tpu_torch.render.rasterize import slot_sums
 
     rng = np.random.default_rng(5)
@@ -1330,5 +1348,38 @@ def test_slot_sums_on_card_match_cpu(cuda):
     got = slot_sums(torch.as_tensor(d_bins, device="cuda"),
                     torch.as_tensor(tile_idx, device="cuda"), t_count)
     want = slot_sums(torch.as_tensor(d_bins), torch.as_tensor(tile_idx), t_count)
-    assert kernels.launches["index_rows_bwd"] == B
+    assert kernels.launches["index_rows_bwd"] == 1
     assert torch.equal(got.cpu(), want)
+
+
+def test_strided_segment_sum_on_card(cuda):
+    """The segmented sum reading d_bins (B, 32, slots) in place through its
+    strides, one launch, equals bit for bit the per-hypothesis sums of
+    d_bins transposed into a contiguous (slots, 32) buffer (the form
+    before the strides, through ``setup_rows_bwd``) and the CPU path, at
+    B = 4 with sentinel slots, empty triangles and a triangle in every
+    tile; and it reads no sentinel slot (NaN there changes nothing)."""
+    from diffdope_tpu_torch.render.rasterize import setup_rows_bwd, slot_sums
+
+    rng = np.random.default_rng(23)
+    b, t_count, n_tiles, k = 4, 97, 40, 64
+    tile_idx = rng.integers(0, t_count + 1, size=(n_tiles, k))
+    tile_idx[:, k // 2:] = t_count  # every tile's tail: sentinels
+    tile_idx[:, 0] = 5  # one triangle held in every tile
+    tile_idx[tile_idx == 11] = 12  # triangle 11 held nowhere
+    tile_idx = torch.as_tensor(tile_idx.astype(np.int32), device="cuda")
+    d_bins = torch.as_tensor(rng.normal(size=(b, 32, n_tiles * k)).astype(np.float32),
+                             device="cuda")
+    d_bins[:, :, (tile_idx.reshape(-1) == t_count)] = float("nan")
+    kernels.reset_launches()
+    got = slot_sums(d_bins, tile_idx, t_count)
+    assert kernels.launches["index_rows_bwd"] == 1
+    flat = tile_idx.reshape(1, -1)
+    ids = torch.where(flat < t_count, flat + 1, 0).to(torch.int32)
+    old = torch.stack([setup_rows_bwd(d_bins[i].t().contiguous()[None], ids, t_count)[0]
+                       for i in range(b)]).permute(0, 2, 1)
+    want = slot_sums(d_bins.cpu(), tile_idx.cpu(), t_count)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, old)
+    assert torch.equal(got.cpu(), want)
+    assert bool((got[:, :, 11] == 0).all()) and bool((got[:, :, 5] != 0).all())

@@ -139,11 +139,12 @@ class HostSyncs(TorchDispatchMode):
 
 
 @contextlib.contextmanager
-def syncs_for(monkeypatch):
-    """A ``HostSyncs`` mode armed from each step's ``pose_matrix`` to its
-    ``step_callback`` (``refine(step_callback=mode.callback)``), the
-    kernels' plain twins paused."""
-    mode = HostSyncs()
+def syncs_for(monkeypatch, mode=None):
+    """A ``HostSyncs`` mode (or ``mode``, one of its subclasses) armed from
+    each step's ``pose_matrix`` to its ``step_callback``
+    (``refine(step_callback=mode.callback)``), the kernels' plain twins
+    paused."""
+    mode = HostSyncs() if mode is None else mode
 
     def paused(fn):
         @functools.wraps(fn)
@@ -216,9 +217,11 @@ def _bop(mp, device="cpu"):
     return pb["params0"], dict(fused_loss_fn=fn, gt=pb["gt"], learning_rates=pb["lrs"])
 
 
-def _session(mp, fused_loss=True, textured=False, raster_impl="pallas", device="cpu"):
+def _session(mp, fused_loss=True, textured=False, raster_impl="pallas", device="cpu",
+             texture_mode="exact"):
     """A DiffDope on the scene (the gt its own render near the init, on
-    the CPU)."""
+    the CPU); a textured mesh refines its appearance, under
+    ``texture_mode``."""
     import diffdope_tpu_torch as tdd
     from diffdope_tpu_torch.mesh import build_edge_adjacency
     from diffdope_tpu_torch.render.pipeline import render_batch
@@ -250,7 +253,7 @@ def _session(mp, fused_loss=True, textured=False, raster_impl="pallas", device="
                  "tpu.progress=false", "losses.l1_rgb_with_mask=true",
                  f"tpu.fused_loss={str(fused_loss).lower()}"]
     if textured:
-        overrides.append("tpu.texture_mode=exact")
+        overrides.append(f"tpu.texture_mode={texture_mode}")
     cfg = tdd.load_config(ROOT / "configs" / "diffdope.yaml", overrides)
     return tdd.DiffDope(cfg=cfg, camera=camera, object3d=obj, scene=scene, device=device)
 
@@ -265,9 +268,17 @@ def _unfused(mp, device="cpu", raster_impl="pallas"):
         learning_rates=dd.learning_rates, weights=dd.loss_weights)
 
 
-def _appearance(mp, device="cpu"):
-    """DiffDope's appearance refinement: the texture a leaf (phase 15)."""
-    dd = _session(mp, textured=True, device=device)
+def _appearance(mp, device="cpu", leaf="tex"):
+    """DiffDope's appearance refinement (phase 15): the texture a leaf, or
+    the baked corner colours ('corner_colors'), or the vertex colours
+    ('vtx_color')."""
+    if leaf == "vtx_color":
+        dd = _session(mp, device=device)
+        dd.object3d.mesh.enable_gradients_texture()
+    else:
+        dd = _session(mp, textured=True, device=device,
+                      texture_mode="exact" if leaf == "tex" else "baked")
+    assert set(dd._appearance()) == {leaf}
     gt = {k: torch.as_tensor(v, device=device) for k, v in dd.gt_tensors.items()}
     return dd.object3d.initial_params(B, device), dict(
         render_fn=dd._make_render_fn(), loss_fns=tuple(dd.loss_functions), gt=gt,

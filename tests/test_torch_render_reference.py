@@ -15,8 +15,8 @@ in tests/test_torch_render_batch.py); rast's (u, v, z/w) rtol 1e-5, atol
 1e-4: the jitted JAX side also evaluates the edge and depth planes with
 FMAs, and where their terms cancel that moves u, v and z/w by up to
 1.6e-5 here (the rasterize op itself, eager, holds atol 1e-6 in
-tests/test_torch_rasterize.py); the pose gradient of a weighted sum rtol
-2e-4, atol 1e-6.
+tests/test_torch_rasterize.py); the pose and the vertex colours'
+gradients of a weighted sum rtol 2e-4, atol 1e-6.
 """
 
 import copy
@@ -78,19 +78,20 @@ def renders(request):
             return out["mask"], jnp.stack(out["rgb"], axis=-1)
         return out["mask"][..., 0], out["rgb"]
 
-    def j_objective(mtx):
+    def j_objective(mtx, vtx_color):
         out = j_render_batch(sc["proj"], mtx, sc["pos"], sc["tri"], RES,
-                             vtx_color=sc["vtx_color"], edge_adj=sc["edge_adj"],
+                             vtx_color=vtx_color, edge_adj=sc["edge_adj"],
                              layout=layout, **RENDER_KW)
         mask, rgb = planes(out)
         total = (jnp.sum(mask * w_mask) + jnp.sum(rgb * w_rgb)
                  + jnp.sum(out["rast_out"] * w_rast))
         return total, out
 
-    (_, ref), grad = jax.jit(jax.value_and_grad(j_objective, has_aux=True))(
-        jnp.asarray(sc["mtx0"]))
+    (_, ref), (grad, grad_color) = jax.jit(jax.value_and_grad(
+        j_objective, argnums=(0, 1), has_aux=True))(jnp.asarray(sc["mtx0"]),
+                                                     jnp.asarray(sc["vtx_color"]))
     ref = jax.tree.map(np.asarray, ref)
-    ref["grad"] = np.asarray(grad)
+    ref["grad"], ref["grad_color"] = np.asarray(grad), np.asarray(grad_color)
 
     coef_ref = torch.tensor(_jax_coef(sc))
     own = pipeline.triangle_setup_from_corners
@@ -102,9 +103,10 @@ def renders(request):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pipeline, "triangle_setup_from_corners", swapped)
         mtx = torch.tensor(sc["mtx0"], requires_grad=True)
+        color = torch.tensor(sc["vtx_color"], requires_grad=True)
         kernels.reset_launches()
         got = render_batch(sc["proj"], mtx, sc["pos"], sc["tri"], RES,
-                           vtx_color=sc["vtx_color"], edge_adj=sc["edge_adj"],
+                           vtx_color=color, edge_adj=sc["edge_adj"],
                            layout=layout, device="cpu", **RENDER_KW)
     assert not any(kernels.launches.values())
     if layout == "channels":
@@ -113,7 +115,7 @@ def renders(request):
         mask, rgb = got["mask"][..., 0], got["rgb"]
     total = ((mask * torch.tensor(w_mask)).sum() + (rgb * torch.tensor(w_rgb)).sum()
              + (got["rast_out"] * torch.tensor(w_rast)).sum())
-    (got["grad"],) = torch.autograd.grad(total, mtx)
+    got["grad"], got["grad_color"] = torch.autograd.grad(total, (mtx, color))
     return layout, ref, got
 
 
@@ -144,6 +146,16 @@ def test_torch_render_reference_pose_gradient(renders):
     _, ref, got = renders
     assert np.abs(ref["grad"]).max() > 0
     np.testing.assert_allclose(got["grad"].numpy(), ref["grad"], rtol=2e-4, atol=1e-6)
+
+
+def test_torch_render_reference_color_gradient(renders):
+    """The vertex colours' gradient: through the colours' corner gather and
+    the brute force's row gather (``shade_rows``), each summed in a fixed
+    order (``rasterize.IndexRows``)."""
+    _, ref, got = renders
+    assert np.abs(ref["grad_color"]).max() > 0
+    np.testing.assert_allclose(got["grad_color"].numpy(), ref["grad_color"], rtol=2e-4,
+                               atol=1e-6)
 
 
 def test_torch_render_batch_auto_rule():
