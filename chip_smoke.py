@@ -309,19 +309,28 @@ result line):
    coding (and the DWAA depth with data, and the float RGB) equal to cv2
    in both modes, its read times (best of three) beside rgb.png's;
 26. the compiled refinement (``compiled_refine_phase``): the bench main
-   path and phase 5's default configuration, each run as the eager loop
-   (``refine(cuda_graph=False)``) and as graph replays, in turns: equal
-   bit for bit with equal launches, phase 5's the session's own run;
-   their wall times, peak memory, step 0 and capture times and device
-   busy shares printed, and the set-up ``torch.cuda.graph`` would add to
-   each capture (a synchronize, ``empty_cache``, ``gc.collect``), which
-   ``refine`` skips.
+   path, phase 5's default configuration and phase 17 (a)'s synthesized
+   sweep, each as the eager loop (``cuda_graph=False``) beside graph
+   replays with a capture per call (each ``refine`` call, segment or
+   object its own) and with the capture kept (the bench's one
+   ``optimize.CapturedRefine`` across the warm-up and the timed runs;
+   ``DiffDope``'s one a run for its segments; the sweep context's one for
+   every object and level; and for phase 5 one kept across runs too), in
+   turns: every graph run equal to every eager run bit for bit with
+   equal launches, phase 5's the session's own run; printed for each
+   mode: the captures in a run, its step 0 and capture times, a replay's
+   time, wall time and peak memory, the kept graph's pool, and the device
+   busy share; and the set-up ``torch.cuda.graph`` would add to each
+   capture (a synchronize, ``empty_cache``, ``gc.collect``), which the
+   capture skips.
 
-Every refinement above runs as ``optimize.refine`` runs it by default:
-step 0 eagerly, then one captured CUDA graph replayed for every later
-step (a refine call each, so a segment each), the launch counts those
-the card ran; phase 19's ranks, under a process group, run the eager
-loop.
+Every refinement above runs as the port's entry points run it by
+default: one ``optimize.CapturedRefine`` a run (the bench main path: one
+across its warm-up and timed run; phase 17 (a): one a sweep context),
+its step 0 eager, then one captured CUDA graph replayed for every later
+step of every segment, restart and call, the launch counts those the
+card ran (each run's captures printed); phase 19's ranks, under a
+process group, run the eager loop.
 
 K5/K6's colour lane (with and without the depth plane) and K1/K2 at the uv
 table's two channels are held to their plain versions at the test scene
@@ -656,7 +665,8 @@ def diffdope_phase(fused: bool, gpu: str, route: str, tpu=None, losses=None,
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        dd.run_optimization()
+        with Captures() as caps:
+            dd.run_optimization()
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         launches = dict(kernels.launches)
@@ -686,7 +696,10 @@ def diffdope_phase(fused: bool, gpu: str, route: str, tpu=None, losses=None,
           f"kept run {stats['wall_time_s']:.4f} s, {stats['steps_per_sec']:.3f} steps/s; "
           f"run_optimization {total_s:.4f} s with {stats['recovery_reruns']} re-run(s); "
           f"peak {peak_gib:.3f} GiB [{gpu}]", flush=True)
-    print(f"DiffDope {route} launches: {launches}", flush=True)
+    print(f"DiffDope {route} launches: {launches}; {caps.summary()}", flush=True)
+    if caps.count != stats["recovery_reruns"] + 1:
+        fail(f"DiffDope {route}: {caps.count} captures for {stats['recovery_reruns'] + 1} "
+             f"dispatch(es): each run's segments share one")
     return (dd, launches, add_to(points, mtx_gt, dd.object3d.initial_matrix()),
             add_to(points, mtx_gt, dd.get_pose()))
 
@@ -1687,16 +1700,17 @@ def appearance_phase(gpu):
 
 class BinningInRefine:
     """Counts the per-step binnings (``pipeline.bin_triangles_planar``
-    called while ``optimize.refine`` runs) for as long as it is entered;
-    the capacity probes, the precompute and the final-pose check bin
-    outside the refinement."""
+    called while a ``optimize.CapturedRefine`` call runs: every segment
+    and restart chunk of a run) for as long as it is entered; the capacity
+    probes, the precompute and the final-pose check bin outside the
+    refinement."""
 
     def __enter__(self):
         from diffdope_tpu_torch import optimize
         from diffdope_tpu_torch.render import pipeline
 
         self.count, self._in = 0, False
-        self._saved = (pipeline.bin_triangles_planar, optimize.refine)
+        self._saved = (pipeline.bin_triangles_planar, optimize.CapturedRefine.__call__)
         bin_fn, refine_fn = self._saved
 
         def counted_bins(*args, **kwargs):
@@ -1710,14 +1724,49 @@ class BinningInRefine:
             finally:
                 self._in = False
 
-        pipeline.bin_triangles_planar, optimize.refine = counted_bins, counted_refine
+        pipeline.bin_triangles_planar = counted_bins
+        optimize.CapturedRefine.__call__ = counted_refine
         return self
 
     def __exit__(self, *exc):
         from diffdope_tpu_torch import optimize
         from diffdope_tpu_torch.render import pipeline
 
-        pipeline.bin_triangles_planar, optimize.refine = self._saved
+        pipeline.bin_triangles_planar, optimize.CapturedRefine.__call__ = self._saved
+
+
+class Captures:
+    """The CUDA graphs captured (``optimize.CapturedRefine``'s captures)
+    while entered: each capture's host time (s) and the bytes its memory
+    pool reserved."""
+
+    def __enter__(self):
+        from diffdope_tpu_torch import optimize
+
+        self.times, self.pools = [], []
+        self._own = own = optimize.CapturedRefine._capture
+
+        def counted(refine, trace):
+            t0 = time.perf_counter()
+            own(refine, trace)
+            self.times.append(time.perf_counter() - t0)
+            self.pools.append(trace.pool_bytes)
+
+        optimize.CapturedRefine._capture = counted
+        return self
+
+    def __exit__(self, *exc):
+        from diffdope_tpu_torch import optimize
+
+        optimize.CapturedRefine._capture = self._own
+
+    @property
+    def count(self) -> int:
+        return len(self.times)
+
+    def summary(self) -> str:
+        return (f"{self.count} capture(s) of {[round(1e3 * t, 3) for t in self.times]} ms, "
+                f"pools {[round(b / 2 ** 20, 1) for b in self.pools]} MiB")
 
 
 class LogLines:
@@ -2898,30 +2947,36 @@ def exr_phase(gpu: str) -> None:
 
 
 class RefineRecorder:
-    """Records every ``bop.refine`` call of the synthesized sweep (the
-    contexts bind ``bop.refine`` when they are built): its fused loss, its
-    ground truth and its result, in order."""
+    """Records every call of the synthesized sweep's refinement (each
+    context's ``optimize.CapturedRefine``): its fused loss, its ground
+    truth and its result, in order, with its context's compact capacity
+    and per-tile cap (``caps``, by fused loss: the cache keeps the last
+    context only)."""
 
     def __init__(self):
-        self.calls = []
+        self.calls, self.caps = [], {}
 
     def __enter__(self):
-        from diffdope_tpu_torch import bop
+        from diffdope_tpu_torch import bop, optimize
 
-        self._bop, self._own = bop, bop.refine
+        self._cls, self._own = optimize.CapturedRefine, optimize.CapturedRefine.__call__
 
-        def recorded(*args, **kwargs):
-            result = self._own(*args, **kwargs)
-            self.calls.append((kwargs["fused_loss_fn"], kwargs["gt"], result))
+        def recorded(refine, *args, **kwargs):
+            result = self._own(refine, *args, **kwargs)
+            fn = refine.fused_loss_fn
+            for ctx in bop._synth_ctx_cache.values():
+                if ctx["fused"] is fn:
+                    self.caps[id(fn)] = (ctx["compact_total"], ctx["max_tris_per_tile"])
+            self.calls.append((fn, kwargs["gt"], result))
             return result
 
-        bop.refine = recorded
+        self._cls.__call__ = recorded
         bop._synth_ctx_cache.clear()
         bop._synth_escalation.clear()
         return self
 
     def __exit__(self, *exc):
-        self._bop.refine = self._own
+        self._cls.__call__ = self._own
 
     def objects(self):
         """The calls grouped by object (a re-run feeds the same gt), each
@@ -2970,32 +3025,36 @@ def bop_sweep_phase(gpu: str):
     from diffdope_tpu_torch import bop, kernels
     from diffdope_tpu_torch.examples import run_bop_sweep
 
-    with tempfile.TemporaryDirectory() as tmp, RefineRecorder() as rec:
+    with (tempfile.TemporaryDirectory() as tmp, RefineRecorder() as rec,
+          Captures() as caps):
         write_error_tree(Path(tmp))
         argv = ["--data-root", tmp, "--mesh", str(HERE / SWEEP_MESH), "--device", "cuda",
                 *SWEEP_ARGS]
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.perf_counter()
         results = run_bop_sweep.main(argv)
         torch.cuda.synchronize()
         sweep_s = time.perf_counter() - t0
         launches = dict(kernels.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     groups = rec.objects()
     levels = list(results)
     per_level = len(groups) // len(levels)
     ctxs = list(bop._synth_ctx_cache.values())
     print(f"phase 17 (a): {len(levels)} levels x {per_level} objects, "
           f"{len(rec.calls)} refinements ({len(rec.calls) - len(groups)} re-runs), "
-          f"{len(ctxs)} context(s): {sweep_s:.4f} s through run_bop_sweep.main "
+          f"{len(rec.caps)} context(s), {len(ctxs)} kept, {caps.summary()}: "
+          f"{sweep_s:.4f} s through run_bop_sweep.main, peak {peak_gib:.3f} GiB "
           f"[{gpu}]", flush=True)
+    if caps.count != len(rec.caps):
+        fail(f"phase 17 (a): {caps.count} captures for {len(rec.caps)} sweep contexts")
     for i, level in enumerate(levels):
         kept = [g[-1] for g in groups[i * per_level:(i + 1) * per_level]]
         reruns = sum(len(g) - 1 for g in groups[i * per_level:(i + 1) * per_level])
-        caps = sorted({next(c["compact_total"] for c in ctxs if c["fused"] is fn)
-                       for fn, _, _ in kept})
-        caps_k = sorted({next(c["max_tris_per_tile"] for c in ctxs if c["fused"] is fn)
-                         for fn, _, _ in kept})
+        caps = sorted({rec.caps[id(fn)][0] for fn, _, _ in kept})
+        caps_k = sorted({rec.caps[id(fn)][1] for fn, _, _ in kept})
         worst = max(int(r.telemetry["_bin_overflow"].max()) for _, _, r in kept)
         need = max(int(r.telemetry["_bin_need"].max()) for _, _, r in kept)
         r = results[level]
@@ -3511,28 +3570,38 @@ def host_api_phase(gpu: str) -> None:
         fail("phase 20: the loss did not fall")
 
 
+def session_settings(dd) -> dict:
+    """What ``DiffDope.run_optimization`` builds its
+    ``optimize.CapturedRefine`` from for a plain session (no jitter,
+    restarts, appearance or sharding), on the capacities and crop its last
+    run kept: the loss, the schedule and the optimizer."""
+    use_bins = dd._use_bins()
+    fn = dd._make_fused_loss_fn(dd.gt_tensors, use_bins=use_bins)
+    return dict(render_fn=dd._make_render_fn(with_bins=use_bins) if fn is None else None,
+                loss_fns=tuple(dd.loss_functions), weights=dd.loss_weights,
+                nb_iterations=dd.nb_iterations, base_lr=dd.base_lr, lr_decay=dd.lr_decay,
+                optimizer=dd.optimizer_name, fused_loss_fn=fn)
+
+
 def session_refine(dd, cuda_graph: bool = True, **refine_kw):
     """The refinement ``DiffDope.run_optimization`` dispatches for a plain
-    session (no jitter, restarts, appearance or sharding), on the
-    capacities and crop its last run kept: ``refine_segmented`` over the
-    session's fused loss (or its render and loss functions), with
+    session: ``refine_segmented`` over :func:`session_settings`, with
     ``cuda_graph`` as given, so the eager loop and the graph run side by
     side (phase 26, ``tools/port_profile_diffdope.py``,
-    ``tools/port_step_times.py``).  ``refine_kw`` go to each ``refine``."""
+    ``tools/port_step_times.py``).  ``refine_kw`` go to
+    ``refine_segmented``: a ``jit_refine`` that every segment calls in
+    place of the run's own captured refinement, a ``step_callback``."""
     import torch
 
     from diffdope_tpu_torch.optimize import refine_segmented
 
-    use_bins = dd._use_bins()
-    fn = dd._make_fused_loss_fn(dd.gt_tensors, use_bins=use_bins)
-    render_fn = dd._make_render_fn(with_bins=use_bins) if fn is None else None
+    settings = session_settings(dd)
     gt = {k: torch.tensor(v, device=dd.device) for k, v in dd.gt_tensors.items()}
     return refine_segmented(
-        dd.object3d.initial_params(dd.batchsize, dd.device), render_fn,
-        tuple(dd.loss_functions), gt, dd.learning_rates, dd.loss_weights,
-        nb_iterations=dd.nb_iterations, segment_steps=int(dd._tpu().get("scan_segment", 40)),
-        base_lr=dd.base_lr, lr_decay=dd.lr_decay, optimizer=dd.optimizer_name,
-        fused_loss_fn=fn, cuda_graph=cuda_graph, **refine_kw)
+        dd.object3d.initial_params(dd.batchsize, dd.device), settings.pop("render_fn"),
+        settings.pop("loss_fns"), gt, dd.learning_rates, settings.pop("weights"),
+        segment_steps=int(dd._tpu().get("scan_segment", 40)), cuda_graph=cuda_graph,
+        **settings, **refine_kw)
 
 
 def result_diff(a, b) -> list:
@@ -3550,94 +3619,164 @@ def result_diff(a, b) -> list:
             if x.dtype != y.dtype or not torch.equal(x, y)]
 
 
+def timed_run(go, label: str, gpu: str):
+    """One run of ``go()`` on the card: its result, launches and captures;
+    its wall time, peak and reserved memory printed under ``label``."""
+    import torch
+
+    from diffdope_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with Captures() as caps:
+        t0 = time.perf_counter()
+        res = go()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    steps = (sum(r.total_loss.shape[0] for r in res) if isinstance(res, list)
+             else res.total_loss.shape[0])
+    print(f"{label}: {steps} steps {wall:.4f} s, {1e3 * wall / steps:.3f} ms/step, "
+          f"{caps.summary()}, peak {peak:.3f} GiB, reserved {reserved:.3f} GiB, launches "
+          f"{launches} [{gpu}]", flush=True)
+    return res, launches, caps.count
+
+
+def hold_to_eager(label: str, runs: dict) -> None:
+    """Every graph run of ``runs`` ({mode: [(result or list of results,
+    launches, captures), ...]}) equal to every eager run bit for bit, with
+    equal launches."""
+    def listed(res):
+        return res if isinstance(res, list) else [res]
+
+    for mode, graph_runs in runs.items():
+        if mode == "eager":
+            continue
+        for res_g, launches_g, _ in graph_runs:
+            for res_e, launches_e, _ in runs["eager"]:
+                g, e = listed(res_g), listed(res_e)
+                diff = ([f"{len(g)} / {len(e)} refinements"] if len(g) != len(e)
+                        else [d for a, b in zip(g, e) for d in result_diff(a, b)])
+                if diff or launches_g != launches_e:
+                    fail(f"phase 26 {label} {mode}: differs from the eager loop in {diff}, "
+                         f"launches {launches_g} / {launches_e}")
+    print(f"phase 26 {label}: every graph run ({', '.join(m for m in runs if m != 'eager')})"
+          f" equals every eager run bit for bit, with equal launches", flush=True)
+
+
+def hold_captures(label: str, runs: dict, want: dict) -> None:
+    """The captures in each timed run of each mode: ``want[mode]``."""
+    for mode, n in want.items():
+        got = [c for _, _, c in runs[mode]]
+        if any(c != n for c in got):
+            fail(f"phase 26 {label} {mode}: {got} captures a run, not {n}")
+    print(f"phase 26 {label}: captures a timed run {want}", flush=True)
+
+
 def compiled_refine_phase(problem, gpu: str) -> None:
-    """Phase 26: the compiled refinement.  The bench main path (B=64, 100
-    Adam steps, 400x400) and phase 5's default configuration (960x540,
-    B=8, 61 SGD steps in segments of 40, on the capacities and crop its
-    run kept) each run with ``cuda_graph=False`` (the eager loop) and as
-    graph replays (the default), in turns: eager, graph, graph, eager
-    after a warm-up of each.  Every graph run equals every eager run bit
-    for bit (poses, totals, logs, telemetry, params), with equal launch
-    counts; phase 5's graph run equals its session's own run (DiffDope
-    takes the graph without being asked).  Printed: each run's wall time
-    and peak memory, step 0 and each capture (a run whose step callback
-    waits for every step: the first replay's interval less a steady
-    replay's), and the device busy time a step under each (the
-    profiler's kernels, over an untraced step)."""
+    """Phase 26: the compiled refinement, kept across calls.  The bench main
+    path (B=64, 100 Adam steps, 400x400) and phase 5's default
+    configuration (960x540, B=8, 61 SGD steps in segments of 40 + 21, on
+    the capacities and crop its run kept) each run as the eager loop
+    (``cuda_graph=False``), with a capture per ``refine`` call (a run, or
+    a segment: the loop before the capture was kept), and with one
+    ``optimize.CapturedRefine`` kept (the bench's across its runs;
+    phase 5's one a run, as ``DiffDope`` dispatches it, and one kept
+    across runs), each warmed up once, then in turns forward and back.
+    Every graph run equals every eager run bit for bit (poses, totals,
+    logs, telemetry, params), with equal launch counts; phase 5's run
+    with one capture a run equals its session's own run; a kept run
+    captures nothing.  Printed: each run's wall time, peak memory and
+    captures; each graph mode's step 0 (a run whose step callback waits
+    for every step: the first step's interval), the host time of each
+    capture and a replay's interval; the kept graphs' pools; the device
+    busy time a step under each mode (the profiler's kernels, over an
+    untraced step).  Then the synthesized sweep (:func:`kept_sweep`)."""
+    import functools
     import gc
     import statistics
 
     import numpy as np
     import torch
 
-    from diffdope_tpu_torch import kernels
-    from diffdope_tpu_torch.bench import device_busy, run_refinement
+    from diffdope_tpu_torch.bench import bench_refine, device_busy, run_refinement
+    from diffdope_tpu_torch.optimize import CapturedRefine, refine
 
     dd, _, _ = diffdope_session(True)
     dd.run_optimization()  # the capacities and crop of the kept run
+    settings = session_settings(dd)
+    kept = {"bench main path": bench_refine(problem),
+            "default configuration": CapturedRefine(**settings)}
     cases = {
-        "bench main path": lambda graph, **kw: run_refinement(problem, cuda_graph=graph,
-                                                              **kw)[0],
-        "default configuration": lambda graph, **kw: session_refine(dd, graph, **kw),
+        "bench main path": {
+            "eager": lambda **kw: run_refinement(problem, cuda_graph=False, **kw)[0],
+            "capture per call": lambda **kw: run_refinement(problem, **kw)[0],
+            "kept capture": lambda **kw: run_refinement(
+                problem, jit_refine=kept["bench main path"], **kw)[0],
+        },
+        "default configuration": {
+            "eager": lambda **kw: session_refine(dd, False, **kw),
+            "capture per call": lambda **kw: session_refine(
+                dd, jit_refine=functools.partial(refine, **settings), **kw),
+            "capture per run": lambda **kw: session_refine(dd, **kw),
+            "kept capture": lambda **kw: session_refine(
+                dd, jit_refine=kept["default configuration"], **kw),
+        },
     }
-    for name, go in cases.items():
+    segments = -(-(dd.nb_iterations + 1) // int(dd._tpu().get("scan_segment", 40)))
+    captures = {"bench main path": {"capture per call": 1, "kept capture": 0},
+                "default configuration": {"capture per call": segments,
+                                          "capture per run": 1, "kept capture": 0}}
+    # warm-ups first: the kept modes' step 0 and capture come before any
+    # profiler session (on the card, replaying under torch.profiler a graph
+    # captured between two of its sessions crashed the process)
+    for modes in cases.values():
+        for go in modes.values():
+            go()
+    for name, modes in cases.items():
         runs = {}
-        for graph in (False, True):
-            go(graph)  # warm-up
-        for graph in (False, True, True, False):
-            label = "graph" if graph else "eager"
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            kernels.reset_launches()
-            t0 = time.perf_counter()
-            res = go(graph)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            launches = {k: v for k, v in kernels.launches.items() if v}
-            steps = res.total_loss.shape[0]
-            print(f"phase 26 {name} {label}: {steps} steps {wall:.4f} s, "
-                  f"{1e3 * wall / steps:.3f} ms/step, peak {peak:.3f} GiB, launches "
-                  f"{launches} [{gpu}]", flush=True)
-            runs.setdefault(label, []).append((res, launches))
-        for res_g, launches_g in runs["graph"]:
-            for res_e, launches_e in runs["eager"]:
-                diff = result_diff(res_g, res_e)
-                if diff or launches_g != launches_e:
-                    fail(f"phase 26 {name}: the graph differs from the eager loop in "
-                         f"{diff}, launches {launches_g} / {launches_e}")
-        print(f"phase 26 {name}: the graph runs equal the eager runs bit for bit, with "
-              f"equal launches", flush=True)
+        for mode in list(modes) + list(reversed(modes)):
+            runs.setdefault(mode, []).append(
+                timed_run(modes[mode], f"phase 26 {name} {mode}", gpu))
+        hold_to_eager(name, runs)
+        hold_captures(name, runs, captures[name])
+        print(f"phase 26 {name}: the kept graph's pool "
+              f"{kept[name].pool_bytes / 2 ** 20:.1f} MiB [{gpu}]", flush=True)
         if name == "default configuration":
-            res_g = runs["graph"][0][0]
+            res_g = runs["capture per run"][0][0]
             for k, v in dd.losses_values.items():
                 if not np.array_equal(res_g.losses_values[k].cpu().numpy(), v):
                     fail(f"phase 26: the session's own run differs from the graph in {k}")
             print("phase 26 default configuration: the session's own run is the graph's "
                   "bit for bit", flush=True)
         # step 0 and the captures: a callback that waits for every step
-        stamps = []
+        for mode, go in modes.items():
+            if mode == "eager":
+                continue
+            stamps = []
 
-        def stamp(i, total):
-            float(total)
-            stamps.append((i, time.perf_counter()))
+            def stamp(i, total):
+                float(total)
+                stamps.append((i, time.perf_counter()))
 
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        go(True, step_callback=stamp)
-        times = [t for _, t in stamps]
-        gaps = [b - a for a, b in zip([t0] + times, times)]
-        replay = statistics.median(g for (i, _), g in zip(stamps, gaps) if i >= 2)
-        first = [g for (i, _), g in zip(stamps, gaps) if i == 0]
-        capture = [g - replay for (i, _), g in zip(stamps, gaps) if i == 1]
-        print(f"phase 26 {name}: step 0 (eager, on a side stream) "
-              f"{[round(1e3 * g, 3) for g in first]} ms, capture "
-              f"{[round(1e3 * c, 3) for c in capture]} ms, a replay waited for "
-              f"{1e3 * replay:.3f} ms [{gpu}]", flush=True)
-        # what torch.cuda.graph runs before each capture, and refine skips:
-        # a synchronize and empty_cache, and gc.collect (always, or where
-        # torch.compiler.config.force_cudagraph_gc is set)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with Captures() as caps:
+                go(step_callback=stamp)
+            times = [t for _, t in stamps]
+            gaps = [b - a for a, b in zip([t0] + times, times)]
+            replay = statistics.median(g for (i, _), g in zip(stamps, gaps) if i >= 2)
+            first = [g for (i, _), g in zip(stamps, gaps) if i == 0]
+            print(f"phase 26 {name} {mode}: step 0 of each call waited for "
+                  f"{[round(1e3 * g, 3) for g in first]} ms, {caps.summary()} (host), a "
+                  f"replay waited for {1e3 * replay:.3f} ms [{gpu}]", flush=True)
+        # what torch.cuda.graph runs before each capture, and the capture
+        # skips: a synchronize and empty_cache, and gc.collect (always, or
+        # where torch.compiler.config.force_cudagraph_gc is set)
         setup = {"synchronize + empty_cache": [], "gc.collect": []}
         for _ in range(3):
             t0 = time.perf_counter()
@@ -3648,13 +3787,13 @@ def compiled_refine_phase(problem, gpu: str) -> None:
             setup["synchronize + empty_cache"].append(round(1e3 * (t1 - t0), 3))
             setup["gc.collect"].append(round(1e3 * (time.perf_counter() - t1), 3))
         force = getattr(getattr(torch.compiler, "config", None), "force_cudagraph_gc", None)
-        print(f"phase 26 {name}: torch.cuda.graph's set-up, which refine's capture skips: "
+        print(f"phase 26 {name}: torch.cuda.graph's set-up, which the capture skips: "
               f"{setup} ms (force_cudagraph_gc {force}) [{gpu}]", flush=True)
-        for graph in (True, False):
-            label = "graph" if graph else "eager"
+    for name, modes in cases.items():
+        for mode, go in modes.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = go(graph)
+            res = go()
             torch.cuda.synchronize()
             steps = res.total_loss.shape[0]
             step_ms = 1e3 * (time.perf_counter() - t0) / steps
@@ -3662,7 +3801,7 @@ def compiled_refine_phase(problem, gpu: str) -> None:
             def traced():
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-                out = go(graph)
+                out = go()
                 torch.cuda.synchronize()
                 return out, time.perf_counter() - t
 
@@ -3671,24 +3810,104 @@ def compiled_refine_phase(problem, gpu: str) -> None:
             top = sorted((e for e in events
                           if e.device_type == torch.autograd.DeviceType.CUDA),
                          key=lambda e: -e.self_device_time_total)[:5]
-            print(f"phase 26 {name} {label}: device busy {busy:.4f} ms a step of an "
+            print(f"phase 26 {name} {mode}: device busy {busy:.4f} ms a step of an "
                   f"untraced {step_ms:.4f} ms ({100 * busy / step_ms:.1f}%); traced "
                   f"{1e3 * wall / steps:.4f} ms a step; top "
                   f"{[(e.key[:40], round(e.self_device_time_total / 1e3 / steps, 4)) for e in top]}"
                   f" [{gpu}]", flush=True)
-    del dd
+    del dd, kept, cases
+    torch.cuda.empty_cache()
+    kept_sweep(gpu)
+
+
+def kept_sweep(gpu: str) -> None:
+    """Phase 26's synthesized sweep: phase 17 (a)'s configuration
+    (``SWEEP_ARGS``, its tree of three levels of three objects) through
+    ``bop.sweep_perturbation_levels``, its context's refinement as the
+    eager loop, as a capture per object (a fresh ``CapturedRefine`` a
+    call: the bare ``refine`` of the loop before), and as the context's
+    one kept ``CapturedRefine``; each mode a warm-up sweep (the context,
+    and for the kept mode its step 0 and capture), then a timed one.  Each
+    object's refinement equals the eager loop's bit for bit, with equal
+    launches; the kept sweep captures nothing, the other one a call."""
+    import tempfile
+
+    import torch
+
+    from diffdope_tpu_torch import bop
+    from diffdope_tpu_torch.optimize import CapturedRefine
+
+    h, w = (int(v) for v in SWEEP_ARGS[SWEEP_ARGS.index("--resolution") + 1].split("x"))
+    batch = int(SWEEP_ARGS[SWEEP_ARGS.index("--batchsize") + 1])
+    iterations = int(SWEEP_ARGS[SWEEP_ARGS.index("--iterations") + 1])
+
+    def make(mode, calls):
+        def build(*args, **kwargs):
+            if mode == "eager":
+                inner = CapturedRefine(*args, cuda_graph=False, **kwargs)
+            elif mode == "kept capture":
+                inner = CapturedRefine(*args, **kwargs)
+            else:
+                def inner(params, **kw):
+                    return CapturedRefine(*args, **kwargs)(params, **kw)
+
+            def call(params, **kw):
+                calls.append(inner(params, **kw))
+                return calls[-1]
+
+            call.inner = inner
+            return call
+        return build
+
+    runs, pools = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_error_tree(Path(tmp))
+        for mode in ("eager", "capture per call", "kept capture"):
+            calls = []
+            bop._synth_ctx_cache.clear()
+            bop._synth_escalation.clear()
+            own, bop.CapturedRefine = bop.CapturedRefine, make(mode, calls)
+            try:
+                def sweep():
+                    calls.clear()
+                    bop.sweep_perturbation_levels(
+                        tmp, mesh_path=str(HERE / SWEEP_MESH), resolution=(h, w),
+                        batchsize=batch, nb_iterations=iterations, log_fn=lambda *a: None,
+                        device="cuda")
+                    return list(calls)
+
+                sweep()  # warm-up
+                runs[mode] = [timed_run(sweep, f"phase 26 synthesized sweep {mode}", gpu)]
+                ctx = next(iter(bop._synth_ctx_cache.values()))
+                if mode == "kept capture":
+                    pools[mode] = ctx["refine"].inner.pool_bytes
+            finally:
+                bop.CapturedRefine = own
+        bop._synth_ctx_cache.clear()
+        bop._synth_escalation.clear()
+    hold_to_eager("synthesized sweep", runs)
+    n_calls = len(runs["eager"][0][0])
+    hold_captures("synthesized sweep", runs, {"capture per call": n_calls, "kept capture": 0})
+    print(f"phase 26 synthesized sweep: {n_calls} refinements a sweep; the kept context's "
+          f"graph pool {pools['kept capture'] / 2 ** 20:.1f} MiB (one context kept) [{gpu}]",
+          flush=True)
     torch.cuda.empty_cache()
 
 
 def main() -> None:
+    import faulthandler
+
     import numpy as np
     import torch
+
+    faulthandler.enable()  # a crash in a library prints the Python stack
 
     if not torch.cuda.is_available():
         fail("no CUDA device (this smoke run needs one GPU; no CPU fallback)")
     from diffdope_tpu_torch import kernels
     from diffdope_tpu_torch.bench import (
         bench_problem,
+        bench_refine,
         card,
         distinct_poses,
         run_refinement,
@@ -3819,17 +4038,27 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- the bench main path ------------------------------------------------
-    run_refinement(problem)  # warm-up: allocator, caches
+    # one captured refinement, as the bench keeps it: the warm-up pays step 0
+    # and the capture, the timed run replays
+    jit_refine = bench_refine(problem)
+    with Captures() as warm_caps:
+        run_refinement(problem, jit_refine=jit_refine)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    res, seconds = run_refinement(problem)
+    with Captures() as caps:
+        res, seconds = run_refinement(problem, jit_refine=jit_refine)
     launches = dict(kernels.launches)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = res.total_loss.shape[0]
     print(f"main path: {steps} steps, B=64, 400x400: {seconds:.4f} s, "
           f"{1e3 * seconds / steps:.3f} ms/step, {1.0 / seconds:.4f} refinements/s, "
-          f"peak {peak_gib:.2f} GiB [{gpu}]", flush=True)
+          f"peak {peak_gib:.2f} GiB; warm-up {warm_caps.summary()}, timed run "
+          f"{caps.count} capture(s) [{gpu}]", flush=True)
+    if warm_caps.count != 1 or caps.count:
+        fail(f"main path: {warm_caps.count} capture(s) in the warm-up, {caps.count} in "
+             f"the timed run (one kept capture: 1 and 0)")
+    del jit_refine
     print(f"launches in the main path: {launches}", flush=True)
     check_launches("main path", launches, COMPACT_FUSED,
                    set(launches) - set(COMPACT_FUSED))

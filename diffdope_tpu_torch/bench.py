@@ -11,11 +11,13 @@ icosphere(5) (20,480 triangles; the AlphabetSoup scan is not in the
 repo).  The gt images are the port's own render at the gt pose.
 
 Needs a CUDA card and fails without one.  Prints exactly one JSON line on
-stdout (the root bench's metric line); progress goes to stderr.  The
-refinements run as ``optimize.refine`` runs them by default: step 0
-eagerly, every later step a replay of the step captured as a CUDA graph.
+stdout (the root bench's metric line); progress goes to stderr.  One
+``optimize.CapturedRefine`` serves the warm-up and the three timed runs,
+as the root bench's ``jit_refine`` does (``bench.py:348-403``): the
+warm-up pays the kernels' build, step 0 (eager) and the step's capture
+as a CUDA graph, and every step of a timed run is a replay of it.
 ``DD_PROFILE=N`` also traces N steps with ``torch.profiler`` after the
-timed runs, as replays of the graph and as the eager loop
+timed runs, as replays of a kept graph and as the eager loop
 (``cuda_graph=False``) side by side, and prints the device time by
 kernel and the device busy share of each to stderr.
 """
@@ -35,7 +37,7 @@ import numpy as np
 import torch
 
 from diffdope_tpu_torch.losses import select_losses
-from diffdope_tpu_torch.optimize import pose_matrix, pose_params, refine
+from diffdope_tpu_torch.optimize import CapturedRefine, pose_matrix, pose_params, refine
 from diffdope_tpu_torch.render.pipeline import (
     compact_capacity,
     make_fused_loss,
@@ -153,17 +155,31 @@ def distinct_poses(params, step: float):
             for k, v in params.items()}
 
 
-def run_refinement(problem, steps: int = STEPS, **refine_kw):
+def bench_refine(problem, steps: int = STEPS, **kw) -> CapturedRefine:
+    """The bench protocol's refinement of the problem's fused loss (Adam,
+    base lr 0.02, decay 0.1), captured once and kept across calls;
+    ``kw`` go to :class:`CapturedRefine` (``cuda_graph=False`` for the
+    eager loop)."""
+    return CapturedRefine(fused_loss_fn=problem["fn"], nb_iterations=steps - 1,
+                          base_lr=0.02, lr_decay=0.1, optimizer="adam", **kw)
+
+
+def run_refinement(problem, steps: int = STEPS, jit_refine=None, **refine_kw):
     """One refinement of the problem's hypotheses on the card; returns the
-    RefineResult and its wall time (synchronized).  ``refine_kw`` go to
-    ``refine`` (``cuda_graph=False`` for the eager loop, a
-    ``step_callback``)."""
+    RefineResult and its wall time (synchronized).  With ``jit_refine``
+    (:func:`bench_refine`'s object) the run is a call of it, else a
+    ``refine`` call of its own, which captures its step anew;
+    ``refine_kw`` go to either (``cuda_graph=False`` for ``refine``'s
+    eager loop, a ``step_callback``)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = refine(
-        problem["params0"], fused_loss_fn=problem["fn"], nb_iterations=steps - 1,
-        base_lr=0.02, lr_decay=0.1, optimizer="adam", **refine_kw,
-    )
+    if jit_refine is not None:
+        res = jit_refine(problem["params0"], **refine_kw)
+    else:
+        res = refine(
+            problem["params0"], fused_loss_fn=problem["fn"], nb_iterations=steps - 1,
+            base_lr=0.02, lr_decay=0.1, optimizer="adam", **refine_kw,
+        )
     torch.cuda.synchronize()
     return res, time.perf_counter() - t0
 
@@ -183,17 +199,19 @@ def device_busy(run):
 
 
 def profile(problem, steps: int) -> None:
-    """Trace ``steps`` refinement steps as graph replays and as the eager
-    loop: for each, the device time by kernel (top 25), the share of the
-    traced window that the device was busy, and the device time per step
-    over an untraced run's step (the tracer slows the host, not the
-    kernels)."""
+    """Trace ``steps`` refinement steps as replays of a kept graph (warmed
+    and captured by an untraced run first) and as the eager loop: for
+    each, the device time by kernel (top 25), the share of the traced
+    window that the device was busy, and the device time per step over an
+    untraced run's step (the tracer slows the host, not the kernels)."""
     for graph in (True, False):
         label = "graph" if graph else "eager"
-        _, step_s = run_refinement(problem, steps, cuda_graph=graph)
+        jit_refine = bench_refine(problem, steps, cuda_graph=graph)
+        run_refinement(problem, jit_refine=jit_refine)
+        _, step_s = run_refinement(problem, jit_refine=jit_refine)
         step_s /= steps
         events, busy_ms, wall = device_busy(
-            lambda: run_refinement(problem, steps, cuda_graph=graph))
+            lambda: run_refinement(problem, jit_refine=jit_refine))
         log(f"profile ({label}):")
         log(events.table(sort_by="self_device_time_total", row_limit=25))
         log(f"profile ({label}): {steps} steps, wall {wall * 1e3:.3f} ms, device busy "
@@ -213,11 +231,12 @@ def main() -> int:
     problem = bench_problem()
     log(f"compact table capacity: {problem['compact_total']} slots; "
         f"crop {problem['fn'].crop}")
-    _, first = run_refinement(problem)
-    log(f"first run (incl. kernel build): {first:.3f}s")
+    jit_refine = bench_refine(problem)
+    _, first = run_refinement(problem, jit_refine=jit_refine)
+    log(f"first run (incl. kernel build, step 0 and the capture): {first:.3f}s")
     times = []
     for _ in range(3):
-        res, dt = run_refinement(problem)
+        res, dt = run_refinement(problem, jit_refine=jit_refine)
         times.append(dt)
     dt = min(times)
     log(f"steady-state refinement times: {[f'{t:.3f}' for t in times]}")

@@ -25,7 +25,6 @@ default: the repo holds no BOP data.  Everything runs on the card unless
 
 from __future__ import annotations
 
-import functools
 import json
 import logging
 import zlib
@@ -52,13 +51,13 @@ from diffdope_tpu_torch.metrics import (
 from diffdope_tpu_torch.object3d import Object3D
 from diffdope_tpu_torch.optimize import (
     POSE_KEYS,
+    CapturedRefine,
     apply_pose_jitter,
     argmin_step_hypothesis,
     draw_learning_rates,
     draw_pose_jitter,
     pose_matrix,
     pose_params,
-    refine,
     refine_with_restarts,
 )
 from diffdope_tpu_torch.render.pipeline import (
@@ -297,6 +296,14 @@ def _synth_context(mesh_path, resolution, batchsize, nb_iterations,
     """The sweep's machinery for one configuration, built once and cached
     (``bop.py:233-431``): the stand-in mesh, the ground-truth render, the
     fused loss with its ground truth deferred, the refinement, the scores.
+    The refinement ('refine') is one ``optimize.CapturedRefine``, the
+    reference's ``jit_refine`` (``bop.py:388-395``): every object, frame,
+    level and re-run of the configuration calls it with its own ground
+    truth, copied in, and replays one captured step.  The cache keeps one
+    context (the reference's keeps every one): a context's capture holds
+    its graph's memory pool on the card (``CapturedRefine.pool_bytes``),
+    and a recovery's escalated context never returns to the one it
+    replaced.
 
     ``loss_weights`` = (rgb, depth, mask), 0 disabling a term.
     ``capacity_boost`` scales the compact capacity and the per-tile cap,
@@ -311,6 +318,9 @@ def _synth_context(mesh_path, resolution, batchsize, nb_iterations,
            roi_crop, probe_dz, str(device))
     if key in _synth_ctx_cache:
         return _synth_ctx_cache[key]
+    # one context kept: the one this replaces, its graph and memory pool go
+    # before the new one is built
+    _synth_ctx_cache.clear()
 
     h, w = resolution
     f = 1.2 * max(h, w)
@@ -369,8 +379,7 @@ def _synth_context(mesh_path, resolution, batchsize, nb_iterations,
 
     ctx = dict(
         gt_render=gt_render,
-        refine=functools.partial(refine, loss_fns=tuple(loss_fns), weights=weights,
-                                 **refine_kw),
+        refine=CapturedRefine(None, tuple(loss_fns), weights, **refine_kw),
         refine_kw=refine_kw, score=score, lrs=lrs, argmin_sb=argmin_step_hypothesis,
         init_mtx=init_mtx, pose_params=lambda q, t, b: pose_params(q, t, b, device),
         diameter=object_diameter(pts), jitter=jitter, weights=weights,
@@ -462,7 +471,7 @@ def _sweep_synth_objects(objs, level, scene_id, frame, mesh_path, obj_scale,
                     restarts=restarts, restart_jitter_deg=restart_jitter[0],
                     restart_jitter_trans=restart_jitter[1],
                     draw_jitter=lambda b: draw_pose_jitter(b, gen, *restart_jitter),
-                    **ctx["refine_kw"],
+                    jit_refine=ctx["refine"], **ctx["refine_kw"],
                 )
             return ctx["refine"](p0, gt=gt, learning_rates=ctx["lrs"])
 
@@ -510,6 +519,7 @@ def _sweep_synth_objects(objs, level, scene_id, frame, mesh_path, obj_scale,
     return out
 
 
+#: the last configuration's context (:func:`_synth_context`)
 _synth_ctx_cache: Dict[tuple, dict] = {}
 #: the recovery's escalation (capacity boost, roi_crop) per configuration,
 #: so a later object at an escalated level skips the degraded first run

@@ -81,6 +81,7 @@ from diffdope_tpu_torch.image import Scene
 from diffdope_tpu_torch.losses import LOSS_REGISTRY, select_losses
 from diffdope_tpu_torch.object3d import Object3D
 from diffdope_tpu_torch.optimize import (
+    CapturedRefine,
     argmin_step_hypothesis,
     draw_learning_rates,
     draw_pose_jitter,
@@ -506,6 +507,15 @@ class DiffDope:
         (:meth:`_appearance`) is refined with the pose on the unfused route
         and written back into the mesh (``diffdope.py:697-708``).
 
+        Each dispatch (the first run and each re-run) builds one
+        ``optimize.CapturedRefine`` and every segment and restart chunk
+        calls it (``diffdope.py:562-642``'s ``_refine_jit``), so the run
+        pays one step 0 and one capture on the card; a re-run builds a new
+        loss, so it captures anew.  The object lives for its dispatch only,
+        so a session holds no graph or memory pool between runs: the
+        reference's drops of ``_refine_jit`` when a setting changes
+        (``diffdope.py:138-181``) have nothing to drop here.
+
         The options of the module docstring apply in the reference's order:
         the init jitter, then ``tpu.mesh_axis`` > 1 (the hypotheses sharded
         over the ranks, appearance leaves included, restarts not run),
@@ -543,8 +553,8 @@ class DiffDope:
                 log.info("step %d/%d loss %.5f", next(logged), steps, float(total))
 
             kw = dict(base_lr=self.base_lr, lr_decay=self.lr_decay,
-                      optimizer=self.optimizer_name, fused_loss_fn=fused_fn,
-                      step_callback=step_cb if live_step else None)
+                      optimizer=self.optimizer_name, fused_loss_fn=fused_fn)
+            callback = step_cb if live_step else None
             t0 = time.perf_counter()
             if self.mesh_axis > 1:
                 # the hypotheses sharded over the group's ranks, each rank
@@ -554,8 +564,12 @@ class DiffDope:
                     params0, render_fn, tuple(self.loss_functions), gt,
                     self.learning_rates, self.loss_weights,
                     hypothesis_mesh(n_devices=self.mesh_axis, device=self.device),
-                    extra_params=extra_params, nb_iterations=self.nb_iterations, **kw)
-            elif restarts > 0 and not extra_params:
+                    extra_params=extra_params, nb_iterations=self.nb_iterations,
+                    step_callback=callback, **kw)
+                return result, time.perf_counter() - t0
+            jit_refine = CapturedRefine(render_fn, tuple(self.loss_functions),
+                                        self.loss_weights, self.nb_iterations, **kw)
+            if restarts > 0 and not extra_params:
                 deg = float(tpu_cfg.get("restart_jitter_deg", 10.0))
                 trans = float(tpu_cfg.get("restart_jitter_trans", 0.02))
                 gen = torch.Generator().manual_seed(self.seed + 2)
@@ -565,14 +579,15 @@ class DiffDope:
                     nb_iterations=self.nb_iterations, restarts=restarts,
                     restart_jitter_deg=deg, restart_jitter_trans=trans,
                     draw_jitter=lambda b: draw_pose_jitter(b, gen, deg, trans),
-                    segment_steps=segment, **kw)
+                    jit_refine=jit_refine, segment_steps=segment, step_callback=callback)
             else:
                 result = refine_segmented(
                     params0, render_fn, tuple(self.loss_functions), gt,
                     self.learning_rates, self.loss_weights,
                     nb_iterations=self.nb_iterations, segment_steps=segment,
                     progress_fn=progress if show_progress and not live_step else None,
-                    extra_params=extra_params, **kw)
+                    extra_params=extra_params, jit_refine=jit_refine,
+                    step_callback=callback)
             return result, time.perf_counter() - t0
 
         recovery = bool(tpu_cfg.get("overflow_recovery", True))

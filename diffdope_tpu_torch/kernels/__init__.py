@@ -19,7 +19,7 @@ directory is ``build/`` beside the package, or ``$DD_TORCH_BUILD_DIR``.
 wrapper adds one where it launches its kernel and nowhere else.  While a
 CUDA graph is captured (:func:`recording`) a launch only records itself,
 as the capture runs no kernel; each replay of the graph then adds what
-was recorded (:func:`add_launches`, ``optimize.refine``), so the counts
+was recorded (:func:`add_launches`, ``optimize.CapturedRefine``), so the counts
 are the launches the card ran.
 """
 

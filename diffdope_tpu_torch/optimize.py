@@ -1,10 +1,12 @@
 """Pose-hypothesis refinement loop.
 
 Counterpart of ``diffdope_tpu/optimize.py``.  The reference runs the
-steps as one jitted ``lax.scan``; here ``refine`` captures one step
-(value-and-grad and the optimizer update, on the fused loss
-``fused_loss_fn`` or on ``render_fn`` + ``loss_fns``, the unfused route)
-as a CUDA graph and replays it, or runs it eagerly on the CPU.  Both
+steps as one jitted ``lax.scan``, compiled once (``jit_refine``) and
+called by every segment and restart; here :class:`CapturedRefine`
+captures one step (value-and-grad and the optimizer update, on the fused
+loss ``fused_loss_fn`` or on ``render_fn`` + ``loss_fns``, the unfused
+route) as a CUDA graph once and replays it across its calls, or runs it
+eagerly on the CPU; :func:`refine` is one call of one.  Both
 optimizers follow optax's semantics (the reference's ``optax.sgd`` /
 ``optax.adam``), not ``torch.optim``'s: Adam with b1 0.9, b2 0.999 and
 eps 1e-8 outside the square root, bias correction at count + 1, and the
@@ -138,9 +140,9 @@ def draw_learning_rates(seed: int, batchsize: int, bounds: Sequence[float],
 def make_lr_schedule(base_lr: float, lr_decay: float, nb_iterations: int):
     """lr(step) = base_lr * lr_decay ** (step/nb + 1), in float32.
 
-    Host scalars (numpy float32): :func:`refine` lays a run's values out in
-    a device table once (the optimizers' ``tables``), so no step enqueues a
-    host-to-device copy."""
+    Host scalars (numpy float32): :class:`CapturedRefine` lays the values
+    of its horizon out in a device table once (the optimizers' ``tables``),
+    so no step enqueues a host-to-device copy."""
     f32 = np.float32
 
     def schedule(step: int) -> np.float32:
@@ -250,7 +252,12 @@ def refine(
 ) -> RefineResult:
     """Run ``nb_iterations + 1`` optimizer steps (or ``num_steps``, for a
     segment; ``nb_iterations`` still shapes the learning-rate schedule,
-    which continues from ``opt_state``'s step count).
+    which continues from ``opt_state``'s step count): one call of a
+    :class:`CapturedRefine` built for it, which holds the step's buffers
+    (and on the card its CUDA graph and the graph's memory pool) until
+    ``refine`` returns.  A caller that refines again with the same loss
+    (segments, restarts, repeated runs) keeps one :class:`CapturedRefine`
+    instead and pays step 0 and the capture once.
 
     Each step scores the poses with ``fused_loss_fn(mtx) -> (total, logs)``
     when given (``fused_loss_fn(mtx, gt)`` for a loss that takes its
@@ -266,30 +273,19 @@ def refine(
     as the pose; ``params`` of the result holds them too.
     Underscore log keys go to ``telemetry``.
 
-    A step is a function of device state only, the counterpart of the
-    reference's ``lax.scan`` body: the params and the optimizer's moments
-    are buffers that the update writes in place, its learning rate and
-    bias corrections come from tables laid out once per call and read at a
-    step counter on the device, and its pose, total, logs and telemetry go
-    into preallocated (steps, ...) buffers at that counter.  On a CUDA
-    device (``cuda_graph``, the default) step 0 runs eagerly on a side
-    stream, the warm-up a capture needs, under
-    ``torch.cuda.set_sync_debug_mode("error")``; the step is then captured
-    once as a CUDA graph (``torch.cuda.CUDAGraph``: the pose matrix, the
-    loss with its kernels, ``torch.autograd.grad``, the update and the
-    history writes) and replayed for every later step, and the graph and
-    its memory pool are released when ``refine`` returns.  A step that
-    waits for the host (a read of a tensor's value, a data-dependent
-    shape, host data copied in) cannot be captured: ``refine`` raises,
-    naming the loss and its route, and never falls back to the eager
-    loop.  The steps run eagerly, one launch at a time, with
+    The step, its graph and its eager loop are :class:`CapturedRefine`'s:
+    on a CUDA device (``cuda_graph``, the default) step 0 runs eagerly on
+    a side stream under ``torch.cuda.set_sync_debug_mode("error")``, then
+    the step is captured once and replayed for every later step; a step
+    that waits for the host raises, naming the loss and its route, and
+    never falls back to the eager loop.  The steps run eagerly with
     ``cuda_graph=False``, on the CPU, and under ``process_group``, whose
     collectives (gloo's run on the host) are not captured.
 
     Nothing synchronizes with the host inside the loop, unless
     ``step_callback(step_index, total)`` is given: it is called after
-    every step (replay) with that step's total loss (a 0-dim view of the
-    total's history; reading it is the per-step host sync the reference's
+    every step (replay) with a copy of that step's total loss (0-dim, on
+    the device; reading it is the per-step host sync the reference's
     ``jax.debug.callback`` pays).
 
     ``loss_scale`` multiplies the objective (``parallel.refine_sharded``
@@ -306,109 +302,13 @@ def refine(
     gradients of ``extra_params`` (SUM), which every rank shares.  The
     pose gradients need no collective: the hypotheses are independent.
     """
-    if fused_loss_fn is None and render_fn is None:
-        raise ValueError("refine needs fused_loss_fn or render_fn + loss_fns")
-    if fused_loss_fn is not None and extra_params:
-        raise ValueError("fused_loss_fn does not support extra_params")
-    opt = make_optimizer(optimizer, base_lr, lr_decay, nb_iterations)
-    extra_keys = tuple(extra_params or ())
-    # the step's state: copies the run updates in place
-    params = {k: v.detach().clone() for k, v in params0.items()}
-    params.update({k: v.detach().clone() for k, v in (extra_params or {}).items()})
-    dev = next(iter(params.values())).device
-    # host arrays go to the device once: no step copies host data
-    if learning_rates is not None and not isinstance(learning_rates, torch.Tensor):
-        learning_rates = tensor(learning_rates, dev)
-    if gt is not None:
-        gt = {k: v if v is None or isinstance(v, torch.Tensor) else tensor(v, dev)
-              for k, v in gt.items()}
-    fused_sig = () if fused_loss_fn is None else inspect.signature(fused_loss_fn).parameters
-    fused_takes_gt = len([p for p in fused_sig if p != "learning_rates"]) >= 2
-    fused_kw = ({"learning_rates": learning_rates}
-                if "learning_rates" in fused_sig and learning_rates is not None else {})
-    if opt_state is None:
-        state = opt.init(params)
-    else:
-        state = {k: ({kk: vv.detach().clone() for kk, vv in v.items()}
-                     if isinstance(v, dict) else v) for k, v in opt_state.items()}
+    count = 0 if opt_state is None else int(opt_state["count"])
     length = nb_iterations + 1 if num_steps is None else num_steps
-    tables = {k: torch.as_tensor(v, device=dev)
-              for k, v in opt.tables(state["count"], length, dev.type == "cuda").items()}
-    step_i = torch.zeros((1,), dtype=torch.int64, device=dev)
-    # the histories by (kind, key), kind 'step' (the pose and the total) or
-    # 'log', allocated by step 0 from its values' shapes on the caller's
-    # stream (step 0 runs on a side stream under the graph)
-    main = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
-    hist: Dict[Tuple[str, str], torch.Tensor] = {}
-    for p in params.values():
-        p.requires_grad_(True)
-
-    def objective(mtx):
-        if fused_loss_fn is not None:
-            return (fused_loss_fn(mtx, gt, **fused_kw) if fused_takes_gt
-                    else fused_loss_fn(mtx, **fused_kw))
-        renders = render_fn(mtx, **{k: params[k] for k in extra_keys})
-        total = mtx.new_zeros(())
-        logs = {k: v for k, v in renders.items() if k.startswith("_")}
-        for fn in loss_fns:
-            term, (key, values) = fn(renders, gt, learning_rates, weights)
-            total = total + term
-            logs[key] = values
-        return total, logs
-
-    def record(values: Dict[Tuple[str, str], torch.Tensor]) -> None:
-        """Write the step's values into the histories at the counter."""
-        if not hist:
-            with contextlib.nullcontext() if main is None else torch.cuda.stream(main):
-                for k, v in values.items():
-                    hist[k] = v.new_empty((length,) + tuple(v.shape))
-        for k, v in values.items():
-            hist[k].index_copy_(0, step_i, v[None])
-
-    def step() -> None:
-        row = {k: t.index_select(0, step_i).reshape(()) for k, t in tables.items()}
-        mtx, _, _ = pose_matrix(params)
-        total, logs = objective(mtx)
-        if loss_scale != 1.0:
-            total = total * loss_scale
-        # a leaf the render does not read (vertex colours under corner
-        # colours) gets a zero gradient, as JAX's grad gives it
-        grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(params.items(), grads)}
-        if process_group is not None:
-            total, logs = _all_reduce_step(grads, extra_keys, total.detach(), logs,
-                                           process_group)
-        with torch.no_grad():
-            record({("step", "mtx"): mtx.detach(), ("step", "total"): total.detach(),
-                    **{("log", k): v.detach() for k, v in logs.items()}})
-            opt.update(grads, state, params, row)
-            step_i.add_(1)
-
-    def totals(i: int) -> torch.Tensor:
-        return hist[("step", "total")][i]
-
-    # under a group every binning takes the union over the ranks' hypotheses
-    union = contextlib.nullcontext() if process_group is None else union_over(process_group)
-    with union:
-        if cuda_graph and main is not None and process_group is None:
-            _replayed(step, length, step_callback, totals, main,
-                      _describe(fused_loss_fn, render_fn))
-        else:
-            for i in range(length):
-                step()
-                if step_callback is not None:
-                    step_callback(i, totals(i))
-    state["count"] += length
-    logs = {k: v for (kind, k), v in hist.items() if kind == "log"}
-    return RefineResult(
-        params={k: p.detach() for k, p in params.items()},
-        mtx_history=hist[("step", "mtx")],
-        losses_values={k: v for k, v in logs.items() if not k.startswith("_")},
-        total_loss=hist[("step", "total")],
-        telemetry={k: v for k, v in logs.items() if k.startswith("_")} or None,
-        opt_state=state,
-    )
+    once = CapturedRefine(render_fn, loss_fns, weights, nb_iterations, base_lr, lr_decay,
+                          optimizer, fused_loss_fn, loss_scale, process_group, cuda_graph,
+                          horizon=max(nb_iterations + 1, count + length))
+    return once(params0, gt=gt, learning_rates=learning_rates, opt_state=opt_state,
+                num_steps=num_steps, extra_params=extra_params, step_callback=step_callback)
 
 
 def _describe(fused_loss_fn, render_fn) -> str:
@@ -419,53 +319,339 @@ def _describe(fused_loss_fn, render_fn) -> str:
     return f"{kind} {getattr(fn, '__qualname__', fn)!r} (raster route {route})"
 
 
-def _replayed(step: Callable[[], None], length: int, callback: Optional[Callable],
-              totals: Callable[[int], torch.Tensor], main, what: str) -> None:
-    """Run ``length`` steps on the card: step 0 eagerly on a side stream
-    (the warm-up a capture needs: the kernels' library, autograd's first
-    run) with any host sync an error, then the step captured once as a
-    CUDA graph on that stream and replayed on ``main`` for every later
-    step, each replay adding the launches its capture recorded."""
-    side = torch.cuda.Stream(device=main.device)
-    side.wait_stream(main)
-    mode = torch.cuda.get_sync_debug_mode()
-    with torch.cuda.stream(side):
-        torch.cuda.set_sync_debug_mode("error")
+def _layout(v: Optional[torch.Tensor]):
+    """What a buffer copied from ``v`` must match: shape and dtype (None
+    for None); the buffers are contiguous whatever ``v``'s strides."""
+    return None if v is None else (tuple(v.shape), v.dtype)
+
+
+def _buffer(v: torch.Tensor, device) -> torch.Tensor:
+    return torch.empty(v.shape, dtype=v.dtype, device=device)
+
+
+class _Trace:
+    """The buffers of one layout of a :class:`CapturedRefine`'s inputs, at
+    addresses fixed for its lifetime: the leaves, the optimizer's moments,
+    the schedule tables over the horizon, the schedule and history row
+    counters, the histories (allocated by the first step, a row for each
+    step of the horizon), the ground truth and the loss scales; on the
+    card also the side stream, and the CUDA graph once captured with the
+    launches its capture recorded and its memory pool's size."""
+
+    def __init__(self, key, leaves, extra_keys, gt, lrs, opt, horizon: int):
+        self.key, self.extra_keys = key, extra_keys
+        self.dev = next(iter(leaves.values())).device
+        self.params = {k: _buffer(v, self.dev).requires_grad_(True)
+                       for k, v in leaves.items()}
+        self.state = opt.init(self.params)
+        del self.state["count"]  # the schedule counter's, on the device
+        self.tables = {k: torch.as_tensor(v, device=self.dev)
+                       for k, v in opt.tables(0, horizon, self.dev.type == "cuda").items()}
+        self.sched_i = torch.zeros((1,), dtype=torch.int64, device=self.dev)
+        self.row_i = torch.zeros((1,), dtype=torch.int64, device=self.dev)
+        self.rows = horizon
+        # by (kind, key), kind 'step' (the pose and the total) or 'log'
+        self.hist: Dict[Tuple[str, str], torch.Tensor] = {}
+        self.gt = None if gt is None else {k: None if v is None else _buffer(v, self.dev)
+                                           for k, v in gt.items()}
+        self.lrs = None if lrs is None else _buffer(lrs, self.dev)
+        cuda = self.dev.type == "cuda"
+        self.home = torch.cuda.current_stream(self.dev) if cuda else None
+        self.side = torch.cuda.Stream(device=self.dev) if cuda else None
+        self.warm, self.graph, self.recorded, self.pool_bytes = False, None, None, 0
+
+    def load(self, leaves, gt, lrs, opt_state, count: int) -> None:
+        """Copy one call's inputs in, on the current stream (outside any
+        graph): the leaves, the ground truth, the loss scales and the
+        optimizer state (``None`` zeroes the moments), the schedule
+        counter set to ``count``, the history row to 0."""
+        with torch.no_grad():
+            for k, p in self.params.items():
+                p.copy_(leaves[k])
+            for k, b in (self.gt or {}).items():
+                if b is not None:
+                    b.copy_(gt[k])
+            if self.lrs is not None:
+                self.lrs.copy_(lrs)
+            for name, moments in self.state.items():
+                for k, m in moments.items():
+                    if opt_state is None:
+                        m.zero_()
+                    else:
+                        m.copy_(opt_state[name][k])
+            self.sched_i.fill_(count)
+            self.row_i.zero_()
+
+    def record(self, values: Dict[Tuple[str, str], torch.Tensor]) -> None:
+        """Write a step's values into the histories at the row counter;
+        the first step allocates them on the stream that made the trace
+        (step 0 runs on the side stream on the card)."""
+        if not self.hist:
+            with contextlib.nullcontext() if self.home is None else torch.cuda.stream(self.home):
+                for k, v in values.items():
+                    self.hist[k] = v.new_empty((self.rows,) + tuple(v.shape))
+        for k, v in values.items():
+            self.hist[k].index_copy_(0, self.row_i, v[None])
+
+    def total(self, i: int) -> torch.Tensor:
+        return self.hist[("step", "total")][i].clone()
+
+    def result(self, count: int, length: int) -> RefineResult:
+        """Copies of the call's params, state and history rows: a later
+        call writes the buffers, never a result already returned."""
+        hist = {key: v[:length].clone() for key, v in self.hist.items()}
+        logs = {k: v for (kind, k), v in hist.items() if kind == "log"}
+        state = {"count": count + length}
+        state.update((name, {k: m.clone() for k, m in moments.items()})
+                     for name, moments in self.state.items())
+        return RefineResult(
+            params={k: p.detach().clone() for k, p in self.params.items()},
+            mtx_history=hist[("step", "mtx")],
+            losses_values={k: v for k, v in logs.items() if not k.startswith("_")},
+            total_loss=hist[("step", "total")],
+            telemetry={k: v for k, v in logs.items() if k.startswith("_")} or None,
+            opt_state=state,
+        )
+
+
+class CapturedRefine:
+    """The refinement compiled once and called many times: the counterpart
+    of the reference's ``jax.jit(functools.partial(refine, ...),
+    static_argnames=("num_steps",))`` (``optimize.py:324, 414``,
+    ``diffdope.py:562``, ``bop.py:388``).
+
+    Built from what the partial binds (the loss: ``fused_loss_fn``, or
+    ``render_fn`` with ``loss_fns`` and ``weights``; the schedule and the
+    optimizer; ``loss_scale``; ``process_group``) and called as the
+    reference calls its ``jit_refine``: ``(params, gt=, learning_rates=,
+    opt_state=, num_steps=, extra_params=, step_callback=)``, returning
+    :func:`refine`'s :class:`RefineResult`, bit for bit.
+
+    It owns every tensor the step reads or writes, on the params' device
+    (inputs held elsewhere, or as numpy, are copied there), at addresses
+    fixed while the layout of the inputs stays (a ``_Trace``): the leaves,
+    the optimizer's moments, the schedule tables laid out once over the
+    ``horizon`` (``nb_iterations + 1`` steps) and read at a schedule
+    counter on the device, which each call sets from ``opt_state``'s
+    count (so a restart's reset count reads row 0 again), the histories
+    written at a row counter that each call restarts at 0, the ground
+    truth and the loss scales the step reads.  Each call copies its
+    inputs into those buffers on the current stream, outside the graph;
+    ``opt_state=None`` zeroes the moments and the count.  A call whose
+    steps would run past the horizon raises.
+
+    On the card (``cuda_graph``, no ``process_group``) the first call
+    runs step 0 eagerly on a side stream, the warm-up a capture needs,
+    under ``torch.cuda.set_sync_debug_mode("error")``, then captures the
+    step once (``torch.cuda.CUDAGraph`` on that stream, without
+    ``torch.cuda.graph``'s synchronize, ``gc.collect`` and
+    ``empty_cache``) and replays it for every later step; every later
+    call replays it for all its steps, step 0 included, each replay adding
+    the launches its capture recorded (``kernels.add_launches``).  A step
+    that waits for the host (a read of a tensor's value, a data-dependent
+    shape, host data copied in) cannot be captured: the call raises,
+    naming the loss and its route, and never falls back to the eager loop.
+    A call whose inputs differ in shape, dtype or device from the
+    trace's gets a new trace, warm-up and capture, as jit retraces; one
+    trace is kept, so the old graph and its memory pool go first.  The
+    graph's pool stays reserved for as long as the object lives
+    (``pool_bytes``): drop the object to release it.  ``cuda_graph=False``,
+    the CPU and ``process_group`` run the eager loop over the same buffers.
+
+    The results' params, histories and state are copies: a later call
+    never changes a result already returned.  ``traces`` and
+    ``captures`` count the traces laid out and the graphs captured."""
+
+    def __init__(
+        self,
+        render_fn: Optional[Callable] = None,
+        loss_fns: Sequence[Callable] = (),
+        weights: Optional[Dict[str, float]] = None,
+        nb_iterations: int = 60,
+        base_lr: float = 20.0,
+        lr_decay: float = 0.1,
+        optimizer: str = "sgd",
+        fused_loss_fn: Optional[Callable] = None,
+        loss_scale: float = 1.0,
+        process_group: Any = None,
+        cuda_graph: bool = True,
+        horizon: Optional[int] = None,
+    ):
+        if fused_loss_fn is None and render_fn is None:
+            raise ValueError("refine needs fused_loss_fn or render_fn + loss_fns")
+        self.render_fn, self.loss_fns, self.weights = render_fn, tuple(loss_fns), weights
+        self.fused_loss_fn = fused_loss_fn
+        self.nb_iterations = nb_iterations
+        self.horizon = nb_iterations + 1 if horizon is None else horizon
+        self.opt = make_optimizer(optimizer, base_lr, lr_decay, nb_iterations)
+        self.loss_scale, self.process_group = loss_scale, process_group
+        self.cuda_graph = cuda_graph
+        sig = () if fused_loss_fn is None else inspect.signature(fused_loss_fn).parameters
+        self._fused_takes_gt = len([p for p in sig if p != "learning_rates"]) >= 2
+        self._fused_takes_lrs = "learning_rates" in sig
+        self._what = _describe(fused_loss_fn, render_fn)
+        self._trace: Optional[_Trace] = None
+        self.traces = self.captures = 0
+
+    @property
+    def pool_bytes(self) -> int:
+        """The bytes the kept graph's memory pool reserved at its capture
+        (0 without a graph)."""
+        return 0 if self._trace is None else self._trace.pool_bytes
+
+    def __call__(
+        self,
+        params: Dict[str, torch.Tensor],
+        gt: Optional[Dict[str, torch.Tensor]] = None,
+        learning_rates: Optional[torch.Tensor] = None,
+        opt_state: Any = None,
+        num_steps: Optional[int] = None,
+        extra_params: Optional[Dict[str, torch.Tensor]] = None,
+        step_callback: Optional[Callable] = None,
+    ) -> RefineResult:
+        if self.fused_loss_fn is not None and extra_params:
+            raise ValueError("fused_loss_fn does not support extra_params")
+        leaves = dict(params)
+        leaves.update(extra_params or {})
+        dev = next(iter(leaves.values())).device
+        # host arrays go to the device once: no step copies host data
+        if learning_rates is not None and not isinstance(learning_rates, torch.Tensor):
+            learning_rates = tensor(learning_rates, dev)
+        if gt is not None:
+            gt = {k: v if v is None or isinstance(v, torch.Tensor) else tensor(v, dev)
+                  for k, v in gt.items()}
+        fused = self.fused_loss_fn is not None
+        if fused and not self._fused_takes_gt:
+            gt = None  # a loss with its ground truth bound reads none
+        if fused and not self._fused_takes_lrs:
+            learning_rates = None
+        count = 0 if opt_state is None else int(opt_state["count"])
+        length = self.nb_iterations + 1 if num_steps is None else num_steps
+        if count + length > self.horizon:
+            raise ValueError(
+                f"CapturedRefine: steps {count}..{count + length - 1} (opt_state's count "
+                f"{count}, num_steps {length}) run past the schedule's horizon of "
+                f"{self.horizon} steps")
+        key = (dev, tuple((k, _layout(v)) for k, v in leaves.items()),
+               tuple(extra_params or ()),
+               None if gt is None else tuple((k, _layout(v)) for k, v in gt.items()),
+               _layout(learning_rates))
+        if self._trace is None or self._trace.key != key:
+            self._trace = None  # the old graph and its pool go first
+            self._trace = _Trace(key, leaves, tuple(extra_params or ()), gt,
+                                 learning_rates, self.opt, self.horizon)
+            self.traces += 1
+        tr = self._trace
+        tr.load(leaves, gt, learning_rates, opt_state, count)
+        group = self.process_group
+        # under a group every binning takes the union over the ranks' hypotheses
+        with contextlib.nullcontext() if group is None else union_over(group):
+            if self.cuda_graph and tr.dev.type == "cuda" and group is None:
+                self._replayed(tr, length, step_callback)
+            else:
+                for i in range(length):
+                    self._step(tr)
+                    if step_callback is not None:
+                        step_callback(i, tr.total(i))
+        return tr.result(count, length)
+
+    def _objective(self, tr: _Trace, mtx: torch.Tensor):
+        if self.fused_loss_fn is not None:
+            kw = {} if tr.lrs is None else {"learning_rates": tr.lrs}
+            return (self.fused_loss_fn(mtx, tr.gt, **kw) if self._fused_takes_gt
+                    else self.fused_loss_fn(mtx, **kw))
+        renders = self.render_fn(mtx, **{k: tr.params[k] for k in tr.extra_keys})
+        total = mtx.new_zeros(())
+        logs = {k: v for k, v in renders.items() if k.startswith("_")}
+        for fn in self.loss_fns:
+            term, (key, values) = fn(renders, tr.gt, tr.lrs, self.weights)
+            total = total + term
+            logs[key] = values
+        return total, logs
+
+    def _step(self, tr: _Trace) -> None:
+        """One step, a function of the trace's device state only (the
+        counterpart of the reference's ``lax.scan`` body): the pose, the
+        loss, its gradients, the histories' row and the update in place."""
+        row = {k: t.index_select(0, tr.sched_i).reshape(()) for k, t in tr.tables.items()}
+        params = tr.params
+        mtx, _, _ = pose_matrix(params)
+        total, logs = self._objective(tr, mtx)
+        if self.loss_scale != 1.0:
+            total = total * self.loss_scale
+        # a leaf the render does not read (vertex colours under corner
+        # colours) gets a zero gradient, as JAX's grad gives it
+        grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), grads)}
+        if self.process_group is not None:
+            total, logs = _all_reduce_step(grads, tr.extra_keys, total.detach(), logs,
+                                           self.process_group)
+        with torch.no_grad():
+            tr.record({("step", "mtx"): mtx.detach(), ("step", "total"): total.detach(),
+                       **{("log", k): v.detach() for k, v in logs.items()}})
+            self.opt.update(grads, tr.state, params, row)
+            tr.sched_i.add_(1)
+            tr.row_i.add_(1)
+
+    def _replayed(self, tr: _Trace, length: int, callback: Optional[Callable]) -> None:
+        """Run ``length`` steps on the card: on a new trace step 0 eagerly
+        on the side stream (the warm-up a capture needs: the kernels'
+        library, autograd's first run) with any host sync an error; then
+        the step captured once on that stream, if it is not yet, and
+        replayed on the current stream for every remaining step."""
+        main = torch.cuda.current_stream(tr.dev)
+        first = 0
+        if not tr.warm:
+            tr.side.wait_stream(main)
+            mode = torch.cuda.get_sync_debug_mode()
+            with torch.cuda.stream(tr.side):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    self._step(tr)
+                except RuntimeError as err:
+                    if "synchroniz" not in str(err):
+                        raise
+                    raise RuntimeError(f"refine: the step of {self._what} waits for the "
+                                       f"host, so it cannot be captured as a CUDA graph: "
+                                       f"{err}") from err
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            main.wait_stream(tr.side)
+            tr.warm, first = True, 1
+            if callback is not None:
+                callback(0, tr.total(0))
+        if first == length:
+            return
+        if tr.graph is None:
+            self._capture(tr)
+        for i in range(first, length):
+            tr.graph.replay()
+            kernels.add_launches(tr.recorded)
+            if callback is not None:
+                callback(i, tr.total(i))
+
+    def _capture(self, tr: _Trace) -> None:
+        """Capture the step on the side stream, recording its launches and
+        the bytes its memory pool reserved."""
+        reserved = torch.cuda.memory_reserved(tr.dev)
+        graph = torch.cuda.CUDAGraph()
         try:
-            step()
+            with kernels.recording() as recorded, torch.cuda.stream(tr.side):
+                graph.capture_begin()
+                try:
+                    self._step(tr)
+                except BaseException:
+                    with contextlib.suppress(RuntimeError):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
         except RuntimeError as err:
-            if "synchroniz" not in str(err):
-                raise
-            raise RuntimeError(f"refine: the step of {what} waits for the host, so it "
-                               f"cannot be captured as a CUDA graph: {err}") from err
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-    main.wait_stream(side)
-    if callback is not None:
-        callback(0, totals(0))
-    if length == 1:
-        return
-    # captured on the side stream without torch.cuda.graph's set-up (a
-    # synchronize, gc.collect and empty_cache on every call)
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with kernels.recording() as recorded, torch.cuda.stream(side):
-            graph.capture_begin()
-            try:
-                step()
-            except BaseException:
-                with contextlib.suppress(RuntimeError):
-                    graph.capture_end()
-                raise
-            graph.capture_end()
-    except RuntimeError as err:
-        raise RuntimeError(f"refine: the step of {what} cannot be captured as a CUDA "
-                           f"graph: {err}") from err
-    for i in range(1, length):
-        graph.replay()
-        kernels.add_launches(recorded)
-        if callback is not None:
-            callback(i, totals(i))
+            raise RuntimeError(f"refine: the step of {self._what} cannot be captured as a "
+                               f"CUDA graph: {err}") from err
+        tr.graph, tr.recorded = graph, recorded
+        tr.pool_bytes = torch.cuda.memory_reserved(tr.dev) - reserved
+        self.captures += 1
 
 
 def _all_reduce_step(grads, extra_keys, total, logs, group):
@@ -503,14 +689,24 @@ def refine_segmented(
     segment_steps: int = 40,
     progress_fn: Optional[Callable] = None,
     extra_params: Optional[Dict[str, torch.Tensor]] = None,
+    jit_refine: Optional[Callable] = None,
     **refine_kwargs,
 ) -> RefineResult:
     """:func:`refine` in segments of ``segment_steps`` steps, the optimizer
     state, the schedule's step count and the ``extra_params`` leaves
-    carried across, so the result is the unsegmented run's.
+    carried across, so the result is the unsegmented run's.  Every
+    segment calls ``jit_refine`` (a :class:`CapturedRefine`, or anything
+    called as one), by default one built here from the loss and
+    ``refine_kwargs``, so the run pays one step 0 and one capture
+    (``optimize.py:324, 344-355``); a given ``jit_refine`` ignores
+    ``refine_kwargs`` but ``step_callback``, as the reference's does.
     ``progress_fn(done_steps, total_steps, last_total_loss)`` is called
     after every segment (the one host sync of a segment, which also times
     it: ``segment_times``)."""
+    step_callback = refine_kwargs.pop("step_callback", None)
+    if jit_refine is None:
+        jit_refine = CapturedRefine(render_fn, loss_fns, weights, nb_iterations,
+                                    **refine_kwargs)
     total = nb_iterations + 1
     params, extra, opt_state = params0, extra_params, None
     parts, segment_times = [], []
@@ -518,9 +714,8 @@ def refine_segmented(
     while done < total:
         n = min(segment_steps, total - done)
         t0 = time.perf_counter()
-        res = refine(params, render_fn, loss_fns, gt, learning_rates, weights,
-                     nb_iterations=nb_iterations, opt_state=opt_state, num_steps=n,
-                     extra_params=extra, **refine_kwargs)
+        res = jit_refine(params, gt=gt, learning_rates=learning_rates, opt_state=opt_state,
+                         num_steps=n, extra_params=extra, step_callback=step_callback)
         last = float(res.total_loss[-1])
         segment_times.append((n, time.perf_counter() - t0))
         opt_state = res.opt_state
@@ -560,6 +755,7 @@ def refine_with_restarts(
     restart_jitter_deg: float = 10.0,
     restart_jitter_trans: float = 0.02,
     draw_jitter: Optional[Callable] = None,
+    jit_refine: Optional[Callable] = None,
     segment_steps: Optional[int] = None,
     **refine_kwargs,
 ) -> RefineResult:
@@ -572,9 +768,17 @@ def refine_with_restarts(
     exactly at the winner, no jitter at all when both magnitudes are 0),
     and the optimizer state, the schedule's step count included, resets.
     A segment runs in chunks of ``segment_steps``, the optimizer state
-    carried across them.  ``draw_jitter`` defaults to
+    carried across them.  Every chunk calls ``jit_refine``, as in
+    :func:`refine_segmented` (``optimize.py:414, 443-455``; one
+    :class:`CapturedRefine` built here by default: one step 0 and one
+    capture for the run).
+    ``draw_jitter`` defaults to
     :func:`draw_pose_jitter` from a generator seeded 0.  Histories, logs
     and telemetry are the segments' concatenated."""
+    step_callback = refine_kwargs.pop("step_callback", None)
+    if jit_refine is None:
+        jit_refine = CapturedRefine(render_fn, loss_fns, weights, nb_iterations,
+                                    **refine_kwargs)
     total = nb_iterations + 1
     n_seg = restarts + 1
     if draw_jitter is None:
@@ -589,9 +793,8 @@ def refine_with_restarts(
         seg_done, opt_state = 0, None
         while seg_done < n:
             m = n if segment_steps is None else min(segment_steps, n - seg_done)
-            res = refine(params, render_fn, loss_fns, gt, learning_rates, weights,
-                         nb_iterations=nb_iterations, opt_state=opt_state, num_steps=m,
-                         **refine_kwargs)
+            res = jit_refine(params, gt=gt, learning_rates=learning_rates,
+                             opt_state=opt_state, num_steps=m, step_callback=step_callback)
             params, opt_state = res.params, res.opt_state
             parts.append(res)
             seg_done += m

@@ -53,8 +53,6 @@ KEYWORDS_NOT_PORTED = {
     "interpret": "Pallas interpret mode; a CPU tensor takes the plain twin",
     "axis_name": "the jax mesh axis; the port's ranks are one process group",
     "key": "a jax.random key; the port's draws take a seed",
-    "jit_refine": "jit of the refinement loop; the port's refine captures its step as a "
-                  "CUDA graph itself",
 }
 
 #: keyword parameters of one reference function not ported: its Pallas

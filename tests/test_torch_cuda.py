@@ -10,6 +10,8 @@ which that machine does not need):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +31,7 @@ from diffdope_tpu_torch.optimize import pose_matrix
 from torch_scene import one_torch_thread  # noqa: F401
 
 import test_torch_refine_capture as capture
+import test_torch_refine_kept as kept
 import test_torch_repeatable as repeatable
 
 pytestmark = pytest.mark.cuda
@@ -1253,6 +1256,49 @@ def test_graph_refine_equals_eager_on_card(cuda, route, monkeypatch):
         assert lg["pack_fwd"] == lg["loss_bwd_bf16"] == 4, lg
     _assert_same_result(g, e)
     assert g.opt_state["count"] == e.opt_state["count"] == 4
+
+
+def test_kept_refine_equals_fresh_eager_on_card(cuda, monkeypatch):
+    """One ``CapturedRefine`` on the BOP context's loss (the ground truth
+    and loss scales given per call), called three times on the card with
+    other poses, ground truth and loss scales each call (the second
+    continuing the first's count, the third from a restart's reset, its
+    step 0 a replay), equals three fresh ``refine(cuda_graph=False)``
+    calls bit for bit (poses, totals, logs, telemetry, params, state) with
+    equal launches; one capture serves the three; a result held from the
+    first call is unchanged; a call with another batch captures anew."""
+    from diffdope_tpu_torch.optimize import CapturedRefine, refine
+
+    params0, kw = capture.ROUTES["bop"](monkeypatch, cuda)
+    settings = dict(nb_iterations=kept.NB, fused_loss_fn=kw["fused_loss_fn"],
+                    **kept.OPTIMIZERS["adam"])
+    jit_refine = CapturedRefine(**settings)
+    got, want = [], []
+    for i, call in enumerate(kept._calls(params0, kw)):
+        inputs = dict(gt={k: v.to(cuda) for k, v in call["gt"].items()},
+                      learning_rates=call["learning_rates"].to(cuda),
+                      num_steps=call["num_steps"])
+        for out, run, state in ((got, jit_refine, got), (want, functools.partial(
+                refine, cuda_graph=False, **settings), want)):
+            kernels.reset_launches()
+            res = run(call["params"], opt_state=state[0][0].opt_state if i == 1 else None,
+                      **inputs)
+            torch.cuda.synchronize()
+            out.append((res, {k: v for k, v in kernels.launches.items() if v}))
+        if i == 0:
+            held = kept._snapshot(got[0][0])
+    for (g, lg), (e, le) in zip(got, want):
+        assert lg == le, (lg, le)
+        kept._same(g, e)
+    assert jit_refine.traces == 1 and jit_refine.captures == 1
+    assert jit_refine.pool_bytes > 0
+    kept._same(got[0][0], held)
+    small = {k: v[:2] for k, v in params0.items()}
+    lrs = kept._calls(params0, kw)[0]["learning_rates"][:2].to(cuda)
+    res = jit_refine(small, gt=kw["gt"], learning_rates=lrs, num_steps=3)
+    kept._same(res, refine(small, gt=kw["gt"], learning_rates=lrs, num_steps=3,
+                           cuda_graph=False, **settings))
+    assert jit_refine.traces == 2 and jit_refine.captures == 2
 
 
 @pytest.mark.parametrize("case", repeatable.CASES)

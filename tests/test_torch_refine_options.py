@@ -268,8 +268,8 @@ def test_torch_diffdope_restarts_jitter_precomputed_bins(monkeypatch):
 
     plain = _port_session()
     plain.run_optimization()
-    calls = {"refine": 0, "binned": 0}
-    bin_fn, refine_fn = pipeline.bin_triangles_planar, optimize.refine
+    calls = {"refine": 0, "binned": 0, "refines": 0}
+    bin_fn, refine_fn = pipeline.bin_triangles_planar, optimize.CapturedRefine.__call__
 
     def counted_bins(*args, **kwargs):
         calls["binned"] += calls["refine"]
@@ -277,13 +277,16 @@ def test_torch_diffdope_restarts_jitter_precomputed_bins(monkeypatch):
 
     def counted_refine(*args, **kwargs):
         calls["refine"] = 1
+        calls["refines"] += 1
         try:
             return refine_fn(*args, **kwargs)
         finally:
             calls["refine"] = 0
 
     monkeypatch.setattr(pipeline, "bin_triangles_planar", counted_bins)
-    monkeypatch.setattr(optimize, "refine", counted_refine)
+    # every segment and restart chunk is a call of the dispatch's captured
+    # refinement
+    monkeypatch.setattr(optimize.CapturedRefine, "__call__", counted_refine)
     dd = _port_session(restarts=1, init_jitter_deg=5.0, init_jitter_trans=0.005,
                        precompute_bins=True, live_loss="step")
     dd.run_optimization()
@@ -291,7 +294,7 @@ def test_torch_diffdope_restarts_jitter_precomputed_bins(monkeypatch):
     assert dd.mtx_history.shape == plain.mtx_history.shape
     np.testing.assert_array_equal(dd.mtx_history[0, 0], plain.mtx_history[0, 0])
     assert not np.allclose(dd.mtx_history[0, 1:], plain.mtx_history[0, 1:])
-    assert calls["binned"] == 0
+    assert calls["binned"] == 0 and calls["refines"] >= 2
     assert dd._bins_escaped == 0
     assert dd.last_run_stats["recovery_reruns"] == 0
     # the same draws again: a second session repeats the run
