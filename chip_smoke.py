@@ -59,7 +59,12 @@ result line):
    loss with its ROI crop (on even where the kept run dropped it after a
    leak; no leak there), so the crop is loss-exact; and at the init the
    cropped compact table and the uniform table hold the same slots per
-   tile in the same order;
+   tile in the same order, and K2 gives the two tables the same sums bit
+   for bit under one cotangent on their live slots (timed on each); the
+   two runs take the same poses (``mtx_history``) at every step, bit for
+   bit (F3), and both final losses and ADDs are printed; where they part,
+   the first step and hypothesis, and which stage of the gradients at the
+   poses before (the live slots, their cotangents, d_mvp, d_mtx);
 9. the nvdiffrast-style API path at the default configuration's frame
    (960x540, B=8 distinct poses around phase 5's init, the stand-in mesh):
    ``xfm_points`` -> ``rasterize(impl='pallas')`` (K8, tile 32x128, K from
@@ -785,6 +790,78 @@ def same_slots(fn_compact, fn_uniform, mtx) -> int:
     if int(u_counts.sum()) != n:
         fail("the uniform table holds slots outside the compact table's crop")
     return n
+
+
+def layout_gradients(fn_a, fn_b, mtx) -> dict:
+    """Where two table layouts' pose gradients at poses ``mtx`` part: for
+    each of the live slots (in table order), the table's cotangent at them
+    (K6 then K4's or K7's per-slot sums), d_mvp (K2's), d_mtx (K2's row 2
+    and the depth plane's t_z) and the loss: True where equal bit for bit."""
+    import torch
+
+    from diffdope_tpu_torch.render import pipeline
+    from diffdope_tpu_torch.render.pack_kernel import _static_table, live_positions
+
+    seen, out = {}, {}
+    own = pipeline._pack_dispatch
+
+    def spy(mesh, mvp, mtx_, flat, sil, order):
+        packed = own(mesh, mvp, mtx_, flat, sil, order)
+        packed.retain_grad()
+        mvp.retain_grad()
+        seen.update(packed=packed, mvp=mvp, flat=flat,
+                    tab=_static_table(flat, mesh.t_count, mesh.static)[0])
+        return packed
+
+    pipeline._pack_dispatch = spy
+    try:
+        for key, fn in (("a", fn_a), ("b", fn_b)):
+            m = mtx.detach().clone().requires_grad_(True)
+            total, _ = fn(m)
+            total.backward()
+            pos = live_positions(seen["tab"])
+            out[key] = {"slots": seen["flat"][pos], "cotangent": seen["packed"].grad[:, :, pos],
+                        "d_mvp": seen["mvp"].grad, "d_mtx": m.grad, "loss": total.detach()}
+    finally:
+        pipeline._pack_dispatch = own
+    return {k: out["a"][k].shape == out["b"][k].shape and torch.equal(out["a"][k], out["b"][k])
+            for k in out["a"]}
+
+
+def same_poses(dd_c, dd_k, adds_c, adds_k) -> None:
+    """F3's check: the compact (phase 7) and the uniform-K table (phase 8)
+    take the same poses at every step, bit for bit (``mtx_history``).  On
+    failure the first step and hypothesis that part, and at the poses
+    before it which stage of the two gradients parts
+    (:func:`layout_gradients` on the kept runs' losses)."""
+    import numpy as np
+    import torch
+
+    a, b = dd_c.mtx_history, dd_k.mtx_history
+    loss_c, loss_k = (float(dd._result.total_loss[-1]) for dd in (dd_c, dd_k))
+    print(f"DiffDope depth compact: final loss {loss_c:.6f}, ADD {adds_c[0]:.6f} -> "
+          f"{adds_c[1]:.6f}; uniform: final loss {loss_k:.6f}, ADD {adds_k[0]:.6f} -> "
+          f"{adds_k[1]:.6f} (object units)", flush=True)
+    if a.shape != b.shape:
+        fail(f"DiffDope depth: the compact run's mtx_history {a.shape} and the uniform "
+             f"run's {b.shape} differ in shape")
+    parted = np.argwhere((a.view(np.int32) != b.view(np.int32)).reshape(
+        a.shape[0], a.shape[1], -1).any(-1))
+    if not len(parted):
+        print(f"DiffDope depth: the compact and the uniform table take the same poses at "
+              f"all {a.shape[0]} steps of {a.shape[1]} hypotheses, bit for bit", flush=True)
+        return
+    step, hyp = (int(v) for v in parted[0])
+    print(f"DiffDope depth: the poses part first at step {step}, hypothesis {hyp} "
+          f"({len(parted)} (step, hypothesis) pairs differ): compact "
+          f"{a[step, hyp].tolist()}, uniform {b[step, hyp].tolist()}", flush=True)
+    if step:
+        fns = [dd._make_fused_loss_fn(dd.gt_tensors, use_bins=dd._use_bins())
+               for dd in (dd_c, dd_k)]
+        same = layout_gradients(*fns, torch.as_tensor(a[step - 1], device="cuda"))
+        print(f"DiffDope depth: at step {step - 1}'s poses, equal bit for bit: {same}",
+              flush=True)
+    fail("DiffDope depth: the compact and the uniform table refine to other poses (F3)")
 
 
 def check_diffdope(dd, route, add0, add1, total_falls: bool = True,
@@ -3912,7 +3989,13 @@ def main() -> None:
         distinct_poses,
         run_refinement,
     )
-    from diffdope_tpu_torch.kernels.check import COUNTERS, KERNELS, check_kernels, check_sliver
+    from diffdope_tpu_torch.kernels.check import (
+        COUNTERS,
+        KERNELS,
+        check_kernels,
+        check_pack_layouts,
+        check_sliver,
+    )
     from diffdope_tpu_torch.metrics import add_metric
     from diffdope_tpu_torch.optimize import argmin_hypothesis, pose_matrix, pose_params
     from diffdope_tpu_torch.testing import bench_scene
@@ -4121,6 +4204,7 @@ def main() -> None:
     agree_step0("DiffDope depth compact against one unfused render", step0_c,
                 unfused_step0(dd_c), ("mask_selection", "depth"))
 
+    adds_c = (add0, add1)
     dd_k, launches_k, add0, add1 = diffdope_phase(
         True, gpu, "depth uniform", tpu={"compact_bins": False}, losses=depth)
     on = ("pack_fwd", "pack_bwd", "raster_uniform_fwd", "raster_uniform_bwd",
@@ -4142,7 +4226,7 @@ def main() -> None:
     # after a leak: no leak there, the uniform run's step-0 logs, and the
     # same slots per tile as the uniform table
     mtx0 = torch.as_tensor(dd_c.mtx_history[0], device="cuda")
-    dd_c._crop_disable = False
+    crop_kept, dd_c._crop_disable = getattr(dd_c, "_crop_disable", False), False
     fn_c = dd_c._make_fused_loss_fn(dd_c.gt_tensors)
     if fn_c.crop is None:
         fail("DiffDope depth compact: the fused loss has no ROI crop at the init")
@@ -4154,12 +4238,26 @@ def main() -> None:
                 {k: logs_c[k].cpu().numpy() for k in ("mask_selection", "depth")},
                 {k: v[0] for k, v in dd_k.losses_values.items()},
                 ("mask_selection", "depth"))
-    n = same_slots(fn_c, dd_k._make_fused_loss_fn(dd_k.gt_tensors), mtx0)
+    fn_k = dd_k._make_fused_loss_fn(dd_k.gt_tensors)
+    n = same_slots(fn_c, fn_k, mtx0)
     print(f"DiffDope depth: at the init the compact table (crop {fn_c.crop}) and the "
           f"uniform table hold the same {n} slots per tile in the same order",
           flush=True)
+    # K2 on the two layouts of the init's bins: equal bit for bit, and
+    # timed on each
+    layout_row = check_pack_layouts(fn_c, fn_k, mtx0, reps=20)
+    print(f"DiffDope depth K2 layouts: ok={layout_row['ok']} "
+          f"max_abs_err={layout_row['max_abs_err']:.3e} ({layout_row['tolerance']}), "
+          f"{layout_row['slots']} live slots of {layout_row['table_slots']} (compact, "
+          f"uniform); K2 {layout_row['ms_a']:.4f} ms on the compact table, "
+          f"{layout_row['ms_b']:.4f} ms on the uniform table [{gpu}]", flush=True)
+    if not layout_row["ok"]:
+        fail(f"K2 gives the compact and the uniform table other sums: {layout_row}")
+    # F3: the two tables refine to the same poses at every step, bit for bit
+    dd_c._crop_disable = crop_kept
+    same_poses(dd_c, dd_k, adds_c, (add0, add1))
 
-    del dd_c, dd_k, fn_c
+    del dd_c, dd_k, fn_c, fn_k
     torch.cuda.empty_cache()
 
     # ---- the API path (K8) and DiffDope on the reference rasterizer -------
@@ -4254,6 +4352,8 @@ def main() -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
         })
+        if name == "K2_pack_bwd":  # the autograd check above, and the layouts'
+            rows[-1]["layouts_bit_equal"] = layout_row["ok"]
         if not path[counters[name]]:
             fail(f"{name} was launched no time on its path")
     print(json.dumps({"kernels": rows}), flush=True)

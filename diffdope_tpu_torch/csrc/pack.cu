@@ -22,27 +22,42 @@
 //
 // K2: the TPU kernel accumulates the 19 sums (d_mvp 16, d_mtx row 2) over a
 // sequential grid in VMEM; blocks here run in no order, so each block takes
-// one (slot chunk, hypothesis) pair, reduces its slots to 19 partial sums in
-// a fixed-order tree (warp shuffles, then warps in order), and a second
-// launch adds the partials of each hypothesis in chunk order.  No atomics:
-// the result is deterministic.  The adjoint is the reference's, written out
-// (pack_kernel.py:225-308).  Bound: the d_packed read of the 16 + 3*n_ch
-// lanes that carry a gradient, 100 bytes per (b, slot) at n_ch = 3, at the
-// slots whose degenerate flag is clear.  What the design does about it:
+// one (chunk of 2048 places, hypothesis) pair, reduces its slots to 19
+// partial sums in a fixed-order tree (warp shuffles, then warps in order),
+// and a second launch adds the partials of each hypothesis in chunk order.
+// No atomics: the result is deterministic.  The adjoint is the reference's,
+// written out (pack_kernel.py:225-308).  Bound: the d_packed read of the
+// 16 + 3*n_ch lanes that carry a gradient, 100 bytes per (b, slot) at
+// n_ch = 3, at the slots whose degenerate flag is clear.  What the design
+// does about it:
+// - The sums run over places, not table positions: the compact layout of
+//   the table's bins, each tile's slots in rank order from a whole
+//   128-slot chunk (pack_kernel.slot_order, built once a table on the
+//   device).  The uniform-K table pads every tile to K slots, the compact
+//   table to whole chunks; both hold the same slots per tile in the same
+//   order, and summed by position each put its live slots at other places
+//   of the tree: the two layouts gave gradients apart in the last bit,
+//   which a refinement at the default loss scales amplifies into other
+//   poses.  Summed by place they give the same gradients bit for bit, and
+//   the compact table keeps the sums (and the trajectories) it had: the
+//   default configuration's runs are chaotic in K2's rounding, and a sum
+//   over live indices (in f32, or in f64 rounded once) moved them so that
+//   other phases' criteria failed (PERF.md §6).  A uniform tile's padding
+//   past its chunks is never visited: blocks past the places exit.  The
+//   compact table's places are its positions, so it needs no order and
+//   K2 walks it as before; the uniform table's next place's slot is
+//   loaded before this slot's body (with an order for both, K2 took
+//   0.1153 against 0.1102 ms on the compact table at the bench shapes;
+//   H100 SXM at 700 W, tools/port_kernel_ab.py).
 // - The slot body is instantiated per n_ch and fully unrolled, so a
 //   thread's 25 cotangent loads and 19 table loads of a slot go out
 //   together; a loop over a run-time n_ch, a load and a dependent add an
 //   iteration, had chained ~9 L2 round trips per slot.
 // - A degenerate slot (mesh padding, a sentinel) has keep = 0, so each of
 //   its terms is +-0 for any finite cotangent, and adding +-0 leaves a sum
-//   that starts at +0 unchanged: the kernel skips such slots, their
-//   cotangent reads and their adjoint, per thread, and a warp of them
-//   (the uniform table's padding) costs one load of the flags.
-// - The sums keep their order, so the result is the previous kernel's bit
-//   for bit.  A redesign that staged a chunk's rows once for many
-//   hypotheses (chunks of 768, other trees) ran as fast at the bench shapes
-//   but changed the sums' rounding, and with it the default
-//   configuration's trajectories (PERF.md §6).
+//   that starts at +0 unchanged: the kernel skips such slots (by their
+//   flag, or they have no place in the order), their cotangent reads and
+//   their adjoint.
 // - 2 blocks of 256 threads an SM: the unrolled slot body takes ~120
 //   registers; capped at 85 (3 blocks) it spilled and ran 0.170 against
 //   0.107 ms at the bench shapes.
@@ -290,22 +305,32 @@ __device__ __forceinline__ void pack_bwd_slot(const float* M, const float* tab,
         d_zr[0] * cr.p[0][c] + d_zr[1] * cr.p[1][c] + d_zr[2] * cr.p[2][c];
 }
 
-// K2's partial sums: one block per (chunk, hypothesis), thread t adding
-// its live slots t, t + 256, ... of the chunk in order, then a fixed-order
-// tree (warp shuffles, then the warps in order).  A degenerate slot adds
-// only +-0 terms, so skipping it leaves every sum bit for bit as it was:
-// the sums are the previous kernel's, in its order (the trajectories of a
-// refinement follow the rounding of these sums: see PERF.md).
-template <int kNCh>
+// K2's partial sums at the compact layout's places: one block per (2048
+// places, hypothesis), thread t adding the slots at places t, t + 256, ...
+// of its block in order, then a fixed-order tree (warp shuffles, then the
+// warps in order).  On the compact table (kByPlace false) the places are
+// the table's positions, and a slot is skipped where its degenerate flag
+// is set (a sentinel, mesh padding: its terms are all +-0).  On the
+// uniform-K table (kByPlace true) order[v] is the table position summed at
+// place v, -1 for none (pack_kernel.slot_order: each tile's slots where
+// the compact table of the same bins holds them), and order[n] the number
+// of places; blocks past it exit (no host read: the launch is captured in
+// a CUDA graph), and the next place's slot is loaded before this slot's
+// body.  So the two tables give the same sums bit for bit, and the
+// compact table the sums it had when K2 summed every table by position.
+template <int kNCh, bool kByPlace>
 __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
     pack_bwd_partial_kernel(const float* __restrict__ mvpm,
                             const float* __restrict__ tab,
-                            const float* __restrict__ g, int n,
+                            const float* __restrict__ g,
+                            const int* __restrict__ order, int n,
                             float* __restrict__ partial) {
   __shared__ float M[kMvpm];
   __shared__ float warp_sums[kThreads / 32][kOut];
   const int b = blockIdx.y;
   const int chunk = blockIdx.x;
+  const int n_places = kByPlace ? order[n] : n;
+  if (chunk * kChunk >= n_places) return;  // the same for the whole block
   if (threadIdx.x < kMvpm) M[threadIdx.x] = mvpm[b * kMvpm + threadIdx.x];
   __syncthreads();
 
@@ -313,10 +338,21 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
 #pragma unroll
   for (int o = 0; o < kOut; ++o) acc[o] = 0.0f;
   const float* gb = g + (size_t)b * kLanes * n;
-  const float* degen = tab + (size_t)(10 + 3 * kNCh) * n;
-  const int end = min(n, (chunk + 1) * kChunk);
-  for (int s = chunk * kChunk + threadIdx.x; s < end; s += blockDim.x)
-    if (degen[s] <= 0.5f) pack_bwd_slot<kNCh>(M, tab, gb, n, s, acc);
+  const int end = min(n_places, (chunk + 1) * kChunk);
+  if (kByPlace) {
+    int i = chunk * kChunk + threadIdx.x;
+    int s = i < end ? order[i] : -1;
+    for (; i < end; i += blockDim.x) {
+      const int j = i + blockDim.x;
+      const int s_next = j < end ? order[j] : -1;
+      if (s >= 0) pack_bwd_slot<kNCh>(M, tab, gb, n, s, acc);
+      s = s_next;
+    }
+  } else {
+    const float* degen = tab + (size_t)(10 + 3 * kNCh) * n;
+    for (int s = chunk * kChunk + threadIdx.x; s < end; s += blockDim.x)
+      if (degen[s] <= 0.5f) pack_bwd_slot<kNCh>(M, tab, gb, n, s, acc);
+  }
 
   // fixed-order tree: within each warp, then the warps in order
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -335,26 +371,38 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
   }
 }
 
-// out[b, o] = sum over the chunks of partial[b, chunk, o], in chunk order
+// out[b, o] = sum over the blocks that hold places of partial[b, chunk, o],
+// in block order (n_chunks: the partials' row stride, the grid of the
+// first launch; order null: every block)
 __global__ void pack_bwd_reduce_kernel(const float* __restrict__ partial,
+                                       const int* __restrict__ order, int n,
                                        int n_chunks, float* __restrict__ out) {
   const int b = blockIdx.x;
   const int o = threadIdx.x;
   if (o >= kOut) return;
+  const int n_used = order ? (order[n] + kChunk - 1) / kChunk : n_chunks;
   float v = 0.0f;
-  for (int c = 0; c < n_chunks; ++c) v += partial[((size_t)b * n_chunks + c) * kOut + o];
+  for (int c = 0; c < n_used; ++c) v += partial[((size_t)b * n_chunks + c) * kOut + o];
   out[b * kOut + o] = v;
 }
 
 template <int kNCh>
-int pack_bwd_launch(const float* mvpm, const float* tab, const float* g, int B,
-                    int n, float* partial, float* out, cudaStream_t st) {
+int pack_bwd_launch(const float* mvpm, const float* tab, const float* g,
+                    const int* order, int B, int n, float* partial, float* out,
+                    cudaStream_t st) {
   const int n_chunks = (n + kChunk - 1) / kChunk;
-  pack_bwd_partial_kernel<kNCh><<<dim3(n_chunks, B), kThreads, 0, st>>>(mvpm, tab, g, n,
-                                                                        partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  pack_bwd_reduce_kernel<<<B, 32, 0, st>>>(partial, n_chunks, out);
+  if (n_chunks > 0) {
+    const dim3 grid(n_chunks, B);
+    if (order)
+      pack_bwd_partial_kernel<kNCh, true><<<grid, kThreads, 0, st>>>(mvpm, tab, g, order,
+                                                                     n, partial);
+    else
+      pack_bwd_partial_kernel<kNCh, false><<<grid, kThreads, 0, st>>>(mvpm, tab, g, order,
+                                                                      n, partial);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  pack_bwd_reduce_kernel<<<B, 32, 0, st>>>(partial, order, n, n_chunks, out);
   return (int)cudaGetLastError();
 }
 
@@ -369,16 +417,19 @@ extern "C" int dd_pack_fwd(const float* mvpm, const float* tab,
   return (int)cudaGetLastError();
 }
 
-// partial: scratch of B * ceil(n / 2048) * 19 floats; out: (B, 19)
+// order: null for the compact table (its places are its positions), else
+// (n + 1) int32, the table position summed at each place (-1 for none) and
+// the number of places at [n]; partial: scratch of B * ceil(n / 2048) * 19
+// floats; out: (B, 19)
 extern "C" int dd_pack_bwd(const float* mvpm, const float* tab, const float* g,
-                           int B, int n, int n_ch, float* partial, float* out,
-                           void* stream) {
+                           const int* order, int B, int n, int n_ch, float* partial,
+                           float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (n_ch) {
-    case 0: return pack_bwd_launch<0>(mvpm, tab, g, B, n, partial, out, st);
-    case 1: return pack_bwd_launch<1>(mvpm, tab, g, B, n, partial, out, st);
-    case 2: return pack_bwd_launch<2>(mvpm, tab, g, B, n, partial, out, st);
-    case 3: return pack_bwd_launch<3>(mvpm, tab, g, B, n, partial, out, st);
+    case 0: return pack_bwd_launch<0>(mvpm, tab, g, order, B, n, partial, out, st);
+    case 1: return pack_bwd_launch<1>(mvpm, tab, g, order, B, n, partial, out, st);
+    case 2: return pack_bwd_launch<2>(mvpm, tab, g, order, B, n, partial, out, st);
+    case 3: return pack_bwd_launch<3>(mvpm, tab, g, order, B, n, partial, out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

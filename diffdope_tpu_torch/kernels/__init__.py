@@ -65,8 +65,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # (mvpm, tab, sil, B, n, n_ch, out, stream)
     "dd_pack_fwd": [_P] * 3 + [_I] * 3 + [_P] * 2,
-    # (mvpm, tab, g, B, n, n_ch, partial, out, stream)
-    "dd_pack_bwd": [_P] * 3 + [_I] * 3 + [_P] * 3,
+    # (mvpm, tab, g, order, B, n, n_ch, partial, out, stream)
+    "dd_pack_bwd": [_P] * 4 + [_I] * 3 + [_P] * 3,
     # (bins, counts, off_c, used, B, tot, k_chunk, nty, ntx, th, tw,
     #  oy, ox, fh, fw, ids, win, rows, stream)
     "dd_raster_fwd": [_P] * 4 + [_I] * 11 + [_P] * 4,

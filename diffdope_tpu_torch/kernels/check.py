@@ -61,10 +61,11 @@ from diffdope_tpu_torch.render.fused_loss import (
 from diffdope_tpu_torch.render.pack_kernel import (
     _mvpm,
     _static_table,
+    live_positions,
     pack_bwd,
     pack_fwd,
 )
-from diffdope_tpu_torch.render.pipeline import K_CHUNK, TILE_HW
+from diffdope_tpu_torch.render.pipeline import K_CHUNK, TILE_HW, slot_order_of
 from diffdope_tpu_torch.render.raster import (
     bins_planar,
     raster_bwd,
@@ -767,6 +768,7 @@ class PackInputs(NamedTuple):
     tab: torch.Tensor  # (9 + 3 n_ch + 2, n) static rows, ids, degenerate flag
     sil_b: torch.Tensor  # (B, n)
     n_ch: int
+    order: Optional[torch.Tensor]  # K2's places (pipeline.slot_order_of)
 
 
 def pack_inputs(fn, mtx: torch.Tensor) -> PackInputs:
@@ -777,7 +779,8 @@ def pack_inputs(fn, mtx: torch.Tensor) -> PackInputs:
         bn = fn.binned(mtx)
     tab, n_ch = _static_table(bn.flat, t_count, fn.mesh.static)
     sil_b = bn.sil[:, bn.flat.clamp(max=t_count - 1)].to(torch.float32).contiguous()
-    return PackInputs(bn, _mvpm(bn.mvp, mtx), tab.contiguous(), sil_b, n_ch)
+    return PackInputs(bn, _mvpm(bn.mvp, mtx), tab.contiguous(), sil_b, n_ch,
+                      slot_order_of(bn, fn.mesh))
 
 
 def pack_bwd_bytes(tab: torch.Tensor, b: int, n_ch: int) -> int:
@@ -799,7 +802,7 @@ def check_pack(fn, mtx: torch.Tensor, reps: int = 0) -> List[Dict[str, object]]:
     Returns one dict per kernel, as :func:`check_kernels` does."""
     mesh = fn.mesh
     t_count = mesh.t_count
-    bn, mvpm, tab, sil_b, n_ch = pack_inputs(fn, mtx)
+    bn, mvpm, tab, sil_b, n_ch, order = pack_inputs(fn, mtx)
     b, n = mvpm.shape[0], tab.shape[1]
 
     def plain(mvp, mtx_):
@@ -820,7 +823,7 @@ def check_pack(fn, mtx: torch.Tensor, reps: int = 0) -> List[Dict[str, object]]:
 
     gen = torch.Generator(device=mvpm.device).manual_seed(0)
     g = torch.randn(got.shape, generator=gen, device=mvpm.device)
-    d = pack_bwd(mvpm, tab, g, n_ch)
+    d = pack_bwd(mvpm, tab, g, n_ch, order)
     leaves = (bn.mvp.detach().requires_grad_(True), mtx.detach().requires_grad_(True))
     with torch.enable_grad():
         packed_p = plain(*leaves)
@@ -842,10 +845,49 @@ def check_pack(fn, mtx: torch.Tensor, reps: int = 0) -> List[Dict[str, object]]:
         with torch.no_grad():
             out[0]["ms"] = _time_ms(lambda: pack_fwd(mvpm, tab, sil_b, n_ch), reps)
             out[0]["plain_ms"] = _time_ms(lambda: plain(bn.mvp, mtx), max(1, reps // 10))
-            out[1]["ms"] = _time_ms(lambda: pack_bwd(mvpm, tab, g, n_ch), reps)
+            out[1]["ms"] = _time_ms(lambda: pack_bwd(mvpm, tab, g, n_ch, order), reps)
         out[1]["plain_ms"] = _time_ms(
             lambda: torch.autograd.grad(packed_p, leaves, g, retain_graph=True),
             max(1, reps // 10))
+    return out
+
+
+@torch.no_grad()
+def check_pack_layouts(fn_a, fn_b, mtx: torch.Tensor, reps: int = 0) -> Dict[str, object]:
+    """K2 on two layouts of one set of bins (the compact table and the
+    uniform-K table, or another crop) at poses ``mtx``: the live slots must
+    be the same in the same order; each table then takes one seeded normal
+    cotangent on its live slots and another on its padding, and K2 must
+    give the two tables the same (B, 19) bit for bit.  With ``reps`` K2 is
+    timed on each table ('ms_a', 'ms_b')."""
+    a, b_ = pack_inputs(fn_a, mtx), pack_inputs(fn_b, mtx)
+    out = {"name": "K2_pack_bwd layouts", "tolerance": "bit for bit"}
+    pos_a, pos_b = live_positions(a.tab), live_positions(b_.tab)
+    m = pos_a.numel()
+    same = m == pos_b.numel() and torch.equal(a.bn.flat[pos_a], b_.bn.flat[pos_b])
+    out.update(slots=m, table_slots=(a.tab.shape[1], b_.tab.shape[1]),
+               same_slots=bool(same))
+    if not same:
+        out.update(ok=False, max_abs_err=float("inf"))
+        return out
+    gen = torch.Generator(device=mtx.device).manual_seed(0)
+    bsz = mtx.shape[0]
+    g_live = torch.randn((bsz, 32, m), generator=gen, device=mtx.device)
+
+    def cotangent(n, pos):
+        g = torch.randn((bsz, 32, n), generator=gen, device=mtx.device)  # the padding's
+        g[:, :, pos] = g_live
+        return g
+
+    g_a, g_b = cotangent(a.tab.shape[1], pos_a), cotangent(b_.tab.shape[1], pos_b)
+    d_a = pack_bwd(a.mvpm, a.tab, g_a, a.n_ch, a.order)
+    d_b = pack_bwd(b_.mvpm, b_.tab, g_b, b_.n_ch, b_.order)
+    out.update(ok=torch.equal(d_a.view(torch.int32), d_b.view(torch.int32)),
+               max_abs_err=float((d_a - d_b).abs().max()))
+    if reps:
+        out["ms_a"] = _time_ms(lambda: pack_bwd(a.mvpm, a.tab, g_a, a.n_ch, a.order), reps)
+        out["ms_b"] = _time_ms(lambda: pack_bwd(b_.mvpm, b_.tab, g_b, b_.n_ch, b_.order),
+                               reps)
     return out
 
 
@@ -1068,7 +1110,7 @@ def plain_render():
 
     saved = (pipeline.pack_binned_auto, raster.raster_fwd, raster.raster_uniform_fwd)
 
-    def pack(pos_c, mvp, mtx, flat, *rest):
+    def pack(pos_c, mvp, mtx, flat, *rest, order=None):
         return planar.pack_binned(pos_c, mvp, mtx, flat.reshape(-1), *rest)
 
     pipeline.pack_binned_auto = pack

@@ -78,7 +78,7 @@ from diffdope_tpu_torch.render.planar import (
     pack_planar,
     static_pack_rows,
 )
-from diffdope_tpu_torch.render.pack_kernel import pack_binned_auto
+from diffdope_tpu_torch.render.pack_kernel import pack_binned_auto, slot_order
 from diffdope_tpu_torch.render.raster import (
     raster_compact,
     raster_gather_rows_binned,
@@ -325,6 +325,27 @@ class Bins(NamedTuple):
     inv_valid: torch.Tensor
 
 
+class _DepthPlane(torch.autograd.Function):
+    """gt depth + t_z per hypothesis over the window (oy, ox, hc, wc) of
+    the padded frame (hp, wp): (B, hc, wc), differentiable in t_z (B,).
+    The t_z gradient sums the window's cotangent laid into the whole
+    padded frame, so the ROI crop and the full frame sum one tensor in
+    one order (no depth gradient lies outside the crop) and the compact
+    and the uniform-K table give the same pose gradient bit for bit."""
+
+    @staticmethod
+    def forward(ctx, gtd, tz, window, frame):
+        ctx.window, ctx.frame = window, frame
+        return gtd[None] + tz[:, None, None]
+
+    @staticmethod
+    def backward(ctx, d):
+        (oy, ox, hc, wc), (hp, wp) = ctx.window, ctx.frame
+        if (hc, wc) != (hp, wp):
+            d = torch.nn.functional.pad(d, (ox, wp - ox - wc, oy, hp - oy - hc))
+        return None, d.sum((1, 2)), None, None
+
+
 def _binned(mesh: _Mesh, mtx: torch.Tensor, resolution,
             capacity: Optional[Union[int, str]] = None, crop: Optional[_Crop] = None,
             cull: bool = False, max_tris: int = MAX_TRIS_PER_TILE,
@@ -374,13 +395,24 @@ def _binned(mesh: _Mesh, mtx: torch.Tensor, resolution,
     return _Binned(mvp, flat, sil, counts.contiguous(), off_c, used, telemetry)
 
 
+def slot_order_of(bn: _Binned, mesh: _Mesh) -> Optional[torch.Tensor]:
+    """K2's places for a table's layout: None for the compact table (its
+    places are its positions); for the uniform table its slots at the
+    places the compact table of its bins holds them at
+    (``pack_kernel.slot_order``)."""
+    if bn.off_c is not None:
+        return None
+    return slot_order(bn.flat, bn.counts, mesh.t_count, K_CHUNK, mesh.degenerate)
+
+
 def _pack_dispatch(mesh: _Mesh, mvp: torch.Tensor, mtx: torch.Tensor,
-                   flat: torch.Tensor, sil: torch.Tensor) -> torch.Tensor:
+                   flat: torch.Tensor, sil: torch.Tensor,
+                   order: Optional[torch.Tensor]) -> torch.Tensor:
     """The bin-ordered table of every call site: K1/K2 on the card, the
     plain ``planar.pack_binned`` for CPU tensors (``pack_binned_auto``)."""
     return pack_binned_auto(
         mesh.pos_c, mvp, mtx, flat, mesh.attrs, sil, mesh.degenerate,
-        mesh.t_count, mesh.static,
+        mesh.t_count, mesh.static, order=order,
     )
 
 
@@ -391,7 +423,8 @@ def _table(mesh: _Mesh, mtx: torch.Tensor, resolution,
     """The packed table at poses ``mtx`` (B, 4, 4), differentiable in mtx,
     in the layout ``capacity`` selects (see :func:`_binned`)."""
     bn = _binned(mesh, mtx, resolution, capacity, crop, cull, max_tris, bins)
-    packed = _pack_dispatch(mesh, bn.mvp, mtx, bn.flat, bn.sil)
+    packed = _pack_dispatch(mesh, bn.mvp, mtx, bn.flat, bn.sil,
+                            slot_order_of(bn, mesh))
     return _Table(packed, bn.counts, bn.off_c, bn.used, bn.telemetry)
 
 
@@ -597,7 +630,8 @@ def make_fused_loss(
 
     def depth_plane(gtd, mtx: torch.Tensor) -> Optional[torch.Tensor]:
         """gt depth + t_z per hypothesis (B, hc, wc), differentiable in t_z."""
-        return None if gtd is None else gtd[None] + mtx[:, 2, 3][:, None, None]
+        return None if gtd is None else _DepthPlane.apply(gtd, mtx[:, 2, 3],
+                                                          (oy, ox, hc, wc), (hp, wp))
 
     def sums_of(ids, rows, mtx, gt6, gtd):
         colors = None if sample is None else sample(rows, ids)

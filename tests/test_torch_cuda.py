@@ -420,7 +420,8 @@ def _pack_fn(n_ch, b, n, seed, all_sentinel=False):
                            static=static_pack_rows(pos_c, attrs, degen))
     bn = SimpleNamespace(flat=torch.tensor(x["flat"], device=dev),
                          mvp=torch.tensor(x["mvp"], device=dev),
-                         sil=torch.tensor(x["sil"], device=dev))
+                         sil=torch.tensor(x["sil"], device=dev),
+                         off_c=torch.zeros(1, dtype=torch.int32, device=dev))  # no tiles
     return SimpleNamespace(mesh=mesh, binned=lambda mtx: bn), torch.tensor(x["mtx"], device=dev)
 
 
@@ -443,17 +444,56 @@ def test_k2_matches_plain_and_repeats_on_card(cuda, params, case):
                            all_sentinel=case == "all_sentinel")
     row = [r for r in check_pack(fn, mtx) if r["name"] == "K2_pack_bwd"][0]
     assert row["ok"], row
-    _, mvpm, tab, _, n_ch = pack_inputs(fn, mtx)
+    _, mvpm, tab, _, n_ch, order = pack_inputs(fn, mtx)
     b, n = mvpm.shape[0], tab.shape[1]
     if case.startswith(("random", "all")):
         assert n % _CHUNK and n > 2 * _CHUNK
     assert row["slots"] == 0 if case == "all_sentinel" else 0 < row["slots"] <= n
     g = torch.randn((b, 32, n), generator=torch.Generator(device=cuda).manual_seed(1),
                     device=cuda)
-    first = pack_bwd(mvpm, tab, g, n_ch)
-    assert torch.equal(first, pack_bwd(mvpm, tab, g, n_ch))
+    first = pack_bwd(mvpm, tab, g, n_ch, order)
+    assert torch.equal(first, pack_bwd(mvpm, tab, g, n_ch, order))
     if case == "all_sentinel":
         assert not first.any()
+
+
+@pytest.mark.parametrize("texture", [False, True])
+def test_k2_layouts_equal_repeat_and_replay_on_card(cuda, params, texture):
+    """K2 on the compact and on the uniform-K table of the same bins (the
+    test scene, n_ch 3, and its uv table, n_ch 2) under one cotangent on
+    their live slots and another on their padding: the same (B, 19) bit
+    for bit; K2 repeats bit for bit; K2's places (``slot_order_of``) and
+    K2 captured in a CUDA graph replay equal to the eager launches."""
+    from diffdope_tpu_torch.kernels.check import check_pack_layouts, pack_inputs
+    from diffdope_tpu_torch.render.pack_kernel import pack_bwd
+    from diffdope_tpu_torch.render.pipeline import slot_order_of
+
+    mtx, _, _ = pose_matrix(params)
+    fns = [bench_problem(RES, subdiv=2, batch=B, device=cuda, texture=texture,
+                         uniform=uniform)["fn"] for uniform in (False, True)]
+    row = check_pack_layouts(*fns, mtx)
+    assert row["same_slots"] and row["ok"], row
+    n_compact, n_uniform = row["table_slots"]
+    assert 0 < row["slots"] < n_compact < n_uniform
+    for fn in fns:
+        bn, mvpm, tab, _, n_ch, order = pack_inputs(fn, mtx)
+        g = torch.randn((B, 32, tab.shape[1]), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(2))
+        eager = pack_bwd(mvpm, tab, g, n_ch, order)
+        assert torch.equal(eager, pack_bwd(mvpm, tab, g, n_ch, order))
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            pack_bwd(mvpm, tab, g, n_ch, slot_order_of(bn, fn.mesh))  # warm
+            graph.capture_begin()
+            out = pack_bwd(mvpm, tab, g, n_ch, slot_order_of(bn, fn.mesh))
+            graph.capture_end()
+        torch.cuda.current_stream().wait_stream(stream)
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
 
 
 def _k5_window(fn, mtx):
@@ -1256,6 +1296,24 @@ def test_graph_refine_equals_eager_on_card(cuda, route, monkeypatch):
         assert lg["pack_fwd"] == lg["loss_bwd_bf16"] == 4, lg
     _assert_same_result(g, e)
     assert g.opt_state["count"] == e.opt_state["count"] == 4
+
+
+def test_tables_refine_to_the_same_poses_on_card(cuda, monkeypatch):
+    """The depth routes on the compact and on the uniform-K table
+    (``test_torch_refine_capture``'s 'depth_compact' and 'depth_uniform'),
+    4 steps as graph replays: the same poses at every step, bit for bit
+    (F3)."""
+    from diffdope_tpu_torch.optimize import refine
+
+    runs = []
+    for route in ("depth_compact", "depth_uniform"):
+        params0, kw = capture.ROUTES[route](monkeypatch, cuda)
+        optimizer, base_lr = capture.optimizer_of(route)
+        runs.append(refine(params0, nb_iterations=3, base_lr=base_lr, optimizer=optimizer,
+                           **kw))
+    h_c, h_u = (r.mtx_history for r in runs)
+    assert not torch.equal(h_c[0], h_c[-1])
+    assert torch.equal(h_c.view(torch.int32), h_u.view(torch.int32))
 
 
 def test_kept_refine_equals_fresh_eager_on_card(cuda, monkeypatch):

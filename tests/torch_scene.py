@@ -205,12 +205,14 @@ def jax_fused_loss(monkeypatch, use_depth=False, compact_total=COMPACT_TOTAL,
     )
 
 
-def port_fused_loss(device="cpu", use_depth=False, uniform=False, drows_bf16=False):
+def port_fused_loss(device="cpu", use_depth=False, uniform=False, drows_bf16=False,
+                    use_rgb=True):
     """The port's fused loss on the same scene, its state carried across
     by ``convert.state``; compact capacity twice the probe's, or the
     uniform-K table; the spanning op's d_rows in f32 (the contract's
     DD_DROWS_BF16=0 reference, :func:`jax_fused_loss`'s default) unless
-    ``drows_bf16``."""
+    ``drows_bf16``; ``use_rgb`` False for the mask (and depth) terms
+    only."""
     from diffdope_tpu_torch import convert
     from diffdope_tpu_torch.bench import drows_env
     from diffdope_tpu_torch.render.pipeline import compact_capacity, make_fused_loss
@@ -221,7 +223,7 @@ def port_fused_loss(device="cpu", use_depth=False, uniform=False, drows_bf16=Fal
     with drows_env(drows_bf16):
         return make_fused_loss(
             sc["proj"], sc["pos"], sc["tri"], RES, sc["gt"], LRS, WEIGHTS,
-            use_rgb=True, use_depth=use_depth, use_mask=True, edge_adj=sc["edge_adj"],
+            use_rgb=use_rgb, use_depth=use_depth, use_mask=True, edge_adj=sc["edge_adj"],
             vtx_color=sc["vtx_color"], compact_total=total, device=device,
         )
 
@@ -397,8 +399,8 @@ def feed_reference_pack(monkeypatch):
 
     own = pipeline._pack_dispatch
 
-    def dispatch(mesh, mvp, mtx, flat, sil):
-        packed = own(mesh, mvp, mtx, flat, sil)
+    def dispatch(mesh, mvp, mtx, flat, sil, *order):
+        packed = own(mesh, mvp, mtx, flat, sil, *order)
         ref = j_pack(*(jnp.asarray(a.detach().numpy()) for a in (
             mesh.pos_c, mvp, mtx, flat, mesh.attrs, sil, mesh.degenerate)),
             mesh.t_count, interpret=True)

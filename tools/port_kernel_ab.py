@@ -23,7 +23,8 @@ bench shapes (``bench_problem()``: B=64, 400x400, icosphere(5), 64
 distinct poses):
 
 - K2 (``dd_pack_bwd``) on the compact table, the uniform-K table and the
-  textured problem's uv table (n_ch 2), under a seeded normal cotangent;
+  textured problem's uv table (n_ch 2), under a seeded normal cotangent
+  (a tree whose K2 takes its places' order gets this checkout's);
   printed with the table's slots whose degenerate flag is clear, and the
   32-slot groups that are all degenerate;
 - K5 (``dd_loss_fwd``) in its four lanes: rgb + mask on the compact crop,
@@ -204,7 +205,7 @@ def k2_cases(problems, mtx):
 
     cases = {}
     for case, fn in problems.items():
-        bn, mvpm, tab, _, n_ch = pack_inputs(fn, mtx)
+        bn, mvpm, tab, _, n_ch, order = pack_inputs(fn, mtx)
         b, n = mvpm.shape[0], tab.shape[1]
         gen = torch.Generator(device="cuda").manual_seed(0)
         g = torch.randn((b, 32, n), generator=gen, device="cuda")
@@ -214,13 +215,17 @@ def k2_cases(problems, mtx):
         # scratch for chunks as small as 32 slots: every tree's fits
         partial = torch.empty(b * -(-n // 32) * 19, device="cuda")
 
-        def make(lib, mvpm=mvpm, tab=tab, g=g, n_ch=n_ch, b=b, n=n, partial=partial):
+        def make(lib, mvpm=mvpm, tab=tab, g=g, n_ch=n_ch, b=b, n=n, partial=partial,
+                 order=order):
             f = lib.dd_pack_bwd
-            f.argtypes = [P] * 3 + [I] * 3 + [P] * 3
+            # 10 parameters: the sums at K2's places (order); 9: by position
+            by_place = _params(lib.root, "dd_pack_bwd", ("pack.cu",)) == 10
+            f.argtypes = [P] * (4 if by_place else 3) + [I] * 3 + [P] * 3
+            lists = (None if order is None else order.data_ptr(),) if by_place else ()
             out = torch.empty((b, 19), device="cuda")
 
             def call():
-                err = f(mvpm.data_ptr(), tab.data_ptr(), g.data_ptr(), b, n, n_ch,
+                err = f(mvpm.data_ptr(), tab.data_ptr(), g.data_ptr(), *lists, b, n, n_ch,
                         partial.data_ptr(), out.data_ptr(),
                         torch.cuda.current_stream().cuda_stream)
                 assert err == 0, err
