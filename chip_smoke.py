@@ -1813,29 +1813,33 @@ class BinningInRefine:
 
 
 class Captures:
-    """The CUDA graphs captured (``optimize.CapturedRefine``'s captures)
-    while entered: each capture's host time (s) and the bytes its memory
-    pool reserved."""
+    """The CUDA graphs captured while entered: each capture's host time (s)
+    and the bytes its memory pool reserved, read from the public counters
+    (``captures``, ``capture_s``, ``pool_bytes``) of every
+    ``optimize.CapturedRefine`` call (a call captures at most once)."""
 
     def __enter__(self):
         from diffdope_tpu_torch import optimize
 
         self.times, self.pools = [], []
-        self._own = own = optimize.CapturedRefine._capture
+        self._own = own = optimize.CapturedRefine.__call__
 
-        def counted(refine, trace):
-            t0 = time.perf_counter()
-            own(refine, trace)
-            self.times.append(time.perf_counter() - t0)
-            self.pools.append(trace.pool_bytes)
+        def counted(refine, *args, **kwargs):
+            captures, seconds = refine.captures, refine.capture_s
+            try:
+                return own(refine, *args, **kwargs)
+            finally:
+                if refine.captures > captures:
+                    self.times.append(refine.capture_s - seconds)
+                    self.pools.append(refine.pool_bytes)
 
-        optimize.CapturedRefine._capture = counted
+        optimize.CapturedRefine.__call__ = counted
         return self
 
     def __exit__(self, *exc):
         from diffdope_tpu_torch import optimize
 
-        optimize.CapturedRefine._capture = self._own
+        optimize.CapturedRefine.__call__ = self._own
 
     @property
     def count(self) -> int:

@@ -72,7 +72,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from diffdope_tpu_torch import viz
+from diffdope_tpu_torch import trace, viz
 from diffdope_tpu_torch.camera import Camera
 from diffdope_tpu_torch.config import ConfigNode
 from diffdope_tpu_torch.convert import tensor
@@ -520,10 +520,33 @@ class DiffDope:
         the init jitter, then ``tpu.mesh_axis`` > 1 (the hypotheses sharded
         over the ranks, appearance leaves included, restarts not run),
         else appearance refinement, else restarts, else the plain
-        segmented run; ``tpu.precompute_bins`` under any of them."""
+        segmented run; ``tpu.precompute_bins`` under any of them.
+
+        ``last_run_stats``: the kept dispatch's ``wall_time_s`` (host
+        seconds of its refinement, its loss built), ``steps``,
+        ``steps_per_sec``, ``compile_s`` (its ``CapturedRefine``'s step 0
+        and capture, host seconds: 0 for the eager loop, None for a sharded
+        run), ``steady_steps_per_sec`` (its graph replays over the rest of
+        ``wall_time_s``; None without replays), ``final_loss``,
+        ``recovery_reruns`` and ``rerun_reasons`` (one a re-run:
+        'overflow', pairs dropped, also where a crop leaked too; 'leak', a
+        triangle left the ROI crop).
+
+        While tracing is on (``trace``) a run records ``dd.run`` with
+        ``dd.run.gt`` (the ground truth to the device), ``dd.run.loss``
+        (the loss or render build, its capacity probes ``dd.probe``
+        included) and ``dd.run.dispatch`` (attributes ``attempt`` and
+        ``reason``: 'first', 'overflow' or 'leak'; the refinement's
+        ``dd.refine`` spans inside) for each dispatch, and ``dd.run.host``
+        (the results to the host)."""
+        with trace.span("run"):
+            self._run_optimization()
+
+    def _run_optimization(self) -> None:
         tpu_cfg = self._tpu()
         gt_np = self.gt_tensors
-        gt = {k: torch.tensor(v, device=self.device) for k, v in gt_np.items()}
+        with trace.span("run.gt"):
+            gt = {k: torch.tensor(v, device=self.device) for k, v in gt_np.items()}
         params0 = self.object3d.initial_params(self.batchsize, self.device)
         jitter_deg = float(tpu_cfg.get("init_jitter_deg", 0.0))
         jitter_trans = float(tpu_cfg.get("init_jitter_trans", 0.0))
@@ -540,11 +563,16 @@ class DiffDope:
         def progress(done, total_steps, last_loss):
             log.info("refine %d/%d steps, loss %.5f", done, total_steps, last_loss)
 
-        def dispatch():
+        def losses():
+            """(fused loss, render function): one of them None"""
             fused_fn = (None if extra_params
                         else self._make_fused_loss_fn(gt_np, use_bins=use_bins))
             render_fn = (self._make_render_fn(with_bins=use_bins) if fused_fn is None
                          else None)
+            return fused_fn, render_fn
+
+        def dispatch(fused_fn, render_fn):
+            """(result, wall seconds, the CapturedRefine or None)"""
             logged = itertools.count(1)
 
             def step_cb(i, total):
@@ -566,7 +594,7 @@ class DiffDope:
                     hypothesis_mesh(n_devices=self.mesh_axis, device=self.device),
                     extra_params=extra_params, nb_iterations=self.nb_iterations,
                     step_callback=callback, **kw)
-                return result, time.perf_counter() - t0
+                return result, time.perf_counter() - t0, None
             jit_refine = CapturedRefine(render_fn, tuple(self.loss_functions),
                                         self.loss_weights, self.nb_iterations, **kw)
             if restarts > 0 and not extra_params:
@@ -588,16 +616,22 @@ class DiffDope:
                     progress_fn=progress if show_progress and not live_step else None,
                     extra_params=extra_params, jit_refine=jit_refine,
                     step_callback=callback)
-            return result, time.perf_counter() - t0
+            return result, time.perf_counter() - t0, jit_refine
 
         recovery = bool(tpu_cfg.get("overflow_recovery", True))
         max_retries = int(tpu_cfg.get("overflow_retries", 2))
+        reasons = []
         for attempt in range(max_retries + 1):
-            result, dt = dispatch()
-            overflow = self._telemetry_max(result, "_bin_overflow")
-            leak = self._telemetry_max(result, "_crop_leak")
+            with trace.span("run.loss"):
+                fns = losses()
+            with trace.span("run.dispatch", attempt=attempt,
+                            reason=reasons[-1] if reasons else "first"):
+                result, dt, jit_refine = dispatch(*fns)
+                overflow = self._telemetry_max(result, "_bin_overflow")
+                leak = self._telemetry_max(result, "_crop_leak")
             if (overflow == 0 and leak == 0) or not recovery or attempt == max_retries:
                 break
+            reasons.append("overflow" if overflow > 0 else "leak")
             if overflow > 0:
                 self._capacity_boost = getattr(self, "_capacity_boost", 1.0) * 1.5
                 if self._compact_bins():
@@ -615,30 +649,33 @@ class DiffDope:
                     "the crop interior): disabling the crop and re-running "
                     "(attempt %d/%d)", leak, attempt + 1, max_retries)
         self._render_fn = None  # the capacities (and the colours) may have changed
-        mesh = self.object3d.mesh
-        for key in extra_params or ():
-            setattr(mesh, key, result.params[key].detach().cpu().numpy())
+        with trace.span("run.host"):
+            mesh = self.object3d.mesh
+            for key in extra_params or ():
+                setattr(mesh, key, result.params[key].detach().cpu().numpy())
 
-        self._check_bin_overflow(result)
-        self._bins_escaped = (self._check_bins(result) if getattr(self, "_bins", None)
-                              is not None and use_bins else None)
-        self._result = result
-        self.mtx_history = result.mtx_history.cpu().numpy()
-        self.losses_values = {k: v.cpu().numpy() for k, v in result.losses_values.items()}
-        self.optimization_results = RenderHistory(self)
+            self._check_bin_overflow(result)
+            self._bins_escaped = (self._check_bins(result) if getattr(self, "_bins", None)
+                                  is not None and use_bins else None)
+            self._result = result
+            self.mtx_history = result.mtx_history.cpu().numpy()
+            self.losses_values = {k: v.cpu().numpy() for k, v in result.losses_values.items()}
+            self.optimization_results = RenderHistory(self)
+            final_loss = float(result.total_loss[-1])
         compile_s = steady_sps = None
-        seg = result.segment_times
-        if seg and len(seg) > 1:
-            steady_sps = max(n / t for n, t in seg)
-            compile_s = max(0.0, dt - steps / steady_sps)
+        if jit_refine is not None:
+            compile_s = jit_refine.step0_s + jit_refine.capture_s
+            if jit_refine.replays and dt > compile_s:
+                steady_sps = jit_refine.replays / (dt - compile_s)
         self.last_run_stats = {
             "wall_time_s": dt,
             "steps": steps,
             "steps_per_sec": steps / dt,
             "compile_s": compile_s,
             "steady_steps_per_sec": steady_sps,
-            "final_loss": float(result.total_loss[-1]),
+            "final_loss": final_loss,
             "recovery_reruns": attempt,
+            "rerun_reasons": reasons,
         }
         log.info("refined %d hypotheses, %d steps in %.3fs (%.1f steps/s), "
                  "final loss %.5f", self.batchsize, steps, dt, steps / dt,

@@ -35,9 +35,11 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional
 
+from diffdope_tpu_torch import trace
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("pack.cu", "raster.cu", "fused_loss.cu", "rasterize.cu", "raster_v3.cu")
+SOURCES = ("pack.cu", "raster.cu", "fused_loss.cu", "rasterize.cu", "raster_v3.cu", "trace.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -105,6 +107,9 @@ _SIGNATURES = {
     # (src, order, start, n_hyp, nseg, width, hyp_stride, row_stride,
     #  lane_stride, out, stream)
     "dd_segment_sum": [_P] * 3 + [_I] * 3 + [_L] * 3 + [_P] * 2,
+    # (stamps, row, delta, point, points, rows, stream): trace.stamp, counted
+    # nowhere
+    "dd_stamp": [_P] * 2 + [_I] * 4 + [_P],
 }
 
 _fns: Optional[Dict[str, object]] = None
@@ -204,14 +209,15 @@ def library() -> Dict[str, object]:
     global _fns
     if _fns is None:
         fns = {}
-        for path in build():
-            lib = ctypes.CDLL(str(path))
-            for name, argtypes in _SIGNATURES.items():
-                if hasattr(lib, name):
-                    fn = getattr(lib, name)
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-                    fns[name] = fn
+        with trace.span("kernels.load"):
+            for path in build():
+                lib = ctypes.CDLL(str(path))
+                for name, argtypes in _SIGNATURES.items():
+                    if hasattr(lib, name):
+                        fn = getattr(lib, name)
+                        fn.argtypes = argtypes
+                        fn.restype = ctypes.c_int
+                        fns[name] = fn
         missing = set(_SIGNATURES) - set(fns)
         if missing:
             raise RuntimeError(f"kernel entry points not found: {sorted(missing)}")

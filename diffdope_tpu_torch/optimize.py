@@ -23,7 +23,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from diffdope_tpu_torch import kernels
+from diffdope_tpu_torch import kernels, trace
 from diffdope_tpu_torch.convert import tensor
 from diffdope_tpu_torch.geometry import matrix44_from_quat_trans, quat_multiply, quat_normalize
 from diffdope_tpu_torch.render.planar import union_over
@@ -335,7 +335,9 @@ class _Trace:
     the schedule tables over the horizon, the schedule and history row
     counters, the histories (allocated by the first step, a row for each
     step of the horizon), the ground truth and the loss scales; on the
-    card also the side stream, and the CUDA graph once captured with the
+    card also the side stream, the step's device stamps (``trace``: a row
+    for each step of the horizon, ``trace.POINTS`` columns, 0 where a
+    point was not reached), and the CUDA graph once captured with the
     launches its capture recorded and its memory pool's size."""
 
     def __init__(self, key, leaves, extra_keys, gt, lrs, opt, horizon: int):
@@ -358,13 +360,15 @@ class _Trace:
         cuda = self.dev.type == "cuda"
         self.home = torch.cuda.current_stream(self.dev) if cuda else None
         self.side = torch.cuda.Stream(device=self.dev) if cuda else None
+        self.stamps = (torch.zeros((horizon, trace.POINTS), dtype=torch.int64, device=self.dev)
+                       if cuda else None)
         self.warm, self.graph, self.recorded, self.pool_bytes = False, None, None, 0
 
     def load(self, leaves, gt, lrs, opt_state, count: int) -> None:
         """Copy one call's inputs in, on the current stream (outside any
         graph): the leaves, the ground truth, the loss scales and the
         optimizer state (``None`` zeroes the moments), the schedule
-        counter set to ``count``, the history row to 0."""
+        counter set to ``count``, the history row to 0, the stamps to 0."""
         with torch.no_grad():
             for k, p in self.params.items():
                 p.copy_(leaves[k])
@@ -381,6 +385,8 @@ class _Trace:
                         m.copy_(opt_state[name][k])
             self.sched_i.fill_(count)
             self.row_i.zero_()
+            if self.stamps is not None:
+                self.stamps.zero_()
 
     def record(self, values: Dict[Tuple[str, str], torch.Tensor]) -> None:
         """Write a step's values into the histories at the row counter;
@@ -396,9 +402,13 @@ class _Trace:
     def total(self, i: int) -> torch.Tensor:
         return self.hist[("step", "total")][i].clone()
 
-    def result(self, count: int, length: int) -> RefineResult:
+    def result(self, count: int, length: int, span=None) -> RefineResult:
         """Copies of the call's params, state and history rows: a later
-        call writes the buffers, never a result already returned."""
+        call writes the buffers, never a result already returned.  A live
+        ``span`` (the call's ``dd.refine``) gets a copy of the call's stamp
+        rows, on the device."""
+        if span and self.stamps is not None:
+            span.stamps = self.stamps[:length].clone()
         hist = {key: v[:length].clone() for key, v in self.hist.items()}
         logs = {k: v for (kind, k), v in hist.items() if kind == "log"}
         state = {"count": count + length}
@@ -459,8 +469,20 @@ class CapturedRefine:
     the CPU and ``process_group`` run the eager loop over the same buffers.
 
     The results' params, histories and state are copies: a later call
-    never changes a result already returned.  ``traces`` and
-    ``captures`` count the traces laid out and the graphs captured."""
+    never changes a result already returned.
+
+    Counters, always kept: ``calls``, ``traces`` (the layouts laid out),
+    ``captures`` (the graphs captured), ``replays`` (the graph replays,
+    a step each), ``step0_s`` and ``capture_s`` (the host seconds of the
+    eager steps 0 and of the captures), ``pool_bytes``.  While tracing is
+    on (``trace``) a call records the span ``dd.refine`` (attributes
+    ``steps``, ``new_trace``) with ``dd.refine.load`` (the copy-in),
+    ``dd.refine.step0``, ``dd.refine.capture``, ``dd.refine.replay``
+    (``replays``, and ``first_launch_end_ns``: the clock when the first
+    replay was launched) and ``dd.refine.result``, and the call's stamps
+    (``trace.stamp``: each step's entry, table, objective, gradients and
+    end on the device's clock; a captured step writes them on every
+    replay, whether tracing is on or not)."""
 
     def __init__(
         self,
@@ -491,7 +513,8 @@ class CapturedRefine:
         self._fused_takes_lrs = "learning_rates" in sig
         self._what = _describe(fused_loss_fn, render_fn)
         self._trace: Optional[_Trace] = None
-        self.traces = self.captures = 0
+        self.calls = self.traces = self.captures = self.replays = 0
+        self.step0_s = self.capture_s = 0.0
 
     @property
     def pool_bytes(self) -> int:
@@ -509,6 +532,13 @@ class CapturedRefine:
         extra_params: Optional[Dict[str, torch.Tensor]] = None,
         step_callback: Optional[Callable] = None,
     ) -> RefineResult:
+        with trace.span("refine") as span:
+            return self._call(span, params, gt, learning_rates, opt_state, num_steps,
+                              extra_params, step_callback)
+
+    def _call(self, span, params, gt, learning_rates, opt_state, num_steps, extra_params,
+              step_callback) -> RefineResult:
+        self.calls += 1
         if self.fused_loss_fn is not None and extra_params:
             raise ValueError("fused_loss_fn does not support extra_params")
         leaves = dict(params)
@@ -536,16 +566,20 @@ class CapturedRefine:
                tuple(extra_params or ()),
                None if gt is None else tuple((k, _layout(v)) for k, v in gt.items()),
                _layout(learning_rates))
-        if self._trace is None or self._trace.key != key:
+        new = self._trace is None or self._trace.key != key
+        span.set(steps=length, new_trace=new)
+        if new:
             self._trace = None  # the old graph and its pool go first
             self._trace = _Trace(key, leaves, tuple(extra_params or ()), gt,
                                  learning_rates, self.opt, self.horizon)
             self.traces += 1
         tr = self._trace
-        tr.load(leaves, gt, learning_rates, opt_state, count)
+        with trace.span("refine.load"):
+            tr.load(leaves, gt, learning_rates, opt_state, count)
         group = self.process_group
         # under a group every binning takes the union over the ranks' hypotheses
-        with contextlib.nullcontext() if group is None else union_over(group):
+        with (trace.stamping(tr.stamps, tr.row_i),
+              contextlib.nullcontext() if group is None else union_over(group)):
             if self.cuda_graph and tr.dev.type == "cuda" and group is None:
                 self._replayed(tr, length, step_callback)
             else:
@@ -553,7 +587,8 @@ class CapturedRefine:
                     self._step(tr)
                     if step_callback is not None:
                         step_callback(i, tr.total(i))
-        return tr.result(count, length)
+        with trace.span("refine.result"):
+            return tr.result(count, length, span)
 
     def _objective(self, tr: _Trace, mtx: torch.Tensor):
         if self.fused_loss_fn is not None:
@@ -572,16 +607,22 @@ class CapturedRefine:
     def _step(self, tr: _Trace) -> None:
         """One step, a function of the trace's device state only (the
         counterpart of the reference's ``lax.scan`` body): the pose, the
-        loss, its gradients, the histories' row and the update in place."""
+        loss, its gradients, the histories' row and the update in place;
+        stamped (``trace.stamp``, inside the call's ``trace.stamping``) at
+        its entry, the table (the render pipeline's ``trace.TABLE``), the
+        objective, the gradients and its end."""
+        trace.stamp(trace.STEP)
         row = {k: t.index_select(0, tr.sched_i).reshape(()) for k, t in tr.tables.items()}
         params = tr.params
         mtx, _, _ = pose_matrix(params)
         total, logs = self._objective(tr, mtx)
+        trace.stamp(trace.OBJECTIVE)
         if self.loss_scale != 1.0:
             total = total * self.loss_scale
         # a leaf the render does not read (vertex colours under corner
         # colours) gets a zero gradient, as JAX's grad gives it
         grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
+        trace.stamp(trace.GRAD)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(params.items(), grads)}
         if self.process_group is not None:
@@ -593,6 +634,7 @@ class CapturedRefine:
             self.opt.update(grads, tr.state, params, row)
             tr.sched_i.add_(1)
             tr.row_i.add_(1)
+        trace.stamp(trace.END)
 
     def _replayed(self, tr: _Trace, length: int, callback: Optional[Callable]) -> None:
         """Run ``length`` steps on the card: on a new trace step 0 eagerly
@@ -603,9 +645,10 @@ class CapturedRefine:
         main = torch.cuda.current_stream(tr.dev)
         first = 0
         if not tr.warm:
+            t0 = time.perf_counter()
             tr.side.wait_stream(main)
             mode = torch.cuda.get_sync_debug_mode()
-            with torch.cuda.stream(tr.side):
+            with trace.span("refine.step0"), torch.cuda.stream(tr.side):
                 torch.cuda.set_sync_debug_mode("error")
                 try:
                     self._step(tr)
@@ -619,25 +662,32 @@ class CapturedRefine:
                     torch.cuda.set_sync_debug_mode(mode)
             main.wait_stream(tr.side)
             tr.warm, first = True, 1
+            self.step0_s += time.perf_counter() - t0
             if callback is not None:
                 callback(0, tr.total(0))
         if first == length:
             return
         if tr.graph is None:
             self._capture(tr)
-        for i in range(first, length):
-            tr.graph.replay()
-            kernels.add_launches(tr.recorded)
-            if callback is not None:
-                callback(i, tr.total(i))
+        with trace.span("refine.replay", replays=length - first) as span:
+            for i in range(first, length):
+                tr.graph.replay()
+                if span and i == first:
+                    span.set(first_launch_end_ns=trace.clock_ns())
+                kernels.add_launches(tr.recorded)
+                if callback is not None:
+                    callback(i, tr.total(i))
+        self.replays += length - first
 
     def _capture(self, tr: _Trace) -> None:
         """Capture the step on the side stream, recording its launches and
-        the bytes its memory pool reserved."""
+        the bytes its memory pool reserved and its host seconds."""
+        t0 = time.perf_counter()
         reserved = torch.cuda.memory_reserved(tr.dev)
         graph = torch.cuda.CUDAGraph()
         try:
-            with kernels.recording() as recorded, torch.cuda.stream(tr.side):
+            with trace.span("refine.capture"), kernels.recording() as recorded, \
+                    torch.cuda.stream(tr.side):
                 graph.capture_begin()
                 try:
                     self._step(tr)
@@ -652,6 +702,7 @@ class CapturedRefine:
         tr.graph, tr.recorded = graph, recorded
         tr.pool_bytes = torch.cuda.memory_reserved(tr.dev) - reserved
         self.captures += 1
+        self.capture_s += time.perf_counter() - t0
 
 
 def _all_reduce_step(grads, extra_keys, total, logs, group):

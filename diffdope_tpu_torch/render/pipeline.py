@@ -57,6 +57,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from diffdope_tpu_torch import trace
 from diffdope_tpu_torch.convert import tensor
 from diffdope_tpu_torch.geometry import matmul44, xfm_points
 from diffdope_tpu_torch.render.fused_loss import (
@@ -421,8 +422,10 @@ def _table(mesh: _Mesh, mtx: torch.Tensor, resolution,
            cull: bool = False, max_tris: int = MAX_TRIS_PER_TILE,
            bins: Optional[Bins] = None) -> _Table:
     """The packed table at poses ``mtx`` (B, 4, 4), differentiable in mtx,
-    in the layout ``capacity`` selects (see :func:`_binned`)."""
+    in the layout ``capacity`` selects (see :func:`_binned`); a refinement
+    step stamps ``trace.TABLE`` between the binning and the pack."""
     bn = _binned(mesh, mtx, resolution, capacity, crop, cull, max_tris, bins)
+    trace.stamp(trace.TABLE)
     packed = _pack_dispatch(mesh, bn.mvp, mtx, bn.flat, bn.sil,
                             slot_order_of(bn, mesh))
     return _Table(packed, bn.counts, bn.off_c, bn.used, bn.telemetry)
@@ -476,17 +479,21 @@ def _planar(mesh: _Mesh, mtx: torch.Tensor, resolution, route: str, cull: bool =
     triangle occurs in at these bins, ``gather_rows.bin_occupancy``).
     Precomputed ``bins`` take the 'v2' raster on either route, no
     telemetry (the reference's ``bins=``, ``pipeline.py:278-286,
-    740-750``)."""
+    740-750``).  A refinement step stamps ``trace.TABLE`` once the table
+    and its bins are laid out, before the raster."""
     packed, cp, det = _planar_pack(mesh, mtx)
     if bins is not None:
-        return _Planar(packed, bins.idx, bins.counts, {})
-    if route == "v3":
-        return _Planar(packed, None, None, {})
-    idx, counts, overflow = bin_triangles_planar(cp, det.detach(), resolution, TILE_HW,
-                                                 max_tris, cull_backfaces=cull)
-    telemetry = {"_bin_overflow": overflow, "_bin_max": counts.max(),
-                 "_bin_occupancy": bin_occupancy(idx, mesh.t_count)}
-    return _Planar(packed, idx, counts.contiguous(), telemetry)
+        pl = _Planar(packed, bins.idx, bins.counts, {})
+    elif route == "v3":
+        pl = _Planar(packed, None, None, {})
+    else:
+        idx, counts, overflow = bin_triangles_planar(cp, det.detach(), resolution, TILE_HW,
+                                                     max_tris, cull_backfaces=cull)
+        telemetry = {"_bin_overflow": overflow, "_bin_max": counts.max(),
+                     "_bin_occupancy": bin_occupancy(idx, mesh.t_count)}
+        pl = _Planar(packed, idx, counts.contiguous(), telemetry)
+    trace.stamp(trace.TABLE)
+    return pl
 
 
 def _raster_planar(pl: _Planar, resolution):
@@ -766,23 +773,28 @@ def compact_capacity(proj_cam, pos, pos_idx, mtx, resolution,
     """Compact-table capacity sized from a probe pose (the root bench's
     rule, ``bench.py:207-235``, and ``DiffDope._resolve_compact_total``):
     the probe's chunk-rounded slot count times ``slack`` (and the overflow
-    recovery's ``boost``) plus one chunk, rounded to the chunk."""
-    mesh = _Mesh(proj_cam, pos, pos_idx, None, None, None, torch.device(device))
-    bn = _binned(mesh, tensor(mtx, device).reshape(-1, 4, 4), resolution, EXACT,
-                 max_tris=max_tris_per_tile)
-    tot0 = int(bn.used.sum()) * K_CHUNK
+    recovery's ``boost``) plus one chunk, rounded to the chunk.  Traced as
+    ``dd.probe``."""
+    with trace.span("probe", what="compact_capacity"):
+        mesh = _Mesh(proj_cam, pos, pos_idx, None, None, None, torch.device(device))
+        bn = _binned(mesh, tensor(mtx, device).reshape(-1, 4, 4), resolution, EXACT,
+                     max_tris=max_tris_per_tile)
+        tot0 = int(bn.used.sum()) * K_CHUNK
     return -(-int(tot0 * slack * boost + K_CHUNK) // K_CHUNK) * K_CHUNK
 
 
 @torch.no_grad()
 def max_tile_count(proj_cam, pos, pos_idx, mtx, resolution, device="cuda") -> int:
     """The most triangles any tile's bin holds at poses ``mtx``, uncapped
-    (``DiffDope._resolve_max_tris`` sizes ``max_tris_per_tile`` from it)."""
-    mesh = _Mesh(proj_cam, pos, pos_idx, None, None, None, torch.device(device))
-    cp = corner_planes(mesh.pos_c, matmul44(mesh.proj, tensor(mtx, device).reshape(-1, 4, 4)))
-    det = det_planar(cp, mesh.degenerate)
-    _, counts, _ = bin_triangles_planar(cp, det, resolution, TILE_HW, mesh.t_count)
-    return int(counts.max())
+    (``DiffDope._resolve_max_tris`` sizes ``max_tris_per_tile`` from it).
+    Traced as ``dd.probe``."""
+    with trace.span("probe", what="max_tile_count"):
+        mesh = _Mesh(proj_cam, pos, pos_idx, None, None, None, torch.device(device))
+        cp = corner_planes(mesh.pos_c,
+                           matmul44(mesh.proj, tensor(mtx, device).reshape(-1, 4, 4)))
+        det = det_planar(cp, mesh.degenerate)
+        _, counts, _ = bin_triangles_planar(cp, det, resolution, TILE_HW, mesh.t_count)
+        return int(counts.max())
 
 
 @torch.no_grad()

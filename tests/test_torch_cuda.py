@@ -1359,6 +1359,51 @@ def test_kept_refine_equals_fresh_eager_on_card(cuda, monkeypatch):
     assert jit_refine.traces == 2 and jit_refine.captures == 2
 
 
+def test_stamps_split_every_step_on_card(cuda, monkeypatch):
+    """The bench problem (400x400, B=64, 100 Adam steps) through one kept
+    ``CapturedRefine`` with tracing on (``trace.FORCED``, as ``DD_TRACE=1``
+    sets it): the first call's spans hold step 0, the capture and the
+    replays; in the second every step has its five stamps, non-decreasing
+    and each step after the last, and the steps' spans from entry to end
+    sum to within 5% of the call's time by CUDA events; the result equals
+    the eager loop's bit for bit."""
+    from diffdope_tpu_torch import trace
+    from diffdope_tpu_torch.bench import STEPS, bench_refine, run_refinement
+
+    monkeypatch.setattr(trace, "FORCED", True)
+    problem = bench_problem(device=cuda)
+    jit_refine = bench_refine(problem)
+    run_refinement(problem, jit_refine=jit_refine)
+    spans = trace.take()
+    (call,) = [s for s in spans if s.name == "dd.refine"]
+    kids = sorted((s for s in spans if s.parent == call.id), key=lambda s: s.start_ns)
+    assert [s.name for s in kids] == ["dd.refine.load", "dd.refine.step0",
+                                      "dd.refine.capture", "dd.refine.replay",
+                                      "dd.refine.result"]
+    assert kids[3].attrs["replays"] == STEPS - 1
+    assert kids[3].start_ns < kids[3].attrs["first_launch_end_ns"] <= kids[3].end_ns
+    assert (jit_refine.captures, jit_refine.replays) == (1, STEPS - 1)
+    assert jit_refine.step0_s > 0 and jit_refine.capture_s > 0
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    got = jit_refine(problem["params0"])
+    end.record()
+    torch.cuda.synchronize()
+    (call,) = [s for s in trace.take() if s.name == "dd.refine"]
+    stamps = call.stamps
+    assert stamps.shape == (STEPS, trace.POINTS) and (stamps > 0).all()
+    assert (np.diff(stamps, axis=1) >= 0).all()
+    assert (stamps[1:, trace.STEP] >= stamps[:-1, trace.END]).all()
+    stamped_ms = float((stamps[:, trace.END] - stamps[:, trace.STEP]).sum()) * 1e-6
+    event_ms = start.elapsed_time(end)
+    assert 0.95 * event_ms <= stamped_ms <= event_ms, (stamped_ms, event_ms)
+
+    eager, _ = run_refinement(problem, jit_refine=bench_refine(problem, cuda_graph=False))
+    _assert_same_result(got, eager)
+
+
 @pytest.mark.parametrize("case", repeatable.CASES)
 def test_eager_refine_repeats_on_card(cuda, case, monkeypatch):
     """Every route of ``test_graph_refine_equals_eager_on_card`` and the
